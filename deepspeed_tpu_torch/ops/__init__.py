@@ -1,0 +1,1 @@
+"""Subpackage of the PyTorch/CUDA port (see the package docstring)."""

@@ -1,0 +1,185 @@
+"""Weight-only blockwise-int8 matmul: packing, the CUDA kernel's wrapper
+and its plain version.
+
+Replaces the Pallas kernel of ``deepspeed_tpu/ops/pallas/quant_matmul.py``
+(``_kernel``, launched by ``quant_matmul``). Weights are stored int8 with
+one f32 scale per ``QUANT_BLOCK`` = 256 contraction elements and column
+(the ``quant_format`` blockwise format), and
+
+    y[m, n] = sum_kb (x[m, kb-block] . q[kb-block, n]) * s[kb, n]
+
+accumulated in f32: each K-block's partial product is scaled once.
+
+* :func:`pack_kernel` / :func:`pack_decode_weights` — pack once at engine
+  construction (``serving.weight_dtype: "int8"``).
+* :func:`quant_matmul` — CUDA tensors launch ``csrc/quant_matmul.cu`` (or
+  raise), for any N; CPU tensors run :func:`quant_matmul_reference`.
+
+Bound on the card at decode: bytes (the int8 weights and their scales,
+read once). See the note in the CUDA source for the kernel's layout.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Any, Dict
+
+import torch
+
+from ..quant_format import QUANT_BLOCK, block_quant
+from . import build
+
+__all__ = ["quant_matmul", "quant_matmul_reference", "pack_kernel",
+           "pack_decode_weights"]
+
+_BN, _BM = 128, 8                 # csrc/quant_matmul.cu column / row tile
+_X_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def pack_kernel(w: torch.Tensor, block: int = QUANT_BLOCK):
+    """[..., K, N] weight -> (q int8 [..., Kp, N], scales f32
+    [..., Kp/block, N]): blockwise symmetric int8 along the contraction
+    dim, Kp = K padded to a block multiple (padded rows quantize to 0).
+    Leading dims (the stacked layer axis) pack independently."""
+    q, s, _pad = block_quant(w.transpose(-1, -2), 8, block)
+    return (q.transpose(-1, -2).contiguous(),
+            s.transpose(-1, -2).contiguous())
+
+
+def pack_decode_weights(params: Dict[str, Any], block: int = QUANT_BLOCK
+                        ) -> Dict[str, Any]:
+    """Pack a scan-layout parameter tree's dense kernels to blockwise int8:
+    the direct matmul leaves of ``blocks`` (attn_qkv, attn_proj,
+    mlp_fc/gate/proj) and ``lm_head``. Leaves that already carry an int8
+    form are left alone."""
+    def _pack(sub):
+        if "kernel_scale" in sub or "kernel_qscale" in sub:
+            return sub
+        q, s = pack_kernel(sub["kernel"], block)
+        out = {k: v for k, v in sub.items() if k != "kernel"}
+        out["kernel"], out["kernel_qscale"] = q, s
+        return out
+
+    out = dict(params)
+    blocks = dict(params["blocks"])
+    for name, sub in blocks.items():
+        if isinstance(sub, dict) and "kernel" in sub:
+            blocks[name] = _pack(sub)
+    out["blocks"] = blocks
+    if isinstance(params.get("lm_head"), dict) and "kernel" in params["lm_head"]:
+        out["lm_head"] = _pack(params["lm_head"])
+    return out
+
+
+def _lib() -> ctypes.CDLL:
+    lib = build.load("quant_matmul")
+    fn = lib.quant_matmul_launch
+    if fn.argtypes is None:
+        P, I = ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = [P] * 5 + [I] * 7 + [P]
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def quant_matmul(x: torch.Tensor, q: torch.Tensor, scales: torch.Tensor,
+                 *, impl: str = "auto") -> torch.Tensor:
+    """x [..., K] @ blockwise-int8 weight -> [..., N] in x's dtype.
+
+    q: [Kp, N] int8, scales: [Kp/block, N] f32 (:func:`pack_kernel`;
+    Kp >= K). CUDA tensors launch the kernel, and raise on what it does
+    not take; CPU tensors, or ``impl="reference"``, run the plain
+    version."""
+    if impl == "reference" or (impl == "auto" and x.device.type == "cpu"):
+        return quant_matmul_reference(x, q, scales)
+    if impl != "auto":
+        raise ValueError(f"quant_matmul impl {impl!r}: expected 'auto' or "
+                         "'reference'")
+    return _launch(x, q, scales)
+
+
+quant_matmul.launches = 0
+
+
+def _kb_per_cta(nkb: int, tiles: int, sms: int) -> int:
+    """K-blocks per CTA: all of them where the column x row tiles give two
+    CTAs per SM, else split K (f32 partials) until they do."""
+    if tiles >= 2 * sms:
+        return nkb
+    return -(-nkb // min(nkb, -(-2 * sms // tiles)))
+
+
+def _launch(x, q, scales):
+    if x.dtype not in _X_DTYPES:
+        raise TypeError(f"quant_matmul kernel: x dtype {x.dtype} (expected "
+                        "float32 or bfloat16)")
+    if q.dtype != torch.int8 or scales.dtype != torch.float32:
+        raise TypeError("quant_matmul kernel: q must be int8 and scales "
+                        "float32")
+    if q.dim() != 2 or scales.dim() != 2 or scales.shape[1] != q.shape[1]:
+        raise ValueError(f"quant_matmul: q {tuple(q.shape)} / scales "
+                         f"{tuple(scales.shape)} are not [Kp, N] / [nkb, N]")
+    dev = x.device
+    if dev.type != "cuda":
+        raise ValueError(f"quant_matmul kernel needs CUDA tensors, x is on "
+                         f"{dev}")
+    for t in (q, scales):
+        if t.device != dev:
+            raise ValueError(f"quant_matmul: a weight is on {t.device}, x on "
+                             f"{dev}")
+        if not t.is_contiguous():
+            raise ValueError("quant_matmul: q and scales must be contiguous")
+    Kp, N = q.shape
+    nkb = scales.shape[0]
+    if Kp % nkb:
+        raise ValueError(f"quant_matmul: Kp {Kp} is not a multiple of the "
+                         f"{nkb} scale rows")
+    block = Kp // nkb
+    if block != QUANT_BLOCK:
+        raise ValueError(f"quant_matmul kernel: scale block {block} (the "
+                         f"kernel takes {QUANT_BLOCK}-row blocks)")
+    lead, K = x.shape[:-1], x.shape[-1]
+    if K > Kp:
+        raise ValueError(f"quant_matmul: x has K={K} > packed Kp={Kp}")
+    if q.data_ptr() % 4:
+        raise ValueError("quant_matmul: q must be 4-byte aligned")
+    xf = x.reshape(-1, K).contiguous()
+    M = xf.shape[0]
+    out = torch.empty((M, N), dtype=x.dtype, device=dev)
+    if M == 0:
+        return out.reshape(lead + (N,))
+    tiles = -(-N // _BN) * -(-M // _BM)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    kb_per_cta = _kb_per_cta(nkb, tiles, sms)
+    splits = -(-nkb // kb_per_cta)
+    partial = (torch.empty((splits, M, N), dtype=torch.float32, device=dev)
+               if splits > 1 else None)
+    lib = _lib()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    quant_matmul.launches += 1
+    err = lib.quant_matmul_launch(
+        xf.data_ptr(), q.data_ptr(), scales.data_ptr(), out.data_ptr(),
+        None if partial is None else partial.data_ptr(),
+        M, K, N, nkb, block, kb_per_cta, _X_DTYPES[x.dtype], stream)
+    build.check(lib, "quant_matmul", err)
+    return out.reshape(lead + (N,))
+
+
+def quant_matmul_reference(x: torch.Tensor, q: torch.Tensor,
+                           scales: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version: each K-block's partial product scaled once,
+    summed in f32, cast to x's dtype."""
+    Kp, N = q.shape
+    nkb = scales.shape[0]
+    block = Kp // nkb
+    if block != QUANT_BLOCK:
+        raise ValueError(f"quant_matmul kernel: scale block {block} (the "
+                         f"kernel takes {QUANT_BLOCK}-row blocks)")
+    lead, K = x.shape[:-1], x.shape[-1]
+    xf = x.to(torch.float32).reshape(-1, K)
+    if Kp > K:
+        xf = torch.nn.functional.pad(xf, (0, Kp - K))
+    xb = xf.reshape(-1, nkb, block)
+    qb = q.to(torch.float32).reshape(nkb, block, N)
+    part = torch.einsum("mkb,kbn->mkn", xb, qb) * scales[None].to(
+        torch.float32)
+    return part.sum(dim=1).reshape(lead + (N,)).to(x.dtype)

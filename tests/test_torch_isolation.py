@@ -1,0 +1,169 @@
+"""The port stands alone and never hides the device or the kernel.
+
+* ``deepspeed_tpu_torch`` (every module) and ``chip_smoke.py`` import
+  neither JAX nor ``deepspeed_tpu``, in a fresh interpreter and by source;
+* the kernel modules import without ``nvcc`` or a GPU (nothing builds at
+  import time);
+* entry points run on CUDA by default and raise, naming ``device="cpu"``,
+  when there is none;
+* a kernel call given a CPU tensor or an unsupported dtype raises instead
+  of falling back to the plain version.
+"""
+
+import ast
+import json
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+import deepspeed_tpu_torch
+from deepspeed_tpu_torch.models.transformer import get_config, init_params
+from deepspeed_tpu_torch.ops import build
+from deepspeed_tpu_torch.ops import paged_attention as tpa
+from deepspeed_tpu_torch.ops import quant_matmul as tqm
+from deepspeed_tpu_torch.serving.engine import ServingEngine
+
+REPO = Path(__file__).resolve().parents[1]
+PKG = REPO / "deepspeed_tpu_torch"
+
+
+def _sources():
+    return sorted(PKG.rglob("*.py")) + [REPO / "chip_smoke.py"]
+
+
+def test_fresh_interpreter_imports_no_jax():
+    code = (
+        "import importlib, json, pkgutil, sys\n"
+        "import deepspeed_tpu_torch as p\n"
+        "mods = [m.name for m in pkgutil.walk_packages(p.__path__, "
+        "'deepspeed_tpu_torch.')]\n"
+        "for m in mods: importlib.import_module(m)\n"
+        "bad = sorted(k for k in sys.modules if k == 'jax' or "
+        "k.startswith(('jax.', 'jaxlib', 'flax')) or k == 'deepspeed_tpu' "
+        "or k.startswith('deepspeed_tpu.'))\n"
+        "print(json.dumps({'mods': len(mods), 'bad': bad}))\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = str(REPO)
+    out = subprocess.run([sys.executable, "-c", code], cwd=str(REPO),
+                         env=env, capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    res = json.loads(out.stdout.strip().splitlines()[-1])
+    assert res["bad"] == [] and res["mods"] >= 15
+
+
+@pytest.mark.parametrize("path", _sources(), ids=lambda p: p.name)
+def test_sources_import_no_jax(path):
+    tree = ast.parse(path.read_text())
+    for node in ast.walk(tree):
+        names = []
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names = [node.module or ""]
+        for n in names:
+            top = n.split(".")[0]
+            assert top not in ("jax", "jaxlib", "flax", "deepspeed_tpu"), \
+                f"{path.name} imports {n}"
+
+
+def test_import_builds_nothing_and_library_names_track_sources():
+    # importing the kernel modules (done above) starts no compiler: the
+    # build directory holds no library for the current sources here
+    for name in build.KERNELS:
+        assert (build.CSRC / f"{name}.cu").exists()
+        lib = build.library_path(name)
+        assert lib.parent == build.BUILD_DIR and name in lib.name
+    assert build.build([]) == 0.0
+
+
+def test_default_device_raises_without_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = get_config("gpt2-tiny", hidden_size=32, num_layers=1, num_heads=2,
+                     vocab_size=64, dtype=torch.float32)
+    params = init_params(cfg, torch.Generator().manual_seed(0))
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        deepspeed_tpu_torch.init_inference(cfg, {}, model_parameters=params)
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        ServingEngine(cfg, params)
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        ServingEngine(cfg, params, device="cuda")
+    srv = deepspeed_tpu_torch.init_inference(
+        cfg, {"dtype": "float32"}, model_parameters=params,
+        device="cpu").serve({"block_size": 16, "pool_blocks": 8,
+                             "max_batch": 2, "max_blocks_per_seq": 4})
+    assert srv.generate_batch([[1, 2, 3]], 2)[0].__len__() == 2
+
+
+def _pa_args(dtype=torch.float32):
+    rng = np.random.default_rng(0)
+    q = torch.from_numpy(rng.standard_normal((2, 4, 1, 32)).astype(np.float32))
+    kp = torch.from_numpy(rng.standard_normal((4, 6, 16, 32)).astype(np.float32))
+    bt = torch.tensor([[1, 2], [3, 4]], dtype=torch.int32)
+    lens = torch.tensor([20, 7], dtype=torch.int32)
+    return q.to(dtype), kp.to(dtype), kp.clone().to(dtype), bt, lens
+
+
+def test_kernel_calls_raise_instead_of_falling_back():
+    kw = dict(sm_scale=None, alibi_slopes=None, softcap=0.0, window=None,
+              layer_idx=None, k_scale=None, v_scale=None)
+    before = (tpa.paged_attention.launches, tqm.quant_matmul.launches)
+    with pytest.raises(ValueError, match="CUDA"):
+        tpa._launch(*_pa_args(), **kw)                 # CPU tensors
+    with pytest.raises(TypeError, match="dtype"):
+        tpa._launch(*_pa_args(torch.float16), **kw)    # no fp16 kernel
+    q, kp, vp, bt, lens = _pa_args()
+    with pytest.raises(TypeError, match="int8"):
+        tpa._launch(q, kp.to(torch.int8), vp.to(torch.int8), bt, lens, **kw)
+    with pytest.raises(ValueError, match="impl"):
+        tpa.paged_attention(q, kp, vp, bt, lens, impl="flash")
+    w = torch.randn(256, 128)
+    qw, s = tqm.pack_kernel(w)
+    with pytest.raises(ValueError, match="CUDA"):
+        tqm._launch(torch.randn(8, 256), qw, s)
+    with pytest.raises(TypeError, match="dtype"):
+        tqm._launch(torch.randn(8, 256, dtype=torch.float16), qw, s)
+    with pytest.raises(TypeError, match="int8"):
+        tqm._launch(torch.randn(8, 256), qw.float(), s)
+    assert (tpa.paged_attention.launches,
+            tqm.quant_matmul.launches) == before
+
+
+def test_unported_options_raise():
+    cfg = get_config("gpt2-tiny", hidden_size=32, num_layers=1, num_heads=2,
+                     vocab_size=64, dtype=torch.float32)
+    params = init_params(cfg, torch.Generator().manual_seed(0))
+    serve = {"block_size": 16, "pool_blocks": 8, "max_batch": 2,
+             "max_blocks_per_seq": 4}
+    with pytest.raises(NotImplementedError):
+        ServingEngine(cfg, params, serving=serve, heartbeat=object(),
+                      device="cpu")
+    with pytest.raises(ValueError):
+        ServingEngine(cfg, params, serving=dict(serve, weight_dtype="int4"),
+                      device="cpu")
+    with pytest.raises(ValueError):
+        ServingEngine(cfg, params, serving=dict(serve, kv_cache_dtype="fp8"),
+                      device="cpu")
+    eng = deepspeed_tpu_torch.init_inference(
+        cfg, {"dtype": "float32", "watchdog": {"serve_timeout": 5.0}},
+        model_parameters=params, device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        eng.serve()
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        eng.serve(dict(serve, fleet={"replicas": 2}))
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        eng.generate([[1, 2]])
+    for bad in ({"dtype": "int8"}, {"tp": {"tp_size": 2}}):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            deepspeed_tpu_torch.init_inference(cfg, bad,
+                                               model_parameters=params,
+                                               device="cpu")
+    moe = get_config("gpt2-tiny", hidden_size=32, num_layers=1, num_heads=2,
+                     vocab_size=64, dtype=torch.float32, moe_experts=2)
+    srv = ServingEngine(moe, params, serving=serve, device="cpu")
+    with pytest.raises(NotImplementedError, match="MoE"):
+        srv.generate_batch([[1, 2, 3]], 2)

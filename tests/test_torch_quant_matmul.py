@@ -1,0 +1,85 @@
+"""Port parity: deepspeed_tpu_torch blockwise-int8 matmul vs the JAX package.
+
+``pack_kernel`` must produce the JAX package's bytes exactly (and its
+scales to rtol 1e-6); the port's plain matmul (which its wrapper runs for
+CPU tensors) must match JAX ``quant_matmul_reference`` and the JAX Pallas
+kernel in interpret mode to rtol 1e-5 in f32 (the same per-block sums,
+reduced in another order). The CUDA kernel is held against the plain
+version on the card by ``chip_smoke.py`` and
+``tests/test_torch_kernels_cuda.py``.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from deepspeed_tpu.ops.pallas import quant_matmul as jqm
+from deepspeed_tpu_torch.ops import quant_matmul as tqm
+
+
+@pytest.mark.parametrize("K,N,lead", [(300, 128, (5,)), (512, 256, (2, 3)),
+                                      (256, 96, (4,))])
+def test_pack_and_matmul_match_jax(K, N, lead):
+    rng = np.random.default_rng(K + N)
+    w = rng.standard_normal((K, N)).astype(np.float32)
+    w[:, 3] = 0.0                                  # an all-zero column: scale 1
+    x = rng.standard_normal(lead + (K,)).astype(np.float32)
+    qj, sj = jqm.pack_kernel(jnp.asarray(w))
+    qt, st = tqm.pack_kernel(torch.from_numpy(w))
+    np.testing.assert_array_equal(qt.numpy(), np.asarray(qj))
+    np.testing.assert_allclose(st.numpy(), np.asarray(sj), rtol=1e-6, atol=0)
+    assert qt.dtype == torch.int8 and st.dtype == torch.float32
+    assert qt.shape == (-(-K // 256) * 256, N)
+
+    port = tqm.quant_matmul(torch.from_numpy(x), qt, st).numpy()
+    ref = np.asarray(jqm.quant_matmul_reference(jnp.asarray(x), qj, sj))
+    np.testing.assert_allclose(port, ref, rtol=1e-5, atol=1e-5)
+    if N % 128 == 0:                 # the JAX kernel's own tiling condition
+        ker = np.asarray(jqm.quant_matmul(jnp.asarray(x), qj, sj,
+                                          interpret=True))
+        np.testing.assert_allclose(port, ker, rtol=1e-5, atol=1e-5)
+
+
+def test_pack_decode_weights_packs_matmul_leaves_only():
+    rng = np.random.default_rng(1)
+    L, H = 2, 64
+    mk = lambda *s: torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+    params = {"wte": {"embedding": mk(32, H)},
+              "blocks": {"ln1": {"scale": mk(L, H)},
+                         "attn_qkv": {"kernel": mk(L, H, 3 * H),
+                                      "bias": mk(L, 3 * H)},
+                         "attn_proj": {"kernel": mk(L, H, H)}},
+              "lm_head": {"kernel": mk(H, 32)}}
+    jparams = {k: {kk: ({kkk: jnp.asarray(v.numpy()) for kkk, v in vv.items()}
+                        if isinstance(vv, dict) else jnp.asarray(vv.numpy()))
+                   for kk, vv in sub.items()} for k, sub in params.items()}
+    tp = tqm.pack_decode_weights(params)
+    jp = jqm.pack_decode_weights(jparams)
+    for name in ("attn_qkv", "attn_proj"):
+        np.testing.assert_array_equal(tp["blocks"][name]["kernel"].numpy(),
+                                      np.asarray(jp["blocks"][name]["kernel"]))
+        np.testing.assert_allclose(
+            tp["blocks"][name]["kernel_qscale"].numpy(),
+            np.asarray(jp["blocks"][name]["kernel_qscale"]), rtol=1e-6)
+    assert "kernel_qscale" not in tp["blocks"]["ln1"]
+    assert tp["blocks"]["attn_qkv"]["bias"] is params["blocks"]["attn_qkv"]["bias"]
+    assert tp["lm_head"]["kernel"].dtype == torch.int8
+    assert tp["wte"] is params["wte"]
+
+
+def test_wrapper_on_cpu_runs_plain_version_without_launching():
+    rng = np.random.default_rng(2)
+    w = torch.from_numpy(rng.standard_normal((512, 200)).astype(np.float32))
+    x = torch.from_numpy(rng.standard_normal((8, 512)).astype(np.float32))
+    q, s = tqm.pack_kernel(w)
+    before = tqm.quant_matmul.launches
+    out = tqm.quant_matmul(x, q, s)
+    assert tqm.quant_matmul.launches == before
+    torch.testing.assert_close(out, tqm.quant_matmul_reference(x, q, s),
+                               atol=0, rtol=0)
+    # blockwise int8 stays within the analytic bound of the dense product:
+    # per element |w - deq(w)| <= absmax_block / 254
+    err = (out - x @ w).abs().max().item()
+    bound = (x.abs() @ (s.repeat_interleave(256, 0) / 2.0)).max().item()
+    assert err <= bound
