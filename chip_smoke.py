@@ -5,10 +5,11 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It needs one
 GPU, ``nvcc`` and nothing from the network, and it imports neither JAX
 nor ``deepspeed_tpu``. Phases, each reported on its own line:
 
-1. **build** — compile the hand-written kernels of
+1. **build** — compile the four hand-written kernels of
    ``deepspeed_tpu_torch/ops/csrc`` (one ``nvcc`` per source, in parallel).
 2. **check** — each kernel against its plain PyTorch version at the
-   serving path's shapes, with the tolerance printed on the line.
+   serving and generation paths' shapes, with the tolerance printed on
+   the line.
 3. **serve** — ``init_inference`` from a JSON config file, llama-1.1b at
    full width (22 layers, seeded random bf16 weights), ``.serve()``, 16
    greedy requests of 64..1024 prompt tokens (6 start with one 2-block
@@ -16,17 +17,27 @@ nor ``deepspeed_tpu``. Phases, each reported on its own line:
    the kernels vs ``impl="reference"``.
 4. **int8** — a short leg with ``kv_cache_dtype`` and ``weight_dtype``
    int8.
-5. **time** — prefill and decode tokens/s from the serve leg, the device
-   busy share of a decode step (torch.profiler), and each kernel's device
-   time per decode step beside its bound, its plain version's and a
-   library call's (timed here only; the port never calls it).
+5. **generate** — ``init_inference(...).generate()`` on the same model
+   and weights: 8 prompts of 1024 tokens, 64 greedy new tokens (the
+   prefill through ``flash_attention_fwd``, every decode step through
+   ``decode_attention``), prefill and decode logits through the kernels
+   vs ``impl="reference"``; then a 4-layer leg with a left-padded ragged
+   batch, the int8 KV cache, a ``dtype: "int8"`` engine and seeded
+   top-k / top-p / repetition-penalty sampling.
+6. **time** — prefill and decode tokens/s from the serve and generate
+   legs, the device busy share of a serve decode step and of a generate
+   prefill and decode step (torch.profiler), and
+   each kernel's device time on its path's work beside its bound, its
+   plain version's and a library call's (timed here only; the port never
+   calls it).
 
-Launch counters are zeroed just before each serving leg and read just
-after it. Any failed check raises, so the script exits non-zero and
-prints no result. The last lines are the ``kernels`` JSON, the card's
+Launch counters are zeroed just before each leg and read just after it.
+Any failed check raises, so the script exits non-zero and prints no
+result. The last lines are the ``kernels`` JSON, the card's
 ``nvidia-smi`` name and power limit, and the result JSON.
 """
 
+import dataclasses
 import json
 import os
 import subprocess
@@ -41,6 +52,11 @@ HBM_BYTES_S = 3.35e12
 BF16_FLOPS = 989e12
 
 LLAMA_LAYERS = 22
+GEN_BATCH, GEN_PROMPT, GEN_NEW = 8, 1024, 64
+KERNEL_MODULES = {"paged_attention": "paged_attention",
+                  "quant_matmul": "quant_matmul",
+                  "decode_attention": "decode_attention",
+                  "flash_attention_fwd": "flash_attention"}
 SERVING = {"block_size": 32, "pool_blocks": 256, "max_batch": 8,
            "max_blocks_per_seq": 64}
 
@@ -122,6 +138,42 @@ def _max_err(out, ref):
     return (out.float() - ref.float()).abs().max().item()
 
 
+# f32 attention kernels agree with their plain versions to rounding.
+F32_TOL = 1e-4
+# A bf16 attention kernel is held against its plain version run on the
+# same values cast to f32: both then take f32 scores of the same numbers,
+# and what is left is the kernel's rounding of p to bf16 before P V (at
+# most 2^-8 of each p, averaging out over the keys) and of its output to
+# bf16 (at most 2^-8 of |o|). Simulated at these shapes (N(0, 1) inputs,
+# up to 2M outputs), the worst element lies at 0.8 x 2^-7 of its row's
+# largest |o|; the limit is 2^-6 of it, about 2e-3 where the median |o| is
+# 0.035-0.05.
+BF16_ROW_TOL = 2.0 ** -6
+
+
+def _hold(label, out, ref, f32):
+    """Hold a kernel's output against its plain version's, log the line
+    and fail beyond the limit: f32 to F32_TOL absolute; bf16 (ref on the
+    inputs cast to f32) to BF16_ROW_TOL of each row's largest |ref|, rows
+    along the last dim. Returns the largest absolute error."""
+    ref = ref.float()
+    err = (out.float() - ref).abs()
+    worst = err.max().item()
+    if f32:
+        log(f"check: {label} max_abs_err={worst:.3e} tol={F32_TOL}")
+        if not worst <= F32_TOL:
+            fail(f"{label}: err {worst} > {F32_TOL}")
+        return worst
+    row = ref.abs().amax(-1, keepdim=True)
+    ratio = (err / row.clamp_min(1e-30)).max().item()
+    log(f"check: {label} max_abs_err={worst:.3e} "
+        f"max_err/row_max={ratio:.3e} tol={BF16_ROW_TOL:.3e}*row_max "
+        f"median_abs_ref={ref.abs().median().item():.3e}")
+    if not ratio <= BF16_ROW_TOL:
+        fail(f"{label}: err {ratio:.3e} x its row's max > {BF16_ROW_TOL}")
+    return worst
+
+
 def phase_check():
     import torch
     from deepspeed_tpu_torch.ops import paged_attention as tpa
@@ -144,31 +196,36 @@ def phase_check():
     kq, ks = kv_quantize(k32)
     vq, vs = kv_quantize(v32)
     bf = torch.bfloat16
-    # bf16: the plain version rounds the scores to bf16 before the softmax
-    # (as the JAX reference does) and the kernel keeps them f32; with
-    # scores up to ~16, one bf16 ulp (1/16) moves p by a few percent, so
-    # O(1) outputs may differ by ~3e-2. f32: both exact to rounding.
+
+    def dequant(x, s):          # the kernel's int8 row: x * scale in bf16
+        return (x.float() * s.reshape(x.shape[:-1])[..., None]).to(bf)
+
+    # (name, kernel inputs, the plain version's bf16 inputs)
     cases = [
-        ("bf16", q32.to(bf), k32.to(bf), v32.to(bf), {}, 3e-2),
-        ("f32", q32, k32, v32, {}, 1e-4),
-        ("int8", q32.to(bf), kq, vq, {"k_scale": ks, "v_scale": vs}, 3e-2),
-        ("bf16+alibi+softcap+window", q32.to(bf), k32.to(bf), v32.to(bf),
-         {"alibi_slopes": slopes, "softcap": 30.0, "window": 100}, 3e-2),
+        ("bf16", (q32.to(bf), k32.to(bf), v32.to(bf), {}), None),
+        ("f32", (q32, k32, v32, {}), None),
+        ("int8", (q32.to(bf), kq, vq, {"k_scale": ks, "v_scale": vs}),
+         (q32.to(bf), dequant(kq, ks), dequant(vq, vs), {})),
+        ("bf16+alibi+softcap+window",
+         (q32.to(bf), k32.to(bf), v32.to(bf),
+          {"alibi_slopes": slopes, "softcap": 30.0, "window": 100}), None),
     ]
     live = lens > 0
-    for name, q, k, v, kw, tol in cases:
+    for name, (q, k, v, kw), plain in cases:
         out = tpa.paged_attention(q, k, v, bt, lens, layer_idx=1, **kw)
-        ref = tpa.paged_attention_reference(q, k, v, bt, lens, layer_idx=1,
-                                            **kw)
+        f32 = q.dtype == torch.float32
+        rq, rk, rv, rkw = plain or (q, k, v, kw)
+        if not f32:
+            rq, rk, rv = rq.float(), rk.float(), rv.float()
+        ref = tpa.paged_attention_reference(rq, rk, rv, bt, lens,
+                                            layer_idx=1, **rkw)
         torch.cuda.synchronize()
-        err = _max_err(out[live], ref[live])
         zero = out[~live].abs().max().item()
+        err = _hold(f"paged_attention {name} zero_lane_max={zero}",
+                    out[live], ref[live], f32)
         errs["paged_attention"] = max(errs["paged_attention"], err)
-        log(f"check: paged_attention {name} max_abs_err={err:.3e} "
-            f"tol={tol} zero_lane_max={zero}")
-        if not err <= tol or zero != 0.0:
-            fail(f"paged_attention {name}: err {err} (tol {tol}), "
-                 f"ctx-0 lane {zero}")
+        if zero != 0.0:
+            fail(f"paged_attention {name}: ctx-0 lane {zero}")
     H, F, V = 2048, 5632, 32000
     shapes = [(8, H, 2560), (8, H, H), (8, H, F), (8, H, F), (8, F, H),
               (8, H, V), (512, H, F)]
@@ -188,7 +245,149 @@ def phase_check():
             f"tol={tol:.3e}")
         if not err <= tol:
             fail(f"quant_matmul {M}x{K}x{N}: err {err} > {tol}")
+    errs["decode_attention"] = check_decode_attention()
+    errs["flash_attention_fwd"] = check_flash_attention()
     return errs
+
+
+def check_decode_attention():
+    """decode_attention vs its plain version: the generate decode shapes
+    (B 8, 32 heads of 64) in a stacked 2-layer cache of max_len 1000 (not a
+    multiple of 128), T in {1, 5, 64}, cur_len in {T, 300, max_len}, f32
+    and bf16, plus head dims 32 and 128, an unstacked cache, ALiBi +
+    softcap + window together, and the generate leg's own call: T 1 at
+    cur_len 1056 in its stacked 22-layer bf16 cache of 1280."""
+    import torch
+    from deepspeed_tpu_torch.ops import decode_attention as tda
+    g = torch.Generator(device="cuda").manual_seed(4)
+    L, B, nh, max_len = 2, 8, 32, 1000
+    slopes = torch.linspace(0.5, 0.002, nh).tolist()
+    caches = {}
+
+    def cache(hd, dtype):
+        if (hd, dtype) not in caches:
+            kv = [torch.randn(L, B, nh, max_len, hd, device="cuda",
+                              generator=g).to(dtype) for _ in range(2)]
+            caches[(hd, dtype)] = kv
+        return caches[(hd, dtype)]
+
+    def hold(q, k, v, cur, li, kw):
+        out = tda.decode_attention(q, k, v, cur, layer_idx=li, **kw)
+        f32 = q.dtype == torch.float32
+        label = (f"decode_attention {'f32' if f32 else 'bf16'} "
+                 f"hd={q.shape[-1]} T={q.shape[2]} cur_len={cur} "
+                 f"cache={list(k.shape)} layer_idx={li} {sorted(kw)}")
+        if not f32:             # the plain version on the values in f32
+            q = q.float()
+            k, v = (x.float() if li is None else x[li].float()
+                    for x in (k, v))
+            li = None
+        ref = tda.decode_attention_reference(q, k, v, cur, layer_idx=li,
+                                             **kw)
+        torch.cuda.synchronize()
+        return _hold(label, out, ref, f32)
+
+    cases = []
+    for dtype in (torch.float32, torch.bfloat16):
+        for T in (1, 5, 64):
+            for cur in sorted({T, 300, max_len}):
+                cases.append((dtype, 64, T, cur, 1, {}))
+    bf = torch.bfloat16
+    cases += [(bf, 32, 5, 300, 0, {}), (bf, 128, 1, 1000, 1, {}),
+              (bf, 128, 64, 1000, 1, {}), (torch.float32, 32, 64, 700, 0, {}),
+              (torch.float32, 128, 5, 777, None, {}),
+              (bf, 64, 5, 300, 1, {"alibi_slopes": slopes, "softcap": 30.0,
+                                   "window": 100}),
+              (torch.float32, 64, 64, 1000, 0,
+               {"alibi_slopes": slopes, "softcap": 30.0, "window": 100})]
+    worst = 0.0
+    for dtype, hd, T, cur, li, kw in cases:
+        k, v = cache(hd, dtype)
+        if li is None:                      # the unstacked [B, nh, len, hd]
+            k, v = k[0], v[0]
+        q = torch.randn(B, nh, T, hd, device="cuda", generator=g).to(dtype)
+        worst = max(worst, hold(q, k, v, cur, li, kw))
+    del caches
+    kv = [torch.randn(LLAMA_LAYERS, GEN_BATCH, nh, 1280, 64, device="cuda",
+                      generator=g).to(bf) for _ in range(2)]
+    q = torch.randn(GEN_BATCH, nh, 1, 64, device="cuda", generator=g).to(bf)
+    worst = max(worst, hold(q, kv[0], kv[1], 1056, LLAMA_LAYERS - 1, {}))
+    del kv
+    return worst
+
+
+def check_flash_attention():
+    """flash_attention_fwd vs its plain version, o and lse on live rows
+    (rows with at least one key to attend), exact zeros on the others:
+    the generate prefill shape (8 x 32 heads, S = 1024, D = 64, causal,
+    bf16), f32, D = 128, S = Sk = 1000, Sk > S, non-causal, a key-padding
+    mask with one fully masked batch row, per-head (q, k) tiles, and
+    ALiBi + window + softcap."""
+    import torch
+    from deepspeed_tpu_torch.ops import flash_attention as tfa
+    g = torch.Generator(device="cuda").manual_seed(5)
+    f32, bf = torch.float32, torch.bfloat16
+
+    def kv_mask(B, Sk):
+        lens = torch.tensor([0] + [Sk - 37 * i for i in range(B - 1)],
+                            device="cuda")          # batch row 0 all masked
+        return (torch.arange(Sk, device="cuda")[None, :]
+                < lens[:, None])[:, None, None, :]
+
+    def head_mask(B, H, S, Sk):
+        m = torch.rand(B, H, S, Sk, device="cuda", generator=g) > 0.3
+        m[:, :, 5] = False                          # query row 5 all masked
+        return m
+
+    cases = [   # (name, dtype, B, H, S, Sk, D, kwargs)
+        ("generate prefill", bf, 8, 32, 1024, 1024, 64, {}),
+        ("f32 causal", f32, 2, 4, 1024, 1024, 64, {}),
+        ("D128 S1000", bf, 2, 4, 1000, 1000, 128, {}),
+        ("f32 D128 non-causal", f32, 2, 4, 1000, 1000, 128,
+         {"causal": False}),
+        ("non-causal S1000", bf, 2, 4, 1000, 1000, 64, {"causal": False}),
+        ("D32 Sk>S", bf, 2, 4, 100, 1000, 32, {}),
+        ("Sk>S causal", bf, 2, 4, 300, 1000, 64, {}),
+        ("f32 Sk>S causal D128", f32, 2, 4, 300, 1000, 128, {}),
+        ("key mask, dead batch row", bf, 3, 4, 1000, 1000, 64,
+         {"causal": False, "mask": kv_mask(3, 1000)}),
+        ("f32 key mask causal", f32, 3, 4, 1024, 1024, 64,
+         {"mask": kv_mask(3, 1024)}),
+        ("per-head tiles", bf, 2, 4, 1024, 1024, 64,
+         {"mask": head_mask(2, 4, 1024, 1024)}),
+        ("f32 per-batch tiles", f32, 2, 4, 1000, 1000, 64,
+         {"causal": False, "mask": head_mask(2, 1, 1000, 1000)}),
+        ("alibi+window+softcap", bf, 2, 4, 1024, 1024, 64,
+         {"alibi_slopes": [0.5, 0.25, 0.125, 0.0625], "window": 256,
+          "softcap": 30.0}),
+        ("f32 alibi+window+softcap", f32, 2, 4, 1000, 1000, 128,
+         {"alibi_slopes": [0.5, 0.25, 0.125, 0.0625], "window": 100,
+          "softcap": 30.0}),
+    ]
+    worst = 0.0
+    for name, dtype, B, H, S, Sk, D, kw in cases:
+        q = torch.randn(B, H, S, D, device="cuda", generator=g).to(dtype)
+        k = torch.randn(B, H, Sk, D, device="cuda", generator=g).to(dtype)
+        v = torch.randn(B, H, Sk, D, device="cuda", generator=g).to(dtype)
+        o, lse = tfa.flash_attention_fwd(q, k, v, **kw)
+        # bf16: the plain version on the same values in f32 (see _hold)
+        ro, rlse = tfa.flash_attention_reference(q.float(), k.float(),
+                                                 v.float(), **kw)
+        torch.cuda.synchronize()
+        live = rlse > -1e29
+        # lse: f32 statistics of the same f32 scores on both sides
+        err_l = _max_err(lse[live], rlse[live])
+        zero = o[~live].abs().max().item() if (~live).any() else 0.0
+        label = (f"flash_attention_fwd {name} {str(dtype)[6:]} B={B} H={H} "
+                 f"S={S} Sk={Sk} D={D} lse_max_abs_err={err_l:.3e} "
+                 f"lse_tol={F32_TOL} dead_rows={int((~live).sum())} "
+                 f"dead_row_max={zero} o:")
+        worst = max(worst, _hold(label, o[live], ro[live], dtype == f32))
+        if not (err_l <= F32_TOL and zero == 0.0):
+            fail(f"flash_attention_fwd {name}: lse err {err_l}, dead rows "
+                 f"{zero}")
+        del q, k, v, o, lse, ro, rlse
+    return worst
 
 
 # --------------------------------------------------------------- 3. serve
@@ -214,18 +413,21 @@ def _instrument(srv):
     srv._decode_step = _Timed(srv._decode_step)
 
 
+def _wrappers():
+    """Each kernel's wrapper (the function that carries its counter)."""
+    import importlib
+    return {name: getattr(importlib.import_module(
+        f"deepspeed_tpu_torch.ops.{mod}"), name)
+        for name, mod in KERNEL_MODULES.items()}
+
+
 def _zero_counters():
-    from deepspeed_tpu_torch.ops import paged_attention as tpa
-    from deepspeed_tpu_torch.ops import quant_matmul as tqm
-    tpa.paged_attention.launches = 0
-    tqm.quant_matmul.launches = 0
+    for fn in _wrappers().values():
+        fn.launches = 0
 
 
 def _counters():
-    from deepspeed_tpu_torch.ops import paged_attention as tpa
-    from deepspeed_tpu_torch.ops import quant_matmul as tqm
-    return {"paged_attention": tpa.paged_attention.launches,
-            "quant_matmul": tqm.quant_matmul.launches}
+    return {name: fn.launches for name, fn in _wrappers().items()}
 
 
 def _run_requests(srv, prompts, new):
@@ -364,18 +566,63 @@ def profile_decode(srv, steps=5):
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t0) / steps
     srv.run_until_idle()
+    _report_profile("decode step", prof, wall_ms, steps)
+
+
+def _report_profile(label, prof, wall_ms, steps):
+    """Device busy ms per step (kernel time summed by torch.profiler), the
+    idle share of the host wall time, and the kernels that take the most."""
+    import torch
     kern = [e for e in prof.key_averages()
             if e.device_type == torch.autograd.DeviceType.CUDA]
     busy_ms = sum(e.self_device_time_total for e in kern) / 1e3 / steps
     if busy_ms <= 0:
-        log(f"time: decode step profile wall_ms={wall_ms:.3f} "
+        log(f"time: {label} profile wall_ms={wall_ms:.3f} "
             "device_busy_ms=not measured (no device time in the trace)")
         return
     top = sorted(kern, key=lambda e: -e.self_device_time_total)[:6]
-    log(f"time: decode step profile wall_ms={wall_ms:.3f} "
+    log(f"time: {label} profile wall_ms={wall_ms:.3f} "
         f"device_busy_ms={busy_ms:.3f} idle_share={1 - busy_ms / wall_ms:.3f} "
         "top=" + json.dumps({e.key[:60]: round(
             e.self_device_time_total / 1e3 / steps, 4) for e in top}))
+
+
+def profile_generate(cfg, params, ids, steps=5):
+    """Device busy share of the generate leg's prefill and of its steady
+    greedy decode steps (forward_with_cache + argmax, 8 sequences)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from deepspeed_tpu_torch.models.generation import (forward_with_cache,
+                                                       init_cache,
+                                                       padded_cache_len)
+    B, T = ids.shape
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    with torch.no_grad():
+        cache = init_cache(cfg, B, padded_cache_len(T + GEN_NEW),
+                           device="cuda")
+        torch.cuda.synchronize()
+        with profile(activities=acts) as prof:
+            t0 = time.perf_counter()
+            logits, cache = forward_with_cache(cfg, params, ids, cache,
+                                               prefill_flash=True)
+            tok = logits[:, -1].argmax(-1)
+            torch.cuda.synchronize()
+            wall_ms = 1e3 * (time.perf_counter() - t0)
+        _report_profile("generate prefill", prof, wall_ms, 1)
+        for _ in range(2):
+            logits, cache = forward_with_cache(cfg, params, tok[:, None],
+                                               cache)
+            tok = logits[:, -1].argmax(-1)
+        torch.cuda.synchronize()
+        with profile(activities=acts) as prof:
+            t0 = time.perf_counter()
+            for _ in range(steps):
+                logits, cache = forward_with_cache(cfg, params, tok[:, None],
+                                                   cache)
+                tok = logits[:, -1].argmax(-1)
+            torch.cuda.synchronize()
+            wall_ms = 1e3 * (time.perf_counter() - t0) / steps
+        _report_profile("generate decode step", prof, wall_ms, steps)
 
 
 # ---------------------------------------------------------------- 4. int8
@@ -402,7 +649,151 @@ def phase_int8(eng):
     return srv, counts["quant_matmul"]
 
 
-# ---------------------------------------------------------------- 5. time
+# ------------------------------------------------------------ 5. generate
+
+def _generate_logits_check(cfg, params, ids, tol_rel):
+    """The prefill (flash kernel) and one decode step (decode kernel) of
+    forward_with_cache vs impl="reference"; the decode step of both runs
+    from the same copy of the kernel-prefilled cache."""
+    import torch
+    from deepspeed_tpu_torch.models.generation import (forward_with_cache,
+                                                       init_cache,
+                                                       padded_cache_len)
+    B, T = ids.shape
+    caches, pre = {}, {}
+    with torch.no_grad():
+        for impl in ("auto", "reference"):
+            cache = init_cache(cfg, B, padded_cache_len(T + GEN_NEW),
+                               device="cuda")
+            logits, caches[impl] = forward_with_cache(
+                cfg, params, ids, cache, prefill_flash=True, impl=impl)
+            pre[impl] = logits
+        tok = pre["reference"][:, -1].argmax(-1)[:, None]
+        ref_cache = {k: (v.clone() if torch.is_tensor(v) else v)
+                     for k, v in caches["auto"].items()}
+        dec = {impl: forward_with_cache(cfg, params, tok, c, impl=impl)[0]
+               for impl, c in (("auto", caches["auto"]),
+                               ("reference", ref_cache))}
+    torch.cuda.synchronize()
+    for label, out in (("prefill", pre), ("decode", dec)):
+        a, b = out["auto"], out["reference"]
+        err = (a - b).abs().max().item()
+        scale = b.abs().max().item()
+        agree = (a.argmax(-1) == b.argmax(-1)).float().mean().item()
+        log(f"check: generate {label} logits kernels vs reference "
+            f"max_abs_err={err:.4e} max_abs_logit={scale:.4e} "
+            f"tol={tol_rel}*max_abs_logit argmax_agree={agree:.3f}")
+        if not err <= tol_rel * scale:
+            fail(f"generate {label} logits differ by {err} "
+                 f"(> {tol_rel} x {scale})")
+    del pre, dec, caches, ref_cache
+
+
+def _short_generate_legs(cfg, params):
+    """The routes around the kernels, on 4 layers of the same model: a
+    left-padded ragged batch and the int8 cache (plain cache path: no new
+    kernel launch), a dtype "int8" engine, and seeded sampling."""
+    import numpy as np
+    import torch
+    import deepspeed_tpu_torch
+    cfg4 = dataclasses.replace(cfg, num_layers=4)
+    params4 = dict(params, blocks={
+        n: {k: t[:4] for k, t in sub.items()}
+        for n, sub in params["blocks"].items()})
+    eng4 = deepspeed_tpu_torch.init_inference(cfg4, {"dtype": "bf16"},
+                                              model_parameters=params4)
+    rng = np.random.default_rng(8)
+    B, T, new = 4, 96, 8
+    ids = torch.as_tensor(rng.integers(1, 32000, (B, T)), device="cuda")
+    mask = torch.ones(B, T, dtype=torch.int32, device="cuda")
+    for b, npad in enumerate((0, 10, 40, 95)):
+        mask[b, :npad] = 0
+    shape = (B, T + new)
+    legs = {}
+    for name, kw in (("ragged", {"attention_mask": mask}),
+                     ("int8_kv_cache", {"kv_cache_dtype": "int8"})):
+        _zero_counters()
+        out = eng4.generate(ids, max_new_tokens=new, **kw)
+        torch.cuda.synchronize()
+        c = _counters()
+        legs[name] = c
+        if tuple(out.shape) != shape or \
+                c["flash_attention_fwd"] or c["decode_attention"]:
+            fail(f"generate {name}: shape {tuple(out.shape)}, launches {c}")
+    eng8 = deepspeed_tpu_torch.init_inference(cfg4, {"dtype": "int8"},
+                                              model_parameters=params4)
+    logits = eng8.forward(ids)
+    out = eng8.generate(ids, max_new_tokens=new)
+    torch.cuda.synchronize()
+    if tuple(logits.shape) != (B, T, cfg.vocab_size) or \
+            not torch.isfinite(logits).all() or tuple(out.shape) != shape:
+        fail(f"int8 engine: logits {tuple(logits.shape)}, out "
+             f"{tuple(out.shape)}")
+    sampled = []
+    for _ in range(2):
+        g = torch.Generator(device="cuda").manual_seed(11)
+        sampled.append(eng4.generate(ids, max_new_tokens=new,
+                                     temperature=0.8, top_k=50, top_p=0.9,
+                                     repetition_penalty=1.2, generator=g))
+    if tuple(sampled[0].shape) != shape or \
+            not torch.equal(sampled[0], sampled[1]):
+        fail("seeded sampling did not reproduce")
+    log(f"generate: 4-layer legs ragged/int8-kv launches="
+        f"{json.dumps(legs)} int8-engine logits={tuple(logits.shape)} "
+        f"sampled={tuple(sampled[0].shape)} reproduced=True")
+
+
+def phase_generate(tmp, served):
+    """init_inference(JSON config).generate() on llama-1.1b at full width
+    and depth, from the serve leg's seeded bf16 weights (no copy)."""
+    import numpy as np
+    import torch
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.models.generation import padded_cache_len
+    cfg, params = served.cfg, served.params
+    path = os.path.join(tmp, "ds_generate.json")
+    with open(path, "w") as f:
+        json.dump({"dtype": "bf16"}, f)
+    eng = deepspeed_tpu_torch.init_inference(cfg, path,
+                                             model_parameters=params)
+    rng = np.random.default_rng(7)
+    ids = torch.as_tensor(rng.integers(1, 32000, (GEN_BATCH, GEN_PROMPT)),
+                          device="cuda")
+    eng.generate(ids[:, :64], max_new_tokens=2)           # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    eng.generate(ids, max_new_tokens=1)                   # prefill + 1 pick
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    _zero_counters()
+    t0 = time.perf_counter()
+    out = eng.generate(ids, max_new_tokens=GEN_NEW)
+    torch.cuda.synchronize()
+    total_s = time.perf_counter() - t0
+    counts = _counters()
+    steps = GEN_NEW - 1
+    log(f"generate: llama-1.1b B={GEN_BATCH} prompt={GEN_PROMPT} "
+        f"new={GEN_NEW} cache_len={padded_cache_len(GEN_PROMPT + GEN_NEW)} "
+        f"out={tuple(out.shape)} "
+        f"launches={json.dumps(counts)} wall_s={total_s:.3f}")
+    if tuple(out.shape) != (GEN_BATCH, GEN_PROMPT + GEN_NEW) or \
+            not torch.equal(out[:, :GEN_PROMPT], ids):
+        fail(f"generate returned {tuple(out.shape)}")
+    if counts["flash_attention_fwd"] != LLAMA_LAYERS or \
+            counts["decode_attention"] != LLAMA_LAYERS * steps:
+        fail(f"generate launched {counts}: expected flash "
+             f"{LLAMA_LAYERS}, decode {LLAMA_LAYERS * steps}")
+    rates = {"prefill_tok_s": GEN_BATCH * GEN_PROMPT / prefill_s,
+             "decode_tok_s": GEN_BATCH * steps / (total_s - prefill_s),
+             "decode_step_ms": 1e3 * (total_s - prefill_s) / steps,
+             "prefill_ms": 1e3 * prefill_s}
+    _generate_logits_check(cfg, params, ids, 5e-2)
+    profile_generate(cfg, params, ids)
+    _short_generate_legs(cfg, params)
+    return counts, rates
+
+
+# ---------------------------------------------------------------- 6. time
 
 def time_paged_attention():
     """One decode step's attention: 22 launches (one per layer) over 8
@@ -474,6 +865,100 @@ def time_quant_matmul(srv8):
                     f"{nbytes / 1e9:.3f} GB"}
 
 
+def time_decode_attention():
+    """One generate decode step's attention: 22 launches (one per layer)
+    over 8 sequences at cur_len 1056 (the mean of the leg's steps) in the
+    stacked bf16 cache of max_len 1280, 32 heads of 64."""
+    import torch
+    import torch.nn.functional as F
+    from deepspeed_tpu_torch.ops import decode_attention as tda
+    L, B, nh, hd, cur, max_len = LLAMA_LAYERS, GEN_BATCH, 32, 64, 1056, 1280
+    g = torch.Generator(device="cuda").manual_seed(6)
+    bf = torch.bfloat16
+    k = torch.randn(L, B, nh, max_len, hd, device="cuda", generator=g).to(bf)
+    v = torch.randn(L, B, nh, max_len, hd, device="cuda", generator=g).to(bf)
+    q = torch.randn(B, nh, 1, hd, device="cuda", generator=g).to(bf)
+
+    def step(fn):
+        return lambda: [fn(li) for li in range(L)]
+
+    t = timings(
+        step(lambda li: tda.decode_attention(q, k, v, cur, layer_idx=li)),
+        step(lambda li: tda.decode_attention_reference(q, k, v, cur,
+                                                       layer_idx=li)),
+        step(lambda li: F.scaled_dot_product_attention(
+            q, k[li, :, :, :cur], v[li, :, :, :cur])))
+    nbytes = L * (2 * B * nh * cur * hd * 2 + 2 * B * nh * hd * 2)
+    bnd, by = bound_ms(nbytes, L * 4 * B * nh * cur * hd)
+    del k, v
+    return {**t, "bound_ms": bnd, "bound_by": by,
+            "work": f"one decode step: {L} launches, B={B}, cur_len={cur}, "
+                    f"nh={nh}, hd={hd}, bf16 cache of {max_len}"}
+
+
+def time_decode_attention_multi(T=64):
+    """decode_attention at T = 64 queries (off the generate path, which
+    decodes one token a step) at the generate leg's shape: 22 launches
+    over 8 sequences at cur_len 1056 in the stacked bf16 cache of 1280.
+    The library yardstick is SDPA with the bottom-right causal mask on the
+    live slice."""
+    import torch
+    import torch.nn.functional as F
+    from deepspeed_tpu_torch.ops import decode_attention as tda
+    L, B, nh, hd, cur, max_len = LLAMA_LAYERS, GEN_BATCH, 32, 64, 1056, 1280
+    g = torch.Generator(device="cuda").manual_seed(9)
+    bf = torch.bfloat16
+    k = torch.randn(L, B, nh, max_len, hd, device="cuda", generator=g).to(bf)
+    v = torch.randn(L, B, nh, max_len, hd, device="cuda", generator=g).to(bf)
+    q = torch.randn(B, nh, T, hd, device="cuda", generator=g).to(bf)
+    mask = (torch.arange(cur, device="cuda")[None, :]
+            <= torch.arange(cur - T, cur, device="cuda")[:, None])
+
+    def step(fn):
+        return lambda: [fn(li) for li in range(L)]
+
+    t = timings(
+        step(lambda li: tda.decode_attention(q, k, v, cur, layer_idx=li)),
+        step(lambda li: tda.decode_attention_reference(q, k, v, cur,
+                                                       layer_idx=li)),
+        step(lambda li: F.scaled_dot_product_attention(
+            q, k[li, :, :, :cur], v[li, :, :, :cur], attn_mask=mask)))
+    pairs = T * (cur - T) + T * (T + 1) // 2     # live (query, key) pairs
+    nbytes = L * (2 * B * nh * cur * hd * 2 + 2 * B * nh * T * hd * 2)
+    bnd, by = bound_ms(nbytes, L * 4 * B * nh * pairs * hd)
+    del k, v
+    return {**t, "bound_ms": bnd, "bound_by": by,
+            "work": f"{L} launches, B={B}, T={T}, cur_len={cur}, nh={nh}, "
+                    f"hd={hd}, bf16 cache of {max_len}"}
+
+
+def time_flash_attention():
+    """One generate prefill's attention: 22 launches (one per layer) at
+    B=8, 32 heads, S = Sk = 1024, D = 64, causal, bf16."""
+    import torch
+    import torch.nn.functional as F
+    from deepspeed_tpu_torch.ops import flash_attention as tfa
+    L, B, H, S, D = LLAMA_LAYERS, GEN_BATCH, 32, GEN_PROMPT, 64
+    g = torch.Generator(device="cuda").manual_seed(7)
+    q, k, v = (torch.randn(B, H, S, D, device="cuda", generator=g).to(
+        torch.bfloat16) for _ in range(3))
+
+    def step(fn):
+        return lambda: [fn() for _ in range(L)]
+
+    t = timings(
+        step(lambda: tfa.flash_attention_fwd(q, k, v, causal=True)),
+        step(lambda: tfa.flash_attention_reference(q, k, v, causal=True)),
+        step(lambda: F.scaled_dot_product_attention(q, k, v,
+                                                    is_causal=True)))
+    nbytes = L * (4 * B * H * S * D * 2 + B * H * S * 4)
+    flops = L * 4 * B * H * D * S * (S + 1) // 2      # live (q, k) pairs
+    bnd, by = bound_ms(nbytes, flops)
+    return {**t, "bound_ms": bnd, "bound_by": by,
+            "work": f"one prefill: {L} launches, B={B}, H={H}, S=Sk={S}, "
+                    f"D={D}, causal, bf16"}
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -505,9 +990,20 @@ def main():
     del srv
     torch.cuda.empty_cache()
     srv8, qm_launches = phase_int8(eng)
+    with tempfile.TemporaryDirectory() as tmp:
+        gen_counts, gen_rates = phase_generate(tmp, eng)
+    torch.cuda.empty_cache()
     log("time: serve " + json.dumps(rates))
+    log("time: generate " + json.dumps(gen_rates))
     pa = time_paged_attention()
     qm = time_quant_matmul(srv8)
+    del srv8, eng
+    torch.cuda.empty_cache()
+    da = time_decode_attention()
+    torch.cuda.empty_cache()
+    dm = time_decode_attention_multi()
+    torch.cuda.empty_cache()
+    fa = time_flash_attention()
     kernels = []
     for kname, launches, t, src, tpu in (
             ("paged_attention", pa_launches, pa,
@@ -515,7 +1011,13 @@ def main():
              "deepspeed_tpu/ops/pallas/paged_attention.py:50"),
             ("quant_matmul", qm_launches, qm,
              "deepspeed_tpu_torch/ops/csrc/quant_matmul.cu",
-             "deepspeed_tpu/ops/pallas/quant_matmul.py:95")):
+             "deepspeed_tpu/ops/pallas/quant_matmul.py:95"),
+            ("decode_attention", gen_counts["decode_attention"], da,
+             "deepspeed_tpu_torch/ops/csrc/decode_attention.cu",
+             "deepspeed_tpu/ops/pallas/decode_attention.py:43"),
+            ("flash_attention_fwd", gen_counts["flash_attention_fwd"], fa,
+             "deepspeed_tpu_torch/ops/csrc/flash_attention_fwd.cu",
+             "deepspeed_tpu/ops/pallas/flash_attention.py:154")):
         row = {"name": kname, "route": "cuda", "source": src,
                "replaces": tpu, "launches": launches,
                "max_abs_err": errs[kname]}
@@ -525,6 +1027,10 @@ def main():
             f"({t['bound_by']}) plain_ms={t['plain_ms']:.4f} "
             f"library_ms={t['library_ms']:.4f} "
             f"wall_ms={t['wall_ms']:.4f} [{t['work']}]")
+    log(f"time: decode_attention T=64 ms={dm['ms']:.4f} "
+        f"bound_ms={dm['bound_ms']:.4f} ({dm['bound_by']}) "
+        f"plain_ms={dm['plain_ms']:.4f} library_ms={dm['library_ms']:.4f} "
+        f"wall_ms={dm['wall_ms']:.4f} [{dm['work']}]")
     log(f"total_s={time.perf_counter() - t0:.1f}")
     log(json.dumps({"kernels": kernels}))
     log(smi)

@@ -3,8 +3,9 @@
 The JAX package ``deepspeed_tpu`` is the reference; this package runs the
 same system with PyTorch on an NVIDIA GPU (Hopper), its TPU kernels
 rewritten by hand in CUDA. It imports neither JAX nor ``deepspeed_tpu``.
-Module names follow the JAX package's layout. This slice ports the
-serving path: ``init_inference(...).serve()``.
+Module names follow the JAX package's layout. Ported so far: the
+serving path, ``init_inference(...).serve()``, and generation,
+``init_inference(...).generate()``.
 
 Entry points run on CUDA unless the caller passes ``device="cpu"``, which
 runs every kernel's plain PyTorch version.

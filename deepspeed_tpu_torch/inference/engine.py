@@ -1,21 +1,27 @@
 """InferenceEngine — config-driven inference wrapper (counterpart of
 ``deepspeed_tpu/inference/engine.py``).
 
-This slice serves: it casts the weights to the config's dtype (bf16 or
-f32) on one device and builds the continuous-batching ``ServingEngine``
-(``serve()``'s single-engine branch). int8 ``dtype`` (per-channel
-weights), ``tp_size > 1``, ``generate()`` and the serving fleet,
-disaggregated and process placements raise ``NotImplementedError`` until
-later slices of the port (see ROADMAP.md).
+It casts the weights to the config's dtype (bf16 or f32) on one device,
+or, with ``dtype: "int8"``, quantizes every matmul kernel per output
+channel (:func:`quantize_weights_int8`) and computes in bf16. It serves
+the continuous-batching ``ServingEngine`` (``serve()``'s single-engine
+branch) and runs ``generate()`` (``models.generation.generate``). The int8
+engine's ``forward()`` is ``forward_with_cache`` on a fresh cache. The
+bf16/f32 ``forward()`` runs the flax ``Transformer`` in the JAX package,
+so it waits for the training slice; it, ``tp_size > 1``,
+``load_checkpoint`` and the serving fleet, disaggregated and process
+placements raise ``NotImplementedError`` until later slices of the port
+(see ROADMAP.md).
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict
+from typing import Any, Dict, Optional
 
 import torch
 
-from ..models.generation import ensure_scan_layout
+from ..models.generation import (ensure_scan_layout, forward_with_cache,
+                                 generate, init_cache, padded_cache_len)
 from ..models.transformer import TransformerConfig
 from ..utils.device import resolve_device
 from ..utils.logging import log_dist
@@ -25,6 +31,37 @@ _DTYPES = {"float16": torch.float16, "fp16": torch.float16,
            "bfloat16": torch.bfloat16, "bf16": torch.bfloat16,
            "float32": torch.float32, "fp32": torch.float32}
 _LATER = "is not ported to deepspeed_tpu_torch yet (see ROADMAP.md)"
+
+
+def quantize_weights_int8(params: Dict[str, Any]) -> Dict[str, Any]:
+    """Weight-only int8: per-output-channel symmetric quantization of the
+    matmul kernels (attention, MLP, lm_head). Embeddings, norms, biases
+    and a MoE router (a ``gate`` node) stay high precision. Each quantized
+    ``kernel`` [..., in, out] becomes int8 with a sibling f32
+    ``kernel_scale`` [..., 1, out] (absmax / 127 over ``in``; 1 for an all
+    zero channel), so ``kernel.float() * kernel_scale`` rebuilds the
+    weight within scale / 2 elementwise. The bytes equal the JAX
+    package's (round half to even in both)."""
+
+    def walk(node, path=()):
+        out = {}
+        for key, val in node.items():
+            if (key == "kernel" and isinstance(val, torch.Tensor)
+                    and val.dim() >= 2 and "gate" not in path):
+                w = val.to(torch.float32)
+                scale = w.abs().amax(dim=-2, keepdim=True) / 127.0
+                scale = torch.where(scale == 0.0, torch.ones_like(scale),
+                                    scale)
+                out["kernel"] = torch.clamp(torch.round(w / scale), -127,
+                                            127).to(torch.int8)
+                out["kernel_scale"] = scale
+            elif isinstance(val, dict):
+                out[key] = walk(val, path + (key,))
+            else:
+                out[key] = val
+        return out
+
+    return walk(params)
 
 
 class InferenceEngine:
@@ -50,11 +87,8 @@ class InferenceEngine:
         self.config: DeepSpeedInferenceConfig = load_inference_config(config)
         self.device = resolve_device(device)
         dtype = str(self.config.dtype)
-        if dtype == "int8":
-            raise NotImplementedError(
-                "dtype='int8' (per-channel weight-only) " + _LATER
-                + "; serving.weight_dtype='int8' is ported")
-        if dtype not in _DTYPES:
+        self.quantized = dtype == "int8"
+        if dtype not in _DTYPES and not self.quantized:
             raise ValueError(f"dtype {dtype!r}: expected one of "
                              f"{sorted(_DTYPES)}")
         tp = self.config.tensor_parallel.tp_size
@@ -64,16 +98,56 @@ class InferenceEngine:
         if model_parameters is None:
             raise ValueError("need model_parameters (models.transformer."
                              "init_params builds them from a seed)")
-        self.dtype = _DTYPES[dtype]
-        self.params = _cast(ensure_scan_layout(model_parameters,
-                                               cfg.num_layers),
-                            self.dtype, self.device)
-        log_dist(f"InferenceEngine: dtype={dtype} device={self.device}",
+        # int8 is weight-only: activations compute in bf16
+        self.dtype = torch.bfloat16 if self.quantized else _DTYPES[dtype]
+        params = ensure_scan_layout(model_parameters, cfg.num_layers)
+        if self.quantized:
+            params = quantize_weights_int8(params)
+        self.params = _cast(params, self.dtype, self.device)
+        log_dist(f"InferenceEngine: dtype={dtype} device={self.device}"
+                 + (" (int8 weight-only)" if self.quantized else ""),
                  ranks=[0])
 
-    def generate(self, *args, **kwargs):
-        raise NotImplementedError("InferenceEngine.generate " + _LATER
-                                  + "; use serve()")
+    def forward(self, batch):
+        """Logits [B, T, V] f32 of ``batch`` (ids [B, T], or a dict with
+        ``input_ids``). The int8 engine runs ``forward_with_cache`` on a
+        fresh cache; the bf16/f32 forward is the flax ``Transformer``'s,
+        which comes with the training slice."""
+        if not self.quantized:
+            raise NotImplementedError(
+                "InferenceEngine.forward for a bf16/f32 engine runs the "
+                "training model, which " + _LATER + " (training slice); "
+                "generate() and serve() are ported")
+        ids = batch["input_ids"] if isinstance(batch, dict) else batch
+        ids = torch.as_tensor(ids, device=self.device)
+        B, T = ids.shape
+        cache = init_cache(self.cfg, B, padded_cache_len(T),
+                           device=self.device)
+        with torch.no_grad():
+            logits, _ = forward_with_cache(self.cfg, self.params, ids, cache)
+        return logits
+
+    __call__ = forward
+
+    def load_checkpoint(self, path: str):
+        raise NotImplementedError("InferenceEngine.load_checkpoint (the "
+                                  "checkpoint bridge) " + _LATER)
+
+    def generate(self, input_ids, max_new_tokens: int = 32,
+                 temperature: float = 0.0, top_k=None,
+                 generator: Optional[torch.Generator] = None, top_p=None,
+                 repetition_penalty=None, attention_mask=None,
+                 kv_cache_dtype=None) -> torch.Tensor:
+        """Autoregressive generation with a KV cache
+        (``models.generation.generate``): ids [B, T] -> [B, T +
+        max_new_tokens]. ``generator`` (a ``torch.Generator`` on this
+        engine's device) takes the place of the JAX package's ``rng``;
+        top_p, repetition_penalty and left-padded ragged batches
+        (``attention_mask``) follow HF generate."""
+        ids = torch.as_tensor(input_ids, device=self.device)
+        return generate(self.cfg, self.params, ids, max_new_tokens,
+                        temperature, generator, top_k, top_p,
+                        repetition_penalty, attention_mask, kv_cache_dtype)
 
     def serve(self, serving=None, heartbeat=None):
         """The continuous-batching serving loop over this engine's weights:

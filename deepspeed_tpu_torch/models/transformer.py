@@ -3,10 +3,10 @@
 Counterpart of the config half of ``deepspeed_tpu/models/transformer.py``:
 ``TransformerConfig`` (every field, same names and defaults, with torch
 dtypes), the presets, the activations, ``apply_rotary`` and
-``alibi_slopes``. The flax modules have no counterpart in this slice: the
-serving path runs the layer math in ``serving/model_runner.py`` over a
-plain dict of stacked parameters, which :func:`init_params` builds from a
-seed.
+``alibi_slopes``. The flax modules have no counterpart yet: the serving
+and generation paths run the layer math in ``serving/model_runner.py``
+and ``models/generation.py`` over a plain dict of stacked parameters,
+which :func:`init_params` builds from a seed.
 
 Parameter layout (the JAX package's scan layout, names kept): dense
 kernels are ``[in, out]`` so the forward computes ``x @ W``, and every
@@ -109,6 +109,16 @@ class TransformerConfig:
         if self.head_dim_override is not None:
             return self.head_dim_override
         return self.hidden_size // self.num_heads
+
+    def uniform_window(self) -> Optional[int]:
+        """The single window every layer shares when ``layer_windows`` is
+        uniform: 0 for no or global windows, the window size otherwise;
+        None when layers mix windows (the prefill then cannot run one
+        flash kernel configuration for every layer)."""
+        if self.layer_windows is None:
+            return 0
+        vals = {max(int(w), 0) for w in self.layer_windows}
+        return vals.pop() if len(vals) == 1 else None
 
     @property
     def mlp_dim(self) -> int:

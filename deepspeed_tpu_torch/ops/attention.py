@@ -1,17 +1,106 @@
-"""Attention entry points of the serving slice (counterpart of
-``deepspeed_tpu/ops/attention.py``: ``apply_softcap`` and the
-``paged_attention`` dispatch)."""
+"""Attention helpers (counterpart of ``deepspeed_tpu/ops/attention.py``):
+the plain masks and biases, ``mha_reference`` (the oracle the flash
+kernel's plain version is built from), ``apply_softcap`` and the
+``paged_attention`` dispatch of the serving path. The ``attention`` router
+serves the training model and waits for the training slice (ROADMAP.md).
+"""
 
 from __future__ import annotations
 
 from typing import Optional
 
+import numpy as np
 import torch
+
+NEG_INF = -1e30
+
+
+def causal_mask(q_len: int, k_len: int, device=None) -> torch.Tensor:
+    """[q_len, k_len] bool mask, True = attend, aligned bottom-right: query
+    i sits at position i + k_len - q_len, so the last row sees every key."""
+    offset = k_len - q_len
+    q_pos = torch.arange(q_len, device=device)[:, None]
+    k_pos = torch.arange(k_len, device=device)[None, :]
+    return k_pos <= q_pos + offset
 
 
 def apply_softcap(x: torch.Tensor, cap: float) -> torch.Tensor:
     """Gemma-2 logit softcapping: tanh(x / cap) * cap, computed in f32."""
     return torch.tanh(x.to(torch.float32) / cap) * cap
+
+
+def alibi_bias_from_slopes(slopes, q_len: int, k_len: int,
+                           device=None) -> torch.Tensor:
+    """[H] per-head slopes -> [1, H, q_len, k_len] additive f32 ALiBi bias
+    slope * (k_pos - q_pos), query positions aligned bottom-right as in
+    :func:`causal_mask`."""
+    sl = torch.as_tensor(slopes, dtype=torch.float32,
+                         device=device).reshape(-1)
+    q_pos = torch.arange(q_len, device=sl.device) + (k_len - q_len)
+    k_pos = torch.arange(k_len, device=sl.device)
+    dist = (k_pos[None, :] - q_pos[:, None]).to(torch.float32)
+    return sl[None, :, None, None] * dist[None, None]
+
+
+def window_mask(q_len: int, k_len: int, window: int,
+                device=None) -> torch.Tensor:
+    """[1, 1, q_len, k_len] bool sliding-window mask (True = attend):
+    q_pos - k_pos < window, query positions aligned as in
+    :func:`causal_mask`."""
+    q_pos = torch.arange(q_len, device=device)[:, None] + (k_len - q_len)
+    k_pos = torch.arange(k_len, device=device)[None, :]
+    return (q_pos - k_pos < window)[None, None]
+
+
+def masked_logits(q: torch.Tensor, k: torch.Tensor, *, causal: bool = True,
+                  bias: Optional[torch.Tensor] = None,
+                  mask: Optional[torch.Tensor] = None,
+                  sm_scale: Optional[float] = None,
+                  softcap: float = 0.0) -> torch.Tensor:
+    """The f32 logits :func:`mha_reference` softmaxes: q k^T in the
+    inputs' dtype, then f32 times the scale, softcap, the additive bias,
+    and -1e30 where the causal mask or ``mask`` (True = attend) drops an
+    entry. [B, H, q_len, k_len]."""
+    q_len, head_dim = q.shape[-2:]
+    k_len = k.shape[-2]
+    scale = sm_scale if sm_scale is not None else 1.0 / float(np.sqrt(head_dim))
+    ct = torch.promote_types(q.dtype, k.dtype)
+    logits = torch.einsum("bhqd,bhkd->bhqk", q.to(ct), k.to(ct)).to(
+        torch.float32) * scale
+    if softcap:
+        logits = apply_softcap(logits, softcap)
+    if bias is not None:
+        logits = logits + bias.to(torch.float32)
+    neg = torch.tensor(NEG_INF, dtype=torch.float32, device=logits.device)
+    if causal:
+        logits = torch.where(causal_mask(q_len, k_len, logits.device)[None, None],
+                             logits, neg)
+    if mask is not None:
+        logits = torch.where(torch.as_tensor(mask, device=logits.device)
+                             .to(torch.bool), logits, neg)
+    return logits
+
+
+def mha_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                  causal: bool = True,
+                  bias: Optional[torch.Tensor] = None,
+                  mask: Optional[torch.Tensor] = None,
+                  sm_scale: Optional[float] = None,
+                  dropout_rate: float = 0.0,
+                  softcap: float = 0.0) -> torch.Tensor:
+    """Multi-head attention, plain PyTorch. q, k, v: [batch, heads, seq,
+    head_dim]; f32 softmax over :func:`masked_logits`, P cast to q's
+    dtype before P V. A row with no live key softmaxes to uniform weights,
+    as in the JAX reference. Dropout comes with the training slice."""
+    if dropout_rate > 0.0:
+        raise NotImplementedError(
+            "mha_reference dropout is not ported yet: it comes with the "
+            "training slice (see ROADMAP.md)")
+    logits = masked_logits(q, k, causal=causal, bias=bias, mask=mask,
+                           sm_scale=sm_scale, softcap=softcap)
+    probs = torch.softmax(logits, dim=-1).to(q.dtype)
+    ct = torch.promote_types(probs.dtype, v.dtype)
+    return torch.einsum("bhqk,bhkd->bhqd", probs.to(ct), v.to(ct))
 
 
 def paged_attention(q, k_pool, v_pool, block_tables, context_lens, *,

@@ -24,6 +24,8 @@ import torch
 import deepspeed_tpu_torch
 from deepspeed_tpu_torch.models.transformer import get_config, init_params
 from deepspeed_tpu_torch.ops import build
+from deepspeed_tpu_torch.ops import decode_attention as tda
+from deepspeed_tpu_torch.ops import flash_attention as tfa
 from deepspeed_tpu_torch.ops import paged_attention as tpa
 from deepspeed_tpu_torch.ops import quant_matmul as tqm
 from deepspeed_tpu_torch.serving.engine import ServingEngine
@@ -133,6 +135,40 @@ def test_kernel_calls_raise_instead_of_falling_back():
             tqm.quant_matmul.launches) == before
 
 
+def test_attention_kernel_calls_raise_instead_of_falling_back():
+    """decode_attention and flash_attention_fwd: CPU tensors in the launch
+    path, fp16, T > 64, a non-causal window and inputs that require grad
+    raise; nothing launches."""
+    before = (tda.decode_attention.launches,
+              tfa.flash_attention_fwd.launches)
+    dkw = dict(window=None, sm_scale=None, layer_idx=None, alibi_slopes=None,
+               softcap=0.0)
+    q, kc = torch.randn(2, 4, 1, 64), torch.randn(2, 4, 100, 64)
+    with pytest.raises(ValueError, match="CUDA"):
+        tda._launch(q, kc, kc.clone(), 50, **dkw)
+    with pytest.raises(TypeError, match="dtype"):
+        tda._launch(q.half(), kc.half(), kc.half(), 50, **dkw)
+    with pytest.raises(ValueError, match="T <= 64"):
+        tda._launch(torch.randn(2, 4, 65, 64), kc, kc.clone(), 80, **dkw)
+    with pytest.raises(ValueError, match="impl"):
+        tda.decode_attention(q, kc, kc.clone(), 50, impl="flash")
+    fkw = dict(causal=True, sm_scale=None, mask=None, alibi_slopes=None,
+               window=0, softcap=0.0)
+    x = torch.randn(1, 2, 16, 64)
+    with pytest.raises(ValueError, match="CUDA"):
+        tfa._launch(x, x, x, **fkw)
+    with pytest.raises(TypeError, match="dtype"):
+        tfa._launch(x.half(), x.half(), x.half(), **fkw)
+    with pytest.raises(ValueError, match="causal"):
+        tfa._launch(x, x, x, **dict(fkw, causal=False, window=8))
+    with pytest.raises(ValueError, match="head_dim"):
+        tfa._launch(*(torch.randn(1, 2, 16, 48),) * 3, **fkw)
+    with pytest.raises(NotImplementedError, match="training slice"):
+        tfa.flash_attention(x.requires_grad_(), x.detach(), x.detach())
+    assert (tda.decode_attention.launches,
+            tfa.flash_attention_fwd.launches) == before
+
+
 def test_unported_options_raise():
     cfg = get_config("gpt2-tiny", hidden_size=32, num_layers=1, num_heads=2,
                      vocab_size=64, dtype=torch.float32)
@@ -156,14 +192,19 @@ def test_unported_options_raise():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         eng.serve(dict(serve, fleet={"replicas": 2}))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        eng.generate([[1, 2]])
-    for bad in ({"dtype": "int8"}, {"tp": {"tp_size": 2}}):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            deepspeed_tpu_torch.init_inference(cfg, bad,
-                                               model_parameters=params,
-                                               device="cpu")
+        eng.forward([[1, 2]])
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        eng.load_checkpoint("ckpt")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        deepspeed_tpu_torch.init_inference(cfg, {"tp": {"tp_size": 2}},
+                                           model_parameters=params,
+                                           device="cpu")
     moe = get_config("gpt2-tiny", hidden_size=32, num_layers=1, num_heads=2,
                      vocab_size=64, dtype=torch.float32, moe_experts=2)
     srv = ServingEngine(moe, params, serving=serve, device="cpu")
     with pytest.raises(NotImplementedError, match="MoE"):
         srv.generate_batch([[1, 2, 3]], 2)
+    with pytest.raises(NotImplementedError, match="MoE"):
+        deepspeed_tpu_torch.init_inference(
+            moe, {"dtype": "float32"}, model_parameters=params,
+            device="cpu").generate([[1, 2]], max_new_tokens=2)

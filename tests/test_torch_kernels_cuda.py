@@ -4,21 +4,49 @@ Marked ``cuda``: each test skips where ``torch.cuda.is_available()`` is
 false (decided inside the fixture, never at import). On the card run
 ``python -m pytest tests/test_torch_kernels_cuda.py -m cuda``. This file
 imports no JAX; on a GPU host without JAX pass ``--noconftest`` (the
-suite's conftest sets JAX up). Tolerances: in bf16 the plain version
-rounds the scores to bf16 before the softmax (as the JAX reference does)
-and the kernel keeps them f32, so O(1) outputs may differ by ~3e-2; f32
-agrees to rounding (atol 1e-4).
+suite's conftest sets JAX up). Tolerances: f32 kernels agree with their
+plain versions to rounding (atol 1e-4). A bf16 attention kernel is held
+against its plain version run on the same values cast to f32, so both take
+f32 scores of the same numbers; what is left is the kernel's rounding of p
+to bf16 before P V and of its output to bf16, each at most 2^-8 relative,
+so every output lies within 2^-6 of its row's largest |o| (the worst seen
+in simulation at these shapes is 0.8 x 2^-7). The flash kernel's lse is
+f32 statistics of the same f32 scores: atol 1e-4. Rows with no live key
+are zeros from the kernel.
 """
 
 import numpy as np
 import pytest
 import torch
 
+from deepspeed_tpu_torch.ops import decode_attention as tda
+from deepspeed_tpu_torch.ops import flash_attention as tfa
 from deepspeed_tpu_torch.ops import paged_attention as tpa
 from deepspeed_tpu_torch.ops import quant_matmul as tqm
 from deepspeed_tpu_torch.quant_format import kv_quantize
 
 pytestmark = pytest.mark.cuda
+
+F32_TOL = 1e-4
+BF16_ROW_TOL = 2.0 ** -6
+
+
+def _hold(out, ref, f32):
+    """f32: |out - ref| <= F32_TOL. bf16 (ref on the inputs cast to f32):
+    |out - ref| <= BF16_ROW_TOL x the largest |ref| of its row (the last
+    dim)."""
+    ref = ref.float()
+    err = (out.float() - ref).abs()
+    if f32:
+        assert err.max().item() <= F32_TOL, err.max().item()
+        return
+    row = ref.abs().amax(-1, keepdim=True)
+    ratio = (err / row.clamp_min(1e-30)).max().item()
+    assert ratio <= BF16_ROW_TOL, (ratio, err.max().item())
+
+
+def _f32(*ts):
+    return tuple(t.float() for t in ts)
 
 
 @pytest.fixture
@@ -39,19 +67,17 @@ def _pa(dev, dtype, seed=0, B=5, nh=8, hd=64, bs=32, nblk=48, nbk=8, L=2):
     return (cast(q), cast(k), cast(v), bt.to(dev, torch.int32), lens.to(dev))
 
 
-@pytest.mark.parametrize("dtype,atol", [(torch.float32, 1e-4),
-                                        (torch.bfloat16, 3e-2)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("opts", [{}, {"alibi_slopes": np.linspace(1, .1, 8),
                                        "softcap": 10.0, "window": 40}])
-def test_paged_attention_kernel(dev, dtype, atol, opts):
+def test_paged_attention_kernel(dev, dtype, opts):
     q, k, v, bt, lens = _pa(dev, dtype)
     out = tpa.paged_attention(q, k, v, bt, lens, layer_idx=1, **opts)
-    ref = tpa.paged_attention_reference(q, k, v, bt, lens, layer_idx=1,
-                                        **opts)
+    ref = tpa.paged_attention_reference(*_f32(q, k, v), bt, lens,
+                                        layer_idx=1, **opts)
     torch.cuda.synchronize()
     live = lens > 0
-    torch.testing.assert_close(out[live].float(), ref[live].float(),
-                               atol=atol, rtol=0)
+    _hold(out[live], ref[live], dtype == torch.float32)
     assert torch.all(out[~live] == 0)
 
 
@@ -61,12 +87,14 @@ def test_paged_attention_kernel_int8(dev):
     vq, vs = kv_quantize(v)
     out = tpa.paged_attention(q, kq, vq, bt, lens, k_scale=ks, v_scale=vs,
                               layer_idx=0)
-    ref = tpa.paged_attention_reference(q, kq, vq, bt, lens, k_scale=ks,
-                                        v_scale=vs, layer_idx=0)
+    # the kernel's dequantized rows: x * scale rounded to bf16
+    kd, vd = ((x.float() * s.reshape(x.shape[:-1])[..., None]).to(q.dtype)
+              for x, s in ((kq, ks), (vq, vs)))
+    ref = tpa.paged_attention_reference(*_f32(q, kd, vd), bt, lens,
+                                        layer_idx=0)
     torch.cuda.synchronize()
     live = lens > 0
-    torch.testing.assert_close(out[live].float(), ref[live].float(),
-                               atol=3e-2, rtol=0)
+    _hold(out[live], ref[live], False)
 
 
 @pytest.mark.parametrize("M,K,N", [(8, 2048, 2560), (8, 5632, 2048),
@@ -83,3 +111,71 @@ def test_quant_matmul_kernel(dev, M, K, N, dtype):
     # f32 sums of K products of O(1) terms: relative to sqrt(K)
     tol = (2e-4 if dtype == torch.float32 else 2e-2) * K ** 0.5
     torch.testing.assert_close(out.float(), ref.float(), atol=tol, rtol=1e-2)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("T,cur", [(1, 1), (1, 700), (5, 300), (64, 1000)])
+@pytest.mark.parametrize("opts", [{}, {"alibi_slopes": np.linspace(1, .1, 8),
+                                       "softcap": 10.0, "window": 40}])
+def test_decode_attention_kernel(dev, dtype, T, cur, opts):
+    g = torch.Generator().manual_seed(T + cur)
+    k = torch.randn(2, 3, 8, 1000, 64, generator=g).to(dev, dtype)
+    v = torch.randn(2, 3, 8, 1000, 64, generator=g).to(dev, dtype)
+    q = torch.randn(3, 8, T, 64, generator=g).to(dev, dtype)
+    out = tda.decode_attention(q, k, v, cur, layer_idx=1, **opts)
+    ref = tda.decode_attention_reference(*_f32(q, k[1], v[1]), cur, **opts)
+    torch.cuda.synchronize()
+    _hold(out, ref, dtype == torch.float32)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hd", [32, 128])
+@pytest.mark.parametrize("T,cur", [(1, 500), (7, 500), (64, 333)])
+def test_decode_attention_kernel_head_dims(dev, dtype, hd, T, cur):
+    g = torch.Generator().manual_seed(hd + T)
+    k = torch.randn(2, 4, 500, hd, generator=g).to(dev, dtype)
+    v = torch.randn(2, 4, 500, hd, generator=g).to(dev, dtype)
+    q = torch.randn(2, 4, T, hd, generator=g).to(dev, dtype)
+    out = tda.decode_attention(q, k, v, cur)
+    ref = tda.decode_attention_reference(*_f32(q, k, v), cur)
+    torch.cuda.synchronize()
+    _hold(out, ref, dtype == torch.float32)
+
+
+def test_decode_attention_kernel_generate_shape(dev):
+    """The generate leg's call: T 1 at cur_len 1056 in the stacked
+    22-layer bf16 cache of 1280 (8 sequences, 32 heads of 64)."""
+    g = torch.Generator(device=dev).manual_seed(0)
+    k, v = (torch.randn(22, 8, 32, 1280, 64, device=dev,
+                        generator=g).to(torch.bfloat16) for _ in range(2))
+    q = torch.randn(8, 32, 1, 64, device=dev, generator=g).to(torch.bfloat16)
+    out = tda.decode_attention(q, k, v, 1056, layer_idx=21)
+    ref = tda.decode_attention_reference(*_f32(q, k[21], v[21]), 1056)
+    torch.cuda.synchronize()
+    _hold(out, ref, False)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("S,Sk,opts", [
+    (256, 256, {}), (200, 200, {"causal": False}), (100, 300, {}),
+    (256, 256, {"alibi_slopes": [0.5, 0.25], "window": 64, "softcap": 20.0}),
+    (128, 128, {"mask": "key"}), (192, 192, {"mask": "per_head"})])
+def test_flash_attention_fwd_kernel(dev, dtype, D, S, Sk, opts):
+    g = torch.Generator().manual_seed(S + Sk + D)
+    q = torch.randn(2, 2, S, D, generator=g).to(dev, dtype)
+    k = torch.randn(2, 2, Sk, D, generator=g).to(dev, dtype)
+    v = torch.randn(2, 2, Sk, D, generator=g).to(dev, dtype)
+    opts = dict(opts)
+    if opts.get("mask") == "key":          # batch row 1: every key masked
+        opts["mask"] = torch.zeros(2, 1, 1, Sk, dtype=torch.bool, device=dev)
+        opts["mask"][0, ..., :Sk // 2] = True
+    elif opts.get("mask") == "per_head":
+        opts["mask"] = torch.rand(2, 2, S, Sk, generator=g).to(dev) > 0.4
+    o, lse = tfa.flash_attention_fwd(q, k, v, **opts)
+    ro, rlse = tfa.flash_attention_reference(*_f32(q, k, v), **opts)
+    torch.cuda.synchronize()
+    live = rlse > -1e29
+    _hold(o[live], ro[live], dtype == torch.float32)
+    torch.testing.assert_close(lse[live], rlse[live], atol=F32_TOL, rtol=0)
+    assert torch.all(o[~live] == 0)
