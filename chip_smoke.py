@@ -5,11 +5,11 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It needs one
 GPU, ``nvcc`` and nothing from the network, and it imports neither JAX
 nor ``deepspeed_tpu``. Phases, each reported on its own line:
 
-1. **build** — compile the four hand-written kernels of
+1. **build** — compile the five sources of hand-written kernels in
    ``deepspeed_tpu_torch/ops/csrc`` (one ``nvcc`` per source, in parallel).
 2. **check** — each kernel against its plain PyTorch version at the
-   serving and generation paths' shapes, with the tolerance printed on
-   the line.
+   serving, generation and training paths' shapes, with the tolerance
+   printed on the line.
 3. **serve** — ``init_inference`` from a JSON config file, llama-1.1b at
    full width (22 layers, seeded random bf16 weights), ``.serve()``, 16
    greedy requests of 64..1024 prompt tokens (6 start with one 2-block
@@ -24,12 +24,21 @@ nor ``deepspeed_tpu``. Phases, each reported on its own line:
    vs ``impl="reference"``; then a 4-layer leg with a left-padded ragged
    batch, the int8 KV cache, a ``dtype: "int8"`` engine and seeded
    top-k / top-p / repetition-penalty sampling.
-6. **time** — prefill and decode tokens/s from the serve and generate
-   legs, the device busy share of a serve decode step and of a generate
-   prefill and decode step (torch.profiler), and
-   each kernel's device time on its path's work beside its bound, its
-   plain version's and a library call's (timed here only; the port never
-   calls it).
+6. **train** — ``initialize(model=..., config="ds_train.json")`` on
+   llama-1.1b at full width and depth (seeded f32 weights, bf16 compute
+   with an fp32 master, AdamW, WarmupLR, clipping, ZeRO stage 1), seq
+   1024, micro 2 x gas 2: six ``train_batch`` steps on one batch, each
+   launching ``flash_attention_fwd``, ``flash_attention_bwd_dq`` and
+   ``flash_attention_bwd_dkv`` 22 x 2 times; the loss falls; one
+   micro-batch's loss and grad norm vs ``attention_impl="reference"``;
+   one ``forward``/``backward``/``step`` cycle; the trained weights into
+   ``generate()``.
+7. **time** — prefill and decode tokens/s from the serve and generate
+   legs, train step time, tokens/s and 6N model TFLOP/s, the device busy
+   share of a serve decode step, of a generate prefill and decode step and
+   of a train step (torch.profiler), and each kernel's device time on its
+   path's work beside its bound, its plain version's and a library
+   call's (timed here only; the port never calls it).
 
 Launch counters are zeroed just before each leg and read just after it.
 Any failed check raises, so the script exits non-zero and prints no
@@ -56,7 +65,23 @@ GEN_BATCH, GEN_PROMPT, GEN_NEW = 8, 1024, 64
 KERNEL_MODULES = {"paged_attention": "paged_attention",
                   "quant_matmul": "quant_matmul",
                   "decode_attention": "decode_attention",
-                  "flash_attention_fwd": "flash_attention"}
+                  "flash_attention_fwd": "flash_attention",
+                  "flash_attention_bwd_dq": "flash_attention",
+                  "flash_attention_bwd_dkv": "flash_attention"}
+# the train leg: llama-1.1b, micro 2 x gas 2 of 1024 tokens
+TRAIN_MICRO, TRAIN_GAS, TRAIN_SEQ, TRAIN_STEPS = 2, 2, 1024, 6
+TRAIN_CONFIG = {
+    "train_batch_size": TRAIN_MICRO * TRAIN_GAS,
+    "train_micro_batch_size_per_gpu": TRAIN_MICRO,
+    "gradient_accumulation_steps": TRAIN_GAS,
+    "bf16": {"enabled": True},
+    "optimizer": {"type": "AdamW", "params": {"lr": 1e-4}},
+    "scheduler": {"type": "WarmupLR",
+                  "params": {"warmup_max_lr": 1e-4, "warmup_num_steps": 5}},
+    "gradient_clipping": 1.0,
+    "zero_optimization": {"stage": 1},
+    "steps_per_print": 1000,
+}
 SERVING = {"block_size": 32, "pool_blocks": 256, "max_batch": 8,
            "max_blocks_per_seq": 64}
 
@@ -151,11 +176,15 @@ F32_TOL = 1e-4
 BF16_ROW_TOL = 2.0 ** -6
 
 
-def _hold(label, out, ref, f32):
+def _hold(label, out, ref, f32, floor=0.0):
     """Hold a kernel's output against its plain version's, log the line
     and fail beyond the limit: f32 to F32_TOL absolute; bf16 (ref on the
     inputs cast to f32) to BF16_ROW_TOL of each row's largest |ref|, rows
-    along the last dim. Returns the largest absolute error."""
+    along the last dim. ``floor`` > 0 (gradients): a row whose values are
+    zero in exact arithmetic (the first causal query row's dq: one key,
+    softmax gradient 0) is rounding noise on both sides, so each row's
+    limit is taken against max(its largest |ref|, floor x the tensor's
+    largest). Returns the largest absolute error."""
     ref = ref.float()
     err = (out.float() - ref).abs()
     worst = err.max().item()
@@ -165,10 +194,12 @@ def _hold(label, out, ref, f32):
             fail(f"{label}: err {worst} > {F32_TOL}")
         return worst
     row = ref.abs().amax(-1, keepdim=True)
-    ratio = (err / row.clamp_min(1e-30)).max().item()
+    lo = max(floor * row.max().item(), 1e-30)
+    ratio = (err / row.clamp_min(lo)).max().item()
     log(f"check: {label} max_abs_err={worst:.3e} "
         f"max_err/row_max={ratio:.3e} tol={BF16_ROW_TOL:.3e}*row_max "
-        f"median_abs_ref={ref.abs().median().item():.3e}")
+        + (f"rows_at_floor={int((row < lo).sum())} " if floor else "")
+        + f"median_abs_ref={ref.abs().median().item():.3e}")
     if not ratio <= BF16_ROW_TOL:
         fail(f"{label}: err {ratio:.3e} x its row's max > {BF16_ROW_TOL}")
     return worst
@@ -247,6 +278,9 @@ def phase_check():
             fail(f"quant_matmul {M}x{K}x{N}: err {err} > {tol}")
     errs["decode_attention"] = check_decode_attention()
     errs["flash_attention_fwd"] = check_flash_attention()
+    bwd = check_flash_attention_bwd()
+    errs["flash_attention_bwd_dq"] = bwd["dq"]
+    errs["flash_attention_bwd_dkv"] = bwd["dkv"]
     return errs
 
 
@@ -387,6 +421,92 @@ def check_flash_attention():
             fail(f"flash_attention_fwd {name}: lse err {err_l}, dead rows "
                  f"{zero}")
         del q, k, v, o, lse, ro, rlse
+    return worst
+
+
+def check_flash_attention_bwd():
+    """flash_attention_bwd_dq and flash_attention_bwd_dkv vs the plain
+    backward on the same q, k, v, dO and the kernel forward's o and lse
+    (bf16: the plain version on those values cast to f32), each gradient
+    row (along D) to 2^-6 of its largest |grad|, f32 to F32_TOL, and
+    exact zeros for query rows with no live key and for keys nobody sees:
+    the training leg's shape (2 x 32 heads, S = 1024, D = 64, causal,
+    bf16), f32, D = 32 and 128, S = Sk = 1000, Sk > S, non-causal, a key
+    mask with one fully masked batch row, per-head and per-batch (q, k)
+    tiles, and ALiBi + window + softcap. Returns the largest absolute
+    error of dq and of dk/dv."""
+    import torch
+    from deepspeed_tpu_torch.ops import flash_attention as tfa
+    g = torch.Generator(device="cuda").manual_seed(10)
+    f32, bf = torch.float32, torch.bfloat16
+
+    def kv_mask(B, Sk):
+        lens = torch.tensor([0] + [Sk - 37 * i for i in range(B - 1)],
+                            device="cuda")          # batch row 0 all masked
+        return (torch.arange(Sk, device="cuda")[None, :]
+                < lens[:, None])[:, None, None, :]
+
+    def tile_mask(B, H, S, Sk):
+        m = torch.rand(B, H, S, Sk, device="cuda", generator=g) > 0.3
+        m[:, :, 5] = False                          # query row 5 all masked
+        return m
+
+    slopes = [0.5, 0.25, 0.125, 0.0625]
+    cases = [   # (name, dtype, B, H, S, Sk, D, kwargs)
+        ("training", bf, 2, 32, 1024, 1024, 64, {}),
+        ("f32 causal", f32, 2, 4, 1024, 1024, 64, {}),
+        ("D128 S1000", bf, 2, 4, 1000, 1000, 128, {}),
+        ("D32 S1000", bf, 2, 4, 1000, 1000, 32, {}),
+        ("f32 D128 non-causal", f32, 2, 4, 1000, 1000, 128,
+         {"causal": False}),
+        ("f32 D32 S1000", f32, 2, 4, 1000, 1000, 32, {}),
+        ("non-causal S1000", bf, 2, 4, 1000, 1000, 64, {"causal": False}),
+        ("Sk>S causal", bf, 2, 4, 300, 1000, 64, {}),
+        ("D32 Sk>S", bf, 2, 4, 100, 1000, 32, {}),
+        ("f32 Sk>S causal D128", f32, 2, 4, 300, 1000, 128, {}),
+        ("key mask, dead batch row", bf, 3, 4, 1000, 1000, 64,
+         {"causal": False, "mask": kv_mask(3, 1000)}),
+        ("f32 key mask causal", f32, 3, 4, 1024, 1024, 64,
+         {"mask": kv_mask(3, 1024)}),
+        ("per-head tiles", bf, 2, 4, 1024, 1024, 64,
+         {"mask": tile_mask(2, 4, 1024, 1024)}),
+        ("f32 per-batch tiles", f32, 2, 4, 1000, 1000, 64,
+         {"causal": False, "mask": tile_mask(2, 1, 1000, 1000)}),
+        ("alibi+window+softcap", bf, 2, 4, 1024, 1024, 64,
+         {"alibi_slopes": slopes, "window": 256, "softcap": 30.0}),
+        ("f32 alibi+window+softcap", f32, 2, 4, 1000, 1000, 128,
+         {"alibi_slopes": slopes, "window": 100, "softcap": 30.0}),
+    ]
+    worst = {"dq": 0.0, "dkv": 0.0}
+    for name, dtype, B, H, S, Sk, D, kw in cases:
+        q = torch.randn(B, H, S, D, device="cuda", generator=g).to(dtype)
+        k = torch.randn(B, H, Sk, D, device="cuda", generator=g).to(dtype)
+        v = torch.randn(B, H, Sk, D, device="cuda", generator=g).to(dtype)
+        do = torch.randn(B, H, S, D, device="cuda", generator=g).to(dtype)
+        o, lse = tfa.flash_attention_fwd(q, k, v, **kw)
+        delta = (do.float() * o.float()).sum(-1)
+        dq = tfa.flash_attention_bwd_dq(q, k, v, do, lse, delta, **kw)
+        dk, dv = tfa.flash_attention_bwd_dkv(q, k, v, do, lse, delta, **kw)
+        rq, rk, rv = tfa.flash_attention_bwd_reference(
+            q.float(), k.float(), v.float(), o.float(), lse, do.float(), **kw)
+        torch.cuda.synchronize()
+        dead_q = lse <= -1e29                       # rows with no live key
+        dead_k = (rk == 0).all(-1) & (rv == 0).all(-1)   # keys nobody sees
+        zeros = max(dq[dead_q].abs().max().item() if dead_q.any() else 0.0,
+                    dk[dead_k].abs().max().item() if dead_k.any() else 0.0,
+                    dv[dead_k].abs().max().item() if dead_k.any() else 0.0)
+        label = (f"flash_attention_bwd {name} {str(dtype)[6:]} B={B} H={H} "
+                 f"S={S} Sk={Sk} D={D} dead_q_rows={int(dead_q.sum())} "
+                 f"dead_k_rows={int(dead_k.sum())} dead_max={zeros}")
+        for gname, out, ref in (("dq", dq, rq), ("dk", dk, rk),
+                                ("dv", dv, rv)):
+            err = _hold(f"{label} {gname}:", out, ref, dtype == f32,
+                        floor=2.0 ** -10)
+            key = "dq" if gname == "dq" else "dkv"
+            worst[key] = max(worst[key], err)
+        if zeros != 0.0:
+            fail(f"flash_attention_bwd {name}: dead rows carry {zeros}")
+        del q, k, v, do, o, lse, delta, dq, dk, dv, rq, rk, rv
     return worst
 
 
@@ -793,7 +913,180 @@ def phase_generate(tmp, served):
     return counts, rates
 
 
-# ---------------------------------------------------------------- 6. time
+# ---------------------------------------------------------------- 6. train
+
+def _micro_loss_and_norm(module, micro):
+    """Loss and global grad norm (f32) of one micro-batch through the
+    module's compute parameters, leaving no grads behind."""
+    import torch
+    loss = module(micro, train=True)
+    loss.backward()
+    sq = sum(float(p.grad.float().square().sum()) for p in module.parameters()
+             if p.grad is not None)
+    module.zero_grad(set_to_none=True)
+    return float(loss.detach()), sq ** 0.5
+
+
+def _set_attention_impl(module, impl):
+    cfg = dataclasses.replace(module.cfg, attention_impl=impl)
+    module.cfg = cfg
+    for blk in module.blocks:
+        blk.cfg = cfg
+
+
+def phase_train(tmp):
+    """initialize(JSON ds_config) on llama-1.1b at full width and depth
+    (22 layers, seeded f32 weights, bf16 compute with an fp32 master,
+    AdamW + WarmupLR, clipping, ZeRO stage 1), seq 1024, micro 2 x gas 2:
+    TRAIN_STEPS train_batch steps on one repeated batch, each launching
+    the three flash kernels 22 x 2 times; the loss falls; one micro-batch's
+    loss and grad norm through the kernels vs attention_impl="reference";
+    one forward/backward/step cycle; the trained weights into generate()."""
+    import numpy as np
+    import torch
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.models.convert import scan_params
+    from deepspeed_tpu_torch.models.transformer import build_model
+    t0 = time.perf_counter()
+    model, cfg = build_model("llama-1.1b", fused_loss=True, loss_chunk=256,
+                             seed=0, device="cuda")
+    path = os.path.join(tmp, "ds_train.json")
+    with open(path, "w") as f:
+        json.dump(TRAIN_CONFIG, f)
+    engine, opt, _, sched = deepspeed_tpu_torch.initialize(model=model,
+                                                           config=path)
+    del model
+    n_params = sum(p.numel() for p in engine.module.parameters())
+    torch.cuda.synchronize()
+    log(f"train: llama-1.1b params={n_params} layers={cfg.num_layers} "
+        f"hidden={cfg.hidden_size} seq={TRAIN_SEQ} micro={TRAIN_MICRO} "
+        f"gas={TRAIN_GAS} optimizer={opt.name} schedule="
+        f"{type(sched).__name__} init_s={time.perf_counter() - t0:.2f} "
+        f"mem_gb={torch.cuda.memory_allocated() / 1e9:.2f}")
+    rng = np.random.default_rng(3)
+    B = TRAIN_MICRO * TRAIN_GAS
+    batch = {"input_ids": rng.integers(1, cfg.vocab_size, (B, TRAIN_SEQ))}
+    per_step = LLAMA_LAYERS * TRAIN_GAS
+    kernels = ("flash_attention_fwd", "flash_attention_bwd_dq",
+               "flash_attention_bwd_dkv")
+    metrics, step_s, total = [], [], dict.fromkeys(kernels, 0)
+    torch.cuda.reset_peak_memory_stats()
+    for step in range(TRAIN_STEPS):
+        _zero_counters()
+        t1 = time.perf_counter()
+        m = engine.train_batch(batch)       # ends in a host read
+        step_s.append(time.perf_counter() - t1)
+        c = _counters()
+        metrics.append(m)
+        for k in kernels:
+            total[k] += c[k]
+        if any(c[k] != per_step for k in kernels):
+            fail(f"train step {step} launched {c}: expected {per_step} of "
+                 f"each flash kernel")
+        if not np.isfinite(m["loss"]) or m["overflow"]:
+            fail(f"train step {step}: {m}")
+        log(f"train: step {step} loss={m['loss']:.5f} "
+            f"grad_norm={m['grad_norm']:.4f} lr={m['lr']:.3e} "
+            f"step_ms={1e3 * step_s[-1]:.1f} launches={json.dumps(c)}")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    micros = [{"input_ids": torch.as_tensor(
+        batch["input_ids"][i * TRAIN_MICRO:(i + 1) * TRAIN_MICRO],
+        device="cuda")} for i in range(TRAIN_GAS)]
+    with torch.no_grad():      # the batch's loss after the last step
+        final = float(np.mean([float(engine.module(mb)) for mb in micros]))
+    # step 1 reports the batch's loss after the first step
+    log(f"train: batch loss after the first step={metrics[1]['loss']:.5f} "
+        f"after the last step={final:.5f}")
+    if not final < metrics[1]["loss"]:
+        fail(f"train: loss did not fall ({metrics[1]['loss']} -> {final})")
+    micro = micros[0]
+    # one micro-batch through the kernels vs the plain attention
+    got = _micro_loss_and_norm(engine.module, micro)
+    _set_attention_impl(engine.module, "reference")
+    ref = _micro_loss_and_norm(engine.module, micro)
+    _set_attention_impl(engine.module, "auto")
+    torch.cuda.empty_cache()
+    rl, rn = (abs(a - b) / abs(b) for a, b in zip(got, ref))
+    # both paths compute in bf16 and round at different points (the
+    # reference rounds q k^T to bf16, the kernels keep f32 scores)
+    log(f"check: train micro-batch kernels vs attention_impl=reference "
+        f"loss={got[0]:.5f}/{ref[0]:.5f} rel_err={rl:.3e} tol=1e-3 "
+        f"grad_norm={got[1]:.5f}/{ref[1]:.5f} rel_err={rn:.3e} tol=1e-2")
+    if not (rl <= 1e-3 and rn <= 1e-2):
+        fail("train: the kernel path's loss or grad norm is off the "
+             "reference path's")
+    # the micro-batch API
+    half = {"input_ids": batch["input_ids"][:TRAIN_MICRO]}
+    for _ in range(TRAIN_GAS):
+        engine.forward(half)
+        engine.backward()
+    m = engine.step()
+    if m is None or not np.isfinite(m["loss"]):
+        fail(f"train: forward/backward/step gave {m}")
+    log(f"train: forward/backward/step loss={m['loss']:.5f} "
+        f"grad_norm={m['grad_norm']:.4f} steps={engine.global_steps} "
+        f"skipped={engine.skipped_steps}")
+    # the trained weights into generate()
+    gen = deepspeed_tpu_torch.init_inference(
+        cfg, {"dtype": "bf16"}, model_parameters=scan_params(engine.module))
+    prompt = torch.as_tensor(batch["input_ids"][:2, :64], device="cuda")
+    out = gen.generate(prompt, max_new_tokens=4)
+    torch.cuda.synchronize()
+    if tuple(out.shape) != (2, 68) or not torch.equal(out[:, :64], prompt):
+        fail(f"train: generate from the trained weights gave "
+             f"{tuple(out.shape)}")
+    log(f"train: generate from the trained weights out={tuple(out.shape)} "
+        f"new={out[:, 64:].tolist()}")
+    del gen
+    # timing: the steady steps (the first pays the first-call costs)
+    dt = float(np.median(step_s[1:]))
+    tokens = B * TRAIN_SEQ
+    rates = {"step_ms": 1e3 * dt, "tokens_s": tokens / dt,
+             "model_tflops_6n": 6.0 * n_params * tokens / dt / 1e12,
+             "step_ms_all": [round(1e3 * x, 3) for x in step_s],
+             "peak_mem_gb": peak_gb}
+    profile_train(engine, batch, 1e3 * dt)
+    return engine, total, rates
+
+
+def profile_train(engine, batch, step_ms):
+    """Device busy share of one steady train_batch step, against the
+    profiled step's wall time and against the unprofiled median step
+    (the profiler slows the host), and the device time by kind."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        engine.train_batch(batch)
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    _report_profile("train step", prof, wall_ms, 1)
+    kinds = {"flash_attention": ("flash_",), "gemm": ("nvjet", "gemm",
+                                                      "cutlass", "sm90_"),
+             "optimizer_foreach": ("multi_tensor",)}
+    by_kind = dict.fromkeys(list(kinds) + ["other"], 0.0)
+    for e in prof.key_averages():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        kind = next((k for k, keys in kinds.items()
+                     if any(x in e.key for x in keys)), "other")
+        by_kind[kind] += e.self_device_time_total / 1e3
+    busy = sum(by_kind.values())
+    host = sorted((e for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CPU),
+                  key=lambda e: -e.self_cpu_time_total)[:8]
+    log("time: train step host ms by op (self, profiled) " + json.dumps(
+        {e.key[:48]: [round(e.self_cpu_time_total / 1e3, 3), e.count]
+         for e in host}))
+    log(f"time: train step device ms by kind "
+        + json.dumps({k: round(v, 3) for k, v in by_kind.items()})
+        + f" busy_ms={busy:.3f} unprofiled_step_ms={step_ms:.3f} "
+        f"idle_share_of_unprofiled_step={1 - busy / step_ms:.3f}")
+
+
+# ---------------------------------------------------------------- 7. time
 
 def time_paged_attention():
     """One decode step's attention: 22 launches (one per layer) over 8
@@ -959,6 +1252,66 @@ def time_flash_attention():
                     f"D={D}, causal, bf16"}
 
 
+def _bwd_inputs(seed):
+    """The train leg's attention call: B 2 (micro), 32 heads, S = Sk =
+    1024, D = 64, causal, bf16, with its forward's o and lse."""
+    import torch
+    from deepspeed_tpu_torch.ops import flash_attention as tfa
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    q, k, v, do = (torch.randn(TRAIN_MICRO, 32, TRAIN_SEQ, 64, device="cuda",
+                               generator=g).to(torch.bfloat16)
+                   for _ in range(4))
+    o, lse = tfa.flash_attention_fwd(q, k, v, causal=True)
+    delta = (do.float() * o.float()).sum(-1)
+    return q, k, v, do, o, lse, delta
+
+
+def time_flash_attention_bwd():
+    """One train step's attention backward: 22 layers x 2 micro-batches =
+    44 launches of each kernel at the train leg's shape. plain_ms is the
+    plain backward (dq, dk and dv together) and library_ms SDPA's backward
+    (dq, dk and dv together) on the same inputs, each per step."""
+    import torch
+    import torch.nn.functional as F
+    from deepspeed_tpu_torch.ops import flash_attention as tfa
+    q, k, v, do, o, lse, delta = _bwd_inputs(8)
+    n = LLAMA_LAYERS * TRAIN_GAS
+    B, H, S, D = q.shape
+
+    def step(fn):
+        return lambda: [fn() for _ in range(n)]
+
+    qs, ks, vs = (t.detach().clone().requires_grad_() for t in (q, k, v))
+    so = F.scaled_dot_product_attention(qs, ks, vs, is_causal=True)
+    lib = device_ms(step(lambda: torch.autograd.grad(
+        so, (qs, ks, vs), do, retain_graph=True)))
+    plain = device_ms(step(lambda: tfa.flash_attention_bwd_reference(
+        q, k, v, o, lse, do, causal=True)), reps=2)
+    pairs = B * H * S * (S + 1) // 2             # live (q, k) pairs, causal
+    elem = B * H * S * D * 2                     # one bf16 [B, H, S, D]
+    rows = B * H * S * 4                         # one f32 [B, H, S]
+    out = {}
+    for name, fn, nbytes, flops in (
+            ("flash_attention_bwd_dq",
+             lambda: tfa.flash_attention_bwd_dq(q, k, v, do, lse, delta),
+             5 * elem + 2 * rows, 6 * D * pairs),
+            ("flash_attention_bwd_dkv",
+             lambda: tfa.flash_attention_bwd_dkv(q, k, v, do, lse, delta),
+             6 * elem + 2 * rows, 8 * D * pairs)):
+        bnd, by = bound_ms(n * nbytes, n * flops)
+        out[name] = {"ms": device_ms(step(fn)), "plain_ms": plain,
+                     "library_ms": lib, "wall_ms": wall_ms(step(fn)),
+                     "bound_ms": bnd, "bound_by": by,
+                     "bound_bytes_ms": 1e3 * n * nbytes / HBM_BYTES_S,
+                     "bound_ops_ms": 1e3 * n * flops / BF16_FLOPS,
+                     "work": f"one train step: {n} launches ({LLAMA_LAYERS} "
+                             f"layers x {TRAIN_GAS} micro), B={B}, H={H}, "
+                             f"S=Sk={S}, D={D}, causal, bf16; plain and "
+                             "library compute dq, dk and dv together"}
+    del q, k, v, do, o, lse, delta, qs, ks, vs, so
+    return out
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -1004,6 +1357,13 @@ def main():
     dm = time_decode_attention_multi()
     torch.cuda.empty_cache()
     fa = time_flash_attention()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        trainer, train_counts, train_rates = phase_train(tmp)
+    del trainer
+    torch.cuda.empty_cache()
+    log("time: train " + json.dumps(train_rates))
+    fb = time_flash_attention_bwd()
     kernels = []
     for kname, launches, t, src, tpu in (
             ("paged_attention", pa_launches, pa,
@@ -1017,14 +1377,29 @@ def main():
              "deepspeed_tpu/ops/pallas/decode_attention.py:43"),
             ("flash_attention_fwd", gen_counts["flash_attention_fwd"], fa,
              "deepspeed_tpu_torch/ops/csrc/flash_attention_fwd.cu",
-             "deepspeed_tpu/ops/pallas/flash_attention.py:154")):
+             "deepspeed_tpu/ops/pallas/flash_attention.py:154"),
+            ("flash_attention_bwd_dq", train_counts["flash_attention_bwd_dq"],
+             fb["flash_attention_bwd_dq"],
+             "deepspeed_tpu_torch/ops/csrc/flash_attention_bwd.cu",
+             "deepspeed_tpu/ops/pallas/flash_attention.py:285"),
+            ("flash_attention_bwd_dkv",
+             train_counts["flash_attention_bwd_dkv"],
+             fb["flash_attention_bwd_dkv"],
+             "deepspeed_tpu_torch/ops/csrc/flash_attention_bwd.cu",
+             "deepspeed_tpu/ops/pallas/flash_attention.py:330")):
         row = {"name": kname, "route": "cuda", "source": src,
                "replaces": tpu, "launches": launches,
                "max_abs_err": errs[kname]}
+        if kname == "flash_attention_fwd":
+            row["launches_by_path"] = {
+                "generate": launches,
+                "train": train_counts["flash_attention_fwd"]}
         row.update(t)
         kernels.append(row)
+        both = (f" [bytes {t['bound_bytes_ms']:.4f}, operations "
+                f"{t['bound_ops_ms']:.4f}]" if "bound_ops_ms" in t else "")
         log(f"time: {kname} ms={t['ms']:.4f} bound_ms={t['bound_ms']:.4f} "
-            f"({t['bound_by']}) plain_ms={t['plain_ms']:.4f} "
+            f"({t['bound_by']}){both} plain_ms={t['plain_ms']:.4f} "
             f"library_ms={t['library_ms']:.4f} "
             f"wall_ms={t['wall_ms']:.4f} [{t['work']}]")
     log(f"time: decode_attention T=64 ms={dm['ms']:.4f} "

@@ -6,12 +6,12 @@ or, with ``dtype: "int8"``, quantizes every matmul kernel per output
 channel (:func:`quantize_weights_int8`) and computes in bf16. It serves
 the continuous-batching ``ServingEngine`` (``serve()``'s single-engine
 branch) and runs ``generate()`` (``models.generation.generate``). The int8
-engine's ``forward()`` is ``forward_with_cache`` on a fresh cache. The
-bf16/f32 ``forward()`` runs the flax ``Transformer`` in the JAX package,
-so it waits for the training slice; it, ``tp_size > 1``,
-``load_checkpoint`` and the serving fleet, disaggregated and process
-placements raise ``NotImplementedError`` until later slices of the port
-(see ROADMAP.md).
+engine's ``forward()`` is ``forward_with_cache`` on a fresh cache; the
+bf16/f32 ``forward()`` applies the ``models.transformer.Transformer``
+module to the engine's weights, as the JAX engine applies its flax
+model. ``tp_size > 1``, ``load_checkpoint`` and the serving fleet,
+disaggregated and process placements raise ``NotImplementedError`` until
+later slices of the port (see ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -104,20 +104,26 @@ class InferenceEngine:
         if self.quantized:
             params = quantize_weights_int8(params)
         self.params = _cast(params, self.dtype, self.device)
+        self._module = None
         log_dist(f"InferenceEngine: dtype={dtype} device={self.device}"
                  + (" (int8 weight-only)" if self.quantized else ""),
                  ranks=[0])
 
     def forward(self, batch):
         """Logits [B, T, V] f32 of ``batch`` (ids [B, T], or a dict with
-        ``input_ids``). The int8 engine runs ``forward_with_cache`` on a
-        fresh cache; the bf16/f32 forward is the flax ``Transformer``'s,
-        which comes with the training slice."""
+        ``input_ids``). The bf16/f32 engine applies the ``Transformer``
+        module to its weights (built on first use); the int8 engine runs
+        ``forward_with_cache`` on a fresh cache."""
         if not self.quantized:
-            raise NotImplementedError(
-                "InferenceEngine.forward for a bf16/f32 engine runs the "
-                "training model, which " + _LATER + " (training slice); "
-                "generate() and serve() are ported")
+            if self._module is None:
+                from ..models.transformer import Transformer
+                self._module = Transformer(self.cfg, params=self.params)
+                self._module.requires_grad_(False)
+            if isinstance(batch, dict):
+                batch = {k: torch.as_tensor(v, device=self.device)
+                         for k, v in batch.items()}
+            with torch.no_grad():
+                return self._module(batch)
         ids = batch["input_ids"] if isinstance(batch, dict) else batch
         ids = torch.as_tensor(ids, device=self.device)
         B, T = ids.shape

@@ -1,12 +1,16 @@
-"""Transformer configuration, presets and the position helpers.
+"""The transformer: configuration, presets, position helpers, the
+trainable ``Transformer`` module and the losses.
 
-Counterpart of the config half of ``deepspeed_tpu/models/transformer.py``:
+Counterpart of ``deepspeed_tpu/models/transformer.py``:
 ``TransformerConfig`` (every field, same names and defaults, with torch
-dtypes), the presets, the activations, ``apply_rotary`` and
-``alibi_slopes``. The flax modules have no counterpart yet: the serving
-and generation paths run the layer math in ``serving/model_runner.py``
-and ``models/generation.py`` over a plain dict of stacked parameters,
-which :func:`init_params` builds from a seed.
+dtypes), the presets, the activations, ``apply_rotary``, ``alibi_slopes``
+and ``alibi_bias``; ``Block`` and ``Transformer`` as ``nn.Module``s for
+the decoder features of the gpt2 and llama presets; ``cross_entropy``,
+``causal_lm_loss``, ``masked_lm_loss``, the chunked fused CE and
+``build_model``. The serving and generation paths run the same layer math
+(``models/generation.py``'s ``_layer_norm`` and ``_dense``) over a plain
+dict of stacked parameters, which :func:`init_params` builds from a seed
+and :func:`models.convert.scan_params` takes from a trained module.
 
 Parameter layout (the JAX package's scan layout, names kept): dense
 kernels are ``[in, out]`` so the forward computes ``x @ W``, and every
@@ -16,6 +20,11 @@ block leaf is stacked ``[L, ...]`` under ``blocks``::
     blocks/{ln1, attn_qkv, attn_proj, ln2, mlp_gate, mlp_fc, mlp_proj,
             q_norm, k_norm, post_attn_norm, post_mlp_norm}
     ln_f                      lm_head/kernel [H, V]  (untied)
+
+The ``Transformer`` module keeps the flax tree's names with one
+``Block`` per layer: ``wte.embedding``, ``blocks.<i>.attn_qkv.kernel``
+[in, out], ``ln_f.scale``, ``lm_head.kernel``, ... so the bridge to the
+scan layout is a stack / unstack (``models/convert.py``).
 """
 
 from __future__ import annotations
@@ -26,6 +35,8 @@ from typing import Any, Dict, Optional, Tuple
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 Dtype = Any
 
@@ -320,3 +331,312 @@ def init_params(cfg: TransformerConfig, generator: torch.Generator,
             head["bias"] = const(0.0, V)
         params["lm_head"] = head
     return params
+
+
+def alibi_bias(num_heads: int, q_pos: torch.Tensor,
+               k_pos: torch.Tensor) -> torch.Tensor:
+    """Additive bias slope * (k - q): [B, H, Sq, Sk] for [B, S] positions,
+    [1, H, Sq, Sk] for shared [S]."""
+    slopes = torch.as_tensor(alibi_slopes(num_heads), dtype=torch.float32,
+                             device=q_pos.device)
+    if q_pos.dim() == 1:
+        q_pos, k_pos = q_pos[None], k_pos[None]
+    dist = (k_pos[:, None, :] - q_pos[:, :, None]).to(torch.float32)
+    return slopes[None, :, None, None] * dist[:, None]
+
+
+# ------------------------------------------------------------------ modules
+
+_NOT_PORTED = "is not ported to deepspeed_tpu_torch yet (see ROADMAP.md)"
+
+
+def _check_trainable(cfg: TransformerConfig) -> None:
+    """Raise for the config features the module does not implement."""
+    unported = {
+        "post_ln": cfg.post_ln, "parallel_residual": cfg.parallel_residual,
+        "moe_experts": cfg.moe_experts > 0,
+        "random-LTD (ltd_tokens)": cfg.ltd_tokens > 0, "pld": cfg.pld,
+        "remat": cfg.remat, "activation_quant": cfg.activation_quant,
+        "mlm_head": cfg.mlm_head, "no_lm_head": cfg.no_lm_head,
+        "token_type_vocab": cfg.token_type_vocab > 0,
+        "mixed per-layer layer_windows": cfg.uniform_window() is None,
+    }
+    bad = [name for name, on in unported.items() if on]
+    if bad:
+        raise NotImplementedError(f"Transformer: {', '.join(bad)} "
+                                  + _NOT_PORTED)
+    if cfg.fused_loss and cfg.final_logit_softcap:
+        raise ValueError("fused_loss with final_logit_softcap is not "
+                         "supported (the chunked CE has no softcap term)")
+    if cfg.fused_loss and not cfg.tie_embeddings and cfg.lm_head_bias:
+        raise ValueError("fused_loss with a biased untied lm_head is not "
+                         "supported (the chunked CE has no bias term)")
+
+
+class _Leaf(nn.Module):
+    """A flax leaf module's parameters under their flax names (kernel,
+    bias, scale, embedding); ``p`` is the dict the shared layer math
+    (``generation._dense`` / ``_layer_norm``) takes."""
+
+    def __init__(self, tensors: Dict[str, torch.Tensor]):
+        super().__init__()
+        for name, t in tensors.items():
+            self.register_parameter(name, nn.Parameter(t))
+
+    @property
+    def p(self) -> Dict[str, torch.Tensor]:
+        return dict(self.named_parameters(recurse=False))
+
+
+class Block(nn.Module):
+    """One pre-LN transformer block (the JAX package's ``Block``):
+    LayerNorm or RMSNorm, a fused qkv projection with GQA, qk-norm,
+    rotary or ALiBi positions, attention through ``ops.attention`` (the
+    flash kernels), the Gemma-2 sandwich norms, GELU or SwiGLU MLP."""
+
+    def __init__(self, cfg: TransformerConfig,
+                 params: Dict[str, Dict[str, torch.Tensor]]):
+        super().__init__()
+        self.cfg = cfg
+        for name, leaf in params.items():
+            self.add_module(name, _Leaf(leaf))
+
+    def forward(self, x: torch.Tensor, attn_mask=None, positions=None,
+                window: int = 0) -> torch.Tensor:
+        from ..ops.attention import attention
+        from .generation import _dense, _layer_norm
+        cfg = self.cfg
+        B, S, H = x.shape
+        nh, kv, hd = cfg.num_heads, cfg.kv_heads, cfg.head_dim
+        if nh % kv != 0:
+            raise ValueError(f"num_heads {nh} not divisible by "
+                             f"num_kv_heads {kv}")
+        rms, eps = cfg.norm == "rmsnorm", cfg.layer_norm_eps
+        act = _ACTIVATIONS[cfg.activation]
+        h = _layer_norm(x, self.ln1.p, eps, rms)
+        qkv = _dense(h, self.attn_qkv.p)
+        q, k, v = torch.split(qkv, [nh * hd, kv * hd, kv * hd], dim=-1)
+        to_heads = lambda t, n: t.reshape(B, S, n, hd).transpose(1, 2)
+        q, k, v = to_heads(q, nh), to_heads(k, kv), to_heads(v, kv)
+        if cfg.qk_norm:
+            q = _layer_norm(q, self.q_norm.p, eps, rms=True)
+            k = _layer_norm(k, self.k_norm.p, eps, rms=True)
+        if cfg.pos_embed == "rotary":
+            pos = (positions if positions is not None
+                   else torch.arange(S, device=x.device))
+            inv_freq = cfg.rope_inv_freq(S)
+            q = apply_rotary(q, pos, cfg.rotary_dim, cfg.rotary_interleaved,
+                             cfg.rope_theta, inv_freq=inv_freq)
+            k = apply_rotary(k, pos, cfg.rotary_dim, cfg.rotary_interleaved,
+                             cfg.rope_theta, inv_freq=inv_freq)
+        if kv != nh:
+            # GQA: each k/v head serves nh / kv query heads (jnp.repeat);
+            # autograd sums dk and dv back onto the kv heads
+            k = torch.repeat_interleave(k, nh // kv, dim=1)
+            v = torch.repeat_interleave(v, nh // kv, dim=1)
+        bias = slopes = None
+        if cfg.pos_embed == "alibi":
+            if positions is None:   # slopes: the kernels build the bias
+                slopes = torch.as_tensor(alibi_slopes(nh),
+                                         dtype=torch.float32, device=x.device)
+            else:                   # per-sample positions: materialized
+                bias = alibi_bias(nh, positions, positions)
+        out = attention(q, k, v, causal=cfg.causal, mask=attn_mask, bias=bias,
+                        alibi_slopes=slopes, sm_scale=cfg.attn_scale,
+                        impl=cfg.attention_impl, window=window,
+                        softcap=cfg.attn_softcap)
+        out = out.transpose(1, 2).reshape(B, S, nh * hd)
+        out = _dense(out, self.attn_proj.p)
+        if cfg.post_block_norms:
+            out = _layer_norm(out, self.post_attn_norm.p, eps, rms)
+        x = x + out
+        m = _layer_norm(x, self.ln2.p, eps, rms)
+        if cfg.gated_mlp:
+            m = act(_dense(m, self.mlp_gate.p)) * _dense(m, self.mlp_fc.p)
+        else:
+            m = act(_dense(m, self.mlp_fc.p))
+        m = _dense(m, self.mlp_proj.p)
+        if cfg.post_block_norms:
+            m = _layer_norm(m, self.post_mlp_norm.p, eps, rms)
+        return x + m
+
+
+class Transformer(nn.Module):
+    """GPT-style LM (the JAX package's ``Transformer``): ``forward(batch,
+    train=False)`` takes ids [B, S] or a dict with ``input_ids`` and
+    optional ``attention_mask`` (key padding), ``position_ids`` and
+    ``labels``; it returns f32 logits [B, S, V], or the loss with
+    ``cfg.fused_loss``.
+
+    ``params``: a scan-layout (or per-layer) parameter dict of tensors,
+    e.g. from :func:`init_params` or ``models.convert.params_from_jax``;
+    default :func:`init_params` from ``seed`` in float32 on ``device``.
+    Parameters keep their dtype; the forward computes in ``cfg.dtype``
+    (the flax modules' ``dtype`` with ``param_dtype=float32``), so f32
+    parameters receive f32 gradients through the casts and compute-dtype
+    parameters their own. Features the module does not implement raise
+    ``NotImplementedError`` at construction (dropout > 0 when training)."""
+
+    def __init__(self, cfg: TransformerConfig,
+                 params: Optional[Dict[str, Any]] = None, *, seed: int = 0,
+                 device=None):
+        super().__init__()
+        _check_trainable(cfg)
+        self.cfg = cfg
+        if params is None:
+            gen = torch.Generator(device=device or "cpu").manual_seed(seed)
+            params = init_params(cfg, gen, dtype=torch.float32)
+        from .generation import ensure_scan_layout
+        params = ensure_scan_layout(params, cfg.num_layers)
+        for name, sub in params.items():
+            if name != "blocks":
+                self.add_module(name, _Leaf(sub))
+        layers = [{} for _ in range(cfg.num_layers)]
+        for name, sub in params["blocks"].items():
+            for key, t in sub.items():
+                for li, part in enumerate(t.unbind(0)):
+                    layers[li].setdefault(name, {})[key] = part.clone()
+        self.blocks = nn.ModuleList(Block(cfg, p) for p in layers)
+
+    def forward(self, batch, train: bool = False):
+        from .generation import _dense, _layer_norm
+        cfg = self.cfg
+        if train and cfg.dropout > 0.0:
+            raise NotImplementedError("Transformer: dropout > 0 in training "
+                                      + _NOT_PORTED)
+        if isinstance(batch, dict):
+            ids = batch["input_ids"]
+            attention_mask = batch.get("attention_mask")
+            position_ids = batch.get("position_ids")
+        else:
+            ids, attention_mask, position_ids = batch, None, None
+        emb = self.wte.embedding
+        dev, dt = emb.device, cfg.dtype
+        ids = torch.as_tensor(ids, device=dev).long()
+        B, S = ids.shape
+        rms, eps = cfg.norm == "rmsnorm", cfg.layer_norm_eps
+        user_positions = None
+        if position_ids is not None:
+            user_positions = torch.as_tensor(position_ids, device=dev).long()
+        x = F.embedding(ids, emb).to(dt)
+        if cfg.embed_scale is not None:
+            x = x * torch.tensor(cfg.embed_scale, dtype=dt)
+        if cfg.pos_embed == "learned":
+            pos = (user_positions if user_positions is not None
+                   else torch.arange(S, device=dev)[None])
+            x = x + F.embedding(pos, self.wpe.embedding).to(dt)
+        if cfg.embed_ln:
+            x = _layer_norm(x, self.ln_emb.p, eps, rms)
+        attn_mask = None
+        if attention_mask is not None:        # [B, 1, 1, S] key padding
+            attn_mask = torch.as_tensor(attention_mask, device=dev).to(
+                torch.bool)[:, None, None, :]
+        window = cfg.uniform_window() or 0
+        for blk in self.blocks:
+            x = blk(x, attn_mask, user_positions, window)
+        x = _layer_norm(x, self.ln_f.p, eps, rms)
+        if cfg.fused_loss:
+            head = (emb if cfg.tie_embeddings
+                    else self.lm_head.kernel.transpose(0, 1))
+            labels = (batch.get("labels", ids) if isinstance(batch, dict)
+                      else ids)
+            labels = torch.as_tensor(labels, device=dev).long()
+            return _fused_causal_lm_loss(x, head, labels, cfg.loss_chunk,
+                                         shift=1 if cfg.causal else 0)
+        if cfg.tie_embeddings:
+            logits = x @ emb.to(dt).transpose(0, 1)
+        else:
+            logits = _dense(x, self.lm_head.p)
+        logits = logits.to(torch.float32)
+        if cfg.final_logit_softcap:
+            from ..ops.attention import apply_softcap
+            logits = apply_softcap(logits, cfg.final_logit_softcap)
+        return logits
+
+
+def _chunk_nll(xc: torch.Tensor, emb_c: torch.Tensor, tc: torch.Tensor):
+    valid = (tc != -100).to(torch.float32)           # ignore_index + padding
+    safe = tc.clamp_min(0)
+    logits = (xc @ emb_c.transpose(0, 1)).to(torch.float32)
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = logits.gather(-1, safe[..., None])[..., 0]
+    return ((logz - gold) * valid).sum(), valid.sum()
+
+
+def _fused_causal_lm_loss(x: torch.Tensor, emb: torch.Tensor,
+                          labels: torch.Tensor, chunk: int,
+                          shift: int = 1) -> torch.Tensor:
+    """Next-token CE without materializing [B, S, V] logits.
+
+    x: [B, S, H] final hidden states (compute dtype); emb: [V, H] head
+    (the tied embedding, or the untied head kernel transposed); labels
+    [B, S]. The vocab projection runs per sequence chunk under
+    ``torch.utils.checkpoint``, so forward and backward hold one [B,
+    chunk, V] logits tile at a time. The chunk matmul accumulates in f32
+    inside the tensor cores and rounds its logits to the compute dtype
+    before the f32 logsumexp (the JAX package keeps f32 logits: a bf16
+    run differs by that rounding, an f32 run not at all). Drops the last
+    position (``shift``), ignores -100 labels and divides by max(count,
+    1)."""
+    B, S, H = x.shape
+    if shift:
+        xs, tgt = x[:, :-1], labels[:, 1:]
+    else:
+        xs, tgt = x, labels
+    n = S - shift
+    chunk = min(chunk, n)
+    pad = (-n) % chunk
+    if pad:
+        xs = F.pad(xs, (0, 0, 0, pad))
+        tgt = F.pad(tgt, (0, pad), value=-100)
+    emb_c = emb.to(x.dtype)
+    total = torch.zeros((), dtype=torch.float32, device=x.device)
+    count = torch.zeros((), dtype=torch.float32, device=x.device)
+    for c0 in range(0, n + pad, chunk):
+        nll, cnt = checkpoint(_chunk_nll, xs[:, c0:c0 + chunk], emb_c,
+                              tgt[:, c0:c0 + chunk], use_reentrant=False)
+        total = total + nll
+        count = count + cnt
+    return total / torch.clamp(count, min=1.0)
+
+
+def fused_loss_passthrough(outputs, batch):
+    """Engine loss_fn for models built with fused_loss=True (outputs IS
+    the loss)."""
+    return outputs
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                  ignore_index: int = -100) -> torch.Tensor:
+    """Token-level CE with an ignore mask; f32 accumulation."""
+    labels = torch.as_tensor(labels, device=logits.device).long()
+    valid = labels != ignore_index
+    safe = torch.where(valid, labels, torch.zeros_like(labels))
+    logits = logits.to(torch.float32)
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = logits.gather(-1, safe[..., None])[..., 0]
+    nll = (logz - gold) * valid
+    return nll.sum() / torch.clamp(valid.sum(), min=1)
+
+
+def causal_lm_loss(logits: torch.Tensor, batch) -> torch.Tensor:
+    """Next-token prediction: shift logits and labels by one."""
+    labels = (batch.get("labels", batch["input_ids"])
+              if isinstance(batch, dict) else batch)
+    labels = torch.as_tensor(labels, device=logits.device)
+    return cross_entropy(logits[:, :-1], labels[:, 1:])
+
+
+def masked_lm_loss(logits: torch.Tensor, batch) -> torch.Tensor:
+    """BERT-style: loss only where labels != -100."""
+    return cross_entropy(logits, batch["labels"])
+
+
+def build_model(name_or_cfg, *, seed: int = 0, device=None,
+                **overrides) -> Tuple[Transformer, TransformerConfig]:
+    """(Transformer, cfg) for a preset name (with config overrides) or a
+    ``TransformerConfig``; parameters from :func:`init_params` at ``seed``,
+    float32 on ``device`` (default the CPU)."""
+    cfg = (name_or_cfg if isinstance(name_or_cfg, TransformerConfig)
+           else get_config(name_or_cfg, **overrides))
+    return Transformer(cfg, seed=seed, device=device), cfg

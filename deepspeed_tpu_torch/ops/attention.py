@@ -1,8 +1,8 @@
 """Attention helpers (counterpart of ``deepspeed_tpu/ops/attention.py``):
 the plain masks and biases, ``mha_reference`` (the oracle the flash
-kernel's plain version is built from), ``apply_softcap`` and the
-``paged_attention`` dispatch of the serving path. The ``attention`` router
-serves the training model and waits for the training slice (ROADMAP.md).
+kernels' plain versions are built from), ``apply_softcap``, the
+``paged_attention`` dispatch of the serving path and the ``attention``
+router of the training model.
 """
 
 from __future__ import annotations
@@ -91,11 +91,11 @@ def mha_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """Multi-head attention, plain PyTorch. q, k, v: [batch, heads, seq,
     head_dim]; f32 softmax over :func:`masked_logits`, P cast to q's
     dtype before P V. A row with no live key softmaxes to uniform weights,
-    as in the JAX reference. Dropout comes with the training slice."""
+    as in the JAX reference. Attention dropout is not ported (it raises)."""
     if dropout_rate > 0.0:
         raise NotImplementedError(
-            "mha_reference dropout is not ported yet: it comes with the "
-            "training slice (see ROADMAP.md)")
+            "attention dropout is not ported to deepspeed_tpu_torch yet "
+            "(see ROADMAP.md)")
     logits = masked_logits(q, k, causal=causal, bias=bias, mask=mask,
                            sm_scale=sm_scale, softcap=softcap)
     probs = torch.softmax(logits, dim=-1).to(q.dtype)
@@ -136,3 +136,72 @@ def paged_attention(q, k_pool, v_pool, block_tables, context_lens, *,
         return _decode(q, k_pool, v_pool, block_tables, context_lens, **kw)
     return paged_attention_reference(q, k_pool, v_pool, block_tables,
                                      context_lens, q_start=q_start, **kw)
+
+
+def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+              causal: bool = True,
+              bias: Optional[torch.Tensor] = None,
+              mask: Optional[torch.Tensor] = None,
+              alibi_slopes=None,
+              sm_scale: Optional[float] = None,
+              dropout_rate: float = 0.0,
+              impl: str = "auto",
+              window: int = 0,
+              softcap: float = 0.0) -> torch.Tensor:
+    """Dispatching attention entry point (the JAX package's ``attention``).
+    Shapes: [batch, heads, seq, head_dim]; differentiable.
+
+    Kernel-capable calls (no dropout, no generic additive ``bias``, no
+    non-causal window) with ``impl`` "auto" or "flash" go to
+    ``ops.flash_attention.flash_attention`` whatever the device; its
+    wrappers then launch the CUDA kernels for CUDA tensors and run their
+    plain versions for CPU tensors. Other calls, and ``impl="reference"``,
+    run ``mha_reference`` with the ALiBi bias and the window mask
+    materialized (a non-kernel-capable "flash" call warns first, as in the
+    JAX package). Not ported yet, and raising with a pointer to ROADMAP.md:
+    attention dropout, the ``ring`` / ``ulysses`` sequence-parallel and
+    ``sparse`` impls, and the block-sparse sliding-window kernel that the
+    JAX package takes for a pure causal window (no mask, bias, ALiBi,
+    softcap or dropout)."""
+    window = 0 if window is None or window <= 0 else int(window)
+    if dropout_rate > 0.0:
+        raise NotImplementedError(
+            "attention dropout is not ported to deepspeed_tpu_torch yet "
+            "(see ROADMAP.md)")
+    if impl in ("ring", "ulysses", "sparse"):
+        raise NotImplementedError(
+            f"attention impl={impl!r} is not ported to deepspeed_tpu_torch "
+            "yet (see ROADMAP.md)")
+    if impl not in ("auto", "flash", "reference"):
+        raise ValueError(f"attention impl {impl!r}: expected 'auto', "
+                         "'flash', 'reference', 'ring', 'ulysses' or "
+                         "'sparse'")
+    kernel_capable = bias is None and (window == 0 or causal)
+    pure_window = (window and causal and mask is None and bias is None
+                   and alibi_slopes is None and softcap == 0.0)
+    if impl in ("auto", "flash") and pure_window:
+        raise NotImplementedError(
+            "a pure sliding window runs the block-sparse sliding-window "
+            "kernel in the JAX package, which is not ported to "
+            "deepspeed_tpu_torch yet (see ROADMAP.md, long-context slice); "
+            "use attention_impl='reference'")
+    if impl == "flash" and not kernel_capable:
+        from ..utils.logging import logger
+        logger.warning("attention impl='flash' has no kernel path for a "
+                       "generic bias or a non-causal window; falling back "
+                       "to reference")
+    if impl in ("auto", "flash") and kernel_capable:
+        from .flash_attention import flash_attention
+        return flash_attention(q, k, v, causal=causal, sm_scale=sm_scale,
+                               mask=mask, alibi_slopes=alibi_slopes,
+                               window=window, softcap=softcap)
+    if alibi_slopes is not None:
+        ali = alibi_bias_from_slopes(alibi_slopes, q.shape[-2], k.shape[-2],
+                                     device=q.device)
+        bias = ali if bias is None else bias + ali
+    if window:
+        wmask = window_mask(q.shape[-2], k.shape[-2], window, device=q.device)
+        mask = wmask if mask is None else \
+            torch.as_tensor(mask, device=q.device).to(torch.bool) & wmask
+    return mha_reference(q, k, v, causal=causal, bias=bias, mask=mask,
+                         sm_scale=sm_scale, softcap=softcap)

@@ -1,28 +1,41 @@
-"""Flash attention forward: the CUDA kernel's wrapper and its plain version.
+"""Flash attention forward and backward: the CUDA kernels' wrappers and
+their plain versions.
 
-Replaces the forward Pallas kernel of
-``deepspeed_tpu/ops/pallas/flash_attention.py`` (``_fwd_kernel``, launched
-by ``_fwd``; entry ``flash_attention``, mask classification
-``_normalize_mask``). The backward kernels (``_bwd_dq_kernel``,
-``_bwd_dkv_kernel``) come with the training slice.
+Replaces the Pallas kernels of ``deepspeed_tpu/ops/pallas/flash_attention.py``:
+the forward ``_fwd_kernel`` (launched by ``_fwd``) and the backward
+``_bwd_dq_kernel`` and ``_bwd_dkv_kernel`` (launched by ``_bwd``); entry
+``flash_attention`` with its custom VJP, mask classification
+``_normalize_mask``.
 
-* :func:`flash_attention` — o; :func:`flash_attention_fwd` — (o, lse) with
-  lse [B, H, S] f32, the row logsumexp the backward will need. For CUDA
-  tensors they launch ``csrc/flash_attention_fwd.cu`` (or raise); for CPU
-  tensors they run :func:`flash_attention_reference`.
-* :func:`flash_attention_reference` — the plain PyTorch version: the JAX
-  wrapper's ``_reference_fallback`` (``mha_reference`` with the ALiBi bias
-  and the window mask materialized), whose lse is the logsumexp of the
-  masked f32 logits.
+* :func:`flash_attention` — o, differentiable: a ``torch.autograd.Function``
+  whose forward is :func:`flash_attention_fwd` and whose backward is
+  :func:`flash_attention_bwd`.
+* :func:`flash_attention_fwd` — (o, lse) with lse [B, H, S] f32, the row
+  logsumexp the backward reads. CUDA tensors launch
+  ``csrc/flash_attention_fwd.cu`` (or raise); CPU tensors run
+  :func:`flash_attention_reference`.
+* :func:`flash_attention_bwd` — (dq, dk, dv) from q, k, v, o, lse and dO.
+  ``delta = rowsum(dO * O)`` is a plain torch op (the JAX package computes
+  it outside its kernels too); CUDA tensors then launch the two kernels of
+  ``csrc/flash_attention_bwd.cu`` through :func:`flash_attention_bwd_dq`
+  and :func:`flash_attention_bwd_dkv` (or raise); CPU tensors run
+  :func:`flash_attention_bwd_reference`.
+* :func:`flash_attention_reference` — the plain forward: the JAX wrapper's
+  ``_reference_fallback`` (``mha_reference`` with the ALiBi bias and the
+  window mask materialized), whose lse is the logsumexp of the masked f32
+  logits.
+* :func:`flash_attention_bwd_reference` — the plain backward: the kernels'
+  lse-based formula over the same dense masked logits.
 
-A query row with no live key: the kernel writes zeros (as the TPU kernel
-does), the plain version the uniform average that the JAX reference
-gives. Comparisons hold live rows against each other and the kernel's
-rows to zero.
+A query row with no live key: the forward kernel writes zeros (as the TPU
+kernel does), the plain forward the uniform average that the JAX reference
+gives; both backward versions give that row, and its keys' share of dk and
+dv, exactly zero gradients (the TPU kernel's ``_bwd_p`` guard).
 
-The TPU wrapper's block sizes and its fallback for shapes that do not
-tile have no counterpart: the CUDA kernel masks any ragged edge itself.
-Bound on the card: bytes at head_dim 64 (see the CUDA source).
+The TPU wrapper's block sizes and its fallback for shapes that do not tile
+have no counterpart: the CUDA kernels mask any ragged edge themselves.
+Bound on the card: bytes for the forward at head_dim 64, operations for the
+backward (see the CUDA sources).
 """
 
 from __future__ import annotations
@@ -34,13 +47,15 @@ import numpy as np
 import torch
 
 from . import build
-from .attention import (alibi_bias_from_slopes, masked_logits, window_mask)
+from .attention import (NEG_INF, alibi_bias_from_slopes, masked_logits,
+                        window_mask)
 
-__all__ = ["flash_attention", "flash_attention_fwd",
-           "flash_attention_reference"]
+__all__ = ["flash_attention", "flash_attention_fwd", "flash_attention_bwd",
+           "flash_attention_bwd_dq", "flash_attention_bwd_dkv",
+           "flash_attention_reference", "flash_attention_bwd_reference"]
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_HEAD_DIMS = (32, 64, 128)                  # csrc/flash_attention_fwd.cu
+_HEAD_DIMS = (32, 64, 128)                  # csrc/flash_attention_*.cu
 
 
 def _lib() -> ctypes.CDLL:
@@ -53,6 +68,52 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
+def _bwd_lib() -> ctypes.CDLL:
+    lib = build.load("flash_attention_bwd")
+    P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    for fn, n_ptr in ((lib.flash_attention_bwd_dq_launch, 10),
+                      (lib.flash_attention_bwd_dkv_launch, 11)):
+        if fn.argtypes is None:
+            fn.argtypes = [P] * n_ptr + [I] * 8 + [F] * 2 + [I, P]
+            fn.restype = ctypes.c_int
+    return lib
+
+
+def _options(causal, sm_scale, mask, alibi_slopes, window, softcap):
+    return dict(causal=causal, sm_scale=sm_scale, mask=mask,
+                alibi_slopes=alibi_slopes,
+                window=int(window) if window and window > 0 else 0,
+                softcap=float(softcap) if softcap else 0.0)
+
+
+def _plain(q: torch.Tensor, impl: str) -> bool:
+    """True for the plain version: CPU tensors or impl="reference"."""
+    if impl not in ("auto", "reference"):
+        raise ValueError(f"flash_attention impl {impl!r}: expected 'auto' "
+                         "or 'reference'")
+    return impl == "reference" or q.device.type == "cpu"
+
+
+class _FlashAttention(torch.autograd.Function):
+    """o = flash_attention_fwd(q, k, v)[0]; the backward runs
+    flash_attention_bwd on the saved q, k, v, o and lse (the JAX
+    package's ``_flash`` custom VJP)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, kw, impl):
+        o, lse = flash_attention_fwd(q, k, v, impl=impl, **kw)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.kw, ctx.impl = kw, impl
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, o, lse, do, impl=ctx.impl,
+                                         **ctx.kw)
+        return dq, dk, dv, None, None
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True,
                     sm_scale: Optional[float] = None,
@@ -62,10 +123,12 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     softcap: float = 0.0,
                     impl: str = "auto") -> torch.Tensor:
     """Flash attention. q, k, v: [batch, heads, seq, head_dim] -> o of q's
-    shape and dtype. See :func:`flash_attention_fwd`."""
-    return flash_attention_fwd(q, k, v, causal=causal, sm_scale=sm_scale,
-                               mask=mask, alibi_slopes=alibi_slopes,
-                               window=window, softcap=softcap, impl=impl)[0]
+    shape and dtype, differentiable in q, k and v. See
+    :func:`flash_attention_fwd` for the options."""
+    kw = _options(causal, sm_scale, mask, alibi_slopes, window, softcap)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        return _FlashAttention.apply(q, k, v, kw, impl)
+    return flash_attention_fwd(q, k, v, impl=impl, **kw)[0]
 
 
 def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -88,26 +151,13 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     Gemma-2 tanh cap. Causal masking, ALiBi and the window place query i at
     position i + Sk - S.
 
-    Forward only: inputs that require grad raise (the backward kernels
-    come with the training slice). CUDA tensors launch the kernel and raise
-    on what it does not take (fp16, a head dim other than 32, 64 or 128,
-    a non-causal window); CPU tensors, or ``impl="reference"``, run the
-    plain version."""
-    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
-        raise NotImplementedError(
-            "flash_attention is forward-only in deepspeed_tpu_torch so far: "
-            "its backward kernels come with the training slice (see "
-            "ROADMAP.md); call it under torch.no_grad() or on tensors that "
-            "do not require grad")
-    kw = dict(causal=causal, sm_scale=sm_scale, mask=mask,
-              alibi_slopes=alibi_slopes,
-              window=int(window) if window and window > 0 else 0,
-              softcap=float(softcap) if softcap else 0.0)
-    if impl == "reference" or (impl == "auto" and q.device.type == "cpu"):
+    Not differentiable itself (:func:`flash_attention` is). CUDA tensors
+    launch the kernel and raise on what it does not take (fp16, a head dim
+    other than 32, 64 or 128, a non-causal window); CPU tensors, or
+    ``impl="reference"``, run the plain version."""
+    kw = _options(causal, sm_scale, mask, alibi_slopes, window, softcap)
+    if _plain(q, impl):
         return flash_attention_reference(q, k, v, **kw)
-    if impl != "auto":
-        raise ValueError(f"flash_attention impl {impl!r}: expected 'auto' "
-                         "or 'reference'")
     return _launch(q, k, v, **kw)
 
 
@@ -139,10 +189,10 @@ def _normalize_mask(mask, B: int, H: int, S: int, Sk: int, device):
     return None, qkm.to(torch.int32).contiguous(), per_head
 
 
-def _launch(q, k, v, *, causal, sm_scale, mask, alibi_slopes, window,
-            softcap):
+def _check_inputs(q, k, v, causal, window, name):
+    """Validate what the kernels take; returns (B, H, S, Sk, D)."""
     if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
-        raise ValueError(f"flash_attention takes q, k, v [B, H, S, D], got "
+        raise ValueError(f"{name} takes q, k, v [B, H, S, D], got "
                          f"{tuple(q.shape)}, {tuple(k.shape)}, "
                          f"{tuple(v.shape)}")
     B, H, S, D = q.shape
@@ -150,30 +200,30 @@ def _launch(q, k, v, *, causal, sm_scale, mask, alibi_slopes, window,
     if (k.shape[0], k.shape[1], k.shape[3]) != (B, H, D):
         raise ValueError(f"k/v {tuple(k.shape)} do not fit q {tuple(q.shape)}")
     if q.dtype not in _DTYPES:
-        raise TypeError(f"flash_attention kernel: dtype {q.dtype} (expected "
-                        "float32 or bfloat16)")
+        raise TypeError(f"{name} kernel: dtype {q.dtype} (expected float32 "
+                        "or bfloat16)")
     if k.dtype != q.dtype or v.dtype != q.dtype:
-        raise TypeError(f"flash_attention kernel: q, k, v dtypes {q.dtype}, "
+        raise TypeError(f"{name} kernel: q, k, v dtypes {q.dtype}, "
                         f"{k.dtype}, {v.dtype} differ")
     if D not in _HEAD_DIMS:
-        raise ValueError(f"flash_attention kernel: head_dim {D} (expected "
-                         f"one of {_HEAD_DIMS})")
+        raise ValueError(f"{name} kernel: head_dim {D} (expected one of "
+                         f"{_HEAD_DIMS})")
     if window and not causal:
-        raise ValueError("flash_attention kernel: a sliding window needs "
-                         "causal=True (the JAX wrapper sends a non-causal "
-                         "window to its reference)")
+        raise ValueError(f"{name} kernel: a sliding window needs causal=True "
+                         "(the JAX wrapper sends a non-causal window to its "
+                         "reference)")
     dev = q.device
     if dev.type != "cuda":
-        raise ValueError(f"flash_attention kernel needs CUDA tensors, q is "
-                         f"on {dev}")
+        raise ValueError(f"{name} kernel needs CUDA tensors, q is on {dev}")
     if k.device != dev or v.device != dev:
-        raise ValueError("flash_attention: q, k, v on different devices")
+        raise ValueError(f"{name}: q, k, v on different devices")
     if B * H > 65535:
-        raise ValueError(f"flash_attention kernel: B * H = {B * H} > 65535")
-    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
-    if q.data_ptr() % 16 or k.data_ptr() % 16 or v.data_ptr() % 16:
-        raise ValueError("flash_attention kernel: q, k, v must be 16-byte "
-                         "aligned")
+        raise ValueError(f"{name} kernel: B * H = {B * H} > 65535")
+    return B, H, S, Sk, D
+
+
+def _extras(mask, alibi_slopes, B, H, S, Sk, dev):
+    """(kvm, qkm, per_head, slopes) in the kernels' layouts."""
     kvm = qkm = None
     per_head = False
     if mask is not None:
@@ -182,20 +232,155 @@ def _launch(q, k, v, *, causal, sm_scale, mask, alibi_slopes, window,
     if alibi_slopes is not None:
         slopes = torch.as_tensor(alibi_slopes, dtype=torch.float32,
                                  device=dev).reshape(H).contiguous()
+    return kvm, qkm, per_head, slopes
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def _aligned(*ts):
+    ts = [t.contiguous() for t in ts]
+    if any(t.data_ptr() % 16 for t in ts):
+        raise ValueError("flash_attention kernels: inputs must be 16-byte "
+                         "aligned")
+    return ts
+
+
+def _launch(q, k, v, *, causal, sm_scale, mask, alibi_slopes, window,
+            softcap):
+    B, H, S, Sk, D = _check_inputs(q, k, v, causal, window, "flash_attention")
+    dev = q.device
+    q, k, v = _aligned(q, k, v)
+    kvm, qkm, per_head, slopes = _extras(mask, alibi_slopes, B, H, S, Sk, dev)
     o = torch.empty_like(q)
     lse = torch.empty((B, H, S), dtype=torch.float32, device=dev)
     scale = sm_scale if sm_scale is not None else 1.0 / float(np.sqrt(D))
     lib = _lib()
-    ptr = lambda t: None if t is None else t.data_ptr()
     stream = torch.cuda.current_stream(dev).cuda_stream
     flash_attention_fwd.launches += 1
     err = lib.flash_attention_fwd_launch(
-        ptr(q), ptr(k), ptr(v), ptr(kvm), ptr(qkm), ptr(slopes), ptr(o),
-        ptr(lse), B * H, H, S, Sk, D, int(bool(causal)), int(window),
-        int(per_head), float(scale), float(softcap), _DTYPES[q.dtype],
-        stream)
+        _ptr(q), _ptr(k), _ptr(v), _ptr(kvm), _ptr(qkm), _ptr(slopes),
+        _ptr(o), _ptr(lse), B * H, H, S, Sk, D, int(bool(causal)),
+        int(window), int(per_head), float(scale), float(softcap),
+        _DTYPES[q.dtype], stream)
     build.check(lib, "flash_attention_fwd", err)
     return o, lse
+
+
+# ------------------------------------------------------------------ backward
+
+def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        o: torch.Tensor, lse: torch.Tensor, do: torch.Tensor,
+                        *,
+                        causal: bool = True,
+                        sm_scale: Optional[float] = None,
+                        mask=None,
+                        alibi_slopes=None,
+                        window: int = 0,
+                        softcap: float = 0.0,
+                        impl: str = "auto"
+                        ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Flash attention backward -> (dq, dk, dv) in the inputs' dtypes.
+
+    o and lse [B, H, S] are the forward's outputs, do the gradient of o;
+    the options are the forward's. CUDA tensors compute delta = rowsum(dO *
+    O) in f32 and launch the dq and the dk/dv kernels (or raise on what
+    they do not take); CPU tensors, or ``impl="reference"``, run
+    :func:`flash_attention_bwd_reference`."""
+    kw = _options(causal, sm_scale, mask, alibi_slopes, window, softcap)
+    if _plain(q, impl):
+        return flash_attention_bwd_reference(q, k, v, o, lse, do, **kw)
+    delta = (do.float() * o.float()).sum(-1)
+    args = _bwd_args(q, k, v, do, lse, delta, **kw)
+    return (_launch_dq(*args),) + _launch_dkv(*args)
+
+
+def flash_attention_bwd_dq(q, k, v, do, lse, delta, *, causal=True,
+                           sm_scale=None, mask=None, alibi_slopes=None,
+                           window=0, softcap=0.0) -> torch.Tensor:
+    """The dq kernel alone (CUDA tensors; raises otherwise): dq [B, H, S,
+    D] from q, k, v, do, lse [B, H, S] and delta [B, H, S] f32."""
+    kw = _options(causal, sm_scale, mask, alibi_slopes, window, softcap)
+    return _launch_dq(*_bwd_args(q, k, v, do, lse, delta, **kw))
+
+
+def flash_attention_bwd_dkv(q, k, v, do, lse, delta, *, causal=True,
+                            sm_scale=None, mask=None, alibi_slopes=None,
+                            window=0, softcap=0.0
+                            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The dk/dv kernel alone (CUDA tensors; raises otherwise): (dk, dv)
+    [B, H, Sk, D], same inputs as :func:`flash_attention_bwd_dq`."""
+    kw = _options(causal, sm_scale, mask, alibi_slopes, window, softcap)
+    return _launch_dkv(*_bwd_args(q, k, v, do, lse, delta, **kw))
+
+
+flash_attention_bwd_dq.launches = 0
+flash_attention_bwd_dkv.launches = 0
+
+
+def _bwd_args(q, k, v, do, lse, delta, *, causal, sm_scale, mask,
+              alibi_slopes, window, softcap):
+    """Validated, contiguous kernel operands shared by both launches."""
+    B, H, S, Sk, D = _check_inputs(q, k, v, causal, window,
+                                   "flash_attention_bwd")
+    dev = q.device
+    if do.shape != q.shape or do.dtype != q.dtype or do.device != dev:
+        raise ValueError(f"flash_attention_bwd: dO {tuple(do.shape)} "
+                         f"{do.dtype} does not match q {tuple(q.shape)} "
+                         f"{q.dtype}")
+    for name, t in (("lse", lse), ("delta", delta)):
+        if tuple(t.shape) != (B, H, S) or t.dtype != torch.float32 \
+                or t.device != dev:
+            raise ValueError(f"flash_attention_bwd: {name} must be [B, H, S] "
+                             f"float32 on {dev}, got {tuple(t.shape)} "
+                             f"{t.dtype}")
+    q, k, v, do, lse, delta = _aligned(q, k, v, do, lse, delta)
+    kvm, qkm, per_head, slopes = _extras(mask, alibi_slopes, B, H, S, Sk, dev)
+    scale = sm_scale if sm_scale is not None else 1.0 / float(np.sqrt(D))
+    ptrs = tuple(_ptr(t) for t in (q, k, v, do, lse, delta, kvm, qkm,
+                                   slopes))
+    ints = (B * H, H, S, Sk, D, int(bool(causal)), int(window), int(per_head))
+    tail = (float(scale), float(softcap), _DTYPES[q.dtype],
+            torch.cuda.current_stream(dev).cuda_stream)
+    keep = (q, k, v, do, lse, delta, kvm, qkm, slopes)   # alive until launch
+    return q, k, ptrs, ints, tail, keep
+
+
+def _launch_dq(q, k, ptrs, ints, tail, keep):
+    lib = _bwd_lib()
+    dq = torch.empty_like(q)
+    flash_attention_bwd_dq.launches += 1
+    err = lib.flash_attention_bwd_dq_launch(*ptrs, dq.data_ptr(), *ints,
+                                            *tail)
+    build.check(lib, "flash_attention_bwd", err)
+    return dq
+
+
+def _launch_dkv(q, k, ptrs, ints, tail, keep):
+    lib = _bwd_lib()
+    dk, dv = torch.empty_like(k), torch.empty_like(k)
+    flash_attention_bwd_dkv.launches += 1
+    err = lib.flash_attention_bwd_dkv_launch(*ptrs, dk.data_ptr(),
+                                             dv.data_ptr(), *ints, *tail)
+    build.check(lib, "flash_attention_bwd", err)
+    return dk, dv
+
+
+# ------------------------------------------------------------ plain versions
+
+def _dense_masks(S, Sk, mask, alibi_slopes, window, device):
+    """The ALiBi bias and the window mask materialized, as the JAX
+    wrapper's ``_reference_fallback`` builds them."""
+    bias = None
+    if alibi_slopes is not None:
+        bias = alibi_bias_from_slopes(alibi_slopes, S, Sk, device=device)
+    if mask is not None:
+        mask = torch.as_tensor(mask, device=device).to(torch.bool)
+    if window:
+        wmask = window_mask(S, Sk, window, device=device)
+        mask = wmask if mask is None else mask & wmask
+    return bias, mask
 
 
 def flash_attention_reference(q: torch.Tensor, k: torch.Tensor,
@@ -207,22 +392,58 @@ def flash_attention_reference(q: torch.Tensor, k: torch.Tensor,
                               window: int = 0,
                               softcap: float = 0.0
                               ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Plain PyTorch version -> (o, lse): the JAX ``_reference_fallback``
+    """Plain PyTorch forward -> (o, lse): the JAX ``_reference_fallback``
     (ALiBi bias and window mask materialized, ``mha_reference`` math) and
     the logsumexp of its masked f32 logits."""
-    S, Sk = q.shape[-2], k.shape[-2]
-    dev = q.device
-    bias = None
-    if alibi_slopes is not None:
-        bias = alibi_bias_from_slopes(alibi_slopes, S, Sk, device=dev)
-    if mask is not None:
-        mask = torch.as_tensor(mask, device=dev).to(torch.bool)
-    if window:
-        wmask = window_mask(S, Sk, window, device=dev)
-        mask = wmask if mask is None else mask & wmask
+    bias, mask = _dense_masks(q.shape[-2], k.shape[-2], mask, alibi_slopes,
+                              window, q.device)
     logits = masked_logits(q, k, causal=causal, bias=bias, mask=mask,
                            sm_scale=sm_scale, softcap=softcap)
     lse = torch.logsumexp(logits, dim=-1)
     probs = torch.softmax(logits, dim=-1).to(q.dtype)
     ct = torch.promote_types(probs.dtype, v.dtype)
     return torch.einsum("bhqk,bhkd->bhqd", probs.to(ct), v.to(ct)), lse
+
+
+def flash_attention_bwd_reference(q: torch.Tensor, k: torch.Tensor,
+                                  v: torch.Tensor, o: torch.Tensor,
+                                  lse: torch.Tensor, do: torch.Tensor, *,
+                                  causal: bool = True,
+                                  sm_scale: Optional[float] = None,
+                                  mask=None,
+                                  alibi_slopes=None,
+                                  window: int = 0,
+                                  softcap: float = 0.0
+                                  ) -> Tuple[torch.Tensor, torch.Tensor,
+                                             torch.Tensor]:
+    """Plain PyTorch backward -> (dq, dk, dv): the TPU kernels' formula on
+    the dense masked f32 logits s (:func:`masked_logits`, the forward's
+    pipeline): p = exp(s - lse), exactly 0 where s is masked (so a row with
+    no live key gets zero gradients), dp = dO V^T, dS = p (dp - delta)
+    dsoft scale with delta = rowsum(dO * O) and dsoft the softcap's
+    derivative 1 - tanh^2, P and dS rounded to the value dtype before dV =
+    P^T dO, dK = dS^T Q, dQ = dS K; products summed in f32."""
+    D = q.shape[-1]
+    scale = sm_scale if sm_scale is not None else 1.0 / float(np.sqrt(D))
+    bias, mask = _dense_masks(q.shape[-2], k.shape[-2], mask, alibi_slopes,
+                              window, q.device)
+    s = masked_logits(q, k, causal=causal, bias=bias, mask=mask,
+                      sm_scale=scale, softcap=softcap)
+    f32 = torch.float32
+    p = torch.where(s > 0.5 * NEG_INF,
+                    torch.exp(s - lse.to(f32)[..., None]),
+                    torch.zeros((), dtype=f32, device=s.device))
+    qf, kf, vf, dof = (t.to(f32) for t in (q, k, v, do))
+    delta = (dof * o.to(f32)).sum(-1, keepdim=True)
+    dp = torch.einsum("bhqd,bhkd->bhqk", dof, vf)
+    ds = p * (dp - delta)
+    if softcap:
+        raw = torch.einsum("bhqd,bhkd->bhqk", qf, kf) * scale
+        ds = ds * (1.0 - torch.tanh(raw / softcap) ** 2)
+    ds = ds * scale
+    pr = p.to(v.dtype).to(f32)                      # P, dS in the value dtype
+    dsr = ds.to(q.dtype).to(f32)
+    dq = torch.einsum("bhqk,bhkd->bhqd", dsr, kf)
+    dk = torch.einsum("bhqk,bhqd->bhkd", dsr, qf)
+    dv = torch.einsum("bhqk,bhqd->bhkd", pr, dof)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)

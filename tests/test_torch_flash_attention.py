@@ -226,8 +226,8 @@ def test_bf16_close_to_jax_kernel():
 
 
 def test_forward_only_and_argument_guards():
-    """Inputs that require grad run under no_grad (they raise outside it:
-    tests/test_torch_isolation.py)."""
+    """Inputs that require grad run the forward alone under no_grad
+    (outside it the autograd Function: tests/test_torch_flash_attention_bwd.py)."""
     q = torch.randn(1, 2, 16, 32, requires_grad=True)
     k, v = torch.randn(1, 2, 16, 32), torch.randn(1, 2, 16, 32)
     with torch.no_grad():

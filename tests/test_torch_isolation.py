@@ -22,7 +22,8 @@ import pytest
 import torch
 
 import deepspeed_tpu_torch
-from deepspeed_tpu_torch.models.transformer import get_config, init_params
+from deepspeed_tpu_torch.models.transformer import (Transformer, get_config,
+                                                    init_params)
 from deepspeed_tpu_torch.ops import build
 from deepspeed_tpu_torch.ops import decode_attention as tda
 from deepspeed_tpu_torch.ops import flash_attention as tfa
@@ -94,6 +95,13 @@ def test_default_device_raises_without_cuda(monkeypatch):
         ServingEngine(cfg, params)
     with pytest.raises(RuntimeError, match='device="cpu"'):
         ServingEngine(cfg, params, device="cuda")
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        deepspeed_tpu_torch.initialize(model=Transformer(cfg),
+                                       config={"train_batch_size": 2})
+    eng, *_ = deepspeed_tpu_torch.initialize(model=Transformer(cfg),
+                                             config={"train_batch_size": 2},
+                                             device="cpu")
+    assert eng.device.type == "cpu"
     srv = deepspeed_tpu_torch.init_inference(
         cfg, {"dtype": "float32"}, model_parameters=params,
         device="cpu").serve({"block_size": 16, "pool_blocks": 8,
@@ -136,11 +144,14 @@ def test_kernel_calls_raise_instead_of_falling_back():
 
 
 def test_attention_kernel_calls_raise_instead_of_falling_back():
-    """decode_attention and flash_attention_fwd: CPU tensors in the launch
-    path, fp16, T > 64, a non-causal window and inputs that require grad
-    raise; nothing launches."""
+    """decode_attention and the flash kernels: CPU tensors in the launch
+    path, fp16, T > 64 and a non-causal window raise; inputs on the CPU
+    that require grad take the plain forward and backward; nothing
+    launches."""
     before = (tda.decode_attention.launches,
               tfa.flash_attention_fwd.launches)
+    before_bwd = (tfa.flash_attention_bwd_dq.launches,
+                  tfa.flash_attention_bwd_dkv.launches)
     dkw = dict(window=None, sm_scale=None, layer_idx=None, alibi_slopes=None,
                softcap=0.0)
     q, kc = torch.randn(2, 4, 1, 64), torch.randn(2, 4, 100, 64)
@@ -163,10 +174,17 @@ def test_attention_kernel_calls_raise_instead_of_falling_back():
         tfa._launch(x, x, x, **dict(fkw, causal=False, window=8))
     with pytest.raises(ValueError, match="head_dim"):
         tfa._launch(*(torch.randn(1, 2, 16, 48),) * 3, **fkw)
-    with pytest.raises(NotImplementedError, match="training slice"):
-        tfa.flash_attention(x.requires_grad_(), x.detach(), x.detach())
+    with pytest.raises(ValueError, match="CUDA"):
+        tfa.flash_attention_bwd_dq(x, x, x, x, x[..., 0], x[..., 0])
+    # CPU tensors that require grad: the autograd path runs both plain
+    # versions and launches nothing
+    xg = x.clone().requires_grad_()
+    tfa.flash_attention(xg, x, x).sum().backward()
+    assert xg.grad.shape == x.shape
     assert (tda.decode_attention.launches,
-            tfa.flash_attention_fwd.launches) == before
+            tfa.flash_attention_fwd.launches,
+            tfa.flash_attention_bwd_dq.launches,
+            tfa.flash_attention_bwd_dkv.launches) == before + before_bwd
 
 
 def test_unported_options_raise():
@@ -192,7 +210,11 @@ def test_unported_options_raise():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         eng.serve(dict(serve, fleet={"replicas": 2}))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        eng.forward([[1, 2]])
+        deepspeed_tpu_torch.initialize(
+            model=Transformer(cfg), device="cpu",
+            config={"train_batch_size": 2, "zero_optimization": {
+                "stage": 3, "offload_param": {"device": "cpu"},
+                "offload_optimizer": {"device": "cpu"}}})
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         eng.load_checkpoint("ckpt")
     with pytest.raises(NotImplementedError, match="ROADMAP"):

@@ -12,7 +12,11 @@ to bf16 before P V and of its output to bf16, each at most 2^-8 relative,
 so every output lies within 2^-6 of its row's largest |o| (the worst seen
 in simulation at these shapes is 0.8 x 2^-7). The flash kernel's lse is
 f32 statistics of the same f32 scores: atol 1e-4. Rows with no live key
-are zeros from the kernel.
+are zeros from the kernel. The flash backward kernels are held the same
+way, gradient rows along D; a row whose gradient is zero in exact
+arithmetic (the first causal query row) is rounding noise on both sides,
+so each row's limit is taken against max(its largest |grad|, 2^-10 x the
+tensor's largest).
 """
 
 import numpy as np
@@ -31,17 +35,19 @@ F32_TOL = 1e-4
 BF16_ROW_TOL = 2.0 ** -6
 
 
-def _hold(out, ref, f32):
+def _hold(out, ref, f32, floor=0.0):
     """f32: |out - ref| <= F32_TOL. bf16 (ref on the inputs cast to f32):
     |out - ref| <= BF16_ROW_TOL x the largest |ref| of its row (the last
-    dim)."""
+    dim), or x ``floor`` times the tensor's largest |ref| where that is
+    more (gradient rows that are zero in exact arithmetic)."""
     ref = ref.float()
     err = (out.float() - ref).abs()
     if f32:
         assert err.max().item() <= F32_TOL, err.max().item()
         return
     row = ref.abs().amax(-1, keepdim=True)
-    ratio = (err / row.clamp_min(1e-30)).max().item()
+    lo = max(floor * row.max().item(), 1e-30)
+    ratio = (err / row.clamp_min(lo)).max().item()
     assert ratio <= BF16_ROW_TOL, (ratio, err.max().item())
 
 
@@ -179,3 +185,60 @@ def test_flash_attention_fwd_kernel(dev, dtype, D, S, Sk, opts):
     _hold(o[live], ro[live], dtype == torch.float32)
     torch.testing.assert_close(lse[live], rlse[live], atol=F32_TOL, rtol=0)
     assert torch.all(o[~live] == 0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D", [32, 64, 128])
+@pytest.mark.parametrize("S,Sk,opts", [
+    (256, 256, {}), (200, 200, {"causal": False}), (100, 300, {}),
+    (256, 256, {"alibi_slopes": [0.5, 0.25], "window": 64, "softcap": 20.0}),
+    (128, 128, {"mask": "key"}), (192, 192, {"mask": "per_head"})])
+def test_flash_attention_bwd_kernels(dev, dtype, D, S, Sk, opts):
+    g = torch.Generator().manual_seed(S + Sk + D + 1)
+    q = torch.randn(2, 2, S, D, generator=g).to(dev, dtype)
+    k = torch.randn(2, 2, Sk, D, generator=g).to(dev, dtype)
+    v = torch.randn(2, 2, Sk, D, generator=g).to(dev, dtype)
+    do = torch.randn(2, 2, S, D, generator=g).to(dev, dtype)
+    opts = dict(opts)
+    if opts.get("mask") == "key":          # batch row 1: every key masked
+        opts["mask"] = torch.zeros(2, 1, 1, Sk, dtype=torch.bool, device=dev)
+        opts["mask"][0, ..., :Sk // 2] = True
+    elif opts.get("mask") == "per_head":
+        opts["mask"] = torch.rand(2, 2, S, Sk, generator=g).to(dev) > 0.4
+    o, lse = tfa.flash_attention_fwd(q, k, v, **opts)
+    dq, dk, dv = tfa.flash_attention_bwd(q, k, v, o, lse, do, **opts)
+    refs = tfa.flash_attention_bwd_reference(*_f32(q, k, v, o), lse,
+                                             do.float(), **opts)
+    torch.cuda.synchronize()
+    for out, ref in zip((dq, dk, dv), refs):
+        _hold(out, ref, dtype == torch.float32, floor=2.0 ** -10)
+    dead = lse <= -1e29
+    assert torch.all(dq[dead] == 0)
+    if opts.get("mask") is not None and opts["mask"].shape[1] == 1 \
+            and opts["mask"].shape[2] == 1:
+        assert torch.all(dk[1] == 0) and torch.all(dv[1] == 0)
+
+
+def test_flash_attention_autograd_on_the_card(dev):
+    """The autograd Function launches the forward and both backward
+    kernels once each; its grads match the plain backward."""
+    g = torch.Generator(device=dev).manual_seed(3)
+    q, k, v = (torch.randn(2, 4, 256, 64, device=dev, generator=g)
+               .to(torch.bfloat16).requires_grad_() for _ in range(3))
+    before = (tfa.flash_attention_fwd.launches,
+              tfa.flash_attention_bwd_dq.launches,
+              tfa.flash_attention_bwd_dkv.launches)
+    o = tfa.flash_attention(q, k, v)
+    do = torch.randn_like(o)
+    o.backward(do)
+    assert (tfa.flash_attention_fwd.launches,
+            tfa.flash_attention_bwd_dq.launches,
+            tfa.flash_attention_bwd_dkv.launches) == tuple(
+                b + 1 for b in before)
+    _, lse = tfa.flash_attention_fwd(*(t.detach() for t in (q, k, v)))
+    refs = tfa.flash_attention_bwd_reference(
+        *_f32(q.detach(), k.detach(), v.detach(), o.detach()), lse,
+        do.float())
+    torch.cuda.synchronize()
+    for t, ref in zip((q, k, v), refs):
+        _hold(t.grad, ref, False, floor=2.0 ** -10)
