@@ -5,7 +5,7 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It needs one
 GPU, ``nvcc`` and nothing from the network, and it imports neither JAX
 nor ``deepspeed_tpu``. Phases, each reported on its own line:
 
-1. **build** — compile the five sources of hand-written kernels in
+1. **build** — compile the six sources of hand-written kernels in
    ``deepspeed_tpu_torch/ops/csrc`` (one ``nvcc`` per source, in parallel).
 2. **check** — each kernel against its plain PyTorch version at the
    serving, generation and training paths' shapes, with the tolerance
@@ -33,12 +33,23 @@ nor ``deepspeed_tpu``. Phases, each reported on its own line:
    micro-batch's loss and grad norm vs ``attention_impl="reference"``;
    one ``forward``/``backward``/``step`` cycle; the trained weights into
    ``generate()``.
-7. **time** — prefill and decode tokens/s from the serve and generate
-   legs, train step time, tokens/s and 6N model TFLOP/s, the device busy
-   share of a serve decode step, of a generate prefill and decode step and
-   of a train step (torch.profiler), and each kernel's device time on its
-   path's work beside its bound, its plain version's and a library
-   call's (timed here only; the port never calls it).
+7. **long** — ``initialize(model=..., config="ds_long.json")`` on
+   llama-1.1b at full width and depth, seq 4096, micro 1 x gas 2, with a
+   ``sparse_attention`` section (DeepSpeed's "fixed" defaults,
+   unidirectional, blocks of 64): four ``train_batch`` steps, each
+   launching ``block_sparse_attention_fwd``, ``_bwd_dq`` and ``_bwd_dkv``
+   22 x 2 times and no flash kernel; the loss falls; one micro-batch on 2
+   layers of the trained weights vs the dense-mask route. Then the window
+   leg: 4 layers with a uniform 1024-token window, three steps through
+   the same kernels, vs ``attention_impl="reference"`` on 2 layers.
+8. **time** — prefill and decode tokens/s from the serve and generate
+   legs, train and long step time, tokens/s and 6N model TFLOP/s, the
+   device busy share of a serve decode step, of a generate prefill and
+   decode step and of a train and a long step (torch.profiler), and each
+   kernel's device time on its path's work beside its bound, its plain
+   version's and a library call's (timed here only; the port never calls
+   it), plus the block-sparse kernels over four layouts beside the flash
+   kernels on the same shape.
 
 Launch counters are zeroed just before each leg and read just after it.
 Any failed check raises, so the script exits non-zero and prints no
@@ -67,7 +78,10 @@ KERNEL_MODULES = {"paged_attention": "paged_attention",
                   "decode_attention": "decode_attention",
                   "flash_attention_fwd": "flash_attention",
                   "flash_attention_bwd_dq": "flash_attention",
-                  "flash_attention_bwd_dkv": "flash_attention"}
+                  "flash_attention_bwd_dkv": "flash_attention",
+                  "block_sparse_attention_fwd": "block_sparse_attention",
+                  "block_sparse_attention_bwd_dq": "block_sparse_attention",
+                  "block_sparse_attention_bwd_dkv": "block_sparse_attention"}
 # the train leg: llama-1.1b, micro 2 x gas 2 of 1024 tokens
 TRAIN_MICRO, TRAIN_GAS, TRAIN_SEQ, TRAIN_STEPS = 2, 2, 1024, 6
 TRAIN_CONFIG = {
@@ -82,6 +96,22 @@ TRAIN_CONFIG = {
     "zero_optimization": {"stage": 1},
     "steps_per_print": 1000,
 }
+# the long-context leg: llama-1.1b at seq 4096, micro 1 x gas 2, through
+# DeepSpeed's documented "fixed" sparse_attention defaults, made
+# unidirectional and with blocks of 64 tokens
+LONG_SEQ, LONG_STEPS, LONG_CHECK_LAYERS = 4096, 4, 2
+SPARSE_SECTION = {"mode": "fixed", "block": 64, "num_local_blocks": 4,
+                  "num_global_blocks": 1, "attention": "unidirectional"}
+LONG_CONFIG = dict(TRAIN_CONFIG, train_batch_size=2,
+                   train_micro_batch_size_per_gpu=1,
+                   gradient_accumulation_steps=2,
+                   sparse_attention=SPARSE_SECTION)
+# the window leg: a uniform causal window of 1024 on 4 layers (depth cut)
+WINDOW, WINDOW_LAYERS, WINDOW_STEPS = 1024, 4, 3
+BS_KERNELS = ("block_sparse_attention_fwd", "block_sparse_attention_bwd_dq",
+              "block_sparse_attention_bwd_dkv")
+FLASH_KERNELS = ("flash_attention_fwd", "flash_attention_bwd_dq",
+                 "flash_attention_bwd_dkv")
 SERVING = {"block_size": 32, "pool_blocks": 256, "max_batch": 8,
            "max_blocks_per_seq": 64}
 
@@ -176,7 +206,7 @@ F32_TOL = 1e-4
 BF16_ROW_TOL = 2.0 ** -6
 
 
-def _hold(label, out, ref, f32, floor=0.0):
+def _hold(label, out, ref, f32, floor=0.0, scale=0.0):
     """Hold a kernel's output against its plain version's, log the line
     and fail beyond the limit: f32 to F32_TOL absolute; bf16 (ref on the
     inputs cast to f32) to BF16_ROW_TOL of each row's largest |ref|, rows
@@ -184,7 +214,10 @@ def _hold(label, out, ref, f32, floor=0.0):
     zero in exact arithmetic (the first causal query row's dq: one key,
     softmax gradient 0) is rounding noise on both sides, so each row's
     limit is taken against max(its largest |ref|, floor x the tensor's
-    largest). Returns the largest absolute error."""
+    largest). ``scale``: a larger yardstick for that floor when the whole
+    tensor is zero in exact arithmetic (a window of one key: dq and dk),
+    the largest |ref| of the case's gradients. Returns the largest
+    absolute error."""
     ref = ref.float()
     err = (out.float() - ref).abs()
     worst = err.max().item()
@@ -194,7 +227,7 @@ def _hold(label, out, ref, f32, floor=0.0):
             fail(f"{label}: err {worst} > {F32_TOL}")
         return worst
     row = ref.abs().amax(-1, keepdim=True)
-    lo = max(floor * row.max().item(), 1e-30)
+    lo = max(floor * max(row.max().item(), scale), 1e-30)
     ratio = (err / row.clamp_min(lo)).max().item()
     log(f"check: {label} max_abs_err={worst:.3e} "
         f"max_err/row_max={ratio:.3e} tol={BF16_ROW_TOL:.3e}*row_max "
@@ -281,6 +314,7 @@ def phase_check():
     bwd = check_flash_attention_bwd()
     errs["flash_attention_bwd_dq"] = bwd["dq"]
     errs["flash_attention_bwd_dkv"] = bwd["dkv"]
+    errs.update(check_block_sparse_attention())
     return errs
 
 
@@ -507,6 +541,138 @@ def check_flash_attention_bwd():
         if zeros != 0.0:
             fail(f"flash_attention_bwd {name}: dead rows carry {zeros}")
         del q, k, v, do, o, lse, delta, dq, dk, dv, rq, rk, rv
+    return worst
+
+
+def _bs_cases():
+    """(name, dtype, B, H, S, D, layout, fine, kwargs) of the block-sparse
+    check: every layout family, the window route, both dtypes, the three
+    head dims, causal and not, a ragged S, and the long and window legs'
+    own shapes."""
+    import numpy as np
+    import torch
+    from deepspeed_tpu_torch.ops import sparse_attention as tsa
+    f32, bf = torch.float32, torch.bfloat16
+
+    def lay(cls, H, S, **kw):
+        return tsa.config_layout(cls(num_heads=H, **kw), S), kw["block"]
+
+    def window(H, S, W):
+        fine = 64 if S % 64 == 0 else 16
+        blocks = -(-(W - 1) // fine) + 1 if W > 1 else 1
+        return (tsa.config_layout(tsa.LocalSlidingWindowSparsityConfig(
+            num_heads=H, block=fine, num_sliding_window_blocks=blocks), S),
+            fine, {"causal": True, "window": W, "layout_exact": False})
+
+    dead = np.ones((4, 1024 // 16, 1024 // 16), dtype=bool)
+    dead[:, 5, :] = False                   # query block 5 sees no key
+    dead[1, :, 9] = False                   # key block 9 of head 1: nobody
+    uni = dict(attention="unidirectional")
+    cases = [
+        ("train shape fixed-64", bf, 1, 32, 4096, 64,
+         *lay(tsa.FixedSparsityConfig, 32, 4096, block=64, **uni),
+         {"causal": True}),
+        ("fixed-16 causal", bf, 2, 4, 1024, 64,
+         *lay(tsa.FixedSparsityConfig, 4, 1024, block=16, **uni),
+         {"causal": True}),
+        ("f32 fixed-16 causal", f32, 2, 4, 1024, 64,
+         *lay(tsa.FixedSparsityConfig, 4, 1024, block=16, **uni),
+         {"causal": True}),
+        ("fixed-64 bidirectional", bf, 1, 4, 1024, 128,
+         *lay(tsa.FixedSparsityConfig, 4, 1024, block=64), {}),
+        ("f32 fixed-64 bidirectional D128", f32, 1, 4, 1024, 128,
+         *lay(tsa.FixedSparsityConfig, 4, 1024, block=64), {}),
+        ("bigbird per-head", bf, 2, 4, 1024, 32,
+         *lay(tsa.BigBirdSparsityConfig, 4, 1024, block=16,
+              different_layout_per_head=True, num_random_blocks=3), {}),
+        ("f32 bigbird per-head causal", f32, 1, 4, 1024, 32,
+         *lay(tsa.BigBirdSparsityConfig, 4, 1024, block=16,
+              different_layout_per_head=True, num_random_blocks=3),
+         {"causal": True}),
+        ("bslongformer", bf, 1, 4, 1024, 64,
+         *lay(tsa.BSLongformerSparsityConfig, 4, 1024, block=32), {}),
+        ("variable causal", bf, 1, 4, 1024, 128,
+         *lay(tsa.VariableSparsityConfig, 4, 1024, block=16,
+              local_window_blocks=(2, 4, 8), global_block_indices=(0, 7),
+              num_random_blocks=2, **uni), {"causal": True}),
+        ("ragged S=1008 fixed-16", bf, 1, 4, 1008, 64,
+         *lay(tsa.FixedSparsityConfig, 4, 1008, block=16, **uni),
+         {"causal": True}),
+        ("f32 ragged S=1008 bigbird", f32, 1, 4, 1008, 32,
+         *lay(tsa.BigBirdSparsityConfig, 4, 1008, block=16), {}),
+        ("window W=1", bf, 1, 4, 1024, 64, *window(4, 1024, 1)),
+        ("window W=100", bf, 1, 4, 1024, 64, *window(4, 1024, 100)),
+        ("f32 window W=100 ragged", f32, 1, 4, 1008, 64,
+         *window(4, 1008, 100)),
+        ("window leg shape W=1024", bf, 1, 32, 4096, 64,
+         *window(32, 4096, 1024)),
+        ("dead rows", bf, 1, 4, 1024, 64, dead, 16, {}),
+        ("f32 dead rows", f32, 1, 4, 1024, 64, dead, 16, {}),
+    ]
+    return cases
+
+
+def check_block_sparse_attention():
+    """block_sparse_attention_fwd, _bwd_dq and _bwd_dkv vs their plain
+    versions on the same inputs (bf16: the plain version on those values
+    cast to f32): o and each gradient row to 2^-6 of its largest |value|
+    (gradients with the 2^-10 floor of the case's largest gradient), f32
+    to F32_TOL, lse to 1e-4, and
+    exact zeros for query rows with no live key and for keys nobody sees.
+    Returns the largest absolute error of each kernel."""
+    import torch
+    from deepspeed_tpu_torch.ops import block_sparse_attention as tbs
+    g = torch.Generator(device="cuda").manual_seed(11)
+    f32 = torch.float32
+    worst = {"block_sparse_attention_fwd": 0.0,
+             "block_sparse_attention_bwd_dq": 0.0,
+             "block_sparse_attention_bwd_dkv": 0.0}
+    for name, dtype, B, H, S, D, layout, fine, kw in _bs_cases():
+        q, k, v, do = (torch.randn(B, H, S, D, device="cuda", generator=g)
+                       .to(dtype) for _ in range(4))
+        o, lse = tbs.block_sparse_attention_fwd(q, k, v, layout, fine, **kw)
+        delta = (do.float() * o.float()).sum(-1)
+        dq = tbs.block_sparse_attention_bwd_dq(q, k, v, do, lse, delta,
+                                               layout, fine, **kw)
+        dk, dv = tbs.block_sparse_attention_bwd_dkv(q, k, v, do, lse, delta,
+                                                    layout, fine, **kw)
+        sched = tbs.schedule(layout, fine, S, device="cuda",
+                             **{key: kw[key] for key in kw})
+        qf, kf, vf, dof = (t.float() for t in (q, k, v, do))
+        ro, rlse = tbs.block_sparse_attention_reference(qf, kf, vf, layout,
+                                                        fine, **kw)
+        rq, rk, rv = tbs.block_sparse_attention_bwd_reference(
+            qf, kf, vf, dof, lse, delta, layout, fine, **kw)
+        torch.cuda.synchronize()
+        dead_q = rlse <= -1e29
+        dead_k = (rk == 0).all(-1) & (rv == 0).all(-1)
+        zeros = max([t[m].abs().max().item() for t, m in (
+            (o, dead_q), (dq, dead_q), (dk, dead_k), (dv, dead_k))
+            if m.any()] + [0.0])
+        lse_err = (lse - rlse)[~dead_q].abs().max().item()
+        label = (f"block_sparse_attention {name} {str(dtype)[6:]} B={B} "
+                 f"H={H} S={S} D={D} fine={fine} tiles={sched.n_tiles}/"
+                 f"{H * sched.visited.shape[1] ** 2} "
+                 f"dead_q_rows={int(dead_q.sum())} "
+                 f"dead_k_rows={int(dead_k.sum())} dead_max={zeros} "
+                 f"lse_err={lse_err:.2e}")
+        err = _hold(f"{label} o:", o, ro, dtype == f32)
+        worst["block_sparse_attention_fwd"] = max(
+            worst["block_sparse_attention_fwd"], err)
+        scale = max(t.abs().max().item() for t in (rq, rk, rv))
+        for gname, out, ref in (("dq", dq, rq), ("dk", dk, rk),
+                                ("dv", dv, rv)):
+            err = _hold(f"{label} {gname}:", out, ref, dtype == f32,
+                        floor=2.0 ** -10, scale=scale)
+            key = ("block_sparse_attention_bwd_dq" if gname == "dq"
+                   else "block_sparse_attention_bwd_dkv")
+            worst[key] = max(worst[key], err)
+        if zeros != 0.0:
+            fail(f"block_sparse_attention {name}: dead rows carry {zeros}")
+        if not lse_err <= 1e-4:
+            fail(f"block_sparse_attention {name}: lse err {lse_err}")
+        del q, k, v, do, o, lse, delta, dq, dk, dv, ro, rlse, rq, rk, rv
+        torch.cuda.empty_cache()
     return worst
 
 
@@ -1049,7 +1215,7 @@ def phase_train(tmp):
     return engine, total, rates
 
 
-def profile_train(engine, batch, step_ms):
+def profile_train(engine, batch, step_ms, label="train step"):
     """Device busy share of one steady train_batch step, against the
     profiled step's wall time and against the unprofiled median step
     (the profiler slows the host), and the device time by kind."""
@@ -1062,8 +1228,10 @@ def profile_train(engine, batch, step_ms):
         engine.train_batch(batch)
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t0)
-    _report_profile("train step", prof, wall_ms, 1)
-    kinds = {"flash_attention": ("flash_",), "gemm": ("nvjet", "gemm",
+    _report_profile(label, prof, wall_ms, 1)
+    kinds = {"flash_attention": ("flash_",),
+             "block_sparse_attention": ("bs_fwd", "bs_dq", "bs_dkv"),
+             "gemm": ("nvjet", "gemm",
                                                       "cutlass", "sm90_"),
              "optimizer_foreach": ("multi_tensor",)}
     by_kind = dict.fromkeys(list(kinds) + ["other"], 0.0)
@@ -1077,16 +1245,186 @@ def profile_train(engine, batch, step_ms):
     host = sorted((e for e in prof.key_averages()
                    if e.device_type == torch.autograd.DeviceType.CPU),
                   key=lambda e: -e.self_cpu_time_total)[:8]
-    log("time: train step host ms by op (self, profiled) " + json.dumps(
+    log(f"time: {label} host ms by op (self, profiled) " + json.dumps(
         {e.key[:48]: [round(e.self_cpu_time_total / 1e3, 3), e.count]
          for e in host}))
-    log(f"time: train step device ms by kind "
+    log(f"time: {label} device ms by kind "
         + json.dumps({k: round(v, 3) for k, v in by_kind.items()})
         + f" busy_ms={busy:.3f} unprofiled_step_ms={step_ms:.3f} "
         f"idle_share_of_unprofiled_step={1 - busy / step_ms:.3f}")
 
 
-# ---------------------------------------------------------------- 7. time
+# ----------------------------------------------------------------- 7. long
+
+def _long_batch(vocab, seed):
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    return {"input_ids": rng.integers(1, vocab, (2, LONG_SEQ))}
+
+
+def _cut_depth_check(module, micro, label, ref_micro=None, ref_impl=None,
+                     control_impl=None):
+    """One micro-batch's loss and grad norm through the first
+    LONG_CHECK_LAYERS blocks of the trained weights, through the kernels
+    and through the plain path (``ref_impl`` as attention_impl, or
+    ``ref_micro``, the same tokens with an all-ones attention_mask, which
+    sends every layer of the sparse impl to its dense-mask route).
+    ``control_impl``: also read a wrong-attention control (that impl, on
+    ``micro``) against the plain path, to show whether the limits would
+    catch it; the control is a reading, not a check."""
+    import torch
+    blocks = module.blocks
+    impl = module.cfg.attention_impl
+    module.blocks = torch.nn.ModuleList(list(blocks)[:LONG_CHECK_LAYERS])
+    got = _micro_loss_and_norm(module, micro)
+    if ref_impl is not None:
+        _set_attention_impl(module, ref_impl)
+    ref = _micro_loss_and_norm(module, ref_micro or micro)
+    ctl = None
+    if control_impl is not None:
+        _set_attention_impl(module, control_impl)
+        ctl = _micro_loss_and_norm(module, micro)
+    _set_attention_impl(module, impl)
+    module.blocks = blocks
+    torch.cuda.empty_cache()
+    rl, rn = (abs(a - b) / abs(b) for a, b in zip(got, ref))
+    log(f"check: {label} loss={got[0]:.5f}/{ref[0]:.5f} rel_err={rl:.3e} "
+        f"tol=1e-3 grad_norm={got[1]:.5f}/{ref[1]:.5f} rel_err={rn:.3e} "
+        "tol=1e-2")
+    if ctl is not None:
+        cl, cn = (abs(a - b) / abs(b) for a, b in zip(ctl, ref))
+        caught = not (cl <= 1e-3 and cn <= 1e-2)
+        log(f"control: {label}, attention_impl={control_impl} in place of "
+            f"the kernels: loss={ctl[0]:.5f} rel_err={cl:.3e} grad_norm="
+            f"{ctl[1]:.5f} rel_err={cn:.3e} "
+            f"{'outside' if caught else 'within'} the limits")
+    if not (rl <= 1e-3 and rn <= 1e-2):
+        fail(f"{label}: the kernel path's loss or grad norm is off the "
+             "plain path's")
+
+
+def _train_leg(engine, batch, steps, per_step, name):
+    """``steps`` train_batch steps on one batch with the counters zeroed
+    before each: every block-sparse kernel launches ``per_step`` times a
+    step and no flash kernel; the batch's loss after the last step is
+    below its loss after the first. Returns (metrics, step seconds,
+    launches summed over the steps)."""
+    import numpy as np
+    import torch
+    metrics, step_s, total = [], [], dict.fromkeys(BS_KERNELS, 0)
+    for step in range(steps):
+        _zero_counters()
+        t1 = time.perf_counter()
+        m = engine.train_batch(batch)       # ends in a host read
+        step_s.append(time.perf_counter() - t1)
+        c = _counters()
+        metrics.append(m)
+        for k in BS_KERNELS:
+            total[k] += c[k]
+        if any(c[k] != per_step for k in BS_KERNELS) or \
+                any(c[k] for k in FLASH_KERNELS):
+            fail(f"{name} step {step} launched {c}: expected {per_step} of "
+                 "each block-sparse kernel and no flash kernel")
+        if not np.isfinite(m["loss"]) or m["overflow"]:
+            fail(f"{name} step {step}: {m}")
+        log(f"{name}: step {step} loss={m['loss']:.5f} "
+            f"grad_norm={m['grad_norm']:.4f} step_ms={1e3 * step_s[-1]:.1f} "
+            f"launches={json.dumps({k: c[k] for k in BS_KERNELS})}")
+    micros = [{"input_ids": torch.as_tensor(batch["input_ids"][i:i + 1],
+                                            device="cuda")} for i in (0, 1)]
+    with torch.no_grad():      # the batch's loss after the last step
+        final = float(np.mean([float(engine.module(mb)) for mb in micros]))
+    log(f"{name}: batch loss after the first step={metrics[1]['loss']:.5f} "
+        f"after the last step={final:.5f}")
+    if not final < metrics[1]["loss"]:
+        fail(f"{name}: loss did not fall ({metrics[1]['loss']} -> {final})")
+    return metrics, step_s, total, micros
+
+
+def phase_long(tmp):
+    """initialize(JSON ds_config with a sparse_attention section) on
+    llama-1.1b at full width and depth, seq 4096, micro 1 x gas 2:
+    LONG_STEPS train_batch steps, each launching the three block-sparse
+    kernels 22 x 2 times and no flash kernel; the loss falls; one
+    micro-batch through the kernels vs the dense-mask route on the first
+    LONG_CHECK_LAYERS layers of the trained weights (a dense reference at
+    seq 4096 holds [1, 32, 4096, 4096] f32 logits, 2.1 GB a layer before
+    autograd's copies, so 22 layers do not fit); a profiled step. Then the
+    window leg: WINDOW_LAYERS layers with a uniform window of WINDOW, no
+    sparse_attention section, WINDOW_STEPS steps through the same kernels
+    (layout_exact off), checked against attention_impl="reference" on the
+    first LONG_CHECK_LAYERS layers."""
+    import torch
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.models.transformer import build_model
+    t0 = time.perf_counter()
+    model, cfg = build_model("llama-1.1b", max_seq_len=LONG_SEQ,
+                             fused_loss=True, loss_chunk=256, seed=0,
+                             device="cuda")
+    path = os.path.join(tmp, "ds_long.json")
+    with open(path, "w") as f:
+        json.dump(LONG_CONFIG, f)
+    engine, *_ = deepspeed_tpu_torch.initialize(model=model, config=path)
+    del model
+    mcfg = engine.module.cfg
+    if mcfg.attention_impl != "sparse" or not mcfg.sparse_attention:
+        fail(f"long: the sparse_attention section was not wired "
+             f"({mcfg.attention_impl})")
+    torch.cuda.synchronize()
+    log(f"long: llama-1.1b layers={cfg.num_layers} hidden={cfg.hidden_size} "
+        f"seq={LONG_SEQ} micro=1 gas=2 sparse_attention="
+        f"{json.dumps(SPARSE_SECTION)} init_s={time.perf_counter() - t0:.2f}")
+    batch = _long_batch(cfg.vocab_size, 5)
+    torch.cuda.reset_peak_memory_stats()
+    per_step = LLAMA_LAYERS * 2
+    metrics, step_s, total, micros = _train_leg(engine, batch, LONG_STEPS,
+                                                per_step, "long")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    ones = dict(micros[0], attention_mask=torch.ones_like(
+        micros[0]["input_ids"]))
+    _cut_depth_check(engine.module, micros[0],
+                     f"long micro-batch on {LONG_CHECK_LAYERS} layers, "
+                     "kernels vs the dense-mask route (mha_reference with "
+                     "the layout as a mask; 22 layers of dense S=4096 "
+                     "logits do not fit)", ref_micro=ones,
+                     control_impl="reference")
+    import numpy as np
+    dt = float(np.median(step_s[1:]))
+    tokens = 2 * LONG_SEQ
+    n_params = sum(p.numel() for p in engine.module.parameters())
+    rates = {"step_ms": 1e3 * dt, "tokens_s": tokens / dt,
+             "model_tflops_6n": 6.0 * n_params * tokens / dt / 1e12,
+             "step_ms_all": [round(1e3 * x, 3) for x in step_s],
+             "peak_mem_gb": peak_gb}
+    profile_train(engine, batch, 1e3 * dt, "long step")
+    del engine
+    torch.cuda.empty_cache()
+
+    model, wcfg = build_model("llama-1.1b", num_layers=WINDOW_LAYERS,
+                              max_seq_len=LONG_SEQ,
+                              layer_windows=(WINDOW,) * WINDOW_LAYERS,
+                              fused_loss=True, loss_chunk=256, seed=1,
+                              device="cuda")
+    wconf = {k: v for k, v in LONG_CONFIG.items() if k != "sparse_attention"}
+    path = os.path.join(tmp, "ds_window.json")
+    with open(path, "w") as f:
+        json.dump(wconf, f)
+    engine, *_ = deepspeed_tpu_torch.initialize(model=model, config=path)
+    del model
+    _, wstep_s, wtotal, wmicros = _train_leg(
+        engine, _long_batch(wcfg.vocab_size, 6), WINDOW_STEPS,
+        WINDOW_LAYERS * 2, "window")
+    _cut_depth_check(engine.module, wmicros[0],
+                     f"window micro-batch on {LONG_CHECK_LAYERS} layers, "
+                     "kernels vs attention_impl=reference",
+                     ref_impl="reference")
+    rates["window_step_ms"] = 1e3 * float(np.median(wstep_s[1:]))
+    del engine
+    torch.cuda.empty_cache()
+    return total, wtotal, rates
+
+
+# ---------------------------------------------------------------- 8. time
 
 def time_paged_attention():
     """One decode step's attention: 22 launches (one per layer) over 8
@@ -1312,6 +1650,195 @@ def time_flash_attention_bwd():
     return out
 
 
+def time_block_sparse_attention():
+    """One long-leg train step's block-sparse attention: 22 layers x 2
+    micro-batches = 44 launches of each kernel at [1, 32, 4096, 64] bf16
+    with the leg's layout. The bound counts the live (q, k) pairs of the
+    dense layout-and-causal mask: 4 D flops a pair for the forward, 6 D for
+    dq and 8 D for dk/dv, against the bytes of each input read once and
+    each output written once. plain_ms: the plain forward, and the plain
+    backward (dq, dk and dv together); library_ms: SDPA with the dense
+    [1, 1, S, S] bool mask, its forward, and its backward (dq, dk and dv
+    together), each per step; flex_ms: torch's flex_attention with the
+    layout as a block mask, where it compiles (timed only)."""
+    import torch
+    import torch.nn.functional as F
+    from deepspeed_tpu_torch.ops import block_sparse_attention as tbs
+    from deepspeed_tpu_torch.ops import sparse_attention as tsa
+    H, S, D, n = 32, LONG_SEQ, 64, LLAMA_LAYERS * 2
+    cfg = tsa.build_sparsity_config(num_heads=H, **SPARSE_SECTION)
+    layout, fine = tsa.config_layout(cfg, S), cfg.block
+    kw = {"causal": True}
+    g = torch.Generator(device="cuda").manual_seed(12)
+    q, k, v, do = (torch.randn(1, H, S, D, device="cuda", generator=g)
+                   .to(torch.bfloat16) for _ in range(4))
+    o, lse = tbs.block_sparse_attention_fwd(q, k, v, layout, fine, **kw)
+    delta = (do.float() * o.float()).sum(-1)
+    sched = tbs.schedule(layout, fine, S, device="cuda", **kw)
+    keep = sched.keep("cuda")
+    pairs = int(keep.sum())                         # live (q, k) pairs, B=1
+    nT = sched.visited.shape[1]
+    log(f"time: block_sparse tiles visited={sched.n_tiles} "
+        f"live={int(tbs.coarse_layout(layout, fine, S).sum())} "
+        f"causal={H * nT * (nT + 1) // 2} all={H * nT * nT} "
+        f"live_pairs={pairs} causal_pairs={H * S * (S + 1) // 2} "
+        f"share={pairs / (H * S * (S + 1) / 2):.4f}")
+    t1 = time.perf_counter()
+    for _ in range(n):                  # the cache key hashes the layout
+        tbs.schedule(layout, fine, S, device="cuda", **kw)
+    log(f"time: block_sparse schedule cache hit "
+        f"{1e6 * (time.perf_counter() - t1) / n:.1f} us a call on the host "
+        f"({n} calls a long step)")
+
+    def step(fn):
+        return lambda: [fn() for _ in range(n)]
+
+    mask = keep[:1][None]                           # one layout for all heads
+    if not bool((keep == keep[:1]).all()):
+        fail("the long leg's layout differs across heads")
+    qs, ks, vs = (t.detach().clone().requires_grad_() for t in (q, k, v))
+    so = F.scaled_dot_product_attention(qs, ks, vs, attn_mask=mask)
+    lib_fwd = device_ms(step(lambda: F.scaled_dot_product_attention(
+        q, k, v, attn_mask=mask)))
+    lib_bwd = device_ms(step(lambda: torch.autograd.grad(
+        so, (qs, ks, vs), do, retain_graph=True)))
+    plain_fwd = device_ms(step(lambda: tbs.block_sparse_attention_reference(
+        q, k, v, layout, fine, **kw)), reps=2)
+    plain_bwd = device_ms(step(
+        lambda: tbs.block_sparse_attention_bwd_reference(
+            q, k, v, do, lse, delta, layout, fine, **kw)), reps=2)
+    flex = _flex_ms(q, k, v, do, keep[0], n)
+    elem = H * S * D * 2                            # one bf16 [1, H, S, D]
+    rows = H * S * 4                                # one f32 [1, H, S]
+    out = {}
+    for name, fn, nbytes, flops, plain, lib in (
+            ("block_sparse_attention_fwd",
+             lambda: tbs.block_sparse_attention_fwd(q, k, v, layout, fine,
+                                                    **kw),
+             4 * elem + rows, 4 * D * pairs, plain_fwd, lib_fwd),
+            ("block_sparse_attention_bwd_dq",
+             lambda: tbs.block_sparse_attention_bwd_dq(
+                 q, k, v, do, lse, delta, layout, fine, **kw),
+             5 * elem + 2 * rows, 6 * D * pairs, plain_bwd, lib_bwd),
+            ("block_sparse_attention_bwd_dkv",
+             lambda: tbs.block_sparse_attention_bwd_dkv(
+                 q, k, v, do, lse, delta, layout, fine, **kw),
+             6 * elem + 2 * rows, 8 * D * pairs, plain_bwd, lib_bwd)):
+        bnd, by = bound_ms(n * nbytes, n * flops)
+        out[name] = {"ms": device_ms(step(fn)), "plain_ms": plain,
+                     "library_ms": lib, "wall_ms": wall_ms(step(fn)),
+                     "bound_ms": bnd, "bound_by": by,
+                     "bound_bytes_ms": 1e3 * n * nbytes / HBM_BYTES_S,
+                     "bound_ops_ms": 1e3 * n * flops / BF16_FLOPS,
+                     "flex_ms": flex["fwd" if name.endswith("fwd")
+                                     else "bwd"],
+                     "work": f"one long step: {n} launches ({LLAMA_LAYERS} "
+                             f"layers x 2 micro), B=1, H={H}, S={S}, D={D}, "
+                             f"fixed layout block {fine}, causal, bf16; "
+                             "backward plain, library and flex compute dq, "
+                             "dk and dv together"}
+    del q, k, v, do, o, lse, delta, qs, ks, vs, so, keep, mask
+    torch.cuda.empty_cache()
+    return out
+
+
+def time_block_sparse_scaling():
+    """The three block-sparse kernels, and the flash kernels, at the long
+    leg's shape [1, 32, 4096, 64] bf16 causal, 44 launches each (one long
+    step's worth), over four layouts: the leg's (fixed, block 64, 640 of
+    2080 causal tiles a head), the window leg's (W 1024, 952 tiles, no
+    layout lookup), DeepSpeed's default block of 16 (fixed, every causal
+    tile visited, each with the per-element layout lookup) and a dense
+    causal layout (2080 tiles, the flash kernels' work). Device ms per 44
+    launches; a yardstick for where the time goes, not a check."""
+    import torch
+    from deepspeed_tpu_torch.ops import block_sparse_attention as tbs
+    from deepspeed_tpu_torch.ops import flash_attention as tfa
+    from deepspeed_tpu_torch.ops import sparse_attention as tsa
+    H, S, D, n = 32, LONG_SEQ, 64, LLAMA_LAYERS * 2
+    g = torch.Generator(device="cuda").manual_seed(13)
+    q, k, v, do = (torch.randn(1, H, S, D, device="cuda", generator=g)
+                   .to(torch.bfloat16) for _ in range(4))
+    uni = dict(attention="unidirectional")
+    win = -(-(WINDOW - 1) // 64) + 1
+    layouts = {
+        "fixed-64 (long leg)": (tsa.FixedSparsityConfig(
+            num_heads=H, block=64, **uni), {"causal": True}),
+        f"window {WINDOW} (window leg)": (
+            tsa.LocalSlidingWindowSparsityConfig(
+                num_heads=H, block=64, num_sliding_window_blocks=win),
+            {"causal": True, "window": WINDOW, "layout_exact": False}),
+        "fixed-16": (tsa.FixedSparsityConfig(num_heads=H, block=16, **uni),
+                     {"causal": True}),
+        "dense causal": (tsa.DenseSparsityConfig(num_heads=H, block=64),
+                         {"causal": True}),
+    }
+    out = {}
+    for name, (cfg, kw) in layouts.items():
+        layout, fine = tsa.config_layout(cfg, S), cfg.block
+        sched = tbs.schedule(layout, fine, S, device="cuda", **kw)
+        o, lse = tbs.block_sparse_attention_fwd(q, k, v, layout, fine, **kw)
+        delta = (do.float() * o.float()).sum(-1)
+        row = {"tiles": sched.n_tiles,
+               "masked_tiles": int((sched.flags[sched.visited] != 0).sum())}
+        for kname, fn in (
+                ("fwd", lambda: tbs.block_sparse_attention_fwd(
+                    q, k, v, layout, fine, **kw)),
+                ("dq", lambda: tbs.block_sparse_attention_bwd_dq(
+                    q, k, v, do, lse, delta, layout, fine, **kw)),
+                ("dkv", lambda: tbs.block_sparse_attention_bwd_dkv(
+                    q, k, v, do, lse, delta, layout, fine, **kw))):
+            row[kname] = device_ms(lambda: [fn() for _ in range(n)], reps=3)
+        out[name] = row
+    o, lse = tfa.flash_attention_fwd(q, k, v, causal=True)
+    delta = (do.float() * o.float()).sum(-1)
+    out["flash (dense causal)"] = {
+        kname: device_ms(lambda: [fn() for _ in range(n)], reps=3)
+        for kname, fn in (
+            ("fwd", lambda: tfa.flash_attention_fwd(q, k, v, causal=True)),
+            ("dq", lambda: tfa.flash_attention_bwd_dq(q, k, v, do, lse,
+                                                      delta)),
+            ("dkv", lambda: tfa.flash_attention_bwd_dkv(q, k, v, do, lse,
+                                                        delta)))}
+    log(f"time: block_sparse scaling, device ms per {n} launches at "
+        f"[1, {H}, {S}, {D}] bf16 causal: "
+        + json.dumps({k: {kk: (round(vv, 4) if isinstance(vv, float) else vv)
+                          for kk, vv in r.items()} for k, r in out.items()}))
+    del q, k, v, do, o, lse, delta
+    torch.cuda.empty_cache()
+    return out
+
+
+def _flex_ms(q, k, v, do, keep, n):
+    """flex_attention (torch.compile'd) with the layout as a block mask:
+    forward and backward ms per step of n calls, or None where it does not
+    compile on this card (a yardstick only: the port never calls it)."""
+    import torch
+    try:
+        from torch.nn.attention.flex_attention import (create_block_mask,
+                                                       flex_attention)
+        live = keep
+
+        def mask_mod(b, h, qi, ki):
+            return live[qi, ki]
+
+        S = q.shape[2]
+        bm = create_block_mask(mask_mod, 1, 1, S, S, device="cuda")
+        fx = torch.compile(flex_attention)
+        qs, ks, vs = (t.detach().clone().requires_grad_() for t in (q, k, v))
+        so = fx(qs, ks, vs, block_mask=bm)
+        fwd = device_ms(lambda: [fx(q, k, v, block_mask=bm)
+                                 for _ in range(n)], reps=3)
+        bwd = device_ms(lambda: [torch.autograd.grad(
+            so, (qs, ks, vs), do, retain_graph=True) for _ in range(n)],
+            reps=3)
+        return {"fwd": fwd, "bwd": bwd}
+    except Exception as e:          # a yardstick that does not build
+        log(f"time: flex_attention did not run here: {type(e).__name__}: "
+            f"{str(e)[:200]}")
+        return {"fwd": None, "bwd": None}
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -1364,6 +1891,12 @@ def main():
     torch.cuda.empty_cache()
     log("time: train " + json.dumps(train_rates))
     fb = time_flash_attention_bwd()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        long_counts, window_counts, long_rates = phase_long(tmp)
+    log("time: long " + json.dumps(long_rates))
+    bs = time_block_sparse_attention()
+    time_block_sparse_scaling()
     kernels = []
     for kname, launches, t, src, tpu in (
             ("paged_attention", pa_launches, pa,
@@ -1386,7 +1919,11 @@ def main():
              train_counts["flash_attention_bwd_dkv"],
              fb["flash_attention_bwd_dkv"],
              "deepspeed_tpu_torch/ops/csrc/flash_attention_bwd.cu",
-             "deepspeed_tpu/ops/pallas/flash_attention.py:330")):
+             "deepspeed_tpu/ops/pallas/flash_attention.py:330"),
+            *((kname, long_counts[kname], bs[kname],
+               "deepspeed_tpu_torch/ops/csrc/block_sparse_attention.cu",
+               f"deepspeed_tpu/ops/pallas/block_sparse_attention.py:{line}")
+              for kname, line in zip(BS_KERNELS, (69, 116, 156)))):
         row = {"name": kname, "route": "cuda", "source": src,
                "replaces": tpu, "launches": launches,
                "max_abs_err": errs[kname]}
@@ -1394,6 +1931,9 @@ def main():
             row["launches_by_path"] = {
                 "generate": launches,
                 "train": train_counts["flash_attention_fwd"]}
+        if kname in BS_KERNELS:
+            row["launches_by_path"] = {"sparse_train": launches,
+                                       "window_train": window_counts[kname]}
         row.update(t)
         kernels.append(row)
         both = (f" [bytes {t['bound_bytes_ms']:.4f}, operations "
@@ -1401,7 +1941,9 @@ def main():
         log(f"time: {kname} ms={t['ms']:.4f} bound_ms={t['bound_ms']:.4f} "
             f"({t['bound_by']}){both} plain_ms={t['plain_ms']:.4f} "
             f"library_ms={t['library_ms']:.4f} "
-            f"wall_ms={t['wall_ms']:.4f} [{t['work']}]")
+            f"wall_ms={t['wall_ms']:.4f}"
+            + (f" flex_ms={t['flex_ms']}" if "flex_ms" in t else "")
+            + f" [{t['work']}]")
     log(f"time: decode_attention T=64 ms={dm['ms']:.4f} "
         f"bound_ms={dm['bound_ms']:.4f} ({dm['bound_by']}) "
         f"plain_ms={dm['plain_ms']:.4f} library_ms={dm['library_ms']:.4f} "

@@ -388,11 +388,58 @@ class _Leaf(nn.Module):
         return dict(self.named_parameters(recurse=False))
 
 
+def _sparse_block_attention(cfg: TransformerConfig, q, k, v, *, mask, bias,
+                            slopes, window, sm_scale):
+    """attention_impl == "sparse": the block-sparse layout that the
+    ``sparse_attention`` ds_config section selects (the engine wires the
+    parsed section into ``cfg.sparse_attention``).
+
+    A clean call (no mask, bias, ALiBi, window or softcap) runs
+    ``ops.sparse_attention.sparse_attention``: the layout-skipping kernels,
+    whose cost scales with the layout's density. Anything else composes
+    the layout into a dense mask over ``mha_reference``: the sparsity is
+    still applied exactly, only the skipping is lost. Unknown modes raise
+    here (and in the engine's wiring), never silently dense."""
+    from ..ops.attention import (alibi_bias_from_slopes, mha_reference,
+                                 window_mask)
+    from ..ops.sparse_attention import (SPARSITY_CONFIGS, config_layout,
+                                        layout_to_dense_mask,
+                                        sparse_attention)
+    B, H, S, D = q.shape
+    kwargs = {key: (list(val) if isinstance(val, tuple) else val)
+              for key, val in (cfg.sparse_attention or ())}
+    mode = kwargs.pop("mode", "fixed")
+    if mode not in SPARSITY_CONFIGS:
+        raise ValueError(f"unknown sparse attention mode '{mode}'; "
+                         f"have {sorted(SPARSITY_CONFIGS)}")
+    cls = SPARSITY_CONFIGS[mode]
+    allowed = {f.name for f in dataclasses.fields(cls)} - {"num_heads"}
+    sp_cfg = cls(num_heads=H,
+                 **{key: val for key, val in kwargs.items()
+                    if key in allowed and val is not None})
+    clean = (mask is None and bias is None and slopes is None
+             and not window and not cfg.attn_softcap)
+    if clean:
+        return sparse_attention(q, k, v, sp_cfg, causal=cfg.causal,
+                                sm_scale=sm_scale)
+    if slopes is not None:
+        bias = alibi_bias_from_slopes(slopes, S, S, device=q.device)
+    lmask = layout_to_dense_mask(config_layout(sp_cfg, S), sp_cfg.block,
+                                 device=q.device)[None]
+    mask = lmask if mask is None else mask & lmask
+    if window:
+        mask = mask & window_mask(S, S, window, device=q.device)
+    return mha_reference(q, k, v, causal=cfg.causal, bias=bias, mask=mask,
+                         sm_scale=sm_scale, softcap=cfg.attn_softcap)
+
+
 class Block(nn.Module):
     """One pre-LN transformer block (the JAX package's ``Block``):
     LayerNorm or RMSNorm, a fused qkv projection with GQA, qk-norm,
     rotary or ALiBi positions, attention through ``ops.attention`` (the
-    flash kernels), the Gemma-2 sandwich norms, GELU or SwiGLU MLP."""
+    flash kernels, or the block-sparse kernels for a pure window) or, with
+    ``attention_impl="sparse"``, through the configured block-sparse
+    layout, the Gemma-2 sandwich norms, GELU or SwiGLU MLP."""
 
     def __init__(self, cfg: TransformerConfig,
                  params: Dict[str, Dict[str, torch.Tensor]]):
@@ -441,10 +488,15 @@ class Block(nn.Module):
                                          dtype=torch.float32, device=x.device)
             else:                   # per-sample positions: materialized
                 bias = alibi_bias(nh, positions, positions)
-        out = attention(q, k, v, causal=cfg.causal, mask=attn_mask, bias=bias,
-                        alibi_slopes=slopes, sm_scale=cfg.attn_scale,
-                        impl=cfg.attention_impl, window=window,
-                        softcap=cfg.attn_softcap)
+        if cfg.attention_impl == "sparse":
+            out = _sparse_block_attention(
+                cfg, q, k, v, mask=attn_mask, bias=bias, slopes=slopes,
+                window=window, sm_scale=cfg.attn_scale)
+        else:
+            out = attention(q, k, v, causal=cfg.causal, mask=attn_mask,
+                            bias=bias, alibi_slopes=slopes,
+                            sm_scale=cfg.attn_scale, impl=cfg.attention_impl,
+                            window=window, softcap=cfg.attn_softcap)
         out = out.transpose(1, 2).reshape(B, S, nh * hd)
         out = _dense(out, self.attn_proj.p)
         if cfg.post_block_norms:

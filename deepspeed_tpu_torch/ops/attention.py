@@ -1,8 +1,9 @@
 """Attention helpers (counterpart of ``deepspeed_tpu/ops/attention.py``):
 the plain masks and biases, ``mha_reference`` (the oracle the flash
 kernels' plain versions are built from), ``apply_softcap``, the
-``paged_attention`` dispatch of the serving path and the ``attention``
-router of the training model.
+``paged_attention`` dispatch of the serving path,
+``sliding_window_attention`` (the block-sparse kernels' window route) and
+the ``attention`` router of the training model.
 """
 
 from __future__ import annotations
@@ -138,6 +139,50 @@ def paged_attention(q, k_pool, v_pool, block_tables, context_lens, *,
                                      context_lens, q_start=q_start, **kw)
 
 
+def sliding_window_attention(q: torch.Tensor, k: torch.Tensor,
+                             v: torch.Tensor, window: int, *,
+                             sm_scale: Optional[float] = None
+                             ) -> torch.Tensor:
+    """Causal sliding-window attention on the block-sparse kernels: the
+    layout visits only the tiles that meet the window (compute and K/V
+    loads scale with the window, not the sequence) and the kernels apply
+    the exact per-token window q_pos - k_pos < window inside a tile (the
+    JAX package's ``sliding_window_attention``). Raises ``ValueError`` for
+    shapes the kernels do not take; :func:`sliding_window_tileable` says so
+    beforehand."""
+    from .block_sparse_attention import block_sparse_flash_attention
+    from .sparse_attention import config_layout
+    cfg, fine = _window_config(q, window)
+    # the window and causal masks define the pattern exactly, so the
+    # kernels skip the per-element layout lookup (layout_exact=False)
+    return block_sparse_flash_attention(
+        q, k, v, config_layout(cfg, q.shape[-2]), fine, causal=True,
+        sm_scale=sm_scale, window=window, layout_exact=False)
+
+
+def _window_config(q: torch.Tensor, window: int):
+    """The LocalSlidingWindow layout of the window route and its block."""
+    from .sparse_attention import LocalSlidingWindowSparsityConfig
+    S = q.shape[-2]
+    fine = 64 if S % 64 == 0 else 16
+    w_blocks = -(-(window - 1) // fine) + 1 if window > 1 else 1
+    return LocalSlidingWindowSparsityConfig(
+        num_heads=q.shape[1], block=fine,
+        num_sliding_window_blocks=w_blocks,
+        attention="unidirectional"), fine
+
+
+def sliding_window_tileable(q: torch.Tensor, k: torch.Tensor,
+                            v: torch.Tensor) -> bool:
+    """Whether :func:`sliding_window_attention` takes these inputs (the
+    window itself never matters): a pure shape check, the same on every
+    device."""
+    from .block_sparse_attention import tileable
+    if q.dim() != 4 or q.shape[-2] % 16:
+        return False
+    return tileable(q, k, v, _window_config(q, 1)[1]) is None
+
+
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
               causal: bool = True,
               bias: Optional[torch.Tensor] = None,
@@ -151,40 +196,41 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """Dispatching attention entry point (the JAX package's ``attention``).
     Shapes: [batch, heads, seq, head_dim]; differentiable.
 
-    Kernel-capable calls (no dropout, no generic additive ``bias``, no
-    non-causal window) with ``impl`` "auto" or "flash" go to
-    ``ops.flash_attention.flash_attention`` whatever the device; its
-    wrappers then launch the CUDA kernels for CUDA tensors and run their
-    plain versions for CPU tensors. Other calls, and ``impl="reference"``,
-    run ``mha_reference`` with the ALiBi bias and the window mask
-    materialized (a non-kernel-capable "flash" call warns first, as in the
-    JAX package). Not ported yet, and raising with a pointer to ROADMAP.md:
-    attention dropout, the ``ring`` / ``ulysses`` sequence-parallel and
-    ``sparse`` impls, and the block-sparse sliding-window kernel that the
-    JAX package takes for a pure causal window (no mask, bias, ALiBi,
-    softcap or dropout)."""
+    A pure causal sliding window (no mask, bias, ALiBi, softcap or
+    dropout) with ``impl`` "auto" or "flash" goes to
+    :func:`sliding_window_attention`, the block-sparse kernels, when they
+    take the shapes (:func:`sliding_window_tileable`), as the JAX package
+    sends it there on a TPU. Other kernel-capable calls (no dropout, no
+    generic additive ``bias``, no non-causal window), and a window the
+    block-sparse kernels cannot take, go to
+    ``ops.flash_attention.flash_attention``. Whatever the device: the
+    wrappers launch the CUDA kernels for CUDA tensors and run their plain
+    versions for CPU tensors. Other calls, ``impl="reference"`` and
+    ``impl="sparse"`` (whose layout the model's ``Block`` applies; here it
+    falls through as in the JAX router) run ``mha_reference`` with the
+    ALiBi bias and the window mask materialized (a non-kernel-capable
+    "flash" call warns first, as in the JAX package). Not ported yet, and
+    raising with a pointer to ROADMAP.md: attention dropout and the
+    ``ring`` / ``ulysses`` sequence-parallel impls."""
     window = 0 if window is None or window <= 0 else int(window)
     if dropout_rate > 0.0:
         raise NotImplementedError(
             "attention dropout is not ported to deepspeed_tpu_torch yet "
             "(see ROADMAP.md)")
-    if impl in ("ring", "ulysses", "sparse"):
+    if impl in ("ring", "ulysses"):
         raise NotImplementedError(
             f"attention impl={impl!r} is not ported to deepspeed_tpu_torch "
             "yet (see ROADMAP.md)")
-    if impl not in ("auto", "flash", "reference"):
+    if impl not in ("auto", "flash", "reference", "sparse"):
         raise ValueError(f"attention impl {impl!r}: expected 'auto', "
                          "'flash', 'reference', 'ring', 'ulysses' or "
                          "'sparse'")
     kernel_capable = bias is None and (window == 0 or causal)
     pure_window = (window and causal and mask is None and bias is None
                    and alibi_slopes is None and softcap == 0.0)
-    if impl in ("auto", "flash") and pure_window:
-        raise NotImplementedError(
-            "a pure sliding window runs the block-sparse sliding-window "
-            "kernel in the JAX package, which is not ported to "
-            "deepspeed_tpu_torch yet (see ROADMAP.md, long-context slice); "
-            "use attention_impl='reference'")
+    if impl in ("auto", "flash") and pure_window \
+            and sliding_window_tileable(q, k, v):
+        return sliding_window_attention(q, k, v, window, sm_scale=sm_scale)
     if impl == "flash" and not kernel_capable:
         from ..utils.logging import logger
         logger.warning("attention impl='flash' has no kernel path for a "

@@ -28,7 +28,8 @@ from typing import Dict, Iterable, Optional
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "build"
 KERNELS = ("paged_attention", "quant_matmul", "decode_attention",
-           "flash_attention_fwd", "flash_attention_bwd")
+           "flash_attention_fwd", "flash_attention_bwd",
+           "block_sparse_attention")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 

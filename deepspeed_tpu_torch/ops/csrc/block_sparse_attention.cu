@@ -1,0 +1,931 @@
+// Block-sparse flash attention for Hopper (sm_90a), plain C interface:
+// three kernels.
+//
+// Replaces the Pallas kernels of
+// deepspeed_tpu/ops/pallas/block_sparse_attention.py: _fwd_kernel (launched
+// by _fwd at :271), _bwd_dq_kernel (:312) and _bwd_dkv_kernel (:353).
+// q, k, v, dO [B*H, S, D]; the forward writes o [B*H, S, D] and the row
+// logsumexp lse [B*H, S] f32; the backward reads lse and delta =
+// rowsum(dO * O) [B*H, S] f32 (a plain torch op, as the JAX package
+// computes it outside its kernels) and writes dq, or dk and dv.
+//
+// The sparsity is a schedule, not a mask: the host (ops/
+// block_sparse_attention.py, once per layout) lists for every (head, 64-row
+// query tile) the 64-key tiles that hold a live (q, k) pair, and for every
+// (head, key tile) the query tiles, as CSR arrays (ptr, idx) with one flag
+// word per listed tile. A CTA walks only its list: a skipped tile costs
+// neither its products nor its K/V (or Q/dO) load, so the work and the
+// bytes scale with the layout's density. The grid runs the lists longest
+// first: blockIdx.x is the (batch, head) and blockIdx.y a rank in the
+// host's per-head order of tiles by descending list length, so every
+// head's longest list dispatches before any second-longest (the fixed
+// layout's dk/dv lists run from 1 to 61 tiles; launched in tile order
+// they left a tail, PERF.md). Inside a listed tile the exact pattern
+// applies per element: the fine layout layout[h, q / fine, k / fine]
+// (uint8, a fine block that is a multiple of 8 and divides S, one byte
+// per 8-key group, looked up only when the tile's flag has LAYOUT_BIT),
+// then causal (key <= query) and the window (query - key < window) and
+// the ragged edge (only when the flag has POS_BIT). A tile that lies
+// wholly inside the layout, causal and window carries no flag and runs no
+// mask at all (taking that path out of the flash forward cost 70% on an
+// H100).
+//
+// Numerics follow the TPU kernels: f32 scores times sm_scale, masked
+// entries at -1e30 with p exactly 0 (always guarded), p rounded to the value
+// dtype before P V, lse = m + log(max(l, 1e-37)), p = exp(s - lse) in the
+// backward, dS = p (dp - delta) sm_scale with P and dS rounded to the value
+// dtype before the products, which sum in f32. One difference, by design:
+// a query row with no live key writes zeros and gets zero gradients; the
+// TPU kernel masks with a finite -1e30 and gives such a row, if its tile
+// list is not empty, the mean of V over the keys it visited.
+//
+// Bound: operations at the train leg's shape (S 4096, D 64, 29.7% of the
+// causal pairs live); the design keeps every score tile in registers. bf16:
+// the flash kernels' shape (csrc/flash_attention_*.cu): one CTA of 4 warps
+// per 64-row tile, mma.sync.m16n8k16 with ldmatrix operands, the CTA's own
+// rows as A fragments in registers, the listed tiles of the other side
+// double-buffered through shared memory by cp.async (rows padded by 8
+// elements). The forward and dq own a query tile; dk/dv own a key tile
+// and compute S^T = K Q^T, so P^T and dS^T come out in the A-operand layout
+// of dV and dK (no atomics, no second pass). f32: CUDA-core FMAs (no TF32),
+// 64 rows per CTA with 2 or 4 threads per row.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#include <type_traits>
+
+namespace {
+
+constexpr float NEG_INF = -1e30f;
+constexpr float LOG2E = 1.4426950408889634f;
+constexpr int T = 64;             // the schedule's query and key tile
+constexpr int NTHREADS = 128;     // bf16 CTA: 4 warps x 16 rows
+constexpr int LAYOUT_BIT = 1;     // the tile needs the fine layout lookup
+constexpr int POS_BIT = 2;        // ... causal, window or the ragged edge
+
+struct Params {
+  const void* q;
+  const void* k;
+  const void* v;
+  const void* dout;
+  const float* lse_in;            // [B*H, S] (backward)
+  const float* delta;             // [B*H, S] (backward)
+  const uint8_t* layout;          // [H, nf, nf] or null (layout_exact off)
+  const int* ptr;                 // [H * nT + 1] list offsets
+  const int* idx;                 // listed tiles
+  const int* flags;               // one flag word per listed tile
+  const int* order;               // [H * nT]: each head's tiles, longest list first
+  void* o;
+  float* lse;
+  void* dq;
+  void* dk;
+  void* dv;
+  int H, S, nT, nf, fine, causal, window;
+  float sm_scale;
+};
+
+// the positional part of the pattern: the ragged edge, causal, the window
+__device__ __forceinline__ bool pos_live(const Params& p, int row, int key) {
+  return row < p.S && key < p.S && (!p.causal || key <= row) &&
+         (p.window <= 0 || row - key < p.window);
+}
+
+// whether entry (row, key) of a flagged tile is live (the f32 kernels)
+__device__ __forceinline__ bool live(const Params& p, int h, int flags,
+                                     int row, int key) {
+  if ((flags & POS_BIT) && !pos_live(p, row, key)) return false;
+  if (flags & LAYOUT_BIT)
+    return p.layout[((size_t)h * p.nf + row / p.fine) * p.nf + key / p.fine] != 0;
+  return true;
+}
+
+// -1e30 on the dead entries of a flagged 16 x (8 * NJ) score tile of the
+// mma.sync layout: the thread's rows a0 / a1 and its columns b0 + 8 j +
+// cq + {0, 1}. QMAJOR: rows are queries and columns keys (the forward,
+// dq); else rows are keys and columns queries (dk/dv, S^T). The 8
+// columns of a group share one layout block, so a thread reads one
+// layout byte a row and group.
+template <int NJ, bool QMAJOR>
+__device__ __forceinline__ void mask_tile(float (*s)[4], const Params& p,
+                                          int h, int fl, int a0, int a1,
+                                          int b0, int cq) {
+  const uint8_t* lay = nullptr;
+  int ab0 = 0, ab1 = 0;
+  if (fl & LAYOUT_BIT) {
+    lay = p.layout + (size_t)h * p.nf * p.nf;
+    ab0 = min(a0, p.S - 1) / p.fine;
+    ab1 = min(a1, p.S - 1) / p.fine;
+  }
+#pragma unroll
+  for (int j = 0; j < NJ; ++j) {
+    const int bg = b0 + j * 8;
+    bool in0 = true, in1 = true;
+    if (fl & LAYOUT_BIT) {
+      const int bb = min(bg, p.S - 1) / p.fine;
+      in0 = (QMAJOR ? lay[(size_t)ab0 * p.nf + bb] : lay[(size_t)bb * p.nf + ab0]) != 0;
+      in1 = (QMAJOR ? lay[(size_t)ab1 * p.nf + bb] : lay[(size_t)bb * p.nf + ab1]) != 0;
+    }
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      const int a = c < 2 ? a0 : a1, b = bg + cq + (c & 1);
+      bool keep = c < 2 ? in0 : in1;
+      if (fl & POS_BIT) keep = keep && (QMAJOR ? pos_live(p, a, b) : pos_live(p, b, a));
+      if (!keep) s[j][c] = NEG_INF;
+    }
+  }
+}
+
+// p from the saved logsumexp; a masked entry is exactly 0
+__device__ __forceinline__ float prob(float s, float lse) {
+  return s > 0.5f * NEG_INF ? exp2f((s - lse) * LOG2E) : 0.f;
+}
+
+// ------------------------------------------------------------------ bf16
+
+using bf16 = __nv_bfloat16;
+
+__device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a,
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+      "{%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 t = __floats2bfloat162_rn(lo, hi);   // .x = lo = low half
+  return *reinterpret_cast<uint32_t*>(&t);
+}
+
+// four 8x8 b16 matrices from shared memory (see flash_attention_fwd.cu):
+// without .trans lane l receives (row l/4, columns 2*(l%4) + {0, 1}) of
+// each; with .trans the transposed matrix
+__device__ __forceinline__ void ldsm_x4(uint32_t* r, const void* ptr) {
+  const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(ptr));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 "
+               "{%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(a));
+}
+
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t* r, const void* ptr) {
+  const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(ptr));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 "
+               "{%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(a));
+}
+
+// 16 bytes global -> shared; src_bytes 0 writes zeros (the ragged edge)
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           int src_bytes) {
+  const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(a), "l"(src), "r"(src_bytes));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+template <int N> __device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N));
+}
+
+// A fragments of rows r0 / r1 (k columns kk*16 + cq, cq + 1 and + 8) of a
+// [n, D] bf16 matrix; rows past n read zeros
+template <int D>
+__device__ __forceinline__ void load_a(uint32_t (*f)[4], const bf16* base,
+                                       int r0, int r1, int n, int cq) {
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    const int c = kk * 16 + cq;
+    f[kk][0] = r0 < n ? *reinterpret_cast<const uint32_t*>(base + (size_t)r0 * D + c) : 0u;
+    f[kk][1] = r1 < n ? *reinterpret_cast<const uint32_t*>(base + (size_t)r1 * D + c) : 0u;
+    f[kk][2] = r0 < n ? *reinterpret_cast<const uint32_t*>(base + (size_t)r0 * D + c + 8) : 0u;
+    f[kk][3] = r1 < n ? *reinterpret_cast<const uint32_t*>(base + (size_t)r1 * D + c + 8) : 0u;
+  }
+}
+
+// acc[j] (16 x 8 tile j of a 16 x N product) = A (fragments a) times the
+// transpose of the N rows at smem (N x D, padded row LD): the Q K^T pattern
+template <int D, int N, int LD>
+__device__ __forceinline__ void mma_abt(float (*acc)[4], const uint32_t (*a)[4],
+                                        const bf16* smem, int lane) {
+#pragma unroll
+  for (int j = 0; j < N / 8; ++j) {
+    acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
+    const bf16* r = &smem[(j * 8 + (lane & 7)) * LD + (lane >> 3) * 8];
+#pragma unroll
+    for (int kk = 0; kk < D / 16; kk += 2) {
+      uint32_t b[4];
+      ldsm_x4(b, r + kk * 16);
+      mma_bf16(acc[j], a[kk], b[0], b[1]);
+      mma_bf16(acc[j], a[kk + 1], b[2], b[3]);
+    }
+  }
+}
+
+// out (16 x D) += X (16 x N f32 accumulator tiles, rounded to bf16 and
+// repacked as A fragments) times the N x D rows at smem: the P V pattern
+template <int D, int N, int LD>
+__device__ __forceinline__ void mma_ab(float (*out)[4], const float (*x)[4],
+                                       const bf16* smem, int lane) {
+  const int v_row = (lane & 7) + ((lane >> 3) & 1) * 8, v_col = (lane >> 4) * 8;
+#pragma unroll
+  for (int kk = 0; kk < N / 16; ++kk) {
+    uint32_t a[4];
+    a[0] = pack_bf16(x[2 * kk][0], x[2 * kk][1]);
+    a[1] = pack_bf16(x[2 * kk][2], x[2 * kk][3]);
+    a[2] = pack_bf16(x[2 * kk + 1][0], x[2 * kk + 1][1]);
+    a[3] = pack_bf16(x[2 * kk + 1][2], x[2 * kk + 1][3]);
+    const bf16* r = &smem[(kk * 16 + v_row) * LD + v_col];
+#pragma unroll
+    for (int n = 0; n < D / 8; n += 2) {
+      uint32_t b[4];
+      ldsm_x4_trans(b, r + n * 8);
+      mma_bf16(out[n], a, b[0], b[1]);
+      mma_bf16(out[n + 1], a, b[2], b[3]);
+    }
+  }
+}
+
+// rows r0 / r1 of a 16 x D f32 accumulator to bf16 rows of [n, D]
+template <int D>
+__device__ __forceinline__ void store_rows(bf16* base, const float (*acc)[4],
+                                           int r0, int r1, int n, int cq) {
+#pragma unroll
+  for (int rr = 0; rr < 2; ++rr) {
+    const int row = rr ? r1 : r0;
+    if (row >= n) continue;
+    bf16* out = base + (size_t)row * D + cq;
+#pragma unroll
+    for (int c = 0; c < D / 8; ++c)
+      *reinterpret_cast<__nv_bfloat162*>(out + c * 8) =
+          __floats2bfloat162_rn(acc[c][2 * rr], acc[c][2 * rr + 1]);
+  }
+}
+
+// ROWS rows (from i0) of a and of b, [n, D] each, into the shared stage at
+// dst (a then b, rows padded to LD) by cp.async; rows past n read zeros
+template <int D, int ROWS>
+__device__ __forceinline__ void load_pair(bf16* dst, const bf16* a,
+                                          const bf16* b, int i0, int n,
+                                          int tid) {
+  constexpr int LD = D + 8;
+  for (int idx = tid; idx < ROWS * D / 8; idx += NTHREADS) {
+    const int rr = idx / (D / 8), c = (idx % (D / 8)) * 8;
+    const int row = i0 + rr;
+    const bool in = row < n;
+    const size_t src = (size_t)(in ? row : 0) * D + c;
+    cp_async16(&dst[rr * LD + c], a + src, in ? 16 : 0);
+    cp_async16(&dst[ROWS * LD + rr * LD + c], b + src, in ? 16 : 0);
+  }
+  cp_async_commit();
+}
+
+template <int D> constexpr size_t bf16_smem_bytes(int rows) {
+  return 2 * 2 * rows * (D + 8) * sizeof(bf16);
+}
+
+// forward for one 64-row query tile over its listed key tiles
+template <int D>
+__global__ void __launch_bounds__(NTHREADS)
+bs_fwd_bf16(Params p) {
+  constexpr int BK = T, LD = D + 8, TILE = BK * LD;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* sm = reinterpret_cast<bf16*>(smem_raw);
+  const int bh = blockIdx.x, h = bh % p.H;
+  const int qt = p.order[h * p.nT + blockIdx.y];  // the longest lists first
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int r0 = qt * T + warp * 16 + lane / 4, r1 = r0 + 8;
+  const int cq = (lane % 4) * 2;
+  const size_t off = (size_t)bh * p.S;
+
+  uint32_t qf[D / 16][4];
+  load_a<D>(qf, static_cast<const bf16*>(p.q) + off * D, r0, r1, p.S, cq);
+  float of[D / 8][4];
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n) of[n][0] = of[n][1] = of[n][2] = of[n][3] = 0.f;
+  float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};   // l: this thread's part
+
+  const int e0 = p.ptr[h * p.nT + qt], e1 = p.ptr[h * p.nT + qt + 1];
+  const bf16* kb = static_cast<const bf16*>(p.k) + off * D;
+  const bf16* vb = static_cast<const bf16*>(p.v) + off * D;
+  if (e0 < e1) load_pair<D, BK>(sm, kb, vb, p.idx[e0] * BK, p.S, tid);
+
+  for (int e = e0; e < e1; ++e) {
+    const int k0 = p.idx[e] * BK, fl = p.flags[e], stage = (e - e0) & 1;
+    if (e + 1 < e1) {
+      load_pair<D, BK>(sm + 2 * (stage ^ 1) * TILE, kb, vb, p.idx[e + 1] * BK,
+                       p.S, tid);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const bf16* Ks = sm + 2 * stage * TILE;
+    const bf16* Vs = Ks + TILE;
+    float sf[BK / 8][4];
+    mma_abt<D, BK, LD>(sf, qf, Ks, lane);       // S = Q K^T
+#pragma unroll
+    for (int j = 0; j < BK / 8; ++j)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) sf[j][c] *= p.sm_scale;
+    if (fl != 0) mask_tile<BK / 8, true>(sf, p, h, fl, r0, r1, k0, cq);
+    // online softmax for the thread's two rows (a row spans a lane quad);
+    // the rescale takes the difference first, so m == mx == -1e30 (no live
+    // key yet) gives exactly 1
+#pragma unroll
+    for (int rr = 0; rr < 2; ++rr) {
+      float mx = m[rr];
+#pragma unroll
+      for (int j = 0; j < BK / 8; ++j)
+        mx = fmaxf(mx, fmaxf(sf[j][2 * rr], sf[j][2 * rr + 1]));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      const float mxl = mx * LOG2E;
+      const float alpha = exp2f((m[rr] - mx) * LOG2E);
+      float ps = 0.f;
+#pragma unroll
+      for (int j = 0; j < BK / 8; ++j)
+#pragma unroll
+        for (int c = 2 * rr; c < 2 * rr + 2; ++c) {
+          const float pe = sf[j][c] > 0.5f * NEG_INF
+                               ? exp2f(fmaf(sf[j][c], LOG2E, -mxl)) : 0.f;
+          sf[j][c] = pe;
+          ps += pe;
+        }
+      l[rr] = l[rr] * alpha + ps;
+      m[rr] = mx;
+#pragma unroll
+      for (int n = 0; n < D / 8; ++n) {
+        of[n][2 * rr] *= alpha;
+        of[n][2 * rr + 1] *= alpha;
+      }
+    }
+    mma_ab<D, BK, LD>(of, sf, Vs, lane);         // O += P V
+    __syncthreads();                            // the stage is refilled next
+  }
+
+#pragma unroll
+  for (int rr = 0; rr < 2; ++rr) {
+    float lt = l[rr];
+    lt += __shfl_xor_sync(0xffffffffu, lt, 1);
+    lt += __shfl_xor_sync(0xffffffffu, lt, 2);
+    const int row = rr ? r1 : r0;
+    if (row >= p.S) continue;
+    const float ls = lt == 0.f ? 1.f : lt;       // a dead row writes zeros
+    bf16* orow = static_cast<bf16*>(p.o) + (off + row) * D + cq;
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n)
+      *reinterpret_cast<__nv_bfloat162*>(orow + n * 8) =
+          __floats2bfloat162_rn(of[n][2 * rr] / ls, of[n][2 * rr + 1] / ls);
+    if (lane % 4 == 0) p.lse[off + row] = m[rr] + logf(fmaxf(lt, 1e-37f));
+  }
+}
+
+// dQ for one 64-row query tile over its listed key tiles
+template <int D>
+__global__ void __launch_bounds__(NTHREADS)
+bs_dq_bf16(Params p) {
+  constexpr int BK = T, LD = D + 8, TILE = BK * LD;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* sm = reinterpret_cast<bf16*>(smem_raw);
+  const int bh = blockIdx.x, h = bh % p.H;
+  const int qt = p.order[h * p.nT + blockIdx.y];
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int r0 = qt * T + warp * 16 + lane / 4, r1 = r0 + 8;
+  const int cq = (lane % 4) * 2;
+  const size_t off = (size_t)bh * p.S;
+
+  uint32_t qf[D / 16][4], df[D / 16][4];
+  load_a<D>(qf, static_cast<const bf16*>(p.q) + off * D, r0, r1, p.S, cq);
+  load_a<D>(df, static_cast<const bf16*>(p.dout) + off * D, r0, r1, p.S, cq);
+  float lse[2], dlt[2];
+  lse[0] = r0 < p.S ? p.lse_in[off + r0] : 0.f;
+  lse[1] = r1 < p.S ? p.lse_in[off + r1] : 0.f;
+  dlt[0] = r0 < p.S ? p.delta[off + r0] : 0.f;
+  dlt[1] = r1 < p.S ? p.delta[off + r1] : 0.f;
+  float acc[D / 8][4];
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+
+  const int e0 = p.ptr[h * p.nT + qt], e1 = p.ptr[h * p.nT + qt + 1];
+  const bf16* kb = static_cast<const bf16*>(p.k) + off * D;
+  const bf16* vb = static_cast<const bf16*>(p.v) + off * D;
+  if (e0 < e1) load_pair<D, BK>(sm, kb, vb, p.idx[e0] * BK, p.S, tid);
+
+  for (int e = e0; e < e1; ++e) {
+    const int k0 = p.idx[e] * BK, fl = p.flags[e], stage = (e - e0) & 1;
+    if (e + 1 < e1) {
+      load_pair<D, BK>(sm + 2 * (stage ^ 1) * TILE, kb, vb, p.idx[e + 1] * BK,
+                       p.S, tid);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const bf16* Ks = sm + 2 * stage * TILE;
+    const bf16* Vs = Ks + TILE;
+    float sf[BK / 8][4], dp[BK / 8][4];
+    mma_abt<D, BK, LD>(sf, qf, Ks, lane);       // S = Q K^T
+    mma_abt<D, BK, LD>(dp, df, Vs, lane);       // dP = dO V^T
+#pragma unroll
+    for (int j = 0; j < BK / 8; ++j)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) sf[j][c] *= p.sm_scale;
+    if (fl != 0) mask_tile<BK / 8, true>(sf, p, h, fl, r0, r1, k0, cq);
+#pragma unroll
+    for (int j = 0; j < BK / 8; ++j)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const int rr = c >> 1;
+        sf[j][c] = prob(sf[j][c], lse[rr]) * (dp[j][c] - dlt[rr]) * p.sm_scale;  // dS
+      }
+    mma_ab<D, BK, LD>(acc, sf, Ks, lane);       // dQ += dS K
+    __syncthreads();
+  }
+  store_rows<D>(static_cast<bf16*>(p.dq) + off * D, acc, r0, r1, p.S, cq);
+}
+
+// dK and dV for one 64-row key tile over its listed query tiles, each
+// taken in 64 / BQ steps of BQ rows, with Q, dO and the rows' lse and
+// delta double-buffered in shared memory
+template <int D, int BQ>
+__global__ void __launch_bounds__(NTHREADS)
+bs_dkv_bf16(Params p) {
+  constexpr int LD = D + 8, TILE = BQ * LD, SUB = T / BQ;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* sm = reinterpret_cast<bf16*>(smem_raw);
+  __shared__ float rows_s[2][2][BQ];           // [stage][lse, delta][query]
+  const int bh = blockIdx.x, h = bh % p.H;
+  const int kt = p.order[h * p.nT + blockIdx.y];
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int r0 = kt * T + warp * 16 + lane / 4, r1 = r0 + 8;   // keys
+  const int cq = (lane % 4) * 2;
+  const size_t off = (size_t)bh * p.S;
+
+  uint32_t kf[D / 16][4], vf[D / 16][4];
+  load_a<D>(kf, static_cast<const bf16*>(p.k) + off * D, r0, r1, p.S, cq);
+  load_a<D>(vf, static_cast<const bf16*>(p.v) + off * D, r0, r1, p.S, cq);
+  float dk[D / 8][4], dv[D / 8][4];
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) dk[n][c] = dv[n][c] = 0.f;
+
+  const int e0 = p.ptr[h * p.nT + kt], e1 = p.ptr[h * p.nT + kt + 1];
+  const int steps = (e1 - e0) * SUB;
+  const bf16* qb = static_cast<const bf16*>(p.q) + off * D;
+  const bf16* db = static_cast<const bf16*>(p.dout) + off * D;
+  auto first_row = [&](int s) { return p.idx[e0 + s / SUB] * T + (s % SUB) * BQ; };
+  auto load = [&](int s, int stage) {
+    const int q0 = first_row(s);
+    for (int i = tid; i < BQ; i += NTHREADS) {
+      const bool in = q0 + i < p.S;
+      rows_s[stage][0][i] = in ? p.lse_in[off + q0 + i] : 0.f;
+      rows_s[stage][1][i] = in ? p.delta[off + q0 + i] : 0.f;
+    }
+    load_pair<D, BQ>(sm + 2 * stage * TILE, qb, db, q0, p.S, tid);
+  };
+  if (steps > 0) load(0, 0);
+
+  for (int s = 0; s < steps; ++s) {
+    const int q0 = first_row(s), fl = p.flags[e0 + s / SUB], stage = s & 1;
+    if (s + 1 < steps) {
+      load(s + 1, stage ^ 1);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const bf16* Qs = sm + 2 * stage * TILE;
+    const bf16* Ds = Qs + TILE;
+    const float* lse = rows_s[stage][0];
+    const float* dlt = rows_s[stage][1];
+    float st[BQ / 8][4], dpt[BQ / 8][4];
+    mma_abt<D, BQ, LD>(st, kf, Qs, lane);      // S^T = K Q^T
+    mma_abt<D, BQ, LD>(dpt, vf, Ds, lane);     // dP^T = V dO^T
+#pragma unroll
+    for (int j = 0; j < BQ / 8; ++j)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) st[j][c] *= p.sm_scale;
+    if (fl != 0) mask_tile<BQ / 8, false>(st, p, h, fl, r0, r1, q0, cq);
+#pragma unroll
+    for (int j = 0; j < BQ / 8; ++j)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const int qi = j * 8 + cq + (c & 1);
+        const float pr = prob(st[j][c], lse[qi]);
+        st[j][c] = pr;                                          // P^T
+        dpt[j][c] = pr * (dpt[j][c] - dlt[qi]) * p.sm_scale;    // dS^T
+      }
+    mma_ab<D, BQ, LD>(dv, st, Ds, lane);       // dV += P^T dO
+    mma_ab<D, BQ, LD>(dk, dpt, Qs, lane);      // dK += dS^T Q
+    __syncthreads();                           // the stage is refilled next
+  }
+  store_rows<D>(static_cast<bf16*>(p.dk) + off * D, dk, r0, r1, p.S, cq);
+  store_rows<D>(static_cast<bf16*>(p.dv) + off * D, dv, r0, r1, p.S, cq);
+}
+
+// ------------------------------------------------------------------- f32
+
+// 64 rows per CTA, TPR threads per row, each owning the float4 slices
+// i*TPR + t (i < NV) of its row: neighbouring threads on neighbouring
+// addresses
+template <int D> struct F32 {
+  static constexpr int TPR = D == 128 ? 4 : 2;
+  static constexpr int DPT = D / TPR;           // dims a thread owns
+  static constexpr int NV = DPT / 4;
+  static constexpr int NT = T * TPR;            // threads per CTA
+  static constexpr int SUBT = 32;               // rows of a shared sub-tile
+};
+
+template <int D>
+__device__ __forceinline__ void load_slices(float* dst, const float* row,
+                                            int t) {
+  using L = F32<D>;
+#pragma unroll
+  for (int i = 0; i < L::NV; ++i) {
+    const float4 x = *reinterpret_cast<const float4*>(row + 4 * (i * L::TPR + t));
+    dst[4 * i] = x.x; dst[4 * i + 1] = x.y; dst[4 * i + 2] = x.z; dst[4 * i + 3] = x.w;
+  }
+}
+
+template <int D>
+__device__ __forceinline__ void store_slices(float* row, const float* src,
+                                             int t, float scale) {
+  using L = F32<D>;
+#pragma unroll
+  for (int i = 0; i < L::NV; ++i)
+    *reinterpret_cast<float4*>(row + 4 * (i * L::TPR + t)) =
+        make_float4(src[4 * i] * scale, src[4 * i + 1] * scale,
+                    src[4 * i + 2] * scale, src[4 * i + 3] * scale);
+}
+
+// the dot products of this thread's slices with one shared row (a with
+// x, b with y), summed over the row's TPR threads
+template <int D>
+__device__ __forceinline__ void dot2(const float* a, const float* x,
+                                     const float* b, const float* y, int t,
+                                     float* ax, float* by) {
+  using L = F32<D>;
+  float s = 0.f, d = 0.f;
+#pragma unroll
+  for (int i = 0; i < L::NV; ++i) {
+    const float4 u = *reinterpret_cast<const float4*>(x + 4 * (i * L::TPR + t));
+    const float4 w = *reinterpret_cast<const float4*>(y + 4 * (i * L::TPR + t));
+    s = fmaf(a[4 * i], u.x, s); s = fmaf(a[4 * i + 1], u.y, s);
+    s = fmaf(a[4 * i + 2], u.z, s); s = fmaf(a[4 * i + 3], u.w, s);
+    d = fmaf(b[4 * i], w.x, d); d = fmaf(b[4 * i + 1], w.y, d);
+    d = fmaf(b[4 * i + 2], w.z, d); d = fmaf(b[4 * i + 3], w.w, d);
+  }
+#pragma unroll
+  for (int m = 1; m < L::TPR; m <<= 1) {
+    s += __shfl_xor_sync(0xffffffffu, s, m);
+    d += __shfl_xor_sync(0xffffffffu, d, m);
+  }
+  *ax = s;
+  *by = d;
+}
+
+// the dot product of this thread's slices with one shared row, summed
+// over the row's TPR threads
+template <int D>
+__device__ __forceinline__ float dot1(const float* a, const float* x, int t) {
+  using L = F32<D>;
+  float s = 0.f;
+#pragma unroll
+  for (int i = 0; i < L::NV; ++i) {
+    const float4 u = *reinterpret_cast<const float4*>(x + 4 * (i * L::TPR + t));
+    s = fmaf(a[4 * i], u.x, s); s = fmaf(a[4 * i + 1], u.y, s);
+    s = fmaf(a[4 * i + 2], u.z, s); s = fmaf(a[4 * i + 3], u.w, s);
+  }
+#pragma unroll
+  for (int m = 1; m < L::TPR; m <<= 1) s += __shfl_xor_sync(0xffffffffu, s, m);
+  return s;
+}
+
+// acc += w * this thread's slices of the shared row x
+template <int D>
+__device__ __forceinline__ void axpy(float* acc, float w, const float* x,
+                                     int t) {
+  using L = F32<D>;
+#pragma unroll
+  for (int i = 0; i < L::NV; ++i) {
+    const float4 u = *reinterpret_cast<const float4*>(x + 4 * (i * L::TPR + t));
+    acc[4 * i] = fmaf(w, u.x, acc[4 * i]);
+    acc[4 * i + 1] = fmaf(w, u.y, acc[4 * i + 1]);
+    acc[4 * i + 2] = fmaf(w, u.z, acc[4 * i + 2]);
+    acc[4 * i + 3] = fmaf(w, u.w, acc[4 * i + 3]);
+  }
+}
+
+// rows [i0, i0 + SUBT) of two [n, D] f32 matrices into shared tiles; rows
+// past n read zeros
+template <int D>
+__device__ __forceinline__ void load_f32_pair(float* da, float* db,
+                                              const float* a, const float* b,
+                                              int i0, int n, int tid) {
+  using L = F32<D>;
+  for (int idx = tid; idx < L::SUBT * D / 4; idx += L::NT) {
+    const int rr = idx / (D / 4), c = (idx % (D / 4)) * 4;
+    float4 x = make_float4(0.f, 0.f, 0.f, 0.f), y = x;
+    if (i0 + rr < n) {
+      x = *reinterpret_cast<const float4*>(a + (size_t)(i0 + rr) * D + c);
+      y = *reinterpret_cast<const float4*>(b + (size_t)(i0 + rr) * D + c);
+    }
+    *reinterpret_cast<float4*>(&da[rr * D + c]) = x;
+    *reinterpret_cast<float4*>(&db[rr * D + c]) = y;
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(F32<D>::NT)
+bs_fwd_f32(Params p) {
+  using L = F32<D>;
+  constexpr int BK = L::SUBT;
+  __shared__ __align__(16) float Ks[BK * D];
+  __shared__ __align__(16) float Vs[BK * D];
+  const int bh = blockIdx.x, h = bh % p.H;
+  const int qt = p.order[h * p.nT + blockIdx.y];
+  const int tid = threadIdx.x, t = tid % L::TPR;
+  const int row = qt * T + tid / L::TPR;
+  const size_t off = (size_t)bh * p.S;
+  const float* kb = static_cast<const float*>(p.k) + off * D;
+  const float* vb = static_cast<const float*>(p.v) + off * D;
+  float qv[L::DPT], acc[L::DPT];
+  load_slices<D>(qv, static_cast<const float*>(p.q) + (off + min(row, p.S - 1)) * D, t);
+#pragma unroll
+  for (int i = 0; i < L::DPT; ++i) acc[i] = 0.f;
+  float m = NEG_INF, l = 0.f;
+
+  const int e0 = p.ptr[h * p.nT + qt], e1 = p.ptr[h * p.nT + qt + 1];
+  for (int e = e0; e < e1; ++e) {
+    const int fl = p.flags[e];
+    for (int k0 = p.idx[e] * T; k0 < min(p.idx[e] * T + T, p.S); k0 += BK) {
+      __syncthreads();
+      load_f32_pair<D>(Ks, Vs, kb, vb, k0, p.S, tid);
+      __syncthreads();
+      float sc[BK];
+      float mx = m;
+#pragma unroll
+      for (int kk = 0; kk < BK; ++kk) {
+        float s = dot1<D>(qv, &Ks[kk * D], t) * p.sm_scale;
+        if (fl != 0 && !live(p, h, fl, row, k0 + kk)) s = NEG_INF;
+        sc[kk] = s;
+        mx = fmaxf(mx, s);
+      }
+      const float alpha = expf(m - mx);
+      float ps = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < BK; ++kk) {
+        sc[kk] = sc[kk] > 0.5f * NEG_INF ? expf(sc[kk] - mx) : 0.f;
+        ps += sc[kk];
+      }
+      l = l * alpha + ps;
+      m = mx;
+#pragma unroll
+      for (int i = 0; i < L::DPT; ++i) acc[i] *= alpha;
+#pragma unroll
+      for (int kk = 0; kk < BK; ++kk) axpy<D>(acc, sc[kk], &Vs[kk * D], t);
+    }
+  }
+  if (row < p.S) {
+    const float ls = l == 0.f ? 1.f : l;        // a dead row writes zeros
+    store_slices<D>(static_cast<float*>(p.o) + (off + row) * D, acc, t, 1.f / ls);
+    if (t == 0) p.lse[off + row] = m + logf(fmaxf(l, 1e-37f));
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(F32<D>::NT)
+bs_dq_f32(Params p) {
+  using L = F32<D>;
+  constexpr int BK = L::SUBT;
+  __shared__ __align__(16) float Ks[BK * D];
+  __shared__ __align__(16) float Vs[BK * D];
+  const int bh = blockIdx.x, h = bh % p.H;
+  const int qt = p.order[h * p.nT + blockIdx.y];
+  const int tid = threadIdx.x, t = tid % L::TPR;
+  const int row = qt * T + tid / L::TPR, rc = min(row, p.S - 1);
+  const size_t off = (size_t)bh * p.S;
+  const float* kb = static_cast<const float*>(p.k) + off * D;
+  const float* vb = static_cast<const float*>(p.v) + off * D;
+  float qv[L::DPT], dov[L::DPT], acc[L::DPT];
+  load_slices<D>(qv, static_cast<const float*>(p.q) + (off + rc) * D, t);
+  load_slices<D>(dov, static_cast<const float*>(p.dout) + (off + rc) * D, t);
+#pragma unroll
+  for (int i = 0; i < L::DPT; ++i) acc[i] = 0.f;
+  const float lse = p.lse_in[off + rc], dlt = p.delta[off + rc];
+
+  const int e0 = p.ptr[h * p.nT + qt], e1 = p.ptr[h * p.nT + qt + 1];
+  for (int e = e0; e < e1; ++e) {
+    const int fl = p.flags[e];
+    for (int k0 = p.idx[e] * T; k0 < min(p.idx[e] * T + T, p.S); k0 += BK) {
+      __syncthreads();
+      load_f32_pair<D>(Ks, Vs, kb, vb, k0, p.S, tid);
+      __syncthreads();
+      for (int kk = 0; kk < BK; ++kk) {
+        float s, dp;
+        dot2<D>(qv, &Ks[kk * D], dov, &Vs[kk * D], t, &s, &dp);
+        s *= p.sm_scale;
+        if (fl != 0 && !live(p, h, fl, row, k0 + kk)) s = NEG_INF;
+        axpy<D>(acc, prob(s, lse) * (dp - dlt) * p.sm_scale, &Ks[kk * D], t);
+      }
+    }
+  }
+  if (row < p.S)
+    store_slices<D>(static_cast<float*>(p.dq) + (off + row) * D, acc, t, 1.f);
+}
+
+template <int D>
+__global__ void __launch_bounds__(F32<D>::NT)
+bs_dkv_f32(Params p) {
+  using L = F32<D>;
+  constexpr int BQ = L::SUBT;
+  __shared__ __align__(16) float Qs[BQ * D];
+  __shared__ __align__(16) float Ds[BQ * D];
+  __shared__ float Ls[BQ], Es[BQ];
+  const int bh = blockIdx.x, h = bh % p.H;
+  const int kt = p.order[h * p.nT + blockIdx.y];
+  const int tid = threadIdx.x, t = tid % L::TPR;
+  const int key = kt * T + tid / L::TPR, kc = min(key, p.S - 1);
+  const size_t off = (size_t)bh * p.S;
+  const float* qb = static_cast<const float*>(p.q) + off * D;
+  const float* db = static_cast<const float*>(p.dout) + off * D;
+  float kv[L::DPT], vv[L::DPT], dk[L::DPT], dv[L::DPT];
+  load_slices<D>(kv, static_cast<const float*>(p.k) + (off + kc) * D, t);
+  load_slices<D>(vv, static_cast<const float*>(p.v) + (off + kc) * D, t);
+#pragma unroll
+  for (int i = 0; i < L::DPT; ++i) dk[i] = dv[i] = 0.f;
+
+  const int e0 = p.ptr[h * p.nT + kt], e1 = p.ptr[h * p.nT + kt + 1];
+  for (int e = e0; e < e1; ++e) {
+    const int fl = p.flags[e];
+    for (int q0 = p.idx[e] * T; q0 < min(p.idx[e] * T + T, p.S); q0 += BQ) {
+      __syncthreads();
+      load_f32_pair<D>(Qs, Ds, qb, db, q0, p.S, tid);
+      for (int i = tid; i < BQ; i += L::NT) {
+        const bool in = q0 + i < p.S;
+        Ls[i] = in ? p.lse_in[off + q0 + i] : 0.f;
+        Es[i] = in ? p.delta[off + q0 + i] : 0.f;
+      }
+      __syncthreads();
+      for (int qq = 0; qq < BQ; ++qq) {
+        float s, dp;
+        dot2<D>(kv, &Qs[qq * D], vv, &Ds[qq * D], t, &s, &dp);
+        s *= p.sm_scale;
+        if (fl != 0 && !live(p, h, fl, q0 + qq, key)) s = NEG_INF;
+        const float pr = prob(s, Ls[qq]);
+        axpy<D>(dv, pr, &Ds[qq * D], t);
+        axpy<D>(dk, pr * (dp - Es[qq]) * p.sm_scale, &Qs[qq * D], t);
+      }
+    }
+  }
+  if (key < p.S) {
+    store_slices<D>(static_cast<float*>(p.dk) + (off + key) * D, dk, t, 1.f);
+    store_slices<D>(static_cast<float*>(p.dv) + (off + key) * D, dv, t, 1.f);
+  }
+}
+
+// ---------------------------------------------------------------- launch
+
+template <typename KernelFn>
+int launch(KernelFn kernel, const Params& p, int BH, int threads,
+           cudaStream_t stream, size_t smem = 0) {
+  if (smem > 48 * 1024) {                   // above 48 KB only by opt-in
+    const cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  kernel<<<dim3(BH, p.nT), threads, smem, stream>>>(p);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int D>
+int launch_fwd(const Params& p, int BH, int dtype, cudaStream_t st) {
+  if (dtype == 0) return launch(bs_fwd_f32<D>, p, BH, F32<D>::NT, st);
+  return launch(bs_fwd_bf16<D>, p, BH, NTHREADS, st, bf16_smem_bytes<D>(T));
+}
+
+template <int D>
+int launch_dq(const Params& p, int BH, int dtype, cudaStream_t st) {
+  if (dtype == 0) return launch(bs_dq_f32<D>, p, BH, F32<D>::NT, st);
+  return launch(bs_dq_bf16<D>, p, BH, NTHREADS, st, bf16_smem_bytes<D>(T));
+}
+
+template <int D>
+int launch_dkv(const Params& p, int BH, int dtype, cudaStream_t st) {
+  if (dtype == 0) return launch(bs_dkv_f32<D>, p, BH, F32<D>::NT, st);
+  // query steps of 32 rows at head_dim 128 keep dK, dV, K, V and the score
+  // tiles within the register file (as in flash_attention_bwd.cu)
+  constexpr int BQ = D > 64 ? 32 : 64;
+  return launch(bs_dkv_bf16<D, BQ>, p, BH, NTHREADS, st, bf16_smem_bytes<D>(BQ));
+}
+
+Params make_params(const void* q, const void* k, const void* v,
+                   const void* dout, const void* lse_in, const void* delta,
+                   const void* layout, const void* ptr, const void* idx,
+                   const void* flags, const void* order, int H, int S,
+                   int fine, int causal, int window, float sm_scale) {
+  Params p = {};
+  p.q = q; p.k = k; p.v = v; p.dout = dout;
+  p.lse_in = static_cast<const float*>(lse_in);
+  p.delta = static_cast<const float*>(delta);
+  p.layout = static_cast<const uint8_t*>(layout);
+  p.ptr = static_cast<const int*>(ptr);
+  p.idx = static_cast<const int*>(idx);
+  p.flags = static_cast<const int*>(flags);
+  p.order = static_cast<const int*>(order);
+  p.H = H; p.S = S; p.nT = (S + T - 1) / T;
+  p.fine = fine; p.nf = fine > 0 ? S / fine : 0;
+  p.causal = causal; p.window = window; p.sm_scale = sm_scale;
+  return p;
+}
+
+template <typename Fn>
+int dispatch(Fn fn, int D) {
+  if (D == 32) return fn(std::integral_constant<int, 32>());
+  if (D == 64) return fn(std::integral_constant<int, 64>());
+  if (D == 128) return fn(std::integral_constant<int, 128>());
+  return -1;
+}
+
+}  // namespace
+
+extern "C" {
+
+// dtype: 0 = float32, 1 = bfloat16 (q, k, v, dout and the outputs alike).
+// D: 32, 64 or 128. ptr / idx / flags / order: the query-tile lists and
+// their order (forward, dq) or the key-tile ones (dkv). layout: null when
+// layout_exact is off; fine: a multiple of 8 that divides S. Each
+// returns the CUDA error of its launch (0 = launched); -1 for a dtype or
+// head dim the kernels lack.
+int block_sparse_attention_fwd_launch(const void* q, const void* k,
+                                      const void* v, const void* layout,
+                                      const void* ptr, const void* idx,
+                                      const void* flags, const void* order,
+                                      void* o, void* lse,
+                                      int BH, int H, int S, int D, int fine,
+                                      int causal, int window, float sm_scale,
+                                      int dtype, void* stream) {
+  Params p = make_params(q, k, v, nullptr, nullptr, nullptr, layout, ptr, idx,
+                         flags, order, H, S, fine, causal, window, sm_scale);
+  p.o = o;
+  p.lse = static_cast<float*>(lse);
+  if (S <= 0 || BH <= 0) return 0;
+  if (dtype != 0 && dtype != 1) return -1;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return dispatch([&](auto d) { return launch_fwd<decltype(d)::value>(p, BH, dtype, st); }, D);
+}
+
+int block_sparse_attention_bwd_dq_launch(const void* q, const void* k,
+                                         const void* v, const void* dout,
+                                         const void* lse, const void* delta,
+                                         const void* layout, const void* ptr,
+                                         const void* idx, const void* flags,
+                                         const void* order, void* dq, int BH,
+                                         int H, int S, int D,
+                                         int fine, int causal, int window,
+                                         float sm_scale, int dtype,
+                                         void* stream) {
+  Params p = make_params(q, k, v, dout, lse, delta, layout, ptr, idx, flags,
+                         order, H, S, fine, causal, window, sm_scale);
+  p.dq = dq;
+  if (S <= 0 || BH <= 0) return 0;
+  if (dtype != 0 && dtype != 1) return -1;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return dispatch([&](auto d) { return launch_dq<decltype(d)::value>(p, BH, dtype, st); }, D);
+}
+
+int block_sparse_attention_bwd_dkv_launch(const void* q, const void* k,
+                                          const void* v, const void* dout,
+                                          const void* lse, const void* delta,
+                                          const void* layout, const void* ptr,
+                                          const void* idx, const void* flags,
+                                          const void* order, void* dk,
+                                          void* dv, int BH, int H,
+                                          int S, int D, int fine, int causal,
+                                          int window, float sm_scale,
+                                          int dtype, void* stream) {
+  Params p = make_params(q, k, v, dout, lse, delta, layout, ptr, idx, flags,
+                         order, H, S, fine, causal, window, sm_scale);
+  p.dk = dk;
+  p.dv = dv;
+  if (S <= 0 || BH <= 0) return 0;
+  if (dtype != 0 && dtype != 1) return -1;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return dispatch([&](auto d) { return launch_dkv<decltype(d)::value>(p, BH, dtype, st); }, D);
+}
+
+const char* block_sparse_attention_error_string(int err) {
+  return err < 0 ? "unsupported dtype or head dim"
+                 : cudaGetErrorString(static_cast<cudaError_t>(err));
+}
+
+}  // extern "C"

@@ -24,19 +24,25 @@ The update runs in place once the step is known not to skip: the
 overflow flag and the grad norm come to the host together, one read per
 step, where the JAX engine keeps both inside its compiled step.
 
+The ``sparse_attention`` section is wired into the model as the JAX
+engine wires it (:func:`wire_attention_config`): the ``Transformer``'s
+``attention_impl`` becomes "sparse" and its config carries the parsed
+section, so every layer runs the block-sparse kernels.
+
 ZeRO stages 0-3 on one process are accepted: partitioning over one rank
 is the identity, as for the JAX engine on one chip. Everything else that
 a config can enable and this engine does not implement raises
 ``NotImplementedError`` naming ROADMAP.md: CPU/NVMe offload, the 1-bit
 optimizers, comm_plan, compression_training, the integrity sentinel,
 progressive layer drop, curriculum / data efficiency, eigenvalue,
-sparse_attention, sequence / tensor / pipeline parallelism, activation
-checkpointing, monitors and the other aux sections, a
-``torch.distributed`` world larger than one, and checkpoint save / load.
+sequence / tensor / pipeline parallelism, activation checkpointing,
+monitors and the other aux sections, a ``torch.distributed`` world larger
+than one, and checkpoint save / load.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import inspect
 import time
 from typing import Any, Callable, Dict, List, Optional
@@ -99,7 +105,6 @@ def unported_sections(config: DeepSpeedConfig) -> List[str]:
         "curriculum_learning": c.curriculum_learning.enabled,
         "data_efficiency": c.data_efficiency.enabled,
         "eigenvalue": c.eigenvalue.enabled,
-        "sparse_attention": c.sparse_attention is not None,
         "sequence_parallel (sp_size > 1)": c.sequence_parallel.sp_size > 1,
         "tensor_parallel (tp_size > 1)": c.tensor_parallel.tp_size > 1,
         "pipeline (stages > 1)": c.pipeline.stages > 1,
@@ -123,6 +128,56 @@ def unported_sections(config: DeepSpeedConfig) -> List[str]:
         "checkpoint.async_save": c.checkpoint.async_save,
     }
     return [name for name, on in checks.items() if on]
+
+
+def wire_attention_config(model: nn.Module, config: DeepSpeedConfig):
+    """Map the ``sparse_attention`` section onto the model's
+    ``attention_impl`` (the JAX engine's ``wire_attention_config``;
+    reference: runtime/config.py:270-453). The ``Transformer``'s config is
+    replaced in place, on the module and on every block, with
+    ``attention_impl="sparse"`` and the parsed section as a sorted tuple.
+
+    Unknown sparse or sequence-parallel modes, a model without a
+    ``TransformerConfig`` and a conflicting hand-set ``attention_impl``
+    raise ``ValueError``: a parsed section silently running dense attention
+    is a wrong answer. ``sequence_parallel.sp_size > 1`` never reaches
+    here (the engine raises for it as an unported section)."""
+    sp = config.sequence_parallel
+    if sp.mode not in ("ring", "ulysses"):
+        raise ValueError(
+            f"sequence_parallel.mode '{sp.mode}' is not supported; "
+            "expected 'ring' or 'ulysses'")
+    sa = config.sparse_attention
+    if sa is None:
+        return model
+    from ..models.transformer import TransformerConfig
+    from ..ops.sparse_attention import SPARSITY_CONFIGS
+    if sa.mode not in SPARSITY_CONFIGS:
+        raise ValueError(f"unknown sparse attention mode '{sa.mode}'; "
+                         f"have {sorted(SPARSITY_CONFIGS)}")
+    mcfg = getattr(model, "cfg", None)
+    if not isinstance(mcfg, TransformerConfig):
+        raise ValueError(
+            "the sparse_attention config section requires the in-tree "
+            "transformer family (models.build_model); this model has no "
+            "TransformerConfig to wire the layout into")
+    if mcfg.attention_impl not in ("auto", "sparse"):
+        raise ValueError(
+            f"sparse_attention config conflicts with the model's hand-set "
+            f"attention_impl='{mcfg.attention_impl}'")
+    if not isinstance(getattr(model, "blocks", None), nn.ModuleList):
+        raise ValueError(f"cannot rebuild model {type(model).__name__} with "
+                         "attention_impl='sparse'")
+    items = tuple(sorted(
+        (k, tuple(v) if isinstance(v, list) else v)
+        for k, v in sa.model_dump().items()))
+    new_cfg = dataclasses.replace(mcfg, attention_impl="sparse",
+                                  sparse_attention=items)
+    model.cfg = new_cfg
+    for blk in model.blocks:
+        blk.cfg = new_cfg
+    log_dist("attention config wired: attention_impl='sparse'", ranks=[0])
+    return model
 
 
 class DeepSpeedEngine:
@@ -191,6 +246,8 @@ class DeepSpeedEngine:
                 raise ValueError("model_parameters (a flax-layout tree) needs "
                                  "a models.transformer.Transformer model")
             model = module_from_jax(model_parameters, cfg)
+        # the sparse_attention section rewires the model's attention_impl
+        model = wire_attention_config(model, self.config)
         self.module = model
         self.loss_fn = loss_fn or _default_loss_fn
         try:

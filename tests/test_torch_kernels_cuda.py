@@ -16,17 +16,21 @@ are zeros from the kernel. The flash backward kernels are held the same
 way, gradient rows along D; a row whose gradient is zero in exact
 arithmetic (the first causal query row) is rounding noise on both sides,
 so each row's limit is taken against max(its largest |grad|, 2^-10 x the
-tensor's largest).
+tensor's largest). The block-sparse kernels are held the same way; their
+gradients' floor is taken against the largest |grad| of dq, dk and dv
+together (a window of one key has dq = dk = 0 in exact arithmetic).
 """
 
 import numpy as np
 import pytest
 import torch
 
+from deepspeed_tpu_torch.ops import block_sparse_attention as tbs
 from deepspeed_tpu_torch.ops import decode_attention as tda
 from deepspeed_tpu_torch.ops import flash_attention as tfa
 from deepspeed_tpu_torch.ops import paged_attention as tpa
 from deepspeed_tpu_torch.ops import quant_matmul as tqm
+from deepspeed_tpu_torch.ops import sparse_attention as tsa
 from deepspeed_tpu_torch.quant_format import kv_quantize
 
 pytestmark = pytest.mark.cuda
@@ -35,7 +39,7 @@ F32_TOL = 1e-4
 BF16_ROW_TOL = 2.0 ** -6
 
 
-def _hold(out, ref, f32, floor=0.0):
+def _hold(out, ref, f32, floor=0.0, scale=0.0):
     """f32: |out - ref| <= F32_TOL. bf16 (ref on the inputs cast to f32):
     |out - ref| <= BF16_ROW_TOL x the largest |ref| of its row (the last
     dim), or x ``floor`` times the tensor's largest |ref| where that is
@@ -46,7 +50,7 @@ def _hold(out, ref, f32, floor=0.0):
         assert err.max().item() <= F32_TOL, err.max().item()
         return
     row = ref.abs().amax(-1, keepdim=True)
-    lo = max(floor * row.max().item(), 1e-30)
+    lo = max(floor * max(row.max().item(), scale), 1e-30)
     ratio = (err / row.clamp_min(lo)).max().item()
     assert ratio <= BF16_ROW_TOL, (ratio, err.max().item())
 
@@ -242,3 +246,109 @@ def test_flash_attention_autograd_on_the_card(dev):
     torch.cuda.synchronize()
     for t, ref in zip((q, k, v), refs):
         _hold(t.grad, ref, False, floor=2.0 ** -10)
+
+
+def _bs_layout(name, H, S):
+    """(layout, fine block, options) of a block-sparse kernel case."""
+    uni = dict(attention="unidirectional")
+    if name == "fixed16":
+        cfg = tsa.FixedSparsityConfig(num_heads=H, block=16, **uni)
+        return tsa.config_layout(cfg, S), 16, {"causal": True}
+    if name == "fixed64-bi":
+        cfg = tsa.FixedSparsityConfig(num_heads=H, block=64,
+                                      num_local_blocks=2)
+        return tsa.config_layout(cfg, S), 64, {}
+    if name == "bigbird":
+        cfg = tsa.BigBirdSparsityConfig(num_heads=H, block=16,
+                                        num_random_blocks=2,
+                                        different_layout_per_head=True)
+        return tsa.config_layout(cfg, S), 16, {}
+    if name == "longformer":
+        cfg = tsa.BSLongformerSparsityConfig(num_heads=H, block=32)
+        return tsa.config_layout(cfg, S), 32, {"causal": True}
+    if name == "variable":
+        cfg = tsa.VariableSparsityConfig(num_heads=H, block=16,
+                                         local_window_blocks=(2, 4),
+                                         num_random_blocks=1, **uni)
+        return tsa.config_layout(cfg, S), 16, {"causal": True}
+    if name.startswith("window"):
+        W = int(name[6:])
+        fine = 64 if S % 64 == 0 else 16
+        blocks = -(-(W - 1) // fine) + 1 if W > 1 else 1
+        cfg = tsa.LocalSlidingWindowSparsityConfig(
+            num_heads=H, block=fine, num_sliding_window_blocks=blocks)
+        return (tsa.config_layout(cfg, S), fine,
+                {"causal": True, "window": W, "layout_exact": False})
+    assert name == "dead"
+    lay = np.ones((H, S // 16, S // 16), dtype=bool)
+    lay[:, 3, :] = False                    # query block 3 sees no key
+    lay[0, :, 6] = False                    # key block 6 of head 0: nobody
+    return lay, 16, {}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D", [32, 64, 128])
+@pytest.mark.parametrize("name,S", [
+    ("fixed16", 512), ("fixed64-bi", 512), ("bigbird", 400),
+    ("longformer", 512), ("variable", 496), ("window1", 512),
+    ("window100", 400), ("dead", 512)])
+def test_block_sparse_attention_kernels(dev, dtype, D, name, S):
+    H = 4
+    layout, fine, kw = _bs_layout(name, H, S)
+    g = torch.Generator().manual_seed(S + D)
+    q, k, v, do = (torch.randn(2, H, S, D, generator=g).to(dev, dtype)
+                   for _ in range(4))
+    o, lse = tbs.block_sparse_attention_fwd(q, k, v, layout, fine, **kw)
+    delta = (do.float() * o.float()).sum(-1)
+    dq = tbs.block_sparse_attention_bwd_dq(q, k, v, do, lse, delta, layout,
+                                           fine, **kw)
+    dk, dv = tbs.block_sparse_attention_bwd_dkv(q, k, v, do, lse, delta,
+                                                layout, fine, **kw)
+    qf, kf, vf, dof = _f32(q, k, v, do)
+    ro, rlse = tbs.block_sparse_attention_reference(qf, kf, vf, layout, fine,
+                                                    **kw)
+    refs = tbs.block_sparse_attention_bwd_reference(qf, kf, vf, dof, lse,
+                                                    delta, layout, fine, **kw)
+    torch.cuda.synchronize()
+    f32 = dtype == torch.float32
+    _hold(o, ro, f32)
+    live = rlse > -1e29
+    torch.testing.assert_close(lse[live], rlse[live], atol=F32_TOL, rtol=0)
+    scale = max(r.abs().max().item() for r in refs)
+    for out, ref in zip((dq, dk, dv), refs):
+        _hold(out, ref, f32, floor=2.0 ** -10, scale=scale)
+    assert torch.all(o[~live] == 0) and torch.all(dq[~live] == 0)
+    if name == "dead":
+        assert not live[:, :, 48:64].any()
+        assert torch.all(dk[:, 0, 96:112] == 0)
+        assert torch.all(dv[:, 0, 96:112] == 0)
+
+
+def test_block_sparse_routes_launch_on_the_card(dev):
+    """sparse_attention and the window route through the autograd Function
+    launch each kernel once per call; grads match the plain backward; a
+    CUDA tensor the kernels cannot take raises."""
+    g = torch.Generator(device=dev).manual_seed(4)
+    q, k, v = (torch.randn(1, 4, 512, 64, device=dev, generator=g)
+               .to(torch.bfloat16).requires_grad_() for _ in range(3))
+    names = ("block_sparse_attention_fwd", "block_sparse_attention_bwd_dq",
+             "block_sparse_attention_bwd_dkv")
+    cfg = tsa.FixedSparsityConfig(num_heads=4, block=64,
+                                  attention="unidirectional")
+    from deepspeed_tpu_torch.ops.attention import attention
+    for run in (lambda: tsa.sparse_attention(q, k, v, cfg, causal=True),
+                lambda: attention(q, k, v, causal=True, window=100)):
+        before = [getattr(tbs, n).launches for n in names]
+        o = run()
+        do = torch.randn_like(o)
+        grads = torch.autograd.grad(o, (q, k, v), do)
+        assert [getattr(tbs, n).launches for n in names] == \
+            [b + 1 for b in before]
+        assert all(torch.isfinite(t.float()).all() for t in grads)
+    layout = tsa.config_layout(cfg, 512)
+    q2 = torch.randn(1, 4, 512, 48, device=dev)
+    with pytest.raises(ValueError, match="tile"):
+        tbs.block_sparse_attention_fwd(q2, q2, q2, layout, 64)
+    with pytest.raises(ValueError, match="tile"):
+        tbs.block_sparse_attention_fwd(q2.half(), q2.half(), q2.half(),
+                                       layout, 64)

@@ -65,6 +65,19 @@ ARCHS = {
     "alibi": dict(pos_embed="alibi", attn_softcap=20.0, layer_windows=(6, 6),
                   final_logit_softcap=15.0),
 }
+# head dim 32 at seq 256: shapes the block-sparse kernels take, so the
+# sparse impl and a pure window run their wrappers' plain versions
+ARCHS["gpt2_wide"] = dict(hidden_size=64, num_heads=2, max_seq_len=256)
+ARCHS["llama_wide"] = dict(ARCHS["llama"], hidden_size=64, num_heads=2,
+                           num_kv_heads=1, mlp_dim_override=96,
+                           max_seq_len=256)
+SPARSE = {
+    "fixed": (("attention", "unidirectional"), ("block", 16),
+              ("mode", "fixed"), ("num_global_blocks", 1),
+              ("num_local_blocks", 4)),
+    "bigbird": (("block", 32), ("different_layout_per_head", True),
+                ("mode", "bigbird"), ("num_random_blocks", 2)),
+}
 _MODELS = {}
 
 
@@ -82,10 +95,11 @@ def _numpy_tree(tree):
 
 def _cfgs(arch, **extra):
     """(jax cfg, port cfg) of a tiny f32 model."""
-    _, jcfg = jbuild_model("gpt2-tiny", hidden_size=32, num_layers=2,
-                           num_heads=4, vocab_size=64, max_seq_len=64,
-                           attention_impl="auto", dtype=jnp.float32,
-                           **ARCHS[arch], **extra)
+    kw = dict(hidden_size=32, num_layers=2, num_heads=4, vocab_size=64,
+              max_seq_len=64, attention_impl="auto", dtype=jnp.float32)
+    kw.update(ARCHS[arch])
+    kw.update(extra)
+    _, jcfg = jbuild_model("gpt2-tiny", **kw)
     f = {fl.name: getattr(jcfg, fl.name) for fl in dataclasses.fields(jcfg)}
     f["dtype"] = torch.float32
     return jcfg, ttr.TransformerConfig(**f)
@@ -95,7 +109,7 @@ def _params(arch):
     """flax-initialized numpy params of the architecture, once."""
     if arch not in _MODELS:
         jcfg, _ = _cfgs(arch)
-        jp = jtr.Transformer(jcfg).init(
+        jp = jax.jit(jtr.Transformer(jcfg).init)(   # eager init: 4x slower
             jax.random.PRNGKey(3),
             {"input_ids": np.zeros((1, 8), np.int32)})["params"]
         _MODELS[arch] = _numpy_tree(jax.device_get(jp))
@@ -221,8 +235,8 @@ def test_unported_model_features_raise():
     ids = torch.zeros(1, 8, dtype=torch.long)
     m, _ = ttr.build_model("gpt2-tiny", hidden_size=16, num_layers=1,
                            num_heads=2, vocab_size=32, layer_windows=(4,))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        m(ids)                  # a pure window: the block-sparse kernel
+    # a pure window the block-sparse kernels cannot take (head dim 8, S 8)
+    assert torch.isfinite(m(ids)).all()     # the flash route's window
     m, _ = ttr.build_model("gpt2-tiny", hidden_size=16, num_layers=1,
                            num_heads=2, vocab_size=32, layer_windows=(4,),
                            attention_impl="reference")
@@ -231,6 +245,82 @@ def test_unported_model_features_raise():
                            num_heads=2, vocab_size=32, layer_windows=(4,),
                            attn_softcap=20.0)
     assert torch.isfinite(m(ids)).all()     # window + softcap: flash path
+
+
+def _spy_block_sparse(monkeypatch):
+    """Count the plain block-sparse forward's calls (the CPU route of the
+    kernels' wrappers)."""
+    from deepspeed_tpu_torch.ops import block_sparse_attention as tbs
+    calls = []
+    real = tbs._reference
+
+    def spy(*a, **kw):
+        calls.append(a[3])
+        return real(*a, **kw)
+
+    monkeypatch.setattr(tbs, "_reference", spy)
+    return calls
+
+
+@pytest.mark.parametrize("arch,layout", [("gpt2_wide", "fixed"),
+                                         ("llama_wide", "bigbird")])
+def test_sparse_transformer_loss_and_grads_match_flax(arch, layout,
+                                                      monkeypatch):
+    """attention_impl="sparse" with a sparse_attention tuple: the JAX model
+    takes its dense-mask oracle on the CPU, the port the block-sparse
+    wrappers' plain versions (each layer once); loss, logits and every
+    grad agree to the tolerances of the dense model above."""
+    jp = _params(arch)
+    jcfg, tcfg = _cfgs(arch, attention_impl="sparse",
+                       sparse_attention=SPARSE[layout])
+    batch = _batch(2, 256, seed=7)
+    jmodel = jtr.Transformer(jcfg)
+
+    def jloss(p):
+        return jtr.causal_lm_loss(jmodel.apply({"params": p}, batch), batch)
+
+    jl, jg = jax.jit(jax.value_and_grad(jloss))(jax.tree.map(jnp.asarray, jp))
+    module = module_from_jax(jp, tcfg)
+    calls = _spy_block_sparse(monkeypatch)
+    tb = {k: torch.from_numpy(v) for k, v in batch.items()}
+    out = module(tb)
+    assert len(calls) == tcfg.num_layers
+    tl = ttr.causal_lm_loss(out, tb)
+    tl.backward()
+    np.testing.assert_allclose(tl.item(), float(jl), rtol=1e-5)
+    np.testing.assert_allclose(
+        out.detach().numpy(),
+        np.asarray(jax.jit(jmodel.apply)({"params": jp}, batch)),
+        atol=1e-5, rtol=0)
+    tgrads, jflat = _grad_tree(module), _flat(_numpy_tree(jg))
+    assert sorted(tgrads) == sorted(jflat)
+    for name, g in jflat.items():
+        np.testing.assert_allclose(tgrads[name], g, atol=2e-5, rtol=1e-4,
+                                   err_msg=name)
+
+
+def test_uniform_window_transformer_matches_flax(monkeypatch):
+    """A pure uniform window (layer_windows=(64, 64)): the port sends it to
+    the block-sparse window route, the JAX model on the CPU to its
+    reference with the window mask; fused loss and every grad agree."""
+    jp = _params("llama_wide")
+    jcfg, tcfg = _cfgs("llama_wide", layer_windows=(64, 64), fused_loss=True,
+                       loss_chunk=64)
+    batch = _batch(2, 256, seed=8)
+    jl, jg = jax.jit(jax.value_and_grad(
+        lambda p: jtr.Transformer(jcfg).apply({"params": p}, batch)))(
+            jax.tree.map(jnp.asarray, jp))
+    module = module_from_jax(jp, tcfg)
+    calls = _spy_block_sparse(monkeypatch)
+    tl = module({k: torch.from_numpy(v) for k, v in batch.items()})
+    assert len(calls) == 2
+    tl.backward()
+    np.testing.assert_allclose(tl.item(), float(jl), rtol=1e-5)
+    jflat = _flat(_numpy_tree(jg))
+    tgrads = _grad_tree(module)
+    for name, g in jflat.items():
+        np.testing.assert_allclose(tgrads[name], g, atol=2e-5, rtol=1e-4,
+                                   err_msg=name)
 
 
 # -------------------------------------------------------- optimizer & co
@@ -429,6 +519,57 @@ def test_train_batch_trajectory_matches_jax_engine(arch, extra, tmp_path):
                                    err_msg=k)
 
 
+def test_train_batch_trajectory_with_sparse_attention_matches_jax_engine(
+        tmp_path, monkeypatch):
+    """A sparse_attention ds_config section (fixed, unidirectional, block
+    16, two local blocks): both engines wire it into attention_impl
+    "sparse"; 12 steps agree to the dense trajectory's tolerances."""
+    section = {"mode": "fixed", "block": 16, "num_local_blocks": 2,
+               "attention": "unidirectional"}
+    jeng, teng = _engines("gpt2_wide", tmp_path,
+                          cfg=dict(_TRAIN_CFG, sparse_attention=section))
+    assert teng.module.cfg.attention_impl == "sparse"
+    assert all(b.cfg.attention_impl == "sparse" for b in teng.module.blocks)
+    assert dict(teng.module.cfg.sparse_attention)["num_local_blocks"] == 2
+    calls = _spy_block_sparse(monkeypatch)
+    losses = []
+    for step in range(12):
+        batch = _batch(8, 64, seed=200 + step % 3)
+        jm = jax.device_get(jeng.train_batch(batch))
+        tm = teng.train_batch(batch)
+        np.testing.assert_allclose(tm["loss"], float(jm["loss"]), rtol=1e-4)
+        np.testing.assert_allclose(tm["grad_norm"], float(jm["grad_norm"]),
+                                   rtol=1e-3)
+        losses.append(tm["loss"])
+    assert len(calls) == 12 * 2 * 2           # steps x micro-batches x layers
+    assert losses[-1] < losses[0]
+
+
+def test_sparse_attention_wiring_raises_like_jax():
+    _, tcfg = _cfgs("gpt2_wide")
+    cfg = {"train_batch_size": 8}
+    with pytest.raises(ValueError, match="unknown sparse attention mode"):
+        deepspeed_tpu_torch.initialize(
+            model=ttr.Transformer(tcfg), device="cpu",
+            config=dict(cfg, sparse_attention={"mode": "nope"}))
+    with pytest.raises(ValueError, match="TransformerConfig"):
+        deepspeed_tpu_torch.initialize(
+            model=_TLin(np.ones((6, 4), np.float32)), device="cpu",
+            config=dict(cfg, sparse_attention={"mode": "fixed"}))
+    _, flash = _cfgs("gpt2_wide", attention_impl="flash")
+    with pytest.raises(ValueError, match="conflicts"):
+        deepspeed_tpu_torch.initialize(
+            model=ttr.Transformer(flash), device="cpu",
+            config=dict(cfg, sparse_attention={"mode": "fixed"}))
+    with pytest.raises(ValueError, match="sequence_parallel.mode"):
+        deepspeed_tpu_torch.initialize(
+            model=ttr.Transformer(tcfg), device="cpu",
+            config=dict(cfg, sequence_parallel={"mode": "nope"}))
+    _, mixed = _cfgs("gpt2_wide", layer_windows=(4, 0))
+    with pytest.raises(NotImplementedError, match="mixed per-layer"):
+        ttr.Transformer(mixed)
+
+
 def test_forward_backward_step_equals_train_batch(tmp_path):
     _, tcfg = _cfgs("llama", fused_loss=True, loss_chunk=8)
     path = tmp_path / "ds.json"
@@ -542,7 +683,7 @@ def test_initialize_dataloader_and_config_arguments(tmp_path):
     {"progressive_layer_drop": {"enabled": True}},
     {"curriculum_learning": {"enabled": True}},
     {"eigenvalue": {"enabled": True}},
-    {"sparse_attention": {"mode": "fixed"}},
+    {"moe": {"enabled": True}},
     {"sequence_parallel": {"sp_size": 2}},
     {"tensor_parallel": {"tp_size": 2}},
     {"pipeline": {"stages": 2}},
