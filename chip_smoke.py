@@ -15,8 +15,11 @@ nor ``deepspeed_tpu``. Phases, each reported on its own line:
    greedy requests of 64..1024 prompt tokens (6 start with one 2-block
    system prompt) and 64 new tokens each; then one decode step's logits through
    the kernels vs ``impl="reference"``.
-4. **int8** — a short leg with ``kv_cache_dtype`` and ``weight_dtype``
-   int8.
+4. **int8** — ``kv_cache_dtype`` and ``weight_dtype`` int8: 4 requests
+   of 96..512 prompt tokens, 16 new each; every prefill and decode step
+   runs ``quant_matmul`` 111 times (22 layers x 5 + the LM head), counted
+   by path; its rates, one decode step's logits vs ``impl="reference"``
+   and the decode step's busy share.
 5. **generate** — ``init_inference(...).generate()`` on the same model
    and weights: 8 prompts of 1024 tokens, 64 greedy new tokens (the
    prefill through ``flash_attention_fwd``, every decode step through
@@ -49,7 +52,13 @@ nor ``deepspeed_tpu``. Phases, each reported on its own line:
    kernel's device time on its path's work beside its bound, its plain
    version's and a library call's (timed here only; the port never calls
    it), plus the block-sparse kernels over four layouts beside the flash
-   kernels on the same shape.
+   kernels on the same shape; ``quant_matmul`` on one decode step (M 8)
+   and one 512-token prefill (and at M 96, 224, 352).
+
+``--old-quant-matmul SRC`` also builds a parent commit's
+``csrc/quant_matmul.cu`` from SRC and times it against this one in the
+same process (parent, new, new, parent): one forward at each M and the
+int8 leg.
 
 Launch counters are zeroed just before each leg and read just after it.
 Any failed check raises, so the script exits non-zero and prints no
@@ -149,16 +158,17 @@ def device_ms(fn, reps=10, warmup=2):
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    us = sum(e.self_device_time_total for e in prof.key_averages()
-             if e.device_type == torch.autograd.DeviceType.CUDA)
-    if us <= 0:
-        fail("torch.profiler recorded no device time for a timed call")
-    return us / 1e3 / reps
+    for _ in range(3):          # a trace that caught no kernel is taken again
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        us = sum(e.self_device_time_total for e in prof.key_averages()
+                 if e.device_type == torch.autograd.DeviceType.CUDA)
+        if us > 0:
+            return us / 1e3 / reps
+    fail("torch.profiler recorded no device time for a timed call")
 
 
 def timings(kernel, plain, library):
@@ -241,9 +251,8 @@ def _hold(label, out, ref, f32, floor=0.0, scale=0.0):
 def phase_check():
     import torch
     from deepspeed_tpu_torch.ops import paged_attention as tpa
-    from deepspeed_tpu_torch.ops import quant_matmul as tqm
     from deepspeed_tpu_torch.quant_format import kv_quantize
-    errs = {"paged_attention": 0.0, "quant_matmul": 0.0}
+    errs = {"paged_attention": 0.0}
     g = torch.Generator(device="cuda").manual_seed(1)
     dev = "cuda"
     # the serving shapes: 8 lanes, 32 heads x 64, blocks of 32, a 64-block
@@ -290,25 +299,7 @@ def phase_check():
         errs["paged_attention"] = max(errs["paged_attention"], err)
         if zero != 0.0:
             fail(f"paged_attention {name}: ctx-0 lane {zero}")
-    H, F, V = 2048, 5632, 32000
-    shapes = [(8, H, 2560), (8, H, H), (8, H, F), (8, H, F), (8, F, H),
-              (8, H, V), (512, H, F)]
-    for M, K, N in shapes:
-        w = torch.randn(K, N, device=dev, generator=g) * K ** -0.5
-        x = torch.randn(M, K, device=dev, generator=g).to(bf)
-        qw, sw = tqm.pack_kernel(w)
-        out = tqm.quant_matmul(x, qw, sw)
-        ref = tqm.quant_matmul_reference(x, qw, sw)
-        torch.cuda.synchronize()
-        # both sum in f32 and round once to bf16: at most ~1 bf16 ulp of
-        # the largest output apart
-        tol = 2 ** -7 * ref.float().abs().max().item()
-        err = _max_err(out, ref)
-        errs["quant_matmul"] = max(errs["quant_matmul"], err)
-        log(f"check: quant_matmul M={M} K={K} N={N} max_abs_err={err:.3e} "
-            f"tol={tol:.3e}")
-        if not err <= tol:
-            fail(f"quant_matmul {M}x{K}x{N}: err {err} > {tol}")
+    errs["quant_matmul"] = check_quant_matmul()
     errs["decode_attention"] = check_decode_attention()
     errs["flash_attention_fwd"] = check_flash_attention()
     bwd = check_flash_attention_bwd()
@@ -316,6 +307,74 @@ def phase_check():
     errs["flash_attention_bwd_dkv"] = bwd["dkv"]
     errs.update(check_block_sparse_attention())
     return errs
+
+
+# quant_matmul: the decode step's and the prefill's matrices, the regime
+# edges (the GEMV takes M <= 16, the GEMM M > 16), the LM head, a ragged K
+# and N, and both x dtypes. (M, K, N, x dtype)
+QM_H, QM_F, QM_V = 2048, 5632, 32000
+QM_CASES = (
+    [(8, QM_H, 2560, "bf16"), (8, QM_H, QM_H, "bf16"), (8, QM_H, QM_F, "bf16"),
+     (8, QM_F, QM_H, "bf16"), (8, QM_H, QM_V, "bf16"), (512, QM_H, QM_V, "bf16"),
+     (512, QM_H, QM_F, "bf16"), (512, QM_F, QM_H, "bf16")]
+    + [(M, QM_H, 2560, "bf16") for M in (1, 3, 16, 17, 32, 96, 352, 512)]
+    + [(M, 300, N, "bf16") for M in (8, 96) for N in (200, 1000)]
+    + [(M, QM_H, 2560, "f32") for M in (1, 8, 17, 96)]
+    + [(8, 300, 1000, "f32"), (96, 300, 200, "f32")])
+# x and q rows off their 16-byte alignment (plain loads, not cp.async)
+QM_UNALIGNED = ((8, QM_H, 2560), (96, QM_H, 2560))
+# two calls bit-identical: a split decode shape and split prefill shapes
+QM_REPEAT = ((8, QM_H, QM_H), (96, QM_H, QM_H), (512, QM_F, QM_H))
+
+
+def check_quant_matmul():
+    """Each case against the plain version on the same inputs. bf16: both
+    sum exact products in f32 and round once to bf16, so they lie within
+    2^-7 of the largest output (about one bf16 ulp of it). f32: the same
+    sums in another order, within 2^-14 of the largest output."""
+    import torch
+    from deepspeed_tpu_torch.ops import quant_matmul as tqm
+    g = torch.Generator(device="cuda").manual_seed(11)
+    worst = 0.0
+
+    def inputs(M, K, N, dt):
+        w = torch.randn(K, N, device="cuda", generator=g) * K ** -0.5
+        x = torch.randn(M, K, device="cuda", generator=g)
+        return (x.to(torch.bfloat16) if dt == "bf16" else x,
+                *tqm.pack_kernel(w))
+
+    def offset(t):              # the same values one element further on
+        o = torch.empty(t.numel() + 1, dtype=t.dtype, device="cuda")[1:]
+        return o.view_as(t).copy_(t)
+
+    cases = [c + (False,) for c in QM_CASES] + [
+        (M, K, N, "bf16", True) for M, K, N in QM_UNALIGNED]
+    for M, K, N, dt, unaligned in cases:
+        x, qw, sw = inputs(M, K, N, dt)
+        if unaligned:
+            x, qw = offset(x), offset(qw)
+        out = tqm.quant_matmul(x, qw, sw)
+        ref = tqm.quant_matmul_reference(x, qw, sw)
+        torch.cuda.synchronize()
+        tol = (2 ** -7 if dt == "bf16" else 2 ** -14) * ref.float().abs().max().item()
+        err = _max_err(out, ref)
+        worst = max(worst, err)
+        plan = tqm._plan(M, N, sw.shape[0], tqm._sm_count(x.device), x.dtype)
+        log(f"check: quant_matmul M={M} K={K} N={N} x={dt}"
+            f"{' unaligned' if unaligned else ''} regime={plan.regime} "
+            f"splits={plan.splits} max_abs_err={err:.3e} tol={tol:.3e}")
+        if out.dtype != x.dtype or out.shape != (M, N) or not err <= tol:
+            fail(f"quant_matmul {M}x{K}x{N} {dt}: err {err} > {tol}")
+    for M, K, N in QM_REPEAT:
+        x, qw, sw = inputs(M, K, N, "bf16")
+        a, b = tqm.quant_matmul(x, qw, sw), tqm.quant_matmul(x, qw, sw)
+        torch.cuda.synchronize()
+        same = torch.equal(a, b)
+        log(f"check: quant_matmul M={M} K={K} N={N} two calls "
+            f"bit_identical={same}")
+        if not same:
+            fail(f"quant_matmul {M}x{K}x{N}: two calls differ")
+    return worst
 
 
 def check_decode_attention():
@@ -680,23 +739,39 @@ def check_block_sparse_attention():
 
 class _Timed:
     """Wraps an engine method: wall seconds and calls (each call ends in a
-    host read of sampled tokens, so the device work is inside)."""
+    host read of sampled tokens, so the device work is inside), and the
+    launches of ``counter`` (a kernel wrapper) made inside the calls."""
 
-    def __init__(self, fn):
+    def __init__(self, fn, counter=None):
         self.fn, self.secs, self.calls = fn, 0.0, 0
+        self.counter, self.launches = counter, 0
 
     def __call__(self, *a, **kw):
         t0 = time.perf_counter()
+        n0 = self.counter.launches if self.counter else 0
         try:
             return self.fn(*a, **kw)
         finally:
             self.secs += time.perf_counter() - t0
             self.calls += 1
+            if self.counter:
+                self.launches += self.counter.launches - n0
 
 
-def _instrument(srv):
-    srv._run_prefill = _Timed(srv._run_prefill)
-    srv._decode_step = _Timed(srv._decode_step)
+def _instrument(srv, counter=None):
+    srv._run_prefill = _Timed(srv._run_prefill, counter)
+    srv._decode_step = _Timed(srv._decode_step, counter)
+
+
+def _rates(srv, stats0, steps):
+    """Prefill and decode rates of the requests run since ``stats0``, from
+    the instrumented engine methods."""
+    d = {k: srv.stats[k] - stats0[k] for k in srv.stats}
+    decode_tokens = d["tokens_generated"] - d["completed"]
+    return d, {"prefill_tok_s": d["prefill_tokens"] / srv._run_prefill.secs,
+               "decode_tok_s": decode_tokens / srv._decode_step.secs,
+               "decode_step_ms": 1e3 * srv._decode_step.secs / steps,
+               "mean_decode_lanes": decode_tokens / steps}
 
 
 def _wrappers():
@@ -805,8 +880,8 @@ def phase_serve(tmp):
     _run_requests(srv, prompts, 64)
     wall = time.perf_counter() - t0
     counts = _counters()
-    d = {k: srv.stats[k] - stats0[k] for k in srv.stats}
     steps = srv._decode_step.calls
+    d, rates = _rates(srv, stats0, steps)
     log(f"serve: requests={len(prompts)} finished={d['completed']} "
         f"prefill_tokens={d['prefill_tokens']} "
         f"prefix_hit_tokens={d['prefix_hit_tokens']} decode_steps={steps} "
@@ -816,11 +891,6 @@ def phase_serve(tmp):
     if counts["paged_attention"] < LLAMA_LAYERS * steps or steps == 0:
         fail(f"paged_attention launched {counts['paged_attention']} times "
              f"for {steps} decode steps of {LLAMA_LAYERS} layers")
-    decode_tokens = d["tokens_generated"] - d["completed"]
-    rates = {"prefill_tok_s": d["prefill_tokens"] / srv._run_prefill.secs,
-             "decode_tok_s": decode_tokens / srv._decode_step.secs,
-             "decode_step_ms": 1e3 * srv._decode_step.secs / steps,
-             "mean_decode_lanes": decode_tokens / steps}
     # a fresh batch in flight for the logits check
     for p in prompts[:8]:
         srv.submit(p[:256], 8)
@@ -831,7 +901,7 @@ def phase_serve(tmp):
     return eng, srv, cfg, counts["paged_attention"], rates
 
 
-def profile_decode(srv, steps=5):
+def profile_decode(srv, steps=5, label="decode step"):
     """Device busy share of steady decode steps (8 lanes): kernel time
     summed by torch.profiler over the host wall time of the same steps,
     and the kernels that take the most of it."""
@@ -852,7 +922,7 @@ def profile_decode(srv, steps=5):
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t0) / steps
     srv.run_until_idle()
-    _report_profile("decode step", prof, wall_ms, steps)
+    _report_profile(label, prof, wall_ms, steps)
 
 
 def _report_profile(label, prof, wall_ms, steps):
@@ -867,10 +937,14 @@ def _report_profile(label, prof, wall_ms, steps):
             "device_busy_ms=not measured (no device time in the trace)")
         return
     top = sorted(kern, key=lambda e: -e.self_device_time_total)[:6]
+    # quant_matmul's kernels (this build's three, the earlier two) by launches
+    qm = {e.key[:60]: e.count / steps for e in kern
+          if any(k in e.key for k in QM_KERNEL_NAMES)}
     log(f"time: {label} profile wall_ms={wall_ms:.3f} "
         f"device_busy_ms={busy_ms:.3f} idle_share={1 - busy_ms / wall_ms:.3f} "
         "top=" + json.dumps({e.key[:60]: round(
-            e.self_device_time_total / 1e3 / steps, 4) for e in top}))
+            e.self_device_time_total / 1e3 / steps, 4) for e in top})
+        + (" quant_matmul_launches_per_step=" + json.dumps(qm) if qm else ""))
 
 
 def profile_generate(cfg, params, ids, steps=5):
@@ -913,26 +987,56 @@ def profile_generate(cfg, params, ids, steps=5):
 
 # ---------------------------------------------------------------- 4. int8
 
+INT8_LENS, INT8_NEW = (96, 200, 333, 512), 16
+QM_KERNEL_NAMES = ("gemv_kernel", "gemm_kernel", "simt_kernel",
+                   "quant_matmul_kernel", "sum_partials_kernel")
+QM_PER_FORWARD = LLAMA_LAYERS * 5 + 1      # qkv, proj, gate, fc, mlp proj; head
+
+
 def phase_int8(eng):
     import numpy as np
     srv = eng.serve(dict(SERVING, kv_cache_dtype="int8",
                          weight_dtype="int8"))
-    rng = np.random.default_rng(1)
-    prompts = [list(rng.integers(1, 32000, int(n)))
-               for n in (96, 200, 333, 512)]
-    _run_requests(srv, [prompts[0][:40]], 2)            # warm-up
-    _zero_counters()
-    _run_requests(srv, prompts, 16)
-    counts = _counters()
-    log(f"int8: requests={len(prompts)} launches={json.dumps(counts)}")
+    _run_requests(srv, [list(range(1, 41))], 2)             # warm-up
+    counts, rates, by_path = _int8_leg(srv, 1)
+    log(f"int8: requests={len(INT8_LENS)} launches={json.dumps(counts)} "
+        f"quant_matmul_by_path={json.dumps(by_path)}")
     if counts["quant_matmul"] <= 0 or counts["paged_attention"] <= 0:
         fail(f"int8 leg launched {counts}")
-    for p in prompts:
-        srv.submit(p[:128], 4)
+    rng = np.random.default_rng(2)
+    for _ in INT8_LENS:
+        srv.submit(list(rng.integers(1, 32000, 128)), 4)
     srv.step()
     _decode_logits_check(srv, 5e-2, "int8")
     srv.run_until_idle()
-    return srv, counts["quant_matmul"]
+    profile_decode(srv, label="int8 decode step")
+    return srv, counts["quant_matmul"], by_path, rates
+
+
+def _int8_leg(srv, seed):
+    """The int8 leg's requests (prompts of INT8_LENS tokens drawn from
+    ``seed``, so no prefix is shared with an earlier run), timed: launch
+    counts, prefill and decode rates, and quant_matmul's launches by path,
+    each a multiple of the 111 matmuls of one forward."""
+    import numpy as np
+    from deepspeed_tpu_torch.ops import quant_matmul as tqm
+    rng = np.random.default_rng(seed)
+    prompts = [list(rng.integers(1, 32000, int(n))) for n in INT8_LENS]
+    _instrument(srv, tqm.quant_matmul)
+    stats0 = dict(srv.stats)
+    _zero_counters()
+    _run_requests(srv, prompts, INT8_NEW)
+    counts = _counters()
+    pre, dec = srv._run_prefill, srv._decode_step
+    _, rates = _rates(srv, stats0, dec.calls)
+    by_path = {"decode": dec.launches, "prefill": pre.launches}
+    del srv._run_prefill, srv._decode_step          # the engine's own again
+    if (pre.launches != QM_PER_FORWARD * pre.calls
+            or dec.launches != QM_PER_FORWARD * dec.calls
+            or pre.launches + dec.launches != counts["quant_matmul"]):
+        fail(f"int8 leg: quant_matmul launches {by_path} for {pre.calls} "
+             f"prefills and {dec.calls} decode steps")
+    return counts, rates, by_path
 
 
 # ------------------------------------------------------------ 5. generate
@@ -1463,37 +1567,171 @@ def time_paged_attention():
                     f"nh={nh}, hd={hd}, bf16 pool"}
 
 
-def time_quant_matmul(srv8):
-    """One decode step's int8 matmuls at M=8: 22 layers x (qkv, proj,
-    gate, fc, mlp_proj) with each layer's own packed weights, plus the LM
-    head."""
+def _int8_mats(params):
+    """The int8 leg's 111 packed matrices of ``params`` in forward order:
+    22 layers x (qkv, proj, gate, fc, mlp_proj) with each layer's own
+    weights, then the LM head; and their bf16-dequantized copies (the
+    library yardstick's operands, made here only)."""
     import torch
     from deepspeed_tpu_torch.models.generation import _kernel_of
-    from deepspeed_tpu_torch.ops import quant_matmul as tqm
-    blocks, head = srv8.params["blocks"], srv8.params["lm_head"]
+    blocks, head = params["blocks"], params["lm_head"]
     names = ("attn_qkv", "attn_proj", "mlp_gate", "mlp_fc", "mlp_proj")
     mats = [(blocks[n]["kernel"][li], blocks[n]["kernel_qscale"][li])
             for li in range(LLAMA_LAYERS) for n in names]
     mats.append((head["kernel"], head["kernel_qscale"]))
-    M = 8
-    g = torch.Generator(device="cuda").manual_seed(3)
-    xs = {K: torch.randn(M, K, device="cuda", generator=g).to(torch.bfloat16)
-          for K in {q.shape[0] for q, _ in mats}}
     dense = [_kernel_of({"kernel": q, "kernel_qscale": s}, torch.bfloat16)
              for q, s in mats]
-    t = timings(
-        lambda: [tqm.quant_matmul(xs[q.shape[0]], q, s) for q, s in mats],
-        lambda: [tqm.quant_matmul_reference(xs[q.shape[0]], q, s)
-                 for q, s in mats],
-        lambda: [xs[w.shape[0]] @ w for w in dense])
+    return mats, dense
+
+
+def _qm_inputs(mats, M, seed):
+    import torch
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    return {K: torch.randn(M, K, device="cuda", generator=g).to(torch.bfloat16)
+            for K in {q.shape[0] for q, _ in mats}}
+
+
+def _qm_forward(mats, xs):
+    """One forward's quant_matmul calls (111 launches)."""
+    from deepspeed_tpu_torch.ops import quant_matmul as tqm
+    return lambda: [tqm.quant_matmul(xs[q.shape[0]], q, s) for q, s in mats]
+
+
+def _qm_bound(mats, M):
     nbytes = sum(q.numel() + 4 * s.numel() + 2 * M * (q.shape[0] + q.shape[1])
                  for q, s in mats)
     flops = sum(2 * M * q.shape[0] * q.shape[1] for q, _ in mats)
     bnd, by = bound_ms(nbytes, flops)
-    return {**t, "bound_ms": bnd, "bound_by": by,
-            "work": f"one decode step: {len(mats)} launches at M={M} "
+    return nbytes, {"bound_ms": bnd, "bound_by": by,
+                    "bound_bytes_ms": 1e3 * nbytes / HBM_BYTES_S,
+                    "bound_ops_ms": 1e3 * flops / BF16_FLOPS}
+
+
+def time_quant_matmul(mats, dense, M):
+    """One forward's int8 matmuls at M rows of bf16 x (M=8: a decode step
+    of 8 lanes; M=512: a 512-token prefill): 111 launches, beside the
+    plain version and torch.matmul on the dequantized bf16 weights."""
+    from deepspeed_tpu_torch.ops import quant_matmul as tqm
+    xs = _qm_inputs(mats, M, 3)
+    t = timings(
+        _qm_forward(mats, xs),
+        lambda: [tqm.quant_matmul_reference(xs[q.shape[0]], q, s)
+                 for q, s in mats],
+        lambda: [xs[w.shape[0]] @ w for w in dense])
+    nbytes, bound = _qm_bound(mats, M)
+    what = "one decode step" if M <= 16 else f"one {M}-token prefill"
+    return {**t, **bound,
+            "work": f"{what}: {len(mats)} launches at M={M} "
                     f"({LLAMA_LAYERS} layers x 5 + head), "
                     f"{nbytes / 1e9:.3f} GB"}
+
+
+QM_PREFILL_MS = (96, 224, 352)        # the int8 leg's other prefill lengths
+
+
+def time_quant_matmul_prefill_lengths(mats):
+    """The kernel's device ms for one forward at each of QM_PREFILL_MS."""
+    return {str(M): device_ms(_qm_forward(mats, _qm_inputs(mats, M, 4)))
+            for M in QM_PREFILL_MS}
+
+
+def _parent_quant_matmul(src):
+    """The parent commit's quant_matmul kernel, built from its source file
+    ``src`` (not part of the checkout), behind its wrapper's host path for
+    CUDA tensors: K split into f32 partials and a second kernel, the SM
+    count and the partials fetched on every call."""
+    import ctypes
+    import hashlib
+    import torch
+    from deepspeed_tpu_torch.ops import build
+    from deepspeed_tpu_torch.ops import quant_matmul as tqm
+    with open(src, "rb") as f:
+        digest = hashlib.sha256(f.read()).hexdigest()[:16]
+    lib_path = build.BUILD_DIR / f"parent_quant_matmul-{digest}.so"
+    if not lib_path.exists():
+        build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        subprocess.run([build._nvcc(), *build.NVCC_FLAGS, "-o", str(lib_path),
+                        src], check=True, capture_output=True, timeout=600)
+    fn = ctypes.CDLL(str(lib_path)).quant_matmul_launch
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+
+    def launch(x, q, scales):
+        Kp, N = q.shape
+        nkb = scales.shape[0]
+        lead, K = x.shape[:-1], x.shape[-1]
+        xf = x.reshape(-1, K).contiguous()
+        M = xf.shape[0]
+        out = torch.empty((M, N), dtype=x.dtype, device=x.device)
+        tiles = -(-N // 128) * -(-M // 8)
+        sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+        kb_per = (nkb if tiles >= 2 * sms else
+                  -(-nkb // min(nkb, -(-2 * sms // tiles))))
+        splits = -(-nkb // kb_per)
+        part = (torch.empty((splits, M, N), dtype=torch.float32,
+                            device=x.device) if splits > 1 else None)
+        tqm.quant_matmul.launches += 1
+        err = fn(xf.data_ptr(), q.data_ptr(), scales.data_ptr(),
+                 out.data_ptr(), None if part is None else part.data_ptr(),
+                 M, K, N, nkb, Kp // nkb, kb_per,
+                 int(x.dtype == torch.bfloat16),
+                 torch.cuda.current_stream().cuda_stream)
+        if err:
+            fail(f"parent quant_matmul launch error {err}")
+        return out.reshape(lead + (N,))
+    return launch
+
+
+def _under(launch, fn):
+    """fn() with quant_matmul launching ``launch`` in place of its own."""
+    from deepspeed_tpu_torch.ops import quant_matmul as tqm
+    own = tqm._launch
+    tqm._launch = launch
+    try:
+        return fn()
+    finally:
+        tqm._launch = own
+
+
+AB_ORDER = ("parent", "new", "new", "parent")
+
+
+def ab_quant_matmul(mats, old):
+    """The parent commit's kernel (launch ``old``) against this one in one
+    process, each reading in the order parent, new, new, parent: one
+    forward's 111 launches at the decode and prefill Ms."""
+    import torch
+    from deepspeed_tpu_torch.ops import quant_matmul as tqm
+    new = tqm._launch
+    xs = _qm_inputs(mats, 8, 5)
+    q, s = mats[-1]
+    ref = tqm.quant_matmul(xs[q.shape[0]], q, s)
+    diff = _max_err(_under(old, lambda: tqm.quant_matmul(xs[q.shape[0]], q, s)),
+                    ref)
+    log(f"time: quant_matmul parent vs new LM head M=8 max_abs_diff={diff:.3e}")
+    for M in (8,) + QM_PREFILL_MS + (512,):
+        fwd = _qm_forward(mats, _qm_inputs(mats, M, 6))
+        res = {"parent": [], "new": []}
+        for who in AB_ORDER:
+            res[who].append(_under(old if who == "parent" else new,
+                                   lambda: device_ms(fwd)))
+        log(f"time: quant_matmul parent vs new M={M} ms={json.dumps(res)}")
+        torch.cuda.empty_cache()
+
+
+def ab_int8(srv8, old):
+    """The int8 leg's rates under the parent's kernel and this one, in the
+    order parent, new, new, parent, and a decode step's busy share under
+    each."""
+    from deepspeed_tpu_torch.ops import quant_matmul as tqm
+    new = tqm._launch
+    for i, who in enumerate(AB_ORDER):
+        launch = old if who == "parent" else new
+        _, rates, _ = _under(launch, lambda: _int8_leg(srv8, 100 + i))
+        log(f"time: int8 {who} kernel " + json.dumps(rates))
+        if i < 2:
+            _under(launch, lambda: profile_decode(
+                srv8, label=f"int8 decode step, {who} kernel"))
 
 
 def time_decode_attention():
@@ -1839,8 +2077,15 @@ def _flex_ms(q, k, v, do, keep, n):
         return {"fwd": None, "bwd": None}
 
 
-def main():
+def main(argv=None):
+    import argparse
     import torch
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--old-quant-matmul", metavar="SRC",
+                    help="also time the quant_matmul kernel built from SRC "
+                         "(a parent commit's csrc/quant_matmul.cu) against "
+                         "this one, in one process")
+    args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
               "false); this script runs only on a GPU", file=sys.stderr)
@@ -1869,15 +2114,25 @@ def main():
         eng, srv, cfg, pa_launches, rates = phase_serve(tmp)
     del srv
     torch.cuda.empty_cache()
-    srv8, qm_launches = phase_int8(eng)
+    srv8, qm_launches, qm_by_path, int8_rates = phase_int8(eng)
     with tempfile.TemporaryDirectory() as tmp:
         gen_counts, gen_rates = phase_generate(tmp, eng)
     torch.cuda.empty_cache()
     log("time: serve " + json.dumps(rates))
     log("time: generate " + json.dumps(gen_rates))
+    log("time: int8 " + json.dumps(int8_rates))
     pa = time_paged_attention()
-    qm = time_quant_matmul(srv8)
-    del srv8, eng
+    mats, dense = _int8_mats(srv8.params)
+    qm = time_quant_matmul(mats, dense, 8)
+    qm["prefill"] = time_quant_matmul(mats, dense, 512)
+    qm["prefill"]["ms_by_m"] = time_quant_matmul_prefill_lengths(mats)
+    del dense
+    torch.cuda.empty_cache()
+    if args.old_quant_matmul:
+        old = _parent_quant_matmul(args.old_quant_matmul)
+        ab_quant_matmul(mats, old)
+        ab_int8(srv8, old)
+    del srv8, eng, mats
     torch.cuda.empty_cache()
     da = time_decode_attention()
     torch.cuda.empty_cache()
@@ -1934,6 +2189,8 @@ def main():
         if kname in BS_KERNELS:
             row["launches_by_path"] = {"sparse_train": launches,
                                        "window_train": window_counts[kname]}
+        if kname == "quant_matmul":
+            row["launches_by_path"] = qm_by_path
         row.update(t)
         kernels.append(row)
         both = (f" [bytes {t['bound_bytes_ms']:.4f}, operations "
@@ -1944,6 +2201,13 @@ def main():
             f"wall_ms={t['wall_ms']:.4f}"
             + (f" flex_ms={t['flex_ms']}" if "flex_ms" in t else "")
             + f" [{t['work']}]")
+    p = qm["prefill"]
+    log(f"time: quant_matmul prefill ms={p['ms']:.4f} "
+        f"bound_ms={p['bound_ms']:.4f} ({p['bound_by']}) [bytes "
+        f"{p['bound_bytes_ms']:.4f}, operations {p['bound_ops_ms']:.4f}] "
+        f"plain_ms={p['plain_ms']:.4f} library_ms={p['library_ms']:.4f} "
+        f"wall_ms={p['wall_ms']:.4f} ms_by_m={json.dumps(p['ms_by_m'])} "
+        f"[{p['work']}]")
     log(f"time: decode_attention T=64 ms={dm['ms']:.4f} "
         f"bound_ms={dm['bound_ms']:.4f} ({dm['bound_by']}) "
         f"plain_ms={dm['plain_ms']:.4f} library_ms={dm['library_ms']:.4f} "

@@ -13,16 +13,23 @@ accumulated in f32: each K-block's partial product is scaled once.
 * :func:`pack_kernel` / :func:`pack_decode_weights` — pack once at engine
   construction (``serving.weight_dtype: "int8"``).
 * :func:`quant_matmul` — CUDA tensors launch ``csrc/quant_matmul.cu`` (or
-  raise), for any N; CPU tensors run :func:`quant_matmul_reference`.
+  raise), one launch a call, for any N and K; CPU tensors run
+  :func:`quant_matmul_reference`.
 
-Bound on the card at decode: bytes (the int8 weights and their scales,
-read once). See the note in the CUDA source for the kernel's layout.
+:func:`_plan` picks the kernel of ``csrc/quant_matmul.cu`` from the shape:
+a bf16 x of at most 16 rows (decode) takes the tensor-core GEMV, bound by
+the bytes of the int8 weights read once; a longer bf16 x (prefill) the
+tensor-core GEMM, bound by operations above about 300 rows; an f32 x the
+exact f32 loop on CUDA cores. Where the tiles are too few to fill the
+card, K is split in whole 256-row blocks, the CTAs of a tile form one
+thread-block cluster and add their sums in a fixed order through
+distributed shared memory, inside the same launch.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Any, Dict
+from typing import Any, Dict, NamedTuple
 
 import torch
 
@@ -32,8 +39,7 @@ from . import build
 __all__ = ["quant_matmul", "quant_matmul_reference", "pack_kernel",
            "pack_decode_weights"]
 
-_BN, _BM = 128, 8                 # csrc/quant_matmul.cu column / row tile
-_X_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_X_DTYPES = (torch.float32, torch.bfloat16)
 
 
 def pack_kernel(w: torch.Tensor, block: int = QUANT_BLOCK):
@@ -76,7 +82,7 @@ def _lib() -> ctypes.CDLL:
     fn = lib.quant_matmul_launch
     if fn.argtypes is None:
         P, I = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [P] * 5 + [I] * 7 + [P]
+        fn.argtypes = [P] * 4 + [I] * 11 + [P]
         fn.restype = ctypes.c_int
     return lib
 
@@ -99,13 +105,62 @@ def quant_matmul(x: torch.Tensor, q: torch.Tensor, scales: torch.Tensor,
 
 quant_matmul.launches = 0
 
+# the kernels of csrc/quant_matmul.cu: (regime code, rows, columns of a
+# CTA tile, CTAs an SM holds)
+GEMV_MAX_M = 16
+_REGIMES = {"simt": (0, 8, 128, 1), "gemv": (1, GEMV_MAX_M, 128, 2),
+            "gemm": (2, 128, 128, 1)}
 
-def _kb_per_cta(nkb: int, tiles: int, sms: int) -> int:
-    """K-blocks per CTA: all of them where the column x row tiles give two
-    CTAs per SM, else split K (f32 partials) until they do."""
-    if tiles >= 2 * sms:
-        return nkb
-    return -(-nkb // min(nkb, -(-2 * sms // tiles)))
+
+# split K: the CTAs of a tile form one thread-block cluster (portable size)
+MAX_SPLITS = 8
+
+
+class Plan(NamedTuple):
+    """One launch: ``regime`` names the kernel; the grid is ``tiles`` x
+    ``splits`` CTAs, split ``s`` taking K-blocks [s * kb_per, (s + 1) *
+    kb_per) of ``nkb``, the splits of a tile one cluster."""
+    regime: str
+    tiles: int
+    kb_per: int
+    splits: int
+
+
+def _plan(M: int, N: int, nkb: int, sms: int, dtype: torch.dtype) -> Plan:
+    """The kernel, its tiles and its split of K for an [M, K] x [K, N]
+    call on a card of ``sms`` SMs. Tiles that fill the card's CTA slots
+    are not split. Fewer are split into at most one wave of CTAs and at
+    most MAX_SPLITS a tile: the count that minimises the waves times the
+    K-blocks each CTA walks (the smallest count on a tie)."""
+    regime = ("simt" if dtype == torch.float32 else
+              "gemv" if M <= GEMV_MAX_M else "gemm")
+    _, bm, bn, per_sm = _REGIMES[regime]
+    if regime == "gemv" and M > 8:
+        per_sm = 1                      # two 8-row halves: twice the smem
+    tiles = -(-M // bm) * -(-N // bn)
+    slots = per_sm * sms
+    best = None
+    for want in range(1, nkb + 1):
+        kb_per = -(-nkb // want)
+        splits = -(-nkb // kb_per)
+        if splits > 1 and (tiles * splits > slots or splits > MAX_SPLITS):
+            break
+        cost = -(-tiles * splits // slots) * kb_per
+        if best is None or cost < best[0]:
+            best = (cost, kb_per, splits)
+    _, kb_per, splits = best
+    return Plan(regime, tiles, kb_per, splits)
+
+
+_sms: Dict[int, int] = {}
+
+
+def _sm_count(dev: torch.device) -> int:
+    idx = dev.index if dev.index is not None else torch.cuda.current_device()
+    n = _sms.get(idx)
+    if n is None:
+        n = _sms[idx] = torch.cuda.get_device_properties(idx).multi_processor_count
+    return n
 
 
 def _launch(x, q, scales):
@@ -140,26 +195,21 @@ def _launch(x, q, scales):
     lead, K = x.shape[:-1], x.shape[-1]
     if K > Kp:
         raise ValueError(f"quant_matmul: x has K={K} > packed Kp={Kp}")
-    if q.data_ptr() % 4:
-        raise ValueError("quant_matmul: q must be 4-byte aligned")
     xf = x.reshape(-1, K).contiguous()
     M = xf.shape[0]
     out = torch.empty((M, N), dtype=x.dtype, device=dev)
     if M == 0:
         return out.reshape(lead + (N,))
-    tiles = -(-N // _BN) * -(-M // _BM)
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    kb_per_cta = _kb_per_cta(nkb, tiles, sms)
-    splits = -(-nkb // kb_per_cta)
-    partial = (torch.empty((splits, M, N), dtype=torch.float32, device=dev)
-               if splits > 1 else None)
+    plan = _plan(M, N, nkb, _sm_count(dev), x.dtype)
+    qvec = N % 16 == 0 and q.data_ptr() % 16 == 0
+    xvec = K % 8 == 0 and xf.data_ptr() % 16 == 0
     lib = _lib()
     stream = torch.cuda.current_stream(dev).cuda_stream
     quant_matmul.launches += 1
     err = lib.quant_matmul_launch(
         xf.data_ptr(), q.data_ptr(), scales.data_ptr(), out.data_ptr(),
-        None if partial is None else partial.data_ptr(),
-        M, K, N, nkb, block, kb_per_cta, _X_DTYPES[x.dtype], stream)
+        M, K, N, nkb, block, _REGIMES[plan.regime][0], plan.tiles,
+        plan.kb_per, plan.splits, int(qvec), int(xvec), stream)
     build.check(lib, "quant_matmul", err)
     return out.reshape(lead + (N,))
 

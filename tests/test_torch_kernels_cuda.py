@@ -107,20 +107,60 @@ def test_paged_attention_kernel_int8(dev):
     _hold(out[live], ref[live], False)
 
 
-@pytest.mark.parametrize("M,K,N", [(8, 2048, 2560), (8, 5632, 2048),
-                                   (3, 300, 200), (130, 512, 1000)])
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_quant_matmul_kernel(dev, M, K, N, dtype):
+def _qm_inputs(dev, M, K, N, dtype):
     g = torch.Generator().manual_seed(M + K + N)
     w = torch.randn(K, N, generator=g).to(dev)
     x = torch.randn(M, K, generator=g).to(dev, dtype)
-    q, s = tqm.pack_kernel(w)
+    return (x, *tqm.pack_kernel(w))
+
+
+# the GEMV (M <= 16) and GEMM (M > 16) regimes at their edges, the serving
+# leg's decode and prefill shapes, the LM head, a ragged K and N
+@pytest.mark.parametrize("M,K,N", [
+    (8, 2048, 2560), (8, 5632, 2048), (3, 300, 200), (130, 512, 1000),
+    (1, 2048, 2560), (16, 2048, 2560), (17, 2048, 2560), (32, 2048, 2560),
+    (96, 2048, 2048), (352, 2048, 5632), (512, 5632, 2048),
+    (8, 2048, 32000), (512, 2048, 32000), (8, 300, 1000), (96, 300, 200)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_quant_matmul_kernel(dev, M, K, N, dtype):
+    x, q, s = _qm_inputs(dev, M, K, N, dtype)
     out = tqm.quant_matmul(x, q, s)
     ref = tqm.quant_matmul_reference(x, q, s)
     torch.cuda.synchronize()
     # f32 sums of K products of O(1) terms: relative to sqrt(K)
     tol = (2e-4 if dtype == torch.float32 else 2e-2) * K ** 0.5
     torch.testing.assert_close(out.float(), ref.float(), atol=tol, rtol=1e-2)
+
+
+@pytest.mark.parametrize("M,K,N", [(8, 2048, 2048), (96, 2048, 2048),
+                                   (512, 5632, 2048)])
+def test_quant_matmul_kernel_split_k_is_bit_identical(dev, M, K, N):
+    # split K (a ticketed reduction in split order): two calls agree bit
+    # for bit, whichever CTA of a tile arrives last
+    x, q, s = _qm_inputs(dev, M, K, N, torch.bfloat16)
+    assert tqm._plan(M, N, s.shape[0], tqm._sm_count(x.device),
+                     x.dtype).splits > 1
+    a = tqm.quant_matmul(x, q, s)
+    b = tqm.quant_matmul(x, q, s)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("M", [8, 96])
+def test_quant_matmul_kernel_unaligned_rows(dev, M):
+    # x and q one element off their 16-byte alignment: plain loads
+    x, q, s = _qm_inputs(dev, M, 2048, 2560, torch.bfloat16)
+
+    def offset(t):
+        o = torch.empty(t.numel() + 1, dtype=t.dtype, device=dev)[1:]
+        return o.view_as(t).copy_(t)
+
+    x, q = offset(x), offset(q)
+    out = tqm.quant_matmul(x, q, s)
+    ref = tqm.quant_matmul_reference(x, q, s)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out.float(), ref.float(),
+                               atol=2e-2 * 2048 ** 0.5, rtol=1e-2)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

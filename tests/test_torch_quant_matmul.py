@@ -83,3 +83,59 @@ def test_wrapper_on_cpu_runs_plain_version_without_launching():
     err = (out - x @ w).abs().max().item()
     bound = (x.abs() @ (s.repeat_interleave(256, 0) / 2.0)).max().item()
     assert err <= bound
+
+
+# the serving int8 leg's matmuls (llama-1.1b: qkv, attn proj, gate/fc,
+# mlp proj, LM head) at decode (8 lanes) and prefill (prompts padded to a
+# multiple of 32), the regime edges, a ragged K and N, and f32 x
+_PLAN_SHAPES = ([(M, K, N) for M in (1, 3, 8, 16, 17, 32, 96, 224, 352, 512)
+                 for K, N in ((2048, 2560), (2048, 2048), (2048, 5632),
+                              (5632, 2048), (2048, 32000))]
+                + [(M, 300, N) for M in (8, 96) for N in (200, 1000)])
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("M,K,N", _PLAN_SHAPES)
+def test_plan_regime_and_splits(M, K, N, dtype):
+    nkb, sms = -(-K // 256), 132
+    plan = tqm._plan(M, N, nkb, sms, dtype)
+    expect = ("simt" if dtype == torch.float32 else
+              "gemv" if M <= 16 else "gemm")
+    assert plan.regime == expect
+    _, bm, bn, _ = tqm._REGIMES[plan.regime]
+    assert plan.tiles == -(-M // bm) * -(-N // bn)
+    # the splits take whole K-blocks, each exactly once, none empty
+    covered = []
+    for s in range(plan.splits):
+        blocks = range(s * plan.kb_per, min(nkb, (s + 1) * plan.kb_per))
+        assert len(blocks) > 0
+        covered.extend(blocks)
+    assert covered == list(range(nkb))
+    # split K only where the tiles alone do not fill the card, and then in
+    # at most one wave of CTAs and one cluster (<= 8 CTAs) a tile
+    slots = (2 if plan.regime == "gemv" and M <= 8 else 1) * sms
+    assert 1 <= plan.splits <= tqm.MAX_SPLITS
+    if plan.splits > 1:
+        assert plan.tiles * plan.splits <= slots
+
+
+def test_plan_splits_decode_matrices_to_fill_the_card():
+    # a 2048 x 2048 decode matrix is 16 column tiles: one K-block a CTA
+    plan = tqm._plan(8, 2048, 8, 132, torch.bfloat16)
+    assert (plan.regime, plan.splits, plan.kb_per) == ("gemv", 8, 1)
+    # the LM head's 250 column tiles fill the card unsplit
+    assert tqm._plan(8, 32000, 8, 132, torch.bfloat16).splits == 1
+    assert tqm._plan(512, 32000, 8, 132, torch.bfloat16).splits == 1
+
+
+def test_launch_refuses_what_the_kernel_does_not_take():
+    x = torch.zeros(4, 256)
+    q, s = tqm.pack_kernel(torch.zeros(256, 128))
+    with pytest.raises(TypeError):
+        tqm._launch(x.to(torch.float16), q, s)
+    with pytest.raises(TypeError):
+        tqm._launch(x, q.to(torch.int16), s)
+    with pytest.raises(ValueError, match="CUDA"):
+        tqm._launch(x, q, s)
+    with pytest.raises(ValueError, match="impl"):
+        tqm.quant_matmul(x, q, s, impl="triton")
