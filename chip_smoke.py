@@ -53,12 +53,17 @@ nor ``deepspeed_tpu``. Phases, each reported on its own line:
    version's and a library call's (timed here only; the port never calls
    it), plus the block-sparse kernels over four layouts beside the flash
    kernels on the same shape; ``quant_matmul`` on one decode step (M 8)
-   and one 512-token prefill (and at M 96, 224, 352).
+   and one 512-token prefill (and at M 96, 224, 352); the flash, paged
+   and decode kernels at head dims 64, 80 and 96 in bf16 and fp16 beside
+   SDPA.
 
 ``--old-quant-matmul SRC`` also builds a parent commit's
 ``csrc/quant_matmul.cu`` from SRC and times it against this one in the
 same process (parent, new, new, parent): one forward at each M and the
-int8 leg.
+int8 leg. ``--old-flash-bwd SRC`` does the same for a parent commit's
+``csrc/flash_attention_bwd.cu`` (with the headers it includes beside it):
+the train leg's dq and dk/dv calls beside SDPA's backward and the bounds,
+and the train step's wall and busy ms under each.
 
 Launch counters are zeroed just before each leg and read just after it.
 Any failed check raises, so the script exits non-zero and prints no
@@ -171,6 +176,36 @@ def device_ms(fn, reps=10, warmup=2):
     fail("torch.profiler recorded no device time for a timed call")
 
 
+def queued_ms(fn, reps=3, sleep_s=0.05):
+    """Device ms of one call of fn between CUDA events, the median of
+    ``reps``, each call queued behind a sleep kernel so that the host's
+    time between launches does not count (the card runs them back to
+    back). A reading whose call the host had not wholly queued before the
+    sleep ended is taken again behind a longer sleep. Used where short
+    profiler traces late in this process did not record every launch."""
+    import numpy as np
+    import torch
+    fn()
+    ms = []
+    while len(ms) < reps:
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        torch.cuda._sleep(int(sleep_s * 2e9))     # >= sleep_s at <= 2 GHz
+        start.record()
+        fn()
+        end.record()
+        ahead = not start.query()
+        torch.cuda.synchronize()
+        if ahead:
+            ms.append(start.elapsed_time(end))
+        elif sleep_s < 1:
+            sleep_s *= 4
+        else:
+            fail("queued_ms: the host did not stay ahead of the card")
+    return float(np.median(ms))
+
+
 def timings(kernel, plain, library):
     """Device ms of the kernel, plain and library calls, and the kernel's
     host-inclusive ms."""
@@ -187,13 +222,54 @@ def bound_ms(nbytes, flops):
 
 # --------------------------------------------------------------- 1. build
 
+def ptxas_report(text):
+    """[(kernel, registers, spill store bytes, spill load bytes)] from
+    nvcc's ``-Xptxas=-v`` output, one entry per compiled kernel
+    (instantiation), names demangled where the toolkit's cu++filt or
+    c++filt is found."""
+    import re
+    import shutil
+    rows, name, spill = [], None, (0, 0)
+    for ln in text.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", ln)
+        if m:
+            name, spill = m.group(1), (0, 0)
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)
+        if m and name:
+            spill = (int(m.group(1)), int(m.group(2)))
+            continue
+        m = re.search(r"Used (\d+) registers", ln)
+        if m and name:
+            rows.append([name, int(m.group(1)), *spill])
+            name = None
+    from deepspeed_tpu_torch.ops import build
+    filt = shutil.which("cu++filt") or shutil.which("c++filt")
+    cand = os.path.join(os.path.dirname(build._nvcc()), "cu++filt")
+    filt = cand if os.path.exists(cand) else filt
+    if rows and filt:
+        out = subprocess.run([filt], input="\n".join(r[0] for r in rows),
+                             capture_output=True, text=True, timeout=60)
+        names = out.stdout.splitlines()
+        if out.returncode == 0 and len(names) == len(rows):
+            for r, nm in zip(rows, names):
+                nm = re.sub(r"\((int|bool|unsigned int)\)", "", nm)
+                r[0] = re.sub(r"^void |<unnamed>::|\(anonymous namespace\)::",
+                              "", nm).split("(")[0]
+    return [tuple(r) for r in rows]
+
+
 def phase_build():
     from deepspeed_tpu_torch.ops import build
     secs = build.build()
     for name in build.KERNELS:
-        info = [ln.strip() for ln in build.build_log(name).splitlines()
-                if "registers" in ln or "spill" in ln]
-        log(f"build: {name} " + " | ".join(info))
+        rows = ptxas_report(build.build_log(name))
+        spills = [r for r in rows if r[2] or r[3]]
+        log(f"build: {name} kernels={len(rows)} max_registers="
+            f"{max((r[1] for r in rows), default=0)} spilling={len(spills)}")
+        for kname, regs, st, ld in rows:
+            log(f"build: {name} {kname} registers={regs} spill_stores={st} "
+                f"spill_loads={ld}")
     log(f"build: seconds={secs:.2f} kernels={list(build.KERNELS)}")
 
 
@@ -270,8 +346,8 @@ def phase_check():
     vq, vs = kv_quantize(v32)
     bf = torch.bfloat16
 
-    def dequant(x, s):          # the kernel's int8 row: x * scale in bf16
-        return (x.float() * s.reshape(x.shape[:-1])[..., None]).to(bf)
+    def dequant(x, s, dt=bf):   # the kernel's int8 row: x * scale in q's dtype
+        return (x.float() * s.reshape(x.shape[:-1])[..., None]).to(dt)
 
     # (name, kernel inputs, the plain version's bf16 inputs)
     cases = [
@@ -283,15 +359,31 @@ def phase_check():
          (q32.to(bf), k32.to(bf), v32.to(bf),
           {"alibi_slopes": slopes, "softcap": 30.0, "window": 100}), None),
     ]
+    # every other head dim the kernel takes, fp16, and int8 rows of 8-byte
+    # slices (hd % 16 != 0): 8 heads of a 1-layer pool at the same lanes
+    for hd, dt in ((80, bf), (96, bf), (64, torch.float16), (96, torch.float16),
+                   (80, torch.float32), (8, bf), (72, bf)):
+        kx, vx = (torch.randn(1, 8, nblk, bs, hd, device=dev, generator=g)
+                  for _ in range(2))
+        qx = torch.randn(B, 8, 1, hd, device=dev, generator=g).to(dt)
+        cases.append((f"{str(dt)[6:]} hd={hd}",
+                      (qx, kx.to(dt), vx.to(dt), {}), None))
+        if hd in (72, 80) or dt == torch.float16:
+            (kq1, ks1), (vq1, vs1) = kv_quantize(kx), kv_quantize(vx)
+            cases.append((f"int8 {str(dt)[6:]} hd={hd}",
+                          (qx, kq1, vq1, {"k_scale": ks1, "v_scale": vs1}),
+                          (qx, dequant(kq1, ks1, dt),
+                           dequant(vq1, vs1, dt), {})))
     live = lens > 0
     for name, (q, k, v, kw), plain in cases:
-        out = tpa.paged_attention(q, k, v, bt, lens, layer_idx=1, **kw)
+        li = min(1, k.shape[0] - 1)
+        out = tpa.paged_attention(q, k, v, bt, lens, layer_idx=li, **kw)
         f32 = q.dtype == torch.float32
         rq, rk, rv, rkw = plain or (q, k, v, kw)
         if not f32:
             rq, rk, rv = rq.float(), rk.float(), rv.float()
         ref = tpa.paged_attention_reference(rq, rk, rv, bt, lens,
-                                            layer_idx=1, **rkw)
+                                            layer_idx=li, **rkw)
         torch.cuda.synchronize()
         zero = out[~live].abs().max().item()
         err = _hold(f"paged_attention {name} zero_lane_max={zero}",
@@ -381,9 +473,10 @@ def check_decode_attention():
     """decode_attention vs its plain version: the generate decode shapes
     (B 8, 32 heads of 64) in a stacked 2-layer cache of max_len 1000 (not a
     multiple of 128), T in {1, 5, 64}, cur_len in {T, 300, max_len}, f32
-    and bf16, plus head dims 32 and 128, an unstacked cache, ALiBi +
-    softcap + window together, and the generate leg's own call: T 1 at
-    cur_len 1056 in its stacked 22-layer bf16 cache of 1280."""
+    and bf16, plus head dims 8, 32, 40, 80, 96 and 128, fp16, an unstacked
+    cache, ALiBi + softcap + window together, and the generate leg's own
+    call: T 1 at cur_len 1056 in its stacked 22-layer bf16 cache of
+    1280."""
     import torch
     from deepspeed_tpu_torch.ops import decode_attention as tda
     g = torch.Generator(device="cuda").manual_seed(4)
@@ -401,7 +494,7 @@ def check_decode_attention():
     def hold(q, k, v, cur, li, kw):
         out = tda.decode_attention(q, k, v, cur, layer_idx=li, **kw)
         f32 = q.dtype == torch.float32
-        label = (f"decode_attention {'f32' if f32 else 'bf16'} "
+        label = (f"decode_attention {str(q.dtype)[6:]} "
                  f"hd={q.shape[-1]} T={q.shape[2]} cur_len={cur} "
                  f"cache={list(k.shape)} layer_idx={li} {sorted(kw)}")
         if not f32:             # the plain version on the values in f32
@@ -427,6 +520,18 @@ def check_decode_attention():
                                    "window": 100}),
               (torch.float32, 64, 64, 1000, 0,
                {"alibi_slopes": slopes, "softcap": 30.0, "window": 100})]
+    # every other head dim the kernels take (T 1 pads the thread slices, T
+    # > 1 the shared rows) and fp16
+    h16 = torch.float16
+    cases += [(bf, 80, 1, 1000, 1, {}), (bf, 80, 64, 1000, 1, {}),
+              (bf, 96, 1, 777, 0, {}), (bf, 96, 5, 300, None, {}),
+              (bf, 8, 1, 300, 0, {}), (bf, 40, 64, 700, 1, {}),
+              (torch.float32, 80, 5, 300, 1, {}),
+              (torch.float32, 96, 1, 1000, 0, {}),
+              (h16, 64, 1, 1000, 1, {}), (h16, 64, 64, 1000, 0, {}),
+              (h16, 96, 1, 300, 1, {}), (h16, 80, 5, 777, 0,
+                                          {"alibi_slopes": slopes,
+                                           "softcap": 30.0, "window": 100})]
     worst = 0.0
     for dtype, hd, T, cur, li, kw in cases:
         k, v = cache(hd, dtype)
@@ -443,13 +548,42 @@ def check_decode_attention():
     return worst
 
 
+def _width_cases():
+    """The flash checks' cases at the head dims the kernels pad (80, 96,
+    and 40 and 8 below 64) and in fp16: (name, dtype, B, H, S, Sk, D,
+    kwargs), ragged edges, Sk > S, non-causal and the extras included."""
+    import torch
+    f32, bf, h16 = torch.float32, torch.bfloat16, torch.float16
+    slopes = [0.5, 0.25, 0.125, 0.0625]
+    return [
+        ("train shape D80", bf, 2, 8, 1024, 1024, 80, {}),
+        ("D96 S1000", bf, 2, 4, 1000, 1000, 96, {}),
+        ("D96 non-causal Sk>S", bf, 2, 4, 300, 1000, 96, {"causal": False}),
+        ("D40 S1000", bf, 2, 4, 1000, 1000, 40, {}),
+        ("D8 Sk>S causal", bf, 2, 4, 100, 1000, 8, {}),
+        ("f32 D80 S1000", f32, 2, 4, 1000, 1000, 80, {}),
+        ("f32 D96 non-causal", f32, 2, 4, 1000, 1000, 96, {"causal": False}),
+        ("fp16 train shape", h16, 2, 8, 1024, 1024, 64, {}),
+        ("fp16 D96 S1000", h16, 2, 4, 1000, 1000, 96, {}),
+        ("fp16 D80 alibi+window+softcap", h16, 2, 4, 1024, 1024, 80,
+         {"alibi_slopes": slopes, "window": 256, "softcap": 30.0}),
+        ("D96 alibi+window+softcap", bf, 2, 4, 1000, 1000, 96,
+         {"alibi_slopes": slopes, "window": 100, "softcap": 30.0}),
+        # the backward's wgmma kernels (D 64, 16-bit, no extras) at ragged
+        # edges
+        ("causal S1000", bf, 2, 4, 1000, 1000, 64, {}),
+        ("fp16 non-causal Sk>S", h16, 2, 4, 300, 1000, 64, {"causal": False}),
+    ]
+
+
 def check_flash_attention():
     """flash_attention_fwd vs its plain version, o and lse on live rows
     (rows with at least one key to attend), exact zeros on the others:
     the generate prefill shape (8 x 32 heads, S = 1024, D = 64, causal,
     bf16), f32, D = 128, S = Sk = 1000, Sk > S, non-causal, a key-padding
-    mask with one fully masked batch row, per-head (q, k) tiles, and
-    ALiBi + window + softcap."""
+    mask with one fully masked batch row, per-head (q, k) tiles, ALiBi +
+    window + softcap, and the padded head dims and fp16
+    (:func:`_width_cases`)."""
     import torch
     from deepspeed_tpu_torch.ops import flash_attention as tfa
     g = torch.Generator(device="cuda").manual_seed(5)
@@ -490,7 +624,7 @@ def check_flash_attention():
         ("f32 alibi+window+softcap", f32, 2, 4, 1000, 1000, 128,
          {"alibi_slopes": [0.5, 0.25, 0.125, 0.0625], "window": 100,
           "softcap": 30.0}),
-    ]
+    ] + _width_cases()
     worst = 0.0
     for name, dtype, B, H, S, Sk, D, kw in cases:
         q = torch.randn(B, H, S, D, device="cuda", generator=g).to(dtype)
@@ -520,14 +654,15 @@ def check_flash_attention():
 def check_flash_attention_bwd():
     """flash_attention_bwd_dq and flash_attention_bwd_dkv vs the plain
     backward on the same q, k, v, dO and the kernel forward's o and lse
-    (bf16: the plain version on those values cast to f32), each gradient
+    (16-bit: the plain version on those values cast to f32), each gradient
     row (along D) to 2^-6 of its largest |grad|, f32 to F32_TOL, and
     exact zeros for query rows with no live key and for keys nobody sees:
     the training leg's shape (2 x 32 heads, S = 1024, D = 64, causal,
     bf16), f32, D = 32 and 128, S = Sk = 1000, Sk > S, non-causal, a key
     mask with one fully masked batch row, per-head and per-batch (q, k)
-    tiles, and ALiBi + window + softcap. Returns the largest absolute
-    error of dq and of dk/dv."""
+    tiles, ALiBi + window + softcap, and the padded head dims and fp16
+    (:func:`_width_cases`). Returns the largest absolute error of dq and
+    of dk/dv."""
     import torch
     from deepspeed_tpu_torch.ops import flash_attention as tfa
     g = torch.Generator(device="cuda").manual_seed(10)
@@ -569,7 +704,7 @@ def check_flash_attention_bwd():
          {"alibi_slopes": slopes, "window": 256, "softcap": 30.0}),
         ("f32 alibi+window+softcap", f32, 2, 4, 1000, 1000, 128,
          {"alibi_slopes": slopes, "window": 100, "softcap": 30.0}),
-    ]
+    ] + _width_cases()
     worst = {"dq": 0.0, "dkv": 0.0}
     for name, dtype, B, H, S, Sk, D, kw in cases:
         q = torch.randn(B, H, S, D, device="cuda", generator=g).to(dtype)
@@ -605,13 +740,13 @@ def check_flash_attention_bwd():
 
 def _bs_cases():
     """(name, dtype, B, H, S, D, layout, fine, kwargs) of the block-sparse
-    check: every layout family, the window route, both dtypes, the three
-    head dims, causal and not, a ragged S, and the long and window legs'
-    own shapes."""
+    check: every layout family, the window route, the three dtypes, head
+    dims 32, 40, 64, 80, 96 and 128, causal and not, a ragged S, and the
+    long and window legs' own shapes."""
     import numpy as np
     import torch
     from deepspeed_tpu_torch.ops import sparse_attention as tsa
-    f32, bf = torch.float32, torch.bfloat16
+    f32, bf, h16 = torch.float32, torch.bfloat16, torch.float16
 
     def lay(cls, H, S, **kw):
         return tsa.config_layout(cls(num_heads=H, **kw), S), kw["block"]
@@ -667,6 +802,21 @@ def _bs_cases():
          *window(32, 4096, 1024)),
         ("dead rows", bf, 1, 4, 1024, 64, dead, 16, {}),
         ("f32 dead rows", f32, 1, 4, 1024, 64, dead, 16, {}),
+        # the padded head dims and fp16
+        ("fixed-16 causal D80", bf, 1, 4, 1024, 80,
+         *lay(tsa.FixedSparsityConfig, 4, 1024, block=16, **uni),
+         {"causal": True}),
+        ("bigbird D96 ragged S=1008", bf, 1, 4, 1008, 96,
+         *lay(tsa.BigBirdSparsityConfig, 4, 1008, block=16), {}),
+        ("f32 fixed-64 D96", f32, 1, 4, 1024, 96,
+         *lay(tsa.FixedSparsityConfig, 4, 1024, block=64), {}),
+        ("f32 window W=100 D40", f32, 1, 4, 1024, 40, *window(4, 1024, 100)),
+        ("fp16 fixed-64 causal", h16, 1, 8, 2048, 64,
+         *lay(tsa.FixedSparsityConfig, 8, 2048, block=64, **uni),
+         {"causal": True}),
+        ("fp16 window W=100 D80", h16, 1, 4, 1024, 80,
+         *window(4, 1024, 100)),
+        ("fp16 dead rows D96", h16, 1, 4, 1024, 96, dead, 16, {}),
     ]
     return cases
 
@@ -1316,7 +1466,7 @@ def phase_train(tmp):
              "step_ms_all": [round(1e3 * x, 3) for x in step_s],
              "peak_mem_gb": peak_gb}
     profile_train(engine, batch, 1e3 * dt)
-    return engine, total, rates
+    return engine, batch, total, rates
 
 
 def profile_train(engine, batch, step_ms, label="train step"):
@@ -1356,6 +1506,7 @@ def profile_train(engine, batch, step_ms, label="train step"):
         + json.dumps({k: round(v, 3) for k, v in by_kind.items()})
         + f" busy_ms={busy:.3f} unprofiled_step_ms={step_ms:.3f} "
         f"idle_share_of_unprofiled_step={1 - busy / step_ms:.3f}")
+    return busy, by_kind
 
 
 # ----------------------------------------------------------------- 7. long
@@ -1828,14 +1979,15 @@ def time_flash_attention():
                     f"D={D}, causal, bf16"}
 
 
-def _bwd_inputs(seed):
-    """The train leg's attention call: B 2 (micro), 32 heads, S = Sk =
-    1024, D = 64, causal, bf16, with its forward's o and lse."""
+def _bwd_inputs(seed, H=32, D=64, dtype=None):
+    """The train leg's attention call: B 2 (micro), H heads, S = Sk =
+    1024, head dim D, causal, bf16 unless ``dtype``, with its forward's o
+    and lse."""
     import torch
     from deepspeed_tpu_torch.ops import flash_attention as tfa
     g = torch.Generator(device="cuda").manual_seed(seed)
-    q, k, v, do = (torch.randn(TRAIN_MICRO, 32, TRAIN_SEQ, 64, device="cuda",
-                               generator=g).to(torch.bfloat16)
+    q, k, v, do = (torch.randn(TRAIN_MICRO, H, TRAIN_SEQ, D, device="cuda",
+                               generator=g).to(dtype or torch.bfloat16)
                    for _ in range(4))
     o, lse = tfa.flash_attention_fwd(q, k, v, causal=True)
     delta = (do.float() * o.float()).sum(-1)
@@ -1886,6 +2038,209 @@ def time_flash_attention_bwd():
                              "library compute dq, dk and dv together"}
     del q, k, v, do, o, lse, delta, qs, ks, vs, so
     return out
+
+
+# (head dim, heads, presets of that width): the head dims other than
+# llama-1.1b's 64 that the port's presets use
+HEAD_DIM_CASES = ((64, 32, "llama-1.1b"), (80, 32, "gpt2-2.7b"),
+                  (96, 16, "gpt2-760m"))
+
+
+def time_head_dims():
+    """The attention kernels at head dims 64, 80 and 96 (each with its
+    preset's heads) in bf16 and fp16 beside SDPA on the same inputs, device
+    ms per step as the paths run them: flash forward and the backward pair
+    at the train leg's call (B 2, S = Sk = 1024, causal; 44 calls), paged
+    attention at the serve leg's decode (B 8, ctx 1024, blocks of 32) and
+    decode attention at the generate leg's (B 8, cur_len 1056 of 1280;
+    22 calls each). Timed by :func:`queued_ms`; D 64 bf16, the paths' own
+    case, sets these beside the rows' profiler times."""
+    import torch
+    import torch.nn.functional as F
+    from deepspeed_tpu_torch.ops import decode_attention as tda
+    from deepspeed_tpu_torch.ops import flash_attention as tfa
+    from deepspeed_tpu_torch.ops import paged_attention as tpa
+    nf, nd = LLAMA_LAYERS * TRAIN_GAS, LLAMA_LAYERS
+
+    def steps(fn, n):
+        return queued_ms(lambda: [fn() for _ in range(n)])
+
+    for D, H, preset in HEAD_DIM_CASES:
+        for dt in (torch.bfloat16, torch.float16):
+            q, k, v, do, o, lse, delta = _bwd_inputs(10, H, D, dt)
+            B, _, S, _ = q.shape
+            pairs = B * H * S * (S + 1) // 2
+            elem, rows = B * H * S * D * 2, B * H * S * 4
+            qs, ks, vs = (t.detach().clone().requires_grad_()
+                          for t in (q, k, v))
+            so = F.scaled_dot_product_attention(qs, ks, vs, is_causal=True)
+            r = {"fwd": steps(lambda: tfa.flash_attention_fwd(
+                     q, k, v, causal=True), nf),
+                 "fwd_bound": bound_ms(nf * (4 * elem + rows),
+                                       nf * 4 * D * pairs)[0],
+                 "sdpa_fwd": steps(lambda: F.scaled_dot_product_attention(
+                     q, k, v, is_causal=True), nf),
+                 "dq": steps(lambda: tfa.flash_attention_bwd_dq(
+                     q, k, v, do, lse, delta), nf),
+                 "dq_bound": bound_ms(nf * (5 * elem + 2 * rows),
+                                      nf * 6 * D * pairs)[0],
+                 "dkv": steps(lambda: tfa.flash_attention_bwd_dkv(
+                     q, k, v, do, lse, delta), nf),
+                 "dkv_bound": bound_ms(nf * (6 * elem + 2 * rows),
+                                       nf * 8 * D * pairs)[0],
+                 "sdpa_bwd": steps(lambda: torch.autograd.grad(
+                     so, (qs, ks, vs), do, retain_graph=True), nf)}
+            del q, k, v, do, o, lse, delta, qs, ks, vs, so
+            g = torch.Generator(device="cuda").manual_seed(11)
+            Bd, bs, ctx = 8, 32, 1024
+            per = ctx // bs
+            nblk = Bd * per + 1
+            kp, vp = (torch.randn(1, H, nblk, bs, D, device="cuda",
+                                  generator=g).to(dt) for _ in range(2))
+            qd = torch.randn(Bd, H, 1, D, device="cuda", generator=g).to(dt)
+            bt = (torch.randperm(nblk - 1, device="cuda", generator=g)
+                  [:Bd * per] + 1).reshape(Bd, per).to(torch.int32)
+            lens = torch.full((Bd,), ctx, dtype=torch.int32, device="cuda")
+            kc, vc = (t[0][:, bt.long()].permute(1, 0, 2, 3, 4).reshape(
+                Bd, H, ctx, D) for t in (kp, vp))
+            r["paged"] = steps(lambda: tpa.paged_attention(
+                qd, kp, vp, bt, lens, layer_idx=0), nd)
+            r["paged_bound"] = bound_ms(
+                nd * (2 * Bd * H * ctx * D * 2 + 2 * Bd * H * D * 2
+                      + Bd * per * 4), nd * 4 * Bd * H * ctx * D)[0]
+            r["sdpa_paged"] = steps(
+                lambda: F.scaled_dot_product_attention(qd, kc, vc), nd)
+            del kp, vp, kc, vc
+            cur, max_len = 1056, 1280
+            kd, vd = (torch.randn(1, Bd, H, max_len, D, device="cuda",
+                                  generator=g).to(dt) for _ in range(2))
+            r["decode"] = steps(lambda: tda.decode_attention(
+                qd, kd, vd, cur, layer_idx=0), nd)
+            r["decode_bound"] = bound_ms(
+                nd * (2 * Bd * H * cur * D * 2 + 2 * Bd * H * D * 2),
+                nd * 4 * Bd * H * cur * D)[0]
+            r["sdpa_decode"] = steps(
+                lambda: F.scaled_dot_product_attention(
+                    qd, kd[0, :, :, :cur], vd[0, :, :, :cur]), nd)
+            del kd, vd, qd
+            torch.cuda.empty_cache()
+            log(f"time: head_dim D={D} H={H} ({preset}) "
+                f"{str(dt).split('.')[-1]} device ms per step "
+                + json.dumps({key: round(val, 4) for key, val in r.items()})
+                + f" [flash: {nf} calls, B={B}, S=Sk={S}, causal; paged: "
+                f"{nd} calls, B={Bd}, ctx={ctx}, blocks of {bs}; decode: "
+                f"{nd} calls, B={Bd}, cur_len={cur} of {max_len}]")
+
+
+def _parent_flash_bwd(src):
+    """A flash backward library built from a parent commit's
+    ``csrc/flash_attention_bwd.cu`` at ``src`` (with the headers it
+    includes beside it; the same C interface), with its register report
+    logged."""
+    import ctypes
+    import hashlib
+    from deepspeed_tpu_torch.ops import build
+    with open(src, "rb") as f:
+        digest = hashlib.sha256(f.read()).hexdigest()[:16]
+    lib_path = build.BUILD_DIR / f"other_flash_attention_bwd-{digest}.so"
+    build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    out = subprocess.run([build._nvcc(), *build.NVCC_FLAGS, "-o",
+                          str(lib_path), src], check=True,
+                         capture_output=True, text=True, timeout=600)
+    for kname, regs, st, ld in ptxas_report(out.stdout + out.stderr):
+        log(f"build: {src} {kname} registers={regs} spill_stores={st} "
+            f"spill_loads={ld}")
+    lib = ctypes.CDLL(str(lib_path))
+    P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    for fn, n_ptr in ((lib.flash_attention_bwd_dq_launch, 10),
+                      (lib.flash_attention_bwd_dkv_launch, 11)):
+        fn.argtypes = [P] * n_ptr + [I] * 8 + [F] * 2 + [I, P]
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def _under_bwd(lib, fn):
+    """fn() with the flash backward wrappers launching from ``lib``."""
+    from deepspeed_tpu_torch.ops import flash_attention as tfa
+    own = tfa._bwd_lib
+    tfa._bwd_lib = lambda: lib
+    try:
+        return fn()
+    finally:
+        tfa._bwd_lib = own
+
+
+AB_ORDER = ("parent", "new", "new", "parent")
+
+
+def ab_flash_bwd(old, fb):
+    """The parent's flash backward kernels (library ``old``) against these
+    on the train leg's call, one step's 44 launches of each, device ms in
+    the order parent, new, new, parent, beside SDPA's backward and the
+    bounds of ``fb`` (time_flash_attention_bwd's readings); and the
+    parent's outputs against these on the same inputs."""
+    from deepspeed_tpu_torch.ops import flash_attention as tfa
+    q, k, v, do, o, lse, delta = _bwd_inputs(8)
+    n = LLAMA_LAYERS * TRAIN_GAS
+    libs = {"parent": old, "new": tfa._bwd_lib()}
+    fns = {"dq": lambda: tfa.flash_attention_bwd_dq(q, k, v, do, lse, delta),
+           "dkv": lambda: tfa.flash_attention_bwd_dkv(q, k, v, do, lse,
+                                                      delta)}
+    mine = (fns["dq"](),) + fns["dkv"]()
+    theirs = _under_bwd(old, lambda: (fns["dq"](),) + fns["dkv"]())
+    diff = {g: _max_err(a, b) for g, a, b in zip(("dq", "dk", "dv"),
+                                                  mine, theirs)}
+    log(f"time: flash_attention_bwd parent vs new max_abs_diff="
+        f"{json.dumps(diff)}")
+    res = {g: {label: [] for label in libs} for g in fns}
+    for label in AB_ORDER:
+        for g, fn in fns.items():
+            res[g][label].append(_under_bwd(libs[label], lambda: device_ms(
+                lambda: [fn() for _ in range(n)])))
+    mean = {g: {label: sum(r) / len(r) for label, r in res[g].items()}
+            for g in fns}
+    for g, name in (("dq", "flash_attention_bwd_dq"),
+                    ("dkv", "flash_attention_bwd_dkv")):
+        log(f"time: {name} parent vs new ms={json.dumps(res[g])} "
+            f"new_over_parent={mean[g]['new'] / mean[g]['parent']:.3f} "
+            f"library_ms={fb[name]['library_ms']:.4f} "
+            f"bound_ms={fb[name]['bound_ms']:.4f} [one train step: {n} "
+            "launches]")
+    # the pair's ms a step: dq + dk/dv, each the mean of its readings
+    pair = {label: mean["dq"][label] + mean["dkv"][label] for label in libs}
+    lib_ms = fb["flash_attention_bwd_dq"]["library_ms"]
+    log(f"time: flash_attention_bwd pair ms={json.dumps(pair)} over "
+        f"sdpa_bwd=" + json.dumps({k: round(v / lib_ms, 3)
+                                   for k, v in pair.items()})
+        + f" sdpa_bwd_ms={lib_ms:.4f}")
+    del q, k, v, do, o, lse, delta, mine, theirs
+
+
+def ab_train(engine, batch, old, steps=3):
+    """The train leg's step under the parent's flash backward kernels
+    (library ``old``) and under these, in the order parent, new, new,
+    parent: the median wall ms of ``steps`` steps and one profiled step's
+    device busy ms and flash kernel ms."""
+    import numpy as np
+    import torch
+    from deepspeed_tpu_torch.ops import flash_attention as tfa
+    libs = {"parent": old, "new": tfa._bwd_lib()}
+    for label in AB_ORDER:
+
+        def run():
+            wall = []
+            for _ in range(steps):
+                t0 = time.perf_counter()
+                engine.train_batch(batch)       # ends in a host read
+                wall.append(1e3 * (time.perf_counter() - t0))
+            torch.cuda.synchronize()
+            ms = float(np.median(wall))
+            busy, kinds = profile_train(engine, batch, ms,
+                                        label=f"train step, {label} bwd")
+            return ms, busy, kinds["flash_attention"]
+        ms, busy, flash = _under_bwd(libs[label], run)
+        log(f"time: train {label} flash bwd step_ms={ms:.3f} "
+            f"busy_ms={busy:.3f} flash_ms={flash:.3f}")
 
 
 def time_block_sparse_attention():
@@ -2085,6 +2440,12 @@ def main(argv=None):
                     help="also time the quant_matmul kernel built from SRC "
                          "(a parent commit's csrc/quant_matmul.cu) against "
                          "this one, in one process")
+    ap.add_argument("--old-flash-bwd", metavar="SRC",
+                    help="also time the flash backward kernels built from "
+                         "SRC (a parent commit's csrc/flash_attention_bwd.cu"
+                         ", with the headers it includes beside it) against "
+                         "these, in one process: the train leg's call and "
+                         "its step")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -2141,12 +2502,19 @@ def main(argv=None):
     fa = time_flash_attention()
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as tmp:
-        trainer, train_counts, train_rates = phase_train(tmp)
+        trainer, batch, train_counts, train_rates = phase_train(tmp)
+    log("time: train " + json.dumps(train_rates))
+    old_bwd = (_parent_flash_bwd(args.old_flash_bwd)
+               if args.old_flash_bwd else None)
+    if old_bwd:
+        ab_train(trainer, batch, old_bwd)
     del trainer
     torch.cuda.empty_cache()
-    log("time: train " + json.dumps(train_rates))
     fb = time_flash_attention_bwd()
+    if old_bwd:
+        ab_flash_bwd(old_bwd, fb)
     torch.cuda.empty_cache()
+    time_head_dims()
     with tempfile.TemporaryDirectory() as tmp:
         long_counts, window_counts, long_rates = phase_long(tmp)
     log("time: long " + json.dumps(long_rates))

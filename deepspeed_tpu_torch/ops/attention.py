@@ -2,8 +2,9 @@
 the plain masks and biases, ``mha_reference`` (the oracle the flash
 kernels' plain versions are built from), ``apply_softcap``, the
 ``paged_attention`` dispatch of the serving path,
-``sliding_window_attention`` (the block-sparse kernels' window route) and
-the ``attention`` router of the training model.
+``sliding_window_attention`` (the block-sparse kernels' window route),
+the ``attention`` router of the training model, and the head-dim and
+dtype gate that every CUDA attention kernel's wrapper shares.
 """
 
 from __future__ import annotations
@@ -14,6 +15,38 @@ import numpy as np
 import torch
 
 NEG_INF = -1e30
+
+# What the CUDA attention kernels take (ops/csrc/*attention*.cu): any head
+# dim D % 8 == 0 up to MAX_HEAD_DIM, as the TPU kernels do (capped at 128
+# for now), in these dtypes; the value is the dtype code of their C entry
+# points.
+MAX_HEAD_DIM = 128
+KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+
+
+def head_dim_reason(D: int) -> Optional[str]:
+    """None if the attention kernels take head dim ``D``, else why not."""
+    if D % 8 or not 8 <= D <= MAX_HEAD_DIM:
+        return (f"head_dim {D} (the attention kernels take D % 8 == 0 up to "
+                f"{MAX_HEAD_DIM}; wider heads need a tile with D split "
+                "across warps, ROADMAP.md Queue 3 fault 1)")
+    return None
+
+
+def check_kernel_inputs(name: str, D: int, *dtypes: torch.dtype) -> int:
+    """Raise unless the attention kernels take head dim ``D`` (ValueError)
+    and ``dtypes``, all alike (TypeError). A pure function of the shape and
+    the dtypes, the same on every device; returns the dtype code."""
+    reason = head_dim_reason(D)
+    if reason is not None:
+        raise ValueError(f"{name} kernel: {reason}")
+    if dtypes[0] not in KERNEL_DTYPES:
+        raise TypeError(f"{name} kernel: dtype {dtypes[0]} (expected "
+                        "float32, bfloat16 or float16)")
+    if any(dt != dtypes[0] for dt in dtypes[1:]):
+        raise TypeError(f"{name} kernel: dtypes {', '.join(map(str, dtypes))} "
+                        "differ")
+    return KERNEL_DTYPES[dtypes[0]]
 
 
 def causal_mask(q_len: int, k_len: int, device=None) -> torch.Tensor:

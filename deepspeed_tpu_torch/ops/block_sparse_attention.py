@@ -54,7 +54,8 @@ import numpy as np
 import torch
 
 from . import build
-from .attention import NEG_INF, masked_logits
+from .attention import (KERNEL_DTYPES, NEG_INF, head_dim_reason,
+                        masked_logits)
 
 __all__ = ["block_sparse_flash_attention", "block_sparse_attention_fwd",
            "block_sparse_attention_bwd_dq", "block_sparse_attention_bwd_dkv",
@@ -64,8 +65,6 @@ __all__ = ["block_sparse_flash_attention", "block_sparse_attention_fwd",
 
 TILE = 64                                   # the kernels' q and k tile
 LAYOUT_BIT, POS_BIT = 1, 2                  # csrc/block_sparse_attention.cu
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_HEAD_DIMS = (32, 64, 128)
 
 
 def _lib() -> ctypes.CDLL:
@@ -92,11 +91,13 @@ def tileable(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return (f"q, k, v must be [B, H, S, D] of one shape, got "
                 f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
     B, H, S, D = q.shape
-    if D not in _HEAD_DIMS:
-        return f"head_dim {D} (the kernels take {_HEAD_DIMS})"
-    if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
+    reason = head_dim_reason(D)
+    if reason is not None:
+        return reason
+    if q.dtype not in KERNEL_DTYPES or k.dtype != q.dtype \
+            or v.dtype != q.dtype:
         return (f"dtypes {q.dtype}, {k.dtype}, {v.dtype} (the kernels take "
-                "float32 or bfloat16, all alike)")
+                "float32, bfloat16 or float16, all alike)")
     if fine_block <= 0 or fine_block % 8 or S % fine_block:
         return (f"S={S} with layout block {fine_block} (the block must be a "
                 "multiple of 8 that divides S)")
@@ -384,7 +385,7 @@ def _ints(q, sched):
 
 
 def _tail(q, scale):
-    return (float(scale), _DTYPES[q.dtype],
+    return (float(scale), KERNEL_DTYPES[q.dtype],
             torch.cuda.current_stream(q.device).cuda_stream)
 
 

@@ -4,8 +4,8 @@ Each ``csrc/<name>.cu`` exposes a plain C interface and is compiled by
 ``nvcc`` into its own shared library, loaded with ``ctypes`` (no PyTorch
 headers, so a build takes seconds). Libraries go to ``ops/build/`` beside
 this file (listed in ``.gitignore``) under a name that carries a digest of
-the source and the flags, so an edited source is always rebuilt and a
-stale library is never loaded. :func:`build` starts one ``nvcc`` per
+the source, the shared headers (``csrc/*.cuh``) and the flags, so an
+edited source is always rebuilt and a stale library is never loaded. :func:`build` starts one ``nvcc`` per
 missing library, all at once, and waits for them; :func:`load` builds on
 first use.
 
@@ -51,6 +51,8 @@ def _nvcc() -> str:
 def library_path(name: str) -> Path:
     src = CSRC / f"{name}.cu"
     h = hashlib.sha256(src.read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):     # shared tile helpers
+        h.update(header.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 

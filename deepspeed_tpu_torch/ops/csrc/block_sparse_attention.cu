@@ -7,7 +7,9 @@
 // q, k, v, dO [B*H, S, D]; the forward writes o [B*H, S, D] and the row
 // logsumexp lse [B*H, S] f32; the backward reads lse and delta =
 // rowsum(dO * O) [B*H, S] f32 (a plain torch op, as the JAX package
-// computes it outside its kernels) and writes dq, or dk and dv.
+// computes it outside its kernels) and writes dq, or dk and dv. f32, bf16
+// or fp16, any D % 8 == 0 up to 128 (instantiated at a padded width,
+// attention_tile.cuh).
 //
 // The sparsity is a schedule, not a mask: the host (ops/
 // block_sparse_attention.py, once per layout) lists for every (head, 64-row
@@ -40,28 +42,28 @@
 // list is not empty, the mean of V over the keys it visited.
 //
 // Bound: operations at the train leg's shape (S 4096, D 64, 29.7% of the
-// causal pairs live); the design keeps every score tile in registers. bf16:
-// the flash kernels' shape (csrc/flash_attention_*.cu): one CTA of 4 warps
-// per 64-row tile, mma.sync.m16n8k16 with ldmatrix operands, the CTA's own
-// rows as A fragments in registers, the listed tiles of the other side
-// double-buffered through shared memory by cp.async (rows padded by 8
-// elements). The forward and dq own a query tile; dk/dv own a key tile
-// and compute S^T = K Q^T, so P^T and dS^T come out in the A-operand layout
-// of dV and dK (no atomics, no second pass). f32: CUDA-core FMAs (no TF32),
-// 64 rows per CTA with 2 or 4 threads per row.
+// causal pairs live); the design keeps every score tile in registers.
+// bf16 / fp16: the flash kernels' shape (csrc/flash_attention_*.cu): one
+// CTA of 4 warps per 64-row tile, mma.sync.m16n8k16 with ldmatrix
+// operands, the CTA's own rows as A fragments in registers, the listed
+// tiles of the other side double-buffered through shared memory by
+// cp.async (rows padded by 8 elements). The forward and dq own a query
+// tile; dk/dv own a key tile and compute S^T = K Q^T, so P^T and dS^T come
+// out in the A-operand layout of dV and dK (no atomics, no second pass). f32: CUDA-core FMAs (no TF32),
+// 64 rows per CTA with 2 or 4 threads per row (widths 32, 64, 96, 128).
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "attention_tile.cuh"
 
 #include <type_traits>
 
 namespace {
 
+using namespace tile;
+
 constexpr float NEG_INF = -1e30f;
 constexpr float LOG2E = 1.4426950408889634f;
 constexpr int T = 64;             // the schedule's query and key tile
-constexpr int NTHREADS = 128;     // bf16 CTA: 4 warps x 16 rows
+constexpr int NTHREADS = 128;     // 16-bit CTA: 4 warps x 16 rows
 constexpr int LAYOUT_BIT = 1;     // the tile needs the fine layout lookup
 constexpr int POS_BIT = 2;        // ... causal, window or the ragged edge
 
@@ -82,7 +84,7 @@ struct Params {
   void* dq;
   void* dk;
   void* dv;
-  int H, S, nT, nf, fine, causal, window;
+  int H, S, D, nT, nf, fine, causal, window;
   float sm_scale;
 };
 
@@ -142,194 +144,53 @@ __device__ __forceinline__ float prob(float s, float lse) {
   return s > 0.5f * NEG_INF ? exp2f((s - lse) * LOG2E) : 0.f;
 }
 
-// ------------------------------------------------------------------ bf16
-
-using bf16 = __nv_bfloat16;
-
-__device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a,
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
-      "{%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 t = __floats2bfloat162_rn(lo, hi);   // .x = lo = low half
-  return *reinterpret_cast<uint32_t*>(&t);
-}
-
-// four 8x8 b16 matrices from shared memory (see flash_attention_fwd.cu):
-// without .trans lane l receives (row l/4, columns 2*(l%4) + {0, 1}) of
-// each; with .trans the transposed matrix
-__device__ __forceinline__ void ldsm_x4(uint32_t* r, const void* ptr) {
-  const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(ptr));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 "
-               "{%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(a));
-}
-
-__device__ __forceinline__ void ldsm_x4_trans(uint32_t* r, const void* ptr) {
-  const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(ptr));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 "
-               "{%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(a));
-}
-
-// 16 bytes global -> shared; src_bytes 0 writes zeros (the ragged edge)
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           int src_bytes) {
-  const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               :: "r"(a), "l"(src), "r"(src_bytes));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int N> __device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" :: "n"(N));
-}
-
-// A fragments of rows r0 / r1 (k columns kk*16 + cq, cq + 1 and + 8) of a
-// [n, D] bf16 matrix; rows past n read zeros
-template <int D>
-__device__ __forceinline__ void load_a(uint32_t (*f)[4], const bf16* base,
-                                       int r0, int r1, int n, int cq) {
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
-    const int c = kk * 16 + cq;
-    f[kk][0] = r0 < n ? *reinterpret_cast<const uint32_t*>(base + (size_t)r0 * D + c) : 0u;
-    f[kk][1] = r1 < n ? *reinterpret_cast<const uint32_t*>(base + (size_t)r1 * D + c) : 0u;
-    f[kk][2] = r0 < n ? *reinterpret_cast<const uint32_t*>(base + (size_t)r0 * D + c + 8) : 0u;
-    f[kk][3] = r1 < n ? *reinterpret_cast<const uint32_t*>(base + (size_t)r1 * D + c + 8) : 0u;
-  }
-}
-
-// acc[j] (16 x 8 tile j of a 16 x N product) = A (fragments a) times the
-// transpose of the N rows at smem (N x D, padded row LD): the Q K^T pattern
-template <int D, int N, int LD>
-__device__ __forceinline__ void mma_abt(float (*acc)[4], const uint32_t (*a)[4],
-                                        const bf16* smem, int lane) {
-#pragma unroll
-  for (int j = 0; j < N / 8; ++j) {
-    acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
-    const bf16* r = &smem[(j * 8 + (lane & 7)) * LD + (lane >> 3) * 8];
-#pragma unroll
-    for (int kk = 0; kk < D / 16; kk += 2) {
-      uint32_t b[4];
-      ldsm_x4(b, r + kk * 16);
-      mma_bf16(acc[j], a[kk], b[0], b[1]);
-      mma_bf16(acc[j], a[kk + 1], b[2], b[3]);
-    }
-  }
-}
-
-// out (16 x D) += X (16 x N f32 accumulator tiles, rounded to bf16 and
-// repacked as A fragments) times the N x D rows at smem: the P V pattern
-template <int D, int N, int LD>
-__device__ __forceinline__ void mma_ab(float (*out)[4], const float (*x)[4],
-                                       const bf16* smem, int lane) {
-  const int v_row = (lane & 7) + ((lane >> 3) & 1) * 8, v_col = (lane >> 4) * 8;
-#pragma unroll
-  for (int kk = 0; kk < N / 16; ++kk) {
-    uint32_t a[4];
-    a[0] = pack_bf16(x[2 * kk][0], x[2 * kk][1]);
-    a[1] = pack_bf16(x[2 * kk][2], x[2 * kk][3]);
-    a[2] = pack_bf16(x[2 * kk + 1][0], x[2 * kk + 1][1]);
-    a[3] = pack_bf16(x[2 * kk + 1][2], x[2 * kk + 1][3]);
-    const bf16* r = &smem[(kk * 16 + v_row) * LD + v_col];
-#pragma unroll
-    for (int n = 0; n < D / 8; n += 2) {
-      uint32_t b[4];
-      ldsm_x4_trans(b, r + n * 8);
-      mma_bf16(out[n], a, b[0], b[1]);
-      mma_bf16(out[n + 1], a, b[2], b[3]);
-    }
-  }
-}
-
-// rows r0 / r1 of a 16 x D f32 accumulator to bf16 rows of [n, D]
-template <int D>
-__device__ __forceinline__ void store_rows(bf16* base, const float (*acc)[4],
-                                           int r0, int r1, int n, int cq) {
-#pragma unroll
-  for (int rr = 0; rr < 2; ++rr) {
-    const int row = rr ? r1 : r0;
-    if (row >= n) continue;
-    bf16* out = base + (size_t)row * D + cq;
-#pragma unroll
-    for (int c = 0; c < D / 8; ++c)
-      *reinterpret_cast<__nv_bfloat162*>(out + c * 8) =
-          __floats2bfloat162_rn(acc[c][2 * rr], acc[c][2 * rr + 1]);
-  }
-}
-
-// ROWS rows (from i0) of a and of b, [n, D] each, into the shared stage at
-// dst (a then b, rows padded to LD) by cp.async; rows past n read zeros
-template <int D, int ROWS>
-__device__ __forceinline__ void load_pair(bf16* dst, const bf16* a,
-                                          const bf16* b, int i0, int n,
-                                          int tid) {
-  constexpr int LD = D + 8;
-  for (int idx = tid; idx < ROWS * D / 8; idx += NTHREADS) {
-    const int rr = idx / (D / 8), c = (idx % (D / 8)) * 8;
-    const int row = i0 + rr;
-    const bool in = row < n;
-    const size_t src = (size_t)(in ? row : 0) * D + c;
-    cp_async16(&dst[rr * LD + c], a + src, in ? 16 : 0);
-    cp_async16(&dst[ROWS * LD + rr * LD + c], b + src, in ? 16 : 0);
-  }
-  cp_async_commit();
-}
-
-template <int D> constexpr size_t bf16_smem_bytes(int rows) {
-  return 2 * 2 * rows * (D + 8) * sizeof(bf16);
-}
+// ------------------------------------------------------------ bf16, fp16
 
 // forward for one 64-row query tile over its listed key tiles
-template <int D>
+template <typename E, int DP, bool EXACT>
 __global__ void __launch_bounds__(NTHREADS)
-bs_fwd_bf16(Params p) {
-  constexpr int BK = T, LD = D + 8, TILE = BK * LD;
+bs_fwd_mma(Params p) {
+  constexpr int BK = T, LD = DP + 8, TILE = BK * LD;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* sm = reinterpret_cast<bf16*>(smem_raw);
+  E* sm = reinterpret_cast<E*>(smem_raw);
   const int bh = blockIdx.x, h = bh % p.H;
   const int qt = p.order[h * p.nT + blockIdx.y];  // the longest lists first
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int r0 = qt * T + warp * 16 + lane / 4, r1 = r0 + 8;
   const int cq = (lane % 4) * 2;
   const size_t off = (size_t)bh * p.S;
+  const int D = EXACT ? DP : p.D;
 
-  uint32_t qf[D / 16][4];
-  load_a<D>(qf, static_cast<const bf16*>(p.q) + off * D, r0, r1, p.S, cq);
-  float of[D / 8][4];
+  uint32_t qf[DP / 16][4];
+  load_a<E, DP>(qf, static_cast<const E*>(p.q) + off * D, r0, r1, p.S, D, cq);
+  float of[DP / 8][4];
 #pragma unroll
-  for (int n = 0; n < D / 8; ++n) of[n][0] = of[n][1] = of[n][2] = of[n][3] = 0.f;
+  for (int n = 0; n < DP / 8; ++n) of[n][0] = of[n][1] = of[n][2] = of[n][3] = 0.f;
   float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};   // l: this thread's part
 
   const int e0 = p.ptr[h * p.nT + qt], e1 = p.ptr[h * p.nT + qt + 1];
-  const bf16* kb = static_cast<const bf16*>(p.k) + off * D;
-  const bf16* vb = static_cast<const bf16*>(p.v) + off * D;
-  if (e0 < e1) load_pair<D, BK>(sm, kb, vb, p.idx[e0] * BK, p.S, tid);
+  const E* kb = static_cast<const E*>(p.k) + off * D;
+  const E* vb = static_cast<const E*>(p.v) + off * D;
+  auto load = [&](int k0, int stage) {
+    load_pair<E, DP, BK, NTHREADS>(sm + 2 * stage * TILE, kb, vb, k0, p.S, D,
+                                   tid);
+    cp_async_commit();
+  };
+  if (e0 < e1) load(p.idx[e0] * BK, 0);
 
   for (int e = e0; e < e1; ++e) {
     const int k0 = p.idx[e] * BK, fl = p.flags[e], stage = (e - e0) & 1;
     if (e + 1 < e1) {
-      load_pair<D, BK>(sm + 2 * (stage ^ 1) * TILE, kb, vb, p.idx[e + 1] * BK,
-                       p.S, tid);
+      load(p.idx[e + 1] * BK, stage ^ 1);
       cp_async_wait<1>();
     } else {
       cp_async_wait<0>();
     }
     __syncthreads();
-    const bf16* Ks = sm + 2 * stage * TILE;
-    const bf16* Vs = Ks + TILE;
+    const E* Ks = sm + 2 * stage * TILE;
+    const E* Vs = Ks + TILE;
     float sf[BK / 8][4];
-    mma_abt<D, BK, LD>(sf, qf, Ks, lane);       // S = Q K^T
+    mma_abt<E, DP, BK, LD>(sf, qf, Ks, lane);       // S = Q K^T
 #pragma unroll
     for (int j = 0; j < BK / 8; ++j)
 #pragma unroll
@@ -361,78 +222,82 @@ bs_fwd_bf16(Params p) {
       l[rr] = l[rr] * alpha + ps;
       m[rr] = mx;
 #pragma unroll
-      for (int n = 0; n < D / 8; ++n) {
+      for (int n = 0; n < DP / 8; ++n) {
         of[n][2 * rr] *= alpha;
         of[n][2 * rr + 1] *= alpha;
       }
     }
-    mma_ab<D, BK, LD>(of, sf, Vs, lane);         // O += P V
+    mma_ab<E, DP, BK, LD>(of, sf, Vs, lane);         // O += P V
     __syncthreads();                            // the stage is refilled next
   }
 
+  float inv[2];
 #pragma unroll
   for (int rr = 0; rr < 2; ++rr) {
     float lt = l[rr];
     lt += __shfl_xor_sync(0xffffffffu, lt, 1);
     lt += __shfl_xor_sync(0xffffffffu, lt, 2);
+    inv[rr] = 1.f / (lt == 0.f ? 1.f : lt);      // a dead row writes zeros
     const int row = rr ? r1 : r0;
-    if (row >= p.S) continue;
-    const float ls = lt == 0.f ? 1.f : lt;       // a dead row writes zeros
-    bf16* orow = static_cast<bf16*>(p.o) + (off + row) * D + cq;
-#pragma unroll
-    for (int n = 0; n < D / 8; ++n)
-      *reinterpret_cast<__nv_bfloat162*>(orow + n * 8) =
-          __floats2bfloat162_rn(of[n][2 * rr] / ls, of[n][2 * rr + 1] / ls);
-    if (lane % 4 == 0) p.lse[off + row] = m[rr] + logf(fmaxf(lt, 1e-37f));
+    if (row < p.S && lane % 4 == 0)
+      p.lse[off + row] = m[rr] + logf(fmaxf(lt, 1e-37f));
   }
+  store_rows<E, DP>(static_cast<E*>(p.o) + off * D, of, r0, r1, p.S, D, cq,
+                    inv[0], inv[1]);
 }
 
 // dQ for one 64-row query tile over its listed key tiles
-template <int D>
+template <typename E, int DP, bool EXACT>
 __global__ void __launch_bounds__(NTHREADS)
-bs_dq_bf16(Params p) {
-  constexpr int BK = T, LD = D + 8, TILE = BK * LD;
+bs_dq_mma(Params p) {
+  constexpr int BK = T, LD = DP + 8, TILE = BK * LD;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* sm = reinterpret_cast<bf16*>(smem_raw);
+  E* sm = reinterpret_cast<E*>(smem_raw);
   const int bh = blockIdx.x, h = bh % p.H;
   const int qt = p.order[h * p.nT + blockIdx.y];
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int r0 = qt * T + warp * 16 + lane / 4, r1 = r0 + 8;
   const int cq = (lane % 4) * 2;
   const size_t off = (size_t)bh * p.S;
+  const int D = EXACT ? DP : p.D;
 
-  uint32_t qf[D / 16][4], df[D / 16][4];
-  load_a<D>(qf, static_cast<const bf16*>(p.q) + off * D, r0, r1, p.S, cq);
-  load_a<D>(df, static_cast<const bf16*>(p.dout) + off * D, r0, r1, p.S, cq);
+  uint32_t qf[DP / 16][4], df[DP / 16][4];
+  load_a<E, DP>(qf, static_cast<const E*>(p.q) + off * D, r0, r1, p.S, D, cq);
+  load_a<E, DP>(df, static_cast<const E*>(p.dout) + off * D, r0, r1, p.S, D,
+                cq);
   float lse[2], dlt[2];
   lse[0] = r0 < p.S ? p.lse_in[off + r0] : 0.f;
   lse[1] = r1 < p.S ? p.lse_in[off + r1] : 0.f;
   dlt[0] = r0 < p.S ? p.delta[off + r0] : 0.f;
   dlt[1] = r1 < p.S ? p.delta[off + r1] : 0.f;
-  float acc[D / 8][4];
+  float acc[DP / 8][4];
 #pragma unroll
-  for (int n = 0; n < D / 8; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+  for (int n = 0; n < DP / 8; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
 
   const int e0 = p.ptr[h * p.nT + qt], e1 = p.ptr[h * p.nT + qt + 1];
-  const bf16* kb = static_cast<const bf16*>(p.k) + off * D;
-  const bf16* vb = static_cast<const bf16*>(p.v) + off * D;
-  if (e0 < e1) load_pair<D, BK>(sm, kb, vb, p.idx[e0] * BK, p.S, tid);
+  const E* kb = static_cast<const E*>(p.k) + off * D;
+  const E* vb = static_cast<const E*>(p.v) + off * D;
+  auto load = [&](int k0, int stage) {
+    load_pair<E, DP, BK, NTHREADS>(sm + 2 * stage * TILE, kb, vb, k0, p.S, D,
+                                   tid);
+    cp_async_commit();
+  };
+  if (e0 < e1) load(p.idx[e0] * BK, 0);
 
   for (int e = e0; e < e1; ++e) {
     const int k0 = p.idx[e] * BK, fl = p.flags[e], stage = (e - e0) & 1;
     if (e + 1 < e1) {
-      load_pair<D, BK>(sm + 2 * (stage ^ 1) * TILE, kb, vb, p.idx[e + 1] * BK,
-                       p.S, tid);
+      load(p.idx[e + 1] * BK, stage ^ 1);
       cp_async_wait<1>();
     } else {
       cp_async_wait<0>();
     }
     __syncthreads();
-    const bf16* Ks = sm + 2 * stage * TILE;
-    const bf16* Vs = Ks + TILE;
+    const E* Ks = sm + 2 * stage * TILE;
+    const E* Vs = Ks + TILE;
     float sf[BK / 8][4], dp[BK / 8][4];
-    mma_abt<D, BK, LD>(sf, qf, Ks, lane);       // S = Q K^T
-    mma_abt<D, BK, LD>(dp, df, Vs, lane);       // dP = dO V^T
+    mma_abt<E, DP, BK, LD>(sf, qf, Ks, lane);       // S = Q K^T
+    mma_abt<E, DP, BK, LD>(dp, df, Vs, lane);       // dP = dO V^T
 #pragma unroll
     for (int j = 0; j < BK / 8; ++j)
 #pragma unroll
@@ -445,21 +310,21 @@ bs_dq_bf16(Params p) {
         const int rr = c >> 1;
         sf[j][c] = prob(sf[j][c], lse[rr]) * (dp[j][c] - dlt[rr]) * p.sm_scale;  // dS
       }
-    mma_ab<D, BK, LD>(acc, sf, Ks, lane);       // dQ += dS K
+    mma_ab<E, DP, BK, LD>(acc, sf, Ks, lane);       // dQ += dS K
     __syncthreads();
   }
-  store_rows<D>(static_cast<bf16*>(p.dq) + off * D, acc, r0, r1, p.S, cq);
+  store_rows<E, DP>(static_cast<E*>(p.dq) + off * D, acc, r0, r1, p.S, D, cq);
 }
 
 // dK and dV for one 64-row key tile over its listed query tiles, each
 // taken in 64 / BQ steps of BQ rows, with Q, dO and the rows' lse and
 // delta double-buffered in shared memory
-template <int D, int BQ>
+template <typename E, int DP, int BQ, bool EXACT>
 __global__ void __launch_bounds__(NTHREADS)
-bs_dkv_bf16(Params p) {
-  constexpr int LD = D + 8, TILE = BQ * LD, SUB = T / BQ;
+bs_dkv_mma(Params p) {
+  constexpr int LD = DP + 8, TILE = BQ * LD, SUB = T / BQ;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* sm = reinterpret_cast<bf16*>(smem_raw);
+  E* sm = reinterpret_cast<E*>(smem_raw);
   __shared__ float rows_s[2][2][BQ];           // [stage][lse, delta][query]
   const int bh = blockIdx.x, h = bh % p.H;
   const int kt = p.order[h * p.nT + blockIdx.y];
@@ -467,20 +332,21 @@ bs_dkv_bf16(Params p) {
   const int r0 = kt * T + warp * 16 + lane / 4, r1 = r0 + 8;   // keys
   const int cq = (lane % 4) * 2;
   const size_t off = (size_t)bh * p.S;
+  const int D = EXACT ? DP : p.D;
 
-  uint32_t kf[D / 16][4], vf[D / 16][4];
-  load_a<D>(kf, static_cast<const bf16*>(p.k) + off * D, r0, r1, p.S, cq);
-  load_a<D>(vf, static_cast<const bf16*>(p.v) + off * D, r0, r1, p.S, cq);
-  float dk[D / 8][4], dv[D / 8][4];
+  uint32_t kf[DP / 16][4], vf[DP / 16][4];
+  load_a<E, DP>(kf, static_cast<const E*>(p.k) + off * D, r0, r1, p.S, D, cq);
+  load_a<E, DP>(vf, static_cast<const E*>(p.v) + off * D, r0, r1, p.S, D, cq);
+  float dk[DP / 8][4], dv[DP / 8][4];
 #pragma unroll
-  for (int n = 0; n < D / 8; ++n)
+  for (int n = 0; n < DP / 8; ++n)
 #pragma unroll
     for (int c = 0; c < 4; ++c) dk[n][c] = dv[n][c] = 0.f;
 
   const int e0 = p.ptr[h * p.nT + kt], e1 = p.ptr[h * p.nT + kt + 1];
   const int steps = (e1 - e0) * SUB;
-  const bf16* qb = static_cast<const bf16*>(p.q) + off * D;
-  const bf16* db = static_cast<const bf16*>(p.dout) + off * D;
+  const E* qb = static_cast<const E*>(p.q) + off * D;
+  const E* db = static_cast<const E*>(p.dout) + off * D;
   auto first_row = [&](int s) { return p.idx[e0 + s / SUB] * T + (s % SUB) * BQ; };
   auto load = [&](int s, int stage) {
     const int q0 = first_row(s);
@@ -489,7 +355,9 @@ bs_dkv_bf16(Params p) {
       rows_s[stage][0][i] = in ? p.lse_in[off + q0 + i] : 0.f;
       rows_s[stage][1][i] = in ? p.delta[off + q0 + i] : 0.f;
     }
-    load_pair<D, BQ>(sm + 2 * stage * TILE, qb, db, q0, p.S, tid);
+    load_pair<E, DP, BQ, NTHREADS>(sm + 2 * stage * TILE, qb, db, q0, p.S, D,
+                                   tid);
+    cp_async_commit();
   };
   if (steps > 0) load(0, 0);
 
@@ -502,13 +370,13 @@ bs_dkv_bf16(Params p) {
       cp_async_wait<0>();
     }
     __syncthreads();
-    const bf16* Qs = sm + 2 * stage * TILE;
-    const bf16* Ds = Qs + TILE;
+    const E* Qs = sm + 2 * stage * TILE;
+    const E* Ds = Qs + TILE;
     const float* lse = rows_s[stage][0];
     const float* dlt = rows_s[stage][1];
     float st[BQ / 8][4], dpt[BQ / 8][4];
-    mma_abt<D, BQ, LD>(st, kf, Qs, lane);      // S^T = K Q^T
-    mma_abt<D, BQ, LD>(dpt, vf, Ds, lane);     // dP^T = V dO^T
+    mma_abt<E, DP, BQ, LD>(st, kf, Qs, lane);      // S^T = K Q^T
+    mma_abt<E, DP, BQ, LD>(dpt, vf, Ds, lane);     // dP^T = V dO^T
 #pragma unroll
     for (int j = 0; j < BQ / 8; ++j)
 #pragma unroll
@@ -523,12 +391,12 @@ bs_dkv_bf16(Params p) {
         st[j][c] = pr;                                          // P^T
         dpt[j][c] = pr * (dpt[j][c] - dlt[qi]) * p.sm_scale;    // dS^T
       }
-    mma_ab<D, BQ, LD>(dv, st, Ds, lane);       // dV += P^T dO
-    mma_ab<D, BQ, LD>(dk, dpt, Qs, lane);      // dK += dS^T Q
+    mma_ab<E, DP, BQ, LD>(dv, st, Ds, lane);       // dV += P^T dO
+    mma_ab<E, DP, BQ, LD>(dk, dpt, Qs, lane);      // dK += dS^T Q
     __syncthreads();                           // the stage is refilled next
   }
-  store_rows<D>(static_cast<bf16*>(p.dk) + off * D, dk, r0, r1, p.S, cq);
-  store_rows<D>(static_cast<bf16*>(p.dv) + off * D, dv, r0, r1, p.S, cq);
+  store_rows<E, DP>(static_cast<E*>(p.dk) + off * D, dk, r0, r1, p.S, D, cq);
+  store_rows<E, DP>(static_cast<E*>(p.dv) + off * D, dv, r0, r1, p.S, D, cq);
 }
 
 // ------------------------------------------------------------------- f32
@@ -536,43 +404,44 @@ bs_dkv_bf16(Params p) {
 // 64 rows per CTA, TPR threads per row, each owning the float4 slices
 // i*TPR + t (i < NV) of its row: neighbouring threads on neighbouring
 // addresses
-template <int D> struct F32 {
-  static constexpr int TPR = D == 128 ? 4 : 2;
-  static constexpr int DPT = D / TPR;           // dims a thread owns
+template <int DP> struct F32 {
+  static constexpr int TPR = DP == 128 ? 4 : 2;
+  static constexpr int DPT = DP / TPR;           // dims a thread owns
   static constexpr int NV = DPT / 4;
   static constexpr int NT = T * TPR;            // threads per CTA
   static constexpr int SUBT = 32;               // rows of a shared sub-tile
 };
 
-template <int D>
+template <int DP>
 __device__ __forceinline__ void load_slices(float* dst, const float* row,
-                                            int t) {
-  using L = F32<D>;
+                                            int t, int D) {
+  using L = F32<DP>;
 #pragma unroll
   for (int i = 0; i < L::NV; ++i) {
-    const float4 x = *reinterpret_cast<const float4*>(row + 4 * (i * L::TPR + t));
+    const float4 x = load_f4(row, 4 * (i * L::TPR + t), D);
     dst[4 * i] = x.x; dst[4 * i + 1] = x.y; dst[4 * i + 2] = x.z; dst[4 * i + 3] = x.w;
   }
 }
 
-template <int D>
+template <int DP>
 __device__ __forceinline__ void store_slices(float* row, const float* src,
-                                             int t, float scale) {
-  using L = F32<D>;
+                                             int t, int D, float scale) {
+  using L = F32<DP>;
 #pragma unroll
   for (int i = 0; i < L::NV; ++i)
-    *reinterpret_cast<float4*>(row + 4 * (i * L::TPR + t)) =
-        make_float4(src[4 * i] * scale, src[4 * i + 1] * scale,
-                    src[4 * i + 2] * scale, src[4 * i + 3] * scale);
+    if (4 * (i * L::TPR + t) < D)
+      *reinterpret_cast<float4*>(row + 4 * (i * L::TPR + t)) =
+          make_float4(src[4 * i] * scale, src[4 * i + 1] * scale,
+                      src[4 * i + 2] * scale, src[4 * i + 3] * scale);
 }
 
 // the dot products of this thread's slices with one shared row (a with
 // x, b with y), summed over the row's TPR threads
-template <int D>
+template <int DP>
 __device__ __forceinline__ void dot2(const float* a, const float* x,
                                      const float* b, const float* y, int t,
                                      float* ax, float* by) {
-  using L = F32<D>;
+  using L = F32<DP>;
   float s = 0.f, d = 0.f;
 #pragma unroll
   for (int i = 0; i < L::NV; ++i) {
@@ -594,9 +463,9 @@ __device__ __forceinline__ void dot2(const float* a, const float* x,
 
 // the dot product of this thread's slices with one shared row, summed
 // over the row's TPR threads
-template <int D>
+template <int DP>
 __device__ __forceinline__ float dot1(const float* a, const float* x, int t) {
-  using L = F32<D>;
+  using L = F32<DP>;
   float s = 0.f;
 #pragma unroll
   for (int i = 0; i < L::NV; ++i) {
@@ -610,10 +479,10 @@ __device__ __forceinline__ float dot1(const float* a, const float* x, int t) {
 }
 
 // acc += w * this thread's slices of the shared row x
-template <int D>
+template <int DP>
 __device__ __forceinline__ void axpy(float* acc, float w, const float* x,
                                      int t) {
-  using L = F32<D>;
+  using L = F32<DP>;
 #pragma unroll
   for (int i = 0; i < L::NV; ++i) {
     const float4 u = *reinterpret_cast<const float4*>(x + 4 * (i * L::TPR + t));
@@ -624,41 +493,44 @@ __device__ __forceinline__ void axpy(float* acc, float w, const float* x,
   }
 }
 
-// rows [i0, i0 + SUBT) of two [n, D] f32 matrices into shared tiles; rows
-// past n read zeros
-template <int D>
+// rows [i0, i0 + SUBT) of two [n, D] f32 matrices into shared tiles of
+// width DP; rows past n and columns past D read zeros
+template <int DP>
 __device__ __forceinline__ void load_f32_pair(float* da, float* db,
                                               const float* a, const float* b,
-                                              int i0, int n, int tid) {
-  using L = F32<D>;
-  for (int idx = tid; idx < L::SUBT * D / 4; idx += L::NT) {
-    const int rr = idx / (D / 4), c = (idx % (D / 4)) * 4;
+                                              int i0, int n, int D,
+                                              int tid) {
+  using L = F32<DP>;
+  for (int idx = tid; idx < L::SUBT * DP / 4; idx += L::NT) {
+    const int rr = idx / (DP / 4), c = (idx % (DP / 4)) * 4;
     float4 x = make_float4(0.f, 0.f, 0.f, 0.f), y = x;
     if (i0 + rr < n) {
-      x = *reinterpret_cast<const float4*>(a + (size_t)(i0 + rr) * D + c);
-      y = *reinterpret_cast<const float4*>(b + (size_t)(i0 + rr) * D + c);
+      x = load_f4(a + (size_t)(i0 + rr) * D, c, D);
+      y = load_f4(b + (size_t)(i0 + rr) * D, c, D);
     }
-    *reinterpret_cast<float4*>(&da[rr * D + c]) = x;
-    *reinterpret_cast<float4*>(&db[rr * D + c]) = y;
+    *reinterpret_cast<float4*>(&da[rr * DP + c]) = x;
+    *reinterpret_cast<float4*>(&db[rr * DP + c]) = y;
   }
 }
 
-template <int D>
-__global__ void __launch_bounds__(F32<D>::NT)
+template <int DP>
+__global__ void __launch_bounds__(F32<DP>::NT)
 bs_fwd_f32(Params p) {
-  using L = F32<D>;
+  using L = F32<DP>;
   constexpr int BK = L::SUBT;
-  __shared__ __align__(16) float Ks[BK * D];
-  __shared__ __align__(16) float Vs[BK * D];
+  __shared__ __align__(16) float Ks[BK * DP];
+  __shared__ __align__(16) float Vs[BK * DP];
   const int bh = blockIdx.x, h = bh % p.H;
   const int qt = p.order[h * p.nT + blockIdx.y];
   const int tid = threadIdx.x, t = tid % L::TPR;
   const int row = qt * T + tid / L::TPR;
   const size_t off = (size_t)bh * p.S;
+  const int D = p.D;
   const float* kb = static_cast<const float*>(p.k) + off * D;
   const float* vb = static_cast<const float*>(p.v) + off * D;
   float qv[L::DPT], acc[L::DPT];
-  load_slices<D>(qv, static_cast<const float*>(p.q) + (off + min(row, p.S - 1)) * D, t);
+  load_slices<DP>(qv, static_cast<const float*>(p.q) + (off + min(row, p.S - 1)) * D,
+                  t, D);
 #pragma unroll
   for (int i = 0; i < L::DPT; ++i) acc[i] = 0.f;
   float m = NEG_INF, l = 0.f;
@@ -668,13 +540,13 @@ bs_fwd_f32(Params p) {
     const int fl = p.flags[e];
     for (int k0 = p.idx[e] * T; k0 < min(p.idx[e] * T + T, p.S); k0 += BK) {
       __syncthreads();
-      load_f32_pair<D>(Ks, Vs, kb, vb, k0, p.S, tid);
+      load_f32_pair<DP>(Ks, Vs, kb, vb, k0, p.S, D, tid);
       __syncthreads();
       float sc[BK];
       float mx = m;
 #pragma unroll
       for (int kk = 0; kk < BK; ++kk) {
-        float s = dot1<D>(qv, &Ks[kk * D], t) * p.sm_scale;
+        float s = dot1<DP>(qv, &Ks[kk * DP], t) * p.sm_scale;
         if (fl != 0 && !live(p, h, fl, row, k0 + kk)) s = NEG_INF;
         sc[kk] = s;
         mx = fmaxf(mx, s);
@@ -691,33 +563,37 @@ bs_fwd_f32(Params p) {
 #pragma unroll
       for (int i = 0; i < L::DPT; ++i) acc[i] *= alpha;
 #pragma unroll
-      for (int kk = 0; kk < BK; ++kk) axpy<D>(acc, sc[kk], &Vs[kk * D], t);
+      for (int kk = 0; kk < BK; ++kk) axpy<DP>(acc, sc[kk], &Vs[kk * DP], t);
     }
   }
   if (row < p.S) {
     const float ls = l == 0.f ? 1.f : l;        // a dead row writes zeros
-    store_slices<D>(static_cast<float*>(p.o) + (off + row) * D, acc, t, 1.f / ls);
+    store_slices<DP>(static_cast<float*>(p.o) + (off + row) * D, acc, t, D,
+                     1.f / ls);
     if (t == 0) p.lse[off + row] = m + logf(fmaxf(l, 1e-37f));
   }
 }
 
-template <int D>
-__global__ void __launch_bounds__(F32<D>::NT)
+template <int DP>
+__global__ void __launch_bounds__(F32<DP>::NT)
 bs_dq_f32(Params p) {
-  using L = F32<D>;
+  using L = F32<DP>;
   constexpr int BK = L::SUBT;
-  __shared__ __align__(16) float Ks[BK * D];
-  __shared__ __align__(16) float Vs[BK * D];
+  __shared__ __align__(16) float Ks[BK * DP];
+  __shared__ __align__(16) float Vs[BK * DP];
   const int bh = blockIdx.x, h = bh % p.H;
   const int qt = p.order[h * p.nT + blockIdx.y];
   const int tid = threadIdx.x, t = tid % L::TPR;
   const int row = qt * T + tid / L::TPR, rc = min(row, p.S - 1);
   const size_t off = (size_t)bh * p.S;
+  const int D = p.D;
   const float* kb = static_cast<const float*>(p.k) + off * D;
   const float* vb = static_cast<const float*>(p.v) + off * D;
   float qv[L::DPT], dov[L::DPT], acc[L::DPT];
-  load_slices<D>(qv, static_cast<const float*>(p.q) + (off + rc) * D, t);
-  load_slices<D>(dov, static_cast<const float*>(p.dout) + (off + rc) * D, t);
+  load_slices<DP>(qv, static_cast<const float*>(p.q) + (off + rc) * D, t,
+                  D);
+  load_slices<DP>(dov, static_cast<const float*>(p.dout) + (off + rc) * D, t,
+                  D);
 #pragma unroll
   for (int i = 0; i < L::DPT; ++i) acc[i] = 0.f;
   const float lse = p.lse_in[off + rc], dlt = p.delta[off + rc];
@@ -727,39 +603,43 @@ bs_dq_f32(Params p) {
     const int fl = p.flags[e];
     for (int k0 = p.idx[e] * T; k0 < min(p.idx[e] * T + T, p.S); k0 += BK) {
       __syncthreads();
-      load_f32_pair<D>(Ks, Vs, kb, vb, k0, p.S, tid);
+      load_f32_pair<DP>(Ks, Vs, kb, vb, k0, p.S, D, tid);
       __syncthreads();
       for (int kk = 0; kk < BK; ++kk) {
         float s, dp;
-        dot2<D>(qv, &Ks[kk * D], dov, &Vs[kk * D], t, &s, &dp);
+        dot2<DP>(qv, &Ks[kk * DP], dov, &Vs[kk * DP], t, &s, &dp);
         s *= p.sm_scale;
         if (fl != 0 && !live(p, h, fl, row, k0 + kk)) s = NEG_INF;
-        axpy<D>(acc, prob(s, lse) * (dp - dlt) * p.sm_scale, &Ks[kk * D], t);
+        axpy<DP>(acc, prob(s, lse) * (dp - dlt) * p.sm_scale, &Ks[kk * DP], t);
       }
     }
   }
   if (row < p.S)
-    store_slices<D>(static_cast<float*>(p.dq) + (off + row) * D, acc, t, 1.f);
+    store_slices<DP>(static_cast<float*>(p.dq) + (off + row) * D, acc, t, D,
+                     1.f);
 }
 
-template <int D>
-__global__ void __launch_bounds__(F32<D>::NT)
+template <int DP>
+__global__ void __launch_bounds__(F32<DP>::NT)
 bs_dkv_f32(Params p) {
-  using L = F32<D>;
+  using L = F32<DP>;
   constexpr int BQ = L::SUBT;
-  __shared__ __align__(16) float Qs[BQ * D];
-  __shared__ __align__(16) float Ds[BQ * D];
+  __shared__ __align__(16) float Qs[BQ * DP];
+  __shared__ __align__(16) float Ds[BQ * DP];
   __shared__ float Ls[BQ], Es[BQ];
   const int bh = blockIdx.x, h = bh % p.H;
   const int kt = p.order[h * p.nT + blockIdx.y];
   const int tid = threadIdx.x, t = tid % L::TPR;
   const int key = kt * T + tid / L::TPR, kc = min(key, p.S - 1);
   const size_t off = (size_t)bh * p.S;
+  const int D = p.D;
   const float* qb = static_cast<const float*>(p.q) + off * D;
   const float* db = static_cast<const float*>(p.dout) + off * D;
   float kv[L::DPT], vv[L::DPT], dk[L::DPT], dv[L::DPT];
-  load_slices<D>(kv, static_cast<const float*>(p.k) + (off + kc) * D, t);
-  load_slices<D>(vv, static_cast<const float*>(p.v) + (off + kc) * D, t);
+  load_slices<DP>(kv, static_cast<const float*>(p.k) + (off + kc) * D, t,
+                  D);
+  load_slices<DP>(vv, static_cast<const float*>(p.v) + (off + kc) * D, t,
+                  D);
 #pragma unroll
   for (int i = 0; i < L::DPT; ++i) dk[i] = dv[i] = 0.f;
 
@@ -768,7 +648,7 @@ bs_dkv_f32(Params p) {
     const int fl = p.flags[e];
     for (int q0 = p.idx[e] * T; q0 < min(p.idx[e] * T + T, p.S); q0 += BQ) {
       __syncthreads();
-      load_f32_pair<D>(Qs, Ds, qb, db, q0, p.S, tid);
+      load_f32_pair<DP>(Qs, Ds, qb, db, q0, p.S, D, tid);
       for (int i = tid; i < BQ; i += L::NT) {
         const bool in = q0 + i < p.S;
         Ls[i] = in ? p.lse_in[off + q0 + i] : 0.f;
@@ -777,18 +657,20 @@ bs_dkv_f32(Params p) {
       __syncthreads();
       for (int qq = 0; qq < BQ; ++qq) {
         float s, dp;
-        dot2<D>(kv, &Qs[qq * D], vv, &Ds[qq * D], t, &s, &dp);
+        dot2<DP>(kv, &Qs[qq * DP], vv, &Ds[qq * DP], t, &s, &dp);
         s *= p.sm_scale;
         if (fl != 0 && !live(p, h, fl, q0 + qq, key)) s = NEG_INF;
         const float pr = prob(s, Ls[qq]);
-        axpy<D>(dv, pr, &Ds[qq * D], t);
-        axpy<D>(dk, pr * (dp - Es[qq]) * p.sm_scale, &Qs[qq * D], t);
+        axpy<DP>(dv, pr, &Ds[qq * DP], t);
+        axpy<DP>(dk, pr * (dp - Es[qq]) * p.sm_scale, &Qs[qq * DP], t);
       }
     }
   }
   if (key < p.S) {
-    store_slices<D>(static_cast<float*>(p.dk) + (off + key) * D, dk, t, 1.f);
-    store_slices<D>(static_cast<float*>(p.dv) + (off + key) * D, dv, t, 1.f);
+    store_slices<DP>(static_cast<float*>(p.dk) + (off + key) * D, dk, t, D,
+                     1.f);
+    store_slices<DP>(static_cast<float*>(p.dv) + (off + key) * D, dv, t, D,
+                     1.f);
   }
 }
 
@@ -807,32 +689,54 @@ int launch(KernelFn kernel, const Params& p, int BH, int threads,
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int D>
+// each kernel at padded width DP: f32, or the 16-bit kernel of element E
+// (dtype 1 bf16, 2 fp16), EXACT when D == DP (a compile-time width)
+template <int DP, typename F>
+int by_type(const Params& p, int dtype, F&& go) {
+  const bool exact = p.D == DP;
+  if (dtype == 1)
+    return exact ? go(bf16(), std::true_type()) : go(bf16(), std::false_type());
+  return exact ? go(f16(), std::true_type()) : go(f16(), std::false_type());
+}
+
+template <int DP>
 int launch_fwd(const Params& p, int BH, int dtype, cudaStream_t st) {
-  if (dtype == 0) return launch(bs_fwd_f32<D>, p, BH, F32<D>::NT, st);
-  return launch(bs_fwd_bf16<D>, p, BH, NTHREADS, st, bf16_smem_bytes<D>(T));
+  if (dtype == 0) return launch(bs_fwd_f32<DP>, p, BH, F32<DP>::NT, st);
+  constexpr size_t smem = pair_smem_bytes<bf16, DP>(T);
+  return by_type<DP>(p, dtype, [&](auto e, auto x) {
+    return launch(bs_fwd_mma<decltype(e), DP, decltype(x)::value>, p, BH,
+                  NTHREADS, st, smem);
+  });
 }
 
-template <int D>
+template <int DP>
 int launch_dq(const Params& p, int BH, int dtype, cudaStream_t st) {
-  if (dtype == 0) return launch(bs_dq_f32<D>, p, BH, F32<D>::NT, st);
-  return launch(bs_dq_bf16<D>, p, BH, NTHREADS, st, bf16_smem_bytes<D>(T));
+  if (dtype == 0) return launch(bs_dq_f32<DP>, p, BH, F32<DP>::NT, st);
+  constexpr size_t smem = pair_smem_bytes<bf16, DP>(T);
+  return by_type<DP>(p, dtype, [&](auto e, auto x) {
+    return launch(bs_dq_mma<decltype(e), DP, decltype(x)::value>, p, BH,
+                  NTHREADS, st, smem);
+  });
 }
 
-template <int D>
+template <int DP>
 int launch_dkv(const Params& p, int BH, int dtype, cudaStream_t st) {
-  if (dtype == 0) return launch(bs_dkv_f32<D>, p, BH, F32<D>::NT, st);
-  // query steps of 32 rows at head_dim 128 keep dK, dV, K, V and the score
-  // tiles within the register file (as in flash_attention_bwd.cu)
-  constexpr int BQ = D > 64 ? 32 : 64;
-  return launch(bs_dkv_bf16<D, BQ>, p, BH, NTHREADS, st, bf16_smem_bytes<D>(BQ));
+  if (dtype == 0) return launch(bs_dkv_f32<DP>, p, BH, F32<DP>::NT, st);
+  // query steps of 32 rows above head_dim 64 keep dK, dV, K, V and the
+  // score tiles within the register file (as in flash_attention_bwd.cu)
+  constexpr int BQ = DP > 64 ? 32 : 64;
+  constexpr size_t smem = pair_smem_bytes<bf16, DP>(BQ);
+  return by_type<DP>(p, dtype, [&](auto e, auto x) {
+    return launch(bs_dkv_mma<decltype(e), DP, BQ, decltype(x)::value>, p,
+                  BH, NTHREADS, st, smem);
+  });
 }
 
 Params make_params(const void* q, const void* k, const void* v,
                    const void* dout, const void* lse_in, const void* delta,
                    const void* layout, const void* ptr, const void* idx,
                    const void* flags, const void* order, int H, int S,
-                   int fine, int causal, int window, float sm_scale) {
+                   int D, int fine, int causal, int window, float sm_scale) {
   Params p = {};
   p.q = q; p.k = k; p.v = v; p.dout = dout;
   p.lse_in = static_cast<const float*>(lse_in);
@@ -842,30 +746,37 @@ Params make_params(const void* q, const void* k, const void* v,
   p.idx = static_cast<const int*>(idx);
   p.flags = static_cast<const int*>(flags);
   p.order = static_cast<const int*>(order);
-  p.H = H; p.S = S; p.nT = (S + T - 1) / T;
+  p.H = H; p.S = S; p.D = D; p.nT = (S + T - 1) / T;
   p.fine = fine; p.nf = fine > 0 ? S / fine : 0;
   p.causal = causal; p.window = window; p.sm_scale = sm_scale;
   return p;
 }
 
+bool supported(int D, int dtype) {
+  return dtype >= 0 && dtype <= 2 && D >= 8 && D <= 128 && D % 8 == 0;
+}
+
+// fn at the padded width of head dim D
 template <typename Fn>
 int dispatch(Fn fn, int D) {
-  if (D == 32) return fn(std::integral_constant<int, 32>());
-  if (D == 64) return fn(std::integral_constant<int, 64>());
-  if (D == 128) return fn(std::integral_constant<int, 128>());
-  return -1;
+  switch (pad_dim(D)) {
+    case 32: return fn(std::integral_constant<int, 32>());
+    case 64: return fn(std::integral_constant<int, 64>());
+    case 96: return fn(std::integral_constant<int, 96>());
+    default: return fn(std::integral_constant<int, 128>());
+  }
 }
 
 }  // namespace
 
 extern "C" {
 
-// dtype: 0 = float32, 1 = bfloat16 (q, k, v, dout and the outputs alike).
-// D: 32, 64 or 128. ptr / idx / flags / order: the query-tile lists and
-// their order (forward, dq) or the key-tile ones (dkv). layout: null when
-// layout_exact is off; fine: a multiple of 8 that divides S. Each
-// returns the CUDA error of its launch (0 = launched); -1 for a dtype or
-// head dim the kernels lack.
+// dtype: 0 = float32, 1 = bfloat16, 2 = float16 (q, k, v, dout and the
+// outputs alike). D: any multiple of 8 up to 128. ptr / idx / flags /
+// order: the query-tile lists and their order (forward, dq) or the key-tile
+// ones (dkv). layout: null when layout_exact is off; fine: a multiple of 8
+// that divides S. Each returns the CUDA error of its launch (0 =
+// launched); -1 for a dtype or head dim the kernels lack.
 int block_sparse_attention_fwd_launch(const void* q, const void* k,
                                       const void* v, const void* layout,
                                       const void* ptr, const void* idx,
@@ -875,13 +786,15 @@ int block_sparse_attention_fwd_launch(const void* q, const void* k,
                                       int causal, int window, float sm_scale,
                                       int dtype, void* stream) {
   Params p = make_params(q, k, v, nullptr, nullptr, nullptr, layout, ptr, idx,
-                         flags, order, H, S, fine, causal, window, sm_scale);
+                         flags, order, H, S, D, fine, causal, window, sm_scale);
   p.o = o;
   p.lse = static_cast<float*>(lse);
+  if (!supported(D, dtype)) return -1;
   if (S <= 0 || BH <= 0) return 0;
-  if (dtype != 0 && dtype != 1) return -1;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return dispatch([&](auto d) { return launch_fwd<decltype(d)::value>(p, BH, dtype, st); }, D);
+  return dispatch(
+      [&](auto d) { return launch_fwd<decltype(d)::value>(p, BH, dtype, st); },
+      D);
 }
 
 int block_sparse_attention_bwd_dq_launch(const void* q, const void* k,
@@ -895,12 +808,14 @@ int block_sparse_attention_bwd_dq_launch(const void* q, const void* k,
                                          float sm_scale, int dtype,
                                          void* stream) {
   Params p = make_params(q, k, v, dout, lse, delta, layout, ptr, idx, flags,
-                         order, H, S, fine, causal, window, sm_scale);
+                         order, H, S, D, fine, causal, window, sm_scale);
   p.dq = dq;
+  if (!supported(D, dtype)) return -1;
   if (S <= 0 || BH <= 0) return 0;
-  if (dtype != 0 && dtype != 1) return -1;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return dispatch([&](auto d) { return launch_dq<decltype(d)::value>(p, BH, dtype, st); }, D);
+  return dispatch(
+      [&](auto d) { return launch_dq<decltype(d)::value>(p, BH, dtype, st); },
+      D);
 }
 
 int block_sparse_attention_bwd_dkv_launch(const void* q, const void* k,
@@ -914,13 +829,15 @@ int block_sparse_attention_bwd_dkv_launch(const void* q, const void* k,
                                           int window, float sm_scale,
                                           int dtype, void* stream) {
   Params p = make_params(q, k, v, dout, lse, delta, layout, ptr, idx, flags,
-                         order, H, S, fine, causal, window, sm_scale);
+                         order, H, S, D, fine, causal, window, sm_scale);
   p.dk = dk;
   p.dv = dv;
+  if (!supported(D, dtype)) return -1;
   if (S <= 0 || BH <= 0) return 0;
-  if (dtype != 0 && dtype != 1) return -1;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return dispatch([&](auto d) { return launch_dkv<decltype(d)::value>(p, BH, dtype, st); }, D);
+  return dispatch(
+      [&](auto d) { return launch_dkv<decltype(d)::value>(p, BH, dtype, st); },
+      D);
 }
 
 const char* block_sparse_attention_error_string(int err) {

@@ -8,6 +8,9 @@
 // [L, B, nh, max_len, hd] with a layer index); positions >= cur_len are
 // dead and never read.
 //
+// Any head dim hd % 8 == 0 up to 128, in f32, bf16 or fp16 (q, caches
+// and output alike).
+//
 // Bound: bytes. Each (b, h) reads the live K and V rows once and does
 // ~4 * T flops per element read; at the decode step's T = 1 that is far
 // below the card's flop/byte balance. The design therefore reads only the
@@ -18,27 +21,29 @@
 //
 // T = 1 (every decode step), decode_attention_1: the structure of
 // paged_attention.cu with a contiguous address in place of the block-table
-// lookup. A row of hd elements is split over TPT = hd / VEC threads (VEC =
-// 16 bytes of the cache type); the CTA's NTHREADS / TPT thread groups walk
-// the keys in chunks of TPG tokens per group. Per chunk: (1) each thread
-// issues all TPG of its K-row loads before using any and scores them
-// against the query (held in registers); (2) the chunk's max is reduced
-// over the thread's scores, the warp (shuffles) and the CTA's 4 warps
-// (shared memory), so every thread holds the same running max m; (3) each
-// thread turns its scores into p and the chunk's sum of p is reduced the
-// same way into the running sum l; (4) the V rows are loaded the same way
-// and each group accumulates p * v into its own f32 slice of the output,
+// lookup. A row of hd elements is split over TPT threads, the power of two
+// at or above hd / VEC (VEC = 16 bytes of the cache type; threads past the
+// row's last slice load nothing and add zeros); the CTA's NTHREADS / TPT
+// thread groups walk the keys in chunks of TPG tokens per group. Per chunk:
+// (1) each thread issues all TPG of its K-row loads before using any and
+// scores them against the query (held in registers); (2) the chunk's max is
+// reduced over the thread's scores, the warp (shuffles) and the CTA's 4
+// warps (shared memory), so every thread holds the same running max m; (3)
+// each thread turns its scores into p and the chunk's sum of p is reduced
+// the same way into the running sum l; (4) the V rows are loaded the same
+// way and each group accumulates p * v into its own f32 slice of the output,
 // rescaled by exp(m_old - m_new). At the end the groups' slices are summed
 // through shared memory and divided by l.
 //
-// 1 < T <= 64, decode_attention_multi: all T queries sit in shared memory
-// (f32) and the CTA walks the live keys in chunks of MC: (1) the chunk's K
-// and V rows are copied to shared memory (16 bytes per thread, coalesced;
-// rows past cur_len are zeros); (2) each thread scores one key of the
-// chunk against every other query (TPK threads per key); (3) one warp per
-// query row takes the chunk's max and sum of p (online softmax) and leaves
-// p, rounded to the cache dtype, in shared memory; (4) each thread owns
-// one output column of every (NTHREADS / hd)-th query and accumulates
+// 1 < T <= 64, decode_attention_multi (instantiated at a padded width HD of
+// 32, 64 or 128; columns past hd are zeros): all T queries sit in shared
+// memory (f32) and the CTA walks the live keys in chunks of MC: (1) the
+// chunk's K and V rows are copied to shared memory (16 bytes per thread,
+// coalesced; rows past cur_len are zeros); (2) each thread scores one key of
+// the chunk against every other query (TPK threads per key); (3) one warp
+// per query row takes the chunk's max and sum of p (online softmax) and
+// leaves p, rounded to the cache dtype, in shared memory; (4) each thread
+// owns one output column of every (NTHREADS / HD)-th query and accumulates
 // p * v in f32 registers. Every K/V chunk is scored against all T queries
 // while it is in shared memory, so no row is read twice.
 //
@@ -50,6 +55,7 @@
 // TPU kernel's masked keys before it contribute exp(-1e30 - m) = 0.
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -63,11 +69,22 @@ constexpr float NEG_INF = -1e30f;
 
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
+__device__ __forceinline__ float to_f(__half x) { return __half2float(x); }
 
 template <typename T> __device__ __forceinline__ T from_f(float x);
 template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
 template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
   return __float2bfloat16(x);
+}
+template <> __device__ __forceinline__ __half from_f<__half>(float x) {
+  return __float2half(x);
+}
+
+// threads per cache row: the power of two at or above hd / vec
+__host__ __device__ __forceinline__ int row_threads(int hd, int vec) {
+  int t = 1;
+  while (t * vec < hd) t <<= 1;
+  return t;
 }
 
 // round an f32 value to T and back (the TPU kernel's cast of p to v.dtype)
@@ -96,7 +113,7 @@ decode_attention_1(const T* __restrict__ q, const T* __restrict__ k_cache,
                    int window, float sm_scale, float softcap) {
   constexpr int VEC = 16 / sizeof(T);
   constexpr int NWARPS = NTHREADS / 32;
-  const int tpt = hd / VEC;                 // threads per row
+  const int tpt = row_threads(hd, VEC);     // threads per row
   const int ngroups = NTHREADS / tpt;
   const int chunk = ngroups * TPG;          // tokens per chunk
   extern __shared__ float smem[];
@@ -107,14 +124,16 @@ decode_attention_1(const T* __restrict__ q, const T* __restrict__ k_cache,
   const int h = blockIdx.x, b = blockIdx.y;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int grp = tid / tpt, g = tid % tpt; // token group, slice of hd
+  const bool in_row = g * VEC < hd;         // a slice past hd adds zeros
+  const int gs = in_row ? g * VEC : 0;      // ... and reads slice 0
   const int q_abs = cur_len - 1;            // the query's position
   const float slope = slopes ? slopes[h] : 0.f;
 
   float qv[VEC], acc[VEC];
-  const T* qp = q + ((size_t)b * nh + h) * hd + g * VEC;
+  const T* qp = q + ((size_t)b * nh + h) * hd + gs;
 #pragma unroll
   for (int i = 0; i < VEC; ++i) {
-    qv[i] = to_f(qp[i]);
+    qv[i] = in_row ? to_f(qp[i]) : 0.f;
     acc[i] = 0.f;
   }
   float m = NEG_INF, l = 0.f;
@@ -122,8 +141,8 @@ decode_attention_1(const T* __restrict__ q, const T* __restrict__ k_cache,
   // keys before the window are skipped (exact; see the note)
   const int start = window > 0 ? max(0, q_abs - window + 1) : 0;
   const size_t head_rows = (((size_t)layer * B + b) * nh + h) * max_len;
-  const T* kh = k_cache + head_rows * hd + g * VEC;
-  const T* vh = v_cache + head_rows * hd + g * VEC;
+  const T* kh = k_cache + head_rows * hd + gs;
+  const T* vh = v_cache + head_rows * hd + gs;
 
   for (int c0 = start; c0 < cur_len; c0 += chunk) {
     // (1) scores: every K-row load of the thread, then the math; the xor
@@ -203,8 +222,9 @@ decode_attention_1(const T* __restrict__ q, const T* __restrict__ k_cache,
   }
 
   // sum the groups' slices and normalize
+  if (in_row)
 #pragma unroll
-  for (int i = 0; i < VEC; ++i) red[grp * hd + g * VEC + i] = acc[i];
+    for (int i = 0; i < VEC; ++i) red[grp * hd + gs + i] = acc[i];
   __syncthreads();
   const float ls = l == 0.f ? 1.f : l;
   T* o = out + ((size_t)b * nh + h) * hd;
@@ -225,13 +245,14 @@ template <typename T, int HD> size_t multi_smem_bytes(int Tq) {
          2 * sizeof(T) * (size_t)MC * LD;
 }
 
-// T: query, cache and output dtype; HD: head dim (32, 64 or 128).
+// T: query, cache and output dtype; HD: the padded head dim (32, 64 or
+// 128) for the real hd <= HD.
 template <typename T, int HD>
 __global__ void __launch_bounds__(NTHREADS)
 decode_attention_multi(const T* __restrict__ q, const T* __restrict__ k_cache,
                        const T* __restrict__ v_cache,
                        const float* __restrict__ slopes, T* __restrict__ out,
-                       int B, int nh, int Tq, int max_len, int layer,
+                       int B, int nh, int Tq, int max_len, int hd, int layer,
                        int cur_len, int window, float sm_scale,
                        float softcap) {
   constexpr int VEC = 16 / sizeof(T);
@@ -259,8 +280,11 @@ decode_attention_multi(const T* __restrict__ q, const T* __restrict__ k_cache,
   const int kc = tid % MC, kt0 = tid / MC;
   const int od = tid % HD, ot0 = tid / HD;
 
-  const T* qb = q + ((size_t)b * nh + h) * Tq * HD;
-  for (int i = tid; i < Tq * HD; i += NTHREADS) qs[i] = to_f(qb[i]);
+  const T* qb = q + ((size_t)b * nh + h) * Tq * hd;
+  for (int i = tid; i < Tq * HD; i += NTHREADS) {
+    const int t = i / HD, d = i % HD;
+    qs[i] = d < hd ? to_f(qb[t * hd + d]) : 0.f;
+  }
   if (tid < MAX_T) {
     m_s[tid] = NEG_INF;
     l_s[tid] = 0.f;
@@ -272,19 +296,20 @@ decode_attention_multi(const T* __restrict__ q, const T* __restrict__ k_cache,
   // keys before every query's window are skipped (exact; see the note)
   const int start = window > 0 ? max(0, q_first - window + 1) : 0;
   const size_t head_rows = (((size_t)layer * B + b) * nh + h) * max_len;
-  const T* kh = k_cache + head_rows * HD;
-  const T* vh = v_cache + head_rows * HD;
+  const T* kh = k_cache + head_rows * hd;
+  const T* vh = v_cache + head_rows * hd;
 
   for (int c0 = start; c0 < cur_len; c0 += MC) {
     const int n = min(MC, cur_len - c0);    // the chunk's live keys
     __syncthreads();                        // the last chunk's rows are read
-    // (1) the chunk's K and V rows; rows past cur_len are zeros
+    // (1) the chunk's K and V rows; rows past cur_len and columns past hd
+    // are zeros
     for (int idx = tid; idx < MC * HD / VEC; idx += NTHREADS) {
       const int r = idx / (HD / VEC), c = (idx % (HD / VEC)) * VEC;
       uint4 kv = make_uint4(0u, 0u, 0u, 0u), vv = kv;
-      if (r < n) {
-        kv = *reinterpret_cast<const uint4*>(kh + (size_t)(c0 + r) * HD + c);
-        vv = *reinterpret_cast<const uint4*>(vh + (size_t)(c0 + r) * HD + c);
+      if (r < n && c < hd) {
+        kv = *reinterpret_cast<const uint4*>(kh + (size_t)(c0 + r) * hd + c);
+        vv = *reinterpret_cast<const uint4*>(vh + (size_t)(c0 + r) * hd + c);
       }
       *reinterpret_cast<uint4*>(ks + r * LD + c) = kv;
       *reinterpret_cast<uint4*>(vs + r * LD + c) = vv;
@@ -380,8 +405,9 @@ decode_attention_multi(const T* __restrict__ q, const T* __restrict__ k_cache,
     const int t = ot0 + j * TPO;
     if (t >= Tq) break;
     const float l = l_s[t];
-    out[(((size_t)b * nh + h) * Tq + t) * HD + od] =
-        from_f<T>(acc[j] / (l == 0.f ? 1.f : l));
+    if (od < hd)
+      out[(((size_t)b * nh + h) * Tq + t) * hd + od] =
+          from_f<T>(acc[j] / (l == 0.f ? 1.f : l));
   }
 }
 
@@ -391,7 +417,7 @@ int launch_1(const void* q, const void* k_cache, const void* v_cache,
              int hd, int layer, int cur_len, int window, float sm_scale,
              float softcap, cudaStream_t stream) {
   constexpr int VEC = 16 / sizeof(T);
-  const int ngroups = NTHREADS / (hd / VEC);
+  const int ngroups = NTHREADS / row_threads(hd, VEC);
   const size_t smem = sizeof(float) * ((size_t)2 * (NTHREADS / 32) +
                                        (size_t)ngroups * hd);
   decode_attention_1<T><<<dim3(nh, B), NTHREADS, smem, stream>>>(
@@ -404,7 +430,7 @@ int launch_1(const void* q, const void* k_cache, const void* v_cache,
 template <typename T, int HD>
 int launch_multi(const void* q, const void* k_cache, const void* v_cache,
                  const float* slopes, void* out, int B, int nh, int Tq,
-                 int max_len, int layer, int cur_len, int window,
+                 int max_len, int hd, int layer, int cur_len, int window,
                  float sm_scale, float softcap, cudaStream_t stream) {
   const size_t smem = multi_smem_bytes<T, HD>(Tq);
   if (smem > 48 * 1024) {                   // above 48 KB only by opt-in
@@ -416,7 +442,7 @@ int launch_multi(const void* q, const void* k_cache, const void* v_cache,
   decode_attention_multi<T, HD><<<dim3(nh, B), NTHREADS, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k_cache),
       static_cast<const T*>(v_cache), slopes, static_cast<T*>(out), B, nh, Tq,
-      max_len, layer, cur_len, window, sm_scale, softcap);
+      max_len, hd, layer, cur_len, window, sm_scale, softcap);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -429,10 +455,10 @@ int launch(const void* q, const void* k_cache, const void* v_cache,
     return launch_1<T>(q, k_cache, v_cache, slopes, out, B, nh, max_len, hd,
                        layer, cur_len, window, sm_scale, softcap, stream);
 #define DA_MULTI(HD)                                                         \
-  if (hd == HD)                                                              \
+  if (hd <= HD)                                                              \
     return launch_multi<T, HD>(q, k_cache, v_cache, slopes, out, B, nh, Tq,  \
-                               max_len, layer, cur_len, window, sm_scale,    \
-                               softcap, stream);
+                               max_len, hd, layer, cur_len, window,          \
+                               sm_scale, softcap, stream);
   DA_MULTI(32)
   DA_MULTI(64)
   DA_MULTI(128)
@@ -444,9 +470,10 @@ int launch(const void* q, const void* k_cache, const void* v_cache,
 
 extern "C" {
 
-// dtype: 0 = float32, 1 = bfloat16 (q, caches and output alike). Returns
-// the CUDA error of the launch (0 = launched); -1 for a dtype, head dim or
-// query count the kernel lacks (T > 1 takes head dims 32, 64 and 128).
+// dtype: 0 = float32, 1 = bfloat16, 2 = float16 (q, caches and output
+// alike); hd: a multiple of 8 up to 128. Returns the CUDA error of the
+// launch (0 = launched); -1 for a dtype, head dim or query count the
+// kernel lacks.
 int decode_attention_launch(const void* q, const void* k_cache,
                             const void* v_cache, const void* slopes, void* out,
                             int B, int nh, int Tq, int max_len, int hd,
@@ -454,7 +481,7 @@ int decode_attention_launch(const void* q, const void* k_cache,
                             float softcap, int dtype, void* stream) {
   const float* sl = static_cast<const float*>(slopes);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (Tq < 1 || Tq > MAX_T) return -1;
+  if (Tq < 1 || Tq > MAX_T || hd < 8 || hd > 128 || hd % 8) return -1;
   if (dtype == 0)
     return launch<float>(q, k_cache, v_cache, sl, out, B, nh, Tq, max_len, hd,
                          layer, cur_len, window, sm_scale, softcap, st);
@@ -462,6 +489,9 @@ int decode_attention_launch(const void* q, const void* k_cache,
     return launch<__nv_bfloat16>(q, k_cache, v_cache, sl, out, B, nh, Tq,
                                  max_len, hd, layer, cur_len, window,
                                  sm_scale, softcap, st);
+  if (dtype == 2)
+    return launch<__half>(q, k_cache, v_cache, sl, out, B, nh, Tq, max_len, hd,
+                          layer, cur_len, window, sm_scale, softcap, st);
   return -1;
 }
 

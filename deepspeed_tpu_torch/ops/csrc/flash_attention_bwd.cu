@@ -8,11 +8,13 @@
 // delta = rowsum(dO * O) [B*H, S] f32 (a plain torch op, as the JAX package
 // computes it outside its kernels). Outputs dq [B*H, S, D] (kernel
 // flash_bwd_dq) and dk, dv [B*H, Sk, D] (kernel flash_bwd_dkv), in the
-// inputs' dtype. The score pipeline is the forward's (csrc/
-// flash_attention_fwd.cu): causal masking with offset Sk - S, a key-padding
-// row [B, Sk] or (q, k) tiles per batch or per head (int32, nonzero =
-// attend), ALiBi slope * (k - q), a causal sliding window and the Gemma-2
-// softcap, whose derivative 1 - tanh^2 is threaded through dS.
+// inputs' dtype (f32, bf16 or fp16; any D % 8 == 0 up to 128, the 16-bit
+// kernels instantiated at a padded width, attention_tile.cuh). The score
+// pipeline is the forward's (csrc/flash_attention_fwd.cu): causal masking
+// with offset Sk - S, a key-padding row [B, Sk] or (q, k) tiles per batch
+// or per head (int32, nonzero = attend), ALiBi slope * (k - q), a causal
+// sliding window and the Gemma-2 softcap, whose derivative 1 - tanh^2 is
+// threaded through dS.
 //
 // Numerics follow the TPU kernels: f32 scores scaled by sm_scale,
 // p = exp(s - lse) with masked entries exactly 0 (always guarded, so a row
@@ -21,32 +23,51 @@
 // dtype before the products dV += P^T dO, dK += dS^T Q, dQ += dS K, which
 // sum in f32.
 //
-// Bound: operations at head_dim 64 and S = 1024 (a causal backward does
-// 5 products of D flops per live (q, k) pair against ~8 D bytes per row);
-// the design keeps every S x Sk intermediate in registers. bf16: one CTA of
-// 4 warps per 64 rows (queries for dq, keys for dkv); each warp owns 16
-// rows, keeps its rows' two A operands (Q and dO for dq, K and V for dkv)
-// in registers as mma.sync.m16n8k16 fragments and streams 64-row tiles of
-// the other side through a cp.async double buffer in shared memory (rows
-// padded by 8 elements for ldmatrix). dkv computes S^T = K Q^T directly, so
-// P^T and dS^T come out of the accumulators already in the A-operand
-// layout of dV and dK: no transpose through shared memory. The causal
-// triangle and the window skip whole tiles; without a mask, bias, window or
-// softcap only the tiles that cross the diagonal or a ragged edge run the
-// per-element mask (the forward's fast path). f32: CUDA-core FMAs, so f32
-// results stay f32 (no TF32): D / 32 threads per row, each owning 32 of its
-// row's dims, partial dot products meeting by shuffles.
+// Bound: operations at head_dim 64 and S = 1024 (a causal backward does 5
+// products of D flops per live (q, k) pair against ~8 D bytes per row); the
+// design keeps every S x Sk intermediate in registers. Two forms of each
+// kernel: the train path's call (16-bit, head dim 64, no mask, ALiBi, window
+// or softcap) runs on wgmma with TMA (the section "Hopper" below); every
+// other call runs the mma.sync form: one CTA of 4 warps per 64 rows (queries
+// for dq, keys for dkv); each warp owns 16 rows, keeps its rows' two A
+// operands (Q and dO for dq, K and V for dkv) in registers as
+// mma.sync.m16n8k16 fragments and streams 64-row tiles of the other side
+// through a cp.async double buffer in shared memory (rows padded by 8
+// elements for ldmatrix). dkv computes S^T = K Q^T directly, so P^T and dS^T
+// come out of the accumulators already in the A-operand layout of dV and dK:
+// no transpose through shared memory.
+//
+// What both forms' schedule does about the time (PERF.md, Findings, PR 6;
+// the block-sparse kernels of block_sparse_attention.cu proved both):
+// - Longest lists first. The grid is (b*h, rank): every head's longest
+//   causal list dispatches before any shorter one, so the last wave is
+//   short lists. dq ranks the query tiles from the last (it sees every
+//   key), dk/dv the key tiles from the first (every query sees it).
+// - Tiles are classified once: a tile wholly below the causal diagonal and
+//   inside the ragged edge runs no mask code at all; a diagonal or edge
+//   tile runs the positional mask in a pass of its own over the score
+//   fragments (mask_pos); a call with a mask, ALiBi, a window or a softcap
+//   is a compile-time variant (EXTRAS) whose pass runs the whole score
+//   pipeline on every tile and keeps the softcap's derivative beside the
+//   scores. The dS loop itself holds no mask code.
+// The causal triangle and the window skip whole tiles. f32: CUDA-core
+// FMAs, so f32 results stay f32 (no TF32): DP / 32 threads per row, each
+// owning 32 of its row's dims, partial dot products meeting by shuffles.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "attention_tile.cuh"
+
+#include <cuda.h>          // CUtensorMap; the encoder is fetched at run time
+
+#include <type_traits>
 
 namespace {
+
+using namespace tile;
 
 constexpr float NEG_INF = -1e30f;
 constexpr float LOG2E = 1.4426950408889634f;
 constexpr int NTHREADS = 128;
-constexpr int BR = 64;            // rows per bf16 CTA: 4 warps x 16
+constexpr int BR = 64;            // rows per 16-bit CTA: 4 warps x 16
 
 struct Params {
   const void* q;
@@ -61,13 +82,13 @@ struct Params {
   void* dq;
   void* dk;
   void* dv;
-  int H, S, Sk, causal, window, qkm_per_head;
+  int H, S, Sk, D, causal, window, qkm_per_head;
   float sm_scale, softcap;
 };
 
-// softcap, ALiBi and the masks on one scaled score (the TPU kernels' _scores
-// order): returns -1e30 for a masked entry and sets *dsoft to the softcap's
-// derivative (1 without one)
+// softcap, ALiBi and the masks on one scaled score (the TPU kernels'
+// _scores order): returns -1e30 for a masked entry and sets *dsoft to the
+// softcap's derivative (1 without one)
 __device__ __forceinline__ float score(const Params& p, float s, int b, int bh,
                                        int row, int key, float slope,
                                        float* dsoft) {
@@ -132,168 +153,65 @@ __device__ __forceinline__ void query_tiles(const Params& p, int k0,
   }
 }
 
-// ------------------------------------------------------------------ bf16
+// ------------------------------------------------------------ bf16, fp16
 
-__device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a,
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
-      "{%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 t = __floats2bfloat162_rn(lo, hi);   // .x = lo = low half
-  return *reinterpret_cast<uint32_t*>(&t);
-}
-
-// four 8x8 b16 matrices from shared memory (see flash_attention_fwd.cu):
-// without .trans lane l receives (row l/4, columns 2*(l%4) + {0, 1}) of
-// each; with .trans the transposed matrix
-__device__ __forceinline__ void ldsm_x4(uint32_t* r, const void* ptr) {
-  const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(ptr));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 "
-               "{%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(a));
-}
-
-__device__ __forceinline__ void ldsm_x4_trans(uint32_t* r, const void* ptr) {
-  const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(ptr));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 "
-               "{%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(a));
-}
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           int src_bytes) {
-  const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               :: "r"(a), "l"(src), "r"(src_bytes));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int N> __device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" :: "n"(N));
-}
-
-using bf16 = __nv_bfloat16;
-
-// A fragments of rows r0 / r1 (k columns kk*16 + cq, cq + 1 and + 8) of a
-// [n, D] bf16 matrix; rows past n read zeros
-template <int D>
-__device__ __forceinline__ void load_a(uint32_t (*f)[4], const bf16* base,
-                                       int r0, int r1, int n, int cq) {
+// -1e30 on the entries of a 16 x (8 * NJ) score tile (mma.sync layout: the
+// thread's rows a0 / a1, columns b0 + 8 j + cq + {0, 1}) that the causal
+// diagonal or the ragged edge masks. QMAJOR: rows are queries and columns
+// keys (dq); else rows are keys and columns queries (dk/dv, S^T)
+template <int NJ, bool QMAJOR>
+__device__ __forceinline__ void mask_pos(float (*s)[4], const Params& p,
+                                         int a0, int a1, int b0, int cq) {
+  const int offset = p.Sk - p.S;
 #pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
-    const int c = kk * 16 + cq;
-    f[kk][0] = r0 < n ? *reinterpret_cast<const uint32_t*>(base + (size_t)r0 * D + c) : 0u;
-    f[kk][1] = r1 < n ? *reinterpret_cast<const uint32_t*>(base + (size_t)r1 * D + c) : 0u;
-    f[kk][2] = r0 < n ? *reinterpret_cast<const uint32_t*>(base + (size_t)r0 * D + c + 8) : 0u;
-    f[kk][3] = r1 < n ? *reinterpret_cast<const uint32_t*>(base + (size_t)r1 * D + c + 8) : 0u;
-  }
-}
-
-// acc[j] (16 x 8 tile j of a 16 x N product) += A (fragments a) times the
-// transpose of the N rows at smem (N x D, padded row LD): the Q K^T
-// pattern. B fragment of k step kk = rows j*8 + lane/4, columns kk*16 +
-// cq (+ 8); one ldmatrix.x4 gives two k steps
-template <int D, int N, int LD>
-__device__ __forceinline__ void mma_abt(float (*acc)[4], const uint32_t (*a)[4],
-                                        const bf16* smem, int lane) {
+  for (int j = 0; j < NJ; ++j)
 #pragma unroll
-  for (int j = 0; j < N / 8; ++j) {
-    acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
-    const bf16* r = &smem[(j * 8 + (lane & 7)) * LD + (lane >> 3) * 8];
-#pragma unroll
-    for (int kk = 0; kk < D / 16; kk += 2) {
-      uint32_t b[4];
-      ldsm_x4(b, r + kk * 16);
-      mma_bf16(acc[j], a[kk], b[0], b[1]);
-      mma_bf16(acc[j], a[kk + 1], b[2], b[3]);
+    for (int c = 0; c < 4; ++c) {
+      const int a = c < 2 ? a0 : a1, bc = b0 + j * 8 + cq + (c & 1);
+      const int row = QMAJOR ? a : bc, key = QMAJOR ? bc : a;
+      const bool keep = key < p.Sk && row < p.S &&
+                        (!p.causal || key <= row + offset);
+      if (!keep) s[j][c] = NEG_INF;
     }
-  }
 }
 
-// out (16 x D) += X (16 x N, the f32 accumulator tiles x, rounded to bf16
-// and repacked as A fragments of 16 columns) times the N x D rows at smem:
-// the P V pattern. B fragment of column tile n = rows kk*16 + cq + {0, 1}
-// (+ 8), column n*8 + lane/4; one ldmatrix.x4.trans gives two column tiles
-template <int D, int N, int LD>
-__device__ __forceinline__ void mma_ab(float (*out)[4], const float (*x)[4],
-                                       const bf16* smem, int lane) {
-  const int v_row = (lane & 7) + ((lane >> 3) & 1) * 8, v_col = (lane >> 4) * 8;
+// the whole score pipeline (softcap, ALiBi, every mask) on a scaled score
+// tile of the same layout; dsoft gets each entry's softcap derivative
+template <int NJ, bool QMAJOR>
+__device__ __forceinline__ void extras_tile(float (*s)[4], float (*dsoft)[4],
+                                            const Params& p, int b, int bh,
+                                            int a0, int a1, int b0, int cq,
+                                            float slope) {
 #pragma unroll
-  for (int kk = 0; kk < N / 16; ++kk) {
-    uint32_t a[4];
-    a[0] = pack_bf16(x[2 * kk][0], x[2 * kk][1]);
-    a[1] = pack_bf16(x[2 * kk][2], x[2 * kk][3]);
-    a[2] = pack_bf16(x[2 * kk + 1][0], x[2 * kk + 1][1]);
-    a[3] = pack_bf16(x[2 * kk + 1][2], x[2 * kk + 1][3]);
-    const bf16* r = &smem[(kk * 16 + v_row) * LD + v_col];
+  for (int j = 0; j < NJ; ++j)
 #pragma unroll
-    for (int n = 0; n < D / 8; n += 2) {
-      uint32_t b[4];
-      ldsm_x4_trans(b, r + n * 8);
-      mma_bf16(out[n], a, b[0], b[1]);
-      mma_bf16(out[n + 1], a, b[2], b[3]);
+    for (int c = 0; c < 4; ++c) {
+      const int a = c < 2 ? a0 : a1, bc = b0 + j * 8 + cq + (c & 1);
+      s[j][c] = score(p, s[j][c], b, bh, QMAJOR ? a : bc, QMAJOR ? bc : a,
+                      slope, &dsoft[j][c]);
     }
-  }
 }
 
-// rows r0 / r1 of a 16 x D f32 accumulator to bf16 rows of [n, D]
-template <int D>
-__device__ __forceinline__ void store_rows(bf16* base, const float (*acc)[4],
-                                           int r0, int r1, int n, int cq) {
+template <int NJ>
+__device__ __forceinline__ void scale_tile(float (*s)[4], float scale) {
 #pragma unroll
-  for (int rr = 0; rr < 2; ++rr) {
-    const int row = rr ? r1 : r0;
-    if (row >= n) continue;
-    bf16* out = base + (size_t)row * D + cq;
+  for (int j = 0; j < NJ; ++j)
 #pragma unroll
-    for (int c = 0; c < D / 8; ++c)
-      *reinterpret_cast<__nv_bfloat162*>(out + c * 8) =
-          __floats2bfloat162_rn(acc[c][2 * rr], acc[c][2 * rr + 1]);
-  }
-}
-
-// two 64-row tiles (rows i0.. of a and b, [n, D] each) into the shared
-// stage at dst (a then b, rows padded to LD) by cp.async; rows past n
-// read zeros
-template <int D, int ROWS>
-__device__ __forceinline__ void load_pair(bf16* dst, const bf16* a,
-                                          const bf16* b, int i0, int n,
-                                          int tid) {
-  constexpr int LD = D + 8;
-  for (int idx = tid; idx < ROWS * D / 8; idx += NTHREADS) {
-    const int rr = idx / (D / 8), c = (idx % (D / 8)) * 8;
-    const int row = i0 + rr;
-    const bool live = row < n;
-    const size_t src = (size_t)(live ? row : 0) * D + c;
-    cp_async16(&dst[rr * LD + c], a + src, live ? 16 : 0);
-    cp_async16(&dst[ROWS * LD + rr * LD + c], b + src, live ? 16 : 0);
-  }
-  cp_async_commit();
-}
-
-template <int D> constexpr size_t bf16_smem_bytes(int rows) {
-  return 2 * 2 * rows * (D + 8) * sizeof(bf16);
+    for (int c = 0; c < 4; ++c) s[j][c] *= scale;
 }
 
 // dQ for 64 query rows: loop over the live key tiles of 64 with K and V
-// double-buffered in shared memory
-template <int D, bool EXTRAS>
+// double-buffered in shared memory. EXACT: D == DP, a compile-time width
+// (no column predicates, constant strides)
+template <typename T, int DP, bool EXTRAS, bool EXACT>
 __global__ void __launch_bounds__(NTHREADS)
-flash_bwd_dq_bf16(Params p) {
-  constexpr int BK = 64, LD = D + 8, TILE = BK * LD;
+flash_bwd_dq(Params p) {
+  constexpr int BK = 64, LD = DP + 8, TILE = BK * LD, NJ = BK / 8;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* sm = reinterpret_cast<bf16*>(smem_raw);
-  const int qt = gridDim.x - 1 - blockIdx.x;  // the longest causal rows first
-  const int bh = blockIdx.y, b = bh / p.H, h = bh % p.H;
+  T* sm = reinterpret_cast<T*>(smem_raw);
+  const int D = EXACT ? DP : p.D;
+  const int bh = blockIdx.x, b = bh / p.H, h = bh % p.H;
+  const int qt = gridDim.y - 1 - blockIdx.y;  // the last query tile sees most
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int q0 = qt * BR;
   const int r0 = q0 + warp * 16 + lane / 4, r1 = r0 + 8;
@@ -301,75 +219,83 @@ flash_bwd_dq_bf16(Params p) {
   const float slope = p.slopes ? p.slopes[h] : 0.f;
   const size_t qoff = (size_t)bh * p.S;
 
-  uint32_t qf[D / 16][4], df[D / 16][4];
-  load_a<D>(qf, static_cast<const bf16*>(p.q) + qoff * D, r0, r1, p.S, cq);
-  load_a<D>(df, static_cast<const bf16*>(p.dout) + qoff * D, r0, r1, p.S,
-            cq);
+  uint32_t qf[DP / 16][4], df[DP / 16][4];
+  load_a<T, DP>(qf, static_cast<const T*>(p.q) + qoff * D, r0, r1, p.S, D,
+                cq);
+  load_a<T, DP>(df, static_cast<const T*>(p.dout) + qoff * D, r0, r1, p.S, D,
+                cq);
   float lse[2], dlt[2];
   lse[0] = r0 < p.S ? p.lse[qoff + r0] : 0.f;
   lse[1] = r1 < p.S ? p.lse[qoff + r1] : 0.f;
   dlt[0] = r0 < p.S ? p.delta[qoff + r0] : 0.f;
   dlt[1] = r1 < p.S ? p.delta[qoff + r1] : 0.f;
-  float acc[D / 8][4];
+  float acc[DP / 8][4];
 #pragma unroll
-  for (int n = 0; n < D / 8; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+  for (int n = 0; n < DP / 8; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
 
   int lo, hi;
   key_tiles(p, q0, min(q0 + BR, p.S) - 1, BK, &lo, &hi);
-  const bf16* kb = static_cast<const bf16*>(p.k) + (size_t)bh * p.Sk * D;
-  const bf16* vb = static_cast<const bf16*>(p.v) + (size_t)bh * p.Sk * D;
-  if (lo < hi) load_pair<D, BK>(sm, kb, vb, lo * BK, p.Sk, tid);
+  const T* kb = static_cast<const T*>(p.k) + (size_t)bh * p.Sk * D;
+  const T* vb = static_cast<const T*>(p.v) + (size_t)bh * p.Sk * D;
+  if (lo < hi) {
+    load_pair<T, DP, BK, NTHREADS>(sm, kb, vb, lo * BK, p.Sk, D, tid);
+    cp_async_commit();
+  }
+  // the warp's rows start at q position warp_q0: a key tile needs the
+  // positional mask only if its last key lies past it (causal) or it runs
+  // past Sk; rows past S are never written
+  const int warp_q0 = q0 + warp * 16 + (p.Sk - p.S);
 
   for (int kt = lo; kt < hi; ++kt) {
     const int k0 = kt * BK, stage = (kt - lo) & 1;
     if (kt + 1 < hi) {
-      load_pair<D, BK>(sm + 2 * (stage ^ 1) * TILE, kb, vb, k0 + BK, p.Sk,
-                       tid);
+      load_pair<T, DP, BK, NTHREADS>(sm + 2 * (stage ^ 1) * TILE, kb, vb,
+                                     k0 + BK, p.Sk, D, tid);
+      cp_async_commit();
       cp_async_wait<1>();
     } else {
       cp_async_wait<0>();
     }
     __syncthreads();
-    const bf16* Ks = sm + 2 * stage * TILE;
-    const bf16* Vs = Ks + TILE;
-    float sf[BK / 8][4], dp[BK / 8][4];
-    mma_abt<D, BK, LD>(sf, qf, Ks, lane);       // S = Q K^T
-    mma_abt<D, BK, LD>(dp, df, Vs, lane);       // dP = dO V^T
-    // the warp's rows start at q position warp_q0: a tile needs the
-    // causal mask only if its last key lies past it, and the edge mask only
-    // if it runs past Sk (rows past S are never written)
-    const int warp_q0 = q0 + warp * 16 + (p.Sk - p.S);
-    const bool masked = EXTRAS || (p.causal && k0 + BK - 1 > warp_q0) ||
-                        k0 + BK > p.Sk;
+    const T* Ks = sm + 2 * stage * TILE;
+    const T* Vs = Ks + TILE;
+    float sf[NJ][4], dp[NJ][4], dsf[EXTRAS ? NJ : 1][4];
+    mma_abt<T, DP, BK, LD>(sf, qf, Ks, lane);   // S = Q K^T
+    mma_abt<T, DP, BK, LD>(dp, df, Vs, lane);   // dP = dO V^T
+    scale_tile<NJ>(sf, p.sm_scale);
+    if (EXTRAS)
+      extras_tile<NJ, true>(sf, dsf, p, b, bh, r0, r1, k0, cq, slope);
+    else if ((p.causal && k0 + BK - 1 > warp_q0) || k0 + BK > p.Sk)
+      mask_pos<NJ, true>(sf, p, r0, r1, k0, cq);
 #pragma unroll
-    for (int j = 0; j < BK / 8; ++j)
+    for (int j = 0; j < NJ; ++j)
 #pragma unroll
       for (int c = 0; c < 4; ++c) {
-        const int rr = c >> 1, row = rr ? r1 : r0;
-        const int key = k0 + j * 8 + cq + (c & 1);
-        float s = sf[j][c] * p.sm_scale, dsoft = 1.f;
-        if (masked) s = score(p, s, b, bh, row, key, slope, &dsoft);
-        const float pr = prob(s, lse[rr]);
-        sf[j][c] = pr * (dp[j][c] - dlt[rr]) * dsoft * p.sm_scale;   // dS
+        const int rr = c >> 1;
+        const float d = (dp[j][c] - dlt[rr]) * p.sm_scale;
+        sf[j][c] = prob(sf[j][c], lse[rr]) *
+                   (EXTRAS ? d * dsf[j][c] : d);                   // dS
       }
-    mma_ab<D, BK, LD>(acc, sf, Ks, lane);       // dQ += dS K
+    mma_ab<T, DP, BK, LD>(acc, sf, Ks, lane);   // dQ += dS K
     __syncthreads();                            // the stage is refilled next
   }
-  store_rows<D>(static_cast<bf16*>(p.dq) + qoff * D, acc, r0, r1, p.S, cq);
+  store_rows<T, DP>(static_cast<T*>(p.dq) + qoff * D, acc, r0, r1, p.S, D,
+                    cq);
 }
 
 // dK and dV for 64 key rows: loop over the query tiles of BQ that see them,
 // with Q and dO double-buffered in shared memory and each tile's lse and
 // delta beside them
-template <int D, int BQ, bool EXTRAS>
+template <typename T, int DP, int BQ, bool EXTRAS, bool EXACT>
 __global__ void __launch_bounds__(NTHREADS)
-flash_bwd_dkv_bf16(Params p) {
-  constexpr int LD = D + 8, TILE = BQ * LD;
+flash_bwd_dkv(Params p) {
+  constexpr int LD = DP + 8, TILE = BQ * LD, NJ = BQ / 8;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* sm = reinterpret_cast<bf16*>(smem_raw);
+  T* sm = reinterpret_cast<T*>(smem_raw);
   __shared__ float rows_s[2][2][BQ];           // [stage][lse, delta][query]
-  const int kt = gridDim.x - 1 - blockIdx.x;
-  const int bh = blockIdx.y, b = bh / p.H, h = bh % p.H;
+  const int D = EXACT ? DP : p.D;
+  const int bh = blockIdx.x, b = bh / p.H, h = bh % p.H;
+  const int kt = blockIdx.y;                   // key tile 0 sees most queries
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int k0 = kt * BR;
   const int r0 = k0 + warp * 16 + lane / 4, r1 = r0 + 8;
@@ -377,108 +303,112 @@ flash_bwd_dkv_bf16(Params p) {
   const float slope = p.slopes ? p.slopes[h] : 0.f;
   const size_t koff = (size_t)bh * p.Sk, qoff = (size_t)bh * p.S;
 
-  uint32_t kf[D / 16][4], vf[D / 16][4];
-  load_a<D>(kf, static_cast<const bf16*>(p.k) + koff * D, r0, r1, p.Sk, cq);
-  load_a<D>(vf, static_cast<const bf16*>(p.v) + koff * D, r0, r1, p.Sk, cq);
-  float dk[D / 8][4], dv[D / 8][4];
+  uint32_t kf[DP / 16][4], vf[DP / 16][4];
+  load_a<T, DP>(kf, static_cast<const T*>(p.k) + koff * D, r0, r1, p.Sk, D,
+                cq);
+  load_a<T, DP>(vf, static_cast<const T*>(p.v) + koff * D, r0, r1, p.Sk, D,
+                cq);
+  float dk[DP / 8][4], dv[DP / 8][4];
 #pragma unroll
-  for (int n = 0; n < D / 8; ++n)
+  for (int n = 0; n < DP / 8; ++n)
 #pragma unroll
     for (int c = 0; c < 4; ++c) dk[n][c] = dv[n][c] = 0.f;
 
   int lo, hi;
   query_tiles(p, k0, min(k0 + BR, p.Sk) - 1, BQ, &lo, &hi);
-  const bf16* qb = static_cast<const bf16*>(p.q) + qoff * D;
-  const bf16* db = static_cast<const bf16*>(p.dout) + qoff * D;
-  auto load_rows = [&](int q0, int stage) {   // lse and delta of the tile
+  const T* qb = static_cast<const T*>(p.q) + qoff * D;
+  const T* db = static_cast<const T*>(p.dout) + qoff * D;
+  auto load = [&](int q0, int stage) {         // Q, dO, lse and delta
     for (int i = tid; i < BQ; i += NTHREADS) {
       const bool live = q0 + i < p.S;
       rows_s[stage][0][i] = live ? p.lse[qoff + q0 + i] : 0.f;
       rows_s[stage][1][i] = live ? p.delta[qoff + q0 + i] : 0.f;
     }
+    load_pair<T, DP, BQ, NTHREADS>(sm + 2 * stage * TILE, qb, db, q0, p.S, D,
+                                   tid);
+    cp_async_commit();
   };
-  if (lo < hi) {
-    load_rows(lo * BQ, 0);
-    load_pair<D, BQ>(sm, qb, db, lo * BQ, p.S, tid);
-  }
+  if (lo < hi) load(lo * BQ, 0);
+  // the warp's keys end at warp_k1: a query tile needs the positional mask
+  // if that key lies past the tile's first query position (causal) or its
+  // queries run past S (they would add to dK, dV)
+  const int warp_k1 = k0 + warp * 16 + 15 - (p.Sk - p.S);
 
   for (int qt = lo; qt < hi; ++qt) {
     const int q0 = qt * BQ, stage = (qt - lo) & 1;
     if (qt + 1 < hi) {
-      load_rows(q0 + BQ, stage ^ 1);
-      load_pair<D, BQ>(sm + 2 * (stage ^ 1) * TILE, qb, db, q0 + BQ, p.S,
-                       tid);
+      load(q0 + BQ, stage ^ 1);
       cp_async_wait<1>();
     } else {
       cp_async_wait<0>();
     }
     __syncthreads();
-    const bf16* Qs = sm + 2 * stage * TILE;
-    const bf16* Ds = Qs + TILE;
+    const T* Qs = sm + 2 * stage * TILE;
+    const T* Ds = Qs + TILE;
     const float* lse = rows_s[stage][0];
     const float* dlt = rows_s[stage][1];
-    float st[BQ / 8][4], dpt[BQ / 8][4];
-    mma_abt<D, BQ, LD>(st, kf, Qs, lane);      // S^T = K Q^T
-    mma_abt<D, BQ, LD>(dpt, vf, Ds, lane);     // dP^T = V dO^T
-    // the warp's keys end at k0 + warp*16 + 15: a tile needs the causal
-    // mask only if that key lies past the tile's first query position, and
-    // the edge mask if its queries run past S (they would add to dK, dV)
-    const bool masked = EXTRAS ||
-                        (p.causal && k0 + warp * 16 + 15 > q0 + (p.Sk - p.S)) ||
-                        q0 + BQ > p.S || k0 + BR > p.Sk;
+    float st[NJ][4], dpt[NJ][4], dsf[EXTRAS ? NJ : 1][4];
+    mma_abt<T, DP, BQ, LD>(st, kf, Qs, lane);  // S^T = K Q^T
+    mma_abt<T, DP, BQ, LD>(dpt, vf, Ds, lane); // dP^T = V dO^T
+    scale_tile<NJ>(st, p.sm_scale);
+    if (EXTRAS)
+      extras_tile<NJ, false>(st, dsf, p, b, bh, r0, r1, q0, cq, slope);
+    else if ((p.causal && warp_k1 > q0) || q0 + BQ > p.S || k0 + BR > p.Sk)
+      mask_pos<NJ, false>(st, p, r0, r1, q0, cq);
 #pragma unroll
-    for (int j = 0; j < BQ / 8; ++j)
+    for (int j = 0; j < NJ; ++j)
 #pragma unroll
       for (int c = 0; c < 4; ++c) {
-        const int key = (c >> 1) ? r1 : r0;
         const int qi = j * 8 + cq + (c & 1);
-        float s = st[j][c] * p.sm_scale, dsoft = 1.f;
-        if (masked) s = score(p, s, b, bh, q0 + qi, key, slope, &dsoft);
-        const float pr = prob(s, lse[qi]);
-        st[j][c] = pr;                                               // P^T
-        dpt[j][c] = pr * (dpt[j][c] - dlt[qi]) * dsoft * p.sm_scale; // dS^T
+        const float pr = prob(st[j][c], lse[qi]);
+        const float d = (dpt[j][c] - dlt[qi]) * p.sm_scale;
+        st[j][c] = pr;                                             // P^T
+        dpt[j][c] = pr * (EXTRAS ? d * dsf[j][c] : d);             // dS^T
       }
-    mma_ab<D, BQ, LD>(dv, st, Ds, lane);       // dV += P^T dO
-    mma_ab<D, BQ, LD>(dk, dpt, Qs, lane);      // dK += dS^T Q
+    mma_ab<T, DP, BQ, LD>(dv, st, Ds, lane);   // dV += P^T dO
+    mma_ab<T, DP, BQ, LD>(dk, dpt, Qs, lane);  // dK += dS^T Q
     __syncthreads();                           // the stage is refilled next
   }
-  store_rows<D>(static_cast<bf16*>(p.dk) + koff * D, dk, r0, r1, p.Sk, cq);
-  store_rows<D>(static_cast<bf16*>(p.dv) + koff * D, dv, r0, r1, p.Sk, cq);
+  store_rows<T, DP>(static_cast<T*>(p.dk) + koff * D, dk, r0, r1, p.Sk, D,
+                    cq);
+  store_rows<T, DP>(static_cast<T*>(p.dv) + koff * D, dv, r0, r1, p.Sk, D,
+                    cq);
 }
 
 // ------------------------------------------------------------------- f32
 
-// TPR = D / 32 threads per row, each owning the float4 slices i*TPR + t
+// TPR = DP / 32 threads per row, each owning the float4 slices i*TPR + t
 // (i < 8) of its row: 32 dims, neighbouring threads on neighbouring
-// addresses
-template <int D>
+// addresses; columns past D are zeros
+template <int DP>
 __device__ __forceinline__ void load_row32(float* dst, const float* row,
-                                           int t) {
-  constexpr int TPR = D / 32;
+                                           int t, int D) {
+  constexpr int TPR = DP / 32;
 #pragma unroll
   for (int i = 0; i < 8; ++i) {
-    const float4 x = *reinterpret_cast<const float4*>(row + 4 * (i * TPR + t));
+    const float4 x = load_f4(row, 4 * (i * TPR + t), D);
     dst[4 * i] = x.x; dst[4 * i + 1] = x.y; dst[4 * i + 2] = x.z; dst[4 * i + 3] = x.w;
   }
 }
 
-template <int D>
+template <int DP>
 __device__ __forceinline__ void store_row32(float* row, const float* src,
-                                            int t) {
-  constexpr int TPR = D / 32;
+                                            int t, int D) {
+  constexpr int TPR = DP / 32;
 #pragma unroll
   for (int i = 0; i < 8; ++i)
-    *reinterpret_cast<float4*>(row + 4 * (i * TPR + t)) =
-        make_float4(src[4 * i], src[4 * i + 1], src[4 * i + 2], src[4 * i + 3]);
+    if (4 * (i * TPR + t) < D)
+      *reinterpret_cast<float4*>(row + 4 * (i * TPR + t)) =
+          make_float4(src[4 * i], src[4 * i + 1], src[4 * i + 2], src[4 * i + 3]);
 }
 
 // the dot products of this thread's slices with one shared row (a, b
 // against x, y), summed over the row's TPR threads
-template <int D>
+template <int DP>
 __device__ __forceinline__ void dot2(const float* a, const float* x,
                                      const float* b, const float* y, int t,
                                      float* ax, float* by) {
-  constexpr int TPR = D / 32;
+  constexpr int TPR = DP / 32;
   float s = 0.f, d = 0.f;
 #pragma unroll
   for (int i = 0; i < 8; ++i) {
@@ -499,10 +429,10 @@ __device__ __forceinline__ void dot2(const float* a, const float* x,
 }
 
 // acc += w * this thread's slices of the shared row x
-template <int D>
+template <int DP>
 __device__ __forceinline__ void axpy32(float* acc, float w, const float* x,
                                        int t) {
-  constexpr int TPR = D / 32;
+  constexpr int TPR = DP / 32;
 #pragma unroll
   for (int i = 0; i < 8; ++i) {
     const float4 u = *reinterpret_cast<const float4*>(x + 4 * (i * TPR + t));
@@ -513,41 +443,43 @@ __device__ __forceinline__ void axpy32(float* acc, float w, const float* x,
   }
 }
 
-// nrows rows of two [n, D] f32 matrices (from row i0) into shared tiles;
-// rows past n read zeros
-template <int D>
+// nrows rows of two [n, D] f32 matrices (from row i0) into shared tiles of
+// width DP; rows past n and columns past D read zeros
+template <int DP>
 __device__ __forceinline__ void load_f32_pair(float* da, float* db,
                                               const float* a, const float* b,
                                               int i0, int nrows, int n,
-                                              int tid) {
-  for (int idx = tid; idx < nrows * D / 4; idx += NTHREADS) {
-    const int rr = idx / (D / 4), c = (idx % (D / 4)) * 4;
+                                              int D, int tid) {
+  for (int idx = tid; idx < nrows * DP / 4; idx += NTHREADS) {
+    const int rr = idx / (DP / 4), c = (idx % (DP / 4)) * 4;
     float4 x = make_float4(0.f, 0.f, 0.f, 0.f), y = x;
     if (i0 + rr < n) {
-      x = *reinterpret_cast<const float4*>(a + (size_t)(i0 + rr) * D + c);
-      y = *reinterpret_cast<const float4*>(b + (size_t)(i0 + rr) * D + c);
+      x = load_f4(a + (size_t)(i0 + rr) * D, c, D);
+      y = load_f4(b + (size_t)(i0 + rr) * D, c, D);
     }
-    *reinterpret_cast<float4*>(&da[rr * D + c]) = x;
-    *reinterpret_cast<float4*>(&db[rr * D + c]) = y;
+    *reinterpret_cast<float4*>(&da[rr * DP + c]) = x;
+    *reinterpret_cast<float4*>(&db[rr * DP + c]) = y;
   }
 }
 
-template <int D>
+template <int DP>
 __global__ void __launch_bounds__(NTHREADS)
 flash_bwd_dq_f32(Params p) {
-  constexpr int TPR = D / 32, ROWS = NTHREADS / TPR, BK = 32;
-  __shared__ __align__(16) float Ks[BK * D];
-  __shared__ __align__(16) float Vs[BK * D];
-  const int qt = gridDim.x - 1 - blockIdx.x;
-  const int bh = blockIdx.y, b = bh / p.H, h = bh % p.H;
+  constexpr int TPR = DP / 32, ROWS = NTHREADS / TPR, BK = 32;
+  __shared__ __align__(16) float Ks[BK * DP];
+  __shared__ __align__(16) float Vs[BK * DP];
+  const int D = p.D;
+  const int bh = blockIdx.x, b = bh / p.H, h = bh % p.H;
+  const int qt = gridDim.y - 1 - blockIdx.y;
   const int tid = threadIdx.x, t = tid % TPR;
   const int q0 = qt * ROWS, row = q0 + tid / TPR;
   const float slope = p.slopes ? p.slopes[h] : 0.f;
   const size_t qoff = (size_t)bh * p.S, koff = (size_t)bh * p.Sk;
   const int rr = min(row, p.S - 1);
   float qv[32], dov[32], acc[32];
-  load_row32<D>(qv, static_cast<const float*>(p.q) + (qoff + rr) * D, t);
-  load_row32<D>(dov, static_cast<const float*>(p.dout) + (qoff + rr) * D, t);
+  load_row32<DP>(qv, static_cast<const float*>(p.q) + (qoff + rr) * D, t, D);
+  load_row32<DP>(dov, static_cast<const float*>(p.dout) + (qoff + rr) * D, t,
+                 D);
 #pragma unroll
   for (int i = 0; i < 32; ++i) acc[i] = 0.f;
   const float lse = p.lse[qoff + rr], dlt = p.delta[qoff + rr];
@@ -557,39 +489,40 @@ flash_bwd_dq_f32(Params p) {
   for (int kt = lo; kt < hi; ++kt) {
     const int k0 = kt * BK;
     __syncthreads();
-    load_f32_pair<D>(Ks, Vs, static_cast<const float*>(p.k) + koff * D,
-                     static_cast<const float*>(p.v) + koff * D, k0, BK, p.Sk,
-                     tid);
+    load_f32_pair<DP>(Ks, Vs, static_cast<const float*>(p.k) + koff * D,
+                      static_cast<const float*>(p.v) + koff * D, k0, BK, p.Sk,
+                      D, tid);
     __syncthreads();
     for (int kk = 0; kk < BK; ++kk) {
       float s, dp, dsoft;
-      dot2<D>(qv, &Ks[kk * D], dov, &Vs[kk * D], t, &s, &dp);
+      dot2<DP>(qv, &Ks[kk * DP], dov, &Vs[kk * DP], t, &s, &dp);
       s = score(p, s * p.sm_scale, b, bh, row, k0 + kk, slope, &dsoft);
       const float ds = prob(s, lse) * (dp - dlt) * dsoft * p.sm_scale;
-      axpy32<D>(acc, ds, &Ks[kk * D], t);
+      axpy32<DP>(acc, ds, &Ks[kk * DP], t);
     }
   }
   if (row < p.S)
-    store_row32<D>(static_cast<float*>(p.dq) + (qoff + row) * D, acc, t);
+    store_row32<DP>(static_cast<float*>(p.dq) + (qoff + row) * D, acc, t, D);
 }
 
-template <int D>
+template <int DP>
 __global__ void __launch_bounds__(NTHREADS)
 flash_bwd_dkv_f32(Params p) {
-  constexpr int TPR = D / 32, ROWS = NTHREADS / TPR, BQ = 32;
-  __shared__ __align__(16) float Qs[BQ * D];
-  __shared__ __align__(16) float Ds[BQ * D];
+  constexpr int TPR = DP / 32, ROWS = NTHREADS / TPR, BQ = 32;
+  __shared__ __align__(16) float Qs[BQ * DP];
+  __shared__ __align__(16) float Ds[BQ * DP];
   __shared__ float Ls[BQ], Es[BQ];
-  const int kt = gridDim.x - 1 - blockIdx.x;
-  const int bh = blockIdx.y, b = bh / p.H, h = bh % p.H;
+  const int D = p.D;
+  const int bh = blockIdx.x, b = bh / p.H, h = bh % p.H;
+  const int kt = blockIdx.y;
   const int tid = threadIdx.x, t = tid % TPR;
   const int k0 = kt * ROWS, key = k0 + tid / TPR;
   const float slope = p.slopes ? p.slopes[h] : 0.f;
   const size_t qoff = (size_t)bh * p.S, koff = (size_t)bh * p.Sk;
   const int kr = min(key, p.Sk - 1);
   float kv[32], vv[32], dk[32], dv[32];
-  load_row32<D>(kv, static_cast<const float*>(p.k) + (koff + kr) * D, t);
-  load_row32<D>(vv, static_cast<const float*>(p.v) + (koff + kr) * D, t);
+  load_row32<DP>(kv, static_cast<const float*>(p.k) + (koff + kr) * D, t, D);
+  load_row32<DP>(vv, static_cast<const float*>(p.v) + (koff + kr) * D, t, D);
 #pragma unroll
   for (int i = 0; i < 32; ++i) dk[i] = dv[i] = 0.f;
 
@@ -598,9 +531,9 @@ flash_bwd_dkv_f32(Params p) {
   for (int qt = lo; qt < hi; ++qt) {
     const int q0 = qt * BQ;
     __syncthreads();
-    load_f32_pair<D>(Qs, Ds, static_cast<const float*>(p.q) + qoff * D,
-                     static_cast<const float*>(p.dout) + qoff * D, q0, BQ,
-                     p.S, tid);
+    load_f32_pair<DP>(Qs, Ds, static_cast<const float*>(p.q) + qoff * D,
+                      static_cast<const float*>(p.dout) + qoff * D, q0, BQ,
+                      p.S, D, tid);
     for (int i = tid; i < BQ; i += NTHREADS) {
       const bool live = q0 + i < p.S;
       Ls[i] = live ? p.lse[qoff + q0 + i] : 0.f;
@@ -609,22 +542,488 @@ flash_bwd_dkv_f32(Params p) {
     __syncthreads();
     for (int qq = 0; qq < BQ; ++qq) {
       float s, dp, dsoft;
-      dot2<D>(kv, &Qs[qq * D], vv, &Ds[qq * D], t, &s, &dp);
+      dot2<DP>(kv, &Qs[qq * DP], vv, &Ds[qq * DP], t, &s, &dp);
       s = score(p, s * p.sm_scale, b, bh, q0 + qq, key, slope, &dsoft);
       const float pr = prob(s, Ls[qq]);
       const float ds = pr * (dp - Es[qq]) * dsoft * p.sm_scale;
-      axpy32<D>(dv, pr, &Ds[qq * D], t);
-      axpy32<D>(dk, ds, &Qs[qq * D], t);
+      axpy32<DP>(dv, pr, &Ds[qq * DP], t);
+      axpy32<DP>(dk, ds, &Qs[qq * DP], t);
     }
   }
   if (key < p.Sk) {
-    store_row32<D>(static_cast<float*>(p.dk) + (koff + key) * D, dk, t);
-    store_row32<D>(static_cast<float*>(p.dv) + (koff + key) * D, dv, t);
+    store_row32<DP>(static_cast<float*>(p.dk) + (koff + key) * D, dk, t, D);
+    store_row32<DP>(static_cast<float*>(p.dv) + (koff + key) * D, dv, t, D);
   }
+}
+
+// ------------------------------------------- Hopper: wgmma + TMA (D 64)
+
+// The train path's call (16-bit, head dim 64, no mask, ALiBi, window or
+// softcap) runs these two kernels; every other call the ones above. One
+// CTA is one consumer warpgroup (128 threads, 64 rows: keys for dk/dv,
+// queries for dq) and one producer warp. The producer streams the other
+// side's 64-row tiles (Q, dO and their lse and delta for dk/dv; K and V for
+// dq) by TMA into a ring of STAGES shared-memory slots, 128-byte swizzled,
+// and signals each slot through an mbarrier; the consumers free it through
+// another. The four products of a tile run as wgmma.m64n64k16: S and dP
+// with both operands in shared memory, then dV / dK (or dQ) with P and dS
+// as register A operands repacked from the accumulators (the mma.sync
+// layout within each warp) and the streamed tile as a transposed B.
+
+constexpr int WG = 128;                 // consumer threads
+constexpr int WG_THREADS = WG + 32;     // and the producer warp
+constexpr int STAGES = 2;
+constexpr int TILE_ELEMS = 64 * 64;     // one 64 x 64 16-bit tile, 8 KB
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
+               :: "r"(smem_u32(bar)), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, int bytes) {
+  asm volatile("mbarrier.expect_tx.shared::cta.b64 [%0], %1;\n"
+               :: "r"(smem_u32(bar)), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n"
+               :: "r"(smem_u32(bar)) : "memory");
+}
+
+// wait until the phase of parity `parity` has completed
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
+  uint32_t done;
+  do {
+    asm volatile("{\n.reg .pred p;\n"
+                 "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+                 "selp.u32 %0, 1, 0, p;\n}\n"
+                 : "=r"(done) : "r"(smem_u32(bar)), "r"(parity) : "memory");
+  } while (!done);
+}
+
+// one 64 x 64 tile (box {64 columns, 64 rows, 1}) at (row, bh) of a [BH,
+// rows, 64] tensor map into shared memory; rows past the end read zeros
+__device__ __forceinline__ void tma_tile(void* dst, const CUtensorMap* map,
+                                         uint64_t* bar, int row, int bh) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5}], [%2];\n"
+      :: "r"(smem_u32(dst)), "l"(map), "r"(smem_u32(bar)), "r"(0),
+         "r"(row), "r"(bh) : "memory");
+}
+
+// shared-memory matrix descriptor of a 128-byte-swizzled tile (the layout
+// TMA writes with CU_TENSOR_MAP_SWIZZLE_128B; tiles 1024-byte aligned):
+// sbo = 1024 bytes between 8-row groups along the strided dimension
+__device__ __forceinline__ uint64_t desc_sw128(const void* p) {
+  uint64_t d = (smem_u32(p) & 0x3FFFF) >> 4;
+  d |= uint64_t(1) << 16;                  // leading offset: unused here
+  d |= uint64_t(1024 >> 4) << 32;          // stride offset
+  d |= uint64_t(1) << 62;                  // 128-byte swizzle
+  return d;
+}
+
+__device__ __forceinline__ void wg_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wg_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wg_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+__device__ __forceinline__ void fence_acc(float (*d)[4]) {
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) asm volatile("" : "+f"(d[j][c]) :: "memory");
+}
+
+#define WG_D32(d)                                                            \
+  "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),                \
+  "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),                \
+  "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),                \
+  "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),                \
+  "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),                \
+  "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),                \
+  "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),                \
+  "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3])
+#define WG_R32                                                               \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "  \
+  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "   \
+  "%30, %31}"
+
+// d (64 x 64 f32, the mma.sync layout per warp: [8 column tiles][4]) =
+// (acc ? d : 0) + A B^T, A [64 rows, 16 k] and B [64 rows, 16 k] both
+// K-major in shared memory
+template <typename T>
+__device__ __forceinline__ void wgmma_ss(float (*d)[4], uint64_t a,
+                                         uint64_t b, int acc) {
+  if constexpr (std::is_same<T, bf16>::value) {
+    asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+                 "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+                 WG_R32 ", %32, %33, p, 1, 1, 0, 0;\n}\n"
+                 : WG_D32(d) : "l"(a), "l"(b), "r"(acc));
+  } else {
+    asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+                 "wgmma.mma_async.sync.aligned.m64n64k16.f32.f16.f16 "
+                 WG_R32 ", %32, %33, p, 1, 1, 0, 0;\n}\n"
+                 : WG_D32(d) : "l"(a), "l"(b), "r"(acc));
+  }
+}
+
+// d += A B, A [64 rows, 16 k] in registers (the mma.sync A fragment per
+// warp), B [16 k rows, 64 columns] row-major (MN-major) in shared memory
+template <typename T>
+__device__ __forceinline__ void wgmma_rs(float (*d)[4], const uint32_t* a,
+                                         uint64_t b) {
+  if constexpr (std::is_same<T, bf16>::value) {
+    asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+                 "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+                 WG_R32 ", {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+                 : WG_D32(d)
+                 : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b),
+                   "r"(1));
+  } else {
+    asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+                 "wgmma.mma_async.sync.aligned.m64n64k16.f32.f16.f16 "
+                 WG_R32 ", {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+                 : WG_D32(d)
+                 : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b),
+                   "r"(1));
+  }
+}
+
+// the A fragments of k step kk (16 columns) of a 64 x 64 f32 tile, rounded
+template <typename T>
+__device__ __forceinline__ void pack_a(uint32_t* a, const float (*x)[4],
+                                       int kk) {
+  a[0] = pack<T>(x[2 * kk][0], x[2 * kk][1]);
+  a[1] = pack<T>(x[2 * kk][2], x[2 * kk][3]);
+  a[2] = pack<T>(x[2 * kk + 1][0], x[2 * kk + 1][1]);
+  a[3] = pack<T>(x[2 * kk + 1][2], x[2 * kk + 1][3]);
+}
+
+// S = own A (K-major, shared) times the streamed tile B (K-major, shared):
+// four k steps of 16 over head dim 64
+template <typename T>
+__device__ __forceinline__ void product_ss(float (*d)[4], const T* a,
+                                           const T* b) {
+  const uint64_t da = desc_sw128(a), db = desc_sw128(b);
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)           // +32 bytes a k step
+    wgmma_ss<T>(d, da + 2 * kk, db + 2 * kk, kk > 0);
+}
+
+// d += X (64 x 64 f32 in registers, rounded to T) times the streamed tile
+// B (64 rows of k, MN-major): four k steps of 16 rows (2048 bytes each)
+template <typename T>
+__device__ __forceinline__ void product_rs(float (*d)[4], const float (*x)[4],
+                                           const T* b) {
+  const uint64_t db = desc_sw128(b);
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    uint32_t a[4];
+    pack_a<T>(a, x, kk);
+    wgmma_rs<T>(d, a, db + 128 * kk);
+  }
+}
+
+struct Maps {                           // [BH, rows, 64] tensor maps
+  CUtensorMap q, k, v, dout;
+};
+
+// shared memory of the wgmma kernels: two own tiles, STAGES slots of two
+// streamed tiles, STAGES slots of 64 lse and 64 delta, the barriers;
+// 1024 bytes of slack for the tiles' alignment
+constexpr size_t WG_SMEM = 1024 + sizeof(bf16) * TILE_ELEMS * (2 + 2 * STAGES)
+                           + sizeof(float) * 2 * 64 * STAGES
+                           + sizeof(uint64_t) * (2 * STAGES + 1);
+
+struct WgSmem {
+  unsigned char* own;                   // 2 tiles
+  unsigned char* ring;                  // STAGES x 2 tiles
+  float* rows;                          // STAGES x [lse 64, delta 64]
+  uint64_t* full;                       // STAGES
+  uint64_t* empty;                      // STAGES
+  uint64_t* own_bar;
+};
+
+__device__ __forceinline__ WgSmem wg_smem(unsigned char* raw) {
+  WgSmem s;
+  s.own = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(raw) + 1023) & ~uintptr_t(1023));
+  s.ring = s.own + 2 * TILE_ELEMS * 2;
+  s.rows = reinterpret_cast<float*>(s.ring + STAGES * 2 * TILE_ELEMS * 2);
+  s.full = reinterpret_cast<uint64_t*>(s.rows + 2 * 64 * STAGES);
+  s.empty = s.full + STAGES;
+  s.own_bar = s.empty + STAGES;
+  return s;
+}
+
+// the barriers: full (the producer warp's 32 lanes and the TMA bytes),
+// empty (the 128 consumers), own (the own tiles' bytes)
+__device__ __forceinline__ void wg_init(const WgSmem& s) {
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < STAGES; ++i) {
+      mbar_init(&s.full[i], 32);
+      mbar_init(&s.empty[i], WG);
+    }
+    mbar_init(s.own_bar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+}
+
+// dK and dV for 64 key rows (blockIdx.y: key tile 0, seen by the most
+// queries, first): the producer streams Q, dO, lse and delta of the query
+// tiles that see them
+template <typename T>
+__global__ void __launch_bounds__(WG_THREADS, 2)
+flash_bwd_dkv_wg(const __grid_constant__ Maps maps, Params p) {
+  extern __shared__ unsigned char smem_raw[];
+  const WgSmem s = wg_smem(smem_raw);
+  const int bh = blockIdx.x, k0 = blockIdx.y * 64;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  int lo, hi;
+  query_tiles(p, k0, min(k0 + 64, p.Sk) - 1, 64, &lo, &hi);
+  wg_init(s);
+  T* Ks = reinterpret_cast<T*>(s.own);
+  T* Vs = Ks + TILE_ELEMS;
+  if (warp == 4) {                        // the producer warp
+    if (lane == 0) {
+      asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+                   :: "r"(smem_u32(s.own_bar)), "r"(2 * TILE_ELEMS * 2)
+                   : "memory");
+      tma_tile(Ks, &maps.k, s.own_bar, k0, bh);
+      tma_tile(Vs, &maps.v, s.own_bar, k0, bh);
+    }
+    const size_t qoff = (size_t)bh * p.S;
+    for (int qt = lo; qt < hi; ++qt) {
+      const int i = qt - lo, st = i % STAGES, ph = (i / STAGES) & 1;
+      if (i >= STAGES) mbar_wait(&s.empty[st], ph ^ 1);
+      float* rows = s.rows + st * 128;
+      for (int j = lane; j < 64; j += 32) {
+        const int q = qt * 64 + j;
+        rows[j] = q < p.S ? p.lse[qoff + q] : 0.f;
+        rows[64 + j] = q < p.S ? p.delta[qoff + q] : 0.f;
+      }
+      if (lane == 0) {
+        T* slot = reinterpret_cast<T*>(s.ring) + st * 2 * TILE_ELEMS;
+        mbar_expect_tx(&s.full[st], 2 * TILE_ELEMS * 2);
+        tma_tile(slot, &maps.q, &s.full[st], qt * 64, bh);
+        tma_tile(slot + TILE_ELEMS, &maps.dout, &s.full[st], qt * 64, bh);
+      }
+      mbar_arrive(&s.full[st]);
+    }
+    return;
+  }
+  // the consumer warpgroup: rows k0 + 16 warp + lane / 4 (+ 8), columns
+  // (queries) 8 j + 2 (lane % 4) (+ 1) of each accumulator
+  const int r0 = k0 + warp * 16 + lane / 4, r1 = r0 + 8;
+  const int cq = (lane % 4) * 2;
+  const int warp_k1 = k0 + warp * 16 + 15 - (p.Sk - p.S);
+  float dk[8][4], dv[8][4];
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) dk[j][c] = dv[j][c] = 0.f;
+  mbar_wait(s.own_bar, 0);
+  for (int qt = lo; qt < hi; ++qt) {
+    const int i = qt - lo, st = i % STAGES, q0 = qt * 64;
+    mbar_wait(&s.full[st], (i / STAGES) & 1);
+    const T* Qs = reinterpret_cast<const T*>(s.ring) + st * 2 * TILE_ELEMS;
+    const T* Ds = Qs + TILE_ELEMS;
+    const float* lse = s.rows + st * 128;
+    const float* dlt = lse + 64;
+    float sf[8][4], dp[8][4];
+    fence_acc(dk);
+    fence_acc(dv);
+    wg_fence();
+    product_ss<T>(sf, Ks, Qs);            // S^T = K Q^T
+    product_ss<T>(dp, Vs, Ds);            // dP^T = V dO^T
+    wg_commit();
+    wg_wait();
+    fence_acc(sf);
+    fence_acc(dp);
+    scale_tile<8>(sf, p.sm_scale);
+    if ((p.causal && warp_k1 > q0) || q0 + 64 > p.S || k0 + 64 > p.Sk)
+      mask_pos<8, false>(sf, p, r0, r1, q0, cq);
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const int qi = j * 8 + cq + (c & 1);
+        const float pr = prob(sf[j][c], lse[qi]);
+        sf[j][c] = pr;                                          // P^T
+        dp[j][c] = pr * ((dp[j][c] - dlt[qi]) * p.sm_scale);    // dS^T
+      }
+    wg_fence();
+    product_rs<T>(dv, sf, Ds);            // dV += P^T dO
+    product_rs<T>(dk, dp, Qs);            // dK += dS^T Q
+    wg_commit();
+    wg_wait();
+    fence_acc(dk);
+    fence_acc(dv);
+    mbar_arrive(&s.empty[st]);
+  }
+  const size_t koff = (size_t)bh * p.Sk * 64;
+  store_rows<T, 64>(static_cast<T*>(p.dk) + koff, dk, r0, r1, p.Sk, 64, cq);
+  store_rows<T, 64>(static_cast<T*>(p.dv) + koff, dv, r0, r1, p.Sk, 64, cq);
+}
+
+// dQ for 64 query rows (blockIdx.y: the last query tile, which sees the
+// most keys, first): the producer streams the K and V tiles they see
+template <typename T>
+__global__ void __launch_bounds__(WG_THREADS, 2)
+flash_bwd_dq_wg(const __grid_constant__ Maps maps, Params p) {
+  extern __shared__ unsigned char smem_raw[];
+  const WgSmem s = wg_smem(smem_raw);
+  const int bh = blockIdx.x, q0 = (gridDim.y - 1 - blockIdx.y) * 64;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  int lo, hi;
+  key_tiles(p, q0, min(q0 + 64, p.S) - 1, 64, &lo, &hi);
+  wg_init(s);
+  T* Qs = reinterpret_cast<T*>(s.own);
+  T* Ds = Qs + TILE_ELEMS;
+  if (warp == 4) {                        // the producer warp
+    if (lane == 0) {
+      asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+                   :: "r"(smem_u32(s.own_bar)), "r"(2 * TILE_ELEMS * 2)
+                   : "memory");
+      tma_tile(Qs, &maps.q, s.own_bar, q0, bh);
+      tma_tile(Ds, &maps.dout, s.own_bar, q0, bh);
+    }
+    for (int kt = lo; kt < hi; ++kt) {
+      const int i = kt - lo, st = i % STAGES, ph = (i / STAGES) & 1;
+      if (i >= STAGES) mbar_wait(&s.empty[st], ph ^ 1);
+      if (lane == 0) {
+        T* slot = reinterpret_cast<T*>(s.ring) + st * 2 * TILE_ELEMS;
+        mbar_expect_tx(&s.full[st], 2 * TILE_ELEMS * 2);
+        tma_tile(slot, &maps.k, &s.full[st], kt * 64, bh);
+        tma_tile(slot + TILE_ELEMS, &maps.v, &s.full[st], kt * 64, bh);
+      }
+      mbar_arrive(&s.full[st]);
+    }
+    return;
+  }
+  const int r0 = q0 + warp * 16 + lane / 4, r1 = r0 + 8;
+  const int cq = (lane % 4) * 2;
+  const int warp_q0 = q0 + warp * 16 + (p.Sk - p.S);
+  const size_t qoff = (size_t)bh * p.S;
+  float lse[2], dlt[2];
+  lse[0] = r0 < p.S ? p.lse[qoff + r0] : 0.f;
+  lse[1] = r1 < p.S ? p.lse[qoff + r1] : 0.f;
+  dlt[0] = r0 < p.S ? p.delta[qoff + r0] : 0.f;
+  dlt[1] = r1 < p.S ? p.delta[qoff + r1] : 0.f;
+  float acc[8][4];
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) acc[j][c] = 0.f;
+  mbar_wait(s.own_bar, 0);
+  for (int kt = lo; kt < hi; ++kt) {
+    const int i = kt - lo, st = i % STAGES, k0 = kt * 64;
+    mbar_wait(&s.full[st], (i / STAGES) & 1);
+    const T* Ks = reinterpret_cast<const T*>(s.ring) + st * 2 * TILE_ELEMS;
+    const T* Vs = Ks + TILE_ELEMS;
+    float sf[8][4], dp[8][4];
+    fence_acc(acc);
+    wg_fence();
+    product_ss<T>(sf, Qs, Ks);            // S = Q K^T
+    product_ss<T>(dp, Ds, Vs);            // dP = dO V^T
+    wg_commit();
+    wg_wait();
+    fence_acc(sf);
+    fence_acc(dp);
+    scale_tile<8>(sf, p.sm_scale);
+    if ((p.causal && k0 + 63 > warp_q0) || k0 + 64 > p.Sk)
+      mask_pos<8, true>(sf, p, r0, r1, k0, cq);
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const int rr = c >> 1;
+        sf[j][c] = prob(sf[j][c], lse[rr]) *
+                   ((dp[j][c] - dlt[rr]) * p.sm_scale);        // dS
+      }
+    wg_fence();
+    product_rs<T>(acc, sf, Ks);           // dQ += dS K
+    wg_commit();
+    wg_wait();
+    fence_acc(acc);
+    mbar_arrive(&s.empty[st]);
+  }
+  store_rows<T, 64>(static_cast<T*>(p.dq) + qoff * 64, acc, r0, r1, p.S, 64,
+                    cq);
+}
+
+// cuTensorMapEncodeTiled, fetched from the driver at first use (no link
+// against libcuda)
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                 void*, const cuuint64_t*, const cuuint64_t*,
+                                 const cuuint32_t*, const cuuint32_t*,
+                                 CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (!fn) {
+    void* ptr = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &ptr,
+                                cudaEnableDefault, &found) == cudaSuccess &&
+        found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(ptr);
+  }
+  return fn;
+}
+
+// a [BH, rows, 64] 16-bit tensor in boxes of 64 x 64, 128-byte swizzled
+bool tile_map(CUtensorMap* m, const void* base, bool bf, int rows, int BH) {
+  const EncodeTiled fn = encode_tiled();
+  if (!fn) return false;
+  const cuuint64_t dims[3] = {64, (cuuint64_t)rows, (cuuint64_t)BH};
+  const cuuint64_t strides[2] = {64 * 2, (cuuint64_t)rows * 64 * 2};
+  const cuuint32_t box[3] = {64, 64, 1};
+  const cuuint32_t unit[3] = {1, 1, 1};
+  return fn(m, bf ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
+                  : CU_TENSOR_MAP_DATA_TYPE_FLOAT16,
+            3, const_cast<void*>(base), dims, strides, box, unit,
+            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+constexpr int ERR_TENSOR_MAP = -2;
+
+template <typename T>
+int launch_wg(const Params& p, int BH, bool dkv, cudaStream_t st) {
+  const bool bf = std::is_same<T, bf16>::value;
+  Maps maps;
+  if (!tile_map(&maps.q, p.q, bf, p.S, BH) ||
+      !tile_map(&maps.k, p.k, bf, p.Sk, BH) ||
+      !tile_map(&maps.v, p.v, bf, p.Sk, BH) ||
+      !tile_map(&maps.dout, p.dout, bf, p.S, BH))
+    return ERR_TENSOR_MAP;
+  auto kernel = dkv ? flash_bwd_dkv_wg<T> : flash_bwd_dq_wg<T>;
+  const cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)WG_SMEM);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const dim3 grid(BH, ((dkv ? p.Sk : p.S) + 63) / 64);
+  kernel<<<grid, WG_THREADS, WG_SMEM, st>>>(maps, p);
+  return static_cast<int>(cudaGetLastError());
 }
 
 // ---------------------------------------------------------------- launch
 
+// grid (b*h, tiles of rows_per_cta over n): blockIdx.y is the rank that
+// each kernel maps to a tile, longest list first
 template <typename KernelFn>
 int launch(KernelFn kernel, const Params& p, int rows_per_cta, int n, int BH,
            cudaStream_t stream, size_t smem = 0) {
@@ -634,39 +1033,102 @@ int launch(KernelFn kernel, const Params& p, int rows_per_cta, int n, int BH,
         static_cast<int>(smem));
     if (e != cudaSuccess) return static_cast<int>(e);
   }
-  dim3 grid((n + rows_per_cta - 1) / rows_per_cta, BH);
+  dim3 grid(BH, (n + rows_per_cta - 1) / rows_per_cta);
   kernel<<<grid, NTHREADS, smem, stream>>>(p);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int D>
-int launch_dq(const Params& p, int BH, int dtype, bool extras,
-              cudaStream_t st) {
-  if (dtype == 0) return launch(flash_bwd_dq_f32<D>, p, NTHREADS / (D / 32),
-                                p.S, BH, st);
-  const size_t smem = bf16_smem_bytes<D>(64);
-  return extras ? launch(flash_bwd_dq_bf16<D, true>, p, BR, p.S, BH, st, smem)
-                : launch(flash_bwd_dq_bf16<D, false>, p, BR, p.S, BH, st, smem);
+// f32 rows are spread over DP / 32 threads: widths 32, 64 and 128
+constexpr int f32_dim(int d) { return d <= 32 ? 32 : d <= 64 ? 64 : 128; }
+
+// the (EXTRAS, EXACT) variant of a 16-bit kernel: go(extras, exact) with
+// both as std::integral_constant. D 64 without extras runs the wgmma
+// kernels (dispatch), so that exact variant is compiled only at the other
+// widths
+template <int DP, typename F>
+int variant(const Params& p, bool extras, F&& go) {
+  using Y = std::true_type;
+  using N = std::false_type;
+  if (extras) return p.D == DP ? go(Y(), Y()) : go(Y(), N());
+  if constexpr (DP != 64) {
+    if (p.D == DP) return go(N(), Y());
+  }
+  return go(N(), N());
 }
 
-template <int D>
+template <typename T, int DP>
+int launch_dq_mma(const Params& p, int BH, bool extras, cudaStream_t st) {
+  constexpr size_t smem = pair_smem_bytes<T, DP>(64);
+  return variant<DP>(p, extras, [&](auto x, auto e) {
+    return launch(flash_bwd_dq<T, DP, decltype(x)::value, decltype(e)::value>,
+                  p, BR, p.S, BH, st, smem);
+  });
+}
+
+template <typename T, int DP>
+int launch_dkv_mma(const Params& p, int BH, bool extras, cudaStream_t st) {
+  // query tiles of 32 above head_dim 64 keep dK, dV, K, V and the score
+  // tiles within the register file
+  constexpr int BQ = DP > 64 ? 32 : 64;
+  constexpr size_t smem = pair_smem_bytes<T, DP>(BQ);
+  return variant<DP>(p, extras, [&](auto x, auto e) {
+    return launch(
+        flash_bwd_dkv<T, DP, BQ, decltype(x)::value, decltype(e)::value>, p,
+        BR, p.Sk, BH, st, smem);
+  });
+}
+
+template <int DP>
+int launch_dq(const Params& p, int BH, int dtype, bool extras,
+              cudaStream_t st) {
+  if (dtype == 1) return launch_dq_mma<bf16, DP>(p, BH, extras, st);
+  return launch_dq_mma<f16, DP>(p, BH, extras, st);
+}
+
+template <int DP>
 int launch_dkv(const Params& p, int BH, int dtype, bool extras,
                cudaStream_t st) {
-  if (dtype == 0) return launch(flash_bwd_dkv_f32<D>, p, NTHREADS / (D / 32),
-                                p.Sk, BH, st);
-  // query tiles of 32 at head_dim 128 keep dK, dV, K, V and the score
-  // tiles within the register file
-  constexpr int BQ = D > 64 ? 32 : 64;
-  const size_t smem = bf16_smem_bytes<D>(BQ);
-  return extras
-      ? launch(flash_bwd_dkv_bf16<D, BQ, true>, p, BR, p.Sk, BH, st, smem)
-      : launch(flash_bwd_dkv_bf16<D, BQ, false>, p, BR, p.Sk, BH, st, smem);
+  if (dtype == 1) return launch_dkv_mma<bf16, DP>(p, BH, extras, st);
+  return launch_dkv_mma<f16, DP>(p, BH, extras, st);
+}
+
+template <int DP>
+int launch_f32(const Params& p, int BH, bool dkv, cudaStream_t st) {
+  constexpr int rows = NTHREADS / (DP / 32);
+  return dkv ? launch(flash_bwd_dkv_f32<DP>, p, rows, p.Sk, BH, st)
+             : launch(flash_bwd_dq_f32<DP>, p, rows, p.S, BH, st);
+}
+
+// one entry point for both kernels: dkv selects dk/dv
+int dispatch(const Params& p, int BH, int dtype, bool dkv, cudaStream_t st) {
+  const bool extras = p.kvm || p.qkm || p.slopes || p.window > 0 ||
+                      p.softcap > 0.f;
+  if (dtype == 0) {
+    switch (f32_dim(p.D)) {
+      case 32: return launch_f32<32>(p, BH, dkv, st);
+      case 64: return launch_f32<64>(p, BH, dkv, st);
+      default: return launch_f32<128>(p, BH, dkv, st);
+    }
+  }
+  if (p.D == 64 && !extras)               // the train path: wgmma + TMA
+    return dtype == 1 ? launch_wg<bf16>(p, BH, dkv, st)
+                      : launch_wg<f16>(p, BH, dkv, st);
+  switch (pad_dim(p.D)) {
+    case 32: return dkv ? launch_dkv<32>(p, BH, dtype, extras, st)
+                        : launch_dq<32>(p, BH, dtype, extras, st);
+    case 64: return dkv ? launch_dkv<64>(p, BH, dtype, extras, st)
+                        : launch_dq<64>(p, BH, dtype, extras, st);
+    case 96: return dkv ? launch_dkv<96>(p, BH, dtype, extras, st)
+                        : launch_dq<96>(p, BH, dtype, extras, st);
+    default: return dkv ? launch_dkv<128>(p, BH, dtype, extras, st)
+                        : launch_dq<128>(p, BH, dtype, extras, st);
+  }
 }
 
 Params make_params(const void* q, const void* k, const void* v,
                    const void* dout, const void* lse, const void* delta,
                    const void* kvm, const void* qkm, const void* slopes,
-                   void* dq, void* dk, void* dv, int H, int S, int Sk,
+                   void* dq, void* dk, void* dv, int H, int S, int Sk, int D,
                    int causal, int window, int qkm_per_head, float sm_scale,
                    float softcap) {
   Params p;
@@ -677,19 +1139,24 @@ Params make_params(const void* q, const void* k, const void* v,
   p.qkm = static_cast<const int*>(qkm);
   p.slopes = static_cast<const float*>(slopes);
   p.dq = dq; p.dk = dk; p.dv = dv;
-  p.H = H; p.S = S; p.Sk = Sk; p.causal = causal; p.window = window;
+  p.H = H; p.S = S; p.Sk = Sk; p.D = D; p.causal = causal; p.window = window;
   p.qkm_per_head = qkm_per_head;
   p.sm_scale = sm_scale; p.softcap = softcap;
   return p;
+}
+
+bool supported(int D, int dtype) {
+  return dtype >= 0 && dtype <= 2 && D >= 8 && D <= 128 && D % 8 == 0;
 }
 
 }  // namespace
 
 extern "C" {
 
-// dtype: 0 = float32, 1 = bfloat16 (q, k, v, dout and the outputs alike).
-// D: 32, 64 or 128. Each returns the CUDA error of its launch (0 =
-// launched); -1 for a dtype or head dim the kernels lack.
+// dtype: 0 = float32, 1 = bfloat16, 2 = float16 (q, k, v, dout and the
+// outputs alike). D: any multiple of 8 up to 128. Each returns the CUDA
+// error of its launch (0 = launched); -1 for a dtype or head dim the
+// kernels lack.
 int flash_attention_bwd_dq_launch(const void* q, const void* k, const void* v,
                                   const void* dout, const void* lse,
                                   const void* delta, const void* kvm,
@@ -699,16 +1166,11 @@ int flash_attention_bwd_dq_launch(const void* q, const void* k, const void* v,
                                   int qkm_per_head, float sm_scale,
                                   float softcap, int dtype, void* stream) {
   const Params p = make_params(q, k, v, dout, lse, delta, kvm, qkm, slopes,
-                               dq, nullptr, nullptr, H, S, Sk, causal, window,
-                               qkm_per_head, sm_scale, softcap);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
+                               dq, nullptr, nullptr, H, S, Sk, D, causal,
+                               window, qkm_per_head, sm_scale, softcap);
+  if (!supported(D, dtype)) return -1;
   if (S <= 0 || BH <= 0) return 0;
-  if (dtype != 0 && dtype != 1) return -1;
-  const bool extras = kvm || qkm || slopes || window > 0 || softcap > 0.f;
-  if (D == 32) return launch_dq<32>(p, BH, dtype, extras, st);
-  if (D == 64) return launch_dq<64>(p, BH, dtype, extras, st);
-  if (D == 128) return launch_dq<128>(p, BH, dtype, extras, st);
-  return -1;
+  return dispatch(p, BH, dtype, false, static_cast<cudaStream_t>(stream));
 }
 
 int flash_attention_bwd_dkv_launch(const void* q, const void* k,
@@ -721,19 +1183,15 @@ int flash_attention_bwd_dkv_launch(const void* q, const void* k,
                                    float sm_scale, float softcap, int dtype,
                                    void* stream) {
   const Params p = make_params(q, k, v, dout, lse, delta, kvm, qkm, slopes,
-                               nullptr, dk, dv, H, S, Sk, causal, window,
+                               nullptr, dk, dv, H, S, Sk, D, causal, window,
                                qkm_per_head, sm_scale, softcap);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (!supported(D, dtype)) return -1;
   if (Sk <= 0 || BH <= 0) return 0;
-  if (dtype != 0 && dtype != 1) return -1;
-  const bool extras = kvm || qkm || slopes || window > 0 || softcap > 0.f;
-  if (D == 32) return launch_dkv<32>(p, BH, dtype, extras, st);
-  if (D == 64) return launch_dkv<64>(p, BH, dtype, extras, st);
-  if (D == 128) return launch_dkv<128>(p, BH, dtype, extras, st);
-  return -1;
+  return dispatch(p, BH, dtype, true, static_cast<cudaStream_t>(stream));
 }
 
 const char* flash_attention_bwd_error_string(int err) {
+  if (err == ERR_TENSOR_MAP) return "TMA tensor map encoding failed";
   return err < 0 ? "unsupported dtype or head dim"
                  : cudaGetErrorString(static_cast<cudaError_t>(err));
 }

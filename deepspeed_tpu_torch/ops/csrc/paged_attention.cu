@@ -6,6 +6,9 @@
 // of fixed-size blocks shared by all sequences; the lane's block table
 // maps logical block j to a physical pool block.
 //
+// Any head dim hd % 8 == 0 up to 128; q in f32, bf16 or fp16, the pool in
+// q's dtype or int8 with one f32 scale per slot.
+//
 // Bound: bytes. Each (b, h) reads ctx * hd K and V elements (plus one f32
 // scale per row in the int8 tier) and does ~4 flops per element read, far
 // below the card's flop/byte balance. The design therefore reads each
@@ -14,9 +17,11 @@
 // sliding window, only the rows inside it).
 //
 // Layout: one CTA per (h, b) with NTHREADS threads. A row of hd elements
-// is split over TPT = hd / VEC threads (VEC = 16 bytes of the pool type);
-// the CTA's NTHREADS / TPT thread groups walk the context in chunks of
-// TPG tokens per group. Per chunk: (1) each thread reads its tokens'
+// is split over TPT threads, the power of two at or above hd / VEC (VEC =
+// 16 bytes of the pool type, or 8 bytes of an int8 row whose hd is not a
+// multiple of 16; threads past the row's last slice load nothing and add
+// zeros); the CTA's NTHREADS / TPT thread groups walk the context in
+// chunks of TPG tokens per group. Per chunk: (1) each thread reads its tokens'
 // block-table entries, then issues all TPG of its K-row loads before
 // using any, and the groups write the chunk's scores to shared memory;
 // (2) every thread reads them to update the running max m and sum l (the
@@ -34,6 +39,7 @@
 // the query dtype, and a lane with ctx == 0 (or l == 0) writes zeros.
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -45,6 +51,7 @@ constexpr float NEG_INF = -1e30f;
 
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
+__device__ __forceinline__ float to_f(__half x) { return __half2float(x); }
 __device__ __forceinline__ float to_f(int8_t x) { return static_cast<float>(x); }
 
 template <typename T> __device__ __forceinline__ T from_f(float x);
@@ -52,14 +59,30 @@ template <> __device__ __forceinline__ float from_f<float>(float x) { return x; 
 template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
   return __float2bfloat16(x);
 }
+template <> __device__ __forceinline__ __half from_f<__half>(float x) {
+  return __float2half(x);
+}
+
+// threads per pool row: the power of two at or above hd / vec
+__host__ __device__ __forceinline__ int row_threads(int hd, int vec) {
+  int t = 1;
+  while (t * vec < hd) t <<= 1;
+  return t;
+}
+
+// one thread's VEC pool elements in one load: 16 or 8 bytes
+template <int BYTES> struct Raw;
+template <> struct Raw<16> { using type = uint4; };
+template <> struct Raw<8> { using type = uint2; };
 
 // round an f32 value to T and back (the TPU kernel's casts to q.dtype)
 template <typename T> __device__ __forceinline__ float round_to(float x) {
   return to_f(from_f<T>(x));
 }
 
-// T: query / output dtype; P: pool dtype (T, or int8 with f32 row scales)
-template <typename T, typename P>
+// T: query / output dtype; P: pool dtype (T, or int8 with f32 row scales);
+// VEC: pool elements a thread loads at once
+template <typename T, typename P, int VEC>
 __global__ void __launch_bounds__(NTHREADS)
 paged_attention_kernel(const T* __restrict__ q, const P* __restrict__ k_pool,
                        const P* __restrict__ v_pool,
@@ -70,9 +93,9 @@ paged_attention_kernel(const T* __restrict__ q, const P* __restrict__ k_pool,
                        const float* __restrict__ slopes, T* __restrict__ out,
                        int nh, int nblk, int bs, int hd, int nbk, int layer,
                        int window, float sm_scale, float softcap) {
-  constexpr int VEC = 16 / sizeof(P);
+  using R = typename Raw<VEC * sizeof(P)>::type;
   constexpr bool QUANT = sizeof(P) == 1;
-  const int tpt = hd / VEC;                 // threads per row
+  const int tpt = row_threads(hd, VEC);     // threads per row
   const int ngroups = NTHREADS / tpt;
   const int chunk = ngroups * TPG;          // tokens per chunk
   extern __shared__ float smem[];
@@ -81,6 +104,8 @@ paged_attention_kernel(const T* __restrict__ q, const P* __restrict__ k_pool,
 
   const int h = blockIdx.x, b = blockIdx.y, tid = threadIdx.x;
   const int grp = tid / tpt, g = tid % tpt; // token group, slice of hd
+  const bool in_row = g * VEC < hd;         // a slice past hd adds zeros
+  const int gs = in_row ? g * VEC : 0;      // ... and reads slice 0
   const int ctx = context_lens[b];
   T* o = out + ((size_t)b * nh + h) * hd;
 
@@ -92,9 +117,9 @@ paged_attention_kernel(const T* __restrict__ q, const P* __restrict__ k_pool,
   const float slope = slopes ? slopes[h] : 0.f;
 
   float qv[VEC];
-  const T* qp = q + ((size_t)b * nh + h) * hd + g * VEC;
+  const T* qp = q + ((size_t)b * nh + h) * hd + gs;
 #pragma unroll
-  for (int i = 0; i < VEC; ++i) qv[i] = to_f(qp[i]);
+  for (int i = 0; i < VEC; ++i) qv[i] = in_row ? to_f(qp[i]) : 0.f;
 
   float acc[VEC];
 #pragma unroll
@@ -106,8 +131,8 @@ paged_attention_kernel(const T* __restrict__ q, const P* __restrict__ k_pool,
   // starting at the first key inside the window changes nothing
   const int start = window > 0 ? max(0, q_abs - window + 1) : 0;
   const size_t head_rows = ((size_t)layer * nh + h) * nblk * bs;
-  const P* kh = k_pool + head_rows * hd + g * VEC;
-  const P* vh = v_pool + head_rows * hd + g * VEC;
+  const P* kh = k_pool + head_rows * hd + gs;
+  const P* vh = v_pool + head_rows * hd + gs;
   const float* ksh = QUANT ? k_scale + head_rows : nullptr;
   const float* vsh = QUANT ? v_scale + head_rows : nullptr;
   const int* table = block_tables + (size_t)b * nbk;
@@ -120,11 +145,11 @@ paged_attention_kernel(const T* __restrict__ q, const P* __restrict__ k_pool,
       const int pos = min(c0 + grp + i * ngroups, q_abs);  // tail: any live
       row[i] = (size_t)table[pos / bs] * bs + pos % bs;
     }
-    uint4 raw[TPG];
+    R raw[TPG];
     float sc[TPG];
 #pragma unroll
     for (int i = 0; i < TPG; ++i) {
-      raw[i] = *reinterpret_cast<const uint4*>(kh + row[i] * hd);
+      raw[i] = *reinterpret_cast<const R*>(kh + row[i] * hd);
       sc[i] = QUANT ? ksh[row[i]] : 1.f;
     }
 #pragma unroll
@@ -162,7 +187,7 @@ paged_attention_kernel(const T* __restrict__ q, const P* __restrict__ k_pool,
     for (int i = 0; i < VEC; ++i) acc[i] *= alpha;
 #pragma unroll
     for (int i = 0; i < TPG; ++i) {
-      raw[i] = *reinterpret_cast<const uint4*>(vh + row[i] * hd);
+      raw[i] = *reinterpret_cast<const R*>(vh + row[i] * hd);
       sc[i] = QUANT ? vsh[row[i]] : 1.f;
     }
 #pragma unroll
@@ -181,8 +206,9 @@ paged_attention_kernel(const T* __restrict__ q, const P* __restrict__ k_pool,
     __syncthreads();              // s_chunk is rewritten by the next chunk
   }
 
+  if (in_row)
 #pragma unroll
-  for (int i = 0; i < VEC; ++i) red[grp * hd + g * VEC + i] = acc[i];
+    for (int i = 0; i < VEC; ++i) red[grp * hd + gs + i] = acc[i];
   __syncthreads();
   const float inv = 1.f / (l == 0.f ? 1.f : l);
   for (int d = tid; d < hd; d += NTHREADS) {
@@ -192,19 +218,17 @@ paged_attention_kernel(const T* __restrict__ q, const P* __restrict__ k_pool,
   }
 }
 
-template <typename T, typename P>
-int launch(const void* q, const void* k_pool, const void* v_pool,
+template <typename T, typename P, int VEC>
+int launch_vec(const void* q, const void* k_pool, const void* v_pool,
            const float* k_scale, const float* v_scale, const int* tables,
            const int* lens, const float* slopes, void* out, int B, int nh,
            int nblk, int bs, int hd, int nbk, int layer, int window,
            float sm_scale, float softcap, cudaStream_t stream) {
-  constexpr int VEC = 16 / sizeof(P);
-  const int tpt = hd / VEC;
-  const int ngroups = NTHREADS / tpt;
+  const int ngroups = NTHREADS / row_threads(hd, VEC);
   const size_t smem = sizeof(float) * ((size_t)ngroups * TPG +
                                        (size_t)ngroups * hd);
   dim3 grid(nh, B);
-  paged_attention_kernel<T, P><<<grid, NTHREADS, smem, stream>>>(
+  paged_attention_kernel<T, P, VEC><<<grid, NTHREADS, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const P*>(k_pool),
       static_cast<const P*>(v_pool), k_scale, v_scale, tables, lens, slopes,
       static_cast<T*>(out), nh, nblk, bs, hd, nbk, layer, window, sm_scale,
@@ -212,13 +236,34 @@ int launch(const void* q, const void* k_pool, const void* v_pool,
   return static_cast<int>(cudaGetLastError());
 }
 
+// 16-byte loads, or 8-byte ones for an int8 row whose hd is not a multiple
+// of 16
+template <typename T, typename P>
+int launch(const void* q, const void* k_pool, const void* v_pool,
+           const float* k_scale, const float* v_scale, const int* tables,
+           const int* lens, const float* slopes, void* out, int B, int nh,
+           int nblk, int bs, int hd, int nbk, int layer, int window,
+           float sm_scale, float softcap, cudaStream_t stream) {
+  constexpr int VEC = 16 / sizeof(P);
+  if constexpr (sizeof(P) == 1)
+    if (hd % VEC)
+      return launch_vec<T, P, 8>(q, k_pool, v_pool, k_scale, v_scale,
+                                 tables, lens, slopes, out, B, nh, nblk, bs,
+                                 hd, nbk, layer, window, sm_scale, softcap,
+                                 stream);
+  return launch_vec<T, P, VEC>(q, k_pool, v_pool, k_scale, v_scale, tables,
+                               lens, slopes, out, B, nh, nblk, bs, hd, nbk,
+                               layer, window, sm_scale, softcap, stream);
+}
+
 }  // namespace
 
 extern "C" {
 
-// q_dtype: 0 = float32, 1 = bfloat16. pool_dtype: 0 = float32,
-// 1 = bfloat16, 2 = int8 (with k_scale / v_scale). Returns the CUDA error
-// of the launch (0 = launched); -1 for a combination the kernel lacks.
+// q_dtype: 0 = float32, 1 = bfloat16, 2 = float16. pool_dtype: the same
+// codes for a pool of q's dtype, 3 = int8 (with k_scale / v_scale). hd: a
+// multiple of 8 up to 128. Returns the CUDA error of the launch (0 =
+// launched); -1 for a combination the kernel lacks.
 int paged_attention_launch(const void* q, const void* k_pool,
                            const void* v_pool, const void* k_scale,
                            const void* v_scale, const void* block_tables,
@@ -235,18 +280,22 @@ int paged_attention_launch(const void* q, const void* k_pool,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
 #define PA_ARGS q, k_pool, v_pool, ks, vs, bt, ln, sl, out, B, nh, nblk, bs, \
                 hd, nbk, layer, window, sm_scale, softcap, st
-  if (q_dtype == 0 && pool_dtype == 0) return launch<float, float>(PA_ARGS);
-  if (q_dtype == 1 && pool_dtype == 1)
-    return launch<__nv_bfloat16, __nv_bfloat16>(PA_ARGS);
-  if (q_dtype == 0 && pool_dtype == 2) return launch<float, int8_t>(PA_ARGS);
-  if (q_dtype == 1 && pool_dtype == 2)
-    return launch<__nv_bfloat16, int8_t>(PA_ARGS);
+  if (hd < 8 || hd > 128 || hd % 8) return -1;
+  if (pool_dtype == 3) {
+    if (q_dtype == 0) return launch<float, int8_t>(PA_ARGS);
+    if (q_dtype == 1) return launch<__nv_bfloat16, int8_t>(PA_ARGS);
+    if (q_dtype == 2) return launch<__half, int8_t>(PA_ARGS);
+  } else if (pool_dtype == q_dtype) {
+    if (q_dtype == 0) return launch<float, float>(PA_ARGS);
+    if (q_dtype == 1) return launch<__nv_bfloat16, __nv_bfloat16>(PA_ARGS);
+    if (q_dtype == 2) return launch<__half, __half>(PA_ARGS);
+  }
 #undef PA_ARGS
   return -1;
 }
 
 const char* paged_attention_error_string(int err) {
-  return err < 0 ? "unsupported dtype combination"
+  return err < 0 ? "unsupported dtype combination or head dim"
                  : cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 

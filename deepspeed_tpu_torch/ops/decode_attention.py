@@ -19,8 +19,9 @@ live rows.
 
 The TPU wrapper's ``ValueError`` for shapes that do not tile (a
 ``max_len`` without a 128-multiple block, small head dims) is a TPU
-constraint: the CUDA kernel takes any ``max_len``, and raises only for
-T > 64 or a head dim it lacks (T > 1 takes head dims 32, 64 and 128).
+constraint: the CUDA kernel takes any ``max_len`` and any head dim
+``hd % 8 == 0`` up to 128 in f32, bf16 or fp16, and raises for T > 64 or
+what else it lacks (:func:`kernel_gate`).
 
 Bound on the card: bytes (the live K/V rows, read once). See the note in
 the CUDA source for what the design does about it.
@@ -35,13 +36,13 @@ import numpy as np
 import torch
 
 from . import build
+from .attention import check_kernel_inputs
 
-__all__ = ["decode_attention", "decode_attention_reference", "MAX_T"]
+__all__ = ["decode_attention", "decode_attention_reference", "MAX_T",
+           "kernel_gate"]
 
 NEG_INF = -1e30
 MAX_T = 64                                  # queries per call
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_MULTI_HEAD_DIMS = (32, 64, 128)            # head dims of the T > 1 kernel
 
 
 def _lib() -> ctypes.CDLL:
@@ -74,8 +75,8 @@ def decode_attention(q: torch.Tensor,
     length including the T new tokens. ``window`` <= 0 or None means
     global; ``alibi_slopes``: [nh]; ``softcap``: tanh cap, 0 = off.
 
-    CUDA tensors launch the kernel, and raise on what it does not take;
-    CPU tensors, or ``impl="reference"``, run the plain version. Returns
+    CUDA tensors launch the kernel, and raise on what it does not take
+    (:func:`kernel_gate`); CPU tensors, or ``impl="reference"``, run the plain version. Returns
     [B, nh, T, hd] in q's dtype."""
     kw = dict(window=window, sm_scale=sm_scale, layer_idx=layer_idx,
               alibi_slopes=alibi_slopes, softcap=softcap)
@@ -90,8 +91,14 @@ def decode_attention(q: torch.Tensor,
 decode_attention.launches = 0
 
 
-def _launch(q, k_cache, v_cache, cur_len, *, window, sm_scale, layer_idx,
-            alibi_slopes, softcap):
+def kernel_gate(q, k_cache, v_cache, cur_len: int,
+                layer_idx: Optional[int] = None):
+    """What the kernel takes, from the shapes and dtypes alone (the same on
+    every device; a launch adds the device checks): T <= 64 queries [B,
+    nh, T, hd], caches [L?, B, nh, max_len, hd] of q's dtype with T <=
+    cur_len <= max_len, a head dim hd % 8 == 0 up to 128, f32, bf16 or
+    fp16. Returns (caches with the layer dim, layer, dtype code); raises
+    ValueError or TypeError."""
     B, nh, T, hd = q.shape
     if T > MAX_T:
         raise ValueError(f"decode_attention takes T <= {MAX_T} queries "
@@ -109,16 +116,21 @@ def _launch(q, k_cache, v_cache, cur_len, *, window, sm_scale, layer_idx,
     if (cb, cnh, chd) != (B, nh, hd) or not 0 <= layer < L:
         raise ValueError(f"cache {tuple(k_cache.shape)} does not fit q "
                          f"{tuple(q.shape)} at layer {layer}")
-    cur_len = int(cur_len)
-    if not T <= cur_len <= max_len:
+    if not T <= int(cur_len) <= max_len:
         raise ValueError(f"cur_len {cur_len} must lie in [T={T}, "
                          f"max_len={max_len}]")
-    if q.dtype not in _DTYPES:
-        raise TypeError(f"decode_attention kernel: q dtype {q.dtype} "
-                        "(expected float32 or bfloat16)")
-    if k_cache.dtype != q.dtype or v_cache.dtype != q.dtype:
-        raise TypeError(f"decode_attention kernel: cache dtype "
-                        f"{k_cache.dtype} differs from q dtype {q.dtype}")
+    code = check_kernel_inputs("decode_attention", hd, q.dtype,
+                               k_cache.dtype, v_cache.dtype)
+    return k_cache, v_cache, layer, code
+
+
+def _launch(q, k_cache, v_cache, cur_len, *, window, sm_scale, layer_idx,
+            alibi_slopes, softcap):
+    B, nh, T, hd = q.shape
+    k_cache, v_cache, layer, code = kernel_gate(q, k_cache, v_cache, cur_len,
+                                                layer_idx)
+    max_len = k_cache.shape[3]
+    cur_len = int(cur_len)
     dev = q.device
     if dev.type != "cuda":
         raise ValueError(f"decode_attention kernel needs CUDA tensors, q is "
@@ -129,15 +141,6 @@ def _launch(q, k_cache, v_cache, cur_len, *, window, sm_scale, layer_idx,
                              f"q on {dev}")
         if not t.is_contiguous():
             raise ValueError("decode_attention: caches must be contiguous")
-    vec = 16 // q.element_size()
-    tpt = hd // vec
-    if T > 1 and hd not in _MULTI_HEAD_DIMS:
-        raise ValueError(f"decode_attention kernel: T={T} > 1 takes head_dim "
-                         f"in {_MULTI_HEAD_DIMS}, got {hd}")
-    if hd % vec or tpt < 1 or tpt > 32 or tpt & (tpt - 1):
-        raise ValueError(f"decode_attention kernel: head_dim {hd} in "
-                         f"{q.dtype} needs hd / {vec} to be a power of two "
-                         "<= 32")
     if k_cache.data_ptr() % 16 or v_cache.data_ptr() % 16:
         raise ValueError("decode_attention kernel: caches must be 16-byte "
                          "aligned")
@@ -157,7 +160,7 @@ def _launch(q, k_cache, v_cache, cur_len, *, window, sm_scale, layer_idx,
     err = lib.decode_attention_launch(
         ptr(q), ptr(k_cache), ptr(v_cache), ptr(slopes), ptr(out),
         B, nh, T, max_len, hd, layer, cur_len, int(window or 0),
-        float(scale), float(softcap or 0.0), _DTYPES[q.dtype], stream)
+        float(scale), float(softcap or 0.0), code, stream)
     build.check(lib, "decode_attention", err)
     return out
 

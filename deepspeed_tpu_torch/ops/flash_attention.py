@@ -47,15 +47,13 @@ import numpy as np
 import torch
 
 from . import build
-from .attention import (NEG_INF, alibi_bias_from_slopes, masked_logits,
-                        window_mask)
+from .attention import (KERNEL_DTYPES, NEG_INF, alibi_bias_from_slopes,
+                        check_kernel_inputs, masked_logits, window_mask)
 
 __all__ = ["flash_attention", "flash_attention_fwd", "flash_attention_bwd",
            "flash_attention_bwd_dq", "flash_attention_bwd_dkv",
-           "flash_attention_reference", "flash_attention_bwd_reference"]
-
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_HEAD_DIMS = (32, 64, 128)                  # csrc/flash_attention_*.cu
+           "flash_attention_reference", "flash_attention_bwd_reference",
+           "kernel_gate"]
 
 
 def _lib() -> ctypes.CDLL:
@@ -152,9 +150,10 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     position i + Sk - S.
 
     Not differentiable itself (:func:`flash_attention` is). CUDA tensors
-    launch the kernel and raise on what it does not take (fp16, a head dim
-    other than 32, 64 or 128, a non-causal window); CPU tensors, or
-    ``impl="reference"``, run the plain version."""
+    launch the kernel and raise on what it does not take
+    (:func:`kernel_gate`: a head dim past 128 or not a multiple of 8, a
+    dtype other than f32, bf16 and fp16, a non-causal window); CPU
+    tensors, or ``impl="reference"``, run the plain version."""
     kw = _options(causal, sm_scale, mask, alibi_slopes, window, softcap)
     if _plain(q, impl):
         return flash_attention_reference(q, k, v, **kw)
@@ -189,8 +188,13 @@ def _normalize_mask(mask, B: int, H: int, S: int, Sk: int, device):
     return None, qkm.to(torch.int32).contiguous(), per_head
 
 
-def _check_inputs(q, k, v, causal, window, name):
-    """Validate what the kernels take; returns (B, H, S, Sk, D)."""
+def kernel_gate(q, k, v, *, causal=True, window=0,
+                name="flash_attention"):
+    """What the forward and backward kernels take, from the shapes and
+    dtypes of q, k, v alone (the same on every device; a launch adds the
+    device checks): [B, H, S, D] and [B, H, Sk, D], a head dim D % 8 == 0
+    up to 128, f32, bf16 or fp16 alike, no non-causal window. Returns (B,
+    H, S, Sk, D); raises ValueError or TypeError."""
     if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
         raise ValueError(f"{name} takes q, k, v [B, H, S, D], got "
                          f"{tuple(q.shape)}, {tuple(k.shape)}, "
@@ -199,27 +203,25 @@ def _check_inputs(q, k, v, causal, window, name):
     Sk = k.shape[2]
     if (k.shape[0], k.shape[1], k.shape[3]) != (B, H, D):
         raise ValueError(f"k/v {tuple(k.shape)} do not fit q {tuple(q.shape)}")
-    if q.dtype not in _DTYPES:
-        raise TypeError(f"{name} kernel: dtype {q.dtype} (expected float32 "
-                        "or bfloat16)")
-    if k.dtype != q.dtype or v.dtype != q.dtype:
-        raise TypeError(f"{name} kernel: q, k, v dtypes {q.dtype}, "
-                        f"{k.dtype}, {v.dtype} differ")
-    if D not in _HEAD_DIMS:
-        raise ValueError(f"{name} kernel: head_dim {D} (expected one of "
-                         f"{_HEAD_DIMS})")
+    check_kernel_inputs(name, D, q.dtype, k.dtype, v.dtype)
     if window and not causal:
         raise ValueError(f"{name} kernel: a sliding window needs causal=True "
                          "(the JAX wrapper sends a non-causal window to its "
                          "reference)")
+    if B * H > 65535:
+        raise ValueError(f"{name} kernel: B * H = {B * H} > 65535")
+    return B, H, S, Sk, D
+
+
+def _check_inputs(q, k, v, causal, window, name):
+    """:func:`kernel_gate`, then the device checks."""
+    dims = kernel_gate(q, k, v, causal=causal, window=window, name=name)
     dev = q.device
     if dev.type != "cuda":
         raise ValueError(f"{name} kernel needs CUDA tensors, q is on {dev}")
     if k.device != dev or v.device != dev:
         raise ValueError(f"{name}: q, k, v on different devices")
-    if B * H > 65535:
-        raise ValueError(f"{name} kernel: B * H = {B * H} > 65535")
-    return B, H, S, Sk, D
+    return dims
 
 
 def _extras(mask, alibi_slopes, B, H, S, Sk, dev):
@@ -263,7 +265,7 @@ def _launch(q, k, v, *, causal, sm_scale, mask, alibi_slopes, window,
         _ptr(q), _ptr(k), _ptr(v), _ptr(kvm), _ptr(qkm), _ptr(slopes),
         _ptr(o), _ptr(lse), B * H, H, S, Sk, D, int(bool(causal)),
         int(window), int(per_head), float(scale), float(softcap),
-        _DTYPES[q.dtype], stream)
+        KERNEL_DTYPES[q.dtype], stream)
     build.check(lib, "flash_attention_fwd", err)
     return o, lse
 
@@ -341,7 +343,7 @@ def _bwd_args(q, k, v, do, lse, delta, *, causal, sm_scale, mask,
     ptrs = tuple(_ptr(t) for t in (q, k, v, do, lse, delta, kvm, qkm,
                                    slopes))
     ints = (B * H, H, S, Sk, D, int(bool(causal)), int(window), int(per_head))
-    tail = (float(scale), float(softcap), _DTYPES[q.dtype],
+    tail = (float(scale), float(softcap), KERNEL_DTYPES[q.dtype],
             torch.cuda.current_stream(dev).cuda_stream)
     keep = (q, k, v, do, lse, delta, kvm, qkm, slopes)   # alive until launch
     return q, k, ptrs, ints, tail, keep

@@ -27,13 +27,12 @@ import numpy as np
 import torch
 
 from . import build
+from .attention import check_kernel_inputs
 
-__all__ = ["paged_attention", "paged_attention_reference"]
+__all__ = ["paged_attention", "paged_attention_reference", "kernel_gate"]
 
 NEG_INF = -1e30
-_NTHREADS, _TPG = 128, 8                 # csrc/paged_attention.cu constants
-_Q_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_POOL_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
+_INT8_POOL = 3                      # csrc/paged_attention.cu pool_dtype code
 
 
 def _lib() -> ctypes.CDLL:
@@ -72,9 +71,9 @@ def paged_attention(q: torch.Tensor,
     it). context_lens: [B] int32. ``window`` <= 0 or None means global;
     ``alibi_slopes``: [nh]; ``softcap``: tanh cap, 0 = off.
 
-    CUDA tensors launch the kernel, and raise on what it does not take;
-    CPU tensors, or ``impl="reference"``, run the plain version.
-    Returns [B, nh, 1, hd] in q's dtype."""
+    CUDA tensors launch the kernel, and raise on what it does not take
+    (:func:`kernel_gate`); CPU tensors, or ``impl="reference"``, run the
+    plain version. Returns [B, nh, 1, hd] in q's dtype."""
     kw = dict(sm_scale=sm_scale, alibi_slopes=alibi_slopes, softcap=softcap,
               window=window, layer_idx=layer_idx, k_scale=k_scale,
               v_scale=v_scale)
@@ -90,8 +89,14 @@ def paged_attention(q: torch.Tensor,
 paged_attention.launches = 0
 
 
-def _launch(q, k_pool, v_pool, block_tables, context_lens, *, sm_scale,
-            alibi_slopes, softcap, window, layer_idx, k_scale, v_scale):
+def kernel_gate(q, k_pool, v_pool, *, quant: bool = False,
+                layer_idx: Optional[int] = None):
+    """What the kernel takes, from the shapes and dtypes alone (the same on
+    every device; a launch adds the device checks): one query a sequence
+    [B, nh, 1, hd], pools [L?, nh, blocks, block_size, hd] of q's dtype, or
+    int8 with scales (``quant``), a head dim hd % 8 == 0 up to 128, q in
+    f32, bf16 or fp16. Returns (pools with the layer dim, layer, q dtype
+    code, pool dtype code); raises ValueError or TypeError."""
     B, nh, T, hd = q.shape
     if T != 1:
         raise ValueError(f"paged_attention decodes 1 token per sequence "
@@ -108,16 +113,26 @@ def _launch(q, k_pool, v_pool, block_tables, context_lens, *, sm_scale,
     if (pnh, phd) != (nh, hd) or not 0 <= layer < L:
         raise ValueError(f"pool {tuple(k_pool.shape)} does not fit q "
                          f"{tuple(q.shape)} at layer {layer}")
-    if q.dtype not in _Q_DTYPES:
-        raise TypeError(f"paged_attention kernel: q dtype {q.dtype} "
-                        "(expected float32 or bfloat16)")
-    quant = k_scale is not None
     if quant != (k_pool.dtype == torch.int8):
         raise TypeError("k_scale/v_scale pair with an int8 pool and only "
                         f"with one (pool dtype {k_pool.dtype})")
-    if not quant and k_pool.dtype != q.dtype:
-        raise TypeError(f"paged_attention kernel: pool dtype {k_pool.dtype} "
-                        f"differs from q dtype {q.dtype}")
+    if quant:
+        code = check_kernel_inputs("paged_attention", hd, q.dtype)
+        pool_code = _INT8_POOL
+    else:
+        code = check_kernel_inputs("paged_attention", hd, q.dtype,
+                                   k_pool.dtype, v_pool.dtype)
+        pool_code = code
+    return k_pool, v_pool, layer, code, pool_code
+
+
+def _launch(q, k_pool, v_pool, block_tables, context_lens, *, sm_scale,
+            alibi_slopes, softcap, window, layer_idx, k_scale, v_scale):
+    B, nh, _, hd = q.shape
+    quant = k_scale is not None
+    k_pool, v_pool, layer, code, pool_code = kernel_gate(
+        q, k_pool, v_pool, quant=quant, layer_idx=layer_idx)
+    nblk, bs = k_pool.shape[2:4]
     dev = q.device
     if dev.type != "cuda":
         raise ValueError(f"paged_attention kernel needs CUDA tensors, q is "
@@ -140,14 +155,6 @@ def _launch(q, k_pool, v_pool, block_tables, context_lens, *, sm_scale,
         raise TypeError("block_tables and context_lens must be int32")
     if block_tables.shape[0] != B or context_lens.numel() != B:
         raise ValueError("block_tables / context_lens do not match the batch")
-    vec = 16 // k_pool.element_size()
-    tpt = hd // vec
-    if hd % vec or tpt < 1 or tpt > 32 or tpt & (tpt - 1):
-        raise ValueError(f"paged_attention kernel: head_dim {hd} with "
-                         f"{k_pool.dtype} pools needs hd / {vec} to be a "
-                         "power of two <= 32")
-    if 4 * (_NTHREADS // tpt) * (_TPG + hd) > 48 * 1024:
-        raise ValueError(f"paged_attention kernel: head_dim {hd} too large")
     if k_pool.data_ptr() % 16 or v_pool.data_ptr() % 16:
         raise ValueError("paged_attention kernel: pools must be 16-byte "
                          "aligned")
@@ -167,7 +174,7 @@ def _launch(q, k_pool, v_pool, block_tables, context_lens, *, sm_scale,
         ptr(block_tables), ptr(context_lens), ptr(slopes), ptr(out),
         B, nh, nblk, bs, hd, block_tables.shape[1], layer,
         int(window or 0), float(scale), float(softcap or 0.0),
-        _Q_DTYPES[q.dtype], _POOL_DTYPES[k_pool.dtype], stream)
+        code, pool_code, stream)
     build.check(lib, "paged_attention", err)
     return out
 

@@ -304,3 +304,34 @@ def test_wrappers_on_cpu_launch_nothing():
     assert after == before
     with pytest.raises(ValueError, match="CUDA"):
         tbs._cuda_operands(tbs.schedule(layout, 16, S), q, k, v)
+
+
+@pytest.mark.parametrize("dtype,Dh", [(np.float32, 80), (np.float32, 96),
+                                      (np.float16, 64)])
+def test_head_dims_80_96_and_fp16(dtype, Dh):
+    """Head dims 80 and 96 (which the CUDA kernels take at a padded width)
+    in f32 at the forward's and gradients' tolerances above, and float16
+    on both sides to 2^-6 of each output's largest |value| (the 16-bit
+    tolerance of the card's checks): the forward and jax.vjp of the JAX
+    kernels against the plain versions through autograd."""
+    _, make, fine, causal, window, exact = CASES[0]
+    layout = make()
+    rng = np.random.default_rng(Dh)
+    q, k, v, g = [(rng.standard_normal((1, H, S, Dh)) * 0.5).astype(dtype)
+                  for _ in range(4)]
+    jout, vjp = jax.vjp(_jax_kernel(layout, fine, causal, window, exact),
+                        *(jnp.asarray(x) for x in (q, k, v)))
+    jgrads = vjp(jnp.asarray(g))
+    tq, tk, tv = (torch.from_numpy(x).requires_grad_() for x in (q, k, v))
+    out = tbs.block_sparse_flash_attention(tq, tk, tv, layout, fine,
+                                           causal=causal)
+    out.backward(torch.from_numpy(g))
+    pairs = [(out.detach(), jout, 2e-5)] + [
+        (t.grad, jg, 2e-4) for t, jg in zip((tq, tk, tv), jgrads)]
+    for got, want, tol in pairs:
+        want = np.asarray(want, np.float32)
+        assert got.dtype == torch.from_numpy(q).dtype
+        if dtype == np.float16:
+            tol = 2.0 ** -6 * np.abs(want).max()
+        np.testing.assert_allclose(got.float().numpy(), want, rtol=0,
+                                   atol=tol)

@@ -117,3 +117,28 @@ def test_decode_attention_any_max_len():
         torch.from_numpy(q), torch.from_numpy(kc[:, :, :777].copy()),
         torch.from_numpy(vc[:, :, :777].copy()), 777)
     torch.testing.assert_close(out, short, atol=ATOL, rtol=0)
+
+
+@pytest.mark.parametrize("T,hd", [(1, 80), (4, 80), (1, 96), (8, 96)])
+def test_decode_attention_head_dims_80_96(T, hd):
+    """gpt2-2.7b's (80) and gpt2-760m's (96) head dims, which the CUDA
+    kernel takes at a padded width, with ALiBi and a window."""
+    q, kc, vc = _data(T=T, hd=hd, cur=300, seed=hd + T)
+    port, ker = _both(q, kc, vc, 300, window=100, slopes=SLOPES)
+    np.testing.assert_allclose(port, ker, atol=ATOL, rtol=0)
+
+
+@pytest.mark.parametrize("T,hd", [(1, 64), (4, 96)])
+def test_decode_attention_fp16(T, hd):
+    """float16 on both sides, to 1e-2 (a few fp16 ulps of |o| < 4): the
+    JAX kernel keeps f32 scores, the plain version rounds q k^T to fp16
+    first."""
+    q, kc, vc = _data(T=T, hd=hd, cur=300, seed=30 + T)
+    port = tda.decode_attention(*(torch.from_numpy(a).half()
+                                  for a in (q, kc, vc)), 300)
+    ker = jax_decode_attention(*(jnp.asarray(a, jnp.float16)
+                                 for a in (q, kc, vc)),
+                               jnp.asarray(300, jnp.int32), interpret=True)
+    assert port.dtype == torch.float16 and ker.dtype == jnp.float16
+    np.testing.assert_allclose(port.float().numpy(), np.asarray(ker, np.float32),
+                               atol=1e-2, rtol=0)

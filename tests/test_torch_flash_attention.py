@@ -237,3 +237,35 @@ def test_forward_only_and_argument_guards():
     with pytest.raises(ValueError, match="broadcast"):
         tfa._normalize_mask(torch.ones(3, 1, 1, 16, dtype=torch.bool), 1, 2,
                             16, 16, "cpu")
+
+
+@pytest.mark.parametrize("case", ["causal", "mask_alibi_window_softcap"])
+@pytest.mark.parametrize("D", [80, 96])
+def test_head_dims_80_96(D, case):
+    """gpt2-2.7b's head dim (80) and gpt2-760m's (96), which the CUDA
+    kernels take at a padded width of 96 and 128."""
+    rng = np.random.default_rng(D)
+    q, k, v = _qkv(rng, (2, 2, 64, D))
+    kw = {} if case == "causal" else dict(
+        mask=_padding_mask(rng, 2, 64, 40), slopes=alibi_slopes(2),
+        window=40, softcap=20.0)
+    _check(q, k, v, causal=True, **kw)
+
+
+@pytest.mark.parametrize("D", [64, 80])
+def test_fp16_close_to_jax_kernel(D):
+    """float16 on both sides, to 1e-2: a few fp16 ulps of |o| < 4 (the JAX
+    kernel keeps f32 scores, the plain version rounds q k^T to fp16
+    first)."""
+    rng = np.random.default_rng(14 + D)
+    q, k, v = _qkv(rng, (2, 2, 128, D))
+    m = _padding_mask(rng, 2, 128, 48)
+    h = lambda a: torch.from_numpy(a).to(torch.float16)
+    o = tfa.flash_attention(h(q), h(k), h(v), causal=True,
+                            mask=torch.from_numpy(m), softcap=8.0)
+    jo = jfa.flash_attention(*(jnp.asarray(a, jnp.float16) for a in (q, k, v)),
+                             causal=True, mask=jnp.asarray(m), softcap=8.0,
+                             block_q=64, block_k=64, interpret=True)
+    assert o.dtype == torch.float16 and jo.dtype == jnp.float16
+    np.testing.assert_allclose(o.float().numpy(), np.asarray(jo, np.float32),
+                               atol=1e-2, rtol=0)

@@ -243,8 +243,49 @@ def test_kernel_wrappers_raise_on_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         tfa.flash_attention_bwd_dkv(x, x, x, x, rows, rows)
     with pytest.raises(TypeError, match="dtype"):
-        tfa.flash_attention_bwd_dq(*(x.half(),) * 4, rows, rows)
+        tfa.flash_attention_bwd_dq(*(x.double(),) * 4, rows, rows)
     with pytest.raises(ValueError, match="impl"):
         tfa.flash_attention_bwd(x, x, x, x, rows, x, impl="flash")
     assert (tfa.flash_attention_bwd_dq.launches,
             tfa.flash_attention_bwd_dkv.launches) == before
+
+
+@pytest.mark.parametrize("case", ["causal", "mask_alibi_softcap"])
+@pytest.mark.parametrize("D", [80, 96])
+def test_head_dims_80_96(D, case):
+    """The head dims the CUDA kernels take at a padded width: 80
+    (gpt2-2.7b) and 96 (gpt2-760m)."""
+    rng = np.random.default_rng(D)
+    args = _qkv(rng, (1, 2, 64, D))
+    kw = {} if case == "causal" else dict(
+        mask=_padding_mask(rng, 1, 64, 20), slopes=alibi_slopes(2),
+        softcap=15.0)
+    _both(args, causal=True, **kw)
+
+
+@pytest.mark.parametrize("D", [64, 96])
+def test_fp16_close_to_jax_kernel(D):
+    """float16 on both sides: the autograd flash_attention (plain forward
+    and backward) against jax.vjp of the JAX kernels, each gradient to
+    2^-6 of its largest |value| (the 16-bit tolerance of the card's
+    checks; the two round scores, P and dS to fp16 at other points)."""
+    rng = np.random.default_rng(20 + D)
+    q, k, v, do = _qkv(rng, (1, 2, 128, D))
+    h = lambda a: torch.from_numpy(a).to(torch.float16)
+    tq, tk, tv = (h(a).requires_grad_() for a in (q, k, v))
+    o = tfa.flash_attention(tq, tk, tv, causal=True, softcap=10.0)
+    o.backward(h(do))
+
+    def jflash(q, k, v):
+        return jfa.flash_attention(q, k, v, causal=True, softcap=10.0,
+                                   block_q=64, block_k=64, block_q_bwd=64,
+                                   block_k_bwd=64, interpret=True)
+
+    _, vjp = jax.vjp(jflash, *(jnp.asarray(a, jnp.float16) for a in (q, k, v)))
+    for name, t, jg in zip(("dq", "dk", "dv"), (tq, tk, tv),
+                           vjp(jnp.asarray(do, jnp.float16))):
+        assert t.grad.dtype == torch.float16 and jg.dtype == jnp.float16
+        jg = np.asarray(jg, np.float32)
+        np.testing.assert_allclose(t.grad.float().numpy(), jg,
+                                   atol=2.0 ** -6 * np.abs(jg).max(), rtol=0,
+                                   err_msg=name)

@@ -1,0 +1,259 @@
+"""Port parity at the head dims and dtypes the CUDA attention kernels were
+widened to: every ``D % 8 == 0`` up to 128, in f32, bf16 and fp16.
+
+* The shape gates: each kernel wrapper's ``kernel_gate`` (flash, decode,
+  paged) and the block-sparse ``tileable`` are pure functions of shapes
+  and dtypes, so they run here on meta tensors: they take every head dim
+  ``D % 8 == 0`` up to 128 in all three dtypes, and refuse D 136 (and
+  ``D % 8 != 0``) with a message naming ROADMAP.md, and float64.
+* One 2-layer narrow model per head dim, 80 (gpt2-2.7b's) and 96
+  (gpt2-760m's), with the same flax-initialized f32 weights in both
+  packages: ``forward_with_cache`` prefill (the flash route) and decode
+  (the decode route) logits to atol 1e-4 and ``generate`` token-exact,
+  ``paged_forward`` prefill and decode logits to atol 1e-4, and one
+  ``train_batch`` (loss to rtol 1e-4, grad norm to 1e-3) against the JAX
+  engine. On the CPU the wrappers run their plain versions; the kernels
+  at these widths are held against the same plain versions on the card
+  by ``chip_smoke.py`` and ``tests/test_torch_kernels_cuda.py``.
+"""
+
+import dataclasses
+import json
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import deepspeed_tpu
+from deepspeed_tpu.models import build_model as jbuild_model
+from deepspeed_tpu.models import generation as jgen
+from deepspeed_tpu.models import transformer as jtr
+from deepspeed_tpu.parallel import mesh as jmesh
+from deepspeed_tpu.parallel.mesh import MeshManager
+from deepspeed_tpu.serving.kv_cache import init_pool as jax_init_pool
+from deepspeed_tpu.serving.model_runner import paged_forward as jax_paged_forward
+
+import deepspeed_tpu_torch
+from deepspeed_tpu_torch.models import generation as tgen
+from deepspeed_tpu_torch.models import transformer as ttr
+from deepspeed_tpu_torch.models.convert import params_from_jax
+from deepspeed_tpu_torch.ops import block_sparse_attention as tbs
+from deepspeed_tpu_torch.ops import decode_attention as tda
+from deepspeed_tpu_torch.ops import flash_attention as tfa
+from deepspeed_tpu_torch.ops import paged_attention as tpa
+from deepspeed_tpu_torch.serving.kv_cache import init_pool
+from deepspeed_tpu_torch.serving.model_runner import paged_forward
+
+DTYPES = (torch.float32, torch.bfloat16, torch.float16)
+
+
+@pytest.fixture(autouse=True)
+def _precise_matmuls():
+    with jax.default_matmul_precision("highest"):
+        yield
+
+
+def _meta(*shape, dtype=torch.float32):
+    return torch.empty(shape, dtype=dtype, device="meta")
+
+
+def _gates(D, dtype):
+    """Every kernel gate on shapes of head dim D in dtype (meta tensors:
+    nothing is allocated, nothing launches)."""
+    x = _meta(2, 4, 64, D, dtype=dtype)
+    tfa.kernel_gate(x, x, x, causal=True, window=16)
+    tda.kernel_gate(_meta(2, 4, 1, D, dtype=dtype),
+                    _meta(3, 2, 4, 128, D, dtype=dtype),
+                    _meta(3, 2, 4, 128, D, dtype=dtype), 100, layer_idx=2)
+    tda.kernel_gate(_meta(2, 4, 64, D, dtype=dtype),
+                    _meta(2, 4, 128, D, dtype=dtype),
+                    _meta(2, 4, 128, D, dtype=dtype), 100)
+    pool = _meta(2, 4, 8, 16, D, dtype=dtype)
+    tpa.kernel_gate(_meta(3, 4, 1, D, dtype=dtype), pool, pool, layer_idx=1)
+    i8 = _meta(2, 4, 8, 16, D, dtype=torch.int8)
+    tpa.kernel_gate(_meta(3, 4, 1, D, dtype=dtype), i8, i8, quant=True,
+                    layer_idx=0)
+    return tbs.tileable(x, x, x, 16)
+
+
+@pytest.mark.parametrize("D", range(8, 129, 8))
+def test_gates_take_every_head_dim_up_to_128(D):
+    for dtype in DTYPES:
+        assert _gates(D, dtype) is None
+
+
+@pytest.mark.parametrize("D", [136, 256, 12, 100])
+def test_gates_refuse_other_head_dims_naming_roadmap(D):
+    x = _meta(2, 4, 64, D)
+    with pytest.raises(ValueError, match=f"head_dim {D}.*ROADMAP.md"):
+        tfa.kernel_gate(x, x, x)
+    c = _meta(2, 4, 128, D)
+    with pytest.raises(ValueError, match=f"head_dim {D}.*ROADMAP.md"):
+        tda.kernel_gate(_meta(2, 4, 1, D), c, c, 100)
+    pool = _meta(4, 8, 16, D)
+    with pytest.raises(ValueError, match=f"head_dim {D}.*ROADMAP.md"):
+        tpa.kernel_gate(_meta(3, 4, 1, D), pool, pool)
+    assert "ROADMAP.md" in tbs.tileable(x, x, x, 16)
+    # a launch with CPU tensors raises on the shape before the device
+    t = torch.zeros(1, 2, 64, D)
+    with pytest.raises(ValueError, match="ROADMAP.md"):
+        tfa.flash_attention_bwd_dq(t, t, t, t, t[..., 0], t[..., 0])
+    with pytest.raises(ValueError, match="tile.*ROADMAP.md"):
+        tbs.block_sparse_attention_fwd(t, t, t, np.ones((2, 4, 4), bool),
+                                       16)
+
+
+def test_gates_refuse_float64_and_mixed_dtypes():
+    x = _meta(2, 4, 64, 64, dtype=torch.float64)
+    with pytest.raises(TypeError, match="dtype"):
+        tfa.kernel_gate(x, x, x)
+    h = _meta(2, 4, 64, 64, dtype=torch.float16)
+    b = _meta(2, 4, 64, 64, dtype=torch.bfloat16)
+    with pytest.raises(TypeError, match="differ"):
+        tfa.kernel_gate(h, b, b)
+    pool = _meta(4, 8, 16, 64, dtype=torch.bfloat16)
+    with pytest.raises(TypeError, match="differ"):
+        tpa.kernel_gate(_meta(3, 4, 1, 64, dtype=torch.float16), pool, pool)
+    assert "dtypes" in tbs.tileable(x, x, x, 16)
+
+
+# ------------------------------------------------ 2-layer models, hd 80 / 96
+
+_MODELS = {}
+
+
+def _numpy_tree(tree):
+    if isinstance(tree, dict) or hasattr(tree, "items"):
+        return {k: _numpy_tree(v) for k, v in tree.items()}
+    return np.asarray(tree)
+
+
+def _model(hd):
+    """(jax cfg, numpy params, port cfg): a 2-layer gpt2-shaped model of 2
+    heads of hd, f32, built once per head dim."""
+    if hd not in _MODELS:
+        _, jcfg = jbuild_model("gpt2-tiny", hidden_size=2 * hd, num_layers=2,
+                               num_heads=2, vocab_size=64, max_seq_len=64,
+                               attention_impl="auto", dtype=jnp.float32)
+        jp = jax.jit(jtr.Transformer(jcfg).init)(
+            jax.random.PRNGKey(3),
+            {"input_ids": np.zeros((1, 8), np.int32)})["params"]
+        jp = _numpy_tree(jax.device_get(jp))
+        f = {fl.name: getattr(jcfg, fl.name)
+             for fl in dataclasses.fields(jcfg)}
+        f["dtype"] = torch.float32
+        _MODELS[hd] = (jcfg, jp, ttr.TransformerConfig(**f))
+    return _MODELS[hd]
+
+
+def _ids(B, T, seed):
+    return np.random.default_rng(seed).integers(1, 64, (B, T)).astype(
+        np.int32)
+
+
+@pytest.mark.parametrize("hd", [80, 96])
+def test_forward_with_cache_and_generate_match_jax(hd):
+    jcfg, jp, cfg = _model(hd)
+    assert cfg.hidden_size // cfg.num_heads == hd
+    tp = params_from_jax(jp)
+    B, T = 2, 24
+    ids = _ids(B, T, hd)
+    jc, tc = jgen.init_cache(jcfg, B, 48), tgen.init_cache(cfg, B, 48)
+    jl, jc = jgen.forward_with_cache(jcfg, jp, jnp.asarray(ids), jc,
+                                     prefill_flash="interpret")
+    tl, tc = tgen.forward_with_cache(cfg, tp, torch.from_numpy(ids), tc,
+                                     prefill_flash=True)
+    np.testing.assert_allclose(tl.numpy(), np.asarray(jl), atol=1e-4, rtol=0)
+    rng = np.random.default_rng(hd + 1)
+    for _ in range(3):
+        tok = rng.integers(1, 64, (B, 1)).astype(np.int32)
+        jl, jc = jgen.forward_with_cache(jcfg, jp, jnp.asarray(tok), jc)
+        tl, tc = tgen.forward_with_cache(cfg, tp, torch.from_numpy(tok), tc)
+        np.testing.assert_allclose(tl.numpy(), np.asarray(jl), atol=1e-4,
+                                   rtol=0)
+    ids = _ids(2, 12, hd + 2)
+    jout = jgen.generate(jcfg, jp, jnp.asarray(ids), 8)
+    tout = tgen.generate(cfg, tp, torch.from_numpy(ids), 8)
+    np.testing.assert_array_equal(tout.numpy(), np.asarray(jout))
+
+
+@pytest.mark.parametrize("hd", [80, 96])
+def test_paged_forward_matches_jax(hd):
+    jcfg, jp, cfg = _model(hd)
+    tp = params_from_jax(jp)
+    bs, nblocks = 16, 12
+    B, T = 2, 32
+    ids = _ids(B, T, hd + 3)
+    bt = np.asarray([[1, 2, 3, 0], [4, 5, 6, 7]], np.int32)
+    ctx = np.asarray([21, 32], np.int32)        # lane 0 carries 11 padded
+    q0 = np.zeros((B,), np.int32)
+    jpools = jax_init_pool(jcfg, nblocks, bs)
+    tpools = init_pool(cfg, nblocks, bs)
+    jl, jpools = jax_paged_forward(jcfg, jp, jnp.asarray(ids), jpools,
+                                   jnp.asarray(bt), jnp.asarray(q0),
+                                   jnp.asarray(ctx), bs)
+    tl, tpools = paged_forward(cfg, tp, torch.from_numpy(ids), tpools,
+                               torch.from_numpy(bt), torch.from_numpy(q0),
+                               torch.from_numpy(ctx), bs)
+    for b in range(B):
+        np.testing.assert_allclose(tl[b, :ctx[b]].numpy(),
+                                   np.asarray(jl)[b, :ctx[b]], atol=1e-4,
+                                   rtol=0)
+    rng = np.random.default_rng(hd + 4)
+    for _ in range(3):                          # decode on top of the prefill
+        tok = rng.integers(1, 64, (B, 1)).astype(np.int32)
+        jl, jpools = jax_paged_forward(jcfg, jp, jnp.asarray(tok), jpools,
+                                       jnp.asarray(bt), jnp.asarray(ctx),
+                                       jnp.asarray(ctx + 1), bs)
+        tl, tpools = paged_forward(cfg, tp, torch.from_numpy(tok), tpools,
+                                   torch.from_numpy(bt),
+                                   torch.from_numpy(ctx),
+                                   torch.from_numpy(ctx + 1), bs)
+        np.testing.assert_allclose(tl.numpy(), np.asarray(jl), atol=1e-4,
+                                   rtol=0)
+        ctx = ctx + 1
+
+
+_TRAIN_CFG = {
+    "train_batch_size": 4,
+    "train_micro_batch_size_per_gpu": 2,
+    "gradient_accumulation_steps": 2,
+    "optimizer": {"type": "AdamW", "params": {"lr": 1e-3}},
+    "gradient_clipping": 0.5,
+    "steps_per_print": 100,
+}
+
+
+@pytest.mark.parametrize("hd", [80, 96])
+def test_train_batch_matches_jax_engine(hd, tmp_path, monkeypatch):
+    jcfg, np_params, cfg = _model(hd)
+    path = tmp_path / "ds_config.json"
+    path.write_text(json.dumps(_TRAIN_CFG))
+    # one device: the JAX model's layout constraints read the session mesh,
+    # which another test in this process may have left on all 8 devices
+    mm = MeshManager(devices=jax.devices()[:1])
+    monkeypatch.setattr(jmesh, "_GLOBAL_MESH", mm)
+    jeng, *_ = deepspeed_tpu.initialize(
+        model=jtr.Transformer(jcfg), config=str(path),
+        model_parameters=np_params, loss_fn=jtr.causal_lm_loss,
+        mesh_manager=mm)
+    teng, *_ = deepspeed_tpu_torch.initialize(
+        model=ttr.Transformer(cfg), config=str(path),
+        model_parameters=np_params, loss_fn=ttr.causal_lm_loss,
+        device="cpu")
+    before = (tfa.flash_attention_fwd.launches,
+              tfa.flash_attention_bwd_dq.launches,
+              tfa.flash_attention_bwd_dkv.launches)
+    for step in range(2):
+        batch = {"input_ids": _ids(4, 32, 200 + step)}
+        jm = jax.device_get(jeng.train_batch(batch))
+        tm = teng.train_batch(batch)
+        np.testing.assert_allclose(tm["loss"], float(jm["loss"]), rtol=1e-4)
+        np.testing.assert_allclose(tm["grad_norm"], float(jm["grad_norm"]),
+                                   rtol=1e-3)
+    # CPU tensors: the flash wrappers ran their plain versions
+    assert (tfa.flash_attention_fwd.launches,
+            tfa.flash_attention_bwd_dq.launches,
+            tfa.flash_attention_bwd_dkv.launches) == before

@@ -125,7 +125,7 @@ def test_kernel_calls_raise_instead_of_falling_back():
     with pytest.raises(ValueError, match="CUDA"):
         tpa._launch(*_pa_args(), **kw)                 # CPU tensors
     with pytest.raises(TypeError, match="dtype"):
-        tpa._launch(*_pa_args(torch.float16), **kw)    # no fp16 kernel
+        tpa._launch(*_pa_args(torch.float64), **kw)    # no f64 kernel
     q, kp, vp, bt, lens = _pa_args()
     with pytest.raises(TypeError, match="int8"):
         tpa._launch(q, kp.to(torch.int8), vp.to(torch.int8), bt, lens, **kw)
@@ -145,7 +145,8 @@ def test_kernel_calls_raise_instead_of_falling_back():
 
 def test_attention_kernel_calls_raise_instead_of_falling_back():
     """decode_attention and the flash kernels: CPU tensors in the launch
-    path, fp16, T > 64 and a non-causal window raise; inputs on the CPU
+    path, f64, T > 64, a head dim past 128 and a non-causal window raise;
+    inputs on the CPU
     that require grad take the plain forward and backward; nothing
     launches."""
     before = (tda.decode_attention.launches,
@@ -158,7 +159,7 @@ def test_attention_kernel_calls_raise_instead_of_falling_back():
     with pytest.raises(ValueError, match="CUDA"):
         tda._launch(q, kc, kc.clone(), 50, **dkw)
     with pytest.raises(TypeError, match="dtype"):
-        tda._launch(q.half(), kc.half(), kc.half(), 50, **dkw)
+        tda._launch(q.double(), kc.double(), kc.double(), 50, **dkw)
     with pytest.raises(ValueError, match="T <= 64"):
         tda._launch(torch.randn(2, 4, 65, 64), kc, kc.clone(), 80, **dkw)
     with pytest.raises(ValueError, match="impl"):
@@ -169,11 +170,11 @@ def test_attention_kernel_calls_raise_instead_of_falling_back():
     with pytest.raises(ValueError, match="CUDA"):
         tfa._launch(x, x, x, **fkw)
     with pytest.raises(TypeError, match="dtype"):
-        tfa._launch(x.half(), x.half(), x.half(), **fkw)
+        tfa._launch(x.double(), x.double(), x.double(), **fkw)
     with pytest.raises(ValueError, match="causal"):
         tfa._launch(x, x, x, **dict(fkw, causal=False, window=8))
-    with pytest.raises(ValueError, match="head_dim"):
-        tfa._launch(*(torch.randn(1, 2, 16, 48),) * 3, **fkw)
+    with pytest.raises(ValueError, match="head_dim 136.*ROADMAP.md"):
+        tfa._launch(*(torch.randn(1, 2, 16, 136),) * 3, **fkw)
     with pytest.raises(ValueError, match="CUDA"):
         tfa.flash_attention_bwd_dq(x, x, x, x, x[..., 0], x[..., 0])
     # CPU tensors that require grad: the autograd path runs both plain

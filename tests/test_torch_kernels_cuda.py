@@ -5,12 +5,14 @@ false (decided inside the fixture, never at import). On the card run
 ``python -m pytest tests/test_torch_kernels_cuda.py -m cuda``. This file
 imports no JAX; on a GPU host without JAX pass ``--noconftest`` (the
 suite's conftest sets JAX up). Tolerances: f32 kernels agree with their
-plain versions to rounding (atol 1e-4). A bf16 attention kernel is held
-against its plain version run on the same values cast to f32, so both take
-f32 scores of the same numbers; what is left is the kernel's rounding of p
-to bf16 before P V and of its output to bf16, each at most 2^-8 relative,
-so every output lies within 2^-6 of its row's largest |o| (the worst seen
-in simulation at these shapes is 0.8 x 2^-7). The flash kernel's lse is
+plain versions to rounding (atol 1e-4). A 16-bit (bf16 or fp16) attention
+kernel is held against its plain version run on the same values cast to
+f32, so both take f32 scores of the same numbers; what is left is the
+kernel's rounding of p to the 16-bit type before P V and of its output,
+each at most 2^-8 relative (bf16; fp16 2^-11), so every output lies within
+2^-6 of its row's largest |o| (the worst seen in simulation at these
+shapes is 0.8 x 2^-7). Every attention kernel runs at head dims 80 and 96
+(padded widths) beside 32/64/128, and in fp16 beside f32 and bf16. The flash kernel's lse is
 f32 statistics of the same f32 scores: atol 1e-4. Rows with no live key
 are zeros from the kernel. The flash backward kernels are held the same
 way, gradient rows along D; a row whose gradient is zero in exact
@@ -37,10 +39,11 @@ pytestmark = pytest.mark.cuda
 
 F32_TOL = 1e-4
 BF16_ROW_TOL = 2.0 ** -6
+DTYPES = (torch.float32, torch.bfloat16, torch.float16)
 
 
 def _hold(out, ref, f32, floor=0.0, scale=0.0):
-    """f32: |out - ref| <= F32_TOL. bf16 (ref on the inputs cast to f32):
+    """f32: |out - ref| <= F32_TOL. 16-bit (ref on the inputs cast to f32):
     |out - ref| <= BF16_ROW_TOL x the largest |ref| of its row (the last
     dim), or x ``floor`` times the tensor's largest |ref| where that is
     more (gradient rows that are zero in exact arithmetic)."""
@@ -77,11 +80,12 @@ def _pa(dev, dtype, seed=0, B=5, nh=8, hd=64, bs=32, nblk=48, nbk=8, L=2):
     return (cast(q), cast(k), cast(v), bt.to(dev, torch.int32), lens.to(dev))
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("hd", [64, 80, 96])
 @pytest.mark.parametrize("opts", [{}, {"alibi_slopes": np.linspace(1, .1, 8),
                                        "softcap": 10.0, "window": 40}])
-def test_paged_attention_kernel(dev, dtype, opts):
-    q, k, v, bt, lens = _pa(dev, dtype)
+def test_paged_attention_kernel(dev, dtype, hd, opts):
+    q, k, v, bt, lens = _pa(dev, dtype, hd=hd)
     out = tpa.paged_attention(q, k, v, bt, lens, layer_idx=1, **opts)
     ref = tpa.paged_attention_reference(*_f32(q, k, v), bt, lens,
                                         layer_idx=1, **opts)
@@ -91,13 +95,19 @@ def test_paged_attention_kernel(dev, dtype, opts):
     assert torch.all(out[~live] == 0)
 
 
-def test_paged_attention_kernel_int8(dev):
-    q, k, v, bt, lens = _pa(dev, torch.bfloat16, seed=1)
+@pytest.mark.parametrize("dtype,hd", [(torch.bfloat16, 64),
+                                      (torch.bfloat16, 80),
+                                      (torch.bfloat16, 72),
+                                      (torch.float16, 96)])
+def test_paged_attention_kernel_int8(dev, dtype, hd):
+    """int8 pools with their per-slot scales at every width (72: rows of
+    8-byte slices)."""
+    q, k, v, bt, lens = _pa(dev, dtype, seed=1, hd=hd)
     kq, ks = kv_quantize(k)
     vq, vs = kv_quantize(v)
     out = tpa.paged_attention(q, kq, vq, bt, lens, k_scale=ks, v_scale=vs,
                               layer_idx=0)
-    # the kernel's dequantized rows: x * scale rounded to bf16
+    # the kernel's dequantized rows: x * scale rounded to q's dtype
     kd, vd = ((x.float() * s.reshape(x.shape[:-1])[..., None]).to(q.dtype)
               for x, s in ((kq, ks), (vq, vs)))
     ref = tpa.paged_attention_reference(*_f32(q, kd, vd), bt, lens,
@@ -163,7 +173,7 @@ def test_quant_matmul_kernel_unaligned_rows(dev, M):
                                atol=2e-2 * 2048 ** 0.5, rtol=1e-2)
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("T,cur", [(1, 1), (1, 700), (5, 300), (64, 1000)])
 @pytest.mark.parametrize("opts", [{}, {"alibi_slopes": np.linspace(1, .1, 8),
                                        "softcap": 10.0, "window": 40}])
@@ -178,8 +188,8 @@ def test_decode_attention_kernel(dev, dtype, T, cur, opts):
     _hold(out, ref, dtype == torch.float32)
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("hd", [32, 128])
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("hd", [8, 32, 80, 96, 128])
 @pytest.mark.parametrize("T,cur", [(1, 500), (7, 500), (64, 333)])
 def test_decode_attention_kernel_head_dims(dev, dtype, hd, T, cur):
     g = torch.Generator().manual_seed(hd + T)
@@ -205,8 +215,8 @@ def test_decode_attention_kernel_generate_shape(dev):
     _hold(out, ref, False)
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("D", [64, 80, 96, 128])
 @pytest.mark.parametrize("S,Sk,opts", [
     (256, 256, {}), (200, 200, {"causal": False}), (100, 300, {}),
     (256, 256, {"alibi_slopes": [0.5, 0.25], "window": 64, "softcap": 20.0}),
@@ -231,10 +241,11 @@ def test_flash_attention_fwd_kernel(dev, dtype, D, S, Sk, opts):
     assert torch.all(o[~live] == 0)
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("D", [32, 64, 128])
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("D", [32, 64, 80, 96, 128])
 @pytest.mark.parametrize("S,Sk,opts", [
     (256, 256, {}), (200, 200, {"causal": False}), (100, 300, {}),
+    (200, 200, {}), (20, 20, {}), (300, 100, {}),
     (256, 256, {"alibi_slopes": [0.5, 0.25], "window": 64, "softcap": 20.0}),
     (128, 128, {"mask": "key"}), (192, 192, {"mask": "per_head"})])
 def test_flash_attention_bwd_kernels(dev, dtype, D, S, Sk, opts):
@@ -326,8 +337,8 @@ def _bs_layout(name, H, S):
     return lay, 16, {}
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("D", [32, 64, 128])
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("D", [32, 64, 80, 96, 128])
 @pytest.mark.parametrize("name,S", [
     ("fixed16", 512), ("fixed64-bi", 512), ("bigbird", 400),
     ("longformer", 512), ("variable", 496), ("window1", 512),
@@ -386,9 +397,9 @@ def test_block_sparse_routes_launch_on_the_card(dev):
             [b + 1 for b in before]
         assert all(torch.isfinite(t.float()).all() for t in grads)
     layout = tsa.config_layout(cfg, 512)
-    q2 = torch.randn(1, 4, 512, 48, device=dev)
+    q2 = torch.randn(1, 4, 512, 136, device=dev)
+    with pytest.raises(ValueError, match="tile.*ROADMAP.md"):
+        tbs.block_sparse_attention_fwd(q2, q2, q2, layout, 64)
+    q2 = q2[..., :64].double()
     with pytest.raises(ValueError, match="tile"):
         tbs.block_sparse_attention_fwd(q2, q2, q2, layout, 64)
-    with pytest.raises(ValueError, match="tile"):
-        tbs.block_sparse_attention_fwd(q2.half(), q2.half(), q2.half(),
-                                       layout, 64)

@@ -134,3 +134,32 @@ def test_wrapper_on_cpu_runs_plain_version_without_launching():
     assert tpa.paged_attention.launches == before
     torch.testing.assert_close(out, ref, atol=0, rtol=0)
     torch.testing.assert_close(via_dispatch, ref, atol=0, rtol=0)
+
+
+@pytest.mark.parametrize("hd", [80, 96])
+def test_paged_decode_head_dims_80_96(hd):
+    """gpt2-2.7b's (80) and gpt2-760m's (96) head dims, which the CUDA
+    kernel takes with padded thread slices: f32 pools and an int8 pool
+    with its per-slot scales, ALiBi and a window."""
+    q, kp, vp, bt, lens = _data(hd=hd, L=2, seed=hd)
+    slopes = np.asarray([0.5, 0.25, 0.125, 0.0625], np.float32)
+    _check(*_both(q, kp, vp, bt, lens, layer_idx=1, alibi_slopes=slopes,
+                  window=37))
+    kq, ks = jax_kv_quantize(jnp.asarray(kp))
+    vq, vs = jax_kv_quantize(jnp.asarray(vp))
+    _check(*_both(q, np.asarray(kq), np.asarray(vq), bt, lens, layer_idx=0,
+                  k_scale=np.asarray(ks), v_scale=np.asarray(vs)))
+
+
+@pytest.mark.parametrize("hd", [64, 80])
+def test_paged_decode_fp16(hd):
+    """float16 q and pool on both sides, plain version vs the JAX gather
+    reference and the JAX kernel, to 1e-2 (a few fp16 ulps of |o| < 4)."""
+    q, kp, vp, bt, lens = _data(hd=hd, seed=40 + hd)
+    h = lambda a: np.asarray(a, np.float16)
+    port, ref, ker = _both(h(q), h(kp), h(vp), bt, lens, softcap=5.0)
+    assert port.dtype == np.float16
+    for other in (ref, ker):
+        np.testing.assert_allclose(port.astype(np.float32),
+                                   np.asarray(other, np.float32), atol=1e-2,
+                                   rtol=0)

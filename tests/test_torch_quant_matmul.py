@@ -41,6 +41,24 @@ def test_pack_and_matmul_match_jax(K, N, lead):
         np.testing.assert_allclose(port, ker, rtol=1e-5, atol=1e-5)
 
 
+@pytest.mark.parametrize("K,N", [(300, 128), (512, 96)])
+def test_plain_matmul_takes_any_scale_block(K, N):
+    """Scale blocks of 128 rows: the plain version (CPU tensors) matches
+    the JAX reference, which takes any block; only the CUDA kernel is
+    limited to 256-row blocks."""
+    rng = np.random.default_rng(K * N)
+    w = rng.standard_normal((K, N)).astype(np.float32)
+    x = rng.standard_normal((3, K)).astype(np.float32)
+    qj, sj = jqm.pack_kernel(jnp.asarray(w), block=128)
+    qt, st = tqm.pack_kernel(torch.from_numpy(w), block=128)
+    np.testing.assert_array_equal(qt.numpy(), np.asarray(qj))
+    assert qt.shape == (-(-K // 128) * 128, N)
+    assert st.shape == (qt.shape[0] // 128, N)
+    port = tqm.quant_matmul(torch.from_numpy(x), qt, st).numpy()
+    ref = np.asarray(jqm.quant_matmul_reference(jnp.asarray(x), qj, sj))
+    np.testing.assert_allclose(port, ref, rtol=1e-5, atol=1e-5)
+
+
 def test_pack_decode_weights_packs_matmul_leaves_only():
     rng = np.random.default_rng(1)
     L, H = 2, 64
