@@ -45,6 +45,10 @@ nor ``deepspeed_tpu``. Phases, each reported on its own line:
    layers of the trained weights vs the dense-mask route. Then the window
    leg: 4 layers with a uniform 1024-token window, three steps through
    the same kernels, vs ``attention_impl="reference"`` on 2 layers.
+   Before it, the head-dim-256 leg: llama-1.1b's preset cut to 2 layers
+   with google/gemma-2b's attention (8 query heads, 1 KV head of 256):
+   ``serve()``, ``generate()`` and two ``train_batch`` steps, each held to
+   its kernels by the launch counters.
 8. **time** — prefill and decode tokens/s from the serve and generate
    legs, train and long step time, tokens/s and 6N model TFLOP/s, the
    device busy share of a serve decode step, of a generate prefill and
@@ -54,8 +58,7 @@ nor ``deepspeed_tpu``. Phases, each reported on its own line:
    it), plus the block-sparse kernels over four layouts beside the flash
    kernels on the same shape; ``quant_matmul`` on one decode step (M 8)
    and one 512-token prefill (and at M 96, 224, 352); the flash, paged
-   and decode kernels at head dims 64, 80 and 96 in bf16 and fp16 beside
-   SDPA.
+   and decode kernels at head dims 64, 80, 96, 128 and 256 beside SDPA.
 
 ``--old-quant-matmul SRC`` also builds a parent commit's
 ``csrc/quant_matmul.cu`` from SRC and times it against this one in the
@@ -63,7 +66,12 @@ same process (parent, new, new, parent): one forward at each M and the
 int8 leg. ``--old-flash-bwd SRC`` does the same for a parent commit's
 ``csrc/flash_attention_bwd.cu`` (with the headers it includes beside it):
 the train leg's dq and dk/dv calls beside SDPA's backward and the bounds,
-and the train step's wall and busy ms under each.
+and the train step's wall and busy ms under each. ``--old-flash-fwd SRC``
+(a parent's ``csrc/flash_attention_fwd.cu``, its headers beside it):
+the generate prefill's and the train leg's calls, the generate prefill
+and decode step and the train step under each. ``--old-paged SRC`` (a
+parent's ``csrc/paged_attention.cu``): the serve step's call in a bf16
+and an int8 pool, D 96 x 16 heads, and the serve decode step under each.
 
 Launch counters are zeroed just before each leg and read just after it.
 Any failed check raises, so the script exits non-zero and prints no
@@ -263,10 +271,16 @@ def phase_build():
     from deepspeed_tpu_torch.ops import build
     secs = build.build()
     for name in build.KERNELS:
-        rows = ptxas_report(build.build_log(name))
+        text = build.build_log(name)
+        rows = ptxas_report(text)
         spills = [r for r in rows if r[2] or r[3]]
+        # ptxas's advisories, e.g. wgmma serialized (C7520)
+        advice = sorted({ln.split("Potential Performance Loss:")[1].split(
+            " in the function")[0].strip() for ln in text.splitlines()
+            if "Potential Performance Loss" in ln})
         log(f"build: {name} kernels={len(rows)} max_registers="
-            f"{max((r[1] for r in rows), default=0)} spilling={len(spills)}")
+            f"{max((r[1] for r in rows), default=0)} spilling={len(spills)}"
+            f" ptxas_advisories={json.dumps(advice)}")
         for kname, regs, st, ld in rows:
             log(f"build: {name} {kname} registers={regs} spill_stores={st} "
                 f"spill_loads={ld}")
@@ -326,6 +340,7 @@ def _hold(label, out, ref, f32, floor=0.0, scale=0.0):
 
 def phase_check():
     import torch
+    from deepspeed_tpu_torch.ops import build
     from deepspeed_tpu_torch.ops import paged_attention as tpa
     from deepspeed_tpu_torch.quant_format import kv_quantize
     errs = {"paged_attention": 0.0}
@@ -374,9 +389,28 @@ def phase_check():
                           (qx, kq1, vq1, {"k_scale": ks1, "v_scale": vs1}),
                           (qx, dequant(kq1, ks1, dt),
                            dequant(vq1, vs1, dt), {})))
+    # Gemma's head dim and 192, every dtype and an int8 pool: 4 heads of
+    # a 1-layer pool at the same lanes (8 x 4 = 32 (b, h): the context
+    # splits over 7 CTAs)
+    for hd, dt in ((256, bf), (256, torch.float16), (256, torch.float32),
+                   (192, bf), (192, torch.float16), (136, bf)):
+        kx, vx = (torch.randn(1, 4, nblk, bs, hd, device=dev, generator=g)
+                  for _ in range(2))
+        qx = torch.randn(B, 4, 1, hd, device=dev, generator=g).to(dt)
+        cases.append((f"{str(dt)[6:]} hd={hd}",
+                      (qx, kx.to(dt), vx.to(dt), {}), None))
+        if hd == 256 and dt != torch.float32:
+            (kq1, ks1), (vq1, vs1) = kv_quantize(kx), kv_quantize(vx)
+            cases.append((f"int8 {str(dt)[6:]} hd={hd}",
+                          (qx, kq1, vq1, {"k_scale": ks1, "v_scale": vs1}),
+                          (qx, dequant(kq1, ks1, dt),
+                           dequant(vq1, vs1, dt), {})))
     live = lens > 0
     for name, (q, k, v, kw), plain in cases:
         li = min(1, k.shape[0] - 1)
+        splits = tpa.split_plan(B, q.shape[1], bt.shape[1] * bs,
+                                build.sm_count(q.device))
+        name = f"{name} splits={splits}"
         out = tpa.paged_attention(q, k, v, bt, lens, layer_idx=li, **kw)
         f32 = q.dtype == torch.float32
         rq, rk, rv, rkw = plain or (q, k, v, kw)
@@ -391,6 +425,8 @@ def phase_check():
         errs["paged_attention"] = max(errs["paged_attention"], err)
         if zero != 0.0:
             fail(f"paged_attention {name}: ctx-0 lane {zero}")
+    errs["paged_attention"] = max(errs["paged_attention"],
+                                  check_paged_splits())
     errs["quant_matmul"] = check_quant_matmul()
     errs["decode_attention"] = check_decode_attention()
     errs["flash_attention_fwd"] = check_flash_attention()
@@ -399,6 +435,66 @@ def phase_check():
     errs["flash_attention_bwd_dkv"] = bwd["dkv"]
     errs.update(check_block_sparse_attention())
     return errs
+
+
+def check_paged_splits():
+    """The paged kernel's context split against its plain version: the
+    serve step's call (8 lanes x 32 heads of 64, contexts to 1024;
+    unsplit), with an int8 pool, D 96 x 16 heads (2 splits), 2 lanes x 8
+    heads (8 splits, the most), D 256 x 8 heads in an int8 pool, short
+    contexts, a large batch and contexts of one split's minimum (unsplit),
+    ragged lengths with one lane at 1 and one at the table's end; every
+    call twice, bit-identical. Returns the largest absolute error."""
+    import torch
+    from deepspeed_tpu_torch.ops import build
+    from deepspeed_tpu_torch.ops import paged_attention as tpa
+    from deepspeed_tpu_torch.quant_format import kv_quantize
+    g = torch.Generator(device="cuda").manual_seed(12)
+    sms = build.sm_count(torch.device("cuda"))
+    bf = torch.bfloat16
+    worst = 0.0
+    # (name, B, nh, hd, block size, table blocks, int8 pool)
+    cases = [("serve step", 8, 32, 64, 32, 32, False),
+             ("serve step int8", 8, 32, 64, 32, 32, True),
+             ("D96 x 16 heads", 8, 16, 96, 32, 32, False),
+             ("2 lanes x 8 heads", 2, 8, 64, 32, 64, False),
+             ("2 lanes x 8 heads int8", 2, 8, 128, 32, 64, True),
+             ("D256 x 8 heads int8", 8, 8, 256, 32, 64, True),
+             ("short contexts", 8, 16, 64, 16, 16, False),
+             ("large batch", 64, 32, 64, 32, 8, False),
+             ("one split's contexts", 4, 8, 128, 16, 7, True)]
+    for name, B, nh, hd, bs, nbk, quant in cases:
+        nblk = B * nbk + 1
+        kx, vx = (torch.randn(1, nh, nblk, bs, hd, device="cuda",
+                              generator=g) for _ in range(2))
+        q = torch.randn(B, nh, 1, hd, device="cuda", generator=g).to(bf)
+        bt = (torch.randperm(nblk - 1, device="cuda", generator=g) + 1
+              ).reshape(B, nbk).to(torch.int32)
+        lens = torch.randint(1, nbk * bs + 1, (B,), device="cuda",
+                             generator=g).to(torch.int32)
+        lens[0], lens[-1] = 1, nbk * bs
+        kw, (rk, rv) = {}, (kx.to(bf), vx.to(bf))
+        k, v = rk, rv
+        if quant:
+            (k, ks), (v, vs) = kv_quantize(kx), kv_quantize(vx)
+            kw = {"k_scale": ks, "v_scale": vs}
+            rk = (k.float() * ks.reshape(k.shape[:-1])[..., None]).to(bf)
+            rv = (v.float() * vs.reshape(v.shape[:-1])[..., None]).to(bf)
+        splits = tpa.split_plan(B, nh, nbk * bs, sms)
+        out = tpa.paged_attention(q, k, v, bt, lens, layer_idx=0, **kw)
+        again = tpa.paged_attention(q, k, v, bt, lens, layer_idx=0, **kw)
+        ref = tpa.paged_attention_reference(q.float(), rk.float(),
+                                            rv.float(), bt, lens,
+                                            layer_idx=0)
+        torch.cuda.synchronize()
+        same = torch.equal(out, again)
+        worst = max(worst, _hold(
+            f"paged_attention split {name} B={B} nh={nh} hd={hd} "
+            f"max_ctx={nbk * bs} splits={splits} bit_identical={same}",
+            out, ref, False))
+        if not same:
+            fail(f"paged_attention split {name}: two calls differ")
+    return worst
 
 
 # quant_matmul: the decode step's and the prefill's matrices, the regime
@@ -417,6 +513,20 @@ QM_CASES = (
 QM_UNALIGNED = ((8, QM_H, 2560), (96, QM_H, 2560))
 # two calls bit-identical: a split decode shape and split prefill shapes
 QM_REPEAT = ((8, QM_H, QM_H), (96, QM_H, QM_H), (512, QM_F, QM_H))
+# scale blocks other than 256 (any multiple of 16): (block, M, K, N, x
+# dtype); split decode and prefill shapes, a ragged K and N, f32
+QM_BLOCKS = [(blk, M, K, N, dt) for blk in (64, 128)
+             for M, K, N, dt in ((8, QM_H, QM_H, "bf16"),
+                                 (8, QM_F, QM_H, "bf16"),
+                                 (16, QM_H, 2560, "bf16"),
+                                 (96, QM_H, 2560, "bf16"),
+                                 (512, QM_F, QM_H, "bf16"),
+                                 (17, 300, 1000, "bf16"),
+                                 (8, QM_H, 2560, "f32"),
+                                 (96, 300, 200, "f32"))] + [
+    (48, 8, QM_H, QM_H, "bf16"), (48, 96, 300, 1000, "bf16"),
+    (48, 8, 300, 1000, "f32"), (512, 8, QM_F, QM_H, "bf16"),
+    (512, 512, QM_F, QM_H, "bf16"), (16, 96, QM_H, 2560, "bf16")]
 
 
 def check_quant_matmul():
@@ -425,24 +535,26 @@ def check_quant_matmul():
     2^-7 of the largest output (about one bf16 ulp of it). f32: the same
     sums in another order, within 2^-14 of the largest output."""
     import torch
+    from deepspeed_tpu_torch.ops import build
     from deepspeed_tpu_torch.ops import quant_matmul as tqm
     g = torch.Generator(device="cuda").manual_seed(11)
     worst = 0.0
 
-    def inputs(M, K, N, dt):
+    def inputs(M, K, N, dt, block=256):
         w = torch.randn(K, N, device="cuda", generator=g) * K ** -0.5
         x = torch.randn(M, K, device="cuda", generator=g)
         return (x.to(torch.bfloat16) if dt == "bf16" else x,
-                *tqm.pack_kernel(w))
+                *tqm.pack_kernel(w, block))
 
     def offset(t):              # the same values one element further on
         o = torch.empty(t.numel() + 1, dtype=t.dtype, device="cuda")[1:]
         return o.view_as(t).copy_(t)
 
-    cases = [c + (False,) for c in QM_CASES] + [
-        (M, K, N, "bf16", True) for M, K, N in QM_UNALIGNED]
-    for M, K, N, dt, unaligned in cases:
-        x, qw, sw = inputs(M, K, N, dt)
+    cases = [(256,) + c + (False,) for c in QM_CASES] + [
+        (256, M, K, N, "bf16", True) for M, K, N in QM_UNALIGNED] + [
+        c + (False,) for c in QM_BLOCKS]
+    for block, M, K, N, dt, unaligned in cases:
+        x, qw, sw = inputs(M, K, N, dt, block)
         if unaligned:
             x, qw = offset(x), offset(qw)
         out = tqm.quant_matmul(x, qw, sw)
@@ -451,18 +563,20 @@ def check_quant_matmul():
         tol = (2 ** -7 if dt == "bf16" else 2 ** -14) * ref.float().abs().max().item()
         err = _max_err(out, ref)
         worst = max(worst, err)
-        plan = tqm._plan(M, N, sw.shape[0], tqm._sm_count(x.device), x.dtype)
-        log(f"check: quant_matmul M={M} K={K} N={N} x={dt}"
+        plan = tqm._plan(M, N, sw.shape[0], build.sm_count(x.device), x.dtype,
+                         block)
+        log(f"check: quant_matmul M={M} K={K} N={N} x={dt} block={block}"
             f"{' unaligned' if unaligned else ''} regime={plan.regime} "
             f"splits={plan.splits} max_abs_err={err:.3e} tol={tol:.3e}")
         if out.dtype != x.dtype or out.shape != (M, N) or not err <= tol:
             fail(f"quant_matmul {M}x{K}x{N} {dt}: err {err} > {tol}")
-    for M, K, N in QM_REPEAT:
-        x, qw, sw = inputs(M, K, N, "bf16")
+    for block, (M, K, N) in [(256, c) for c in QM_REPEAT] + [
+            (64, (8, QM_H, QM_H)), (128, (96, QM_H, QM_H))]:
+        x, qw, sw = inputs(M, K, N, "bf16", block)
         a, b = tqm.quant_matmul(x, qw, sw), tqm.quant_matmul(x, qw, sw)
         torch.cuda.synchronize()
         same = torch.equal(a, b)
-        log(f"check: quant_matmul M={M} K={K} N={N} two calls "
+        log(f"check: quant_matmul M={M} K={K} N={N} block={block} two calls "
             f"bit_identical={same}")
         if not same:
             fail(f"quant_matmul {M}x{K}x{N}: two calls differ")
@@ -532,6 +646,18 @@ def check_decode_attention():
               (h16, 96, 1, 300, 1, {}), (h16, 80, 5, 777, 0,
                                           {"alibi_slopes": slopes,
                                            "softcap": 30.0, "window": 100})]
+    # Gemma's head dim (T 1: 32 threads of 16 bytes a 16-bit row, of 32
+    # bytes an f32 row; T 64: 256 threads, shared memory past 48 KB) and
+    # 192 and 136 (padded slices and rows)
+    f32 = torch.float32
+    cases += [(bf, 256, 1, 1000, 1, {}), (bf, 256, 64, 1000, 1, {}),
+              (h16, 256, 1, 777, 0, {}), (h16, 256, 64, 300, None, {}),
+              (f32, 256, 1, 1000, 1, {}), (f32, 256, 5, 300, 0, {}),
+              (f32, 256, 64, 700, 0, {"alibi_slopes": slopes,
+                                       "softcap": 30.0, "window": 100}),
+              (bf, 256, 5, 777, 1, {"alibi_slopes": slopes, "window": 100}),
+              (bf, 192, 1, 1000, 1, {}), (h16, 192, 64, 777, 0, {}),
+              (bf, 136, 5, 300, 1, {}), (f32, 192, 1, 300, 0, {})]
     worst = 0.0
     for dtype, hd, T, cur, li, kw in cases:
         k, v = cache(hd, dtype)
@@ -573,7 +699,39 @@ def _width_cases():
         # edges
         ("causal S1000", bf, 2, 4, 1000, 1000, 64, {}),
         ("fp16 non-causal Sk>S", h16, 2, 4, 300, 1000, 64, {"causal": False}),
+        # Gemma's head dim and 192: the wgmma forward (no extras), the
+        # mma.sync kernels with Q (dO, K, V) in shared memory, f32
+        ("D256 S1000", bf, 2, 4, 1000, 1000, 256, {}),
+        ("fp16 D256 non-causal Sk>S", h16, 2, 4, 300, 1000, 256,
+         {"causal": False}),
+        ("D256 alibi+window+softcap", bf, 2, 4, 1000, 1000, 256,
+         {"alibi_slopes": slopes, "window": 100, "softcap": 30.0}),
+        ("fp16 D256 alibi+window+softcap", h16, 1, 4, 1024, 1024, 256,
+         {"alibi_slopes": slopes, "window": 256, "softcap": 30.0}),
+        ("f32 D256 S1000", f32, 2, 4, 1000, 1000, 256, {}),
+        ("f32 D256 non-causal", f32, 1, 4, 777, 777, 256, {"causal": False}),
+        ("D192 S1000", bf, 2, 4, 1000, 1000, 192, {}),
+        ("fp16 D192 alibi+window+softcap", h16, 2, 4, 1000, 1000, 192,
+         {"alibi_slopes": slopes, "window": 100, "softcap": 30.0}),
+        ("D200 causal", bf, 2, 4, 1000, 1000, 200, {}),
+        ("fp16 D136 Sk>S", h16, 2, 4, 300, 1000, 136, {}),
     ]
+
+
+def _wg_cases():
+    """Every call form of the forward's wgmma kernel (16-bit, no extras, D
+    in 64, 80, 96, 128, 192, 256): each width in bf16 and fp16, causal
+    and not, S = Sk ragged or Sk > S (the causal offset), a batch of
+    several heads."""
+    import torch
+    out = []
+    for i, D in enumerate((64, 80, 96, 128, 192, 256)):
+        for j, dt in enumerate((torch.bfloat16, torch.float16)):
+            causal = (i + j) % 2 == 0
+            S, Sk = ((777, 777), (300, 1000))[(i + 2 * j) % 2]
+            out.append((f"wgmma D{D} {'causal' if causal else 'non-causal'}",
+                        dt, 2, 3, S, Sk, D, {"causal": causal}))
+    return out
 
 
 def check_flash_attention():
@@ -624,7 +782,7 @@ def check_flash_attention():
         ("f32 alibi+window+softcap", f32, 2, 4, 1000, 1000, 128,
          {"alibi_slopes": [0.5, 0.25, 0.125, 0.0625], "window": 100,
           "softcap": 30.0}),
-    ] + _width_cases()
+    ] + _width_cases() + _wg_cases()
     worst = 0.0
     for name, dtype, B, H, S, Sk, D, kw in cases:
         q = torch.randn(B, H, S, D, device="cuda", generator=g).to(dtype)
@@ -817,6 +975,19 @@ def _bs_cases():
         ("fp16 window W=100 D80", h16, 1, 4, 1024, 80,
          *window(4, 1024, 100)),
         ("fp16 dead rows D96", h16, 1, 4, 1024, 96, dead, 16, {}),
+        # Gemma's head dim and 192: own rows in shared memory, dk/dv over
+        # two column halves
+        ("fixed-16 causal D256", bf, 1, 4, 1024, 256,
+         *lay(tsa.FixedSparsityConfig, 4, 1024, block=16, **uni),
+         {"causal": True}),
+        ("fp16 bigbird D256 ragged S=1008", h16, 1, 4, 1008, 256,
+         *lay(tsa.BigBirdSparsityConfig, 4, 1008, block=16), {}),
+        ("f32 fixed-64 D256", f32, 1, 4, 1024, 256,
+         *lay(tsa.FixedSparsityConfig, 4, 1024, block=64), {}),
+        ("window W=100 D192", bf, 1, 4, 1024, 192, *window(4, 1024, 100)),
+        ("fp16 dead rows D192", h16, 1, 4, 1024, 192, dead, 16, {}),
+        ("f32 window W=100 D192", f32, 1, 4, 1024, 192,
+         *window(4, 1024, 100)),
     ]
     return cases
 
@@ -1097,9 +1268,10 @@ def _report_profile(label, prof, wall_ms, steps):
         + (" quant_matmul_launches_per_step=" + json.dumps(qm) if qm else ""))
 
 
-def profile_generate(cfg, params, ids, steps=5):
+def profile_generate(cfg, params, ids, steps=5, tag=""):
     """Device busy share of the generate leg's prefill and of its steady
-    greedy decode steps (forward_with_cache + argmax, 8 sequences)."""
+    greedy decode steps (forward_with_cache + argmax, 8 sequences); ``tag``
+    follows the labels."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     from deepspeed_tpu_torch.models.generation import (forward_with_cache,
@@ -1118,7 +1290,7 @@ def profile_generate(cfg, params, ids, steps=5):
             tok = logits[:, -1].argmax(-1)
             torch.cuda.synchronize()
             wall_ms = 1e3 * (time.perf_counter() - t0)
-        _report_profile("generate prefill", prof, wall_ms, 1)
+        _report_profile("generate prefill" + tag, prof, wall_ms, 1)
         for _ in range(2):
             logits, cache = forward_with_cache(cfg, params, tok[:, None],
                                                cache)
@@ -1132,7 +1304,7 @@ def profile_generate(cfg, params, ids, steps=5):
                 tok = logits[:, -1].argmax(-1)
             torch.cuda.synchronize()
             wall_ms = 1e3 * (time.perf_counter() - t0) / steps
-        _report_profile("generate decode step", prof, wall_ms, steps)
+        _report_profile("generate decode step" + tag, prof, wall_ms, steps)
 
 
 # ---------------------------------------------------------------- 4. int8
@@ -1331,6 +1503,109 @@ def phase_generate(tmp, served):
     profile_generate(cfg, params, ids)
     _short_generate_legs(cfg, params)
     return counts, rates
+
+
+# ------------------------------------------------------ 6b. head dim 256
+
+# google/gemma-2b's attention geometry (config.json: num_attention_heads 8,
+# num_key_value_heads 1, head_dim 256) on llama-1.1b's preset, depth cut
+# to 2 layers
+GEMMA_ATTN = dict(num_layers=2, num_heads=8, num_kv_heads=1,
+                  head_dim_override=256)
+GEMMA_LAYERS = GEMMA_ATTN["num_layers"]
+
+
+def phase_gemma(tmp):
+    """The entry points at head dim 256: llama-1.1b's preset cut to 2
+    layers with google/gemma-2b's attention (8 query heads, 1 KV head of
+    256), random weights from a seed. serve() answers 4 requests
+    (paged_attention every decode step), generate() prefills 4 x 512 and
+    decodes 16 (flash_attention_fwd, then decode_attention), and two
+    train_batch steps at seq 1024 run the forward and both backward flash
+    kernels; the launch counters hold each path to its kernels, the
+    prefill and decode logits to the plain path's, one micro-batch's loss
+    and grad norm to attention_impl="reference"."""
+    import numpy as np
+    import torch
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.models.transformer import (build_model,
+                                                        get_config,
+                                                        init_params)
+    cfg = get_config("llama-1.1b", **GEMMA_ATTN)
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(1))
+    path = os.path.join(tmp, "ds_gemma.json")
+    with open(path, "w") as f:
+        json.dump({"dtype": "bf16", "serving": SERVING}, f)
+    srv = deepspeed_tpu_torch.init_inference(
+        cfg, path, model_parameters=params).serve()
+    rng = np.random.default_rng(9)
+    prompts = [list(rng.integers(1, 32000, int(n)))
+               for n in (100, 257, 600, 1000)]
+    _instrument(srv)
+    _zero_counters()
+    _run_requests(srv, prompts, 16)
+    serve = _counters()
+    steps = srv._decode_step.calls
+    log(f"gemma: serve head_dim={cfg.head_dim} heads={cfg.num_heads}/"
+        f"{cfg.num_kv_heads} layers={cfg.num_layers} requests={len(prompts)} "
+        f"decode_steps={steps} launches={json.dumps(serve)}")
+    if steps == 0 or serve["paged_attention"] != GEMMA_LAYERS * steps:
+        fail(f"gemma serve: paged_attention launched "
+             f"{serve['paged_attention']} times for {steps} decode steps")
+    del srv
+    eng = deepspeed_tpu_torch.init_inference(cfg, {"dtype": "bf16"},
+                                             model_parameters=params)
+    ids = torch.as_tensor(rng.integers(1, 32000, (4, 512)), device="cuda")
+    eng.generate(ids[:, :64], max_new_tokens=2)           # warm-up
+    _zero_counters()
+    out = eng.generate(ids, max_new_tokens=16)
+    torch.cuda.synchronize()
+    gen = _counters()
+    log(f"gemma: generate out={tuple(out.shape)} launches={json.dumps(gen)}")
+    if tuple(out.shape) != (4, 528) or not torch.equal(out[:, :512], ids):
+        fail(f"gemma generate returned {tuple(out.shape)}")
+    if gen["flash_attention_fwd"] != GEMMA_LAYERS or \
+            gen["decode_attention"] != GEMMA_LAYERS * 15:
+        fail(f"gemma generate launched {gen}")
+    _generate_logits_check(cfg, params, ids, 5e-2)
+    del eng, params
+    model, _ = build_model("llama-1.1b", fused_loss=True, loss_chunk=256,
+                           seed=0, device="cuda", **GEMMA_ATTN)
+    with open(os.path.join(tmp, "ds_gemma_train.json"), "w") as f:
+        json.dump(TRAIN_CONFIG, f)
+    engine, *_ = deepspeed_tpu_torch.initialize(
+        model=model, config=os.path.join(tmp, "ds_gemma_train.json"))
+    del model
+    batch = {"input_ids": rng.integers(1, cfg.vocab_size,
+                                       (TRAIN_MICRO * TRAIN_GAS, TRAIN_SEQ))}
+    train = dict.fromkeys(FLASH_KERNELS, 0)
+    for step in range(2):
+        _zero_counters()
+        m = engine.train_batch(batch)
+        c = _counters()
+        log(f"gemma: train step {step} loss={m['loss']:.5f} "
+            f"grad_norm={m['grad_norm']:.4f} launches={json.dumps(c)}")
+        if not np.isfinite(m["loss"]) or m["overflow"] or any(
+                c[k] != GEMMA_LAYERS * TRAIN_GAS for k in FLASH_KERNELS):
+            fail(f"gemma train step {step}: {m}, launches {c}")
+        for k in FLASH_KERNELS:
+            train[k] += c[k]
+    micro = {"input_ids": torch.as_tensor(batch["input_ids"][:TRAIN_MICRO],
+                                          device="cuda")}
+    got = _micro_loss_and_norm(engine.module, micro)
+    _set_attention_impl(engine.module, "reference")
+    ref = _micro_loss_and_norm(engine.module, micro)
+    rl, rn = (abs(a - b) / abs(b) for a, b in zip(got, ref))
+    log(f"check: gemma train micro-batch kernels vs attention_impl="
+        f"reference loss={got[0]:.5f}/{ref[0]:.5f} rel_err={rl:.3e} "
+        f"tol=1e-3 grad_norm={got[1]:.5f}/{ref[1]:.5f} rel_err={rn:.3e} "
+        f"tol=1e-2")
+    if not (rl <= 1e-3 and rn <= 1e-2):
+        fail("gemma train: the kernel path's loss or grad norm is off the "
+             "reference path's")
+    del engine
+    torch.cuda.empty_cache()
+    return {"serve": serve, "generate": gen, "train": train}
 
 
 # ---------------------------------------------------------------- 6. train
@@ -1787,85 +2062,40 @@ def time_quant_matmul_prefill_lengths(mats):
 
 
 def _parent_quant_matmul(src):
-    """The parent commit's quant_matmul kernel, built from its source file
-    ``src`` (not part of the checkout), behind its wrapper's host path for
-    CUDA tensors: K split into f32 partials and a second kernel, the SM
-    count and the partials fetched on every call."""
+    """The parent commit's quant_matmul library, built from its source file
+    ``src`` (the same C interface: its wrapper's plan and launch run
+    unchanged)."""
     import ctypes
-    import hashlib
-    import torch
-    from deepspeed_tpu_torch.ops import build
-    from deepspeed_tpu_torch.ops import quant_matmul as tqm
-    with open(src, "rb") as f:
-        digest = hashlib.sha256(f.read()).hexdigest()[:16]
-    lib_path = build.BUILD_DIR / f"parent_quant_matmul-{digest}.so"
-    if not lib_path.exists():
-        build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        subprocess.run([build._nvcc(), *build.NVCC_FLAGS, "-o", str(lib_path),
-                        src], check=True, capture_output=True, timeout=600)
-    fn = ctypes.CDLL(str(lib_path)).quant_matmul_launch
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-
-    def launch(x, q, scales):
-        Kp, N = q.shape
-        nkb = scales.shape[0]
-        lead, K = x.shape[:-1], x.shape[-1]
-        xf = x.reshape(-1, K).contiguous()
-        M = xf.shape[0]
-        out = torch.empty((M, N), dtype=x.dtype, device=x.device)
-        tiles = -(-N // 128) * -(-M // 8)
-        sms = torch.cuda.get_device_properties(x.device).multi_processor_count
-        kb_per = (nkb if tiles >= 2 * sms else
-                  -(-nkb // min(nkb, -(-2 * sms // tiles))))
-        splits = -(-nkb // kb_per)
-        part = (torch.empty((splits, M, N), dtype=torch.float32,
-                            device=x.device) if splits > 1 else None)
-        tqm.quant_matmul.launches += 1
-        err = fn(xf.data_ptr(), q.data_ptr(), scales.data_ptr(),
-                 out.data_ptr(), None if part is None else part.data_ptr(),
-                 M, K, N, nkb, Kp // nkb, kb_per,
-                 int(x.dtype == torch.bfloat16),
-                 torch.cuda.current_stream().cuda_stream)
-        if err:
-            fail(f"parent quant_matmul launch error {err}")
-        return out.reshape(lead + (N,))
-    return launch
-
-
-def _under(launch, fn):
-    """fn() with quant_matmul launching ``launch`` in place of its own."""
-    from deepspeed_tpu_torch.ops import quant_matmul as tqm
-    own = tqm._launch
-    tqm._launch = launch
-    try:
-        return fn()
-    finally:
-        tqm._launch = own
+    lib = _parent_lib(src, "quant_matmul")
+    lib.quant_matmul_launch.argtypes = ([ctypes.c_void_p] * 4 +
+                                        [ctypes.c_int] * 11 + [ctypes.c_void_p])
+    lib.quant_matmul_launch.restype = ctypes.c_int
+    return lib
 
 
 AB_ORDER = ("parent", "new", "new", "parent")
 
 
 def ab_quant_matmul(mats, old):
-    """The parent commit's kernel (launch ``old``) against this one in one
+    """The parent commit's kernel (library ``old``) against this one in one
     process, each reading in the order parent, new, new, parent: one
     forward's 111 launches at the decode and prefill Ms."""
     import torch
     from deepspeed_tpu_torch.ops import quant_matmul as tqm
-    new = tqm._launch
+    libs = {"parent": old, "new": tqm._lib()}
     xs = _qm_inputs(mats, 8, 5)
     q, s = mats[-1]
     ref = tqm.quant_matmul(xs[q.shape[0]], q, s)
-    diff = _max_err(_under(old, lambda: tqm.quant_matmul(xs[q.shape[0]], q, s)),
-                    ref)
-    log(f"time: quant_matmul parent vs new LM head M=8 max_abs_diff={diff:.3e}")
+    with _using(tqm, "_lib", old):
+        theirs = tqm.quant_matmul(xs[q.shape[0]], q, s)
+    log(f"time: quant_matmul parent vs new LM head M=8 max_abs_diff="
+        f"{_max_err(theirs, ref):.3e}")
     for M in (8,) + QM_PREFILL_MS + (512,):
         fwd = _qm_forward(mats, _qm_inputs(mats, M, 6))
         res = {"parent": [], "new": []}
         for who in AB_ORDER:
-            res[who].append(_under(old if who == "parent" else new,
-                                   lambda: device_ms(fwd)))
+            with _using(tqm, "_lib", libs[who]):
+                res[who].append(device_ms(fwd))
         log(f"time: quant_matmul parent vs new M={M} ms={json.dumps(res)}")
         torch.cuda.empty_cache()
 
@@ -1875,14 +2105,13 @@ def ab_int8(srv8, old):
     order parent, new, new, parent, and a decode step's busy share under
     each."""
     from deepspeed_tpu_torch.ops import quant_matmul as tqm
-    new = tqm._launch
+    libs = {"parent": old, "new": tqm._lib()}
     for i, who in enumerate(AB_ORDER):
-        launch = old if who == "parent" else new
-        _, rates, _ = _under(launch, lambda: _int8_leg(srv8, 100 + i))
-        log(f"time: int8 {who} kernel " + json.dumps(rates))
-        if i < 2:
-            _under(launch, lambda: profile_decode(
-                srv8, label=f"int8 decode step, {who} kernel"))
+        with _using(tqm, "_lib", libs[who]):
+            _, rates, _ = _int8_leg(srv8, 100 + i)
+            log(f"time: int8 {who} kernel " + json.dumps(rates))
+            if i < 2:
+                profile_decode(srv8, label=f"int8 decode step, {who} kernel")
 
 
 def time_decode_attention():
@@ -2042,13 +2271,17 @@ def time_flash_attention_bwd():
 
 # (head dim, heads, presets of that width): the head dims other than
 # llama-1.1b's 64 that the port's presets use
-HEAD_DIM_CASES = ((64, 32, "llama-1.1b"), (80, 32, "gpt2-2.7b"),
-                  (96, 16, "gpt2-760m"))
+# (D, heads, preset, fp16 too): fp16 timed where its kernels differ most
+# from bf16's (PRs 6-7 found fp16 within 1.5% of bf16 at D 80 and 96)
+HEAD_DIM_CASES = ((64, 32, "llama-1.1b", True), (80, 32, "gpt2-2.7b", False),
+                  (96, 16, "gpt2-760m", False), (128, 32, "gpt2-6.7b", True),
+                  (256, 16, "google/gemma-7b attention", True))
 
 
 def time_head_dims():
-    """The attention kernels at head dims 64, 80 and 96 (each with its
-    preset's heads) in bf16 and fp16 beside SDPA on the same inputs, device
+    """The attention kernels at head dims 64, 80, 96, 128 and 256 (each
+    with its preset's heads; 256: google/gemma-7b's 16 heads of 256) in
+    bf16 (and fp16 at 64, 128 and 256) beside SDPA on the same inputs, device
     ms per step as the paths run them: flash forward and the backward pair
     at the train leg's call (B 2, S = Sk = 1024, causal; 44 calls), paged
     attention at the serve leg's decode (B 8, ctx 1024, blocks of 32) and
@@ -2065,8 +2298,8 @@ def time_head_dims():
     def steps(fn, n):
         return queued_ms(lambda: [fn() for _ in range(n)])
 
-    for D, H, preset in HEAD_DIM_CASES:
-        for dt in (torch.bfloat16, torch.float16):
+    for D, H, preset, fp16 in HEAD_DIM_CASES:
+        for dt in (torch.bfloat16, torch.float16)[:2 if fp16 else 1]:
             q, k, v, do, o, lse, delta = _bwd_inputs(10, H, D, dt)
             B, _, S, _ = q.shape
             pairs = B * H * S * (S + 1) // 2
@@ -2132,17 +2365,16 @@ def time_head_dims():
                 f"{nd} calls, B={Bd}, cur_len={cur} of {max_len}]")
 
 
-def _parent_flash_bwd(src):
-    """A flash backward library built from a parent commit's
-    ``csrc/flash_attention_bwd.cu`` at ``src`` (with the headers it
-    includes beside it; the same C interface), with its register report
-    logged."""
+def _parent_lib(src, name):
+    """The library of kernel ``name`` built from a parent commit's
+    ``csrc/<name>.cu`` at ``src`` (with the headers it includes beside
+    it), with its register report logged."""
     import ctypes
     import hashlib
     from deepspeed_tpu_torch.ops import build
     with open(src, "rb") as f:
         digest = hashlib.sha256(f.read()).hexdigest()[:16]
-    lib_path = build.BUILD_DIR / f"other_flash_attention_bwd-{digest}.so"
+    lib_path = build.BUILD_DIR / f"other_{name}-{digest}.so"
     build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
     out = subprocess.run([build._nvcc(), *build.NVCC_FLAGS, "-o",
                           str(lib_path), src], check=True,
@@ -2150,7 +2382,13 @@ def _parent_flash_bwd(src):
     for kname, regs, st, ld in ptxas_report(out.stdout + out.stderr):
         log(f"build: {src} {kname} registers={regs} spill_stores={st} "
             f"spill_loads={ld}")
-    lib = ctypes.CDLL(str(lib_path))
+    return ctypes.CDLL(str(lib_path))
+
+
+def _parent_flash_bwd(src):
+    """The parent's flash backward library (the same C interface)."""
+    import ctypes
+    lib = _parent_lib(src, "flash_attention_bwd")
     P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     for fn, n_ptr in ((lib.flash_attention_bwd_dq_launch, 10),
                       (lib.flash_attention_bwd_dkv_launch, 11)):
@@ -2159,18 +2397,173 @@ def _parent_flash_bwd(src):
     return lib
 
 
+def _parent_flash_fwd(src):
+    """The parent's flash forward library (the same C interface)."""
+    import ctypes
+    lib = _parent_lib(src, "flash_attention_fwd")
+    P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.flash_attention_fwd_launch.argtypes = [P] * 8 + [I] * 8 + [F] * 2 + [I, P]
+    lib.flash_attention_fwd_launch.restype = ctypes.c_int
+    return lib
+
+
+class _SplitlessPaged:
+    """The parent's paged library behind this wrapper's call: its entry
+    point takes no split count (argument 20 of this one's)."""
+
+    def __init__(self, lib):
+        self.lib = lib
+
+    def paged_attention_launch(self, *a):
+        return self.lib.paged_attention_launch(*a[:19], *a[20:])
+
+    def __getattr__(self, name):
+        return getattr(self.lib, name)
+
+
+def _parent_paged(src):
+    import ctypes
+    lib = _parent_lib(src, "paged_attention")
+    P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.paged_attention_launch.argtypes = [P] * 9 + [I] * 8 + [F] * 2 + [I, I, P]
+    lib.paged_attention_launch.restype = ctypes.c_int
+    return _SplitlessPaged(lib)
+
+
+class _using:
+    """with _using(module, "_lib", lib): the module's kernel wrappers
+    launch from ``lib``."""
+
+    def __init__(self, module, attr, lib):
+        self.module, self.attr, self.lib = module, attr, lib
+
+    def __enter__(self):
+        self.own = getattr(self.module, self.attr)
+        setattr(self.module, self.attr, lambda: self.lib)
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.attr, self.own)
+
+
 def _under_bwd(lib, fn):
     """fn() with the flash backward wrappers launching from ``lib``."""
     from deepspeed_tpu_torch.ops import flash_attention as tfa
-    own = tfa._bwd_lib
-    tfa._bwd_lib = lambda: lib
-    try:
+    with _using(tfa, "_bwd_lib", lib):
         return fn()
-    finally:
-        tfa._bwd_lib = own
 
 
-AB_ORDER = ("parent", "new", "new", "parent")
+def _ab_kernel(kernel, call, fns, libs, under, n, extra=""):
+    """Device ms of ``n`` launches of each fn in ``fns`` (one call form
+    each) under the parent's library and this one's, in the order parent,
+    new, new, parent; logged with their ratio."""
+    for form, fn in fns.items():
+        res = {label: [] for label in libs}
+        for label in AB_ORDER:
+            with under(libs[label]):
+                res[label].append(device_ms(lambda: [fn() for _ in range(n)]))
+        mean = {label: sum(r) / len(r) for label, r in res.items()}
+        log(f"time: {kernel} parent vs new {call} {form} ms="
+            f"{json.dumps(res)} new_over_parent="
+            f"{mean['new'] / mean['parent']:.3f}{extra} [{n} launches]")
+
+
+def ab_flash_fwd(old):
+    """The parent's flash forward (library ``old``) against this one at
+    the generate prefill's call (22 x [8, 32, 1024, 64]) and the train
+    leg's (44 x [2, 32, 1024, 64]), causal bf16, beside SDPA; and the
+    parent's outputs against these on the same inputs."""
+    import torch
+    import torch.nn.functional as F
+    from deepspeed_tpu_torch.ops import flash_attention as tfa
+    libs = {"parent": old, "new": tfa._lib()}
+    under = lambda lib: _using(tfa, "_lib", lib)
+    g = torch.Generator(device="cuda").manual_seed(7)
+    for call, B, n in (("generate prefill", GEN_BATCH, LLAMA_LAYERS),
+                       ("train step", TRAIN_MICRO, LLAMA_LAYERS * TRAIN_GAS)):
+        q, k, v = (torch.randn(B, 32, 1024, 64, device="cuda", generator=g)
+                   .to(torch.bfloat16) for _ in range(3))
+        mine = tfa.flash_attention_fwd(q, k, v, causal=True)
+        with under(old):
+            theirs = tfa.flash_attention_fwd(q, k, v, causal=True)
+        sdpa = device_ms(lambda: [F.scaled_dot_product_attention(
+            q, k, v, is_causal=True) for _ in range(n)])
+        log(f"time: flash_attention_fwd parent vs new {call} max_abs_diff "
+            f"o={_max_err(mine[0], theirs[0]):.3e} "
+            f"lse={_max_err(mine[1], theirs[1]):.3e}")
+        _ab_kernel("flash_attention_fwd", call, {"bf16 causal": lambda:
+                   tfa.flash_attention_fwd(q, k, v, causal=True)},
+                   libs, under, n, f" sdpa_ms={sdpa:.4f}")
+        del q, k, v, mine, theirs
+    torch.cuda.empty_cache()
+
+
+def ab_paged(old, srv):
+    """The parent's paged kernel (``old``) against this one: the serve
+    step's call (22 x B 8, 32 heads of 64, ctx 1024, blocks of 32) in a
+    bf16 and an int8 pool, and D 96 with 16 heads; then the serve leg's
+    decode step profiled under each, in the order parent, new, new,
+    parent."""
+    import torch
+    import torch.nn.functional as F
+    from deepspeed_tpu_torch.ops import build
+    from deepspeed_tpu_torch.ops import paged_attention as tpa
+    from deepspeed_tpu_torch.quant_format import kv_quantize
+    libs = {"parent": old, "new": tpa._lib()}
+    under = lambda lib: _using(tpa, "_lib", lib)
+    g = torch.Generator(device="cuda").manual_seed(2)
+    B, bs, ctx, L = 8, 32, 1024, LLAMA_LAYERS
+    per = ctx // bs
+    nblk = B * per + 1
+    bt = (torch.randperm(nblk - 1, device="cuda", generator=g)[:B * per] + 1
+          ).reshape(B, per).to(torch.int32)
+    lens = torch.full((B,), ctx, dtype=torch.int32, device="cuda")
+    for call, nh, hd in (("serve step", 32, 64), ("D96 x 16 heads", 16, 96)):
+        k32, v32 = (torch.randn(1, nh, nblk, bs, hd, device="cuda",
+                                generator=g) for _ in range(2))
+        q = torch.randn(B, nh, 1, hd, device="cuda",
+                        generator=g).to(torch.bfloat16)
+        k, v = k32.to(torch.bfloat16), v32.to(torch.bfloat16)
+        (kq, ks), (vq, vs) = kv_quantize(k32), kv_quantize(v32)
+        kc, vc = (t[0][:, bt.long()].permute(1, 0, 2, 3, 4).reshape(
+            B, nh, ctx, hd) for t in (k, v))
+        sdpa = device_ms(lambda: [F.scaled_dot_product_attention(q, kc, vc)
+                                  for _ in range(L)])
+        mine = tpa.paged_attention(q, k, v, bt, lens, layer_idx=0)
+        with under(old):
+            theirs = tpa.paged_attention(q, k, v, bt, lens, layer_idx=0)
+        splits = tpa.split_plan(B, nh, ctx, build.sm_count(q.device))
+        log(f"time: paged_attention parent vs new {call} max_abs_diff="
+            f"{_max_err(mine, theirs):.3e} splits={splits}")
+        fns = {"bf16": lambda: tpa.paged_attention(q, k, v, bt, lens,
+                                                   layer_idx=0),
+               "int8": lambda: tpa.paged_attention(
+                   q, kq, vq, bt, lens, layer_idx=0, k_scale=ks,
+                   v_scale=vs)}
+        if call != "serve step":
+            fns.pop("int8")
+        _ab_kernel("paged_attention", call, fns, libs, under, L,
+                   f" sdpa_ms={sdpa:.4f}")
+        del k32, v32, k, v, kq, vq, kc, vc
+    torch.cuda.empty_cache()
+    for label in AB_ORDER:
+        with under(libs[label]):
+            profile_decode(srv, label=f"serve decode step, {label} paged")
+
+
+def ab_generate(old, cfg, params):
+    """The generate leg's prefill and decode step profiled under the
+    parent's flash forward (``old``) and this one, in the order parent,
+    new, new, parent."""
+    import numpy as np
+    import torch
+    from deepspeed_tpu_torch.ops import flash_attention as tfa
+    rng = np.random.default_rng(7)
+    ids = torch.as_tensor(rng.integers(1, 32000, (GEN_BATCH, GEN_PROMPT)),
+                          device="cuda")
+    libs = {"parent": old, "new": tfa._lib()}
+    for label in AB_ORDER:
+        with _using(tfa, "_lib", libs[label]):
+            profile_generate(cfg, params, ids, tag=f", {label} fwd")
 
 
 def ab_flash_bwd(old, fb):
@@ -2216,15 +2609,17 @@ def ab_flash_bwd(old, fb):
     del q, k, v, do, o, lse, delta, mine, theirs
 
 
-def ab_train(engine, batch, old, steps=3):
-    """The train leg's step under the parent's flash backward kernels
-    (library ``old``) and under these, in the order parent, new, new,
-    parent: the median wall ms of ``steps`` steps and one profiled step's
-    device busy ms and flash kernel ms."""
+def ab_train(engine, batch, old, which="bwd", steps=3):
+    """The train leg's step under the parent's flash kernels (library
+    ``old``: the backward pair, or with ``which="fwd"`` the forward) and
+    under these, in the order parent, new, new, parent: the median wall ms
+    of ``steps`` steps and one profiled step's device busy ms and flash
+    kernel ms."""
     import numpy as np
     import torch
     from deepspeed_tpu_torch.ops import flash_attention as tfa
-    libs = {"parent": old, "new": tfa._bwd_lib()}
+    attr = "_bwd_lib" if which == "bwd" else "_lib"
+    libs = {"parent": old, "new": getattr(tfa, attr)()}
     for label in AB_ORDER:
 
         def run():
@@ -2236,10 +2631,11 @@ def ab_train(engine, batch, old, steps=3):
             torch.cuda.synchronize()
             ms = float(np.median(wall))
             busy, kinds = profile_train(engine, batch, ms,
-                                        label=f"train step, {label} bwd")
+                                        label=f"train step, {label} {which}")
             return ms, busy, kinds["flash_attention"]
-        ms, busy, flash = _under_bwd(libs[label], run)
-        log(f"time: train {label} flash bwd step_ms={ms:.3f} "
+        with _using(tfa, attr, libs[label]):
+            ms, busy, flash = run()
+        log(f"time: train {label} flash {which} step_ms={ms:.3f} "
             f"busy_ms={busy:.3f} flash_ms={flash:.3f}")
 
 
@@ -2446,6 +2842,19 @@ def main(argv=None):
                          ", with the headers it includes beside it) against "
                          "these, in one process: the train leg's call and "
                          "its step")
+    ap.add_argument("--old-flash-fwd", metavar="SRC",
+                    help="also time the flash forward kernel built from SRC "
+                         "(a parent commit's csrc/flash_attention_fwd.cu, "
+                         "with the headers it includes beside it) against "
+                         "this one, in one process: the generate prefill's "
+                         "and the train leg's calls, the generate prefill "
+                         "and decode step and the train step")
+    ap.add_argument("--old-paged", metavar="SRC",
+                    help="also time the paged kernel built from SRC (a "
+                         "parent commit's csrc/paged_attention.cu) against "
+                         "this one, in one process: the serve step's call "
+                         "(bf16 and int8 pools), D 96 x 16 heads, and the "
+                         "serve decode step")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -2470,14 +2879,21 @@ def main(argv=None):
 
     t0 = time.perf_counter()
     phase_build()
+    old_fwd = (_parent_flash_fwd(args.old_flash_fwd)
+               if args.old_flash_fwd else None)
+    old_paged = _parent_paged(args.old_paged) if args.old_paged else None
     errs = phase_check()
     with tempfile.TemporaryDirectory() as tmp:
         eng, srv, cfg, pa_launches, rates = phase_serve(tmp)
+    if old_paged:
+        ab_paged(old_paged, srv)
     del srv
     torch.cuda.empty_cache()
     srv8, qm_launches, qm_by_path, int8_rates = phase_int8(eng)
     with tempfile.TemporaryDirectory() as tmp:
         gen_counts, gen_rates = phase_generate(tmp, eng)
+    if old_fwd:
+        ab_generate(old_fwd, eng.cfg, eng.params)
     torch.cuda.empty_cache()
     log("time: serve " + json.dumps(rates))
     log("time: generate " + json.dumps(gen_rates))
@@ -2500,6 +2916,8 @@ def main(argv=None):
     dm = time_decode_attention_multi()
     torch.cuda.empty_cache()
     fa = time_flash_attention()
+    if old_fwd:
+        ab_flash_fwd(old_fwd)
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as tmp:
         trainer, batch, train_counts, train_rates = phase_train(tmp)
@@ -2508,6 +2926,8 @@ def main(argv=None):
                if args.old_flash_bwd else None)
     if old_bwd:
         ab_train(trainer, batch, old_bwd)
+    if old_fwd:
+        ab_train(trainer, batch, old_fwd, which="fwd")
     del trainer
     torch.cuda.empty_cache()
     fb = time_flash_attention_bwd()
@@ -2515,6 +2935,8 @@ def main(argv=None):
         ab_flash_bwd(old_bwd, fb)
     torch.cuda.empty_cache()
     time_head_dims()
+    with tempfile.TemporaryDirectory() as tmp:
+        gemma_counts = phase_gemma(tmp)
     with tempfile.TemporaryDirectory() as tmp:
         long_counts, window_counts, long_rates = phase_long(tmp)
     log("time: long " + json.dumps(long_rates))
@@ -2554,6 +2976,10 @@ def main(argv=None):
             row["launches_by_path"] = {
                 "generate": launches,
                 "train": train_counts["flash_attention_fwd"]}
+        # the head-dim-256 leg's launches by entry point
+        row["launches_head_dim_256"] = {
+            path: c[kname] for path, c in gemma_counts.items()
+            if c.get(kname)}
         if kname in BS_KERNELS:
             row["launches_by_path"] = {"sparse_train": launches,
                                        "window_train": window_counts[kname]}

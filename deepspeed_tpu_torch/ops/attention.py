@@ -17,10 +17,9 @@ import torch
 NEG_INF = -1e30
 
 # What the CUDA attention kernels take (ops/csrc/*attention*.cu): any head
-# dim D % 8 == 0 up to MAX_HEAD_DIM, as the TPU kernels do (capped at 128
-# for now), in these dtypes; the value is the dtype code of their C entry
-# points.
-MAX_HEAD_DIM = 128
+# dim D % 8 == 0 up to MAX_HEAD_DIM (the TPU kernels take any D % 8 == 0),
+# in these dtypes; the value is the dtype code of their C entry points.
+MAX_HEAD_DIM = 256
 KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
 
@@ -28,8 +27,8 @@ def head_dim_reason(D: int) -> Optional[str]:
     """None if the attention kernels take head dim ``D``, else why not."""
     if D % 8 or not 8 <= D <= MAX_HEAD_DIM:
         return (f"head_dim {D} (the attention kernels take D % 8 == 0 up to "
-                f"{MAX_HEAD_DIM}; wider heads need a tile with D split "
-                "across warps, ROADMAP.md Queue 3 fault 1)")
+                f"{MAX_HEAD_DIM}; wider heads are not built yet, ROADMAP.md "
+                "Queue 3)")
     return None
 
 

@@ -35,6 +35,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _libs: Dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()
+_sms: Dict[int, int] = {}
 
 
 def _nvcc() -> str:
@@ -108,6 +109,17 @@ def load(name: str) -> ctypes.CDLL:
                 lib = ctypes.CDLL(str(library_path(name)))
                 _libs[name] = lib
     return lib
+
+
+def sm_count(dev) -> int:
+    """The SM count of CUDA device ``dev``, cached per device (the kernels'
+    launch plans size their grids by it)."""
+    import torch
+    idx = dev.index if dev.index is not None else torch.cuda.current_device()
+    n = _sms.get(idx)
+    if n is None:
+        n = _sms[idx] = torch.cuda.get_device_properties(idx).multi_processor_count
+    return n
 
 
 def check(lib: ctypes.CDLL, name: str, err: int) -> None:

@@ -7,12 +7,17 @@
 // repacked as an operand (P, dS) is rounded to T.
 //
 // Head dims: a kernel is instantiated at a padded width DP in {32, 64, 96,
-// 128} and reads rows of the real width D (any D % 8 == 0, D <= DP) from
-// device memory. Columns D..DP are zeros in registers and shared memory
+// 128, 192, 256} and reads rows of the real width D (any D % 8 == 0,
+// D <= DP) from device memory. Columns D..DP are zeros in registers and shared memory
 // (a 16-byte chunk of 8 elements lies wholly inside or outside the row,
 // since D % 8 == 0), so Q K^T and P V are unchanged, and stores stop at
 // column D. DP / 16 is even for every DP, which keeps the pairing of two
 // k steps per ldmatrix.x4 in mma_abt.
+//
+// Widths above 128 (OwnA): a warp's 16 own rows as register fragments
+// would take DP / 4 registers a matrix, beside accumulators of DP / 2, so
+// the CTA's 64 own rows stay in shared memory and each k step's A fragment
+// is read there by ldmatrix; the registers go to the accumulators.
 //
 // Accumulator layout of m16n8k16 (PTX ISA): lane l holds rows l/4 and
 // l/4 + 8, columns 2*(l%4) + {0, 1} of each 16 x 8 tile.
@@ -33,8 +38,12 @@ using f16 = __half;
 
 // the padded width a kernel is instantiated at for head dim d
 __host__ __device__ constexpr int pad_dim(int d) {
-  return d <= 32 ? 32 : d <= 64 ? 64 : d <= 96 ? 96 : 128;
+  return d <= 32 ? 32 : d <= 64 ? 64 : d <= 96 ? 96 : d <= 128 ? 128
+         : d <= 192 ? 192 : 256;
 }
+
+// the widest head dim the attention kernels take
+constexpr int MAX_HEAD_DIM = 256;
 
 template <typename T>
 __device__ __forceinline__ void mma(float* c, const uint32_t* a, uint32_t b0,
@@ -167,21 +176,21 @@ __device__ __forceinline__ void mma_ab(float (*out)[4], const float (*x)[4],
 }
 
 // rows r0 / r1 of a 16 x DP f32 accumulator, times scale, to T rows of
-// [n, D]; columns past D are not written
+// [n, D] from column c0 on; columns past D are not written
 template <typename T, int DP>
 __device__ __forceinline__ void store_rows(T* base, const float (*acc)[4],
                                            int r0, int r1, int n, int D,
                                            int cq, float s0 = 1.f,
-                                           float s1 = 1.f) {
+                                           float s1 = 1.f, int c0 = 0) {
 #pragma unroll
   for (int rr = 0; rr < 2; ++rr) {
     const int row = rr ? r1 : r0;
     const float s = rr ? s1 : s0;
     if (row >= n) continue;
-    T* out = base + (size_t)row * D + cq;
+    T* out = base + (size_t)row * D + c0 + cq;
 #pragma unroll
     for (int c = 0; c < DP / 8; ++c)
-      if (c * 8 + cq < D)
+      if (c0 + c * 8 + cq < D)
         *reinterpret_cast<uint32_t*>(out + c * 8) =
             pack<T>(acc[c][2 * rr] * s, acc[c][2 * rr + 1] * s);
   }
@@ -207,6 +216,83 @@ __device__ __forceinline__ void load_pair(T* dst, const T* a, const T* b,
 // dynamic shared memory of two stages of two tiles of `rows` rows
 template <typename T, int DP> constexpr size_t pair_smem_bytes(int rows) {
   return (size_t)2 * 2 * rows * (DP + 8) * sizeof(T);
+}
+
+// ROWS rows (from i0) of one [n, D] matrix into shared memory at dst
+// (rows padded to LD = DP + 8) by cp.async, NT threads; rows past n and
+// columns past D read zeros. The caller commits the group.
+template <typename T, int DP, int ROWS, int NT>
+__device__ __forceinline__ void load_rows(T* dst, const T* a, int i0, int n,
+                                          int D, int tid) {
+  constexpr int LD = DP + 8;
+  for (int idx = tid; idx < ROWS * DP / 8; idx += NT) {
+    const int rr = idx / (DP / 8), c = (idx % (DP / 8)) * 8;
+    const int row = i0 + rr;
+    const bool live = row < n && c < D;
+    cp_async16(&dst[rr * LD + c], a + (live ? (size_t)row * D + c : 0),
+               live ? 16 : 0);
+  }
+}
+
+// The A operand of a warp's products: its 16 of the CTA's 64 own rows.
+// Up to width 128, fragments in registers (load_a); wider, the CTA's rows
+// in shared memory (own_load issues their cp.async, which the caller
+// commits and waits for with its first tile) and the fragments read by
+// ldmatrix at every k step.
+template <typename T, int DP> struct OwnA {
+  static constexpr bool SMEM = DP > 128;
+  uint32_t f[SMEM ? 1 : DP / 16][4];
+  const T* s;                     // SMEM: the warp's first row
+};
+
+// shared memory of the own rows of `mats` matrices (0 below width 128)
+template <typename T, int DP> constexpr size_t own_smem_bytes(int mats) {
+  return DP > 128 ? (size_t)mats * 64 * (DP + 8) * sizeof(T) : 0;
+}
+
+// rows i0 .. i0 + 63 of [n, D] matrix `base` as the CTA's own A operand:
+// this thread's fragments (rows r0 / r1), or the tile at `tile` in shared
+// memory (4 warps, 128 threads)
+template <typename T, int DP>
+__device__ __forceinline__ void own_load(OwnA<T, DP>& a, const T* base,
+                                         T* tile, int i0, int r0, int r1,
+                                         int n, int D, int cq, int tid) {
+  if constexpr (OwnA<T, DP>::SMEM) {
+    load_rows<T, DP, 64, 128>(tile, base, i0, n, D, tid);
+    a.s = tile + (tid / 32) * 16 * (DP + 8);
+  } else {
+    load_a<T, DP>(a.f, base, r0, r1, n, D, cq);
+  }
+}
+
+// mma_abt with the A side an OwnA: from registers, or k step by k step
+// from shared memory (lanes 0-15 give rows 0-15 at column 0, lanes 16-31
+// the same rows at column 8: the four 8 x 8 matrices of the A fragment)
+template <typename T, int DP, int N, int LD>
+__device__ __forceinline__ void mma_abt(float (*acc)[4], const OwnA<T, DP>& a,
+                                        const T* smem, int lane) {
+  if constexpr (!OwnA<T, DP>::SMEM) {
+    mma_abt<T, DP, N, LD>(acc, a.f, smem, lane);
+  } else {
+#pragma unroll
+    for (int j = 0; j < N / 8; ++j)
+      acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
+    const T* ar = a.s + (lane & 15) * LD + (lane >> 4) * 8;
+#pragma unroll
+    for (int kk = 0; kk < DP / 16; kk += 2) {
+      uint32_t a0[4], a1[4];
+      ldsm_x4(a0, ar + kk * 16);
+      ldsm_x4(a1, ar + kk * 16 + 16);
+#pragma unroll
+      for (int j = 0; j < N / 8; ++j) {
+        uint32_t b[4];
+        ldsm_x4(b, &smem[(j * 8 + (lane & 7)) * LD + (lane >> 3) * 8 +
+                         kk * 16]);
+        mma<T>(acc[j], a0, b[0], b[1]);
+        mma<T>(acc[j], a1, b[2], b[3]);
+      }
+    }
+  }
 }
 
 // the four float4 slices of f32 row `row` ([n, D]) at columns c; zeros

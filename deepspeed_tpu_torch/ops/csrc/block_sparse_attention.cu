@@ -8,7 +8,7 @@
 // logsumexp lse [B*H, S] f32; the backward reads lse and delta =
 // rowsum(dO * O) [B*H, S] f32 (a plain torch op, as the JAX package
 // computes it outside its kernels) and writes dq, or dk and dv. f32, bf16
-// or fp16, any D % 8 == 0 up to 128 (instantiated at a padded width,
+// or fp16, any D % 8 == 0 up to 256 (instantiated at a padded width,
 // attention_tile.cuh).
 //
 // The sparsity is a schedule, not a mask: the host (ops/
@@ -49,8 +49,11 @@
 // tiles of the other side double-buffered through shared memory by
 // cp.async (rows padded by 8 elements). The forward and dq own a query
 // tile; dk/dv own a key tile and compute S^T = K Q^T, so P^T and dS^T come
-// out in the A-operand layout of dV and dK (no atomics, no second pass). f32: CUDA-core FMAs (no TF32),
-// 64 rows per CTA with 2 or 4 threads per row (widths 32, 64, 96, 128).
+// out in the A-operand layout of dV and dK (no atomics, no second pass).
+// Above width 128 the own rows stay in shared memory (OwnA,
+// attention_tile.cuh) and dk/dv splits its output columns over two CTAs
+// (blockIdx.z). f32: CUDA-core FMAs (no TF32), 64 rows per CTA with 2, 4
+// or 8 threads per row (widths 32, 64, 96, 128, 192, 256).
 
 #include "attention_tile.cuh"
 
@@ -151,6 +154,7 @@ template <typename E, int DP, bool EXACT>
 __global__ void __launch_bounds__(NTHREADS)
 bs_fwd_mma(Params p) {
   constexpr int BK = T, LD = DP + 8, TILE = BK * LD;
+  constexpr bool OWN_SMEM = OwnA<E, DP>::SMEM;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   E* sm = reinterpret_cast<E*>(smem_raw);
   const int bh = blockIdx.x, h = bh % p.H;
@@ -161,8 +165,10 @@ bs_fwd_mma(Params p) {
   const size_t off = (size_t)bh * p.S;
   const int D = EXACT ? DP : p.D;
 
-  uint32_t qf[DP / 16][4];
-  load_a<E, DP>(qf, static_cast<const E*>(p.q) + off * D, r0, r1, p.S, D, cq);
+  OwnA<E, DP> qa;                                // Q, the A operand
+  own_load<E, DP>(qa, static_cast<const E*>(p.q) + off * D, sm + 4 * TILE,
+                  qt * T, r0, r1, p.S, D, cq, tid);
+  if (OWN_SMEM) cp_async_commit();               // waited for with tile e0
   float of[DP / 8][4];
 #pragma unroll
   for (int n = 0; n < DP / 8; ++n) of[n][0] = of[n][1] = of[n][2] = of[n][3] = 0.f;
@@ -190,7 +196,7 @@ bs_fwd_mma(Params p) {
     const E* Ks = sm + 2 * stage * TILE;
     const E* Vs = Ks + TILE;
     float sf[BK / 8][4];
-    mma_abt<E, DP, BK, LD>(sf, qf, Ks, lane);       // S = Q K^T
+    mma_abt<E, DP, BK, LD>(sf, qa, Ks, lane);       // S = Q K^T
 #pragma unroll
     for (int j = 0; j < BK / 8; ++j)
 #pragma unroll
@@ -230,6 +236,7 @@ bs_fwd_mma(Params p) {
     mma_ab<E, DP, BK, LD>(of, sf, Vs, lane);         // O += P V
     __syncthreads();                            // the stage is refilled next
   }
+  if (OWN_SMEM) cp_async_wait<0>();              // an empty list: not waited for
 
   float inv[2];
 #pragma unroll
@@ -251,6 +258,7 @@ template <typename E, int DP, bool EXACT>
 __global__ void __launch_bounds__(NTHREADS)
 bs_dq_mma(Params p) {
   constexpr int BK = T, LD = DP + 8, TILE = BK * LD;
+  constexpr bool OWN_SMEM = OwnA<E, DP>::SMEM;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   E* sm = reinterpret_cast<E*>(smem_raw);
   const int bh = blockIdx.x, h = bh % p.H;
@@ -261,10 +269,12 @@ bs_dq_mma(Params p) {
   const size_t off = (size_t)bh * p.S;
   const int D = EXACT ? DP : p.D;
 
-  uint32_t qf[DP / 16][4], df[DP / 16][4];
-  load_a<E, DP>(qf, static_cast<const E*>(p.q) + off * D, r0, r1, p.S, D, cq);
-  load_a<E, DP>(df, static_cast<const E*>(p.dout) + off * D, r0, r1, p.S, D,
-                cq);
+  OwnA<E, DP> qa, da;                            // Q and dO, the A operands
+  own_load<E, DP>(qa, static_cast<const E*>(p.q) + off * D, sm + 4 * TILE,
+                  qt * T, r0, r1, p.S, D, cq, tid);
+  own_load<E, DP>(da, static_cast<const E*>(p.dout) + off * D,
+                  sm + 4 * TILE + 64 * LD, qt * T, r0, r1, p.S, D, cq, tid);
+  if (OWN_SMEM) cp_async_commit();               // waited for with tile e0
   float lse[2], dlt[2];
   lse[0] = r0 < p.S ? p.lse_in[off + r0] : 0.f;
   lse[1] = r1 < p.S ? p.lse_in[off + r1] : 0.f;
@@ -296,8 +306,8 @@ bs_dq_mma(Params p) {
     const E* Ks = sm + 2 * stage * TILE;
     const E* Vs = Ks + TILE;
     float sf[BK / 8][4], dp[BK / 8][4];
-    mma_abt<E, DP, BK, LD>(sf, qf, Ks, lane);       // S = Q K^T
-    mma_abt<E, DP, BK, LD>(dp, df, Vs, lane);       // dP = dO V^T
+    mma_abt<E, DP, BK, LD>(sf, qa, Ks, lane);       // S = Q K^T
+    mma_abt<E, DP, BK, LD>(dp, da, Vs, lane);       // dP = dO V^T
 #pragma unroll
     for (int j = 0; j < BK / 8; ++j)
 #pragma unroll
@@ -313,6 +323,7 @@ bs_dq_mma(Params p) {
     mma_ab<E, DP, BK, LD>(acc, sf, Ks, lane);       // dQ += dS K
     __syncthreads();
   }
+  if (OWN_SMEM) cp_async_wait<0>();              // an empty list: not waited for
   store_rows<E, DP>(static_cast<E*>(p.dq) + off * D, acc, r0, r1, p.S, D, cq);
 }
 
@@ -323,6 +334,8 @@ template <typename E, int DP, int BQ, bool EXACT>
 __global__ void __launch_bounds__(NTHREADS)
 bs_dkv_mma(Params p) {
   constexpr int LD = DP + 8, TILE = BQ * LD, SUB = T / BQ;
+  constexpr bool OWN_SMEM = OwnA<E, DP>::SMEM;
+  constexpr int DO = OWN_SMEM ? DP / 2 : DP;     // columns accumulated here
   extern __shared__ __align__(16) unsigned char smem_raw[];
   E* sm = reinterpret_cast<E*>(smem_raw);
   __shared__ float rows_s[2][2][BQ];           // [stage][lse, delta][query]
@@ -334,12 +347,16 @@ bs_dkv_mma(Params p) {
   const size_t off = (size_t)bh * p.S;
   const int D = EXACT ? DP : p.D;
 
-  uint32_t kf[DP / 16][4], vf[DP / 16][4];
-  load_a<E, DP>(kf, static_cast<const E*>(p.k) + off * D, r0, r1, p.S, D, cq);
-  load_a<E, DP>(vf, static_cast<const E*>(p.v) + off * D, r0, r1, p.S, D, cq);
-  float dk[DP / 8][4], dv[DP / 8][4];
+  const int c0 = blockIdx.z * DO;
+  OwnA<E, DP> ka, va;                            // K and V, the A operands
+  own_load<E, DP>(ka, static_cast<const E*>(p.k) + off * D, sm + 4 * TILE,
+                  kt * T, r0, r1, p.S, D, cq, tid);
+  own_load<E, DP>(va, static_cast<const E*>(p.v) + off * D,
+                  sm + 4 * TILE + 64 * LD, kt * T, r0, r1, p.S, D, cq, tid);
+  if (OWN_SMEM) cp_async_commit();               // waited for with step 0
+  float dk[DO / 8][4], dv[DO / 8][4];
 #pragma unroll
-  for (int n = 0; n < DP / 8; ++n)
+  for (int n = 0; n < DO / 8; ++n)
 #pragma unroll
     for (int c = 0; c < 4; ++c) dk[n][c] = dv[n][c] = 0.f;
 
@@ -375,8 +392,8 @@ bs_dkv_mma(Params p) {
     const float* lse = rows_s[stage][0];
     const float* dlt = rows_s[stage][1];
     float st[BQ / 8][4], dpt[BQ / 8][4];
-    mma_abt<E, DP, BQ, LD>(st, kf, Qs, lane);      // S^T = K Q^T
-    mma_abt<E, DP, BQ, LD>(dpt, vf, Ds, lane);     // dP^T = V dO^T
+    mma_abt<E, DP, BQ, LD>(st, ka, Qs, lane);      // S^T = K Q^T
+    mma_abt<E, DP, BQ, LD>(dpt, va, Ds, lane);     // dP^T = V dO^T
 #pragma unroll
     for (int j = 0; j < BQ / 8; ++j)
 #pragma unroll
@@ -391,12 +408,15 @@ bs_dkv_mma(Params p) {
         st[j][c] = pr;                                          // P^T
         dpt[j][c] = pr * (dpt[j][c] - dlt[qi]) * p.sm_scale;    // dS^T
       }
-    mma_ab<E, DP, BQ, LD>(dv, st, Ds, lane);       // dV += P^T dO
-    mma_ab<E, DP, BQ, LD>(dk, dpt, Qs, lane);      // dK += dS^T Q
+    mma_ab<E, DO, BQ, LD>(dv, st, Ds + c0, lane);  // dV += P^T dO
+    mma_ab<E, DO, BQ, LD>(dk, dpt, Qs + c0, lane); // dK += dS^T Q
     __syncthreads();                           // the stage is refilled next
   }
-  store_rows<E, DP>(static_cast<E*>(p.dk) + off * D, dk, r0, r1, p.S, D, cq);
-  store_rows<E, DP>(static_cast<E*>(p.dv) + off * D, dv, r0, r1, p.S, D, cq);
+  if (OWN_SMEM) cp_async_wait<0>();              // an empty list: not waited for
+  store_rows<E, DO>(static_cast<E*>(p.dk) + off * D, dk, r0, r1, p.S, D, cq,
+                    1.f, 1.f, c0);
+  store_rows<E, DO>(static_cast<E*>(p.dv) + off * D, dv, r0, r1, p.S, D, cq,
+                    1.f, 1.f, c0);
 }
 
 // ------------------------------------------------------------------- f32
@@ -405,11 +425,11 @@ bs_dkv_mma(Params p) {
 // i*TPR + t (i < NV) of its row: neighbouring threads on neighbouring
 // addresses
 template <int DP> struct F32 {
-  static constexpr int TPR = DP == 128 ? 4 : 2;
+  static constexpr int TPR = DP > 128 ? 8 : DP == 128 ? 4 : 2;
   static constexpr int DPT = DP / TPR;           // dims a thread owns
   static constexpr int NV = DPT / 4;
   static constexpr int NT = T * TPR;            // threads per CTA
-  static constexpr int SUBT = 32;               // rows of a shared sub-tile
+  static constexpr int SUBT = DP > 128 ? 16 : 32;   // rows of a shared sub-tile
 };
 
 template <int DP>
@@ -678,31 +698,39 @@ bs_dkv_f32(Params p) {
 
 template <typename KernelFn>
 int launch(KernelFn kernel, const Params& p, int BH, int threads,
-           cudaStream_t stream, size_t smem = 0) {
+           cudaStream_t stream, size_t smem = 0, int splits = 1) {
   if (smem > 48 * 1024) {                   // above 48 KB only by opt-in
     const cudaError_t e = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>(smem));
     if (e != cudaSuccess) return static_cast<int>(e);
   }
-  kernel<<<dim3(BH, p.nT), threads, smem, stream>>>(p);
+  kernel<<<dim3(BH, p.nT, splits), threads, smem, stream>>>(p);
   return static_cast<int>(cudaGetLastError());
 }
 
 // each kernel at padded width DP: f32, or the 16-bit kernel of element E
-// (dtype 1 bf16, 2 fp16), EXACT when D == DP (a compile-time width)
+// (dtype 1 bf16, 2 fp16), EXACT when D == DP (a compile-time width, up to
+// 128)
 template <int DP, typename F>
 int by_type(const Params& p, int dtype, F&& go) {
-  const bool exact = p.D == DP;
-  if (dtype == 1)
-    return exact ? go(bf16(), std::true_type()) : go(bf16(), std::false_type());
-  return exact ? go(f16(), std::true_type()) : go(f16(), std::false_type());
+  if constexpr (DP > 128) {
+    return dtype == 1 ? go(bf16(), std::false_type())
+                      : go(f16(), std::false_type());
+  } else {
+    const bool exact = p.D == DP;
+    if (dtype == 1)
+      return exact ? go(bf16(), std::true_type())
+                   : go(bf16(), std::false_type());
+    return exact ? go(f16(), std::true_type()) : go(f16(), std::false_type());
+  }
 }
 
 template <int DP>
 int launch_fwd(const Params& p, int BH, int dtype, cudaStream_t st) {
   if (dtype == 0) return launch(bs_fwd_f32<DP>, p, BH, F32<DP>::NT, st);
-  constexpr size_t smem = pair_smem_bytes<bf16, DP>(T);
+  constexpr size_t smem =
+      pair_smem_bytes<bf16, DP>(T) + own_smem_bytes<bf16, DP>(1);
   return by_type<DP>(p, dtype, [&](auto e, auto x) {
     return launch(bs_fwd_mma<decltype(e), DP, decltype(x)::value>, p, BH,
                   NTHREADS, st, smem);
@@ -712,7 +740,8 @@ int launch_fwd(const Params& p, int BH, int dtype, cudaStream_t st) {
 template <int DP>
 int launch_dq(const Params& p, int BH, int dtype, cudaStream_t st) {
   if (dtype == 0) return launch(bs_dq_f32<DP>, p, BH, F32<DP>::NT, st);
-  constexpr size_t smem = pair_smem_bytes<bf16, DP>(T);
+  constexpr size_t smem =
+      pair_smem_bytes<bf16, DP>(T) + own_smem_bytes<bf16, DP>(2);
   return by_type<DP>(p, dtype, [&](auto e, auto x) {
     return launch(bs_dq_mma<decltype(e), DP, decltype(x)::value>, p, BH,
                   NTHREADS, st, smem);
@@ -725,10 +754,11 @@ int launch_dkv(const Params& p, int BH, int dtype, cudaStream_t st) {
   // query steps of 32 rows above head_dim 64 keep dK, dV, K, V and the
   // score tiles within the register file (as in flash_attention_bwd.cu)
   constexpr int BQ = DP > 64 ? 32 : 64;
-  constexpr size_t smem = pair_smem_bytes<bf16, DP>(BQ);
+  constexpr size_t smem =
+      pair_smem_bytes<bf16, DP>(BQ) + own_smem_bytes<bf16, DP>(2);
   return by_type<DP>(p, dtype, [&](auto e, auto x) {
     return launch(bs_dkv_mma<decltype(e), DP, BQ, decltype(x)::value>, p,
-                  BH, NTHREADS, st, smem);
+                  BH, NTHREADS, st, smem, DP > 128 ? 2 : 1);
   });
 }
 
@@ -753,7 +783,8 @@ Params make_params(const void* q, const void* k, const void* v,
 }
 
 bool supported(int D, int dtype) {
-  return dtype >= 0 && dtype <= 2 && D >= 8 && D <= 128 && D % 8 == 0;
+  return dtype >= 0 && dtype <= 2 && D >= 8 && D <= MAX_HEAD_DIM &&
+         D % 8 == 0;
 }
 
 // fn at the padded width of head dim D
@@ -763,7 +794,9 @@ int dispatch(Fn fn, int D) {
     case 32: return fn(std::integral_constant<int, 32>());
     case 64: return fn(std::integral_constant<int, 64>());
     case 96: return fn(std::integral_constant<int, 96>());
-    default: return fn(std::integral_constant<int, 128>());
+    case 128: return fn(std::integral_constant<int, 128>());
+    case 192: return fn(std::integral_constant<int, 192>());
+    default: return fn(std::integral_constant<int, 256>());
   }
 }
 
@@ -772,7 +805,7 @@ int dispatch(Fn fn, int D) {
 extern "C" {
 
 // dtype: 0 = float32, 1 = bfloat16, 2 = float16 (q, k, v, dout and the
-// outputs alike). D: any multiple of 8 up to 128. ptr / idx / flags /
+// outputs alike). D: any multiple of 8 up to 256. ptr / idx / flags /
 // order: the query-tile lists and their order (forward, dq) or the key-tile
 // ones (dkv). layout: null when layout_exact is off; fine: a multiple of 8
 // that divides S. Each returns the CUDA error of its launch (0 =

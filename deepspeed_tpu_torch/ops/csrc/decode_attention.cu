@@ -8,7 +8,7 @@
 // [L, B, nh, max_len, hd] with a layer index); positions >= cur_len are
 // dead and never read.
 //
-// Any head dim hd % 8 == 0 up to 128, in f32, bf16 or fp16 (q, caches
+// Any head dim hd % 8 == 0 up to 256, in f32, bf16 or fp16 (q, caches
 // and output alike).
 //
 // Bound: bytes. Each (b, h) reads the live K and V rows once and does
@@ -22,8 +22,9 @@
 // T = 1 (every decode step), decode_attention_1: the structure of
 // paged_attention.cu with a contiguous address in place of the block-table
 // lookup. A row of hd elements is split over TPT threads, the power of two
-// at or above hd / VEC (VEC = 16 bytes of the cache type; threads past the
-// row's last slice load nothing and add zeros); the CTA's NTHREADS / TPT
+// at or above hd / VEC (VEC = 16 bytes of the cache type, or 32 bytes where
+// 16 would need more than a warp: f32 above hd 128; threads past the row's
+// last slice load nothing and add zeros); the CTA's NTHREADS / TPT
 // thread groups walk the keys in chunks of TPG tokens per group. Per chunk:
 // (1) each thread issues all TPG of its K-row loads before using any and
 // scores them against the query (held in registers); (2) the chunk's max is
@@ -36,14 +37,16 @@
 // through shared memory and divided by l.
 //
 // 1 < T <= 64, decode_attention_multi (instantiated at a padded width HD of
-// 32, 64 or 128; columns past hd are zeros): all T queries sit in shared
+// 32, 64, 128 or 256, with 256 threads at 256; columns past hd are zeros;
+// at 256 the f32 queries and rows take 213 KB of shared memory, by the
+// opt-in above 48 KB): all T queries sit in shared
 // memory (f32) and the CTA walks the live keys in chunks of MC: (1) the
 // chunk's K and V rows are copied to shared memory (16 bytes per thread,
 // coalesced; rows past cur_len are zeros); (2) each thread scores one key of
 // the chunk against every other query (TPK threads per key); (3) one warp
 // per query row takes the chunk's max and sum of p (online softmax) and
 // leaves p, rounded to the cache dtype, in shared memory; (4) each thread
-// owns one output column of every (NTHREADS / HD)-th query and accumulates
+// owns one output column of every (NT / HD)-th query and accumulates
 // p * v in f32 registers. Every K/V chunk is scored against all T queries
 // while it is in shared memory, so no row is read twice.
 //
@@ -87,6 +90,9 @@ __host__ __device__ __forceinline__ int row_threads(int hd, int vec) {
   return t;
 }
 
+// BYTES of one row slice, loaded at once (16-byte aligned)
+template <int BYTES> struct alignas(16) Slice { uint4 w[BYTES / 16]; };
+
 // round an f32 value to T and back (the TPU kernel's cast of p to v.dtype)
 template <typename T> __device__ __forceinline__ float round_to(float x) {
   return to_f(from_f<T>(x));
@@ -103,15 +109,16 @@ __device__ __forceinline__ float masked_score(float s, int k_pos, int q_abs,
   return keep ? s : NEG_INF;
 }
 
-// T: query, cache and output dtype. One query (T = 1).
-template <typename T>
+// T: query, cache and output dtype; VEC: elements a thread loads at once.
+// One query (T = 1).
+template <typename T, int VEC>
 __global__ void __launch_bounds__(NTHREADS)
 decode_attention_1(const T* __restrict__ q, const T* __restrict__ k_cache,
                    const T* __restrict__ v_cache,
                    const float* __restrict__ slopes, T* __restrict__ out,
                    int B, int nh, int max_len, int hd, int layer, int cur_len,
                    int window, float sm_scale, float softcap) {
-  constexpr int VEC = 16 / sizeof(T);
+  using R = Slice<VEC * sizeof(T)>;
   constexpr int NWARPS = NTHREADS / 32;
   const int tpt = row_threads(hd, VEC);     // threads per row
   const int ngroups = NTHREADS / tpt;
@@ -151,10 +158,10 @@ decode_attention_1(const T* __restrict__ q, const T* __restrict__ k_cache,
 #pragma unroll
     for (int i = 0; i < TPG; ++i)
       row[i] = min(c0 + grp + i * ngroups, cur_len - 1);  // tail: a live row
-    uint4 raw[TPG];
+    R raw[TPG];
 #pragma unroll
     for (int i = 0; i < TPG; ++i)
-      raw[i] = *reinterpret_cast<const uint4*>(kh + (size_t)row[i] * hd);
+      raw[i] = *reinterpret_cast<const R*>(kh + (size_t)row[i] * hd);
     float sc[TPG];
 #pragma unroll
     for (int i = 0; i < TPG; ++i) {
@@ -200,7 +207,7 @@ decode_attention_1(const T* __restrict__ q, const T* __restrict__ k_cache,
     // the V loads go out before the barrier that publishes the sums
 #pragma unroll
     for (int i = 0; i < TPG; ++i)
-      raw[i] = *reinterpret_cast<const uint4*>(vh + (size_t)row[i] * hd);
+      raw[i] = *reinterpret_cast<const R*>(vh + (size_t)row[i] * hd);
     __syncthreads();
     ps = 0.f;
 #pragma unroll
@@ -245,10 +252,15 @@ template <typename T, int HD> size_t multi_smem_bytes(int Tq) {
          2 * sizeof(T) * (size_t)MC * LD;
 }
 
-// T: query, cache and output dtype; HD: the padded head dim (32, 64 or
-// 128) for the real hd <= HD.
+// threads of decode_attention_multi at padded width HD
+__host__ __device__ constexpr int multi_threads(int hd) {
+  return hd > 128 ? 256 : NTHREADS;
+}
+
+// T: query, cache and output dtype; HD: the padded head dim (32, 64, 128
+// or 256) for the real hd <= HD.
 template <typename T, int HD>
-__global__ void __launch_bounds__(NTHREADS)
+__global__ void __launch_bounds__(multi_threads(HD))
 decode_attention_multi(const T* __restrict__ q, const T* __restrict__ k_cache,
                        const T* __restrict__ v_cache,
                        const float* __restrict__ slopes, T* __restrict__ out,
@@ -256,9 +268,10 @@ decode_attention_multi(const T* __restrict__ q, const T* __restrict__ k_cache,
                        int cur_len, int window, float sm_scale,
                        float softcap) {
   constexpr int VEC = 16 / sizeof(T);
+  constexpr int NT = multi_threads(HD);
   constexpr int LD = HD + VEC;              // padded shared-memory row
-  constexpr int TPK = NTHREADS / MC;        // threads per key (scoring)
-  constexpr int TPO = NTHREADS / HD;        // threads per output column
+  constexpr int TPK = NT / MC;              // threads per key (scoring)
+  constexpr int TPO = NT / HD;              // threads per output column
   constexpr int NS = MAX_T / TPK;           // queries per thread (scoring)
   constexpr int NACC = MAX_T / TPO;         // queries per thread (p * v)
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -281,7 +294,7 @@ decode_attention_multi(const T* __restrict__ q, const T* __restrict__ k_cache,
   const int od = tid % HD, ot0 = tid / HD;
 
   const T* qb = q + ((size_t)b * nh + h) * Tq * hd;
-  for (int i = tid; i < Tq * HD; i += NTHREADS) {
+  for (int i = tid; i < Tq * HD; i += NT) {
     const int t = i / HD, d = i % HD;
     qs[i] = d < hd ? to_f(qb[t * hd + d]) : 0.f;
   }
@@ -304,7 +317,7 @@ decode_attention_multi(const T* __restrict__ q, const T* __restrict__ k_cache,
     __syncthreads();                        // the last chunk's rows are read
     // (1) the chunk's K and V rows; rows past cur_len and columns past hd
     // are zeros
-    for (int idx = tid; idx < MC * HD / VEC; idx += NTHREADS) {
+    for (int idx = tid; idx < MC * HD / VEC; idx += NT) {
       const int r = idx / (HD / VEC), c = (idx % (HD / VEC)) * VEC;
       uint4 kv = make_uint4(0u, 0u, 0u, 0u), vv = kv;
       if (r < n && c < hd) {
@@ -351,7 +364,7 @@ decode_attention_multi(const T* __restrict__ q, const T* __restrict__ k_cache,
     }
     __syncthreads();
     // (3) online softmax, one warp per query row (MC = 2 x 32 keys)
-    for (int t = warp; t < Tq; t += NTHREADS / 32) {
+    for (int t = warp; t < Tq; t += NT / 32) {
       float* row = ps + t * MC;
       const float m_old = m_s[t];
       const float x0 = row[lane], x1 = row[lane + 32];
@@ -411,16 +424,15 @@ decode_attention_multi(const T* __restrict__ q, const T* __restrict__ k_cache,
   }
 }
 
-template <typename T>
+template <typename T, int VEC>
 int launch_1(const void* q, const void* k_cache, const void* v_cache,
              const float* slopes, void* out, int B, int nh, int max_len,
              int hd, int layer, int cur_len, int window, float sm_scale,
              float softcap, cudaStream_t stream) {
-  constexpr int VEC = 16 / sizeof(T);
   const int ngroups = NTHREADS / row_threads(hd, VEC);
   const size_t smem = sizeof(float) * ((size_t)2 * (NTHREADS / 32) +
                                        (size_t)ngroups * hd);
-  decode_attention_1<T><<<dim3(nh, B), NTHREADS, smem, stream>>>(
+  decode_attention_1<T, VEC><<<dim3(nh, B), NTHREADS, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k_cache),
       static_cast<const T*>(v_cache), slopes, static_cast<T*>(out), B, nh,
       max_len, hd, layer, cur_len, window, sm_scale, softcap);
@@ -439,7 +451,8 @@ int launch_multi(const void* q, const void* k_cache, const void* v_cache,
         cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
     if (e != cudaSuccess) return static_cast<int>(e);
   }
-  decode_attention_multi<T, HD><<<dim3(nh, B), NTHREADS, smem, stream>>>(
+  decode_attention_multi<T, HD>
+      <<<dim3(nh, B), multi_threads(HD), smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k_cache),
       static_cast<const T*>(v_cache), slopes, static_cast<T*>(out), B, nh, Tq,
       max_len, hd, layer, cur_len, window, sm_scale, softcap);
@@ -451,9 +464,15 @@ int launch(const void* q, const void* k_cache, const void* v_cache,
            const float* slopes, void* out, int B, int nh, int Tq, int max_len,
            int hd, int layer, int cur_len, int window, float sm_scale,
            float softcap, cudaStream_t stream) {
+  constexpr int VEC = 16 / sizeof(T);
+  if (Tq == 1 && row_threads(hd, VEC) > 32)  // a row in at most one warp
+    return launch_1<T, 2 * VEC>(q, k_cache, v_cache, slopes, out, B, nh,
+                                max_len, hd, layer, cur_len, window, sm_scale,
+                                softcap, stream);
   if (Tq == 1)
-    return launch_1<T>(q, k_cache, v_cache, slopes, out, B, nh, max_len, hd,
-                       layer, cur_len, window, sm_scale, softcap, stream);
+    return launch_1<T, VEC>(q, k_cache, v_cache, slopes, out, B, nh, max_len,
+                            hd, layer, cur_len, window, sm_scale, softcap,
+                            stream);
 #define DA_MULTI(HD)                                                         \
   if (hd <= HD)                                                              \
     return launch_multi<T, HD>(q, k_cache, v_cache, slopes, out, B, nh, Tq,  \
@@ -462,6 +481,7 @@ int launch(const void* q, const void* k_cache, const void* v_cache,
   DA_MULTI(32)
   DA_MULTI(64)
   DA_MULTI(128)
+  DA_MULTI(256)
 #undef DA_MULTI
   return -1;
 }
@@ -471,7 +491,7 @@ int launch(const void* q, const void* k_cache, const void* v_cache,
 extern "C" {
 
 // dtype: 0 = float32, 1 = bfloat16, 2 = float16 (q, caches and output
-// alike); hd: a multiple of 8 up to 128. Returns the CUDA error of the
+// alike); hd: a multiple of 8 up to 256. Returns the CUDA error of the
 // launch (0 = launched); -1 for a dtype, head dim or query count the
 // kernel lacks.
 int decode_attention_launch(const void* q, const void* k_cache,
@@ -481,7 +501,7 @@ int decode_attention_launch(const void* q, const void* k_cache,
                             float softcap, int dtype, void* stream) {
   const float* sl = static_cast<const float*>(slopes);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (Tq < 1 || Tq > MAX_T || hd < 8 || hd > 128 || hd % 8) return -1;
+  if (Tq < 1 || Tq > MAX_T || hd < 8 || hd > 256 || hd % 8) return -1;
   if (dtype == 0)
     return launch<float>(q, k_cache, v_cache, sl, out, B, nh, Tq, max_len, hd,
                          layer, cur_len, window, sm_scale, softcap, st);

@@ -8,7 +8,7 @@
 // delta = rowsum(dO * O) [B*H, S] f32 (a plain torch op, as the JAX package
 // computes it outside its kernels). Outputs dq [B*H, S, D] (kernel
 // flash_bwd_dq) and dk, dv [B*H, Sk, D] (kernel flash_bwd_dkv), in the
-// inputs' dtype (f32, bf16 or fp16; any D % 8 == 0 up to 128, the 16-bit
+// inputs' dtype (f32, bf16 or fp16; any D % 8 == 0 up to 256, the 16-bit
 // kernels instantiated at a padded width, attention_tile.cuh). The score
 // pipeline is the forward's (csrc/flash_attention_fwd.cu): causal masking
 // with offset Sk - S, a key-padding row [B, Sk] or (q, k) tiles per batch
@@ -35,7 +35,9 @@
 // through a cp.async double buffer in shared memory (rows padded by 8
 // elements for ldmatrix). dkv computes S^T = K Q^T directly, so P^T and dS^T
 // come out of the accumulators already in the A-operand layout of dV and dK:
-// no transpose through shared memory.
+// no transpose through shared memory. Above width 128 the own rows stay in
+// shared memory (OwnA, attention_tile.cuh), dq takes key tiles of 32 and
+// dk/dv splits its output columns over two CTAs (blockIdx.z).
 //
 // What both forms' schedule does about the time (PERF.md, Findings, PR 6;
 // the block-sparse kernels of block_sparse_attention.cu proved both):
@@ -55,14 +57,14 @@
 // owning 32 of its row's dims, partial dot products meeting by shuffles.
 
 #include "attention_tile.cuh"
-
-#include <cuda.h>          // CUtensorMap; the encoder is fetched at run time
+#include "hopper.cuh"
 
 #include <type_traits>
 
 namespace {
 
 using namespace tile;
+using namespace hopper;
 
 constexpr float NEG_INF = -1e30f;
 constexpr float LOG2E = 1.4426950408889634f;
@@ -200,13 +202,15 @@ __device__ __forceinline__ void scale_tile(float (*s)[4], float scale) {
     for (int c = 0; c < 4; ++c) s[j][c] *= scale;
 }
 
-// dQ for 64 query rows: loop over the live key tiles of 64 with K and V
-// double-buffered in shared memory. EXACT: D == DP, a compile-time width
-// (no column predicates, constant strides)
+// dQ for 64 query rows: loop over the live key tiles of 64 (32 above
+// width 128) with K and V double-buffered in shared memory. EXACT: D ==
+// DP, a compile-time width (no column predicates, constant strides)
 template <typename T, int DP, bool EXTRAS, bool EXACT>
 __global__ void __launch_bounds__(NTHREADS)
 flash_bwd_dq(Params p) {
-  constexpr int BK = 64, LD = DP + 8, TILE = BK * LD, NJ = BK / 8;
+  constexpr int BK = DP > 128 ? 32 : 64, LD = DP + 8, TILE = BK * LD;
+  constexpr int NJ = BK / 8;
+  constexpr bool OWN_SMEM = OwnA<T, DP>::SMEM;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* sm = reinterpret_cast<T*>(smem_raw);
   const int D = EXACT ? DP : p.D;
@@ -219,11 +223,12 @@ flash_bwd_dq(Params p) {
   const float slope = p.slopes ? p.slopes[h] : 0.f;
   const size_t qoff = (size_t)bh * p.S;
 
-  uint32_t qf[DP / 16][4], df[DP / 16][4];
-  load_a<T, DP>(qf, static_cast<const T*>(p.q) + qoff * D, r0, r1, p.S, D,
-                cq);
-  load_a<T, DP>(df, static_cast<const T*>(p.dout) + qoff * D, r0, r1, p.S, D,
-                cq);
+  OwnA<T, DP> qa, da;                          // Q and dO, the A operands
+  own_load<T, DP>(qa, static_cast<const T*>(p.q) + qoff * D, sm + 4 * TILE,
+                  q0, r0, r1, p.S, D, cq, tid);
+  own_load<T, DP>(da, static_cast<const T*>(p.dout) + qoff * D,
+                  sm + 4 * TILE + 64 * LD, q0, r0, r1, p.S, D, cq, tid);
+  if (OWN_SMEM) cp_async_commit();             // waited for with tile lo
   float lse[2], dlt[2];
   lse[0] = r0 < p.S ? p.lse[qoff + r0] : 0.f;
   lse[1] = r1 < p.S ? p.lse[qoff + r1] : 0.f;
@@ -260,8 +265,8 @@ flash_bwd_dq(Params p) {
     const T* Ks = sm + 2 * stage * TILE;
     const T* Vs = Ks + TILE;
     float sf[NJ][4], dp[NJ][4], dsf[EXTRAS ? NJ : 1][4];
-    mma_abt<T, DP, BK, LD>(sf, qf, Ks, lane);   // S = Q K^T
-    mma_abt<T, DP, BK, LD>(dp, df, Vs, lane);   // dP = dO V^T
+    mma_abt<T, DP, BK, LD>(sf, qa, Ks, lane);   // S = Q K^T
+    mma_abt<T, DP, BK, LD>(dp, da, Vs, lane);   // dP = dO V^T
     scale_tile<NJ>(sf, p.sm_scale);
     if (EXTRAS)
       extras_tile<NJ, true>(sf, dsf, p, b, bh, r0, r1, k0, cq, slope);
@@ -279,17 +284,22 @@ flash_bwd_dq(Params p) {
     mma_ab<T, DP, BK, LD>(acc, sf, Ks, lane);   // dQ += dS K
     __syncthreads();                            // the stage is refilled next
   }
+  if (OWN_SMEM) cp_async_wait<0>();            // no key tile: not waited for
   store_rows<T, DP>(static_cast<T*>(p.dq) + qoff * D, acc, r0, r1, p.S, D,
                     cq);
 }
 
 // dK and dV for 64 key rows: loop over the query tiles of BQ that see them,
 // with Q and dO double-buffered in shared memory and each tile's lse and
-// delta beside them
+// delta beside them. Above width 128 the dK and dV accumulators of the
+// whole width would not fit the registers: blockIdx.z picks the half of
+// the columns this CTA accumulates (S^T and dP^T are computed by both)
 template <typename T, int DP, int BQ, bool EXTRAS, bool EXACT>
 __global__ void __launch_bounds__(NTHREADS)
 flash_bwd_dkv(Params p) {
   constexpr int LD = DP + 8, TILE = BQ * LD, NJ = BQ / 8;
+  constexpr bool OWN_SMEM = OwnA<T, DP>::SMEM;
+  constexpr int DO = OWN_SMEM ? DP / 2 : DP;   // columns accumulated here
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* sm = reinterpret_cast<T*>(smem_raw);
   __shared__ float rows_s[2][2][BQ];           // [stage][lse, delta][query]
@@ -303,14 +313,16 @@ flash_bwd_dkv(Params p) {
   const float slope = p.slopes ? p.slopes[h] : 0.f;
   const size_t koff = (size_t)bh * p.Sk, qoff = (size_t)bh * p.S;
 
-  uint32_t kf[DP / 16][4], vf[DP / 16][4];
-  load_a<T, DP>(kf, static_cast<const T*>(p.k) + koff * D, r0, r1, p.Sk, D,
-                cq);
-  load_a<T, DP>(vf, static_cast<const T*>(p.v) + koff * D, r0, r1, p.Sk, D,
-                cq);
-  float dk[DP / 8][4], dv[DP / 8][4];
+  const int c0 = blockIdx.z * DO;
+  OwnA<T, DP> ka, va;                          // K and V, the A operands
+  own_load<T, DP>(ka, static_cast<const T*>(p.k) + koff * D, sm + 4 * TILE,
+                  k0, r0, r1, p.Sk, D, cq, tid);
+  own_load<T, DP>(va, static_cast<const T*>(p.v) + koff * D,
+                  sm + 4 * TILE + 64 * LD, k0, r0, r1, p.Sk, D, cq, tid);
+  if (OWN_SMEM) cp_async_commit();             // waited for with tile lo
+  float dk[DO / 8][4], dv[DO / 8][4];
 #pragma unroll
-  for (int n = 0; n < DP / 8; ++n)
+  for (int n = 0; n < DO / 8; ++n)
 #pragma unroll
     for (int c = 0; c < 4; ++c) dk[n][c] = dv[n][c] = 0.f;
 
@@ -348,8 +360,8 @@ flash_bwd_dkv(Params p) {
     const float* lse = rows_s[stage][0];
     const float* dlt = rows_s[stage][1];
     float st[NJ][4], dpt[NJ][4], dsf[EXTRAS ? NJ : 1][4];
-    mma_abt<T, DP, BQ, LD>(st, kf, Qs, lane);  // S^T = K Q^T
-    mma_abt<T, DP, BQ, LD>(dpt, vf, Ds, lane); // dP^T = V dO^T
+    mma_abt<T, DP, BQ, LD>(st, ka, Qs, lane);  // S^T = K Q^T
+    mma_abt<T, DP, BQ, LD>(dpt, va, Ds, lane); // dP^T = V dO^T
     scale_tile<NJ>(st, p.sm_scale);
     if (EXTRAS)
       extras_tile<NJ, false>(st, dsf, p, b, bh, r0, r1, q0, cq, slope);
@@ -365,14 +377,15 @@ flash_bwd_dkv(Params p) {
         st[j][c] = pr;                                             // P^T
         dpt[j][c] = pr * (EXTRAS ? d * dsf[j][c] : d);             // dS^T
       }
-    mma_ab<T, DP, BQ, LD>(dv, st, Ds, lane);   // dV += P^T dO
-    mma_ab<T, DP, BQ, LD>(dk, dpt, Qs, lane);  // dK += dS^T Q
+    mma_ab<T, DO, BQ, LD>(dv, st, Ds + c0, lane);   // dV += P^T dO
+    mma_ab<T, DO, BQ, LD>(dk, dpt, Qs + c0, lane);  // dK += dS^T Q
     __syncthreads();                           // the stage is refilled next
   }
-  store_rows<T, DP>(static_cast<T*>(p.dk) + koff * D, dk, r0, r1, p.Sk, D,
-                    cq);
-  store_rows<T, DP>(static_cast<T*>(p.dv) + koff * D, dv, r0, r1, p.Sk, D,
-                    cq);
+  if (OWN_SMEM) cp_async_wait<0>();            // no query tile: not waited for
+  store_rows<T, DO>(static_cast<T*>(p.dk) + koff * D, dk, r0, r1, p.Sk, D,
+                    cq, 1.f, 1.f, c0);
+  store_rows<T, DO>(static_cast<T*>(p.dv) + koff * D, dv, r0, r1, p.Sk, D,
+                    cq, 1.f, 1.f, c0);
 }
 
 // ------------------------------------------------------------------- f32
@@ -465,7 +478,8 @@ __device__ __forceinline__ void load_f32_pair(float* da, float* db,
 template <int DP>
 __global__ void __launch_bounds__(NTHREADS)
 flash_bwd_dq_f32(Params p) {
-  constexpr int TPR = DP / 32, ROWS = NTHREADS / TPR, BK = 32;
+  constexpr int TPR = DP / 32, ROWS = NTHREADS / TPR;
+  constexpr int BK = DP > 128 ? 16 : 32;       // keys a shared tile
   __shared__ __align__(16) float Ks[BK * DP];
   __shared__ __align__(16) float Vs[BK * DP];
   const int D = p.D;
@@ -508,7 +522,8 @@ flash_bwd_dq_f32(Params p) {
 template <int DP>
 __global__ void __launch_bounds__(NTHREADS)
 flash_bwd_dkv_f32(Params p) {
-  constexpr int TPR = DP / 32, ROWS = NTHREADS / TPR, BQ = 32;
+  constexpr int TPR = DP / 32, ROWS = NTHREADS / TPR;
+  constexpr int BQ = DP > 128 ? 16 : 32;       // queries a shared tile
   __shared__ __align__(16) float Qs[BQ * DP];
   __shared__ __align__(16) float Ds[BQ * DP];
   __shared__ float Ls[BQ], Es[BQ];
@@ -575,139 +590,6 @@ constexpr int WG_THREADS = WG + 32;     // and the producer warp
 constexpr int STAGES = 2;
 constexpr int TILE_ELEMS = 64 * 64;     // one 64 x 64 16-bit tile, 8 KB
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
-               :: "r"(smem_u32(bar)), "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, int bytes) {
-  asm volatile("mbarrier.expect_tx.shared::cta.b64 [%0], %1;\n"
-               :: "r"(smem_u32(bar)), "r"(bytes) : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n"
-               :: "r"(smem_u32(bar)) : "memory");
-}
-
-// wait until the phase of parity `parity` has completed
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
-  uint32_t done;
-  do {
-    asm volatile("{\n.reg .pred p;\n"
-                 "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-                 "selp.u32 %0, 1, 0, p;\n}\n"
-                 : "=r"(done) : "r"(smem_u32(bar)), "r"(parity) : "memory");
-  } while (!done);
-}
-
-// one 64 x 64 tile (box {64 columns, 64 rows, 1}) at (row, bh) of a [BH,
-// rows, 64] tensor map into shared memory; rows past the end read zeros
-__device__ __forceinline__ void tma_tile(void* dst, const CUtensorMap* map,
-                                         uint64_t* bar, int row, int bh) {
-  asm volatile(
-      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%3, %4, %5}], [%2];\n"
-      :: "r"(smem_u32(dst)), "l"(map), "r"(smem_u32(bar)), "r"(0),
-         "r"(row), "r"(bh) : "memory");
-}
-
-// shared-memory matrix descriptor of a 128-byte-swizzled tile (the layout
-// TMA writes with CU_TENSOR_MAP_SWIZZLE_128B; tiles 1024-byte aligned):
-// sbo = 1024 bytes between 8-row groups along the strided dimension
-__device__ __forceinline__ uint64_t desc_sw128(const void* p) {
-  uint64_t d = (smem_u32(p) & 0x3FFFF) >> 4;
-  d |= uint64_t(1) << 16;                  // leading offset: unused here
-  d |= uint64_t(1024 >> 4) << 32;          // stride offset
-  d |= uint64_t(1) << 62;                  // 128-byte swizzle
-  return d;
-}
-
-__device__ __forceinline__ void wg_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wg_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wg_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-__device__ __forceinline__ void fence_acc(float (*d)[4]) {
-#pragma unroll
-  for (int j = 0; j < 8; ++j)
-#pragma unroll
-    for (int c = 0; c < 4; ++c) asm volatile("" : "+f"(d[j][c]) :: "memory");
-}
-
-#define WG_D32(d)                                                            \
-  "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),                \
-  "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),                \
-  "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),                \
-  "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),                \
-  "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),                \
-  "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),                \
-  "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),                \
-  "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3])
-#define WG_R32                                                               \
-  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "  \
-  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "   \
-  "%30, %31}"
-
-// d (64 x 64 f32, the mma.sync layout per warp: [8 column tiles][4]) =
-// (acc ? d : 0) + A B^T, A [64 rows, 16 k] and B [64 rows, 16 k] both
-// K-major in shared memory
-template <typename T>
-__device__ __forceinline__ void wgmma_ss(float (*d)[4], uint64_t a,
-                                         uint64_t b, int acc) {
-  if constexpr (std::is_same<T, bf16>::value) {
-    asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-                 "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-                 WG_R32 ", %32, %33, p, 1, 1, 0, 0;\n}\n"
-                 : WG_D32(d) : "l"(a), "l"(b), "r"(acc));
-  } else {
-    asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-                 "wgmma.mma_async.sync.aligned.m64n64k16.f32.f16.f16 "
-                 WG_R32 ", %32, %33, p, 1, 1, 0, 0;\n}\n"
-                 : WG_D32(d) : "l"(a), "l"(b), "r"(acc));
-  }
-}
-
-// d += A B, A [64 rows, 16 k] in registers (the mma.sync A fragment per
-// warp), B [16 k rows, 64 columns] row-major (MN-major) in shared memory
-template <typename T>
-__device__ __forceinline__ void wgmma_rs(float (*d)[4], const uint32_t* a,
-                                         uint64_t b) {
-  if constexpr (std::is_same<T, bf16>::value) {
-    asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-                 "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-                 WG_R32 ", {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-                 : WG_D32(d)
-                 : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b),
-                   "r"(1));
-  } else {
-    asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-                 "wgmma.mma_async.sync.aligned.m64n64k16.f32.f16.f16 "
-                 WG_R32 ", {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-                 : WG_D32(d)
-                 : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b),
-                   "r"(1));
-  }
-}
-
-// the A fragments of k step kk (16 columns) of a 64 x 64 f32 tile, rounded
-template <typename T>
-__device__ __forceinline__ void pack_a(uint32_t* a, const float (*x)[4],
-                                       int kk) {
-  a[0] = pack<T>(x[2 * kk][0], x[2 * kk][1]);
-  a[1] = pack<T>(x[2 * kk][2], x[2 * kk][3]);
-  a[2] = pack<T>(x[2 * kk + 1][0], x[2 * kk + 1][1]);
-  a[3] = pack<T>(x[2 * kk + 1][2], x[2 * kk + 1][3]);
-}
-
 // S = own A (K-major, shared) times the streamed tile B (K-major, shared):
 // four k steps of 16 over head dim 64
 template <typename T>
@@ -716,7 +598,7 @@ __device__ __forceinline__ void product_ss(float (*d)[4], const T* a,
   const uint64_t da = desc_sw128(a), db = desc_sw128(b);
 #pragma unroll
   for (int kk = 0; kk < 4; ++kk)           // +32 bytes a k step
-    wgmma_ss<T>(d, da + 2 * kk, db + 2 * kk, kk > 0);
+    Wgmma<64>::ss<T>(d, da + 2 * kk, db + 2 * kk, kk > 0);
 }
 
 // d += X (64 x 64 f32 in registers, rounded to T) times the streamed tile
@@ -729,7 +611,7 @@ __device__ __forceinline__ void product_rs(float (*d)[4], const float (*x)[4],
   for (int kk = 0; kk < 4; ++kk) {
     uint32_t a[4];
     pack_a<T>(a, x, kk);
-    wgmma_rs<T>(d, a, db + 128 * kk);
+    Wgmma<64>::rs<T>(d, a, db + 128 * kk);
   }
 }
 
@@ -774,7 +656,7 @@ __device__ __forceinline__ void wg_init(const WgSmem& s) {
       mbar_init(&s.empty[i], WG);
     }
     mbar_init(s.own_bar, 1);
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    fence_mbar_init();
   }
   __syncthreads();
 }
@@ -796,11 +678,9 @@ flash_bwd_dkv_wg(const __grid_constant__ Maps maps, Params p) {
   T* Vs = Ks + TILE_ELEMS;
   if (warp == 4) {                        // the producer warp
     if (lane == 0) {
-      asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
-                   :: "r"(smem_u32(s.own_bar)), "r"(2 * TILE_ELEMS * 2)
-                   : "memory");
-      tma_tile(Ks, &maps.k, s.own_bar, k0, bh);
-      tma_tile(Vs, &maps.v, s.own_bar, k0, bh);
+      mbar_arrive_expect_tx(s.own_bar, 2 * TILE_ELEMS * 2);
+      tma_tile(Ks, &maps.k, s.own_bar, 0, k0, bh);
+      tma_tile(Vs, &maps.v, s.own_bar, 0, k0, bh);
     }
     const size_t qoff = (size_t)bh * p.S;
     for (int qt = lo; qt < hi; ++qt) {
@@ -815,8 +695,8 @@ flash_bwd_dkv_wg(const __grid_constant__ Maps maps, Params p) {
       if (lane == 0) {
         T* slot = reinterpret_cast<T*>(s.ring) + st * 2 * TILE_ELEMS;
         mbar_expect_tx(&s.full[st], 2 * TILE_ELEMS * 2);
-        tma_tile(slot, &maps.q, &s.full[st], qt * 64, bh);
-        tma_tile(slot + TILE_ELEMS, &maps.dout, &s.full[st], qt * 64, bh);
+        tma_tile(slot, &maps.q, &s.full[st], 0, qt * 64, bh);
+        tma_tile(slot + TILE_ELEMS, &maps.dout, &s.full[st], 0, qt * 64, bh);
       }
       mbar_arrive(&s.full[st]);
     }
@@ -841,15 +721,15 @@ flash_bwd_dkv_wg(const __grid_constant__ Maps maps, Params p) {
     const float* lse = s.rows + st * 128;
     const float* dlt = lse + 64;
     float sf[8][4], dp[8][4];
-    fence_acc(dk);
-    fence_acc(dv);
+    fence_acc<8>(dk);
+    fence_acc<8>(dv);
     wg_fence();
     product_ss<T>(sf, Ks, Qs);            // S^T = K Q^T
     product_ss<T>(dp, Vs, Ds);            // dP^T = V dO^T
     wg_commit();
     wg_wait();
-    fence_acc(sf);
-    fence_acc(dp);
+    fence_acc<8>(sf);
+    fence_acc<8>(dp);
     scale_tile<8>(sf, p.sm_scale);
     if ((p.causal && warp_k1 > q0) || q0 + 64 > p.S || k0 + 64 > p.Sk)
       mask_pos<8, false>(sf, p, r0, r1, q0, cq);
@@ -867,8 +747,8 @@ flash_bwd_dkv_wg(const __grid_constant__ Maps maps, Params p) {
     product_rs<T>(dk, dp, Qs);            // dK += dS^T Q
     wg_commit();
     wg_wait();
-    fence_acc(dk);
-    fence_acc(dv);
+    fence_acc<8>(dk);
+    fence_acc<8>(dv);
     mbar_arrive(&s.empty[st]);
   }
   const size_t koff = (size_t)bh * p.Sk * 64;
@@ -892,11 +772,9 @@ flash_bwd_dq_wg(const __grid_constant__ Maps maps, Params p) {
   T* Ds = Qs + TILE_ELEMS;
   if (warp == 4) {                        // the producer warp
     if (lane == 0) {
-      asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
-                   :: "r"(smem_u32(s.own_bar)), "r"(2 * TILE_ELEMS * 2)
-                   : "memory");
-      tma_tile(Qs, &maps.q, s.own_bar, q0, bh);
-      tma_tile(Ds, &maps.dout, s.own_bar, q0, bh);
+      mbar_arrive_expect_tx(s.own_bar, 2 * TILE_ELEMS * 2);
+      tma_tile(Qs, &maps.q, s.own_bar, 0, q0, bh);
+      tma_tile(Ds, &maps.dout, s.own_bar, 0, q0, bh);
     }
     for (int kt = lo; kt < hi; ++kt) {
       const int i = kt - lo, st = i % STAGES, ph = (i / STAGES) & 1;
@@ -904,8 +782,8 @@ flash_bwd_dq_wg(const __grid_constant__ Maps maps, Params p) {
       if (lane == 0) {
         T* slot = reinterpret_cast<T*>(s.ring) + st * 2 * TILE_ELEMS;
         mbar_expect_tx(&s.full[st], 2 * TILE_ELEMS * 2);
-        tma_tile(slot, &maps.k, &s.full[st], kt * 64, bh);
-        tma_tile(slot + TILE_ELEMS, &maps.v, &s.full[st], kt * 64, bh);
+        tma_tile(slot, &maps.k, &s.full[st], 0, kt * 64, bh);
+        tma_tile(slot + TILE_ELEMS, &maps.v, &s.full[st], 0, kt * 64, bh);
       }
       mbar_arrive(&s.full[st]);
     }
@@ -932,14 +810,14 @@ flash_bwd_dq_wg(const __grid_constant__ Maps maps, Params p) {
     const T* Ks = reinterpret_cast<const T*>(s.ring) + st * 2 * TILE_ELEMS;
     const T* Vs = Ks + TILE_ELEMS;
     float sf[8][4], dp[8][4];
-    fence_acc(acc);
+    fence_acc<8>(acc);
     wg_fence();
     product_ss<T>(sf, Qs, Ks);            // S = Q K^T
     product_ss<T>(dp, Ds, Vs);            // dP = dO V^T
     wg_commit();
     wg_wait();
-    fence_acc(sf);
-    fence_acc(dp);
+    fence_acc<8>(sf);
+    fence_acc<8>(dp);
     scale_tile<8>(sf, p.sm_scale);
     if ((p.causal && k0 + 63 > warp_q0) || k0 + 64 > p.Sk)
       mask_pos<8, true>(sf, p, r0, r1, k0, cq);
@@ -955,52 +833,12 @@ flash_bwd_dq_wg(const __grid_constant__ Maps maps, Params p) {
     product_rs<T>(acc, sf, Ks);           // dQ += dS K
     wg_commit();
     wg_wait();
-    fence_acc(acc);
+    fence_acc<8>(acc);
     mbar_arrive(&s.empty[st]);
   }
   store_rows<T, 64>(static_cast<T*>(p.dq) + qoff * 64, acc, r0, r1, p.S, 64,
                     cq);
 }
-
-// cuTensorMapEncodeTiled, fetched from the driver at first use (no link
-// against libcuda)
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                 void*, const cuuint64_t*, const cuuint64_t*,
-                                 const cuuint32_t*, const cuuint32_t*,
-                                 CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion,
-                                 CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (!fn) {
-    void* ptr = nullptr;
-    cudaDriverEntryPointQueryResult found;
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &ptr,
-                                cudaEnableDefault, &found) == cudaSuccess &&
-        found == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(ptr);
-  }
-  return fn;
-}
-
-// a [BH, rows, 64] 16-bit tensor in boxes of 64 x 64, 128-byte swizzled
-bool tile_map(CUtensorMap* m, const void* base, bool bf, int rows, int BH) {
-  const EncodeTiled fn = encode_tiled();
-  if (!fn) return false;
-  const cuuint64_t dims[3] = {64, (cuuint64_t)rows, (cuuint64_t)BH};
-  const cuuint64_t strides[2] = {64 * 2, (cuuint64_t)rows * 64 * 2};
-  const cuuint32_t box[3] = {64, 64, 1};
-  const cuuint32_t unit[3] = {1, 1, 1};
-  return fn(m, bf ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
-                  : CU_TENSOR_MAP_DATA_TYPE_FLOAT16,
-            3, const_cast<void*>(base), dims, strides, box, unit,
-            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-            CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
-constexpr int ERR_TENSOR_MAP = -2;
 
 template <typename T>
 int launch_wg(const Params& p, int BH, bool dkv, cudaStream_t st) {
@@ -1022,43 +860,49 @@ int launch_wg(const Params& p, int BH, bool dkv, cudaStream_t st) {
 
 // ---------------------------------------------------------------- launch
 
-// grid (b*h, tiles of rows_per_cta over n): blockIdx.y is the rank that
-// each kernel maps to a tile, longest list first
+// grid (b*h, tiles of rows_per_cta over n, splits): blockIdx.y is the rank
+// that each kernel maps to a tile, longest list first; blockIdx.z the
+// column half of a wide dk/dv
 template <typename KernelFn>
 int launch(KernelFn kernel, const Params& p, int rows_per_cta, int n, int BH,
-           cudaStream_t stream, size_t smem = 0) {
+           cudaStream_t stream, size_t smem = 0, int splits = 1) {
   if (smem > 48 * 1024) {                   // above 48 KB only by opt-in
     const cudaError_t e = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>(smem));
     if (e != cudaSuccess) return static_cast<int>(e);
   }
-  dim3 grid(BH, (n + rows_per_cta - 1) / rows_per_cta);
+  dim3 grid(BH, (n + rows_per_cta - 1) / rows_per_cta, splits);
   kernel<<<grid, NTHREADS, smem, stream>>>(p);
   return static_cast<int>(cudaGetLastError());
 }
 
-// f32 rows are spread over DP / 32 threads: widths 32, 64 and 128
-constexpr int f32_dim(int d) { return d <= 32 ? 32 : d <= 64 ? 64 : 128; }
+// f32 rows are spread over DP / 32 threads: widths 32, 64, 128 and 256
+constexpr int f32_dim(int d) {
+  return d <= 32 ? 32 : d <= 64 ? 64 : d <= 128 ? 128 : 256;
+}
 
 // the (EXTRAS, EXACT) variant of a 16-bit kernel: go(extras, exact) with
 // both as std::integral_constant. D 64 without extras runs the wgmma
 // kernels (dispatch), so that exact variant is compiled only at the other
-// widths
+// widths; above 128 the width is a run-time D only
 template <int DP, typename F>
 int variant(const Params& p, bool extras, F&& go) {
   using Y = std::true_type;
   using N = std::false_type;
-  if (extras) return p.D == DP ? go(Y(), Y()) : go(Y(), N());
-  if constexpr (DP != 64) {
-    if (p.D == DP) return go(N(), Y());
+  if constexpr (DP <= 128) {
+    if (extras) return p.D == DP ? go(Y(), Y()) : go(Y(), N());
+    if constexpr (DP != 64) {
+      if (p.D == DP) return go(N(), Y());
+    }
   }
-  return go(N(), N());
+  return extras ? go(Y(), N()) : go(N(), N());
 }
 
 template <typename T, int DP>
 int launch_dq_mma(const Params& p, int BH, bool extras, cudaStream_t st) {
-  constexpr size_t smem = pair_smem_bytes<T, DP>(64);
+  constexpr size_t smem = pair_smem_bytes<T, DP>(DP > 128 ? 32 : 64) +
+                          own_smem_bytes<T, DP>(2);
   return variant<DP>(p, extras, [&](auto x, auto e) {
     return launch(flash_bwd_dq<T, DP, decltype(x)::value, decltype(e)::value>,
                   p, BR, p.S, BH, st, smem);
@@ -1070,11 +914,12 @@ int launch_dkv_mma(const Params& p, int BH, bool extras, cudaStream_t st) {
   // query tiles of 32 above head_dim 64 keep dK, dV, K, V and the score
   // tiles within the register file
   constexpr int BQ = DP > 64 ? 32 : 64;
-  constexpr size_t smem = pair_smem_bytes<T, DP>(BQ);
+  constexpr size_t smem = pair_smem_bytes<T, DP>(BQ) +
+                          own_smem_bytes<T, DP>(2);
   return variant<DP>(p, extras, [&](auto x, auto e) {
     return launch(
         flash_bwd_dkv<T, DP, BQ, decltype(x)::value, decltype(e)::value>, p,
-        BR, p.Sk, BH, st, smem);
+        BR, p.Sk, BH, st, smem, DP > 128 ? 2 : 1);
   });
 }
 
@@ -1107,7 +952,8 @@ int dispatch(const Params& p, int BH, int dtype, bool dkv, cudaStream_t st) {
     switch (f32_dim(p.D)) {
       case 32: return launch_f32<32>(p, BH, dkv, st);
       case 64: return launch_f32<64>(p, BH, dkv, st);
-      default: return launch_f32<128>(p, BH, dkv, st);
+      case 128: return launch_f32<128>(p, BH, dkv, st);
+      default: return launch_f32<256>(p, BH, dkv, st);
     }
   }
   if (p.D == 64 && !extras)               // the train path: wgmma + TMA
@@ -1120,8 +966,12 @@ int dispatch(const Params& p, int BH, int dtype, bool dkv, cudaStream_t st) {
                         : launch_dq<64>(p, BH, dtype, extras, st);
     case 96: return dkv ? launch_dkv<96>(p, BH, dtype, extras, st)
                         : launch_dq<96>(p, BH, dtype, extras, st);
-    default: return dkv ? launch_dkv<128>(p, BH, dtype, extras, st)
-                        : launch_dq<128>(p, BH, dtype, extras, st);
+    case 128: return dkv ? launch_dkv<128>(p, BH, dtype, extras, st)
+                         : launch_dq<128>(p, BH, dtype, extras, st);
+    case 192: return dkv ? launch_dkv<192>(p, BH, dtype, extras, st)
+                         : launch_dq<192>(p, BH, dtype, extras, st);
+    default: return dkv ? launch_dkv<256>(p, BH, dtype, extras, st)
+                        : launch_dq<256>(p, BH, dtype, extras, st);
   }
 }
 
@@ -1146,7 +996,8 @@ Params make_params(const void* q, const void* k, const void* v,
 }
 
 bool supported(int D, int dtype) {
-  return dtype >= 0 && dtype <= 2 && D >= 8 && D <= 128 && D % 8 == 0;
+  return dtype >= 0 && dtype <= 2 && D >= 8 && D <= MAX_HEAD_DIM &&
+         D % 8 == 0;
 }
 
 }  // namespace
@@ -1154,7 +1005,7 @@ bool supported(int D, int dtype) {
 extern "C" {
 
 // dtype: 0 = float32, 1 = bfloat16, 2 = float16 (q, k, v, dout and the
-// outputs alike). D: any multiple of 8 up to 128. Each returns the CUDA
+// outputs alike). D: any multiple of 8 up to 256. Each returns the CUDA
 // error of its launch (0 = launched); -1 for a dtype or head dim the
 // kernels lack.
 int flash_attention_bwd_dq_launch(const void* q, const void* k, const void* v,

@@ -6,8 +6,9 @@
 //     y[m, n] = sum_kb ( sum_{k in block kb} x[m, k] * q[k, n] ) * s[kb, n]
 //
 // with q int8 [Kp, N] (N contiguous, as pack_kernel stores it), one f32
-// scale per 256 rows of K and column, each block's partial product summed
-// in f32 and scaled once, and y in x's dtype. Rows of q past K (the
+// scale per `block` rows of K and column (any block that is a multiple of
+// 16, the mma k step; 256 by default), each block's partial product summed
+// in f32 and scaled, and y in x's dtype. Rows of q past K (the
 // packing's zero padding) meet zeros of x. A bf16 x and an int8 q are both
 // exact in bf16, so the tensor-core products are exact and only the f32
 // summation order differs from the plain version. Three kernels, one
@@ -25,12 +26,14 @@
 //   bf16 in registers, two at a time: a byte permute pairs the two K rows
 //   of a column, and one exact bf16x2 add of 128 + (v & 0x7F) and -128 -
 //   (v & 0x80) gives v. A CTA (8 warps) owns 128 columns and a range of
-//   K-blocks. Each block's 256 rows of 128 bytes arrive by bulk copies (the
-//   copy engine, one row a thread, counted by an mbarrier) in a two-stage
-//   ring, so the next block is in flight while one is multiplied; x and
-//   the scales are fetched before the weights are waited on. The warps
-//   split each block's rows and add their partials in warp order through
-//   shared memory before the block is scaled.
+//   K-blocks, walked in pieces of at most 256 rows inside one block (a
+//   256-row block is one piece) of 128 bytes a row that arrive by bulk
+//   copies (the copy engine, one row a thread, counted by an mbarrier) in
+//   a two-stage ring, so the next piece is in flight while one is
+//   multiplied; x and the scales are fetched before the weights are waited
+//   on. The warps split each piece's rows and add their partials in warp
+//   order through shared memory into the block's sum, scaled once at the
+//   block's end.
 // * gemm (bf16 x, M > 16: prefill). Bound by operations above M ~ 300. A
 //   128 x 128 CTA tile, 8 warps of 64 x 32 on mma.sync m16n8k16, K steps
 //   of 64 through a four-stage cp.async ring of bf16 x and int8 q tiles.
@@ -38,9 +41,11 @@
 //   (the same exact conversion; two buffers, so the next step's conversion
 //   overlaps this step's mma and a step takes one barrier) and feeds every
 //   warp through ldmatrix.trans; the f32 accumulator of the current
-//   K-block is scaled into the running sum at every 256-row boundary.
+//   K-block is scaled into the running sum at every block boundary (a
+//   16-row k step of the mma never straddles one).
 // * simt (f32 x). Exact f32 on CUDA cores (no TF32, no rounding of x): a
-//   CTA owns 8 rows x 128 columns, its 8 warps split each K-block's rows.
+//   CTA owns 8 rows x 128 columns and walks its K-blocks in pieces of at
+//   most 256 rows inside one block; its 8 warps split each piece's rows.
 //
 // Split K: where the tiles are too few to fill the card, the CTAs of a
 // tile each take a range of whole K-blocks and form one thread-block
@@ -58,7 +63,8 @@ namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int QB = 256;            // K rows per scale block (QUANT_BLOCK)
+constexpr int QB = 256;            // K rows a chunk (the default block)
+constexpr int KSTEP = 16;          // the mma k step: blocks are multiples
 
 // ------------------------------------------------------------ helpers
 
@@ -197,10 +203,10 @@ __device__ __forceinline__ void cluster_reduce(float* tile, int rows,
 constexpr int GV_WARPS = 8;
 constexpr int GV_NT = GV_WARPS * 32;
 constexpr int GV_BN = 128;                  // columns per CTA (and per warp)
-constexpr int GV_STAGES = 2;                // K-blocks in the ring
-constexpr int GV_STEPS = QB / 16 / GV_WARPS;  // 16-row steps per warp and block
+constexpr int GV_STAGES = 2;                // pieces in the ring
+constexpr int GV_STEPS = QB / 16 / GV_WARPS;  // 16-row steps per warp and piece
 constexpr int GV_ROW = GV_BN + 16;         // bytes per row in shared memory
-constexpr size_t GV_STAGE_BYTES = (size_t)QB * GV_ROW;  // one K-block's rows
+constexpr size_t GV_STAGE_BYTES = (size_t)QB * GV_ROW;  // one piece's rows
 
 template <int MT> __host__ __device__ constexpr size_t gv_red_bytes() {
   return (size_t)GV_WARPS * MT * 32 * 32 * sizeof(float);
@@ -257,7 +263,7 @@ template <int MT>
 __global__ void __launch_bounds__(GV_NT, 3 - MT)
 gemv_kernel(const __nv_bfloat16* __restrict__ x, const int8_t* __restrict__ q,
             const float* __restrict__ scales, __nv_bfloat16* __restrict__ out,
-            int M, int K, int N, int nkb, int kb_per, int qvec) {
+            int M, int K, int N, int nkb, int block, int kb_per, int qvec) {
   constexpr int V = MT * 32;                // accumulator values per lane
   constexpr int OWN = MT * 1024 / GV_NT;    // reduced elements per thread
   extern __shared__ __align__(16) unsigned char smem[];
@@ -269,10 +275,16 @@ gemv_kernel(const __nv_bfloat16* __restrict__ x, const int8_t* __restrict__ q,
   const int r = lane >> 2, c = lane & 3;
   const int n_base = blockIdx.x * GV_BN;
   const int kb0 = blockIdx.y * kb_per;
-  const int nk = min(nkb, kb0 + kb_per) - kb0;
+  const int k_begin = kb0 * block;          // this split's rows of K
+  const int k_end = min(nkb, kb0 + kb_per) * block;
+  // the split's K rows go in pieces of at most 256 inside one K-block (a
+  // 256-row block is one piece)
+  auto piece = [&](int k) {
+    return min(QB, min(k_end, (k / block + 1) * block) - k);
+  };
   const unsigned short* xh = reinterpret_cast<const unsigned short*>(x);
   // whole 128-byte rows in the copy engine; a ragged or unaligned tile by
-  // plain loads (then the block barriers order them)
+  // plain loads (then the piece barriers order them)
   const bool bulk = qvec && n_base + GV_BN <= N;
 
   if (tid == 0) {
@@ -281,15 +293,16 @@ gemv_kernel(const __nv_bfloat16* __restrict__ x, const int8_t* __restrict__ q,
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
-  // block i's 256 rows of the CTA's 128 columns into stage i % STAGES:
+  // piece i (rows k0 ..) of the CTA's 128 columns into stage i % STAGES:
   // thread t copies row t
-  auto issue = [&](int i) {
-    const int st = i % GV_STAGES;
+  auto issue = [&](int i, int k0) {
+    const int st = i % GV_STAGES, rows = piece(k0);
+    if (tid >= rows) return;
     unsigned char* dst = ring + (size_t)st * GV_STAGE_BYTES + tid * GV_ROW;
-    const int8_t* src = q + ((size_t)(kb0 + i) * QB + tid) * N + n_base;
+    const int8_t* src = q + ((size_t)k0 + tid) * N + n_base;
     if (bulk) {
       fence_async_shared();               // the stage's last readers are done
-      if (tid == 0) mbar_expect_tx(bar + st, QB * GV_BN);
+      if (tid == 0) mbar_expect_tx(bar + st, rows * GV_BN);
       bulk_copy(dst, src, GV_BN, bar + st);
     } else {
 #pragma unroll
@@ -298,18 +311,23 @@ gemv_kernel(const __nv_bfloat16* __restrict__ x, const int8_t* __restrict__ q,
     }
   };
 
-  issue(0);
+  issue(0, k_begin);
+  int k_next = k_begin + piece(k_begin);    // the next piece to issue
   __syncthreads();
-  float run[OWN];
+  float run[OWN], part[OWN];                // the sums; the block's so far
 #pragma unroll
-  for (int u = 0; u < OWN; ++u) run[u] = 0.f;
+  for (int u = 0; u < OWN; ++u) run[u] = part[u] = 0.f;
 
-  for (int i = 0; i < nk; ++i) {
-    if (i + 1 < nk) issue(i + 1);           // GV_STAGES == 2
+  for (int i = 0, k0 = k_begin; k0 < k_end; ++i) {
+    const int len = piece(k0);
+    if (k_next < k_end) {                   // GV_STAGES == 2
+      issue(i + 1, k_next);
+      k_next += piece(k_next);
+    }
     const int st = i % GV_STAGES;
     const unsigned char* stage = ring + (size_t)st * GV_STAGE_BYTES;
-    const int kb = kb0 + i;
-    // block i's x fragments and scales, requested before its weights are
+    const int kb = k0 / block;
+    // piece i's x fragments and scales, requested before its weights are
     // waited on. B: x rows mt * 8 + r, K columns 2c, 2c + 1 (b0) and + 8 (b1)
     uint32_t b[GV_STEPS][MT][2];
 #pragma unroll
@@ -319,7 +337,7 @@ gemv_kernel(const __nv_bfloat16* __restrict__ x, const int8_t* __restrict__ q,
         const int m = mt * 8 + r;
 #pragma unroll
         for (int h = 0; h < 2; ++h) {
-          const int k = kb * QB + warp * (GV_STEPS * 16) + s * 16 + 2 * c + 8 * h;
+          const int k = k0 + warp * (GV_STEPS * 16) + s * 16 + 2 * c + 8 * h;
           const size_t o = (size_t)m * K + k;
           const uint32_t lo = (m < M && k < K) ? __ldg(xh + o) : 0u;
           const uint32_t hi = (m < M && k + 1 < K) ? __ldg(xh + o + 1) : 0u;
@@ -340,9 +358,10 @@ gemv_kernel(const __nv_bfloat16* __restrict__ x, const int8_t* __restrict__ q,
       for (int t = 0; t < 8; ++t)
 #pragma unroll
         for (int e = 0; e < 4; ++e) acc[mt][t][e] = 0.f;
-    if (bulk) mbar_wait(bar + st, (i / GV_STAGES) & 1);   // block i landed
+    if (bulk) mbar_wait(bar + st, (i / GV_STAGES) & 1);   // piece i landed
 #pragma unroll
     for (int s = 0; s < GV_STEPS; ++s) {
+      if (warp * GV_STEPS * 16 + s * 16 >= len) break;   // past the piece
       // this lane's 16 columns of rows 2c, 2c + 1, 2c + 8, 2c + 9 of the
       // step (rows padded to 144 bytes: the 8 lanes of a phase hit 8 banks)
       const unsigned char* rows =
@@ -370,7 +389,8 @@ gemv_kernel(const __nv_bfloat16* __restrict__ x, const int8_t* __restrict__ q,
         }
       }
     }
-    // the warps' partials of block i, added in warp order, scaled once
+    // the warps' partials of piece i, added in warp order; the block's
+    // sum is scaled once, at its end
     float* rw = red + (size_t)warp * V * 32 + lane;
 #pragma unroll
     for (int mt = 0; mt < MT; ++mt)
@@ -382,12 +402,17 @@ gemv_kernel(const __nv_bfloat16* __restrict__ x, const int8_t* __restrict__ q,
 #pragma unroll
     for (int u = 0; u < OWN; ++u) {
       const int el = tid + u * GV_NT;
-      float blk = 0.f;
+      float blk = part[u];
 #pragma unroll
       for (int w = 0; w < GV_WARPS; ++w) blk += red[w * V * 32 + el];
-      run[u] += blk * sc[u];
+      part[u] = blk;
+      if (k0 + len == min(k_end, (kb + 1) * block)) {   // the block ends
+        run[u] += blk * sc[u];
+        part[u] = 0.f;
+      }
     }
-    __syncthreads();                        // red is rewritten by block i + 1
+    __syncthreads();                        // red is rewritten by piece i + 1
+    k0 += len;
   }
 
   // the tile's sums in red, indexed by reduced element; the cluster adds
@@ -403,6 +428,7 @@ gemv_kernel(const __nv_bfloat16* __restrict__ x, const int8_t* __restrict__ q,
 }
 
 // ------------------------------------------------- gemm: bf16, M > 16
+// ------------------------------------------------- gemm: bf16, M > 16
 
 constexpr int GM_BM = 128, GM_BN = 128, GM_BK = 64;
 constexpr int GM_NT = 256;                  // 8 warps: 2 (M) x 4 (N), 64 x 32 each
@@ -415,7 +441,6 @@ constexpr int GM_Q_BYTES = GM_BK * GM_BN;
 constexpr int GM_STAGE_BYTES = GM_X_BYTES + GM_Q_BYTES;
 constexpr int GM_B_BYTES = GM_BK * GM_BLD * 2;
 constexpr size_t GM_SMEM = (size_t)GM_STAGES * GM_STAGE_BYTES + 2 * GM_B_BYTES;
-constexpr int GM_KSTEPS = QB / GM_BK;       // K steps per scale block
 static_assert((size_t)GM_BM * GM_TLD * 4 <= GM_SMEM, "tile fits the ring");
 
 // grid.x = tiles, the M tile fastest so that CTAs running together share
@@ -427,7 +452,8 @@ static_assert((size_t)GM_BM * GM_TLD * 4 <= GM_SMEM, "tile fits the ring");
 __global__ void __launch_bounds__(GM_NT, 1)
 gemm_kernel(const __nv_bfloat16* __restrict__ x, const int8_t* __restrict__ q,
             const float* __restrict__ scales, __nv_bfloat16* __restrict__ out,
-            int M, int K, int N, int nkb, int kb_per, int qvec, int xvec) {
+            int M, int K, int N, int nkb, int block, int kb_per, int qvec,
+            int xvec) {
   extern __shared__ __align__(16) unsigned char smem[];
   __nv_bfloat16* bs = reinterpret_cast<__nv_bfloat16*>(
       smem + GM_STAGES * GM_STAGE_BYTES);
@@ -438,8 +464,10 @@ gemm_kernel(const __nv_bfloat16* __restrict__ x, const int8_t* __restrict__ q,
   const int m0 = (blockIdx.x % tiles_m) * GM_BM;
   const int n0 = (blockIdx.x / tiles_m) * GM_BN;
   const int kb0 = blockIdx.y * kb_per;
-  const int nkt = (min(nkb, kb0 + kb_per) - kb0) * GM_KSTEPS;
-  const int kt0 = kb0 * GM_KSTEPS;
+  const int k_begin = kb0 * block;          // this split's rows of K
+  const int k_end = min(nkb, kb0 + kb_per) * block;
+  const int kx = min(K, k_end);             // x columns past it read zeros
+  const int nkt = (k_end - k_begin + GM_BK - 1) / GM_BK;
 
   auto x_tile = [&](int st) {
     return reinterpret_cast<__nv_bfloat16*>(smem + st * GM_STAGE_BYTES);
@@ -448,7 +476,7 @@ gemm_kernel(const __nv_bfloat16* __restrict__ x, const int8_t* __restrict__ q,
     return reinterpret_cast<int8_t*>(smem + st * GM_STAGE_BYTES + GM_X_BYTES);
   };
   auto issue = [&](int kt) {
-    const int st = kt % GM_STAGES, k = (kt0 + kt) * GM_BK;
+    const int st = kt % GM_STAGES, k = k_begin + kt * GM_BK;
     __nv_bfloat16* xs = x_tile(st);
 #pragma unroll
     for (int u = 0; u < GM_BM * GM_BK / 8 / GM_NT; ++u) {
@@ -457,15 +485,15 @@ gemm_kernel(const __nv_bfloat16* __restrict__ x, const int8_t* __restrict__ q,
       __nv_bfloat16* dst = xs + row * GM_XLD + (ch & 7) * 8;
       const __nv_bfloat16* src = x + (size_t)m * K + kc;
       if (xvec) {
-        const bool ok = m < M && kc < K;      // K % 8 == 0: all 8 or none
+        const bool ok = m < M && kc < kx;     // kx % 8 == 0: all 8 or none
         cp_async16(dst, ok ? src : x, ok ? 16 : 0);
       } else {
         const unsigned short* sh = reinterpret_cast<const unsigned short*>(src);
         uint32_t w[4];
 #pragma unroll
         for (int j = 0; j < 4; ++j) {
-          const uint32_t lo = (m < M && kc + 2 * j < K) ? sh[2 * j] : 0u;
-          const uint32_t hi = (m < M && kc + 2 * j + 1 < K) ? sh[2 * j + 1] : 0u;
+          const uint32_t lo = (m < M && kc + 2 * j < kx) ? sh[2 * j] : 0u;
+          const uint32_t hi = (m < M && kc + 2 * j + 1 < kx) ? sh[2 * j + 1] : 0u;
           w[j] = lo | (hi << 16);
         }
         *reinterpret_cast<uint4*>(dst) = make_uint4(w[0], w[1], w[2], w[3]);
@@ -477,10 +505,12 @@ gemm_kernel(const __nv_bfloat16* __restrict__ x, const int8_t* __restrict__ q,
       const int ch = tid + u * GM_NT, row = ch >> 3, n = n0 + (ch & 7) * 16;
       int8_t* dst = qs + row * GM_BN + (ch & 7) * 16;
       const int8_t* src = q + (size_t)(k + row) * N + n;
+      const bool live = k + row < k_end;    // rows past the split: zeros
       if (qvec)
-        cp_async16(dst, n < N ? src : q, n < N ? 16 : 0);
+        cp_async16(dst, live && n < N ? src : q, live && n < N ? 16 : 0);
       else
-        *reinterpret_cast<uint4*>(dst) = load16_masked(src, n, N);
+        *reinterpret_cast<uint4*>(dst) =
+            live ? load16_masked(src, n, N) : make_uint4(0u, 0u, 0u, 0u);
     }
   };
   auto convert = [&](int kt) {      // int8 -> bf16 once for all warps
@@ -498,6 +528,25 @@ gemm_kernel(const __nv_bfloat16* __restrict__ x, const int8_t* __restrict__ q,
   };
 
   float blk[4][4][4], run[4][4][4];
+  // run += blk * the scales of K-block kb; blk = 0
+  auto fold = [&](int kb) {
+#pragma unroll
+    for (int nj = 0; nj < 4; ++nj) {
+      const int n = n0 + wn * 32 + nj * 8 + 2 * c;
+      const float s0 = n < N ? __ldg(scales + (size_t)kb * N + n) : 0.f;
+      const float s1 = n + 1 < N ? __ldg(scales + (size_t)kb * N + n + 1) : 0.f;
+#pragma unroll
+      for (int mi = 0; mi < 4; ++mi) {
+        run[mi][nj][0] += blk[mi][nj][0] * s0;
+        run[mi][nj][1] += blk[mi][nj][1] * s1;
+        run[mi][nj][2] += blk[mi][nj][2] * s0;
+        run[mi][nj][3] += blk[mi][nj][3] * s1;
+#pragma unroll
+        for (int e = 0; e < 4; ++e) blk[mi][nj][e] = 0.f;
+      }
+    }
+  };
+  int next_end = k_begin + block;           // the current K-block's end
 #pragma unroll
   for (int i = 0; i < 4; ++i)
 #pragma unroll
@@ -542,26 +591,15 @@ gemm_kernel(const __nv_bfloat16* __restrict__ x, const int8_t* __restrict__ q,
 #pragma unroll
         for (int nj = 0; nj < 4; ++nj)
           mma_bf16(blk[mi][nj], a[mi], bf[nj][0], bf[nj][1]);
-    }
-    if (kt + 1 < nkt) convert(kt + 1);
-    if (kt % GM_KSTEPS == GM_KSTEPS - 1) {   // a 256-row block is complete
-      const int kb = (kt0 + kt) / GM_KSTEPS;
-#pragma unroll
-      for (int nj = 0; nj < 4; ++nj) {
-        const int n = n0 + wn * 32 + nj * 8 + 2 * c;
-        const float s0 = n < N ? __ldg(scales + (size_t)kb * N + n) : 0.f;
-        const float s1 = n + 1 < N ? __ldg(scales + (size_t)kb * N + n + 1) : 0.f;
-#pragma unroll
-        for (int mi = 0; mi < 4; ++mi) {
-          run[mi][nj][0] += blk[mi][nj][0] * s0;
-          run[mi][nj][1] += blk[mi][nj][1] * s1;
-          run[mi][nj][2] += blk[mi][nj][2] * s0;
-          run[mi][nj][3] += blk[mi][nj][3] * s1;
-#pragma unroll
-          for (int e = 0; e < 4; ++e) blk[mi][nj][e] = 0.f;
-        }
+      // a K-block ends at this k step's end: scale it into the sum (rows
+      // past k_end are zeros and never end a block)
+      const int row_end = k_begin + kt * GM_BK + (kk + 1) * KSTEP;
+      if (row_end == next_end && row_end <= k_end) {
+        fold(row_end / block - 1);
+        next_end += block;
       }
     }
+    if (kt + 1 < nkt) convert(kt + 1);
   }
 
   // the tile's sums into the ring (f32, row m, column n), then the cluster
@@ -591,18 +629,20 @@ constexpr int SM_BN = 128;                  // columns per CTA: 32 lanes x 4
 constexpr int SM_BM = 8;                    // rows of x per CTA
 constexpr int SM_WARPS = 8;
 constexpr int SM_NT = SM_WARPS * 32;
-constexpr int SM_ROWS = QB / SM_WARPS;      // K rows per warp per block
+constexpr int SM_ROWS = QB / SM_WARPS;      // K rows per warp per piece
 constexpr int SM_OUT = SM_BM * SM_BN / SM_NT;
 
-// Per K-block: x [8, 256] staged as f32 in shared memory; warp w multiplies
-// rows [32w, 32w + 32) of the block in f32 FMAs; the 8 warp partials are
-// added in warp order through shared memory and scaled once. At most 255
-// registers (one CTA an SM): the 32 packed weight words and the 8 x 4
-// partials stay in registers.
+// Per piece (at most 256 rows inside one K-block): x [8, piece] staged as
+// f32 in shared memory; warp w multiplies rows [32w, 32w + 32) of the
+// piece in f32 FMAs; the 8 warp partials are added in warp order through
+// shared memory into the block's sum, which is scaled once at the block's
+// end (a 256-row block is one piece). At most 255 registers (one CTA an
+// SM): the 32 packed weight words and the 8 x 4 partials stay in
+// registers.
 __global__ void __launch_bounds__(SM_NT, 1)
 simt_kernel(const float* __restrict__ x, const int8_t* __restrict__ q,
             const float* __restrict__ scales, float* __restrict__ out, int M,
-            int K, int N, int nkb, int kb_per) {
+            int K, int N, int nkb, int block, int kb_per) {
   __shared__ float xs[SM_BM * QB];
   __shared__ float red[SM_WARPS * SM_BM * SM_BN];
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
@@ -615,16 +655,18 @@ simt_kernel(const float* __restrict__ x, const int8_t* __restrict__ q,
   const bool vec4 = (N % 4 == 0) && (n0 + 3 < N) &&
                     (reinterpret_cast<uintptr_t>(q) % 4 == 0);
 
-  float acc[SM_OUT];                        // outputs o = tid + j * SM_NT
+  float acc[SM_OUT], part[SM_OUT];          // outputs o = tid + j * SM_NT
 #pragma unroll
-  for (int j = 0; j < SM_OUT; ++j) acc[j] = 0.f;
+  for (int j = 0; j < SM_OUT; ++j) acc[j] = part[j] = 0.f;
 
-  for (int kb = kb_begin; kb < kb_end; ++kb) {
+  for (int k0 = kb_begin * block, len; k0 < kb_end * block; k0 += len) {
+    const int kb = k0 / block;
+    len = min(QB, (kb + 1) * block - k0);   // the piece's rows
 #pragma unroll
     for (int i = 0; i < SM_BM * QB / SM_NT; ++i) {
       const int idx = threadIdx.x + i * SM_NT;
-      const int m = m0 + idx / QB, k = kb * QB + idx % QB;
-      xs[idx] = (m < M && k < K) ? x[(size_t)m * K + k] : 0.f;
+      const int m = m0 + idx / QB, kk = idx % QB, k = k0 + kk;
+      xs[idx] = (m < M && kk < len && k < K) ? x[(size_t)m * K + k] : 0.f;
     }
     __syncthreads();
     float p[SM_BM][4];
@@ -633,12 +675,14 @@ simt_kernel(const float* __restrict__ x, const int8_t* __restrict__ q,
 #pragma unroll
       for (int c = 0; c < 4; ++c) p[r][c] = 0.f;
     const int krow = warp * SM_ROWS;
-    const int8_t* qb = q + ((size_t)kb * QB + krow) * N + n0;
+    const int8_t* qb = q + ((size_t)k0 + krow) * N + n0;
     char4 w[SM_ROWS];                       // every load of the warp at once
 #pragma unroll
     for (int k = 0; k < SM_ROWS; ++k) {
       const int8_t* qr = qb + (size_t)k * N;
-      if (vec4) {
+      if (krow + k >= len) {                // past the piece
+        w[k] = make_char4(0, 0, 0, 0);
+      } else if (vec4) {
         w[k] = *reinterpret_cast<const char4*>(qr);
       } else {
         w[k].x = n0 < N ? qr[0] : 0;
@@ -668,12 +712,16 @@ simt_kernel(const float* __restrict__ x, const int8_t* __restrict__ q,
     for (int j = 0; j < SM_OUT; ++j) {
       const int o = threadIdx.x + j * SM_NT;  // o = r * SM_BN + c
       const int n = col0 + o % SM_BN;
-      float blk = 0.f;
+      float blk = part[j];
 #pragma unroll
       for (int v = 0; v < SM_WARPS; ++v) blk += red[v * SM_BM * SM_BN + o];
-      acc[j] += blk * (n < N ? scales[(size_t)kb * N + n] : 0.f);
+      part[j] = blk;
+      if (k0 + len == (kb + 1) * block) {   // the block is complete
+        acc[j] += blk * (n < N ? scales[(size_t)kb * N + n] : 0.f);
+        part[j] = 0.f;
+      }
     }
-    __syncthreads();                        // xs / red reused by the next block
+    __syncthreads();                        // xs / red reused by the next piece
   }
 
   // red is free (the loop ended on a barrier): the tile's sums, row-major
@@ -724,12 +772,12 @@ extern "C" {
 // qvec / xvec: q rows (x rows) start 16-byte aligned, so tiles go by
 // cp.async. Returns the CUDA error of the launch (0 = launched), -1 for a
 // regime or split count this build lacks, -2 when the scale block is not
-// 256 rows.
+// a positive multiple of 16 rows.
 int quant_matmul_launch(const void* x, const void* q, const void* scales,
                         void* out, int M, int K, int N, int nkb, int block,
                         int regime, int tiles, int kb_per, int splits,
                         int qvec, int xvec, void* stream) {
-  if (block != QB) return -2;
+  if (block <= 0 || block % KSTEP) return -2;
   if (splits < 1 || splits > MAX_SPLITS) return -1;
   const int8_t* qp = static_cast<const int8_t*>(q);
   const float* sp = static_cast<const float*>(scales);
@@ -741,19 +789,19 @@ int quant_matmul_launch(const void* x, const void* q, const void* scales,
     static bool set = false;
     e = launch(simt_kernel, tiles, splits, SM_NT, 0, &set, st,
                static_cast<const float*>(x), qp, sp, static_cast<float*>(out),
-               M, K, N, nkb, kb_per);
+               M, K, N, nkb, block, kb_per);
   } else if (regime == 1 && M <= 8) {
     static bool set = false;
     e = launch(gemv_kernel<1>, tiles, splits, GV_NT, gv_smem_bytes<1>(), &set,
-               st, xb, qp, sp, ob, M, K, N, nkb, kb_per, qvec);
+               st, xb, qp, sp, ob, M, K, N, nkb, block, kb_per, qvec);
   } else if (regime == 1 && M <= 16) {
     static bool set = false;
     e = launch(gemv_kernel<2>, tiles, splits, GV_NT, gv_smem_bytes<2>(), &set,
-               st, xb, qp, sp, ob, M, K, N, nkb, kb_per, qvec);
+               st, xb, qp, sp, ob, M, K, N, nkb, block, kb_per, qvec);
   } else if (regime == 2) {
     static bool set = false;
     e = launch(gemm_kernel, tiles, splits, GM_NT, GM_SMEM, &set, st, xb, qp,
-               sp, ob, M, K, N, nkb, kb_per, qvec, xvec);
+               sp, ob, M, K, N, nkb, block, kb_per, qvec, xvec);
   } else {
     return -1;
   }
@@ -763,7 +811,7 @@ int quant_matmul_launch(const void* x, const void* q, const void* scales,
 
 const char* quant_matmul_error_string(int err) {
   return err == -1   ? "no kernel for this regime, row count or split count"
-         : err == -2 ? "scale block is not 256 rows"
+         : err == -2 ? "scale block is not a multiple of 16 rows"
                      : cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 

@@ -20,7 +20,7 @@ live rows.
 The TPU wrapper's ``ValueError`` for shapes that do not tile (a
 ``max_len`` without a 128-multiple block, small head dims) is a TPU
 constraint: the CUDA kernel takes any ``max_len`` and any head dim
-``hd % 8 == 0`` up to 128 in f32, bf16 or fp16, and raises for T > 64 or
+``hd % 8 == 0`` up to 256 in f32, bf16 or fp16, and raises for T > 64 or
 what else it lacks (:func:`kernel_gate`).
 
 Bound on the card: bytes (the live K/V rows, read once). See the note in
@@ -96,7 +96,7 @@ def kernel_gate(q, k_cache, v_cache, cur_len: int,
     """What the kernel takes, from the shapes and dtypes alone (the same on
     every device; a launch adds the device checks): T <= 64 queries [B,
     nh, T, hd], caches [L?, B, nh, max_len, hd] of q's dtype with T <=
-    cur_len <= max_len, a head dim hd % 8 == 0 up to 128, f32, bf16 or
+    cur_len <= max_len, a head dim hd % 8 == 0 up to 256, f32, bf16 or
     fp16. Returns (caches with the layer dim, layer, dtype code); raises
     ValueError or TypeError."""
     B, nh, T, hd = q.shape

@@ -15,7 +15,10 @@ attends one fresh query per sequence to its scattered K/V.
   serving path runs through it on every device, as the JAX package does.
 
 Bound on the card: bytes (the live K/V rows, read once). See the note in
-the CUDA source for what the kernel's layout does about it.
+the CUDA source for what the kernel's layout does about it: where B * nh
+CTAs would leave the card's SMs few loads in flight, :func:`split_plan`
+cuts each sequence's context into up to 8 ranges whose CTAs combine in
+one thread-block cluster, in the same launch.
 """
 
 from __future__ import annotations
@@ -29,10 +32,13 @@ import torch
 from . import build
 from .attention import check_kernel_inputs
 
-__all__ = ["paged_attention", "paged_attention_reference", "kernel_gate"]
+__all__ = ["paged_attention", "paged_attention_reference", "kernel_gate",
+           "split_plan"]
 
 NEG_INF = -1e30
 _INT8_POOL = 3                      # csrc/paged_attention.cu pool_dtype code
+MAX_SPLITS = 8                      # a portable thread-block cluster
+SPLIT_MIN_TOKENS = 128              # positions a split walks at the least
 
 
 def _lib() -> ctypes.CDLL:
@@ -40,7 +46,7 @@ def _lib() -> ctypes.CDLL:
     fn = lib.paged_attention_launch
     if fn.argtypes is None:
         P, I = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [P] * 9 + [I] * 8 + [ctypes.c_float] * 2 + [I, I, P]
+        fn.argtypes = [P] * 9 + [I] * 8 + [ctypes.c_float] * 2 + [I] * 3 + [P]
         fn.restype = ctypes.c_int
     return lib
 
@@ -89,12 +95,24 @@ def paged_attention(q: torch.Tensor,
 paged_attention.launches = 0
 
 
+def split_plan(B: int, nh: int, max_ctx: int, sms: int) -> int:
+    """CTAs a (lane, head) for a decode step of B lanes and nh heads whose
+    contexts hold at most ``max_ctx`` positions, on a card of ``sms`` SMs:
+    enough for 1.5 CTAs an SM (the kernel's register pipeline keeps its
+    loads in flight; more, smaller splits measured slower on an H100,
+    PERF.md), at most MAX_SPLITS, and none walking fewer than
+    SPLIT_MIN_TOKENS positions. A pure function of the shapes (the context
+    lengths stay on the device)."""
+    want = -(-3 * sms // (2 * max(B * nh, 1)))
+    return max(1, min(MAX_SPLITS, want, max_ctx // SPLIT_MIN_TOKENS))
+
+
 def kernel_gate(q, k_pool, v_pool, *, quant: bool = False,
                 layer_idx: Optional[int] = None):
     """What the kernel takes, from the shapes and dtypes alone (the same on
     every device; a launch adds the device checks): one query a sequence
     [B, nh, 1, hd], pools [L?, nh, blocks, block_size, hd] of q's dtype, or
-    int8 with scales (``quant``), a head dim hd % 8 == 0 up to 128, q in
+    int8 with scales (``quant``), a head dim hd % 8 == 0 up to 256, q in
     f32, bf16 or fp16. Returns (pools with the layer dim, layer, q dtype
     code, pool dtype code); raises ValueError or TypeError."""
     B, nh, T, hd = q.shape
@@ -165,6 +183,8 @@ def _launch(q, k_pool, v_pool, block_tables, context_lens, *, sm_scale,
                                  device=dev).reshape(nh).contiguous()
     out = torch.empty((B, nh, 1, hd), dtype=q.dtype, device=dev)
     scale = sm_scale if sm_scale is not None else 1.0 / float(np.sqrt(hd))
+    nbk = block_tables.shape[1]
+    splits = split_plan(B, nh, nbk * bs, build.sm_count(dev))
     lib = _lib()
     ptr = lambda t: None if t is None else t.data_ptr()
     stream = torch.cuda.current_stream(dev).cuda_stream
@@ -172,8 +192,8 @@ def _launch(q, k_pool, v_pool, block_tables, context_lens, *, sm_scale,
     err = lib.paged_attention_launch(
         ptr(q), ptr(k_pool), ptr(v_pool), ptr(k_scale), ptr(v_scale),
         ptr(block_tables), ptr(context_lens), ptr(slopes), ptr(out),
-        B, nh, nblk, bs, hd, block_tables.shape[1], layer,
-        int(window or 0), float(scale), float(softcap or 0.0),
+        B, nh, nblk, bs, hd, nbk, layer,
+        int(window or 0), float(scale), float(softcap or 0.0), splits,
         code, pool_code, stream)
     build.check(lib, "paged_attention", err)
     return out

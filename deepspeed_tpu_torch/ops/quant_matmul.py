@@ -3,8 +3,9 @@ and its plain version.
 
 Replaces the Pallas kernel of ``deepspeed_tpu/ops/pallas/quant_matmul.py``
 (``_kernel``, launched by ``quant_matmul``). Weights are stored int8 with
-one f32 scale per ``QUANT_BLOCK`` = 256 contraction elements and column
-(the ``quant_format`` blockwise format), and
+one f32 scale per block of contraction elements and column (the
+``quant_format`` blockwise format, ``QUANT_BLOCK`` = 256 by default; the
+kernel takes any block that is a multiple of 16), and
 
     y[m, n] = sum_kb (x[m, kb-block] . q[kb-block, n]) * s[kb, n]
 
@@ -21,7 +22,7 @@ a bf16 x of at most 16 rows (decode) takes the tensor-core GEMV, bound by
 the bytes of the int8 weights read once; a longer bf16 x (prefill) the
 tensor-core GEMM, bound by operations above about 300 rows; an f32 x the
 exact f32 loop on CUDA cores. Where the tiles are too few to fill the
-card, K is split in whole 256-row blocks, the CTAs of a tile form one
+card, K is split in whole blocks, the CTAs of a tile form one
 thread-block cluster and add their sums in a fixed order through
 distributed shared memory, inside the same launch.
 """
@@ -114,6 +115,8 @@ _REGIMES = {"simt": (0, 8, 128, 1), "gemv": (1, GEMV_MAX_M, 128, 2),
 
 # split K: the CTAs of a tile form one thread-block cluster (portable size)
 MAX_SPLITS = 8
+# the scale blocks the kernel takes: multiples of the mma k step
+BLOCK_MULTIPLE = 16
 
 
 class Plan(NamedTuple):
@@ -126,12 +129,27 @@ class Plan(NamedTuple):
     splits: int
 
 
-def _plan(M: int, N: int, nkb: int, sms: int, dtype: torch.dtype) -> Plan:
+def block_reason(block: int):
+    """None if the kernel takes scale blocks of ``block`` rows, else why
+    not (a pure function of the block)."""
+    if block <= 0 or block % BLOCK_MULTIPLE:
+        return (f"scale block {block} (the kernel takes blocks that are a "
+                f"multiple of {BLOCK_MULTIPLE} rows; others are not built "
+                "yet, ROADMAP.md Queue 3)")
+    return None
+
+
+def _plan(M: int, N: int, nkb: int, sms: int, dtype: torch.dtype,
+          block: int = QUANT_BLOCK) -> Plan:
     """The kernel, its tiles and its split of K for an [M, K] x [K, N]
-    call on a card of ``sms`` SMs. Tiles that fill the card's CTA slots
+    call with ``nkb`` scale blocks of ``block`` rows on a card of ``sms``
+    SMs. K is split in whole blocks. Tiles that fill the card's CTA slots
     are not split. Fewer are split into at most one wave of CTAs and at
     most MAX_SPLITS a tile: the count that minimises the waves times the
-    K-blocks each CTA walks (the smallest count on a tie)."""
+    K rows each CTA walks (the smallest count on a tie)."""
+    reason = block_reason(block)
+    if reason is not None:
+        raise ValueError(f"quant_matmul kernel: {reason}")
     regime = ("simt" if dtype == torch.float32 else
               "gemv" if M <= GEMV_MAX_M else "gemm")
     _, bm, bn, per_sm = _REGIMES[regime]
@@ -145,22 +163,11 @@ def _plan(M: int, N: int, nkb: int, sms: int, dtype: torch.dtype) -> Plan:
         splits = -(-nkb // kb_per)
         if splits > 1 and (tiles * splits > slots or splits > MAX_SPLITS):
             break
-        cost = -(-tiles * splits // slots) * kb_per
+        cost = -(-tiles * splits // slots) * kb_per * block
         if best is None or cost < best[0]:
             best = (cost, kb_per, splits)
     _, kb_per, splits = best
     return Plan(regime, tiles, kb_per, splits)
-
-
-_sms: Dict[int, int] = {}
-
-
-def _sm_count(dev: torch.device) -> int:
-    idx = dev.index if dev.index is not None else torch.cuda.current_device()
-    n = _sms.get(idx)
-    if n is None:
-        n = _sms[idx] = torch.cuda.get_device_properties(idx).multi_processor_count
-    return n
 
 
 def _launch(x, q, scales):
@@ -173,6 +180,15 @@ def _launch(x, q, scales):
     if q.dim() != 2 or scales.dim() != 2 or scales.shape[1] != q.shape[1]:
         raise ValueError(f"quant_matmul: q {tuple(q.shape)} / scales "
                          f"{tuple(scales.shape)} are not [Kp, N] / [nkb, N]")
+    Kp, N = q.shape
+    nkb = scales.shape[0]
+    if Kp % nkb:
+        raise ValueError(f"quant_matmul: Kp {Kp} is not a multiple of the "
+                         f"{nkb} scale rows")
+    block = Kp // nkb
+    reason = block_reason(block)
+    if reason is not None:
+        raise ValueError(f"quant_matmul kernel: {reason}")
     dev = x.device
     if dev.type != "cuda":
         raise ValueError(f"quant_matmul kernel needs CUDA tensors, x is on "
@@ -183,15 +199,6 @@ def _launch(x, q, scales):
                              f"{dev}")
         if not t.is_contiguous():
             raise ValueError("quant_matmul: q and scales must be contiguous")
-    Kp, N = q.shape
-    nkb = scales.shape[0]
-    if Kp % nkb:
-        raise ValueError(f"quant_matmul: Kp {Kp} is not a multiple of the "
-                         f"{nkb} scale rows")
-    block = Kp // nkb
-    if block != QUANT_BLOCK:
-        raise ValueError(f"quant_matmul kernel: scale block {block} (the "
-                         f"kernel takes {QUANT_BLOCK}-row blocks)")
     lead, K = x.shape[:-1], x.shape[-1]
     if K > Kp:
         raise ValueError(f"quant_matmul: x has K={K} > packed Kp={Kp}")
@@ -200,7 +207,7 @@ def _launch(x, q, scales):
     out = torch.empty((M, N), dtype=x.dtype, device=dev)
     if M == 0:
         return out.reshape(lead + (N,))
-    plan = _plan(M, N, nkb, _sm_count(dev), x.dtype)
+    plan = _plan(M, N, nkb, build.sm_count(dev), x.dtype, block)
     qvec = N % 16 == 0 and q.data_ptr() % 16 == 0
     xvec = K % 8 == 0 and xf.data_ptr() % 16 == 0
     lib = _lib()
@@ -218,7 +225,7 @@ def quant_matmul_reference(x: torch.Tensor, q: torch.Tensor,
                            scales: torch.Tensor) -> torch.Tensor:
     """Plain PyTorch version: each K-block's partial product scaled once,
     summed in f32, cast to x's dtype. Any scale block, as the JAX
-    reference takes (the CUDA kernel takes 256-row blocks only)."""
+    reference takes (the CUDA kernel takes multiples of 16 rows)."""
     Kp, N = q.shape
     nkb = scales.shape[0]
     block = Kp // nkb

@@ -335,3 +335,31 @@ def test_head_dims_80_96_and_fp16(dtype, Dh):
             tol = 2.0 ** -6 * np.abs(want).max()
         np.testing.assert_allclose(got.float().numpy(), want, rtol=0,
                                    atol=tol)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_head_dim_256_forward_and_backward(causal):
+    """Gemma's head dim, which the CUDA kernels take with the own rows in
+    shared memory (and dk/dv split over two column halves): the plain
+    forward and backward against the JAX kernels (blocks of 64, so tiles
+    are skipped), to the file's tolerances."""
+    S2, D2 = 128, 256
+    layout = jsa.FixedSparsityConfig(num_heads=H, block=16,
+                                     **_UNI).make_layout(S2)
+    rng = np.random.default_rng(256)
+    q, k, v, g = [(rng.standard_normal((1, H, S2, D2)) * 0.5).astype(
+        np.float32) for _ in range(4)]
+    jfn = lambda q, k, v: jbs.block_sparse_flash_attention(
+        q, k, v, layout, 16, causal=causal, block_q=64, block_k=64,
+        interpret=True)
+    jout, vjp = jax.vjp(jfn, *(jnp.asarray(x) for x in (q, k, v)))
+    jgrads = vjp(jnp.asarray(g))
+    tq, tk, tv = (torch.from_numpy(x).requires_grad_() for x in (q, k, v))
+    out = tbs.block_sparse_flash_attention(tq, tk, tv, layout, 16,
+                                           causal=causal)
+    np.testing.assert_allclose(out.detach().numpy(), np.asarray(jout),
+                               rtol=2e-5, atol=2e-5)
+    out.backward(torch.from_numpy(g))
+    for t, jg in zip((tq, tk, tv), jgrads):
+        np.testing.assert_allclose(t.grad.numpy(), np.asarray(jg), rtol=2e-4,
+                                   atol=2e-4)

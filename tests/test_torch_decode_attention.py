@@ -142,3 +142,14 @@ def test_decode_attention_fp16(T, hd):
     assert port.dtype == torch.float16 and ker.dtype == jnp.float16
     np.testing.assert_allclose(port.float().numpy(), np.asarray(ker, np.float32),
                                atol=1e-2, rtol=0)
+
+
+@pytest.mark.parametrize("T", [1, 64])
+def test_decode_attention_head_dim_256(T):
+    """Gemma's head dim at one query (the decode step: 32 threads of 16
+    bytes a bf16 row, of 32 bytes an f32 row) and at the most queries a
+    call takes (64: queries and rows in shared memory past 48 KB), with
+    ALiBi and a window."""
+    q, kc, vc = _data(T=T, hd=256, cur=300, seed=256 + T)
+    port, ker = _both(q, kc, vc, 300, window=100, slopes=SLOPES)
+    np.testing.assert_allclose(port, ker, atol=ATOL, rtol=0)

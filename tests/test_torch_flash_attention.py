@@ -269,3 +269,15 @@ def test_fp16_close_to_jax_kernel(D):
     assert o.dtype == torch.float16 and jo.dtype == jnp.float16
     np.testing.assert_allclose(o.float().numpy(), np.asarray(jo, np.float32),
                                atol=1e-2, rtol=0)
+
+
+@pytest.mark.parametrize("case", ["causal", "mask_alibi_window_softcap"])
+def test_head_dim_256(case):
+    """Gemma's head dim: the CUDA forward takes it in its wgmma kernel
+    (no extras) and in its mma.sync kernel with Q in shared memory."""
+    rng = np.random.default_rng(256)
+    q, k, v = _qkv(rng, (1, 2, 64, 256))
+    kw = {} if case == "causal" else dict(
+        mask=_padding_mask(rng, 1, 64, 40), slopes=alibi_slopes(2),
+        window=40, softcap=20.0)
+    _check(q, k, v, causal=True, **kw)

@@ -289,3 +289,15 @@ def test_fp16_close_to_jax_kernel(D):
         np.testing.assert_allclose(t.grad.float().numpy(), jg,
                                    atol=2.0 ** -6 * np.abs(jg).max(), rtol=0,
                                    err_msg=name)
+
+
+@pytest.mark.parametrize("case", ["causal", "mask_alibi_softcap"])
+def test_head_dim_256(case):
+    """Gemma's head dim: the CUDA backward takes it with the own rows in
+    shared memory and dk/dv split over two column halves."""
+    rng = np.random.default_rng(256)
+    args = _qkv(rng, (1, 2, 64, 256))
+    kw = {} if case == "causal" else dict(
+        mask=_padding_mask(rng, 1, 64, 20), slopes=alibi_slopes(2),
+        softcap=15.0)
+    _both(args, causal=True, **kw)

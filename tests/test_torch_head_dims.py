@@ -1,13 +1,14 @@
 """Port parity at the head dims and dtypes the CUDA attention kernels were
-widened to: every ``D % 8 == 0`` up to 128, in f32, bf16 and fp16.
+widened to: every ``D % 8 == 0`` up to 256, in f32, bf16 and fp16.
 
 * The shape gates: each kernel wrapper's ``kernel_gate`` (flash, decode,
   paged) and the block-sparse ``tileable`` are pure functions of shapes
   and dtypes, so they run here on meta tensors: they take every head dim
-  ``D % 8 == 0`` up to 128 in all three dtypes, and refuse D 136 (and
+  ``D % 8 == 0`` up to 256 in all three dtypes, and refuse D 264 (and
   ``D % 8 != 0``) with a message naming ROADMAP.md, and float64.
-* One 2-layer narrow model per head dim, 80 (gpt2-2.7b's) and 96
-  (gpt2-760m's), with the same flax-initialized f32 weights in both
+* One 2-layer narrow model per head dim, 80 (gpt2-2.7b's), 96
+  (gpt2-760m's) and 256 (Gemma's, two heads of 256 through
+  ``head_dim_override``), with the same flax-initialized f32 weights in both
   packages: ``forward_with_cache`` prefill (the flash route) and decode
   (the decode route) logits to atol 1e-4 and ``generate`` token-exact,
   ``paged_forward`` prefill and decode logits to atol 1e-4, and one
@@ -78,13 +79,13 @@ def _gates(D, dtype):
     return tbs.tileable(x, x, x, 16)
 
 
-@pytest.mark.parametrize("D", range(8, 129, 8))
+@pytest.mark.parametrize("D", range(8, 257, 8))
 def test_gates_take_every_head_dim_up_to_128(D):
     for dtype in DTYPES:
         assert _gates(D, dtype) is None
 
 
-@pytest.mark.parametrize("D", [136, 256, 12, 100])
+@pytest.mark.parametrize("D", [12, 100, 264, 512])
 def test_gates_refuse_other_head_dims_naming_roadmap(D):
     x = _meta(2, 4, 64, D)
     with pytest.raises(ValueError, match=f"head_dim {D}.*ROADMAP.md"):
@@ -132,11 +133,15 @@ def _numpy_tree(tree):
 
 def _model(hd):
     """(jax cfg, numpy params, port cfg): a 2-layer gpt2-shaped model of 2
-    heads of hd, f32, built once per head dim."""
+    heads of hd, f32, built once per head dim; above 128 the hidden size
+    stays 128 and ``head_dim_override`` sets the heads' width."""
     if hd not in _MODELS:
-        _, jcfg = jbuild_model("gpt2-tiny", hidden_size=2 * hd, num_layers=2,
-                               num_heads=2, vocab_size=64, max_seq_len=64,
-                               attention_impl="auto", dtype=jnp.float32)
+        wide = dict(hidden_size=128, head_dim_override=hd) if hd > 128 \
+            else dict(hidden_size=2 * hd)
+        _, jcfg = jbuild_model("gpt2-tiny", num_layers=2, num_heads=2,
+                               vocab_size=64, max_seq_len=64,
+                               attention_impl="auto", dtype=jnp.float32,
+                               **wide)
         jp = jax.jit(jtr.Transformer(jcfg).init)(
             jax.random.PRNGKey(3),
             {"input_ids": np.zeros((1, 8), np.int32)})["params"]
@@ -153,10 +158,10 @@ def _ids(B, T, seed):
         np.int32)
 
 
-@pytest.mark.parametrize("hd", [80, 96])
+@pytest.mark.parametrize("hd", [80, 96, 256])
 def test_forward_with_cache_and_generate_match_jax(hd):
     jcfg, jp, cfg = _model(hd)
-    assert cfg.hidden_size // cfg.num_heads == hd
+    assert cfg.head_dim == hd
     tp = params_from_jax(jp)
     B, T = 2, 24
     ids = _ids(B, T, hd)
@@ -179,7 +184,7 @@ def test_forward_with_cache_and_generate_match_jax(hd):
     np.testing.assert_array_equal(tout.numpy(), np.asarray(jout))
 
 
-@pytest.mark.parametrize("hd", [80, 96])
+@pytest.mark.parametrize("hd", [80, 96, 256])
 def test_paged_forward_matches_jax(hd):
     jcfg, jp, cfg = _model(hd)
     tp = params_from_jax(jp)
@@ -226,7 +231,7 @@ _TRAIN_CFG = {
 }
 
 
-@pytest.mark.parametrize("hd", [80, 96])
+@pytest.mark.parametrize("hd", [80, 96, 256])
 def test_train_batch_matches_jax_engine(hd, tmp_path, monkeypatch):
     jcfg, np_params, cfg = _model(hd)
     path = tmp_path / "ds_config.json"

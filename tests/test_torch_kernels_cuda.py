@@ -12,7 +12,8 @@ kernel's rounding of p to the 16-bit type before P V and of its output,
 each at most 2^-8 relative (bf16; fp16 2^-11), so every output lies within
 2^-6 of its row's largest |o| (the worst seen in simulation at these
 shapes is 0.8 x 2^-7). Every attention kernel runs at head dims 80 and 96
-(padded widths) beside 32/64/128, and in fp16 beside f32 and bf16. The flash kernel's lse is
+(padded widths) and 192 and 256 (Gemma's) beside 32/64/128, and in fp16
+beside f32 and bf16. The flash kernel's lse is
 f32 statistics of the same f32 scores: atol 1e-4. Rows with no live key
 are zeros from the kernel. The flash backward kernels are held the same
 way, gradient rows along D; a row whose gradient is zero in exact
@@ -28,6 +29,7 @@ import pytest
 import torch
 
 from deepspeed_tpu_torch.ops import block_sparse_attention as tbs
+from deepspeed_tpu_torch.ops import build
 from deepspeed_tpu_torch.ops import decode_attention as tda
 from deepspeed_tpu_torch.ops import flash_attention as tfa
 from deepspeed_tpu_torch.ops import paged_attention as tpa
@@ -81,7 +83,7 @@ def _pa(dev, dtype, seed=0, B=5, nh=8, hd=64, bs=32, nblk=48, nbk=8, L=2):
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("hd", [64, 80, 96])
+@pytest.mark.parametrize("hd", [64, 80, 96, 192, 256])
 @pytest.mark.parametrize("opts", [{}, {"alibi_slopes": np.linspace(1, .1, 8),
                                        "softcap": 10.0, "window": 40}])
 def test_paged_attention_kernel(dev, dtype, hd, opts):
@@ -98,7 +100,9 @@ def test_paged_attention_kernel(dev, dtype, hd, opts):
 @pytest.mark.parametrize("dtype,hd", [(torch.bfloat16, 64),
                                       (torch.bfloat16, 80),
                                       (torch.bfloat16, 72),
-                                      (torch.float16, 96)])
+                                      (torch.float16, 96),
+                                      (torch.bfloat16, 256),
+                                      (torch.float16, 192)])
 def test_paged_attention_kernel_int8(dev, dtype, hd):
     """int8 pools with their per-slot scales at every width (72: rows of
     8-byte slices)."""
@@ -117,11 +121,52 @@ def test_paged_attention_kernel_int8(dev, dtype, hd):
     _hold(out[live], ref[live], False)
 
 
-def _qm_inputs(dev, M, K, N, dtype):
+@pytest.mark.parametrize("B,nh,hd,nbk,bs", [
+    (8, 32, 64, 32, 32),        # the serve step: unsplit
+    (8, 16, 96, 32, 32),        # 128 (b, h): two splits
+    (2, 8, 64, 64, 32),         # 16 (b, h): the most splits
+    (8, 8, 64, 16, 16),         # short contexts: two splits
+    (64, 32, 64, 8, 32),        # a large batch: unsplit
+    (4, 8, 128, 3, 32),         # one split's worth of context: unsplit
+    (8, 8, 256, 64, 32)])       # Gemma's head dim, four splits
+@pytest.mark.parametrize("int8", [False, True])
+def test_paged_attention_kernel_split_context(dev, B, nh, hd, nbk, bs, int8):
+    """The context split against the plain version at split and unsplit
+    shapes (split_plan's count), ragged lengths with one lane at 1 and one
+    at the table's end; two calls bit-identical."""
+    g = torch.Generator().manual_seed(B * nh + hd)
+    nblk = B * nbk + 1
+    k, v = (torch.randn(1, nh, nblk, bs, hd, generator=g) for _ in range(2))
+    q = torch.randn(B, nh, 1, hd, generator=g).to(dev, torch.bfloat16)
+    bt = (torch.randperm(nblk - 1, generator=g) + 1).reshape(B, nbk)
+    lens = torch.randint(1, nbk * bs + 1, (B,), generator=g)
+    lens[0], lens[-1] = 1, nbk * bs
+    bt, lens = bt.to(dev, torch.int32), lens.to(dev, torch.int32)
+    kw = {}
+    if int8:
+        (kq, ks), (vq, vs) = kv_quantize(k), kv_quantize(v)
+        kd, vd = ((x.float() * s.reshape(x.shape[:-1])[..., None]).to(
+            torch.bfloat16) for x, s in ((kq, ks), (vq, vs)))
+        k, v = kq.to(dev), vq.to(dev)
+        kw = {"k_scale": ks.to(dev), "v_scale": vs.to(dev)}
+        kd, vd = kd.to(dev), vd.to(dev)
+    else:
+        k, v = k.to(dev, torch.bfloat16), v.to(dev, torch.bfloat16)
+        kd, vd = k, v
+    out = tpa.paged_attention(q, k, v, bt, lens, layer_idx=0, **kw)
+    again = tpa.paged_attention(q, k, v, bt, lens, layer_idx=0, **kw)
+    ref = tpa.paged_attention_reference(*_f32(q, kd, vd), bt, lens,
+                                        layer_idx=0)
+    torch.cuda.synchronize()
+    _hold(out, ref, False)
+    assert torch.equal(out, again)
+
+
+def _qm_inputs(dev, M, K, N, dtype, block=256):
     g = torch.Generator().manual_seed(M + K + N)
     w = torch.randn(K, N, generator=g).to(dev)
     x = torch.randn(M, K, generator=g).to(dev, dtype)
-    return (x, *tqm.pack_kernel(w))
+    return (x, *tqm.pack_kernel(w, block))
 
 
 # the GEMV (M <= 16) and GEMM (M > 16) regimes at their edges, the serving
@@ -148,12 +193,32 @@ def test_quant_matmul_kernel_split_k_is_bit_identical(dev, M, K, N):
     # split K (a ticketed reduction in split order): two calls agree bit
     # for bit, whichever CTA of a tile arrives last
     x, q, s = _qm_inputs(dev, M, K, N, torch.bfloat16)
-    assert tqm._plan(M, N, s.shape[0], tqm._sm_count(x.device),
+    assert tqm._plan(M, N, s.shape[0], build.sm_count(x.device),
                      x.dtype).splits > 1
     a = tqm.quant_matmul(x, q, s)
     b = tqm.quant_matmul(x, q, s)
     torch.cuda.synchronize()
     assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("block", [64, 128, 48, 512])
+@pytest.mark.parametrize("M,K,N", [(8, 2048, 2048), (16, 5632, 2048),
+                                   (96, 2048, 2560), (512, 2048, 2048),
+                                   (3, 300, 200), (130, 512, 1000)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_quant_matmul_kernel_scale_blocks(dev, block, M, K, N, dtype):
+    """Scale blocks other than 256 rows (any multiple of 16): each K-block's
+    partial scaled once, K split in whole blocks; split calls repeat bit
+    for bit."""
+    x, q, s = _qm_inputs(dev, M, K, N, dtype, block)
+    out = tqm.quant_matmul(x, q, s)
+    again = tqm.quant_matmul(x, q, s)
+    ref = tqm.quant_matmul_reference(x, q, s)
+    torch.cuda.synchronize()
+    tol = (2 ** -7 if dtype == torch.bfloat16 else 2 ** -14) * \
+        ref.float().abs().max().item()
+    assert (out.float() - ref.float()).abs().max().item() <= tol
+    assert torch.equal(out, again)
 
 
 @pytest.mark.parametrize("M", [8, 96])
@@ -189,7 +254,7 @@ def test_decode_attention_kernel(dev, dtype, T, cur, opts):
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("hd", [8, 32, 80, 96, 128])
+@pytest.mark.parametrize("hd", [8, 32, 80, 96, 128, 192, 256])
 @pytest.mark.parametrize("T,cur", [(1, 500), (7, 500), (64, 333)])
 def test_decode_attention_kernel_head_dims(dev, dtype, hd, T, cur):
     g = torch.Generator().manual_seed(hd + T)
@@ -216,7 +281,7 @@ def test_decode_attention_kernel_generate_shape(dev):
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("D", [64, 80, 96, 128])
+@pytest.mark.parametrize("D", [64, 80, 96, 128, 192, 256])
 @pytest.mark.parametrize("S,Sk,opts", [
     (256, 256, {}), (200, 200, {"causal": False}), (100, 300, {}),
     (256, 256, {"alibi_slopes": [0.5, 0.25], "window": 64, "softcap": 20.0}),
@@ -242,7 +307,7 @@ def test_flash_attention_fwd_kernel(dev, dtype, D, S, Sk, opts):
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("D", [32, 64, 80, 96, 128])
+@pytest.mark.parametrize("D", [32, 64, 80, 96, 128, 192, 256])
 @pytest.mark.parametrize("S,Sk,opts", [
     (256, 256, {}), (200, 200, {"causal": False}), (100, 300, {}),
     (200, 200, {}), (20, 20, {}), (300, 100, {}),
@@ -338,7 +403,7 @@ def _bs_layout(name, H, S):
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("D", [32, 64, 80, 96, 128])
+@pytest.mark.parametrize("D", [32, 64, 80, 96, 128, 192, 256])
 @pytest.mark.parametrize("name,S", [
     ("fixed16", 512), ("fixed64-bi", 512), ("bigbird", 400),
     ("longformer", 512), ("variable", 496), ("window1", 512),
@@ -397,7 +462,7 @@ def test_block_sparse_routes_launch_on_the_card(dev):
             [b + 1 for b in before]
         assert all(torch.isfinite(t.float()).all() for t in grads)
     layout = tsa.config_layout(cfg, 512)
-    q2 = torch.randn(1, 4, 512, 136, device=dev)
+    q2 = torch.randn(1, 4, 512, 264, device=dev)
     with pytest.raises(ValueError, match="tile.*ROADMAP.md"):
         tbs.block_sparse_attention_fwd(q2, q2, q2, layout, 64)
     q2 = q2[..., :64].double()

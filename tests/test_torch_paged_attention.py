@@ -163,3 +163,53 @@ def test_paged_decode_fp16(hd):
         np.testing.assert_allclose(port.astype(np.float32),
                                    np.asarray(other, np.float32), atol=1e-2,
                                    rtol=0)
+
+
+def test_paged_decode_head_dim_256_bf16():
+    """Gemma's head dim with a bf16 query and pool on both sides: the plain
+    version against the JAX gather reference and the JAX kernel, to 2e-2
+    (a few bf16 ulps of |o| < 2; the two round q k^T and p at other
+    points)."""
+    q, kp, vp, bt, lens = _data(hd=256, L=2, seed=256)
+    bf = lambda a: torch.from_numpy(a).to(torch.bfloat16)
+    jb = lambda a: jnp.asarray(a, jnp.bfloat16)
+    slopes = np.asarray([0.5, 0.25, 0.125, 0.0625], np.float32)
+    kw = dict(layer_idx=1, window=37)
+    port = tpa.paged_attention_reference(
+        bf(q), bf(kp), bf(vp), torch.from_numpy(bt), torch.from_numpy(lens),
+        alibi_slopes=slopes, **kw)
+    assert port.dtype == torch.bfloat16
+    jkw = dict(alibi_slopes=jnp.asarray(slopes), **kw)
+    ref = jpa.paged_attention_reference(jb(q), jb(kp), jb(vp),
+                                        jnp.asarray(bt), jnp.asarray(lens),
+                                        **jkw)
+    ker = jpa.paged_attention(jb(q), jb(kp), jb(vp), jnp.asarray(bt),
+                              jnp.asarray(lens), interpret=True, **jkw)
+    for other in (ref, ker):
+        np.testing.assert_allclose(port.float().numpy(),
+                                   np.asarray(other, np.float32), atol=2e-2,
+                                   rtol=0)
+
+
+def test_paged_decode_head_dim_256_int8_pool():
+    """Gemma's head dim over an int8 pool with its per-slot scales."""
+    q, kp, vp, bt, lens = _data(hd=256, L=2, seed=257)
+    kq, ks = jax_kv_quantize(jnp.asarray(kp))
+    vq, vs = jax_kv_quantize(jnp.asarray(vp))
+    _check(*_both(q, np.asarray(kq), np.asarray(vq), bt, lens, layer_idx=1,
+                  k_scale=np.asarray(ks), v_scale=np.asarray(vs),
+                  softcap=6.0))
+
+
+@pytest.mark.parametrize("B,nh,max_ctx,expect", [
+    (8, 32, 1024, 1),       # the serve leg's step: 256 (b, h) on 132 SMs
+    (8, 16, 1024, 2),       # 128 (b, h), D 96 x 16 heads
+    (8, 4, 2048, 7),        # 32 (b, h)
+    (2, 8, 2048, 8),        # 16 (b, h): the most a cluster holds
+    (8, 8, 256, 2),         # short contexts: at least 128 positions a split
+    (64, 32, 4096, 1),      # 2048 (b, h) fill the card alone
+    (1, 8, 64, 1),          # a context shorter than one split's minimum
+])
+def test_split_plan(B, nh, max_ctx, expect):
+    """The kernel's context split, a pure function of the shapes."""
+    assert tpa.split_plan(B, nh, max_ctx, 132) == expect

@@ -44,8 +44,8 @@ def test_pack_and_matmul_match_jax(K, N, lead):
 @pytest.mark.parametrize("K,N", [(300, 128), (512, 96)])
 def test_plain_matmul_takes_any_scale_block(K, N):
     """Scale blocks of 128 rows: the plain version (CPU tensors) matches
-    the JAX reference, which takes any block; only the CUDA kernel is
-    limited to 256-row blocks."""
+    the JAX reference, which takes any block (the CUDA kernel takes
+    multiples of 16 rows)."""
     rng = np.random.default_rng(K * N)
     w = rng.standard_normal((K, N)).astype(np.float32)
     x = rng.standard_normal((3, K)).astype(np.float32)
@@ -157,3 +157,73 @@ def test_launch_refuses_what_the_kernel_does_not_take():
         tqm._launch(x, q, s)
     with pytest.raises(ValueError, match="impl"):
         tqm.quant_matmul(x, q, s, impl="triton")
+
+
+@pytest.mark.parametrize("block", [64, 128])
+@pytest.mark.parametrize("M,K,N", [(8, 2048, 2048), (96, 2048, 5632),
+                                   (512, 5632, 2048), (3, 300, 200)])
+def test_plan_splits_whole_blocks_of_any_size(M, K, N, block):
+    """_plan takes the scale block: the splits cover the K-blocks of
+    ``block`` rows exactly once, each split a whole number of them, and
+    with at least as many splits as the plan of 256-row blocks no CTA
+    walks more rows of K than there (finer blocks balance better)."""
+    nkb = -(-K // block)
+    plan = tqm._plan(M, N, nkb, 132, torch.bfloat16, block)
+    covered = []
+    for s in range(plan.splits):
+        blocks = range(s * plan.kb_per, min(nkb, (s + 1) * plan.kb_per))
+        assert len(blocks) > 0
+        covered.extend(blocks)
+    assert covered == list(range(nkb))
+    assert 1 <= plan.splits <= tqm.MAX_SPLITS
+    if K % 256 == 0:
+        p256 = tqm._plan(M, N, K // 256, 132, torch.bfloat16)
+        if plan.splits >= p256.splits:
+            assert plan.kb_per * block <= p256.kb_per * 256
+
+
+@pytest.mark.parametrize("block", [64, 128, 48, 16])
+def test_gate_takes_blocks_that_are_multiples_of_16(block):
+    """Meta tensors: the launch gets past the block gate to the device
+    check (what a CUDA tensor would launch), for every block that is a
+    multiple of 16."""
+    x = torch.empty(4, 512, device="meta")
+    q = torch.empty(-(-512 // block) * block, 256, dtype=torch.int8,
+                    device="meta")
+    s = torch.empty(q.shape[0] // block, 256, device="meta")
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        tqm._launch(x, q, s)
+    assert tqm.block_reason(block) is None
+
+
+@pytest.mark.parametrize("block", [40, 100, 8])
+def test_gate_refuses_other_blocks_naming_roadmap(block):
+    x = torch.empty(4, 400, device="meta")
+    q = torch.empty(-(-400 // block) * block, 256, dtype=torch.int8,
+                    device="meta")
+    s = torch.empty(q.shape[0] // block, 256, device="meta")
+    with pytest.raises(ValueError, match=f"scale block {block}.*ROADMAP.md"):
+        tqm._launch(x, q, s)
+    with pytest.raises(ValueError, match="ROADMAP.md"):
+        tqm._plan(8, 256, 4, 132, torch.bfloat16, block)
+
+
+@pytest.mark.parametrize("K,N", [(300, 128), (640, 96)])
+def test_plain_matmul_matches_jax_at_block_64(K, N):
+    """Scale blocks of 64 rows (a block the CUDA kernel takes since the
+    scale block became a parameter of its K loops): packing and the plain
+    version against the JAX reference and the JAX kernel."""
+    rng = np.random.default_rng(K + 64)
+    w = rng.standard_normal((K, N)).astype(np.float32)
+    x = rng.standard_normal((5, K)).astype(np.float32)
+    qj, sj = jqm.pack_kernel(jnp.asarray(w), block=64)
+    qt, st = tqm.pack_kernel(torch.from_numpy(w), block=64)
+    np.testing.assert_array_equal(qt.numpy(), np.asarray(qj))
+    assert st.shape == (-(-K // 64), N)
+    port = tqm.quant_matmul(torch.from_numpy(x), qt, st).numpy()
+    ref = np.asarray(jqm.quant_matmul_reference(jnp.asarray(x), qj, sj))
+    np.testing.assert_allclose(port, ref, rtol=1e-5, atol=1e-5)
+    if N % 128 == 0:                 # the JAX kernel's own tiling condition
+        ker = np.asarray(jqm.quant_matmul(jnp.asarray(x), qj, sj,
+                                          interpret=True))
+        np.testing.assert_allclose(port, ker, rtol=1e-5, atol=1e-5)
