@@ -9,7 +9,9 @@ nor ``deepspeed_tpu``. Phases, each reported on its own line:
    ``deepspeed_tpu_torch/ops/csrc`` (one ``nvcc`` per source, in parallel).
 2. **check** — each kernel against its plain PyTorch version at the
    serving, generation and training paths' shapes, with the tolerance
-   printed on the line.
+   printed on the line; every attention kernel also at head dims 264,
+   320, 512 and 1024 (the wide forms) and ``quant_matmul`` at scale
+   blocks 8, 40 and 100.
 3. **serve** — ``init_inference`` from a JSON config file, llama-1.1b at
    full width (22 layers, seeded random bf16 weights), ``.serve()``, 16
    greedy requests of 64..1024 prompt tokens (6 start with one 2-block
@@ -57,8 +59,11 @@ nor ``deepspeed_tpu``. Phases, each reported on its own line:
    version's and a library call's (timed here only; the port never calls
    it), plus the block-sparse kernels over four layouts beside the flash
    kernels on the same shape; ``quant_matmul`` on one decode step (M 8)
-   and one 512-token prefill (and at M 96, 224, 352); the flash, paged
-   and decode kernels at head dims 64, 80, 96, 128 and 256 beside SDPA.
+   and one 512-token prefill (and at M 96, 224, 352), and at scale blocks
+   8, 40 and 100 beside 256; the flash, paged and decode kernels at head
+   dims 64, 80, 96, 128 and 256 beside SDPA, every attention kernel at 264
+   and 512 beside 256, and the decode kernel's context split swept over
+   1 to 4 CTAs.
 
 ``--old-quant-matmul SRC`` also builds a parent commit's
 ``csrc/quant_matmul.cu`` from SRC and times it against this one in the
@@ -72,6 +77,11 @@ the generate prefill's and the train leg's calls, the generate prefill
 and decode step and the train step under each. ``--old-paged SRC`` (a
 parent's ``csrc/paged_attention.cu``): the serve step's call in a bf16
 and an int8 pool, D 96 x 16 heads, and the serve decode step under each.
+``--old-decode SRC`` (a parent's ``csrc/decode_attention.cu``, its headers
+beside it): the generate step's call in bf16 and fp16, D 96 x 16, D 80 x
+32 and D 256 x 16 heads, and T = 64. ``--old-block-sparse SRC`` (a
+parent's ``csrc/block_sparse_attention.cu``, its headers beside it): each
+of the three kernels over the four timed layouts, and the long step.
 
 Launch counters are zeroed just before each leg and read just after it.
 Any failed check raises, so the script exits non-zero and prints no
@@ -434,6 +444,8 @@ def phase_check():
     errs["flash_attention_bwd_dq"] = bwd["dq"]
     errs["flash_attention_bwd_dkv"] = bwd["dkv"]
     errs.update(check_block_sparse_attention())
+    for kname, err in check_wide_heads().items():
+        errs[kname] = max(errs[kname], err)
     return errs
 
 
@@ -526,7 +538,13 @@ QM_BLOCKS = [(blk, M, K, N, dt) for blk in (64, 128)
                                  (96, 300, 200, "f32"))] + [
     (48, 8, QM_H, QM_H, "bf16"), (48, 96, 300, 1000, "bf16"),
     (48, 8, 300, 1000, "f32"), (512, 8, QM_F, QM_H, "bf16"),
-    (512, 512, QM_F, QM_H, "bf16"), (16, 96, QM_H, 2560, "bf16")]
+    (512, 512, QM_F, QM_H, "bf16"), (16, 96, QM_H, 2560, "bf16")] + [
+    # blocks that are not a multiple of 16 rows: the GEMM's k steps cross
+    # their ends; the GEMV's pieces end inside a 16-row step
+    (blk, M, K, N, dt) for blk in (8, 40, 100)
+    for M, K, N, dt in ((8, QM_H, QM_H, "bf16"), (16, QM_F, QM_H, "bf16"),
+                        (512, QM_F, QM_H, "bf16"), (96, 300, 1000, "bf16"),
+                        (8, QM_H, 2560, "f32"), (96, 300, 200, "f32"))]
 
 
 def check_quant_matmul():
@@ -571,7 +589,8 @@ def check_quant_matmul():
         if out.dtype != x.dtype or out.shape != (M, N) or not err <= tol:
             fail(f"quant_matmul {M}x{K}x{N} {dt}: err {err} > {tol}")
     for block, (M, K, N) in [(256, c) for c in QM_REPEAT] + [
-            (64, (8, QM_H, QM_H)), (128, (96, QM_H, QM_H))]:
+            (64, (8, QM_H, QM_H)), (128, (96, QM_H, QM_H)),
+            (40, (8, QM_H, QM_H)), (40, (96, QM_H, QM_H))]:
         x, qw, sw = inputs(M, K, N, "bf16", block)
         a, b = tqm.quant_matmul(x, qw, sw), tqm.quant_matmul(x, qw, sw)
         torch.cuda.synchronize()
@@ -592,6 +611,7 @@ def check_decode_attention():
     call: T 1 at cur_len 1056 in its stacked 22-layer bf16 cache of
     1280."""
     import torch
+    from deepspeed_tpu_torch.ops import build
     from deepspeed_tpu_torch.ops import decode_attention as tda
     g = torch.Generator(device="cuda").manual_seed(4)
     L, B, nh, max_len = 2, 8, 32, 1000
@@ -657,7 +677,10 @@ def check_decode_attention():
                                        "softcap": 30.0, "window": 100}),
               (bf, 256, 5, 777, 1, {"alibi_slopes": slopes, "window": 100}),
               (bf, 192, 1, 1000, 1, {}), (h16, 192, 64, 777, 0, {}),
-              (bf, 136, 5, 300, 1, {}), (f32, 192, 1, 300, 0, {})]
+              (bf, 136, 5, 300, 1, {}), (f32, 192, 1, 300, 0, {}),
+              (bf, 96, 64, 1000, 1, {}), (h16, 80, 64, 1000, 0, {}),
+              (h16, 80, 1, 1000, 1, {}), (h16, 96, 64, 333, 1, {}),
+              (bf, 256, 17, 1000, 0, {}), (f32, 96, 64, 1000, 1, {})]
     worst = 0.0
     for dtype, hd, T, cur, li, kw in cases:
         k, v = cache(hd, dtype)
@@ -666,6 +689,20 @@ def check_decode_attention():
         q = torch.randn(B, nh, T, hd, device="cuda", generator=g).to(dtype)
         worst = max(worst, hold(q, k, v, cur, li, kw))
     del caches
+    # few (b, h): the context splits over a cluster (T = 1)
+    for dtype, hd, cur, kw in ((bf, 64, 1000, {}), (bf, 96, 1000, {}),
+                               (h16, 80, 777, {}), (bf, 256, 1000, {}),
+                               (f32, 64, 1000, {}), (f32, 256, 300, {}),
+                               (bf, 64, 1000, {"alibi_slopes": slopes[:4],
+                                               "softcap": 30.0,
+                                               "window": 300})):
+        k, v = (torch.randn(2, 2, 4, 1000, hd, device="cuda",
+                            generator=g).to(dtype) for _ in range(2))
+        q = torch.randn(2, 4, 1, hd, device="cuda", generator=g).to(dtype)
+        live = min(cur, kw.get("window", cur))
+        log(f"check: decode_attention splits="
+            f"{tda.split_plan(2, 4, 1, hd, live, build.sm_count(q.device))}")
+        worst = max(worst, hold(q, k, v, cur, 1, kw))
     kv = [torch.randn(LLAMA_LAYERS, GEN_BATCH, nh, 1280, 64, device="cuda",
                       generator=g).to(bf) for _ in range(2)]
     q = torch.randn(GEN_BATCH, nh, 1, 64, device="cuda", generator=g).to(bf)
@@ -1053,6 +1090,139 @@ def check_block_sparse_attention():
             fail(f"block_sparse_attention {name}: lse err {lse_err}")
         del q, k, v, do, o, lse, delta, dq, dk, dv, ro, rlse, rq, rk, rv
         torch.cuda.empty_cache()
+    return worst
+
+
+WIDE_DIMS = (264, 320, 512, 1024)
+
+
+def check_wide_heads():
+    """Every attention kernel at head dims above 256 (WIDE_DIMS), in bf16,
+    fp16 and f32, against its plain version with the tolerances above
+    (16-bit: the plain version on the values cast to f32): flash forward
+    and backward (S 200, causal; ALiBi + window + softcap at 264 in bf16),
+    decode at T 1, 17 and 64 (cur_len 300 of 512, ALiBi + window at 320),
+    paged (ragged contexts, an int8 pool with bf16 queries, a softcap and
+    a window), and the three block-sparse kernels (DeepSpeed's fixed
+    layout of 16 at S 256, causal). Returns the largest absolute error of
+    each kernel."""
+    import torch
+    from deepspeed_tpu_torch.ops import block_sparse_attention as tbs
+    from deepspeed_tpu_torch.ops import decode_attention as tda
+    from deepspeed_tpu_torch.ops import flash_attention as tfa
+    from deepspeed_tpu_torch.ops import paged_attention as tpa
+    from deepspeed_tpu_torch.ops import sparse_attention as tsa
+    from deepspeed_tpu_torch.quant_format import kv_quantize
+    g = torch.Generator(device="cuda").manual_seed(264)
+    worst = {k: 0.0 for k in KERNEL_MODULES if k != "quant_matmul"}
+    f32, bf, h16 = torch.float32, torch.bfloat16, torch.float16
+    rnd = lambda *s, dt=f32: (torch.randn(*s, device="cuda", generator=g)
+                              * 0.5).to(dt)
+
+    def keep(name, err):
+        worst[name] = max(worst[name], err)
+
+    layout = tsa.config_layout(tsa.FixedSparsityConfig(
+        num_heads=2, block=16, attention="unidirectional"), 256)
+    for D in WIDE_DIMS:
+        for dt in (bf, h16, f32):
+            tag = f"{str(dt)[6:]} D={D}"
+            is32 = dt == f32
+            # flash forward and backward
+            extras = D == 264 and dt == bf
+            kw = ({"alibi_slopes": [0.5, 0.25], "window": 64,
+                   "softcap": 20.0} if extras else {})
+            q, k, v, do = (rnd(1, 2, 200, D, dt=dt) for _ in range(4))
+            o, lse = tfa.flash_attention_fwd(q, k, v, **kw)
+            delta = (do.float() * o.float()).sum(-1)
+            dq = tfa.flash_attention_bwd_dq(q, k, v, do, lse, delta, **kw)
+            dk, dv = tfa.flash_attention_bwd_dkv(q, k, v, do, lse, delta,
+                                                 **kw)
+            ro, rlse = tfa.flash_attention_reference(
+                q.float(), k.float(), v.float(), **kw)
+            refs = tfa.flash_attention_bwd_reference(
+                q.float(), k.float(), v.float(), o.float(), lse, do.float(),
+                **kw)
+            torch.cuda.synchronize()
+            lab = f"wide flash {tag}{' extras' if extras else ''}"
+            keep("flash_attention_fwd", _hold(f"{lab} o:", o, ro, is32))
+            lse_err = _max_err(lse, rlse)
+            if not lse_err <= 1e-4:
+                fail(f"{lab}: lse err {lse_err}")
+            for gname, out, ref in zip(("dq", "dk", "dv"), (dq, dk, dv),
+                                       refs):
+                keep("flash_attention_bwd_dq" if gname == "dq" else
+                     "flash_attention_bwd_dkv",
+                     _hold(f"{lab} {gname}:", out, ref, is32,
+                           floor=2.0 ** -10))
+            # block-sparse forward, dq, dk/dv
+            q, k, v, do = (rnd(1, 2, 256, D, dt=dt) for _ in range(4))
+            o, lse = tbs.block_sparse_attention_fwd(q, k, v, layout, 16,
+                                                    causal=True)
+            delta = (do.float() * o.float()).sum(-1)
+            dq = tbs.block_sparse_attention_bwd_dq(q, k, v, do, lse, delta,
+                                                   layout, 16, causal=True)
+            dk, dv = tbs.block_sparse_attention_bwd_dkv(
+                q, k, v, do, lse, delta, layout, 16, causal=True)
+            qf, kf, vf, dof = (t.float() for t in (q, k, v, do))
+            ro, _ = tbs.block_sparse_attention_reference(qf, kf, vf, layout,
+                                                         16, causal=True)
+            refs = tbs.block_sparse_attention_bwd_reference(
+                qf, kf, vf, dof, lse, delta, layout, 16, causal=True)
+            torch.cuda.synchronize()
+            lab = f"wide block_sparse {tag}"
+            keep("block_sparse_attention_fwd", _hold(f"{lab} o:", o, ro, is32))
+            scale = max(r.abs().max().item() for r in refs)
+            for gname, out, ref in zip(("dq", "dk", "dv"), (dq, dk, dv),
+                                       refs):
+                keep("block_sparse_attention_bwd_dq" if gname == "dq" else
+                     "block_sparse_attention_bwd_dkv",
+                     _hold(f"{lab} {gname}:", out, ref, is32,
+                           floor=2.0 ** -10, scale=scale))
+            # decode at T 1, 17 and 64
+            kc, vc = (rnd(2, 4, 512, D, dt=dt) for _ in range(2))
+            for T in (1, 17, 64):
+                dkw = ({"alibi_slopes": [0.5, 0.25, 0.125, 0.0625],
+                        "window": 100} if D == 320 else {})
+                q = rnd(2, 4, T, D, dt=dt)
+                out = tda.decode_attention(q, kc, vc, 300, **dkw)
+                ref = tda.decode_attention_reference(
+                    q.float(), kc.float(), vc.float(), 300, **dkw)
+                torch.cuda.synchronize()
+                keep("decode_attention",
+                     _hold(f"wide decode_attention {tag} T={T} {sorted(dkw)}",
+                           out, ref, is32))
+            # paged: ragged contexts in a pool of 16-row blocks
+            B, nh, bs, nbk, nblk = 3, 4, 16, 8, 40
+            kp, vp = (rnd(1, nh, nblk, bs, D) for _ in range(2))
+            bt = (torch.randperm(nblk - 1, device="cuda", generator=g)
+                  [:B * nbk] + 1).reshape(B, nbk).to(torch.int32)
+            lens = torch.tensor([1, 77, nbk * bs], dtype=torch.int32,
+                                device="cuda")
+            q = rnd(B, nh, 1, D, dt=dt)
+            pkw = {"softcap": 6.0, "window": 50}
+            out = tpa.paged_attention(q, kp.to(dt), vp.to(dt), bt, lens,
+                                      layer_idx=0, **pkw)
+            ref = tpa.paged_attention_reference(
+                q.float(), kp.to(dt).float(), vp.to(dt).float(), bt, lens,
+                layer_idx=0, **pkw)
+            torch.cuda.synchronize()
+            keep("paged_attention", _hold(f"wide paged_attention {tag}", out,
+                                          ref, is32))
+            if dt == bf:
+                (kq, ks), (vq, vs) = kv_quantize(kp), kv_quantize(vp)
+                out = tpa.paged_attention(q, kq, vq, bt, lens, layer_idx=0,
+                                          k_scale=ks, v_scale=vs, **pkw)
+                deq = lambda x, s: (x.float() * s.reshape(x.shape[:-1])
+                                    [..., None]).to(bf).float()
+                ref = tpa.paged_attention_reference(
+                    q.float(), deq(kq, ks), deq(vq, vs), bt, lens,
+                    layer_idx=0, **pkw)
+                torch.cuda.synchronize()
+                keep("paged_attention",
+                     _hold(f"wide paged_attention int8 {tag}", out, ref,
+                           False))
+            torch.cuda.empty_cache()
     return worst
 
 
@@ -1871,7 +2041,7 @@ def _train_leg(engine, batch, steps, per_step, name):
     return metrics, step_s, total, micros
 
 
-def phase_long(tmp):
+def phase_long(tmp, old_bs=None):
     """initialize(JSON ds_config with a sparse_attention section) on
     llama-1.1b at full width and depth, seq 4096, micro 1 x gas 2:
     LONG_STEPS train_batch steps, each launching the three block-sparse
@@ -1927,6 +2097,8 @@ def phase_long(tmp):
              "step_ms_all": [round(1e3 * x, 3) for x in step_s],
              "peak_mem_gb": peak_gb}
     profile_train(engine, batch, 1e3 * dt, "long step")
+    if old_bs is not None:
+        ab_long(engine, batch, old_bs)
     del engine
     torch.cuda.empty_cache()
 
@@ -2053,6 +2225,98 @@ def time_quant_matmul(mats, dense, M):
 
 
 QM_PREFILL_MS = (96, 224, 352)        # the int8 leg's other prefill lengths
+QM_TIMED_BLOCKS = (256, 8, 40, 100)
+
+
+def time_quant_matmul_blocks(dense):
+    """One forward's int8 matmuls (111 launches: layer 0's five matrices
+    22 times, then the LM head, packed from the dequantized weights) at
+    scale blocks 256, 8, 40 and 100, at M 8 (a decode step) and M 512 (a
+    prefill): device ms each, in one process. Blocks that are not a
+    multiple of 16 have no target; 256 is the main path's."""
+    import torch
+    from deepspeed_tpu_torch.ops import quant_matmul as tqm
+    ws = [w.float() for w in dense[:5]] + [dense[-1].float()]
+    out = {}
+    for block in QM_TIMED_BLOCKS:
+        packed = [tqm.pack_kernel(w, block) for w in ws]
+        mats = packed[:5] * LLAMA_LAYERS + packed[5:]
+        row = {}
+        for M in (8, 512):
+            xs = _qm_inputs(mats, M, 5)
+            row[f"M{M}"] = device_ms(_qm_forward(mats, xs))
+        out[block] = row
+        del packed, mats
+    log(f"time: quant_matmul by scale block, device ms a forward (111 "
+        f"launches): " + json.dumps({b: {k: round(v, 4) for k, v in r.items()}
+                                     for b, r in out.items()}))
+    torch.cuda.empty_cache()
+    return out
+
+
+def time_wide_heads():
+    """What head dims above 256 cost: device ms of each attention kernel
+    at D 256 (the widest of the narrow kernels) beside 264 and 512 (the
+    wide ones), bf16: flash forward, dq and dk/dv at [1, 16, 1024, D]
+    causal; block-sparse forward, dq and dk/dv at [1, 16, 1024, D] with the
+    long leg's fixed layout; decode at T 1 and 64 and paged at T 1, 8
+    sequences x 16 heads at cur_len 1056 (one launch each)."""
+    import torch
+    from deepspeed_tpu_torch.ops import block_sparse_attention as tbs
+    from deepspeed_tpu_torch.ops import decode_attention as tda
+    from deepspeed_tpu_torch.ops import flash_attention as tfa
+    from deepspeed_tpu_torch.ops import paged_attention as tpa
+    from deepspeed_tpu_torch.ops import sparse_attention as tsa
+    g = torch.Generator(device="cuda").manual_seed(15)
+    bf = torch.bfloat16
+    cfg = tsa.build_sparsity_config(num_heads=16, **SPARSE_SECTION)
+    layout = tsa.config_layout(cfg, 1024)
+    out = {}
+    for D in (256, 264, 512):
+        row = {}
+        q, k, v, do = (torch.randn(1, 16, 1024, D, device="cuda",
+                                   generator=g).to(bf) for _ in range(4))
+        o, lse = tfa.flash_attention_fwd(q, k, v, causal=True)
+        delta = (do.float() * o.float()).sum(-1)
+        row["flash_fwd"] = device_ms(lambda: tfa.flash_attention_fwd(
+            q, k, v, causal=True))
+        row["flash_dq"] = device_ms(lambda: tfa.flash_attention_bwd_dq(
+            q, k, v, do, lse, delta))
+        row["flash_dkv"] = device_ms(lambda: tfa.flash_attention_bwd_dkv(
+            q, k, v, do, lse, delta))
+        kw = {"causal": True}
+        o, lse = tbs.block_sparse_attention_fwd(q, k, v, layout, 64, **kw)
+        delta = (do.float() * o.float()).sum(-1)
+        row["bs_fwd"] = device_ms(lambda: tbs.block_sparse_attention_fwd(
+            q, k, v, layout, 64, **kw))
+        row["bs_dq"] = device_ms(lambda: tbs.block_sparse_attention_bwd_dq(
+            q, k, v, do, lse, delta, layout, 64, **kw))
+        row["bs_dkv"] = device_ms(lambda: tbs.block_sparse_attention_bwd_dkv(
+            q, k, v, do, lse, delta, layout, 64, **kw))
+        del q, k, v, do, o, lse, delta
+        kc, vc = (torch.randn(8, 16, 1280, D, device="cuda",
+                              generator=g).to(bf) for _ in range(2))
+        for T in (1, 64):
+            qd = torch.randn(8, 16, T, D, device="cuda", generator=g).to(bf)
+            row[f"decode_T{T}"] = device_ms(lambda: tda.decode_attention(
+                qd, kc, vc, 1056))
+        nbk, bs = 33, 32
+        bt = torch.arange(8 * nbk, device="cuda", dtype=torch.int32
+                          ).reshape(8, nbk)
+        kp = kc[:, :, :nbk * bs].reshape(8, 16, nbk, bs, D).transpose(0, 1
+                                                                      ).reshape(16, 8 * nbk, bs, D)
+        vp = vc[:, :, :nbk * bs].reshape(8, 16, nbk, bs, D).transpose(0, 1
+                                                                      ).reshape(16, 8 * nbk, bs, D)
+        lens = torch.full((8,), 1056, dtype=torch.int32, device="cuda")
+        qd = torch.randn(8, 16, 1, D, device="cuda", generator=g).to(bf)
+        row["paged"] = device_ms(lambda: tpa.paged_attention(
+            qd, kp, vp, bt, lens))
+        out[D] = row
+        del kc, vc, kp, vp
+        torch.cuda.empty_cache()
+    log("time: wide heads, device ms a launch, bf16: " + json.dumps(
+        {d: {k: round(v, 4) for k, v in r.items()} for d, r in out.items()}))
+    return out
 
 
 def time_quant_matmul_prefill_lengths(mats):
@@ -2143,6 +2407,44 @@ def time_decode_attention():
     return {**t, "bound_ms": bnd, "bound_by": by,
             "work": f"one decode step: {L} launches, B={B}, cur_len={cur}, "
                     f"nh={nh}, hd={hd}, bf16 cache of {max_len}"}
+
+
+def sweep_decode_splits():
+    """decode_attention at T = 1 with the context split over 1 to 4 CTAs
+    (the wrapper's split_plan replaced for the sweep), 22 launches over 8
+    sequences at cur_len 1056 in the stacked bf16 cache of 1280: 32 heads
+    of 64 (the generate step), 16 of 96 and 16 of 256. Device ms; the plan's
+    own choice is marked."""
+    import torch
+    from deepspeed_tpu_torch.ops import build
+    from deepspeed_tpu_torch.ops import decode_attention as tda
+    g = torch.Generator(device="cuda").manual_seed(16)
+    L, B, cur = LLAMA_LAYERS, GEN_BATCH, 1056
+    own = tda.split_plan
+    out = {}
+    try:
+        for nh, hd in ((32, 64), (16, 96), (16, 256)):
+            k, v = (torch.randn(L, B, nh, 1280, hd, device="cuda",
+                                generator=g).to(torch.bfloat16)
+                    for _ in range(2))
+            q = torch.randn(B, nh, 1, hd, device="cuda",
+                            generator=g).to(torch.bfloat16)
+            plan = own(B, nh, 1, hd, cur, build.sm_count(q.device))
+            row = {}
+            for splits in (1, 2, 3, 4):
+                tda.split_plan = lambda *a, s=splits: s
+                row[splits] = device_ms(lambda: [tda.decode_attention(
+                    q, k, v, cur, layer_idx=li) for li in range(L)])
+            out[f"{nh}x{hd} (plan {plan})"] = row
+            del k, v
+            torch.cuda.empty_cache()
+    finally:
+        tda.split_plan = own
+    log("time: decode_attention splits sweep, device ms a step of "
+        f"{L} launches: " + json.dumps(
+            {k: {s: round(v, 4) for s, v in r.items()}
+             for k, r in out.items()}))
+    return out
 
 
 def time_decode_attention_multi(T=64):
@@ -2407,27 +2709,65 @@ def _parent_flash_fwd(src):
     return lib
 
 
-class _SplitlessPaged:
-    """The parent's paged library behind this wrapper's call: its entry
-    point takes no split count (argument 20 of this one's)."""
+def _parent_paged(src):
+    """The parent's paged library (the same C interface)."""
+    import ctypes
+    lib = _parent_lib(src, "paged_attention")
+    P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.paged_attention_launch.argtypes = (
+        [P] * 9 + [I] * 8 + [F] * 2 + [I, I, I, P])
+    lib.paged_attention_launch.restype = ctypes.c_int
+    return lib
+
+
+class _SplitlessDecode:
+    """The parent's decode library behind this wrapper's call: its entry
+    point takes no split count (argument 15 of this one's)."""
 
     def __init__(self, lib):
         self.lib = lib
 
-    def paged_attention_launch(self, *a):
-        return self.lib.paged_attention_launch(*a[:19], *a[20:])
+    def decode_attention_launch(self, *a):
+        return self.lib.decode_attention_launch(*a[:15], *a[16:])
 
     def __getattr__(self, name):
         return getattr(self.lib, name)
 
 
-def _parent_paged(src):
+def _parent_decode(src):
     import ctypes
-    lib = _parent_lib(src, "paged_attention")
+    lib = _parent_lib(src, "decode_attention")
     P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.paged_attention_launch.argtypes = [P] * 9 + [I] * 8 + [F] * 2 + [I, I, P]
-    lib.paged_attention_launch.restype = ctypes.c_int
-    return _SplitlessPaged(lib)
+    lib.decode_attention_launch.argtypes = [P] * 5 + [I] * 8 + [F] * 2 + [I, P]
+    lib.decode_attention_launch.restype = ctypes.c_int
+    return _SplitlessDecode(lib)
+
+
+class _ListlessBlockSparse:
+    """The parent's block-sparse library behind this wrapper's calls: its
+    dk/dv entry point takes no per-CTA item lists (arguments 11 and 12 of
+    this one's)."""
+
+    def __init__(self, lib):
+        self.lib = lib
+
+    def block_sparse_attention_bwd_dkv_launch(self, *a):
+        return self.lib.block_sparse_attention_bwd_dkv_launch(*a[:11], *a[13:])
+
+    def __getattr__(self, name):
+        return getattr(self.lib, name)
+
+
+def _parent_block_sparse(src):
+    import ctypes
+    lib = _parent_lib(src, "block_sparse_attention")
+    P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    for fn, n_ptr in ((lib.block_sparse_attention_fwd_launch, 10),
+                      (lib.block_sparse_attention_bwd_dq_launch, 12),
+                      (lib.block_sparse_attention_bwd_dkv_launch, 13)):
+        fn.argtypes = [P] * n_ptr + [I] * 7 + [F, I, P]
+        fn.restype = ctypes.c_int
+    return _ListlessBlockSparse(lib)
 
 
 class _using:
@@ -2548,6 +2888,128 @@ def ab_paged(old, srv):
     for label in AB_ORDER:
         with under(libs[label]):
             profile_decode(srv, label=f"serve decode step, {label} paged")
+
+
+DECODE_AB = (   # (call, heads, head dim, T, dtypes): 22 layers, B 8, cur 1056
+    ("generate step", 32, 64, 1, ("bf16", "fp16")),
+    ("D96 x 16 heads", 16, 96, 1, ("bf16", "fp16")),
+    ("D80 x 32 heads", 32, 80, 1, ("bf16",)),
+    ("D256 x 16 heads", 16, 256, 1, ("bf16",)),
+    ("T=64", 32, 64, 64, ("bf16", "fp16")))
+
+
+def ab_decode(old):
+    """The parent's decode kernel (``old``) against this one at the
+    generate step's call (22 launches over 8 sequences at cur_len 1056 in
+    the stacked cache of 1280, 32 heads of 64), at D 96 x 16, D 80 x 32 and
+    D 256 x 16 heads, and at T = 64; bf16 (and fp16 where listed), beside
+    SDPA on the live slice (with the bottom-right causal mask at T = 64),
+    in the order parent, new, new, parent."""
+    import torch
+    import torch.nn.functional as F
+    from deepspeed_tpu_torch.ops import build
+    from deepspeed_tpu_torch.ops import decode_attention as tda
+    libs = {"parent": old, "new": tda._lib()}
+    under = lambda lib: _using(tda, "_lib", lib)
+    g = torch.Generator(device="cuda").manual_seed(8)
+    L, B, cur, max_len = LLAMA_LAYERS, GEN_BATCH, 1056, 1280
+    for call, nh, hd, T, dts in DECODE_AB:
+        k, v = (torch.randn(L, B, nh, max_len, hd, device="cuda",
+                            generator=g).to(torch.bfloat16) for _ in range(2))
+        q = torch.randn(B, nh, T, hd, device="cuda",
+                        generator=g).to(torch.bfloat16)
+        mask = None
+        if T > 1:
+            mask = (torch.arange(cur, device="cuda")[None, :]
+                    <= torch.arange(cur - T, cur, device="cuda")[:, None])
+        sdpa = device_ms(lambda: [F.scaled_dot_product_attention(
+            q, k[li, :, :, :cur], v[li, :, :, :cur], attn_mask=mask)
+            for li in range(L)])
+        mine = tda.decode_attention(q, k, v, cur, layer_idx=L - 1)
+        with under(old):
+            theirs = tda.decode_attention(q, k, v, cur, layer_idx=L - 1)
+        splits = tda.split_plan(B, nh, T, hd, cur, build.sm_count(q.device))
+        log(f"time: decode_attention parent vs new {call} max_abs_diff="
+            f"{_max_err(mine, theirs):.3e} route={tda.route(T, hd, q.dtype)} "
+            f"splits={splits}")
+        fns = {}
+        for dt in dts:
+            tdt = torch.bfloat16 if dt == "bf16" else torch.float16
+            kk, vv, qq = ((k, v, q) if dt == "bf16" else
+                          (k.to(tdt), v.to(tdt), q.to(tdt)))
+            fns[dt] = (lambda kk=kk, vv=vv, qq=qq: [
+                tda.decode_attention(qq, kk, vv, cur, layer_idx=li)
+                for li in range(L)])
+        _ab_kernel("decode_attention", call, fns, libs, under, 1,
+                   f" sdpa_ms={sdpa:.4f} (x{L} layers a launch list)")
+        del k, v, q, mine, theirs, fns
+        torch.cuda.empty_cache()
+
+
+def ab_block_sparse(old):
+    """The parent's block-sparse kernels (``old``) against these: 44
+    launches of each at [1, 32, 4096, 64] bf16 causal (one long step) over
+    the four layouts of time_block_sparse_scaling (the long leg's, the
+    window leg's, fixed-16, dense causal), in the order parent, new, new,
+    parent; and the parent's dk/dv against this one's on the long leg's
+    layout."""
+    import torch
+    from deepspeed_tpu_torch.ops import block_sparse_attention as tbs
+    from deepspeed_tpu_torch.ops import sparse_attention as tsa
+    libs = {"parent": old, "new": tbs._lib()}
+    under = lambda lib: _using(tbs, "_lib", lib)
+    H, S, D, n = 32, LONG_SEQ, 64, LLAMA_LAYERS * 2
+    g = torch.Generator(device="cuda").manual_seed(14)
+    q, k, v, do = (torch.randn(1, H, S, D, device="cuda", generator=g)
+                   .to(torch.bfloat16) for _ in range(4))
+    for name, (cfg, kw) in _scaling_layouts(H).items():
+        layout, fine = tsa.config_layout(cfg, S), cfg.block
+        o, lse = tbs.block_sparse_attention_fwd(q, k, v, layout, fine, **kw)
+        delta = (do.float() * o.float()).sum(-1)
+        mine = tbs.block_sparse_attention_bwd_dkv(q, k, v, do, lse, delta,
+                                                  layout, fine, **kw)
+        with under(old):
+            theirs = tbs.block_sparse_attention_bwd_dkv(
+                q, k, v, do, lse, delta, layout, fine, **kw)
+        log(f"time: block_sparse parent vs new {name} dk/dv max_abs_diff "
+            f"dk={_max_err(mine[0], theirs[0]):.3e} "
+            f"dv={_max_err(mine[1], theirs[1]):.3e}")
+        fns = {
+            "fwd": lambda: tbs.block_sparse_attention_fwd(
+                q, k, v, layout, fine, **kw),
+            "dq": lambda: tbs.block_sparse_attention_bwd_dq(
+                q, k, v, do, lse, delta, layout, fine, **kw),
+            "dkv": lambda: tbs.block_sparse_attention_bwd_dkv(
+                q, k, v, do, lse, delta, layout, fine, **kw)}
+        _ab_kernel("block_sparse", name, fns, libs, under, n)
+        del o, lse, delta, mine, theirs
+    del q, k, v, do
+    torch.cuda.empty_cache()
+
+
+def ab_long(engine, batch, old, steps=2):
+    """The long leg's step under the parent's block-sparse kernels
+    (``old``) and these, in the order parent, new, new, parent: the median
+    wall ms of ``steps`` steps and one profiled step's busy ms and
+    block-sparse kernel ms."""
+    import numpy as np
+    import torch
+    from deepspeed_tpu_torch.ops import block_sparse_attention as tbs
+    libs = {"parent": old, "new": tbs._lib()}
+    for label in AB_ORDER:
+        with _using(tbs, "_lib", libs[label]):
+            wall = []
+            for _ in range(steps):
+                t0 = time.perf_counter()
+                engine.train_batch(batch)
+                wall.append(1e3 * (time.perf_counter() - t0))
+            torch.cuda.synchronize()
+            ms = float(np.median(wall))
+            busy, kinds = profile_train(engine, batch, ms,
+                                        label=f"long step, {label} bs")
+        log(f"time: long {label} block_sparse step_ms={ms:.3f} "
+            f"busy_ms={busy:.3f} "
+            f"block_sparse_ms={kinds['block_sparse_attention']:.3f}")
 
 
 def ab_generate(old, cfg, params):
@@ -2731,6 +3193,26 @@ def time_block_sparse_attention():
     return out
 
 
+def _scaling_layouts(H):
+    """{name: (sparsity config, kernel options)} of the four layouts the
+    block-sparse kernels are timed over."""
+    from deepspeed_tpu_torch.ops import sparse_attention as tsa
+    uni = dict(attention="unidirectional")
+    win = -(-(WINDOW - 1) // 64) + 1
+    return {
+        "fixed-64 (long leg)": (tsa.FixedSparsityConfig(
+            num_heads=H, block=64, **uni), {"causal": True}),
+        f"window {WINDOW} (window leg)": (
+            tsa.LocalSlidingWindowSparsityConfig(
+                num_heads=H, block=64, num_sliding_window_blocks=win),
+            {"causal": True, "window": WINDOW, "layout_exact": False}),
+        "fixed-16": (tsa.FixedSparsityConfig(num_heads=H, block=16, **uni),
+                     {"causal": True}),
+        "dense causal": (tsa.DenseSparsityConfig(num_heads=H, block=64),
+                         {"causal": True}),
+    }
+
+
 def time_block_sparse_scaling():
     """The three block-sparse kernels, and the flash kernels, at the long
     leg's shape [1, 32, 4096, 64] bf16 causal, 44 launches each (one long
@@ -2748,22 +3230,8 @@ def time_block_sparse_scaling():
     g = torch.Generator(device="cuda").manual_seed(13)
     q, k, v, do = (torch.randn(1, H, S, D, device="cuda", generator=g)
                    .to(torch.bfloat16) for _ in range(4))
-    uni = dict(attention="unidirectional")
-    win = -(-(WINDOW - 1) // 64) + 1
-    layouts = {
-        "fixed-64 (long leg)": (tsa.FixedSparsityConfig(
-            num_heads=H, block=64, **uni), {"causal": True}),
-        f"window {WINDOW} (window leg)": (
-            tsa.LocalSlidingWindowSparsityConfig(
-                num_heads=H, block=64, num_sliding_window_blocks=win),
-            {"causal": True, "window": WINDOW, "layout_exact": False}),
-        "fixed-16": (tsa.FixedSparsityConfig(num_heads=H, block=16, **uni),
-                     {"causal": True}),
-        "dense causal": (tsa.DenseSparsityConfig(num_heads=H, block=64),
-                         {"causal": True}),
-    }
     out = {}
-    for name, (cfg, kw) in layouts.items():
+    for name, (cfg, kw) in _scaling_layouts(H).items():
         layout, fine = tsa.config_layout(cfg, S), cfg.block
         sched = tbs.schedule(layout, fine, S, device="cuda", **kw)
         o, lse = tbs.block_sparse_attention_fwd(q, k, v, layout, fine, **kw)
@@ -2849,6 +3317,18 @@ def main(argv=None):
                          "this one, in one process: the generate prefill's "
                          "and the train leg's calls, the generate prefill "
                          "and decode step and the train step")
+    ap.add_argument("--old-decode", metavar="SRC",
+                    help="also time the decode kernel built from SRC (a "
+                         "parent commit's csrc/decode_attention.cu, with "
+                         "the headers it includes beside it) against this "
+                         "one, in one process: the generate step's call, "
+                         "D 96 x 16, D 80 x 32 and D 256 x 16 heads, T = 64")
+    ap.add_argument("--old-block-sparse", metavar="SRC",
+                    help="also time the block-sparse kernels built from "
+                         "SRC (a parent commit's csrc/block_sparse_"
+                         "attention.cu, with the headers it includes beside "
+                         "it) against these, in one process: 44 launches "
+                         "of each over four layouts, and the long step")
     ap.add_argument("--old-paged", metavar="SRC",
                     help="also time the paged kernel built from SRC (a "
                          "parent commit's csrc/paged_attention.cu) against "
@@ -2903,6 +3383,7 @@ def main(argv=None):
     qm = time_quant_matmul(mats, dense, 8)
     qm["prefill"] = time_quant_matmul(mats, dense, 512)
     qm["prefill"]["ms_by_m"] = time_quant_matmul_prefill_lengths(mats)
+    time_quant_matmul_blocks(dense)
     del dense
     torch.cuda.empty_cache()
     if args.old_quant_matmul:
@@ -2912,7 +3393,10 @@ def main(argv=None):
     del srv8, eng, mats
     torch.cuda.empty_cache()
     da = time_decode_attention()
+    sweep_decode_splits()
     torch.cuda.empty_cache()
+    if args.old_decode:
+        ab_decode(_parent_decode(args.old_decode))
     dm = time_decode_attention_multi()
     torch.cuda.empty_cache()
     fa = time_flash_attention()
@@ -2935,13 +3419,18 @@ def main(argv=None):
         ab_flash_bwd(old_bwd, fb)
     torch.cuda.empty_cache()
     time_head_dims()
+    time_wide_heads()
     with tempfile.TemporaryDirectory() as tmp:
         gemma_counts = phase_gemma(tmp)
+    old_bs = (_parent_block_sparse(args.old_block_sparse)
+              if args.old_block_sparse else None)
     with tempfile.TemporaryDirectory() as tmp:
-        long_counts, window_counts, long_rates = phase_long(tmp)
+        long_counts, window_counts, long_rates = phase_long(tmp, old_bs)
     log("time: long " + json.dumps(long_rates))
     bs = time_block_sparse_attention()
     time_block_sparse_scaling()
+    if old_bs is not None:
+        ab_block_sparse(old_bs)
     kernels = []
     for kname, launches, t, src, tpu in (
             ("paged_attention", pa_launches, pa,

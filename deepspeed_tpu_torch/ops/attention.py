@@ -17,18 +17,21 @@ import torch
 NEG_INF = -1e30
 
 # What the CUDA attention kernels take (ops/csrc/*attention*.cu): any head
-# dim D % 8 == 0 up to MAX_HEAD_DIM (the TPU kernels take any D % 8 == 0),
-# in these dtypes; the value is the dtype code of their C entry points.
-MAX_HEAD_DIM = 256
+# dim D % 8 == 0 (as the TPU kernels do), in these dtypes; the value is the
+# dtype code of their C entry points.
 KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
 
 def head_dim_reason(D: int) -> Optional[str]:
-    """None if the attention kernels take head dim ``D``, else why not."""
-    if D % 8 or not 8 <= D <= MAX_HEAD_DIM:
-        return (f"head_dim {D} (the attention kernels take D % 8 == 0 up to "
-                f"{MAX_HEAD_DIM}; wider heads are not built yet, ROADMAP.md "
-                "Queue 3)")
+    """None if the attention kernels take head dim ``D``, else why not:
+    they take any ``D % 8 == 0`` from 8 on. The JAX flash wrapper sends
+    other head dims to its jnp reference; the port raises on CUDA instead of
+    switching quietly to the plain version (ROADMAP.md, documented
+    divergences)."""
+    if D % 8 or D < 8:
+        return (f"head_dim {D} (the attention kernels take D % 8 == 0 from "
+                "8 on; the JAX wrapper's quiet switch to its reference is "
+                "not carried over, ROADMAP.md documented divergences)")
     return None
 
 

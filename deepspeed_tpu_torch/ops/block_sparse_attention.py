@@ -28,6 +28,8 @@ options, device) and cached.
   :func:`block_sparse_attention_bwd_reference` (dq, dk, dv).
 * :func:`tileable` — the shape check the kernels make, as a pure function:
   routers that fall back call it first and never wrap a launch in ``try``.
+* :func:`dkv_route` — which form of the dK/dV kernel a call takes, a pure
+  function of the head dim and dtype.
 
 Semantics: the fine layout applies per element (``layout[h, q // fine, k
 // fine]``), then causal (key <= query, S = Sk) and the window (query - key
@@ -61,10 +63,24 @@ __all__ = ["block_sparse_flash_attention", "block_sparse_attention_fwd",
            "block_sparse_attention_bwd_dq", "block_sparse_attention_bwd_dkv",
            "block_sparse_attention_reference",
            "block_sparse_attention_bwd_reference", "schedule", "tileable",
-           "coarse_layout", "active_lists", "TILE"]
+           "dkv_route", "coarse_layout", "active_lists", "TILE"]
 
 TILE = 64                                   # the kernels' q and k tile
 LAYOUT_BIT, POS_BIT = 1, 2                  # csrc/block_sparse_attention.cu
+WIDE_FROM = 256                             # wider heads: the wide kernels
+
+
+def dkv_route(D: int, dtype: torch.dtype) -> str:
+    """Which form of the dK/dV kernel of ``csrc/block_sparse_attention.cu``
+    a call takes: ``"wgmma"`` (bf16 / fp16 at D 64, the long leg's call:
+    persistent, TMA-fed, on ``wgmma``), ``"mma"`` (the other 16-bit widths
+    up to 256, ``mma.sync``), ``"f32"`` (CUDA cores) or ``"wide"`` (above
+    256: the output columns split over CTAs)."""
+    if D > WIDE_FROM:
+        return "wide"
+    if dtype == torch.float32:
+        return "f32"
+    return "wgmma" if D == 64 else "mma"
 
 
 def _lib() -> ctypes.CDLL:
@@ -72,7 +88,7 @@ def _lib() -> ctypes.CDLL:
     P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     for fn, n_ptr in ((lib.block_sparse_attention_fwd_launch, 10),
                       (lib.block_sparse_attention_bwd_dq_launch, 12),
-                      (lib.block_sparse_attention_bwd_dkv_launch, 13)):
+                      (lib.block_sparse_attention_bwd_dkv_launch, 15)):
         if fn.argtypes is None:
             fn.argtypes = [P] * n_ptr + [I] * 7 + [F, I, P]
             fn.restype = ctypes.c_int
@@ -140,6 +156,35 @@ def active_lists(mask: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
     return ptr, idx
 
 
+# the persistent dK/dV kernel's CTAs an SM (its grid: csrc/
+# block_sparse_attention.cu, launch_dkv_wg), and what taking up a (head,
+# key tile) item costs it beside its tiles (the own K / V load, the
+# epilogue), in tiles
+DKV_CTAS_PER_SM = 2
+DKV_ITEM_COST = 3
+
+
+def balance(costs: np.ndarray, slots: int) -> Tuple[np.ndarray, np.ndarray]:
+    """Longest-processing-time-first assignment of items to ``slots``
+    workers: each item, costliest first, goes to the least-loaded worker
+    (the lowest index on a tie). Returns CSR (ptr [slots + 1], items) int32:
+    worker w takes items[ptr[w]:ptr[w + 1]], costliest first. The makespan
+    is within 4/3 of the best."""
+    import heapq
+    order = np.argsort(-np.asarray(costs), kind="stable")
+    heap = [(0, w) for w in range(slots)]
+    owner = np.empty(len(order), np.int64)
+    for item in order:
+        load, w = heapq.heappop(heap)
+        owner[item] = w
+        heapq.heappush(heap, (load + int(costs[item]), w))
+    by_worker = np.argsort(owner[order], kind="stable")
+    items = order[by_worker].astype(np.int32)
+    ptr = np.zeros(slots + 1, np.int32)
+    np.cumsum(np.bincount(owner, minlength=slots), out=ptr[1:])
+    return ptr, items
+
+
 def longest_first(mask: np.ndarray) -> np.ndarray:
     """[H * n] int32: each head's rows of a [H, n, m] tile mask ordered by
     descending list length (ties in row order), the kernels' launch
@@ -166,6 +211,20 @@ class Schedule:
     @property
     def n_tiles(self) -> int:
         return int(self.visited.sum())
+
+    def dkv_slots(self, sms: int) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(ptr, items) int32 on the schedule's device: the (head, key tile)
+        items (h * nT + kt) of the persistent dK/dV kernel's CTAs on a card
+        of ``sms`` SMs, balanced by :func:`balance` over each item's list
+        length plus DKV_ITEM_COST; cached."""
+        key = f"dkv_slots_{sms}"
+        if key not in self.dev:
+            costs = self.visited.sum(1).reshape(-1) + DKV_ITEM_COST
+            ptr, items = balance(costs, DKV_CTAS_PER_SM * sms)
+            dev = self.dev["k_ptr"].device
+            self.dev[key] = (torch.as_tensor(ptr, device=dev),
+                             torch.as_tensor(items, device=dev))
+        return self.dev[key]
 
     def keep(self, device) -> torch.Tensor:
         """[H, S, S] bool: the live (q, k) entries, from the fine layout,
@@ -447,12 +506,14 @@ def _dkv(q, k, v, do, lse, delta, sched, scale):
     q, k, v, do, lse, delta = _bwd_operands(q, k, v, do, lse, delta, sched)
     d = sched.dev
     dk, dv = torch.empty_like(k), torch.empty_like(v)
+    cta_ptr, cta_items = sched.dkv_slots(build.sm_count(q.device))
     lib = _lib()
     block_sparse_attention_bwd_dkv.launches += 1
     err = lib.block_sparse_attention_bwd_dkv_launch(
         _ptr(q), _ptr(k), _ptr(v), _ptr(do), _ptr(lse), _ptr(delta),
         _ptr(d["layout"]), _ptr(d["k_ptr"]), _ptr(d["k_idx"]),
-        _ptr(d["k_flags"]), _ptr(d["k_order"]), _ptr(dk), _ptr(dv),
+        _ptr(d["k_flags"]), _ptr(d["k_order"]), _ptr(cta_ptr),
+        _ptr(cta_items), _ptr(dk), _ptr(dv),
         *_ints(q, sched), *_tail(q, scale))
     build.check(lib, "block_sparse_attention", err)
     return dk, dv

@@ -8,7 +8,8 @@
 //
 // Head dims: a kernel is instantiated at a padded width DP in {32, 64, 96,
 // 128, 192, 256} and reads rows of the real width D (any D % 8 == 0,
-// D <= DP) from device memory. Columns D..DP are zeros in registers and shared memory
+// D <= DP) from device memory; wider rows take the kernels of
+// attention_wide.cuh. Columns D..DP are zeros in registers and shared memory
 // (a 16-byte chunk of 8 elements lies wholly inside or outside the row,
 // since D % 8 == 0), so Q K^T and P V are unchanged, and stores stop at
 // column D. DP / 16 is even for every DP, which keeps the pairing of two
@@ -41,9 +42,6 @@ __host__ __device__ constexpr int pad_dim(int d) {
   return d <= 32 ? 32 : d <= 64 ? 64 : d <= 96 ? 96 : d <= 128 ? 128
          : d <= 192 ? 192 : 256;
 }
-
-// the widest head dim the attention kernels take
-constexpr int MAX_HEAD_DIM = 256;
 
 template <typename T>
 __device__ __forceinline__ void mma(float* c, const uint32_t* a, uint32_t b0,

@@ -8,8 +8,9 @@
 // logsumexp lse [B*H, S] f32; the backward reads lse and delta =
 // rowsum(dO * O) [B*H, S] f32 (a plain torch op, as the JAX package
 // computes it outside its kernels) and writes dq, or dk and dv. f32, bf16
-// or fp16, any D % 8 == 0 up to 256 (instantiated at a padded width,
-// attention_tile.cuh).
+// or fp16, any D % 8 == 0: up to 256 instantiated at a padded width
+// (attention_tile.cuh), above it the wide kernels of attention_wide.cuh
+// walking the same lists with this file's masks.
 //
 // The sparsity is a schedule, not a mask: the host (ops/
 // block_sparse_attention.py, once per layout) lists for every (head, 64-row
@@ -52,10 +53,14 @@
 // out in the A-operand layout of dV and dK (no atomics, no second pass).
 // Above width 128 the own rows stay in shared memory (OwnA,
 // attention_tile.cuh) and dk/dv splits its output columns over two CTAs
-// (blockIdx.z). f32: CUDA-core FMAs (no TF32), 64 rows per CTA with 2, 4
-// or 8 threads per row (widths 32, 64, 96, 128, 192, 256).
+// (blockIdx.z). The long leg's dK/dV call (16-bit, D 64) runs bs_dkv_wg
+// instead: persistent, TMA-fed, on wgmma (the section "Hopper: dK/dV" below).
+// f32: CUDA-core FMAs (no TF32), 64 rows per CTA with 2, 4 or 8 threads
+// per row (widths 32, 64, 96, 128, 192, 256).
 
 #include "attention_tile.cuh"
+#include "attention_wide.cuh"
+#include "hopper.cuh"
 
 #include <type_traits>
 
@@ -82,6 +87,8 @@ struct Params {
   const int* idx;                 // listed tiles
   const int* flags;               // one flag word per listed tile
   const int* order;               // [H * nT]: each head's tiles, longest list first
+  const int* cta_ptr;             // dk/dv wgmma: each CTA's (h * nT + kt) items,
+  const int* cta_items;           // CSR, balanced on the host
   void* o;
   float* lse;
   void* dq;
@@ -694,6 +701,341 @@ bs_dkv_f32(Params p) {
   }
 }
 
+// ----------------------------------------------- Hopper: dK/dV, wgmma
+
+// The long leg's dK/dV call (16-bit, D 64) in the shape of
+// flash_attention_bwd.cu's flash_bwd_dkv_wg, walking the CSR lists:
+// * Persistent CTAs, two an SM, each a consumer warpgroup and a producer
+//   warpgroup that keeps 40 registers a thread and hands the consumers
+//   216 (setmaxnreg; at the 168 of a 160-thread CTA the consumers
+//   spilled 64-124 bytes and took 1.25-1.32x as long, PERF.md). Each CTA
+//   takes a list of (head, key tile) items, each for every batch row,
+//   balanced on the host
+//   (ops/block_sparse_attention.py, balance: longest processing time first
+//   over each item's tile count). The fixed layout's dK/dV lists run from
+//   1 to 61 tiles; dealt round-robin, the CTAs that drew the long ones
+//   took 1.5x the mean.
+// * The producer's first warp reads every list entry and row the
+//   consumers would otherwise wait on: an item's head, key tile and list
+//   length go to shared memory beside its own K and V tiles (TMA, two own
+//   slots, so the next item's land while this one's last products and
+//   epilogue run), and each listed query tile's flags and first row beside
+//   its Q and dO (TMA) and its lse and delta rows (plain loads, made
+//   before the slot is waited for) in a ring of DKV_STAGES slots signalled
+//   full and freed through mbarriers. The ring runs on across items, so a
+//   short list does not drain it.
+// * The consumers compute S^T = K Q^T and dP^T = V dO^T (wgmma, both
+//   operands in shared memory, 128-byte swizzle), then P^T and dS^T in
+//   registers, then dV += P^T dO and dK += dS^T Q with the register A
+//   operand. A tile whose flag word has LAYOUT_BIT or POS_BIT is masked,
+//   one branch a tile; the rest run no mask code.
+// * Tile e's dV / dK products and tile e + 1's S^T / dP^T products are
+//   issued as one group, so the warpgroup waits on the tensor cores once
+//   a tile.
+// The arithmetic is bs_dkv_mma's up to rounding: the same products with P
+// and dS rounded to the element type, p = exp(s sm_scale - lse) taken as
+// one FFMA and one EX2 and dS = p (dp sm_scale - delta sm_scale) as one
+// FFMA and one FMUL, with lse log2(e) and delta sm_scale made once a
+// query row by the producer.
+
+using hopper::Wgmma;
+using hopper::ERR_TENSOR_MAP;
+
+// 2^x by the SFU (ex2.approx.ftz: about 2 ulp); -huge gives exactly 0
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+constexpr int DKV_WG = 128;               // consumer threads
+constexpr int DKV_THREADS = 2 * DKV_WG;   // and the producer warpgroup
+constexpr int DKV_STAGES = 3;
+// registers a thread after setmaxnreg: two CTAs an SM of 256 threads start
+// at 128; the producer warpgroup hands 88 of them to the consumers
+constexpr int DKV_PRODUCER_REGS = 40;
+constexpr int DKV_CONSUMER_REGS = 216;
+constexpr int DKV_TILE = 64 * 64;         // one 64 x 64 16-bit tile, 8 KB
+
+struct DkvMaps {                          // [BH, S, 64] tensor maps
+  CUtensorMap q, k, v, dout;
+};
+
+// two own slots of K and V, DKV_STAGES ring slots of Q and dO (99 KB: two
+// CTAs an SM), their lse and delta rows, the barriers, the items' and
+// entries' metadata; 1024 bytes of slack for the alignment
+constexpr size_t DKV_SMEM = 1024 + 2 * DKV_TILE * (4 + 2 * DKV_STAGES) +
+                            sizeof(float) * 128 * DKV_STAGES +
+                            sizeof(uint64_t) * (2 * DKV_STAGES + 4) +
+                            sizeof(int) * (2 * DKV_STAGES + 8);
+
+template <typename E>
+__global__ void __launch_bounds__(DKV_THREADS, 2)
+bs_dkv_wg(const __grid_constant__ DkvMaps maps, Params p, int BH) {
+  using namespace hopper;
+  extern __shared__ unsigned char smem_raw[];
+  E* own = reinterpret_cast<E*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  E* ring = own + 4 * DKV_TILE;             // [stage][Q, dO]
+  float* rows = reinterpret_cast<float*>(ring + 2 * DKV_STAGES * DKV_TILE);
+  uint64_t* full = reinterpret_cast<uint64_t*>(rows + 128 * DKV_STAGES);
+  uint64_t* empty = full + DKV_STAGES;
+  uint64_t* own_full = empty + DKV_STAGES;  // [2]
+  uint64_t* own_empty = own_full + 2;       // [2]
+  int* meta = reinterpret_cast<int*>(own_empty + 2);  // [stage][flags, q0]
+  int* imeta = meta + 2 * DKV_STAGES;       // [own slot][bh, h, kt, count]
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  // this CTA's items: its (head, key tile) list, each for every batch row
+  const int B = BH / p.H, c0 = p.cta_ptr[blockIdx.x];
+  const int items = (p.cta_ptr[blockIdx.x + 1] - c0) * B;
+  if (tid == 0) {
+    for (int i = 0; i < DKV_STAGES; ++i) {
+      mbar_init(&full[i], 32);
+      mbar_init(&empty[i], DKV_WG);
+    }
+    for (int i = 0; i < 2; ++i) {
+      mbar_init(&own_full[i], 1);
+      mbar_init(&own_empty[i], DKV_WG);
+    }
+    fence_mbar_init();
+  }
+  __syncthreads();
+
+  // the role through a shuffle, so the compiler sees it uniform (a wgmma
+  // in a path it cannot prove uniform is serialized)
+  const int wg = __shfl_sync(0xffffffffu, tid / DKV_WG, 0);
+  if (wg == 1) {                            // the producer warpgroup
+    regs_dealloc<DKV_PRODUCER_REGS>();
+    if (warp > 4) return;                   // its first warp produces
+    // every device-memory read the consumers would wait on is made here:
+    // the item's head, key tile and list length go beside its own tiles,
+    // each ring entry's flags and query tile beside its rows; the list's
+    // entries are read 32 at a time (a lane each) and the rows before the
+    // slot is waited for
+    int i = 0;                              // ring entries so far
+    for (int n = 0; n < items; ++n) {
+      const int hk = p.cta_items[c0 + n / B], h = hk / p.nT, kt = hk % p.nT;
+      const int bh = (n % B) * p.H + h;
+      const int e0 = p.ptr[hk], e1 = p.ptr[hk + 1];
+      const int os = n & 1;
+      if (lane == 0) {
+        if (n >= 2) mbar_wait(&own_empty[os], ((n >> 1) & 1) ^ 1);
+        int* im = imeta + 4 * os;
+        im[0] = bh;
+        im[1] = h;
+        im[2] = kt;
+        im[3] = e1 - e0;
+        E* ks = own + 2 * os * DKV_TILE;
+        mbar_arrive_expect_tx(&own_full[os], 2 * DKV_TILE * 2);
+        tma_tile(ks, &maps.k, &own_full[os], 0, kt * T, bh);
+        tma_tile(ks + DKV_TILE, &maps.v, &own_full[os], 0, kt * T, bh);
+      }
+      const size_t off = (size_t)bh * p.S;
+      for (int eb = e0; eb < e1; eb += 32) {
+        const bool mine = eb + lane < e1;
+        const int tiles = mine ? p.idx[eb + lane] : 0;
+        const int flags = mine ? p.flags[eb + lane] : 0;
+        for (int j = 0; j < min(32, e1 - eb); ++j, ++i) {
+          const int st = i % DKV_STAGES;
+          const int q0 = __shfl_sync(0xffffffffu, tiles, j) * T;
+          const int fl = __shfl_sync(0xffffffffu, flags, j);
+          float r0[2], r1[2];               // lse log2(e), delta sm_scale
+#pragma unroll
+          for (int u = 0; u < 2; ++u) {
+            const int q = q0 + lane + 32 * u;
+            r0[u] = q < p.S ? p.lse_in[off + q] * LOG2E : 0.f;
+            r1[u] = q < p.S ? p.delta[off + q] * p.sm_scale : 0.f;
+          }
+          if (i >= DKV_STAGES)
+            mbar_wait(&empty[st], ((i / DKV_STAGES) & 1) ^ 1);
+          if (lane == 0) {
+            E* slot = ring + 2 * st * DKV_TILE;
+            meta[2 * st] = fl;
+            meta[2 * st + 1] = q0;
+            mbar_expect_tx(&full[st], 2 * DKV_TILE * 2);
+            tma_tile(slot, &maps.q, &full[st], 0, q0, bh);
+            tma_tile(slot + DKV_TILE, &maps.dout, &full[st], 0, q0, bh);
+          }
+          float* r = rows + st * 128;
+#pragma unroll
+          for (int u = 0; u < 2; ++u) {
+            r[lane + 32 * u] = r0[u];
+            r[64 + lane + 32 * u] = r1[u];
+          }
+          mbar_arrive(&full[st]);
+        }
+      }
+    }
+    return;
+  }
+  regs_alloc<DKV_CONSUMER_REGS>();
+  // the consumer warpgroup: key rows kt * 64 + 16 warp + lane / 4 (+ 8),
+  // query columns 8 j + 2 (lane % 4) (+ 1) of each accumulator. Tile e's
+  // dV / dK products and tile e + 1's S^T / dP^T products go out as one
+  // wgmma group, so the tensor cores run them back to back while the
+  // warpgroup waits once a tile; P^T and dS^T stay packed in pa / da
+  // (their registers are read by the products after the issue) until
+  // that group is done.
+  const int cq = (lane % 4) * 2;
+  const float scl2 = p.sm_scale * LOG2E;
+  uint32_t pa[4][4] = {}, da[4][4] = {};
+  auto keep = [&]() {                       // pa / da live until here
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+      for (int c = 0; c < 4; ++c)
+        asm volatile("" :: "r"(pa[kk][c]), "r"(da[kk][c]));
+  };
+  auto slot = [&](int i) { return ring + 2 * (i % DKV_STAGES) * DKV_TILE; };
+  // tile i's P^T and dS^T into pa / da (e: its place in the item's list)
+  auto prepare = [&](int i, int e, int h, int r0, int r1, float (*st)[4],
+                     float (*dpt)[4], float (*dk)[4], float (*dv)[4]) {
+    wg_wait();                              // S^T, dP^T of i; dV, dK of i - 1
+    keep();
+    fence_acc<8>(st);
+    fence_acc<8>(dpt);
+    fence_acc<8>(dk);
+    fence_acc<8>(dv);
+    if (e > 0) mbar_arrive(&empty[(i - 1) % DKV_STAGES]);
+    const int* me = meta + 2 * (i % DKV_STAGES);
+    const int fl = me[0];
+    // p = exp(s sm_scale - lse) as one FFMA and one EX2 (lse2 = lse
+    // log2(e)); a masked entry is exactly 0; dS = p (dp sm_scale - delta
+    // sm_scale)
+    if (fl != 0) mask_tile<8, false>(st, p, h, fl, r0, r1, me[1], cq);
+    const float* lse2 = rows + (i % DKV_STAGES) * 128;
+    const float* dlts = lse2 + 64;
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const int qi = j * 8 + cq + (c & 1);
+        const float pr = st[j][c] > 0.5f * NEG_INF
+                             ? ex2(fmaf(st[j][c], scl2, -lse2[qi])) : 0.f;
+        st[j][c] = pr;                                          // P^T
+        dpt[j][c] = pr * fmaf(dpt[j][c], p.sm_scale, -dlts[qi]); // dS^T
+      }
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      pack_a<E>(pa[kk], st, kk);
+      pack_a<E>(da[kk], dpt, kk);
+    }
+  };
+  auto issue_rs = [&](int i, float (*dk)[4], float (*dv)[4]) {
+    const E* Qs = slot(i);
+    const uint64_t dd = desc_sw128(Qs + DKV_TILE), dq = desc_sw128(Qs);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)          // dV += P^T dO
+      Wgmma<64>::rs<E>(dv, pa[kk], dd + 128 * kk);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)          // dK += dS^T Q
+      Wgmma<64>::rs<E>(dk, da[kk], dq + 128 * kk);
+  };
+  int i = 0;
+  for (int n = 0; n < items; ++n) {
+    const int os = n & 1;
+    mbar_wait(&own_full[os], (n >> 1) & 1);
+    const int* im = imeta + 4 * os;
+    const int bh = im[0], h = im[1], kt = im[2];
+    const int count = __shfl_sync(0xffffffffu, im[3], 0);   // uniform
+    const int r0 = kt * T + warp * 16 + lane / 4, r1 = r0 + 8;
+    float dk[8][4], dv[8][4], st[8][4], dpt[8][4];
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) dk[j][c] = dv[j][c] = 0.f;
+    const E* Ks = own + 2 * os * DKV_TILE;
+    const E* Vs = Ks + DKV_TILE;
+    // the first tile's S^T / dP^T alone, then each tile's dV / dK with the
+    // next one's S^T / dP^T, then the last tile's dV / dK alone: no wgmma
+    // in a branch
+    if (count > 0) {
+      mbar_wait(&full[i % DKV_STAGES], (i / DKV_STAGES) & 1);
+      wg_fence();
+      product_ss<E>(st, Ks, slot(i));              // S^T = K Q^T
+      product_ss<E>(dpt, Vs, slot(i) + DKV_TILE);  // dP^T = V dO^T
+      wg_commit();
+      for (int e = 0; e + 1 < count; ++e, ++i) {
+        prepare(i, e, h, r0, r1, st, dpt, dk, dv);
+        mbar_wait(&full[(i + 1) % DKV_STAGES], ((i + 1) / DKV_STAGES) & 1);
+        wg_fence();
+        issue_rs(i, dk, dv);
+        product_ss<E>(st, Ks, slot(i + 1));
+        product_ss<E>(dpt, Vs, slot(i + 1) + DKV_TILE);
+        wg_commit();
+      }
+      prepare(i, count - 1, h, r0, r1, st, dpt, dk, dv);
+      wg_fence();
+      issue_rs(i, dk, dv);
+      wg_commit();
+      ++i;
+      wg_wait();
+      keep();
+      fence_acc<8>(dk);
+      fence_acc<8>(dv);
+      mbar_arrive(&empty[(i - 1) % DKV_STAGES]);
+    }
+    mbar_arrive(&own_empty[os]);            // K, V and imeta of this slot are read
+    const size_t off = (size_t)bh * p.S * 64;
+    store_rows<E, 64>(static_cast<E*>(p.dk) + off, dk, r0, r1, p.S, 64, cq);
+    store_rows<E, 64>(static_cast<E*>(p.dv) + off, dv, r0, r1, p.S, 64, cq);
+  }
+}
+
+template <typename E>
+int launch_dkv_wg(const Params& p, int BH, cudaStream_t st) {
+  const bool bf = std::is_same<E, bf16>::value;
+  DkvMaps maps;
+  if (!hopper::tile_map(&maps.q, p.q, bf, p.S, BH) ||
+      !hopper::tile_map(&maps.k, p.k, bf, p.S, BH) ||
+      !hopper::tile_map(&maps.v, p.v, bf, p.S, BH) ||
+      !hopper::tile_map(&maps.dout, p.dout, bf, p.S, BH))
+    return ERR_TENSOR_MAP;
+  static int sms = 0;                       // the host's lists: 2 an SM
+  if (sms == 0) {
+    int dev = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  }
+  const cudaError_t e = cudaFuncSetAttribute(
+      bs_dkv_wg<E>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)DKV_SMEM);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  bs_dkv_wg<E><<<2 * sms, DKV_THREADS, DKV_SMEM, st>>>(maps, p, BH);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// ------------------------------------------------- head dims above 256
+
+// this file's schedule and masks for attention_wide.cuh: the host's
+// longest-first order, the CSR lists (the key-tile ones for dk/dv) and the
+// tile's flags
+struct Wide {
+  using Prm = Params;
+  template <bool QMAJOR>
+  static __device__ int own(const Params& p, int bh, int rank) {
+    return p.order[(bh % p.H) * p.nT + rank];
+  }
+  template <bool QMAJOR>
+  static __device__ void list(const Params& p, int bh, int t, int* e0,
+                              int* e1) {
+    const int i = (bh % p.H) * p.nT + t;
+    *e0 = p.ptr[i];
+    *e1 = p.ptr[i + 1];
+  }
+  template <bool QMAJOR>
+  static __device__ int other(const Params& p, int, int, int e) {
+    return p.idx[e] * T;
+  }
+  template <bool QMAJOR, int NJ>
+  static __device__ void scores(const Params& p, int bh, int, int e,
+                                float (*s)[4], float (*)[4], int a0, int a1,
+                                int b0, int cq) {
+    const int fl = p.flags[e];
+    if (fl != 0) mask_tile<NJ, QMAJOR>(s, p, bh % p.H, fl, a0, a1, b0, cq);
+  }
+};
+
 // ---------------------------------------------------------------- launch
 
 template <typename KernelFn>
@@ -751,14 +1093,19 @@ int launch_dq(const Params& p, int BH, int dtype, cudaStream_t st) {
 template <int DP>
 int launch_dkv(const Params& p, int BH, int dtype, cudaStream_t st) {
   if (dtype == 0) return launch(bs_dkv_f32<DP>, p, BH, F32<DP>::NT, st);
+  if (p.D == 64)                            // the long leg: wgmma + TMA
+    return dtype == 1 ? launch_dkv_wg<bf16>(p, BH, st)
+                      : launch_dkv_wg<f16>(p, BH, st);
   // query steps of 32 rows above head_dim 64 keep dK, dV, K, V and the
   // score tiles within the register file (as in flash_attention_bwd.cu)
   constexpr int BQ = DP > 64 ? 32 : 64;
   constexpr size_t smem =
       pair_smem_bytes<bf16, DP>(BQ) + own_smem_bytes<bf16, DP>(2);
   return by_type<DP>(p, dtype, [&](auto e, auto x) {
-    return launch(bs_dkv_mma<decltype(e), DP, BQ, decltype(x)::value>, p,
-                  BH, NTHREADS, st, smem, DP > 128 ? 2 : 1);
+    // D 64 took the wgmma kernel above: no exact variant at width 64
+    constexpr bool exact = decltype(x)::value && DP != 64;
+    return launch(bs_dkv_mma<decltype(e), DP, BQ, exact>, p, BH, NTHREADS,
+                  st, smem, DP > 128 ? 2 : 1);
   });
 }
 
@@ -783,11 +1130,24 @@ Params make_params(const void* q, const void* k, const void* v,
 }
 
 bool supported(int D, int dtype) {
-  return dtype >= 0 && dtype <= 2 && D >= 8 && D <= MAX_HEAD_DIM &&
-         D % 8 == 0;
+  return dtype >= 0 && dtype <= 2 && D >= 8 && D % 8 == 0;
 }
 
-// fn at the padded width of head dim D
+// the wide kernel `which` (0 forward, 1 dq, 2 dk/dv) for D above 256
+int launch_wide(const Params& p, int BH, int dtype, int which,
+                cudaStream_t st) {
+  wide::Args w = {};
+  w.q = p.q; w.k = p.k; w.v = p.v; w.dout = p.dout;
+  w.lse = p.lse_in; w.delta = p.delta; w.lse_out = p.lse;
+  w.o = which == 0 ? p.o : p.dq; w.dk = p.dk; w.dv = p.dv;
+  w.kv_head = (size_t)p.S * p.D;
+  w.Sq = p.S; w.Sk = p.S; w.D = p.D; w.sm_scale = p.sm_scale;
+  if (which == 0) return wide::launch<0, Wide>(w, p, BH, p.nT, dtype, st);
+  if (which == 1) return wide::launch<1, Wide>(w, p, BH, p.nT, dtype, st);
+  return wide::launch<2, Wide>(w, p, BH, p.nT, dtype, st);
+}
+
+// fn at the padded width of head dim D (up to 256)
 template <typename Fn>
 int dispatch(Fn fn, int D) {
   switch (pad_dim(D)) {
@@ -805,9 +1165,10 @@ int dispatch(Fn fn, int D) {
 extern "C" {
 
 // dtype: 0 = float32, 1 = bfloat16, 2 = float16 (q, k, v, dout and the
-// outputs alike). D: any multiple of 8 up to 256. ptr / idx / flags /
+// outputs alike). D: any multiple of 8. ptr / idx / flags /
 // order: the query-tile lists and their order (forward, dq) or the key-tile
-// ones (dkv). layout: null when layout_exact is off; fine: a multiple of 8
+// ones (dkv); cta_ptr / cta_items (dkv): the persistent kernel's item lists,
+// 2 CTAs an SM. layout: null when layout_exact is off; fine: a multiple of 8
 // that divides S. Each returns the CUDA error of its launch (0 =
 // launched); -1 for a dtype or head dim the kernels lack.
 int block_sparse_attention_fwd_launch(const void* q, const void* k,
@@ -825,6 +1186,7 @@ int block_sparse_attention_fwd_launch(const void* q, const void* k,
   if (!supported(D, dtype)) return -1;
   if (S <= 0 || BH <= 0) return 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (D > wide::FROM_DIM) return launch_wide(p, BH, dtype, 0, st);
   return dispatch(
       [&](auto d) { return launch_fwd<decltype(d)::value>(p, BH, dtype, st); },
       D);
@@ -846,6 +1208,7 @@ int block_sparse_attention_bwd_dq_launch(const void* q, const void* k,
   if (!supported(D, dtype)) return -1;
   if (S <= 0 || BH <= 0) return 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (D > wide::FROM_DIM) return launch_wide(p, BH, dtype, 1, st);
   return dispatch(
       [&](auto d) { return launch_dq<decltype(d)::value>(p, BH, dtype, st); },
       D);
@@ -856,7 +1219,9 @@ int block_sparse_attention_bwd_dkv_launch(const void* q, const void* k,
                                           const void* lse, const void* delta,
                                           const void* layout, const void* ptr,
                                           const void* idx, const void* flags,
-                                          const void* order, void* dk,
+                                          const void* order,
+                                          const void* cta_ptr,
+                                          const void* cta_items, void* dk,
                                           void* dv, int BH, int H,
                                           int S, int D, int fine, int causal,
                                           int window, float sm_scale,
@@ -865,15 +1230,19 @@ int block_sparse_attention_bwd_dkv_launch(const void* q, const void* k,
                          order, H, S, D, fine, causal, window, sm_scale);
   p.dk = dk;
   p.dv = dv;
+  p.cta_ptr = static_cast<const int*>(cta_ptr);
+  p.cta_items = static_cast<const int*>(cta_items);
   if (!supported(D, dtype)) return -1;
   if (S <= 0 || BH <= 0) return 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (D > wide::FROM_DIM) return launch_wide(p, BH, dtype, 2, st);
   return dispatch(
       [&](auto d) { return launch_dkv<decltype(d)::value>(p, BH, dtype, st); },
       D);
 }
 
 const char* block_sparse_attention_error_string(int err) {
+  if (err == ERR_TENSOR_MAP) return "TMA tensor map encoding failed";
   return err < 0 ? "unsupported dtype or head dim"
                  : cudaGetErrorString(static_cast<cudaError_t>(err));
 }

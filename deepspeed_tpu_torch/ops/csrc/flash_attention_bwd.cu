@@ -8,8 +8,9 @@
 // delta = rowsum(dO * O) [B*H, S] f32 (a plain torch op, as the JAX package
 // computes it outside its kernels). Outputs dq [B*H, S, D] (kernel
 // flash_bwd_dq) and dk, dv [B*H, Sk, D] (kernel flash_bwd_dkv), in the
-// inputs' dtype (f32, bf16 or fp16; any D % 8 == 0 up to 256, the 16-bit
-// kernels instantiated at a padded width, attention_tile.cuh). The score
+// inputs' dtype (f32, bf16 or fp16; any D % 8 == 0: up to 256 the 16-bit
+// kernels instantiated at a padded width, attention_tile.cuh; above it the
+// wide kernels of attention_wide.cuh with this file's schedule and masks). The score
 // pipeline is the forward's (csrc/flash_attention_fwd.cu): causal masking
 // with offset Sk - S, a key-padding row [B, Sk] or (q, k) tiles per batch
 // or per head (int32, nonzero = attend), ALiBi slope * (k - q), a causal
@@ -57,6 +58,7 @@
 // owning 32 of its row's dims, partial dot products meeting by shuffles.
 
 #include "attention_tile.cuh"
+#include "attention_wide.cuh"
 #include "hopper.cuh"
 
 #include <type_traits>
@@ -590,31 +592,6 @@ constexpr int WG_THREADS = WG + 32;     // and the producer warp
 constexpr int STAGES = 2;
 constexpr int TILE_ELEMS = 64 * 64;     // one 64 x 64 16-bit tile, 8 KB
 
-// S = own A (K-major, shared) times the streamed tile B (K-major, shared):
-// four k steps of 16 over head dim 64
-template <typename T>
-__device__ __forceinline__ void product_ss(float (*d)[4], const T* a,
-                                           const T* b) {
-  const uint64_t da = desc_sw128(a), db = desc_sw128(b);
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk)           // +32 bytes a k step
-    Wgmma<64>::ss<T>(d, da + 2 * kk, db + 2 * kk, kk > 0);
-}
-
-// d += X (64 x 64 f32 in registers, rounded to T) times the streamed tile
-// B (64 rows of k, MN-major): four k steps of 16 rows (2048 bytes each)
-template <typename T>
-__device__ __forceinline__ void product_rs(float (*d)[4], const float (*x)[4],
-                                           const T* b) {
-  const uint64_t db = desc_sw128(b);
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk) {
-    uint32_t a[4];
-    pack_a<T>(a, x, kk);
-    Wgmma<64>::rs<T>(d, a, db + 128 * kk);
-  }
-}
-
 struct Maps {                           // [BH, rows, 64] tensor maps
   CUtensorMap q, k, v, dout;
 };
@@ -858,6 +835,39 @@ int launch_wg(const Params& p, int BH, bool dkv, cudaStream_t st) {
   return static_cast<int>(cudaGetLastError());
 }
 
+// ------------------------------------------------- head dims above 256
+
+// this file's schedule and masks for attention_wide.cuh: dq ranks the
+// query tiles from the last, dk/dv the key tiles from the first (longest
+// lists first), over the tiles key_tiles / query_tiles leave, with the
+// whole score pipeline and the softcap's derivative on every score
+struct Wide {
+  using Prm = Params;
+  template <bool QMAJOR>
+  static __device__ int own(const Params&, int, int rank) {
+    return QMAJOR ? gridDim.y - 1 - rank : rank;
+  }
+  template <bool QMAJOR>
+  static __device__ void list(const Params& p, int, int t, int* e0, int* e1) {
+    const int r0 = t * wide::R;
+    if (QMAJOR)
+      key_tiles(p, r0, min(r0 + wide::R, p.S) - 1, wide::R, e0, e1);
+    else
+      query_tiles(p, r0, min(r0 + wide::R, p.Sk) - 1, wide::R, e0, e1);
+  }
+  template <bool QMAJOR>
+  static __device__ int other(const Params&, int, int, int e) {
+    return e * wide::R;
+  }
+  template <bool QMAJOR, int NJ>
+  static __device__ void scores(const Params& p, int bh, int, int,
+                                float (*s)[4], float (*ds)[4], int a0, int a1,
+                                int b0, int cq) {
+    const float slope = p.slopes ? p.slopes[bh % p.H] : 0.f;
+    extras_tile<NJ, QMAJOR>(s, ds, p, bh / p.H, bh, a0, a1, b0, cq, slope);
+  }
+};
+
 // ---------------------------------------------------------------- launch
 
 // grid (b*h, tiles of rows_per_cta over n, splits): blockIdx.y is the rank
@@ -948,6 +958,18 @@ int launch_f32(const Params& p, int BH, bool dkv, cudaStream_t st) {
 int dispatch(const Params& p, int BH, int dtype, bool dkv, cudaStream_t st) {
   const bool extras = p.kvm || p.qkm || p.slopes || p.window > 0 ||
                       p.softcap > 0.f;
+  if (p.D > wide::FROM_DIM) {
+    wide::Args w = {};
+    w.q = p.q; w.k = p.k; w.v = p.v; w.dout = p.dout;
+    w.lse = p.lse; w.delta = p.delta;
+    w.o = p.dq; w.dk = p.dk; w.dv = p.dv;
+    w.kv_head = (size_t)p.Sk * p.D;
+    w.Sq = p.S; w.Sk = p.Sk; w.D = p.D; w.sm_scale = p.sm_scale;
+    const int n = dkv ? p.Sk : p.S;
+    const int tiles = (n + wide::R - 1) / wide::R;
+    return dkv ? wide::launch<2, Wide>(w, p, BH, tiles, dtype, st)
+               : wide::launch<1, Wide>(w, p, BH, tiles, dtype, st);
+  }
   if (dtype == 0) {
     switch (f32_dim(p.D)) {
       case 32: return launch_f32<32>(p, BH, dkv, st);
@@ -996,8 +1018,7 @@ Params make_params(const void* q, const void* k, const void* v,
 }
 
 bool supported(int D, int dtype) {
-  return dtype >= 0 && dtype <= 2 && D >= 8 && D <= MAX_HEAD_DIM &&
-         D % 8 == 0;
+  return dtype >= 0 && dtype <= 2 && D >= 8 && D % 8 == 0;
 }
 
 }  // namespace
@@ -1005,7 +1026,7 @@ bool supported(int D, int dtype) {
 extern "C" {
 
 // dtype: 0 = float32, 1 = bfloat16, 2 = float16 (q, k, v, dout and the
-// outputs alike). D: any multiple of 8 up to 256. Each returns the CUDA
+// outputs alike). D: any multiple of 8. Each returns the CUDA
 // error of its launch (0 = launched); -1 for a dtype or head dim the
 // kernels lack.
 int flash_attention_bwd_dq_launch(const void* q, const void* k, const void* v,

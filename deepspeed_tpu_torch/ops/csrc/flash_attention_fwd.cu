@@ -7,7 +7,9 @@
 // query row sees every key), a key-padding row [B, Sk] or (q, k) tiles per
 // batch [B, S, Sk] or per head [B*H, S, Sk] (int32, nonzero = attend),
 // ALiBi slope * (k - q), a causal sliding window, and the Gemma-2 softcap.
-// Any head dim D % 8 == 0 up to 256, in f32, bf16 or fp16.
+// Any head dim D % 8 == 0, in f32, bf16 or fp16; above 256 the wide kernel
+// of attention_wide.cuh (scores accumulated over D in chunks, the output
+// columns split over CTAs) with this file's masks.
 //
 // Bound: bytes for a causal prefill at head dim 64 and S 1024, with the
 // operations close behind (about D / 2 flops a byte once q, k, v and o are
@@ -57,6 +59,7 @@
 // instead sends untileable shapes to its reference.
 
 #include "attention_tile.cuh"
+#include "attention_wide.cuh"
 #include "hopper.cuh"
 
 namespace {
@@ -386,6 +389,40 @@ flash_fwd_f32(Params p) {
       p.lse[(size_t)bh * p.S + row] = m + logf(fmaxf(l, 1e-37f));
   }
 }
+
+// ------------------------------------------------- head dims above 256
+
+// this file's schedule and masks for attention_wide.cuh: own query tiles
+// from the last (the longest causal rows first), the key tiles that
+// tile_range leaves, and the whole score pipeline on every score
+struct Wide {
+  using Prm = Params;
+  template <bool QMAJOR>
+  static __device__ int own(const Params&, int, int rank) {
+    return gridDim.y - 1 - rank;
+  }
+  template <bool QMAJOR>
+  static __device__ void list(const Params& p, int, int t, int* e0, int* e1) {
+    tile_range(p, t * wide::R, min(t * wide::R + wide::R, p.S) - 1, wide::R,
+               e0, e1);
+  }
+  template <bool QMAJOR>
+  static __device__ int other(const Params&, int, int, int e) {
+    return e * wide::R;
+  }
+  template <bool QMAJOR, int NJ>
+  static __device__ void scores(const Params& p, int bh, int, int,
+                                float (*s)[4], float (*)[4], int a0, int a1,
+                                int b0, int cq) {
+    const float slope = p.slopes ? p.slopes[bh % p.H] : 0.f;
+#pragma unroll
+    for (int j = 0; j < NJ; ++j)
+#pragma unroll
+      for (int c = 0; c < 4; ++c)
+        s[j][c] = score(p, s[j][c], bh / p.H, bh, c < 2 ? a0 : a1,
+                        b0 + j * 8 + cq + (c & 1), slope);
+  }
+};
 
 // ------------------------------------------- Hopper: wgmma + TMA
 
@@ -789,7 +826,7 @@ int launch_dp(const Params& p, int BH, int dtype, bool extras,
 extern "C" {
 
 // dtype: 0 = float32, 1 = bfloat16, 2 = float16 (q, k, v and o alike).
-// D: any multiple of 8 up to 256. Returns the CUDA error of the launch
+// D: any multiple of 8. Returns the CUDA error of the launch
 // (0 = launched); -1 for a dtype or head dim the kernels lack, -2 when a
 // TMA tensor map cannot be encoded.
 int flash_attention_fwd_launch(const void* q, const void* k, const void* v,
@@ -809,9 +846,16 @@ int flash_attention_fwd_launch(const void* q, const void* k, const void* v,
   p.qkm_per_head = qkm_per_head;
   p.sm_scale = sm_scale; p.softcap = softcap;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype < 0 || dtype > 2 || D < 8 || D > MAX_HEAD_DIM || D % 8)
-    return -1;
+  if (dtype < 0 || dtype > 2 || D < 8 || D % 8) return -1;
   if (S <= 0 || BH <= 0) return 0;
+  if (D > wide::FROM_DIM) {
+    wide::Args w = {};
+    w.q = q; w.k = k; w.v = v; w.o = o; w.lse_out = p.lse;
+    w.kv_head = (size_t)Sk * D;
+    w.Sq = S; w.Sk = Sk; w.D = D; w.sm_scale = sm_scale;
+    return wide::launch<0, Wide>(w, p, BH, (S + wide::R - 1) / wide::R,
+                                 dtype, st);
+  }
   const bool extras = kvm || qkm || slopes || window > 0 || softcap > 0.f;
   if (dtype != 0 && !extras && wg_dim(D))   // the Hopper kernel
     return dtype == 1 ? dispatch_wg<bf16>(p, BH, st)

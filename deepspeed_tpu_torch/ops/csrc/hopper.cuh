@@ -1,5 +1,6 @@
 // Hopper (sm_90a) helpers shared by the wgmma + TMA attention kernels:
-// flash_attention_fwd.cu and flash_attention_bwd.cu.
+// flash_attention_fwd.cu, flash_attention_bwd.cu and
+// block_sparse_attention.cu.
 //
 // * smem_u32, the mbarrier wrappers, fence_async_shared;
 // * tma_tile: one box of a 3-d tensor map into shared memory, reported to
@@ -12,7 +13,8 @@
 //   Wgmma<N>::rs (A in registers, B MN-major in shared memory) for
 //   wgmma.m64nNk16 with 16-bit operands and f32 accumulators, N in {64,
 //   80, 96, 128, 192, 256}; pack_a repacks an accumulator as the register
-//   A operand;
+//   A operand; product_ss / product_rs, the two 64 x 64 x 64 products of
+//   the backward kernels (flash_attention_bwd.cu, block_sparse_attention.cu);
 // * setmaxnreg and the named barriers of warp-specialized kernels.
 //
 // Accumulator layout of m64nNk16 (PTX ISA): warp w of the warpgroup holds
@@ -272,6 +274,31 @@ WG_DEFINE(24, 192)
 WG_DEFINE(32, 256)
 
 #undef WG_DEFINE
+
+// S (64 x 64) = A times B^T, both 64 x 64 16-bit tiles K-major in shared
+// memory (128-byte swizzled): four k steps of 16 over head dim 64
+template <typename T>
+__device__ __forceinline__ void product_ss(float (*d)[4], const T* a,
+                                           const T* b) {
+  const uint64_t da = desc_sw128(a), db = desc_sw128(b);
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)           // +32 bytes a k step
+    Wgmma<64>::ss<T>(d, da + 2 * kk, db + 2 * kk, kk > 0);
+}
+
+// d += X (64 x 64 f32 in registers, rounded to T) times the tile B (64
+// rows of k, MN-major, swizzled): four k steps of 16 rows (2048 bytes each)
+template <typename T>
+__device__ __forceinline__ void product_rs(float (*d)[4], const float (*x)[4],
+                                           const T* b) {
+  const uint64_t db = desc_sw128(b);
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    uint32_t a[4];
+    pack_a<T>(a, x, kk);
+    Wgmma<64>::rs<T>(d, a, db + 128 * kk);
+  }
+}
 
 // ----------------------------------------------- warp specialisation
 

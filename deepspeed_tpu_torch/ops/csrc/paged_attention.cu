@@ -6,8 +6,10 @@
 // of fixed-size blocks shared by all sequences; the lane's block table
 // maps logical block j to a physical pool block.
 //
-// Any head dim hd % 8 == 0 up to 256; q in f32, bf16 or fp16, the pool in
-// q's dtype or int8 with one f32 scale per slot.
+// Any head dim hd % 8 == 0; q in f32, bf16 or fp16, the pool in q's dtype
+// or int8 with one f32 scale per slot. Above 256 the kernel row_wide of
+// decode_row.cuh (the output columns split over CTAs, the row walked in
+// 256-column pieces) with this file's block-table addressing.
 //
 // Bound: bytes. Each (b, h) reads ctx * hd K and V elements (plus one f32
 // scale per row in the int8 tier) and does ~4 flops per element read, far
@@ -53,6 +55,9 @@
 // unsplit pass by that rounding only.
 
 #include <cooperative_groups.h>
+
+#include "decode_row.cuh"
+
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
@@ -377,10 +382,47 @@ int launch_vec(const Args& a, int B, int splits, cudaStream_t stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
+// the rows of a pool for row_wide (decode_row.cuh): position pos of lane
+// b through its block table, from the head's first row
+template <typename T, typename P>
+struct PagedRows {
+  const T* q;
+  const P* k;
+  const P* v;
+  const float* k_scale;
+  const float* v_scale;
+  const int* block_tables;
+  const int* context_lens;
+  const float* slopes;
+  T* out;
+  int nh, nblk, bs, hd, nbk, layer, window;
+  float sm_scale, softcap;
+  __device__ int ctx(int b) const { return context_lens[b]; }
+  __device__ size_t base(int, int h) const {
+    return ((size_t)layer * nh + h) * nblk * bs;
+  }
+  __device__ size_t row(size_t base, int b, int pos) const {
+    return base + (size_t)block_tables[(size_t)b * nbk + pos / bs] * bs +
+           pos % bs;
+  }
+  __device__ float kscale(size_t r) const { return k_scale ? k_scale[r] : 1.f; }
+  __device__ float vscale(size_t r) const { return v_scale ? v_scale[r] : 1.f; }
+};
+
 // 16-byte slices; 8-byte ones for an int8 row whose hd is not a multiple
-// of 16; 32-byte ones where 16 would spread a row over more than a warp
+// of 16; 32-byte ones where 16 would spread a row over more than a warp;
+// above 256 row_wide
 template <typename T, typename P>
 int launch(const Args& a, int B, int splits, cudaStream_t stream) {
+  if (a.hd > 256) {
+    const PagedRows<T, P> r = {
+        static_cast<const T*>(a.q), static_cast<const P*>(a.k_pool),
+        static_cast<const P*>(a.v_pool), a.k_scale, a.v_scale,
+        a.block_tables, a.context_lens, a.slopes, static_cast<T*>(a.out),
+        a.nh, a.nblk, a.bs, a.hd, a.nbk, a.layer, a.window, a.sm_scale,
+        a.softcap};
+    return drow::launch_wide<T, P>(r, B, stream);
+  }
   constexpr int VEC = 16 / sizeof(P);
   if constexpr (sizeof(P) == 1)
     if (a.hd % VEC) return launch_vec<T, P, 8>(a, B, splits, stream);
@@ -394,8 +436,9 @@ int launch(const Args& a, int B, int splits, cudaStream_t stream) {
 extern "C" {
 
 // q_dtype: 0 = float32, 1 = bfloat16, 2 = float16. pool_dtype: the same
-// codes for a pool of q's dtype, 3 = int8 (with k_scale / v_scale). hd: a
-// multiple of 8 up to 256. splits: CTAs (one cluster) a (b, h), 1 to 8.
+// codes for a pool of q's dtype, 3 = int8 (with k_scale / v_scale). hd: any
+// multiple of 8. splits: CTAs (one cluster) a (b, h), 1 to 8 (above hd 256
+// the columns are split instead).
 // Returns the CUDA error of the launch (0 = launched); -1 for a
 // combination the kernel lacks.
 int paged_attention_launch(const void* q, const void* k_pool,
@@ -418,8 +461,7 @@ int paged_attention_launch(const void* q, const void* k_pool,
   a.layer = layer; a.window = window;
   a.sm_scale = sm_scale; a.softcap = softcap;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (hd < 8 || hd > 256 || hd % 8 || splits < 1 || splits > MAX_SPLITS)
-    return -1;
+  if (hd < 8 || hd % 8 || splits < 1 || splits > MAX_SPLITS) return -1;
   if (B <= 0 || nh <= 0) return 0;
   if (pool_dtype == 3) {
     if (q_dtype == 0) return launch<float, int8_t>(a, B, splits, st);

@@ -6,9 +6,9 @@
 //     y[m, n] = sum_kb ( sum_{k in block kb} x[m, k] * q[k, n] ) * s[kb, n]
 //
 // with q int8 [Kp, N] (N contiguous, as pack_kernel stores it), one f32
-// scale per `block` rows of K and column (any block that is a multiple of
-// 16, the mma k step; 256 by default), each block's partial product summed
-// in f32 and scaled, and y in x's dtype. Rows of q past K (the
+// scale per `block` rows of K and column (any block >= 1; 256 by default),
+// each block's partial product summed in f32 and scaled, and y in x's
+// dtype. Rows of q past K (the
 // packing's zero padding) meet zeros of x. A bf16 x and an int8 q are both
 // exact in bf16, so the tensor-core products are exact and only the f32
 // summation order differs from the plain version. Three kernels, one
@@ -33,7 +33,8 @@
 //   multiplied; x and the scales are fetched before the weights are waited
 //   on. The warps split each piece's rows and add their partials in warp
 //   order through shared memory into the block's sum, scaled once at the
-//   block's end.
+//   block's end. A piece whose length is not a multiple of 16 ends inside
+//   a 16-row step: x reads zeros past the piece, so those rows add 0.
 // * gemm (bf16 x, M > 16: prefill). Bound by operations above M ~ 300. A
 //   128 x 128 CTA tile, 8 warps of 64 x 32 on mma.sync m16n8k16, K steps
 //   of 64 through a four-stage cp.async ring of bf16 x and int8 q tiles.
@@ -41,8 +42,13 @@
 //   (the same exact conversion; two buffers, so the next step's conversion
 //   overlaps this step's mma and a step takes one barrier) and feeds every
 //   warp through ldmatrix.trans; the f32 accumulator of the current
-//   K-block is scaled into the running sum at every block boundary (a
-//   16-row k step of the mma never straddles one).
+//   K-block is scaled into the running sum at every block boundary. With
+//   a block that is a multiple of 16 a 16-row k step never straddles one
+//   (the parent's arithmetic, a compile-time variant). Any other block
+//   takes the variant ANY: a step that holds a block's end runs its mma
+//   once for each block it touches, with the x fragment's K columns on the
+//   other side masked to zero, and folds each part into its own block's
+//   scale; a split that starts inside a step masks the rows before it.
 // * simt (f32 x). Exact f32 on CUDA cores (no TF32, no rounding of x): a
 //   CTA owns 8 rows x 128 columns and walks its K-blocks in pieces of at
 //   most 256 rows inside one block; its 8 warps split each piece's rows.
@@ -64,7 +70,7 @@ namespace cg = cooperative_groups;
 namespace {
 
 constexpr int QB = 256;            // K rows a chunk (the default block)
-constexpr int KSTEP = 16;          // the mma k step: blocks are multiples
+constexpr int KSTEP = 16;          // the mma k step
 
 // ------------------------------------------------------------ helpers
 
@@ -327,6 +333,7 @@ gemv_kernel(const __nv_bfloat16* __restrict__ x, const int8_t* __restrict__ q,
     const int st = i % GV_STAGES;
     const unsigned char* stage = ring + (size_t)st * GV_STAGE_BYTES;
     const int kb = k0 / block;
+    const int kx = min(K, k0 + len);        // x reads zeros from here on
     // piece i's x fragments and scales, requested before its weights are
     // waited on. B: x rows mt * 8 + r, K columns 2c, 2c + 1 (b0) and + 8 (b1)
     uint32_t b[GV_STEPS][MT][2];
@@ -339,8 +346,8 @@ gemv_kernel(const __nv_bfloat16* __restrict__ x, const int8_t* __restrict__ q,
         for (int h = 0; h < 2; ++h) {
           const int k = k0 + warp * (GV_STEPS * 16) + s * 16 + 2 * c + 8 * h;
           const size_t o = (size_t)m * K + k;
-          const uint32_t lo = (m < M && k < K) ? __ldg(xh + o) : 0u;
-          const uint32_t hi = (m < M && k + 1 < K) ? __ldg(xh + o + 1) : 0u;
+          const uint32_t lo = (m < M && k < kx) ? __ldg(xh + o) : 0u;
+          const uint32_t hi = (m < M && k + 1 < kx) ? __ldg(xh + o + 1) : 0u;
           b[s][mt][h] = lo | (hi << 16);
         }
       }
@@ -448,7 +455,9 @@ static_assert((size_t)GM_BM * GM_TLD * 4 <= GM_SMEM, "tile fits the ring");
 // Step kt: one barrier; then the next loads are issued, step kt is
 // multiplied from its x tile and its converted weights (bs[kt & 1]), and
 // step kt + 1's int8 tile is converted into the other bs, so one warp's
-// conversion overlaps another's mma.
+// conversion overlaps another's mma. ANY: a block that is not a multiple
+// of 16 (see the note at the top).
+template <bool ANY>
 __global__ void __launch_bounds__(GM_NT, 1)
 gemm_kernel(const __nv_bfloat16* __restrict__ x, const int8_t* __restrict__ q,
             const float* __restrict__ scales, __nv_bfloat16* __restrict__ out,
@@ -467,7 +476,10 @@ gemm_kernel(const __nv_bfloat16* __restrict__ x, const int8_t* __restrict__ q,
   const int k_begin = kb0 * block;          // this split's rows of K
   const int k_end = min(nkb, kb0 + kb_per) * block;
   const int kx = min(K, k_end);             // x columns past it read zeros
-  const int nkt = (k_end - k_begin + GM_BK - 1) / GM_BK;
+  // the walk starts at a 16-row step (ANY: the rows before k_begin are
+  // masked), so x tiles stay 16-byte aligned
+  const int k_walk = ANY ? k_begin & ~(KSTEP - 1) : k_begin;
+  const int nkt = (k_end - k_walk + GM_BK - 1) / GM_BK;
 
   auto x_tile = [&](int st) {
     return reinterpret_cast<__nv_bfloat16*>(smem + st * GM_STAGE_BYTES);
@@ -476,7 +488,7 @@ gemm_kernel(const __nv_bfloat16* __restrict__ x, const int8_t* __restrict__ q,
     return reinterpret_cast<int8_t*>(smem + st * GM_STAGE_BYTES + GM_X_BYTES);
   };
   auto issue = [&](int kt) {
-    const int st = kt % GM_STAGES, k = k_begin + kt * GM_BK;
+    const int st = kt % GM_STAGES, k = k_walk + kt * GM_BK;
     __nv_bfloat16* xs = x_tile(st);
 #pragma unroll
     for (int u = 0; u < GM_BM * GM_BK / 8 / GM_NT; ++u) {
@@ -586,17 +598,53 @@ gemm_kernel(const __nv_bfloat16* __restrict__ x, const int8_t* __restrict__ q,
         bf[2 * nj2 + 1][0] = t[2];
         bf[2 * nj2 + 1][1] = t[3];
       }
+      if constexpr (!ANY) {
 #pragma unroll
-      for (int mi = 0; mi < 4; ++mi)
+        for (int mi = 0; mi < 4; ++mi)
 #pragma unroll
-        for (int nj = 0; nj < 4; ++nj)
-          mma_bf16(blk[mi][nj], a[mi], bf[nj][0], bf[nj][1]);
-      // a K-block ends at this k step's end: scale it into the sum (rows
-      // past k_end are zeros and never end a block)
-      const int row_end = k_begin + kt * GM_BK + (kk + 1) * KSTEP;
-      if (row_end == next_end && row_end <= k_end) {
-        fold(row_end / block - 1);
-        next_end += block;
+          for (int nj = 0; nj < 4; ++nj)
+            mma_bf16(blk[mi][nj], a[mi], bf[nj][0], bf[nj][1]);
+        // a K-block ends at this k step's end: scale it into the sum (rows
+        // past k_end are zeros and never end a block)
+        const int row_end = k_begin + kt * GM_BK + (kk + 1) * KSTEP;
+        if (row_end == next_end && row_end <= k_end) {
+          fold(row_end / block - 1);
+          next_end += block;
+        }
+      } else {
+        // the step's rows [r, r + 16): x's K columns in [lo, hi) only
+        const int r = k_walk + kt * GM_BK + kk * KSTEP;
+        auto part = [&](int lo, int hi) {
+          uint32_t km[2];
+#pragma unroll
+          for (int w = 0; w < 2; ++w) {
+            const int col = 2 * c + 8 * w;
+            km[w] = (col >= lo && col < hi ? 0x0000FFFFu : 0u) |
+                    (col + 1 >= lo && col + 1 < hi ? 0xFFFF0000u : 0u);
+          }
+#pragma unroll
+          for (int mi = 0; mi < 4; ++mi) {
+            const uint32_t am[4] = {a[mi][0] & km[0], a[mi][1] & km[0],
+                                    a[mi][2] & km[1], a[mi][3] & km[1]};
+#pragma unroll
+            for (int nj = 0; nj < 4; ++nj)
+              mma_bf16(blk[mi][nj], am, bf[nj][0], bf[nj][1]);
+          }
+        };
+        int lo = max(0, k_begin - r);       // rows before the split
+        const int top = min(KSTEP, k_end - r);
+        // every block that ends inside the step: its rows, then its fold
+        while (next_end - r < top) {
+          part(lo, next_end - r);
+          fold(next_end / block - 1);
+          lo = next_end - r;
+          next_end += block;
+        }
+        if (lo < top) part(lo, top);
+        if (next_end - r == top && next_end <= k_end) {
+          fold(next_end / block - 1);
+          next_end += block;
+        }
       }
     }
     if (kt + 1 < nkt) convert(kt + 1);
@@ -770,14 +818,14 @@ extern "C" {
 // (x bfloat16). The grid is (tiles, splits) with kb_per K-blocks a split,
 // as the wrapper's _plan computes them; splits <= 8 (one cluster a tile).
 // qvec / xvec: q rows (x rows) start 16-byte aligned, so tiles go by
-// cp.async. Returns the CUDA error of the launch (0 = launched), -1 for a
-// regime or split count this build lacks, -2 when the scale block is not
-// a positive multiple of 16 rows.
+// cp.async. block: any scale block >= 1. Returns the CUDA error of the
+// launch (0 = launched), -1 for a regime or split count this build lacks,
+// -2 for a block below 1.
 int quant_matmul_launch(const void* x, const void* q, const void* scales,
                         void* out, int M, int K, int N, int nkb, int block,
                         int regime, int tiles, int kb_per, int splits,
                         int qvec, int xvec, void* stream) {
-  if (block <= 0 || block % KSTEP) return -2;
+  if (block <= 0) return -2;
   if (splits < 1 || splits > MAX_SPLITS) return -1;
   const int8_t* qp = static_cast<const int8_t*>(q);
   const float* sp = static_cast<const float*>(scales);
@@ -798,10 +846,14 @@ int quant_matmul_launch(const void* x, const void* q, const void* scales,
     static bool set = false;
     e = launch(gemv_kernel<2>, tiles, splits, GV_NT, gv_smem_bytes<2>(), &set,
                st, xb, qp, sp, ob, M, K, N, nkb, block, kb_per, qvec);
+  } else if (regime == 2 && block % KSTEP == 0) {
+    static bool set = false;
+    e = launch(gemm_kernel<false>, tiles, splits, GM_NT, GM_SMEM, &set, st,
+               xb, qp, sp, ob, M, K, N, nkb, block, kb_per, qvec, xvec);
   } else if (regime == 2) {
     static bool set = false;
-    e = launch(gemm_kernel, tiles, splits, GM_NT, GM_SMEM, &set, st, xb, qp,
-               sp, ob, M, K, N, nkb, block, kb_per, qvec, xvec);
+    e = launch(gemm_kernel<true>, tiles, splits, GM_NT, GM_SMEM, &set, st,
+               xb, qp, sp, ob, M, K, N, nkb, block, kb_per, qvec, xvec);
   } else {
     return -1;
   }
@@ -811,7 +863,7 @@ int quant_matmul_launch(const void* x, const void* q, const void* scales,
 
 const char* quant_matmul_error_string(int err) {
   return err == -1   ? "no kernel for this regime, row count or split count"
-         : err == -2 ? "scale block is not a multiple of 16 rows"
+         : err == -2 ? "scale block below 1"
                      : cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 

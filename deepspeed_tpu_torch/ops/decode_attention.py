@@ -20,8 +20,10 @@ live rows.
 The TPU wrapper's ``ValueError`` for shapes that do not tile (a
 ``max_len`` without a 128-multiple block, small head dims) is a TPU
 constraint: the CUDA kernel takes any ``max_len`` and any head dim
-``hd % 8 == 0`` up to 256 in f32, bf16 or fp16, and raises for T > 64 or
-what else it lacks (:func:`kernel_gate`).
+``hd % 8 == 0`` in f32, bf16 or fp16, and raises for T > 64 or what else it
+lacks (:func:`kernel_gate`). At T = 1 it splits a (sequence, head)'s context
+over a cluster of CTAs where the batch leaves the card short of them
+(:func:`split_plan`).
 
 Bound on the card: bytes (the live K/V rows, read once). See the note in
 the CUDA source for what the design does about it.
@@ -39,10 +41,13 @@ from . import build
 from .attention import check_kernel_inputs
 
 __all__ = ["decode_attention", "decode_attention_reference", "MAX_T",
-           "kernel_gate"]
+           "kernel_gate", "split_plan", "route"]
 
 NEG_INF = -1e30
 MAX_T = 64                                  # queries per call
+MAX_SPLITS = 8                              # a portable cluster (T = 1)
+SPLIT_MIN_TOKENS = 128                      # the least context a split walks
+WIDE_FROM = 256                             # wider heads: the wide kernels
 
 
 def _lib() -> ctypes.CDLL:
@@ -50,7 +55,7 @@ def _lib() -> ctypes.CDLL:
     fn = lib.decode_attention_launch
     if fn.argtypes is None:
         P, I = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [P] * 5 + [I] * 8 + [ctypes.c_float] * 2 + [I, P]
+        fn.argtypes = [P] * 5 + [I] * 8 + [ctypes.c_float] * 2 + [I, I, P]
         fn.restype = ctypes.c_int
     return lib
 
@@ -91,13 +96,37 @@ def decode_attention(q: torch.Tensor,
 decode_attention.launches = 0
 
 
+def split_plan(B: int, nh: int, T: int, hd: int, live: int, sms: int) -> int:
+    """CTAs a (sequence, head) at T = 1 up to head dim 256 (1 for every
+    other call): enough for 1.5 CTAs an SM, as the paged kernel's plan,
+    at most MAX_SPLITS, none walking fewer than SPLIT_MIN_TOKENS of the
+    ``live`` positions. A pure function of the shapes."""
+    if T != 1 or hd > WIDE_FROM:
+        return 1
+    want = -(-3 * sms // (2 * max(B * nh, 1)))
+    return max(1, min(MAX_SPLITS, want, live // SPLIT_MIN_TOKENS))
+
+
+def route(T: int, hd: int, dtype: torch.dtype) -> str:
+    """Which kernel of ``csrc/decode_attention.cu`` a call takes, from
+    its shape and dtype: ``"row"`` (T = 1, a row split over a warp's
+    lanes, the context over a cluster), ``"mma"`` (1 < T, 16-bit: tensor
+    cores), ``"f32"`` (1 < T, f32: CUDA cores), or ``"wide"`` for head
+    dims above 256 (the output columns split over CTAs)."""
+    if hd > WIDE_FROM:
+        return "wide"
+    if T == 1:
+        return "row"
+    return "f32" if dtype == torch.float32 else "mma"
+
+
 def kernel_gate(q, k_cache, v_cache, cur_len: int,
                 layer_idx: Optional[int] = None):
     """What the kernel takes, from the shapes and dtypes alone (the same on
     every device; a launch adds the device checks): T <= 64 queries [B,
     nh, T, hd], caches [L?, B, nh, max_len, hd] of q's dtype with T <=
-    cur_len <= max_len, a head dim hd % 8 == 0 up to 256, f32, bf16 or
-    fp16. Returns (caches with the layer dim, layer, dtype code); raises
+    cur_len <= max_len, any head dim hd % 8 == 0, f32, bf16 or fp16.
+    Returns (caches with the layer dim, layer, dtype code); raises
     ValueError or TypeError."""
     B, nh, T, hd = q.shape
     if T > MAX_T:
@@ -153,14 +182,17 @@ def _launch(q, k_cache, v_cache, cur_len, *, window, sm_scale, layer_idx,
                                  device=dev).reshape(nh).contiguous()
     out = torch.empty((B, nh, T, hd), dtype=q.dtype, device=dev)
     scale = sm_scale if sm_scale is not None else 1.0 / float(np.sqrt(hd))
+    win = int(window or 0)
+    live = min(cur_len, win) if win > 0 else cur_len   # the keys walked
+    splits = split_plan(B, nh, T, hd, live, build.sm_count(dev))
     lib = _lib()
     ptr = lambda t: None if t is None else t.data_ptr()
     stream = torch.cuda.current_stream(dev).cuda_stream
     decode_attention.launches += 1
     err = lib.decode_attention_launch(
         ptr(q), ptr(k_cache), ptr(v_cache), ptr(slopes), ptr(out),
-        B, nh, T, max_len, hd, layer, cur_len, int(window or 0),
-        float(scale), float(softcap or 0.0), code, stream)
+        B, nh, T, max_len, hd, layer, cur_len, win,
+        float(scale), float(softcap or 0.0), splits, code, stream)
     build.check(lib, "decode_attention", err)
     return out
 

@@ -151,7 +151,7 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
     Not differentiable itself (:func:`flash_attention` is). CUDA tensors
     launch the kernel and raise on what it does not take
-    (:func:`kernel_gate`: a head dim past 256 or not a multiple of 8, a
+    (:func:`kernel_gate`: a head dim below 8 or not a multiple of 8, a
     dtype other than f32, bf16 and fp16, a non-causal window); CPU
     tensors, or ``impl="reference"``, run the plain version."""
     kw = _options(causal, sm_scale, mask, alibi_slopes, window, softcap)
@@ -193,7 +193,7 @@ def kernel_gate(q, k, v, *, causal=True, window=0,
     """What the forward and backward kernels take, from the shapes and
     dtypes of q, k, v alone (the same on every device; a launch adds the
     device checks): [B, H, S, D] and [B, H, Sk, D], a head dim D % 8 == 0
-    up to 256, f32, bf16 or fp16 alike, no non-causal window. Returns (B,
+    from 8 on, f32, bf16 or fp16 alike, no non-causal window. Returns (B,
     H, S, Sk, D); raises ValueError or TypeError."""
     if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
         raise ValueError(f"{name} takes q, k, v [B, H, S, D], got "

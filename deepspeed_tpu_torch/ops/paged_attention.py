@@ -112,7 +112,7 @@ def kernel_gate(q, k_pool, v_pool, *, quant: bool = False,
     """What the kernel takes, from the shapes and dtypes alone (the same on
     every device; a launch adds the device checks): one query a sequence
     [B, nh, 1, hd], pools [L?, nh, blocks, block_size, hd] of q's dtype, or
-    int8 with scales (``quant``), a head dim hd % 8 == 0 up to 256, q in
+    int8 with scales (``quant``), any head dim hd % 8 == 0, q in
     f32, bf16 or fp16. Returns (pools with the layer dim, layer, q dtype
     code, pool dtype code); raises ValueError or TypeError."""
     B, nh, T, hd = q.shape

@@ -5,7 +5,7 @@ Replaces the Pallas kernel of ``deepspeed_tpu/ops/pallas/quant_matmul.py``
 (``_kernel``, launched by ``quant_matmul``). Weights are stored int8 with
 one f32 scale per block of contraction elements and column (the
 ``quant_format`` blockwise format, ``QUANT_BLOCK`` = 256 by default; the
-kernel takes any block that is a multiple of 16), and
+kernel takes any block that :func:`pack_kernel` makes), and
 
     y[m, n] = sum_kb (x[m, kb-block] . q[kb-block, n]) * s[kb, n]
 
@@ -115,8 +115,6 @@ _REGIMES = {"simt": (0, 8, 128, 1), "gemv": (1, GEMV_MAX_M, 128, 2),
 
 # split K: the CTAs of a tile form one thread-block cluster (portable size)
 MAX_SPLITS = 8
-# the scale blocks the kernel takes: multiples of the mma k step
-BLOCK_MULTIPLE = 16
 
 
 class Plan(NamedTuple):
@@ -131,11 +129,10 @@ class Plan(NamedTuple):
 
 def block_reason(block: int):
     """None if the kernel takes scale blocks of ``block`` rows, else why
-    not (a pure function of the block)."""
-    if block <= 0 or block % BLOCK_MULTIPLE:
-        return (f"scale block {block} (the kernel takes blocks that are a "
-                f"multiple of {BLOCK_MULTIPLE} rows; others are not built "
-                "yet, ROADMAP.md Queue 3)")
+    not (a pure function of the block): it takes every block that
+    :func:`pack_kernel` makes, any block of at least one row."""
+    if block < 1:
+        return f"scale block {block} (blocks hold at least one row)"
     return None
 
 
@@ -225,7 +222,7 @@ def quant_matmul_reference(x: torch.Tensor, q: torch.Tensor,
                            scales: torch.Tensor) -> torch.Tensor:
     """Plain PyTorch version: each K-block's partial product scaled once,
     summed in f32, cast to x's dtype. Any scale block, as the JAX
-    reference takes (the CUDA kernel takes multiples of 16 rows)."""
+    reference and the CUDA kernel take."""
     Kp, N = q.shape
     nkb = scales.shape[0]
     block = Kp // nkb

@@ -363,3 +363,35 @@ def test_head_dim_256_forward_and_backward(causal):
     for t, jg in zip((tq, tk, tv), jgrads):
         np.testing.assert_allclose(t.grad.numpy(), np.asarray(jg), rtol=2e-4,
                                    atol=2e-4)
+
+
+@pytest.mark.parametrize("slots", [264, 100, 7])
+def test_dkv_slots_balance_the_long_leg(slots):
+    """The persistent dK/dV kernel's per-CTA item lists (``balance``, a
+    pure function): every (head, key tile) item once, each list costliest
+    first, and at the long leg's layout (DeepSpeed's fixed, blocks of 64,
+    unidirectional, S 4096, 32 heads: dK/dV lists of 1 to 61 tiles) no
+    list costs more than the mean plus the costliest item, within the
+    4/3 of the best that LPT guarantees."""
+    cfg = tsa.FixedSparsityConfig(num_heads=32, block=64, num_local_blocks=4,
+                                  num_global_blocks=1, **_UNI)
+    sched = tbs.schedule(tsa.config_layout(cfg, 4096), 64, 4096, causal=True)
+    costs = sched.visited.sum(1).reshape(-1) + tbs.DKV_ITEM_COST
+    ptr, items = tbs.balance(costs, slots)
+    assert ptr[0] == 0 and ptr[-1] == costs.size and len(ptr) == slots + 1
+    assert sorted(items.tolist()) == list(range(costs.size))
+    loads = np.add.reduceat(costs[items], ptr[:-1]) * (np.diff(ptr) > 0)
+    best = max(costs.sum() / slots, costs.max())
+    assert loads.max() <= costs.sum() / slots + costs.max()
+    assert loads.max() <= 4 / 3 * best + 1
+    for w in range(slots):
+        c = costs[items[ptr[w]:ptr[w + 1]]]
+        assert np.all(np.diff(c) <= 0)
+    # dealt round-robin in longest-first order instead, the costliest CTA
+    # takes much more than the mean (what the host balancing removes)
+    order = np.argsort(-costs, kind="stable")
+    rr = np.bincount(np.arange(costs.size) % slots, weights=costs[order],
+                     minlength=slots)
+    if slots == 264:
+        assert rr.max() > 1.3 * costs.sum() / slots
+        assert loads.max() < 1.1 * costs.sum() / slots

@@ -1,11 +1,13 @@
 """Port parity at the head dims and dtypes the CUDA attention kernels were
-widened to: every ``D % 8 == 0`` up to 256, in f32, bf16 and fp16.
+widened to: every ``D % 8 == 0``, in f32, bf16 and fp16 (above 256 the
+parity tests are in ``tests/test_torch_wide_heads.py``).
 
 * The shape gates: each kernel wrapper's ``kernel_gate`` (flash, decode,
   paged) and the block-sparse ``tileable`` are pure functions of shapes
   and dtypes, so they run here on meta tensors: they take every head dim
-  ``D % 8 == 0`` up to 256 in all three dtypes, and refuse D 264 (and
-  ``D % 8 != 0``) with a message naming ROADMAP.md, and float64.
+  ``D % 8 == 0`` up to 256 and D 264, 320, 512 and 1024 in all three
+  dtypes, and refuse ``D % 8 != 0`` with a message naming ROADMAP.md, and
+  float64.
 * One 2-layer narrow model per head dim, 80 (gpt2-2.7b's), 96
   (gpt2-760m's) and 256 (Gemma's, two heads of 256 through
   ``head_dim_override``), with the same flax-initialized f32 weights in both
@@ -85,8 +87,16 @@ def test_gates_take_every_head_dim_up_to_128(D):
         assert _gates(D, dtype) is None
 
 
-@pytest.mark.parametrize("D", [12, 100, 264, 512])
+@pytest.mark.parametrize("D", [12, 100, 264, 320, 512, 1024])
 def test_gates_refuse_other_head_dims_naming_roadmap(D):
+    """A head dim that is not a multiple of 8 is refused with a message
+    naming ROADMAP.md (the JAX flash wrapper sends it to its reference, a
+    documented divergence). Wider heads, refused up to PR 7, are taken now:
+    every gate passes D 264, 320, 512 and 1024 in all three dtypes."""
+    if D % 8 == 0:
+        for dtype in DTYPES:
+            assert _gates(D, dtype) is None
+        return
     x = _meta(2, 4, 64, D)
     with pytest.raises(ValueError, match=f"head_dim {D}.*ROADMAP.md"):
         tfa.kernel_gate(x, x, x)

@@ -145,7 +145,8 @@ def test_kernel_calls_raise_instead_of_falling_back():
 
 def test_attention_kernel_calls_raise_instead_of_falling_back():
     """decode_attention and the flash kernels: CPU tensors in the launch
-    path, f64, T > 64, a head dim past 256 and a non-causal window raise;
+    path, f64, T > 64, a head dim that is not a multiple of 8 and a
+    non-causal window raise (a head dim past 256 gets to the device check);
     inputs on the CPU
     that require grad take the plain forward and backward; nothing
     launches."""
@@ -173,7 +174,9 @@ def test_attention_kernel_calls_raise_instead_of_falling_back():
         tfa._launch(x.double(), x.double(), x.double(), **fkw)
     with pytest.raises(ValueError, match="causal"):
         tfa._launch(x, x, x, **dict(fkw, causal=False, window=8))
-    with pytest.raises(ValueError, match="head_dim 264.*ROADMAP.md"):
+    with pytest.raises(ValueError, match="head_dim 260.*ROADMAP.md"):
+        tfa._launch(*(torch.randn(1, 2, 16, 260),) * 3, **fkw)
+    with pytest.raises(ValueError, match="CUDA"):   # wide heads: taken
         tfa._launch(*(torch.randn(1, 2, 16, 264),) * 3, **fkw)
     with pytest.raises(ValueError, match="CUDA"):
         tfa.flash_attention_bwd_dq(x, x, x, x, x[..., 0], x[..., 0])

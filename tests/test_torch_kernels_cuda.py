@@ -201,15 +201,15 @@ def test_quant_matmul_kernel_split_k_is_bit_identical(dev, M, K, N):
     assert torch.equal(a, b)
 
 
-@pytest.mark.parametrize("block", [64, 128, 48, 512])
+@pytest.mark.parametrize("block", [64, 128, 48, 512, 8, 40, 100])
 @pytest.mark.parametrize("M,K,N", [(8, 2048, 2048), (16, 5632, 2048),
                                    (96, 2048, 2560), (512, 2048, 2048),
                                    (3, 300, 200), (130, 512, 1000)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_quant_matmul_kernel_scale_blocks(dev, block, M, K, N, dtype):
-    """Scale blocks other than 256 rows (any multiple of 16): each K-block's
-    partial scaled once, K split in whole blocks; split calls repeat bit
-    for bit."""
+    """Scale blocks other than 256 rows (any block; 8, 40 and 100 cross
+    the GEMM's 16-row k steps): each K-block's partial scaled once, K
+    split in whole blocks; split calls repeat bit for bit."""
     x, q, s = _qm_inputs(dev, M, K, N, dtype, block)
     out = tqm.quant_matmul(x, q, s)
     again = tqm.quant_matmul(x, q, s)
@@ -265,6 +265,83 @@ def test_decode_attention_kernel_head_dims(dev, dtype, hd, T, cur):
     ref = tda.decode_attention_reference(*_f32(q, k, v), cur)
     torch.cuda.synchronize()
     _hold(out, ref, dtype == torch.float32)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("hd", [64, 80, 96, 256, 264])
+@pytest.mark.parametrize("T", [1, 2, 17, 64])
+def test_decode_attention_kernel_routes(dev, dtype, hd, T):
+    """Every form of the decode kernel (route: the T = 1 row kernel, the
+    mma.sync and f32 forms at T > 1, the wide form above 256), with ALiBi,
+    a softcap and a window, in a cache of 700 at cur_len 650; 2 sequences x
+    4 heads, so the T = 1 context splits over a cluster."""
+    g = torch.Generator().manual_seed(hd * 100 + T)
+    k = torch.randn(2, 4, 700, hd, generator=g).to(dev, dtype)
+    v = torch.randn(2, 4, 700, hd, generator=g).to(dev, dtype)
+    q = torch.randn(2, 4, T, hd, generator=g).to(dev, dtype)
+    kw = {"alibi_slopes": np.linspace(1, .1, 4), "softcap": 10.0,
+          "window": 300}
+    out = tda.decode_attention(q, k, v, 650, **kw)
+    ref = tda.decode_attention_reference(*_f32(q, k, v), 650, **kw)
+    torch.cuda.synchronize()
+    _hold(out, ref, dtype == torch.float32)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("D", [264, 320, 512, 1024])
+def test_attention_kernels_wide_heads(dev, dtype, D):
+    """Head dims above 256 (the wide forms): the flash forward and backward,
+    decode at T 1 and 17, paged, and the three block-sparse kernels, each
+    against its plain version."""
+    g = torch.Generator().manual_seed(D)
+    q, k, v, do = (torch.randn(1, 2, 200, D, generator=g).mul(.5)
+                   .to(dev, dtype) for _ in range(4))
+    o, lse = tfa.flash_attention_fwd(q, k, v)
+    dq, dk, dv = tfa.flash_attention_bwd(q, k, v, o, lse, do)
+    ro, rlse = tfa.flash_attention_reference(*_f32(q, k, v))
+    refs = tfa.flash_attention_bwd_reference(*_f32(q, k, v, o), lse,
+                                             do.float())
+    torch.cuda.synchronize()
+    f32 = dtype == torch.float32
+    _hold(o, ro, f32)
+    torch.testing.assert_close(lse, rlse, atol=F32_TOL, rtol=0)
+    for out, ref in zip((dq, dk, dv), refs):
+        _hold(out, ref, f32, floor=2.0 ** -10)
+    kc, vc = (torch.randn(2, 3, 400, D, generator=g).to(dev, dtype)
+              for _ in range(2))
+    for T in (1, 17):
+        qd = torch.randn(2, 3, T, D, generator=g).to(dev, dtype)
+        out = tda.decode_attention(qd, kc, vc, 333, window=100)
+        ref = tda.decode_attention_reference(*_f32(qd, kc, vc), 333,
+                                             window=100)
+        torch.cuda.synchronize()
+        _hold(out, ref, f32)
+    qp, kp, vp, bt, lens = _pa(dev, dtype, seed=D, B=4, nh=2, hd=D, L=1)
+    out = tpa.paged_attention(qp, kp, vp, bt, lens, layer_idx=0)
+    ref = tpa.paged_attention_reference(*_f32(qp, kp, vp), bt, lens,
+                                        layer_idx=0)
+    torch.cuda.synchronize()
+    live = lens > 0
+    _hold(out[live], ref[live], f32)
+    assert torch.all(out[~live] == 0)
+    layout, fine, kw = _bs_layout("fixed16", 2, 256)
+    q, k, v, do = (torch.randn(1, 2, 256, D, generator=g).mul(.5)
+                   .to(dev, dtype) for _ in range(4))
+    o, lse = tbs.block_sparse_attention_fwd(q, k, v, layout, fine, **kw)
+    delta = (do.float() * o.float()).sum(-1)
+    grads = (tbs.block_sparse_attention_bwd_dq(q, k, v, do, lse, delta,
+                                               layout, fine, **kw),
+             *tbs.block_sparse_attention_bwd_dkv(q, k, v, do, lse, delta,
+                                                 layout, fine, **kw))
+    ro, _ = tbs.block_sparse_attention_reference(*_f32(q, k, v), layout,
+                                                 fine, **kw)
+    refs = tbs.block_sparse_attention_bwd_reference(
+        *_f32(q, k, v, do), lse, delta, layout, fine, **kw)
+    torch.cuda.synchronize()
+    _hold(o, ro, f32)
+    scale = max(r.abs().max().item() for r in refs)
+    for out, ref in zip(grads, refs):
+        _hold(out, ref, f32, floor=2.0 ** -10, scale=scale)
 
 
 def test_decode_attention_kernel_generate_shape(dev):
@@ -462,9 +539,9 @@ def test_block_sparse_routes_launch_on_the_card(dev):
             [b + 1 for b in before]
         assert all(torch.isfinite(t.float()).all() for t in grads)
     layout = tsa.config_layout(cfg, 512)
-    q2 = torch.randn(1, 4, 512, 264, device=dev)
+    q2 = torch.randn(1, 4, 512, 12, device=dev)
     with pytest.raises(ValueError, match="tile.*ROADMAP.md"):
         tbs.block_sparse_attention_fwd(q2, q2, q2, layout, 64)
-    q2 = q2[..., :64].double()
+    q2 = torch.randn(1, 4, 512, 64, device=dev).double()
     with pytest.raises(ValueError, match="tile"):
         tbs.block_sparse_attention_fwd(q2, q2, q2, layout, 64)

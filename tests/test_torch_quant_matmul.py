@@ -44,8 +44,7 @@ def test_pack_and_matmul_match_jax(K, N, lead):
 @pytest.mark.parametrize("K,N", [(300, 128), (512, 96)])
 def test_plain_matmul_takes_any_scale_block(K, N):
     """Scale blocks of 128 rows: the plain version (CPU tensors) matches
-    the JAX reference, which takes any block (the CUDA kernel takes
-    multiples of 16 rows)."""
+    the JAX reference, which takes any block (as the CUDA kernel does)."""
     rng = np.random.default_rng(K * N)
     w = rng.standard_normal((K, N)).astype(np.float32)
     x = rng.standard_normal((3, K)).astype(np.float32)
@@ -198,14 +197,52 @@ def test_gate_takes_blocks_that_are_multiples_of_16(block):
 
 @pytest.mark.parametrize("block", [40, 100, 8])
 def test_gate_refuses_other_blocks_naming_roadmap(block):
+    """Blocks that are not a multiple of 16 rows, once refused with a
+    message naming ROADMAP.md, are taken now: the gate passes them, the
+    launch gets to the device check, and ``_plan`` splits K in whole
+    blocks of them. Only a block below one row is refused."""
     x = torch.empty(4, 400, device="meta")
     q = torch.empty(-(-400 // block) * block, 256, dtype=torch.int8,
                     device="meta")
     s = torch.empty(q.shape[0] // block, 256, device="meta")
-    with pytest.raises(ValueError, match=f"scale block {block}.*ROADMAP.md"):
+    assert tqm.block_reason(block) is None
+    with pytest.raises(ValueError, match="CUDA tensors"):
         tqm._launch(x, q, s)
-    with pytest.raises(ValueError, match="ROADMAP.md"):
-        tqm._plan(8, 256, 4, 132, torch.bfloat16, block)
+    nkb = q.shape[0] // block
+    for M, dt in ((8, torch.bfloat16), (512, torch.bfloat16),
+                  (8, torch.float32)):
+        plan = tqm._plan(M, 256, nkb, 132, dt, block)
+        assert plan.splits * plan.kb_per >= nkb
+        assert (plan.splits - 1) * plan.kb_per < nkb
+    for bad in (0, -16):
+        assert "at least one row" in tqm.block_reason(bad)
+        with pytest.raises(ValueError, match=f"scale block {bad}"):
+            tqm._plan(8, 256, 4, 132, torch.bfloat16, bad)
+
+
+@pytest.mark.parametrize("block", [8, 40, 100])
+@pytest.mark.parametrize("K,N", [(300, 128), (520, 96)])
+def test_plain_matmul_matches_jax_at_odd_blocks(K, N, block):
+    """Scale blocks that are not a multiple of 16 rows (the CUDA kernel's
+    GEMM masks a k step on each side of a block's end): packing and the
+    plain version against the JAX reference and, where its tiling takes
+    the shape, the JAX kernel in interpret mode; rtol / atol 1e-5 in f32
+    (the same per-block sums, reduced in another order)."""
+    rng = np.random.default_rng(K + N + block)
+    w = rng.standard_normal((K, N)).astype(np.float32)
+    x = rng.standard_normal((3, K)).astype(np.float32)
+    qj, sj = jqm.pack_kernel(jnp.asarray(w), block=block)
+    qt, st = tqm.pack_kernel(torch.from_numpy(w), block=block)
+    np.testing.assert_array_equal(qt.numpy(), np.asarray(qj))
+    np.testing.assert_allclose(st.numpy(), np.asarray(sj), rtol=1e-6, atol=0)
+    assert st.shape == (-(-K // block), N)
+    port = tqm.quant_matmul(torch.from_numpy(x), qt, st).numpy()
+    ref = np.asarray(jqm.quant_matmul_reference(jnp.asarray(x), qj, sj))
+    np.testing.assert_allclose(port, ref, rtol=1e-5, atol=1e-5)
+    if N % 128 == 0:                 # the JAX kernel's own tiling condition
+        ker = np.asarray(jqm.quant_matmul(jnp.asarray(x), qj, sj,
+                                          interpret=True))
+        np.testing.assert_allclose(port, ker, rtol=1e-5, atol=1e-5)
 
 
 @pytest.mark.parametrize("K,N", [(300, 128), (640, 96)])
