@@ -43,7 +43,8 @@ nor ``deepspeed_tpu``. Phases, each reported on its own line:
    ``sparse_attention`` section (DeepSpeed's "fixed" defaults,
    unidirectional, blocks of 64): four ``train_batch`` steps, each
    launching ``block_sparse_attention_fwd``, ``_bwd_dq`` and ``_bwd_dkv``
-   22 x 2 times and no flash kernel; the loss falls; one micro-batch on 2
+   22 x 2 times (bf16 at head dim 64: the persistent ``wgmma`` routes)
+   and no flash kernel; the loss falls; one micro-batch on 2
    layers of the trained weights vs the dense-mask route. Then the window
    leg: 4 layers with a uniform 1024-token window, three steps through
    the same kernels, vs ``attention_impl="reference"`` on 2 layers.
@@ -81,7 +82,10 @@ and an int8 pool, D 96 x 16 heads, and the serve decode step under each.
 beside it): the generate step's call in bf16 and fp16, D 96 x 16, D 80 x
 32 and D 256 x 16 heads, and T = 64. ``--old-block-sparse SRC`` (a
 parent's ``csrc/block_sparse_attention.cu``, its headers beside it): each
-of the three kernels over the four timed layouts, and the long step.
+of the three kernels over the four timed layouts with the parent's outputs
+against these, and the long step. ``--sweep-item-cost``: the block-sparse
+forward's and dq's per-item cost of the host balance, swept at the long
+leg's call.
 
 Launch counters are zeroed just before each leg and read just after it.
 Any failed check raises, so the script exits non-zero and prints no
@@ -144,6 +148,11 @@ BS_KERNELS = ("block_sparse_attention_fwd", "block_sparse_attention_bwd_dq",
               "block_sparse_attention_bwd_dkv")
 FLASH_KERNELS = ("flash_attention_fwd", "flash_attention_bwd_dq",
                  "flash_attention_bwd_dkv")
+# the persistent wgmma + TMA kernels of each source (the build lines)
+WG_KERNELS = {"flash_attention_fwd": ("flash_fwd_wg",),
+              "flash_attention_bwd": ("flash_bwd_dq_wg", "flash_bwd_dkv_wg"),
+              "block_sparse_attention": ("bs_fwd_wg", "bs_dq_wg",
+                                         "bs_dkv_wg")}
 SERVING = {"block_size": 32, "pool_blocks": 256, "max_batch": 8,
            "max_blocks_per_seq": 64}
 
@@ -175,7 +184,10 @@ def wall_ms(fn, reps=10, warmup=2):
 def device_ms(fn, reps=10, warmup=2):
     """Device time per call: the CUDA kernel time torch.profiler records
     over ``reps`` calls, summed, so host gaps between launches do not
-    count."""
+    count. Where three traces in a row record no kernel (late in a long
+    process the profiler can stop recording), the calls are timed between
+    CUDA events behind a sleep kernel instead (:func:`queued_ms`), and the
+    line says so."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     for _ in range(warmup):
@@ -191,7 +203,9 @@ def device_ms(fn, reps=10, warmup=2):
                  if e.device_type == torch.autograd.DeviceType.CUDA)
         if us > 0:
             return us / 1e3 / reps
-    fail("torch.profiler recorded no device time for a timed call")
+    log("time: torch.profiler recorded no device time in three traces; "
+        "this call is timed between CUDA events (queued_ms)")
+    return queued_ms(lambda: [fn() for _ in range(reps)]) / reps
 
 
 def queued_ms(fn, reps=3, sleep_s=0.05):
@@ -294,6 +308,19 @@ def phase_build():
         for kname, regs, st, ld in rows:
             log(f"build: {name} {kname} registers={regs} spill_stores={st} "
                 f"spill_loads={ld}")
+        # each wgmma kernel's instantiations and the advisories ptxas
+        # gives for it (the advisory names the mangled function)
+        for ident in WG_KERNELS.get(name, ()):
+            mine = [r for r in rows if r[0].startswith(ident + "<")]
+            lines = [ln for ln in text.splitlines()
+                     if "Potential Performance Loss" in ln and ident in ln]
+            notes = sorted({ln.split("Potential Performance Loss:")[1].split(
+                " in the function")[0].strip() for ln in lines})
+            log(f"build: {name} wgmma kernel {ident} instantiations="
+                f"{len(mine)} registers={[r[1] for r in mine]} spill_bytes="
+                f"{sum(r[2] + r[3] for r in mine)} "
+                f"C7520={sum('C7520' in ln for ln in lines)} "
+                f"ptxas_advisories={json.dumps(notes)}")
     log(f"build: seconds={secs:.2f} kernels={list(build.KERNELS)}")
 
 
@@ -936,8 +963,9 @@ def check_flash_attention_bwd():
 def _bs_cases():
     """(name, dtype, B, H, S, D, layout, fine, kwargs) of the block-sparse
     check: every layout family, the window route, the three dtypes, head
-    dims 32, 40, 64, 80, 96 and 128, causal and not, a ragged S, and the
-    long and window legs' own shapes."""
+    dims 32, 40, 64, 80, 96 and 128, causal and not, a ragged S, the long
+    and window legs' own shapes, and two batch rows of the persistent
+    wgmma kernels' items (the 16-bit D 64 calls)."""
     import numpy as np
     import torch
     from deepspeed_tpu_torch.ops import sparse_attention as tsa
@@ -1008,6 +1036,10 @@ def _bs_cases():
         ("f32 window W=100 D40", f32, 1, 4, 1024, 40, *window(4, 1024, 100)),
         ("fp16 fixed-64 causal", h16, 1, 8, 2048, 64,
          *lay(tsa.FixedSparsityConfig, 8, 2048, block=64, **uni),
+         {"causal": True}),
+        # the wgmma kernels' items over two batch rows, 4x the CTAs
+        ("fixed-64 causal B=2", bf, 2, 16, 2048, 64,
+         *lay(tsa.FixedSparsityConfig, 16, 2048, block=64, **uni),
          {"causal": True}),
         ("fp16 window W=100 D80", h16, 1, 4, 1024, 80,
          *window(4, 1024, 100)),
@@ -2079,6 +2111,12 @@ def phase_long(tmp, old_bs=None):
     per_step = LLAMA_LAYERS * 2
     metrics, step_s, total, micros = _train_leg(engine, batch, LONG_STEPS,
                                                 per_step, "long")
+    from deepspeed_tpu_torch.ops import block_sparse_attention as tbs
+    routes = {kname: route(cfg.head_dim, torch.bfloat16) for kname, route in
+              zip(BS_KERNELS, (tbs.fwd_route, tbs.dq_route, tbs.dkv_route))}
+    log(f"long: routes {json.dumps(routes)} launches {json.dumps(total)}")
+    if set(routes.values()) != {"wgmma"}:
+        fail(f"long: the leg's calls do not take the wgmma kernels: {routes}")
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     ones = dict(micros[0], attention_mask=torch.ones_like(
         micros[0]["input_ids"]))
@@ -2720,39 +2758,30 @@ def _parent_paged(src):
     return lib
 
 
-class _SplitlessDecode:
-    """The parent's decode library behind this wrapper's call: its entry
-    point takes no split count (argument 15 of this one's)."""
-
-    def __init__(self, lib):
-        self.lib = lib
-
-    def decode_attention_launch(self, *a):
-        return self.lib.decode_attention_launch(*a[:15], *a[16:])
-
-    def __getattr__(self, name):
-        return getattr(self.lib, name)
-
-
 def _parent_decode(src):
+    """The parent's decode library (the same C interface)."""
     import ctypes
     lib = _parent_lib(src, "decode_attention")
     P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.decode_attention_launch.argtypes = [P] * 5 + [I] * 8 + [F] * 2 + [I, P]
+    lib.decode_attention_launch.argtypes = (
+        [P] * 5 + [I] * 8 + [F] * 2 + [I, I, P])
     lib.decode_attention_launch.restype = ctypes.c_int
-    return _SplitlessDecode(lib)
+    return lib
 
 
 class _ListlessBlockSparse:
     """The parent's block-sparse library behind this wrapper's calls: its
-    dk/dv entry point takes no per-CTA item lists (arguments 11 and 12 of
-    this one's)."""
+    forward and dq entry points take no per-CTA item lists and no layout
+    bits (arguments 8-10 of this forward's, 11-13 of this dq's)."""
 
     def __init__(self, lib):
         self.lib = lib
 
-    def block_sparse_attention_bwd_dkv_launch(self, *a):
-        return self.lib.block_sparse_attention_bwd_dkv_launch(*a[:11], *a[13:])
+    def block_sparse_attention_fwd_launch(self, *a):
+        return self.lib.block_sparse_attention_fwd_launch(*a[:8], *a[11:])
+
+    def block_sparse_attention_bwd_dq_launch(self, *a):
+        return self.lib.block_sparse_attention_bwd_dq_launch(*a[:11], *a[14:])
 
     def __getattr__(self, name):
         return getattr(self.lib, name)
@@ -2764,7 +2793,7 @@ def _parent_block_sparse(src):
     P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     for fn, n_ptr in ((lib.block_sparse_attention_fwd_launch, 10),
                       (lib.block_sparse_attention_bwd_dq_launch, 12),
-                      (lib.block_sparse_attention_bwd_dkv_launch, 13)):
+                      (lib.block_sparse_attention_bwd_dkv_launch, 15)):
         fn.argtypes = [P] * n_ptr + [I] * 7 + [F, I, P]
         fn.restype = ctypes.c_int
     return _ListlessBlockSparse(lib)
@@ -2951,8 +2980,8 @@ def ab_block_sparse(old):
     launches of each at [1, 32, 4096, 64] bf16 causal (one long step) over
     the four layouts of time_block_sparse_scaling (the long leg's, the
     window leg's, fixed-16, dense causal), in the order parent, new, new,
-    parent; and the parent's dk/dv against this one's on the long leg's
-    layout."""
+    parent; and the parent's outputs against these on the same inputs (o,
+    lse, dq, dk, dv) at each layout."""
     import torch
     from deepspeed_tpu_torch.ops import block_sparse_attention as tbs
     from deepspeed_tpu_torch.ops import sparse_attention as tsa
@@ -2966,14 +2995,21 @@ def ab_block_sparse(old):
         layout, fine = tsa.config_layout(cfg, S), cfg.block
         o, lse = tbs.block_sparse_attention_fwd(q, k, v, layout, fine, **kw)
         delta = (do.float() * o.float()).sum(-1)
-        mine = tbs.block_sparse_attention_bwd_dkv(q, k, v, do, lse, delta,
-                                                  layout, fine, **kw)
-        with under(old):
-            theirs = tbs.block_sparse_attention_bwd_dkv(
+
+        def outputs():              # both libraries on the same inputs
+            fo, flse = tbs.block_sparse_attention_fwd(q, k, v, layout, fine,
+                                                      **kw)
+            dq = tbs.block_sparse_attention_bwd_dq(q, k, v, do, lse, delta,
+                                                   layout, fine, **kw)
+            dk, dv = tbs.block_sparse_attention_bwd_dkv(
                 q, k, v, do, lse, delta, layout, fine, **kw)
-        log(f"time: block_sparse parent vs new {name} dk/dv max_abs_diff "
-            f"dk={_max_err(mine[0], theirs[0]):.3e} "
-            f"dv={_max_err(mine[1], theirs[1]):.3e}")
+            return {"o": fo, "lse": flse, "dq": dq, "dk": dk, "dv": dv}
+        mine = outputs()
+        with under(old):
+            theirs = outputs()
+        log(f"time: block_sparse parent vs new {name} max_abs_diff "
+            + " ".join(f"{key}={_max_err(mine[key], theirs[key]):.3e}"
+                       for key in mine))
         fns = {
             "fwd": lambda: tbs.block_sparse_attention_fwd(
                 q, k, v, layout, fine, **kw),
@@ -3266,6 +3302,60 @@ def time_block_sparse_scaling():
     return out
 
 
+ITEM_COSTS = (0, 1, 2, 3, 4, 6, 8)
+
+
+def sweep_item_cost():
+    """The per-item cost of the query side's host balance (``ITEM_COST["q"]``
+    of ops/block_sparse_attention.py: the forward's and dq's items) swept
+    over ITEM_COSTS at the long leg's call, 44 launches of [1, 32, 4096,
+    64] bf16 with the leg's layout: each kernel's device ms at each cost
+    (the costs in order, then back) and the costliest CTA's list in tiles
+    and items."""
+    import numpy as np
+    import torch
+    from deepspeed_tpu_torch.ops import block_sparse_attention as tbs
+    from deepspeed_tpu_torch.ops import build
+    from deepspeed_tpu_torch.ops import sparse_attention as tsa
+    H, S, D, n = 32, LONG_SEQ, 64, LLAMA_LAYERS * 2
+    cfg = tsa.build_sparsity_config(num_heads=H, **SPARSE_SECTION)
+    layout, fine, kw = tsa.config_layout(cfg, S), cfg.block, {"causal": True}
+    g = torch.Generator(device="cuda").manual_seed(15)
+    q, k, v, do = (torch.randn(1, H, S, D, device="cuda", generator=g)
+                   .to(torch.bfloat16) for _ in range(4))
+    o, lse = tbs.block_sparse_attention_fwd(q, k, v, layout, fine, **kw)
+    delta = (do.float() * o.float()).sum(-1)
+    sched = tbs.schedule(layout, fine, S, device=q.device, **kw)
+    fns = {"fwd": lambda: tbs.block_sparse_attention_fwd(
+               q, k, v, layout, fine, **kw),
+           "dq": lambda: tbs.block_sparse_attention_bwd_dq(
+               q, k, v, do, lse, delta, layout, fine, **kw)}
+    own = tbs.ITEM_COST["q"]
+    ms = {kernel: {c: [] for c in ITEM_COSTS} for kernel in fns}
+    worst = {}
+    tiles = sched.visited.sum(2).reshape(-1)
+    for c in ITEM_COSTS + ITEM_COSTS[::-1]:
+        tbs.ITEM_COST["q"] = c
+        ptr, items = (t.cpu().numpy() for t in sched.cta_slots(
+            "q", build.sm_count(q.device)))
+        per = np.add.reduceat(tiles[items], ptr[:-1]) * (np.diff(ptr) > 0)
+        w = int(np.argmax(per + c * np.diff(ptr)))
+        worst[c] = {"tiles": int(per[w]), "items": int(np.diff(ptr)[w])}
+        for kernel, fn in fns.items():
+            ms[kernel][c].append(device_ms(
+                lambda: [fn() for _ in range(n)], reps=3))
+    tbs.ITEM_COST["q"] = own
+    log(f"time: block_sparse item cost sweep, device ms per {n} launches "
+        f"at [1, {H}, {S}, {D}] bf16, the long leg's layout (B=1: an item "
+        "a (head, query tile)): "
+        + json.dumps({kernel: {c: [round(x, 4) for x in r]
+                               for c, r in by.items()}
+                      for kernel, by in ms.items()})
+        + f" costliest_cta={json.dumps(worst)} [in use: {own}]")
+    del q, k, v, do, o, lse, delta
+    torch.cuda.empty_cache()
+
+
 def _flex_ms(q, k, v, do, keep, n):
     """flex_attention (torch.compile'd) with the layout as a block mask:
     forward and backward ms per step of n calls, or None where it does not
@@ -3329,6 +3419,10 @@ def main(argv=None):
                          "attention.cu, with the headers it includes beside "
                          "it) against these, in one process: 44 launches "
                          "of each over four layouts, and the long step")
+    ap.add_argument("--sweep-item-cost", action="store_true",
+                    help="also sweep the block-sparse forward's and dq's "
+                         "per-item cost of the host balance at the long "
+                         "leg's call")
     ap.add_argument("--old-paged", metavar="SRC",
                     help="also time the paged kernel built from SRC (a "
                          "parent commit's csrc/paged_attention.cu) against "
@@ -3431,6 +3525,8 @@ def main(argv=None):
     time_block_sparse_scaling()
     if old_bs is not None:
         ab_block_sparse(old_bs)
+    if args.sweep_item_cost:
+        sweep_item_cost()
     kernels = []
     for kname, launches, t, src, tpu in (
             ("paged_attention", pa_launches, pa,

@@ -28,8 +28,10 @@ options, device) and cached.
   :func:`block_sparse_attention_bwd_reference` (dq, dk, dv).
 * :func:`tileable` — the shape check the kernels make, as a pure function:
   routers that fall back call it first and never wrap a launch in ``try``.
-* :func:`dkv_route` — which form of the dK/dV kernel a call takes, a pure
-  function of the head dim and dtype.
+* :func:`fwd_route`, :func:`dq_route`, :func:`dkv_route` — which form of
+  each kernel a call takes, pure functions of the head dim and dtype.
+* :meth:`Schedule.cta_slots` — the persistent kernels' per-CTA item lists,
+  balanced on the host.
 
 Semantics: the fine layout applies per element (``layout[h, q // fine, k
 // fine]``), then causal (key <= query, S = Sk) and the window (query - key
@@ -63,7 +65,8 @@ __all__ = ["block_sparse_flash_attention", "block_sparse_attention_fwd",
            "block_sparse_attention_bwd_dq", "block_sparse_attention_bwd_dkv",
            "block_sparse_attention_reference",
            "block_sparse_attention_bwd_reference", "schedule", "tileable",
-           "dkv_route", "coarse_layout", "active_lists", "TILE"]
+           "fwd_route", "dq_route", "dkv_route", "coarse_layout",
+           "active_lists", "TILE"]
 
 TILE = 64                                   # the kernels' q and k tile
 LAYOUT_BIT, POS_BIT = 1, 2                  # csrc/block_sparse_attention.cu
@@ -73,9 +76,9 @@ WIDE_FROM = 256                             # wider heads: the wide kernels
 def dkv_route(D: int, dtype: torch.dtype) -> str:
     """Which form of the dK/dV kernel of ``csrc/block_sparse_attention.cu``
     a call takes: ``"wgmma"`` (bf16 / fp16 at D 64, the long leg's call:
-    persistent, TMA-fed, on ``wgmma``), ``"mma"`` (the other 16-bit widths
-    up to 256, ``mma.sync``), ``"f32"`` (CUDA cores) or ``"wide"`` (above
-    256: the output columns split over CTAs)."""
+    persistent, TMA-fed, on ``wgmma``: ``bs_dkv_wg``), ``"mma"`` (the
+    other 16-bit widths up to 256, ``mma.sync``), ``"f32"`` (CUDA cores) or
+    ``"wide"`` (above 256: the output columns split over CTAs)."""
     if D > WIDE_FROM:
         return "wide"
     if dtype == torch.float32:
@@ -83,11 +86,24 @@ def dkv_route(D: int, dtype: torch.dtype) -> str:
     return "wgmma" if D == 64 else "mma"
 
 
+def fwd_route(D: int, dtype: torch.dtype) -> str:
+    """The forward kernel's form, by :func:`dkv_route`'s rule: ``"wgmma"``
+    is ``bs_fwd_wg`` (persistent over the host's (head, query tile)
+    items), ``"mma"`` ``bs_fwd_mma``."""
+    return dkv_route(D, dtype)
+
+
+def dq_route(D: int, dtype: torch.dtype) -> str:
+    """The dQ kernel's form, by :func:`dkv_route`'s rule: ``"wgmma"`` is
+    ``bs_dq_wg``, ``"mma"`` ``bs_dq_mma``."""
+    return dkv_route(D, dtype)
+
+
 def _lib() -> ctypes.CDLL:
     lib = build.load("block_sparse_attention")
     P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    for fn, n_ptr in ((lib.block_sparse_attention_fwd_launch, 10),
-                      (lib.block_sparse_attention_bwd_dq_launch, 12),
+    for fn, n_ptr in ((lib.block_sparse_attention_fwd_launch, 13),
+                      (lib.block_sparse_attention_bwd_dq_launch, 15),
                       (lib.block_sparse_attention_bwd_dkv_launch, 15)):
         if fn.argtypes is None:
             fn.argtypes = [P] * n_ptr + [I] * 7 + [F, I, P]
@@ -156,12 +172,19 @@ def active_lists(mask: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
     return ptr, idx
 
 
-# the persistent dK/dV kernel's CTAs an SM (its grid: csrc/
-# block_sparse_attention.cu, launch_dkv_wg), and what taking up a (head,
-# key tile) item costs it beside its tiles (the own K / V load, the
-# epilogue), in tiles
-DKV_CTAS_PER_SM = 2
-DKV_ITEM_COST = 3
+# the persistent kernels' CTAs an SM (their grids: csrc/
+# block_sparse_attention.cu, launch_dkv_wg and launch_q_wg), and what
+# taking up an item costs each beside its tiles (the own tiles' load, the
+# epilogue), in tiles. The forward's and dq's were measured by
+# ``chip_smoke.py --sweep-item-cost`` at the long leg's call, costs 0 to
+# 8, in two runs: each kernel's readings spread 3.5-3.8% over all costs
+# with no trend, about twice the spread of repeats at one cost (PERF.md,
+# PR 9), so 1 is kept; the lists' costliest CTA held 79 tiles at every
+# cost. "q": the query side's
+# (head, query tile) items of the forward and dq; "k": dk/dv's (head, key
+# tile) items
+CTAS_PER_SM = 2
+ITEM_COST = {"q": 1, "k": 3}
 
 
 def balance(costs: np.ndarray, slots: int) -> Tuple[np.ndarray, np.ndarray]:
@@ -183,6 +206,27 @@ def balance(costs: np.ndarray, slots: int) -> Tuple[np.ndarray, np.ndarray]:
     ptr = np.zeros(slots + 1, np.int32)
     np.cumsum(np.bincount(owner, minlength=slots), out=ptr[1:])
     return ptr, items
+
+
+def fine_bits(layout: np.ndarray, fine_block: int, S: int, h: np.ndarray,
+              qt: np.ndarray, kt: np.ndarray) -> np.ndarray:
+    """[n, 2] int32: the fine layout over each listed tile (head h, query
+    tile qt, key tile kt) at 8 x 8 granularity, 64 bits, low word first:
+    bit 8 rg + kg is ``layout[h, (64 qt + 8 rg) // fine, (64 kt + 8 kg) //
+    fine]``, positions past S taken at S - 1 (the ragged edge is masked by
+    position). A fine block is a multiple of 8, so each 8 x 8 group lies in
+    one block: the wgmma forward and dq mask a tile from this word alone
+    (``mask_bits`` in the CUDA source)."""
+    g = np.arange(0, TILE, 8)
+    out = np.empty((len(h), 8), np.uint8)
+    for c0 in range(0, len(h), 1 << 16):          # bounded temporaries
+        sl = slice(c0, c0 + (1 << 16))
+        rows = np.minimum(qt[sl, None] * TILE + g, S - 1) // fine_block
+        cols = np.minimum(kt[sl, None] * TILE + g, S - 1) // fine_block
+        live = layout[h[sl, None, None], rows[:, :, None], cols[:, None, :]]
+        out[sl] = np.packbits(live.reshape(-1, 64), axis=1,
+                              bitorder="little")
+    return out.view("<i4").reshape(-1, 2)
 
 
 def longest_first(mask: np.ndarray) -> np.ndarray:
@@ -212,15 +256,24 @@ class Schedule:
     def n_tiles(self) -> int:
         return int(self.visited.sum())
 
-    def dkv_slots(self, sms: int) -> Tuple[torch.Tensor, torch.Tensor]:
-        """(ptr, items) int32 on the schedule's device: the (head, key tile)
-        items (h * nT + kt) of the persistent dK/dV kernel's CTAs on a card
-        of ``sms`` SMs, balanced by :func:`balance` over each item's list
-        length plus DKV_ITEM_COST; cached."""
-        key = f"dkv_slots_{sms}"
+    def item_costs(self, side: str) -> np.ndarray:
+        """[H * nT] int: what each item of a persistent kernel costs a CTA,
+        in tiles: its list length plus ITEM_COST[side]. side "q": the
+        (head, query tile) items of the forward and dq, over their key
+        tiles; "k": the (head, key tile) items of dk/dv, over their query
+        tiles."""
+        lengths = self.visited.sum(2 if side == "q" else 1)
+        return lengths.reshape(-1) + ITEM_COST[side]
+
+    def cta_slots(self, side: str, sms: int
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(ptr, items) int32 on the schedule's device: the items (h * nT
+        + t) of one ``side``'s persistent kernels' CTAs on a card of
+        ``sms`` SMs, balanced by :func:`balance` over :meth:`item_costs`;
+        cached."""
+        key = f"slots_{side}_{sms}_{ITEM_COST[side]}"
         if key not in self.dev:
-            costs = self.visited.sum(1).reshape(-1) + DKV_ITEM_COST
-            ptr, items = balance(costs, DKV_CTAS_PER_SM * sms)
+            ptr, items = balance(self.item_costs(side), CTAS_PER_SM * sms)
             dev = self.dev["k_ptr"].device
             self.dev[key] = (torch.as_tensor(ptr, device=dev),
                              torch.as_tensor(items, device=dev))
@@ -267,7 +320,9 @@ def schedule(layout, fine_block: int, S: int, *, causal: bool = False,
     whole tile, POS_BIT when causal, the window or the ragged edge (S not a
     multiple of 64) masks part of it. Device tensors: ``q_ptr``, ``q_idx``,
     ``q_flags``, ``q_order`` (query-tile lists, and each head's query tiles
-    longest list first: the launch order), ``k_ptr``, ``k_idx``,
+    longest list first: the launch order), ``q_bits`` (each listed tile's
+    :func:`fine_bits` where its flag has LAYOUT_BIT, else all ones: the
+    wgmma forward's and dq's mask), ``k_ptr``, ``k_idx``,
     ``k_flags``, ``k_order`` (their transpose) int32, and ``layout`` uint8
     (None unless layout_exact)."""
     window = int(window) if window and window > 0 else 0
@@ -304,10 +359,17 @@ def schedule(layout, fine_block: int, S: int, *, causal: bool = False,
     flags = np.where(vis, flags, 0).astype(np.int32)
     vis_t = vis.transpose(0, 2, 1)
     q_lists, k_lists = active_lists(vis), active_lists(vis_t)
+    q_flags = flags[vis]
+    q_bits = np.full((len(q_flags), 2), -1, np.int32)
+    holed = (q_flags & LAYOUT_BIT) != 0
+    if holed.any():
+        h, qt, kt = (a[holed] for a in np.nonzero(vis))
+        q_bits[holed] = fine_bits(lay, fine_block, S, h, qt, kt)
     i32 = dict(dtype=torch.int32, device=device)
     dev = {"q_ptr": torch.as_tensor(q_lists[0], **i32),
            "q_idx": torch.as_tensor(q_lists[1], **i32),
-           "q_flags": torch.as_tensor(flags[vis], **i32),
+           "q_flags": torch.as_tensor(q_flags, **i32),
+           "q_bits": torch.as_tensor(q_bits.reshape(-1), **i32),
            "q_order": torch.as_tensor(longest_first(vis), **i32),
            "k_ptr": torch.as_tensor(k_lists[0], **i32),
            "k_idx": torch.as_tensor(k_lists[1], **i32),
@@ -459,11 +521,13 @@ def _fwd(q, k, v, sched, scale):
     d = sched.dev
     o = torch.empty_like(q)
     lse = torch.empty(q.shape[:3], dtype=torch.float32, device=q.device)
+    cta_ptr, cta_items = sched.cta_slots("q", build.sm_count(q.device))
     lib = _lib()
     block_sparse_attention_fwd.launches += 1
     err = lib.block_sparse_attention_fwd_launch(
         _ptr(q), _ptr(k), _ptr(v), _ptr(d["layout"]), _ptr(d["q_ptr"]),
-        _ptr(d["q_idx"]), _ptr(d["q_flags"]), _ptr(d["q_order"]), _ptr(o),
+        _ptr(d["q_idx"]), _ptr(d["q_flags"]), _ptr(d["q_order"]),
+        _ptr(cta_ptr), _ptr(cta_items), _ptr(d["q_bits"]), _ptr(o),
         _ptr(lse),
         *_ints(q, sched), *_tail(q, scale))
     build.check(lib, "block_sparse_attention", err)
@@ -489,12 +553,14 @@ def _dq(q, k, v, do, lse, delta, sched, scale):
     q, k, v, do, lse, delta = _bwd_operands(q, k, v, do, lse, delta, sched)
     d = sched.dev
     dq = torch.empty_like(q)
+    cta_ptr, cta_items = sched.cta_slots("q", build.sm_count(q.device))
     lib = _lib()
     block_sparse_attention_bwd_dq.launches += 1
     err = lib.block_sparse_attention_bwd_dq_launch(
         _ptr(q), _ptr(k), _ptr(v), _ptr(do), _ptr(lse), _ptr(delta),
         _ptr(d["layout"]), _ptr(d["q_ptr"]), _ptr(d["q_idx"]),
-        _ptr(d["q_flags"]), _ptr(d["q_order"]), _ptr(dq), *_ints(q, sched),
+        _ptr(d["q_flags"]), _ptr(d["q_order"]), _ptr(cta_ptr),
+        _ptr(cta_items), _ptr(d["q_bits"]), _ptr(dq), *_ints(q, sched),
         *_tail(q, scale))
     build.check(lib, "block_sparse_attention", err)
     return dq
@@ -506,7 +572,7 @@ def _dkv(q, k, v, do, lse, delta, sched, scale):
     q, k, v, do, lse, delta = _bwd_operands(q, k, v, do, lse, delta, sched)
     d = sched.dev
     dk, dv = torch.empty_like(k), torch.empty_like(v)
-    cta_ptr, cta_items = sched.dkv_slots(build.sm_count(q.device))
+    cta_ptr, cta_items = sched.cta_slots("k", build.sm_count(q.device))
     lib = _lib()
     block_sparse_attention_bwd_dkv.launches += 1
     err = lib.block_sparse_attention_bwd_dkv_launch(

@@ -53,8 +53,9 @@
 // out in the A-operand layout of dV and dK (no atomics, no second pass).
 // Above width 128 the own rows stay in shared memory (OwnA,
 // attention_tile.cuh) and dk/dv splits its output columns over two CTAs
-// (blockIdx.z). The long leg's dK/dV call (16-bit, D 64) runs bs_dkv_wg
-// instead: persistent, TMA-fed, on wgmma (the section "Hopper: dK/dV" below).
+// (blockIdx.z). The long leg's calls (16-bit, D 64) run bs_fwd_wg, bs_dq_wg
+// and bs_dkv_wg instead: persistent, TMA-fed, on wgmma (the sections
+// "Hopper: dK/dV" and "Hopper: forward and dQ" below).
 // f32: CUDA-core FMAs (no TF32), 64 rows per CTA with 2, 4 or 8 threads
 // per row (widths 32, 64, 96, 128, 192, 256).
 
@@ -87,8 +88,10 @@ struct Params {
   const int* idx;                 // listed tiles
   const int* flags;               // one flag word per listed tile
   const int* order;               // [H * nT]: each head's tiles, longest list first
-  const int* cta_ptr;             // dk/dv wgmma: each CTA's (h * nT + kt) items,
-  const int* cta_items;           // CSR, balanced on the host
+  const int* cta_ptr;             // wgmma kernels: each CTA's (h * nT + t)
+  const int* cta_items;           // items, CSR, balanced on the host
+  const int* bits;                // wgmma forward, dq: each listed tile's
+                                  // fine layout, 64 bits (mask_bits)
   void* o;
   float* lse;
   void* dq;
@@ -144,6 +147,32 @@ __device__ __forceinline__ void mask_tile(float (*s)[4], const Params& p,
       const int a = c < 2 ? a0 : a1, b = bg + cq + (c & 1);
       bool keep = c < 2 ? in0 : in1;
       if (fl & POS_BIT) keep = keep && (QMAJOR ? pos_live(p, a, b) : pos_live(p, b, a));
+      if (!keep) s[j][c] = NEG_INF;
+    }
+  }
+}
+
+// -1e30 on the dead entries of a flagged 64 x 64 score tile of the wgmma
+// forward and dQ (rows queries, columns keys): the fine layout from the
+// tile's 64-bit word (lo, hi: bit 8 rg + kg set when rows 8 rg.. and keys
+// 8 kg.. of the tile are live in the layout; made on the host, read by the
+// producer, so the consumers make no device-memory read), then causal, the
+// window and the ragged edge. Consumer warp w's rows a0 and a1 = a0 + 8
+// lie in row groups 2 w and 2 w + 1: bytes 2 w and 2 w + 1 of the word.
+__device__ __forceinline__ void mask_bits(float (*s)[4], const Params& p,
+                                          int fl, uint32_t lo, uint32_t hi,
+                                          int warp, int a0, int a1, int b0,
+                                          int cq) {
+  const uint32_t w = (fl & LAYOUT_BIT) ? (warp < 2 ? lo : hi) : ~0u;
+  const uint32_t g0 = w >> (16 * (warp & 1)), g1 = g0 >> 8;
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    const int bg = b0 + j * 8;
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      const int a = c < 2 ? a0 : a1, b = bg + cq + (c & 1);
+      bool keep = (((c < 2 ? g0 : g1) >> j) & 1) != 0;
+      if (fl & POS_BIT) keep = keep && pos_live(p, a, b);
       if (!keep) s[j][c] = NEG_INF;
     }
   }
@@ -1005,6 +1034,495 @@ int launch_dkv_wg(const Params& p, int BH, cudaStream_t st) {
   return static_cast<int>(cudaGetLastError());
 }
 
+// ------------------------------------ Hopper: forward and dQ, wgmma
+
+// The long leg's forward and dQ calls (16-bit, D 64) in bs_dkv_wg's shape,
+// walking the query-tile lists:
+// * Persistent CTAs, two an SM, each a consumer warpgroup (64 query rows,
+//   216 registers a thread by setmaxnreg) and a producer warpgroup. Each
+//   CTA takes a list of (head, query tile) items, each for every batch
+//   row, balanced on the host over each item's list length plus a per-item
+//   cost (ops/block_sparse_attention.py, Schedule.cta_slots). The PR 4
+//   kernels ran one CTA of 4 warps per (b*h, query tile): 2048 CTAs a
+//   long-leg launch, each loading its own Q, walking 1-19 key tiles and
+//   waiting on its own list reads, with nothing beside its softmax.
+// * The producer's first warp makes every device-memory read the consumers
+//   would wait on: an item's head, query tile and list length go to shared
+//   memory beside its own Q (and dO, and for dQ its rows' lse log2(e) and
+//   delta sm_scale) in two own slots, so the next item's land under this
+//   one's epilogue; each listed key tile's flags and first key beside its K
+//   and V (TMA) in a ring of QWG_STAGES slots signalled full and freed
+//   through mbarriers, running on across items. The list's entries are
+//   read 32 at a time, a lane each.
+// * The forward's consumers compute S = Q K^T (both operands in shared
+//   memory, 128-byte swizzle), mask a flagged tile (one branch a tile), run
+//   the online softmax on the unscaled scores (exp((s - m) sm_scale) as one
+//   FFMA and one EX2), then O += P V with P as the register A operand and V
+//   read MN-major. Tile e + 1's S goes out together with tile e's P V, as
+//   two wgmma groups: the warpgroup waits for S, runs the softmax while P V
+//   runs, then waits for P V before O is rescaled (never while a product
+//   into O is in flight). The other CTA on the SM fills the gaps.
+// * dQ's consumers compute S = Q K^T and dP = dO V^T, P = exp(s sm_scale -
+//   lse) (one FFMA, one EX2; a masked entry exactly 0), dS = P (dp sm_scale
+//   - delta sm_scale), rounded and packed as the A operand of dQ += dS K (K
+//   read MN-major). Tile e's dS K goes out with tile e + 1's S / dP; dS of
+//   tile e + 1 is computed while dS K runs. Each item owns its rows: no
+//   atomics, and repeats are bit-identical.
+// * A flagged tile is masked from the host's 64-bit word of its fine layout
+//   (mask_bits), which the producer puts beside the tile's flags: the
+//   consumers make no device-memory read. Looking the layout up in device
+//   memory, as mask_tile does, left the forward at the parent's time on
+//   DeepSpeed's block-16 layout, whose every tile is masked (PERF.md, PR 9).
+// The arithmetic is bs_fwd_mma's and bs_dq_mma's up to rounding.
+
+constexpr int QWG_STAGES = 4;             // K / V ring slots
+
+struct QwgMaps {                          // [BH, S, 64] tensor maps
+  CUtensorMap q, k, v, dout;
+};
+
+// shared memory of the query-side kernels (DQ: the dQ kernel): two own
+// slots of Q (and dO), QWG_STAGES ring slots of K and V (82 KB forward,
+// 98 KB dQ: two CTAs an SM), dQ's rows, the barriers, the items' and
+// entries' metadata; 1024 bytes of slack for the alignment
+template <bool DQ> struct Qwg {
+  static constexpr int OWN = DQ ? 2 : 1;  // tiles an item owns
+  static constexpr size_t SMEM = 1024 + 2 * DKV_TILE * 2 * (OWN + QWG_STAGES) +
+                                 sizeof(float) * 2 * 128 +
+                                 sizeof(uint64_t) * (2 * QWG_STAGES + 4) +
+                                 sizeof(int) * (4 * QWG_STAGES + 6);
+};
+
+template <typename E, bool DQ> struct QwgSmem {
+  E* own;                                 // [slot][Q, dO]
+  E* ring;                                // [stage][K, V]
+  float* rows;                            // [slot][lse log2(e), delta sm_scale]
+  uint64_t* full;                         // [stage]
+  uint64_t* empty;                        // [stage]
+  uint64_t* own_full;                     // [slot]
+  uint64_t* own_empty;                    // [slot]
+  int* meta;                              // [stage][flags, first key, bits]
+  int* imeta;                             // [slot][bh, qt, count]
+
+  __device__ explicit QwgSmem(unsigned char* raw) {
+    own = reinterpret_cast<E*>(
+        (reinterpret_cast<uintptr_t>(raw) + 1023) & ~uintptr_t(1023));
+    ring = own + 2 * Qwg<DQ>::OWN * DKV_TILE;
+    rows = reinterpret_cast<float*>(ring + 2 * QWG_STAGES * DKV_TILE);
+    full = reinterpret_cast<uint64_t*>(rows + 2 * 128);
+    empty = full + QWG_STAGES;
+    own_full = empty + QWG_STAGES;
+    own_empty = own_full + 2;
+    meta = reinterpret_cast<int*>(own_empty + 2);
+    imeta = meta + 4 * QWG_STAGES;
+  }
+
+  // full: one arrival with the TMA bytes; empty: the consumers; own_full:
+  // the producer warp's 32 lanes (dQ's rows) with the bytes
+  __device__ void init() const {
+    if (threadIdx.x == 0) {
+      for (int i = 0; i < QWG_STAGES; ++i) {
+        hopper::mbar_init(&full[i], 1);
+        hopper::mbar_init(&empty[i], DKV_WG);
+      }
+      for (int i = 0; i < 2; ++i) {
+        hopper::mbar_init(&own_full[i], 32);
+        hopper::mbar_init(&own_empty[i], DKV_WG);
+      }
+      hopper::fence_mbar_init();
+    }
+    __syncthreads();
+  }
+};
+
+// this CTA's item count: its (head, query tile) list, each for every
+// batch row; item n is list entry n / B of batch row n % B
+__device__ __forceinline__ int cta_item_count(const Params& p, int BH) {
+  return (p.cta_ptr[blockIdx.x + 1] - p.cta_ptr[blockIdx.x]) * (BH / p.H);
+}
+
+// the producer warp of bs_fwd_wg / bs_dq_wg
+template <typename E, bool DQ>
+__device__ __forceinline__ void q_produce(const QwgMaps& maps,
+                                          const Params& p, int BH,
+                                          const QwgSmem<E, DQ>& s,
+                                          int lane) {
+  using namespace hopper;
+  constexpr int OWN = Qwg<DQ>::OWN;
+  const int B = BH / p.H, c0 = p.cta_ptr[blockIdx.x];
+  const int items = cta_item_count(p, BH);
+  int i = 0;                                // ring entries so far
+  for (int n = 0; n < items; ++n) {
+    const int hq = p.cta_items[c0 + n / B], h = hq / p.nT, qt = hq % p.nT;
+    const int bh = (n % B) * p.H + h;
+    const int e0 = p.ptr[hq], e1 = p.ptr[hq + 1];
+    const int os = n & 1;
+    float r0[2] = {0.f, 0.f}, r1[2] = {0.f, 0.f};   // dQ: the item's rows
+    if constexpr (DQ) {
+      const size_t off = (size_t)bh * p.S;
+#pragma unroll
+      for (int u = 0; u < 2; ++u) {
+        const int q = qt * T + lane + 32 * u;
+        r0[u] = q < p.S ? p.lse_in[off + q] * LOG2E : 0.f;
+        r1[u] = q < p.S ? p.delta[off + q] * p.sm_scale : 0.f;
+      }
+    }
+    if (n >= 2) mbar_wait(&s.own_empty[os], ((n >> 1) & 1) ^ 1);
+    if (lane == 0) {
+      int* im = s.imeta + 3 * os;
+      im[0] = bh;
+      im[1] = qt;
+      im[2] = e1 - e0;
+      E* qs = s.own + OWN * os * DKV_TILE;
+      mbar_expect_tx(&s.own_full[os], OWN * DKV_TILE * 2);
+      tma_tile(qs, &maps.q, &s.own_full[os], 0, qt * T, bh);
+      if constexpr (DQ)
+        tma_tile(qs + DKV_TILE, &maps.dout, &s.own_full[os], 0, qt * T, bh);
+    }
+    if constexpr (DQ) {
+      float* r = s.rows + os * 128;
+#pragma unroll
+      for (int u = 0; u < 2; ++u) {
+        r[lane + 32 * u] = r0[u];
+        r[64 + lane + 32 * u] = r1[u];
+      }
+    }
+    mbar_arrive(&s.own_full[os]);
+    for (int eb = e0; eb < e1; eb += 32) {
+      const bool mine = eb + lane < e1;
+      const int tiles = mine ? p.idx[eb + lane] : 0;
+      const int flags = mine ? p.flags[eb + lane] : 0;
+      const int lo = mine ? p.bits[2 * (eb + lane)] : 0;
+      const int hi = mine ? p.bits[2 * (eb + lane) + 1] : 0;
+      for (int j = 0; j < min(32, e1 - eb); ++j, ++i) {
+        const int st = i % QWG_STAGES;
+        const int k0 = __shfl_sync(0xffffffffu, tiles, j) * T;
+        const int fl = __shfl_sync(0xffffffffu, flags, j);
+        const int blo = __shfl_sync(0xffffffffu, lo, j);
+        const int bhi = __shfl_sync(0xffffffffu, hi, j);
+        if (lane == 0) {
+          if (i >= QWG_STAGES)
+            mbar_wait(&s.empty[st], ((i / QWG_STAGES) & 1) ^ 1);
+          int* me = s.meta + 4 * st;
+          me[0] = fl;
+          me[1] = k0;
+          me[2] = blo;
+          me[3] = bhi;
+          E* slot = s.ring + 2 * st * DKV_TILE;
+          mbar_arrive_expect_tx(&s.full[st], 2 * DKV_TILE * 2);
+          tma_tile(slot, &maps.k, &s.full[st], 0, k0, bh);
+          tma_tile(slot + DKV_TILE, &maps.v, &s.full[st], 0, k0, bh);
+        }
+      }
+    }
+  }
+}
+
+template <typename E>
+__global__ void __launch_bounds__(DKV_THREADS, 2)
+bs_fwd_wg(const __grid_constant__ QwgMaps maps, Params p, int BH) {
+  using namespace hopper;
+  extern __shared__ unsigned char smem_raw[];
+  const QwgSmem<E, false> s(smem_raw);
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  s.init();
+  // the role through a shuffle, so the compiler sees it uniform
+  const int wg = __shfl_sync(0xffffffffu, tid / DKV_WG, 0);
+  if (wg == 1) {                            // the producer warpgroup
+    regs_dealloc<DKV_PRODUCER_REGS>();
+    if (warp == 4) q_produce<E, false>(maps, p, BH, s, lane);
+    return;
+  }
+  regs_alloc<DKV_CONSUMER_REGS>();
+  // the consumer warpgroup: query rows qt * 64 + 16 warp + lane / 4 (+ 8),
+  // key columns 8 j + 2 (lane % 4) (+ 1) of the score tile
+  const int cq = (lane % 4) * 2;
+  const float scl2 = p.sm_scale * LOG2E;
+  const int items = cta_item_count(p, BH);
+  uint32_t pa[4][4] = {};                   // P of the tile in P V, packed
+  auto keep = [&]() {                       // pa lives until here
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) asm volatile("" :: "r"(pa[kk][c]));
+  };
+  auto slot = [&](int t) { return s.ring + 2 * (t % QWG_STAGES) * DKV_TILE; };
+  auto full_wait = [&](int t) {
+    mbar_wait(&s.full[t % QWG_STAGES], (t / QWG_STAGES) & 1);
+  };
+  auto issue_pv = [&](int t, float (*of)[4]) {   // O += P V of tile t
+    const uint64_t dv = desc_sw128(slot(t) + DKV_TILE);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) Wgmma<64>::rs<E>(of, pa[kk], dv + 128 * kk);
+  };
+  int i = 0;                                // ring entries so far
+  for (int n = 0; n < items; ++n) {
+    const int os = n & 1;
+    mbar_wait(&s.own_full[os], (n >> 1) & 1);
+    const int* im = s.imeta + 3 * os;
+    const int bh = im[0], qt = im[1];
+    const int count = __shfl_sync(0xffffffffu, im[2], 0);   // uniform
+    const int r0 = qt * T + warp * 16 + lane / 4, r1 = r0 + 8;
+    const E* Qs = s.own + os * DKV_TILE;
+    float of[8][4], sf[8][4], m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};
+    float alpha[2] = {1.f, 1.f};
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) of[j][c] = 0.f;
+    // tile t's S in sf -> unnormalized P: the mask where the tile's flag
+    // asks for it, then the online softmax of the thread's two rows on the
+    // unscaled scores. A row with no live key yet (mx == -1e30) takes its
+    // offset as 0, so its masked scores still give exactly 0, and m == mx
+    // == -1e30 rescales by exactly 1. Updates m, l and O's rescale alpha.
+    auto softmax = [&](int t) {
+      const int* me = s.meta + 4 * (t % QWG_STAGES);
+      const int fl = me[0];
+      if (fl != 0)
+        mask_bits(sf, p, fl, me[2], me[3], warp, r0, r1, me[1], cq);
+#pragma unroll
+      for (int rr = 0; rr < 2; ++rr) {
+        float mx = m[rr];
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+          mx = fmaxf(mx, fmaxf(sf[j][2 * rr], sf[j][2 * rr + 1]));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+        const float mxs = mx == NEG_INF ? 0.f : mx * scl2;
+        alpha[rr] = ex2((m[rr] - mx) * scl2);
+        float ps = 0.f;
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+#pragma unroll
+          for (int c = 2 * rr; c < 2 * rr + 2; ++c) {
+            const float e = ex2(fmaf(sf[j][c], scl2, -mxs));
+            sf[j][c] = e;
+            ps += e;
+          }
+        l[rr] = l[rr] * alpha[rr] + ps;
+        m[rr] = mx;
+      }
+    };
+    auto rescale_pack = [&]() {             // O *= alpha; P -> A operand
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        of[j][0] *= alpha[0];
+        of[j][1] *= alpha[0];
+        of[j][2] *= alpha[1];
+        of[j][3] *= alpha[1];
+      }
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) pack_a<E>(pa[kk], sf, kk);
+    };
+    // the first tile's S alone, then each tile's P V with the next one's
+    // S, then the last tile's P V alone: no wgmma in a branch
+    if (count > 0) {
+      full_wait(i);
+      wg_fence();
+      product_ss<E>(sf, Qs, slot(i));       // S = Q K^T
+      wg_commit();
+      wg_wait<0>();
+      fence_acc<8>(sf);
+      softmax(i);
+      rescale_pack();
+      for (int e = 0; e + 1 < count; ++e, ++i) {
+        full_wait(i + 1);
+        fence_acc<8>(of);
+        fence_acc<8>(sf);
+        wg_fence();
+        product_ss<E>(sf, Qs, slot(i + 1));
+        wg_commit();
+        issue_pv(i, of);
+        wg_commit();
+        wg_wait<1>();                       // S of tile i + 1 has landed
+        fence_acc<8>(sf);
+        softmax(i + 1);
+        wg_wait<0>();                       // P V of tile i has landed
+        keep();
+        fence_acc<8>(of);
+        mbar_arrive(&s.empty[i % QWG_STAGES]);
+        rescale_pack();
+      }
+      fence_acc<8>(of);
+      wg_fence();
+      issue_pv(i, of);
+      wg_commit();
+      wg_wait<0>();
+      keep();
+      fence_acc<8>(of);
+      mbar_arrive(&s.empty[i % QWG_STAGES]);
+      ++i;
+    }
+    mbar_arrive(&s.own_empty[os]);          // Q and imeta of this slot are read
+    float inv[2];
+#pragma unroll
+    for (int rr = 0; rr < 2; ++rr) {
+      float lt = l[rr];
+      lt += __shfl_xor_sync(0xffffffffu, lt, 1);
+      lt += __shfl_xor_sync(0xffffffffu, lt, 2);
+      inv[rr] = 1.f / (lt == 0.f ? 1.f : lt);      // a dead row writes zeros
+      const int row = rr ? r1 : r0;
+      // m is the unscaled max: lse = m sm_scale + log(max(l, 1e-37)), -1e30
+      // + log(1e-37) for a row without a live key as in bs_fwd_mma
+      const float ms = m[rr] == NEG_INF ? NEG_INF : m[rr] * p.sm_scale;
+      if (row < p.S && lane % 4 == 0)
+        p.lse[(size_t)bh * p.S + row] = ms + logf(fmaxf(lt, 1e-37f));
+    }
+    store_rows<E, 64>(static_cast<E*>(p.o) + (size_t)bh * p.S * 64, of, r0,
+                      r1, p.S, 64, cq, inv[0], inv[1]);
+  }
+}
+
+template <typename E>
+__global__ void __launch_bounds__(DKV_THREADS, 2)
+bs_dq_wg(const __grid_constant__ QwgMaps maps, Params p, int BH) {
+  using namespace hopper;
+  extern __shared__ unsigned char smem_raw[];
+  const QwgSmem<E, true> s(smem_raw);
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  s.init();
+  const int wg = __shfl_sync(0xffffffffu, tid / DKV_WG, 0);
+  if (wg == 1) {                            // the producer warpgroup
+    regs_dealloc<DKV_PRODUCER_REGS>();
+    if (warp == 4) q_produce<E, true>(maps, p, BH, s, lane);
+    return;
+  }
+  regs_alloc<DKV_CONSUMER_REGS>();
+  const int cq = (lane % 4) * 2;
+  const float scl2 = p.sm_scale * LOG2E;
+  const int items = cta_item_count(p, BH);
+  uint32_t da[4][4] = {};                   // dS of the tile in dS K, packed
+  auto keep = [&]() {                       // da lives until here
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) asm volatile("" :: "r"(da[kk][c]));
+  };
+  auto slot = [&](int t) { return s.ring + 2 * (t % QWG_STAGES) * DKV_TILE; };
+  auto full_wait = [&](int t) {
+    mbar_wait(&s.full[t % QWG_STAGES], (t / QWG_STAGES) & 1);
+  };
+  auto issue_dq = [&](int t, float (*acc)[4]) {  // dQ += dS K of tile t
+    const uint64_t dk = desc_sw128(slot(t));
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) Wgmma<64>::rs<E>(acc, da[kk], dk + 128 * kk);
+  };
+  int i = 0;
+  for (int n = 0; n < items; ++n) {
+    const int os = n & 1;
+    mbar_wait(&s.own_full[os], (n >> 1) & 1);
+    const int* im = s.imeta + 3 * os;
+    const int bh = im[0], qt = im[1];
+    const int count = __shfl_sync(0xffffffffu, im[2], 0);   // uniform
+    const int r0 = qt * T + warp * 16 + lane / 4, r1 = r0 + 8;
+    const E* Qs = s.own + 2 * os * DKV_TILE;
+    const E* Ds = Qs + DKV_TILE;
+    const float* rw = s.rows + os * 128;
+    const float lse2[2] = {rw[r0 - qt * T], rw[r1 - qt * T]};
+    const float dlts[2] = {rw[64 + r0 - qt * T], rw[64 + r1 - qt * T]};
+    float acc[8][4], sf[8][4], dp[8][4];
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) acc[j][c] = 0.f;
+    // tile t's S, dP in sf, dp -> dS in sf: p = exp(s sm_scale - lse) as
+    // one FFMA and one EX2, a masked entry exactly 0; dS = p (dp sm_scale -
+    // delta sm_scale)
+    auto dscore = [&](int t) {
+      const int* me = s.meta + 4 * (t % QWG_STAGES);
+      const int fl = me[0];
+      if (fl != 0)
+        mask_bits(sf, p, fl, me[2], me[3], warp, r0, r1, me[1], cq);
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          const int rr = c >> 1;
+          const float pr = sf[j][c] > 0.5f * NEG_INF
+                               ? ex2(fmaf(sf[j][c], scl2, -lse2[rr])) : 0.f;
+          sf[j][c] = pr * fmaf(dp[j][c], p.sm_scale, -dlts[rr]);
+        }
+    };
+    auto pack = [&]() {
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) pack_a<E>(da[kk], sf, kk);
+    };
+    // the first tile's S / dP alone, then each tile's dS K with the next
+    // one's S / dP, then the last tile's dS K alone: no wgmma in a branch
+    if (count > 0) {
+      full_wait(i);
+      wg_fence();
+      product_ss<E>(sf, Qs, slot(i));                 // S = Q K^T
+      product_ss<E>(dp, Ds, slot(i) + DKV_TILE);      // dP = dO V^T
+      wg_commit();
+      wg_wait<0>();
+      fence_acc<8>(sf);
+      fence_acc<8>(dp);
+      dscore(i);
+      for (int e = 0; e + 1 < count; ++e, ++i) {
+        full_wait(i + 1);
+        pack();
+        fence_acc<8>(acc);
+        fence_acc<8>(sf);
+        fence_acc<8>(dp);
+        wg_fence();
+        product_ss<E>(sf, Qs, slot(i + 1));
+        product_ss<E>(dp, Ds, slot(i + 1) + DKV_TILE);
+        wg_commit();
+        issue_dq(i, acc);
+        wg_commit();
+        wg_wait<1>();                       // S, dP of tile i + 1 have landed
+        fence_acc<8>(sf);
+        fence_acc<8>(dp);
+        dscore(i + 1);
+        wg_wait<0>();                       // dS K of tile i has landed
+        keep();
+        fence_acc<8>(acc);
+        mbar_arrive(&s.empty[i % QWG_STAGES]);
+      }
+      pack();
+      fence_acc<8>(acc);
+      wg_fence();
+      issue_dq(i, acc);
+      wg_commit();
+      wg_wait<0>();
+      keep();
+      fence_acc<8>(acc);
+      mbar_arrive(&s.empty[i % QWG_STAGES]);
+      ++i;
+    }
+    mbar_arrive(&s.own_empty[os]);  // Q, dO, rows and imeta of this slot are read
+    store_rows<E, 64>(static_cast<E*>(p.dq) + (size_t)bh * p.S * 64, acc, r0,
+                      r1, p.S, 64, cq);
+  }
+}
+
+// the forward (DQ false) or dQ kernel of the long leg's call: persistent,
+// two CTAs an SM, over the host's per-CTA item lists
+template <typename E, bool DQ>
+int launch_q_wg(const Params& p, int BH, cudaStream_t st) {
+  const bool bf = std::is_same<E, bf16>::value;
+  QwgMaps maps;
+  if (!hopper::tile_map(&maps.q, p.q, bf, p.S, BH) ||
+      !hopper::tile_map(&maps.k, p.k, bf, p.S, BH) ||
+      !hopper::tile_map(&maps.v, p.v, bf, p.S, BH) ||
+      (DQ && !hopper::tile_map(&maps.dout, p.dout, bf, p.S, BH)))
+    return ERR_TENSOR_MAP;
+  static int sms = 0;                       // the host's lists: 2 an SM
+  if (sms == 0) {
+    int dev = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  }
+  auto kernel = DQ ? bs_dq_wg<E> : bs_fwd_wg<E>;
+  const cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)Qwg<DQ>::SMEM);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  kernel<<<2 * sms, DKV_THREADS, Qwg<DQ>::SMEM, st>>>(maps, p, BH);
+  return static_cast<int>(cudaGetLastError());
+}
+
 // ------------------------------------------------- head dims above 256
 
 // this file's schedule and masks for attention_wide.cuh: the host's
@@ -1071,22 +1589,31 @@ int by_type(const Params& p, int dtype, F&& go) {
 template <int DP>
 int launch_fwd(const Params& p, int BH, int dtype, cudaStream_t st) {
   if (dtype == 0) return launch(bs_fwd_f32<DP>, p, BH, F32<DP>::NT, st);
+  if (p.D == 64)                            // the long leg: wgmma + TMA
+    return dtype == 1 ? launch_q_wg<bf16, false>(p, BH, st)
+                      : launch_q_wg<f16, false>(p, BH, st);
   constexpr size_t smem =
       pair_smem_bytes<bf16, DP>(T) + own_smem_bytes<bf16, DP>(1);
   return by_type<DP>(p, dtype, [&](auto e, auto x) {
-    return launch(bs_fwd_mma<decltype(e), DP, decltype(x)::value>, p, BH,
-                  NTHREADS, st, smem);
+    // D 64 took the wgmma kernel above: no exact variant at width 64
+    constexpr bool exact = decltype(x)::value && DP != 64;
+    return launch(bs_fwd_mma<decltype(e), DP, exact>, p, BH, NTHREADS, st,
+                  smem);
   });
 }
 
 template <int DP>
 int launch_dq(const Params& p, int BH, int dtype, cudaStream_t st) {
   if (dtype == 0) return launch(bs_dq_f32<DP>, p, BH, F32<DP>::NT, st);
+  if (p.D == 64)                            // the long leg: wgmma + TMA
+    return dtype == 1 ? launch_q_wg<bf16, true>(p, BH, st)
+                      : launch_q_wg<f16, true>(p, BH, st);
   constexpr size_t smem =
       pair_smem_bytes<bf16, DP>(T) + own_smem_bytes<bf16, DP>(2);
   return by_type<DP>(p, dtype, [&](auto e, auto x) {
-    return launch(bs_dq_mma<decltype(e), DP, decltype(x)::value>, p, BH,
-                  NTHREADS, st, smem);
+    constexpr bool exact = decltype(x)::value && DP != 64;
+    return launch(bs_dq_mma<decltype(e), DP, exact>, p, BH, NTHREADS, st,
+                  smem);
   });
 }
 
@@ -1167,22 +1694,30 @@ extern "C" {
 // dtype: 0 = float32, 1 = bfloat16, 2 = float16 (q, k, v, dout and the
 // outputs alike). D: any multiple of 8. ptr / idx / flags /
 // order: the query-tile lists and their order (forward, dq) or the key-tile
-// ones (dkv); cta_ptr / cta_items (dkv): the persistent kernel's item lists,
-// 2 CTAs an SM. layout: null when layout_exact is off; fine: a multiple of 8
-// that divides S. Each returns the CUDA error of its launch (0 =
-// launched); -1 for a dtype or head dim the kernels lack.
+// ones (dkv); cta_ptr / cta_items: the persistent kernels' item lists (the
+// (head, query tile) items for the forward and dq, the (head, key tile)
+// ones for dkv), 2 CTAs an SM; bits (forward, dq): each listed tile's fine
+// layout as two ints (mask_bits). layout: null when layout_exact is off;
+// fine: a multiple of 8 that divides S. Each returns the CUDA error of its
+// launch (0 = launched); -1 for a dtype or head dim the kernels lack, -2
+// when a TMA tensor map cannot be encoded.
 int block_sparse_attention_fwd_launch(const void* q, const void* k,
                                       const void* v, const void* layout,
                                       const void* ptr, const void* idx,
                                       const void* flags, const void* order,
-                                      void* o, void* lse,
-                                      int BH, int H, int S, int D, int fine,
-                                      int causal, int window, float sm_scale,
-                                      int dtype, void* stream) {
+                                      const void* cta_ptr,
+                                      const void* cta_items, const void* bits,
+                                      void* o, void* lse, int BH, int H,
+                                      int S, int D, int fine, int causal,
+                                      int window, float sm_scale, int dtype,
+                                      void* stream) {
   Params p = make_params(q, k, v, nullptr, nullptr, nullptr, layout, ptr, idx,
                          flags, order, H, S, D, fine, causal, window, sm_scale);
   p.o = o;
   p.lse = static_cast<float*>(lse);
+  p.cta_ptr = static_cast<const int*>(cta_ptr);
+  p.cta_items = static_cast<const int*>(cta_items);
+  p.bits = static_cast<const int*>(bits);
   if (!supported(D, dtype)) return -1;
   if (S <= 0 || BH <= 0) return 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -1197,14 +1732,20 @@ int block_sparse_attention_bwd_dq_launch(const void* q, const void* k,
                                          const void* lse, const void* delta,
                                          const void* layout, const void* ptr,
                                          const void* idx, const void* flags,
-                                         const void* order, void* dq, int BH,
-                                         int H, int S, int D,
+                                         const void* order,
+                                         const void* cta_ptr,
+                                         const void* cta_items,
+                                         const void* bits, void* dq,
+                                         int BH, int H, int S, int D,
                                          int fine, int causal, int window,
                                          float sm_scale, int dtype,
                                          void* stream) {
   Params p = make_params(q, k, v, dout, lse, delta, layout, ptr, idx, flags,
                          order, H, S, D, fine, causal, window, sm_scale);
   p.dq = dq;
+  p.cta_ptr = static_cast<const int*>(cta_ptr);
+  p.cta_items = static_cast<const int*>(cta_items);
+  p.bits = static_cast<const int*>(bits);
   if (!supported(D, dtype)) return -1;
   if (S <= 0 || BH <= 0) return 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);

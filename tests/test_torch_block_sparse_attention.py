@@ -365,18 +365,28 @@ def test_head_dim_256_forward_and_backward(causal):
                                    atol=2e-4)
 
 
-@pytest.mark.parametrize("slots", [264, 100, 7])
-def test_dkv_slots_balance_the_long_leg(slots):
-    """The persistent dK/dV kernel's per-CTA item lists (``balance``, a
-    pure function): every (head, key tile) item once, each list costliest
-    first, and at the long leg's layout (DeepSpeed's fixed, blocks of 64,
-    unidirectional, S 4096, 32 heads: dK/dV lists of 1 to 61 tiles) no
-    list costs more than the mean plus the costliest item, within the
-    4/3 of the best that LPT guarantees."""
+# the k side's cases keep their first ids; the query side's are new
+@pytest.mark.parametrize("side,slots", [
+    pytest.param("k", 264, id="264"), pytest.param("k", 100, id="100"),
+    pytest.param("k", 7, id="7"),
+    *(pytest.param("q", slots, id=f"q-{slots}") for slots in (264, 100, 7))])
+def test_dkv_slots_balance_the_long_leg(side, slots):
+    """The persistent kernels' per-CTA item lists (``balance``, a pure
+    function), on both sides: the (head, key tile) items of dK/dV and the
+    (head, query tile) items of the forward and dQ. Every item once, each
+    list costliest first, and at the long leg's layout (DeepSpeed's fixed,
+    blocks of 64, unidirectional, S 4096, 32 heads: dK/dV lists of 1 to 61
+    tiles, query-side lists of 1 to 19) no list costs more than the mean
+    plus the costliest item, within the 4/3 of the best that LPT
+    guarantees; ``Schedule.cta_slots`` gives the same lists for a card of
+    slots / 2 SMs."""
     cfg = tsa.FixedSparsityConfig(num_heads=32, block=64, num_local_blocks=4,
                                   num_global_blocks=1, **_UNI)
     sched = tbs.schedule(tsa.config_layout(cfg, 4096), 64, 4096, causal=True)
-    costs = sched.visited.sum(1).reshape(-1) + tbs.DKV_ITEM_COST
+    costs = sched.item_costs(side)
+    lengths = sched.visited.sum(1 if side == "k" else 2).reshape(-1)
+    assert np.array_equal(costs, lengths + tbs.ITEM_COST[side])
+    assert lengths.max() == (61 if side == "k" else 19)
     ptr, items = tbs.balance(costs, slots)
     assert ptr[0] == 0 and ptr[-1] == costs.size and len(ptr) == slots + 1
     assert sorted(items.tolist()) == list(range(costs.size))
@@ -387,11 +397,72 @@ def test_dkv_slots_balance_the_long_leg(slots):
     for w in range(slots):
         c = costs[items[ptr[w]:ptr[w + 1]]]
         assert np.all(np.diff(c) <= 0)
+    if slots % tbs.CTAS_PER_SM == 0:
+        tptr, titems = sched.cta_slots(side, slots // tbs.CTAS_PER_SM)
+        assert np.array_equal(tptr.numpy(), ptr)
+        assert np.array_equal(titems.numpy(), items)
     # dealt round-robin in longest-first order instead, the costliest CTA
-    # takes much more than the mean (what the host balancing removes)
+    # takes much more than the mean (what the host balancing removes): the
+    # long dK/dV lists 1.3x, the query side's 1.1x
     order = np.argsort(-costs, kind="stable")
     rr = np.bincount(np.arange(costs.size) % slots, weights=costs[order],
                      minlength=slots)
     if slots == 264:
-        assert rr.max() > 1.3 * costs.sum() / slots
-        assert loads.max() < 1.1 * costs.sum() / slots
+        skew, tight = (1.3, 1.1) if side == "k" else (1.1, 1.05)
+        assert rr.max() > skew * costs.sum() / slots
+        assert loads.max() < tight * costs.sum() / slots
+
+
+@pytest.mark.parametrize("D,dtype,want", [
+    (64, torch.float32, "f32"), (64, torch.bfloat16, "wgmma"),
+    (64, torch.float16, "wgmma"), (80, torch.float32, "f32"),
+    (80, torch.bfloat16, "mma"), (80, torch.float16, "mma"),
+    (264, torch.float32, "wide"), (264, torch.bfloat16, "wide"),
+    (264, torch.float16, "wide")])
+def test_routes_on_meta_tensors(D, dtype, want):
+    """Which form of each block-sparse kernel a call takes, from the shapes
+    and dtype alone (meta tensors: no data, no device): the 16-bit D 64
+    call (the long and window legs') the persistent wgmma kernels
+    (bs_fwd_wg, bs_dq_wg, bs_dkv_wg), the other 16-bit widths mma.sync, f32
+    the CUDA-core kernels and D above 256 the wide forms; each a call the
+    kernels take."""
+    q = torch.empty(1, 4, 512, D, dtype=dtype, device="meta")
+    layout = tsa.config_layout(tsa.FixedSparsityConfig(
+        num_heads=4, block=64, **_UNI), 512)
+    assert tbs.tileable(q, q, q, 64, layout) is None
+    for route in (tbs.fwd_route, tbs.dq_route, tbs.dkv_route):
+        assert route(q.shape[-1], q.dtype) == want
+
+
+@pytest.mark.parametrize("S,fine", [(1008, 16), (512, 8), (960, 24),
+                                    (1024, 32)])
+def test_fine_bits_hold_the_layout(S, fine):
+    """The wgmma forward's and dq's mask word (``fine_bits``, ``q_bits`` of
+    the schedule): for every listed tile with LAYOUT_BIT, bit 8 rg + kg is
+    the dense layout mask on the whole 8 x 8 group of rows 8 rg.. and keys
+    8 kg.. of the tile (a fine block is a multiple of 8, so the group is
+    uniform; past S the last position counts); tiles without LAYOUT_BIT
+    carry all ones."""
+    cfg = tsa.BigBirdSparsityConfig(num_heads=2, block=fine,
+                                    num_random_blocks=2,
+                                    different_layout_per_head=True)
+    layout = tsa.config_layout(cfg, S)
+    sched = tbs.schedule(layout, fine, S, causal=True)
+    h, qt, kt = np.nonzero(sched.visited)
+    flags = sched.flags[sched.visited]
+    words = sched.dev["q_bits"].numpy().reshape(-1, 2).view("<u8")[:, 0]
+    assert (flags & tbs.LAYOUT_BIT).any()
+    dense = tsa.layout_to_dense_mask(layout, fine, device="cpu").numpy()
+    g = np.minimum(np.arange(0, 64, 8), S - 1)
+    for n in range(len(h)):
+        if not flags[n] & tbs.LAYOUT_BIT:
+            assert words[n] == ~np.uint64(0)
+            continue
+        rows = np.minimum(qt[n] * 64 + g, S - 1)
+        cols = np.minimum(kt[n] * 64 + g, S - 1)
+        want = dense[h[n]][np.ix_(rows, cols)]
+        got = (words[n] >> np.arange(64, dtype=np.uint64)).reshape(8, 8) & 1
+        assert np.array_equal(got, want.astype(int))
+        blocks = dense[h[n]][np.ix_(np.minimum(rows + 7, S - 1),
+                                    np.minimum(cols + 7, S - 1))]
+        assert np.array_equal(blocks, want)

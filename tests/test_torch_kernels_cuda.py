@@ -447,6 +447,9 @@ def _bs_layout(name, H, S):
     if name == "fixed16":
         cfg = tsa.FixedSparsityConfig(num_heads=H, block=16, **uni)
         return tsa.config_layout(cfg, S), 16, {"causal": True}
+    if name == "fixed64-causal":            # the long leg's layout
+        cfg = tsa.FixedSparsityConfig(num_heads=H, block=64, **uni)
+        return tsa.config_layout(cfg, S), 64, {"causal": True}
     if name == "fixed64-bi":
         cfg = tsa.FixedSparsityConfig(num_heads=H, block=64,
                                       num_local_blocks=2)
@@ -517,13 +520,62 @@ def test_block_sparse_attention_kernels(dev, dtype, D, name, S):
         assert torch.all(dv[:, 0, 96:112] == 0)
 
 
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("B,H", [(1, 32), (2, 16)])
+def test_block_sparse_attention_kernels_many_items(dev, dtype, B, H):
+    """The persistent wgmma kernels (the 16-bit D 64 routes) where the
+    items outnumber the CTAs several times (B x H x 32 query or key tiles
+    over 2 CTAs an SM), so that each CTA walks many items and its ring of
+    K / V (or Q / dO) tiles runs on across them: fixed-64 causal at S 2048,
+    all three kernels against their plain versions with the file's
+    tolerances, and a repeat of each bit-identical (each item owns its
+    rows: no atomics)."""
+    S, D = 2048, 64
+    layout, fine, kw = _bs_layout("fixed64-causal", H, S)
+    sched = tbs.schedule(layout, fine, S, device=dev, **kw)
+    assert B * H * sched.visited.shape[1] >= 3 * tbs.CTAS_PER_SM * \
+        build.sm_count(dev)
+    assert {tbs.fwd_route(D, dtype), tbs.dq_route(D, dtype),
+            tbs.dkv_route(D, dtype)} == {"wgmma"}
+    g = torch.Generator().manual_seed(B * H)
+    q, k, v, do = (torch.randn(B, H, S, D, generator=g).to(dev, dtype)
+                   for _ in range(4))
+
+    def run():
+        o, lse = tbs.block_sparse_attention_fwd(q, k, v, layout, fine, **kw)
+        delta = (do.float() * o.float()).sum(-1)
+        dq = tbs.block_sparse_attention_bwd_dq(q, k, v, do, lse, delta,
+                                               layout, fine, **kw)
+        dk, dv = tbs.block_sparse_attention_bwd_dkv(q, k, v, do, lse, delta,
+                                                    layout, fine, **kw)
+        return o, lse, delta, dq, dk, dv
+
+    o, lse, delta, dq, dk, dv = run()
+    qf, kf, vf, dof = _f32(q, k, v, do)
+    ro, rlse = tbs.block_sparse_attention_reference(qf, kf, vf, layout, fine,
+                                                    **kw)
+    refs = tbs.block_sparse_attention_bwd_reference(qf, kf, vf, dof, lse,
+                                                    delta, layout, fine, **kw)
+    torch.cuda.synchronize()
+    _hold(o, ro, False)
+    torch.testing.assert_close(lse, rlse, atol=F32_TOL, rtol=0)
+    scale = max(r.abs().max().item() for r in refs)
+    for out, ref in zip((dq, dk, dv), refs):
+        _hold(out, ref, False, floor=2.0 ** -10, scale=scale)
+    for a, b in zip((o, lse, delta, dq, dk, dv), run()):
+        assert torch.equal(a, b)
+
+
 def test_block_sparse_routes_launch_on_the_card(dev):
     """sparse_attention and the window route through the autograd Function
-    launch each kernel once per call; grads match the plain backward; a
-    CUDA tensor the kernels cannot take raises."""
+    launch each kernel once per call, the 16-bit D 64 calls by the wgmma
+    routes; grads match the plain backward; a CUDA tensor the kernels
+    cannot take raises."""
     g = torch.Generator(device=dev).manual_seed(4)
     q, k, v = (torch.randn(1, 4, 512, 64, device=dev, generator=g)
                .to(torch.bfloat16).requires_grad_() for _ in range(3))
+    assert {tbs.fwd_route(64, q.dtype), tbs.dq_route(64, q.dtype),
+            tbs.dkv_route(64, q.dtype)} == {"wgmma"}
     names = ("block_sparse_attention_fwd", "block_sparse_attention_bwd_dq",
              "block_sparse_attention_bwd_dkv")
     cfg = tsa.FixedSparsityConfig(num_heads=4, block=64,
