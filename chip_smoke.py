@@ -51,7 +51,17 @@ nor ``deepspeed_tpu``. Phases, each reported on its own line:
    Before it, the head-dim-256 leg: llama-1.1b's preset cut to 2 layers
    with google/gemma-2b's attention (8 query heads, 1 KV head of 256):
    ``serve()``, ``generate()`` and two ``train_batch`` steps, each held to
-   its kernels by the launch counters.
+   its kernels by the launch counters. Then the HF import (``hf``), each
+   model a seeded f32 state dict under HF's names with its published
+   config as a plain object: Phi-2 (microsoft/phi-2, 32 layers, 32 heads
+   of 80, partial rotary, parallel residual) through
+   ``replace_transformer_layer`` -> ``init_inference`` (bf16) ->
+   ``generate()`` (4 x 1024 prompt tokens, 32 new) and ``serve()`` (8
+   requests, 32 new each), and BERT-large (bert-large-uncased, post-LN,
+   token types, the MLM head) through ``load_hf`` -> ``forward`` on 8 x
+   512 ids with a ragged key mask and three ``train_batch`` steps with MLM
+   labels; each held to its kernels by the launch counters and to the
+   plain path by its logits.
 8. **time** — prefill and decode tokens/s from the serve and generate
    legs, train and long step time, tokens/s and 6N model TFLOP/s, the
    device busy share of a serve decode step, of a generate prefill and
@@ -798,14 +808,29 @@ def _wg_cases():
     return out
 
 
+# the BERT-large leg's live lengths: one full sample, one of 128, the rest
+# ragged between them (every sample keeps a live key)
+BERT_KEY_LENS = (512, 128, 200, 333, 384, 450, 479, 256)
+
+
+def _key_mask(lens, Sk):
+    """[B, 1, 1, Sk] key-padding mask, True on each sample's first
+    lens[b] keys."""
+    import torch
+    lens = torch.as_tensor(lens, device="cuda")
+    return (torch.arange(Sk, device="cuda")[None, :]
+            < lens[:, None])[:, None, None, :]
+
+
 def check_flash_attention():
     """flash_attention_fwd vs its plain version, o and lse on live rows
     (rows with at least one key to attend), exact zeros on the others:
     the generate prefill shape (8 x 32 heads, S = 1024, D = 64, causal,
     bf16), f32, D = 128, S = Sk = 1000, Sk > S, non-causal, a key-padding
-    mask with one fully masked batch row, per-head (q, k) tiles, ALiBi +
-    window + softcap, and the padded head dims and fp16
-    (:func:`_width_cases`)."""
+    mask with one fully masked batch row, the BERT-large leg's ragged key
+    mask (8 x 16 heads, S = 512, D = 64, non-causal, bf16 and fp16),
+    per-head (q, k) tiles, ALiBi + window + softcap, and the padded head
+    dims and fp16 (:func:`_width_cases`)."""
     import torch
     from deepspeed_tpu_torch.ops import flash_attention as tfa
     g = torch.Generator(device="cuda").manual_seed(5)
@@ -836,6 +861,9 @@ def check_flash_attention():
          {"causal": False, "mask": kv_mask(3, 1000)}),
         ("f32 key mask causal", f32, 3, 4, 1024, 1024, 64,
          {"mask": kv_mask(3, 1024)}),
+        *((f"bert-large train {str(dt)[6:]}", dt, 8, 16, 512, 512, 64,
+           {"causal": False, "mask": _key_mask(BERT_KEY_LENS, 512)})
+          for dt in (bf, torch.float16)),
         ("per-head tiles", bf, 2, 4, 1024, 1024, 64,
          {"mask": head_mask(2, 4, 1024, 1024)}),
         ("f32 per-batch tiles", f32, 2, 4, 1000, 1000, 64,
@@ -881,7 +909,9 @@ def check_flash_attention_bwd():
     exact zeros for query rows with no live key and for keys nobody sees:
     the training leg's shape (2 x 32 heads, S = 1024, D = 64, causal,
     bf16), f32, D = 32 and 128, S = Sk = 1000, Sk > S, non-causal, a key
-    mask with one fully masked batch row, per-head and per-batch (q, k)
+    mask with one fully masked batch row, the BERT-large leg's ragged key
+    mask (8 x 16 heads, S = 512, D = 64, non-causal, bf16 and fp16),
+    per-head and per-batch (q, k)
     tiles, ALiBi + window + softcap, and the padded head dims and fp16
     (:func:`_width_cases`). Returns the largest absolute error of dq and
     of dk/dv."""
@@ -918,6 +948,9 @@ def check_flash_attention_bwd():
          {"causal": False, "mask": kv_mask(3, 1000)}),
         ("f32 key mask causal", f32, 3, 4, 1024, 1024, 64,
          {"mask": kv_mask(3, 1024)}),
+        *((f"bert-large train {str(dt)[6:]}", dt, 8, 16, 512, 512, 64,
+           {"causal": False, "mask": _key_mask(BERT_KEY_LENS, 512)})
+          for dt in (bf, torch.float16)),
         ("per-head tiles", bf, 2, 4, 1024, 1024, 64,
          {"mask": tile_mask(2, 4, 1024, 1024)}),
         ("f32 per-batch tiles", f32, 2, 4, 1000, 1000, 64,
@@ -1353,15 +1386,23 @@ def _decode_logits_check(srv, tol_rel, label):
             del pools
     torch.cuda.synchronize()
     rows = torch.as_tensor([s is not None for s in srv._slots], device=dev)
-    a, b = out["auto"][rows], out["reference"][rows]
+    _hold_logits(f"{label} decode", out["auto"][rows],
+                 out["reference"][rows], tol_rel)
+
+
+def _hold_logits(label, a, b, tol_rel):
+    """Hold logits ``a`` (through the kernels) against ``b`` (the plain
+    path) to ``tol_rel`` of the largest |b|; log the line, fail beyond
+    it. Returns (max_abs_err, max_abs_logit)."""
     err = (a - b).abs().max().item()
     scale = b.abs().max().item()
     agree = (a.argmax(-1) == b.argmax(-1)).float().mean().item()
-    log(f"check: {label} decode logits kernels vs reference "
+    log(f"check: {label} logits kernels vs reference "
         f"max_abs_err={err:.4e} max_abs_logit={scale:.4e} "
         f"tol={tol_rel}*max_abs_logit argmax_agree={agree:.3f}")
     if not err <= tol_rel * scale:
-        fail(f"{label} decode logits differ by {err} (> {tol_rel} x {scale})")
+        fail(f"{label} logits differ by {err} (> {tol_rel} x {scale})")
+    return err, scale
 
 
 def _numel(tree):
@@ -1458,7 +1499,7 @@ def _report_profile(label, prof, wall_ms, steps):
     if busy_ms <= 0:
         log(f"time: {label} profile wall_ms={wall_ms:.3f} "
             "device_busy_ms=not measured (no device time in the trace)")
-        return
+        return None
     top = sorted(kern, key=lambda e: -e.self_device_time_total)[:6]
     # quant_matmul's kernels (this build's three, the earlier two) by launches
     qm = {e.key[:60]: e.count / steps for e in kern
@@ -1468,12 +1509,13 @@ def _report_profile(label, prof, wall_ms, steps):
         "top=" + json.dumps({e.key[:60]: round(
             e.self_device_time_total / 1e3 / steps, 4) for e in top})
         + (" quant_matmul_launches_per_step=" + json.dumps(qm) if qm else ""))
+    return busy_ms
 
 
 def profile_generate(cfg, params, ids, steps=5, tag=""):
     """Device busy share of the generate leg's prefill and of its steady
     greedy decode steps (forward_with_cache + argmax, 8 sequences); ``tag``
-    follows the labels."""
+    follows the labels. Returns the decode step's wall and busy ms."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     from deepspeed_tpu_torch.models.generation import (forward_with_cache,
@@ -1506,7 +1548,10 @@ def profile_generate(cfg, params, ids, steps=5, tag=""):
                 tok = logits[:, -1].argmax(-1)
             torch.cuda.synchronize()
             wall_ms = 1e3 * (time.perf_counter() - t0) / steps
-        _report_profile("generate decode step" + tag, prof, wall_ms, steps)
+        busy = _report_profile("generate decode step" + tag, prof, wall_ms,
+                               steps)
+    return {"decode_step_wall_ms": wall_ms,
+            "decode_step_busy_ms": "not measured" if busy is None else busy}
 
 
 # ---------------------------------------------------------------- 4. int8
@@ -1565,7 +1610,7 @@ def _int8_leg(srv, seed):
 
 # ------------------------------------------------------------ 5. generate
 
-def _generate_logits_check(cfg, params, ids, tol_rel):
+def _generate_logits_check(cfg, params, ids, tol_rel, label="generate"):
     """The prefill (flash kernel) and one decode step (decode kernel) of
     forward_with_cache vs impl="reference"; the decode step of both runs
     from the same copy of the kernel-prefilled cache."""
@@ -1589,17 +1634,9 @@ def _generate_logits_check(cfg, params, ids, tol_rel):
                for impl, c in (("auto", caches["auto"]),
                                ("reference", ref_cache))}
     torch.cuda.synchronize()
-    for label, out in (("prefill", pre), ("decode", dec)):
-        a, b = out["auto"], out["reference"]
-        err = (a - b).abs().max().item()
-        scale = b.abs().max().item()
-        agree = (a.argmax(-1) == b.argmax(-1)).float().mean().item()
-        log(f"check: generate {label} logits kernels vs reference "
-            f"max_abs_err={err:.4e} max_abs_logit={scale:.4e} "
-            f"tol={tol_rel}*max_abs_logit argmax_agree={agree:.3f}")
-        if not err <= tol_rel * scale:
-            fail(f"generate {label} logits differ by {err} "
-                 f"(> {tol_rel} x {scale})")
+    for step, out in (("prefill", pre), ("decode", dec)):
+        _hold_logits(f"{label} {step}", out["auto"], out["reference"],
+                     tol_rel)
     del pre, dec, caches, ref_cache
 
 
@@ -1810,13 +1847,339 @@ def phase_gemma(tmp):
     return {"serve": serve, "generate": gen, "train": train}
 
 
+# ------------------------------------------------------------ 6c. HF import
+
+# microsoft/phi-2's config.json (the fields load_hf_phi reads)
+PHI2_CONFIG = dict(vocab_size=51200, hidden_size=2560, intermediate_size=10240,
+                   num_hidden_layers=32, num_attention_heads=32,
+                   num_key_value_heads=32, partial_rotary_factor=0.4,
+                   rope_theta=10000.0, layer_norm_eps=1e-5,
+                   max_position_embeddings=2048, hidden_act="gelu_new",
+                   qk_layernorm=False, tie_word_embeddings=False)
+# bert-large-uncased's config.json (the fields load_hf_bert reads)
+BERT_LARGE_CONFIG = dict(vocab_size=30522, hidden_size=1024,
+                         num_hidden_layers=24, num_attention_heads=16,
+                         intermediate_size=4096, hidden_act="gelu",
+                         max_position_embeddings=512, type_vocab_size=2,
+                         layer_norm_eps=1e-12)
+PHI2_BATCH, PHI2_PROMPT, PHI2_NEW, PHI2_REQUESTS = 4, 1024, 32, 8
+BERT_BATCH, BERT_SEQ, BERT_STEPS = 8, 512, 3
+BERT_TRAIN_CONFIG = {
+    "train_batch_size": BERT_BATCH, "train_micro_batch_size_per_gpu": BERT_BATCH,
+    "gradient_accumulation_steps": 1, "bf16": {"enabled": True},
+    "optimizer": {"type": "AdamW", "params": {"lr": 1e-4}},
+    "gradient_clipping": 1.0, "steps_per_print": 1000,
+}
+
+
+def _phi2_shapes():
+    """PhiForCausalLM's state-dict names and shapes at phi-2's widths."""
+    c = PHI2_CONFIG
+    H, I, V = c["hidden_size"], c["intermediate_size"], c["vocab_size"]
+    shapes = [("model.embed_tokens.weight", (V, H))]
+    for i in range(c["num_hidden_layers"]):
+        p = f"model.layers.{i}."
+        shapes += [(p + "input_layernorm.weight", (H,)),
+                   (p + "input_layernorm.bias", (H,))]
+        for n in ("q_proj", "k_proj", "v_proj", "dense"):
+            shapes += [(p + f"self_attn.{n}.weight", (H, H)),
+                       (p + f"self_attn.{n}.bias", (H,))]
+        shapes += [(p + "mlp.fc1.weight", (I, H)), (p + "mlp.fc1.bias", (I,)),
+                   (p + "mlp.fc2.weight", (H, I)), (p + "mlp.fc2.bias", (H,))]
+    return shapes + [("model.final_layernorm.weight", (H,)),
+                     ("model.final_layernorm.bias", (H,)),
+                     ("lm_head.weight", (V, H)), ("lm_head.bias", (V,))]
+
+
+def _bert_large_shapes():
+    """BertForMaskedLM's state-dict names and shapes at bert-large's
+    widths."""
+    c = BERT_LARGE_CONFIG
+    H, I, V = c["hidden_size"], c["intermediate_size"], c["vocab_size"]
+    e = "bert.embeddings."
+    shapes = [(e + "word_embeddings.weight", (V, H)),
+              (e + "position_embeddings.weight",
+               (c["max_position_embeddings"], H)),
+              (e + "token_type_embeddings.weight", (c["type_vocab_size"], H)),
+              (e + "LayerNorm.weight", (H,)), (e + "LayerNorm.bias", (H,))]
+    for i in range(c["num_hidden_layers"]):
+        p = f"bert.encoder.layer.{i}."
+        for n, (o, k) in (("attention.self.query", (H, H)),
+                          ("attention.self.key", (H, H)),
+                          ("attention.self.value", (H, H)),
+                          ("attention.output.dense", (H, H)),
+                          ("intermediate.dense", (I, H)),
+                          ("output.dense", (H, I))):
+            shapes += [(p + n + ".weight", (o, k)), (p + n + ".bias", (o,))]
+        for n in ("attention.output.LayerNorm", "output.LayerNorm"):
+            shapes += [(p + n + ".weight", (H,)), (p + n + ".bias", (H,))]
+    t = "cls.predictions."
+    return shapes + [(t + "transform.dense.weight", (H, H)),
+                     (t + "transform.dense.bias", (H,)),
+                     (t + "transform.LayerNorm.weight", (H,)),
+                     (t + "transform.LayerNorm.bias", (H,)),
+                     (t + "bias", (V,))]
+
+
+def _seeded_state_dict(shapes, seed):
+    """f32 weights on the card as HF initializes them, from a seed:
+    matrices and embeddings normal with std 0.02, LayerNorm weights 1,
+    biases 0."""
+    import torch
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    sd = {}
+    for name, shape in shapes:
+        if name.endswith("bias"):
+            sd[name] = torch.zeros(shape, device="cuda")
+        elif len(shape) == 1:
+            sd[name] = torch.ones(shape, device="cuda")
+        else:
+            sd[name] = torch.randn(shape, generator=g, device="cuda") * 0.02
+    return sd
+
+
+def phase_hf(smi):
+    """The HF import at full width and depth, each model's weights a
+    seeded state dict under HF's names with its published config as a
+    plain object. Phi-2 (microsoft/phi-2: 32 layers of 32 heads of 80,
+    partial rotary over 32 channels, parallel residual):
+    replace_transformer_layer -> init_inference (bf16) -> generate()
+    (4 x 1024 prompt tokens, 32 greedy new) and serve() (8 greedy requests
+    of 64..1024 prompt tokens, 32 new each); the launch counters hold the
+    prefill to 32 flash_attention_fwd launches, each decode step to 32
+    decode_attention or paged_attention launches, and the prefill, decode
+    and serve decode logits to the plain path's. BERT-large
+    (bert-large-uncased: post-LN, token types, the MLM head): load_hf ->
+    init_inference(...).forward on 8 x 512 ids with a ragged key mask
+    (BERT_KEY_LENS, live 128..512) and two token-type segments, 24
+    flash_attention_fwd launches and MLM logits on live rows vs
+    attention_impl="reference", and a control: the same forward without
+    the key mask must fail that limit; then initialize (bf16, AdamW, micro
+    8 x gas 1) and three train_batch steps with MLM labels on 15% of the
+    live positions, each launching the three flash kernels 24 times with
+    the key mask; the loss falls, and the batch's loss and grad norm
+    through the kernels agree with attention_impl="reference"."""
+    import numpy as np
+    import torch
+    from types import SimpleNamespace
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.models.hf import load_hf
+    from deepspeed_tpu_torch.models.transformer import (Transformer,
+                                                        masked_lm_loss)
+    counts, rates = {}, {}
+    # ------------------------------------------------------------ Phi-2
+    t0 = time.perf_counter()
+    sd = _seeded_state_dict(_phi2_shapes(), seed=2)
+    module, params, cfg = deepspeed_tpu_torch.replace_transformer_layer(
+        sd, config=SimpleNamespace(**PHI2_CONFIG), arch="PhiForCausalLM")
+    # init_inference serves `params` and reads only the config: the
+    # module's own copy of the weights goes at once
+    del sd, module
+    n_params = _numel(params)
+    eng = deepspeed_tpu_torch.init_inference(
+        cfg, {"dtype": "bf16", "serving": SERVING}, model_parameters=params)
+    del params
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    L = cfg.num_layers
+    log(f"hf: phi-2 params={n_params} layers={L} heads={cfg.num_heads} "
+        f"head_dim={cfg.head_dim} rotary_dim={cfg.rotary_dim} "
+        f"parallel_residual={cfg.parallel_residual} "
+        f"map_s={time.perf_counter() - t0:.2f} "
+        f"mem_gb={torch.cuda.memory_allocated() / 1e9:.2f}")
+    if (cfg.head_dim, cfg.rotary_dim, L) != (80, 32, 32):
+        fail(f"phi-2 mapped to {cfg}")
+    rng = np.random.default_rng(12)
+    V = cfg.vocab_size
+    ids = torch.as_tensor(rng.integers(1, V, (PHI2_BATCH, PHI2_PROMPT)),
+                          device="cuda")
+    eng.generate(ids, max_new_tokens=2)                   # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    eng.generate(ids, max_new_tokens=1)                   # prefill + 1 pick
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    _zero_counters()
+    t0 = time.perf_counter()
+    out = eng.generate(ids, max_new_tokens=PHI2_NEW)
+    torch.cuda.synchronize()
+    total_s = time.perf_counter() - t0
+    gen = _counters()
+    steps = PHI2_NEW - 1
+    log(f"hf: phi-2 generate B={PHI2_BATCH} prompt={PHI2_PROMPT} "
+        f"new={PHI2_NEW} out={tuple(out.shape)} launches={json.dumps(gen)} "
+        f"wall_s={total_s:.3f}")
+    if tuple(out.shape) != (PHI2_BATCH, PHI2_PROMPT + PHI2_NEW) or \
+            not torch.equal(out[:, :PHI2_PROMPT], ids):
+        fail(f"phi-2 generate returned {tuple(out.shape)}")
+    if gen["flash_attention_fwd"] != L or \
+            gen["decode_attention"] != L * steps:
+        fail(f"phi-2 generate launched {gen}: expected flash {L}, decode "
+             f"{L * steps}")
+    counts["phi2_generate"] = gen
+    _generate_logits_check(eng.cfg, eng.params, ids, 5e-2,
+                           label="hf phi-2 generate")
+    prof = profile_generate(eng.cfg, eng.params, ids, tag=" phi-2")
+    rates["phi2_generate"] = {
+        "prefill_tok_s": PHI2_BATCH * PHI2_PROMPT / prefill_s,
+        "decode_tok_s": PHI2_BATCH * steps / (total_s - prefill_s),
+        "decode_step_ms": 1e3 * (total_s - prefill_s) / steps,
+        "prefill_ms": 1e3 * prefill_s, **prof}
+    srv = eng.serve()
+    _run_requests(srv, [list(rng.integers(1, V, 100))], 4)   # warm-up
+    prompts = [list(rng.integers(1, V, int(n)))
+               for n in rng.integers(64, 1025, PHI2_REQUESTS)]
+    _instrument(srv)
+    stats0 = dict(srv.stats)
+    _zero_counters()
+    _run_requests(srv, prompts, PHI2_NEW)
+    serve = _counters()
+    steps = srv._decode_step.calls
+    _, rates["phi2_serve"] = _rates(srv, stats0, steps)
+    log(f"hf: phi-2 serve requests={len(prompts)} decode_steps={steps} "
+        f"launches={json.dumps(serve)}")
+    if steps == 0 or serve["paged_attention"] != L * steps:
+        fail(f"phi-2 serve: paged_attention launched "
+             f"{serve['paged_attention']} times for {steps} decode steps")
+    counts["phi2_serve"] = serve
+    for p in prompts:
+        srv.submit(p[:256], 8)
+    srv.step()
+    _decode_logits_check(srv, 5e-2, "hf phi-2 serve")
+    srv.run_until_idle()
+    profile_decode(srv, label="hf phi-2 serve decode step")
+    log("time: hf phi-2 " + json.dumps(rates) + f" [{smi}]")
+    del srv, eng
+    torch.cuda.empty_cache()
+    # ------------------------------------------------------- BERT-large
+    t0 = time.perf_counter()
+    sd = _seeded_state_dict(_bert_large_shapes(), seed=3)
+    params, cfg = load_hf(sd, arch="BertForMaskedLM",
+                          config=SimpleNamespace(**BERT_LARGE_CONFIG))
+    del sd
+    L, V, B, S = cfg.num_layers, cfg.vocab_size, BERT_BATCH, BERT_SEQ
+    log(f"hf: bert-large params={_numel(params)} layers={L} "
+        f"post_ln={cfg.post_ln} mlm_head={cfg.mlm_head} "
+        f"map_s={time.perf_counter() - t0:.2f}")
+    if not (cfg.post_ln and cfg.mlm_head and not cfg.causal):
+        fail(f"bert-large mapped to {cfg}")
+    lens = np.asarray(BERT_KEY_LENS)
+    live = np.arange(S)[None] < lens[:, None]
+    batch = {"input_ids": np.where(live, rng.integers(1000, V, (B, S)), 0),
+             "attention_mask": live.astype(np.int64),
+             # two segments: sentence A, then sentence B from mid-sample
+             "token_type_ids": (live & (np.arange(S)[None]
+                                        >= lens[:, None] // 2)).astype(
+                                            np.int64)}
+    eng = deepspeed_tpu_torch.init_inference(cfg, {"dtype": "bf16"},
+                                             model_parameters=params)
+    eng.forward(batch)                                    # warm-up
+    torch.cuda.synchronize()
+    _zero_counters()
+    logits = eng.forward(batch)
+    torch.cuda.synchronize()
+    fwd = _counters()
+    fwd_s = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        eng.forward(batch)
+        torch.cuda.synchronize()
+        fwd_s.append(time.perf_counter() - t0)
+    # negative control: the kernels with the key mask dropped
+    nomask = {k: v for k, v in batch.items() if k != "attention_mask"}
+    ctrl = eng.forward(nomask)
+    _set_attention_impl(eng._module, "reference")
+    ref = eng.forward(batch)
+    torch.cuda.synchronize()
+    log(f"hf: bert-large forward B={B} S={S} live={lens.tolist()} "
+        f"launches={json.dumps(fwd)}")
+    if tuple(logits.shape) != (B, S, V):
+        fail(f"bert-large MLM logits have shape {tuple(logits.shape)}")
+    rows = torch.as_tensor(live, device="cuda")
+    _, scale = _hold_logits("hf bert-large MLM (live rows)", logits[rows],
+                            ref[rows], 5e-2)
+    # the check must see a forward that ignores the key mask
+    err = (ctrl[rows] - ref[rows]).abs().max().item()
+    log(f"check: hf bert-large control, key mask dropped, vs reference "
+        f"max_abs_err={err:.4e} must exceed 5e-2*max_abs_logit="
+        f"{5e-2 * scale:.4e}")
+    if not err > 5e-2 * scale:
+        fail(f"bert-large: the logits check passes a forward without the "
+             f"key mask ({err} <= 5e-2 x {scale})")
+    if fwd["flash_attention_fwd"] != L or fwd["flash_attention_bwd_dq"]:
+        fail(f"bert-large forward launched {fwd}: expected flash {L}")
+    counts["bert_forward"] = fwd
+    del eng, logits, ref, ctrl
+    torch.cuda.empty_cache()
+    model = Transformer(cfg, params)
+    del params
+    engine, *_ = deepspeed_tpu_torch.initialize(
+        model=model, config=BERT_TRAIN_CONFIG, loss_fn=masked_lm_loss)
+    del model
+    pick = (rng.random((B, S)) < 0.15) & live
+    batch["labels"] = np.where(pick, batch["input_ids"], -100)
+    train = dict.fromkeys(FLASH_KERNELS, 0)
+    metrics, step_s = [], []
+    for step in range(BERT_STEPS):
+        _zero_counters()
+        t0 = time.perf_counter()
+        m = engine.train_batch(batch)           # ends in a host read
+        step_s.append(time.perf_counter() - t0)
+        c = _counters()
+        metrics.append(m)
+        log(f"hf: bert-large train step {step} loss={m['loss']:.5f} "
+            f"grad_norm={m['grad_norm']:.4f} step_ms={1e3 * step_s[-1]:.1f} "
+            f"launches={json.dumps(c)}")
+        if not np.isfinite(m["loss"]) or m["overflow"] or any(
+                c[k] != L for k in FLASH_KERNELS):
+            fail(f"bert-large train step {step}: {m}, launches {c}")
+        for k in FLASH_KERNELS:
+            train[k] += c[k]
+    if not metrics[-1]["loss"] < metrics[0]["loss"]:
+        fail(f"bert-large train: loss did not fall "
+             f"({metrics[0]['loss']} -> {metrics[-1]['loss']})")
+    counts["bert_train"] = train
+    # the micro-batch (the whole batch) through the kernels, both backward
+    # kernels with the key mask, vs the plain attention's loss and grads
+    micro = {k: torch.as_tensor(v, device="cuda") for k, v in batch.items()}
+    got = _micro_loss_and_norm(engine.module, micro, masked_lm_loss)
+    _set_attention_impl(engine.module, "reference")
+    ref = _micro_loss_and_norm(engine.module, micro, masked_lm_loss)
+    _set_attention_impl(engine.module, "auto")
+    del micro
+    torch.cuda.empty_cache()
+    rl, rn = (abs(a - b) / abs(b) for a, b in zip(got, ref))
+    log(f"check: hf bert-large train micro-batch kernels vs "
+        f"attention_impl=reference loss={got[0]:.5f}/{ref[0]:.5f} "
+        f"rel_err={rl:.3e} tol=1e-3 grad_norm={got[1]:.5f}/{ref[1]:.5f} "
+        f"rel_err={rn:.3e} tol=1e-2")
+    if not (rl <= 1e-3 and rn <= 1e-2):
+        fail("bert-large train: the kernel path's loss or grad norm is off "
+             "the reference path's")
+    dt = float(np.median(step_s[1:]))
+    rates = {"forward_ms": 1e3 * float(np.median(fwd_s)),
+             "forward_tok_s": B * S / float(np.median(fwd_s)),
+             "train_step_ms": 1e3 * dt, "train_tok_s": B * S / dt,
+             "train_step_ms_all": [round(1e3 * x, 3) for x in step_s],
+             "labels": int(pick.sum())}
+    rates["train_step_busy_ms"], _ = profile_train(
+        engine, batch, 1e3 * dt, label="hf bert-large train step")
+    log("time: hf bert-large " + json.dumps(rates) + f" [{smi}]")
+    del engine
+    torch.cuda.empty_cache()
+    return counts
+
+
 # ---------------------------------------------------------------- 6. train
 
-def _micro_loss_and_norm(module, micro):
+def _micro_loss_and_norm(module, micro, loss_fn=None):
     """Loss and global grad norm (f32) of one micro-batch through the
-    module's compute parameters, leaving no grads behind."""
+    module's compute parameters, leaving no grads behind; ``loss_fn``
+    (outputs, batch) -> loss for a module that returns logits."""
     import torch
     loss = module(micro, train=True)
+    if loss_fn is not None:
+        loss = loss_fn(loss, micro)
     loss.backward()
     sq = sum(float(p.grad.float().square().sum()) for p in module.parameters()
              if p.grad is not None)
@@ -3516,6 +3879,7 @@ def main(argv=None):
     time_wide_heads()
     with tempfile.TemporaryDirectory() as tmp:
         gemma_counts = phase_gemma(tmp)
+    hf_counts = phase_hf(smi)
     old_bs = (_parent_block_sparse(args.old_block_sparse)
               if args.old_block_sparse else None)
     with tempfile.TemporaryDirectory() as tmp:
@@ -3565,6 +3929,9 @@ def main(argv=None):
         row["launches_head_dim_256"] = {
             path: c[kname] for path, c in gemma_counts.items()
             if c.get(kname)}
+        # the HF import legs' (Phi-2, BERT-large) launches by entry point
+        row["launches_hf"] = {path: c[kname] for path, c in hf_counts.items()
+                              if c.get(kname)}
         if kname in BS_KERNELS:
             row["launches_by_path"] = {"sparse_train": launches,
                                        "window_train": window_counts[kname]}

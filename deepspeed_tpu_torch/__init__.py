@@ -5,15 +5,22 @@ same system with PyTorch on an NVIDIA GPU (Hopper), its TPU kernels
 rewritten by hand in CUDA. It imports neither JAX nor ``deepspeed_tpu``.
 Module names follow the JAX package's layout. Ported so far: the
 serving path, ``init_inference(...).serve()``; generation,
-``init_inference(...).generate()``; and single-process training,
+``init_inference(...).generate()``; single-process training,
 ``initialize(...)`` -> ``engine.train_batch()`` (or ``forward`` /
-``backward`` / ``step``).
+``backward`` / ``step``); and the HF import,
+``replace_transformer_layer(hf_model)`` (``models.hf``, 21 architecture
+policies), with the reference's fused-layer API
+``DeepSpeedTransformerLayer`` / ``DeepSpeedTransformerConfig``.
 
 Entry points run on CUDA unless the caller passes ``device="cpu"``, which
 runs every kernel's plain PyTorch version.
 """
 
 from typing import Tuple
+
+from .models.hf import replace_transformer_layer, revert_transformer_layer
+from .models.transformer import (DeepSpeedTransformerConfig,
+                                 DeepSpeedTransformerLayer)
 
 __version__ = "0.1.0"
 
@@ -62,7 +69,8 @@ def initialize(args=None,
 
 def init_inference(model=None, config=None, **kwargs):
     """Build an :class:`~deepspeed_tpu_torch.inference.engine.InferenceEngine`
-    (``model``: a ``TransformerConfig``; see the engine for the rest)."""
+    (``model``: a ``TransformerConfig``, or a module with a ``cfg`` such as
+    ``replace_transformer_layer``'s; see the engine for the rest)."""
     from .inference.engine import InferenceEngine
     return InferenceEngine(model=model, config=config, **kwargs)
 

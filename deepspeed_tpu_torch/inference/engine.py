@@ -66,9 +66,11 @@ def quantize_weights_int8(params: Dict[str, Any]) -> Dict[str, Any]:
 
 class InferenceEngine:
     """``model``: the ``TransformerConfig`` of the served model (or an
-    object with a ``cfg`` attribute). ``model_parameters``: its scan-layout
-    (or per-layer) parameter tree of tensors, e.g. from
-    ``models.transformer.init_params`` or ``models.convert.params_from_jax``.
+    object with a ``cfg`` attribute, such as the module that
+    ``replace_transformer_layer`` returns). ``model_parameters``: its
+    scan-layout (or per-layer) parameter tree of tensors, e.g. from
+    ``models.transformer.init_params``, ``models.hf.load_hf`` or
+    ``models.convert.params_from_jax``.
     ``config``: a dict, a ``DeepSpeedInferenceConfig`` or a path to a JSON
     file. ``device``: default CUDA; ``"cpu"`` runs the plain versions of
     the kernels."""
@@ -111,9 +113,12 @@ class InferenceEngine:
 
     def forward(self, batch):
         """Logits [B, T, V] f32 of ``batch`` (ids [B, T], or a dict with
-        ``input_ids``). The bf16/f32 engine applies the ``Transformer``
-        module to its weights (built on first use); the int8 engine runs
-        ``forward_with_cache`` on a fresh cache."""
+        ``input_ids`` and optional ``attention_mask``, ``position_ids`` and
+        ``token_type_ids``). The bf16/f32 engine applies the
+        ``Transformer`` module to its weights (built on first use), so an
+        encoder returns its MLM logits or, without an LM head, its hidden
+        states; the int8 engine runs ``forward_with_cache`` on a fresh
+        cache."""
         if not self.quantized:
             if self._module is None:
                 from ..models.transformer import Transformer
@@ -162,7 +167,9 @@ class InferenceEngine:
         overrides the config's ``serving`` section (dict or
         ServingConfig)."""
         from ..config.config import ServingConfig
+        from ..models.generation import check_decodable
         from ..serving.engine import ServingEngine
+        check_decodable(self.cfg)
         scfg = serving if serving is not None else self.config.serving
         if isinstance(scfg, dict):
             scfg = ServingConfig(**scfg)

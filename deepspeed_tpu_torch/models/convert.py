@@ -69,6 +69,8 @@ def scan_params(module: Transformer) -> Dict[str, Any]:
         t = t.detach()
         if parts[0] == "blocks":             # blocks.<i>.<leaf>.<param>
             blocks.setdefault(parts[2], {}).setdefault(parts[3], []).append(t)
+        elif len(parts) == 1:                # a bare array (mlm_bias)
+            out[name] = t
         else:
             out.setdefault(parts[0], {})[parts[1]] = t
     out["blocks"] = {leaf: {k: torch.stack(ts) for k, ts in sub.items()}

@@ -86,6 +86,23 @@ def _dense(x: torch.Tensor, p: Dict[str, torch.Tensor],
     return y
 
 
+def check_decodable(cfg: TransformerConfig) -> None:
+    """Raise for the models that the cache and paged paths cannot run:
+    post-LN encoders and MoE (as the JAX package's decode raises for
+    post-LN), and encoders without an LM head, which have no logits to
+    decode with."""
+    if cfg.post_ln:
+        raise NotImplementedError("post-LN encoders (BERT) do not decode")
+    if cfg.no_lm_head:
+        raise ValueError(
+            "a no_lm_head model (an encoder such as the CLIP text model) "
+            "returns hidden states and has no logits to decode with")
+    if cfg.moe_experts > 0:
+        raise NotImplementedError(
+            "MoE decode and serving (models/generation._moe_mlp) are not "
+            "ported yet; see ROADMAP.md")
+
+
 def ensure_scan_layout(params: PyTree, num_layers: int) -> PyTree:
     """Restack a per-layer tree (blocks_0..blocks_{L-1}) into the scan
     layout (``blocks`` leaves [L, ...]) that the decode path consumes."""
@@ -166,12 +183,7 @@ def forward_with_cache(cfg: TransformerConfig, params: PyTree,
     ``impl="reference"`` (or ``cfg.attention_impl == "reference"``) sends
     all attention to the plain cache path."""
     del prefer_kernel
-    if cfg.post_ln:
-        raise NotImplementedError("post-LN encoders (BERT) do not decode")
-    if cfg.moe_experts > 0:
-        raise NotImplementedError(
-            "MoE decode (models/generation._moe_mlp) is not ported yet; see "
-            "ROADMAP.md")
+    check_decodable(cfg)
     if "blocks" not in params:
         raise ValueError(
             "forward_with_cache needs scan-layers params (a 'blocks' subtree "

@@ -4,8 +4,10 @@ trainable ``Transformer`` module and the losses.
 Counterpart of ``deepspeed_tpu/models/transformer.py``:
 ``TransformerConfig`` (every field, same names and defaults, with torch
 dtypes), the presets, the activations, ``apply_rotary``, ``alibi_slopes``
-and ``alibi_bias``; ``Block`` and ``Transformer`` as ``nn.Module``s for
-the decoder features of the gpt2 and llama presets; ``cross_entropy``,
+and ``alibi_bias``; ``Block`` and ``Transformer`` as ``nn.Module``s with
+the block forms the HF policies produce (pre-LN and post-LN, parallel
+residual with one or two norms, per-layer windows, token types, the MLM
+head, no LM head); ``DeepSpeedTransformerLayer``; ``cross_entropy``,
 ``causal_lm_loss``, ``masked_lm_loss``, the chunked fused CE and
 ``build_model``. The serving and generation paths run the same layer math
 (``models/generation.py``'s ``_layer_norm`` and ``_dense``) over a plain
@@ -17,9 +19,12 @@ kernels are ``[in, out]`` so the forward computes ``x @ W``, and every
 block leaf is stacked ``[L, ...]`` under ``blocks``::
 
     wte/embedding [V, H]      wpe/embedding [max_seq_len, H]  (learned)
+    tte/embedding [token_type_vocab, H]   ln_emb          (encoders)
     blocks/{ln1, attn_qkv, attn_proj, ln2, mlp_gate, mlp_fc, mlp_proj,
             q_norm, k_norm, post_attn_norm, post_mlp_norm}
-    ln_f                      lm_head/kernel [H, V]  (untied)
+    ln_f (not post-LN)        lm_head/kernel [H, V]  (untied)
+    mlm_transform, mlm_ln, mlm_bias [V]  (the MLM head; mlm_bias is a
+                                          bare array, not a dict)
 
 The ``Transformer`` module keeps the flax tree's names with one
 ``Block`` per layer: ``wte.embedding``, ``blocks.<i>.attn_qkv.kernel``
@@ -268,9 +273,8 @@ def init_params(cfg: TransformerConfig, generator: torch.Generator,
     drawn in float32 on the generator's device, then moved to ``device``
     (default: the generator's) and cast to ``dtype`` (default
     ``cfg.dtype``)."""
-    if cfg.moe_experts > 0 or cfg.post_ln:
-        raise NotImplementedError("init_params builds decoder blocks "
-                                  "without MoE")
+    if cfg.moe_experts > 0:
+        raise NotImplementedError("init_params builds blocks without MoE")
     gdev = generator.device
     device = torch.device(device) if device is not None else gdev
     dtype = dtype or cfg.dtype
@@ -285,9 +289,9 @@ def init_params(cfg: TransformerConfig, generator: torch.Generator,
     def const(value, *shape):
         return torch.full(shape, value, device=device, dtype=dtype)
 
-    def norm(*lead, width=H):
+    def norm(*lead, width=H, rms=cfg.norm == "rmsnorm"):
         p = {"scale": const(1.0, *lead, width)}
-        if cfg.norm != "rmsnorm":
+        if not rms:
             p["bias"] = const(0.0, *lead, width)
         return p
 
@@ -320,12 +324,24 @@ def init_params(cfg: TransformerConfig, generator: torch.Generator,
         blocks["post_mlp_norm"] = norm(L)
 
     params: Dict[str, Any] = {"wte": {"embedding": normal(V, H, fan_in=H)},
-                              "blocks": blocks, "ln_f": norm()}
+                              "blocks": blocks}
+    if not cfg.post_ln:        # post-LN stacks end normed by each ln2
+        params["ln_f"] = norm()
     if cfg.pos_embed == "learned":
         params["wpe"] = {"embedding": normal(cfg.max_seq_len, H, fan_in=H)}
+    if cfg.token_type_vocab > 0:
+        params["tte"] = {"embedding": normal(cfg.token_type_vocab, H,
+                                             fan_in=H)}
     if cfg.embed_ln:
         params["ln_emb"] = norm()
-    if not cfg.tie_embeddings:
+    if cfg.mlm_head:
+        # BERT cls.predictions: dense + LayerNorm transform, then the tied
+        # decoder plus a bare [V] output bias
+        params["mlm_transform"] = {"kernel": normal(H, H, fan_in=H),
+                                   "bias": const(0.0, H)}
+        params["mlm_ln"] = norm(rms=False)
+        params["mlm_bias"] = const(0.0, V)
+    elif not cfg.tie_embeddings and not cfg.no_lm_head:
         head = {"kernel": normal(H, V, fan_in=H)}
         if cfg.lm_head_bias:
             head["bias"] = const(0.0, V)
@@ -353,13 +369,9 @@ _NOT_PORTED = "is not ported to deepspeed_tpu_torch yet (see ROADMAP.md)"
 def _check_trainable(cfg: TransformerConfig) -> None:
     """Raise for the config features the module does not implement."""
     unported = {
-        "post_ln": cfg.post_ln, "parallel_residual": cfg.parallel_residual,
         "moe_experts": cfg.moe_experts > 0,
         "random-LTD (ltd_tokens)": cfg.ltd_tokens > 0, "pld": cfg.pld,
         "remat": cfg.remat, "activation_quant": cfg.activation_quant,
-        "mlm_head": cfg.mlm_head, "no_lm_head": cfg.no_lm_head,
-        "token_type_vocab": cfg.token_type_vocab > 0,
-        "mixed per-layer layer_windows": cfg.uniform_window() is None,
     }
     bad = [name for name, on in unported.items() if on]
     if bad:
@@ -434,12 +446,15 @@ def _sparse_block_attention(cfg: TransformerConfig, q, k, v, *, mask, bias,
 
 
 class Block(nn.Module):
-    """One pre-LN transformer block (the JAX package's ``Block``):
-    LayerNorm or RMSNorm, a fused qkv projection with GQA, qk-norm,
-    rotary or ALiBi positions, attention through ``ops.attention`` (the
-    flash kernels, or the block-sparse kernels for a pure window) or, with
+    """One transformer block (the JAX package's ``Block``): LayerNorm or
+    RMSNorm, a fused qkv projection with GQA, qk-norm, rotary or ALiBi
+    positions, attention through ``ops.attention`` (the flash kernels, or
+    the block-sparse kernels for a pure window) or, with
     ``attention_impl="sparse"``, through the configured block-sparse
-    layout, the Gemma-2 sandwich norms, GELU or SwiGLU MLP."""
+    layout, GELU or SwiGLU MLP. The residual forms: pre-LN (with the
+    Gemma-2 sandwich norms), post-LN (BERT: LN after each residual add)
+    and parallel (GPT-J: one LN feeds both branches; GPT-NeoX: ``ln2``
+    feeds the MLP)."""
 
     def __init__(self, cfg: TransformerConfig,
                  params: Dict[str, Dict[str, torch.Tensor]]):
@@ -460,7 +475,7 @@ class Block(nn.Module):
                              f"num_kv_heads {kv}")
         rms, eps = cfg.norm == "rmsnorm", cfg.layer_norm_eps
         act = _ACTIVATIONS[cfg.activation]
-        h = _layer_norm(x, self.ln1.p, eps, rms)
+        h = x if cfg.post_ln else _layer_norm(x, self.ln1.p, eps, rms)
         qkv = _dense(h, self.attn_qkv.p)
         q, k, v = torch.split(qkv, [nh * hd, kv * hd, kv * hd], dim=-1)
         to_heads = lambda t, n: t.reshape(B, S, n, hd).transpose(1, 2)
@@ -499,26 +514,39 @@ class Block(nn.Module):
                             window=window, softcap=cfg.attn_softcap)
         out = out.transpose(1, 2).reshape(B, S, nh * hd)
         out = _dense(out, self.attn_proj.p)
+
+        def mlp(m):
+            if cfg.gated_mlp:
+                m = act(_dense(m, self.mlp_gate.p)) * _dense(m, self.mlp_fc.p)
+            else:
+                m = act(_dense(m, self.mlp_fc.p))
+            return _dense(m, self.mlp_proj.p)
+
+        if cfg.parallel_residual:
+            m_in = (_layer_norm(x, self.ln2.p, eps, rms)
+                    if cfg.parallel_residual_dual_ln else h)
+            return x + out + mlp(m_in)
+        if cfg.post_ln:
+            x = _layer_norm(x + out, self.ln1.p, eps, rms)
+            return _layer_norm(x + mlp(x), self.ln2.p, eps, rms)
         if cfg.post_block_norms:
             out = _layer_norm(out, self.post_attn_norm.p, eps, rms)
         x = x + out
-        m = _layer_norm(x, self.ln2.p, eps, rms)
-        if cfg.gated_mlp:
-            m = act(_dense(m, self.mlp_gate.p)) * _dense(m, self.mlp_fc.p)
-        else:
-            m = act(_dense(m, self.mlp_fc.p))
-        m = _dense(m, self.mlp_proj.p)
+        m = mlp(_layer_norm(x, self.ln2.p, eps, rms))
         if cfg.post_block_norms:
             m = _layer_norm(m, self.post_mlp_norm.p, eps, rms)
         return x + m
 
 
 class Transformer(nn.Module):
-    """GPT-style LM (the JAX package's ``Transformer``): ``forward(batch,
-    train=False)`` takes ids [B, S] or a dict with ``input_ids`` and
-    optional ``attention_mask`` (key padding), ``position_ids`` and
-    ``labels``; it returns f32 logits [B, S, V], or the loss with
-    ``cfg.fused_loss``.
+    """GPT-style LM or BERT-style encoder (the JAX package's
+    ``Transformer``): ``forward(batch, train=False)`` takes ids [B, S] or a
+    dict with ``input_ids`` and optional ``attention_mask`` (key padding),
+    ``position_ids``, ``token_type_ids`` and ``labels``; it returns f32
+    logits [B, S, V] (the MLM head's with ``cfg.mlm_head``), the final
+    hidden states [B, S, H] in f32 with ``cfg.no_lm_head``, or the loss
+    with ``cfg.fused_loss``. Each layer attends with its own static window
+    from ``cfg.layer_windows`` (0 = global).
 
     ``params``: a scan-layout (or per-layer) parameter dict of tensors,
     e.g. from :func:`init_params` or ``models.convert.params_from_jax``;
@@ -541,8 +569,12 @@ class Transformer(nn.Module):
         from .generation import ensure_scan_layout
         params = ensure_scan_layout(params, cfg.num_layers)
         for name, sub in params.items():
-            if name != "blocks":
+            if name == "blocks":
+                continue
+            if isinstance(sub, dict):
                 self.add_module(name, _Leaf(sub))
+            else:                   # a bare top-level array (mlm_bias)
+                self.register_parameter(name, nn.Parameter(sub))
         layers = [{} for _ in range(cfg.num_layers)]
         for name, sub in params["blocks"].items():
             for key, t in sub.items():
@@ -560,8 +592,10 @@ class Transformer(nn.Module):
             ids = batch["input_ids"]
             attention_mask = batch.get("attention_mask")
             position_ids = batch.get("position_ids")
+            token_type_ids = batch.get("token_type_ids")
         else:
             ids, attention_mask, position_ids = batch, None, None
+            token_type_ids = None
         emb = self.wte.embedding
         dev, dt = emb.device, cfg.dtype
         ids = torch.as_tensor(ids, device=dev).long()
@@ -577,16 +611,32 @@ class Transformer(nn.Module):
             pos = (user_positions if user_positions is not None
                    else torch.arange(S, device=dev)[None])
             x = x + F.embedding(pos, self.wpe.embedding).to(dt)
+        if cfg.token_type_vocab > 0:
+            tt = (torch.zeros_like(ids) if token_type_ids is None else
+                  torch.as_tensor(token_type_ids, device=dev).long())
+            x = x + F.embedding(tt, self.tte.embedding).to(dt)
         if cfg.embed_ln:
             x = _layer_norm(x, self.ln_emb.p, eps, rms)
         attn_mask = None
         if attention_mask is not None:        # [B, 1, 1, S] key padding
             attn_mask = torch.as_tensor(attention_mask, device=dev).to(
                 torch.bool)[:, None, None, :]
-        window = cfg.uniform_window() or 0
-        for blk in self.blocks:
+        windows = ([max(int(w), 0) for w in cfg.layer_windows]
+                   if cfg.layer_windows is not None
+                   else [0] * cfg.num_layers)
+        for blk, window in zip(self.blocks, windows):
             x = blk(x, attn_mask, user_positions, window)
-        x = _layer_norm(x, self.ln_f.p, eps, rms)
+        if not cfg.post_ln:
+            x = _layer_norm(x, self.ln_f.p, eps, rms)
+        if cfg.mlm_head:
+            # BERT cls.predictions: transform (dense, activation,
+            # LayerNorm), then the tied decoder plus the output bias
+            h = _ACTIVATIONS[cfg.activation](_dense(x, self.mlm_transform.p))
+            h = _layer_norm(h, self.mlm_ln.p, eps)
+            logits = (h @ emb.to(dt).transpose(0, 1)).to(torch.float32)
+            return logits + self.mlm_bias.to(torch.float32)
+        if cfg.no_lm_head:                    # encoder use (CLIP text)
+            return x.to(torch.float32)
         if cfg.fused_loss:
             head = (emb if cfg.tie_embeddings
                     else self.lm_head.kernel.transpose(0, 1))
@@ -692,3 +742,69 @@ def build_model(name_or_cfg, *, seed: int = 0, device=None,
     cfg = (name_or_cfg if isinstance(name_or_cfg, TransformerConfig)
            else get_config(name_or_cfg, **overrides))
     return Transformer(cfg, seed=seed, device=device), cfg
+
+
+class DeepSpeedTransformerLayer(nn.Module):
+    """The reference's fused-layer API
+    (``ops/transformer/transformer.py:459``), as the JAX package exports
+    it: one :class:`Block` applied to [B, S, H] hidden states, configured
+    by a ``TransformerConfig`` (exported as ``DeepSpeedTransformerConfig``;
+    batch size and sequence length are runtime shapes, not fields).
+
+    ``params``: one block's parameters, ``{leaf: {name: tensor}}`` under
+    the flax names (``ln1``, ``attn_qkv``, ...), moved to ``device``;
+    default one layer of :func:`init_params` drawn in float32 from
+    ``seed`` on ``device``. ``device`` is ``cuda`` unless the caller
+    passes ``device="cpu"`` (``utils.device.resolve_device``).
+    ``forward(hidden_states, attention_mask=None, train=False)`` takes a
+    boolean or integer mask, True/1 = attend, [B, S] (key padding) or
+    broadcastable to [B, 1, S, S]."""
+
+    def __init__(self, config: TransformerConfig,
+                 params: Optional[Dict[str, Dict[str, torch.Tensor]]] = None,
+                 *, seed: int = 0, device=None):
+        super().__init__()
+        if config.moe_experts > 0:
+            # the single-layer API has no channel for the router's aux loss
+            raise ValueError(
+                "DeepSpeedTransformerLayer does not support MoE configs "
+                "(the router aux loss would be silently dropped); build "
+                "the full model via models.build_model(moe_experts=...)")
+        _check_trainable(config)
+        from ..utils.device import resolve_device
+        dev = resolve_device(device)
+        if params is None:
+            gen = torch.Generator(device=dev).manual_seed(seed)
+            one = dataclasses.replace(config, num_layers=1)
+            params = {name: {k: t[0] for k, t in sub.items()} for name, sub in
+                      init_params(one, gen, dtype=torch.float32)["blocks"]
+                      .items()}
+        params = {name: {k: torch.as_tensor(t).to(dev) for k, t in sub.items()}
+                  for name, sub in params.items()}
+        self.config = config
+        self.block = Block(config, params)
+
+    def forward(self, hidden_states: torch.Tensor, attention_mask=None,
+                train: bool = False) -> torch.Tensor:
+        if train and self.config.dropout > 0.0:
+            raise NotImplementedError("DeepSpeedTransformerLayer: dropout "
+                                      "> 0 in training " + _NOT_PORTED)
+        if attention_mask is not None:
+            mask = torch.as_tensor(attention_mask,
+                                   device=hidden_states.device)
+            if mask.is_floating_point():
+                # the reference feeds ADDITIVE float masks ((1-m)*-1e4);
+                # read as booleans they would attend the inverted positions
+                raise ValueError(
+                    "DeepSpeedTransformerLayer takes a boolean/int "
+                    "attention_mask (True/1 = attend), not the additive "
+                    "float mask; convert with mask = additive_mask >= 0")
+            attention_mask = mask.to(torch.bool)
+            if attention_mask.dim() == 2:     # HF-style [B, S] key mask
+                attention_mask = attention_mask[:, None, None, :]
+        return self.block(hidden_states.to(self.config.dtype),
+                          attention_mask)
+
+
+# the reference's export name (deepspeed/__init__.py:24-25)
+DeepSpeedTransformerConfig = TransformerConfig

@@ -22,7 +22,7 @@ from typing import Any, Dict, Tuple
 import numpy as np
 import torch
 
-from ..models.generation import _dense, _layer_norm
+from ..models.generation import _dense, _layer_norm, check_decodable
 from ..models.transformer import (_ACTIVATIONS, TransformerConfig,
                                   alibi_slopes, apply_rotary)
 from ..ops.attention import apply_softcap, paged_attention
@@ -57,12 +57,7 @@ def paged_forward(cfg: TransformerConfig,
     dict is returned: torch has no buffer donation, and a copy of the pool
     per step would double its memory. ``impl="reference"`` sends the
     attention and the int8 matmuls to their plain versions."""
-    if cfg.post_ln:
-        raise NotImplementedError("post-LN encoders (BERT) do not serve")
-    if cfg.moe_experts > 0:
-        raise NotImplementedError(
-            "MoE serving (models/generation._moe_mlp) is not ported yet; "
-            "see ROADMAP.md")
+    check_decodable(cfg)
     if "blocks" not in params:
         raise ValueError("paged_forward needs scan-layers params "
                          "(models.generation.ensure_scan_layout)")

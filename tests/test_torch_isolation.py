@@ -59,6 +59,45 @@ def test_fresh_interpreter_imports_no_jax():
     assert res["bad"] == [] and res["mods"] >= 15
 
 
+def test_hf_import_runs_without_transformers():
+    """models/hf.py and chip_smoke.py import no ``transformers`` (the GPU
+    host has none): with the package blocked, a GPT-2 state dict under
+    HF's names and its config as a plain object still map."""
+    code = (
+        "import json, sys\n"
+        "sys.modules['transformers'] = None\n"
+        "from types import SimpleNamespace\n"
+        "import torch\n"
+        "import chip_smoke\n"
+        "from deepspeed_tpu_torch.models.hf import load_hf\n"
+        "H, L, V, S = 16, 2, 32, 8\n"
+        "shapes = {'transformer.wte.weight': (V, H),\n"
+        "          'transformer.wpe.weight': (S, H),\n"
+        "          'transformer.ln_f.weight': (H,),\n"
+        "          'transformer.ln_f.bias': (H,)}\n"
+        "for i in range(L):\n"
+        "    for n, shp in (('ln_1', (H,)), ('ln_2', (H,)),\n"
+        "                   ('attn.c_attn', (H, 3 * H)),\n"
+        "                   ('attn.c_proj', (H, H)),\n"
+        "                   ('mlp.c_fc', (H, 4 * H)),\n"
+        "                   ('mlp.c_proj', (4 * H, H))):\n"
+        "        shapes[f'transformer.h.{i}.{n}.weight'] = shp\n"
+        "        shapes[f'transformer.h.{i}.{n}.bias'] = (shp[-1],)\n"
+        "sd = {k: torch.randn(v) for k, v in shapes.items()}\n"
+        "cfg = SimpleNamespace(n_layer=L, vocab_size=V, n_positions=S,\n"
+        "                      n_embd=H, n_head=2, layer_norm_epsilon=1e-5)\n"
+        "params, tcfg = load_hf(sd, arch='gpt2', config=cfg)\n"
+        "print(json.dumps({'layers': tcfg.num_layers, 'qkv': list(\n"
+        "    params['blocks']['attn_qkv']['kernel'].shape)}))\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = str(REPO)
+    out = subprocess.run([sys.executable, "-c", code], cwd=str(REPO),
+                         env=env, capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    res = json.loads(out.stdout.strip().splitlines()[-1])
+    assert res == {"layers": 2, "qkv": [2, 16, 48]}
+
+
 @pytest.mark.parametrize("path", _sources(), ids=lambda p: p.name)
 def test_sources_import_no_jax(path):
     tree = ast.parse(path.read_text())

@@ -416,6 +416,63 @@ def test_flash_attention_bwd_kernels(dev, dtype, D, S, Sk, opts):
         assert torch.all(dk[1] == 0) and torch.all(dv[1] == 0)
 
 
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_flash_attention_kernels_bert_large_shape(dev, dtype):
+    """The BERT-large legs' calls: [8, 16, 512, 64], non-causal, a ragged
+    key-padding mask (live 128..512; the padded query rows still see live
+    keys): the forward and both backward kernels."""
+    g = torch.Generator().manual_seed(8)
+    q, k, v, do = (torch.randn(8, 16, 512, 64, generator=g).to(dev, dtype)
+                   for _ in range(4))
+    lens = torch.tensor([512, 128, 200, 333, 450, 129, 511, 256])
+    mask = (torch.arange(512)[None] < lens[:, None])[:, None, None].to(dev)
+    o, lse = tfa.flash_attention_fwd(q, k, v, causal=False, mask=mask)
+    dq, dk, dv = tfa.flash_attention_bwd(q, k, v, o, lse, do, causal=False,
+                                         mask=mask)
+    ro, rlse = tfa.flash_attention_reference(*_f32(q, k, v), causal=False,
+                                             mask=mask)
+    refs = tfa.flash_attention_bwd_reference(*_f32(q, k, v, o), lse,
+                                             do.float(), causal=False,
+                                             mask=mask)
+    torch.cuda.synchronize()
+    _hold(o, ro, False)
+    torch.testing.assert_close(lse, rlse, atol=F32_TOL, rtol=0)
+    for out, ref in zip((dq, dk, dv), refs):
+        _hold(out, ref, False, floor=2.0 ** -10)
+    dead = ~mask[:, 0, 0]                  # masked keys get no gradient
+    assert torch.all(dk.transpose(1, 2)[dead] == 0)
+    assert torch.all(dv.transpose(1, 2)[dead] == 0)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_decode_and_paged_kernels_phi2_shape(dev, dtype):
+    """The Phi-2 legs' decode calls, 32 heads of 80: the generate step (4
+    sequences at cur_len 1050 in a cache of 1280) and the serve step (8
+    lanes of ragged contexts up to 1056 in a pool of 32-token blocks)."""
+    g = torch.Generator().manual_seed(80)
+    k, v = (torch.randn(2, 4, 32, 1280, 80, generator=g).to(dev, dtype)
+            for _ in range(2))
+    q = torch.randn(4, 32, 1, 80, generator=g).to(dev, dtype)
+    out = tda.decode_attention(q, k, v, 1050, layer_idx=1)
+    ref = tda.decode_attention_reference(*_f32(q, k[1], v[1]), 1050)
+    torch.cuda.synchronize()
+    _hold(out, ref, False)
+    B, nbk, bs = 8, 33, 32
+    nblk = B * nbk + 1
+    kp, vp = (torch.randn(2, 32, nblk, bs, 80, generator=g).to(dev, dtype)
+              for _ in range(2))
+    q = torch.randn(B, 32, 1, 80, generator=g).to(dev, dtype)
+    bt = (torch.randperm(nblk - 1, generator=g) + 1).reshape(B, nbk)
+    bt = bt.to(dev, torch.int32)
+    lens = torch.tensor([1056, 65, 1, 700, 1024, 300, 999, 128],
+                        dtype=torch.int32, device=dev)
+    out = tpa.paged_attention(q, kp, vp, bt, lens, layer_idx=1)
+    ref = tpa.paged_attention_reference(*_f32(q, kp, vp), bt, lens,
+                                        layer_idx=1)
+    torch.cuda.synchronize()
+    _hold(out, ref, False)
+
+
 def test_flash_attention_autograd_on_the_card(dev):
     """The autograd Function launches the forward and both backward
     kernels once each; its grads match the plain backward."""

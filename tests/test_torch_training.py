@@ -220,14 +220,26 @@ def test_fused_ce_ignores_minus_100_and_drops_last_position():
 
 
 def test_unported_model_features_raise():
-    for kw in (dict(post_ln=True), dict(parallel_residual=True),
-               dict(moe_experts=2), dict(remat=True), dict(pld=True),
-               dict(ltd_tokens=4), dict(activation_quant="int8"),
-               dict(mlm_head=True), dict(no_lm_head=True),
-               dict(layer_windows=(4, 0))):
+    for kw in (dict(moe_experts=2), dict(remat=True), dict(pld=True),
+               dict(ltd_tokens=4), dict(activation_quant="int8")):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             ttr.build_model("gpt2-tiny", hidden_size=16, num_layers=2,
                             num_heads=2, vocab_size=32, **kw)
+    # the block forms of the HF policies build and run
+    ids = torch.zeros(2, 8, dtype=torch.long)
+    for kw, width in ((dict(post_ln=True, causal=False), 32),
+                      (dict(parallel_residual=True), 32),
+                      (dict(parallel_residual=True,
+                            parallel_residual_dual_ln=True), 32),
+                      (dict(mlm_head=True, token_type_vocab=2,
+                            embed_ln=True), 32),
+                      (dict(no_lm_head=True, tie_embeddings=False), 16),
+                      (dict(layer_windows=(4, 0)), 32)):
+        m, _ = ttr.build_model("gpt2-tiny", hidden_size=16, num_layers=2,
+                               num_heads=2, vocab_size=32, **kw)
+        with torch.no_grad():
+            out = m(ids)
+        assert out.shape == (2, 8, width) and torch.isfinite(out).all(), kw
     m, _ = ttr.build_model("gpt2-tiny", hidden_size=16, num_layers=1,
                            num_heads=2, vocab_size=32, dropout=0.1)
     with pytest.raises(NotImplementedError, match="dropout"):
@@ -565,9 +577,13 @@ def test_sparse_attention_wiring_raises_like_jax():
         deepspeed_tpu_torch.initialize(
             model=ttr.Transformer(tcfg), device="cpu",
             config=dict(cfg, sequence_parallel={"mode": "nope"}))
+    # mixed per-layer windows: each layer routes its own static window
     _, mixed = _cfgs("gpt2_wide", layer_windows=(4, 0))
-    with pytest.raises(NotImplementedError, match="mixed per-layer"):
-        ttr.Transformer(mixed)
+    module = ttr.Transformer(mixed)
+    assert [b.cfg.layer_windows for b in module.blocks] == [(4, 0)] * 2
+    with torch.no_grad():
+        assert torch.isfinite(module(torch.zeros(1, 8, dtype=torch.long))
+                              ).all()
 
 
 def test_forward_backward_step_equals_train_batch(tmp_path):
