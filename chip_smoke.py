@@ -73,8 +73,28 @@ nor ``deepspeed_tpu``. Phases, each reported on its own line:
    and one 512-token prefill (and at M 96, 224, 352), and at scale blocks
    8, 40 and 100 beside 256; the flash, paged and decode kernels at head
    dims 64, 80, 96, 128 and 256 beside SDPA, every attention kernel at 264
-   and 512 beside 256, and the decode kernel's context split swept over
-   1 to 4 CTAs.
+   and 512 beside 256, the decode kernel's context split swept over 1 to
+   4 CTAs, and BERT-large's masked flash calls ([8, 16, 512, 64],
+   non-causal, the ragged key mask) beside SDPA with the same mask
+   (``bert-masked``).
+9. **ckpt** — after the train leg, on its model and config: two steps, a
+   sync ``save_checkpoint`` of the full-depth state (tag bytes, save and
+   sha256 seconds), a fresh engine from another seed that
+   ``load_checkpoint(tag=None)`` restores bitwise (parameters, master,
+   moments, counters, the schedule), and three more steps on both whose
+   losses must agree within 1e-6 relative; ``save_16bit_model`` served
+   back by an int8 ``serve()`` (``paged_attention``, ``quant_matmul``) and
+   a bf16 ``generate()`` (``flash_attention_fwd``, ``decode_attention``)
+   with the in-memory engines' tokens; at a 2-layer cut, three async saves
+   with ``keep_last=2``, a truncated newest tag rolled back over,
+   ``inspect_checkpoint`` and the ``zero_to_fp32`` CLI against the fp32
+   master.
+10. **remat** — one engine per block policy (off, "dots", "attn",
+    "full") at full width and depth: the memory a micro-batch's forward
+    holds for its backward and the peaks of its forward + backward and of
+    the step, the first step's loss and grad norm against remat off, the
+    second step's ms and the flash launches (the forward twice a layer
+    under "full").
 
 ``--old-quant-matmul SRC`` also builds a parent commit's
 ``csrc/quant_matmul.cu`` from SRC and times it against this one in the
@@ -96,6 +116,10 @@ of the three kernels over the four timed layouts with the parent's outputs
 against these, and the long step. ``--sweep-item-cost``: the block-sparse
 forward's and dq's per-item cost of the host balance, swept at the long
 leg's call.
+
+``--only PHASE ...`` (``ckpt``, ``remat``, ``hf``, ``bert-masked``) builds the
+kernels and runs only those phases, then a result line that names them
+(``"only": [...]``; no kernels line).
 
 Launch counters are zeroed just before each leg and read just after it.
 Any failed check raises, so the script exits non-zero and prints no
@@ -3749,6 +3773,477 @@ def _flex_ms(q, k, v, do, keep, n):
         return {"fwd": None, "bwd": None}
 
 
+# ------------------------------------------------------ 9. checkpoints
+
+CKPT_TRAIN_STEPS, CKPT_RESUME_STEPS = 2, 3
+CKPT_SMALL_LAYERS = 2               # the resilience leg's depth cut
+CKPT_BYTES_PER_PARAM = 14           # bf16 params + f32 master, m and v
+CKPT_LENS = (96, 200, 352, 512)     # the served leg's prompts
+CKPT_NEW = 16
+
+
+def _train_engine(tmp, name, config, seed, **model_kw):
+    """initialize(JSON ds_config) on llama-1.1b at full width (seeded f32
+    weights), as the train leg builds it."""
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.models.transformer import build_model
+    model, cfg = build_model("llama-1.1b", fused_loss=True, loss_chunk=256,
+                             seed=seed, device="cuda", **model_kw)
+    path = os.path.join(tmp, f"ds_{name}.json")
+    with open(path, "w") as f:
+        json.dump(config, f)
+    engine, *_ = deepspeed_tpu_torch.initialize(model=model, config=path)
+    return engine, cfg
+
+
+def _ckpt_batch(vocab, seed):
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    return {"input_ids": rng.integers(1, vocab,
+                                      (TRAIN_MICRO * TRAIN_GAS, TRAIN_SEQ))}
+
+
+def _ckpt_step(engine, batch, label):
+    """One train_batch, held to the train leg's flash launches."""
+    import numpy as np
+    _zero_counters()
+    m = engine.train_batch(batch)
+    c = _counters()
+    per_step = engine.module.cfg.num_layers * TRAIN_GAS
+    if any(c[k] != per_step for k in FLASH_KERNELS):
+        fail(f"ckpt: {label} launched {c}: expected {per_step} of each "
+             "flash kernel")
+    if not np.isfinite(m["loss"]) or m["overflow"]:
+        fail(f"ckpt: {label}: {m}")
+    return m, c
+
+
+def _differing_leaves(a, b):
+    """Paths of the two engines' checkpoint leaves (parameters, master,
+    moments) that differ bitwise."""
+    import torch
+    bad = []
+    for la, lb in zip(a._ckpt_leaves(), b._ckpt_leaves()):
+        for path in (la or {}):
+            pa, pb = la[path].parts, lb[path].parts
+            if len(pa) != len(pb) or not all(
+                    x.dtype == y.dtype and torch.equal(x, y)
+                    for x, y in zip(pa, pb)):
+                bad.append(path)
+    return bad
+
+
+def _tag_bytes(tag_dir):
+    return {n: os.path.getsize(os.path.join(tag_dir, n))
+            for n in sorted(os.listdir(tag_dir))}
+
+
+def phase_ckpt(tmp):
+    """Checkpoints on the train leg's model and config (llama-1.1b, bf16 +
+    fp32 master, AdamW, WarmupLR, ZeRO 1, micro 2 x gas 2, seq 1024): two
+    steps, a sync save (bytes, seconds, GB/s, the digest pass timed
+    apart); a fresh engine from another seed loads it (tag=None, verified)
+    and must hold every parameter, master and moment bitwise; both engines
+    then take the same 3 steps, whose losses must agree within 1e-6
+    relative, each step launching the flash kernels as the train leg does.
+    The state is then served from the checkpoint (:func:`_ckpt_served`)
+    and the resilience leg runs at a 2-layer cut (:func:`_ckpt_resilience`).
+    Full depth unless the temp dir cannot hold the tag (then the depth is
+    cut, never the width, and a line says so)."""
+    import shutil
+    import numpy as np
+    import torch
+    from deepspeed_tpu_torch.models.convert import scan_params
+    from deepspeed_tpu_torch.runtime import checkpointing as ck
+    from deepspeed_tpu_torch.models.transformer import get_config
+    full = get_config("llama-1.1b")
+    per_layer = CKPT_BYTES_PER_PARAM * (
+        full.hidden_size * (full.num_heads + 2 * full.kv_heads) * full.head_dim
+        + full.num_heads * full.head_dim * full.hidden_size
+        + 3 * full.hidden_size * full.mlp_dim + 2 * full.hidden_size)
+    rest = CKPT_BYTES_PER_PARAM * (2 * full.vocab_size * full.hidden_size
+                                   + full.hidden_size)
+    free = shutil.disk_usage(tmp).free
+    # the full tag, the 16-bit file and three 2-layer tags at once
+    need_small = 3 * (rest + CKPT_SMALL_LAYERS * per_layer) + rest // 7
+    layers = min(LLAMA_LAYERS, int((free - need_small - rest) // per_layer))
+    log(f"ckpt: temp dir free_gb={free / 1e9:.1f} full_tag_gb="
+        f"{(rest + LLAMA_LAYERS * per_layer) / 1e9:.2f} layers={layers}"
+        + ("" if layers == LLAMA_LAYERS else
+           f" (depth cut from {LLAMA_LAYERS}: the temp dir cannot hold "
+           "the full tag)"))
+    if layers < CKPT_SMALL_LAYERS:
+        fail(f"ckpt: {free / 1e9:.1f} GB free in {tmp}")
+    over = {} if layers == LLAMA_LAYERS else {"num_layers": layers}
+    a, cfg = _train_engine(tmp, "ckpt", TRAIN_CONFIG, 0, **over)
+    for s in range(CKPT_TRAIN_STEPS):
+        _ckpt_step(a, _ckpt_batch(cfg.vocab_size, 40 + s), f"step {s}")
+    d = os.path.join(tmp, "ckpt")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tag_dir = a.save_checkpoint(d)
+    save_s = time.perf_counter() - t0
+    sizes = _tag_bytes(tag_dir)
+    nbytes = sum(sizes.values())
+    t0 = time.perf_counter()
+    for name in sizes:
+        ck.file_digest(os.path.join(tag_dir, name))
+    digest_s = time.perf_counter() - t0
+    log(f"ckpt: save layers={cfg.num_layers} tag={os.path.basename(tag_dir)}"
+        f" bytes={nbytes} files={json.dumps(sizes)} save_s={save_s:.3f} "
+        f"save_gb_s={nbytes / save_s / 1e9:.3f} digest_s={digest_s:.3f} "
+        f"(one sha256 pass over the tag, inside save_s too)")
+    b, _ = _train_engine(tmp, "ckpt", TRAIN_CONFIG, 1, **over)
+    if not _differing_leaves(a, b):
+        fail("ckpt: engines from two seeds already agree")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    b.load_checkpoint(d)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    reason = ck.verify_tag(tag_dir, check_digests=True)
+    verify_s = time.perf_counter() - t0
+    bad = _differing_leaves(a, b)
+    log(f"ckpt: load (tag=None, verify_load) load_s={load_s:.3f} "
+        f"load_gb_s={nbytes / load_s / 1e9:.3f} verify_s={verify_s:.3f} "
+        f"(the digest check, inside load_s too) verify={reason} "
+        f"leaves_bitwise_equal={not bad} step={b.step_count} "
+        f"global_steps={b.global_steps} lr={b.get_lr()[0]:.6e}")
+    if bad or reason is not None:
+        fail(f"ckpt: restored state differs from the saved one: {bad[:5]}")
+    if (b.step_count, b.global_steps, b.data_position, b.get_lr()) != \
+            (a.step_count, a.global_steps, a.data_position, a.get_lr()):
+        fail(f"ckpt: counters differ after the load: {b.step_count} "
+             f"{b.global_steps} {b.get_lr()} vs {a.step_count} "
+             f"{a.global_steps} {a.get_lr()}")
+    worst, resumed = 0.0, {}
+    for s in range(CKPT_RESUME_STEPS):
+        batch = _ckpt_batch(cfg.vocab_size, 50 + s)
+        ma, ca = _ckpt_step(a, batch, f"uninterrupted step {s}")
+        mb, cb = _ckpt_step(b, batch, f"resumed step {s}")
+        resumed = {k: resumed.get(k, 0) + n for k, n in cb.items()}
+        rel = abs(ma["loss"] - mb["loss"]) / abs(ma["loss"])
+        worst = max(worst, rel)
+        log(f"ckpt: step {CKPT_TRAIN_STEPS + s} loss uninterrupted="
+            f"{ma['loss']:.7f} resumed={mb['loss']:.7f} rel={rel:.3e} "
+            f"grad_norm={ma['grad_norm']:.6f}/{mb['grad_norm']:.6f} "
+            f"lr={ma['lr']:.6e}/{mb['lr']:.6e} launches={json.dumps(cb)}")
+        if ma["lr"] != mb["lr"]:
+            fail("ckpt: the resumed schedule differs")
+    log(f"ckpt: resumed losses max_rel_diff={worst:.3e} tol=1e-6 "
+        f"bitwise={worst == 0.0}")
+    if worst > 1e-6:
+        fail(f"ckpt: resumed losses differ by {worst:.3e}")
+    del a
+    torch.cuda.empty_cache()
+    path16 = b.save_16bit_model(os.path.join(tmp, "model16"))
+    params = scan_params(b.module)
+    del b
+    torch.cuda.empty_cache()
+    served = _ckpt_served(cfg, params, path16)
+    del params
+    os.remove(path16)
+    shutil.rmtree(d)
+    torch.cuda.empty_cache()
+    small = _ckpt_resilience(tmp)
+    launches = {"resumed_steps": resumed, **served.pop("launches")}
+    return {"layers": cfg.num_layers, "tag_bytes": nbytes, "save_s": save_s,
+            "digest_s": digest_s, "load_s": load_s, "verify_s": verify_s,
+            "resume_max_rel": worst, "launches": launches, **served,
+            **small}
+
+
+def _ckpt_served(cfg, params, path16):
+    """``save_16bit_model``'s file served: int8 ``serve()`` (weights and KV
+    cache in int8) of 4 greedy requests from an engine whose seeded
+    weights ``load_checkpoint(path16)`` replaces, against the engine given
+    the same weights in memory (tokens identical; the file engine's run
+    launches paged_attention and quant_matmul); then a bf16 engine's
+    ``generate()`` (flash prefill, decode steps), and a ``dtype: "int8"``
+    engine's logits, the same way."""
+    import numpy as np
+    import torch
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.models.transformer import init_params
+    init = deepspeed_tpu_torch.init_inference
+    other = init_params(cfg, torch.Generator(device="cuda").manual_seed(9))
+    serving = dict(SERVING, kv_cache_dtype="int8", weight_dtype="int8")
+    rng = np.random.default_rng(60)
+    prompts = [list(rng.integers(1, cfg.vocab_size, n)) for n in CKPT_LENS]
+    tokens, counts = {}, {}
+    t0 = time.perf_counter()
+    from_file = init(cfg, {"dtype": "bf16"},
+                     model_parameters=other).load_checkpoint(path16)
+    torch.cuda.synchronize()
+    load16_s = time.perf_counter() - t0
+    for name, eng in (("memory", init(cfg, {"dtype": "bf16"},
+                                      model_parameters=params)),
+                      ("file", from_file)):
+        srv = eng.serve(serving)
+        _zero_counters()
+        tokens[name] = [r.output_tokens for r in
+                        _run_requests(srv, prompts, CKPT_NEW)]
+        counts[name] = _counters()
+        del srv
+    log(f"ckpt: int8 serve from the 16-bit file load_s={load16_s:.3f} "
+        f"requests={len(prompts)} tokens_equal="
+        f"{tokens['file'] == tokens['memory']} launches="
+        f"{json.dumps(counts['file'])}")
+    if tokens["file"] != tokens["memory"]:
+        fail("ckpt: int8 serve from the checkpoint gave other tokens")
+    if counts["file"]["paged_attention"] <= 0 or \
+            counts["file"]["quant_matmul"] <= 0:
+        fail(f"ckpt: the int8 serve launched {counts['file']}")
+    serve_counts = counts["file"]
+    ids = torch.as_tensor(rng.integers(1, cfg.vocab_size, (4, 256)),
+                          device="cuda")
+    outs = {}
+    for name, eng in (("memory", init(cfg, {"dtype": "bf16"},
+                                      model_parameters=params)),
+                      ("file", from_file)):
+        _zero_counters()
+        outs[name] = eng.generate(ids, max_new_tokens=CKPT_NEW)
+        counts[name] = _counters()
+    L = cfg.num_layers
+    log(f"ckpt: bf16 generate from the 16-bit file tokens_equal="
+        f"{torch.equal(outs['file'], outs['memory'])} launches="
+        f"{json.dumps(counts['file'])}")
+    if not torch.equal(outs["file"], outs["memory"]):
+        fail("ckpt: generate from the checkpoint gave other tokens")
+    if counts["file"]["flash_attention_fwd"] != L or \
+            counts["file"]["decode_attention"] != L * (CKPT_NEW - 1):
+        fail(f"ckpt: generate from the checkpoint launched {counts['file']}")
+    q_mem = init(cfg, {"dtype": "int8"}, model_parameters=params)
+    q_file = init(cfg, {"dtype": "int8"},
+                  model_parameters=other).load_checkpoint(path16)
+    logits = [e.forward(ids[:2, :64]) for e in (q_mem, q_file)]
+    log(f"ckpt: dtype int8 engine from the 16-bit file logits_equal="
+        f"{torch.equal(*logits)}")
+    if not torch.equal(*logits):
+        fail("ckpt: the re-quantized int8 engine's logits differ")
+    return {"launches": {"int8_serve": serve_counts,
+                         "bf16_generate": counts["file"]},
+            "load16_s": load16_s}
+
+
+def _ckpt_resilience(tmp):
+    """At a 2-layer cut of llama-1.1b (full width): the async writer saves
+    three tags with keep_last=2 and commits; the newest tag's
+    model_states.npz is truncated; a fresh engine's load_checkpoint
+    (tag=None) rolls back to the previous tag and repairs ``latest``;
+    inspect_checkpoint summarizes it; the zero_to_fp32 CLI's output
+    equals the resumed engine's fp32 master bitwise."""
+    import numpy as np
+    import torch
+    from deepspeed_tpu_torch.checkpoint import inspect_checkpoint
+    from deepspeed_tpu_torch.runtime import checkpointing as ck
+    cut = {"num_layers": CKPT_SMALL_LAYERS}
+    conf = dict(TRAIN_CONFIG, checkpoint={"async_save": True, "keep_last": 2})
+    e, cfg = _train_engine(tmp, "ckpt_async", conf, 0, **cut)
+    d = os.path.join(tmp, "ckpt_small")
+    t0 = time.perf_counter()
+    for s in range(3):
+        _ckpt_step(e, _ckpt_batch(cfg.vocab_size, 70 + s),
+                   f"2-layer step {s}")
+        e.save_checkpoint(d)
+    res = e.wait_for_checkpoints()
+    async_s = time.perf_counter() - t0
+    tags = ck.list_tags(d)
+    log(f"ckpt: async keep_last=2 commit={res!r} tags={tags} "
+        f"latest={ck.get_latest_tag(d)} wall_s={async_s:.3f}")
+    if not res or tags != ["global_step2", "global_step3"]:
+        fail(f"ckpt: async saves gave {res!r}, tags {tags}")
+    if not e.close():
+        fail("ckpt: closing the async writer failed")
+    npz = os.path.join(d, "global_step3", "model_states.npz")
+    with open(npz, "r+b") as f:
+        f.truncate(os.path.getsize(npz) // 2)
+    f_eng, _ = _train_engine(tmp, "ckpt", TRAIN_CONFIG, 1, **cut)
+    f_eng.load_checkpoint(d)
+    latest = ck.get_latest_tag(d)
+    log(f"ckpt: truncated global_step3 -> resumed global_steps="
+        f"{f_eng.global_steps} latest={latest}")
+    if f_eng.global_steps != 2 or latest != "global_step2":
+        fail("ckpt: no rollback over the truncated tag")
+    summary = inspect_checkpoint(d)
+    log(f"ckpt: inspect_checkpoint {json.dumps(summary)}")
+    n_params = sum(p.numel() for p in f_eng.module.parameters())
+    if summary["step"] != 2 or summary["num_parameters"] != n_params:
+        fail(f"ckpt: inspect_checkpoint gave {summary}")
+    out = os.path.join(tmp, "fp32.npz")
+    env = dict(os.environ, PYTHONPATH=HERE)
+    run = subprocess.run(
+        [sys.executable, "-m", "deepspeed_tpu_torch.utils.zero_to_fp32", d,
+         out], cwd=HERE, env=env, capture_output=True, text=True,
+        timeout=600)
+    if run.returncode != 0:
+        fail(f"ckpt: zero_to_fp32 exited {run.returncode}: {run.stderr}")
+    master = ck.consolidated_fp32_state_dict(f_eng._ckpt_state())
+    with np.load(out) as z:
+        same = sorted(z.files) == sorted(master) and all(
+            np.array_equal(z[k], v) for k, v in master.items())
+    log(f"ckpt: zero_to_fp32 {run.stdout.strip()} equals_master={same}")
+    if not same:
+        fail("ckpt: zero_to_fp32's output differs from the fp32 master")
+    del e, f_eng
+    torch.cuda.empty_cache()
+    return {"async_s": async_s}
+
+
+# ---------------------------------------------------------- 10. remat
+
+REMAT_POLICIES = (None, "dots", "attn", "full")
+REMAT_TIMED_STEPS = 3
+
+
+def phase_remat(tmp):
+    """llama-1.1b at full width and depth with the train leg's config, one
+    engine per block policy (remat off, "dots", "attn", "full"), each from
+    the same seeded weights. The first step runs through the micro-batch
+    API: the memory the first micro-batch's forward holds for its backward
+    and the peak of its forward + backward (both above the engine's
+    state), the step's own peak (the optimizer's temporaries included),
+    its loss and grad norm against remat off (within 1e-5 relative,
+    bitwise expected) and the flash launches (the forward 44, twice that
+    under "full", whose backward recomputes it; each backward kernel 44).
+    Then the median wall ms of REMAT_TIMED_STEPS train_batch steps, and
+    one profiled step's device busy ms and time by kind."""
+    import numpy as np
+    import torch
+    out, ref = {}, None
+    b1, b2 = (_ckpt_batch(32000, s) for s in (80, 81))
+    micros = [{"input_ids": b1["input_ids"][i * TRAIN_MICRO:
+                                            (i + 1) * TRAIN_MICRO]}
+              for i in range(TRAIN_GAS)]
+    for policy in REMAT_POLICIES:
+        kw = ({} if policy is None else
+              {"remat": True, "remat_policy": policy})
+        e, cfg = _train_engine(tmp, "remat", TRAIN_CONFIG, 0, **kw)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        _zero_counters()
+        for i, micro in enumerate(micros):
+            loss = e.forward(micro)
+            if i == 0:
+                held = torch.cuda.memory_allocated() - base
+            e.backward(loss)
+            if i == 0:
+                fwd_bwd = torch.cuda.max_memory_allocated() - base
+        m = e.step()
+        c = _counters()
+        peak = torch.cuda.max_memory_allocated() - base
+        walls = []
+        for _ in range(REMAT_TIMED_STEPS):
+            t0 = time.perf_counter()
+            e.train_batch(b2)                   # ends in a host read
+            walls.append(1e3 * (time.perf_counter() - t0))
+        step_ms = float(np.median(walls))
+        busy, _ = profile_train(e, b2, step_ms,
+                                label=f"remat {policy or 'off'} step")
+        per = LLAMA_LAYERS * TRAIN_GAS
+        want = {"flash_attention_fwd": 2 * per if policy == "full" else per,
+                "flash_attention_bwd_dq": per, "flash_attention_bwd_dkv": per}
+        got = {k: c[k] for k in want}
+        name = policy or "off"
+        if ref is None:
+            ref = m
+        rl = abs(m["loss"] - ref["loss"]) / abs(ref["loss"])
+        rn = abs(m["grad_norm"] - ref["grad_norm"]) / abs(ref["grad_norm"])
+        out[name] = {"held_gb": held / 1e9, "fwd_bwd_peak_gb": fwd_bwd / 1e9,
+                     "step_peak_gb": peak / 1e9, "state_gb": base / 1e9,
+                     "step_ms": step_ms, "busy_ms": busy, "launches": got,
+                     "loss_rel": rl, "grad_norm_rel": rn}
+        log(f"remat: policy={name} state_gb={base / 1e9:.2f} "
+            f"held_after_forward_gb={held / 1e9:.3f} "
+            f"fwd_bwd_peak_gb={fwd_bwd / 1e9:.3f} "
+            f"step_peak_gb={peak / 1e9:.3f} (above the state; one "
+            f"micro-batch of {TRAIN_MICRO} x {TRAIN_SEQ}) step_ms="
+            f"{step_ms:.1f} busy_ms={busy:.1f} loss={m['loss']:.7f} "
+            f"rel={rl:.3e} grad_norm="
+            f"{m['grad_norm']:.6f} rel={rn:.3e} bitwise="
+            f"{(m['loss'], m['grad_norm']) == (ref['loss'], ref['grad_norm'])}"
+            f" launches={json.dumps(got)}")
+        if got != want:
+            fail(f"remat {name}: launched {got}, expected {want}")
+        if rl > 1e-5 or rn > 1e-5 or not np.isfinite(m["loss"]):
+            fail(f"remat {name}: loss / grad norm off remat off's")
+        del e, loss
+        torch.cuda.empty_cache()
+    held = [out[p]["held_gb"] for p in ("full", "attn", "dots", "off")]
+    log(f"remat: held after the forward, GB, full/attn/dots/off: "
+        f"{[round(x, 3) for x in held]}")
+    if not held[0] < held[1] < held[2] < held[3]:
+        fail("remat: the policies do not order full < attn < dots < off")
+    return out
+
+
+def time_bert_masked_flash():
+    """The BERT-large leg's attention: 24 launches (one a layer) of each
+    flash kernel at [8, 16, 512, 64] bf16, non-causal, with the ragged
+    key mask BERT_KEY_LENS, beside SDPA with the same boolean mask. Bound:
+    the live (q, k) pairs (each sample's keys) at 4 D flops a pair for the
+    forward, 6 D for dq and 8 D for dk/dv, against each input read once
+    and each output written once."""
+    import torch
+    import torch.nn.functional as F
+    from deepspeed_tpu_torch.ops import flash_attention as tfa
+    B, H, S, D, n = 8, 16, 512, 64, 24
+    g = torch.Generator(device="cuda").manual_seed(21)
+    q, k, v, do = (torch.randn(B, H, S, D, device="cuda", generator=g)
+                   .to(torch.bfloat16) for _ in range(4))
+    mask = _key_mask(BERT_KEY_LENS, S)
+    kw = {"causal": False, "mask": mask}
+    o, lse = tfa.flash_attention_fwd(q, k, v, **kw)
+    delta = (do.float() * o.float()).sum(-1)
+
+    def step(fn):
+        return lambda: [fn() for _ in range(n)]
+
+    qs, ks, vs = (t.detach().clone().requires_grad_() for t in (q, k, v))
+    so = F.scaled_dot_product_attention(qs, ks, vs, attn_mask=mask)
+    lib_fwd = device_ms(step(lambda: F.scaled_dot_product_attention(
+        q, k, v, attn_mask=mask)))
+    lib_bwd = device_ms(step(lambda: torch.autograd.grad(
+        so, (qs, ks, vs), do, retain_graph=True)))
+    plain_fwd = device_ms(step(lambda: tfa.flash_attention_reference(
+        q, k, v, **kw)), reps=3)
+    plain_bwd = device_ms(step(lambda: tfa.flash_attention_bwd_reference(
+        q, k, v, o, lse, do, **kw)), reps=3)
+    pairs = H * S * sum(BERT_KEY_LENS)
+    elem, rows, mbytes = B * H * S * D * 2, B * H * S * 4, B * S
+    out = {}
+    for name, fn, nbytes, flops, plain, lib in (
+            ("flash_attention_fwd",
+             lambda: tfa.flash_attention_fwd(q, k, v, **kw),
+             4 * elem + rows + mbytes, 4 * D * pairs, plain_fwd, lib_fwd),
+            ("flash_attention_bwd_dq",
+             lambda: tfa.flash_attention_bwd_dq(q, k, v, do, lse, delta,
+                                                **kw),
+             5 * elem + 2 * rows + mbytes, 6 * D * pairs, plain_bwd,
+             lib_bwd),
+            ("flash_attention_bwd_dkv",
+             lambda: tfa.flash_attention_bwd_dkv(q, k, v, do, lse, delta,
+                                                 **kw),
+             6 * elem + 2 * rows + mbytes, 8 * D * pairs, plain_bwd,
+             lib_bwd)):
+        bnd, by = bound_ms(n * nbytes, n * flops)
+        out[name] = {"ms": device_ms(step(fn)), "plain_ms": plain,
+                     "library_ms": lib, "bound_ms": bnd, "bound_by": by,
+                     "work": f"one BERT-large step: {n} launches, B={B}, "
+                             f"H={H}, S=Sk={S}, D={D}, non-causal, key mask "
+                             f"{list(BERT_KEY_LENS)}, bf16; backward plain "
+                             "and library compute dq, dk and dv together"}
+        r = out[name]
+        log(f"time: bert masked {name} ms={r['ms']:.4f} bound_ms="
+            f"{bnd:.4f} ({by}) plain_ms={plain:.4f} library_ms={lib:.4f} "
+            f"factor={r['ms'] / lib:.3f} [{r['work']}]")
+    del q, k, v, do, o, lse, delta, qs, ks, vs, so, mask
+    torch.cuda.empty_cache()
+    return out
+
+
 def main(argv=None):
     import argparse
     import torch
@@ -3792,6 +4287,11 @@ def main(argv=None):
                          "this one, in one process: the serve step's call "
                          "(bf16 and int8 pools), D 96 x 16 heads, and the "
                          "serve decode step")
+    ap.add_argument("--only", nargs="+", metavar="PHASE",
+                    choices=("ckpt", "remat", "hf", "bert-masked"),
+                    help="build the kernels, then run only these phases "
+                         "(ckpt, remat, hf, bert-masked) and a result "
+                         "line that names them; no kernels line")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -3816,6 +4316,22 @@ def main(argv=None):
 
     t0 = time.perf_counter()
     phase_build()
+    if args.only:
+        with tempfile.TemporaryDirectory() as tmp:
+            for phase in args.only:
+                res = {"ckpt": lambda: phase_ckpt(tmp),
+                       "remat": lambda: phase_remat(tmp),
+                       "hf": lambda: phase_hf(smi),
+                       "bert-masked": time_bert_masked_flash}[phase]()
+                log(f"time: {phase} " + json.dumps(res, default=str))
+        log(f"total_s={time.perf_counter() - t0:.1f}")
+        log(smi)
+        # a partial run names its phases, so its last line is never the
+        # full run's
+        log(json.dumps({"ok": True, "only": args.only, "device": {
+            "platform": "gpu", "kind": name,
+            "count": torch.cuda.device_count()}}))
+        return 0
     old_fwd = (_parent_flash_fwd(args.old_flash_fwd)
                if args.old_flash_fwd else None)
     old_paged = _parent_paged(args.old_paged) if args.old_paged else None
@@ -3871,12 +4387,18 @@ def main(argv=None):
         ab_train(trainer, batch, old_fwd, which="fwd")
     del trainer
     torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpt = phase_ckpt(tmp)
+        remat = phase_remat(tmp)
+    log("time: ckpt " + json.dumps(ckpt))
+    log("time: remat " + json.dumps(remat))
     fb = time_flash_attention_bwd()
     if old_bwd:
         ab_flash_bwd(old_bwd, fb)
     torch.cuda.empty_cache()
     time_head_dims()
     time_wide_heads()
+    bert = time_bert_masked_flash()
     with tempfile.TemporaryDirectory() as tmp:
         gemma_counts = phase_gemma(tmp)
     hf_counts = phase_hf(smi)
@@ -3932,6 +4454,15 @@ def main(argv=None):
         # the HF import legs' (Phi-2, BERT-large) launches by entry point
         row["launches_hf"] = {path: c[kname] for path, c in hf_counts.items()
                               if c.get(kname)}
+        if kname in bert:   # BERT-large's masked calls beside SDPA's
+            row["bert_masked"] = bert[kname]
+        # this slice's legs: the checkpoint leg's resumed steps and served
+        # engines, and the remat leg's step under each policy
+        row["launches_ckpt"] = {path: c[kname] for path, c in
+                                ckpt["launches"].items() if c.get(kname)}
+        row["launches_remat"] = {policy: r["launches"][kname]
+                                 for policy, r in remat.items()
+                                 if r["launches"].get(kname)}
         if kname in BS_KERNELS:
             row["launches_by_path"] = {"sparse_train": launches,
                                        "window_train": window_counts[kname]}

@@ -9,7 +9,8 @@ branch) and runs ``generate()`` (``models.generation.generate``). The int8
 engine's ``forward()`` is ``forward_with_cache`` on a fresh cache; the
 bf16/f32 ``forward()`` applies the ``models.transformer.Transformer``
 module to the engine's weights, as the JAX engine applies its flax
-model. ``tp_size > 1``, ``load_checkpoint`` and the serving fleet,
+model. ``load_checkpoint`` reads a name-keyed npz written by either
+package (re-quantizing for int8). ``tp_size > 1`` and the serving fleet,
 disaggregated and process placements raise ``NotImplementedError`` until
 later slices of the port (see ROADMAP.md).
 """
@@ -141,8 +142,26 @@ class InferenceEngine:
     __call__ = forward
 
     def load_checkpoint(self, path: str):
-        raise NotImplementedError("InferenceEngine.load_checkpoint (the "
-                                  "checkpoint bridge) " + _LATER)
+        """Load a name-keyed npz (``save_16bit_model`` output or a tag's
+        ``model_states.npz``, written by either package) onto this
+        engine's device: every parameter path of the served model must be
+        present with its shape. Leaves are cast to the engine's dtype; an
+        int8 engine loads the full-precision kernels and quantizes them
+        again (:func:`quantize_weights_int8`)."""
+        from ..runtime.checkpointing import load_tree
+
+        def full_precision(node):      # the tree before quantization
+            return {k: full_precision(v) if isinstance(v, dict) else v
+                    for k, v in node.items() if k != "kernel_scale"}
+
+        raw = load_tree(path, full_precision(self.params))
+        if self.quantized:
+            raw = quantize_weights_int8(
+                _cast(raw, torch.float32, self.device))
+        self.params = _cast(raw, self.dtype, self.device)
+        self._module = None
+        log_dist(f"InferenceEngine: loaded {path}", ranks=[0])
+        return self
 
     def generate(self, input_ids, max_new_tokens: int = 32,
                  temperature: float = 0.0, top_k=None,

@@ -75,12 +75,14 @@ def _dense(x: torch.Tensor, p: Dict[str, torch.Tensor],
     """x @ W (+ bias). Blockwise-int8 kernels go through ``quant_matmul``
     (the hand-written kernel for CUDA tensors; ``impl="reference"`` forces
     its plain version); every other weight is a plain ``torch.matmul``,
-    as the JAX package left it to XLA."""
+    as the JAX package left it to XLA, through ``checkpoint_name.dot``
+    (``x @ W``, whose output a "dots" remat region keeps)."""
     if "kernel_qscale" in p:
         from ..ops.quant_matmul import quant_matmul
         y = quant_matmul(x, p["kernel"], p["kernel_qscale"], impl=impl)
     else:
-        y = x @ _kernel_of(p, x.dtype)
+        from ..ops.checkpoint_name import dot
+        y = dot(x, _kernel_of(p, x.dtype))
     if "bias" in p:
         y = y + p["bias"].to(x.dtype)
     return y

@@ -371,12 +371,15 @@ def _check_trainable(cfg: TransformerConfig) -> None:
     unported = {
         "moe_experts": cfg.moe_experts > 0,
         "random-LTD (ltd_tokens)": cfg.ltd_tokens > 0, "pld": cfg.pld,
-        "remat": cfg.remat, "activation_quant": cfg.activation_quant,
+        "activation_quant": cfg.activation_quant,
     }
     bad = [name for name, on in unported.items() if on]
     if bad:
         raise NotImplementedError(f"Transformer: {', '.join(bad)} "
                                   + _NOT_PORTED)
+    if cfg.remat:
+        from ..runtime.act_checkpoint import check_block_policy
+        check_block_policy(cfg.remat_policy)
     if cfg.fused_loss and cfg.final_logit_softcap:
         raise ValueError("fused_loss with final_logit_softcap is not "
                          "supported (the chunked CE has no softcap term)")
@@ -624,8 +627,15 @@ class Transformer(nn.Module):
         windows = ([max(int(w), 0) for w in cfg.layer_windows]
                    if cfg.layer_windows is not None
                    else [0] * cfg.num_layers)
-        for blk, window in zip(self.blocks, windows):
-            x = blk(x, attn_mask, user_positions, window)
+        if cfg.remat and torch.is_grad_enabled():
+            # each block one checkpointed region under cfg.remat_policy
+            from ..runtime.act_checkpoint import remat_block
+            for blk, window in zip(self.blocks, windows):
+                x = remat_block(blk, cfg.remat_policy, x, attn_mask,
+                                user_positions, window)
+        else:
+            for blk, window in zip(self.blocks, windows):
+                x = blk(x, attn_mask, user_positions, window)
         if not cfg.post_ln:
             x = _layer_norm(x, self.ln_f.p, eps, rms)
         if cfg.mlm_head:

@@ -408,7 +408,9 @@ class _BlockSparseAttention(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, sched, scale):
-        o, lse = _fwd(q, k, v, sched, scale)
+        # kept by a remat region that keeps "attn" (see _FlashAttention)
+        from .checkpoint_name import reuse
+        o, lse = reuse("attn", lambda: _fwd(q, k, v, sched, scale), q, k, v)
         ctx.save_for_backward(q, k, v, o, lse)
         ctx.sched, ctx.scale = sched, scale
         return o

@@ -99,7 +99,12 @@ class _FlashAttention(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, kw, impl):
-        o, lse = flash_attention_fwd(q, k, v, impl=impl, **kw)
+        # a remat region that keeps "attn" stores (o, lse) here and hands
+        # them back in its recomputation, so the kernel launches once
+        from .checkpoint_name import reuse
+        o, lse = reuse("attn", lambda: flash_attention_fwd(q, k, v,
+                                                           impl=impl, **kw),
+                       q, k, v)
         ctx.save_for_backward(q, k, v, o, lse)
         ctx.kw, ctx.impl = kw, impl
         return o

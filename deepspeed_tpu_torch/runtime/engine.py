@@ -18,7 +18,17 @@ What is ported, with the JAX engine's semantics:
   step keeps parameters, master and moments and does not advance the
   step; skipped-step and non-finite-streak counters;
 * ``forward`` / ``backward`` / ``step`` (the micro-batch API), ``eval_batch``
-  and the getters.
+  and the getters;
+* checkpoints (``save_checkpoint`` / ``load_checkpoint``, the sync or
+  async writer of the ``checkpoint`` section with its retention and
+  verified loads, ``save_16bit_model``, ``load_module_state_dict``): the
+  JAX package's files, read and written by path — a ``Transformer``'s
+  per-block parameters, fp32 master and Adam moments stacked into the
+  scan layout's ``[L, ...]`` leaves on save and copied back slice by slice
+  on load, so a checkpoint crosses between the two packages;
+* the ``activation_checkpointing`` section: a user module's call becomes
+  one checkpointed region under the "dots" policy (the in-tree
+  ``Transformer`` remats per block through its own ``remat`` knob).
 
 The update runs in place once the step is known not to skip: the
 overflow flag and the grad norm come to the host together, one read per
@@ -32,12 +42,14 @@ section, so every layer runs the block-sparse kernels.
 ZeRO stages 0-3 on one process are accepted: partitioning over one rank
 is the identity, as for the JAX engine on one chip. Everything else that
 a config can enable and this engine does not implement raises
-``NotImplementedError`` naming ROADMAP.md: CPU/NVMe offload, the 1-bit
-optimizers, comm_plan, compression_training, the integrity sentinel,
-progressive layer drop, curriculum / data efficiency, eigenvalue,
-sequence / tensor / pipeline parallelism, activation checkpointing,
-monitors and the other aux sections, a ``torch.distributed`` world larger
-than one, and checkpoint save / load.
+``NotImplementedError`` naming ROADMAP.md: CPU/NVMe offload (and
+``activation_checkpointing.cpu_checkpointing``), the 1-bit optimizers,
+comm_plan, compression_training, the integrity sentinel, progressive
+layer drop, curriculum / data efficiency, eigenvalue, sequence / tensor /
+pipeline parallelism, monitors and the other aux sections, and a
+``torch.distributed`` world larger than one. Not ported either: the
+preemption handler and emergency save, the sentinel's audited-clean
+resume and the offload load path (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -55,7 +67,8 @@ from ..config.config import DeepSpeedConfig, load_config
 from ..ops.optimizers import Optimizer, build_optimizer
 from ..utils.device import resolve_device
 from ..utils.logging import log_dist
-from .loss_scaler import LossScaler
+from . import checkpointing as ckpt_lib
+from .loss_scaler import LossScaler, LossScaleState
 from .lr_schedules import LRScheduler, build_schedule
 
 _LATER = "is not ported to deepspeed_tpu_torch yet (see ROADMAP.md)"
@@ -109,9 +122,8 @@ def unported_sections(config: DeepSpeedConfig) -> List[str]:
         "tensor_parallel (tp_size > 1)": c.tensor_parallel.tp_size > 1,
         "pipeline (stages > 1)": c.pipeline.stages > 1,
         "moe": c.moe.enabled,
-        "activation_checkpointing": bool(
-            act.partition_activations or act.cpu_checkpointing
-            or act.number_checkpoints),
+        "activation_checkpointing.cpu_checkpointing (host offload, "
+        "ROADMAP item 5.2)": act.cpu_checkpointing,
         "watchdog": any(t > 0 for t in (
             wd.stall_timeout, wd.compile_timeout, wd.restore_timeout,
             wd.save_timeout)),
@@ -124,8 +136,6 @@ def unported_sections(config: DeepSpeedConfig) -> List[str]:
         "flops_profiler": c.flops_profiler.enabled,
         "autotuning": c.autotuning.enabled,
         "elasticity": c.elasticity.enabled,
-        "nebula": c.nebula.enabled,
-        "checkpoint.async_save": c.checkpoint.async_save,
     }
     return [name for name, on in checks.items() if on]
 
@@ -256,6 +266,7 @@ class DeepSpeedEngine:
         except (TypeError, ValueError):
             self._takes_train = False
         model.to(self.device)
+        self._remat_apply = self._activation_checkpointing(model)
         self._params = [p for p in model.parameters() if p.requires_grad]
         for p in self._params:                     # the master, fp32
             p.data = p.data.to(torch.float32)
@@ -320,6 +331,10 @@ class DeepSpeedEngine:
         self._train_mode = True
         self._last_metrics: Dict[str, Any] = {}
         self._step_t0 = None
+        # global batches consumed since data start (one a step), kept in
+        # the checkpoint's client_state
+        self.data_position = 0
+        self._ckpt_cache = None             # see _ckpt_leaves
         log_dist(f"DeepSpeedEngine initialized: ZeRO stage "
                  f"{self.config.zero_optimization.stage} (one process), "
                  f"dtype {self.config.precision_dtype}, device {self.device}, "
@@ -344,8 +359,32 @@ class DeepSpeedEngine:
             return torch.as_tensor(batch, device=self.device)
         return batch
 
+    def _activation_checkpointing(self, model: nn.Module):
+        """The ``activation_checkpointing`` section (JAX engine
+        :295-331): for the in-tree ``Transformer`` with ``remat`` on, the
+        model already segments per block; any other model's call becomes
+        one checkpointed region under the selective "dots" policy. Returns
+        that wrapped call, or None."""
+        act = self.config.activation_checkpointing
+        if not (act.partition_activations or act.number_checkpoints):
+            return None
+        if getattr(getattr(model, "cfg", None), "remat", False):
+            return None
+        from . import act_checkpoint
+        act_checkpoint.configure(
+            partition_activations=act.partition_activations,
+            contiguous_checkpointing=act.contiguous_memory_optimization,
+            num_checkpoints=act.number_checkpoints,
+            checkpoint_in_cpu=act.cpu_checkpointing, profile=act.profile)
+        log_dist("activation checkpointing: engine-level remat of the "
+                 "model's call (policy=dots)", ranks=[0])
+        return act_checkpoint.remat(
+            lambda batch, kw: model(batch, **kw), policy_name="dots")
+
     def _apply(self, batch, train: bool):
         kw = {"train": train} if self._takes_train else {}
+        if self._remat_apply is not None and train:
+            return self._remat_apply(batch, kw)
         return self.module(batch, **kw)
 
     def _micro_backward(self, loss: torch.Tensor) -> None:
@@ -414,6 +453,7 @@ class DeepSpeedEngine:
 
     def _after_step(self, metrics: Dict[str, Any]) -> None:
         self.global_steps += 1
+        self.data_position += 1
         if self.lr_scheduler is not None:
             self.lr_scheduler.step()
         self._last_metrics = metrics
@@ -575,10 +615,170 @@ class DeepSpeedEngine:
         return {n: p.detach().float().cpu().numpy()
                 for n, p in self.module.named_parameters()}
 
-    def save_checkpoint(self, *args, **kwargs):
-        raise NotImplementedError("save_checkpoint (the checkpoint bridge, "
-                                  "ROADMAP item 2.5) " + _LATER)
+    # ------------------------------------------------------------ checkpoints
 
-    def load_checkpoint(self, *args, **kwargs):
-        raise NotImplementedError("load_checkpoint (the checkpoint bridge, "
-                                  "ROADMAP item 2.5) " + _LATER)
+    def _ckpt_leaves(self):
+        """(params, master, moments) of the checkpoint as flat dicts of
+        ``checkpointing.Leaf`` over the live tensors, keyed by the JAX
+        package's paths: a ``Transformer``'s ``blocks.<i>.<leaf>.<name>``
+        parameters (and their master and moments) stack into one
+        ``blocks/<leaf>/<name>`` leaf; every other parameter keeps its
+        own path (a ``Transformer``'s flax path, any other module's
+        ``named_parameters`` name). Built once: the tensors are updated in
+        place for the engine's life."""
+        if self._ckpt_cache is not None:
+            return self._ckpt_cache
+        from ..models.transformer import Transformer
+        flax = isinstance(self.module, Transformer)
+        index = {id(p): i for i, p in enumerate(self._params)}
+        groups: Dict[str, list] = {}
+        for name, p in self.module.named_parameters():
+            parts = name.split(".")
+            if flax and parts[0] == "blocks":
+                path = "/".join(["blocks"] + parts[2:])
+            else:
+                path = "/".join(parts) if flax else name
+            groups.setdefault(path, []).append(p)
+        stacked = {path: flax and path.startswith("blocks/")
+                   for path in groups}
+        params = {path: ckpt_lib.Leaf(ps if stacked[path] else ps[0],
+                                      stacked[path])
+                  for path, ps in groups.items()}
+
+        def over(tensors):
+            return {path: ckpt_lib.Leaf(
+                [tensors[index[id(p)]] for p in ps] if stacked[path]
+                else tensors[index[id(ps[0])]], stacked[path])
+                for path, ps in groups.items() if id(ps[0]) in index}
+
+        master = over(self.master) if self.keep_master else None
+        moments = {f"{slot}/{path}": leaf
+                   for slot in sorted(self.opt_state)
+                   for path, leaf in over(self.opt_state[slot]).items()}
+        self._ckpt_cache = (params, master, moments)
+        return self._ckpt_cache
+
+    def _ckpt_state(self) -> ckpt_lib.TrainState:
+        params, master, moments = self._ckpt_leaves()
+        return ckpt_lib.TrainState(
+            params=params, master=master, opt_state=moments,
+            step=self.step_count, skipped_steps=self._skipped_steps,
+            nonfinite_streak=self.nonfinite_streak,
+            loss_scale=self.scale_state.scale,
+            scale_good_steps=self.scale_state.good_steps,
+            scale_hysteresis=self.scale_state.hysteresis)
+
+    def save_checkpoint(self, save_dir: str, tag: Optional[str] = None,
+                        client_state: Optional[dict] = None) -> str:
+        """Write ``{save_dir}/{tag}`` (default ``global_step<N>``) in the
+        JAX package's format through the ``checkpoint`` section's writer
+        (sync, or ``async_save``); returns the tag's directory."""
+        if not hasattr(self, "checkpoint_engine"):
+            from ..checkpoint.engine import build_checkpoint_engine
+            self.checkpoint_engine = build_checkpoint_engine(self.config)
+        return self._save_checkpoint_with(self.checkpoint_engine, save_dir,
+                                          tag, client_state)
+
+    def _save_checkpoint_with(self, ckpt_engine, save_dir: str,
+                              tag: Optional[str],
+                              client_state: Optional[dict] = None) -> str:
+        """The save with a given writer: ``global_steps``,
+        ``data_position`` and the scheduler's ``state_dict`` join
+        ``client_state``. In fp32 and pure-bf16 training the master is the
+        parameters (``master_aliases_params``)."""
+        if self._accum is not None or self._pending is not None:
+            raise RuntimeError("save_checkpoint() in the middle of a "
+                               "forward/backward accumulation window")
+        tag = tag or f"global_step{self.global_steps}"
+        client_state = dict(client_state or {})
+        client_state["global_steps"] = self.global_steps
+        client_state["data_position"] = self.data_position
+        if self.lr_scheduler is not None and hasattr(self.lr_scheduler,
+                                                     "state_dict"):
+            client_state["lr_scheduler"] = self.lr_scheduler.state_dict()
+        ckpt = self.config.checkpoint
+        return ckpt_lib.save_checkpoint(
+            save_dir, tag, self._ckpt_state(), client_state,
+            master_aliases_params=not self.keep_master,
+            ckpt_engine=ckpt_engine, keep_last=ckpt.keep_last,
+            keep_every=ckpt.keep_every)
+
+    def wait_for_checkpoints(self):
+        """Durability barrier for async checkpointing; no-op with the sync
+        writer. A truthy ``CommitResult`` on success; on failure it names
+        the failed paths."""
+        if hasattr(self, "checkpoint_engine"):
+            return self.checkpoint_engine.commit("all")
+        return True
+
+    def close(self):
+        """Drain and stop the async checkpoint writer (idempotent)."""
+        if hasattr(self, "checkpoint_engine"):
+            return self.checkpoint_engine.close()
+        return True
+
+    def load_checkpoint(self, load_dir: str, tag: Optional[str] = None,
+                        load_module_only: bool = False):
+        """Load a tag written by either package into this engine's live
+        tensors (``tag=None``: the newest intact one, rolling back over
+        corrupt tags; ``checkpoint.verify_load`` checks digests). The
+        parameters, master, moments and the step / skip / loss-scale
+        counters are restored; ``global_steps``, ``data_position`` and the
+        scheduler too unless ``load_module_only``. Returns (load_dir,
+        client_state)."""
+        if self._accum is not None or self._pending is not None:
+            raise RuntimeError("load_checkpoint() in the middle of a "
+                               "forward/backward accumulation window")
+        state, client_state = ckpt_lib.load_checkpoint(
+            load_dir, tag, self._ckpt_state(),
+            verify=self.config.checkpoint.verify_load)
+        self.step_count = state.step
+        self._skipped_steps = state.skipped_steps
+        self.nonfinite_streak = state.nonfinite_streak
+        self.scale_state = LossScaleState(
+            scale=state.loss_scale, good_steps=state.scale_good_steps,
+            hysteresis=state.scale_hysteresis)
+        if not load_module_only:
+            self.global_steps = client_state.get("global_steps", 0)
+            # one global batch a step unless the checkpoint recorded better
+            self.data_position = client_state.get("data_position",
+                                                  self.global_steps)
+            if self.lr_scheduler is not None and \
+                    "lr_scheduler" in client_state:
+                self.lr_scheduler.load_state_dict(client_state["lr_scheduler"])
+        return load_dir, client_state
+
+    def save_16bit_model(self, save_dir: str,
+                         save_filename: str = "pytorch_model.npz") -> str:
+        """The parameters in their compute dtype, name-keyed, in one npz
+        (loadable by ``InferenceEngine.load_checkpoint`` of either
+        package). Returns its path."""
+        import os
+        os.makedirs(save_dir, exist_ok=True)
+        path = os.path.join(save_dir, save_filename)
+        ckpt_lib.save_16bit_model(self._ckpt_state(), path)
+        return path
+
+    def load_module_state_dict(self, state_dict: Dict[str, Any],
+                               strict: bool = True) -> None:
+        """Load weights only (the inverse of ``module_state_dict``): each
+        present key is copied into the parameters and, with an fp32
+        master, into the master too (else the next step would recompute
+        the parameters from a stale master). Optimizer state and counters
+        are untouched. ``strict=False`` keeps the current values of
+        missing keys and ignores unexpected ones."""
+        params, master, _ = self._ckpt_leaves()
+        if strict:
+            missing = sorted(set(params) - set(state_dict))
+            unexpected = sorted(set(state_dict) - set(params))
+            if missing or unexpected:
+                raise KeyError(
+                    f"state_dict mismatch: missing={missing[:5]} "
+                    f"unexpected={unexpected[:5]} (strict=True)")
+        for key, leaf in params.items():
+            if key not in state_dict:
+                continue
+            value = ckpt_lib.to_tensor(state_dict[key])
+            leaf.write(value)
+            if master is not None and key in master:
+                master[key].write(value)
