@@ -95,6 +95,16 @@ nor ``deepspeed_tpu``. Phases, each reported on its own line:
     the step, the first step's loss and grad norm against remat off, the
     second step's ms and the flash launches (the forward twice a layer
     under "full").
+11. **zero** — bench.py's north-star leg in a 1-rank NCCL world:
+    gpt2-1.3b at full width and depth, ZeRO stage 3, pure bf16 state,
+    bf16 grad accumulation, "dots" remat, the fused CE, seq 1024, micro 2
+    (cut: gas 4, three steps). Each step's flash launches (24 of each a
+    micro-batch) and NCCL all-gathers and reduce-scatters are counted;
+    the loss falls; the first step's loss and grad norm match an engine
+    without a process group within 1e-6 relative; one sharded save loads
+    bitwise into a fresh engine and the next step's loss matches; step
+    ms, tokens/s, 6N TFLOP/s, peak memory, device ms by kind, and the
+    flash kernels at D 128 beside SDPA and their bounds.
 
 ``--old-quant-matmul SRC`` also builds a parent commit's
 ``csrc/quant_matmul.cu`` from SRC and times it against this one in the
@@ -117,9 +127,14 @@ against these, and the long step. ``--sweep-item-cost``: the block-sparse
 forward's and dq's per-item cost of the host balance, swept at the long
 leg's call.
 
-``--only PHASE ...`` (``ckpt``, ``remat``, ``hf``, ``bert-masked``) builds the
-kernels and runs only those phases, then a result line that names them
-(``"only": [...]``; no kernels line).
+``--only PHASE ...`` (``ckpt``, ``remat``, ``hf``, ``bert-masked``, ``zero``)
+builds the kernels and runs only those phases, then a result line that
+names them (``"only": [...]``; no kernels line). ``--zero-ranks N`` (a
+host with N GPUs) builds the kernels and runs only the zero leg across N
+ranks, one process a GPU through ``deepspeed_tpu_torch.launcher.launch``
+(NCCL on each ``cuda:{LOCAL_RANK}``), held to one engine without a
+process group on the same global batch, and ends in a result line that
+names it (``"zero_ranks": N``).
 
 Launch counters are zeroed just before each leg and read just after it.
 Any failed check raises, so the script exits non-zero and prints no
@@ -128,6 +143,7 @@ result. The last lines are the ``kernels`` JSON, the card's
 """
 
 import dataclasses
+import gc
 import json
 import os
 import subprocess
@@ -187,6 +203,20 @@ WG_KERNELS = {"flash_attention_fwd": ("flash_fwd_wg",),
               "flash_attention_bwd": ("flash_bwd_dq_wg", "flash_bwd_dkv_wg"),
               "block_sparse_attention": ("bs_fwd_wg", "bs_dq_wg",
                                          "bs_dkv_wg")}
+# the zero leg: bench.py's north-star leg (gpt2-1.3b, ZeRO-3, pure bf16
+# state, bf16 grad accumulation, "dots" remat, the fused CE, seq 1024,
+# micro 2), gas cut 128 -> 4, in a 1-rank NCCL world
+ZERO_MICRO, ZERO_GAS, ZERO_SEQ, ZERO_STEPS, ZERO_LAYERS = 2, 4, 1024, 3, 24
+ZERO_CONFIG = {
+    "train_batch_size": ZERO_MICRO * ZERO_GAS,
+    "train_micro_batch_size_per_gpu": ZERO_MICRO,
+    "gradient_accumulation_steps": ZERO_GAS,
+    "optimizer": {"type": "AdamW", "params": {"lr": 1e-4}},
+    "bf16": {"enabled": True, "master_weights": False},
+    "data_types": {"grad_accum_dtype": "bf16"},
+    "zero_optimization": {"stage": 3},
+    "steps_per_print": 10_000,
+}
 SERVING = {"block_size": 32, "pool_blocks": 256, "max_batch": 8,
            "max_blocks_per_seq": 64}
 
@@ -873,6 +903,7 @@ def check_flash_attention():
 
     cases = [   # (name, dtype, B, H, S, Sk, D, kwargs)
         ("generate prefill", bf, 8, 32, 1024, 1024, 64, {}),
+        ("gpt2-1.3b zero train", bf, 2, 16, 1024, 1024, 128, {}),
         ("f32 causal", f32, 2, 4, 1024, 1024, 64, {}),
         ("D128 S1000", bf, 2, 4, 1000, 1000, 128, {}),
         ("f32 D128 non-causal", f32, 2, 4, 1000, 1000, 128,
@@ -958,6 +989,7 @@ def check_flash_attention_bwd():
     slopes = [0.5, 0.25, 0.125, 0.0625]
     cases = [   # (name, dtype, B, H, S, Sk, D, kwargs)
         ("training", bf, 2, 32, 1024, 1024, 64, {}),
+        ("gpt2-1.3b zero train", bf, 2, 16, 1024, 1024, 128, {}),
         ("f32 causal", f32, 2, 4, 1024, 1024, 64, {}),
         ("D128 S1000", bf, 2, 4, 1000, 1000, 128, {}),
         ("D32 S1000", bf, 2, 4, 1000, 1000, 32, {}),
@@ -2351,7 +2383,8 @@ def profile_train(engine, batch, step_ms, label="train step"):
              "block_sparse_attention": ("bs_fwd", "bs_dq", "bs_dkv"),
              "gemm": ("nvjet", "gemm",
                                                       "cutlass", "sm90_"),
-             "optimizer_foreach": ("multi_tensor",)}
+             "optimizer_foreach": ("multi_tensor",),
+             "nccl": ("nccl",)}
     by_kind = dict.fromkeys(list(kinds) + ["other"], 0.0)
     for e in prof.key_averages():
         if e.device_type != torch.autograd.DeviceType.CUDA:
@@ -4119,6 +4152,11 @@ def phase_remat(tmp):
     for policy in REMAT_POLICIES:
         kw = ({} if policy is None else
               {"remat": True, "remat_policy": policy})
+        # a trained engine is freed only by the cycle collector: collect
+        # now, or an earlier leg's state is freed during this forward and
+        # the held memory reads low
+        gc.collect()
+        torch.cuda.empty_cache()
         e, cfg = _train_engine(tmp, "remat", TRAIN_CONFIG, 0, **kw)
         torch.cuda.synchronize()
         base = torch.cuda.memory_allocated()
@@ -4177,6 +4215,383 @@ def phase_remat(tmp):
     if not held[0] < held[1] < held[2] < held[3]:
         fail("remat: the policies do not order full < attn < dots < off")
     return out
+
+
+# ----------------------------------------------------------------- 12. zero
+
+def _zero_engine(tmp, name, seed, config=None):
+    """initialize(ds_zero3.json: ``config``, default ZERO_CONFIG) on
+    gpt2-1.3b at full width and depth, seeded weights, "dots" remat and
+    the fused chunked CE."""
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.models.transformer import build_model
+    model, cfg = build_model("gpt2-1.3b", fused_loss=True, loss_chunk=256,
+                             remat=True, remat_policy="dots", seed=seed,
+                             device="cuda")
+    path = os.path.join(tmp, f"{name}.json")
+    with open(path, "w") as f:
+        json.dump(config or ZERO_CONFIG, f)
+    engine, *_ = deepspeed_tpu_torch.initialize(model=model, config=path)
+    return engine, cfg
+
+
+def _zero_step(engine, batch, label):
+    """One train_batch with the launch and collective counters zeroed
+    just before it and read just after: 24 launches of each flash kernel
+    a micro-batch ("dots" keeps the attention forward), and at least one
+    all-gather a block in the forward and one in the backward's
+    recomputation, and one reduce-scatter a block, all on NCCL."""
+    import numpy as np
+    import torch.distributed as dist
+    from deepspeed_tpu_torch import comm
+    _zero_counters()
+    comm.reset_op_counts()
+    t0 = time.perf_counter()
+    m = engine.train_batch(batch)           # ends in a host read
+    dt = time.perf_counter() - t0
+    c, ops = _counters(), comm.op_counts()
+    per = ZERO_LAYERS * ZERO_GAS
+    if any(c[k] != per for k in FLASH_KERNELS):
+        fail(f"zero: {label} launched {c}: expected {per} of each flash "
+             "kernel")
+    if (dist.get_backend() != "nccl" or ops.get("all_gather", 0) < 2 * per
+            or ops.get("reduce_scatter", 0) < per):
+        fail(f"zero: {label} issued {ops} on {dist.get_backend()}: "
+             f"expected NCCL, >= {2 * per} all-gathers and >= {per} "
+             "reduce-scatters")
+    if not np.isfinite(m["loss"]) or m["overflow"]:
+        fail(f"zero: {label}: {m}")
+    return m, dt, {k: c[k] for k in FLASH_KERNELS}, ops
+
+
+def _zero_state(engine):
+    """Every live tensor of a data-parallel engine: parameter shards,
+    master slabs and moments."""
+    return ([p.data for p in engine._params] + list(engine.dp.masters)
+            + [t for slot in sorted(engine.opt_state)
+               for t in engine.opt_state[slot]])
+
+
+def time_flash_d128():
+    """The zero leg's attention at D 128 (gpt2-1.3b: 16 heads of 128, B
+    2, S = Sk = 1024, causal, bf16): one step's ZERO_LAYERS x ZERO_GAS
+    launches of each kernel, beside SDPA's forward and backward on the
+    same inputs and the bounds."""
+    import torch
+    import torch.nn.functional as F
+    from deepspeed_tpu_torch.ops import flash_attention as tfa
+    n = ZERO_LAYERS * ZERO_GAS
+    q, k, v, do, o, lse, delta = _bwd_inputs(12, H=16, D=128)
+    B, H, S, D = q.shape
+
+    def step(fn):
+        return lambda: [fn() for _ in range(n)]
+
+    qs, ks, vs = (t.detach().clone().requires_grad_() for t in (q, k, v))
+    so = F.scaled_dot_product_attention(qs, ks, vs, is_causal=True)
+    lib_bwd = device_ms(step(lambda: torch.autograd.grad(
+        so, (qs, ks, vs), do, retain_graph=True)))
+    lib_fwd = device_ms(step(lambda: F.scaled_dot_product_attention(
+        q, k, v, is_causal=True)))
+    plain_fwd = device_ms(step(lambda: tfa.flash_attention_reference(
+        q, k, v, causal=True)), reps=2)
+    plain_bwd = device_ms(step(lambda: tfa.flash_attention_bwd_reference(
+        q, k, v, o, lse, do, causal=True)), reps=2)
+    pairs = B * H * S * (S + 1) // 2             # live (q, k) pairs, causal
+    elem = B * H * S * D * 2                     # one bf16 [B, H, S, D]
+    rows = B * H * S * 4                         # one f32 [B, H, S]
+    out = {}
+    for name, fn, nbytes, flops, plain, lib in (
+            ("flash_attention_fwd",
+             lambda: tfa.flash_attention_fwd(q, k, v, causal=True),
+             4 * elem + rows, 4 * D * pairs, plain_fwd, lib_fwd),
+            ("flash_attention_bwd_dq",
+             lambda: tfa.flash_attention_bwd_dq(q, k, v, do, lse, delta),
+             5 * elem + 2 * rows, 6 * D * pairs, plain_bwd, lib_bwd),
+            ("flash_attention_bwd_dkv",
+             lambda: tfa.flash_attention_bwd_dkv(q, k, v, do, lse, delta),
+             6 * elem + 2 * rows, 8 * D * pairs, plain_bwd, lib_bwd)):
+        bnd, by = bound_ms(n * nbytes, n * flops)
+        out[name] = {"ms": device_ms(step(fn)), "plain_ms": plain,
+                     "library_ms": lib, "bound_ms": bnd, "bound_by": by,
+                     "work": f"one zero step: {n} launches ({ZERO_LAYERS} "
+                             f"layers x {ZERO_GAS} micro), B={B}, H={H}, "
+                             f"S=Sk={S}, D={D}, causal, bf16; the backward's "
+                             "plain and library calls compute dq, dk and "
+                             "dv together"}
+        t = out[name]
+        log(f"time: zero d128 {name} ms={t['ms']:.4f} bound_ms="
+            f"{bnd:.4f} ({by}) plain_ms={plain:.4f} library_ms={lib:.4f} "
+            f"[{t['work']}]")
+    del q, k, v, do, o, lse, delta, qs, ks, vs, so
+    return out
+
+
+def phase_zero(tmp):
+    """bench.py's north-star leg through the port's ZeRO-3 path in a
+    1-rank NCCL world: gpt2-1.3b at full width and depth (24 layers,
+    hidden 2048, seeded weights), ZeRO stage 3, pure bf16 state, bf16
+    grad accumulation, AdamW lr 1e-4, "dots" remat, the fused chunked CE,
+    seq 1024, micro 2 (cut: gas 128 -> ZERO_GAS, ZERO_STEPS steps). First
+    the same weights and batch through an engine without a process
+    group: the first step's loss and grad norm must match within 1e-6
+    relative. Then comm.init_distributed (NCCL, world 1) and ZERO_STEPS
+    train_batch steps on one batch, each held to its flash launches and
+    its NCCL all-gathers and reduce-scatters; the loss falls. One sharded
+    save_checkpoint loads bitwise into a fresh engine and the next step's
+    loss matches. Readings: step ms, tokens/s and model TFLOP/s (6N, and
+    with attention), peak memory, the profiled step's device ms by kind
+    and busy share, and the flash kernels at D 128."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from deepspeed_tpu_torch import comm
+    from deepspeed_tpu_torch.parallel.mesh import set_global_mesh
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(12)
+    B = ZERO_MICRO * ZERO_GAS
+    batch = {"input_ids": rng.integers(1, 50257, (B, ZERO_SEQ))}
+    log(f"zero: gpt2-1.3b ZeRO-3 pure bf16, grad_accum bf16, dots remat, "
+        f"fused CE, seq {ZERO_SEQ}, micro {ZERO_MICRO}; cut: gas 128 -> "
+        f"{ZERO_GAS}, 5 x 128 micro-batches -> {ZERO_STEPS} steps of "
+        f"{ZERO_GAS}")
+    if comm.is_initialized():
+        fail("zero: a process group is already up")
+    ref_engine, _ = _zero_engine(tmp, "ds_zero3_ref", 0)
+    _zero_counters()
+    ref = ref_engine.train_batch(batch)
+    if ref_engine.dp is not None:
+        fail("zero: the reference engine ran data parallel")
+    del ref_engine
+    gc.collect()                # a trained engine sits in a reference cycle
+    torch.cuda.empty_cache()
+    comm.init_distributed(world_size=1, rank=0)
+    try:
+        engine, cfg = _zero_engine(tmp, "ds_zero3", 0)
+        n_params = sum(int(np.prod(e.shape)) for e in engine.dp.entries)
+        sharded = sum(e.gathered for e in engine.dp.entries)
+        log(f"zero: backend={dist.get_backend()} world="
+            f"{dist.get_world_size()} params={n_params} layers="
+            f"{cfg.num_layers} hidden={cfg.hidden_size} gathered leaves="
+            f"{sharded}/{len(engine.dp.entries)} "
+            f"init_s={time.perf_counter() - t0:.2f} "
+            f"mem_gb={torch.cuda.memory_allocated() / 1e9:.2f}")
+        torch.cuda.reset_peak_memory_stats()
+        metrics, step_s, launches, ops = [], [], None, None
+        for step in range(ZERO_STEPS):
+            m, dt, c, o = _zero_step(engine, batch, f"step {step}")
+            metrics.append(m)
+            step_s.append(dt)
+            launches, ops = launches or c, ops or o
+            log(f"zero: step {step} loss={m['loss']:.6f} grad_norm="
+                f"{m['grad_norm']:.5f} step_ms={1e3 * dt:.1f} "
+                f"launches={json.dumps(c)} collectives={json.dumps(o)}")
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        first = metrics[0]
+        rl = abs(first["loss"] - ref["loss"]) / abs(ref["loss"])
+        rn = abs(first["grad_norm"] - ref["grad_norm"]) / abs(
+            ref["grad_norm"])
+        bitwise = (first["loss"], first["grad_norm"]) == (
+            ref["loss"], ref["grad_norm"])
+        log(f"check: zero first step vs the engine without a process group "
+            f"loss={first['loss']:.9f}/{ref['loss']:.9f} rel={rl:.3e} "
+            f"grad_norm={first['grad_norm']:.9f}/{ref['grad_norm']:.9f} "
+            f"rel={rn:.3e} tol=1e-6 bitwise={bitwise}")
+        if not (rl <= 1e-6 and rn <= 1e-6):
+            fail("zero: the sharded path's first step is off the "
+                 "single-process engine's")
+        log(f"zero: loss {[round(m['loss'], 6) for m in metrics]}")
+        if not metrics[-1]["loss"] < metrics[0]["loss"]:
+            fail(f"zero: loss did not fall {[m['loss'] for m in metrics]}")
+        # one sharded save, loaded into a fresh engine of other weights
+        ck = os.path.join(tmp, "zero_ck")
+        t1 = time.perf_counter()
+        engine.save_checkpoint(ck)
+        save_s = time.perf_counter() - t1
+        tag = os.path.join(ck, f"global_step{ZERO_STEPS}")
+        files = sorted(os.listdir(tag))
+        fresh, _ = _zero_engine(tmp, "ds_zero3_fresh", 1)
+        t1 = time.perf_counter()
+        fresh.load_checkpoint(ck)
+        load_s = time.perf_counter() - t1
+        same = all(torch.equal(a, b) for a, b in
+                   zip(_zero_state(engine), _zero_state(fresh)))
+        nxt = _zero_step(engine, batch, "next step")[0]
+        nxt_fresh = _zero_step(fresh, batch, "resumed step")[0]
+        log(f"zero: sharded save {save_s:.2f} s files={files} load "
+            f"{load_s:.2f} s restored bitwise={same} next loss "
+            f"{nxt['loss']:.9f} resumed {nxt_fresh['loss']:.9f}")
+        if "model_states-shard0.npz" not in files or not same or \
+                nxt["loss"] != nxt_fresh["loss"]:
+            fail("zero: the sharded checkpoint did not restore the state")
+        del fresh
+        gc.collect()
+        torch.cuda.empty_cache()
+        dt = float(np.median(step_s[1:]))
+        tokens = B * ZERO_SEQ
+        model_flops = 6.0 * n_params * tokens
+        attn_flops = (12.0 * cfg.num_layers * cfg.hidden_size * ZERO_SEQ
+                      * tokens)
+        busy, by_kind = profile_train(engine, batch, 1e3 * dt,
+                                      label="zero step")
+        rates = {"step_ms": 1e3 * dt, "tokens_s": tokens / dt,
+                 "model_tflops_6n": model_flops / dt / 1e12,
+                 "model_tflops_with_attention":
+                     (model_flops + attn_flops) / dt / 1e12,
+                 "step_ms_all": [round(1e3 * x, 3) for x in step_s],
+                 "peak_mem_gb": peak_gb, "busy_ms": busy,
+                 "device_ms_by_kind": by_kind,
+                 "idle_share": 1 - busy / (1e3 * dt),
+                 "first_step": {"loss_rel": rl, "grad_norm_rel": rn,
+                                "bitwise": bitwise},
+                 "save_s": save_s, "load_s": load_s,
+                 "launches": launches, "collectives": ops,
+                 "cuts": {"gas": [128, ZERO_GAS],
+                          "micro_batches": [5 * 128, ZERO_STEPS * ZERO_GAS]}}
+        del engine
+        gc.collect()
+        torch.cuda.empty_cache()
+    finally:
+        set_global_mesh(None)
+        dist.destroy_process_group()
+    rates["d128"] = time_flash_d128()
+    torch.cuda.empty_cache()
+    return rates
+
+
+def _zero_config(world, group=True):
+    """The zero leg's ds_config for a global batch of ``world`` ranks'
+    micro-batches; ``group=False``: the same global batch through one
+    engine without a process group (micro ZERO_MICRO x world)."""
+    micro = ZERO_MICRO if group else ZERO_MICRO * world
+    return dict(ZERO_CONFIG, train_batch_size=ZERO_MICRO * ZERO_GAS * world,
+                train_micro_batch_size_per_gpu=micro)
+
+
+def _zero_batch(world):
+    import numpy as np
+    rng = np.random.default_rng(12)
+    return {"input_ids": rng.integers(1, 50257,
+                                      (ZERO_MICRO * ZERO_GAS * world,
+                                       ZERO_SEQ))}
+
+
+def phase_zero_ranks(tmp, n):
+    """``--zero-ranks N``: the zero leg across N GPUs of one host, one
+    process each through the port's launcher. First the global batch (N x
+    ZERO_MICRO rows a micro-batch) through one engine without a process
+    group on GPU 0, one step; then ``launch --nproc_per_node N`` runs
+    :func:`zero_worker` on every GPU: ZERO_STEPS steps, each held to its
+    flash launches and NCCL collectives, the first step's loss and grad
+    norm within 1e-3 / 1e-2 of the single engine's (the ranks reduce the
+    bf16 grads in another order), the loss falling, a sharded save of N
+    shard pairs restored bitwise into a fresh N-rank engine, and the step
+    time, tokens/s, model TFLOP/s a GPU and each rank's peak memory."""
+    import torch
+    ref_engine, _ = _zero_engine(tmp, "ds_zero3_ref", 0,
+                                 _zero_config(n, group=False))
+    _zero_counters()
+    ref = ref_engine.train_batch(_zero_batch(n))
+    del ref_engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    out = os.path.join(tmp, "zero_ranks.json")
+    env = dict(os.environ, PYTHONPATH=HERE)
+    rc = subprocess.run(
+        [sys.executable, "-m", "deepspeed_tpu_torch.launcher.launch",
+         "--nproc_per_node", str(n), os.path.join(HERE, "chip_smoke.py"),
+         "--zero-worker", out], cwd=HERE, env=env, timeout=1200).returncode
+    if rc != 0:
+        fail(f"zero ranks: the launcher exited {rc}")
+    with open(out) as f:
+        res = json.load(f)
+    first = res["metrics"][0]
+    rl = abs(first["loss"] - ref["loss"]) / abs(ref["loss"])
+    rn = abs(first["grad_norm"] - ref["grad_norm"]) / abs(ref["grad_norm"])
+    log(f"check: zero ranks={n} first step vs one engine without a process "
+        f"group loss={first['loss']:.7f}/{ref['loss']:.7f} rel={rl:.3e} "
+        f"tol=1e-3 grad_norm={first['grad_norm']:.6f}/"
+        f"{ref['grad_norm']:.6f} rel={rn:.3e} tol=1e-2")
+    if not (rl <= 1e-3 and rn <= 1e-2):
+        fail("zero ranks: the first step is off the single engine's")
+    res.update(loss_rel=rl, grad_norm_rel=rn)
+    return res
+
+
+def zero_worker(out):
+    """One rank of ``--zero-ranks``, started by the port's launcher (NCCL
+    on cuda:LOCAL_RANK); rank 0 writes the readings to ``out``."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from deepspeed_tpu_torch import comm
+    comm.init_distributed()
+    rank, world = comm.get_rank(), comm.get_world_size()
+    tmp = os.path.dirname(out)
+    batch = _zero_batch(world)
+    engine, cfg = _zero_engine(tmp, f"ds_zero3_rank{rank}", 0,
+                               _zero_config(world))
+    n_params = sum(int(np.prod(e.shape)) for e in engine.dp.entries)
+    torch.cuda.reset_peak_memory_stats()
+    metrics, step_s, launches, ops = [], [], None, None
+    for step in range(ZERO_STEPS):
+        m, dt, c, o = _zero_step(engine, batch, f"rank {rank} step {step}")
+        metrics.append(m)
+        step_s.append(dt)
+        launches, ops = c, o
+        if rank == 0:
+            log(f"zero ranks={world}: step {step} loss={m['loss']:.6f} "
+                f"grad_norm={m['grad_norm']:.5f} step_ms={1e3 * dt:.1f} "
+                f"launches={json.dumps(c)} collectives={json.dumps(o)}")
+    if not metrics[-1]["loss"] < metrics[0]["loss"]:
+        fail(f"zero ranks: loss did not fall {[m['loss'] for m in metrics]}")
+    peak = torch.tensor([torch.cuda.max_memory_allocated() / 1e9],
+                        device="cuda")
+    peaks = comm.all_gather(peak).tolist()
+    dt = float(np.median(step_s[1:]))
+    if rank == 0:
+        busy, by_kind = profile_train(engine, batch, 1e3 * dt,
+                                      label=f"zero ranks={world} step")
+    else:
+        engine.train_batch(batch)
+        busy, by_kind = None, None
+    ck = os.path.join(tmp, "zero_ranks_ck")
+    t1 = time.perf_counter()
+    engine.save_checkpoint(ck)
+    save_s = time.perf_counter() - t1
+    files = sorted(os.listdir(os.path.join(ck, f"global_step{ZERO_STEPS + 1}")))
+    fresh, _ = _zero_engine(tmp, f"ds_zero3_fresh{rank}", 1,
+                            _zero_config(world))
+    t1 = time.perf_counter()
+    fresh.load_checkpoint(ck)
+    load_s = time.perf_counter() - t1
+    same = all(torch.equal(a, b) for a, b in
+               zip(_zero_state(engine), _zero_state(fresh)))
+    flag = torch.tensor([1.0 if same else 0.0], device="cuda")
+    comm.all_reduce(flag, op=comm.ReduceOp.MIN)
+    nxt = _zero_step(engine, batch, "next step")[0]
+    nxt_fresh = _zero_step(fresh, batch, "resumed step")[0]
+    if flag.item() != 1.0 or nxt["loss"] != nxt_fresh["loss"] or \
+            len(files) != 2 * world + 2:
+        fail(f"zero ranks: the sharded checkpoint ({files}) did not restore "
+             "the state on every rank")
+    tokens = ZERO_MICRO * ZERO_GAS * world * ZERO_SEQ
+    res = {"world": world, "backend": dist.get_backend(),
+           "metrics": metrics, "step_ms": 1e3 * dt,
+           "step_ms_all": [round(1e3 * x, 3) for x in step_s],
+           "tokens_s": tokens / dt,
+           "model_tflops_6n_per_gpu": 6.0 * n_params * tokens / dt / world
+           / 1e12, "peak_mem_gb_by_rank": peaks, "busy_ms_rank0": busy,
+           "device_ms_by_kind_rank0": by_kind, "launches_per_rank": launches,
+           "collectives_per_rank": ops, "save_s": save_s, "load_s": load_s,
+           "shard_files": files, "resumed_loss": nxt_fresh["loss"]}
+    if rank == 0:
+        with open(out, "w") as f:
+            json.dump(res, f)
+        log("time: zero ranks " + json.dumps(res))
+    del engine, fresh
+    dist.destroy_process_group()
+    return 0
 
 
 def time_bert_masked_flash():
@@ -4288,10 +4703,16 @@ def main(argv=None):
                          "(bf16 and int8 pools), D 96 x 16 heads, and the "
                          "serve decode step")
     ap.add_argument("--only", nargs="+", metavar="PHASE",
-                    choices=("ckpt", "remat", "hf", "bert-masked"),
+                    choices=("ckpt", "remat", "hf", "bert-masked", "zero"),
                     help="build the kernels, then run only these phases "
-                         "(ckpt, remat, hf, bert-masked) and a result "
-                         "line that names them; no kernels line")
+                         "(ckpt, remat, hf, bert-masked, zero) and a "
+                         "result line that names them; no kernels line")
+    ap.add_argument("--zero-ranks", type=int, metavar="N",
+                    help="build the kernels, then run only the zero leg "
+                         "across N GPUs of this host (one process each, "
+                         "through the port's launcher) and a result line "
+                         "that names it")
+    ap.add_argument("--zero-worker", metavar="OUT", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -4305,6 +4726,8 @@ def main(argv=None):
     import deepspeed_tpu_torch
     if not os.path.abspath(deepspeed_tpu_torch.__file__).startswith(HERE):
         fail("deepspeed_tpu_torch imported from outside this checkout")
+    if args.zero_worker:
+        return zero_worker(args.zero_worker)
     name = torch.cuda.get_device_name(0)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -4316,13 +4739,26 @@ def main(argv=None):
 
     t0 = time.perf_counter()
     phase_build()
+    if args.zero_ranks:
+        if torch.cuda.device_count() < args.zero_ranks:
+            fail(f"--zero-ranks {args.zero_ranks}: this host has "
+                 f"{torch.cuda.device_count()} GPUs")
+        with tempfile.TemporaryDirectory() as tmp:
+            phase_zero_ranks(tmp, args.zero_ranks)
+        log(f"total_s={time.perf_counter() - t0:.1f}")
+        log(smi)
+        log(json.dumps({"ok": True, "zero_ranks": args.zero_ranks,
+                        "device": {"platform": "gpu", "kind": name,
+                                   "count": torch.cuda.device_count()}}))
+        return 0
     if args.only:
         with tempfile.TemporaryDirectory() as tmp:
             for phase in args.only:
                 res = {"ckpt": lambda: phase_ckpt(tmp),
                        "remat": lambda: phase_remat(tmp),
                        "hf": lambda: phase_hf(smi),
-                       "bert-masked": time_bert_masked_flash}[phase]()
+                       "bert-masked": time_bert_masked_flash,
+                       "zero": lambda: phase_zero(tmp)}[phase]()
                 log(f"time: {phase} " + json.dumps(res, default=str))
         log(f"total_s={time.perf_counter() - t0:.1f}")
         log(smi)
@@ -4407,6 +4843,10 @@ def main(argv=None):
     with tempfile.TemporaryDirectory() as tmp:
         long_counts, window_counts, long_rates = phase_long(tmp, old_bs)
     log("time: long " + json.dumps(long_rates))
+    with tempfile.TemporaryDirectory() as tmp:
+        zero = phase_zero(tmp)
+    log("time: zero " + json.dumps({k: v for k, v in zero.items()
+                                    if k != "d128"}))
     bs = time_block_sparse_attention()
     time_block_sparse_scaling()
     if old_bs is not None:
@@ -4463,6 +4903,9 @@ def main(argv=None):
         row["launches_remat"] = {policy: r["launches"][kname]
                                  for policy, r in remat.items()
                                  if r["launches"].get(kname)}
+        if kname in FLASH_KERNELS:  # the zero leg's step and D 128 calls
+            row["launches_zero"] = zero["launches"][kname]
+            row["zero_d128"] = zero["d128"][kname]
         if kname in BS_KERNELS:
             row["launches_by_path"] = {"sparse_train": launches,
                                        "window_train": window_counts[kname]}

@@ -5,9 +5,12 @@ same system with PyTorch on an NVIDIA GPU (Hopper), its TPU kernels
 rewritten by hand in CUDA. It imports neither JAX nor ``deepspeed_tpu``.
 Module names follow the JAX package's layout. Ported so far: the
 serving path, ``init_inference(...).serve()``; generation,
-``init_inference(...).generate()``; single-process training,
-``initialize(...)`` -> ``engine.train_batch()`` (or ``forward`` /
-``backward`` / ``step``); and the HF import,
+``init_inference(...).generate()``; training, ``initialize(...)`` ->
+``engine.train_batch()`` (or ``forward`` / ``backward`` / ``step``), in
+one process or data parallel with ZeRO stages 0-3 across the ranks of a
+``torch.distributed`` process group (``comm``, ``init_distributed``, the
+mesh and topology classes, ``zero``; one process per GPU through
+``python -m deepspeed_tpu_torch.launcher.launch``); and the HF import,
 ``replace_transformer_layer(hf_model)`` (``models.hf``, 21 architecture
 policies), with the reference's fused-layer API
 ``DeepSpeedTransformerLayer`` / ``DeepSpeedTransformerConfig``.
@@ -18,9 +21,19 @@ runs every kernel's plain PyTorch version.
 
 from typing import Tuple
 
+from . import comm
+from .comm import init_distributed
 from .models.hf import replace_transformer_layer, revert_transformer_layer
 from .models.transformer import (DeepSpeedTransformerConfig,
                                  DeepSpeedTransformerLayer)
+from .parallel.mesh import MeshManager, build_mesh_from_config, get_global_mesh
+from .parallel.topology import (
+    ProcessTopology,
+    PipeDataParallelTopology,
+    PipeModelDataParallelTopology,
+    PipelineParallelGrid,
+)
+from . import zero
 
 __version__ = "0.1.0"
 
@@ -45,12 +58,17 @@ def initialize(args=None,
     for a ``Transformer``, or None for the module's own parameters.
     Keyword-only extras: ``loss_fn`` (default: the model returns the
     loss) and ``device`` (default CUDA; ``"cpu"`` runs the plain
-    versions). ``dist_init_required`` starts no process group here: the
-    engine runs in one process."""
+    versions). Unless ``dist_init_required`` is False,
+    :func:`init_distributed` starts the process group a launcher
+    described (``WORLD_SIZE`` / ``RANK`` in the environment), as the JAX
+    package's ``initialize`` does; without one the engine runs in one
+    process, with one (of any size) data parallel."""
     if config is None and config_params is not None:
         config = config_params
     if config is None and args is not None:
         config = getattr(args, "deepspeed_config", None)
+    if dist_init_required is None or dist_init_required:
+        init_distributed(device=kwargs.get("device"))
     from .runtime.engine import DeepSpeedEngine
     engine = DeepSpeedEngine(model=model, config=config,
                              model_parameters=model_parameters,

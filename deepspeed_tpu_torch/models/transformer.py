@@ -35,6 +35,8 @@ scan layout is a stack / unstack (``models/convert.py``).
 from __future__ import annotations
 
 import dataclasses
+import functools
+import itertools
 from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
@@ -264,7 +266,7 @@ def alibi_slopes(num_heads: int) -> np.ndarray:
     return np.concatenate([pow2_slopes(base), extra])
 
 
-def init_params(cfg: TransformerConfig, generator: torch.Generator,
+def init_params(cfg: TransformerConfig, generator: Optional[torch.Generator],
                 device=None, dtype=None) -> Dict[str, Any]:
     """Random scan-layout parameters for ``cfg`` from ``generator``'s seed.
 
@@ -272,22 +274,63 @@ def init_params(cfg: TransformerConfig, generator: torch.Generator,
     of flax's lecun_normal), norm scales are 1 and biases 0. Values are
     drawn in float32 on the generator's device, then moved to ``device``
     (default: the generator's) and cast to ``dtype`` (default
-    ``cfg.dtype``)."""
-    if cfg.moe_experts > 0:
-        raise NotImplementedError("init_params builds blocks without MoE")
+    ``cfg.dtype``). ``device="meta"`` (no generator needed): the shapes
+    only."""
+    plan = _init_plan(cfg)
+    if device is not None and torch.device(device).type == "meta":
+        return _map_plan(plan, lambda path, spec: torch.empty(
+            spec[2], device="meta", dtype=dtype or cfg.dtype))
+    leaves = dict(iter_init_params(cfg, generator, device, dtype))
+    return _map_plan(plan, lambda path, spec: leaves[path])
+
+
+def _map_plan(node, fn, prefix=()):
+    return {k: (_map_plan(v, fn, prefix + (k,)) if isinstance(v, dict)
+                else fn(prefix + (k,), v)) for k, v in node.items()}
+
+
+def iter_init_params(cfg: TransformerConfig, generator: torch.Generator,
+                     device=None, dtype=None):
+    """The leaves of :func:`init_params` as (path tuple, tensor), one at a
+    time in the order they are drawn (the same values), so a caller can
+    keep a slab of each and drop the rest (``zero.Init``)."""
     gdev = generator.device
     device = torch.device(device) if device is not None else gdev
     dtype = dtype or cfg.dtype
+    flat = []
+
+    def walk(node, prefix):
+        for k, v in node.items():
+            if isinstance(v, dict):
+                walk(v, prefix + (k,))
+            else:
+                flat.append((prefix + (k,), v))
+    walk(_init_plan(cfg), ())
+    # draws in the order the plan made them; constants draw nothing
+    flat.sort(key=lambda item: item[1][1])
+    for path, (kind, _, shape, arg) in flat:
+        if kind == "normal":
+            t = torch.randn(shape, generator=generator, device=gdev,
+                            dtype=torch.float32) * (arg ** -0.5)
+            yield path, t.to(device=device, dtype=dtype)
+        else:
+            yield path, torch.full(shape, arg, device=device, dtype=dtype)
+
+
+def _init_plan(cfg: TransformerConfig) -> Dict[str, Any]:
+    """The scan-layout tree of :func:`init_params` as leaf specs (kind,
+    draw order, shape, fan-in or constant), in the tree's key order."""
+    if cfg.moe_experts > 0:
+        raise NotImplementedError("init_params builds blocks without MoE")
     L, H, V = cfg.num_layers, cfg.hidden_size, cfg.vocab_size
     nh, kvh, hd = cfg.num_heads, cfg.kv_heads, cfg.head_dim
+    draws = itertools.count()
 
     def normal(*shape, fan_in):
-        t = torch.randn(shape, generator=generator, device=gdev,
-                        dtype=torch.float32) * (fan_in ** -0.5)
-        return t.to(device=device, dtype=dtype)
+        return ("normal", next(draws), shape, fan_in)
 
     def const(value, *shape):
-        return torch.full(shape, value, device=device, dtype=dtype)
+        return ("const", -1, shape, value)
 
     def norm(*lead, width=H, rms=cfg.norm == "rmsnorm"):
         p = {"scale": const(1.0, *lead, width)}
@@ -400,7 +443,9 @@ class _Leaf(nn.Module):
 
     @property
     def p(self) -> Dict[str, torch.Tensor]:
-        return dict(self.named_parameters(recurse=False))
+        # attribute lookup: a ZeRO-3 unit puts the gathered whole tensor
+        # in the instance dict, ahead of the shard in _parameters
+        return {name: getattr(self, name) for name in self._parameters}
 
 
 def _sparse_block_attention(cfg: TransformerConfig, q, k, v, *, mask, bias,
@@ -567,8 +612,18 @@ class Transformer(nn.Module):
         _check_trainable(cfg)
         self.cfg = cfg
         if params is None:
-            gen = torch.Generator(device=device or "cpu").manual_seed(seed)
-            params = init_params(cfg, gen, dtype=torch.float32)
+            from ..zero import get_active_init
+            if get_active_init() is not None:
+                # zero.Init: shapes on meta; the engine draws the same
+                # values leaf by leaf and keeps each rank's slabs
+                params = init_params(cfg, None, device="meta",
+                                     dtype=torch.float32)
+                self.zero_init_values = functools.partial(
+                    self._seeded_values, seed, device or "cpu")
+            else:
+                gen = torch.Generator(device=device or "cpu").manual_seed(
+                    seed)
+                params = init_params(cfg, gen, dtype=torch.float32)
         from .generation import ensure_scan_layout
         params = ensure_scan_layout(params, cfg.num_layers)
         for name, sub in params.items():
@@ -584,6 +639,19 @@ class Transformer(nn.Module):
                 for li, part in enumerate(t.unbind(0)):
                     layers[li].setdefault(name, {})[key] = part.clone()
         self.blocks = nn.ModuleList(Block(cfg, p) for p in layers)
+
+    def _seeded_values(self, seed: int, gen_device, device=None):
+        """(parameter name, f32 value) of ``Transformer(cfg, seed=seed,
+        device=gen_device)``, one ``init_params`` leaf at a time (a block
+        leaf's layers one after another)."""
+        gen = torch.Generator(device=gen_device).manual_seed(seed)
+        for path, t in iter_init_params(self.cfg, gen, device=device,
+                                        dtype=torch.float32):
+            if path[0] == "blocks":
+                for li in range(self.cfg.num_layers):
+                    yield f"blocks.{li}.{path[1]}.{path[2]}", t[li]
+            else:
+                yield ".".join(path), t
 
     def forward(self, batch, train: bool = False):
         from .generation import _dense, _layer_norm

@@ -38,10 +38,17 @@ Every crash-critical stage carries a named chaos failpoint
 (``testing.chaos``): ``ckpt.write``, ``ckpt.digest``, ``ckpt.marker``,
 ``ckpt.rename``, ``ckpt.latest`` and ``ckpt.meta``.
 
-One process only: with a ``torch.distributed`` world larger than one,
-:func:`save_checkpoint` raises (multi-process sharded saves wait for
-ROADMAP item 2.6). :func:`load_sharded_tree` reads a checkpoint that N
-JAX processes wrote (``model_states-shard{p}.npz`` plus its manifest).
+Sharded saves (:func:`save_checkpoint_sharded`, the JAX package's
+``_save_checkpoint_multiprocess``): every rank of a process group writes
+its own pieces into the shared staging dir, ``model_states-shard{p}.npz``
+and ``optim_states-shard{p}.npz``, each with a manifest of global shapes
+and piece offsets (:func:`shard_flat_dict`); a leaf that every rank holds
+whole is written by rank 0 only. A barrier gates rank 0's marker, publish
+and ``latest``. :func:`load_sharded_tree` / :class:`ShardedNpz` read such
+a checkpoint, from either package, one whole leaf at a time; a sharded
+engine's :class:`Leaf` keeps only its slab of what it reads.
+:func:`save_checkpoint` writes one process's whole state and raises in a
+world larger than one.
 """
 
 from __future__ import annotations
@@ -90,26 +97,47 @@ class CheckpointIntegrityError(RuntimeError):
 class Leaf:
     """One checkpoint leaf held by live tensors: ``parts`` is a single
     tensor (``stacked=False``) or the per-layer tensors that the file
-    holds stacked along a new leading dim."""
+    holds stacked along a new leading dim. ``split``: (dim, rank, world)
+    when each part holds only this rank's slab of its whole tensor along
+    ``dim`` (a ZeRO shard), else None."""
 
-    __slots__ = ("parts", "stacked")
+    __slots__ = ("parts", "stacked", "split")
 
-    def __init__(self, parts, stacked: bool = False):
+    def __init__(self, parts, stacked: bool = False,
+                 split: Optional[Tuple[int, int, int]] = None):
         self.parts: List[torch.Tensor] = (list(parts) if stacked
                                           else [parts])
         self.stacked = stacked
+        self.split = split
+
+    def _lead(self) -> Tuple[int, ...]:
+        return (len(self.parts),) if self.stacked else ()
 
     @property
     def shape(self) -> Tuple[int, ...]:
-        s = tuple(self.parts[0].shape)
-        return (len(self.parts),) + s if self.stacked else s
+        """The whole leaf's shape."""
+        s = list(self.parts[0].shape)
+        if self.split is not None:
+            s[self.split[0]] *= self.split[2]
+        return self._lead() + tuple(s)
+
+    @property
+    def start(self) -> List[int]:
+        """Offsets of this rank's piece (:meth:`read`) in the whole leaf."""
+        start = [0] * len(self.shape)
+        if self.split is not None:
+            dim, rank, _ = self.split
+            start[len(self._lead()) + dim] = rank * self.parts[0].shape[dim]
+        return start
 
     def read(self, pinned: bool = False) -> torch.Tensor:
-        """A host copy in the leaf's own dtype. ``pinned``: page-locked,
-        filled by non-blocking copies (the caller synchronizes once)."""
+        """A host copy of the live tensors (this rank's piece of a split
+        leaf) in their own dtype. ``pinned``: page-locked, filled by
+        non-blocking copies (the caller synchronizes once)."""
         src = self.parts[0]
         pin = pinned and src.device.type == "cuda"
-        out = torch.empty(self.shape, dtype=src.dtype, pin_memory=pin)
+        out = torch.empty(self._lead() + tuple(src.shape), dtype=src.dtype,
+                          pin_memory=pin)
         views = out.unbind(0) if self.stacked else (out,)
         for dst, part in zip(views, self.parts):
             dst.copy_(part.detach(), non_blocking=pin)
@@ -117,9 +145,14 @@ class Leaf:
 
     def write(self, value: torch.Tensor) -> None:
         """Copy ``value`` (the file's whole leaf, any dtype or device) into
-        the live tensors, casting to their dtype."""
+        the live tensors (their slab of it, if split), casting to their
+        dtype."""
         if tuple(value.shape) != self.shape:
             raise ValueError(f"shape {tuple(value.shape)} vs {self.shape}")
+        if self.split is not None:
+            dim, rank, _ = self.split
+            size = self.parts[0].shape[dim]
+            value = value.narrow(len(self._lead()) + dim, rank * size, size)
         src = value.unbind(0) if self.stacked else (value,)
         with torch.no_grad():
             for part, v in zip(self.parts, src):
@@ -753,11 +786,12 @@ def _world_size() -> int:
 
 
 def _build_meta(state: TrainState, client_state,
-                master_aliases_params) -> Dict[str, Any]:
+                master_aliases_params, num_shards: int = 1
+                ) -> Dict[str, Any]:
     return {
         "master_aliases_params": master_aliases_params,
-        "sharded": False,
-        "num_shards": 1,
+        "sharded": num_shards > 1,
+        "num_shards": num_shards,
         "step": int(state.step),
         "skipped_steps": int(state.skipped_steps),
         "nonfinite_streak": int(state.nonfinite_streak),
@@ -843,9 +877,9 @@ def save_checkpoint(save_dir: str,
     ``keep_last`` / ``keep_every``: retention GC after the publish."""
     if _world_size() > 1:
         raise NotImplementedError(
-            "save_checkpoint in a torch.distributed world larger than one "
-            "(multi-process sharded saves, ROADMAP item 2.6) is not ported "
-            "to deepspeed_tpu_torch yet (see ROADMAP.md)")
+            "save_checkpoint writes one process's whole state; in a "
+            "torch.distributed world larger than one each rank writes its "
+            "own pieces through save_checkpoint_sharded (ROADMAP item 2.6)")
     ckpt_dir = os.path.join(save_dir, tag)
     stage_dir = ckpt_dir + STAGING_SUFFIX
     if ckpt_engine is None:
@@ -876,6 +910,116 @@ def save_checkpoint(save_dir: str,
         quarantine_staging(stage_dir, reason=f"{e.__class__.__name__}: {e}")
         raise
     return ckpt_dir
+
+
+def shard_flat_dict(flat: Dict[str, Any], rank: int) -> Dict[str, Any]:
+    """This rank's pieces of ``flat`` (:class:`Leaf` s, or tensors every
+    rank holds whole) as a flat dict keyed ``<path>::<n>``, plus the
+    ``__manifest__`` of global shapes and piece offsets that both
+    packages' sharded readers take. A split leaf contributes this rank's
+    slab; a whole one is written by rank 0 only, so every element is
+    stored once across the job."""
+    out: Dict[str, Any] = {}
+    manifest: Dict[str, Any] = {}
+    for key in _sorted_keys(flat):
+        v = flat[key]
+        split = isinstance(v, Leaf) and v.split is not None
+        shape = list(v.shape) if isinstance(v, (Leaf, torch.Tensor)) \
+            else list(np.shape(v))
+        pieces = []
+        if split or rank == 0:
+            name = f"{key}::0"
+            out[name] = v
+            pieces.append({"name": name,
+                           "start": v.start if split else [0] * len(shape)})
+        manifest[key] = {"shape": shape, "pieces": pieces}
+    out[_MANIFEST_KEY] = np.frombuffer(json.dumps(manifest).encode(),
+                                       dtype=np.uint8)
+    return out
+
+
+def save_checkpoint_sharded(save_dir: str,
+                            tag: str,
+                            state: TrainState,
+                            client_state: Optional[Dict[str, Any]] = None,
+                            master_aliases_params: bool = False,
+                            ckpt_engine=None,
+                            keep_last: Optional[int] = None,
+                            keep_every: int = 0) -> str:
+    """The sharded save of a process group (the JAX package's
+    ``_save_checkpoint_multiprocess``): every rank writes its pieces of
+    ``state`` (:func:`shard_flat_dict`) into the shared staging dir; a
+    rank's write failure is folded into an all-reduced ok flag, never
+    raised before the collective, so no rank hangs; only if every rank
+    wrote does rank 0 write the meta, the marker, publish and ``latest``.
+    A last all-reduce makes the save durable on every rank when it
+    returns and raises on every rank if rank 0's finalize failed. Async
+    writers are drained here. Returns the tag's directory."""
+    from .. import comm
+    import torch.distributed as dist
+    rank, world = dist.get_rank(), dist.get_world_size()
+    ckpt_dir = os.path.join(save_dir, tag)
+    stage_dir = ckpt_dir + STAGING_SUFFIX
+    if ckpt_engine is None:
+        from ..checkpoint.engine import NpzCheckpointEngine
+        ckpt_engine = NpzCheckpointEngine()
+    os.makedirs(save_dir, exist_ok=True)
+    if rank == 0 and os.path.isdir(stage_dir):
+        shutil.rmtree(stage_dir)        # stale staging from a crashed save
+    comm.barrier(f"ckpt-stage-{tag}")
+    os.makedirs(stage_dir, exist_ok=True)
+    # no stage_dir registered: one rank's commit() must not quarantine
+    # the shared staging dir while the others still write
+    ckpt_engine.create(tag)
+    lazy = getattr(ckpt_engine, "wants_lazy", True)
+    local_ok = True
+    try:
+        ckpt_engine.save(_snapshot(shard_flat_dict(state.params, rank), lazy),
+                         os.path.join(stage_dir,
+                                      f"model_states-shard{rank}.npz"))
+        ckpt_engine.save(_snapshot(shard_flat_dict(_optim_group(state), rank),
+                                   lazy),
+                         os.path.join(stage_dir,
+                                      f"optim_states-shard{rank}.npz"))
+    except Exception as e:
+        logger.error("rank %d shard write for %s failed: %s", rank, tag, e)
+        local_ok = False
+    ok = bool(ckpt_engine.commit(tag)) and local_ok
+    if not _all_ok(ok):
+        logger.error(f"sharded checkpoint {ckpt_dir}: a rank's shard write "
+                     "failed; leaving `latest` on the previous checkpoint")
+        if rank == 0:
+            quarantine_staging(stage_dir,
+                               reason="a rank's shard write failed")
+        return ckpt_dir
+    err = None
+    if rank == 0:
+        try:
+            _write_meta(stage_dir, _build_meta(state, client_state,
+                                               master_aliases_params, world))
+            _finalize_tag(save_dir, tag, world, keep_last, keep_every)
+        except Exception as e:
+            quarantine_staging(stage_dir,
+                               reason=f"{e.__class__.__name__}: {e}")
+            err = e
+    if not _all_ok(err is None):
+        if err is not None:
+            raise err
+        raise RuntimeError(f"sharded checkpoint {ckpt_dir}: rank 0 failed "
+                           "to publish it")
+    return ckpt_dir
+
+
+def _all_ok(ok: bool) -> bool:
+    """True iff ``ok`` on every rank (one all-reduce on the group's
+    device)."""
+    from .. import comm
+    import torch.distributed as dist
+    dev = (torch.device("cuda", torch.cuda.current_device())
+           if dist.get_backend() == "nccl" else torch.device("cpu"))
+    flag = torch.tensor([1.0 if ok else 0.0], device=dev)
+    comm.all_reduce(flag, op=comm.ReduceOp.MIN)
+    return bool(flag.item() == 1.0)
 
 
 def _open(ckpt_dir: str, base: str, meta: Dict[str, Any]):

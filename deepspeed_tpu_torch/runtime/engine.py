@@ -1,5 +1,6 @@
-"""DeepSpeedEngine — the config-driven training engine, one process
-(counterpart of ``deepspeed_tpu/runtime/engine.py``).
+"""DeepSpeedEngine — the config-driven training engine (counterpart of
+``deepspeed_tpu/runtime/engine.py``), in one process or data parallel
+across the ranks of a ``torch.distributed`` process group.
 
 What is ported, with the JAX engine's semantics:
 
@@ -39,17 +40,30 @@ engine wires it (:func:`wire_attention_config`): the ``Transformer``'s
 ``attention_impl`` becomes "sparse" and its config carries the parsed
 section, so every layer runs the block-sparse kernels.
 
-ZeRO stages 0-3 on one process are accepted: partitioning over one rank
-is the identity, as for the JAX engine on one chip. Everything else that
-a config can enable and this engine does not implement raises
-``NotImplementedError`` naming ROADMAP.md: CPU/NVMe offload (and
-``activation_checkpointing.cpu_checkpointing``), the 1-bit optimizers,
-comm_plan, compression_training, the integrity sentinel, progressive
-layer drop, curriculum / data efficiency, eigenvalue, sequence / tensor /
-pipeline parallelism, monitors and the other aux sections, and a
-``torch.distributed`` world larger than one. Not ported either: the
-preemption handler and emergency save, the sentinel's audited-clean
-resume and the offload load path (ROADMAP.md).
+ZeRO stages 0-3: without a process group the engine holds the whole
+state in one process (partitioning over one rank is the identity, as for
+the JAX engine on one chip). Whenever a process group is initialized,
+even of one rank, it runs data parallel over the mesh's ZeRO axes
+(``runtime/zero/partition.py``): each rank takes its ``micro`` rows of
+every ``[W x micro]`` micro-batch of the global batch (as the JAX engine
+splits ``[gas, W x micro]``); stage 0 all-reduces the grads, stages 1-2
+shard the master and moments (stage 2 reduce-scatters the grads), stage
+3 also shards the compute parameters and gathers them around each
+block's forward and backward; the step tail's overflow flag, grad norm
+and loss come from one all-reduce; checkpoints are saved sharded, each
+rank writing its own pieces. An engine given a model on ``meta``
+(``zero.Init``) fills each rank's slabs straight from the model's seeded
+values, one leaf at a time.
+
+Everything else that a config can enable and this engine does not
+implement raises ``NotImplementedError`` naming ROADMAP.md: CPU/NVMe
+offload (and ``activation_checkpointing.cpu_checkpointing``), the 1-bit
+optimizers, comm_plan, compression_training, the integrity sentinel,
+progressive layer drop, curriculum / data efficiency, eigenvalue,
+sequence / tensor / pipeline parallelism (and ``mpu``), monitors and the
+other aux sections. Not ported either: the preemption handler and
+emergency save, the sentinel's audited-clean resume and the offload load
+path (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -132,7 +146,6 @@ def unported_sections(config: DeepSpeedConfig) -> List[str]:
         "sparse_gradients": c.sparse_gradients,
         "monitors (tensorboard / wandb / csv_monitor)": (
             c.tensorboard.enabled or c.wandb.enabled or c.csv_monitor.enabled),
-        "comms_logger": c.comms_logger.enabled,
         "flops_profiler": c.flops_profiler.enabled,
         "autotuning": c.autotuning.enabled,
         "elasticity": c.elasticity.enabled,
@@ -213,18 +226,37 @@ class DeepSpeedEngine:
         if bad:
             raise NotImplementedError(
                 f"ds_config sections {bad}: enabled, but the section " + _LATER)
-        import torch.distributed as dist
-        if (dist.is_available() and dist.is_initialized()
-                and dist.get_world_size() > 1) or mpu is not None:
+        if mpu is not None:
             raise NotImplementedError(
-                "a torch.distributed world larger than one (data parallel "
-                "ZeRO sharding across ranks) " + _LATER)
+                "mpu (an external model-parallel unit; tensor / pipeline "
+                "parallelism, ROADMAP item 4.1) " + _LATER)
         if not isinstance(model, nn.Module):
             raise TypeError("model must be a torch.nn.Module (e.g. "
                             "models.transformer.build_model(...)[0])")
+        from .. import comm
+        comm.configure(self.config.comms_logger)
         self.device = resolve_device(device)
-        self.config.resolve_batch_sizes(dp_world_size=1)
-        self.dp_world_size = 1
+        self.mesh = None
+        dp_rank, dp_world = 0, 1
+        if comm.is_initialized():
+            from ..parallel.mesh import (ZERO_AXES, build_mesh_from_config,
+                                         get_global_mesh)
+            import torch.distributed as dist
+            backend = dist.get_backend()
+            if (backend == "nccl") != (self.device.type == "cuda"):
+                raise ValueError(
+                    f"process group backend {backend!r} with device "
+                    f"{self.device}: NCCL serves CUDA and gloo the CPU; "
+                    "start the group for the engine's device "
+                    "(comm.init_distributed(device=...))")
+            self.mesh = get_global_mesh()
+            if self.mesh is None or \
+                    self.mesh.world_size != comm.get_world_size():
+                self.mesh = build_mesh_from_config(self.config)
+            dp_world = self.mesh.axes_size(ZERO_AXES)
+            dp_rank = self.mesh.axis_rank(ZERO_AXES)
+        self.config.resolve_batch_sizes(dp_world_size=dp_world)
+        self.dp_world_size, self.dp_rank = dp_world, dp_rank
 
         # precision ----------------------------------------------------------
         self.compute_dtype = _DTYPES[self.config.precision_dtype]
@@ -265,17 +297,43 @@ class DeepSpeedEngine:
                 model.forward).parameters
         except (TypeError, ValueError):
             self._takes_train = False
-        model.to(self.device)
+        from .. import zero
+        # a model built under zero.Init is on meta: its values come one
+        # leaf at a time, each rank keeping its slabs
+        values = (zero.init_values(model, self.device)
+                  if any(p.is_meta for p in model.parameters()) else None)
+        self.dp = None
+        if self.mesh is None and values is not None:
+            zero.materialize(model, values)
+        if self.mesh is None:
+            model.to(self.device)
         self._remat_apply = self._activation_checkpointing(model)
         self._params = [p for p in model.parameters() if p.requires_grad]
-        for p in self._params:                     # the master, fp32
-            p.data = p.data.to(torch.float32)
-        self.master: List[torch.Tensor] = []
-        if self.keep_master:
-            self.master = [p.detach().clone() for p in self._params]
-        if self.compute_dtype != torch.float32:
-            for p in self._params:
-                p.data = p.data.to(self.compute_dtype)
+        if self.mesh is not None:
+            from .zero.partition import ZeroPartition
+            from .zero.stages import ZeroShardingPolicy
+            z = self.config.zero_optimization
+            policy = ZeroShardingPolicy(
+                z.stage, self.mesh,
+                param_persistence_threshold=z.param_persistence_threshold)
+            self.dp = ZeroPartition(
+                model, self._params, policy, dp_rank, dp_world,
+                self.compute_dtype,
+                torch.float32 if self.keep_master else self.compute_dtype,
+                self.grad_accum_dtype, self.device, values)
+            model.to(self.device)       # buffers: the parameters are placed
+            self._params = self.dp.params
+            self.master: List[torch.Tensor] = self.dp.masters
+            self.dp.install_gathers()
+        else:
+            for p in self._params:                     # the master, fp32
+                p.data = p.data.to(torch.float32)
+            self.master = []
+            if self.keep_master:
+                self.master = [p.detach().clone() for p in self._params]
+            if self.compute_dtype != torch.float32:
+                for p in self._params:
+                    p.data = p.data.to(self.compute_dtype)
 
         # optimizer ----------------------------------------------------------
         opt_cfg = self.config.optimizer
@@ -335,8 +393,10 @@ class DeepSpeedEngine:
         # the checkpoint's client_state
         self.data_position = 0
         self._ckpt_cache = None             # see _ckpt_leaves
+        where = ("one process" if self.dp is None else
+                 f"data parallel over {dp_world} rank(s)")
         log_dist(f"DeepSpeedEngine initialized: ZeRO stage "
-                 f"{self.config.zero_optimization.stage} (one process), "
+                 f"{self.config.zero_optimization.stage} ({where}), "
                  f"dtype {self.config.precision_dtype}, device {self.device}, "
                  f"batch {self.config.train_batch_size} (micro "
                  f"{self.config.train_micro_batch_size_per_gpu} x gas "
@@ -346,9 +406,11 @@ class DeepSpeedEngine:
 
     def _master(self) -> List[torch.Tensor]:
         """The tensors the optimizer updates: the fp32 master, or the
-        parameters themselves (fp32 training, pure bf16)."""
-        return self.master if self.keep_master else \
-            [p.data for p in self._params]
+        parameters themselves (fp32 training, pure bf16); in a process
+        group, this rank's slabs of them."""
+        if self.dp is not None or self.keep_master:
+            return self.master
+        return [p.data for p in self._params]
 
     def _to_device(self, batch):
         if isinstance(batch, dict):
@@ -391,6 +453,10 @@ class DeepSpeedEngine:
         """Backward of the scaled loss; the compute-dtype grads, cast to
         grad_accum_dtype, are added into the accumulator."""
         (loss.to(torch.float32) * self.scale_state.scale).backward()
+        if self.dp is not None:
+            self.dp.after_backward()
+            self._accum = self.dp.accum
+            return
         grads = [p.grad if p.grad is not None else torch.zeros_like(p)
                  for p in self._params]
         if self._accum is None:     # takes over p.grad when dtypes agree
@@ -414,17 +480,23 @@ class DeepSpeedEngine:
         denom = float(n_micro) * self.scale_state.scale
         grads = self._accum
         self._accum = None
-        if all(g.dtype == torch.float32 for g in grads):
-            torch._foreach_div_(grads, denom)
+        if self.dp is not None:
+            # this rank's slabs; flag, norm and loss from one all-reduce
+            grads = self.dp.step_grads(denom)
+            finite_h, sq_h, loss_h = self.dp.step_stats(grads, losses)
         else:
-            grads = [g.to(torch.float32) / denom for g in grads]
-        finite = torch.stack([torch.isfinite(g).all() for g in grads]).all()
-        sq = torch.stack(torch._foreach_norm(grads)).square().sum()
-        loss = torch.stack([x.detach().to(torch.float32)
-                            for x in losses]).mean()
-        # one host read a step: the overflow flag, the norm and the loss
-        finite_h, sq_h, loss_h = torch.stack(
-            [finite.to(torch.float32), sq, loss]).tolist()
+            if all(g.dtype == torch.float32 for g in grads):
+                torch._foreach_div_(grads, denom)
+            else:
+                grads = [g.to(torch.float32) / denom for g in grads]
+            finite = torch.stack([torch.isfinite(g).all()
+                                  for g in grads]).all()
+            sq = torch.stack(torch._foreach_norm(grads)).square().sum()
+            loss = torch.stack([x.detach().to(torch.float32)
+                                for x in losses]).mean()
+            # one host read a step: the overflow flag, the norm and the loss
+            finite_h, sq_h, loss_h = torch.stack(
+                [finite.to(torch.float32), sq, loss]).tolist()
         overflow = finite_h != 1.0
         norm = float(np.sqrt(sq_h)) if sq_h >= 0 else float("nan")
         skip = overflow
@@ -438,7 +510,9 @@ class DeepSpeedEngine:
             master = self._master()
             self.optimizer.update(grads, self.opt_state, master,
                                   self.step_count, lr_t=lr)
-            if self.keep_master:
+            if self.dp is not None:
+                self.dp.refresh_params()
+            elif self.keep_master:
                 for p, m in zip(self._params, master):
                     p.data.copy_(m)
         del grads
@@ -471,9 +545,12 @@ class DeepSpeedEngine:
     def train_batch(self, batch) -> Dict[str, Any]:
         """One global batch: gas x (forward + backward) of micro-batches,
         then the optimizer step. The batch's leading dim is
-        train_batch_size; it is split [gas, micro] on the host. Returns
-        the metrics dict (loss, grad_norm, lr, overflow, loss_scale,
-        nonfinite_streak) as host numbers."""
+        train_batch_size; it is split [gas, W x micro] on the host, and
+        this rank takes its contiguous ``micro`` rows of each (W = 1
+        without a process group). Every rank is given the same global
+        batch. Returns the metrics dict (loss, grad_norm, lr, overflow,
+        loss_scale, nonfinite_streak) as host numbers; in a process group
+        the loss is the global batch's."""
         if self.optimizer is None:
             raise RuntimeError(
                 "engine has no optimizer: add an 'optimizer' section to the "
@@ -491,8 +568,9 @@ class DeepSpeedEngine:
             if x.shape[0] != tb:
                 raise ValueError(f"batch leading dim {x.shape[0]} != "
                                  f"train_batch_size {tb}")
-            m = tb // gas
-            return x[i * m:(i + 1) * m]
+            m = tb // (gas * self.dp_world_size)
+            lo = (i * self.dp_world_size + self.dp_rank) * m
+            return x[lo:lo + m]
 
         self.module.train()
         losses = []
@@ -599,6 +677,12 @@ class DeepSpeedEngine:
         """Name-keyed numpy view of the parameters: a ``Transformer``'s in
         the flax paths of the scan layout (``blocks/attn_qkv/kernel``
         [L, ...]), any other module's under its own parameter names."""
+        if self.dp is not None:             # whole, for the copy
+            with self.dp.gathered(self._params):
+                return self._module_state_dict()
+        return self._module_state_dict()
+
+    def _module_state_dict(self) -> Dict[str, np.ndarray]:
         from ..models.transformer import Transformer
         if isinstance(self.module, Transformer):
             from ..models.convert import module_to_jax
@@ -625,7 +709,11 @@ class DeepSpeedEngine:
         ``blocks/<leaf>/<name>`` leaf; every other parameter keeps its
         own path (a ``Transformer``'s flax path, any other module's
         ``named_parameters`` name). Built once: the tensors are updated in
-        place for the engine's life."""
+        place for the engine's life. In a process group each leaf is this
+        rank's slab (``Leaf.split``: the parameter's pdim, the master's and
+        moments' mdim), and the master is listed even where the
+        checkpoint's master aliases the parameters: a load fills it from
+        them."""
         if self._ckpt_cache is not None:
             return self._ckpt_cache
         from ..models.transformer import Transformer
@@ -641,17 +729,27 @@ class DeepSpeedEngine:
             groups.setdefault(path, []).append(p)
         stacked = {path: flax and path.startswith("blocks/")
                    for path in groups}
+        def split(p, kind):
+            if self.dp is None or id(p) not in index:
+                return None
+            e = self.dp.entries[index[id(p)]]
+            dim = e.pdim if kind == "param" else e.mdim
+            return (None if dim is None
+                    else (dim, self.dp_rank, self.dp_world_size))
+
         params = {path: ckpt_lib.Leaf(ps if stacked[path] else ps[0],
-                                      stacked[path])
+                                      stacked[path], split(ps[0], "param"))
                   for path, ps in groups.items()}
 
         def over(tensors):
             return {path: ckpt_lib.Leaf(
                 [tensors[index[id(p)]] for p in ps] if stacked[path]
-                else tensors[index[id(ps[0])]], stacked[path])
+                else tensors[index[id(ps[0])]], stacked[path],
+                split(ps[0], "master"))
                 for path, ps in groups.items() if id(ps[0]) in index}
 
-        master = over(self.master) if self.keep_master else None
+        master = (over(self.master)
+                  if self.keep_master or self.dp is not None else None)
         moments = {f"{slot}/{path}": leaf
                    for slot in sorted(self.opt_state)
                    for path, leaf in over(self.opt_state[slot]).items()}
@@ -697,11 +795,15 @@ class DeepSpeedEngine:
                                                      "state_dict"):
             client_state["lr_scheduler"] = self.lr_scheduler.state_dict()
         ckpt = self.config.checkpoint
-        return ckpt_lib.save_checkpoint(
-            save_dir, tag, self._ckpt_state(), client_state,
-            master_aliases_params=not self.keep_master,
-            ckpt_engine=ckpt_engine, keep_last=ckpt.keep_last,
-            keep_every=ckpt.keep_every)
+        state = self._ckpt_state()
+        if not self.keep_master:            # the file's master is params
+            state.master = None
+        save = (ckpt_lib.save_checkpoint if self.dp is None
+                else ckpt_lib.save_checkpoint_sharded)
+        return save(save_dir, tag, state, client_state,
+                    master_aliases_params=not self.keep_master,
+                    ckpt_engine=ckpt_engine, keep_last=ckpt.keep_last,
+                    keep_every=ckpt.keep_every)
 
     def wait_for_checkpoints(self):
         """Durability barrier for async checkpointing; no-op with the sync
@@ -752,11 +854,22 @@ class DeepSpeedEngine:
                          save_filename: str = "pytorch_model.npz") -> str:
         """The parameters in their compute dtype, name-keyed, in one npz
         (loadable by ``InferenceEngine.load_checkpoint`` of either
-        package). Returns its path."""
+        package); in a process group they are gathered and rank 0 writes.
+        Returns its path."""
         import os
         os.makedirs(save_dir, exist_ok=True)
         path = os.path.join(save_dir, save_filename)
-        ckpt_lib.save_16bit_model(self._ckpt_state(), path)
+        if self.dp is None:
+            ckpt_lib.save_16bit_model(self._ckpt_state(), path)
+            return path
+        from .. import comm
+        with self.dp.gathered(self._params):
+            whole = {k: ckpt_lib.Leaf(leaf.parts if leaf.stacked
+                                      else leaf.parts[0], leaf.stacked)
+                     for k, leaf in self._ckpt_leaves()[0].items()}
+            if self.dp_rank == 0:
+                ckpt_lib.save_tree(whole, path)
+        comm.barrier()
         return path
 
     def load_module_state_dict(self, state_dict: Dict[str, Any],

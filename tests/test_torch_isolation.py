@@ -113,6 +113,46 @@ def test_sources_import_no_jax(path):
                 f"{path.name} imports {n}"
 
 
+# the distributed slice: comm facade, topology and mesh, the ZeRO policy
+# and partition, zero.Init / GatheredParameters, the launcher
+DIST_MODULES = ["comm", "comm.comm", "comm.logging", "parallel.topology",
+                "parallel.mesh", "runtime.zero.stages", "runtime.zero.tiling",
+                "runtime.zero.partition", "zero", "launcher",
+                "launcher.launch"]
+
+
+@pytest.fixture(scope="module")
+def dist_imports():
+    """Each distributed module imported in order in one fresh interpreter:
+    the JAX modules each import added, and whether any started a process
+    group."""
+    code = (
+        "import importlib, json, sys\n"
+        "bad = lambda: {k for k in sys.modules if k.split('.')[0] in "
+        "('jax', 'jaxlib', 'flax', 'deepspeed_tpu')}\n"
+        "out = {}\n"
+        f"for m in {DIST_MODULES!r}:\n"
+        "    before = bad()\n"
+        "    importlib.import_module('deepspeed_tpu_torch.' + m)\n"
+        "    out[m] = sorted(bad() - before)\n"
+        "import torch.distributed as dist\n"
+        "print(json.dumps({'added': out, 'group': dist.is_initialized()}))\n")
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("PYTHONPATH", "WORLD_SIZE", "RANK")}
+    env["PYTHONPATH"] = str(REPO)
+    out = subprocess.run([sys.executable, "-c", code], cwd=str(REPO),
+                         env=env, capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    return json.loads(out.stdout.strip().splitlines()[-1])
+
+
+@pytest.mark.parametrize("mod", DIST_MODULES)
+def test_distributed_modules_import_no_jax_and_start_no_group(dist_imports,
+                                                              mod):
+    assert dist_imports["added"][mod] == []
+    assert dist_imports["group"] is False
+
+
 def test_import_builds_nothing_and_library_names_track_sources():
     # importing the kernel modules (done above) starts no compiler: the
     # build directory holds no library for the current sources here

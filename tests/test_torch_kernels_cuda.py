@@ -444,6 +444,24 @@ def test_flash_attention_kernels_bert_large_shape(dev, dtype):
     assert torch.all(dv.transpose(1, 2)[dead] == 0)
 
 
+def test_flash_attention_kernels_gpt2_1_3b_zero_shape(dev):
+    """The zero leg's calls (gpt2-1.3b under ZeRO-3): [2, 16, 1024, 128],
+    causal, bf16: the forward and both backward kernels."""
+    g = torch.Generator().manual_seed(128)
+    q, k, v, do = (torch.randn(2, 16, 1024, 128, generator=g).to(
+        dev, torch.bfloat16) for _ in range(4))
+    o, lse = tfa.flash_attention_fwd(q, k, v, causal=True)
+    dq, dk, dv = tfa.flash_attention_bwd(q, k, v, o, lse, do, causal=True)
+    ro, rlse = tfa.flash_attention_reference(*_f32(q, k, v), causal=True)
+    refs = tfa.flash_attention_bwd_reference(*_f32(q, k, v, o), lse,
+                                             do.float(), causal=True)
+    torch.cuda.synchronize()
+    _hold(o, ro, False)
+    torch.testing.assert_close(lse, rlse, atol=F32_TOL, rtol=0)
+    for out, ref in zip((dq, dk, dv), refs):
+        _hold(out, ref, False, floor=2.0 ** -10)
+
+
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
 def test_decode_and_paged_kernels_phi2_shape(dev, dtype):
     """The Phi-2 legs' decode calls, 32 heads of 80: the generate step (4
