@@ -105,6 +105,28 @@ nor ``deepspeed_tpu``. Phases, each reported on its own line:
     bitwise into a fresh engine and the next step's loss matches; step
     ms, tokens/s, 6N TFLOP/s, peak memory, device ms by kind, and the
     flash kernels at D 128 beside SDPA and their bounds.
+12. **sp** — sequence parallelism on one card. First the ring's chunk
+    logic for four virtual ranks of one [1, 8, 4096, 64] bf16 sample
+    (``parallel.ring_attention.emulate_ring``: the same chunk steps with
+    their causal / full / skip choice, the lse merge and the backward's
+    dK/dV accumulation, the rotation by indexing), causal and full,
+    against the plain version. Then llama-1.1b at full width and depth
+    with max_seq_len raised to 16384, one sample of 16384 tokens a step,
+    bf16 + fp32 master, AdamW, ZeRO 1, remat "full", in a 1-rank NCCL
+    world, three steps with ``attention_impl`` "ring" and three with
+    "ulysses": each step's flash launches (44 / 22 / 22) and ring
+    counters (one chunk step a layer and forward, no point-to-point op),
+    the first step's loss and grad norm within 1e-3 / 1e-2 of the same
+    engine with ``attention_impl="flash"``, the loss falling, the step's
+    ms, tokens/s, 6N TFLOP/s, peak memory and device ms by kind; and the
+    flash kernels at the leg's calls (16384 tokens causal, and an sp = 4
+    ring's 4096-token chunks, causal and full) beside SDPA, the plain
+    version and the bounds.
+13. **dropout** — BERT-large (the hf leg's model) with dropout 0.1, three
+    ``train_batch`` steps: every attention call through the plain path
+    (24 a step, no kernel launch), the loss falling, bitwise-equal losses
+    from a second engine with the same seed, and remat "full"'s first
+    step bitwise remat off's.
 
 ``--old-quant-matmul SRC`` also builds a parent commit's
 ``csrc/quant_matmul.cu`` from SRC and times it against this one in the
@@ -127,14 +149,19 @@ against these, and the long step. ``--sweep-item-cost``: the block-sparse
 forward's and dq's per-item cost of the host balance, swept at the long
 leg's call.
 
-``--only PHASE ...`` (``ckpt``, ``remat``, ``hf``, ``bert-masked``, ``zero``)
+``--only PHASE ...`` (``ckpt``, ``remat``, ``hf``, ``bert-masked``,
+``zero``, ``sp``, ``dropout``)
 builds the kernels and runs only those phases, then a result line that
 names them (``"only": [...]``; no kernels line). ``--zero-ranks N`` (a
 host with N GPUs) builds the kernels and runs only the zero leg across N
 ranks, one process a GPU through ``deepspeed_tpu_torch.launcher.launch``
 (NCCL on each ``cuda:{LOCAL_RANK}``), held to one engine without a
 process group on the same global batch, and ends in a result line that
-names it (``"zero_ranks": N``).
+names it (``"zero_ranks": N``). ``--sp-ranks N`` does the same for the
+sp leg: ring and Ulysses at sp = N (16384 / N tokens a rank), each held
+to one engine without a process group on the same sample (loss 1e-4,
+grad norm 5e-3) and to its counters (N - 1 rotations a layer and
+direction), ending in ``"sp_ranks": N``.
 
 Launch counters are zeroed just before each leg and read just after it.
 Any failed check raises, so the script exits non-zero and prints no
@@ -217,6 +244,20 @@ ZERO_CONFIG = {
     "zero_optimization": {"stage": 3},
     "steps_per_print": 10_000,
 }
+# the sp leg: llama-1.1b at full width and depth with max_seq_len raised
+# to SP_SEQ, one sample of SP_SEQ tokens a step, bf16 + fp32 master,
+# AdamW, ZeRO 1, remat "full" (attention_impl "ring" and "ulysses"); the
+# chunk-logic check emulates SP_EMU ranks on one device
+SP_SEQ, SP_STEPS, SP_EMU = 16384, 3, 4
+SP_CONFIG = {
+    "train_batch_size": 1, "train_micro_batch_size_per_gpu": 1,
+    "gradient_accumulation_steps": 1, "bf16": {"enabled": True},
+    "optimizer": {"type": "AdamW", "params": {"lr": 1e-4}},
+    "gradient_clipping": 1.0, "zero_optimization": {"stage": 1},
+    "steps_per_print": 10_000,
+}
+# BERT's published hidden and attention dropout (bert-large-uncased)
+BERT_DROPOUT = 0.1
 SERVING = {"block_size": 32, "pool_blocks": 256, "max_batch": 8,
            "max_blocks_per_seq": 64}
 
@@ -4594,6 +4635,543 @@ def zero_worker(out):
     return 0
 
 
+# ------------------------------------------------------------------ 12. sp
+
+def _sp_engine(tmp, name, impl, config=None, seed=0):
+    """initialize(ds_sp.json: ``config``, default SP_CONFIG) on llama-1.1b
+    at full width and depth with max_seq_len SP_SEQ, seeded weights,
+    remat "full", the fused chunked CE and attention_impl ``impl``."""
+    return _train_engine(tmp, name, config or SP_CONFIG, seed,
+                         max_seq_len=SP_SEQ, remat=True, remat_policy="full",
+                         attention_impl=impl)
+
+
+def _sp_batch(vocab):
+    import numpy as np
+    rng = np.random.default_rng(13)
+    return {"input_ids": rng.integers(1, vocab, (1, SP_SEQ))}
+
+
+def _ring_counters():
+    from deepspeed_tpu_torch.parallel import ring_attention as tra
+    fn = tra.ring_attention
+    return {"chunk_steps": fn.chunk_steps, "rotations": fn.rotations,
+            "returns": fn.returns}
+
+
+def _zero_ring_counters():
+    from deepspeed_tpu_torch.parallel import ring_attention as tra
+    tra.ring_attention.chunk_steps = 0
+    tra.ring_attention.rotations = 0
+    tra.ring_attention.returns = 0
+
+
+def _sp_step(engine, batch, label, want, want_ring):
+    """One train_batch with the kernel, ring and collective counters zeroed
+    just before it and read just after; each must equal ``want`` /
+    ``want_ring`` (point-to-point ops: ``want_ring["rotations"] +
+    want_ring["returns"]``)."""
+    import numpy as np
+    from deepspeed_tpu_torch import comm
+    _zero_counters()
+    _zero_ring_counters()
+    comm.reset_op_counts()
+    t0 = time.perf_counter()
+    m = engine.train_batch(batch)           # ends in a host read
+    dt = time.perf_counter() - t0
+    c, ring, ops = _counters(), _ring_counters(), comm.op_counts()
+    p2p = ops.get("ppermute_async", 0) + ops.get("ppermute", 0)
+    got = {k: c[k] for k in FLASH_KERNELS}
+    if got != want or ring != want_ring or \
+            p2p != want_ring["rotations"] + want_ring["returns"] or \
+            any(c[k] for k in BS_KERNELS):
+        fail(f"{label}: launched {c}, ring {ring}, point-to-point {p2p}: "
+             f"expected {want}, ring {want_ring}")
+    if not np.isfinite(m["loss"]) or m["overflow"]:
+        fail(f"{label}: {m}")
+    return m, dt, got, ring, ops
+
+
+def _sp_want(layers, sp, r, mode):
+    """One step's flash launches and ring counters on rank ``r`` of a seq
+    group of ``sp`` under remat "full" (the forward runs twice a layer):
+    the ring computes r + 1 chunks a forward (the causal diagonal and the
+    earlier ranks' chunks) and rotates K/V sp - 1 times a forward and a
+    backward, with one dK/dV hop home a backward; Ulysses one flash call
+    a layer over the whole sequence."""
+    n = r + 1 if mode == "ring" else 1
+    want = {"flash_attention_fwd": 2 * layers * n,
+            "flash_attention_bwd_dq": layers * n,
+            "flash_attention_bwd_dkv": layers * n}
+    rot = sp - 1 if mode == "ring" else 0
+    ring = {"chunk_steps": 2 * layers * n if mode == "ring" else 0,
+            "rotations": 3 * layers * rot,
+            "returns": layers if mode == "ring" and sp > 1 else 0}
+    return want, ring
+
+
+def check_ring_chunks():
+    """The ring's chunk logic on one device: ``emulate_ring`` over SP_EMU
+    virtual ranks of one [1, 8, 4096, 64] bf16 sample, causal and full.
+    Each virtual rank runs the ring's own forward and backward: the same
+    chunk steps (the flash forward kernel) with their causal / full /
+    skip choice, the lse merge, and the flash backward kernels on each
+    chunk with the merged o and lse; the rotation is indexing. o, dq, dk
+    and dv are held against the plain version (the whole sequence's
+    attention forward and backward on the inputs cast to f32, with the
+    ring's o) at the flash checks' limits. Returns the largest error of
+    each."""
+    import torch
+    from deepspeed_tpu_torch.ops import flash_attention as tfa
+    from deepspeed_tpu_torch.parallel import ring_attention as tra
+    g = torch.Generator(device="cuda").manual_seed(14)
+    q, k, v, do = (torch.randn(1, 8, 4096, 64, device="cuda", generator=g)
+                   .to(torch.bfloat16) for _ in range(4))
+    worst = {}
+    for causal in (True, False):
+        _zero_counters()
+        o, dq, dk, dv = tra.emulate_ring(q, k, v, SP_EMU, causal=causal,
+                                         do=do)
+        torch.cuda.synchronize()
+        c = _counters()
+        # causal: virtual rank r computes r + 1 chunks; full: SP_EMU each
+        n = (SP_EMU * (SP_EMU + 1) // 2 if causal else SP_EMU * SP_EMU)
+        if any(c[kname] != n for kname in FLASH_KERNELS):
+            fail(f"ring chunks causal={causal}: launched {c}, expected {n} "
+                 "of each flash kernel")
+        f = [t.float() for t in (q, k, v, do)]
+        ro, lse = tfa.flash_attention_reference(*f[:3], causal=causal)
+        rq, rk, rv = tfa.flash_attention_bwd_reference(
+            *f[:3], o.float(), lse, f[3], causal=causal)
+        label = (f"ring chunks sp={SP_EMU} causal={causal} [1, 8, 4096, 64] "
+                 f"bf16 launches={n}")
+        for name, out, ref, floor in (("o", o, ro, 0.0), ("dq", dq, rq, 2.0 ** -10),
+                                      ("dk", dk, rk, 2.0 ** -10),
+                                      ("dv", dv, rv, 2.0 ** -10)):
+            err = _hold(f"{label} {name}:", out, ref, False, floor=floor)
+            worst[name] = max(worst.get(name, 0.0), err)
+        del o, dq, dk, dv, ro, lse, rq, rk, rv, f
+    torch.cuda.empty_cache()
+    return worst
+
+
+def _sp_rates(engine, batch, step_s, n_params, cfg, label, world=1):
+    """The sp leg's readings: the median step (after the first), tokens/s,
+    model TFLOP/s (6N, and with attention), peak memory, and one profiled
+    step's busy ms and device ms by kind."""
+    import numpy as np
+    import torch
+    dt = float(np.median(step_s[1:]))
+    tokens = SP_SEQ
+    model_flops = 6.0 * n_params * tokens
+    attn_flops = 12.0 * cfg.num_layers * cfg.hidden_size * SP_SEQ * tokens
+    busy, by_kind = profile_train(engine, batch, 1e3 * dt, label=label)
+    return {"step_ms": 1e3 * dt, "tokens_s": tokens / dt,
+            "model_tflops_6n": model_flops / dt / 1e12 / world,
+            "model_tflops_with_attention":
+                (model_flops + attn_flops) / dt / 1e12 / world,
+            "step_ms_all": [round(1e3 * x, 3) for x in step_s],
+            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "busy_ms": busy, "device_ms_by_kind": by_kind,
+            "idle_share": 1 - busy / (1e3 * dt) if busy else None}
+
+
+def phase_sp(tmp):
+    """Sequence parallelism on one card: llama-1.1b (TinyLlama shapes, 22
+    layers, hidden 2048, 32 heads of 64, 4 KV heads) at full width and
+    depth with max_seq_len raised to SP_SEQ, seeded weights, one sample of
+    SP_SEQ tokens a step, bf16 with an fp32 master, AdamW, ZeRO 1, remat
+    "full". First the chunk-logic check (:func:`check_ring_chunks`).
+    Then the reference: the same engine with attention_impl="flash" and
+    no process group, one step. Then comm.init_distributed (NCCL, world
+    1) and, for "ring" and "ulysses", SP_STEPS train_batch steps on the
+    sample, each held to its flash launches (the ring: one chunk step a
+    layer and forward, no point-to-point op at seq-world 1); the first
+    step's loss within 1e-3 and grad norm within 1e-2 of the reference;
+    the loss falls. Readings: step ms, tokens/s, model TFLOP/s, peak
+    memory, device ms by kind."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from deepspeed_tpu_torch import comm
+    from deepspeed_tpu_torch.parallel.mesh import set_global_mesh
+    out = {"ring_chunks": check_ring_chunks()}
+    if comm.is_initialized():
+        fail("sp: a process group is already up")
+    gc.collect()
+    torch.cuda.empty_cache()
+    ref_engine, cfg = _sp_engine(tmp, "sp_ref", "flash")
+    batch = _sp_batch(cfg.vocab_size)
+    log(f"sp: llama-1.1b layers={cfg.num_layers} hidden={cfg.hidden_size} "
+        f"heads={cfg.num_heads}x{cfg.head_dim} kv_heads={cfg.kv_heads} "
+        f"max_seq_len={cfg.max_seq_len}, one sample of {SP_SEQ} tokens, "
+        "bf16 + fp32 master, AdamW, ZeRO 1, remat full")
+    want, _ = _sp_want(cfg.num_layers, 1, 0, "ulysses")
+    ref = _sp_step(ref_engine, batch, "sp flash reference", want,
+                   dict.fromkeys(("chunk_steps", "rotations", "returns"),
+                                 0))[0]
+    del ref_engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    comm.init_distributed(world_size=1, rank=0)
+    try:
+        for mode in ("ring", "ulysses"):
+            t0 = time.perf_counter()
+            engine, cfg = _sp_engine(tmp, f"sp_{mode}", mode)
+            n_params = sum(p.numel() for p in engine._params)
+            log(f"sp: {mode} backend={dist.get_backend()} world="
+                f"{dist.get_world_size()} params={n_params} "
+                f"init_s={time.perf_counter() - t0:.2f} "
+                f"mem_gb={torch.cuda.memory_allocated() / 1e9:.2f}")
+            torch.cuda.reset_peak_memory_stats()
+            want, want_ring = _sp_want(cfg.num_layers, 1, 0, mode)
+            metrics, step_s = [], []
+            for step in range(SP_STEPS):
+                m, dt, c, ring, ops = _sp_step(engine, batch,
+                                               f"sp {mode} step {step}",
+                                               want, want_ring)
+                metrics.append(m)
+                step_s.append(dt)
+                log(f"sp: {mode} step {step} loss={m['loss']:.6f} "
+                    f"grad_norm={m['grad_norm']:.5f} step_ms={1e3 * dt:.1f} "
+                    f"launches={json.dumps(c)} ring={json.dumps(ring)} "
+                    f"collectives={json.dumps(ops)}")
+            first = metrics[0]
+            rl = abs(first["loss"] - ref["loss"]) / abs(ref["loss"])
+            rn = abs(first["grad_norm"] - ref["grad_norm"]) / abs(
+                ref["grad_norm"])
+            log(f"check: sp {mode} first step vs attention_impl=flash "
+                f"loss={first['loss']:.7f}/{ref['loss']:.7f} rel={rl:.3e} "
+                f"tol=1e-3 grad_norm={first['grad_norm']:.6f}/"
+                f"{ref['grad_norm']:.6f} rel={rn:.3e} tol=1e-2")
+            if not (rl <= 1e-3 and rn <= 1e-2):
+                fail(f"sp {mode}: the first step is off the flash engine's")
+            if not metrics[-1]["loss"] < metrics[0]["loss"]:
+                fail(f"sp {mode}: loss did not fall "
+                     f"{[x['loss'] for x in metrics]}")
+            rates = _sp_rates(engine, batch, step_s, n_params, cfg,
+                              f"sp {mode} step")
+            # the last step's counted launches and ring counters
+            rates.update(loss=[x["loss"] for x in metrics],
+                         first_step={"loss_rel": rl, "grad_norm_rel": rn},
+                         launches=c, ring=ring)
+            log(f"time: sp {mode} " + json.dumps(rates))
+            out[mode] = rates
+            del engine
+            gc.collect()
+            torch.cuda.empty_cache()
+    finally:
+        set_global_mesh(None)
+        dist.destroy_process_group()
+    out["flash"] = time_flash_sp()
+    torch.cuda.empty_cache()
+    return out
+
+
+def time_flash_sp():
+    """The flash kernels at the sp leg's calls, one launch each, held
+    against the plain version and timed beside SDPA on the same inputs
+    (``is_causal``, or no mask for a full chunk) and the bound: the 1-card
+    leg's [1, 32, 16384, 64] causal bf16, and an sp = 4 ring's chunks [1,
+    32, 4096, 64], causal (the diagonal) and full. The plain version
+    runs over ``hs`` heads at a time (at 16384 tokens the f32 scores of
+    all 32 heads would take 34 GB): its time is the sum over the groups,
+    and the kernels' o, lse, dq, dk and dv are held against its outputs on
+    the inputs cast to f32 at the flash checks' limits (:func:`_hold`; lse
+    to F32_TOL). Every call here runs for a millisecond or more, so each
+    is timed between CUDA events over back-to-back calls
+    (:func:`wall_ms`), not by torch.profiler, whose short traces late in
+    this process can record nothing."""
+    import torch
+    import torch.nn.functional as F
+    from deepspeed_tpu_torch.ops import flash_attention as tfa
+    g = torch.Generator(device="cuda").manual_seed(15)
+    out = {}
+    for tag, S, causal, hs in (("sp1 causal", SP_SEQ, True, 4),
+                               ("sp4 chunk causal", SP_SEQ // 4, True, 32),
+                               ("sp4 chunk full", SP_SEQ // 4, False, 32)):
+        q, k, v, do = (torch.randn(1, 32, S, 64, device="cuda",
+                                   generator=g).to(torch.bfloat16)
+                       for _ in range(4))
+        o, lse = tfa.flash_attention_fwd(q, k, v, causal=causal)
+        delta = (do.float() * o.float()).sum(-1)
+        parts = [slice(h, h + hs) for h in range(0, 32, hs)]
+        # the kernels' outputs against the plain version's, group by group
+        dq = tfa.flash_attention_bwd_dq(q, k, v, do, lse, delta,
+                                        causal=causal)
+        dk, dv = tfa.flash_attention_bwd_dkv(q, k, v, do, lse, delta,
+                                             causal=causal)
+        ref = {n: torch.empty(t.shape, dtype=torch.float32, device="cuda")
+               for n, t in (("o", o), ("lse", lse), ("dq", dq), ("dk", dk),
+                            ("dv", dv))}
+        for p in parts:
+            f = [t[:, p].float() for t in (q, k, v, o, do)]
+            ref["o"][:, p], ref["lse"][:, p] = tfa.flash_attention_reference(
+                *f[:3], causal=causal)
+            ref["dq"][:, p], ref["dk"][:, p], ref["dv"][:, p] = \
+                tfa.flash_attention_bwd_reference(*f[:4], lse[:, p], f[4],
+                                                  causal=causal)
+            del f
+        torch.cuda.synchronize()
+        label = f"sp {tag} [1, 32, {S}, 64] bf16"
+        err_l = _max_err(lse, ref["lse"])
+        log(f"check: {label} lse max_abs_err={err_l:.3e} tol={F32_TOL}")
+        if not err_l <= F32_TOL:
+            fail(f"{label}: lse err {err_l} > {F32_TOL}")
+        errs = {"flash_attention_fwd": _hold(f"{label} o:", o, ref["o"],
+                                             False)}
+        errs["flash_attention_bwd_dq"] = _hold(f"{label} dq:", dq, ref["dq"],
+                                               False, floor=2.0 ** -10)
+        errs["flash_attention_bwd_dkv"] = max(
+            _hold(f"{label} {n}:", t, ref[n], False, floor=2.0 ** -10)
+            for n, t in (("dk", dk), ("dv", dv)))
+        del dq, dk, dv, ref
+        torch.cuda.empty_cache()
+        qs, ks, vs = (t.detach().clone().requires_grad_() for t in (q, k, v))
+        so = F.scaled_dot_product_attention(qs, ks, vs, is_causal=causal)
+        lib_bwd = wall_ms(lambda: torch.autograd.grad(
+            so, (qs, ks, vs), do, retain_graph=True), reps=5)
+        lib_fwd = wall_ms(lambda: F.scaled_dot_product_attention(
+            q, k, v, is_causal=causal), reps=5)
+        plain_fwd = wall_ms(lambda: [tfa.flash_attention_reference(
+            q[:, p], k[:, p], v[:, p], causal=causal) for p in parts],
+            reps=1, warmup=1)
+        plain_bwd = wall_ms(lambda: [tfa.flash_attention_bwd_reference(
+            q[:, p], k[:, p], v[:, p], o[:, p], lse[:, p], do[:, p],
+            causal=causal) for p in parts], reps=1, warmup=1)
+        pairs = 32 * (S * (S + 1) // 2 if causal else S * S)
+        elem = 32 * S * 64 * 2
+        rows = 32 * S * 4
+        for name, fn, nbytes, flops, plain, lib in (
+                ("flash_attention_fwd",
+                 lambda: tfa.flash_attention_fwd(q, k, v, causal=causal),
+                 4 * elem + rows, 4 * 64 * pairs, plain_fwd, lib_fwd),
+                ("flash_attention_bwd_dq",
+                 lambda: tfa.flash_attention_bwd_dq(q, k, v, do, lse, delta,
+                                                    causal=causal),
+                 5 * elem + 2 * rows, 6 * 64 * pairs, plain_bwd, lib_bwd),
+                ("flash_attention_bwd_dkv",
+                 lambda: tfa.flash_attention_bwd_dkv(q, k, v, do, lse, delta,
+                                                     causal=causal),
+                 6 * elem + 2 * rows, 8 * 64 * pairs, plain_bwd, lib_bwd)):
+            bnd, by = bound_ms(nbytes, flops)
+            t = {"ms": wall_ms(fn, reps=10), "plain_ms": plain,
+                 "library_ms": lib, "bound_ms": bnd, "bound_by": by,
+                 "max_abs_err": errs[name],
+                 "work": f"one launch, B=1, H=32, S=Sk={S}, D=64, "
+                         f"{'causal' if causal else 'full'}, bf16, timed "
+                         "between CUDA events; the backward's plain and "
+                         "library calls compute dq, dk and dv together"}
+            out.setdefault(name, {})[tag] = t
+            log(f"time: sp {tag} {name} ms={t['ms']:.4f} bound_ms={bnd:.4f} "
+                f"({by}) plain_ms={plain:.4f} library_ms={lib:.4f} "
+                f"max_abs_err={errs[name]:.3e} [{t['work']}]")
+        del q, k, v, do, o, lse, delta, qs, ks, vs, so
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_sp_ranks(tmp, n):
+    """``--sp-ranks N``: the sp leg across N GPUs of one host, one process
+    each through the port's launcher. First the sample through one engine
+    without a process group on GPU 0 (flash, one step); then ``launch
+    --nproc_per_node N`` runs :func:`sp_worker` on every GPU: for "ring"
+    and "ulysses" at sp = N (SP_SEQ / N tokens a rank), SP_STEPS steps
+    held to their flash launches and ring counters (N - 1 rotations a
+    layer and direction), the first step's loss within 1e-4 and grad norm
+    within 5e-3 of the single engine's, the loss falling, and rank 0's
+    step time, tokens/s, peak memory and NCCL device ms."""
+    import torch
+    ref_engine, cfg = _sp_engine(tmp, "sp_ref", "flash")
+    _zero_counters()
+    ref = ref_engine.train_batch(_sp_batch(cfg.vocab_size))
+    del ref_engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    out = os.path.join(tmp, "sp_ranks.json")
+    env = dict(os.environ, PYTHONPATH=HERE)
+    rc = subprocess.run(
+        [sys.executable, "-m", "deepspeed_tpu_torch.launcher.launch",
+         "--nproc_per_node", str(n), os.path.join(HERE, "chip_smoke.py"),
+         "--sp-worker", out], cwd=HERE, env=env, timeout=1200).returncode
+    if rc != 0:
+        fail(f"sp ranks: the launcher exited {rc}")
+    with open(out) as f:
+        res = json.load(f)
+    for mode in ("ring", "ulysses"):
+        first = res[mode]["metrics"][0]
+        rl = abs(first["loss"] - ref["loss"]) / abs(ref["loss"])
+        rn = abs(first["grad_norm"] - ref["grad_norm"]) / abs(
+            ref["grad_norm"])
+        log(f"check: sp ranks={n} {mode} first step vs one engine without "
+            f"a process group loss={first['loss']:.7f}/{ref['loss']:.7f} "
+            f"rel={rl:.3e} tol=1e-4 grad_norm={first['grad_norm']:.6f}/"
+            f"{ref['grad_norm']:.6f} rel={rn:.3e} tol=5e-3")
+        if not (rl <= 1e-4 and rn <= 5e-3):
+            fail(f"sp ranks {mode}: the first step is off the single "
+                 "engine's")
+        res[mode].update(loss_rel=rl, grad_norm_rel=rn)
+    return res
+
+
+def sp_worker(out):
+    """One rank of ``--sp-ranks``, started by the port's launcher (NCCL on
+    cuda:LOCAL_RANK); rank 0 writes the readings to ``out``."""
+    import torch
+    import torch.distributed as dist
+    from deepspeed_tpu_torch import comm
+    from deepspeed_tpu_torch.parallel.mesh import ZERO_AXES
+    comm.init_distributed()
+    rank, world = comm.get_rank(), comm.get_world_size()
+    tmp = os.path.dirname(out)
+    res = {"world": world}
+    for mode in ("ring", "ulysses"):
+        config = dict(SP_CONFIG, sequence_parallel={"sp_size": world,
+                                                    "mode": mode})
+        engine, cfg = _sp_engine(tmp, f"sp_{mode}_rank{rank}", "auto",
+                                 config)
+        batch = _sp_batch(cfg.vocab_size)
+        n_params = sum(p.numel() for p in engine.module.parameters())
+        want, want_ring = _sp_want(cfg.num_layers, world, engine.seq_rank,
+                                   mode)
+        torch.cuda.reset_peak_memory_stats()
+        metrics, step_s = [], []
+        for step in range(SP_STEPS):
+            m, dt, c, ring, ops = _sp_step(
+                engine, batch, f"sp ranks={world} {mode} rank {rank} step "
+                f"{step}", want, want_ring)
+            metrics.append(m)
+            step_s.append(dt)
+            if rank == 0:
+                log(f"sp ranks={world}: {mode} step {step} loss="
+                    f"{m['loss']:.6f} grad_norm={m['grad_norm']:.5f} "
+                    f"step_ms={1e3 * dt:.1f} launches={json.dumps(c)} "
+                    f"ring={json.dumps(ring)} collectives={json.dumps(ops)}")
+        if not metrics[-1]["loss"] < metrics[0]["loss"]:
+            fail(f"sp ranks {mode}: loss did not fall "
+                 f"{[x['loss'] for x in metrics]}")
+        if rank == 0:
+            rates = _sp_rates(engine, batch, step_s, n_params, cfg,
+                              f"sp ranks={world} {mode} step", world)
+        else:
+            engine.train_batch(batch)
+            rates = {}
+        peak = torch.tensor([torch.cuda.max_memory_allocated() / 1e9],
+                            device="cuda")
+        rates.update(metrics=metrics, launches_rank0=c, ring_rank0=ring,
+                     peak_mem_gb_by_rank=comm.all_gather(
+                         peak, axis=ZERO_AXES).tolist())
+        res[mode] = rates
+        del engine
+        gc.collect()
+        torch.cuda.empty_cache()
+    if rank == 0:
+        with open(out, "w") as f:
+            json.dump(res, f)
+        log("time: sp ranks " + json.dumps(res))
+    dist.destroy_process_group()
+    return 0
+
+
+# ------------------------------------------------------------- 13. dropout
+
+def _bert_large_params():
+    from types import SimpleNamespace
+    from deepspeed_tpu_torch.models.hf import load_hf
+    sd = _seeded_state_dict(_bert_large_shapes(), seed=3)
+    return load_hf(sd, arch="BertForMaskedLM",
+                   config=SimpleNamespace(**BERT_LARGE_CONFIG))
+
+
+def phase_dropout():
+    """BERT-large (the hf leg's model, seeded weights) with dropout 0.1,
+    BERT's published value, BERT_STEPS train_batch steps on 8 x 512 MLM
+    samples with the ragged key mask: the loss falls; every attention
+    call takes the plain path (``attention.plain_calls`` 24 a step, no
+    flash launch), as the JAX router sends dropout to its reference; a
+    second engine with the same seed gives bitwise-equal losses; under
+    remat "full" the first step's loss and grad norm equal remat off's
+    bitwise (each dropout site's generator is made from its seed inside
+    the checkpointed region). The leg runs under
+    ``torch.use_deterministic_algorithms``: F.embedding's CUDA backward
+    otherwise adds colliding rows in a varying order (the token-type
+    table's row 0 takes all 4096 tokens), so its gradient differs in the
+    last bits from run to run, remat or not, and a bitwise comparison
+    would test that instead of the masks."""
+    import numpy as np
+    import torch
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.models.transformer import (Transformer,
+                                                        masked_lm_loss)
+    from deepspeed_tpu_torch.ops.attention import attention
+    rng = np.random.default_rng(16)
+    V, B, S = BERT_LARGE_CONFIG["vocab_size"], BERT_BATCH, BERT_SEQ
+    lens = np.asarray(BERT_KEY_LENS)
+    live = np.arange(S)[None] < lens[:, None]
+    ids = np.where(live, rng.integers(1000, V, (B, S)), 0)
+    batch = {"input_ids": ids, "attention_mask": live.astype(np.int64),
+             "labels": np.where((rng.random((B, S)) < 0.15) & live, ids,
+                                -100)}
+
+    def run(steps, **kw):
+        gc.collect()
+        torch.cuda.empty_cache()
+        params, cfg = _bert_large_params()
+        cfg = dataclasses.replace(cfg, dropout=BERT_DROPOUT, **kw)
+        engine, *_ = deepspeed_tpu_torch.initialize(
+            model=Transformer(cfg, params),
+            config=dict(BERT_TRAIN_CONFIG, seed=7), loss_fn=masked_lm_loss)
+        del params
+        metrics, step_s = [], []
+        for step in range(steps):
+            _zero_counters()
+            attention.plain_calls = 0
+            t0 = time.perf_counter()
+            m = engine.train_batch(batch)       # ends in a host read
+            step_s.append(time.perf_counter() - t0)
+            c = _counters()
+            # under remat "full" the recomputation calls attention again
+            calls = cfg.num_layers * (2 if cfg.remat else 1)
+            if attention.plain_calls != calls or any(c.values()):
+                fail(f"dropout step {step}: {attention.plain_calls} plain "
+                     f"attention calls, kernel launches {c}: expected "
+                     f"{calls} plain calls and no launch")
+            if not np.isfinite(m["loss"]) or m["overflow"]:
+                fail(f"dropout step {step}: {m}")
+            metrics.append(m)
+        del engine
+        return metrics, step_s, c
+
+    was = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        a, step_s, c = run(BERT_STEPS)
+        b, _, _ = run(BERT_STEPS)
+        r, _, _ = run(1, remat=True, remat_policy="full")
+    finally:
+        torch.use_deterministic_algorithms(was)
+    la, lb = [m["loss"] for m in a], [m["loss"] for m in b]
+    log(f"dropout: bert-large dropout={BERT_DROPOUT} losses={la} "
+        f"grad_norms={[m['grad_norm'] for m in a]} step_ms="
+        f"{[round(1e3 * x, 1) for x in step_s]} plain attention calls a "
+        f"step={BERT_LARGE_CONFIG['num_hidden_layers']} launches={c}")
+    log(f"check: dropout same seed losses {la} / {lb} bitwise={la == lb}; "
+        f"remat full first step loss={r[0]['loss']!r}/{a[0]['loss']!r} "
+        f"grad_norm={r[0]['grad_norm']!r}/{a[0]['grad_norm']!r}")
+    if la != lb:
+        fail("dropout: two runs with one seed gave other losses")
+    if (r[0]["loss"], r[0]["grad_norm"]) != (a[0]["loss"],
+                                             a[0]["grad_norm"]):
+        fail("dropout: remat full's first step differs from remat off's")
+    if not la[-1] < la[0]:
+        fail(f"dropout: loss did not fall {la}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"losses": la, "step_ms": [round(1e3 * x, 3) for x in step_s],
+            "plain_calls_per_step": BERT_LARGE_CONFIG["num_hidden_layers"],
+            "remat_full_first": [r[0]["loss"], r[0]["grad_norm"]]}
+
+
 def time_bert_masked_flash():
     """The BERT-large leg's attention: 24 launches (one a layer) of each
     flash kernel at [8, 16, 512, 64] bf16, non-causal, with the ragged
@@ -4703,16 +5281,24 @@ def main(argv=None):
                          "(bf16 and int8 pools), D 96 x 16 heads, and the "
                          "serve decode step")
     ap.add_argument("--only", nargs="+", metavar="PHASE",
-                    choices=("ckpt", "remat", "hf", "bert-masked", "zero"),
+                    choices=("ckpt", "remat", "hf", "bert-masked", "zero",
+                             "sp", "dropout"),
                     help="build the kernels, then run only these phases "
-                         "(ckpt, remat, hf, bert-masked, zero) and a "
-                         "result line that names them; no kernels line")
+                         "(ckpt, remat, hf, bert-masked, zero, sp, dropout) "
+                         "and a result line that names them; no kernels "
+                         "line")
     ap.add_argument("--zero-ranks", type=int, metavar="N",
                     help="build the kernels, then run only the zero leg "
                          "across N GPUs of this host (one process each, "
                          "through the port's launcher) and a result line "
                          "that names it")
     ap.add_argument("--zero-worker", metavar="OUT", help=argparse.SUPPRESS)
+    ap.add_argument("--sp-ranks", type=int, metavar="N",
+                    help="build the kernels, then run only the sp leg "
+                         "across N GPUs of this host (ring and Ulysses at "
+                         "sp = N, one process each, through the port's "
+                         "launcher) and a result line that names it")
+    ap.add_argument("--sp-worker", metavar="OUT", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -4728,6 +5314,8 @@ def main(argv=None):
         fail("deepspeed_tpu_torch imported from outside this checkout")
     if args.zero_worker:
         return zero_worker(args.zero_worker)
+    if args.sp_worker:
+        return sp_worker(args.sp_worker)
     name = torch.cuda.get_device_name(0)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -4751,6 +5339,18 @@ def main(argv=None):
                         "device": {"platform": "gpu", "kind": name,
                                    "count": torch.cuda.device_count()}}))
         return 0
+    if args.sp_ranks:
+        if torch.cuda.device_count() < args.sp_ranks:
+            fail(f"--sp-ranks {args.sp_ranks}: this host has "
+                 f"{torch.cuda.device_count()} GPUs")
+        with tempfile.TemporaryDirectory() as tmp:
+            phase_sp_ranks(tmp, args.sp_ranks)
+        log(f"total_s={time.perf_counter() - t0:.1f}")
+        log(smi)
+        log(json.dumps({"ok": True, "sp_ranks": args.sp_ranks,
+                        "device": {"platform": "gpu", "kind": name,
+                                   "count": torch.cuda.device_count()}}))
+        return 0
     if args.only:
         with tempfile.TemporaryDirectory() as tmp:
             for phase in args.only:
@@ -4758,7 +5358,9 @@ def main(argv=None):
                        "remat": lambda: phase_remat(tmp),
                        "hf": lambda: phase_hf(smi),
                        "bert-masked": time_bert_masked_flash,
-                       "zero": lambda: phase_zero(tmp)}[phase]()
+                       "zero": lambda: phase_zero(tmp),
+                       "sp": lambda: phase_sp(tmp),
+                       "dropout": phase_dropout}[phase]()
                 log(f"time: {phase} " + json.dumps(res, default=str))
         log(f"total_s={time.perf_counter() - t0:.1f}")
         log(smi)
@@ -4847,6 +5449,10 @@ def main(argv=None):
         zero = phase_zero(tmp)
     log("time: zero " + json.dumps({k: v for k, v in zero.items()
                                     if k != "d128"}))
+    with tempfile.TemporaryDirectory() as tmp:
+        sp = phase_sp(tmp)
+    dropout = phase_dropout()
+    log("time: dropout " + json.dumps(dropout))
     bs = time_block_sparse_attention()
     time_block_sparse_scaling()
     if old_bs is not None:
@@ -4906,6 +5512,10 @@ def main(argv=None):
         if kname in FLASH_KERNELS:  # the zero leg's step and D 128 calls
             row["launches_zero"] = zero["launches"][kname]
             row["zero_d128"] = zero["d128"][kname]
+            # the sp leg's step under each impl, and its calls' times
+            row["launches_sp"] = {mode: sp[mode]["launches"][kname]
+                                  for mode in ("ring", "ulysses")}
+            row["sp_calls"] = sp["flash"][kname]
         if kname in BS_KERNELS:
             row["launches_by_path"] = {"sparse_train": launches,
                                        "window_train": window_counts[kname]}

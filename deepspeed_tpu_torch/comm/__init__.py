@@ -9,7 +9,9 @@ from .comm import (
     reduce_scatter,
     all_to_all,
     broadcast,
+    P2PHandle,
     ppermute,
+    ppermute_async,
     send_recv_next,
     send_recv_prev,
     axis_rank,

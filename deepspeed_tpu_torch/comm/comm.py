@@ -6,8 +6,9 @@ the module-level collective API, ``timed_op`` logging and the
 Where the JAX package names a mesh axis inside a compiled program, the
 port names the same axis and issues an eager collective over the process
 group of that axis: ``axis=`` selects the group from the global mesh
-(``parallel.mesh.MeshManager.group``), the whole world when no mesh is
-set. Every collective returns its result; ``all_reduce`` and
+(``parallel.mesh.MeshManager.group``). Without a mesh an axis naming
+``data`` is the whole world and the others are size 1 (a collective over
+one of them raises, as JAX's unbound axis names do). Every collective returns its result; ``all_reduce`` and
 ``broadcast`` also write it into the tensor they were given, as
 ``torch.distributed`` does.
 
@@ -18,10 +19,13 @@ is issued (always on, as the kernel wrappers count their launches), and
 records its bytes and host time in the :class:`CommsLogger` while the
 ``comms_logger`` section enables it.
 
-The in-program point-to-point ops of the JAX facade (``ppermute``,
+The point-to-point ops of the JAX facade (``ppermute``,
 ``send_recv_next`` / ``send_recv_prev``, ``axis_rank``, ``axis_size``)
-serve pipelines and raise ``NotImplementedError`` until those are ported
-(ROADMAP.md item 4.1).
+run over the axis group with ``torch.distributed.batch_isend_irecv``:
+ring attention rotates its K/V chunks with them
+(``parallel/ring_attention.py``), and pipelines (ROADMAP.md item 4.1)
+are their next user. :func:`ppermute_async` posts the transfers and
+returns a handle, so a caller computes while they fly.
 """
 
 from __future__ import annotations
@@ -42,11 +46,6 @@ from ..utils.logging import logger
 from .logging import CommsLogger
 
 AxisName = Union[str, Sequence[str]]
-
-_PIPELINES = ("in-program point-to-point collectives (pipelines, ROADMAP "
-              "item 4.1) are not ported to deepspeed_tpu_torch yet (see "
-              "ROADMAP.md)")
-
 
 class ReduceOp(Enum):
     SUM = 0
@@ -177,16 +176,34 @@ def get_device_count() -> int:
         torch.cuda.device_count()
 
 
+def _mesh():
+    """The global mesh, or None when none is set for this world."""
+    from ..parallel.mesh import get_global_mesh
+    mm = get_global_mesh()
+    return None if mm is None or mm.world_size != get_world_size() else mm
+
+
+def _names_data(axis: AxisName) -> bool:
+    return "data" in ((axis,) if isinstance(axis, str) else tuple(axis))
+
+
 def _group(axis: AxisName):
     """The process group of ``axis`` (a mesh axis name or a tuple of
-    them) in the global mesh; the whole world without one."""
+    them) in the global mesh. Without one, an axis naming ``data`` is the
+    whole world and any other axis is bound to nothing: it raises, as
+    JAX does for an unbound axis name."""
     if not is_initialized():
         raise RuntimeError("no process group: call "
                            "deepspeed_tpu_torch.comm.init_distributed() "
                            "(or torch.distributed.init_process_group) first")
-    from ..parallel.mesh import get_global_mesh
-    mm = get_global_mesh()
-    return None if mm is None else mm.group(axis)
+    mm = _mesh()
+    if mm is not None:
+        return mm.group(axis)
+    if not _names_data(axis):
+        raise ValueError(f"axis {axis!r} is bound by no mesh: without "
+                         "parallel.mesh.set_global_mesh only 'data' spans "
+                         "the world")
+    return None
 
 
 def _nbytes(x) -> int:
@@ -309,24 +326,103 @@ def barrier(name: str = "dstpu_barrier") -> None:
         _counts["barrier"] += 1
 
 
-def ppermute(tensor, perm, axis: AxisName = "pipe"):
-    raise NotImplementedError(_PIPELINES)
+class P2PHandle:
+    """The transfers of one :func:`ppermute_async`; :meth:`wait` blocks
+    until they land and returns the received tensor."""
+
+    __slots__ = ("out", "reqs", "sent")
+
+    def __init__(self, out: torch.Tensor, reqs, sent=None):
+        self.out, self.reqs = out, reqs
+        self.sent = sent                    # alive until the sends land
+
+    def wait(self) -> torch.Tensor:
+        for r in self.reqs:
+            r.wait()
+        self.reqs, self.sent = [], None
+        return self.out
 
 
-def send_recv_next(tensor, axis: AxisName = "pipe"):
-    raise NotImplementedError(_PIPELINES)
+def _p2p(tensor: torch.Tensor, perm, axis: AxisName) -> P2PHandle:
+    """Post ``perm``'s transfers of ``tensor`` along ``axis``: (source,
+    destination) pairs of axis indices. A rank no pair sends to receives
+    zeros, as JAX's ``ppermute`` gives them."""
+    n, me = axis_size(axis), axis_rank(axis)
+    pairs = [(int(a) % n, int(b) % n) for a, b in perm]
+    if len({a for a, _ in pairs}) != len(pairs) or \
+            len({b for _, b in pairs}) != len(pairs):
+        raise ValueError(f"ppermute: {perm} sends from or to a rank twice")
+    dst = next((b for a, b in pairs if a == me), None)
+    src = next((a for a, b in pairs if b == me), None)
+    if src is None:
+        out = torch.zeros_like(tensor)
+    elif src == me:
+        out = tensor
+    else:
+        out = torch.empty_like(tensor)
+    if n == 1:                          # nothing leaves the rank
+        return P2PHandle(out, [])
+    g = _group(axis)
+    glob = (lambda i: i) if g is None else \
+        (lambda i: dist.get_global_rank(g, i))
+    x = tensor.contiguous()
+    ops = []
+    if dst is not None and dst != me:
+        ops.append(dist.P2POp(dist.isend, x, glob(dst), group=g))
+    if src is not None and src != me:
+        ops.append(dist.P2POp(dist.irecv, out, glob(src), group=g))
+    reqs = dist.batch_isend_irecv(ops) if ops else []
+    return P2PHandle(out, reqs, x)
 
 
-def send_recv_prev(tensor, axis: AxisName = "pipe"):
-    raise NotImplementedError(_PIPELINES)
+@timed_op
+def ppermute_async(tensor: torch.Tensor, perm,
+                   axis: AxisName = "pipe") -> P2PHandle:
+    """:func:`ppermute`, posted: returns a :class:`P2PHandle` whose
+    ``wait()`` gives the result. ``tensor`` must not change until then."""
+    return _p2p(tensor, perm, axis)
 
 
-def axis_rank(axis: AxisName):
-    raise NotImplementedError(_PIPELINES)
+@timed_op
+def ppermute(tensor: torch.Tensor, perm,
+             axis: AxisName = "pipe") -> torch.Tensor:
+    """Send this rank's ``tensor`` along ``axis`` as ``perm`` says
+    ((source, destination) pairs of axis indices); returns what arrives,
+    zeros on a rank no pair sends to. At axis size 1 nothing is sent."""
+    return _p2p(tensor, perm, axis).wait()
 
 
-def axis_size(axis: AxisName):
-    raise NotImplementedError(_PIPELINES)
+def send_recv_next(tensor: torch.Tensor,
+                   axis: AxisName = "pipe") -> torch.Tensor:
+    """Shift +1 along the axis ring: index i's tensor arrives at i + 1."""
+    n = axis_size(axis)
+    return ppermute(tensor, [(i, (i + 1) % n) for i in range(n)], axis)
+
+
+def send_recv_prev(tensor: torch.Tensor,
+                   axis: AxisName = "pipe") -> torch.Tensor:
+    """Shift -1 along the axis ring: index i's tensor arrives at i - 1."""
+    n = axis_size(axis)
+    return ppermute(tensor, [(i, (i - 1) % n) for i in range(n)], axis)
+
+
+def axis_rank(axis: AxisName) -> int:
+    """This rank's index along ``axis`` of the global mesh. Without a
+    mesh: its rank in the world along an axis naming ``data``, 0 along
+    any other (``seq``, ``pipe``, ``model`` and ``expert`` are size 1)."""
+    mm = _mesh()
+    if mm is not None:
+        return mm.axis_rank(axis)
+    return get_rank() if _names_data(axis) else 0
+
+
+def axis_size(axis: AxisName) -> int:
+    """The size of ``axis`` in the global mesh. Without a mesh: the world
+    along an axis naming ``data``, 1 along any other."""
+    mm = _mesh()
+    if mm is not None:
+        return mm.axes_size(axis)
+    return get_world_size() if _names_data(axis) else 1
 
 
 def log_summary() -> str:

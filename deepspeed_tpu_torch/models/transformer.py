@@ -449,12 +449,13 @@ class _Leaf(nn.Module):
 
 
 def _sparse_block_attention(cfg: TransformerConfig, q, k, v, *, mask, bias,
-                            slopes, window, sm_scale):
+                            slopes, window, sm_scale, dropout_rate=0.0,
+                            dropout_rng=None):
     """attention_impl == "sparse": the block-sparse layout that the
     ``sparse_attention`` ds_config section selects (the engine wires the
     parsed section into ``cfg.sparse_attention``).
 
-    A clean call (no mask, bias, ALiBi, window or softcap) runs
+    A clean call (no mask, bias, ALiBi, window, softcap or dropout) runs
     ``ops.sparse_attention.sparse_attention``: the layout-skipping kernels,
     whose cost scales with the layout's density. Anything else composes
     the layout into a dense mask over ``mha_reference``: the sparsity is
@@ -478,7 +479,7 @@ def _sparse_block_attention(cfg: TransformerConfig, q, k, v, *, mask, bias,
                  **{key: val for key, val in kwargs.items()
                     if key in allowed and val is not None})
     clean = (mask is None and bias is None and slopes is None
-             and not window and not cfg.attn_softcap)
+             and dropout_rate == 0.0 and not window and not cfg.attn_softcap)
     if clean:
         return sparse_attention(q, k, v, sp_cfg, causal=cfg.causal,
                                 sm_scale=sm_scale)
@@ -490,7 +491,33 @@ def _sparse_block_attention(cfg: TransformerConfig, q, k, v, *, mask, bias,
     if window:
         mask = mask & window_mask(S, S, window, device=q.device)
     return mha_reference(q, k, v, causal=cfg.causal, bias=bias, mask=mask,
-                         sm_scale=sm_scale, softcap=cfg.attn_softcap)
+                         sm_scale=sm_scale, dropout_rate=dropout_rate,
+                         dropout_rng=dropout_rng, softcap=cfg.attn_softcap)
+
+
+_MASK64 = (1 << 64) - 1
+#: the dropout sites of a block (0 is the embeddings'), as seed offsets
+_SITES = {"embed": 0, "attn_probs": 1, "attn_out": 2, "mlp": 3}
+
+
+def mix_seed(*xs: int) -> int:
+    """A 63-bit seed from integers (splitmix64 over them in order): the
+    port's counterpart of folding values into a JAX key."""
+    h = 0x9E3779B97F4A7C15
+    for x in xs:
+        h = ((h ^ (int(x) & _MASK64)) * 0xBF58476D1CE4E5B9) & _MASK64
+        h = ((h ^ (h >> 31)) * 0x94D049BB133111EB) & _MASK64
+        h ^= h >> 29
+    return h & ((1 << 63) - 1)
+
+
+def site_generator(seed: int, site: str, device) -> torch.Generator:
+    """The generator of one dropout site, made from its seed where the
+    draw happens: a remat recomputation makes it again from the same seed
+    and draws the same mask (``torch.utils.checkpoint`` restores the
+    default generators' state, not an explicit generator's)."""
+    return torch.Generator(device=device).manual_seed(
+        mix_seed(seed, _SITES[site]))
 
 
 class Block(nn.Module):
@@ -512,10 +539,17 @@ class Block(nn.Module):
             self.add_module(name, _Leaf(leaf))
 
     def forward(self, x: torch.Tensor, attn_mask=None, positions=None,
-                window: int = 0) -> torch.Tensor:
-        from ..ops.attention import attention
+                window: int = 0, dropout_seed: Optional[int] = None
+                ) -> torch.Tensor:
+        """``dropout_seed``: this layer's seed in training with
+        ``cfg.dropout`` > 0 (None: no dropout). Each site draws from a
+        generator made from it here (:func:`site_generator`)."""
+        from ..ops.attention import attention, dropout
         from .generation import _dense, _layer_norm
         cfg = self.cfg
+        rate = cfg.dropout if dropout_seed is not None else 0.0
+        gen = ((lambda site: site_generator(dropout_seed, site, x.device))
+               if rate > 0.0 else (lambda site: None))
         B, S, H = x.shape
         nh, kv, hd = cfg.num_heads, cfg.kv_heads, cfg.head_dim
         if nh % kv != 0:
@@ -554,14 +588,17 @@ class Block(nn.Module):
         if cfg.attention_impl == "sparse":
             out = _sparse_block_attention(
                 cfg, q, k, v, mask=attn_mask, bias=bias, slopes=slopes,
-                window=window, sm_scale=cfg.attn_scale)
+                window=window, sm_scale=cfg.attn_scale, dropout_rate=rate,
+                dropout_rng=gen("attn_probs"))
         else:
             out = attention(q, k, v, causal=cfg.causal, mask=attn_mask,
                             bias=bias, alibi_slopes=slopes,
-                            sm_scale=cfg.attn_scale, impl=cfg.attention_impl,
-                            window=window, softcap=cfg.attn_softcap)
+                            sm_scale=cfg.attn_scale, dropout_rate=rate,
+                            dropout_rng=gen("attn_probs"),
+                            impl=cfg.attention_impl, window=window,
+                            softcap=cfg.attn_softcap)
         out = out.transpose(1, 2).reshape(B, S, nh * hd)
-        out = _dense(out, self.attn_proj.p)
+        out = dropout(_dense(out, self.attn_proj.p), rate, gen("attn_out"))
 
         def mlp(m):
             if cfg.gated_mlp:
@@ -573,17 +610,18 @@ class Block(nn.Module):
         if cfg.parallel_residual:
             m_in = (_layer_norm(x, self.ln2.p, eps, rms)
                     if cfg.parallel_residual_dual_ln else h)
-            return x + out + mlp(m_in)
+            return x + out + dropout(mlp(m_in), rate, gen("mlp"))
         if cfg.post_ln:
             x = _layer_norm(x + out, self.ln1.p, eps, rms)
-            return _layer_norm(x + mlp(x), self.ln2.p, eps, rms)
+            m = dropout(mlp(x), rate, gen("mlp"))
+            return _layer_norm(x + m, self.ln2.p, eps, rms)
         if cfg.post_block_norms:
             out = _layer_norm(out, self.post_attn_norm.p, eps, rms)
         x = x + out
         m = mlp(_layer_norm(x, self.ln2.p, eps, rms))
         if cfg.post_block_norms:
             m = _layer_norm(m, self.post_mlp_norm.p, eps, rms)
-        return x + m
+        return x + dropout(m, rate, gen("mlp"))
 
 
 class Transformer(nn.Module):
@@ -603,7 +641,11 @@ class Transformer(nn.Module):
     (the flax modules' ``dtype`` with ``param_dtype=float32``), so f32
     parameters receive f32 gradients through the casts and compute-dtype
     parameters their own. Features the module does not implement raise
-    ``NotImplementedError`` at construction (dropout > 0 when training)."""
+    ``NotImplementedError`` at construction. ``cfg.dropout`` > 0 drops
+    out in training at the JAX model's sites: the embeddings, the
+    attention probabilities (through the plain attention path, as the JAX
+    router sends them to its reference), the attention output and the MLP
+    output."""
 
     def __init__(self, cfg: TransformerConfig,
                  params: Optional[Dict[str, Any]] = None, *, seed: int = 0,
@@ -653,12 +695,30 @@ class Transformer(nn.Module):
             else:
                 yield ".".join(path), t
 
-    def forward(self, batch, train: bool = False):
+    def forward(self, batch, train: bool = False,
+                dropout_seed: Optional[int] = None):
+        """``dropout_seed``: with ``train`` and ``cfg.dropout`` > 0, the
+        seed of this call's masks (the engine's is per step, micro-batch
+        and rank; default one drawn from torch's default generator). The
+        embeddings' site and each layer's sites draw from generators made
+        from it where they draw, so a remat recomputation repeats them.
+
+        Under sequence parallelism (``attention_impl`` "ring" or
+        "ulysses" in a seq group of more than one rank) ``batch`` is this
+        rank's chunk of each sequence, whose global positions default to
+        the chunk's (``ring_attention.chunk_positions``). The engine adds
+        the losses' ``shifted_labels`` (the next-token labels cut on the
+        whole sample) and ``label_count`` (the whole samples' count of
+        labels): the fused CE then takes ``shifted_labels`` without a
+        shift and divides by ``label_count``, so a rank's loss is its
+        share of the mean."""
+        from ..ops.attention import dropout
         from .generation import _dense, _layer_norm
         cfg = self.cfg
+        seed = None
         if train and cfg.dropout > 0.0:
-            raise NotImplementedError("Transformer: dropout > 0 in training "
-                                      + _NOT_PORTED)
+            seed = (int(dropout_seed) if dropout_seed is not None else
+                    int(torch.randint(0, 1 << 62, (1,)).item()))
         if isinstance(batch, dict):
             ids = batch["input_ids"]
             attention_mask = batch.get("attention_mask")
@@ -675,6 +735,10 @@ class Transformer(nn.Module):
         user_positions = None
         if position_ids is not None:
             user_positions = torch.as_tensor(position_ids, device=dev).long()
+        elif cfg.attention_impl in ("ring", "ulysses"):
+            # this rank's chunk of a sequence split over the seq group
+            from ..parallel.ring_attention import chunk_positions
+            user_positions = chunk_positions(B, S, dev)
         x = F.embedding(ids, emb).to(dt)
         if cfg.embed_scale is not None:
             x = x * torch.tensor(cfg.embed_scale, dtype=dt)
@@ -688,6 +752,8 @@ class Transformer(nn.Module):
             x = x + F.embedding(tt, self.tte.embedding).to(dt)
         if cfg.embed_ln:
             x = _layer_norm(x, self.ln_emb.p, eps, rms)
+        if seed is not None:
+            x = dropout(x, cfg.dropout, site_generator(seed, "embed", dev))
         attn_mask = None
         if attention_mask is not None:        # [B, 1, 1, S] key padding
             attn_mask = torch.as_tensor(attention_mask, device=dev).to(
@@ -695,15 +761,17 @@ class Transformer(nn.Module):
         windows = ([max(int(w), 0) for w in cfg.layer_windows]
                    if cfg.layer_windows is not None
                    else [0] * cfg.num_layers)
+        seeds = [None if seed is None else mix_seed(seed, li + 1)
+                 for li in range(cfg.num_layers)]
         if cfg.remat and torch.is_grad_enabled():
             # each block one checkpointed region under cfg.remat_policy
             from ..runtime.act_checkpoint import remat_block
-            for blk, window in zip(self.blocks, windows):
+            for blk, window, ls in zip(self.blocks, windows, seeds):
                 x = remat_block(blk, cfg.remat_policy, x, attn_mask,
-                                user_positions, window)
+                                user_positions, window, ls)
         else:
-            for blk, window in zip(self.blocks, windows):
-                x = blk(x, attn_mask, user_positions, window)
+            for blk, window, ls in zip(self.blocks, windows, seeds):
+                x = blk(x, attn_mask, user_positions, window, ls)
         if not cfg.post_ln:
             x = _layer_norm(x, self.ln_f.p, eps, rms)
         if cfg.mlm_head:
@@ -718,11 +786,16 @@ class Transformer(nn.Module):
         if cfg.fused_loss:
             head = (emb if cfg.tie_embeddings
                     else self.lm_head.kernel.transpose(0, 1))
+            shift, count = (1 if cfg.causal else 0), None
             labels = (batch.get("labels", ids) if isinstance(batch, dict)
                       else ids)
+            if isinstance(batch, dict) and "label_count" in batch:
+                count = batch["label_count"]
+                if cfg.causal:
+                    labels, shift = batch["shifted_labels"], 0
             labels = torch.as_tensor(labels, device=dev).long()
             return _fused_causal_lm_loss(x, head, labels, cfg.loss_chunk,
-                                         shift=1 if cfg.causal else 0)
+                                         shift=shift, count=count)
         if cfg.tie_embeddings:
             logits = x @ emb.to(dt).transpose(0, 1)
         else:
@@ -745,7 +818,7 @@ def _chunk_nll(xc: torch.Tensor, emb_c: torch.Tensor, tc: torch.Tensor):
 
 def _fused_causal_lm_loss(x: torch.Tensor, emb: torch.Tensor,
                           labels: torch.Tensor, chunk: int,
-                          shift: int = 1) -> torch.Tensor:
+                          shift: int = 1, count=None) -> torch.Tensor:
     """Next-token CE without materializing [B, S, V] logits.
 
     x: [B, S, H] final hidden states (compute dtype); emb: [V, H] head
@@ -757,7 +830,7 @@ def _fused_causal_lm_loss(x: torch.Tensor, emb: torch.Tensor,
     before the f32 logsumexp (the JAX package keeps f32 logits: a bf16
     run differs by that rounding, an f32 run not at all). Drops the last
     position (``shift``), ignores -100 labels and divides by max(count,
-    1)."""
+    1), the count of valid labels here or the given ``count``."""
     B, S, H = x.shape
     if shift:
         xs, tgt = x[:, :-1], labels[:, 1:]
@@ -771,13 +844,15 @@ def _fused_causal_lm_loss(x: torch.Tensor, emb: torch.Tensor,
         tgt = F.pad(tgt, (0, pad), value=-100)
     emb_c = emb.to(x.dtype)
     total = torch.zeros((), dtype=torch.float32, device=x.device)
-    count = torch.zeros((), dtype=torch.float32, device=x.device)
+    valid = torch.zeros((), dtype=torch.float32, device=x.device)
     for c0 in range(0, n + pad, chunk):
         nll, cnt = checkpoint(_chunk_nll, xs[:, c0:c0 + chunk], emb_c,
                               tgt[:, c0:c0 + chunk], use_reentrant=False)
         total = total + nll
-        count = count + cnt
-    return total / torch.clamp(count, min=1.0)
+        valid = valid + cnt
+    if count is not None:
+        valid = torch.as_tensor(count, dtype=torch.float32, device=x.device)
+    return total / torch.clamp(valid, min=1.0)
 
 
 def fused_loss_passthrough(outputs, batch):
@@ -787,8 +862,10 @@ def fused_loss_passthrough(outputs, batch):
 
 
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
-                  ignore_index: int = -100) -> torch.Tensor:
-    """Token-level CE with an ignore mask; f32 accumulation."""
+                  ignore_index: int = -100, count=None) -> torch.Tensor:
+    """Token-level CE with an ignore mask; f32 accumulation. Divides by
+    the count of valid labels, or by ``count`` when given (a sequence
+    chunk's share of the whole samples' mean)."""
     labels = torch.as_tensor(labels, device=logits.device).long()
     valid = labels != ignore_index
     safe = torch.where(valid, labels, torch.zeros_like(labels))
@@ -796,11 +873,19 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
     logz = torch.logsumexp(logits, dim=-1)
     gold = logits.gather(-1, safe[..., None])[..., 0]
     nll = (logz - gold) * valid
-    return nll.sum() / torch.clamp(valid.sum(), min=1)
+    n = valid.sum() if count is None else torch.as_tensor(
+        count, dtype=torch.float32, device=logits.device)
+    return nll.sum() / torch.clamp(n, min=1)
 
 
 def causal_lm_loss(logits: torch.Tensor, batch) -> torch.Tensor:
-    """Next-token prediction: shift logits and labels by one."""
+    """Next-token prediction: shift logits and labels by one. A
+    sequence-parallel chunk's batch carries the labels already shifted on
+    the whole sample (``shifted_labels``) and their whole count
+    (``label_count``)."""
+    if isinstance(batch, dict) and "shifted_labels" in batch:
+        return cross_entropy(logits, batch["shifted_labels"],
+                             count=batch["label_count"])
     labels = (batch.get("labels", batch["input_ids"])
               if isinstance(batch, dict) else batch)
     labels = torch.as_tensor(labels, device=logits.device)
@@ -808,8 +893,10 @@ def causal_lm_loss(logits: torch.Tensor, batch) -> torch.Tensor:
 
 
 def masked_lm_loss(logits: torch.Tensor, batch) -> torch.Tensor:
-    """BERT-style: loss only where labels != -100."""
-    return cross_entropy(logits, batch["labels"])
+    """BERT-style: loss only where labels != -100 (over ``label_count``
+    labels when a sequence-parallel chunk's batch gives it)."""
+    return cross_entropy(logits, batch["labels"],
+                         count=batch.get("label_count"))
 
 
 def build_model(name_or_cfg, *, seed: int = 0, device=None,
@@ -863,10 +950,15 @@ class DeepSpeedTransformerLayer(nn.Module):
         self.block = Block(config, params)
 
     def forward(self, hidden_states: torch.Tensor, attention_mask=None,
-                train: bool = False) -> torch.Tensor:
+                train: bool = False, dropout_seed: Optional[int] = None
+                ) -> torch.Tensor:
+        """With ``train`` and ``config.dropout`` > 0 the block drops out
+        from ``dropout_seed`` (default one drawn from torch's default
+        generator)."""
+        seed = None
         if train and self.config.dropout > 0.0:
-            raise NotImplementedError("DeepSpeedTransformerLayer: dropout "
-                                      "> 0 in training " + _NOT_PORTED)
+            seed = (int(dropout_seed) if dropout_seed is not None else
+                    int(torch.randint(0, 1 << 62, (1,)).item()))
         if attention_mask is not None:
             mask = torch.as_tensor(attention_mask,
                                    device=hidden_states.device)
@@ -881,7 +973,7 @@ class DeepSpeedTransformerLayer(nn.Module):
             if attention_mask.dim() == 2:     # HF-style [B, S] key mask
                 attention_mask = attention_mask[:, None, None, :]
         return self.block(hidden_states.to(self.config.dtype),
-                          attention_mask)
+                          attention_mask, dropout_seed=seed)
 
 
 # the reference's export name (deepspeed/__init__.py:24-25)

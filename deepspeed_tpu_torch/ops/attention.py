@@ -15,6 +15,7 @@ import numpy as np
 import torch
 
 NEG_INF = -1e30
+_DROPOUT_LOGGED = False
 
 # What the CUDA attention kernels take (ops/csrc/*attention*.cu): any head
 # dim D % 8 == 0 (as the TPU kernels do), in these dtypes; the value is the
@@ -117,24 +118,40 @@ def masked_logits(q: torch.Tensor, k: torch.Tensor, *, causal: bool = True,
     return logits
 
 
+def dropout(x: torch.Tensor, rate: float,
+            generator: Optional[torch.Generator]) -> torch.Tensor:
+    """Inverted dropout (flax ``nn.Dropout``): keep each entry with
+    probability 1 - rate, drawn from ``generator`` (on x's device), and
+    scale the kept ones by 1 / (1 - rate). Identity at rate 0 or without
+    a generator."""
+    if rate <= 0.0 or generator is None:
+        return x
+    if rate >= 1.0:
+        return torch.zeros_like(x)
+    keep = torch.rand(x.shape, generator=generator, device=x.device,
+                      dtype=torch.float32) < 1.0 - rate
+    return torch.where(keep, x / (1.0 - rate), torch.zeros_like(x))
+
+
 def mha_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                   causal: bool = True,
                   bias: Optional[torch.Tensor] = None,
                   mask: Optional[torch.Tensor] = None,
                   sm_scale: Optional[float] = None,
                   dropout_rate: float = 0.0,
+                  dropout_rng: Optional[torch.Generator] = None,
                   softcap: float = 0.0) -> torch.Tensor:
     """Multi-head attention, plain PyTorch. q, k, v: [batch, heads, seq,
     head_dim]; f32 softmax over :func:`masked_logits`, P cast to q's
     dtype before P V. A row with no live key softmaxes to uniform weights,
-    as in the JAX reference. Attention dropout is not ported (it raises)."""
-    if dropout_rate > 0.0:
-        raise NotImplementedError(
-            "attention dropout is not ported to deepspeed_tpu_torch yet "
-            "(see ROADMAP.md)")
+    as in the JAX reference. ``dropout_rate`` > 0 with a ``dropout_rng``
+    (a ``torch.Generator`` on q's device) drops attention probabilities
+    (Bernoulli keep, scaled by 1 / (1 - rate)), as the JAX reference does
+    with its key."""
     logits = masked_logits(q, k, causal=causal, bias=bias, mask=mask,
                            sm_scale=sm_scale, softcap=softcap)
-    probs = torch.softmax(logits, dim=-1).to(q.dtype)
+    probs = dropout(torch.softmax(logits, dim=-1), dropout_rate,
+                    dropout_rng).to(q.dtype)
     ct = torch.promote_types(probs.dtype, v.dtype)
     return torch.einsum("bhqk,bhkd->bhqd", probs.to(ct), v.to(ct))
 
@@ -225,11 +242,21 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
               alibi_slopes=None,
               sm_scale: Optional[float] = None,
               dropout_rate: float = 0.0,
+              dropout_rng: Optional[torch.Generator] = None,
               impl: str = "auto",
               window: int = 0,
               softcap: float = 0.0) -> torch.Tensor:
     """Dispatching attention entry point (the JAX package's ``attention``).
     Shapes: [batch, heads, seq, head_dim]; differentiable.
+
+    ``impl="ring"`` / ``"ulysses"``: sequence parallelism
+    (``parallel/ring_attention.py``), q, k and v this rank's chunk of the
+    sequence split over the mesh's ``seq`` axis. A ring or Ulysses call
+    with a mask, bias, ALiBi, window, softcap or dropout routes as "auto"
+    at seq-world 1 and raises ``NotImplementedError`` above it: the JAX
+    router sends such calls to its reference over the global sequence,
+    which in the port would attend within one rank's chunk, a wrong
+    answer (ROADMAP.md Queue 3).
 
     A pure causal sliding window (no mask, bias, ALiBi, softcap or
     dropout) with ``impl`` "auto" or "flash" goes to
@@ -244,38 +271,63 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     ``impl="sparse"`` (whose layout the model's ``Block`` applies; here it
     falls through as in the JAX router) run ``mha_reference`` with the
     ALiBi bias and the window mask materialized (a non-kernel-capable
-    "flash" call warns first, as in the JAX package). Not ported yet, and
-    raising with a pointer to ROADMAP.md: attention dropout and the
-    ``ring`` / ``ulysses`` sequence-parallel impls."""
+    "flash" call warns first, as in the JAX package). Attention dropout
+    (``dropout_rate`` > 0, drawn from ``dropout_rng``) has no kernel path
+    in either package: the JAX router sends it to its reference, and so
+    does this one on every device, counting each such call in
+    ``attention.plain_calls``."""
     window = 0 if window is None or window <= 0 else int(window)
-    if dropout_rate > 0.0:
-        raise NotImplementedError(
-            "attention dropout is not ported to deepspeed_tpu_torch yet "
-            "(see ROADMAP.md)")
-    if impl in ("ring", "ulysses"):
-        raise NotImplementedError(
-            f"attention impl={impl!r} is not ported to deepspeed_tpu_torch "
-            "yet (see ROADMAP.md)")
-    if impl not in ("auto", "flash", "reference", "sparse"):
+    if impl not in ("auto", "flash", "reference", "sparse", "ring",
+                    "ulysses"):
         raise ValueError(f"attention impl {impl!r}: expected 'auto', "
                          "'flash', 'reference', 'ring', 'ulysses' or "
                          "'sparse'")
-    kernel_capable = bias is None and (window == 0 or causal)
+    if impl in ("ring", "ulysses"):
+        extras = [name for name, on in (
+            ("mask", mask is not None), ("bias", bias is not None),
+            ("ALiBi", alibi_slopes is not None),
+            ("dropout", dropout_rate > 0.0), ("window", bool(window)),
+            ("softcap", bool(softcap))) if on]
+        if not extras:
+            from ..parallel import ring_attention as ra
+            fn = ra.ring_attention if impl == "ring" else \
+                ra.ulysses_attention
+            return fn(q, k, v, causal=causal, sm_scale=sm_scale)
+        from .. import comm
+        sp = comm.axis_size("seq") if comm.is_initialized() else 1
+        if sp > 1:
+            raise NotImplementedError(
+                f"attention impl={impl!r} with {', '.join(extras)} at "
+                f"seq-world {sp}: the JAX router's reference fallback would "
+                "attend within this rank's chunk only (ROADMAP.md Queue 3)")
+        impl = "auto"
+    kernel_capable = (dropout_rate == 0.0 and bias is None
+                      and (window == 0 or causal))
     pure_window = (window and causal and mask is None and bias is None
-                   and alibi_slopes is None and softcap == 0.0)
+                   and alibi_slopes is None and softcap == 0.0
+                   and dropout_rate == 0.0)
     if impl in ("auto", "flash") and pure_window \
             and sliding_window_tileable(q, k, v):
         return sliding_window_attention(q, k, v, window, sm_scale=sm_scale)
     if impl == "flash" and not kernel_capable:
         from ..utils.logging import logger
-        logger.warning("attention impl='flash' has no kernel path for a "
-                       "generic bias or a non-causal window; falling back "
-                       "to reference")
+        logger.warning("attention impl='flash' has no kernel path for "
+                       "dropout, a generic bias or a non-causal window; "
+                       "falling back to reference")
     if impl in ("auto", "flash") and kernel_capable:
         from .flash_attention import flash_attention
         return flash_attention(q, k, v, causal=causal, sm_scale=sm_scale,
                                mask=mask, alibi_slopes=alibi_slopes,
                                window=window, softcap=softcap)
+    if dropout_rate > 0.0:
+        global _DROPOUT_LOGGED
+        if not _DROPOUT_LOGGED:
+            _DROPOUT_LOGGED = True
+            from ..utils.logging import logger
+            logger.info("attention dropout: the plain attention path "
+                        "(mha_reference) on every device, as the JAX "
+                        "router sends it to its reference")
+        attention.plain_calls += 1
     if alibi_slopes is not None:
         ali = alibi_bias_from_slopes(alibi_slopes, q.shape[-2], k.shape[-2],
                                      device=q.device)
@@ -285,4 +337,8 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         mask = wmask if mask is None else \
             torch.as_tensor(mask, device=q.device).to(torch.bool) & wmask
     return mha_reference(q, k, v, causal=causal, bias=bias, mask=mask,
-                         sm_scale=sm_scale, softcap=softcap)
+                         sm_scale=sm_scale, dropout_rate=dropout_rate,
+                         dropout_rng=dropout_rng, softcap=softcap)
+
+
+attention.plain_calls = 0

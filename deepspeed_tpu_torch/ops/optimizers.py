@@ -15,8 +15,18 @@ trainer would otherwise hold two copies of its 18 bytes a parameter of
 state) and returns them. The engine decides a skip before it calls
 ``update``, so a skipped step leaves every tensor as it was.
 
-LAMB, SGD, Adagrad and the 1-bit family are not ported yet:
-``build_optimizer`` raises for them, naming ROADMAP.md.
+``lamb``, ``sgd`` (momentum, Nesterov) and ``adagrad`` are the JAX
+package's formulas with its state names (``m`` / ``v``, ``momentum``,
+``sum``), so their checkpoints cross between the packages; their math
+runs in f32, one tensor at a time. LAMB's trust ratio takes each
+leaf's whole norms. A leaf of the JAX package's scan layout stacks every
+layer (``blocks/attn_qkv/kernel`` [L, ...]) where the port holds one
+tensor a layer, so the engine passes ``norm_groups`` (the leaf of each
+tensor) and the norms are summed over a leaf's tensors; where it hands
+LAMB ZeRO slabs, it also passes ``norm_sq_reduce``, which sums the slabs'
+squared norms over the ZeRO group (the JAX package gets both sums from
+XLA). The 1-bit family is
+not ported yet: ``build_optimizer`` raises for it, naming ROADMAP.md.
 """
 
 from __future__ import annotations
@@ -112,11 +122,118 @@ def adamw(lr: float = 1e-3, betas=(0.9, 0.999), eps: float = 1e-8,
                 adamw_mode=True)
 
 
+def lamb(lr: float = 1e-3,
+         betas: Tuple[float, float] = (0.9, 0.999),
+         eps: float = 1e-6,
+         weight_decay: float = 0.0,
+         min_coeff: float = 0.01,
+         max_coeff: float = 10.0) -> Optimizer:
+    """LAMB with a per-tensor trust ratio clip(|p| / |u|, min_coeff,
+    max_coeff) (1 where either norm is 0), u = m / (sqrt(v) + eps) + wd p,
+    no bias correction, f32 moments. ``update(..., norm_sq_reduce=f,
+    norm_groups=g)``: ``f`` maps this rank's [n, 2] squared norms of (p,
+    u) to the whole tensors' (ZeRO slabs); ``g[i]`` is the leaf of tensor
+    i, whose norms are taken over all its tensors (default one leaf a
+    tensor)."""
+    b1, b2 = betas
+
+    def init(params):
+        return {"m": [torch.zeros_like(p, dtype=torch.float32)
+                      for p in params],
+                "v": [torch.zeros_like(p, dtype=torch.float32)
+                      for p in params]}
+
+    def update(grads, state, params, step, lr_t=None, norm_sq_reduce=None,
+               norm_groups=None):
+        lr_eff = float(lr if lr_t is None else lr_t)
+        upds, sq = [], []
+        for p, g, m, v in zip(params, grads, state["m"], state["v"]):
+            g = g.to(torch.float32)
+            p32 = p.to(torch.float32)
+            m.mul_(b1).add_(g, alpha=1.0 - b1)
+            v.mul_(b2).addcmul_(g, g, value=1.0 - b2)
+            u = m / (torch.sqrt(v) + eps)
+            if weight_decay != 0.0:
+                u = u + weight_decay * p32
+            upds.append(u)
+            sq.append(torch.stack([p32.square().sum(), u.square().sum()]))
+        if not upds:
+            return params, state
+        sq = torch.stack(sq)
+        if norm_sq_reduce is not None:
+            sq = norm_sq_reduce(sq)
+        if norm_groups is not None:
+            idx = torch.as_tensor(norm_groups, device=sq.device)
+            sq = torch.zeros((int(max(norm_groups)) + 1, 2), dtype=sq.dtype,
+                             device=sq.device).index_add_(0, idx, sq)[idx]
+        norms = sq.sqrt()
+        w, u_n = norms[:, 0], norms[:, 1]
+        trust = torch.where((w > 0) & (u_n > 0),
+                            (w / u_n).clamp(min_coeff, max_coeff),
+                            torch.ones_like(w))
+        for i, (p, u) in enumerate(zip(params, upds)):
+            p.copy_(p.to(torch.float32) - lr_eff * trust[i] * u)
+        return params, state
+
+    return Optimizer(init, update, "lamb")
+
+
+def sgd(lr: float = 1e-3, momentum: float = 0.0, weight_decay: float = 0.0,
+        nesterov: bool = False) -> Optimizer:
+    """SGD; with ``momentum`` the buffer b = momentum b + g steps by b, or
+    by g + momentum b with ``nesterov``. No state without momentum."""
+
+    def init(params):
+        if momentum == 0.0:
+            return {}
+        return {"momentum": [torch.zeros_like(p, dtype=torch.float32)
+                             for p in params]}
+
+    def update(grads, state, params, step, lr_t=None):
+        lr_eff = float(lr if lr_t is None else lr_t)
+        bufs = state.get("momentum", [None] * len(params))
+        for p, g, buf in zip(params, grads, bufs):
+            g = g.to(torch.float32)
+            p32 = p.to(torch.float32)
+            if weight_decay != 0.0:
+                g = g + weight_decay * p32
+            if buf is not None:
+                buf.mul_(momentum).add_(g)
+                g = g + momentum * buf if nesterov else buf
+            p.copy_(p32 - lr_eff * g)
+        return params, state
+
+    return Optimizer(init, update, "sgd")
+
+
+def adagrad(lr: float = 1e-2, eps: float = 1e-10,
+            weight_decay: float = 0.0) -> Optimizer:
+    """Adagrad: s += g^2, p -= lr g / (sqrt(s) + eps); f32 sums."""
+
+    def init(params):
+        return {"sum": [torch.zeros_like(p, dtype=torch.float32)
+                        for p in params]}
+
+    def update(grads, state, params, step, lr_t=None):
+        lr_eff = float(lr if lr_t is None else lr_t)
+        for p, g, s in zip(params, grads, state["sum"]):
+            g = g.to(torch.float32)
+            p32 = p.to(torch.float32)
+            if weight_decay != 0.0:
+                g = g + weight_decay * p32
+            s.addcmul_(g, g)
+            p.copy_(p32 - lr_eff * g / (torch.sqrt(s) + eps))
+        return params, state
+
+    return Optimizer(init, update, "adagrad")
+
+
 def _not_ported(name: str) -> Callable[..., Optimizer]:
     def build(**_):
         raise NotImplementedError(
             f"optimizer '{name}' is not ported to deepspeed_tpu_torch yet "
-            "(see ROADMAP.md); use Adam or AdamW")
+            "(see ROADMAP.md item 5.1); use Adam, AdamW, LAMB, SGD or "
+            "Adagrad")
     return build
 
 
@@ -125,10 +242,10 @@ _REGISTRY: Dict[str, Callable[..., Optimizer]] = {
     "adam": adam,
     "adamw": adamw,
     "fusedadam": adam,
-    "lamb": _not_ported("lamb"),
-    "fusedlamb": _not_ported("fusedlamb"),
-    "sgd": _not_ported("sgd"),
-    "adagrad": _not_ported("adagrad"),
+    "lamb": lamb,
+    "fusedlamb": lamb,
+    "sgd": sgd,
+    "adagrad": adagrad,
     "onebitadam": _not_ported("onebitadam"),
     "zerooneadam": _not_ported("zerooneadam"),
     "onebitlamb": _not_ported("onebitlamb"),

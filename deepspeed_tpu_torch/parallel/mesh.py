@@ -12,18 +12,19 @@ Axis layout (outer -> inner), as in the JAX package:
     model   tensor parallel (innermost)
 
 Each axis, and each tuple of axes the engine reduces over
-(:data:`ZERO_AXES`, :data:`BATCH_AXES`), is one process group: the ranks
-that differ only in those coordinates (``ProcessTopology``). Only
-``data`` may exceed 1 in the port so far: pipelines, tensor, sequence and
-expert parallelism raise ``NotImplementedError`` naming ROADMAP.md (items
-3 and 4.1), as the engine does for their config sections. So every group
-is the whole world or one rank.
+(:data:`ZERO_AXES`, :data:`BATCH_AXES`, :data:`EXPERT_ZERO_AXES`), is
+one process group: the ranks that differ only in those coordinates
+(``ProcessTopology``). ``data`` and ``seq`` may exceed 1 in the port:
+the ranks of a ``seq`` group share their samples and each holds one
+chunk of every sequence (``parallel/ring_attention.py``). Pipelines,
+tensor and expert parallelism raise ``NotImplementedError`` naming
+ROADMAP.md (item 4.1), as the engine does for their config sections.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Optional, Sequence, Union
+from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 from .topology import ProcessTopology
 
@@ -38,8 +39,14 @@ BATCH_AXES = ("data", "expert")
 
 _UNPORTED_AXES = {"pipe": "pipelines (ROADMAP item 4.1)",
                   "model": "tensor parallelism (ROADMAP item 4.1)",
-                  "seq": "sequence parallelism (ROADMAP item 3)",
                   "expert": "expert parallelism (ROADMAP item 4.1)"}
+# the axis tuples whose process groups every mesh builds
+_GROUP_AXES = tuple((a,) for a in MESH_AXES) + (ZERO_AXES, EXPERT_ZERO_AXES,
+                                               BATCH_AXES)
+
+
+def _axes(axes: Union[str, Sequence[str]]) -> Tuple[str, ...]:
+    return (axes,) if isinstance(axes, str) else tuple(axes)
 
 
 class MeshManager:
@@ -69,7 +76,7 @@ class MeshManager:
         if dp_size is not None and dp_size != inferred_dp:
             raise ValueError(f"dp_size={dp_size} inconsistent with world size {n}")
         for axis, size in (("pipe", pp_size), ("model", tp_size),
-                           ("seq", sp_size), ("expert", ep_size)):
+                           ("expert", ep_size)):
             if size > 1:
                 raise NotImplementedError(
                     f"mesh axis '{axis}' of size {size}: "
@@ -79,16 +86,22 @@ class MeshManager:
                                           sp_size, tp_size)))
         self.topology = ProcessTopology(list(MESH_AXES),
                                         list(self.shape.values()))
-        self._self_group = None
+        # this rank's group along each axis tuple of _GROUP_AXES (None:
+        # the world); every rank makes every group, in one order
+        self._groups: Dict[Tuple[str, ...], object] = {}
         if comm.is_initialized() and comm.get_world_size() == n and n > 1:
-            # every group of this mesh is the world or one rank: the
-            # single-rank groups are made by all ranks, in rank order
             import torch.distributed as dist
             mine = comm.get_rank()
-            for r in range(n):
-                g = dist.new_group([r])
-                if r == mine:
-                    self._self_group = g
+            made: Dict[Tuple[int, ...], object] = {}
+            for axes in _GROUP_AXES:
+                for ranks in self.comm_lists(axes):
+                    key = tuple(ranks)
+                    if len(key) == n:
+                        made[key] = None
+                    elif key not in made:
+                        made[key] = dist.new_group(list(key))
+                    if mine in key:
+                        self._groups[axes] = made[key]
 
     # -- groups.py-compatible accessors --------------------------------------
 
@@ -124,10 +137,29 @@ class MeshManager:
             raise ValueError(f"unknown mesh axes {unknown}; have {MESH_AXES}")
         return math.prod(self.shape[a] for a in axes)
 
+    def comm_lists(self, axes: Union[str, Sequence[str]]
+                   ) -> List[List[int]]:
+        """Every group along ``axes``: the ranks that differ only in
+        those coordinates, each list in axis-index order (the first axis
+        outermost, as :meth:`axis_rank` counts)."""
+        axes = _axes(axes)
+        self.axes_size(axes)                    # unknown names raise
+        topo = self.topology
+        groups: Dict[tuple, List[Tuple[int, int]]] = {}
+        for r in range(self.world_size):
+            coord = topo.get_coord(r)
+            key = tuple(getattr(coord, a) for a in MESH_AXES
+                        if a not in axes)
+            groups.setdefault(key, []).append((self._index(coord, axes), r))
+        return [[r for _, r in sorted(members)]
+                for _, members in sorted(groups.items())]
+
     def group(self, axes: Union[str, Sequence[str]]):
         """The process group of this rank along ``axes`` (one name or a
-        tuple): None (the default group) when it spans the world."""
+        tuple of :data:`MESH_AXES`, or of the tuples the engine reduces
+        over): None (the default group) when it spans the world."""
         from .. import comm
+        axes = _axes(axes)
         size = self.axes_size(axes)
         if not comm.is_initialized() or \
                 comm.get_world_size() != self.world_size:
@@ -135,17 +167,25 @@ class MeshManager:
                                f"{self.world_size} ranks to take groups from")
         if size == self.world_size:
             return None
-        return self._self_group
+        if axes not in self._groups:
+            raise ValueError(f"no process group along {axes}: the mesh "
+                             f"builds {list(_GROUP_AXES)}")
+        return self._groups[axes]
 
-    def axis_rank(self, axes: Union[str, Sequence[str]]) -> int:
-        """This rank's index within its group along ``axes``."""
-        from .. import comm
-        coord = self.topology.get_coord(comm.get_rank())
-        axes = (axes,) if isinstance(axes, str) else tuple(axes)
+    def _index(self, coord, axes: Tuple[str, ...]) -> int:
         idx = 0
         for a in axes:
             idx = idx * self.shape[a] + getattr(coord, a)
         return idx
+
+    def axis_rank(self, axes: Union[str, Sequence[str]]) -> int:
+        """This rank's index within its group along ``axes`` (0 without a
+        process group)."""
+        from .. import comm
+        if not comm.is_initialized():
+            return 0
+        return self._index(self.topology.get_coord(comm.get_rank()),
+                           _axes(axes))
 
     def local_batch_slice(self, global_batch: int) -> int:
         return global_batch // (self.shape["data"] * self.shape["expert"])

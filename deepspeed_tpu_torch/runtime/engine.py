@@ -55,13 +55,22 @@ rank writing its own pieces. An engine given a model on ``meta``
 (``zero.Init``) fills each rank's slabs straight from the model's seeded
 values, one leaf at a time.
 
+Sequence parallelism (``sequence_parallel.sp_size > 1``, in a process
+group): the ranks of a ``seq`` group take the same samples and each
+keeps its chunk of every sequence (:meth:`DeepSpeedEngine._seq_chunk`);
+the ``Transformer`` attends through ``parallel/ring_attention.py``; each
+rank's loss is its share of the samples' mean, so gradients and the loss
+are summed over ``seq`` and averaged over the data ranks. Dropout masks
+come from seeds per step, micro-batch and data and seq rank
+(:meth:`DeepSpeedEngine._dropout_seed`).
+
 Everything else that a config can enable and this engine does not
 implement raises ``NotImplementedError`` naming ROADMAP.md: CPU/NVMe
 offload (and ``activation_checkpointing.cpu_checkpointing``), the 1-bit
 optimizers, comm_plan, compression_training, the integrity sentinel,
 progressive layer drop, curriculum / data efficiency, eigenvalue,
-sequence / tensor / pipeline parallelism (and ``mpu``), monitors and the
-other aux sections. Not ported either: the preemption handler and
+tensor / pipeline parallelism (and ``mpu``), monitors and the other aux
+sections. Not ported either: the preemption handler and
 emergency save, the sentinel's audited-clean resume and the offload load
 path (ROADMAP.md).
 """
@@ -70,6 +79,7 @@ from __future__ import annotations
 
 import dataclasses
 import inspect
+import logging
 import time
 from typing import Any, Callable, Dict, List, Optional
 
@@ -109,6 +119,17 @@ def _any_enabled(node) -> bool:
     return False
 
 
+def _leaf_path(name: str, flax: bool) -> str:
+    """The checkpoint path of a parameter: a ``Transformer``'s
+    ``blocks.<i>.<leaf>.<name>`` share the stacked ``blocks/<leaf>/<name>``
+    and its other parameters take their flax path; any other module's
+    keep their ``named_parameters`` name."""
+    parts = name.split(".")
+    if flax and parts[0] == "blocks":
+        return "/".join(["blocks"] + parts[2:])
+    return "/".join(parts) if flax else name
+
+
 def unported_sections(config: DeepSpeedConfig) -> List[str]:
     """The enabled sections of ``config`` this engine does not implement."""
     c = config
@@ -132,7 +153,6 @@ def unported_sections(config: DeepSpeedConfig) -> List[str]:
         "curriculum_learning": c.curriculum_learning.enabled,
         "data_efficiency": c.data_efficiency.enabled,
         "eigenvalue": c.eigenvalue.enabled,
-        "sequence_parallel (sp_size > 1)": c.sequence_parallel.sp_size > 1,
         "tensor_parallel (tp_size > 1)": c.tensor_parallel.tp_size > 1,
         "pipeline (stages > 1)": c.pipeline.stages > 1,
         "moe": c.moe.enabled,
@@ -154,52 +174,88 @@ def unported_sections(config: DeepSpeedConfig) -> List[str]:
 
 
 def wire_attention_config(model: nn.Module, config: DeepSpeedConfig):
-    """Map the ``sparse_attention`` section onto the model's
-    ``attention_impl`` (the JAX engine's ``wire_attention_config``;
-    reference: runtime/config.py:270-453). The ``Transformer``'s config is
-    replaced in place, on the module and on every block, with
-    ``attention_impl="sparse"`` and the parsed section as a sorted tuple.
+    """Map the ``sparse_attention`` and ``sequence_parallel`` sections onto
+    the model's ``attention_impl`` (the JAX engine's
+    ``wire_attention_config``; reference: runtime/config.py:270-453). The
+    ``Transformer``'s config is replaced in place, on the module and on
+    every block: ``attention_impl="sparse"`` with the parsed section as a
+    sorted tuple, or, with ``sequence_parallel.sp_size > 1`` and
+    ``attention_impl="auto"``, the section's ``mode`` ("ring" or
+    "ulysses").
 
-    Unknown sparse or sequence-parallel modes, a model without a
-    ``TransformerConfig`` and a conflicting hand-set ``attention_impl``
-    raise ``ValueError``: a parsed section silently running dense attention
-    is a wrong answer. ``sequence_parallel.sp_size > 1`` never reaches
-    here (the engine raises for it as an unported section)."""
+    Unknown sparse or sequence-parallel modes, the two sections together,
+    ``sparse_attention`` on a model without a ``TransformerConfig`` and a
+    conflicting hand-set ``attention_impl`` raise ``ValueError``: a parsed
+    section silently running dense attention is a wrong answer. A model
+    without a ``TransformerConfig`` under sequence parallelism, or a
+    hand-set impl other than ring / ulysses, warns as in the JAX
+    package."""
     sp = config.sequence_parallel
     if sp.mode not in ("ring", "ulysses"):
         raise ValueError(
             f"sequence_parallel.mode '{sp.mode}' is not supported; "
             "expected 'ring' or 'ulysses'")
     sa = config.sparse_attention
-    if sa is None:
-        return model
-    from ..models.transformer import TransformerConfig
     from ..ops.sparse_attention import SPARSITY_CONFIGS
-    if sa.mode not in SPARSITY_CONFIGS:
+    if sa is not None and sa.mode not in SPARSITY_CONFIGS:
         raise ValueError(f"unknown sparse attention mode '{sa.mode}'; "
                          f"have {sorted(SPARSITY_CONFIGS)}")
+    wants_sp = sp.sp_size > 1
+    if sa is None and not wants_sp:
+        return model
+    from ..models.transformer import TransformerConfig
     mcfg = getattr(model, "cfg", None)
     if not isinstance(mcfg, TransformerConfig):
+        if sa is not None:
+            raise ValueError(
+                "the sparse_attention config section requires the in-tree "
+                "transformer family (models.build_model); this model has no "
+                "TransformerConfig to wire the layout into")
+        log_dist("sequence_parallel.sp_size > 1 with a non-in-tree model: "
+                 "attention_impl cannot be auto-selected", ranks=[0],
+                 level=logging.WARNING)
+        return model
+    updates = {}
+    if sa is not None:
+        if wants_sp:
+            raise ValueError(
+                "sparse_attention and sequence_parallel.sp_size > 1 cannot "
+                "be combined (the layout-skip kernel is not sequence-"
+                "parallel); drop one of the two sections")
+        if mcfg.attention_impl not in ("auto", "sparse"):
+            raise ValueError(
+                f"sparse_attention config conflicts with the model's "
+                f"hand-set attention_impl='{mcfg.attention_impl}'")
+        items = tuple(sorted(
+            (k, tuple(v) if isinstance(v, list) else v)
+            for k, v in sa.model_dump().items()))
+        updates = {"attention_impl": "sparse", "sparse_attention": items}
+    elif mcfg.attention_impl == "auto":
+        updates = {"attention_impl": sp.mode}
+    elif mcfg.attention_impl in ("ring", "ulysses") \
+            and mcfg.attention_impl != sp.mode:
         raise ValueError(
-            "the sparse_attention config section requires the in-tree "
-            "transformer family (models.build_model); this model has no "
-            "TransformerConfig to wire the layout into")
-    if mcfg.attention_impl not in ("auto", "sparse"):
-        raise ValueError(
-            f"sparse_attention config conflicts with the model's hand-set "
-            f"attention_impl='{mcfg.attention_impl}'")
+            f"sequence_parallel.mode='{sp.mode}' conflicts with the "
+            f"model's hand-set attention_impl='{mcfg.attention_impl}'")
+    elif mcfg.attention_impl not in ("ring", "ulysses"):
+        # an explicit flash/reference/sparse impl wins, but the user asked
+        # for sequence parallelism: do not leave the section silently dead
+        log_dist(f"sequence_parallel.sp_size={sp.sp_size} with hand-set "
+                 f"attention_impl='{mcfg.attention_impl}': no {sp.mode} "
+                 "attention will run; set attention_impl='auto' to let the "
+                 "config section select it", ranks=[0],
+                 level=logging.WARNING)
+    if not updates:
+        return model
     if not isinstance(getattr(model, "blocks", None), nn.ModuleList):
         raise ValueError(f"cannot rebuild model {type(model).__name__} with "
-                         "attention_impl='sparse'")
-    items = tuple(sorted(
-        (k, tuple(v) if isinstance(v, list) else v)
-        for k, v in sa.model_dump().items()))
-    new_cfg = dataclasses.replace(mcfg, attention_impl="sparse",
-                                  sparse_attention=items)
+                         f"attention_impl='{updates['attention_impl']}'")
+    new_cfg = dataclasses.replace(mcfg, **updates)
     model.cfg = new_cfg
     for blk in model.blocks:
         blk.cfg = new_cfg
-    log_dist("attention config wired: attention_impl='sparse'", ranks=[0])
+    log_dist(f"attention config wired: attention_impl="
+             f"'{new_cfg.attention_impl}'", ranks=[0])
     return model
 
 
@@ -238,8 +294,17 @@ class DeepSpeedEngine:
         self.device = resolve_device(device)
         self.mesh = None
         dp_rank, dp_world = 0, 1
+        self.batch_rank, self.batch_world = 0, 1
+        self.seq_rank, self.seq_world = 0, 1
+        sp_size = self.config.sequence_parallel.sp_size
+        if sp_size > 1 and not comm.is_initialized():
+            raise ValueError(
+                f"sequence_parallel.sp_size {sp_size} needs a process group "
+                f"of a multiple of {sp_size} ranks (launch the script with "
+                "launcher/launch.py, or call comm.init_distributed())")
         if comm.is_initialized():
-            from ..parallel.mesh import (ZERO_AXES, build_mesh_from_config,
+            from ..parallel.mesh import (BATCH_AXES, ZERO_AXES,
+                                         build_mesh_from_config,
                                          get_global_mesh)
             import torch.distributed as dist
             backend = dist.get_backend()
@@ -251,11 +316,17 @@ class DeepSpeedEngine:
                     "(comm.init_distributed(device=...))")
             self.mesh = get_global_mesh()
             if self.mesh is None or \
-                    self.mesh.world_size != comm.get_world_size():
+                    self.mesh.world_size != comm.get_world_size() or \
+                    self.mesh.shape["seq"] != sp_size:
                 self.mesh = build_mesh_from_config(self.config)
             dp_world = self.mesh.axes_size(ZERO_AXES)
             dp_rank = self.mesh.axis_rank(ZERO_AXES)
-        self.config.resolve_batch_sizes(dp_world_size=dp_world)
+            # the ranks that take distinct samples; a seq group shares them
+            self.batch_world = self.mesh.axes_size(BATCH_AXES)
+            self.batch_rank = self.mesh.axis_rank(BATCH_AXES)
+            self.seq_world = self.mesh.axes_size("seq")
+            self.seq_rank = self.mesh.axis_rank("seq")
+        self.config.resolve_batch_sizes(dp_world_size=self.batch_world)
         self.dp_world_size, self.dp_rank = dp_world, dp_rank
 
         # precision ----------------------------------------------------------
@@ -293,10 +364,13 @@ class DeepSpeedEngine:
         self.module = model
         self.loss_fn = loss_fn or _default_loss_fn
         try:
-            self._takes_train = "train" in inspect.signature(
-                model.forward).parameters
+            sig = inspect.signature(model.forward).parameters
         except (TypeError, ValueError):
-            self._takes_train = False
+            sig = {}
+        self._takes_train = "train" in sig
+        self._takes_seed = "dropout_seed" in sig
+        self._seq_labels = (self._sequence_parallel_labels(model)
+                            if self.seq_world > 1 else None)
         from .. import zero
         # a model built under zero.Init is on meta: its values come one
         # leaf at a time, each rank keeping its slabs
@@ -320,7 +394,8 @@ class DeepSpeedEngine:
                 model, self._params, policy, dp_rank, dp_world,
                 self.compute_dtype,
                 torch.float32 if self.keep_master else self.compute_dtype,
-                self.grad_accum_dtype, self.device, values)
+                self.grad_accum_dtype, self.device, values,
+                grad_world=self.batch_world)
             model.to(self.device)       # buffers: the parameters are placed
             self._params = self.dp.params
             self.master: List[torch.Tensor] = self.dp.masters
@@ -393,8 +468,12 @@ class DeepSpeedEngine:
         # the checkpoint's client_state
         self.data_position = 0
         self._ckpt_cache = None             # see _ckpt_leaves
+        self._groups = None                 # see _leaf_groups
         where = ("one process" if self.dp is None else
                  f"data parallel over {dp_world} rank(s)")
+        if self.seq_world > 1:
+            where += (f", {self.seq_world} sequence chunks "
+                      f"({self.module.cfg.attention_impl})")
         log_dist(f"DeepSpeedEngine initialized: ZeRO stage "
                  f"{self.config.zero_optimization.stage} ({where}), "
                  f"dtype {self.config.precision_dtype}, device {self.device}, "
@@ -421,6 +500,96 @@ class DeepSpeedEngine:
             return torch.as_tensor(batch, device=self.device)
         return batch
 
+    def _sequence_parallel_labels(self, model: nn.Module) -> str:
+        """How a sequence-parallel chunk's labels are cut: "causal"
+        (next-token labels shifted on the whole sample) or "masked" (the
+        labels as given). Each rank's loss must be its share of the
+        whole samples' mean, which the in-tree losses compute from the
+        engine's ``shifted_labels`` / ``label_count``; any other loss
+        would see one chunk as if it were the sample, so it raises."""
+        from ..models import transformer as tr
+        cfg = getattr(model, "cfg", None)
+        if not isinstance(cfg, tr.TransformerConfig):
+            raise ValueError(
+                "sequence_parallel.sp_size > 1 runs the in-tree Transformer "
+                "(models.build_model); this model has no TransformerConfig")
+        if cfg.rope_scaling_type == "dynamic":
+            raise NotImplementedError(
+                "sequence_parallel.sp_size > 1 with dynamic rope scaling: its "
+                "table follows the whole sequence's length, which a rank's "
+                "chunk does not see (ROADMAP.md Queue 3)")
+        if self.loss_fn is tr.masked_lm_loss:
+            return "masked"
+        if self.loss_fn is tr.causal_lm_loss:
+            return "causal"
+        if cfg.fused_loss and self.loss_fn in (tr.fused_loss_passthrough,
+                                               _default_loss_fn):
+            return "causal" if cfg.causal else "masked"
+        raise ValueError(
+            "sequence_parallel.sp_size > 1 needs loss_fn causal_lm_loss, "
+            "masked_lm_loss or a fused_loss model (fused_loss_passthrough): "
+            "a rank holds one chunk of each sequence, and these take the "
+            "engine's labels cut on the whole sample")
+
+    def _seq_chunk(self, batch):
+        """This rank's chunk of a micro-batch under sequence parallelism:
+        every [B, S, ...] tensor cut along S (S % sp == 0), plus the
+        loss's ``shifted_labels`` / ``label_count`` (see
+        ``models.transformer.Transformer``, which takes the chunk's
+        global positions). The batch as given at seq-world 1."""
+        if self.seq_world == 1:
+            return batch
+        if not isinstance(batch, dict):
+            batch = {"input_ids": batch}
+        ids = torch.as_tensor(batch["input_ids"])
+        B, S = ids.shape
+        sp, r = self.seq_world, self.seq_rank
+        if S % sp:
+            raise ValueError(f"sequence length {S} does not split into "
+                             f"{sp} sequence-parallel chunks")
+        Sl = S // sp
+        full = dict(batch)
+        labels = torch.as_tensor(full.get("labels", ids))
+        if self._seq_labels == "causal":
+            labels = torch.cat([labels[:, 1:], torch.full(
+                (B, 1), -100, dtype=labels.dtype, device=labels.device)],
+                dim=1)
+            full["shifted_labels"] = labels
+        full["label_count"] = (labels != -100).sum().to(torch.float32)
+        out = {}
+        for k, v in full.items():
+            if isinstance(v, (np.ndarray, torch.Tensor)) and v.ndim >= 2 \
+                    and v.shape[1] == S:
+                v = torch.as_tensor(v)[:, r * Sl:(r + 1) * Sl]
+            out[k] = v
+        return out
+
+    def _leaf_groups(self) -> List[int]:
+        """The checkpoint leaf of each trainable tensor, as an index: a
+        ``Transformer``'s per-block tensors of one name share the stacked
+        ``blocks/<leaf>/<name>`` leaf of the JAX package (LAMB's norms are
+        that leaf's)."""
+        if self._groups is None:
+            from ..models.transformer import Transformer
+            flax = isinstance(self.module, Transformer)
+            index = {id(p): i for i, p in enumerate(self._params)}
+            groups, ids = list(range(len(self._params))), {}
+            for name, p in self.module.named_parameters():
+                if id(p) in index:
+                    groups[index[id(p)]] = ids.setdefault(
+                        _leaf_path(name, flax), len(ids))
+            self._groups = groups
+        return self._groups
+
+    def _dropout_seed(self, micro: int) -> int:
+        """The seed of one micro-batch's dropout masks: the config seed,
+        the step, the micro-batch and this rank's data and seq
+        coordinates, as the JAX engine folds its key."""
+        from ..models.transformer import mix_seed
+        gas = self.config.gradient_accumulation_steps
+        return mix_seed(self.config.seed, self.global_steps * gas + micro,
+                        self.batch_rank, self.seq_rank)
+
     def _activation_checkpointing(self, model: nn.Module):
         """The ``activation_checkpointing`` section (JAX engine
         :295-331): for the in-tree ``Transformer`` with ``remat`` on, the
@@ -443,8 +612,10 @@ class DeepSpeedEngine:
         return act_checkpoint.remat(
             lambda batch, kw: model(batch, **kw), policy_name="dots")
 
-    def _apply(self, batch, train: bool):
+    def _apply(self, batch, train: bool, micro: int = 0):
         kw = {"train": train} if self._takes_train else {}
+        if train and self._takes_seed:
+            kw["dropout_seed"] = self._dropout_seed(micro)
         if self._remat_apply is not None and train:
             return self._remat_apply(batch, kw)
         return self.module(batch, **kw)
@@ -508,8 +679,13 @@ class DeepSpeedEngine:
                 coef = min(clip / (norm + 1e-6), 1.0)
                 torch._foreach_mul_(grads, coef)
             master = self._master()
+            kw = {}
+            if self.optimizer.name == "lamb":
+                kw["norm_groups"] = self._leaf_groups()
+                if self.dp is not None:
+                    kw["norm_sq_reduce"] = self.dp.reduce_leaf_sq
             self.optimizer.update(grads, self.opt_state, master,
-                                  self.step_count, lr_t=lr)
+                                  self.step_count, lr_t=lr, **kw)
             if self.dp is not None:
                 self.dp.refresh_params()
             elif self.keep_master:
@@ -561,6 +737,7 @@ class DeepSpeedEngine:
         self._step_t0 = time.perf_counter()
         gas = self.config.gradient_accumulation_steps
         tb = self.config.train_batch_size
+        W, rank = self.batch_world, self.batch_rank
 
         def split(x, i):
             if isinstance(x, dict):
@@ -568,15 +745,15 @@ class DeepSpeedEngine:
             if x.shape[0] != tb:
                 raise ValueError(f"batch leading dim {x.shape[0]} != "
                                  f"train_batch_size {tb}")
-            m = tb // (gas * self.dp_world_size)
-            lo = (i * self.dp_world_size + self.dp_rank) * m
+            m = tb // (gas * W)
+            lo = (i * W + rank) * m
             return x[lo:lo + m]
 
         self.module.train()
         losses = []
         for i in range(gas):
-            micro = self._to_device(split(batch, i))
-            loss = self.loss_fn(self._apply(micro, True), micro)
+            micro = self._to_device(self._seq_chunk(split(batch, i)))
+            loss = self.loss_fn(self._apply(micro, True, i), micro)
             self._micro_backward(loss)
             losses.append(loss.detach())
             self.micro_steps += 1
@@ -585,10 +762,12 @@ class DeepSpeedEngine:
         return metrics
 
     def eval_batch(self, batch):
-        """The model's outputs on ``batch`` in eval mode, without grads."""
+        """The model's outputs on ``batch`` in eval mode, without grads
+        (under sequence parallelism, those of this rank's chunk)."""
         self.module.eval()
         with torch.no_grad():
-            return self._apply(self._to_device(batch), False)
+            return self._apply(self._to_device(self._seq_chunk(batch)),
+                               False)
 
     def train(self, mode: bool = True):
         """Training mode for the micro-batch API: forward() keeps the graph
@@ -602,14 +781,16 @@ class DeepSpeedEngine:
     def forward(self, batch):
         """Loss of one micro-batch. In training mode (the default) the
         graph is kept for backward(); in eval mode it runs without
-        grads."""
-        batch = self._to_device(batch)
+        grads. Under sequence parallelism every rank of a seq group is
+        given the same micro-batch and takes its chunk."""
+        batch = self._to_device(self._seq_chunk(batch))
         if not self._train_mode:
             self.module.eval()
             with torch.no_grad():
                 return self.loss_fn(self._apply(batch, False), batch)
         self.module.train()
-        loss = self.loss_fn(self._apply(batch, True), batch)
+        loss = self.loss_fn(self._apply(batch, True, self._micro_count),
+                            batch)
         self._pending = loss
         return loss
 
@@ -721,12 +902,7 @@ class DeepSpeedEngine:
         index = {id(p): i for i, p in enumerate(self._params)}
         groups: Dict[str, list] = {}
         for name, p in self.module.named_parameters():
-            parts = name.split(".")
-            if flax and parts[0] == "blocks":
-                path = "/".join(["blocks"] + parts[2:])
-            else:
-                path = "/".join(parts) if flax else name
-            groups.setdefault(path, []).append(p)
+            groups.setdefault(_leaf_path(name, flax), []).append(p)
         stacked = {path: flax and path.startswith("blocks/")
                    for path in groups}
         def split(p, kind):

@@ -137,8 +137,12 @@ class ZeroPartition:
                  policy: ZeroShardingPolicy, rank: int, world: int,
                  compute_dtype: torch.dtype, master_dtype: torch.dtype,
                  grad_accum_dtype: torch.dtype, device: torch.device,
-                 values: Optional[Iterator[Tuple[str, torch.Tensor]]] = None):
+                 values: Optional[Iterator[Tuple[str, torch.Tensor]]] = None,
+                 grad_world: Optional[int] = None):
         self.module = module
+        # the ranks whose losses are averaged: the ZeRO group less its seq
+        # axis, whose ranks hold shares of one loss (summed, not averaged)
+        self.grad_world = world if grad_world is None else grad_world
         self.policy, self.stage = policy, policy.stage
         self.rank, self.world = rank, world
         self.compute_dtype, self.master_dtype = compute_dtype, master_dtype
@@ -329,12 +333,13 @@ class ZeroPartition:
 
     def add_grad(self, e: ZeroParam, grad: torch.Tensor) -> None:
         """One micro-batch's whole gradient of ``e``: reduce-scattered
-        (mean) along gdim into this rank's slab, or kept whole for the
-        step's all-reduce, then added into the accumulator."""
+        (summed, over ``grad_world``) along gdim into this rank's slab, or
+        kept whole for the step's all-reduce, then added into the
+        accumulator."""
         g = grad.to(self.grad_accum_dtype)
         if e.gdim is not None:
-            g = comm.reduce_scatter(g, axis=ZERO_AXES, scatter_dim=e.gdim,
-                                    op=comm.ReduceOp.AVG)
+            g = comm.reduce_scatter(g, axis=ZERO_AXES, scatter_dim=e.gdim)
+            g.div_(self.grad_world)
         a = self.accum[e.index]
         if a is None:
             self.accum[e.index] = g
@@ -363,8 +368,8 @@ class ZeroPartition:
 
     def step_grads(self, denom: float) -> List[torch.Tensor]:
         """The accumulated grads as the optimizer's slabs (mdim), the
-        whole ones all-reduced (mean) first, in fp32 divided by
-        ``denom``; the accumulator is emptied."""
+        whole ones all-reduced (summed, over ``grad_world``) first, in
+        fp32 divided by ``denom``; the accumulator is emptied."""
         grads = []
         for e in self.entries:
             a = self.accum[e.index]
@@ -372,8 +377,9 @@ class ZeroPartition:
                 a = torch.zeros(self._slot_shape(e), device=self.device,
                                 dtype=self.grad_accum_dtype)
             if e.gdim is None:
-                comm.all_reduce(a, op=comm.ReduceOp.AVG, axis=ZERO_AXES)
-                a = slab(a, e.mdim, self.rank, self.world)
+                comm.all_reduce(a, op=comm.ReduceOp.SUM, axis=ZERO_AXES)
+                a = slab(a.div_(self.grad_world), e.mdim, self.rank,
+                         self.world)
             grads.append(a)
         self.accum = [None] * len(self.entries)
         if all(g.dtype == torch.float32 for g in grads):
@@ -397,10 +403,19 @@ class ZeroPartition:
         comm.all_reduce(packed, op=comm.ReduceOp.SUM, axis=ZERO_AXES)
         total = packed[:n].sum()
         finite = (packed[n] == 0).to(torch.float32)
-        mean_loss = packed[n + 1] / self.world
+        mean_loss = packed[n + 1] / self.grad_world
         finite_h, sq_h, loss_h = torch.stack(
             [finite, total, mean_loss]).tolist()
         return finite_h, sq_h, loss_h
+
+    def reduce_leaf_sq(self, sq: torch.Tensor) -> torch.Tensor:
+        """[n, k] per-leaf squared norms of this rank's optimizer slabs ->
+        the whole leaves' (a replicated leaf counted once): LAMB's trust
+        ratio norms."""
+        if self.rank != 0:
+            sq = torch.where(self._rep[:, None], torch.zeros_like(sq), sq)
+        return comm.all_reduce(sq.contiguous(), op=comm.ReduceOp.SUM,
+                               axis=ZERO_AXES)
 
     def refresh_params(self) -> None:
         """After the update: each compute parameter from the masters, the

@@ -10,8 +10,10 @@ from either rank and ``all_to_all``; each parametrized case checks one
 result on both ranks. Tolerances: f32 rtol 1e-6 (a sum of two values in
 another order), bf16 exact against the same sum rounded to bf16 (two
 addends), PRODUCT / MIN / MAX exact. The comms logger's counts and bytes
-and the facade's always-on counts are checked too; the in-program
-point-to-point ops raise naming ROADMAP.md.
+and the facade's always-on counts are checked too, and the
+point-to-point ops without a mesh: along ``data`` over the world, along
+an axis no mesh binds as size 1 (``tests/test_torch_sequence_parallel.py``
+checks them along the ``seq`` axis of a mesh).
 
 The spawn is bounded by its own clock: past ``JOIN_S`` seconds the
 children are killed and the test fails.
@@ -115,15 +117,24 @@ logger = comm.get_comms_logger()
 out["logged"] = {op: [len(r), sum(b for b, _ in r)]
                  for op, r in logger.comms_dict.items()}
 out["summary"] = comm.log_summary()
-raised = []
-for fn in (lambda: comm.ppermute(torch.zeros(1), [(0, 1)]),
-           lambda: comm.send_recv_next(torch.zeros(1)),
-           lambda: comm.axis_rank("pipe"), lambda: comm.axis_size("pipe")):
-    try:
-        fn()
-    except NotImplementedError as e:
-        raised.append("ROADMAP" in str(e))
-out["pipelines_raise"] = raised
+# point-to-point without a mesh: along "data" (the world) rank 1
+# receives rank 0's, rank 0 zeros (no pair sends to it); "pipe" and
+# "seq" are bound to no mesh, so they are size 1, nothing is sent, and a
+# collective over one of them raises
+mine = torch.full((1,), rank + 1.0)
+try:
+    comm.all_reduce(mine.clone(), axis="seq")
+    unbound = "no raise"
+except ValueError as e:
+    unbound = str(e)
+out["pipelines_raise"] = [
+    comm.ppermute(mine, [(0, 1)], axis="data").tolist(),
+    comm.send_recv_next(mine, axis="data").tolist(),
+    comm.axis_rank("data"), comm.axis_size("data"),
+    comm.send_recv_next(mine).tolist(),
+    [comm.axis_rank(a) for a in ("pipe", "seq", ("data", "seq"))],
+    [comm.axis_size(a) for a in ("pipe", "seq", ("data", "seq"))],
+    "bound by no mesh" in unbound]
 print("RESULT " + json.dumps(out), flush=True)
 torch.distributed.destroy_process_group()
 """
@@ -231,7 +242,12 @@ def test_logger_counts_and_bytes(two_ranks):
         assert r["logged"] == {op: [n, n // 2 * per]
                                for op, n in want.items()}
         assert "all_reduce" in r["summary"] and "Count" in r["summary"]
-        assert r["pipelines_raise"] == [True] * 4
+        # the point-to-point ops run (they raised until ring attention)
+        me, other = r["rank"] + 1.0, 2.0 - r["rank"]
+        assert r["pipelines_raise"] == [
+            [0.0] if r["rank"] == 0 else [1.0], [other], r["rank"], 2,
+            [me], [0, 0, r["rank"]], [1, 1, 2], True]
+        assert me != other
 
 
 def test_init_distributed_without_a_world_is_a_no_op(monkeypatch):

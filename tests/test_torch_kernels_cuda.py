@@ -35,6 +35,7 @@ from deepspeed_tpu_torch.ops import flash_attention as tfa
 from deepspeed_tpu_torch.ops import paged_attention as tpa
 from deepspeed_tpu_torch.ops import quant_matmul as tqm
 from deepspeed_tpu_torch.ops import sparse_attention as tsa
+from deepspeed_tpu_torch.parallel import ring_attention as tra
 from deepspeed_tpu_torch.quant_format import kv_quantize
 
 pytestmark = pytest.mark.cuda
@@ -458,6 +459,81 @@ def test_flash_attention_kernels_gpt2_1_3b_zero_shape(dev):
     torch.cuda.synchronize()
     _hold(o, ro, False)
     torch.testing.assert_close(lse, rlse, atol=F32_TOL, rtol=0)
+    for out, ref in zip((dq, dk, dv), refs):
+        _hold(out, ref, False, floor=2.0 ** -10)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_ring_chunk_step_sp_shape(dev, dtype, causal):
+    """The ring's chunk step at an sp = 4 ring's chunk of the sp leg
+    ([1, 32, 4096, 64]: the causal diagonal or a full earlier chunk), its
+    backward through the flash kernels with the chunk's o and lse, and
+    the lse merge of two key halves against the whole call."""
+    g = torch.Generator().manual_seed(64)
+    q, k, v, do = (torch.randn(1, 32, 4096, 64, generator=g).to(dev, dtype)
+                   for _ in range(4))
+    kind = "causal" if causal else "full"
+    o, lse = tra.chunk_step(q, k, v, kind, 0.125)
+    dq, dk, dv = tfa.flash_attention_bwd(q, k, v, o, lse, do, causal=causal)
+    ro, rlse = tfa.flash_attention_reference(*_f32(q, k, v), causal=causal)
+    refs = tfa.flash_attention_bwd_reference(*_f32(q, k, v, o), lse,
+                                             do.float(), causal=causal)
+    torch.cuda.synchronize()
+    _hold(o, ro, False)
+    torch.testing.assert_close(lse, rlse, atol=F32_TOL, rtol=0)
+    for out, ref in zip((dq, dk, dv), refs):
+        _hold(out, ref, False, floor=2.0 ** -10)
+    if not causal:          # two halves of the keys, merged by their lse
+        parts = [tra.chunk_step(q, k[:, :, h], v[:, :, h], "full", 0.125)
+                 for h in (slice(0, 2048), slice(2048, 4096))]
+        mo, mlse = tra.merge(parts[0][0].float(), parts[0][1], *parts[1])
+        _hold(mo.to(dtype), ro, False)
+        torch.testing.assert_close(mlse, rlse, atol=F32_TOL, rtol=0)
+
+
+def test_ring_chunk_step_one_card_sp_shape(dev):
+    """The 1-card sp leg's call, the ring's one chunk step at seq-world 1
+    ([1, 32, 16384, 64], causal, bf16), and its backward through the flash
+    kernels. The plain version runs 4 heads at a time: the f32 scores of
+    all 32 heads would take 34 GB."""
+    g = torch.Generator().manual_seed(66)
+    q, k, v, do = (torch.randn(1, 32, 16384, 64, generator=g).to(
+        dev, torch.bfloat16) for _ in range(4))
+    o, lse = tra.chunk_step(q, k, v, "causal", 0.125)
+    dq, dk, dv = tfa.flash_attention_bwd(q, k, v, o, lse, do, causal=True)
+    for h in range(0, 32, 4):
+        p = slice(h, h + 4)
+        ro, rlse = tfa.flash_attention_reference(
+            *_f32(q[:, p], k[:, p], v[:, p]), causal=True)
+        refs = tfa.flash_attention_bwd_reference(
+            *_f32(q[:, p], k[:, p], v[:, p], o[:, p]), lse[:, p],
+            do[:, p].float(), causal=True)
+        torch.cuda.synchronize()
+        _hold(o[:, p], ro, False)
+        torch.testing.assert_close(lse[:, p], rlse, atol=F32_TOL, rtol=0)
+        for out, ref in zip((dq, dk, dv), refs):
+            _hold(out[:, p], ref, False, floor=2.0 ** -10)
+        del ro, rlse, refs
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_ring_emulation_four_chunks(dev, causal):
+    """Four virtual ranks of one [1, 8, 4096, 64] bf16 sample through the
+    ring's forward and backward (chunk steps, skips, merge, dK/dV
+    accumulation) against the whole call's plain version."""
+    g = torch.Generator().manual_seed(65)
+    q, k, v, do = (torch.randn(1, 8, 4096, 64, generator=g).to(
+        dev, torch.bfloat16) for _ in range(4))
+    before = tfa.flash_attention_fwd.launches
+    o, dq, dk, dv = tra.emulate_ring(q, k, v, 4, causal=causal, do=do)
+    assert tfa.flash_attention_fwd.launches - before == (10 if causal
+                                                         else 16)
+    ro, lse = tfa.flash_attention_reference(*_f32(q, k, v), causal=causal)
+    refs = tfa.flash_attention_bwd_reference(*_f32(q, k, v, o), lse,
+                                             do.float(), causal=causal)
+    torch.cuda.synchronize()
+    _hold(o, ro, False)
     for out, ref in zip((dq, dk, dv), refs):
         _hold(out, ref, False, floor=2.0 ** -10)
 

@@ -6,8 +6,9 @@ in the port) are held output for output to the JAX classes over several
 (pp, mp, dp) shapes: every rank's coordinate and rank string, every
 axis's peer groups, filters, and every grid accessor. ``MeshManager``'s
 group sizes are held to the JAX ``MeshManager`` on the 8-device mesh;
-the axes the port does not split yet (pipe, model, seq, expert) raise
-naming ROADMAP.md.
+``seq`` splits as in the JAX package (its groups are the ranks that share
+a sample), and the axes the port does not split yet (pipe, model,
+expert) raise naming ROADMAP.md.
 """
 
 import jax
@@ -117,8 +118,20 @@ def test_mesh_group_sizes_match_jax(n):
                                      ("seq", {"sp_size": 2}),
                                      ("expert", {"ep_size": 2})])
 def test_mesh_axes_other_than_data_raise_naming_roadmap(axis, kw):
-    # the JAX mesh takes them
-    assert jmesh.MeshManager(devices=jax.devices()[:8], **kw).shape[axis] == 2
+    # the JAX mesh takes them; the port's takes seq (sequence
+    # parallelism) and raises for the others
+    jm = jmesh.MeshManager(devices=jax.devices()[:8], **kw)
+    assert jm.shape[axis] == 2
+    if axis == "seq":
+        tm = tmesh.MeshManager(devices=list(range(8)), **kw)
+        assert tm.shape == jm.shape
+        assert tm.get_sequence_parallel_world_size() == 2
+        assert tm.axes_size(tmesh.ZERO_AXES) == 8
+        assert tm.axes_size(tmesh.BATCH_AXES) == 4
+        # each seq group: two ranks that differ only in their seq index
+        assert tm.comm_lists("seq") == [[0, 1], [2, 3], [4, 5], [6, 7]]
+        assert tm.comm_lists("data") == [[0, 2, 4, 6], [1, 3, 5, 7]]
+        return
     with pytest.raises(NotImplementedError, match=f"'{axis}'.*ROADMAP"):
         tmesh.MeshManager(devices=list(range(8)), **kw)
 
