@@ -127,6 +127,26 @@ nor ``deepspeed_tpu``. Phases, each reported on its own line:
     (24 a step, no kernel launch), the loss falling, bitwise-equal losses
     from a second engine with the same seed, and remat "full"'s first
     step bitwise remat off's.
+14. **moe** — Mixtral-8x7B (mistralai/Mixtral-8x7B-v0.1's published
+    config: hidden 4096, 32 heads of 128 over 8 KV heads, 8 SwiGLU experts
+    of 14336, two a token) at full width from a seeded bf16 state dict
+    under HF's names, built on the card one tensor at a time. Serving, 8
+    of 32 layers: ``replace_transformer_layer`` -> ``init_inference``
+    (bf16) -> ``generate()`` on 4 x 1024 prompt tokens + 32 new (8
+    ``flash_attention_fwd`` launches a prefill, 8 ``decode_attention`` a
+    step), ``serve()`` with 8 requests of 64..1024 tokens (8
+    ``paged_attention`` a decode step) and an int8 ``serve()`` (17
+    ``quant_matmul`` a forward; the experts stay bf16); prefill and
+    decode logits against ``impl="reference"`` on the tokens whose routes
+    agree in every layer, the flipped (token, layer) routes counted and
+    bounded. Training, 2 layers: the ``moe`` section in a 1-rank NCCL
+    world, ``make_moe_loss(0.02)``, pure bf16 state, AdamW, ZeRO 1, seq
+    1024, micro 2 x gas 2, three steps (4 launches of each flash kernel
+    and 16 all-to-alls a step), the loss falling, the first step bitwise
+    the engine without a process group's, one micro-batch against
+    ``attention_impl="reference"`` under the same route rule; rates, 6 x
+    N_active TFLOP/s beside the expert products' FLOPs, peak memory and
+    device ms by kind (the expert ``bmm`` s their own kind).
 
 ``--old-quant-matmul SRC`` also builds a parent commit's
 ``csrc/quant_matmul.cu`` from SRC and times it against this one in the
@@ -150,7 +170,7 @@ forward's and dq's per-item cost of the host balance, swept at the long
 leg's call.
 
 ``--only PHASE ...`` (``ckpt``, ``remat``, ``hf``, ``bert-masked``,
-``zero``, ``sp``, ``dropout``)
+``zero``, ``sp``, ``dropout``, ``moe``)
 builds the kernels and runs only those phases, then a result line that
 names them (``"only": [...]``; no kernels line). ``--zero-ranks N`` (a
 host with N GPUs) builds the kernels and runs only the zero leg across N
@@ -161,7 +181,12 @@ names it (``"zero_ranks": N``). ``--sp-ranks N`` does the same for the
 sp leg: ring and Ulysses at sp = N (16384 / N tokens a rank), each held
 to one engine without a process group on the same sample (loss 1e-4,
 grad norm 5e-3) and to its counters (N - 1 rotations a layer and
-direction), ending in ``"sp_ranks": N``.
+direction), ending in ``"sp_ranks": N``. ``--ep-ranks N`` runs the moe
+train leg across N GPUs at ``ep_size`` N (8 / N experts a rank, one
+1024-token sample a rank a micro-batch, gas 2, no gating noise and aux
+weight 0, so at capacity E/k it computes the function of one engine
+without a process group on the same global batch: loss 1e-4, grad norm
+5e-3), its all-to-alls counted, ending in ``"ep_ranks": N``.
 
 Launch counters are zeroed just before each leg and read just after it.
 Any failed check raises, so the script exits non-zero and prints no
@@ -1455,14 +1480,14 @@ def _run_requests(srv, prompts, new):
     return reqs
 
 
-def _decode_logits_check(srv, tol_rel, label):
-    """One decode step of the live lanes through the kernels and through
-    impl="reference", each on its own copy of the pools."""
+def _decode_inputs(srv, label):
+    """The next decode step's inputs of a serving engine's lanes (last
+    tokens [B, 1], block tables, context lengths) and the live lanes'
+    mask."""
     import numpy as np
     import torch
-    from deepspeed_tpu_torch.serving.model_runner import paged_forward
-    live = [s for s in srv._slots if s is not None]
-    if not live:
+    live = [s is not None for s in srv._slots]
+    if not any(live):
         fail(f"{label}: no live lane for the logits check")
     B, dev = srv.max_batch, srv.device
     toks = np.zeros((B, 1), np.int64)
@@ -1472,6 +1497,15 @@ def _decode_logits_check(srv, tol_rel, label):
         if s is not None:
             toks[i, 0], ctx[i], tables[i] = s.last_tok, s.ctx, s.table
     args = [torch.as_tensor(a, device=dev) for a in (toks, tables, ctx)]
+    return args, torch.as_tensor(live, device=dev)
+
+
+def _decode_logits_check(srv, tol_rel, label):
+    """One decode step of the live lanes through the kernels and through
+    impl="reference", each on its own copy of the pools."""
+    import torch
+    from deepspeed_tpu_torch.serving.model_runner import paged_forward
+    args, rows = _decode_inputs(srv, label)
     out = {}
     with torch.no_grad():
         for impl in ("auto", "reference"):
@@ -1482,7 +1516,6 @@ def _decode_logits_check(srv, tol_rel, label):
             out[impl] = logits[:, -1].float()
             del pools
     torch.cuda.synchronize()
-    rows = torch.as_tensor([s is not None for s in srv._slots], device=dev)
     _hold_logits(f"{label} decode", out["auto"][rows],
                  out["reference"][rows], tol_rel)
 
@@ -2285,10 +2318,17 @@ def _micro_loss_and_norm(module, micro, loss_fn=None):
 
 
 def _set_attention_impl(module, impl):
-    cfg = dataclasses.replace(module.cfg, attention_impl=impl)
+    _set_config(module, dataclasses.replace(module.cfg, attention_impl=impl))
+
+
+def _set_config(module, cfg):
+    """A Transformer's config on the module, its blocks and their MoE
+    layers (the compute dtype)."""
     module.cfg = cfg
     for blk in module.blocks:
         blk.cfg = cfg
+        if hasattr(blk, "moe"):
+            blk.moe.dtype = cfg.dtype
 
 
 def phase_train(tmp):
@@ -2406,10 +2446,14 @@ def phase_train(tmp):
     return engine, batch, total, rates
 
 
-def profile_train(engine, batch, step_ms, label="train step"):
+def profile_train(engine, batch, step_ms, label="train step",
+                  split_bmm=False):
     """Device busy share of one steady train_batch step, against the
     profiled step's wall time and against the unprofiled median step
-    (the profiler slows the host), and the device time by kind."""
+    (the profiler slows the host), and the device time by kind.
+    ``split_bmm``: the kernels that ``aten::bmm`` launched (the MoE
+    experts' batched products, forward and backward) are their own kind,
+    ``expert_bmm``, taken out of the kind their names put them in."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -2427,12 +2471,20 @@ def profile_train(engine, batch, step_ms, label="train step"):
              "optimizer_foreach": ("multi_tensor",),
              "nccl": ("nccl",)}
     by_kind = dict.fromkeys(list(kinds) + ["other"], 0.0)
+    kind_of = lambda name: next((k for k, keys in kinds.items()
+                                 if any(x in name for x in keys)), "other")
     for e in prof.key_averages():
         if e.device_type != torch.autograd.DeviceType.CUDA:
             continue
-        kind = next((k for k, keys in kinds.items()
-                     if any(x in e.key for x in keys)), "other")
-        by_kind[kind] += e.self_device_time_total / 1e3
+        by_kind[kind_of(e.key)] += e.self_device_time_total / 1e3
+    if split_bmm:
+        by_kind["expert_bmm"] = 0.0
+        for e in prof.events():
+            if e.name != "aten::bmm":
+                continue
+            for k in getattr(e, "kernels", ()):
+                by_kind[kind_of(k.name)] -= k.duration / 1e3
+                by_kind["expert_bmm"] += k.duration / 1e3
     busy = sum(by_kind.values())
     host = sorted((e for e in prof.key_averages()
                    if e.device_type == torch.autograd.DeviceType.CPU),
@@ -5237,6 +5289,818 @@ def time_bert_masked_flash():
     return out
 
 
+# ------------------------------------------------------------------ 14. moe
+
+# mistralai/Mixtral-8x7B-v0.1 config.json (the published widths); depth is
+# cut per leg (MOE_SERVE_LAYERS, MOE_TRAIN_LAYERS)
+MIXTRAL_CONFIG = dict(
+    model_type="mixtral", vocab_size=32000, hidden_size=4096,
+    intermediate_size=14336, num_hidden_layers=32, num_attention_heads=32,
+    num_key_value_heads=8, num_local_experts=8, num_experts_per_tok=2,
+    max_position_embeddings=32768, rope_theta=1e6, rms_norm_eps=1e-5,
+    sliding_window=None, tie_word_embeddings=False, hidden_act="silu",
+    router_aux_loss_coef=0.02)
+MOE_SERVE_LAYERS, MOE_TRAIN_LAYERS = 8, 2
+MOE_BATCH, MOE_PROMPT, MOE_NEW, MOE_REQUESTS = 4, 1024, 32, 8
+MOE_INT8_LENS, MOE_INT8_NEW = (96, 200, 333, 512), 16
+MOE_MICRO, MOE_GAS, MOE_SEQ, MOE_STEPS = 2, 2, 1024, 3
+MOE_AUX = MIXTRAL_CONFIG["router_aux_loss_coef"]
+# the route and logits rule. On this leg's random weights bf16 activations
+# move the router's logits by ~1e-2 while 1% of its 2nd-3rd gaps are
+# under 6e-3 (measured on an H100, PERF.md), so a bf16 path flips about a
+# tenth of the (token, layer) routes against the f32 computation, the
+# plain path as much as the kernels, and even with every route pinned two
+# bf16 paths of the 8-layer model differ by a tenth of the largest logit.
+# So the kernels are held in f32, where only they differ: at most
+# MOE_FLIP_LIMIT of the routes may flip between the kernel path and the
+# plain path, and the logits of the agreeing tokens are held to the dense
+# legs' 5e-2 of the largest. In bf16 the kernel path must be no further
+# from the f32 computation than the plain path: its flips against f32
+# within 3 standard deviations of the plain path's, and, with the f32
+# run's expert choices replayed in both (``_RouteLog(replay=...)``), its
+# logits' RMS and largest deviations from f32 within MOE_BF16_RATIO of
+# the plain path's (the train check: its loss and grad norm within the
+# train leg's 1e-3 / 1e-2 of f32, or MOE_BF16_RATIO of the plain path's
+# deviation).
+MOE_FLIP_LIMIT = 5e-3
+MOE_BF16_RATIO = 1.25
+# pure bf16 state and bf16 grad accumulation (the zero leg's), AdamW,
+# ZeRO 1, the moe section
+MOE_TRAIN_CONFIG = {
+    "train_batch_size": MOE_MICRO * MOE_GAS,
+    "train_micro_batch_size_per_gpu": MOE_MICRO,
+    "gradient_accumulation_steps": MOE_GAS,
+    "optimizer": {"type": "AdamW", "params": {"lr": 1e-4}},
+    "bf16": {"enabled": True, "master_weights": False},
+    "data_types": {"grad_accum_dtype": "bf16"},
+    "zero_optimization": {"stage": 1},
+    "moe": {"enabled": True, "ep_size": 1},
+    "steps_per_print": 10_000,
+}
+# --ep-ranks: one 1024-token sample a rank a micro-batch, gas 2
+EP_STEPS = 3
+
+
+def _mixtral_shapes(layers):
+    """MixtralForCausalLM's state-dict names and shapes at the published
+    widths and ``layers`` layers."""
+    c = MIXTRAL_CONFIG
+    H, I, V = c["hidden_size"], c["intermediate_size"], c["vocab_size"]
+    nh, kv, E = (c["num_attention_heads"], c["num_key_value_heads"],
+                 c["num_local_experts"])
+    hd = H // nh
+    shapes = [("model.embed_tokens.weight", (V, H))]
+    for i in range(layers):
+        p = f"model.layers.{i}."
+        shapes += [(p + "input_layernorm.weight", (H,)),
+                   (p + "post_attention_layernorm.weight", (H,))]
+        shapes += [(p + f"self_attn.{n}_proj.weight", (rows * hd, H))
+                   for n, rows in (("q", nh), ("k", kv), ("v", kv))]
+        shapes.append((p + "self_attn.o_proj.weight", (H, nh * hd)))
+        m = p + "block_sparse_moe."
+        shapes.append((m + "gate.weight", (E, H)))
+        for j in range(E):
+            shapes += [(m + f"experts.{j}.w1.weight", (I, H)),
+                       (m + f"experts.{j}.w3.weight", (I, H)),
+                       (m + f"experts.{j}.w2.weight", (H, I))]
+    return shapes + [("model.norm.weight", (H,)),
+                     ("lm_head.weight", (V, H))]
+
+
+def _mixtral_state_dict(layers, seed, device="cuda"):
+    """The state dict, bf16 on the card, drawn one tensor at a time from
+    a seed as HF initializes it (normal std 0.02, RMSNorm weights 1);
+    ``device="meta"``: the shapes only."""
+    import torch
+    g = (torch.Generator(device=device).manual_seed(seed)
+         if device != "meta" else None)
+    sd = {}
+    for name, shape in _mixtral_shapes(layers):
+        if device == "meta":
+            sd[name] = torch.empty(shape, device="meta",
+                                   dtype=torch.bfloat16)
+        elif len(shape) == 1:
+            sd[name] = torch.ones(shape, device=device, dtype=torch.bfloat16)
+        else:
+            sd[name] = torch.randn(shape, generator=g, device=device,
+                                   dtype=torch.bfloat16).mul_(0.02)
+    return sd
+
+
+def _replayed_route(logits, k, capacity, expert):
+    """``moe.sharded_moe.route`` with the experts given (``expert`` [T,
+    k], first choices first): the same queue positions and drop rule,
+    the combine weights from these logits' gates (renormalized for
+    top-2), the load-balance loss from their argmax."""
+    import torch
+    import torch.nn.functional as F
+    from deepspeed_tpu_torch.moe.sharded_moe import Route, load_balance_loss
+    T, E = logits.shape
+    gates = torch.softmax(logits.to(torch.float32), dim=-1)
+    aux = load_balance_loss(gates, F.one_hot(gates.argmax(-1), E).float())
+    queued = torch.zeros(E, device=logits.device)
+    pos = []
+    for j in range(k):
+        m = F.one_hot(expert[:, j], E).to(torch.float32)
+        pos.append(((torch.cumsum(m, 0) - 1.0 + queued) * m).sum(-1))
+        queued = queued + m.sum(0)
+    position = torch.stack(pos, 1).long()
+    keep = position < capacity
+    g = gates.gather(1, expert) * keep
+    if k == 2:
+        g = g / g.sum(-1, keepdim=True).clamp_min(
+            torch.finfo(torch.float32).eps)
+    return Route(aux, expert, position, keep, g, capacity)
+
+
+class _RouteLog:
+    """Within the block, every routing decision the MoE layers and the
+    decode paths make (``moe.sharded_moe.route``): each call's chosen
+    experts [tokens, k] as made (``raw``) and sorted per token
+    (``calls``: a set, as the combine weights depend on the set).
+    ``replay``: another log's ``raw`` calls, whose experts the calls
+    here take in order (:func:`_replayed_route`)."""
+
+    def __init__(self, replay=None):
+        self.replay = replay
+
+    def __enter__(self):
+        from deepspeed_tpu_torch.moe import layer, sharded_moe
+        self.mods, self.orig = (layer, sharded_moe), sharded_moe.route
+        self.calls, self.raw = [], []
+
+        def rec(logits, k, capacity, *a, **kw):
+            if self.replay is None:
+                r = self.orig(logits, k, capacity, *a, **kw)
+            else:
+                r = _replayed_route(logits, k, capacity,
+                                    self.replay[len(self.raw)])
+            self.raw.append(r.expert.detach())
+            self.calls.append(r.expert.detach().sort(dim=1).values)
+            return r
+        for m in self.mods:
+            m.route = rec
+        return self
+
+    def __exit__(self, *exc):
+        for m in self.mods:
+            m.route = self.orig
+
+
+def _route_flips(a, b, label):
+    """(agree [tokens] bool, flipped (token, layer) routes, routes) of two
+    runs' route logs (one call a layer, the same tokens)."""
+    import torch
+    if len(a.calls) != len(b.calls) or not a.calls:
+        fail(f"{label}: {len(a.calls)} and {len(b.calls)} routing calls")
+    flip = torch.stack([(x != y).any(dim=1)
+                        for x, y in zip(a.calls, b.calls)])
+    return ~flip.any(dim=0), int(flip.sum()), flip.numel()
+
+
+def _flip_bound(label, logs):
+    """The bf16 route rule (MOE_FLIP_LIMIT's comment): ``logs`` holds the
+    "auto" (kernel) and "reference" (plain) bf16 runs and "f32", the
+    plain path in f32 on the same weights. Returns the counts."""
+    import math
+    _, k32, pairs = _route_flips(logs["auto"], logs["f32"], label)
+    _, p32, _ = _route_flips(logs["reference"], logs["f32"], label)
+    limit = p32 + 3 * math.sqrt(p32) + 5
+    log(f"check: {label} routes against the f32 computation: kernels "
+        f"flipped={k32} plain={p32} of {pairs} (token, layer) routes, "
+        f"limit={limit:.1f} (plain + 3 sqrt(plain) + 5)")
+    if k32 > limit:
+        fail(f"{label}: the kernel path flips {k32} routes against f32, "
+             f"the plain path {p32}")
+    return {"kernel_vs_f32": k32, "plain_vs_f32": p32}
+
+
+def _hold_moe_logits(label, got, ref, logs, tol_rel, limit=None):
+    """Count the (token, layer) routes that differ between the kernel
+    path and the plain path (at most ``limit`` of them where given), then
+    hold the logits [tokens, V] on the tokens whose routes agree in every
+    layer to ``tol_rel`` of the largest |logit|."""
+    agree, flips, pairs = _route_flips(*logs, label)
+    log(f"check: {label} routes kernels vs reference flipped={flips} of "
+        f"{pairs} (token, layer) routes rate={flips / pairs:.2e} "
+        + (f"limit={limit} " if limit is not None else "")
+        + f"tokens held={int(agree.sum())}/{agree.numel()}")
+    if limit is not None and flips > limit * pairs:
+        fail(f"{label}: {flips} of {pairs} routes flipped")
+    if not agree.any():
+        fail(f"{label}: no token's routes agree")
+    _hold_logits(f"{label} (agreeing routes)", got[agree], ref[agree],
+                 tol_rel)
+    return {"flips": flips, "routes": pairs,
+            "held": int(agree.sum())}
+
+
+def _moe_hold(label, run, tol_rel):
+    """The route and logits rule (MOE_FLIP_LIMIT's comment) over one
+    call: ``run(dtype, impl, replay)`` runs it in that compute dtype
+    through the kernels ("auto") or the plain path ("reference"),
+    replaying a route log's expert choices or not, and returns (logits
+    [tokens, V] f32, its _RouteLog)."""
+    import torch
+    bf16, f32 = torch.bfloat16, torch.float32
+    k32, lk32 = run(f32, "auto", None)
+    p32, lp32 = run(f32, "reference", None)
+    out = {"f32": _hold_moe_logits(f"{label} f32", k32, p32, (lk32, lp32),
+                                   tol_rel, limit=MOE_FLIP_LIMIT)}
+    del k32
+    _, lkb = run(bf16, "auto", None)
+    _, lpb = run(bf16, "reference", None)
+    out["bf16_flips"] = _flip_bound(f"{label} bf16", {
+        "auto": lkb, "reference": lpb, "f32": lp32})
+    kb, _ = run(bf16, "auto", lp32.raw)
+    pb, _ = run(bf16, "reference", lp32.raw)
+    dev = {}
+    for name, x in (("kernels", kb), ("plain", pb)):
+        d = (x - p32).abs()
+        dev[name] = (d.square().mean().sqrt().item(), d.max().item())
+    kvp = (kb - pb).abs().max().item()
+    agree = (kb.argmax(-1) == pb.argmax(-1)).float().mean().item()
+    scale = p32.abs().max().item()
+    log(f"check: {label} bf16 with the f32 run's routes replayed, "
+        f"deviation from f32 (rms, max): kernels ({dev['kernels'][0]:.4e}, "
+        f"{dev['kernels'][1]:.4e}) plain ({dev['plain'][0]:.4e}, "
+        f"{dev['plain'][1]:.4e}) limit {MOE_BF16_RATIO} x plain; kernels "
+        f"vs plain max_abs_err={kvp:.4e} max_abs_logit={scale:.4e} "
+        f"argmax_agree={agree:.3f}")
+    if any(dev["kernels"][i] > MOE_BF16_RATIO * dev["plain"][i]
+           for i in (0, 1)):
+        fail(f"{label}: bf16 kernels deviate from f32 by {dev['kernels']}, "
+             f"the plain path by {dev['plain']}")
+    out["bf16_vs_f32"] = dev
+    del kb, pb, p32
+    torch.cuda.empty_cache()
+    return out
+
+
+def _moe_generate_check(cfg, params, ids, tol_rel):
+    """The generate prefill (the flash kernel) and one decode step (the
+    decode kernel, on a copy of the bf16 kernel path's prefilled cache)
+    under :func:`_moe_hold`."""
+    import torch
+    from deepspeed_tpu_torch.models.generation import (forward_with_cache,
+                                                       init_cache,
+                                                       padded_cache_len)
+    B, T = ids.shape
+    kept = {}
+
+    def prefill(dtype, impl, replay):
+        c = dataclasses.replace(cfg, dtype=dtype)
+        cache = init_cache(c, B, padded_cache_len(T + MOE_NEW),
+                           device="cuda")
+        with torch.no_grad(), _RouteLog(replay) as lg:
+            logits, cache = forward_with_cache(c, params, ids, cache,
+                                               prefill_flash=True, impl=impl)
+        if dtype == cfg.dtype and impl == "auto" and replay is None:
+            kept["cache"] = cache
+        return logits.reshape(B * T, -1).float(), lg
+
+    out = {"prefill": _moe_hold("moe generate prefill", prefill, tol_rel)}
+    cache = kept.pop("cache")
+    tok = ids[:, -1:]
+
+    def decode(dtype, impl, replay):
+        c = dataclasses.replace(cfg, dtype=dtype)
+        cc = {k: (v.to(dtype if v.is_floating_point() else v.dtype,
+                       copy=True) if torch.is_tensor(v) else v)
+              for k, v in cache.items()}
+        with torch.no_grad(), _RouteLog(replay) as lg:
+            logits = forward_with_cache(c, params, tok, cc, impl=impl)[0]
+        return logits[:, -1].float(), lg
+
+    out["decode"] = _moe_hold("moe generate decode", decode, tol_rel)
+    del cache
+    torch.cuda.empty_cache()
+    return out
+
+
+def _moe_decode_check(srv, tol_rel, label):
+    """One decode step of the live lanes (paged_forward on copies of the
+    pools: the paged kernel, int8 pools dequantized in it) under
+    :func:`_moe_hold`; the routes and logits of the live lanes."""
+    import torch
+    from deepspeed_tpu_torch.serving.model_runner import paged_forward
+    args, rows = _decode_inputs(srv, label)
+
+    def step(dtype, impl, replay):
+        c = dataclasses.replace(srv.cfg, dtype=dtype)
+        pools = {k: v.to(dtype if v.is_floating_point() and k in ("k", "v")
+                         else v.dtype, copy=True)
+                 for k, v in srv.pools.items()}
+        with torch.no_grad(), _RouteLog(replay) as lg:
+            logits, _ = paged_forward(c, srv.params, args[0], pools,
+                                      args[1], args[2], args[2] + 1,
+                                      srv.block_size, impl=impl)
+        lg.calls = [x[rows] for x in lg.calls]
+        return logits[:, -1].float()[rows], lg
+
+    return _moe_hold(f"{label} decode", step, tol_rel)
+
+
+def _moe_train_model(cfg, seed, noise=True):
+    """The train leg's model: the served config cut to MOE_TRAIN_LAYERS
+    layers with the fused chunked CE, seeded f32 weights on the card.
+    ``noise=False``: a Transformer whose forward takes no gating seed, so
+    the engine trains it without top-2's Gumbel noise (the --ep-ranks
+    leg's runs then compute one function)."""
+    from deepspeed_tpu_torch.models.transformer import Transformer
+    tcfg = dataclasses.replace(cfg, num_layers=MOE_TRAIN_LAYERS,
+                               fused_loss=True, loss_chunk=256,
+                               max_seq_len=MOE_SEQ)
+    if noise:
+        return Transformer(tcfg, seed=seed, device="cuda")
+
+    class NoiseFree(Transformer):
+        def forward(self, batch, train=False, dropout_seed=None):
+            return super().forward(batch, train, dropout_seed)
+    return NoiseFree(tcfg, seed=seed, device="cuda")
+
+
+def _moe_engine(model, config, aux=MOE_AUX):
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.models.transformer import (
+        fused_loss_passthrough, make_moe_loss)
+    engine, *_ = deepspeed_tpu_torch.initialize(
+        model=model, config=config,
+        loss_fn=make_moe_loss(aux, base_loss=fused_loss_passthrough))
+    return engine
+
+
+def _moe_batch(rows, vocab, seed=21):
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    return {"input_ids": rng.integers(1, vocab, (rows, MOE_SEQ))}
+
+
+def _moe_step(engine, batch, label, per_layer_micro):
+    """One train_batch with the kernel and collective counters zeroed
+    just before it: each flash kernel launches once a layer and
+    micro-batch, and the MoE queues cross the expert group twice a layer
+    in each forward and each backward (``comm.all_to_all``)."""
+    import numpy as np
+    from deepspeed_tpu_torch import comm
+    _zero_counters()
+    comm.reset_op_counts()
+    t0 = time.perf_counter()
+    m = engine.train_batch(batch)           # ends in a host read
+    dt = time.perf_counter() - t0
+    c, ops = _counters(), comm.op_counts()
+    want = per_layer_micro
+    if any(c[k] != want for k in FLASH_KERNELS) or \
+            ops.get("all_to_all", 0) != 4 * want:
+        fail(f"{label}: launched {c}, collectives {ops}: expected {want} of "
+             f"each flash kernel and {4 * want} all-to-alls")
+    if not np.isfinite(m["loss"]) or m["overflow"]:
+        fail(f"{label}: {m}")
+    return m, dt, {k: c[k] for k in FLASH_KERNELS}, ops
+
+
+def _expert_flops(cfg, tokens):
+    """The expert products' FLOPs of one forward over ``tokens`` tokens a
+    layer: every queue slot is computed (C = k T / E x factor slots an
+    expert), three [H, I] products a slot."""
+    import math
+    E, k = cfg.moe_experts, cfg.moe_k
+    C = max(math.ceil(k * tokens / E * cfg.moe_capacity_factor), 4)
+    return 2.0 * E * C * cfg.hidden_size * cfg.mlp_dim * 3 * cfg.num_layers
+
+
+def _moe_train_rates(engine, batch, step_s, cfg, label, world=1):
+    """Median step (after the first), tokens/s, model TFLOP/s on 6 x
+    N_active beside the expert products' FLOPs as computed (every queue
+    slot, forward + backward), peak memory, and one profiled step's busy
+    ms and device ms by kind with the expert bmms as their own kind."""
+    import numpy as np
+    import torch
+    dt = float(np.median(step_s[1:]))
+    tokens = batch["input_ids"].shape[0] * batch["input_ids"].shape[1]
+    micro_tokens = tokens // MOE_GAS // world
+    n_active, n_all = cfg.num_active_params(), cfg.num_params()
+    expert = 3 * _expert_flops(cfg, micro_tokens) * MOE_GAS * world
+    busy, by_kind = profile_train(engine, batch, 1e3 * dt, label=label,
+                                  split_bmm=True)
+    return {"step_ms": 1e3 * dt, "tokens_s": tokens / dt,
+            "n_active": n_active, "n_params": n_all,
+            "model_tflops_6n_active": 6.0 * n_active * tokens / dt / 1e12
+            / world,
+            "expert_product_tflop_per_step": expert / 1e12,
+            "expert_product_tflops": expert / dt / 1e12 / world,
+            "step_ms_all": [round(1e3 * x, 3) for x in step_s],
+            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "busy_ms": busy, "device_ms_by_kind": by_kind,
+            "idle_share": 1 - busy / (1e3 * dt) if busy else None}
+
+
+def _moe_train_check(module, micro, label):
+    """One micro-batch's loss and grad norm under the route rule
+    (MOE_FLIP_LIMIT's comment): the routes of the kernel path, the plain
+    path and the plain path in f32 (a forward each, without noise) and
+    the bf16 flip bound; then, the f32 run's routes replayed, the loss
+    and grad norm of the kernel path and the plain path in bf16 against
+    the plain path in f32: the kernel path within the train leg's 1e-3 /
+    1e-2 of f32, or no further than MOE_BF16_RATIO x the plain path."""
+    import torch
+    from deepspeed_tpu_torch.models.transformer import (
+        fused_loss_passthrough, make_moe_loss)
+    loss_fn = make_moe_loss(MOE_AUX, base_loss=fused_loss_passthrough)
+    logs = {}
+    bf16 = module.cfg
+    runs = (("auto", "auto", bf16.dtype),
+            ("reference", "reference", bf16.dtype),
+            ("f32", "reference", torch.float32))
+    with torch.no_grad():
+        for name, impl, dt in runs:
+            _set_config(module, dataclasses.replace(
+                bf16, attention_impl=impl, dtype=dt))
+            with _RouteLog() as logs[name]:
+                module(micro, train=True)
+    bound = _flip_bound(label, logs)
+    got = {}
+    for name, impl, dt in runs:
+        _set_config(module, dataclasses.replace(
+            bf16, attention_impl=impl, dtype=dt))
+        with _RouteLog(logs["f32"].raw):
+            got[name] = _micro_loss_and_norm(module, micro, loss_fn)
+    _set_config(module, bf16)
+    torch.cuda.empty_cache()
+    ref = got["f32"]
+    rel = {n: [abs(a - b) / abs(b) for a, b in zip(got[n], ref)]
+           for n in ("auto", "reference")}
+    limits = (1e-3, 1e-2)
+    ok = all(rel["auto"][i] <= max(limits[i],
+                                   MOE_BF16_RATIO * rel["reference"][i])
+             for i in (0, 1))
+    log(f"check: {label} with the f32 run's routes replayed, against f32 "
+        f"loss={ref[0]:.5f} grad_norm={ref[1]:.5f}: kernels loss rel "
+        f"{rel['auto'][0]:.3e} grad_norm rel {rel['auto'][1]:.3e}; plain "
+        f"loss rel {rel['reference'][0]:.3e} grad_norm rel "
+        f"{rel['reference'][1]:.3e}; limit max(1e-3 / 1e-2, "
+        f"{MOE_BF16_RATIO} x plain)")
+    if not ok:
+        fail(f"{label}: the kernel path is off the f32 computation")
+    return {"vs_f32": rel, **bound}
+
+
+def phase_moe(tmp, smi):
+    """Mixtral-8x7B (mistralai/Mixtral-8x7B-v0.1's published config: hidden
+    4096, 32 heads of 128 with 8 KV heads, 8 SwiGLU experts of 14336, two
+    a token, vocab 32000, rope theta 1e6) at full width, as a seeded bf16
+    state dict under HF's names built on the card one tensor at a time,
+    the config a plain object. Serve and generate, 8 of 32 layers:
+    replace_transformer_layer (bf16) -> init_inference (bf16) ->
+    generate() on 4 x 1024 prompt tokens + 32 new (8 flash_attention_fwd
+    launches a prefill, 8 decode_attention a step), serve() with 8
+    requests of 64..1024 tokens and 32 new each (8 paged_attention a
+    decode step), an int8 serve() (kv_cache_dtype and weight_dtype int8,
+    4 requests, 16 new; 17 quant_matmul launches a forward: qkv and out
+    projections and the head, the MoE subtree stays bf16); prefill and
+    decode logits against impl="reference" under the flip rule. Train, 2
+    layers: initialize with the moe section (ep_size 1) in a 1-rank NCCL
+    world, make_moe_loss(0.02), pure bf16 state, AdamW, ZeRO 1, seq 1024,
+    micro 2 x gas 2, MOE_STEPS steps (4 launches of each flash kernel and
+    16 all-to-alls a step, over a group of one); the loss falls; the
+    first step's loss and grad norm bitwise those of the same engine
+    without a process group; one micro-batch against
+    attention_impl="reference" under the flip rule. Readings: rates,
+    decode step wall and busy ms, step ms, tokens/s, 6 x N_active TFLOP/s,
+    the expert products' FLOPs, peak memory and device ms by kind."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from types import SimpleNamespace
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch import comm
+    from deepspeed_tpu_torch.ops import quant_matmul as tqm
+    from deepspeed_tpu_torch.parallel.mesh import set_global_mesh
+    counts, rates = {}, {}
+    L = MOE_SERVE_LAYERS
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    hf_cfg = SimpleNamespace(**dict(MIXTRAL_CONFIG, num_hidden_layers=L))
+    # the state dict goes in without a name here, so the mapping frees it
+    # before the module's copy is made
+    module, params, cfg = deepspeed_tpu_torch.replace_transformer_layer(
+        _mixtral_state_dict(L, seed=14), config=hf_cfg,
+        arch="MixtralForCausalLM", dtype=torch.bfloat16)
+    map_peak = torch.cuda.max_memory_allocated() / 1e9
+    del module                          # init_inference reads the config
+    n_params = _numel(params)
+    eng = deepspeed_tpu_torch.init_inference(
+        cfg, {"dtype": "bf16", "serving": SERVING}, model_parameters=params)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"moe: mixtral-8x7b layers={L} params={n_params} "
+        f"num_params={cfg.num_params()} active={cfg.num_active_params()} "
+        f"experts={cfg.moe_experts} k={cfg.moe_k} capacity_factor="
+        f"{cfg.moe_capacity_factor} heads={cfg.num_heads}x{cfg.head_dim} "
+        f"kv_heads={cfg.kv_heads} map_s={time.perf_counter() - t0:.2f} "
+        f"map_peak_gb={map_peak:.2f} "
+        f"mem_gb={torch.cuda.memory_allocated() / 1e9:.2f}")
+    if (cfg.moe_experts, cfg.moe_k, cfg.head_dim, cfg.kv_heads, L) != \
+            (8, 2, 128, 8, cfg.num_layers) or n_params != cfg.num_params() \
+            + 2 * L * cfg.hidden_size + cfg.hidden_size:
+        fail(f"mixtral mapped to {cfg} with {n_params} parameters")
+    torch.cuda.reset_peak_memory_stats()
+    rng = np.random.default_rng(15)
+    V = cfg.vocab_size
+    ids = torch.as_tensor(rng.integers(1, V, (MOE_BATCH, MOE_PROMPT)),
+                          device="cuda")
+    eng.generate(ids, max_new_tokens=2)                   # warm-up
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    eng.generate(ids, max_new_tokens=1)                   # prefill + 1 pick
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t1
+    _zero_counters()
+    t1 = time.perf_counter()
+    out = eng.generate(ids, max_new_tokens=MOE_NEW)
+    torch.cuda.synchronize()
+    total_s = time.perf_counter() - t1
+    gen = _counters()
+    steps = MOE_NEW - 1
+    log(f"moe: generate B={MOE_BATCH} prompt={MOE_PROMPT} new={MOE_NEW} "
+        f"out={tuple(out.shape)} launches={json.dumps(gen)} "
+        f"wall_s={total_s:.3f}")
+    if tuple(out.shape) != (MOE_BATCH, MOE_PROMPT + MOE_NEW) or \
+            not torch.equal(out[:, :MOE_PROMPT], ids):
+        fail(f"moe generate returned {tuple(out.shape)}")
+    if gen["flash_attention_fwd"] != L or \
+            gen["decode_attention"] != L * steps:
+        fail(f"moe generate launched {gen}: expected flash {L}, decode "
+             f"{L * steps}")
+    counts["generate"] = gen
+    checks = {"generate": _moe_generate_check(eng.cfg, eng.params, ids,
+                                              5e-2)}
+    prof = profile_generate(eng.cfg, eng.params, ids, tag=" moe")
+    # the expert products of the prefill: every queue slot at C = T
+    prefill_tflop = _expert_flops(cfg, MOE_BATCH * MOE_PROMPT) / 1e12
+    rates["generate"] = {
+        "prefill_tok_s": MOE_BATCH * MOE_PROMPT / prefill_s,
+        "decode_tok_s": MOE_BATCH * steps / (total_s - prefill_s),
+        "decode_step_ms": 1e3 * (total_s - prefill_s) / steps,
+        "prefill_ms": 1e3 * prefill_s,
+        "prefill_expert_tflop": prefill_tflop,
+        "prefill_model_tflops_2n_active":
+            2.0 * cfg.num_active_params() * MOE_BATCH * MOE_PROMPT
+            / prefill_s / 1e12,
+        **prof}
+    srv = eng.serve()
+    _run_requests(srv, [list(rng.integers(1, V, 24))], 4)    # warm-up
+    prompts = [list(rng.integers(1, V, int(n))) for n in
+               rng.integers(MOE_PROMPT // 16, MOE_PROMPT + 1, MOE_REQUESTS)]
+    _instrument(srv)
+    stats0 = dict(srv.stats)
+    _zero_counters()
+    _run_requests(srv, prompts, MOE_NEW)
+    serve = _counters()
+    steps = srv._decode_step.calls
+    _, rates["serve"] = _rates(srv, stats0, steps)
+    log(f"moe: serve requests={len(prompts)} decode_steps={steps} "
+        f"launches={json.dumps(serve)}")
+    if steps == 0 or serve["paged_attention"] != L * steps:
+        fail(f"moe serve: paged_attention launched "
+             f"{serve['paged_attention']} times for {steps} decode steps")
+    counts["serve"] = serve
+    for p in prompts:
+        srv.submit(p[:256], 8)
+    srv.step()
+    checks["serve"] = _moe_decode_check(srv, 5e-2, "moe serve")
+    srv.run_until_idle()
+    profile_decode(srv, label="moe serve decode step")
+    del srv._run_prefill, srv._decode_step, srv
+    torch.cuda.empty_cache()
+    srv8 = eng.serve(dict(SERVING, kv_cache_dtype="int8",
+                          weight_dtype="int8"))
+    _run_requests(srv8, [list(rng.integers(1, V, 40))], 2)   # warm-up
+    prompts = [list(rng.integers(1, V, int(n))) for n in MOE_INT8_LENS]
+    _instrument(srv8, tqm.quant_matmul)
+    stats0 = dict(srv8.stats)
+    _zero_counters()
+    _run_requests(srv8, prompts, MOE_INT8_NEW)
+    int8 = _counters()
+    pre, dec = srv8._run_prefill, srv8._decode_step
+    _, rates["int8_serve"] = _rates(srv8, stats0, dec.calls)
+    per_forward = 2 * L + 1
+    log(f"moe: int8 serve requests={len(prompts)} launches="
+        f"{json.dumps(int8)} quant_matmul prefill={pre.launches}/"
+        f"{pre.calls} calls decode={dec.launches}/{dec.calls} steps")
+    if (pre.launches != per_forward * pre.calls
+            or dec.launches != per_forward * dec.calls
+            or pre.launches + dec.launches != int8["quant_matmul"]
+            or int8["paged_attention"] < L * dec.calls):
+        fail(f"moe int8 serve launched {int8}: expected {per_forward} "
+             "quant_matmul a forward")
+    counts["int8_serve"] = int8
+    # the timed wrappers hold the engine's bound methods
+    del srv8._run_prefill, srv8._decode_step, pre, dec
+    for p in prompts:
+        srv8.submit(p[:128], 4)
+    srv8.step()
+    checks["int8_serve"] = _moe_decode_check(srv8, 5e-2, "moe int8 serve")
+    srv8.run_until_idle()
+    rates["serve_peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    log("time: moe serve " + json.dumps(rates) + f" [{smi}]")
+    del srv8, eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"moe: serving legs done mem_gb="
+        f"{torch.cuda.memory_allocated() / 1e9:.2f}")
+
+    # ------------------------------------------------------------ train
+    if comm.is_initialized():
+        fail("moe: a process group is already up")
+    batch = _moe_batch(MOE_MICRO * MOE_GAS, V)
+    per = MOE_TRAIN_LAYERS * MOE_GAS
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        ref_engine = _moe_engine(_moe_train_model(cfg, seed=16),
+                                 MOE_TRAIN_CONFIG)
+        if ref_engine.dp is not None:
+            fail("moe: the reference engine ran data parallel")
+        _zero_counters()
+        ref = ref_engine.train_batch(batch)
+        del ref_engine
+        gc.collect()
+        torch.cuda.empty_cache()
+        comm.init_distributed(world_size=1, rank=0)
+        try:
+            torch.cuda.reset_peak_memory_stats()
+            t1 = time.perf_counter()
+            engine = _moe_engine(_moe_train_model(cfg, seed=16),
+                                 MOE_TRAIN_CONFIG)
+            tcfg = engine.module.cfg
+            log(f"moe: train layers={tcfg.num_layers} backend="
+                f"{dist.get_backend()} world={dist.get_world_size()} "
+                f"params={tcfg.num_params()} active="
+                f"{tcfg.num_active_params()} seq {MOE_SEQ}, micro "
+                f"{MOE_MICRO} x gas {MOE_GAS}, pure bf16, AdamW, ZeRO 1 "
+                f"init_s={time.perf_counter() - t1:.2f} "
+                f"mem_gb={torch.cuda.memory_allocated() / 1e9:.2f}")
+            metrics, step_s = [], []
+            for step in range(MOE_STEPS):
+                m, dt, c, ops = _moe_step(engine, batch,
+                                          f"moe train step {step}", per)
+                metrics.append(m)
+                step_s.append(dt)
+                log(f"moe: train step {step} loss={m['loss']:.6f} "
+                    f"aux={m['aux']:.6f} grad_norm={m['grad_norm']:.5f} "
+                    f"step_ms={1e3 * dt:.1f} launches={json.dumps(c)} "
+                    f"collectives={json.dumps(ops)} (a group of one: the "
+                    "all-to-alls move nothing)")
+            first = metrics[0]
+            bitwise = (first["loss"], first["grad_norm"]) == (
+                ref["loss"], ref["grad_norm"])
+            log(f"check: moe train first step vs the engine without a "
+                f"process group loss={first['loss']:.9f}/{ref['loss']:.9f} "
+                f"grad_norm={first['grad_norm']:.9f}/{ref['grad_norm']:.9f} "
+                f"bitwise={bitwise}")
+            if not bitwise:
+                fail("moe train: the 1-rank group's first step is not the "
+                     "single-process engine's")
+            if not metrics[-1]["loss"] < metrics[0]["loss"]:
+                fail(f"moe train: loss did not fall "
+                     f"{[x['loss'] for x in metrics]}")
+            train = _moe_train_rates(engine, batch, step_s, tcfg,
+                                     "moe train step")
+            micro = {"input_ids": torch.as_tensor(
+                batch["input_ids"][:MOE_MICRO], device="cuda")}
+            train.update(loss=[x["loss"] for x in metrics],
+                         aux=[x["aux"] for x in metrics], launches=c,
+                         collectives=ops,
+                         check=_moe_train_check(engine.module, micro,
+                                                "moe train micro-batch"))
+            counts["train"] = c
+            rates["train"] = train
+            log("time: moe train " + json.dumps(train) + f" [{smi}]")
+            del engine, micro
+            gc.collect()
+            torch.cuda.empty_cache()
+        finally:
+            set_global_mesh(None)
+            dist.destroy_process_group()
+    finally:
+        torch.use_deterministic_algorithms(False)
+    return {"launches": counts, "rates": rates, "checks": checks}
+
+
+def phase_ep_ranks(tmp, n):
+    """``--ep-ranks N``: the moe train leg across N GPUs of one host at
+    ``ep_size`` N (8 / N experts a rank), one process each through the
+    port's launcher, one 1024-token sample a rank a micro-batch, gas 2.
+    First the global batch through one engine without a process group on
+    GPU 0; then :func:`ep_worker` on every GPU: EP_STEPS steps, each held
+    to its flash launches and its all-to-alls (2 a layer in each forward
+    and backward), the first step's loss within 1e-4 and grad norm within
+    5e-3 of the single engine's (aux weight 0 and capacity E/k: no token
+    drops, and without noise the two compute one function), the loss
+    falling, rank 0's step time, tokens/s and NCCL device ms."""
+    import torch
+    cfg = _mixtral_cfg()
+    config = dict(MOE_TRAIN_CONFIG, train_batch_size=n * MOE_GAS,
+                  train_micro_batch_size_per_gpu=n)
+    ref_engine = _moe_engine(_moe_train_model(cfg, 17, noise=False), config,
+                             aux=0.0)
+    _zero_counters()
+    ref = ref_engine.train_batch(_moe_batch(n * MOE_GAS, cfg.vocab_size))
+    del ref_engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    out = os.path.join(tmp, "ep_ranks.json")
+    env = dict(os.environ, PYTHONPATH=HERE)
+    rc = subprocess.run(
+        [sys.executable, "-m", "deepspeed_tpu_torch.launcher.launch",
+         "--nproc_per_node", str(n), os.path.join(HERE, "chip_smoke.py"),
+         "--ep-worker", out], cwd=HERE, env=env, timeout=1200).returncode
+    if rc != 0:
+        fail(f"ep ranks: the launcher exited {rc}")
+    with open(out) as f:
+        res = json.load(f)
+    first = res["metrics"][0]
+    rl = abs(first["loss"] - ref["loss"]) / abs(ref["loss"])
+    rn = abs(first["grad_norm"] - ref["grad_norm"]) / abs(ref["grad_norm"])
+    log(f"check: ep ranks={n} first step vs one engine without a process "
+        f"group loss={first['loss']:.7f}/{ref['loss']:.7f} rel={rl:.3e} "
+        f"tol=1e-4 grad_norm={first['grad_norm']:.6f}/"
+        f"{ref['grad_norm']:.6f} rel={rn:.3e} tol=5e-3")
+    if not (rl <= 1e-4 and rn <= 5e-3):
+        fail("ep ranks: the first step is off the single engine's")
+    res.update(loss_rel=rl, grad_norm_rel=rn)
+    return res
+
+
+def _mixtral_cfg():
+    """The TransformerConfig that Mixtral's policy maps the published
+    config to, at the train leg's depth (no weights)."""
+    import torch
+    from types import SimpleNamespace
+    from deepspeed_tpu_torch.models.hf import load_hf
+    hf_cfg = SimpleNamespace(**dict(MIXTRAL_CONFIG,
+                                    num_hidden_layers=MOE_TRAIN_LAYERS))
+    _, cfg = load_hf(_mixtral_state_dict(MOE_TRAIN_LAYERS, 0, "meta"),
+                     arch="MixtralForCausalLM", config=hf_cfg,
+                     dtype=torch.bfloat16)
+    return cfg
+
+
+def ep_worker(out):
+    """One rank of ``--ep-ranks``, started by the port's launcher (NCCL on
+    cuda:LOCAL_RANK); rank 0 writes the readings to ``out``."""
+    import torch
+    import torch.distributed as dist
+    from deepspeed_tpu_torch import comm
+    from deepspeed_tpu_torch.parallel.mesh import ZERO_AXES
+    comm.init_distributed()
+    rank, world = comm.get_rank(), comm.get_world_size()
+    cfg = _mixtral_cfg()
+    config = dict(MOE_TRAIN_CONFIG, train_batch_size=world * MOE_GAS,
+                  train_micro_batch_size_per_gpu=1,
+                  moe={"enabled": True, "ep_size": world})
+    engine = _moe_engine(_moe_train_model(cfg, 17, noise=False), config,
+                         aux=0.0)
+    batch = _moe_batch(world * MOE_GAS, cfg.vocab_size)
+    local = sum(e.param.numel() for e in engine.dp.entries
+                if e.eslab is not None)
+    torch.cuda.reset_peak_memory_stats()
+    metrics, step_s = [], []
+    for step in range(EP_STEPS):
+        m, dt, c, ops = _moe_step(engine, batch, f"ep ranks={world} rank "
+                                  f"{rank} step {step}",
+                                  MOE_TRAIN_LAYERS * MOE_GAS)
+        metrics.append(m)
+        step_s.append(dt)
+        if rank == 0:
+            log(f"ep ranks={world}: step {step} loss={m['loss']:.6f} "
+                f"grad_norm={m['grad_norm']:.5f} step_ms={1e3 * dt:.1f} "
+                f"launches={json.dumps(c)} collectives={json.dumps(ops)}")
+    if not metrics[-1]["loss"] < metrics[0]["loss"]:
+        fail(f"ep ranks: loss did not fall {[x['loss'] for x in metrics]}")
+    if rank == 0:
+        rates = _moe_train_rates(engine, batch, step_s, engine.module.cfg,
+                                 f"ep ranks={world} step", world)
+    else:
+        engine.train_batch(batch)
+        rates = {}
+    peak = torch.tensor([torch.cuda.max_memory_allocated() / 1e9],
+                        device="cuda")
+    rates.update(metrics=metrics, launches_rank0=c, collectives_rank0=ops,
+                 expert_params_rank0=local, world=world,
+                 peak_mem_gb_by_rank=comm.all_gather(
+                     peak, axis=ZERO_AXES).tolist())
+    if rank == 0:
+        with open(out, "w") as f:
+            json.dump(rates, f)
+        log("time: ep ranks " + json.dumps(rates))
+    del engine
+    dist.destroy_process_group()
+    return 0
+
+
+
 def main(argv=None):
     import argparse
     import torch
@@ -5282,11 +6146,11 @@ def main(argv=None):
                          "serve decode step")
     ap.add_argument("--only", nargs="+", metavar="PHASE",
                     choices=("ckpt", "remat", "hf", "bert-masked", "zero",
-                             "sp", "dropout"),
+                             "sp", "dropout", "moe"),
                     help="build the kernels, then run only these phases "
-                         "(ckpt, remat, hf, bert-masked, zero, sp, dropout) "
-                         "and a result line that names them; no kernels "
-                         "line")
+                         "(ckpt, remat, hf, bert-masked, zero, sp, dropout, "
+                         "moe) and a result line that names them; no "
+                         "kernels line")
     ap.add_argument("--zero-ranks", type=int, metavar="N",
                     help="build the kernels, then run only the zero leg "
                          "across N GPUs of this host (one process each, "
@@ -5299,6 +6163,12 @@ def main(argv=None):
                          "sp = N, one process each, through the port's "
                          "launcher) and a result line that names it")
     ap.add_argument("--sp-worker", metavar="OUT", help=argparse.SUPPRESS)
+    ap.add_argument("--ep-ranks", type=int, metavar="N",
+                    help="build the kernels, then run only the moe train "
+                         "leg across N GPUs of this host at ep_size N (one "
+                         "process each, through the port's launcher) and a "
+                         "result line that names it")
+    ap.add_argument("--ep-worker", metavar="OUT", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -5316,6 +6186,8 @@ def main(argv=None):
         return zero_worker(args.zero_worker)
     if args.sp_worker:
         return sp_worker(args.sp_worker)
+    if args.ep_worker:
+        return ep_worker(args.ep_worker)
     name = torch.cuda.get_device_name(0)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -5351,6 +6223,18 @@ def main(argv=None):
                         "device": {"platform": "gpu", "kind": name,
                                    "count": torch.cuda.device_count()}}))
         return 0
+    if args.ep_ranks:
+        if torch.cuda.device_count() < args.ep_ranks:
+            fail(f"--ep-ranks {args.ep_ranks}: this host has "
+                 f"{torch.cuda.device_count()} GPUs")
+        with tempfile.TemporaryDirectory() as tmp:
+            phase_ep_ranks(tmp, args.ep_ranks)
+        log(f"total_s={time.perf_counter() - t0:.1f}")
+        log(smi)
+        log(json.dumps({"ok": True, "ep_ranks": args.ep_ranks,
+                        "device": {"platform": "gpu", "kind": name,
+                                   "count": torch.cuda.device_count()}}))
+        return 0
     if args.only:
         with tempfile.TemporaryDirectory() as tmp:
             for phase in args.only:
@@ -5360,7 +6244,8 @@ def main(argv=None):
                        "bert-masked": time_bert_masked_flash,
                        "zero": lambda: phase_zero(tmp),
                        "sp": lambda: phase_sp(tmp),
-                       "dropout": phase_dropout}[phase]()
+                       "dropout": phase_dropout,
+                       "moe": lambda: phase_moe(tmp, smi)}[phase]()
                 log(f"time: {phase} " + json.dumps(res, default=str))
         log(f"total_s={time.perf_counter() - t0:.1f}")
         log(smi)
@@ -5453,6 +6338,9 @@ def main(argv=None):
         sp = phase_sp(tmp)
     dropout = phase_dropout()
     log("time: dropout " + json.dumps(dropout))
+    with tempfile.TemporaryDirectory() as tmp:
+        moe = phase_moe(tmp, smi)
+    log("time: moe " + json.dumps(moe["rates"]))
     bs = time_block_sparse_attention()
     time_block_sparse_scaling()
     if old_bs is not None:
@@ -5519,6 +6407,9 @@ def main(argv=None):
         if kname in BS_KERNELS:
             row["launches_by_path"] = {"sparse_train": launches,
                                        "window_train": window_counts[kname]}
+        # the moe leg's (Mixtral-8x7B) launches by entry point
+        row["launches_moe"] = {path: c[kname] for path, c in
+                               moe["launches"].items() if c.get(kname)}
         if kname == "quant_matmul":
             row["launches_by_path"] = qm_by_path
         row.update(t)

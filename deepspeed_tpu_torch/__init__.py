@@ -10,7 +10,9 @@ serving path, ``init_inference(...).serve()``; generation,
 one process or data parallel with ZeRO stages 0-3 across the ranks of a
 ``torch.distributed`` process group (``comm``, ``init_distributed``, the
 mesh and topology classes, ``zero``; one process per GPU through
-``python -m deepspeed_tpu_torch.launcher.launch``); and the HF import,
+``python -m deepspeed_tpu_torch.launcher.launch``), with sequence
+parallelism and mixture-of-experts models (``MoE``, ``make_moe_loss``)
+whose experts split over the mesh's ``expert`` axis; and the HF import,
 ``replace_transformer_layer(hf_model)`` (``models.hf``, 21 architecture
 policies), with the reference's fused-layer API
 ``DeepSpeedTransformerLayer`` / ``DeepSpeedTransformerConfig``.
@@ -25,7 +27,8 @@ from . import comm
 from .comm import init_distributed
 from .models.hf import replace_transformer_layer, revert_transformer_layer
 from .models.transformer import (DeepSpeedTransformerConfig,
-                                 DeepSpeedTransformerLayer)
+                                 DeepSpeedTransformerLayer, make_moe_loss)
+from .moe import MoE
 from .parallel.mesh import MeshManager, build_mesh_from_config, get_global_mesh
 from .parallel.topology import (
     ProcessTopology,

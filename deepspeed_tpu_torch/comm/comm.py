@@ -289,23 +289,52 @@ def reduce_scatter(tensor: torch.Tensor, axis: AxisName = "data",
     return out.movedim(0, d).contiguous()
 
 
-@timed_op
-def all_to_all(tensor: torch.Tensor, axis: AxisName = "expert",
-               split_dim: int = 0, concat_dim: int = 0) -> torch.Tensor:
-    """Split ``split_dim`` into one chunk per rank, send chunk j to rank
-    j, and concatenate what arrives along ``concat_dim`` in rank order
-    (JAX's tiled ``all_to_all``)."""
+def _all_to_all(tensor: torch.Tensor, axis: AxisName, split_dim: int,
+                concat_dim: int) -> torch.Tensor:
     g = _group(axis)
     w = dist.get_world_size(g)
     s = split_dim % tensor.dim()
     if tensor.shape[s] % w:
         raise ValueError(f"all_to_all: dim {s} of {tuple(tensor.shape)} "
                          f"does not split {w} ways")
+    if w == 1:                       # nothing crosses a group of one
+        return tensor.clone()
     x = tensor.movedim(s, 0).contiguous()
     out = torch.empty_like(x)
     dist.all_to_all_single(out, x, group=g)
     blocks = [b.movedim(0, s) for b in out.chunk(w, 0)]
     return torch.cat(blocks, dim=concat_dim % tensor.dim())
+
+
+class _AllToAll(torch.autograd.Function):
+    """The exchange inside an autograd graph: the backward is the inverse
+    exchange (split and concatenate dims swapped), itself one counted
+    :func:`all_to_all`."""
+
+    @staticmethod
+    def forward(ctx, x, axis, split_dim, concat_dim):
+        ctx.args = (axis, split_dim, concat_dim)
+        return _all_to_all(x, axis, split_dim, concat_dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        axis, split_dim, concat_dim = ctx.args
+        return all_to_all(g.contiguous(), axis=axis, split_dim=concat_dim,
+                          concat_dim=split_dim), None, None, None
+
+
+@timed_op
+def all_to_all(tensor: torch.Tensor, axis: AxisName = "expert",
+               split_dim: int = 0, concat_dim: int = 0) -> torch.Tensor:
+    """Split ``split_dim`` into one chunk per rank, send chunk j to rank
+    j, and concatenate what arrives along ``concat_dim`` in rank order
+    (JAX's tiled ``all_to_all``). Differentiable: under autograd the
+    backward is the inverse exchange (ring attention's Ulysses heads and
+    the MoE queues both cross their groups this way). Over a group of
+    one rank the call is counted but issues no transfer."""
+    if torch.is_grad_enabled() and tensor.requires_grad:
+        return _AllToAll.apply(tensor, axis, split_dim, concat_dim)
+    return _all_to_all(tensor, axis, split_dim, concat_dim)
 
 
 @timed_op

@@ -1,1 +1,21 @@
-"""Subpackage of the PyTorch/CUDA port (see the package docstring)."""
+"""The in-tree model family (the GPT decoder / BERT encoder and the
+presets), as the JAX package's ``models`` exports it."""
+
+from .transformer import (
+    Transformer,
+    TransformerConfig,
+    Block,
+    build_model,
+    get_config,
+    causal_lm_loss,
+    masked_lm_loss,
+    make_moe_loss,
+    cross_entropy,
+    fused_loss_passthrough,
+)
+
+__all__ = [
+    "Transformer", "TransformerConfig", "Block", "build_model", "get_config",
+    "causal_lm_loss", "masked_lm_loss", "make_moe_loss", "cross_entropy",
+    "fused_loss_passthrough",
+]

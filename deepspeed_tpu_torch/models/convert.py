@@ -61,20 +61,26 @@ def module_from_jax(tree: Dict[str, Any], cfg: TransformerConfig,
 
 def scan_params(module: Transformer) -> Dict[str, Any]:
     """The module's parameters as the scan-layout dict of tensors
-    (``blocks`` leaves stacked [L, ...]), detached from autograd."""
+    (``blocks`` leaves stacked [L, ...], a MoE layer's under ``moe``),
+    detached from autograd."""
     out: Dict[str, Any] = {}
-    blocks: Dict[str, Dict[str, list]] = {}
+    blocks: Dict[tuple, list] = {}
     for name, t in module.named_parameters():
         parts = name.split(".")
         t = t.detach()
-        if parts[0] == "blocks":             # blocks.<i>.<leaf>.<param>
-            blocks.setdefault(parts[2], {}).setdefault(parts[3], []).append(t)
+        if parts[0] == "blocks":             # blocks.<i>.<leaf>...<param>
+            blocks.setdefault(tuple(parts[2:]), []).append(t)
         elif len(parts) == 1:                # a bare array (mlm_bias)
             out[name] = t
         else:
             out.setdefault(parts[0], {})[parts[1]] = t
-    out["blocks"] = {leaf: {k: torch.stack(ts) for k, ts in sub.items()}
-                     for leaf, sub in blocks.items()}
+    tree: Dict[str, Any] = {}
+    for path, ts in blocks.items():
+        node = tree
+        for key in path[:-1]:
+            node = node.setdefault(key, {})
+        node[path[-1]] = torch.stack(ts)
+    out["blocks"] = tree
     return out
 
 

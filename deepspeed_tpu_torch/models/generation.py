@@ -90,19 +90,46 @@ def _dense(x: torch.Tensor, p: Dict[str, torch.Tensor],
 
 def check_decodable(cfg: TransformerConfig) -> None:
     """Raise for the models that the cache and paged paths cannot run:
-    post-LN encoders and MoE (as the JAX package's decode raises for
-    post-LN), and encoders without an LM head, which have no logits to
-    decode with."""
+    post-LN encoders (as the JAX package's decode raises for them), and
+    encoders without an LM head, which have no logits to decode with."""
     if cfg.post_ln:
         raise NotImplementedError("post-LN encoders (BERT) do not decode")
     if cfg.no_lm_head:
         raise ValueError(
             "a no_lm_head model (an encoder such as the CLIP text model) "
             "returns hidden states and has no logits to decode with")
-    if cfg.moe_experts > 0:
-        raise NotImplementedError(
-            "MoE decode and serving (models/generation._moe_mlp) are not "
-            "ported yet; see ROADMAP.md")
+
+
+def _moe_mlp(cfg: TransformerConfig, p_moe: Dict[str, Any],
+             h: torch.Tensor) -> torch.Tensor:
+    """The decode paths' MoE MLP (JAX ``generation._moe_mlp``): the MoE
+    layer's gating with a no-drop capacity (C = B * T: an incremental
+    step cannot see the other positions a capacity limit would make it
+    compete with) and no noise, every expert local, in h's dtype. Expert
+    kernels with an int8 ``kernel_scale`` dequantize through
+    :func:`_kernel_of`. The queues are formed by index, as
+    ``moe.layer.MoE`` forms them; the experts are the JAX function's, the
+    GELU expert always tanh GELU, the SwiGLU one ``cfg.activation``."""
+    from ..moe.layer import _edense, combine, dispatch
+    from ..moe.sharded_moe import route
+    from .transformer import _ACTIVATIONS
+    B, T, H = h.shape
+    E = cfg.moe_experts
+    tokens = h.reshape(B * T, H)
+    logits = tokens.to(torch.float32) @ p_moe["gate"]["kernel"].to(
+        torch.float32)
+    r = route(logits, cfg.moe_k, B * T)
+    queues, slots = dispatch(tokens, [r], E)
+    q = queues.view(E, B * T, H)
+    ex = p_moe["experts"]
+    if "gate" in ex:
+        act = _ACTIVATIONS[cfg.activation]
+        hh = act(_edense(q, ex["gate"])) * _edense(q, ex["fc"])
+    else:
+        hh = _ACTIVATIONS["gelu"](_edense(q, ex["fc"]))
+    out = _edense(hh, ex["proj"])
+    y = combine(out.reshape(E * B * T, H), slots, r.weight, h.dtype)
+    return y.reshape(B, T, H)
 
 
 def ensure_scan_layout(params: PyTree, num_layers: int) -> PyTree:
@@ -198,7 +225,8 @@ def forward_with_cache(cfg: TransformerConfig, params: PyTree,
     from ..ops.decode_attention import (MAX_T, decode_attention,
                                         decode_attention_reference)
     from ..ops.flash_attention import flash_attention
-    from .transformer import _ACTIVATIONS, alibi_slopes, apply_rotary
+    from .transformer import (_ACTIVATIONS, alibi_slopes, apply_rotary,
+                              layer_params)
     B, T_new = input_ids.shape
     dev = input_ids.device
     input_ids = input_ids.to(torch.long)
@@ -250,8 +278,7 @@ def forward_with_cache(cfg: TransformerConfig, params: PyTree,
 
     blocks = params["blocks"]
     for li in range(L):
-        p = {name: {k: t[li] for k, t in sub.items()}
-             for name, sub in blocks.items()}
+        p = layer_params(blocks, li)
         h = _layer_norm(x, p["ln1"], eps, rms)
         qkv = dense(h, p["attn_qkv"])
         q, k, v = torch.split(qkv, [nh * hd, kvh * hd, kvh * hd], dim=-1)
@@ -304,6 +331,8 @@ def forward_with_cache(cfg: TransformerConfig, params: PyTree,
             attn_out = _layer_norm(attn_out, p["post_attn_norm"], eps, rms)
 
         def mlp(hin):
+            if cfg.moe_experts > 0:
+                return _moe_mlp(cfg, p["moe"], hin)
             if cfg.gated_mlp:
                 g = act(dense(hin, p["mlp_gate"]))
                 return dense(g * dense(hin, p["mlp_fc"]), p["mlp_proj"])

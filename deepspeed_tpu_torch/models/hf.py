@@ -34,10 +34,11 @@ PyTree = Any
 _ROADMAP = "see ROADMAP.md"
 
 
-def _getter(sd, prefix: str):
-    """Name -> float32 tensor of ``sd[prefix + name]``."""
+def _getter(sd, prefix: str, dtype=torch.float32):
+    """Name -> tensor of ``sd[prefix + name]`` in ``dtype`` (float32;
+    a tensor already in ``dtype`` is not copied)."""
     return lambda name: torch.as_tensor(sd[prefix + name]).detach().to(
-        torch.float32)
+        dtype)
 
 
 def _t(w: torch.Tensor) -> torch.Tensor:
@@ -45,19 +46,18 @@ def _t(w: torch.Tensor) -> torch.Tensor:
     return w.transpose(0, 1)
 
 
-def _own(t: torch.Tensor) -> torch.Tensor:
-    return torch.empty(t.shape, dtype=torch.float32,
-                       device=t.device).copy_(t)
+def _own(t: torch.Tensor, dtype=torch.float32) -> torch.Tensor:
+    return torch.empty(t.shape, dtype=dtype, device=t.device).copy_(t)
 
 
-def _to_f32(params: PyTree) -> PyTree:
-    """Every leaf float32 and owning its memory. The block leaves are
-    fresh stacks already; the rest may be views of the caller's tensors
-    and are copied."""
+def _to_f32(params: PyTree, dtype=torch.float32) -> PyTree:
+    """Every leaf in ``dtype`` (float32) and owning its memory. The block
+    leaves are fresh stacks already; the rest may be views of the
+    caller's tensors and are copied."""
     def walk(node):
         if isinstance(node, dict):
             return {k: walk(v) for k, v in node.items()}
-        return _own(node)
+        return _own(node, dtype)
     return {k: v if k == "blocks" else walk(v) for k, v in params.items()}
 
 
@@ -115,8 +115,18 @@ def _prefix(sd, candidate: str) -> str:
 
 
 def _stacker(g, L: int):
-    """Per-layer getter -> stacked [L, ...] leaf."""
-    return lambda fn: torch.stack([fn(i) for i in range(L)])
+    """Per-layer getter -> stacked [L, ...] leaf, each layer written into
+    the stack as it is read (one layer's temporaries at a time)."""
+    def stack(fn):
+        first = fn(0)
+        out = torch.empty((L,) + tuple(first.shape), dtype=first.dtype,
+                          device=first.device)
+        out[0] = first
+        del first
+        for i in range(1, L):
+            out[i] = fn(i)
+        return out
+    return stack
 
 
 def _concat_qkv_linear(g, fmt: str, names=("q", "k", "v")):
@@ -767,21 +777,23 @@ def load_megatron_gpt(state_dict, config, version: int = 2):
 
 def _llama_family_params(sd, prefix, L, qkv_bias=False, o_bias=False,
                          mlp_bias=False, qk_norm=False, moe_experts=0,
-                         norm_plus_one=False, sandwich_norms=False):
+                         norm_plus_one=False, sandwich_norms=False,
+                         dtype=torch.float32):
     """Shared Llama/Mistral/Qwen2/Qwen3/Mixtral block mapping: RMSNorm +
     GQA qkv + SwiGLU (dense, or ``moe_experts`` SwiGLU experts behind a
     router: HF block_sparse_moe w1/w3/w2 -> moe.experts gate/fc/proj).
     The bias flags are presence-driven by the caller (Llama
     attention_bias has q/k/v/o biases; Qwen2 q/k/v only; mlp_bias biases
-    gate/up/down; qk_norm adds Qwen3's per-head q/k RMSNorm)."""
-    g = _getter(sd, prefix)
+    gate/up/down; qk_norm adds Qwen3's per-head q/k RMSNorm). Leaves are
+    read in ``dtype`` (float32)."""
+    g = _getter(sd, prefix, dtype)
     stack = _stacker(g, L)
     # Gemma stores RMSNorm weights as w with the forward computing
     # x * (1 + w): folding the +1 into the stored scale makes the plain
-    # scale-multiply RMSNorm equivalent. The getter reads f32, so the fold
-    # happens in f32 (like HF's 1.0 + weight.float()) for 16-bit
-    # state dicts too
-    ln_w = (lambda a: a + 1.0) if norm_plus_one else (lambda a: a)
+    # scale-multiply RMSNorm equivalent. The fold happens in f32 (like
+    # HF's 1.0 + weight.float()) for 16-bit state dicts too
+    ln_w = ((lambda a: (a.float() + 1.0).to(a.dtype)) if norm_plus_one
+            else (lambda a: a))
 
     def qkv(i):
         ws = [_t(g(f"layers.{i}.self_attn.{p}_proj.weight"))
@@ -855,7 +867,8 @@ def _llama_family_params(sd, prefix, L, qkv_bias=False, o_bias=False,
 def _load_hf_llama_family(model_or_state_dict, config,
                           use_sliding_window=False, moe=False,
                           activation="silu", embed_scale=None,
-                          norm_plus_one=False, gemma2=False):
+                          norm_plus_one=False, gemma2=False,
+                          dtype=torch.float32):
     sd, config = _sd_and_config(model_or_state_dict, config)
     prefix = _prefix(sd, "model.")
     L = config.num_hidden_layers
@@ -978,7 +991,7 @@ def _load_hf_llama_family(model_or_state_dict, config,
                                      qk_norm=qk_norm,
                                      moe_experts=moe_experts,
                                      norm_plus_one=norm_plus_one,
-                                     sandwich_norms=gemma2)
+                                     sandwich_norms=gemma2, dtype=dtype)
     if not tie:
         if "lm_head.weight" not in sd:
             # fail loudly like every other CausalLM loader: a tied head
@@ -987,8 +1000,9 @@ def _load_hf_llama_family(model_or_state_dict, config,
                 "untied checkpoint (tie_word_embeddings=False) has no "
                 "lm_head.weight — is this a bare LlamaModel state dict? "
                 "Export the ForCausalLM model, or set tie_word_embeddings")
-        params["lm_head"] = {"kernel": _t(_getter(sd, "")("lm_head.weight"))}
-    return _to_f32(params), cfg
+        params["lm_head"] = {"kernel": _t(_getter(sd, "", dtype)(
+            "lm_head.weight"))}
+    return _to_f32(params, dtype), cfg
 
 
 def load_hf_llama(model_or_state_dict, config=None):
@@ -1299,14 +1313,16 @@ def load_hf_gemma2(model_or_state_dict, config=None):
         norm_plus_one=True, gemma2=True)
 
 
-def load_hf_mixtral(model_or_state_dict, config=None):
+def load_hf_mixtral(model_or_state_dict, config=None, dtype=torch.float32):
     """Mixtral (HF MixtralForCausalLM): the Mistral block family with the
     dense SwiGLU MLP replaced by num_local_experts SwiGLU experts behind a
     top-(num_experts_per_tok) router (HF block_sparse_moe gate + w1/w3/w2
-    experts). The mapping is complete; the port's ``Transformer`` does not
-    run MoE yet (ROADMAP.md item 4.1)."""
+    experts -> moe/gate and moe/experts/{gate,fc,proj}). ``dtype``: the
+    leaves' dtype (float32), read in it layer by layer, so a bf16 state
+    dict maps into bf16 leaves without an f32 copy of the experts."""
     return _load_hf_llama_family(model_or_state_dict, config,
-                                 use_sliding_window=True, moe=True)
+                                 use_sliding_window=True, moe=True,
+                                 dtype=dtype)
 
 
 HF_POLICIES = {
@@ -1356,15 +1372,24 @@ HF_POLICIES = {
 }
 
 
-def load_hf(model, arch: str = None, config=None):
+def load_hf(model, arch: str = None, config=None, dtype=None):
     """(params, cfg) of ``model`` (a live HF model, or a state dict with
     ``config``) by its architecture name: ``arch``, default the model's
     class name. Exact matches only: substring matching misfires on
-    sibling architectures (GPTNeoX contains 'gptneo', Roberta 'bert')."""
+    sibling architectures (GPTNeoX contains 'gptneo', Roberta 'bert').
+    Leaves are float32, or ``dtype`` (Mixtral's policy reads them in it;
+    the others cast the float32 tree)."""
     arch = arch or type(model).__name__
     fn = HF_POLICIES.get(arch) or HF_POLICIES.get(arch.lower())
     if fn is not None:
-        return fn(model, config=config)
+        if dtype is None or dtype == torch.float32:
+            return fn(model, config=config)
+        if fn is load_hf_mixtral:
+            return fn(model, config=config, dtype=dtype)
+        params, cfg = fn(model, config=config)
+        cast = lambda n: ({k: cast(v) for k, v in n.items()}
+                          if isinstance(n, dict) else n.to(dtype))
+        return cast(params), cfg
     raise NotImplementedError(
         f"no import policy for architecture '{arch}'; have "
         f"{sorted(k for k in HF_POLICIES if not k.islower())}")
@@ -1379,15 +1404,14 @@ def replace_transformer_layer(model, config=None, arch: str = None,
     ``(module, params, cfg)``: the module owns a copy of the weights, and
     ``params`` is the scan-layout tree that ``init_inference(module, ...,
     model_parameters=params)`` serves. ``dtype`` (a torch dtype) sets the
-    compute dtype. The input model is never mutated."""
-    params, cfg = load_hf(model, arch=arch, config=config)
+    compute dtype and the weights' (default float32 weights). The input
+    model is never mutated; a state dict the caller holds no reference to
+    is freed once mapped, before the module's copy is made. Mixtral's
+    experts become the ``Transformer``'s MoE layers."""
+    params, cfg = load_hf(model, arch=arch, config=config, dtype=dtype)
+    del model
     if dtype is not None:
         cfg = dataclasses.replace(cfg, dtype=dtype)
-    if cfg.moe_experts > 0:
-        raise NotImplementedError(
-            f"replace_transformer_layer: the {cfg.moe_experts}-expert MoE "
-            "MLP (Mixtral) is mapped by load_hf, but the Transformer does "
-            "not run MoE yet (ROADMAP.md item 4.1)")
     return Transformer(cfg, params), params, cfg
 
 

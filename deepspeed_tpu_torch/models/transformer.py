@@ -148,6 +148,43 @@ class TransformerConfig:
     def kv_heads(self) -> int:
         return self.num_kv_heads or self.num_heads
 
+    def _embed_params(self) -> int:
+        h, v = self.hidden_size, self.vocab_size
+        n = v * h
+        if self.pos_embed == "learned":
+            n += self.max_seq_len * h
+        if not self.tie_embeddings and not self.no_lm_head:
+            n += v * h                        # untied lm_head
+        return n
+
+    def _attn_params(self) -> int:
+        h = self.hidden_size
+        return (self.num_heads + 2 * self.kv_heads) * self.head_dim * h \
+            + self.num_heads * self.head_dim * h   # qkv (GQA) + out proj
+
+    def _mlp_params(self) -> int:
+        return (3 if self.gated_mlp else 2) * self.mlp_dim * self.hidden_size
+
+    def num_params(self) -> int:
+        """Matmul and embedding parameters (norms and biases left out, as
+        the JAX package counts): every expert of a MoE layer, its router
+        included."""
+        per_layer = self._attn_params() \
+            + self._mlp_params() * max(self.moe_experts, 1)
+        if self.moe_experts > 0:
+            per_layer += self.hidden_size * self.moe_experts  # router
+        return self._embed_params() + self.num_layers * per_layer
+
+    def num_active_params(self) -> int:
+        """The parameters a token touches: ``num_params`` for a dense
+        model; a MoE layer routes each token through ``moe_k`` of its
+        ``moe_experts`` expert MLPs. The N of the 6N FLOPs a token."""
+        if self.moe_experts <= 0:
+            return self.num_params()
+        per_layer = (self._attn_params() + self._mlp_params() * self.moe_k
+                     + self.hidden_size * self.moe_experts)
+        return self._embed_params() + self.num_layers * per_layer
+
     def rope_inv_freq(self, seq_len: Optional[int] = None):
         """Static inverse-frequency table with the configured rope scaling
         (float32 numpy), or None for the plain-theta table."""
@@ -284,6 +321,15 @@ def init_params(cfg: TransformerConfig, generator: Optional[torch.Generator],
     return _map_plan(plan, lambda path, spec: leaves[path])
 
 
+def layer_params(blocks: Dict[str, Any], li: int, clone: bool = False
+                 ) -> Dict[str, Any]:
+    """Layer ``li``'s slice of a scan-layout ``blocks`` tree (leaves
+    stacked [L, ...], nested under ``moe``), as views or copies."""
+    return {k: (layer_params(v, li, clone) if isinstance(v, dict)
+                else (v[li].clone() if clone else v[li]))
+            for k, v in blocks.items()}
+
+
 def _map_plan(node, fn, prefix=()):
     return {k: (_map_plan(v, fn, prefix + (k,)) if isinstance(v, dict)
                 else fn(prefix + (k,), v)) for k, v in node.items()}
@@ -319,9 +365,10 @@ def iter_init_params(cfg: TransformerConfig, generator: torch.Generator,
 
 def _init_plan(cfg: TransformerConfig) -> Dict[str, Any]:
     """The scan-layout tree of :func:`init_params` as leaf specs (kind,
-    draw order, shape, fan-in or constant), in the tree's key order."""
-    if cfg.moe_experts > 0:
-        raise NotImplementedError("init_params builds blocks without MoE")
+    draw order, shape, fan-in or constant), in the tree's key order. A
+    MoE model's blocks hold ``moe``: the router ``gate/kernel`` [L, H, E]
+    and the experts' stacks ``experts/{gate,fc,proj}`` [L, E, in, out]
+    (biased as ``use_bias``), in place of the dense MLP."""
     L, H, V = cfg.num_layers, cfg.hidden_size, cfg.vocab_size
     nh, kvh, hd = cfg.num_heads, cfg.kv_heads, cfg.head_dim
     draws = itertools.count()
@@ -355,7 +402,19 @@ def _init_plan(cfg: TransformerConfig) -> Dict[str, Any]:
         blocks["k_norm"] = {"scale": const(1.0, L, hd)}
     if not cfg.parallel_residual or cfg.parallel_residual_dual_ln:
         blocks["ln2"] = norm(L)
-    if cfg.gated_mlp:
+    if cfg.moe_experts > 0:
+        E, F_ = cfg.moe_experts, cfg.mlp_dim
+
+        def expert(fan_in, fan_out):
+            p = {"kernel": normal(L, E, fan_in, fan_out, fan_in=fan_in)}
+            if cfg.use_bias:
+                p["bias"] = const(0.0, L, E, fan_out)
+            return p
+        experts = {"gate": expert(H, F_)} if cfg.gated_mlp else {}
+        experts.update(fc=expert(H, F_), proj=expert(F_, H))
+        blocks["moe"] = {"gate": {"kernel": normal(L, H, E, fan_in=H)},
+                         "experts": experts}
+    elif cfg.gated_mlp:
         blocks["mlp_gate"] = dense(H, cfg.mlp_dim, use(cfg.mlp_bias))
         blocks["mlp_fc"] = dense(H, cfg.mlp_dim, use(cfg.mlp_bias))
         blocks["mlp_proj"] = dense(cfg.mlp_dim, H, use(cfg.mlp_bias))
@@ -412,7 +471,6 @@ _NOT_PORTED = "is not ported to deepspeed_tpu_torch yet (see ROADMAP.md)"
 def _check_trainable(cfg: TransformerConfig) -> None:
     """Raise for the config features the module does not implement."""
     unported = {
-        "moe_experts": cfg.moe_experts > 0,
         "random-LTD (ltd_tokens)": cfg.ltd_tokens > 0, "pld": cfg.pld,
         "activation_quant": cfg.activation_quant,
     }
@@ -497,7 +555,8 @@ def _sparse_block_attention(cfg: TransformerConfig, q, k, v, *, mask, bias,
 
 _MASK64 = (1 << 64) - 1
 #: the dropout sites of a block (0 is the embeddings'), as seed offsets
-_SITES = {"embed": 0, "attn_probs": 1, "attn_out": 2, "mlp": 3}
+_SITES = {"embed": 0, "attn_probs": 1, "attn_out": 2, "mlp": 3,
+          "gating": 4}
 
 
 def mix_seed(*xs: int) -> int:
@@ -512,8 +571,8 @@ def mix_seed(*xs: int) -> int:
 
 
 def site_generator(seed: int, site: str, device) -> torch.Generator:
-    """The generator of one dropout site, made from its seed where the
-    draw happens: a remat recomputation makes it again from the same seed
+    """The generator of one dropout site (or of a MoE layer's gating
+    noise, site "gating"), made from its seed where the draw happens: a remat recomputation makes it again from the same seed
     and draws the same mask (``torch.utils.checkpoint`` restores the
     default generators' state, not an explicit generator's)."""
     return torch.Generator(device=device).manual_seed(
@@ -526,24 +585,43 @@ class Block(nn.Module):
     positions, attention through ``ops.attention`` (the flash kernels, or
     the block-sparse kernels for a pure window) or, with
     ``attention_impl="sparse"``, through the configured block-sparse
-    layout, GELU or SwiGLU MLP. The residual forms: pre-LN (with the
-    Gemma-2 sandwich norms), post-LN (BERT: LN after each residual add)
-    and parallel (GPT-J: one LN feeds both branches; GPT-NeoX: ``ln2``
-    feeds the MLP)."""
+    layout, GELU or SwiGLU MLP, or with ``cfg.moe_experts`` > 0 a
+    mixture of experts in its place (``moe.layer.MoE``: SwiGLU experts
+    with ``gated_mlp``, the GELU MLP otherwise). The residual forms:
+    pre-LN (with the Gemma-2 sandwich norms), post-LN (BERT: LN after
+    each residual add) and parallel (GPT-J: one LN feeds both branches;
+    GPT-NeoX: ``ln2`` feeds the MLP)."""
 
     def __init__(self, cfg: TransformerConfig,
                  params: Dict[str, Dict[str, torch.Tensor]]):
         super().__init__()
         self.cfg = cfg
         for name, leaf in params.items():
-            self.add_module(name, _Leaf(leaf))
+            if name == "moe":
+                from ..moe.layer import MoE
+                # the JAX Block's MoE: one capacity factor for training
+                # and eval
+                self.moe = MoE(
+                    cfg.hidden_size, cfg.moe_experts, k=cfg.moe_k,
+                    capacity_factor=cfg.moe_capacity_factor,
+                    eval_capacity_factor=cfg.moe_capacity_factor,
+                    dtype=cfg.dtype, params=leaf, activation=cfg.activation)
+            else:
+                self.add_module(name, _Leaf(leaf))
 
     def forward(self, x: torch.Tensor, attn_mask=None, positions=None,
-                window: int = 0, dropout_seed: Optional[int] = None
-                ) -> torch.Tensor:
-        """``dropout_seed``: this layer's seed in training with
+                window: int = 0, dropout_seed: Optional[int] = None,
+                gating_seed: Optional[int] = None):
+        """The block's output; a MoE block returns (output, aux), its
+        router's load-balance loss.
+
+        ``dropout_seed``: this layer's seed in training with
         ``cfg.dropout`` > 0 (None: no dropout). Each site draws from a
-        generator made from it here (:func:`site_generator`)."""
+        generator made from it here (:func:`site_generator`).
+        ``gating_seed``: in training, the seed of a MoE layer's top-2
+        Gumbel noise (None: no noise). The block's MoE takes one capacity
+        factor for training and eval, as the JAX Block's does, so the
+        noise is all that training changes there."""
         from ..ops.attention import attention, dropout
         from .generation import _dense, _layer_norm
         cfg = self.cfg
@@ -600,28 +678,39 @@ class Block(nn.Module):
         out = out.transpose(1, 2).reshape(B, S, nh * hd)
         out = dropout(_dense(out, self.attn_proj.p), rate, gen("attn_out"))
 
+        aux = []
+
         def mlp(m):
+            if cfg.moe_experts > 0:
+                g = (site_generator(gating_seed, "gating", x.device)
+                     if gating_seed is not None else None)
+                m, a = self.moe(m, train=g is not None, generator=g)
+                aux.append(a)
+                return m
             if cfg.gated_mlp:
                 m = act(_dense(m, self.mlp_gate.p)) * _dense(m, self.mlp_fc.p)
             else:
                 m = act(_dense(m, self.mlp_fc.p))
             return _dense(m, self.mlp_proj.p)
 
+        def done(y):
+            return (y, aux[0]) if aux else y
+
         if cfg.parallel_residual:
             m_in = (_layer_norm(x, self.ln2.p, eps, rms)
                     if cfg.parallel_residual_dual_ln else h)
-            return x + out + dropout(mlp(m_in), rate, gen("mlp"))
+            return done(x + out + dropout(mlp(m_in), rate, gen("mlp")))
         if cfg.post_ln:
             x = _layer_norm(x + out, self.ln1.p, eps, rms)
             m = dropout(mlp(x), rate, gen("mlp"))
-            return _layer_norm(x + m, self.ln2.p, eps, rms)
+            return done(_layer_norm(x + m, self.ln2.p, eps, rms))
         if cfg.post_block_norms:
             out = _layer_norm(out, self.post_attn_norm.p, eps, rms)
         x = x + out
         m = mlp(_layer_norm(x, self.ln2.p, eps, rms))
         if cfg.post_block_norms:
             m = _layer_norm(m, self.post_mlp_norm.p, eps, rms)
-        return x + dropout(m, rate, gen("mlp"))
+        return done(x + dropout(m, rate, gen("mlp")))
 
 
 class Transformer(nn.Module):
@@ -675,12 +764,9 @@ class Transformer(nn.Module):
                 self.add_module(name, _Leaf(sub))
             else:                   # a bare top-level array (mlm_bias)
                 self.register_parameter(name, nn.Parameter(sub))
-        layers = [{} for _ in range(cfg.num_layers)]
-        for name, sub in params["blocks"].items():
-            for key, t in sub.items():
-                for li, part in enumerate(t.unbind(0)):
-                    layers[li].setdefault(name, {})[key] = part.clone()
-        self.blocks = nn.ModuleList(Block(cfg, p) for p in layers)
+        self.blocks = nn.ModuleList(
+            Block(cfg, layer_params(params["blocks"], li, clone=True))
+            for li in range(cfg.num_layers))
 
     def _seeded_values(self, seed: int, gen_device, device=None):
         """(parameter name, f32 value) of ``Transformer(cfg, seed=seed,
@@ -691,17 +777,27 @@ class Transformer(nn.Module):
                                         dtype=torch.float32):
             if path[0] == "blocks":
                 for li in range(self.cfg.num_layers):
-                    yield f"blocks.{li}.{path[1]}.{path[2]}", t[li]
+                    yield ".".join(("blocks", str(li)) + path[1:]), t[li]
             else:
                 yield ".".join(path), t
 
     def forward(self, batch, train: bool = False,
-                dropout_seed: Optional[int] = None):
+                dropout_seed: Optional[int] = None,
+                gating_seed: Optional[int] = None):
         """``dropout_seed``: with ``train`` and ``cfg.dropout`` > 0, the
         seed of this call's masks (the engine's is per step, micro-batch
         and rank; default one drawn from torch's default generator). The
         embeddings' site and each layer's sites draw from generators made
         from it where they draw, so a remat recomputation repeats them.
+
+        A MoE model (``cfg.moe_experts`` > 0) returns ``(logits, aux)``,
+        or ``(loss, aux)`` under ``fused_loss``, with ``aux`` the routers'
+        load-balance losses summed over the layers (f32), as the JAX
+        ``Transformer`` does; :func:`make_moe_loss` folds it into the
+        loss. ``gating_seed``: with ``train``, the seed of the top-2
+        routers' Gumbel noise (each layer's generator made from it where
+        it draws, as dropout's are); None gates without noise, as the JAX
+        model does without a "gating" rng.
 
         Under sequence parallelism (``attention_impl`` "ring" or
         "ulysses" in a seq group of more than one rank) ``batch`` is this
@@ -763,15 +859,22 @@ class Transformer(nn.Module):
                    else [0] * cfg.num_layers)
         seeds = [None if seed is None else mix_seed(seed, li + 1)
                  for li in range(cfg.num_layers)]
-        if cfg.remat and torch.is_grad_enabled():
+        gseeds = [None if gating_seed is None or not train
+                  else mix_seed(int(gating_seed), li + 1)
+                  for li in range(cfg.num_layers)]
+        auxes = []
+        remat = cfg.remat and torch.is_grad_enabled()
+        if remat:
             # each block one checkpointed region under cfg.remat_policy
             from ..runtime.act_checkpoint import remat_block
-            for blk, window, ls in zip(self.blocks, windows, seeds):
-                x = remat_block(blk, cfg.remat_policy, x, attn_mask,
-                                user_positions, window, ls)
-        else:
-            for blk, window, ls in zip(self.blocks, windows, seeds):
-                x = blk(x, attn_mask, user_positions, window, ls)
+        for blk, window, ls, gs in zip(self.blocks, windows, seeds, gseeds):
+            args = (x, attn_mask, user_positions, window, ls, gs)
+            x = (remat_block(blk, cfg.remat_policy, *args) if remat
+                 else blk(*args))
+            if cfg.moe_experts > 0:
+                x, a = x
+                auxes.append(a)
+        aux_total = (torch.stack(auxes).sum() if auxes else None)
         if not cfg.post_ln:
             x = _layer_norm(x, self.ln_f.p, eps, rms)
         if cfg.mlm_head:
@@ -794,8 +897,9 @@ class Transformer(nn.Module):
                 if cfg.causal:
                     labels, shift = batch["shifted_labels"], 0
             labels = torch.as_tensor(labels, device=dev).long()
-            return _fused_causal_lm_loss(x, head, labels, cfg.loss_chunk,
+            loss = _fused_causal_lm_loss(x, head, labels, cfg.loss_chunk,
                                          shift=shift, count=count)
+            return loss if aux_total is None else (loss, aux_total)
         if cfg.tie_embeddings:
             logits = x @ emb.to(dt).transpose(0, 1)
         else:
@@ -804,7 +908,7 @@ class Transformer(nn.Module):
         if cfg.final_logit_softcap:
             from ..ops.attention import apply_softcap
             logits = apply_softcap(logits, cfg.final_logit_softcap)
-        return logits
+        return logits if aux_total is None else (logits, aux_total)
 
 
 def _chunk_nll(xc: torch.Tensor, emb_c: torch.Tensor, tc: torch.Tensor):
@@ -897,6 +1001,25 @@ def masked_lm_loss(logits: torch.Tensor, batch) -> torch.Tensor:
     labels when a sequence-parallel chunk's batch gives it)."""
     return cross_entropy(logits, batch["labels"],
                          count=batch.get("label_count"))
+
+
+def make_moe_loss(aux_weight: float = 0.01, base_loss=None):
+    """The loss of a MoE model's ``(logits, aux)``: ``base_loss(logits,
+    batch) + aux_weight * aux`` (default base :func:`causal_lm_loss`;
+    under ``fused_loss`` the model's outputs are ``(loss, aux)`` and the
+    base is :func:`fused_loss_passthrough`). It carries the JAX
+    package's markers ``_moe_loss``, ``_moe_base_loss`` and
+    ``_moe_aux_weight``; the engine reads the base loss from them."""
+    base = base_loss or causal_lm_loss
+
+    def moe_loss(outputs, batch):
+        logits, aux = outputs
+        return base(logits, batch) + aux_weight * aux
+
+    moe_loss._moe_loss = True
+    moe_loss._moe_base_loss = base
+    moe_loss._moe_aux_weight = aux_weight
+    return moe_loss
 
 
 def build_model(name_or_cfg, *, seed: int = 0, device=None,

@@ -120,24 +120,27 @@ def dot(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
 
 class _Hold(torch.autograd.Function):
-    """Identity on a region's output whose node saves the region's kept
-    values: they live as saved tensors until the backward reaches the
-    region, then go back to the frame for the recomputation."""
+    """Identity on a region's outputs (the first ``n_y`` tensors) whose
+    node saves the region's kept values: they live as saved tensors until
+    the backward reaches the region, then go back to the frame for the
+    recomputation. Every output of the region passes through it (a MoE
+    block returns its output and its aux loss), so no gradient enters
+    the region before the kept values are back."""
 
     @staticmethod
-    def forward(ctx, y, frame, n_out, *flat):
-        ctx.frame, ctx.n_out = frame, n_out
-        ctx.save_for_backward(*flat)
-        return y.view_as(y)
+    def forward(ctx, n_y, frame, n_out, *tensors):
+        ctx.frame, ctx.n_out, ctx.n_y = frame, n_out, n_y
+        ctx.save_for_backward(*tensors[n_y:])
+        return tuple(y.view_as(y) for y in tensors[:n_y])
 
     @staticmethod
-    def backward(ctx, g):
+    def backward(ctx, *gs):
         flat, saved, i = ctx.saved_tensors, [], 0
         for n in ctx.n_out:
             saved.append(flat[i] if n == 0 else tuple(flat[i:i + n]))
             i += max(n, 1)
         ctx.frame.saved = saved
-        return (g, None, None) + (None,) * len(flat)
+        return (None, None, None) + gs + (None,) * len(flat)
 
 
 def keep_region(fn: Callable, keep: Sequence[str], args, kwargs):
@@ -159,4 +162,6 @@ def keep_region(fn: Callable, keep: Sequence[str], args, kwargs):
         else:
             flat.append(s)
             n_out.append(0)
-    return _Hold.apply(y, frame, tuple(n_out), *flat)
+    ys = y if isinstance(y, tuple) else (y,)
+    out = _Hold.apply(len(ys), frame, tuple(n_out), *ys, *flat)
+    return out if isinstance(y, tuple) else out[0]

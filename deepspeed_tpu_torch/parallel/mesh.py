@@ -14,11 +14,15 @@ Axis layout (outer -> inner), as in the JAX package:
 Each axis, and each tuple of axes the engine reduces over
 (:data:`ZERO_AXES`, :data:`BATCH_AXES`, :data:`EXPERT_ZERO_AXES`), is
 one process group: the ranks that differ only in those coordinates
-(``ProcessTopology``). ``data`` and ``seq`` may exceed 1 in the port:
-the ranks of a ``seq`` group share their samples and each holds one
-chunk of every sequence (``parallel/ring_attention.py``). Pipelines,
-tensor and expert parallelism raise ``NotImplementedError`` naming
-ROADMAP.md (item 4.1), as the engine does for their config sections.
+(``ProcessTopology``). ``data``, ``expert`` and ``seq`` may exceed 1
+in the port: the ranks of a ``seq`` group share their samples and each
+holds one chunk of every sequence (``parallel/ring_attention.py``); an
+``expert`` group takes distinct samples, as ``data`` does, and splits
+the experts of every MoE layer among its ranks, whose queues cross it
+(``moe/layer.py``), while the expert leaves' ZeRO group is
+:data:`EXPERT_ZERO_AXES`. Pipelines and tensor parallelism raise
+``NotImplementedError`` naming ROADMAP.md (item 4.1), as the engine
+does for their config sections.
 """
 
 from __future__ import annotations
@@ -38,8 +42,7 @@ EXPERT_ZERO_AXES = ("data", "seq")
 BATCH_AXES = ("data", "expert")
 
 _UNPORTED_AXES = {"pipe": "pipelines (ROADMAP item 4.1)",
-                  "model": "tensor parallelism (ROADMAP item 4.1)",
-                  "expert": "expert parallelism (ROADMAP item 4.1)"}
+                  "model": "tensor parallelism (ROADMAP item 4.1)"}
 # the axis tuples whose process groups every mesh builds
 _GROUP_AXES = tuple((a,) for a in MESH_AXES) + (ZERO_AXES, EXPERT_ZERO_AXES,
                                                BATCH_AXES)
@@ -75,8 +78,7 @@ class MeshManager:
         inferred_dp = n // denom
         if dp_size is not None and dp_size != inferred_dp:
             raise ValueError(f"dp_size={dp_size} inconsistent with world size {n}")
-        for axis, size in (("pipe", pp_size), ("model", tp_size),
-                           ("expert", ep_size)):
+        for axis, size in (("pipe", pp_size), ("model", tp_size)):
             if size > 1:
                 raise NotImplementedError(
                     f"mesh axis '{axis}' of size {size}: "

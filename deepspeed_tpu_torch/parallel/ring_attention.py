@@ -290,23 +290,6 @@ def emulate_ring(q, k, v, sp: int, *, causal: bool = True,
             torch.cat(ring.dv, 2).to(v.dtype))
 
 
-class _AllToAll(torch.autograd.Function):
-    """comm.all_to_all along ``seq``; the backward is the inverse."""
-
-    @staticmethod
-    def forward(ctx, x, split_dim, concat_dim):
-        ctx.dims = (split_dim, concat_dim)
-        return comm.all_to_all(x, axis=SEQ_AXIS, split_dim=split_dim,
-                               concat_dim=concat_dim)
-
-    @staticmethod
-    def backward(ctx, g):
-        split_dim, concat_dim = ctx.dims
-        return comm.all_to_all(g.contiguous(), axis=SEQ_AXIS,
-                               split_dim=concat_dim,
-                               concat_dim=split_dim), None, None
-
-
 def ulysses_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                       causal: bool = True,
                       sm_scale: Optional[float] = None) -> torch.Tensor:
@@ -322,7 +305,10 @@ def ulysses_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if sp == 1:                             # the all-to-alls are identities
         return attention(q, k, v, causal=causal, sm_scale=scale,
                          impl="auto")
-    to_heads = lambda t: _AllToAll.apply(t, 1, 2)   # [B, H/sp, S, D]
+    # comm.all_to_all is differentiable: its backward is the inverse
+    to_heads = lambda t: comm.all_to_all(t, axis=SEQ_AXIS, split_dim=1,
+                                         concat_dim=2)   # [B, H/sp, S, D]
     oh = attention(to_heads(q), to_heads(k), to_heads(v), causal=causal,
                    sm_scale=scale, impl="auto")
-    return _AllToAll.apply(oh, 2, 1).to(q.dtype)
+    return comm.all_to_all(oh, axis=SEQ_AXIS, split_dim=2,
+                           concat_dim=1).to(q.dtype)

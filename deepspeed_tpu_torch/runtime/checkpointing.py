@@ -97,18 +97,24 @@ class CheckpointIntegrityError(RuntimeError):
 class Leaf:
     """One checkpoint leaf held by live tensors: ``parts`` is a single
     tensor (``stacked=False``) or the per-layer tensors that the file
-    holds stacked along a new leading dim. ``split``: (dim, rank, world)
-    when each part holds only this rank's slab of its whole tensor along
-    ``dim`` (a ZeRO shard), else None."""
+    holds stacked along a new leading dim. ``split``: when each part
+    holds only this rank's piece of its whole tensor, the list of (dim,
+    rank, world) slabs taken one after another from the whole (a ZeRO
+    shard, or an expert leaf's experts and then its ZeRO shard), else
+    None. ``writes``: whether this rank writes its piece
+    to a sharded save (default: a split piece, or the whole on rank
+    0)."""
 
-    __slots__ = ("parts", "stacked", "split")
+    __slots__ = ("parts", "stacked", "split", "writes")
 
-    def __init__(self, parts, stacked: bool = False,
-                 split: Optional[Tuple[int, int, int]] = None):
+    def __init__(self, parts, stacked: bool = False, split=None,
+                 writes: Optional[bool] = None):
         self.parts: List[torch.Tensor] = (list(parts) if stacked
                                           else [parts])
         self.stacked = stacked
-        self.split = split
+        self.split: Optional[List[Tuple[int, int, int]]] = (
+            list(split) if split else None)
+        self.writes = writes
 
     def _lead(self) -> Tuple[int, ...]:
         return (len(self.parts),) if self.stacked else ()
@@ -117,17 +123,19 @@ class Leaf:
     def shape(self) -> Tuple[int, ...]:
         """The whole leaf's shape."""
         s = list(self.parts[0].shape)
-        if self.split is not None:
-            s[self.split[0]] *= self.split[2]
+        for dim, _, world in self.split or ():
+            s[dim] *= world
         return self._lead() + tuple(s)
 
     @property
     def start(self) -> List[int]:
         """Offsets of this rank's piece (:meth:`read`) in the whole leaf."""
-        start = [0] * len(self.shape)
-        if self.split is not None:
-            dim, rank, _ = self.split
-            start[len(self._lead()) + dim] = rank * self.parts[0].shape[dim]
+        lead = len(self._lead())
+        shape = list(self.shape)
+        start = [0] * len(shape)
+        for dim, rank, world in self.split or ():
+            shape[lead + dim] //= world
+            start[lead + dim] += rank * shape[lead + dim]
         return start
 
     def read(self, pinned: bool = False) -> torch.Tensor:
@@ -149,10 +157,10 @@ class Leaf:
         dtype."""
         if tuple(value.shape) != self.shape:
             raise ValueError(f"shape {tuple(value.shape)} vs {self.shape}")
-        if self.split is not None:
-            dim, rank, _ = self.split
-            size = self.parts[0].shape[dim]
-            value = value.narrow(len(self._lead()) + dim, rank * size, size)
+        lead = len(self._lead())
+        for dim, rank, world in self.split or ():
+            size = value.shape[lead + dim] // world
+            value = value.narrow(lead + dim, rank * size, size)
         src = value.unbind(0) if self.stacked else (value,)
         with torch.no_grad():
             for part, v in zip(self.parts, src):
@@ -927,7 +935,8 @@ def shard_flat_dict(flat: Dict[str, Any], rank: int) -> Dict[str, Any]:
         shape = list(v.shape) if isinstance(v, (Leaf, torch.Tensor)) \
             else list(np.shape(v))
         pieces = []
-        if split or rank == 0:
+        writes = v.writes if isinstance(v, Leaf) else None
+        if writes if writes is not None else (split or rank == 0):
             name = f"{key}::0"
             out[name] = v
             pieces.append({"name": name,

@@ -64,6 +64,14 @@ are summed over ``seq`` and averaged over the data ranks. Dropout masks
 come from seeds per step, micro-batch and data and seq rank
 (:meth:`DeepSpeedEngine._dropout_seed`).
 
+Mixture of experts (the ``moe`` section, with a model built with
+``moe_experts``): ``ep_size`` splits the mesh's ``expert`` axis, each
+rank holding its share of every expert leaf (``runtime/zero/
+partition.py``); a ``make_moe_loss`` loss takes the model's ``(logits,
+aux)``, each training call gets a gating seed per step, micro-batch and
+rank (top-2's noise, :meth:`DeepSpeedEngine._gating_seed`), and the
+metrics carry the step's mean ``aux``.
+
 Everything else that a config can enable and this engine does not
 implement raises ``NotImplementedError`` naming ROADMAP.md: CPU/NVMe
 offload (and ``activation_checkpointing.cpu_checkpointing``), the 1-bit
@@ -155,7 +163,6 @@ def unported_sections(config: DeepSpeedConfig) -> List[str]:
         "eigenvalue": c.eigenvalue.enabled,
         "tensor_parallel (tp_size > 1)": c.tensor_parallel.tp_size > 1,
         "pipeline (stages > 1)": c.pipeline.stages > 1,
-        "moe": c.moe.enabled,
         "activation_checkpointing.cpu_checkpointing (host offload, "
         "ROADMAP item 5.2)": act.cpu_checkpointing,
         "watchdog": any(t > 0 for t in (
@@ -297,11 +304,15 @@ class DeepSpeedEngine:
         self.batch_rank, self.batch_world = 0, 1
         self.seq_rank, self.seq_world = 0, 1
         sp_size = self.config.sequence_parallel.sp_size
-        if sp_size > 1 and not comm.is_initialized():
-            raise ValueError(
-                f"sequence_parallel.sp_size {sp_size} needs a process group "
-                f"of a multiple of {sp_size} ranks (launch the script with "
-                "launcher/launch.py, or call comm.init_distributed())")
+        moe = self.config.moe
+        ep_size = moe.ep_size if moe.enabled else 1
+        for key, size in (("sequence_parallel.sp_size", sp_size),
+                          ("moe.ep_size", ep_size)):
+            if size > 1 and not comm.is_initialized():
+                raise ValueError(
+                    f"{key} {size} needs a process group of a multiple of "
+                    f"{size} ranks (launch the script with "
+                    "launcher/launch.py, or call comm.init_distributed())")
         if comm.is_initialized():
             from ..parallel.mesh import (BATCH_AXES, ZERO_AXES,
                                          build_mesh_from_config,
@@ -317,7 +328,8 @@ class DeepSpeedEngine:
             self.mesh = get_global_mesh()
             if self.mesh is None or \
                     self.mesh.world_size != comm.get_world_size() or \
-                    self.mesh.shape["seq"] != sp_size:
+                    self.mesh.shape["seq"] != sp_size or \
+                    self.mesh.shape["expert"] != ep_size:
                 self.mesh = build_mesh_from_config(self.config)
             dp_world = self.mesh.axes_size(ZERO_AXES)
             dp_rank = self.mesh.axis_rank(ZERO_AXES)
@@ -369,6 +381,8 @@ class DeepSpeedEngine:
             sig = {}
         self._takes_train = "train" in sig
         self._takes_seed = "dropout_seed" in sig
+        self._takes_gating = "gating_seed" in sig
+        self._moe_loss = bool(getattr(self.loss_fn, "_moe_loss", False))
         self._seq_labels = (self._sequence_parallel_labels(model)
                             if self.seq_world > 1 else None)
         from .. import zero
@@ -395,7 +409,7 @@ class DeepSpeedEngine:
                 self.compute_dtype,
                 torch.float32 if self.keep_master else self.compute_dtype,
                 self.grad_accum_dtype, self.device, values,
-                grad_world=self.batch_world)
+                grad_world=self.batch_world, mesh=self.mesh)
             model.to(self.device)       # buffers: the parameters are placed
             self._params = self.dp.params
             self.master: List[torch.Tensor] = self.dp.masters
@@ -459,6 +473,7 @@ class DeepSpeedEngine:
         self.micro_steps = 0
         self._accum: Optional[List[torch.Tensor]] = None
         self._accum_losses: List[torch.Tensor] = []
+        self._auxes: List[torch.Tensor] = []    # MoE aux, see _loss
         self._micro_count = 0
         self._pending = None
         self._train_mode = True
@@ -474,6 +489,8 @@ class DeepSpeedEngine:
         if self.seq_world > 1:
             where += (f", {self.seq_world} sequence chunks "
                       f"({self.module.cfg.attention_impl})")
+        if ep_size > 1:
+            where += f", experts split over {ep_size} ranks"
         log_dist(f"DeepSpeedEngine initialized: ZeRO stage "
                  f"{self.config.zero_optimization.stage} ({where}), "
                  f"dtype {self.config.precision_dtype}, device {self.device}, "
@@ -509,6 +526,7 @@ class DeepSpeedEngine:
         would see one chunk as if it were the sample, so it raises."""
         from ..models import transformer as tr
         cfg = getattr(model, "cfg", None)
+        loss_fn = getattr(self.loss_fn, "_moe_base_loss", self.loss_fn)
         if not isinstance(cfg, tr.TransformerConfig):
             raise ValueError(
                 "sequence_parallel.sp_size > 1 runs the in-tree Transformer "
@@ -518,12 +536,12 @@ class DeepSpeedEngine:
                 "sequence_parallel.sp_size > 1 with dynamic rope scaling: its "
                 "table follows the whole sequence's length, which a rank's "
                 "chunk does not see (ROADMAP.md Queue 3)")
-        if self.loss_fn is tr.masked_lm_loss:
+        if loss_fn is tr.masked_lm_loss:
             return "masked"
-        if self.loss_fn is tr.causal_lm_loss:
+        if loss_fn is tr.causal_lm_loss:
             return "causal"
-        if cfg.fused_loss and self.loss_fn in (tr.fused_loss_passthrough,
-                                               _default_loss_fn):
+        if cfg.fused_loss and loss_fn in (tr.fused_loss_passthrough,
+                                          _default_loss_fn):
             return "causal" if cfg.causal else "masked"
         raise ValueError(
             "sequence_parallel.sp_size > 1 needs loss_fn causal_lm_loss, "
@@ -590,6 +608,16 @@ class DeepSpeedEngine:
         return mix_seed(self.config.seed, self.global_steps * gas + micro,
                         self.batch_rank, self.seq_rank)
 
+    def _gating_seed(self, micro: int) -> int:
+        """The seed of one micro-batch's MoE gating noise (the JAX
+        engine's "gating" stream, which it passes in every training
+        step): like the dropout seed, a stream of its own."""
+        from ..models.transformer import mix_seed
+        gas = self.config.gradient_accumulation_steps
+        return mix_seed(self.config.seed, 0x67617465,
+                        self.global_steps * gas + micro, self.batch_rank,
+                        self.seq_rank)
+
     def _activation_checkpointing(self, model: nn.Module):
         """The ``activation_checkpointing`` section (JAX engine
         :295-331): for the in-tree ``Transformer`` with ``remat`` on, the
@@ -616,9 +644,25 @@ class DeepSpeedEngine:
         kw = {"train": train} if self._takes_train else {}
         if train and self._takes_seed:
             kw["dropout_seed"] = self._dropout_seed(micro)
+        if train and self._takes_gating:
+            kw["gating_seed"] = self._gating_seed(micro)
         if self._remat_apply is not None and train:
             return self._remat_apply(batch, kw)
         return self.module(batch, **kw)
+
+    def _loss(self, outputs, batch) -> torch.Tensor:
+        """``loss_fn(outputs, batch)``. A MoE loss's outputs carry the
+        routers' aux loss, kept for the step's metrics; each rank's aux is
+        its own gating group's, so under sequence parallelism, where the
+        ranks of a seq group sum their losses, it enters as its share
+        (aux / sp): the step then weighs the mean over every group, as
+        the JAX model's mean over its groups does."""
+        if self._moe_loss:
+            logits, aux = outputs
+            self._auxes.append(aux.detach().to(torch.float32))
+            if self.seq_world > 1:
+                outputs = (logits, aux / self.seq_world)
+        return self.loss_fn(outputs, batch)
 
     def _micro_backward(self, loss: torch.Tensor) -> None:
         """Backward of the scaled loss; the compute-dtype grads, cast to
@@ -651,10 +695,13 @@ class DeepSpeedEngine:
         denom = float(n_micro) * self.scale_state.scale
         grads = self._accum
         self._accum = None
+        auxes, self._auxes = self._auxes, []
+        aux_h = None
         if self.dp is not None:
             # this rank's slabs; flag, norm and loss from one all-reduce
             grads = self.dp.step_grads(denom)
-            finite_h, sq_h, loss_h = self.dp.step_stats(grads, losses)
+            finite_h, sq_h, loss_h, aux_h = self.dp.step_stats(
+                grads, losses, auxes)
         else:
             if all(g.dtype == torch.float32 for g in grads):
                 torch._foreach_div_(grads, denom)
@@ -665,9 +712,13 @@ class DeepSpeedEngine:
             sq = torch.stack(torch._foreach_norm(grads)).square().sum()
             loss = torch.stack([x.detach().to(torch.float32)
                                 for x in losses]).mean()
-            # one host read a step: the overflow flag, the norm and the loss
-            finite_h, sq_h, loss_h = torch.stack(
-                [finite.to(torch.float32), sq, loss]).tolist()
+            # one host read a step: the overflow flag, the norm, the loss
+            # (and a MoE model's aux)
+            read = [finite.to(torch.float32), sq, loss]
+            if auxes:
+                read.append(torch.stack(auxes).mean())
+            finite_h, sq_h, loss_h, *rest = torch.stack(read).tolist()
+            aux_h = rest[0] if rest else None
         overflow = finite_h != 1.0
         norm = float(np.sqrt(sq_h)) if sq_h >= 0 else float("nan")
         skip = overflow
@@ -697,9 +748,12 @@ class DeepSpeedEngine:
         self.nonfinite_streak = self.nonfinite_streak + 1 if skip else 0
         self._skipped_steps += int(skip)
         self.step_count += 0 if skip else 1
-        return {"loss": loss_h, "grad_norm": norm, "lr": lr,
-                "overflow": skip, "loss_scale": old_scale,
-                "nonfinite_streak": self.nonfinite_streak}
+        metrics = {"loss": loss_h, "grad_norm": norm, "lr": lr,
+                   "overflow": skip, "loss_scale": old_scale,
+                   "nonfinite_streak": self.nonfinite_streak}
+        if aux_h is not None:
+            metrics["aux"] = aux_h
+        return metrics
 
     def _after_step(self, metrics: Dict[str, Any]) -> None:
         self.global_steps += 1
@@ -753,7 +807,7 @@ class DeepSpeedEngine:
         losses = []
         for i in range(gas):
             micro = self._to_device(self._seq_chunk(split(batch, i)))
-            loss = self.loss_fn(self._apply(micro, True, i), micro)
+            loss = self._loss(self._apply(micro, True, i), micro)
             self._micro_backward(loss)
             losses.append(loss.detach())
             self.micro_steps += 1
@@ -789,8 +843,8 @@ class DeepSpeedEngine:
             with torch.no_grad():
                 return self.loss_fn(self._apply(batch, False), batch)
         self.module.train()
-        loss = self.loss_fn(self._apply(batch, True, self._micro_count),
-                            batch)
+        loss = self._loss(self._apply(batch, True, self._micro_count),
+                          batch)
         self._pending = loss
         return loss
 
@@ -906,22 +960,27 @@ class DeepSpeedEngine:
         stacked = {path: flax and path.startswith("blocks/")
                    for path in groups}
         def split(p, kind):
+            """(splits, writes): an expert leaf's expert slab, then the
+            ZeRO slab along the kind's dim; whether this rank writes the
+            piece (one rank of the group where it is whole)."""
             if self.dp is None or id(p) not in index:
-                return None
+                return None, None
             e = self.dp.entries[index[id(p)]]
             dim = e.pdim if kind == "param" else e.mdim
-            return (None if dim is None
-                    else (dim, self.dp_rank, self.dp_world_size))
+            splits = [] if e.eslab is None else [e.eslab]
+            if dim is not None:
+                splits.append((dim, e.rank, e.world))
+            return splits or None, dim is not None or e.rank == 0
 
         params = {path: ckpt_lib.Leaf(ps if stacked[path] else ps[0],
-                                      stacked[path], split(ps[0], "param"))
+                                      stacked[path], *split(ps[0], "param"))
                   for path, ps in groups.items()}
 
         def over(tensors):
             return {path: ckpt_lib.Leaf(
                 [tensors[index[id(p)]] for p in ps] if stacked[path]
                 else tensors[index[id(ps[0])]], stacked[path],
-                split(ps[0], "master"))
+                *split(ps[0], "master"))
                 for path, ps in groups.items() if id(ps[0]) in index}
 
         master = (over(self.master)

@@ -16,6 +16,20 @@ group along the dims :class:`~.stages.ZeroShardingPolicy` picks:
 * compute parameters hold this rank's slab along ``pdim`` at stage 3 and
   are gathered around each use (:meth:`ZeroPartition.install_gathers`).
 
+**Expert leaves** (a parameter whose name has an ``experts`` part, the
+JAX engine's ``expert_fn``: a MoE layer's stacked [E, ...] expert
+kernels and biases) first split their E dim over the mesh's ``expert``
+axis: each rank holds and trains only its E / ep experts
+(``ZeroParam.eslab``), and the MoE layer's all-to-all brings it their
+queues. ZeRO then works on that local piece over
+:data:`~...parallel.mesh.EXPERT_ZERO_AXES` (``data``, ``seq``): its
+slabs, stage-3 gathers and gradient reductions stay within that group.
+The all-to-all's backward has already summed, on each expert's owner,
+the gradients of every rank of its expert group, so the reduction over
+the expert-data group covers every rank's share, and it is divided by
+the same ``grad_world`` (the ranks that take distinct samples) as every
+other leaf's. Every other leaf keeps ``ZERO_AXES``.
+
 At a world of one every split is 1-way and the same collectives run, so
 one GPU runs the sharded path with real NCCL calls.
 
@@ -53,7 +67,7 @@ import torch
 from torch import nn
 
 from ... import comm
-from ...parallel.mesh import ZERO_AXES
+from ...parallel.mesh import EXPERT_ZERO_AXES, ZERO_AXES
 from .stages import ZeroShardingPolicy
 
 
@@ -68,20 +82,36 @@ def slab(t: torch.Tensor, dim: Optional[int], rank: int, world: int
 
 class ZeroParam:
     """One trainable parameter's place in the partition: where it lives
-    (``owner._parameters[name]``), its full shape, the dims it splits on
-    (None: whole) and its index in the engine's parameter list."""
+    (``owner._parameters[name]``), its shape (``full_shape`` the whole
+    tensor's, ``shape`` this rank's expert piece of it), the dims it
+    splits on (None: whole), its ZeRO group (``axes``, with this rank's
+    ``rank`` in it of ``world``), an expert leaf's ``eslab`` (dim 0, its
+    expert rank, ep) and its index in the engine's parameter list."""
 
-    __slots__ = ("param", "owner", "name", "shape", "pdim", "mdim", "gdim",
-                 "index", "partition", "aliased")
+    __slots__ = ("param", "owner", "name", "shape", "full_shape", "pdim",
+                 "mdim", "gdim", "index", "partition", "aliased", "axes",
+                 "rank", "world", "eslab")
 
-    def __init__(self, partition, index, owner, name, param, policy):
+    def __init__(self, partition, index, owner, name, param, policy,
+                 group, eslab=None):
         self.partition = partition
         self.index = index
         self.owner, self.name, self.param = owner, name, param
-        self.shape = tuple(param.shape)
-        self.pdim = policy.param_dim(self.shape)
-        self.mdim = policy.master_dim(self.shape)
-        self.gdim = policy.grad_dim(self.shape)
+        self.axes, self.rank, self.world = group
+        self.eslab = eslab
+        self.full_shape = tuple(param.shape)
+        shape = list(self.full_shape)
+        if eslab is not None:
+            if shape[0] % eslab[2]:
+                raise ValueError(f"expert leaf '{name}' of shape "
+                                 f"{self.full_shape}: {shape[0]} experts "
+                                 f"do not split over {eslab[2]} ranks")
+            shape[0] //= eslab[2]
+        self.shape = tuple(shape)
+        is_expert = self.axes == EXPERT_ZERO_AXES
+        self.pdim = policy.param_dim(self.shape, is_expert)
+        self.mdim = policy.master_dim(self.shape, is_expert)
+        self.gdim = policy.grad_dim(self.shape, is_expert)
         self.aliased = False
 
     @property
@@ -89,12 +119,25 @@ class ZeroParam:
         """Held as a slab between uses (stage 3)."""
         return self.pdim is not None
 
+    def local(self, whole: torch.Tensor) -> torch.Tensor:
+        """This rank's expert piece of the whole tensor (itself for a
+        leaf that is no expert's)."""
+        return whole if self.eslab is None else slab(whole, *self.eslab)
+
     def full_data(self) -> torch.Tensor:
-        """The whole compute parameter (an all-gather when gathered)."""
+        """The compute parameter gathered over its ZeRO group (an expert
+        leaf's local experts)."""
         p = self.param.data
         if self.pdim is None:
             return p
-        return comm.all_gather(p, axis=ZERO_AXES, gather_dim=self.pdim)
+        return comm.all_gather(p, axis=self.axes, gather_dim=self.pdim)
+
+    def whole_data(self) -> torch.Tensor:
+        """The whole parameter, an expert leaf's every expert too."""
+        p = self.full_data()
+        if self.eslab is None:
+            return p
+        return comm.all_gather(p, axis="expert", gather_dim=0)
 
 
 class _Gather(torch.autograd.Function):
@@ -138,13 +181,15 @@ class ZeroPartition:
                  compute_dtype: torch.dtype, master_dtype: torch.dtype,
                  grad_accum_dtype: torch.dtype, device: torch.device,
                  values: Optional[Iterator[Tuple[str, torch.Tensor]]] = None,
-                 grad_world: Optional[int] = None):
+                 grad_world: Optional[int] = None, mesh=None):
         self.module = module
         # the ranks whose losses are averaged: the ZeRO group less its seq
         # axis, whose ranks hold shares of one loss (summed, not averaged)
         self.grad_world = world if grad_world is None else grad_world
         self.policy, self.stage = policy, policy.stage
         self.rank, self.world = rank, world
+        self.world_all = (world if mesh is None
+                          else mesh.axes_size(ZERO_AXES))
         self.compute_dtype, self.master_dtype = compute_dtype, master_dtype
         self.grad_accum_dtype = grad_accum_dtype
         self.device = device
@@ -154,11 +199,23 @@ class ZeroPartition:
                 if p is not None:
                     owners.setdefault(id(p), (mod, pname,
                                               f"{mname}.{pname}".lstrip(".")))
+        # the expert leaves' groups (``mesh``: the engine's MeshManager;
+        # without one every leaf is over the ZeRO group given)
+        dense = (ZERO_AXES, rank, world)
+        expert, eslab = dense, None
+        if mesh is not None:
+            expert = (EXPERT_ZERO_AXES, mesh.axis_rank(EXPERT_ZERO_AXES),
+                      mesh.axes_size(EXPERT_ZERO_AXES))
+            ep = mesh.shape["expert"]
+            eslab = (0, mesh.axis_rank("expert"), ep) if ep > 1 else None
         self.entries: List[ZeroParam] = []
         by_name: Dict[str, ZeroParam] = {}
         for i, p in enumerate(params):
             mod, pname, full = owners[id(p)]
-            e = ZeroParam(self, i, mod, pname, p, policy)
+            is_expert = mesh is not None and "experts" in full.split(".")
+            e = ZeroParam(self, i, mod, pname, p, policy,
+                          expert if is_expert else dense,
+                          eslab if is_expert else None)
             self.entries.append(e)
             by_name[full] = e
         self.masters: List[Optional[torch.Tensor]] = [None] * len(params)
@@ -176,19 +233,20 @@ class ZeroPartition:
         self._live: Dict[int, ZeroParam] = {}
         self._hooks = []
         self._saved_ctx = None
-        self._rep = torch.tensor([e.mdim is None for e in self.entries],
-                                 device=device)
+        # a leaf whole on every rank of its group counts on its rank 0
+        self._rep = torch.tensor([e.mdim is None and e.rank != 0
+                                  for e in self.entries], device=device)
 
     # ------------------------------------------------------------ placement
 
     def _place(self, e: ZeroParam, full: torch.Tensor) -> None:
         """Fill entry ``e`` from its whole value: the master slab along
         mdim, the compute parameter (its slab along pdim at stage 3)."""
-        full = full.detach().to(self.device, torch.float32)
-        if tuple(full.shape) != e.shape:
+        if tuple(full.shape) != e.full_shape:
             raise ValueError(f"value of '{e.name}' has shape "
-                             f"{tuple(full.shape)}, expected {e.shape}")
-        data = slab(full, e.pdim, self.rank, self.world).to(
+                             f"{tuple(full.shape)}, expected {e.full_shape}")
+        full = e.local(full.detach()).to(self.device, torch.float32)
+        data = slab(full, e.pdim, e.rank, e.world).to(
             self.compute_dtype).contiguous()
         if data.data_ptr() == full.data_ptr():
             data = data.clone()
@@ -204,8 +262,8 @@ class ZeroPartition:
             self.masters[e.index] = e.param.data      # the optimizer's own
             e.aliased = True
         else:
-            self.masters[e.index] = slab(full, e.mdim, self.rank,
-                                         self.world).to(
+            self.masters[e.index] = slab(full, e.mdim, e.rank,
+                                         e.world).to(
                 self.master_dtype).clone()
 
     @property
@@ -299,17 +357,17 @@ class ZeroPartition:
     def gathered(self, params: Iterable[nn.Parameter],
                  modifier_rank: Optional[int] = None):
         """Whole ``params`` in ``.data`` for the block (``zero.
-        GatheredParameters``). With ``modifier_rank``, that rank's values
-        are broadcast on exit and written back into every rank's master
-        and parameter slabs."""
+        GatheredParameters``; an expert leaf with all its experts). With
+        ``modifier_rank``, that rank's values are broadcast on exit and
+        written back into every rank's master and parameter slabs."""
         es = [p.ds_zero for p in params
               if getattr(p, "ds_zero", None) is not None
               and p.ds_zero.partition is self]
         shards = {}
         for e in es:
-            if e.gathered:
+            if e.gathered or e.eslab is not None:
                 shards[e.index] = e.param.data
-                e.param.data = e.full_data()
+                e.param.data = e.whole_data()
         try:
             yield
         except BaseException:
@@ -318,14 +376,15 @@ class ZeroPartition:
                     e.param.data = shards[e.index]
             raise
         for e in es:
-            full = e.param.data
+            whole = e.param.data
+            full = e.local(whole)
             if modifier_rank is not None:
-                comm.broadcast(full, src=modifier_rank, axis=ZERO_AXES)
+                comm.broadcast(whole, src=modifier_rank, axis=ZERO_AXES)
                 if not e.aliased:
                     self.masters[e.index].copy_(
-                        slab(full, e.mdim, self.rank, self.world))
+                        slab(full, e.mdim, e.rank, e.world))
             if e.index in shards:
-                e.param.data = (slab(full, e.pdim, self.rank, self.world)
+                e.param.data = (slab(full, e.pdim, e.rank, e.world)
                                 .contiguous() if modifier_rank is not None
                                 else shards[e.index])
 
@@ -338,7 +397,7 @@ class ZeroPartition:
         accumulator."""
         g = grad.to(self.grad_accum_dtype)
         if e.gdim is not None:
-            g = comm.reduce_scatter(g, axis=ZERO_AXES, scatter_dim=e.gdim)
+            g = comm.reduce_scatter(g, axis=e.axes, scatter_dim=e.gdim)
             g.div_(self.grad_world)
         a = self.accum[e.index]
         if a is None:
@@ -363,7 +422,7 @@ class ZeroPartition:
     def _slot_shape(self, e: ZeroParam) -> Tuple[int, ...]:
         shape = list(e.shape)
         if e.gdim is not None:
-            shape[e.gdim] //= self.world
+            shape[e.gdim] //= e.world
         return tuple(shape)
 
     def step_grads(self, denom: float) -> List[torch.Tensor]:
@@ -377,9 +436,8 @@ class ZeroPartition:
                 a = torch.zeros(self._slot_shape(e), device=self.device,
                                 dtype=self.grad_accum_dtype)
             if e.gdim is None:
-                comm.all_reduce(a, op=comm.ReduceOp.SUM, axis=ZERO_AXES)
-                a = slab(a.div_(self.grad_world), e.mdim, self.rank,
-                         self.world)
+                comm.all_reduce(a, op=comm.ReduceOp.SUM, axis=e.axes)
+                a = slab(a.div_(self.grad_world), e.mdim, e.rank, e.world)
             grads.append(a)
         self.accum = [None] * len(self.entries)
         if all(g.dtype == torch.float32 for g in grads):
@@ -388,32 +446,39 @@ class ZeroPartition:
         return [g.to(torch.float32) / denom for g in grads]
 
     def step_stats(self, grads: List[torch.Tensor],
-                   losses: List[torch.Tensor]) -> Tuple[float, float, float]:
+                   losses: List[torch.Tensor],
+                   auxes: Optional[List[torch.Tensor]] = None
+                   ) -> Tuple[float, float, float, Optional[float]]:
         """(finite flag, squared global grad norm, mean loss of the global
-        batch) from one all-reduce of this rank's partials, read to the
-        host once."""
+        batch, mean of ``auxes`` over the batch ranks or None) from one
+        all-reduce of this rank's partials, read to the host once."""
         n = len(grads)
         sq = torch.stack(torch._foreach_norm(grads)).square()
-        if self.rank != 0:                  # replicated leaves: rank 0's
-            sq = torch.where(self._rep, torch.zeros_like(sq), sq)
+        # a replicated leaf counts on its group's rank 0
+        sq = torch.where(self._rep, torch.zeros_like(sq), sq)
         bad = torch.stack([~torch.isfinite(g).all() for g in grads]).sum()
         loss = torch.stack([x.detach().to(torch.float32)
                             for x in losses]).mean()
-        packed = torch.cat([sq, bad.to(sq.dtype).view(1), loss.view(1)])
+        parts = [sq, bad.to(sq.dtype).view(1), loss.view(1)]
+        if auxes:
+            parts.append(torch.stack(auxes).mean().view(1))
+        packed = torch.cat(parts)
         comm.all_reduce(packed, op=comm.ReduceOp.SUM, axis=ZERO_AXES)
         total = packed[:n].sum()
         finite = (packed[n] == 0).to(torch.float32)
-        mean_loss = packed[n + 1] / self.grad_world
-        finite_h, sq_h, loss_h = torch.stack(
-            [finite, total, mean_loss]).tolist()
-        return finite_h, sq_h, loss_h
+        # the seq ranks of a sample hold shares of one loss; the MoE aux
+        # of every rank is a whole group's, so it averages over them all
+        host = [finite, total, packed[n + 1] / self.grad_world]
+        if auxes:
+            host.append(packed[n + 2] / self.world_all)
+        finite_h, sq_h, loss_h, *aux = torch.stack(host).tolist()
+        return finite_h, sq_h, loss_h, (aux[0] if aux else None)
 
     def reduce_leaf_sq(self, sq: torch.Tensor) -> torch.Tensor:
         """[n, k] per-leaf squared norms of this rank's optimizer slabs ->
         the whole leaves' (a replicated leaf counted once): LAMB's trust
         ratio norms."""
-        if self.rank != 0:
-            sq = torch.where(self._rep[:, None], torch.zeros_like(sq), sq)
+        sq = torch.where(self._rep[:, None], torch.zeros_like(sq), sq)
         return comm.all_reduce(sq.contiguous(), op=comm.ReduceOp.SUM,
                                axis=ZERO_AXES)
 
@@ -430,5 +495,5 @@ class ZeroPartition:
                 e.param.data.copy_(v)
                 continue
             full = v if e.mdim is None else comm.all_gather(
-                v, axis=ZERO_AXES, gather_dim=e.mdim)
-            e.param.data.copy_(slab(full, e.pdim, self.rank, self.world))
+                v, axis=e.axes, gather_dim=e.mdim)
+            e.param.data.copy_(slab(full, e.pdim, e.rank, e.world))

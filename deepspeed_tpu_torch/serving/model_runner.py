@@ -22,9 +22,10 @@ from typing import Any, Dict, Tuple
 import numpy as np
 import torch
 
-from ..models.generation import _dense, _layer_norm, check_decodable
+from ..models.generation import (_dense, _layer_norm, _moe_mlp,
+                                 check_decodable)
 from ..models.transformer import (_ACTIVATIONS, TransformerConfig,
-                                  alibi_slopes, apply_rotary)
+                                  alibi_slopes, apply_rotary, layer_params)
 from ..ops.attention import apply_softcap, paged_attention
 from ..quant_format import kv_quantize
 
@@ -122,10 +123,8 @@ def paged_forward(cfg: TransformerConfig,
     scale_kw = ({"k_scale": pools["k_scale"], "v_scale": pools["v_scale"]}
                 if quant_kv else {})
     blocks = params["blocks"]
-    layer_p = lambda li: {name: {k: t[li] for k, t in sub.items()}
-                          for name, sub in blocks.items()}
     for li in range(L):
-        p = layer_p(li)
+        p = layer_params(blocks, li)
         h = _layer_norm(x, p["ln1"], eps, rms)
         qkv = dense(h, p["attn_qkv"])
         q, k, v = torch.split(qkv, [nh * hd, kvh * hd, kvh * hd], dim=-1)
@@ -167,6 +166,8 @@ def paged_forward(cfg: TransformerConfig,
             attn_out = _layer_norm(attn_out, p["post_attn_norm"], eps, rms)
 
         def mlp(hin):
+            if cfg.moe_experts > 0:
+                return _moe_mlp(cfg, p["moe"], hin)
             if cfg.gated_mlp:
                 g = act(dense(hin, p["mlp_gate"]))
                 return dense(g * dense(hin, p["mlp_fc"]), p["mlp_proj"])

@@ -11,7 +11,9 @@ Falcon 40B-style, GPT-NeoX sequential and Qwen3 windowed variants):
 * the port's ``Transformer`` logits (hidden states for CLIP) match HF's
   own torch forward at rtol = atol = 2e-3, in f32 on the CPU with
   ``attention_impl="auto"`` (the kernels' plain versions);
-* Mixtral maps like JAX and ``replace_transformer_layer`` refuses it;
+* Mixtral maps like JAX, ``replace_transformer_layer`` runs it against
+  HF's logits (2e-3) and greedy tokens (equal), and refuses a top-3
+  router, which the MoE layer does not take;
 * the port's ``Transformer`` against the JAX ``Transformer`` on the same
   numpy-seeded weights for each new block form, f32 at rtol = atol =
   1e-4; 3-step ``train_batch`` trajectories against the JAX engine (loss
@@ -268,13 +270,49 @@ def test_forward_matches_hf(name):
 
 
 def test_mixtral_maps_but_replace_refuses():
+    """Mixtral maps; replace_transformer_layer runs it (the next test)
+    but refuses a router of more than two experts a token, which the
+    MoE layer (top-1 / top-2, as in JAX) does not take."""
+    from types import SimpleNamespace
     model, _, _ = _hf("mixtral")
     params, cfg = thf.load_hf(model)
     assert cfg.moe_experts == 4 and cfg.moe_k == 2
     assert tuple(params["blocks"]["moe"]["experts"]["gate"]["kernel"].shape) \
         == (2, 4, 32, 56)
-    with pytest.raises(NotImplementedError, match=r"ROADMAP\.md item 4\.1"):
-        thf.replace_transformer_layer(model)
+    ns = SimpleNamespace(**dict(model.config.to_dict(),
+                                num_experts_per_tok=3))
+    with pytest.raises(ValueError, match="k must be 1 or 2"):
+        thf.replace_transformer_layer(model.state_dict(), config=ns,
+                                      arch="mixtral")
+
+
+def test_mixtral_replace_matches_hf_logits_and_greedy_tokens():
+    """replace_transformer_layer on Mixtral: the MoE Transformer's logits
+    against HF's at 2e-3 (its capacity factor E/k makes the queues
+    drop-free, as HF's router is) and greedy tokens through the cache
+    decode path equal to HF's generate, as the JAX package holds it
+    (tests/test_hf_policies.py); with ``dtype=torch.bfloat16`` the
+    leaves map in bf16, equal to the f32 tree cast."""
+    model, ids, _ = _hf("mixtral")
+    module, params, cfg = thf.replace_transformer_layer(
+        model, dtype=torch.float32)
+    assert cfg.moe_capacity_factor == 2.0 and module.cfg is cfg
+    with torch.no_grad():
+        ref = model(torch.from_numpy(ids)).logits.numpy()
+        logits, aux = module({"input_ids": torch.from_numpy(ids)})
+    np.testing.assert_allclose(logits.numpy(), ref, rtol=TOL, atol=TOL)
+    assert np.isfinite(aux.item())
+    from deepspeed_tpu_torch.models.generation import generate
+    pids = np.random.default_rng(22).integers(0, V, (2, 10))
+    with torch.no_grad():
+        gref = model.generate(torch.tensor(pids), max_new_tokens=8,
+                              do_sample=False).numpy()
+    out = generate(cfg, params, torch.from_numpy(pids), 8)
+    np.testing.assert_array_equal(out.numpy(), gref)
+    _, bf, bcfg = thf.replace_transformer_layer(model, dtype=torch.bfloat16)
+    assert bcfg.dtype == torch.bfloat16
+    for k, v in _flat(params).items():
+        assert torch.equal(_flat(bf)[k], v.to(torch.bfloat16)), k
 
 
 def test_megatron_gpt_load_matches_jax():

@@ -118,7 +118,7 @@ def test_sources_import_no_jax(path):
 DIST_MODULES = ["comm", "comm.comm", "comm.logging", "parallel.topology",
                 "parallel.mesh", "runtime.zero.stages", "runtime.zero.tiling",
                 "runtime.zero.partition", "zero", "launcher",
-                "launcher.launch"]
+                "launcher.launch", "moe", "moe.sharded_moe", "moe.layer"]
 
 
 @pytest.fixture(scope="module")
@@ -304,12 +304,12 @@ def test_unported_options_raise():
         deepspeed_tpu_torch.init_inference(cfg, {"tp": {"tp_size": 2}},
                                            model_parameters=params,
                                            device="cpu")
+    # MoE serves on the CPU: serve() and generate() agree
     moe = get_config("gpt2-tiny", hidden_size=32, num_layers=1, num_heads=2,
                      vocab_size=64, dtype=torch.float32, moe_experts=2)
-    srv = ServingEngine(moe, params, serving=serve, device="cpu")
-    with pytest.raises(NotImplementedError, match="MoE"):
-        srv.generate_batch([[1, 2, 3]], 2)
-    with pytest.raises(NotImplementedError, match="MoE"):
-        deepspeed_tpu_torch.init_inference(
-            moe, {"dtype": "float32"}, model_parameters=params,
-            device="cpu").generate([[1, 2]], max_new_tokens=2)
+    mparams = init_params(moe, torch.Generator().manual_seed(0))
+    srv = ServingEngine(moe, mparams, serving=serve, device="cpu")
+    eng = deepspeed_tpu_torch.init_inference(
+        moe, {"dtype": "float32"}, model_parameters=mparams, device="cpu")
+    assert srv.generate_batch([[1, 2, 3]], 2)[0] == \
+        eng.generate([[1, 2, 3]], max_new_tokens=2)[0, 3:].tolist()

@@ -567,6 +567,69 @@ def test_decode_and_paged_kernels_phi2_shape(dev, dtype):
     _hold(out, ref, False)
 
 
+def test_flash_attention_kernels_mixtral_shape(dev):
+    """The moe leg's training calls (Mixtral-8x7B: 32 query heads of 128
+    over 8 KV heads, each repeated to its 4 query heads before the
+    kernel, as the Block does): [2, 32, 1024, 128], causal, bf16."""
+    g = torch.Generator().manual_seed(8)
+    q, do = (torch.randn(2, 32, 1024, 128, generator=g).to(
+        dev, torch.bfloat16) for _ in range(2))
+    k, v = (torch.randn(2, 8, 1024, 128, generator=g).to(dev, torch.bfloat16)
+            .repeat_interleave(4, dim=1).contiguous() for _ in range(2))
+    o, lse = tfa.flash_attention_fwd(q, k, v, causal=True)
+    dq, dk, dv = tfa.flash_attention_bwd(q, k, v, o, lse, do, causal=True)
+    ro, rlse = tfa.flash_attention_reference(*_f32(q, k, v), causal=True)
+    refs = tfa.flash_attention_bwd_reference(*_f32(q, k, v, o), lse,
+                                             do.float(), causal=True)
+    torch.cuda.synchronize()
+    _hold(o, ro, False)
+    torch.testing.assert_close(lse, rlse, atol=F32_TOL, rtol=0)
+    for out, ref in zip((dq, dk, dv), refs):
+        _hold(out, ref, False, floor=2.0 ** -10)
+
+
+@pytest.mark.parametrize("int8", [False, True])
+def test_decode_and_paged_kernels_mixtral_shape(dev, int8):
+    """The moe leg's decode calls, 32 heads of 128 over 8 KV heads
+    (repeated in the cache and the pool): the generate step (4 sequences
+    at cur_len 1050 in a cache of 1280) and the serve step (8 lanes of
+    ragged contexts up to 1056 in a pool of 32-token blocks, bf16 or the
+    int8 serve leg's int8 pool)."""
+    g = torch.Generator().manual_seed(128)
+    rep = lambda t: t.repeat_interleave(4, dim=-3).contiguous()
+    if not int8:
+        k, v = (rep(torch.randn(2, 4, 8, 1280, 128, generator=g)).to(
+            dev, torch.bfloat16) for _ in range(2))
+        q = torch.randn(4, 32, 1, 128, generator=g).to(dev, torch.bfloat16)
+        out = tda.decode_attention(q, k, v, 1050, layer_idx=1)
+        ref = tda.decode_attention_reference(*_f32(q, k[1], v[1]), 1050)
+        torch.cuda.synchronize()
+        _hold(out, ref, False)
+    B, nbk, bs = 8, 33, 32
+    nblk = B * nbk + 1
+    kp, vp = (torch.randn(2, 8, nblk, bs, 128, generator=g)
+              .repeat_interleave(4, dim=1).to(dev, torch.bfloat16)
+              for _ in range(2))
+    q = torch.randn(B, 32, 1, 128, generator=g).to(dev, torch.bfloat16)
+    bt = (torch.randperm(nblk - 1, generator=g) + 1).reshape(B, nbk)
+    bt = bt.to(dev, torch.int32)
+    lens = torch.tensor([1056, 65, 1, 700, 1024, 300, 999, 128],
+                        dtype=torch.int32, device=dev)
+    if int8:
+        (kq, ks), (vq, vs) = kv_quantize(kp), kv_quantize(vp)
+        out = tpa.paged_attention(q, kq, vq, bt, lens, k_scale=ks,
+                                  v_scale=vs, layer_idx=1)
+        # the kernel's dequantized rows: x * scale rounded to q's dtype
+        kp, vp = ((x.float() * sc.reshape(x.shape[:-1])[..., None]).to(
+            q.dtype) for x, sc in ((kq, ks), (vq, vs)))
+    else:
+        out = tpa.paged_attention(q, kp, vp, bt, lens, layer_idx=1)
+    ref = tpa.paged_attention_reference(*_f32(q, kp, vp), bt, lens,
+                                        layer_idx=1)
+    torch.cuda.synchronize()
+    _hold(out, ref, False)
+
+
 def test_flash_attention_autograd_on_the_card(dev):
     """The autograd Function launches the forward and both backward
     kernels once each; its grads match the plain backward."""

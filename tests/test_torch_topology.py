@@ -6,12 +6,13 @@ in the port) are held output for output to the JAX classes over several
 (pp, mp, dp) shapes: every rank's coordinate and rank string, every
 axis's peer groups, filters, and every grid accessor. ``MeshManager``'s
 group sizes are held to the JAX ``MeshManager`` on the 8-device mesh;
-``seq`` splits as in the JAX package (its groups are the ranks that share
-a sample), and the axes the port does not split yet (pipe, model,
-expert) raise naming ROADMAP.md.
+``seq`` and ``expert`` split as in the JAX package (a seq group's ranks
+share a sample; an expert group's split the experts), and the axes the
+port does not split yet (pipe, model) raise naming ROADMAP.md.
 """
 
 import jax
+import numpy as np
 import pytest
 
 from deepspeed_tpu.parallel import mesh as jmesh
@@ -131,6 +132,23 @@ def test_mesh_axes_other_than_data_raise_naming_roadmap(axis, kw):
         # each seq group: two ranks that differ only in their seq index
         assert tm.comm_lists("seq") == [[0, 1], [2, 3], [4, 5], [6, 7]]
         assert tm.comm_lists("data") == [[0, 2, 4, 6], [1, 3, 5, 7]]
+        return
+    if axis == "expert":
+        # expert parallelism is ported (tests/test_torch_moe_dist.py): its
+        # groups and the expert leaves' ZeRO group are the JAX mesh's
+        tm = tmesh.MeshManager(devices=list(range(8)), **kw)
+        assert tm.shape == jm.shape
+        assert tm.get_expert_parallel_world_size() == 2
+        assert tm.get_expert_data_parallel_world_size() == 4
+        assert tm.axes_size(tmesh.BATCH_AXES) == 8
+        names = jm.mesh.axis_names
+        ids = np.vectorize(lambda d: d.id)(jm.mesh.devices)
+        for axes in ("expert", tmesh.EXPERT_ZERO_AXES):
+            axes = (axes,) if isinstance(axes, str) else axes
+            keep = [names.index(a) for a in axes]
+            rest = [i for i in range(len(names)) if i not in keep]
+            grid = ids.transpose(rest + keep).reshape(-1, tm.axes_size(axes))
+            assert tm.comm_lists(axes) == sorted(grid.tolist())
         return
     with pytest.raises(NotImplementedError, match=f"'{axis}'.*ROADMAP"):
         tmesh.MeshManager(devices=list(range(8)), **kw)

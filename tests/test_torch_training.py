@@ -220,11 +220,17 @@ def test_fused_ce_ignores_minus_100_and_drops_last_position():
 
 
 def test_unported_model_features_raise():
-    for kw in (dict(moe_experts=2), dict(pld=True),
-               dict(ltd_tokens=4), dict(activation_quant="int8")):
+    for kw in (dict(pld=True), dict(ltd_tokens=4),
+               dict(activation_quant="int8")):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             ttr.build_model("gpt2-tiny", hidden_size=16, num_layers=2,
                             num_heads=2, vocab_size=32, **kw)
+    # MoE builds and returns (logits, aux) (tests/test_torch_moe.py)
+    m, _ = ttr.build_model("gpt2-tiny", hidden_size=16, num_layers=2,
+                           num_heads=2, vocab_size=32, moe_experts=2)
+    with torch.no_grad():
+        logits, aux = m(torch.zeros(2, 8, dtype=torch.long))
+    assert logits.shape == (2, 8, 32) and torch.isfinite(aux)
     # the block forms of the HF policies build and run
     ids = torch.zeros(2, 8, dtype=torch.long)
     for kw, width in ((dict(post_ln=True, causal=False), 32),
@@ -707,7 +713,8 @@ def test_initialize_dataloader_and_config_arguments(tmp_path):
     {"progressive_layer_drop": {"enabled": True}},
     {"curriculum_learning": {"enabled": True}},
     {"eigenvalue": {"enabled": True}},
-    {"moe": {"enabled": True}},
+    # moe is ported (tests/test_torch_moe.py); data efficiency is not
+    {"data_efficiency": {"enabled": True}},
     # sequence parallelism is ported (tests/test_torch_sequence_parallel.py)
     {"straggler": {"enabled": True}},
     {"tensor_parallel": {"tp_size": 2}},
