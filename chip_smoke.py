@@ -147,6 +147,21 @@ nor ``deepspeed_tpu``. Phases, each reported on its own line:
     ``attention_impl="reference"`` under the same route rule; rates, 6 x
     N_active TFLOP/s beside the expert products' FLOPs, peak memory and
     device ms by kind (the expert ``bmm`` s their own kind).
+15. **tp** — Llama-2-70B (meta-llama/Llama-2-70b-hf's published config:
+    hidden 8192, 64 heads of 128 over 8 KV heads, SwiGLU 28672, vocab
+    32000, untied) at full width from a seeded bf16 state dict under HF's
+    names, 8 of 80 layers (7.37 B parameters) mapped by
+    ``replace_transformer_layer`` (and built again layer by layer, as
+    ``--tp-ranks`` builds it, held equal): ``generate()`` [4, 1024] + 32,
+    ``serve()`` and an int8 ``serve()`` without a process group, then the
+    same under ``sharding_rules=cfg.tp_rules()`` in a 1-rank NCCL world
+    (the TP layers at a model axis of one): tokens bitwise equal, the
+    kernel launches and the model-axis collectives (2 all-reduces a layer
+    forward, the embedding's and the logits gather) counted; 2 layers
+    trained there (pure bf16, ZeRO 3, seq 1024, micro 2 x gas 2), the
+    first step bitwise the engine's without a group, the loss falling;
+    then rows 1-6 timed at a tp-4 rank's shapes (16 query heads of 128
+    over 2 KV heads, the int8 matrices' K / 4 and N / 4).
 
 ``--old-quant-matmul SRC`` also builds a parent commit's
 ``csrc/quant_matmul.cu`` from SRC and times it against this one in the
@@ -170,7 +185,7 @@ forward's and dq's per-item cost of the host balance, swept at the long
 leg's call.
 
 ``--only PHASE ...`` (``ckpt``, ``remat``, ``hf``, ``bert-masked``,
-``zero``, ``sp``, ``dropout``, ``moe``)
+``zero``, ``sp``, ``dropout``, ``moe``, ``tp``)
 builds the kernels and runs only those phases, then a result line that
 names them (``"only": [...]``; no kernels line). ``--zero-ranks N`` (a
 host with N GPUs) builds the kernels and runs only the zero leg across N
@@ -187,6 +202,14 @@ train leg across N GPUs at ``ep_size`` N (8 / N experts a rank, one
 weight 0, so at capacity E/k it computes the function of one engine
 without a process group on the same global batch: loss 1e-4, grad norm
 5e-3), its all-to-alls counted, ending in ``"ep_ranks": N``.
+``--tp-ranks N`` runs the tp legs across N GPUs: the 8-layer model at tp
+N against one GPU without a process group (f32 greedy tokens equal;
+each bf16 path's logits deviation from its f32 engine's within 1.25x of
+the other's), full-depth Llama-2-70B at tp N (80 x N / 4 layers, each
+rank building its shards layer by layer) through ``generate()`` and an
+int8 ``serve()`` with prefill, decode, NCCL and peak-memory readings,
+and 2 layers trained at tp 2 x data N / 2, ZeRO 3, seq 4096 (loss 1e-4,
+grad norm 5e-3 of one engine), ending in ``"tp_ranks": N``.
 
 Launch counters are zeroed just before each leg and read just after it.
 Any failed check raises, so the script exits non-zero and prints no
@@ -1642,10 +1665,11 @@ def _report_profile(label, prof, wall_ms, steps):
     return busy_ms
 
 
-def profile_generate(cfg, params, ids, steps=5, tag=""):
+def profile_generate(cfg, params, ids, steps=5, tag="", tp=None):
     """Device busy share of the generate leg's prefill and of its steady
     greedy decode steps (forward_with_cache + argmax, 8 sequences); ``tag``
-    follows the labels. Returns the decode step's wall and busy ms."""
+    follows the labels; ``tp``: a tensor-parallel rank's context over its
+    shards. Returns the decode step's wall, busy and NCCL ms."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     from deepspeed_tpu_torch.models.generation import (forward_with_cache,
@@ -1655,33 +1679,38 @@ def profile_generate(cfg, params, ids, steps=5, tag=""):
     acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
     with torch.no_grad():
         cache = init_cache(cfg, B, padded_cache_len(T + GEN_NEW),
-                           device="cuda")
+                           device="cuda", tp=tp)
         torch.cuda.synchronize()
         with profile(activities=acts) as prof:
             t0 = time.perf_counter()
             logits, cache = forward_with_cache(cfg, params, ids, cache,
-                                               prefill_flash=True)
+                                               prefill_flash=True, tp=tp)
             tok = logits[:, -1].argmax(-1)
             torch.cuda.synchronize()
             wall_ms = 1e3 * (time.perf_counter() - t0)
         _report_profile("generate prefill" + tag, prof, wall_ms, 1)
         for _ in range(2):
             logits, cache = forward_with_cache(cfg, params, tok[:, None],
-                                               cache)
+                                               cache, tp=tp)
             tok = logits[:, -1].argmax(-1)
         torch.cuda.synchronize()
         with profile(activities=acts) as prof:
             t0 = time.perf_counter()
             for _ in range(steps):
                 logits, cache = forward_with_cache(cfg, params, tok[:, None],
-                                                   cache)
+                                                   cache, tp=tp)
                 tok = logits[:, -1].argmax(-1)
             torch.cuda.synchronize()
             wall_ms = 1e3 * (time.perf_counter() - t0) / steps
         busy = _report_profile("generate decode step" + tag, prof, wall_ms,
                                steps)
+    nccl = sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and "nccl" in e.key.lower()) / 1e3 / steps
     return {"decode_step_wall_ms": wall_ms,
-            "decode_step_busy_ms": "not measured" if busy is None else busy}
+            "decode_step_busy_ms": "not measured" if busy is None else busy,
+            "decode_step_nccl_ms": nccl if busy is not None
+            else "not measured"}
 
 
 # ---------------------------------------------------------------- 4. int8
@@ -6101,6 +6130,1000 @@ def ep_worker(out):
 
 
 
+# ------------------------------------------------------------------- 15. tp
+
+# meta-llama/Llama-2-70b-hf config.json (the published widths); depth is
+# cut per leg: TP_SERVE_LAYERS to serve and generate on one card,
+# TP_TRAIN_LAYERS to train; --tp-ranks 4 serves the full 80 layers
+LLAMA70_CONFIG = dict(
+    model_type="llama", vocab_size=32000, hidden_size=8192,
+    intermediate_size=28672, num_hidden_layers=80, num_attention_heads=64,
+    num_key_value_heads=8, max_position_embeddings=4096, rope_theta=1e4,
+    rms_norm_eps=1e-5, tie_word_embeddings=False, hidden_act="silu",
+    attention_bias=False, mlp_bias=False)
+TP_SERVE_LAYERS, TP_TRAIN_LAYERS, TP_SEED = 8, 2, 15
+TP_BATCH, TP_PROMPT, TP_NEW = 4, 1024, 32
+TP_REQUESTS, TP_SERVE_NEW = 4, 16
+TP_INT8_LENS, TP_INT8_NEW = (96, 200, 333, 512), 16
+TP_MICRO, TP_GAS, TP_SEQ, TP_STEPS = 2, 2, 1024, 3
+# pure bf16 state and bf16 grad accumulation (the zero leg's), AdamW,
+# ZeRO 3: the policy composes its splits with the TP shards
+TP_TRAIN_CONFIG = {
+    "train_batch_size": TP_MICRO * TP_GAS,
+    "train_micro_batch_size_per_gpu": TP_MICRO,
+    "gradient_accumulation_steps": TP_GAS,
+    "optimizer": {"type": "AdamW", "params": {"lr": 1e-4}},
+    "bf16": {"enabled": True, "master_weights": False},
+    "data_types": {"grad_accum_dtype": "bf16"},
+    "zero_optimization": {"stage": 3},
+    "steps_per_print": 10_000,
+}
+# --tp-ranks N: inference at tp N; training at tp 2 x data N / 2 (tp 1 on
+# one GPU), seq TP_RANKS_SEQ, one sample a data rank a micro-batch, gas
+# 2; the full-depth leg serves 80 x N / 4 layers (80 on four GPUs: about
+# 34.5 GB of bf16 weights a rank)
+TP_RANKS_SEQ, TP_RANKS_STEPS, TP_RANKS_WINDOW = 4096, 3, 64
+# the bf16 rule of --tp-ranks (the moe leg's, MOE_FLIP_LIMIT's comment): each
+# bf16 path's deviation from the f32 computation within TP_BF16_RATIO of
+# the other's
+TP_BF16_RATIO = 1.25
+
+
+def _llama70_layer_shapes(i):
+    """LlamaForCausalLM's state-dict names and shapes of layer ``i`` at
+    the published widths."""
+    c = LLAMA70_CONFIG
+    H, I = c["hidden_size"], c["intermediate_size"]
+    nh, kv = c["num_attention_heads"], c["num_key_value_heads"]
+    hd = H // nh
+    p = f"model.layers.{i}."
+    return [(p + "input_layernorm.weight", (H,)),
+            (p + "post_attention_layernorm.weight", (H,)),
+            (p + "self_attn.q_proj.weight", (nh * hd, H)),
+            (p + "self_attn.k_proj.weight", (kv * hd, H)),
+            (p + "self_attn.v_proj.weight", (kv * hd, H)),
+            (p + "self_attn.o_proj.weight", (H, nh * hd)),
+            (p + "mlp.gate_proj.weight", (I, H)),
+            (p + "mlp.up_proj.weight", (I, H)),
+            (p + "mlp.down_proj.weight", (H, I))]
+
+
+def _llama70_tensor(name, shape, seed, device="cuda"):
+    """One state-dict tensor, bf16, drawn from a generator of its own
+    (seeded by ``seed`` and its name) as HF initializes it: normal std
+    0.02, RMSNorm weights 1. Any subset of the tensors is drawn the same,
+    so a rank draws only the layers it builds."""
+    import zlib
+    import torch
+    if len(shape) == 1:
+        return torch.ones(shape, device=device, dtype=torch.bfloat16)
+    g = torch.Generator(device=device).manual_seed(
+        seed * (1 << 32) + zlib.crc32(name.encode()))
+    return torch.randn(shape, generator=g, device=device,
+                       dtype=torch.bfloat16).mul_(0.02)
+
+
+def _llama70_state_dict(layers, seed, device="cuda"):
+    """The HF-named state dict of the first ``layers`` layers (``device=
+    "meta"``: the shapes only)."""
+    import torch
+    c = LLAMA70_CONFIG
+    V, H = c["vocab_size"], c["hidden_size"]
+    shapes = [("model.embed_tokens.weight", (V, H))]
+    for i in range(layers):
+        shapes += _llama70_layer_shapes(i)
+    shapes += [("model.norm.weight", (H,)), ("lm_head.weight", (V, H))]
+    if device == "meta":
+        return {n: torch.empty(s, device="meta", dtype=torch.bfloat16)
+                for n, s in shapes}
+    return {n: _llama70_tensor(n, s, seed, device) for n, s in shapes}
+
+
+def _llama70_cfg(layers):
+    """The TransformerConfig that the Llama policy maps the published
+    config to at ``layers`` layers (no weights)."""
+    import torch
+    from types import SimpleNamespace
+    from deepspeed_tpu_torch.models.hf import load_hf
+    hf_cfg = SimpleNamespace(**dict(LLAMA70_CONFIG,
+                                    num_hidden_layers=layers))
+    _, cfg = load_hf(_llama70_state_dict(layers, 0, "meta"),
+                     arch="LlamaForCausalLM", config=hf_cfg,
+                     dtype=torch.bfloat16)
+    return cfg
+
+
+def _llama70_shards(cfg, seed, tp, device="cuda"):
+    """The scan-layout tree of ``cfg.num_layers`` layers with the values
+    of :func:`_llama70_state_dict`, built one layer at a time, each whole
+    layer mapped by the Llama policy's own ``models.hf.llama_layer`` and
+    cut to this rank's shards (``tp``, a TPContext; None: whole). No rank
+    holds more than one whole layer."""
+    from deepspeed_tpu_torch.models.hf import llama_layer, stack_layers
+    from deepspeed_tpu_torch.utils.partitioning import shard_tree
+    rules = cfg.tp_rules()
+    L, V, H = cfg.num_layers, cfg.vocab_size, cfg.hidden_size
+    t = lambda n, s: _llama70_tensor(n, s, seed, device)
+    top = shard_tree({
+        "wte": {"embedding": t("model.embed_tokens.weight", (V, H))},
+        "lm_head": {"kernel": t("lm_head.weight", (V, H)).t()},
+        "ln_f": {"scale": t("model.norm.weight", (H,))}}, cfg, tp, rules)
+
+    def local(i):
+        w = {n: t(n, s) for n, s in _llama70_layer_shapes(i)}
+        layer = llama_layer(lambda name: w["model." + name], i)
+        layer = {k: {n: x[None] for n, x in v.items()}
+                 for k, v in layer.items()}
+        return {k: {n: x[0] for n, x in v.items()} for k, v in shard_tree(
+            {"blocks": layer}, cfg, tp, rules)["blocks"].items()}
+    return {**top, "blocks": stack_layers(local, L)}
+
+
+def _trees_equal(a, b):
+    import torch
+    if isinstance(a, dict):
+        return isinstance(b, dict) and a.keys() == b.keys() and all(
+            _trees_equal(a[k], b[k]) for k in a)
+    return a.shape == b.shape and torch.equal(a, b)
+
+
+def _tp_train_model(cfg, seed, seq):
+    """The train legs' model: ``cfg`` cut to TP_TRAIN_LAYERS layers with
+    the fused chunked CE, seeded f32 weights on the card."""
+    from deepspeed_tpu_torch.models.transformer import Transformer
+    tcfg = dataclasses.replace(cfg, num_layers=TP_TRAIN_LAYERS,
+                               fused_loss=True, loss_chunk=256,
+                               max_seq_len=seq)
+    return Transformer(tcfg, seed=seed, device="cuda")
+
+
+def _tp_engine(model, config, rules):
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.models.transformer import fused_loss_passthrough
+    engine, *_ = deepspeed_tpu_torch.initialize(
+        model=model, config=config, loss_fn=fused_loss_passthrough,
+        sharding_rules=rules)
+    return engine
+
+
+def _tp_batch(rows, vocab, seq, seed=21):
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    return {"input_ids": rng.integers(1, vocab, (rows, seq))}
+
+
+def _tp_ops():
+    from deepspeed_tpu_torch import comm
+    return {k: v for k, v in comm.op_counts().items()
+            if k.startswith("tp_") or k in ("all_reduce", "all_gather",
+                                            "reduce_scatter")}
+
+
+def _tp_forward_ops(label, ops, forwards, layers):
+    """A TP forward issues 2 model-axis all-reduces a layer (the attention
+    and MLP projections' partial sums) and one for the embedding, and
+    gathers the vocab-parallel logits once."""
+    want = {"tp_reduce_from": forwards * (2 * layers + 1),
+            "tp_gather_from": forwards}
+    got = {k: ops.get(k, 0) for k in want}
+    log(f"check: {label} model-axis collectives {json.dumps(got)} expected "
+        f"{json.dumps(want)} ({forwards} forwards x (2 x {layers} layers + "
+        "the embedding) all-reduces, one logits gather a forward)")
+    if got != want:
+        fail(f"{label}: collectives {ops}")
+
+
+def _tp_step_ops(label, ops, micro, layers, seq, chunk):
+    """One train step's model-axis collectives: a micro-batch's forward
+    all-reduces 2 a layer, the embedding's and each CE chunk's target
+    logit (each chunk recomputed in the backward: its max, sum and target
+    again); the backward sums the column-parallel inputs' gradients, 2 a
+    layer and the head's."""
+    chunks = -(-(seq - 1) // chunk)
+    want = {"tp_reduce_from": micro * (2 * layers + 1 + 2 * chunks),
+            "tp_copy_to": micro * (2 * layers + 1)}
+    got = {k: ops.get(k, 0) for k in want}
+    if got != want:
+        fail(f"{label}: model-axis collectives {ops}, expected {want}")
+
+
+def phase_tp(smi):
+    """Llama-2-70B (meta-llama/Llama-2-70b-hf's published config: hidden
+    8192, 64 heads of 128 over 8 KV heads, SwiGLU 28672, vocab 32000,
+    RMSNorm 1e-5, rope 1e4, untied) at full width on one card, the
+    tensor-parallel layers in a 1-rank NCCL world. Serve and generate, 8
+    of 80 layers (7.37 B parameters): a seeded bf16 state dict under HF's
+    names -> replace_transformer_layer (and the same tree built layer by
+    layer, as --tp-ranks builds it, held equal) -> init_inference without
+    a process group: generate() [4, 1024] + 32 and serve() in bf16 and
+    int8 (kv_cache_dtype and weight_dtype); then the same in the group
+    with sharding_rules=cfg.tp_rules(): tokens bitwise equal, the kernel
+    launches (flash L a prefill, decode L a step, paged L a step,
+    quant_matmul 5L + 1 a forward) and the model-axis collectives (2 a
+    layer forward, the embedding's and the logits gather) counted. Train,
+    2 layers: pure bf16 state, AdamW, ZeRO 3, seq 1024, micro 2 x gas 2,
+    TP_STEPS steps in the group under the rules, the first bitwise the
+    engine's without a process group, the loss falling, each step's flash
+    launches and collectives counted. Readings: prefill ms, decode step
+    wall / busy / NCCL ms, tokens/s, step ms, 6N TFLOP/s, peak memory."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from types import SimpleNamespace
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch import comm
+    from deepspeed_tpu_torch.ops import quant_matmul as tqm
+    from deepspeed_tpu_torch.parallel.mesh import set_global_mesh
+    if comm.is_initialized():
+        fail("tp: a process group is already up")
+    counts, rates, ops = {}, {}, {}
+    L = TP_SERVE_LAYERS
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    hf_cfg = SimpleNamespace(**dict(LLAMA70_CONFIG, num_hidden_layers=L))
+    module, params, cfg = deepspeed_tpu_torch.replace_transformer_layer(
+        _llama70_state_dict(L, TP_SEED), config=hf_cfg,
+        arch="LlamaForCausalLM", dtype=torch.bfloat16)
+    del module
+    map_s = time.perf_counter() - t0
+    map_peak = torch.cuda.max_memory_allocated() / 1e9
+    built = _llama70_shards(cfg, TP_SEED, None)
+    same = _trees_equal(built, params)
+    del built
+    gc.collect()
+    torch.cuda.empty_cache()
+    n_params = _numel(params)
+    log(f"tp: llama-2-70b layers={L} params={n_params} num_params="
+        f"{cfg.num_params()} heads={cfg.num_heads}x{cfg.head_dim} kv_heads="
+        f"{cfg.kv_heads} mlp={cfg.mlp_dim} map_s={map_s:.2f} map_peak_gb="
+        f"{map_peak:.2f} layer_by_layer_tree_equal={same} mem_gb="
+        f"{torch.cuda.memory_allocated() / 1e9:.2f}")
+    if (cfg.num_heads, cfg.kv_heads, cfg.head_dim, cfg.mlp_dim,
+            cfg.vocab_size, cfg.num_layers) != (64, 8, 128, 28672, 32000, L) \
+            or n_params != cfg.num_params() + (2 * L + 1) * cfg.hidden_size:
+        fail(f"llama-2-70b mapped to {cfg} with {n_params} parameters")
+    if not same:
+        fail("tp: the layer-by-layer tree differs from the Llama policy's")
+    rng = np.random.default_rng(16)
+    V = cfg.vocab_size
+    ids = torch.as_tensor(rng.integers(1, V, (TP_BATCH, TP_PROMPT)),
+                          device="cuda")
+    prompts = [list(rng.integers(1, V, int(n))) for n in
+               rng.integers(TP_PROMPT // 16, TP_PROMPT + 1, TP_REQUESTS)]
+    prompts8 = [list(rng.integers(1, V, int(n))) for n in TP_INT8_LENS]
+    int8_serving = dict(SERVING, kv_cache_dtype="int8", weight_dtype="int8")
+
+    def outputs(reqs):
+        return [list(r.output_tokens) for r in reqs]
+
+    # ------------------------------------------- without a process group
+    eng = deepspeed_tpu_torch.init_inference(
+        cfg, {"dtype": "bf16", "serving": SERVING}, model_parameters=params)
+    ref = {"generate": eng.generate(ids, max_new_tokens=TP_NEW)}
+    srv = eng.serve()
+    ref["serve"] = outputs(_run_requests(srv, prompts, TP_SERVE_NEW))
+    del srv
+    srv8 = eng.serve(int8_serving)
+    ref["int8"] = outputs(_run_requests(srv8, prompts8, TP_INT8_NEW))
+    del srv8, eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    batch = _tp_batch(TP_MICRO * TP_GAS, V, TP_SEQ)
+    chunk = 256
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        ref_engine = _tp_engine(_tp_train_model(cfg, 17, TP_SEQ),
+                                TP_TRAIN_CONFIG, None)
+        if ref_engine.dp is not None or ref_engine.tp is not None:
+            fail("tp: the reference engine ran in a group")
+        ref["train"] = ref_engine.train_batch(batch)
+        del ref_engine
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # ---------------------------------------- a 1-rank NCCL world
+        comm.init_distributed(world_size=1, rank=0)
+        try:
+            rules = cfg.tp_rules()
+            eng = deepspeed_tpu_torch.init_inference(
+                cfg, {"dtype": "bf16", "serving": SERVING,
+                      "tensor_parallel": {"tp_size": 1}},
+                model_parameters=params, sharding_rules=rules)
+            del params
+            gc.collect()
+            torch.cuda.empty_cache()
+            if eng.tp is None or eng.tp.size != 1:
+                fail(f"tp: the engine runs without the TP layers ({eng.tp})")
+            eng.generate(ids, max_new_tokens=2)             # warm-up
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            eng.generate(ids, max_new_tokens=1)
+            torch.cuda.synchronize()
+            prefill_s = time.perf_counter() - t1
+            _zero_counters()
+            comm.reset_op_counts()
+            t1 = time.perf_counter()
+            out = eng.generate(ids, max_new_tokens=TP_NEW)
+            torch.cuda.synchronize()
+            total_s = time.perf_counter() - t1
+            gen, ops["generate"] = _counters(), _tp_ops()
+            steps = TP_NEW - 1
+            same = torch.equal(out, ref["generate"])
+            log(f"check: tp generate B={TP_BATCH} prompt={TP_PROMPT} new="
+                f"{TP_NEW} tokens equal to the engine without a process "
+                f"group: {same}; launches={json.dumps(gen)}")
+            if not same:
+                fail("tp generate: tokens differ from the single engine's")
+            if gen["flash_attention_fwd"] != L or \
+                    gen["decode_attention"] != L * steps:
+                fail(f"tp generate launched {gen}")
+            _tp_forward_ops("tp generate", ops["generate"], TP_NEW, L)
+            counts["generate"] = gen
+            prof = profile_generate(eng.cfg, eng.params, ids, tag=" tp",
+                                    tp=eng.tp)
+            rates["generate"] = {
+                "prefill_ms": 1e3 * prefill_s,
+                "prefill_tok_s": TP_BATCH * TP_PROMPT / prefill_s,
+                "decode_tok_s": TP_BATCH * steps / (total_s - prefill_s),
+                "decode_step_ms": 1e3 * (total_s - prefill_s) / steps,
+                **prof}
+            srv = eng.serve()
+            _run_requests(srv, [list(rng.integers(1, V, 24))], 4)  # warm
+            _instrument(srv)
+            stats0 = dict(srv.stats)
+            _zero_counters()
+            comm.reset_op_counts()
+            got = outputs(_run_requests(srv, prompts, TP_SERVE_NEW))
+            serve, ops["serve"] = _counters(), _tp_ops()
+            steps = srv._decode_step.calls
+            fwd = srv._run_prefill.calls + steps
+            _, rates["serve"] = _rates(srv, stats0, steps)
+            log(f"check: tp serve requests={len(prompts)} decode_steps="
+                f"{steps} outputs equal to the engine without a process "
+                f"group: {got == ref['serve']}; launches="
+                f"{json.dumps(serve)}")
+            if got != ref["serve"] or serve["paged_attention"] != L * steps:
+                fail(f"tp serve: outputs or launches off ({serve})")
+            _tp_forward_ops("tp serve", ops["serve"], fwd, L)
+            counts["serve"] = serve
+            del srv._run_prefill, srv._decode_step, srv
+            torch.cuda.empty_cache()
+            srv8 = eng.serve(int8_serving)
+            _run_requests(srv8, [list(rng.integers(1, V, 40))], 2)  # warm
+            _instrument(srv8, tqm.quant_matmul)
+            stats0 = dict(srv8.stats)
+            _zero_counters()
+            comm.reset_op_counts()
+            got = outputs(_run_requests(srv8, prompts8, TP_INT8_NEW))
+            int8, ops["int8_serve"] = _counters(), _tp_ops()
+            pre, dec = srv8._run_prefill, srv8._decode_step
+            _, rates["int8_serve"] = _rates(srv8, stats0, dec.calls)
+            per_forward = 5 * L + 1
+            log(f"check: tp int8 serve outputs equal to the engine without "
+                f"a process group: {got == ref['int8']}; launches="
+                f"{json.dumps(int8)} quant_matmul prefill={pre.launches}/"
+                f"{pre.calls} decode={dec.launches}/{dec.calls}")
+            if (got != ref["int8"]
+                    or pre.launches != per_forward * pre.calls
+                    or dec.launches != per_forward * dec.calls
+                    or int8["paged_attention"] != L * dec.calls):
+                fail(f"tp int8 serve: outputs or launches off ({int8})")
+            _tp_forward_ops("tp int8 serve", ops["int8_serve"],
+                            pre.calls + dec.calls, L)
+            counts["int8_serve"] = int8
+            del srv8._run_prefill, srv8._decode_step, pre, dec, srv8, eng
+            gc.collect()
+            torch.cuda.empty_cache()
+            rates["serve_peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+
+            # ------------------------------------------------------ train
+            torch.cuda.reset_peak_memory_stats()
+            t1 = time.perf_counter()
+            engine = _tp_engine(_tp_train_model(cfg, 17, TP_SEQ),
+                                TP_TRAIN_CONFIG, rules)
+            tcfg = engine.module.cfg
+            Lt = tcfg.num_layers
+            log(f"tp: train layers={Lt} backend={dist.get_backend()} world="
+                f"{dist.get_world_size()} params={tcfg.num_params()} seq "
+                f"{TP_SEQ}, micro {TP_MICRO} x gas {TP_GAS}, pure bf16, "
+                f"AdamW, ZeRO 3, tp={engine.tp} init_s="
+                f"{time.perf_counter() - t1:.2f} mem_gb="
+                f"{torch.cuda.memory_allocated() / 1e9:.2f}")
+            metrics, step_s = [], []
+            for step in range(TP_STEPS):
+                _zero_counters()
+                comm.reset_op_counts()
+                t1 = time.perf_counter()
+                m = engine.train_batch(batch)
+                step_s.append(time.perf_counter() - t1)
+                c, o = _counters(), _tp_ops()
+                metrics.append(m)
+                log(f"tp: train step {step} loss={m['loss']:.6f} grad_norm="
+                    f"{m['grad_norm']:.5f} step_ms={1e3 * step_s[-1]:.1f} "
+                    f"launches={json.dumps({k: c[k] for k in FLASH_KERNELS})}"
+                    f" collectives={json.dumps(o)}")
+                if any(c[k] != Lt * TP_GAS for k in FLASH_KERNELS) or \
+                        not np.isfinite(m["loss"]):
+                    fail(f"tp train step {step}: {c} {m}")
+                _tp_step_ops(f"tp train step {step}", o, TP_GAS, Lt, TP_SEQ,
+                             chunk)
+            first, want = metrics[0], ref["train"]
+            bitwise = (first["loss"], first["grad_norm"]) == (
+                want["loss"], want["grad_norm"])
+            log(f"check: tp train first step vs the engine without a "
+                f"process group loss={first['loss']:.9f}/{want['loss']:.9f} "
+                f"grad_norm={first['grad_norm']:.9f}/"
+                f"{want['grad_norm']:.9f} bitwise={bitwise}")
+            if not bitwise:
+                fail("tp train: the 1-rank group's first step is not the "
+                     "single-process engine's")
+            if not metrics[-1]["loss"] < metrics[0]["loss"]:
+                fail(f"tp train: loss did not fall "
+                     f"{[x['loss'] for x in metrics]}")
+            dt = float(np.median(step_s[1:]))
+            tokens = TP_MICRO * TP_GAS * TP_SEQ
+            busy, by_kind = profile_train(engine, batch, 1e3 * dt,
+                                          label="tp train step")
+            counts["train"] = {k: c[k] for k in FLASH_KERNELS}
+            ops["train"] = o
+            rates["train"] = {
+                "step_ms": 1e3 * dt, "tokens_s": tokens / dt,
+                "model_tflops_6n": 6.0 * tcfg.num_params() * tokens / dt
+                / 1e12, "n_params": tcfg.num_params(),
+                "step_ms_all": [round(1e3 * x, 3) for x in step_s],
+                "loss": [x["loss"] for x in metrics],
+                "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+                "busy_ms": busy, "device_ms_by_kind": by_kind,
+                "nccl_ms": by_kind["nccl"]}
+            del engine
+            gc.collect()
+            torch.cuda.empty_cache()
+        finally:
+            set_global_mesh(None)
+            dist.destroy_process_group()
+    finally:
+        torch.use_deterministic_algorithms(False)
+    log("time: tp " + json.dumps(rates) + f" [{smi}]")
+    return {"launches": counts, "rates": rates, "collectives": ops}
+
+
+def time_tp_kernels():
+    """Rows 1-6 at a tp-4 rank's shapes of full-depth Llama-2-70B (16
+    query heads of 128 a rank over 2 KV heads, repeated before the
+    kernels): one decode step's paged attention (80 launches, 8 lanes at
+    ctx 1024) and decode attention (80, 4 sequences at cur_len 1040), the
+    [4, 1024] prefill's flash forward (80), one decode step's 401
+    quant_matmul calls (80 layers x qkv N 2560, projection K 2048, gate
+    and fc N 7168, MLP projection K 7168, and the head N 8000; one layer's
+    weights reused, each larger than the L2), and the tp-2 train step's
+    flash backward at [1, 32, 4096, 128] (4 launches: 2 layers x gas 2);
+    each beside its plain version, a library call and its bound. Before
+    it is timed, each kernel's output is held against its plain version
+    on the same inputs (:func:`_hold`; 16-bit attention against the plain
+    version on the inputs cast to f32, one layer's call; quant_matmul to
+    2^-7 of the largest |ref|, each of the six matrices), and a miss
+    fails. The bounds count the function's bytes: K and V (and dK, dV)
+    at the KV heads, q, o, dq and dO at the query heads; the kernels
+    read the KV heads repeated (ROADMAP item 0)."""
+    import torch
+    import torch.nn.functional as F
+    from deepspeed_tpu_torch.ops import decode_attention as tda
+    from deepspeed_tpu_torch.ops import flash_attention as tfa
+    from deepspeed_tpu_torch.ops import paged_attention as tpa
+    from deepspeed_tpu_torch.ops import quant_matmul as tqm
+    L, hd, nh, kvh = 80, 128, 16, 2
+    rep = nh // kvh
+    g = torch.Generator(device="cuda").manual_seed(70)
+    bf = torch.bfloat16
+    randn = lambda *s: torch.randn(*s, device="cuda", generator=g).to(bf)
+    out = {}
+
+    def step(fn, n=L):
+        return lambda: [fn(li) for li in range(n)]
+
+    def keep(name, t, nbytes, flops, work):
+        bnd, by = bound_ms(nbytes, flops)
+        out[name] = {**t, "bound_ms": bnd, "bound_by": by, "work": work,
+                     "max_abs_err": errs[name]}
+        log(f"time: tp4 {name} ms={t['ms']:.4f} bound_ms={bnd:.4f} ({by}) "
+            f"plain_ms={t['plain_ms']:.4f} library_ms={t['library_ms']:.4f} "
+            f"max_abs_err={errs[name]:.3e} [{work}]")
+
+    errs = {}
+    f32 = lambda *ts: [x.float() for x in ts]
+
+    # paged: one decode step, 8 lanes at ctx 1024, 32-token blocks
+    B, bs, ctx = 8, 32, 1024
+    per = ctx // bs
+    nblk = B * per + 1
+    k = randn(L, 2, nblk, bs, hd).repeat_interleave(rep, 1)
+    v = randn(L, 2, nblk, bs, hd).repeat_interleave(rep, 1)
+    q = randn(B, nh, 1, hd)
+    bt = (torch.randperm(nblk - 1, device="cuda", generator=g)[:B * per] + 1
+          ).reshape(B, per).to(torch.int32)
+    lens = torch.full((B,), ctx, dtype=torch.int32, device="cuda")
+    o = tpa.paged_attention(q, k, v, bt, lens, layer_idx=0)
+    errs["paged_attention"] = _hold(
+        "tp4 paged_attention layer 0", o, tpa.paged_attention_reference(
+            *f32(q, k[:1], v[:1]), bt, lens, layer_idx=0), False)
+    # the library yardstick: SDPA on K/V already gathered contiguous
+    kc = k[:, :, bt.long()].permute(0, 2, 1, 3, 4, 5).reshape(L, B, nh, ctx,
+                                                              hd)
+    vc = v[:, :, bt.long()].permute(0, 2, 1, 3, 4, 5).reshape(L, B, nh, ctx,
+                                                              hd)
+    t = timings(
+        step(lambda li: tpa.paged_attention(q, k, v, bt, lens, layer_idx=li)),
+        step(lambda li: tpa.paged_attention_reference(q, k, v, bt, lens,
+                                                      layer_idx=li)),
+        step(lambda li: F.scaled_dot_product_attention(q, kc[li], vc[li])))
+    keep("paged_attention", t,
+         L * (2 * B * kvh * ctx * hd * 2 + 2 * B * nh * hd * 2
+              + B * per * 4 + B * 4),
+         L * 4 * B * nh * ctx * hd,
+         f"one decode step of a tp-4 rank: {L} launches, B={B}, ctx={ctx}, "
+         f"nh={nh} over {kvh} KV heads, hd={hd}, bf16 pool")
+    del k, v, kc, vc
+    # decode: one generate step, 4 sequences at cur_len 1040 of 1280
+    B, cur, max_len = TP_BATCH, 1040, 1280
+    k = randn(L, B, 2, max_len, hd).repeat_interleave(rep, 2)
+    v = randn(L, B, 2, max_len, hd).repeat_interleave(rep, 2)
+    q = randn(B, nh, 1, hd)
+    o = tda.decode_attention(q, k, v, cur, layer_idx=0)
+    errs["decode_attention"] = _hold(
+        "tp4 decode_attention layer 0", o, tda.decode_attention_reference(
+            *f32(q, k[:1], v[:1]), cur, layer_idx=0), False)
+    t = timings(
+        step(lambda li: tda.decode_attention(q, k, v, cur, layer_idx=li)),
+        step(lambda li: tda.decode_attention_reference(q, k, v, cur,
+                                                       layer_idx=li)),
+        step(lambda li: F.scaled_dot_product_attention(
+            q, k[li, :, :, :cur], v[li, :, :, :cur])))
+    keep("decode_attention", t, L * (2 * B * kvh * cur * hd * 2
+                                     + 2 * B * nh * hd * 2),
+         L * 4 * B * nh * cur * hd,
+         f"one generate step of a tp-4 rank: {L} launches, B={B}, "
+         f"cur_len={cur}, nh={nh} over {kvh} KV heads, hd={hd}, bf16 "
+         f"cache of {max_len}")
+    del k, v
+    # flash forward: the [4, 1024] prefill, causal
+    S = TP_PROMPT
+    q = randn(B, nh, S, hd)
+    k = randn(B, 2, S, hd).repeat_interleave(rep, 1)
+    v = randn(B, 2, S, hd).repeat_interleave(rep, 1)
+    pairs = B * nh * S * (S + 1) // 2
+    o, lse = tfa.flash_attention_fwd(q, k, v, causal=True)
+    ro, rl = tfa.flash_attention_reference(*f32(q, k, v), causal=True)
+    errs["flash_attention_fwd"] = _hold("tp4 flash_attention_fwd o:", o, ro,
+                                        False)
+    err_l = _max_err(lse, rl)
+    log(f"check: tp4 flash_attention_fwd lse max_abs_err={err_l:.3e} "
+        f"tol={F32_TOL}")
+    if not err_l <= F32_TOL:
+        fail(f"tp4 flash_attention_fwd: lse err {err_l} > {F32_TOL}")
+    del o, lse, ro, rl
+    t = timings(step(lambda li: tfa.flash_attention_fwd(q, k, v,
+                                                        causal=True)),
+                step(lambda li: tfa.flash_attention_reference(
+                    q, k, v, causal=True)),
+                step(lambda li: F.scaled_dot_product_attention(
+                    q, k, v, is_causal=True)))
+    keep("flash_attention_fwd", t, L * ((2 * nh + 2 * kvh) * B * S * hd * 2
+                                        + B * nh * S * 4),
+         L * 4 * hd * pairs,
+         f"the prefill of a tp-4 rank: {L} launches, B={B}, H={nh}, "
+         f"over {kvh} KV heads, S=Sk={S}, D={hd}, causal, bf16")
+    del q, k, v
+    # flash backward: the tp-2 train step, [1, 32, 4096, 128], 4 launches
+    n = TP_TRAIN_LAYERS * 2
+    B2, H2, K2, S2 = 1, 32, 4, TP_RANKS_SEQ
+    q, do = randn(B2, H2, S2, hd), randn(B2, H2, S2, hd)
+    k = randn(B2, K2, S2, hd).repeat_interleave(H2 // K2, 1)
+    v = randn(B2, K2, S2, hd).repeat_interleave(H2 // K2, 1)
+    o, lse = tfa.flash_attention_fwd(q, k, v, causal=True)
+    delta = (do.float() * o.float()).sum(-1)
+    # the kernels against the plain backward on the inputs cast to f32,
+    # 8 heads at a time (the f32 scores of all 32 would take 8.6 GB)
+    dq = tfa.flash_attention_bwd_dq(q, k, v, do, lse, delta)
+    dk, dv = tfa.flash_attention_bwd_dkv(q, k, v, do, lse, delta)
+    ref = [torch.empty(x.shape, dtype=torch.float32, device="cuda")
+           for x in (dq, dk, dv)]
+    for h in range(0, H2, 8):
+        p = slice(h, h + 8)
+        fq, fk, fv, fo, fdo = f32(*(x[:, p] for x in (q, k, v, o, do)))
+        for r, x in zip(ref, tfa.flash_attention_bwd_reference(
+                fq, fk, fv, fo, lse[:, p], fdo, causal=True)):
+            r[:, p] = x
+        del fq, fk, fv, fo, fdo
+    errs["flash_attention_bwd_dq"] = _hold(
+        "tp4 flash_attention_bwd dq:", dq, ref[0], False, floor=2.0 ** -10)
+    errs["flash_attention_bwd_dkv"] = max(
+        _hold(f"tp4 flash_attention_bwd {n}:", x, r, False, floor=2.0 ** -10)
+        for n, x, r in (("dk", dk, ref[1]), ("dv", dv, ref[2])))
+    del dq, dk, dv, ref
+    qs, ks, vs = (x.detach().clone().requires_grad_() for x in (q, k, v))
+    so = F.scaled_dot_product_attention(qs, ks, vs, is_causal=True)
+    lib = device_ms(step(lambda li: torch.autograd.grad(
+        so, (qs, ks, vs), do, retain_graph=True), n=n))
+    plain = device_ms(lambda: tfa.flash_attention_bwd_reference(
+        q, k, v, o, lse, do, causal=True), reps=1) * n
+    pairs = B2 * H2 * S2 * (S2 + 1) // 2
+    # one bf16 [B, H, S, D] at the query heads, one at the KV heads
+    elem, elem_kv = B2 * H2 * S2 * hd * 2, B2 * K2 * S2 * hd * 2
+    rows = B2 * H2 * S2 * 4
+    for name, fn, nbytes, flops in (
+            ("flash_attention_bwd_dq",
+             lambda li: tfa.flash_attention_bwd_dq(q, k, v, do, lse, delta),
+             3 * elem + 2 * elem_kv + 2 * rows, 6 * hd * pairs),
+            ("flash_attention_bwd_dkv",
+             lambda li: tfa.flash_attention_bwd_dkv(q, k, v, do, lse, delta),
+             2 * elem + 4 * elem_kv + 2 * rows, 8 * hd * pairs)):
+        t = {"ms": device_ms(step(fn, n=n)), "plain_ms": plain,
+             "library_ms": lib, "wall_ms": wall_ms(step(fn, n=n))}
+        keep(name, t, n * nbytes, n * flops,
+             f"a tp-2 rank's train step: {n} launches, B={B2}, H={H2} "
+             f"over {K2} KV heads, "
+             f"S=Sk={S2}, D={hd}, causal, bf16; plain and library compute "
+             "dq, dk and dv together (plain: one call timed, times "
+             f"{n})")
+    del q, k, v, do, o, lse, delta, qs, ks, vs, so
+    # quant_matmul: one decode step of a tp-4 rank (M 8)
+    shapes = [(8192, 2560), (2048, 8192), (8192, 7168), (8192, 7168),
+              (7168, 8192)]
+    gf = torch.Generator(device="cuda").manual_seed(72)
+    mats = [tqm.pack_kernel(torch.randn(K, N, device="cuda", generator=gf))
+            for K, N in shapes]
+    head = tqm.pack_kernel(torch.randn(8192, 8000, device="cuda",
+                                       generator=gf))
+    dense = [(q_.float().reshape(-1, 256, q_.shape[-1]) * s[:, None]).reshape(
+        q_.shape).to(bf) for q_, s in mats + [head]]
+    M = 8
+    xs = {K: randn(M, K) for K in (8192, 2048, 7168)}
+    calls = [m for _ in range(L) for m in range(5)] + [5]
+    allm = mats + [head]
+    errs["quant_matmul"] = 0.0
+    for qw, sw in allm:
+        K, N = qw.shape
+        got = tqm.quant_matmul(xs[K], qw, sw)
+        ref = tqm.quant_matmul_reference(xs[K], qw, sw)
+        torch.cuda.synchronize()
+        err = _max_err(got, ref)
+        tol = 2 ** -7 * ref.float().abs().max().item()
+        log(f"check: tp4 quant_matmul M={M} K={K} N={N} x=bf16 "
+            f"max_abs_err={err:.3e} tol={tol:.3e}")
+        if got.dtype != xs[K].dtype or got.shape != (M, N) or not err <= tol:
+            fail(f"tp4 quant_matmul {M}x{K}x{N}: err {err} > {tol}")
+        errs["quant_matmul"] = max(errs["quant_matmul"], err)
+    t = timings(
+        lambda: [tqm.quant_matmul(xs[allm[i][0].shape[0]], *allm[i])
+                 for i in calls],
+        lambda: [tqm.quant_matmul_reference(xs[allm[i][0].shape[0]],
+                                            *allm[i]) for i in calls],
+        lambda: [torch.matmul(xs[dense[i].shape[0]], dense[i])
+                 for i in calls])
+    nbytes = sum(allm[i][0].numel() + 4 * allm[i][1].numel()
+                 + 2 * M * sum(allm[i][0].shape) for i in calls)
+    flops = sum(2 * M * allm[i][0].numel() for i in calls)
+    keep("quant_matmul", t, nbytes, flops,
+         f"one decode step of a tp-4 rank: {len(calls)} launches, M={M}, "
+         "qkv 8192x2560, proj 2048x8192, gate / fc 8192x7168, mlp proj "
+         "7168x8192 (80 layers), head 8192x8000; library: torch.matmul on "
+         "the dequantized bf16 weights")
+    del mats, head, dense, xs
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_tp_ranks(tmp, n):
+    """``--tp-ranks N``: the tp leg across N GPUs of one host, one process
+    each through the port's launcher (NCCL on cuda:LOCAL_RANK). First,
+    on GPU 0 without a process group: the 8-layer model (the layer-by-
+    layer tree of :func:`_llama70_shards`) in f32 and in bf16, each
+    engine's forward logits of the prompts' last TP_RANKS_WINDOW positions
+    and the f32 engine's greedy generate() tokens; and the TP_TRAIN_LAYERS
+    model's first train step on the global batch. Then
+    :func:`tp_worker` on every GPU: (a) the same at tp N: the f32 tokens
+    must equal, and each bf16 path's logits deviation from its f32
+    engine's logits within TP_BF16_RATIO of the other's (RMS and max);
+    (b) full-depth Llama-2-70B at tp N in bf16 (80 x N / 4 layers, each
+    rank building its shards layer by layer): generate() [4, 1024] + 32
+    and an int8 serve() (kv_cache_dtype and weight_dtype), equal on every
+    rank, with prefill ms, decode step wall / busy / NCCL ms, tokens/s
+    and each rank's peak memory; (c) training at tp 2 x data N / 2 (tp
+    1 on one GPU), ZeRO 3, seq TP_RANKS_SEQ: the first step's loss within
+    1e-4 and grad norm within 5e-3 of the single engine's, the loss
+    falling, step ms, 6N TFLOP/s a GPU and NCCL ms."""
+    import numpy as np
+    import torch
+    import deepspeed_tpu_torch
+    cfg = _llama70_cfg(TP_SERVE_LAYERS)
+    ids = _tp_ids(cfg.vocab_size)
+    params = _llama70_shards(cfg, TP_SEED, None)
+    ref = {}
+    for dt in ("float32", "bf16"):
+        c = dataclasses.replace(cfg, dtype=torch.float32) \
+            if dt == "float32" else cfg
+        eng = deepspeed_tpu_torch.init_inference(
+            c, {"dtype": dt}, model_parameters=params)
+        ref[dt] = _prefill_logits(eng, ids)
+        if dt == "float32":
+            ref["tokens"] = eng.generate(ids, max_new_tokens=TP_NEW).cpu()
+        del eng
+        gc.collect()
+        torch.cuda.empty_cache()
+    del params
+    config = _tp_ranks_config(n, group=False)
+    ref_engine = _tp_engine(_tp_train_model(cfg, 17, TP_RANKS_SEQ), config,
+                            None)
+    ref["train"] = ref_engine.train_batch(_tp_batch(
+        config["train_batch_size"], cfg.vocab_size, TP_RANKS_SEQ))
+    del ref_engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    out = os.path.join(tmp, "tp_ranks.json")
+    env = dict(os.environ, PYTHONPATH=HERE)
+    rc = subprocess.run(
+        [sys.executable, "-m", "deepspeed_tpu_torch.launcher.launch",
+         "--nproc_per_node", str(n), os.path.join(HERE, "chip_smoke.py"),
+         "--tp-worker", out], cwd=HERE, env=env, timeout=1500).returncode
+    if rc != 0:
+        fail(f"tp ranks: the launcher exited {rc}")
+    with open(out) as f:
+        res = json.load(f)
+    got = torch.load(out + ".pt")
+    same = torch.equal(got["tokens"], ref["tokens"])
+    dev = {}
+    for name, x in (("tp", got), ("one", ref)):
+        d = (x["bf16"].float() - ref["float32"].float())
+        dev[name] = (d.square().mean().sqrt().item(), d.abs().max().item())
+    f32_err = (got["float32"] - ref["float32"]).abs().max().item()
+    log(f"check: tp ranks={n} f32 greedy tokens equal to one engine without "
+        f"a process group: {same}; f32 logits max_abs_err={f32_err:.3e}; "
+        f"bf16 deviation from f32 (rms, max): tp {dev['tp'][0]:.4e} / "
+        f"{dev['tp'][1]:.4e}, one engine {dev['one'][0]:.4e} / "
+        f"{dev['one'][1]:.4e}; limit {TP_BF16_RATIO}x each way")
+    if not same:
+        fail("tp ranks: the f32 tokens differ from the single engine's")
+    for i in (0, 1):
+        a, b = dev["tp"][i], dev["one"][i]
+        if not (a <= TP_BF16_RATIO * b and b <= TP_BF16_RATIO * a):
+            fail("tp ranks: the bf16 paths' deviations from f32 differ by "
+                 f"more than {TP_BF16_RATIO}x")
+    first, want = res["train"]["metrics"][0], ref["train"]
+    rl = abs(first["loss"] - want["loss"]) / abs(want["loss"])
+    rn = abs(first["grad_norm"] - want["grad_norm"]) / abs(want["grad_norm"])
+    log(f"check: tp ranks={n} train first step vs one engine without a "
+        f"process group loss={first['loss']:.7f}/{want['loss']:.7f} rel="
+        f"{rl:.3e} tol=1e-4 grad_norm={first['grad_norm']:.6f}/"
+        f"{want['grad_norm']:.6f} rel={rn:.3e} tol=5e-3")
+    if not (rl <= 1e-4 and rn <= 5e-3):
+        fail("tp ranks: the first train step is off the single engine's")
+    res.update(tokens_equal=same, f32_logits_max_abs_err=f32_err,
+               bf16_deviation={k: list(v) for k, v in dev.items()},
+               loss_rel=rl, grad_norm_rel=rn)
+    return res
+
+
+def _prefill_logits(eng, ids):
+    """The last TP_RANKS_WINDOW positions' f32 logits of the prompts'
+    prefill through the generate path (the flash kernel on an empty
+    cache), on the host."""
+    import torch
+    from deepspeed_tpu_torch.models.generation import (
+        forward_with_cache, init_cache, padded_cache_len)
+    B, T = ids.shape
+    with torch.no_grad():
+        cache = init_cache(eng.cfg, B, padded_cache_len(T), device="cuda",
+                           tp=eng.tp)
+        logits, _ = forward_with_cache(eng.cfg, eng.params, ids, cache,
+                                       prefill_flash=True, tp=eng.tp)
+    return logits[:, -TP_RANKS_WINDOW:].cpu()
+
+
+def _tp_ids(vocab):
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(16)
+    return torch.as_tensor(rng.integers(1, vocab, (TP_BATCH, TP_PROMPT)),
+                           device="cuda")
+
+
+def _tp_ranks_config(world, group=True):
+    """--tp-ranks' train config: tp 2 x data world / 2 (tp 1 on one GPU),
+    ZeRO 3, pure bf16, one TP_RANKS_SEQ sample a data rank a micro-batch,
+    gas 2; ``group=False``: the same global batch on one engine."""
+    tp = 2 if world >= 4 else 1
+    data = world // tp
+    cfg = dict(TP_TRAIN_CONFIG, train_batch_size=data * TP_GAS,
+               train_micro_batch_size_per_gpu=1 if group else data)
+    if group:
+        cfg["tensor_parallel"] = {"tp_size": tp}
+    return cfg
+
+
+def tp_worker(out):
+    """One rank of ``--tp-ranks``, started by the port's launcher (NCCL on
+    cuda:LOCAL_RANK); rank 0 writes the readings to ``out`` (and the
+    logits and tokens to ``out + ".pt"``)."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch import comm
+    from deepspeed_tpu_torch.ops import quant_matmul as tqm
+    from deepspeed_tpu_torch.parallel.mesh import STEP_AXES
+    from deepspeed_tpu_torch.utils.partitioning import TPContext
+    comm.init_distributed()
+    rank, world = comm.get_rank(), comm.get_world_size()
+    res, tensors = {"world": world}, {}
+
+    def peak_by_rank():
+        peak = torch.tensor([torch.cuda.max_memory_allocated() / 1e9],
+                            device="cuda")
+        return comm.all_gather(peak, axis=STEP_AXES).tolist()
+
+    def agree(label, value):
+        """Every rank holds the same ``value`` (tokens, outputs)."""
+        import hashlib
+        h = hashlib.sha256(json.dumps(value).encode()).digest()[:8]
+        mine = torch.tensor(list(h), dtype=torch.int64, device="cuda")
+        every = comm.all_gather(mine, axis=STEP_AXES, tiled=False)
+        if not bool((every == mine).all()):
+            fail(f"tp ranks: {label} differ across ranks")
+
+    # (a) the 8-layer model at tp N, f32 and bf16
+    cfg = _llama70_cfg(TP_SERVE_LAYERS)
+    rules = cfg.tp_rules()
+    ids = _tp_ids(cfg.vocab_size)
+    tp = TPContext(rank, world, cfg.vocab_size)
+    shards = _llama70_shards(cfg, TP_SEED, tp)
+    for dt in ("float32", "bf16"):
+        c = dataclasses.replace(cfg, dtype=torch.float32) \
+            if dt == "float32" else cfg
+        eng = deepspeed_tpu_torch.init_inference(
+            c, {"dtype": dt, "tensor_parallel": {"tp_size": world}},
+            shards=shards, sharding_rules=rules)
+        tensors[dt] = _prefill_logits(eng, ids)
+        if dt == "float32":
+            tensors["tokens"] = eng.generate(ids,
+                                             max_new_tokens=TP_NEW).cpu()
+            agree("the f32 tokens", tensors["tokens"].tolist())
+        del eng
+        gc.collect()
+        torch.cuda.empty_cache()
+    del shards
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (b) full depth at tp N in bf16
+    torch.cuda.reset_peak_memory_stats()
+    full = _llama70_cfg(80 * world // 4)
+    t0 = time.perf_counter()
+    shards = _llama70_shards(full, TP_SEED, tp)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    eng = deepspeed_tpu_torch.init_inference(
+        full, {"dtype": "bf16", "tensor_parallel": {"tp_size": world},
+               "serving": SERVING}, shards=shards, sharding_rules=rules)
+    del shards
+    gc.collect()
+    torch.cuda.empty_cache()
+    L = full.num_layers
+    weights_gb = _numel(eng.params) * 2 / 1e9
+    eng.generate(ids, max_new_tokens=2)                    # warm-up
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    eng.generate(ids, max_new_tokens=1)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t1
+    _zero_counters()
+    comm.reset_op_counts()
+    t1 = time.perf_counter()
+    toks = eng.generate(ids, max_new_tokens=TP_NEW)
+    torch.cuda.synchronize()
+    total_s = time.perf_counter() - t1
+    gen, gops = _counters(), _tp_ops()
+    steps = TP_NEW - 1
+    agree("the full-depth tokens", toks.tolist())
+    if gen["flash_attention_fwd"] != L or \
+            gen["decode_attention"] != L * steps:
+        fail(f"tp ranks generate launched {gen}")
+    _tp_forward_ops(f"tp ranks={world} rank {rank} generate", gops, TP_NEW,
+                    L)
+    prof = profile_generate(full, eng.params, ids, tag=f" tp{world}",
+                            tp=eng.tp)
+    gen_rates = {"layers": L, "build_s": build_s,
+                 "weights_gb_a_rank": weights_gb,
+                 "prefill_ms": 1e3 * prefill_s,
+                 "prefill_tok_s": TP_BATCH * TP_PROMPT / prefill_s,
+                 "decode_tok_s": TP_BATCH * steps / (total_s - prefill_s),
+                 "decode_step_ms": 1e3 * (total_s - prefill_s) / steps,
+                 "launches": gen, "collectives": gops, **prof}
+    srv8 = eng.serve(dict(SERVING, kv_cache_dtype="int8",
+                          weight_dtype="int8"))
+    rng = np.random.default_rng(17)
+    prompts8 = [list(rng.integers(1, full.vocab_size, int(k)))
+                for k in TP_INT8_LENS]
+    _run_requests(srv8, [list(rng.integers(1, full.vocab_size, 40))], 2)
+    _instrument(srv8, tqm.quant_matmul)
+    stats0 = dict(srv8.stats)
+    _zero_counters()
+    comm.reset_op_counts()
+    reqs = _run_requests(srv8, prompts8, TP_INT8_NEW)
+    int8, iops = _counters(), _tp_ops()
+    pre, dec = srv8._run_prefill, srv8._decode_step
+    _, int8_rates = _rates(srv8, stats0, dec.calls)
+    agree("the int8 serve outputs", [r.output_tokens for r in reqs])
+    if pre.launches != (5 * L + 1) * pre.calls or \
+            dec.launches != (5 * L + 1) * dec.calls or \
+            int8["paged_attention"] != L * dec.calls:
+        fail(f"tp ranks int8 serve launched {int8}")
+    int8_rates.update(launches=int8, collectives=iops)
+    del srv8._run_prefill, srv8._decode_step, pre, dec, srv8, eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    res["full_depth"] = {"generate": gen_rates, "int8_serve": int8_rates,
+                         "peak_mem_gb_by_rank": peak_by_rank()}
+    if rank == 0:
+        log(f"time: tp ranks={world} full depth " + json.dumps(
+            res["full_depth"]))
+
+    # (c) training at tp 2 x data N / 2
+    torch.cuda.reset_peak_memory_stats()
+    config = _tp_ranks_config(world)
+    engine = _tp_engine(_tp_train_model(cfg, 17, TP_RANKS_SEQ), config,
+                        rules)
+    tcfg = engine.module.cfg
+    batch = _tp_batch(config["train_batch_size"], cfg.vocab_size,
+                      TP_RANKS_SEQ)
+    metrics, step_s = [], []
+    for step in range(TP_RANKS_STEPS):
+        _zero_counters()
+        comm.reset_op_counts()
+        t1 = time.perf_counter()
+        m = engine.train_batch(batch)
+        step_s.append(time.perf_counter() - t1)
+        c, o = _counters(), _tp_ops()
+        metrics.append(m)
+        if rank == 0:
+            log(f"tp ranks={world}: train step {step} loss={m['loss']:.6f} "
+                f"grad_norm={m['grad_norm']:.5f} step_ms="
+                f"{1e3 * step_s[-1]:.1f} tp={engine.tp} "
+                f"launches={json.dumps({k: c[k] for k in FLASH_KERNELS})} "
+                f"collectives={json.dumps(o)}")
+        if any(c[k] != tcfg.num_layers * TP_GAS for k in FLASH_KERNELS):
+            fail(f"tp ranks train step {step} launched {c}")
+        _tp_step_ops(f"tp ranks train step {step}", o, TP_GAS,
+                     tcfg.num_layers, TP_RANKS_SEQ, 256)
+    if not metrics[-1]["loss"] < metrics[0]["loss"]:
+        fail(f"tp ranks: loss did not fall {[x['loss'] for x in metrics]}")
+    dt = float(np.median(step_s[1:]))
+    tokens = config["train_batch_size"] * TP_RANKS_SEQ
+    if rank == 0:
+        busy, by_kind = profile_train(engine, batch, 1e3 * dt,
+                                      label=f"tp ranks={world} train step")
+    else:                               # the profiled step is collective
+        engine.train_batch(batch)
+        busy, by_kind = None, {}
+    res["train"] = {
+        "metrics": metrics, "tp": engine.tp.size, "step_ms": 1e3 * dt,
+        "tokens_s": tokens / dt, "n_params": tcfg.num_params(),
+        "model_tflops_6n_a_gpu": 6.0 * tcfg.num_params() * tokens / dt
+        / 1e12 / world,
+        "step_ms_all": [round(1e3 * x, 3) for x in step_s],
+        "launches": {k: c[k] for k in FLASH_KERNELS}, "collectives": o,
+        "busy_ms_rank0": busy, "device_ms_by_kind_rank0": by_kind,
+        "peak_mem_gb_by_rank": peak_by_rank()}
+    del engine
+    gc.collect()
+    if rank == 0:
+        torch.save(tensors, out + ".pt")
+        with open(out, "w") as f:
+            json.dump(res, f)
+        log(f"time: tp ranks={world} train " + json.dumps(res["train"]))
+    dist.destroy_process_group()
+    return 0
+
+
 def main(argv=None):
     import argparse
     import torch
@@ -6146,10 +7169,10 @@ def main(argv=None):
                          "serve decode step")
     ap.add_argument("--only", nargs="+", metavar="PHASE",
                     choices=("ckpt", "remat", "hf", "bert-masked", "zero",
-                             "sp", "dropout", "moe"),
+                             "sp", "dropout", "moe", "tp"),
                     help="build the kernels, then run only these phases "
                          "(ckpt, remat, hf, bert-masked, zero, sp, dropout, "
-                         "moe) and a result line that names them; no "
+                         "moe, tp) and a result line that names them; no "
                          "kernels line")
     ap.add_argument("--zero-ranks", type=int, metavar="N",
                     help="build the kernels, then run only the zero leg "
@@ -6169,6 +7192,13 @@ def main(argv=None):
                          "process each, through the port's launcher) and a "
                          "result line that names it")
     ap.add_argument("--ep-worker", metavar="OUT", help=argparse.SUPPRESS)
+    ap.add_argument("--tp-ranks", type=int, metavar="N",
+                    help="build the kernels, then run only the tp legs "
+                         "across N GPUs of this host (Llama-2-70B at tp N, "
+                         "full depth at N = 4; training at tp 2 x data N / "
+                         "2; one process each, through the port's "
+                         "launcher) and a result line that names it")
+    ap.add_argument("--tp-worker", metavar="OUT", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -6188,6 +7218,8 @@ def main(argv=None):
         return sp_worker(args.sp_worker)
     if args.ep_worker:
         return ep_worker(args.ep_worker)
+    if args.tp_worker:
+        return tp_worker(args.tp_worker)
     name = torch.cuda.get_device_name(0)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -6235,6 +7267,18 @@ def main(argv=None):
                         "device": {"platform": "gpu", "kind": name,
                                    "count": torch.cuda.device_count()}}))
         return 0
+    if args.tp_ranks:
+        if torch.cuda.device_count() < args.tp_ranks:
+            fail(f"--tp-ranks {args.tp_ranks}: this host has "
+                 f"{torch.cuda.device_count()} GPUs")
+        with tempfile.TemporaryDirectory() as tmp:
+            phase_tp_ranks(tmp, args.tp_ranks)
+        log(f"total_s={time.perf_counter() - t0:.1f}")
+        log(smi)
+        log(json.dumps({"ok": True, "tp_ranks": args.tp_ranks,
+                        "device": {"platform": "gpu", "kind": name,
+                                   "count": torch.cuda.device_count()}}))
+        return 0
     if args.only:
         with tempfile.TemporaryDirectory() as tmp:
             for phase in args.only:
@@ -6245,7 +7289,10 @@ def main(argv=None):
                        "zero": lambda: phase_zero(tmp),
                        "sp": lambda: phase_sp(tmp),
                        "dropout": phase_dropout,
-                       "moe": lambda: phase_moe(tmp, smi)}[phase]()
+                       "moe": lambda: phase_moe(tmp, smi),
+                       "tp": lambda: {"phase": phase_tp(smi),
+                                      "tp4_calls": time_tp_kernels()}
+                       }[phase]()
                 log(f"time: {phase} " + json.dumps(res, default=str))
         log(f"total_s={time.perf_counter() - t0:.1f}")
         log(smi)
@@ -6341,6 +7388,8 @@ def main(argv=None):
     with tempfile.TemporaryDirectory() as tmp:
         moe = phase_moe(tmp, smi)
     log("time: moe " + json.dumps(moe["rates"]))
+    tp = phase_tp(smi)
+    tp4 = time_tp_kernels()
     bs = time_block_sparse_attention()
     time_block_sparse_scaling()
     if old_bs is not None:
@@ -6410,6 +7459,12 @@ def main(argv=None):
         # the moe leg's (Mixtral-8x7B) launches by entry point
         row["launches_moe"] = {path: c[kname] for path, c in
                                moe["launches"].items() if c.get(kname)}
+        # the tp leg's (Llama-2-70B, TP layers in a 1-rank world) launches
+        # by entry point, and the calls at a tp-4 rank's shapes
+        row["launches_tp"] = {path: c[kname] for path, c in
+                              tp["launches"].items() if c.get(kname)}
+        if kname in tp4:
+            row["tp4_calls"] = tp4[kname]
         if kname == "quant_matmul":
             row["launches_by_path"] = qm_by_path
         row.update(t)

@@ -7,7 +7,9 @@ layer/param structure across tp/pp shards) and ``universal_checkpoint.py``
 (reshape to a topology-free layout). Here checkpoints are ALREADY
 topology-free — every parameter is stored whole under its pytree path — so
 the class is pure introspection: names, shapes, dtypes, lazy tensor access,
-and it reads the checkpoints of both packages alike.
+and it reads the checkpoints of both packages alike: one whole-leaf file, or
+the ``-shard{p}`` files a process group writes (ZeRO slabs, expert and
+tensor-parallel pieces at their global offsets), whose leaves it assembles.
 """
 
 from __future__ import annotations
@@ -18,7 +20,7 @@ from typing import Dict, List, Optional
 
 import numpy as np
 
-from ..runtime.checkpointing import FlatNpz, get_latest_tag
+from ..runtime.checkpointing import get_latest_tag, open_states
 
 
 def _npz_headers(path: str) -> Dict[str, tuple]:
@@ -52,6 +54,27 @@ def _npz_headers(path: str) -> Dict[str, tuple]:
     return out
 
 
+def _headers(ckpt_dir: str, base: str) -> Dict[str, tuple]:
+    """{key: (shape, dtype_str)} of ``base``: its whole-leaf file's
+    headers, or the ``-shard*`` files' manifests (the global shapes) and
+    their pieces' dtypes."""
+    import glob
+    path = os.path.join(ckpt_dir, base + ".npz")
+    if os.path.exists(path):
+        return _npz_headers(path)
+    out = {}
+    for f in sorted(glob.glob(os.path.join(ckpt_dir, base + "-shard*.npz"))):
+        heads = _npz_headers(f)
+        with np.load(f) as z:
+            manifest = json.loads(bytes(z["__manifest__"]).decode())
+        for key, ent in manifest.items():
+            dtype = next((heads[p["name"]][1] for p in ent["pieces"]),
+                         None)
+            if dtype is not None or key not in out:
+                out[key] = (tuple(ent["shape"]), dtype)
+    return out
+
+
 class DeepSpeedCheckpoint:
     """Inspector over a saved checkpoint directory. Shapes/dtypes come from
     the npy headers; tensor data loads lazily per get_parameter call."""
@@ -69,11 +92,8 @@ class DeepSpeedCheckpoint:
         self.tag = tag
         with open(os.path.join(self.dir, "meta.json")) as f:
             self.meta = json.load(f)
-        self._model_path = os.path.join(self.dir, "model_states.npz")
-        self._model_hdrs = _npz_headers(self._model_path)
-        optim_path = os.path.join(self.dir, "optim_states.npz")
-        self._optim_hdrs = (_npz_headers(optim_path)
-                            if os.path.exists(optim_path) else {})
+        self._model_hdrs = _headers(self.dir, "model_states")
+        self._optim_hdrs = _headers(self.dir, "optim_states")
 
     @property
     def global_step(self) -> int:
@@ -88,7 +108,7 @@ class DeepSpeedCheckpoint:
     def get_parameter(self, name: str):
         """One parameter as a CPU tensor (bf16 as ``torch.bfloat16``),
         read alone from the archive."""
-        with FlatNpz(self._model_path) as r:
+        with open_states(self.dir, "model_states", self.meta) as r:
             return r[name]
 
     def shapes(self) -> Dict[str, tuple]:

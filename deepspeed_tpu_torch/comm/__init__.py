@@ -9,6 +9,9 @@ from .comm import (
     reduce_scatter,
     all_to_all,
     broadcast,
+    tp_copy_to,
+    tp_reduce_from,
+    tp_gather_from,
     P2PHandle,
     ppermute,
     ppermute_async,

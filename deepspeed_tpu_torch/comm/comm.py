@@ -337,6 +337,83 @@ def all_to_all(tensor: torch.Tensor, axis: AxisName = "expert",
     return _all_to_all(tensor, axis, split_dim, concat_dim)
 
 
+class _CopyTo(torch.autograd.Function):
+    """Megatron's copy to the model-parallel region: identity forward,
+    the gradient all-reduced (summed) over the axis in the backward."""
+
+    @staticmethod
+    def forward(ctx, x, axis):
+        ctx.axis = axis
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        _counts["tp_copy_to"] += 1
+        return all_reduce(g.contiguous(), axis=ctx.axis), None
+
+
+class _ReduceFrom(torch.autograd.Function):
+    """Megatron's reduce from the model-parallel region: all-reduce
+    (sum) forward, identity backward."""
+
+    @staticmethod
+    def forward(ctx, x, axis):
+        _counts["tp_reduce_from"] += 1
+        return all_reduce(x.contiguous(), axis=axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _GatherFrom(torch.autograd.Function):
+    """Megatron's gather from the model-parallel region: all-gather along
+    ``dim`` forward, this rank's split of the gradient backward."""
+
+    @staticmethod
+    def forward(ctx, x, axis, dim):
+        _counts["tp_gather_from"] += 1
+        ctx.args = (axis, dim, x.shape[dim])
+        return all_gather(x.contiguous(), axis=axis, gather_dim=dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        axis, dim, n = ctx.args
+        r = axis_rank(axis)
+        return g.narrow(dim, r * n, n).contiguous(), None, None
+
+
+def tp_copy_to(x: torch.Tensor, axis: AxisName = "model") -> torch.Tensor:
+    """``x`` into a column-parallel layer: the same values, with the
+    ranks' partial gradients summed over ``axis`` in the backward (one
+    counted ``all_reduce``, and ``tp_copy_to``)."""
+    if torch.is_grad_enabled() and x.requires_grad:
+        return _CopyTo.apply(x, axis)
+    return x
+
+
+def tp_reduce_from(x: torch.Tensor, axis: AxisName = "model"
+                   ) -> torch.Tensor:
+    """A row-parallel layer's partial sums, summed over ``axis`` (one
+    counted ``all_reduce``, and ``tp_reduce_from``); the backward passes
+    the gradient through. Returns a new tensor."""
+    if torch.is_grad_enabled() and x.requires_grad:
+        return _ReduceFrom.apply(x, axis)
+    _counts["tp_reduce_from"] += 1
+    return all_reduce(x.contiguous().clone(), axis=axis)
+
+
+def tp_gather_from(x: torch.Tensor, axis: AxisName = "model",
+                   dim: int = -1) -> torch.Tensor:
+    """The ranks' shards of ``x`` concatenated along ``dim`` in rank order
+    (one counted ``all_gather``, and ``tp_gather_from``); the backward
+    keeps this rank's split of the gradient."""
+    if torch.is_grad_enabled() and x.requires_grad:
+        return _GatherFrom.apply(x, axis, dim % x.dim())
+    _counts["tp_gather_from"] += 1
+    return all_gather(x.contiguous(), axis=axis, gather_dim=dim % x.dim())
+
+
 @timed_op
 def broadcast(tensor: torch.Tensor, src: int = 0,
               axis: AxisName = "data") -> torch.Tensor:

@@ -10,9 +10,21 @@ engine's ``forward()`` is ``forward_with_cache`` on a fresh cache; the
 bf16/f32 ``forward()`` applies the ``models.transformer.Transformer``
 module to the engine's weights, as the JAX engine applies its flax
 model. ``load_checkpoint`` reads a name-keyed npz written by either
-package (re-quantizing for int8). ``tp_size > 1`` and the serving fleet,
-disaggregated and process placements raise ``NotImplementedError`` until
-later slices of the port (see ROADMAP.md).
+package (re-quantizing for int8) and reshards it onto this engine's
+``tp_size``.
+
+Tensor parallelism (``tensor_parallel.tp_size`` with
+``sharding_rules=cfg.tp_rules()``, in a process group whose mesh has a
+``model`` axis of ``tp_size``): each rank keeps only its shards of the
+weights (``utils.partitioning.shard_tree``: its heads' qkv columns, its
+MLP columns and projection rows, its ceil(V / t) vocab rows) and runs
+the Megatron layers over them (``models/generation.py``); ``generate()``
+and ``serve()`` give every rank the whole logits, so each picks the same
+tokens. The layers run whenever a process group is up and the rules are
+given, a model axis of one included. ``sharding_rules=None`` keeps the
+weights whole on every rank, as the JAX engine replicates them. The
+serving fleet, disaggregated and process placements raise
+``NotImplementedError`` until later slices of the port (see ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -34,7 +46,8 @@ _DTYPES = {"float16": torch.float16, "fp16": torch.float16,
 _LATER = "is not ported to deepspeed_tpu_torch yet (see ROADMAP.md)"
 
 
-def quantize_weights_int8(params: Dict[str, Any]) -> Dict[str, Any]:
+def quantize_weights_int8(params: Dict[str, Any], tp=None, rules=None
+                          ) -> Dict[str, Any]:
     """Weight-only int8: per-output-channel symmetric quantization of the
     matmul kernels (attention, MLP, lm_head). Embeddings, norms, biases
     and a MoE router (a ``gate`` node) stay high precision. Each quantized
@@ -42,7 +55,19 @@ def quantize_weights_int8(params: Dict[str, Any]) -> Dict[str, Any]:
     ``kernel_scale`` [..., 1, out] (absmax / 127 over ``in``; 1 for an all
     zero channel), so ``kernel.float() * kernel_scale`` rebuilds the
     weight within scale / 2 elementwise. The bytes equal the JAX
-    package's (round half to even in both)."""
+    package's (round half to even in both).
+
+    Under TP (``tp``, with the ``rules`` that cut ``params`` into this
+    rank's shards) a row-parallel kernel's absmax is the max over the
+    model axis of the ranks' row shards: each rank holds the whole
+    leaf's quantization, sliced, and keeps the whole [1, out] scale, so
+    the all-reduced sum of the partial products is the whole one."""
+    from ..utils.partitioning import spec_for
+
+    def row_parallel(path) -> bool:
+        spec = spec_for("/".join(path + ("kernel",)), rules)
+        return (tp is not None and spec is not None
+                and len(spec) >= 2 and spec[-2] == "model")
 
     def walk(node, path=()):
         out = {}
@@ -50,7 +75,12 @@ def quantize_weights_int8(params: Dict[str, Any]) -> Dict[str, Any]:
             if (key == "kernel" and isinstance(val, torch.Tensor)
                     and val.dim() >= 2 and "gate" not in path):
                 w = val.to(torch.float32)
-                scale = w.abs().amax(dim=-2, keepdim=True) / 127.0
+                amax = w.abs().amax(dim=-2, keepdim=True)
+                if row_parallel(path):
+                    from .. import comm
+                    comm.all_reduce(amax, op=comm.ReduceOp.MAX,
+                                    axis=tp.axis)
+                scale = amax / 127.0
                 scale = torch.where(scale == 0.0, torch.ones_like(scale),
                                     scale)
                 out["kernel"] = torch.clamp(torch.round(w / scale), -127,
@@ -74,10 +104,15 @@ class InferenceEngine:
     ``models.convert.params_from_jax``.
     ``config``: a dict, a ``DeepSpeedInferenceConfig`` or a path to a JSON
     file. ``device``: default CUDA; ``"cpu"`` runs the plain versions of
-    the kernels."""
+    the kernels. ``sharding_rules``: None, or ``cfg.tp_rules()`` (module
+    docstring; any other table raises). ``shards``: in place of
+    ``model_parameters``, this rank's shards of the scan-layout tree as
+    ``utils.partitioning.shard_tree`` cuts them (a caller that builds
+    them layer by layer never holds the whole model); their shapes are
+    checked."""
 
     def __init__(self, model=None, config=None, model_parameters=None,
-                 device=None, **kwargs):
+                 device=None, sharding_rules=None, shards=None, **kwargs):
         if kwargs:
             raise TypeError(f"InferenceEngine: unsupported arguments "
                             f"{sorted(kwargs)}")
@@ -94,23 +129,46 @@ class InferenceEngine:
         if dtype not in _DTYPES and not self.quantized:
             raise ValueError(f"dtype {dtype!r}: expected one of "
                              f"{sorted(_DTYPES)}")
-        tp = self.config.tensor_parallel.tp_size
-        if tp != 1:
-            raise NotImplementedError(f"tensor_parallel.tp_size={tp} "
-                                      + _LATER)
-        if model_parameters is None:
+        self.tp, self._rules = _tp_context(
+            cfg, self.config.tensor_parallel.tp_size, sharding_rules,
+            self.device)
+        if (model_parameters is None) == (shards is None):
             raise ValueError("need model_parameters (models.transformer."
-                             "init_params builds them from a seed)")
+                             "init_params builds them from a seed), or "
+                             "this rank's shards")
         # int8 is weight-only: activations compute in bf16
         self.dtype = torch.bfloat16 if self.quantized else _DTYPES[dtype]
-        params = ensure_scan_layout(model_parameters, cfg.num_layers)
-        if self.quantized:
-            params = quantize_weights_int8(params)
-        self.params = _cast(params, self.dtype, self.device)
+        # the whole tree's shapes: what a checkpoint holds
+        if shards is not None:
+            from ..models.transformer import init_params
+            self._whole = init_params(cfg, None, device="meta",
+                                      dtype=torch.float32)
+            _check_shapes(shards, self._shard(self._whole))
+            self._place(shards, sharded=True)
+        else:
+            params = ensure_scan_layout(model_parameters, cfg.num_layers)
+            self._whole = _meta(params)
+            self._place(params)
         self._module = None
         log_dist(f"InferenceEngine: dtype={dtype} device={self.device}"
-                 + (" (int8 weight-only)" if self.quantized else ""),
-                 ranks=[0])
+                 + (" (int8 weight-only)" if self.quantized else "")
+                 + (f" tp={self.tp.size}" if self.tp else ""), ranks=[0])
+
+    def _shard(self, tree):
+        from ..utils.partitioning import shard_tree
+        return shard_tree(tree, self.cfg, self.tp, self._rules)
+
+    def _place(self, params, sharded: bool = False) -> None:
+        """This rank's shards of a whole tree (or, ``sharded``, the shards
+        themselves), quantized for the int8 engine, in the engine's dtype
+        on its device."""
+        if not sharded:
+            params = self._shard(params)
+        if self.quantized:
+            params = quantize_weights_int8(
+                _cast(params, torch.float32, self.device), self.tp,
+                self._rules)
+        self.params = _cast(params, self.dtype, self.device)
 
     def forward(self, batch):
         """Logits [B, T, V] f32 of ``batch`` (ids [B, T], or a dict with
@@ -125,6 +183,7 @@ class InferenceEngine:
                 from ..models.transformer import Transformer
                 self._module = Transformer(self.cfg, params=self.params)
                 self._module.requires_grad_(False)
+                self._module.set_tp(self.tp)
             if isinstance(batch, dict):
                 batch = {k: torch.as_tensor(v, device=self.device)
                          for k, v in batch.items()}
@@ -134,9 +193,10 @@ class InferenceEngine:
         ids = torch.as_tensor(ids, device=self.device)
         B, T = ids.shape
         cache = init_cache(self.cfg, B, padded_cache_len(T),
-                           device=self.device)
+                           device=self.device, tp=self.tp)
         with torch.no_grad():
-            logits, _ = forward_with_cache(self.cfg, self.params, ids, cache)
+            logits, _ = forward_with_cache(self.cfg, self.params, ids, cache,
+                                           tp=self.tp)
         return logits
 
     __call__ = forward
@@ -147,18 +207,12 @@ class InferenceEngine:
         engine's device: every parameter path of the served model must be
         present with its shape. Leaves are cast to the engine's dtype; an
         int8 engine loads the full-precision kernels and quantizes them
-        again (:func:`quantize_weights_int8`)."""
+        again (:func:`quantize_weights_int8`). The checkpoint's leaves are
+        whole, whatever topology wrote them; each rank keeps its shards of
+        them (``tp_size`` resharding)."""
         from ..runtime.checkpointing import load_tree
-
-        def full_precision(node):      # the tree before quantization
-            return {k: full_precision(v) if isinstance(v, dict) else v
-                    for k, v in node.items() if k != "kernel_scale"}
-
-        raw = load_tree(path, full_precision(self.params))
-        if self.quantized:
-            raw = quantize_weights_int8(
-                _cast(raw, torch.float32, self.device))
-        self.params = _cast(raw, self.dtype, self.device)
+        self.params = None
+        self._place(load_tree(path, self._whole))
         self._module = None
         log_dist(f"InferenceEngine: loaded {path}", ranks=[0])
         return self
@@ -177,7 +231,8 @@ class InferenceEngine:
         ids = torch.as_tensor(input_ids, device=self.device)
         return generate(self.cfg, self.params, ids, max_new_tokens,
                         temperature, generator, top_k, top_p,
-                        repetition_penalty, attention_mask, kv_cache_dtype)
+                        repetition_penalty, attention_mask, kv_cache_dtype,
+                        tp=self.tp)
 
     def serve(self, serving=None, heartbeat=None):
         """The continuous-batching serving loop over this engine's weights:
@@ -203,7 +258,56 @@ class InferenceEngine:
             raise NotImplementedError("watchdog.serve_timeout (the serving "
                                       "stall watchdog) " + _LATER)
         return ServingEngine(self.cfg, self.params, serving=scfg,
-                             heartbeat=heartbeat, device=self.device)
+                             heartbeat=heartbeat, device=self.device,
+                             tp=self.tp)
+
+
+def _tp_context(cfg, tp_size: int, rules, device):
+    """(TPContext or None, the rules as run) of an engine: the mesh's
+    ``model`` axis in a process group, when rules are given."""
+    from .. import comm
+    from ..utils.partitioning import TPContext, check_tp_model, check_tp_rules
+    rules = check_tp_rules(rules, cfg)
+    if not comm.is_initialized():
+        if tp_size > 1:
+            raise ValueError(
+                f"tensor_parallel.tp_size {tp_size} needs a process group "
+                f"of a multiple of {tp_size} ranks (launch the script with "
+                "launcher/launch.py, or call comm.init_distributed())")
+        return None, rules
+    import torch.distributed as dist
+    from ..parallel.mesh import MeshManager, get_global_mesh, set_global_mesh
+    if (dist.get_backend() == "nccl") != (device.type == "cuda"):
+        raise ValueError(
+            f"process group backend {dist.get_backend()!r} with device "
+            f"{device}: NCCL serves CUDA and gloo the CPU")
+    mesh = get_global_mesh()
+    if mesh is None or mesh.world_size != comm.get_world_size() or \
+            mesh.shape["model"] != tp_size:
+        mesh = MeshManager(tp_size=tp_size)
+        set_global_mesh(mesh)
+    if rules is None:
+        return None, rules
+    check_tp_model(cfg, tp_size)
+    return TPContext(mesh.axis_rank("model"), tp_size, cfg.vocab_size), rules
+
+
+def _meta(tree):
+    return {k: _meta(v) if isinstance(v, dict) else
+            torch.empty(tuple(v.shape), device="meta")
+            for k, v in tree.items()}
+
+
+def _check_shapes(tree, like, prefix: str = "") -> None:
+    for k, ref in like.items():
+        if k not in tree:
+            raise ValueError(f"shards lack '{prefix}{k}'")
+        if isinstance(ref, dict):
+            _check_shapes(tree[k], ref, f"{prefix}{k}/")
+        elif tuple(tree[k].shape) != tuple(ref.shape):
+            raise ValueError(f"shard '{prefix}{k}' has shape "
+                             f"{tuple(tree[k].shape)}, expected "
+                             f"{tuple(ref.shape)}")
 
 
 def _cast(tree: Dict[str, Any], dtype, device) -> Dict[str, Any]:

@@ -88,6 +88,85 @@ def _dense(x: torch.Tensor, p: Dict[str, torch.Tensor],
     return y
 
 
+# ------------------------------------------------ tensor-parallel layer math
+#
+# ``tp``: a ``utils.partitioning.TPContext`` (this rank's place on the
+# mesh's ``model`` axis) or None. With a context, the parameters are this
+# rank's shards (``utils.partitioning.shard_tree``) and the layers are
+# Megatron's: the input of a column-parallel matmul (qkv, fc, gate, the
+# head) through ``comm.tp_copy_to``, a row-parallel one's (attention and
+# MLP projections) partial sums through ``comm.tp_reduce_from`` with the
+# bias added once after, the embedding a masked lookup of this rank's
+# vocab rows and a reduce. Without one, the single-device math.
+
+
+def _col_in(x: torch.Tensor, tp) -> torch.Tensor:
+    """The input of a column-parallel matmul (its gradient summed over
+    the model axis in the backward)."""
+    if tp is None:
+        return x
+    from .. import comm
+    return comm.tp_copy_to(x, axis=tp.axis)
+
+
+def _row_dense(x: torch.Tensor, p: Dict[str, torch.Tensor], tp,
+               impl: str = "auto") -> torch.Tensor:
+    """A row-parallel matmul: this rank's input columns against its
+    kernel rows, the partial sums all-reduced over the model axis, then
+    the (replicated) bias once. Without ``tp``: :func:`_dense`."""
+    if tp is None:
+        return _dense(x, p, impl)
+    from .. import comm
+    y = _dense(x, {k: v for k, v in p.items() if k != "bias"}, impl)
+    y = comm.tp_reduce_from(y, axis=tp.axis)
+    if "bias" in p:
+        y = y + p["bias"].to(x.dtype)
+    return y
+
+
+def tp_embedding(ids: torch.Tensor, wte: torch.Tensor, tp) -> torch.Tensor:
+    """The vocab-parallel lookup: rows of ``wte`` (this rank's ceil(V /
+    t) vocab rows) for the ids this rank owns, zeros for the rest, summed
+    over the model axis (one id has one owner: the sum is exact)."""
+    import torch.nn.functional as F
+    from .. import comm
+    vc = wte.shape[0]
+    local = ids - tp.rank * vc
+    own = (local >= 0) & (local < vc)
+    x = F.embedding(torch.where(own, local, torch.zeros_like(local)), wte)
+    x = torch.where(own[..., None], x, torch.zeros((), dtype=x.dtype,
+                                                   device=x.device))
+    return comm.tp_reduce_from(x, axis=tp.axis)
+
+
+def vocab_slice(vec: torch.Tensor, tp) -> torch.Tensor:
+    """This rank's ceil(V / t) entries of a replicated [..., V] vector (an
+    output bias), zero-padded past V."""
+    from ..utils.partitioning import TPShard
+    v = vec.shape[-1]
+    c = -(-v // tp.size)
+    lo = min(tp.rank * c, v)
+    return TPShard(-1, ((0, lo, min(c, v - lo)),), c, v).take(vec)
+
+
+def gather_vocab(logits: torch.Tensor, tp) -> torch.Tensor:
+    """This rank's vocab-parallel logits [..., ceil(V / t)] -> the whole
+    [..., V] on every rank (an all-gather; the padding dropped)."""
+    from .. import comm
+    full = comm.tp_gather_from(logits, axis=tp.axis, dim=-1)
+    return full[..., :tp.vocab]
+
+
+def local_alibi_slopes(nh: int, tp, device) -> torch.Tensor:
+    """ALiBi slopes of this rank's query heads."""
+    from .transformer import alibi_slopes
+    s = alibi_slopes(nh)
+    if tp is not None:
+        n = nh // tp.size
+        s = s[tp.rank * n:(tp.rank + 1) * n]
+    return torch.as_tensor(s, dtype=torch.float32, device=device)
+
+
 def check_decodable(cfg: TransformerConfig) -> None:
     """Raise for the models that the cache and paged paths cannot run:
     post-LN encoders (as the JAX package's decode raises for them), and
@@ -164,9 +243,11 @@ def padded_cache_len(n: int) -> int:
 
 
 def init_cache(cfg: TransformerConfig, batch_size: int, max_len: int,
-               dtype=None, pad_lens=None, device=None) -> Dict[str, Any]:
+               dtype=None, pad_lens=None, device=None, tp=None
+               ) -> Dict[str, Any]:
     """Preallocated KV cache: ``k``/``v`` [L, B, nh, max_len, hd] zeros in
     ``dtype`` (default ``cfg.dtype``) and ``pos`` = 0, a python int.
+    Under TP (``tp``, a ``TPContext``) nh is this rank's query heads.
 
     ``dtype=torch.int8``: int8 rows with one f32 scale per (layer, batch,
     head, position) in ``k_scale``/``v_scale`` [L, B, nh, max_len, 1]
@@ -174,7 +255,8 @@ def init_cache(cfg: TransformerConfig, batch_size: int, max_len: int,
     a ragged batch, kept as ``pad``: slots below ``pad[b]`` are dead for
     sample b and logical positions are slot - pad."""
     dtype = dtype or cfg.dtype
-    shape = (cfg.num_layers, batch_size, cfg.num_heads, max_len, cfg.head_dim)
+    nh = cfg.num_heads if tp is None else tp.heads(cfg)[0]
+    shape = (cfg.num_layers, batch_size, nh, max_len, cfg.head_dim)
     zeros = lambda shp, dt: torch.zeros(shp, dtype=dt, device=device)
     cache: Dict[str, Any] = {"k": zeros(shape, dtype),
                              "v": zeros(shape, dtype), "pos": 0}
@@ -192,7 +274,8 @@ def forward_with_cache(cfg: TransformerConfig, params: PyTree,
                        prefer_kernel: Optional[bool] = None,
                        prefill_flash: bool = False,
                        *,
-                       impl: str = "auto"
+                       impl: str = "auto",
+                       tp=None
                        ) -> Tuple[torch.Tensor, Dict[str, Any]]:
     """Run T_new tokens at cache positions [pos, pos + T_new). Returns
     (logits [B, T_new, V] f32, cache). Params must be in the scan layout
@@ -210,7 +293,10 @@ def forward_with_cache(cfg: TransformerConfig, params: PyTree,
     was measured on a TPU v5e and says nothing about this card, so every
     eligible call takes the kernel (see the module docstring).
     ``impl="reference"`` (or ``cfg.attention_impl == "reference"``) sends
-    all attention to the plain cache path."""
+    all attention to the plain cache path. ``tp``: this rank's
+    ``TPContext`` when ``params`` are its model-axis shards and the cache
+    holds its heads (the Megatron layers; the logits are gathered, so
+    every rank returns the whole [B, T_new, V])."""
     del prefer_kernel
     check_decodable(cfg)
     if "blocks" not in params:
@@ -221,12 +307,10 @@ def forward_with_cache(cfg: TransformerConfig, params: PyTree,
     if impl not in ("auto", "reference"):
         raise ValueError(f"forward_with_cache impl {impl!r}: expected 'auto' "
                          "or 'reference'")
-    from ..ops.attention import apply_softcap
     from ..ops.decode_attention import (MAX_T, decode_attention,
                                         decode_attention_reference)
     from ..ops.flash_attention import flash_attention
-    from .transformer import (_ACTIVATIONS, alibi_slopes, apply_rotary,
-                              layer_params)
+    from .transformer import _ACTIVATIONS, apply_rotary, layer_params
     B, T_new = input_ids.shape
     dev = input_ids.device
     input_ids = input_ids.to(torch.long)
@@ -237,15 +321,20 @@ def forward_with_cache(cfg: TransformerConfig, params: PyTree,
         raise ValueError(f"cache of {max_len} positions cannot take "
                          f"{T_new} tokens at position {pos}")
     nh, hd, kvh = cfg.num_heads, cfg.head_dim, cfg.kv_heads
+    nh_all = nh
+    if tp is not None:
+        nh, kvh = tp.heads(cfg)
     rms = cfg.norm == "rmsnorm"
     eps = cfg.layer_norm_eps
     act = _ACTIVATIONS[cfg.activation]
     sm_scale = (cfg.attn_scale if cfg.attn_scale is not None
                 else 1.0 / float(np.sqrt(hd)))
     dense = partial(_dense, impl=impl)
+    row = partial(_row_dense, tp=tp, impl=impl)
 
     wte = params["wte"]["embedding"]
-    x = wte.to(cfg.dtype)[input_ids]
+    x = (wte.to(cfg.dtype)[input_ids] if tp is None
+         else tp_embedding(input_ids, wte.to(cfg.dtype), tp))
     if cfg.embed_scale is not None:
         x = x * torch.tensor(cfg.embed_scale, dtype=x.dtype)
     q_abs = pos + torch.arange(T_new, device=dev)           # cache slots [T]
@@ -259,8 +348,7 @@ def forward_with_cache(cfg: TransformerConfig, params: PyTree,
     if cfg.embed_ln:
         x = _layer_norm(x, params["ln_emb"], eps, rms)
 
-    slopes = (torch.as_tensor(alibi_slopes(nh), dtype=torch.float32,
-                              device=dev)
+    slopes = (local_alibi_slopes(nh_all, tp, dev)
               if cfg.pos_embed == "alibi" else None)
     windows = ([int(w) for w in cfg.layer_windows]
                if cfg.layer_windows is not None else [0] * L)
@@ -326,7 +414,7 @@ def forward_with_cache(cfg: TransformerConfig, params: PyTree,
                 sm_scale=sm_scale, layer_idx=li, alibi_slopes=slopes,
                 softcap=cfg.attn_softcap, pad=pad, **scales)
         o = o.transpose(1, 2).reshape(B, T_new, nh * hd)
-        attn_out = dense(o, p["attn_proj"])
+        attn_out = row(o, p["attn_proj"])
         if cfg.post_block_norms:
             attn_out = _layer_norm(attn_out, p["post_attn_norm"], eps, rms)
 
@@ -335,8 +423,8 @@ def forward_with_cache(cfg: TransformerConfig, params: PyTree,
                 return _moe_mlp(cfg, p["moe"], hin)
             if cfg.gated_mlp:
                 g = act(dense(hin, p["mlp_gate"]))
-                return dense(g * dense(hin, p["mlp_fc"]), p["mlp_proj"])
-            return dense(act(dense(hin, p["mlp_fc"])), p["mlp_proj"])
+                return row(g * dense(hin, p["mlp_fc"]), p["mlp_proj"])
+            return row(act(dense(hin, p["mlp_fc"])), p["mlp_proj"])
 
         if cfg.parallel_residual:
             m_in = (_layer_norm(x, p["ln2"], eps, rms)
@@ -349,14 +437,30 @@ def forward_with_cache(cfg: TransformerConfig, params: PyTree,
                 m = _layer_norm(m, p["post_mlp_norm"], eps, rms)
             x = x_mid + m
     x = _layer_norm(x, params["ln_f"], eps, rms)
+    logits = lm_logits(cfg, params, x, dense, tp)
+    cache["pos"] = cur_len
+    return logits, cache
+
+
+def lm_logits(cfg: TransformerConfig, params: PyTree, x: torch.Tensor,
+              dense, tp=None) -> torch.Tensor:
+    """The decode paths' head: f32 logits [..., V] of the final hidden
+    states (tied ``wte`` or ``lm_head``, then the final softcap). Under TP
+    each rank's vocab shard, gathered."""
+    from ..ops.attention import apply_softcap
+    wte = params["wte"]["embedding"]
+    head = params.get("lm_head")
     if cfg.tie_embeddings:
         logits = torch.einsum("bth,vh->btv", x, wte.to(x.dtype))
+    elif tp is not None and "bias" in head:
+        logits = dense(x, {k: v for k, v in head.items() if k != "bias"})
+        logits = logits + vocab_slice(head["bias"], tp).to(x.dtype)
     else:
-        logits = dense(x, params["lm_head"])
+        logits = dense(x, head)
     if cfg.final_logit_softcap:
         logits = apply_softcap(logits, cfg.final_logit_softcap)
-    cache["pos"] = cur_len
-    return logits.to(torch.float32), cache
+    logits = logits.to(torch.float32)
+    return logits if tp is None else gather_vocab(logits, tp)
 
 
 def apply_top_p(logits: torch.Tensor, top_p: float) -> torch.Tensor:
@@ -411,7 +515,8 @@ def generate(cfg: TransformerConfig,
              top_p: Optional[float] = None,
              repetition_penalty: Optional[float] = None,
              attention_mask=None,
-             kv_cache_dtype: Optional[str] = None) -> torch.Tensor:
+             kv_cache_dtype: Optional[str] = None,
+             tp=None) -> torch.Tensor:
     """Prefill, then one token per step: input_ids [B, T_prompt] ->
     [B, T_prompt + max_new_tokens] (int64).
 
@@ -421,7 +526,10 @@ def generate(cfg: TransformerConfig,
     ``top_k``, ``top_p`` in the HF order, drawn from ``generator`` (default:
     a generator on the ids' device seeded 0); ``repetition_penalty``
     rescales every token already in the sample's prompt (pads included) or
-    output. ``kv_cache_dtype="int8"``: the int8 cache."""
+    output. ``kv_cache_dtype="int8"``: the int8 cache. ``tp``: this
+    rank's ``TPContext`` over its shards of ``params`` (every rank of the
+    model group calls with the same ids and an identically seeded
+    generator; the logits are gathered, so each picks the same tokens)."""
     if attention_mask is not None:
         mask_np = np.asarray(torch.as_tensor(attention_mask).cpu(),
                              dtype=np.int32)
@@ -434,12 +542,12 @@ def generate(cfg: TransformerConfig,
                           torch.as_tensor(mask_np, device=input_ids.device))
     return _generate(cfg, params, input_ids, max_new_tokens, temperature,
                      generator, top_k, top_p, repetition_penalty,
-                     attention_mask, kv_cache_dtype)
+                     attention_mask, kv_cache_dtype, tp)
 
 
 def _generate(cfg, params, input_ids, max_new_tokens, temperature,
               generator, top_k, top_p, repetition_penalty, attention_mask,
-              kv_cache_dtype):
+              kv_cache_dtype, tp=None):
     B, T_in = input_ids.shape
     if max_new_tokens < 1:
         raise ValueError(f"max_new_tokens {max_new_tokens}: expected >= 1")
@@ -460,7 +568,7 @@ def _generate(cfg, params, input_ids, max_new_tokens, temperature,
         generator = torch.Generator(device=dev).manual_seed(0)
     cache = init_cache(cfg, B, padded_cache_len(max_len),
                        dtype=torch.int8 if kv_cache_dtype == "int8" else None,
-                       pad_lens=pad_lens, device=dev)
+                       pad_lens=pad_lens, device=dev, tp=tp)
     rep = repetition_penalty is not None and repetition_penalty != 1.0
     seen = None
     if rep:
@@ -482,10 +590,10 @@ def _generate(cfg, params, input_ids, max_new_tokens, temperature,
         # the first forward runs against the empty cache: the prefill
         # attention takes the flash kernel where eligible
         logits, cache = forward_with_cache(cfg, params, ids, cache,
-                                           prefill_flash=True)
+                                           prefill_flash=True, tp=tp)
         toks = [pick(logits[:, -1])]
         for _ in range(max_new_tokens - 1):
             logits, cache = forward_with_cache(cfg, params, toks[-1][:, None],
-                                               cache)
+                                               cache, tp=tp)
             toks.append(pick(logits[:, -1]))
     return torch.cat([ids, torch.stack(toks, dim=1)], dim=1)

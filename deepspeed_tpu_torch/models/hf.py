@@ -775,19 +775,45 @@ def load_megatron_gpt(state_dict, config, version: int = 2):
     return _to_f32(params), cfg
 
 
-def _llama_family_params(sd, prefix, L, qkv_bias=False, o_bias=False,
-                         mlp_bias=False, qk_norm=False, moe_experts=0,
-                         norm_plus_one=False, sandwich_norms=False,
-                         dtype=torch.float32):
-    """Shared Llama/Mistral/Qwen2/Qwen3/Mixtral block mapping: RMSNorm +
-    GQA qkv + SwiGLU (dense, or ``moe_experts`` SwiGLU experts behind a
-    router: HF block_sparse_moe w1/w3/w2 -> moe.experts gate/fc/proj).
-    The bias flags are presence-driven by the caller (Llama
-    attention_bias has q/k/v/o biases; Qwen2 q/k/v only; mlp_bias biases
-    gate/up/down; qk_norm adds Qwen3's per-head q/k RMSNorm). Leaves are
-    read in ``dtype`` (float32)."""
-    g = _getter(sd, prefix, dtype)
-    stack = _stacker(g, L)
+def stack_layers(layer, L: int) -> PyTree:
+    """``layer(i)`` -> a tree of one layer's leaves; returns the same tree
+    of stacked [L, ...] leaves, each layer written into the stacks as it
+    is made (one layer's temporaries at a time)."""
+    def alloc(node):
+        if isinstance(node, dict):
+            return {k: alloc(v) for k, v in node.items()}
+        return torch.empty((L,) + tuple(node.shape), dtype=node.dtype,
+                           device=node.device)
+
+    def write(dst, node, i):
+        for k, v in node.items():
+            if isinstance(v, dict):
+                write(dst[k], v, i)
+            else:
+                dst[k][i] = v
+
+    first = layer(0)
+    out = alloc(first)
+    write(out, first, 0)
+    del first
+    for i in range(1, L):
+        write(out, layer(i), i)
+    return out
+
+
+def llama_layer(g, i: int, qkv_bias=False, o_bias=False, mlp_bias=False,
+                qk_norm=False, moe_experts=0, norm_plus_one=False,
+                sandwich_norms=False) -> PyTree:
+    """Layer ``i`` of the Llama/Mistral/Qwen2/Qwen3/Mixtral/Gemma block
+    mapping, in the scan layout without the layer dim: RMSNorm + GQA qkv
+    ([q | k | v] columns, every kernel [in, out]) + SwiGLU (dense, or
+    ``moe_experts`` SwiGLU experts behind a router: HF block_sparse_moe
+    w1/w3/w2 -> moe.experts gate/fc/proj). ``g(name)``: the HF tensor of
+    ``layers.{i}.<name>`` (under the model prefix). The bias flags are
+    presence-driven by the caller (Llama attention_bias has q/k/v/o
+    biases; Qwen2 q/k/v only; mlp_bias biases gate/up/down; qk_norm adds
+    Qwen3's per-head q/k RMSNorm)."""
+    at = lambda name: g(f"layers.{i}.{name}")
     # Gemma stores RMSNorm weights as w with the forward computing
     # x * (1 + w): folding the +1 into the stored scale makes the plain
     # scale-multiply RMSNorm equivalent. The fold happens in f32 (like
@@ -795,71 +821,70 @@ def _llama_family_params(sd, prefix, L, qkv_bias=False, o_bias=False,
     ln_w = ((lambda a: (a.float() + 1.0).to(a.dtype)) if norm_plus_one
             else (lambda a: a))
 
-    def qkv(i):
-        ws = [_t(g(f"layers.{i}.self_attn.{p}_proj.weight"))
-              for p in ("q", "k", "v")]
-        return torch.cat(ws, dim=1)           # [H, (nh + 2*kv) * hd]
-
-    def qkv_b(i):
-        return torch.cat(
-            [g(f"layers.{i}.self_attn.{p}_proj.bias") for p in ("q", "k", "v")])
-
     def proj(hf, biased):
-        p = {"kernel": stack(lambda i: _t(g(f"layers.{i}.{hf}.weight")))}
+        p = {"kernel": _t(at(f"{hf}.weight"))}
         if biased:
-            p["bias"] = stack(lambda i: g(f"layers.{i}.{hf}.bias"))
+            p["bias"] = at(f"{hf}.bias")
         return p
 
+    qkv = {"kernel": torch.cat([_t(at(f"self_attn.{p}_proj.weight"))
+                                for p in ("q", "k", "v")], dim=1)}
+    if qkv_bias:
+        qkv["bias"] = torch.cat([at(f"self_attn.{p}_proj.bias")
+                                 for p in ("q", "k", "v")])
     # Gemma-2 sandwich layout: post_attention_layernorm is the POST-attn
     # branch norm and pre_feedforward_layernorm takes the pre-MLP (ln2)
     # slot; everyone else's post_attention_layernorm IS the pre-MLP norm
     ln2_src = ("pre_feedforward_layernorm" if sandwich_norms
                else "post_attention_layernorm")
-    blocks = {
-        "ln1": {"scale": stack(
-            lambda i: ln_w(g(f"layers.{i}.input_layernorm.weight")))},
-        "attn_qkv": ({"kernel": stack(qkv), "bias": stack(qkv_b)}
-                     if qkv_bias else {"kernel": stack(qkv)}),
+    layer = {
+        "ln1": {"scale": ln_w(at("input_layernorm.weight"))},
+        "attn_qkv": qkv,                      # [H, (nh + 2*kv) * hd]
         "attn_proj": proj("self_attn.o_proj", o_bias),
-        "ln2": {"scale": stack(
-            lambda i: ln_w(g(f"layers.{i}.{ln2_src}.weight")))},
+        "ln2": {"scale": ln_w(at(f"{ln2_src}.weight"))},
     }
     if sandwich_norms:
         for ours, hfn in (("post_attn_norm", "post_attention_layernorm"),
                           ("post_mlp_norm", "post_feedforward_layernorm")):
-            blocks[ours] = {"scale": stack(
-                lambda i, n=hfn: ln_w(g(f"layers.{i}.{n}.weight")))}
+            layer[ours] = {"scale": ln_w(at(f"{hfn}.weight"))}
     if moe_experts > 0:
-        E = moe_experts
+        def experts(w):
+            """[E, in, out] expert-stacked kernels (HF stores [out, in])."""
+            return torch.stack(
+                [_t(at(f"block_sparse_moe.experts.{j}.{w}.weight"))
+                 for j in range(moe_experts)])
 
-        def estack(w):
-            """[L, E, in, out] expert-stacked kernels (HF stores [out, in])."""
-            return stack(lambda i: torch.stack(
-                [_t(g(f"layers.{i}.block_sparse_moe.experts.{j}.{w}.weight"))
-                 for j in range(E)]))
-
-        blocks["moe"] = {
-            "gate": {"kernel": stack(
-                lambda i: _t(g(f"layers.{i}.block_sparse_moe.gate.weight")))},
+        layer["moe"] = {
+            "gate": {"kernel": _t(at("block_sparse_moe.gate.weight"))},
             # HF MixtralBlockSparseTop2MLP: w1 = gate, w3 = up, w2 = down
-            "experts": {"gate": {"kernel": estack("w1")},
-                        "fc": {"kernel": estack("w3")},
-                        "proj": {"kernel": estack("w2")}},
+            "experts": {"gate": {"kernel": experts("w1")},
+                        "fc": {"kernel": experts("w3")},
+                        "proj": {"kernel": experts("w2")}},
         }
     else:
-        blocks.update(
+        layer.update(
             mlp_gate=proj("mlp.gate_proj", mlp_bias),
             mlp_fc=proj("mlp.up_proj", mlp_bias),
             mlp_proj=proj("mlp.down_proj", mlp_bias),
         )
     if qk_norm:
         for name in ("q_norm", "k_norm"):
-            blocks[name] = {"scale": stack(
-                lambda i, n=name: g(f"layers.{i}.self_attn.{n}.weight"))}
+            layer[name] = {"scale": at(f"self_attn.{name}.weight")}
+    return layer
+
+
+def _llama_family_params(sd, prefix, L, dtype=torch.float32, **flags):
+    """The Llama-family tree (:func:`llama_layer`'s layers stacked, the
+    embedding and the final norm) with leaves read in ``dtype``
+    (float32)."""
+    g = _getter(sd, prefix, dtype)
+    ln_f = g("norm.weight")
+    if flags.get("norm_plus_one"):
+        ln_f = (ln_f.float() + 1.0).to(ln_f.dtype)
     params = {
         "wte": {"embedding": g("embed_tokens.weight")},
-        "blocks": blocks,
-        "ln_f": {"scale": ln_w(g("norm.weight"))},
+        "blocks": stack_layers(lambda i: llama_layer(g, i, **flags), L),
+        "ln_f": {"scale": ln_f},
     }
     return params, g
 

@@ -185,6 +185,43 @@ class TransformerConfig:
                      + self.hidden_size * self.moe_experts)
         return self._embed_params() + self.num_layers * per_layer
 
+    def tp_rules(self) -> Dict[str, Any]:
+        """Megatron-style TP over the mesh's ``model`` axis: the JAX
+        package's table, regex for regex and spec for spec (a regex on a
+        parameter's ``/``-joined path -> ``utils.partitioning.
+        PartitionSpec``). Stacked block leaves lead with the layer dim.
+        Column-parallel: qkv, fc and gate (output dim); row-parallel: the
+        attention and MLP projections (input dim); the embedding is
+        vocab-parallel, the untied head's columns too. The expert stacks'
+        rules are kept for the table's sake: MoE under TP raises."""
+        from ..utils.partitioning import PartitionSpec as P
+        lead = (None,) if self.scan_layers else ()
+        prefix = r"blocks/" if self.scan_layers else r"blocks_\d+/"
+
+        def block(spec):
+            return P(*(lead + spec))
+
+        return {
+            prefix + r".*attn_qkv/kernel": block((None, "model")),
+            prefix + r".*attn_qkv/bias": block(("model",)),
+            prefix + r".*attn_proj/kernel": block(("model", None)),
+            prefix + r".*mlp_fc/kernel": block((None, "model")),
+            prefix + r".*mlp_fc/bias": block(("model",)),
+            prefix + r".*mlp_gate/kernel": block((None, "model")),
+            prefix + r".*mlp_gate/bias": block(("model",)),
+            prefix + r".*mlp_proj/kernel": block(("model", None)),
+            r"wte/embedding": P("model", None),
+            r"lm_head/kernel": P(None, "model"),
+            prefix + r".*experts/fc/kernel": block(("expert", None, "model")),
+            prefix + r".*experts/fc/bias": block(("expert", "model")),
+            prefix + r".*experts/gate/kernel": block(("expert", None,
+                                                      "model")),
+            prefix + r".*experts/gate/bias": block(("expert", "model")),
+            prefix + r".*experts/proj/kernel": block(("expert", "model",
+                                                      None)),
+            prefix + r".*experts/proj/bias": block(("expert", None)),
+        }
+
     def rope_inv_freq(self, seq_len: Optional[int] = None):
         """Static inverse-frequency table with the configured rope scaling
         (float32 numpy), or None for the plain-theta table."""
@@ -596,6 +633,9 @@ class Block(nn.Module):
                  params: Dict[str, Dict[str, torch.Tensor]]):
         super().__init__()
         self.cfg = cfg
+        # this rank's TPContext when the parameters are its model-axis
+        # shards (Transformer.set_tp), else None
+        self.tp = None
         for name, leaf in params.items():
             if name == "moe":
                 from ..moe.layer import MoE
@@ -623,8 +663,9 @@ class Block(nn.Module):
         factor for training and eval, as the JAX Block's does, so the
         noise is all that training changes there."""
         from ..ops.attention import attention, dropout
-        from .generation import _dense, _layer_norm
-        cfg = self.cfg
+        from .generation import (_col_in, _dense, _layer_norm, _row_dense,
+                                 local_alibi_slopes)
+        cfg, tp = self.cfg, self.tp
         rate = cfg.dropout if dropout_seed is not None else 0.0
         gen = ((lambda site: site_generator(dropout_seed, site, x.device))
                if rate > 0.0 else (lambda site: None))
@@ -633,10 +674,13 @@ class Block(nn.Module):
         if nh % kv != 0:
             raise ValueError(f"num_heads {nh} not divisible by "
                              f"num_kv_heads {kv}")
+        nh_all = nh
+        if tp is not None:                      # this rank's heads
+            nh, kv = tp.heads(cfg)
         rms, eps = cfg.norm == "rmsnorm", cfg.layer_norm_eps
         act = _ACTIVATIONS[cfg.activation]
         h = x if cfg.post_ln else _layer_norm(x, self.ln1.p, eps, rms)
-        qkv = _dense(h, self.attn_qkv.p)
+        qkv = _dense(_col_in(h, tp), self.attn_qkv.p)
         q, k, v = torch.split(qkv, [nh * hd, kv * hd, kv * hd], dim=-1)
         to_heads = lambda t, n: t.reshape(B, S, n, hd).transpose(1, 2)
         q, k, v = to_heads(q, nh), to_heads(k, kv), to_heads(v, kv)
@@ -659,10 +703,11 @@ class Block(nn.Module):
         bias = slopes = None
         if cfg.pos_embed == "alibi":
             if positions is None:   # slopes: the kernels build the bias
-                slopes = torch.as_tensor(alibi_slopes(nh),
-                                         dtype=torch.float32, device=x.device)
+                slopes = local_alibi_slopes(nh_all, tp, x.device)
             else:                   # per-sample positions: materialized
-                bias = alibi_bias(nh, positions, positions)
+                bias = alibi_bias(nh_all, positions, positions)
+                if tp is not None:
+                    bias = bias[:, tp.rank * nh:(tp.rank + 1) * nh]
         if cfg.attention_impl == "sparse":
             out = _sparse_block_attention(
                 cfg, q, k, v, mask=attn_mask, bias=bias, slopes=slopes,
@@ -676,7 +721,8 @@ class Block(nn.Module):
                             impl=cfg.attention_impl, window=window,
                             softcap=cfg.attn_softcap)
         out = out.transpose(1, 2).reshape(B, S, nh * hd)
-        out = dropout(_dense(out, self.attn_proj.p), rate, gen("attn_out"))
+        out = dropout(_row_dense(out, self.attn_proj.p, tp), rate,
+                      gen("attn_out"))
 
         aux = []
 
@@ -687,11 +733,12 @@ class Block(nn.Module):
                 m, a = self.moe(m, train=g is not None, generator=g)
                 aux.append(a)
                 return m
+            m = _col_in(m, tp)
             if cfg.gated_mlp:
                 m = act(_dense(m, self.mlp_gate.p)) * _dense(m, self.mlp_fc.p)
             else:
                 m = act(_dense(m, self.mlp_fc.p))
-            return _dense(m, self.mlp_proj.p)
+            return _row_dense(m, self.mlp_proj.p, tp)
 
         def done(y):
             return (y, aux[0]) if aux else y
@@ -767,6 +814,19 @@ class Transformer(nn.Module):
         self.blocks = nn.ModuleList(
             Block(cfg, layer_params(params["blocks"], li, clone=True))
             for li in range(cfg.num_layers))
+        self.tp = None
+
+    def set_tp(self, tp) -> None:
+        """Run the Megatron layers as rank ``tp.rank`` of ``tp.size`` on
+        the mesh's ``model`` axis (a ``utils.partitioning.TPContext``;
+        None: the single-device math). The parameters must be (or become,
+        as the engine places them) this rank's shards."""
+        if tp is not None:
+            from ..utils.partitioning import check_tp_model
+            check_tp_model(self.cfg, tp.size)
+        self.tp = tp
+        for blk in self.blocks:
+            blk.tp = tp
 
     def _seeded_values(self, seed: int, gen_device, device=None):
         """(parameter name, f32 value) of ``Transformer(cfg, seed=seed,
@@ -783,7 +843,8 @@ class Transformer(nn.Module):
 
     def forward(self, batch, train: bool = False,
                 dropout_seed: Optional[int] = None,
-                gating_seed: Optional[int] = None):
+                gating_seed: Optional[int] = None,
+                vocab_parallel: bool = False):
         """``dropout_seed``: with ``train`` and ``cfg.dropout`` > 0, the
         seed of this call's masks (the engine's is per step, micro-batch
         and rank; default one drawn from torch's default generator). The
@@ -807,10 +868,18 @@ class Transformer(nn.Module):
         whole sample) and ``label_count`` (the whole samples' count of
         labels): the fused CE then takes ``shifted_labels`` without a
         shift and divides by ``label_count``, so a rank's loss is its
-        share of the mean."""
+        share of the mean.
+
+        Under TP (:meth:`set_tp`) the logits are gathered over the model
+        axis, so every rank returns the whole [B, S, V]; with
+        ``vocab_parallel`` they stay this rank's vocab shard [B, S,
+        ceil(V / t)], for a loss given the same TP context
+        (:func:`cross_entropy`, :func:`causal_lm_loss`,
+        :func:`masked_lm_loss` with ``tp=``)."""
         from ..ops.attention import dropout
-        from .generation import _dense, _layer_norm
-        cfg = self.cfg
+        from .generation import (_col_in, _dense, _layer_norm, tp_embedding,
+                                 vocab_slice)
+        cfg, tp = self.cfg, self.tp
         seed = None
         if train and cfg.dropout > 0.0:
             seed = (int(dropout_seed) if dropout_seed is not None else
@@ -835,7 +904,8 @@ class Transformer(nn.Module):
             # this rank's chunk of a sequence split over the seq group
             from ..parallel.ring_attention import chunk_positions
             user_positions = chunk_positions(B, S, dev)
-        x = F.embedding(ids, emb).to(dt)
+        x = (F.embedding(ids, emb) if tp is None
+             else tp_embedding(ids, emb, tp)).to(dt)
         if cfg.embed_scale is not None:
             x = x * torch.tensor(cfg.embed_scale, dtype=dt)
         if cfg.pos_embed == "learned":
@@ -881,11 +951,15 @@ class Transformer(nn.Module):
             # BERT cls.predictions: transform (dense, activation,
             # LayerNorm), then the tied decoder plus the output bias
             h = _ACTIVATIONS[cfg.activation](_dense(x, self.mlm_transform.p))
-            h = _layer_norm(h, self.mlm_ln.p, eps)
+            h = _col_in(_layer_norm(h, self.mlm_ln.p, eps), tp)
             logits = (h @ emb.to(dt).transpose(0, 1)).to(torch.float32)
-            return logits + self.mlm_bias.to(torch.float32)
+            bias = self.mlm_bias if tp is None else vocab_slice(
+                self.mlm_bias, tp)
+            return self._vocab_out(logits + bias.to(torch.float32),
+                                   vocab_parallel)
         if cfg.no_lm_head:                    # encoder use (CLIP text)
             return x.to(torch.float32)
+        x = _col_in(x, tp)
         if cfg.fused_loss:
             head = (emb if cfg.tie_embeddings
                     else self.lm_head.kernel.transpose(0, 1))
@@ -898,23 +972,89 @@ class Transformer(nn.Module):
                     labels, shift = batch["shifted_labels"], 0
             labels = torch.as_tensor(labels, device=dev).long()
             loss = _fused_causal_lm_loss(x, head, labels, cfg.loss_chunk,
-                                         shift=shift, count=count)
+                                         shift=shift, count=count, tp=tp)
             return loss if aux_total is None else (loss, aux_total)
         if cfg.tie_embeddings:
             logits = x @ emb.to(dt).transpose(0, 1)
+        elif tp is not None and "bias" in self.lm_head._parameters:
+            logits = _dense(x, {"kernel": self.lm_head.kernel})
+            logits = logits + vocab_slice(self.lm_head.bias, tp).to(dt)
         else:
             logits = _dense(x, self.lm_head.p)
         logits = logits.to(torch.float32)
         if cfg.final_logit_softcap:
             from ..ops.attention import apply_softcap
             logits = apply_softcap(logits, cfg.final_logit_softcap)
+        logits = self._vocab_out(logits, vocab_parallel)
         return logits if aux_total is None else (logits, aux_total)
 
+    def _vocab_out(self, logits: torch.Tensor, vocab_parallel: bool
+                   ) -> torch.Tensor:
+        """Under TP: the whole logits gathered over the model axis, or
+        with ``vocab_parallel`` this rank's vocab shard."""
+        if self.tp is None or vocab_parallel:
+            return logits
+        from .generation import gather_vocab
+        return gather_vocab(logits, self.tp)
 
-def _chunk_nll(xc: torch.Tensor, emb_c: torch.Tensor, tc: torch.Tensor):
+
+class _VocabLogSumExp(torch.autograd.Function):
+    """logsumexp over the last dim of vocab-parallel logits: the max and
+    the sum of exponentials all-reduced over the model axis. The same
+    operations, in the same order, as ``torch.logsumexp`` and its
+    backward, so one model rank computes its values bit for bit."""
+
+    @staticmethod
+    def forward(ctx, x, axis):
+        from .. import comm
+        m = torch.amax(x, dim=-1, keepdim=True)
+        comm.all_reduce(m, op=comm.ReduceOp.MAX, axis=axis)
+        ms = m.squeeze(-1)
+        ms = ms.masked_fill(ms.abs() == float("inf"), 0)
+        s = torch.sum((x - m).exp(), dim=-1)
+        comm.all_reduce(s, axis=axis)
+        out = s.log().add(ms)
+        ctx.save_for_backward(x, out)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        x, out = ctx.saved_tensors
+        return g.unsqueeze(-1) * (x - out.unsqueeze(-1)).exp(), None
+
+
+def vocab_parallel_terms(logits: torch.Tensor, labels: torch.Tensor, tp
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(logsumexp, target logit) of f32 vocab-parallel logits [...,
+    ceil(V / t)] (this rank's vocab shard; its padding past V masked to
+    -inf) for labels [...] over the whole vocabulary: the max, the sum of
+    exponentials and the target logit each all-reduced over the model
+    axis, so no rank forms the whole [..., V]. Labels outside [0, V)
+    (ignore_index) give a target logit of 0."""
+    from .. import comm
+    vc = logits.shape[-1]
+    lo = tp.rank * vc
+    if lo + vc > tp.vocab:
+        col = torch.arange(vc, device=logits.device)
+        logits = logits.masked_fill(col >= tp.vocab - lo, float("-inf"))
+    logz = _VocabLogSumExp.apply(logits, tp.axis)
+    local = labels - lo
+    own = (local >= 0) & (local < vc)
+    gold = logits.gather(-1, torch.where(own, local, torch.zeros_like(
+        local))[..., None])[..., 0]
+    gold = torch.where(own, gold, torch.zeros((), dtype=gold.dtype,
+                                              device=gold.device))
+    return logz, comm.tp_reduce_from(gold, axis=tp.axis)
+
+
+def _chunk_nll(xc: torch.Tensor, emb_c: torch.Tensor, tc: torch.Tensor,
+               tp=None):
     valid = (tc != -100).to(torch.float32)           # ignore_index + padding
-    safe = tc.clamp_min(0)
     logits = (xc @ emb_c.transpose(0, 1)).to(torch.float32)
+    if tp is not None:
+        logz, gold = vocab_parallel_terms(logits, tc, tp)
+        return ((logz - gold) * valid).sum(), valid.sum()
+    safe = tc.clamp_min(0)
     logz = torch.logsumexp(logits, dim=-1)
     gold = logits.gather(-1, safe[..., None])[..., 0]
     return ((logz - gold) * valid).sum(), valid.sum()
@@ -922,7 +1062,8 @@ def _chunk_nll(xc: torch.Tensor, emb_c: torch.Tensor, tc: torch.Tensor):
 
 def _fused_causal_lm_loss(x: torch.Tensor, emb: torch.Tensor,
                           labels: torch.Tensor, chunk: int,
-                          shift: int = 1, count=None) -> torch.Tensor:
+                          shift: int = 1, count=None, tp=None
+                          ) -> torch.Tensor:
     """Next-token CE without materializing [B, S, V] logits.
 
     x: [B, S, H] final hidden states (compute dtype); emb: [V, H] head
@@ -934,7 +1075,9 @@ def _fused_causal_lm_loss(x: torch.Tensor, emb: torch.Tensor,
     before the f32 logsumexp (the JAX package keeps f32 logits: a bf16
     run differs by that rounding, an f32 run not at all). Drops the last
     position (``shift``), ignores -100 labels and divides by max(count,
-    1), the count of valid labels here or the given ``count``."""
+    1), the count of valid labels here or the given ``count``. Under TP
+    (``tp``) ``emb`` is this rank's vocab shard and each chunk's terms
+    come from :func:`vocab_parallel_terms`."""
     B, S, H = x.shape
     if shift:
         xs, tgt = x[:, :-1], labels[:, 1:]
@@ -951,7 +1094,7 @@ def _fused_causal_lm_loss(x: torch.Tensor, emb: torch.Tensor,
     valid = torch.zeros((), dtype=torch.float32, device=x.device)
     for c0 in range(0, n + pad, chunk):
         nll, cnt = checkpoint(_chunk_nll, xs[:, c0:c0 + chunk], emb_c,
-                              tgt[:, c0:c0 + chunk], use_reentrant=False)
+                              tgt[:, c0:c0 + chunk], tp, use_reentrant=False)
         total = total + nll
         valid = valid + cnt
     if count is not None:
@@ -966,41 +1109,50 @@ def fused_loss_passthrough(outputs, batch):
 
 
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
-                  ignore_index: int = -100, count=None) -> torch.Tensor:
+                  ignore_index: int = -100, count=None, tp=None
+                  ) -> torch.Tensor:
     """Token-level CE with an ignore mask; f32 accumulation. Divides by
     the count of valid labels, or by ``count`` when given (a sequence
-    chunk's share of the whole samples' mean)."""
+    chunk's share of the whole samples' mean). ``tp``: the logits are
+    this rank's vocab shard (a TP ``Transformer``'s with
+    ``vocab_parallel``), taken through :func:`vocab_parallel_terms`."""
     labels = torch.as_tensor(labels, device=logits.device).long()
     valid = labels != ignore_index
     safe = torch.where(valid, labels, torch.zeros_like(labels))
     logits = logits.to(torch.float32)
-    logz = torch.logsumexp(logits, dim=-1)
-    gold = logits.gather(-1, safe[..., None])[..., 0]
+    if tp is not None:
+        logz, gold = vocab_parallel_terms(logits, torch.where(
+            valid, labels, torch.full_like(labels, -1)), tp)
+    else:
+        logz = torch.logsumexp(logits, dim=-1)
+        gold = logits.gather(-1, safe[..., None])[..., 0]
     nll = (logz - gold) * valid
     n = valid.sum() if count is None else torch.as_tensor(
         count, dtype=torch.float32, device=logits.device)
     return nll.sum() / torch.clamp(n, min=1)
 
 
-def causal_lm_loss(logits: torch.Tensor, batch) -> torch.Tensor:
+def causal_lm_loss(logits: torch.Tensor, batch, tp=None) -> torch.Tensor:
     """Next-token prediction: shift logits and labels by one. A
     sequence-parallel chunk's batch carries the labels already shifted on
     the whole sample (``shifted_labels``) and their whole count
-    (``label_count``)."""
+    (``label_count``). ``tp``: vocab-parallel logits, as
+    :func:`cross_entropy` takes them."""
     if isinstance(batch, dict) and "shifted_labels" in batch:
         return cross_entropy(logits, batch["shifted_labels"],
-                             count=batch["label_count"])
+                             count=batch["label_count"], tp=tp)
     labels = (batch.get("labels", batch["input_ids"])
               if isinstance(batch, dict) else batch)
     labels = torch.as_tensor(labels, device=logits.device)
-    return cross_entropy(logits[:, :-1], labels[:, 1:])
+    return cross_entropy(logits[:, :-1], labels[:, 1:], tp=tp)
 
 
-def masked_lm_loss(logits: torch.Tensor, batch) -> torch.Tensor:
+def masked_lm_loss(logits: torch.Tensor, batch, tp=None) -> torch.Tensor:
     """BERT-style: loss only where labels != -100 (over ``label_count``
-    labels when a sequence-parallel chunk's batch gives it)."""
+    labels when a sequence-parallel chunk's batch gives it). ``tp``:
+    vocab-parallel logits, as :func:`cross_entropy` takes them."""
     return cross_entropy(logits, batch["labels"],
-                         count=batch.get("label_count"))
+                         count=batch.get("label_count"), tp=tp)
 
 
 def make_moe_loss(aux_weight: float = 0.01, base_loss=None):

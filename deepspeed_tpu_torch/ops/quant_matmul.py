@@ -62,7 +62,18 @@ def pack_decode_weights(params: Dict[str, Any], block: int = QUANT_BLOCK
     def _pack(sub):
         if "kernel_scale" in sub or "kernel_qscale" in sub:
             return sub
-        q, s = pack_kernel(sub["kernel"], block)
+        w = sub["kernel"]
+        if w.dim() > 2:
+            # one layer at a time: the f32 temporaries of one layer, not
+            # of the whole stack
+            q0, s0 = pack_kernel(w[0], block)
+            q = q0.new_empty((w.shape[0],) + tuple(q0.shape))
+            s = s0.new_empty((w.shape[0],) + tuple(s0.shape))
+            q[0], s[0] = q0, s0
+            for i in range(1, w.shape[0]):
+                q[i], s[i] = pack_kernel(w[i], block)
+        else:
+            q, s = pack_kernel(w, block)
         out = {k: v for k, v in sub.items() if k != "kernel"}
         out["kernel"], out["kernel_qscale"] = q, s
         return out

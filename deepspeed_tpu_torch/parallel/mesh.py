@@ -20,9 +20,12 @@ holds one chunk of every sequence (``parallel/ring_attention.py``); an
 ``expert`` group takes distinct samples, as ``data`` does, and splits
 the experts of every MoE layer among its ranks, whose queues cross it
 (``moe/layer.py``), while the expert leaves' ZeRO group is
-:data:`EXPERT_ZERO_AXES`. Pipelines and tensor parallelism raise
-``NotImplementedError`` naming ROADMAP.md (item 4.1), as the engine
-does for their config sections.
+:data:`EXPERT_ZERO_AXES`. A ``model`` group shares its samples and
+splits every layer's heads and MLP columns and the vocabulary among its
+ranks (tensor parallelism, ``utils/partitioning.py``); the step tail
+reduces over :data:`STEP_AXES`. Pipelines raise ``NotImplementedError``
+naming ROADMAP.md (item 4.1), as the engine does for their config
+section.
 """
 
 from __future__ import annotations
@@ -40,12 +43,13 @@ ZERO_AXES = ("data", "expert", "seq")
 EXPERT_ZERO_AXES = ("data", "seq")
 # Axes over which the global batch is split.
 BATCH_AXES = ("data", "expert")
+# Axes of the train step's flag, norm and loss: the ZeRO axes and the
+# model axis (every rank but the pipeline's).
+STEP_AXES = ZERO_AXES + ("model",)
 
-_UNPORTED_AXES = {"pipe": "pipelines (ROADMAP item 4.1)",
-                  "model": "tensor parallelism (ROADMAP item 4.1)"}
 # the axis tuples whose process groups every mesh builds
 _GROUP_AXES = tuple((a,) for a in MESH_AXES) + (ZERO_AXES, EXPERT_ZERO_AXES,
-                                               BATCH_AXES)
+                                               BATCH_AXES, STEP_AXES)
 
 
 def _axes(axes: Union[str, Sequence[str]]) -> Tuple[str, ...]:
@@ -78,12 +82,11 @@ class MeshManager:
         inferred_dp = n // denom
         if dp_size is not None and dp_size != inferred_dp:
             raise ValueError(f"dp_size={dp_size} inconsistent with world size {n}")
-        for axis, size in (("pipe", pp_size), ("model", tp_size)):
-            if size > 1:
-                raise NotImplementedError(
-                    f"mesh axis '{axis}' of size {size}: "
-                    f"{_UNPORTED_AXES[axis]} is not ported to "
-                    "deepspeed_tpu_torch yet (see ROADMAP.md)")
+        if pp_size > 1:
+            raise NotImplementedError(
+                f"mesh axis 'pipe' of size {pp_size}: pipelines (ROADMAP "
+                "item 4.1) are not ported to deepspeed_tpu_torch yet (see "
+                "ROADMAP.md)")
         self.shape = dict(zip(MESH_AXES, (pp_size, inferred_dp, ep_size,
                                           sp_size, tp_size)))
         self.topology = ProcessTopology(list(MESH_AXES),

@@ -98,12 +98,13 @@ class Leaf:
     """One checkpoint leaf held by live tensors: ``parts`` is a single
     tensor (``stacked=False``) or the per-layer tensors that the file
     holds stacked along a new leading dim. ``split``: when each part
-    holds only this rank's piece of its whole tensor, the list of (dim,
-    rank, world) slabs taken one after another from the whole (a ZeRO
-    shard, or an expert leaf's experts and then its ZeRO shard), else
-    None. ``writes``: whether this rank writes its piece
-    to a sharded save (default: a split piece, or the whole on rank
-    0)."""
+    holds only this rank's piece of its whole tensor, the cuts taken one
+    after another from the whole, else None: a (dim, rank, world) slab
+    of the extent so far (a ZeRO shard, an expert leaf's experts), or a
+    ``utils.partitioning.TPShard`` (a tensor-parallel shard: segments of
+    the whole, maybe padded). ``writes``: whether this rank writes its
+    piece to a sharded save (default: a split piece, or the whole on
+    rank 0)."""
 
     __slots__ = ("parts", "stacked", "split", "writes")
 
@@ -123,20 +124,53 @@ class Leaf:
     def shape(self) -> Tuple[int, ...]:
         """The whole leaf's shape."""
         s = list(self.parts[0].shape)
-        for dim, _, world in self.split or ():
-            s[dim] *= world
+        for cut in reversed(self.split or ()):
+            if isinstance(cut, tuple):
+                s[cut[0]] *= cut[2]
+            else:
+                s[cut.dim] = cut.whole
         return self._lead() + tuple(s)
 
-    @property
-    def start(self) -> List[int]:
-        """Offsets of this rank's piece (:meth:`read`) in the whole leaf."""
-        lead = len(self._lead())
-        shape = list(self.shape)
-        start = [0] * len(shape)
-        for dim, rank, world in self.split or ():
-            shape[lead + dim] //= world
-            start[lead + dim] += rank * shape[lead + dim]
-        return start
+    def pieces(self) -> List[Tuple[List[int], Tuple[slice, ...]]]:
+        """This rank's piece as boxes of the whole leaf: (offsets in the
+        whole, index into one part) for each. A slab is one box; a TP
+        shard's segments (qkv's q, k and v columns) are one each, its
+        padding in none."""
+        ndim = self.parts[0].dim()
+        whole = list(self.shape)[len(self._lead()):]
+        # per dim: (local start, whole start, length) segments
+        segs = [[(0, 0, n)] for n in whole]
+        ext = list(whole)
+        for cut in self.split or ():
+            if isinstance(cut, tuple):
+                dim, rank, world = cut
+                dim %= ndim
+                size = ext[dim] // world
+                a, b = rank * size, rank * size + size
+                segs[dim] = [(max(ls, a) - a, ws + max(ls, a) - ls,
+                              min(ls + n, b) - max(ls, a))
+                             for ls, ws, n in segs[dim]
+                             if min(ls + n, b) > max(ls, a)]
+                ext[dim] = size
+            else:
+                dim = cut.dim % ndim
+                segs[dim] = [seg for seg in cut.segs if seg[2] > 0]
+                ext[dim] = cut.local
+        out = []
+
+        def walk(d, start, index):
+            if d == ndim:
+                out.append(([0] * len(self._lead()) + start, tuple(index)))
+                return
+            for ls, ws, n in segs[d]:
+                walk(d + 1, start + [ws], index + [slice(ls, ls + n)])
+        walk(0, [], [])
+        return out
+
+    def piece(self, index: Tuple[slice, ...]) -> "Leaf":
+        """A leaf over the views ``part[index]`` of this one's parts."""
+        return Leaf([p[index] for p in self.parts] if self.stacked
+                    else self.parts[0][index], self.stacked)
 
     def read(self, pinned: bool = False) -> torch.Tensor:
         """A host copy of the live tensors (this rank's piece of a split
@@ -153,14 +187,18 @@ class Leaf:
 
     def write(self, value: torch.Tensor) -> None:
         """Copy ``value`` (the file's whole leaf, any dtype or device) into
-        the live tensors (their slab of it, if split), casting to their
+        the live tensors (their piece of it, if split), casting to their
         dtype."""
         if tuple(value.shape) != self.shape:
             raise ValueError(f"shape {tuple(value.shape)} vs {self.shape}")
         lead = len(self._lead())
-        for dim, rank, world in self.split or ():
-            size = value.shape[lead + dim] // world
-            value = value.narrow(lead + dim, rank * size, size)
+        for cut in self.split or ():
+            if isinstance(cut, tuple):
+                dim, rank, world = cut
+                size = value.shape[lead + dim] // world
+                value = value.narrow(lead + dim, rank * size, size)
+            else:
+                value = cut.take(value)
         src = value.unbind(0) if self.stacked else (value,)
         with torch.no_grad():
             for part, v in zip(self.parts, src):
@@ -925,8 +963,9 @@ def shard_flat_dict(flat: Dict[str, Any], rank: int) -> Dict[str, Any]:
     rank holds whole) as a flat dict keyed ``<path>::<n>``, plus the
     ``__manifest__`` of global shapes and piece offsets that both
     packages' sharded readers take. A split leaf contributes this rank's
-    slab; a whole one is written by rank 0 only, so every element is
-    stored once across the job."""
+    boxes of the whole (:meth:`Leaf.pieces`: a slab, or a TP shard's
+    segments, each at its global offsets); a whole one is written by rank
+    0 only, so every element is stored once across the job."""
     out: Dict[str, Any] = {}
     manifest: Dict[str, Any] = {}
     for key in _sorted_keys(flat):
@@ -937,14 +976,22 @@ def shard_flat_dict(flat: Dict[str, Any], rank: int) -> Dict[str, Any]:
         pieces = []
         writes = v.writes if isinstance(v, Leaf) else None
         if writes if writes is not None else (split or rank == 0):
-            name = f"{key}::0"
-            out[name] = v
-            pieces.append({"name": name,
-                           "start": v.start if split else [0] * len(shape)})
+            boxes = v.pieces() if split else [([0] * len(shape), None)]
+            for n, (start, index) in enumerate(boxes):
+                name = f"{key}::{n}"
+                out[name] = v if index is None or len(boxes) == 1 and \
+                    _covers(v, index) else v.piece(index)
+                pieces.append({"name": name, "start": start})
         manifest[key] = {"shape": shape, "pieces": pieces}
     out[_MANIFEST_KEY] = np.frombuffer(json.dumps(manifest).encode(),
                                        dtype=np.uint8)
     return out
+
+
+def _covers(leaf: Leaf, index: Tuple[slice, ...]) -> bool:
+    """Whether ``index`` takes the whole of each part."""
+    return all(sl.start == 0 and sl.stop == n
+               for sl, n in zip(index, leaf.parts[0].shape))
 
 
 def save_checkpoint_sharded(save_dir: str,
@@ -1031,7 +1078,10 @@ def _all_ok(ok: bool) -> bool:
     return bool(flag.item() == 1.0)
 
 
-def _open(ckpt_dir: str, base: str, meta: Dict[str, Any]):
+def open_states(ckpt_dir: str, base: str, meta: Dict[str, Any]):
+    """A reader of a tag's ``base`` states: its one whole-leaf file, or
+    the ``-shard*`` files of a process group (leaves assembled from their
+    pieces)."""
     path = os.path.join(ckpt_dir, base + ".npz")
     if os.path.exists(path):
         return FlatNpz(path)
@@ -1075,8 +1125,8 @@ def load_checkpoint(load_dir: str, tag: Optional[str], state: TrainState,
     ckpt_dir = os.path.join(load_dir, tag)
     meta = read_meta(ckpt_dir)
     aliased = bool(meta.get("master_aliases_params"))
-    model = _open(ckpt_dir, "model_states", meta)
-    optim = _open(ckpt_dir, "optim_states", meta)
+    model = open_states(ckpt_dir, "model_states", meta)
+    optim = open_states(ckpt_dir, "optim_states", meta)
     try:
         if state.master is None and not aliased:
             _restore(optim, state.params, "master/")

@@ -72,12 +72,25 @@ aux)``, each training call gets a gating seed per step, micro-batch and
 rank (top-2's noise, :meth:`DeepSpeedEngine._gating_seed`), and the
 metrics carry the step's mean ``aux``.
 
+Tensor parallelism (``tensor_parallel.tp_size`` and
+``sharding_rules=cfg.tp_rules()`` on a ``Transformer``, in a process
+group): the mesh's ``model`` ranks share their samples, each holds its
+shards of the TP leaves (``utils.partitioning``) and runs the Megatron
+layers; ZeRO works on each rank's shards over the ZeRO axes only
+(``runtime/zero/partition.py``); the step's flag, norm and loss reduce
+over the whole group (a leaf whole on the model axis counted once). With
+the in-tree losses the logits stay vocab-parallel (no rank forms [B, S,
+V]); any other loss_fn gets them gathered. The TP layers run whenever a
+process group is up and the rules are given, a model axis of one
+included; ``sharding_rules=None`` keeps every weight whole on every
+rank. MoE or sequence parallelism together with ``tp_size > 1`` raise.
+
 Everything else that a config can enable and this engine does not
 implement raises ``NotImplementedError`` naming ROADMAP.md: CPU/NVMe
 offload (and ``activation_checkpointing.cpu_checkpointing``), the 1-bit
 optimizers, comm_plan, compression_training, the integrity sentinel,
 progressive layer drop, curriculum / data efficiency, eigenvalue,
-tensor / pipeline parallelism (and ``mpu``), monitors and the other aux
+pipeline parallelism (and ``mpu``), monitors and the other aux
 sections. Not ported either: the preemption handler and
 emergency save, the sentinel's audited-clean resume and the offload load
 path (ROADMAP.md).
@@ -161,7 +174,6 @@ def unported_sections(config: DeepSpeedConfig) -> List[str]:
         "curriculum_learning": c.curriculum_learning.enabled,
         "data_efficiency": c.data_efficiency.enabled,
         "eigenvalue": c.eigenvalue.enabled,
-        "tensor_parallel (tp_size > 1)": c.tensor_parallel.tp_size > 1,
         "pipeline (stages > 1)": c.pipeline.stages > 1,
         "activation_checkpointing.cpu_checkpointing (host offload, "
         "ROADMAP item 5.2)": act.cpu_checkpointing,
@@ -273,7 +285,9 @@ class DeepSpeedEngine:
     ``Transformer``. ``model_parameters``: a flax-layout numpy tree for a
     ``Transformer`` (``models.convert.module_from_jax``); default the
     module's own parameters. ``device``: default CUDA; ``"cpu"`` runs the
-    kernels' plain versions."""
+    kernels' plain versions. ``sharding_rules``: None, or the model's
+    ``cfg.tp_rules()`` (tensor parallelism, module docstring; any other
+    table raises)."""
 
     def __init__(self,
                  model: nn.Module,
@@ -283,7 +297,8 @@ class DeepSpeedEngine:
                  optimizer: Optional[Optimizer] = None,
                  lr_scheduler=None,
                  mpu=None,
-                 device=None):
+                 device=None,
+                 sharding_rules=None):
         self.config: DeepSpeedConfig = load_config(config)
         bad = unported_sections(self.config)
         if bad:
@@ -306,8 +321,25 @@ class DeepSpeedEngine:
         sp_size = self.config.sequence_parallel.sp_size
         moe = self.config.moe
         ep_size = moe.ep_size if moe.enabled else 1
+        tp_size = self.config.tensor_parallel.tp_size
+        mcfg = getattr(model, "cfg", None)
+        if tp_size > 1 and (sp_size > 1 or moe.enabled or getattr(
+                mcfg, "moe_experts", 0) > 0):
+            raise NotImplementedError(
+                "tensor_parallel.tp_size > 1 together with "
+                + ("sequence parallelism" if sp_size > 1 else "MoE")
+                + " " + _LATER)
+        if sharding_rules is not None:
+            from ..models.transformer import TransformerConfig
+            from ..utils.partitioning import check_tp_rules
+            if not isinstance(mcfg, TransformerConfig):
+                raise ValueError(
+                    "sharding_rules need the in-tree Transformer (models."
+                    "build_model): this model has no TransformerConfig")
+            sharding_rules = check_tp_rules(sharding_rules, mcfg)
         for key, size in (("sequence_parallel.sp_size", sp_size),
-                          ("moe.ep_size", ep_size)):
+                          ("moe.ep_size", ep_size),
+                          ("tensor_parallel.tp_size", tp_size)):
             if size > 1 and not comm.is_initialized():
                 raise ValueError(
                     f"{key} {size} needs a process group of a multiple of "
@@ -329,7 +361,8 @@ class DeepSpeedEngine:
             if self.mesh is None or \
                     self.mesh.world_size != comm.get_world_size() or \
                     self.mesh.shape["seq"] != sp_size or \
-                    self.mesh.shape["expert"] != ep_size:
+                    self.mesh.shape["expert"] != ep_size or \
+                    self.mesh.shape["model"] != tp_size:
                 self.mesh = build_mesh_from_config(self.config)
             dp_world = self.mesh.axes_size(ZERO_AXES)
             dp_rank = self.mesh.axis_rank(ZERO_AXES)
@@ -385,6 +418,11 @@ class DeepSpeedEngine:
         self._moe_loss = bool(getattr(self.loss_fn, "_moe_loss", False))
         self._seq_labels = (self._sequence_parallel_labels(model)
                             if self.seq_world > 1 else None)
+        self.tp = None
+        self._vocab_parallel = False
+        tp_of = None
+        if self.mesh is not None and sharding_rules is not None:
+            tp_of = self._tensor_parallel(model, sharding_rules)
         from .. import zero
         # a model built under zero.Init is on meta: its values come one
         # leaf at a time, each rank keeping its slabs
@@ -409,7 +447,7 @@ class DeepSpeedEngine:
                 self.compute_dtype,
                 torch.float32 if self.keep_master else self.compute_dtype,
                 self.grad_accum_dtype, self.device, values,
-                grad_world=self.batch_world, mesh=self.mesh)
+                grad_world=self.batch_world, mesh=self.mesh, tp_of=tp_of)
             model.to(self.device)       # buffers: the parameters are placed
             self._params = self.dp.params
             self.master: List[torch.Tensor] = self.dp.masters
@@ -491,6 +529,8 @@ class DeepSpeedEngine:
                       f"({self.module.cfg.attention_impl})")
         if ep_size > 1:
             where += f", experts split over {ep_size} ranks"
+        if self.tp is not None:
+            where += f", tensor parallel over {self.tp.size} rank(s)"
         log_dist(f"DeepSpeedEngine initialized: ZeRO stage "
                  f"{self.config.zero_optimization.stage} ({where}), "
                  f"dtype {self.config.precision_dtype}, device {self.device}, "
@@ -548,6 +588,35 @@ class DeepSpeedEngine:
             "masked_lm_loss or a fused_loss model (fused_loss_passthrough): "
             "a rank holds one chunk of each sequence, and these take the "
             "engine's labels cut on the whole sample")
+
+    def _tensor_parallel(self, model: nn.Module, rules):
+        """Run ``model`` (a ``Transformer``) as this rank's shards on the
+        mesh's ``model`` axis, its TP context set. An in-tree loss
+        (``causal_lm_loss``, ``masked_lm_loss``) is given this context and
+        the model's vocab-parallel logits (``_vocab_parallel``); every
+        other caller of the model gets the gathered logits. Returns the
+        partition's ``tp_of(parameter name, whole shape)``: the TP spec
+        and every model rank's ``TPShard`` of a leaf the rules shard,
+        else None."""
+        from ..models import transformer as tr
+        from ..utils.partitioning import TPContext, spec_for, tp_shard
+        cfg = model.cfg
+        size = self.mesh.shape["model"]
+        self.tp = TPContext(self.mesh.axis_rank("model"), size,
+                            cfg.vocab_size)
+        model.set_tp(self.tp)
+        self._vocab_parallel = self.loss_fn in (tr.causal_lm_loss,
+                                                tr.masked_lm_loss)
+
+        def tp_of(name, shape):
+            path = _leaf_path(name, True)
+            spec = spec_for(path, rules)
+            if tp_shard(path, shape, spec, cfg, 0, size) is None:
+                return None
+            spec = tuple(spec)[-len(shape):]
+            return spec, [tp_shard(path, shape, spec, cfg, r, size)
+                          for r in range(size)]
+        return tp_of
 
     def _seq_chunk(self, batch):
         """This rank's chunk of a micro-batch under sequence parallelism:
@@ -640,8 +709,13 @@ class DeepSpeedEngine:
         return act_checkpoint.remat(
             lambda batch, kw: model(batch, **kw), policy_name="dots")
 
-    def _apply(self, batch, train: bool, micro: int = 0):
+    def _apply(self, batch, train: bool, micro: int = 0,
+               for_loss: bool = False):
+        """The model's outputs on ``batch``; ``for_loss``: for
+        :meth:`_loss`, which under TP takes vocab-parallel logits."""
         kw = {"train": train} if self._takes_train else {}
+        if for_loss and self._vocab_parallel:
+            kw["vocab_parallel"] = True
         if train and self._takes_seed:
             kw["dropout_seed"] = self._dropout_seed(micro)
         if train and self._takes_gating:
@@ -662,6 +736,11 @@ class DeepSpeedEngine:
             self._auxes.append(aux.detach().to(torch.float32))
             if self.seq_world > 1:
                 outputs = (logits, aux / self.seq_world)
+        return self._loss_of(outputs, batch)
+
+    def _loss_of(self, outputs, batch) -> torch.Tensor:
+        if self._vocab_parallel:
+            return self.loss_fn(outputs, batch, tp=self.tp)
         return self.loss_fn(outputs, batch)
 
     def _micro_backward(self, loss: torch.Tensor) -> None:
@@ -807,7 +886,7 @@ class DeepSpeedEngine:
         losses = []
         for i in range(gas):
             micro = self._to_device(self._seq_chunk(split(batch, i)))
-            loss = self._loss(self._apply(micro, True, i), micro)
+            loss = self._loss(self._apply(micro, True, i, True), micro)
             self._micro_backward(loss)
             losses.append(loss.detach())
             self.micro_steps += 1
@@ -841,9 +920,10 @@ class DeepSpeedEngine:
         if not self._train_mode:
             self.module.eval()
             with torch.no_grad():
-                return self.loss_fn(self._apply(batch, False), batch)
+                return self._loss_of(self._apply(batch, False,
+                                                 for_loss=True), batch)
         self.module.train()
-        loss = self._loss(self._apply(batch, True, self._micro_count),
+        loss = self._loss(self._apply(batch, True, self._micro_count, True),
                           batch)
         self._pending = loss
         return loss
@@ -960,17 +1040,22 @@ class DeepSpeedEngine:
         stacked = {path: flax and path.startswith("blocks/")
                    for path in groups}
         def split(p, kind):
-            """(splits, writes): an expert leaf's expert slab, then the
-            ZeRO slab along the kind's dim; whether this rank writes the
-            piece (one rank of the group where it is whole)."""
+            """(splits, writes): an expert leaf's expert slab or a TP
+            leaf's shard, then the ZeRO slab along the kind's dim; whether
+            this rank writes the piece (one rank of the group where it is
+            whole, model rank 0 for a leaf whole on the model axis)."""
             if self.dp is None or id(p) not in index:
                 return None, None
             e = self.dp.entries[index[id(p)]]
             dim = e.pdim if kind == "param" else e.mdim
             splits = [] if e.eslab is None else [e.eslab]
+            if e.tp is not None:
+                splits.append(e.tp)
             if dim is not None:
                 splits.append((dim, e.rank, e.world))
-            return splits or None, dim is not None or e.rank == 0
+            writes = ((e.tp is not None or self.dp.model_rank == 0)
+                      and (dim is not None or e.rank == 0))
+            return splits or None, writes
 
         params = {path: ckpt_lib.Leaf(ps if stacked[path] else ps[0],
                                       stacked[path], *split(ps[0], "param"))

@@ -30,6 +30,17 @@ the expert-data group covers every rank's share, and it is divided by
 the same ``grad_world`` (the ranks that take distinct samples) as every
 other leaf's. Every other leaf keeps ``ZERO_AXES``.
 
+**Tensor-parallel leaves** (the engine's ``tp`` map: a leaf the model's
+TP rules shard over the mesh's ``model`` axis) first take this rank's
+shard of the whole tensor (``ZeroParam.tp``, a
+``utils.partitioning.TPShard``: per-head qkv columns, padded vocab
+rows), and ZeRO works on that shard over the ZeRO axes only: the
+policy's dims come from the whole shape and the TP spec (a composed TP
+dim is split within the shard), stage 3 gathers the shard, never over
+``model``, and the gradients' reductions stay in the ZeRO group. The
+model ranks hold equal copies of every other leaf, whose gradients come
+out equal on each (the Megatron layers all-reduce what they need).
+
 At a world of one every split is 1-way and the same collectives run, so
 one GPU runs the sharded path with real NCCL calls.
 
@@ -51,9 +62,12 @@ a token and gather it again when the backward unpacks it. Under remat
 each block and its recomputation runs the block's pre-hook again: the
 weights are gathered a second time in the backward.
 
-**The step tail.** One all-reduce carries every leaf's squared grad norm
-(a replicated leaf counted on rank 0 only), the count of non-finite leaves
-and the loss; one host read follows, as in the single-process engine.
+**The step tail.** One all-reduce over :data:`~...parallel.mesh.
+STEP_AXES` (the ZeRO axes and ``model``) carries every leaf's squared
+grad norm (a leaf whole on its ZeRO group counted on that group's rank 0
+only, a leaf whole on the model axis on model rank 0 only), the count of
+non-finite leaves and the loss (model rank 0's); one host read follows,
+as in the single-process engine.
 The leaf norms are summed on the device in parameter order, so at a world
 of one the grad norm is the single-process engine's, bit for bit.
 """
@@ -67,7 +81,7 @@ import torch
 from torch import nn
 
 from ... import comm
-from ...parallel.mesh import EXPERT_ZERO_AXES, ZERO_AXES
+from ...parallel.mesh import EXPERT_ZERO_AXES, STEP_AXES, ZERO_AXES
 from .stages import ZeroShardingPolicy
 
 
@@ -83,17 +97,19 @@ def slab(t: torch.Tensor, dim: Optional[int], rank: int, world: int
 class ZeroParam:
     """One trainable parameter's place in the partition: where it lives
     (``owner._parameters[name]``), its shape (``full_shape`` the whole
-    tensor's, ``shape`` this rank's expert piece of it), the dims it
-    splits on (None: whole), its ZeRO group (``axes``, with this rank's
-    ``rank`` in it of ``world``), an expert leaf's ``eslab`` (dim 0, its
-    expert rank, ep) and its index in the engine's parameter list."""
+    tensor's, ``shape`` this rank's expert piece or TP shard of it), the
+    dims it splits on (None: whole), its ZeRO group (``axes``, with this
+    rank's ``rank`` in it of ``world``), an expert leaf's ``eslab`` (dim
+    0, its expert rank, ep), a TP leaf's ``tp`` (this rank's ``TPShard``;
+    ``tp_maps`` every model rank's, ``tp_spec`` the leaf's TP spec) and
+    its index in the engine's parameter list."""
 
     __slots__ = ("param", "owner", "name", "shape", "full_shape", "pdim",
                  "mdim", "gdim", "index", "partition", "aliased", "axes",
-                 "rank", "world", "eslab")
+                 "rank", "world", "eslab", "tp", "tp_maps", "tp_spec")
 
     def __init__(self, partition, index, owner, name, param, policy,
-                 group, eslab=None):
+                 group, eslab=None, tp=None, path: str = ""):
         self.partition = partition
         self.index = index
         self.owner, self.name, self.param = owner, name, param
@@ -107,11 +123,21 @@ class ZeroParam:
                                  f"{self.full_shape}: {shape[0]} experts "
                                  f"do not split over {eslab[2]} ranks")
             shape[0] //= eslab[2]
+        # tp: (the leaf's TP spec, every model rank's TPShard, this
+        # rank's index), or None
+        self.tp_spec, self.tp_maps = (tp[0], tp[1]) if tp else (None, None)
+        self.tp = self.tp_maps[tp[2]] if tp else None
+        if self.tp is not None:
+            shape[self.tp.dim] = self.tp.local
         self.shape = tuple(shape)
         is_expert = self.axes == EXPERT_ZERO_AXES
-        self.pdim = policy.param_dim(self.shape, is_expert)
-        self.mdim = policy.master_dim(self.shape, is_expert)
-        self.gdim = policy.grad_dim(self.shape, is_expert)
+        # the policy reads the whole shape beside its TP spec; the dims
+        # it gives are this rank's shard's too
+        dshape = self.full_shape if self.tp is not None else self.shape
+        kw = dict(tp_spec=self.tp_spec, path=path)
+        self.pdim = policy.param_dim(dshape, is_expert, **kw)
+        self.mdim = policy.master_dim(dshape, is_expert, **kw)
+        self.gdim = policy.grad_dim(dshape, is_expert, **kw)
         self.aliased = False
 
     @property
@@ -120,9 +146,11 @@ class ZeroParam:
         return self.pdim is not None
 
     def local(self, whole: torch.Tensor) -> torch.Tensor:
-        """This rank's expert piece of the whole tensor (itself for a
-        leaf that is no expert's)."""
-        return whole if self.eslab is None else slab(whole, *self.eslab)
+        """This rank's expert piece or TP shard of the whole tensor
+        (itself for a leaf that is neither)."""
+        if self.eslab is not None:
+            whole = slab(whole, *self.eslab)
+        return whole if self.tp is None else self.tp.take(whole)
 
     def full_data(self) -> torch.Tensor:
         """The compute parameter gathered over its ZeRO group (an expert
@@ -133,8 +161,15 @@ class ZeroParam:
         return comm.all_gather(p, axis=self.axes, gather_dim=self.pdim)
 
     def whole_data(self) -> torch.Tensor:
-        """The whole parameter, an expert leaf's every expert too."""
+        """The whole parameter, an expert leaf's every expert and a TP
+        leaf's every shard too."""
         p = self.full_data()
+        if self.tp is not None:
+            from ...utils.partitioning import tp_assemble
+            n = len(self.tp_maps)
+            pieces = comm.all_gather(p, axis="model", tiled=False,
+                                     gather_dim=0).unbind(0)
+            return tp_assemble(pieces[:n], self.tp_maps)
         if self.eslab is None:
             return p
         return comm.all_gather(p, axis="expert", gather_dim=0)
@@ -181,7 +216,7 @@ class ZeroPartition:
                  compute_dtype: torch.dtype, master_dtype: torch.dtype,
                  grad_accum_dtype: torch.dtype, device: torch.device,
                  values: Optional[Iterator[Tuple[str, torch.Tensor]]] = None,
-                 grad_world: Optional[int] = None, mesh=None):
+                 grad_world: Optional[int] = None, mesh=None, tp_of=None):
         self.module = module
         # the ranks whose losses are averaged: the ZeRO group less its seq
         # axis, whose ranks hold shares of one loss (summed, not averaged)
@@ -203,6 +238,9 @@ class ZeroPartition:
         # without one every leaf is over the ZeRO group given)
         dense = (ZERO_AXES, rank, world)
         expert, eslab = dense, None
+        # tp_of(parameter name, whole shape): the engine's map of a TP
+        # leaf, (TP spec, every model rank's TPShard), or None
+        self.model_rank = 0 if mesh is None else mesh.axis_rank("model")
         if mesh is not None:
             expert = (EXPERT_ZERO_AXES, mesh.axis_rank(EXPERT_ZERO_AXES),
                       mesh.axes_size(EXPERT_ZERO_AXES))
@@ -213,9 +251,12 @@ class ZeroPartition:
         for i, p in enumerate(params):
             mod, pname, full = owners[id(p)]
             is_expert = mesh is not None and "experts" in full.split(".")
+            tp = tp_of(full, tuple(p.shape)) if tp_of is not None else None
             e = ZeroParam(self, i, mod, pname, p, policy,
                           expert if is_expert else dense,
-                          eslab if is_expert else None)
+                          eslab if is_expert else None,
+                          tp=None if tp is None else (*tp, self.model_rank),
+                          path=full)
             self.entries.append(e)
             by_name[full] = e
         self.masters: List[Optional[torch.Tensor]] = [None] * len(params)
@@ -233,8 +274,10 @@ class ZeroPartition:
         self._live: Dict[int, ZeroParam] = {}
         self._hooks = []
         self._saved_ctx = None
-        # a leaf whole on every rank of its group counts on its rank 0
-        self._rep = torch.tensor([e.mdim is None and e.rank != 0
+        # a leaf whole on every rank of its ZeRO group counts on its rank
+        # 0, one whole on every model rank on model rank 0
+        self._rep = torch.tensor([(e.mdim is None and e.rank != 0)
+                                  or (e.tp is None and self.model_rank != 0)
                                   for e in self.entries], device=device)
 
     # ------------------------------------------------------------ placement
@@ -365,7 +408,7 @@ class ZeroPartition:
               and p.ds_zero.partition is self]
         shards = {}
         for e in es:
-            if e.gathered or e.eslab is not None:
+            if e.gathered or e.eslab is not None or e.tp is not None:
                 shards[e.index] = e.param.data
                 e.param.data = e.whole_data()
         try:
@@ -377,16 +420,17 @@ class ZeroPartition:
             raise
         for e in es:
             whole = e.param.data
-            full = e.local(whole)
             if modifier_rank is not None:
                 comm.broadcast(whole, src=modifier_rank, axis=ZERO_AXES)
-                if not e.aliased:
-                    self.masters[e.index].copy_(
-                        slab(full, e.mdim, e.rank, e.world))
+            full = e.local(whole)
+            if modifier_rank is not None and not e.aliased:
+                self.masters[e.index].copy_(
+                    slab(full, e.mdim, e.rank, e.world))
             if e.index in shards:
-                e.param.data = (slab(full, e.pdim, e.rank, e.world)
-                                .contiguous() if modifier_rank is not None
-                                else shards[e.index])
+                shard = shards[e.index]
+                if modifier_rank is not None:   # (an aliased master too)
+                    shard.copy_(slab(full, e.pdim, e.rank, e.world))
+                e.param.data = shard
 
     # ------------------------------------------------------------- gradients
 
@@ -459,11 +503,13 @@ class ZeroPartition:
         bad = torch.stack([~torch.isfinite(g).all() for g in grads]).sum()
         loss = torch.stack([x.detach().to(torch.float32)
                             for x in losses]).mean()
+        if self.model_rank:         # the model ranks share one loss
+            loss = torch.zeros_like(loss)
         parts = [sq, bad.to(sq.dtype).view(1), loss.view(1)]
         if auxes:
             parts.append(torch.stack(auxes).mean().view(1))
         packed = torch.cat(parts)
-        comm.all_reduce(packed, op=comm.ReduceOp.SUM, axis=ZERO_AXES)
+        comm.all_reduce(packed, op=comm.ReduceOp.SUM, axis=STEP_AXES)
         total = packed[:n].sum()
         finite = (packed[n] == 0).to(torch.float32)
         # the seq ranks of a sample hold shares of one loss; the MoE aux
@@ -480,7 +526,7 @@ class ZeroPartition:
         ratio norms."""
         sq = torch.where(self._rep[:, None], torch.zeros_like(sq), sq)
         return comm.all_reduce(sq.contiguous(), op=comm.ReduceOp.SUM,
-                               axis=ZERO_AXES)
+                               axis=STEP_AXES)
 
     def refresh_params(self) -> None:
         """After the update: each compute parameter from the masters, the

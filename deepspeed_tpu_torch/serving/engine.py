@@ -13,6 +13,12 @@ weights in f32 (the tests pin it). Sampling draws from a
 ``torch.Generator`` seeded by ``serving.seed``, so sampled tokens differ
 from the JAX engine's, which draws from ``jax.random``.
 
+Under tensor parallelism (``tp``, this rank's ``TPContext``) every rank
+of the model group runs this same loop on the same submissions: the
+same scheduler decisions and block tables, its heads' pools, its shards
+of the weights, and the gathered logits, from which identically seeded
+generators pick the same tokens on every rank.
+
 Not in this slice: the heartbeat channel (passing one raises
 ``NotImplementedError``), the stall watchdog, and the fleet /
 disaggregated roles.
@@ -109,7 +115,9 @@ class ServingEngine:
     moved to ``device`` (default CUDA; ``device="cpu"`` runs the plain
     PyTorch versions of the kernels). ``serving``: a ``ServingConfig`` or
     a dict of its fields. ``generator``: the sampling generator (default:
-    one on ``device`` seeded with ``serving.seed``)."""
+    one on ``device`` seeded with ``serving.seed``). ``tp``: this rank's
+    ``TPContext`` when ``params`` are its model-axis shards (module
+    docstring)."""
 
     def __init__(self,
                  cfg: TransformerConfig,
@@ -118,7 +126,8 @@ class ServingEngine:
                  heartbeat=None,
                  generator: Optional[torch.Generator] = None,
                  device=None,
-                 shared: Optional[SharedPagedState] = None):
+                 shared: Optional[SharedPagedState] = None,
+                 tp=None):
         from ..config.config import ServingConfig
         if heartbeat is not None:
             raise NotImplementedError("the serving heartbeat " + _LATER_SLICE)
@@ -141,6 +150,7 @@ class ServingEngine:
                 "(length-dependent table); use linear/llama3 scaling")
         params = ensure_scan_layout(params, cfg.num_layers)
         self.params = _to_device(params, self.device)
+        self.tp = tp
         kv_dtype = resolve_kv_dtype(serving)
         if serving.weight_dtype is not None:
             if serving.weight_dtype != "int8":
@@ -151,9 +161,10 @@ class ServingEngine:
             # f32 scales; the decode matmuls then run the quant_matmul
             # kernel and never materialize a full-precision weight
             from ..ops.quant_matmul import pack_decode_weights
+            _check_row_blocks(self.params, tp)
             self.params = pack_decode_weights(self.params)
         self._shared = shared if shared is not None else SharedPagedState(
-            cfg, serving, dtype=kv_dtype, device=self.device)
+            cfg, serving, dtype=kv_dtype, device=self.device, tp=tp)
         self.scheduler = Scheduler(self.pool, serving.max_queue,
                                    self.max_model_len, self.prefix_cache,
                                    aging_s=serving.fleet.priority_aging_s,
@@ -223,7 +234,7 @@ class ServingEngine:
                 self.cfg, params, torch.as_tensor(ids, device=dev), pools,
                 torch.as_tensor(tables, device=dev),
                 torch.as_tensor(q0, device=dev),
-                torch.as_tensor(ctx, device=dev), self.block_size)
+                torch.as_tensor(ctx, device=dev), self.block_size, tp=self.tp)
         return logits
 
     # -- submission ------------------------------------------------------------
@@ -499,6 +510,24 @@ class ServingEngine:
         self.pool.release(seq.blocks)
         self.stats["completed"] += 1
         seq.req._finish(FINISHED)
+
+
+def _check_row_blocks(params, tp) -> None:
+    """Blockwise int8 packs each rank's shard: a row-parallel shard (the
+    attention and MLP projections' K / t rows) packs as the whole leaf's
+    packing cut there only in whole scale blocks."""
+    from ..quant_format import QUANT_BLOCK
+    if tp is None or tp.size == 1:
+        return
+    for name in ("attn_proj", "mlp_proj"):
+        sub = params["blocks"].get(name)
+        if isinstance(sub, dict) and "kernel" in sub and \
+                sub["kernel"].shape[-2] % QUANT_BLOCK:
+            raise NotImplementedError(
+                f"serving.weight_dtype int8 under tp_size {tp.size}: "
+                f"{name}'s {sub['kernel'].shape[-2]} rows a rank are not "
+                f"whole scale blocks of {QUANT_BLOCK} (is not ported to "
+                "deepspeed_tpu_torch yet; see ROADMAP.md)")
 
 
 def _to_device(tree, device):

@@ -34,15 +34,16 @@ class BlockPoolExhausted(RuntimeError):
 
 
 def init_pool(cfg, num_blocks: int, block_size: int, dtype=None,
-              device=None) -> Dict[str, torch.Tensor]:
+              device=None, tp=None) -> Dict[str, torch.Tensor]:
     """Device pool: k/v ``[L, nh, num_blocks*block_size, hd]`` (flat slots,
     slot = block * block_size + offset; attention views the same memory
     as ``[L, nh, num_blocks, block_size, hd]``). ``dtype=torch.int8``
     adds f32 ``k_scale`` / ``v_scale`` ``[L, nh, slots, 1]``, one per row
-    (``quant_format.kv_quantize``)."""
+    (``quant_format.kv_quantize``). Under TP (``tp``, a ``TPContext``) nh
+    is this rank's query heads."""
     dtype = dtype or cfg.dtype
-    shape = (cfg.num_layers, cfg.num_heads, num_blocks * block_size,
-             cfg.head_dim)
+    nh = cfg.num_heads if tp is None else tp.heads(cfg)[0]
+    shape = (cfg.num_layers, nh, num_blocks * block_size, cfg.head_dim)
     z = lambda s, dt: torch.zeros(s, dtype=dt, device=device)
     if dtype == torch.int8:
         return {"k": z(shape, torch.int8), "v": z(shape, torch.int8),
@@ -233,11 +234,11 @@ class SharedPagedState:
     one :class:`PrefixCache`. ``device_lock`` serializes the forward calls
     that update the pool."""
 
-    def __init__(self, cfg, serving, dtype=None, device=None):
+    def __init__(self, cfg, serving, dtype=None, device=None, tp=None):
         self.pool = BlockPool(serving.pool_blocks, serving.block_size)
         self.pools: Dict[str, Any] = init_pool(
             cfg, serving.pool_blocks, serving.block_size, dtype=dtype,
-            device=device)
+            device=device, tp=tp)
         self.prefix_cache = (PrefixCache(self.pool)
                              if serving.prefix_cache else None)
         self.device_lock = threading.Lock()

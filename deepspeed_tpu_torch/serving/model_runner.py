@@ -22,11 +22,12 @@ from typing import Any, Dict, Tuple
 import numpy as np
 import torch
 
-from ..models.generation import (_dense, _layer_norm, _moe_mlp,
-                                 check_decodable)
+from ..models.generation import (_dense, _layer_norm, _moe_mlp, _row_dense,
+                                 check_decodable, lm_logits,
+                                 local_alibi_slopes, tp_embedding)
 from ..models.transformer import (_ACTIVATIONS, TransformerConfig,
-                                  alibi_slopes, apply_rotary, layer_params)
-from ..ops.attention import apply_softcap, paged_attention
+                                  apply_rotary, layer_params)
+from ..ops.attention import paged_attention
 from ..quant_format import kv_quantize
 
 PyTree = Any
@@ -41,7 +42,8 @@ def paged_forward(cfg: TransformerConfig,
                   context_lens: torch.Tensor,
                   block_size: int,
                   *,
-                  impl: str = "auto"
+                  impl: str = "auto",
+                  tp=None
                   ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Run T tokens per lane at logical positions [q_start, q_start + T)
     against the paged pool. Returns (logits [B, T, V] f32, pools).
@@ -57,7 +59,10 @@ def paged_forward(cfg: TransformerConfig,
     The pool tensors are updated IN PLACE (``index_copy_``) and the same
     dict is returned: torch has no buffer donation, and a copy of the pool
     per step would double its memory. ``impl="reference"`` sends the
-    attention and the int8 matmuls to their plain versions."""
+    attention and the int8 matmuls to their plain versions. ``tp``: this
+    rank's ``TPContext`` when ``params`` are its model-axis shards and
+    the pools hold its heads (the Megatron layers; the logits are
+    gathered, so every rank returns the whole [B, T, V])."""
     check_decodable(cfg)
     if "blocks" not in params:
         raise ValueError("paged_forward needs scan-layers params "
@@ -79,19 +84,24 @@ def paged_forward(cfg: TransformerConfig,
     nb_pool = num_slots // bs
     L = cfg.num_layers
     nh, hd, kvh = cfg.num_heads, cfg.head_dim, cfg.kv_heads
+    nh_all = nh
+    if tp is not None:
+        nh, kvh = tp.heads(cfg)
     rms = cfg.norm == "rmsnorm"
     eps = cfg.layer_norm_eps
     act = _ACTIVATIONS[cfg.activation]
     sm_scale = (cfg.attn_scale if cfg.attn_scale is not None
                 else 1.0 / float(np.sqrt(hd)))
     dense = partial(_dense, impl=impl)
+    row = partial(_row_dense, tp=tp, impl=impl)
 
     bt = block_tables.to(device=dev, dtype=torch.int32).contiguous()
     q_start = q_start.to(device=dev, dtype=torch.long).reshape(B)
     ctx = context_lens.to(device=dev, dtype=torch.int32).reshape(B)
 
     wte = params["wte"]["embedding"]
-    x = wte.to(cfg.dtype)[input_ids]
+    x = (wte.to(cfg.dtype)[input_ids] if tp is None
+         else tp_embedding(input_ids, wte.to(cfg.dtype), tp))
     if cfg.embed_scale is not None:
         x = x * torch.tensor(cfg.embed_scale, dtype=x.dtype)
 
@@ -102,8 +112,7 @@ def paged_forward(cfg: TransformerConfig,
     if cfg.embed_ln:
         x = _layer_norm(x, params["ln_emb"], eps, rms)
 
-    slopes = (torch.as_tensor(alibi_slopes(nh), dtype=torch.float32,
-                              device=dev)
+    slopes = (local_alibi_slopes(nh_all, tp, dev)
               if cfg.pos_embed == "alibi" else None)
     windows = ([int(w) for w in cfg.layer_windows]
                if cfg.layer_windows is not None else [0] * L)
@@ -161,7 +170,7 @@ def paged_forward(cfg: TransformerConfig,
                             window=windows[li], layer_idx=li,
                             q_start=q_start, impl=impl, **scale_kw)
         o = o.transpose(1, 2).reshape(B, T, nh * hd)
-        attn_out = dense(o, p["attn_proj"])
+        attn_out = row(o, p["attn_proj"])
         if cfg.post_block_norms:
             attn_out = _layer_norm(attn_out, p["post_attn_norm"], eps, rms)
 
@@ -170,8 +179,8 @@ def paged_forward(cfg: TransformerConfig,
                 return _moe_mlp(cfg, p["moe"], hin)
             if cfg.gated_mlp:
                 g = act(dense(hin, p["mlp_gate"]))
-                return dense(g * dense(hin, p["mlp_fc"]), p["mlp_proj"])
-            return dense(act(dense(hin, p["mlp_fc"])), p["mlp_proj"])
+                return row(g * dense(hin, p["mlp_fc"]), p["mlp_proj"])
+            return row(act(dense(hin, p["mlp_fc"])), p["mlp_proj"])
 
         if cfg.parallel_residual:
             m_in = (_layer_norm(x, p["ln2"], eps, rms)
@@ -184,10 +193,4 @@ def paged_forward(cfg: TransformerConfig,
                 m = _layer_norm(m, p["post_mlp_norm"], eps, rms)
             x = x_mid + m
     x = _layer_norm(x, params["ln_f"], eps, rms)
-    if cfg.tie_embeddings:
-        logits = torch.einsum("bth,vh->btv", x, wte.to(x.dtype))
-    else:
-        logits = dense(x, params["lm_head"])
-    if cfg.final_logit_softcap:
-        logits = apply_softcap(logits, cfg.final_logit_softcap)
-    return logits.to(torch.float32), pools
+    return lm_logits(cfg, params, x, dense, tp), pools

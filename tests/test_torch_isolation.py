@@ -300,10 +300,14 @@ def test_unported_options_raise():
                 "offload_optimizer": {"device": "cpu"}}})
     with pytest.raises(FileNotFoundError):    # ported: a missing file
         eng.load_checkpoint("ckpt")
+    # tensor parallelism is ported (tests/test_torch_tensor_parallel.py);
+    # a rule table other than the model's own cfg.tp_rules() is not
+    from deepspeed_tpu_torch.utils.partitioning import PartitionSpec
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        deepspeed_tpu_torch.init_inference(cfg, {"tp": {"tp_size": 2}},
-                                           model_parameters=params,
-                                           device="cpu")
+        deepspeed_tpu_torch.init_inference(
+            cfg, {"tp": {"tp_size": 2}}, model_parameters=params,
+            device="cpu",
+            sharding_rules={r"wte/embedding": PartitionSpec("model", None)})
     # MoE serves on the CPU: serve() and generate() agree
     moe = get_config("gpt2-tiny", hidden_size=32, num_layers=1, num_heads=2,
                      vocab_size=64, dtype=torch.float32, moe_experts=2)

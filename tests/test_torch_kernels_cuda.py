@@ -630,6 +630,87 @@ def test_decode_and_paged_kernels_mixtral_shape(dev, int8):
     _hold(out, ref, False)
 
 
+# Llama-2-70B under tensor parallelism (the tp leg): a rank's local shapes
+# at tp 4 (16 query heads of 128 over 2 KV heads, each repeated to its 8
+# query heads before the kernel) and at tp 2 (32 over 4)
+@pytest.mark.parametrize("B,H,kv,S", [(4, 16, 2, 1024), (1, 32, 4, 4096),
+                                      (2, 64, 8, 1024)])
+def test_flash_attention_kernels_llama70b_tp_shapes(dev, B, H, kv, S):
+    """The tp leg's prefill at tp 4 ([4, 16, 1024, 128]), its train calls
+    at tp 2 ([1, 32, 4096, 128]) and the 1-rank world's ([2, 64, 1024,
+    128]); causal bf16, forward and backward."""
+    g = torch.Generator().manual_seed(70 + H)
+    q, do = (torch.randn(B, H, S, 128, generator=g).to(dev, torch.bfloat16)
+             for _ in range(2))
+    k, v = (torch.randn(B, kv, S, 128, generator=g).to(dev, torch.bfloat16)
+            .repeat_interleave(H // kv, dim=1).contiguous() for _ in range(2))
+    o, lse = tfa.flash_attention_fwd(q, k, v, causal=True)
+    dq, dk, dv = tfa.flash_attention_bwd(q, k, v, o, lse, do, causal=True)
+    ro, rlse = tfa.flash_attention_reference(*_f32(q, k, v), causal=True)
+    refs = tfa.flash_attention_bwd_reference(*_f32(q, k, v, o), lse,
+                                             do.float(), causal=True)
+    torch.cuda.synchronize()
+    _hold(o, ro, False)
+    torch.testing.assert_close(lse, rlse, atol=F32_TOL, rtol=0)
+    for out, ref in zip((dq, dk, dv), refs):
+        _hold(out, ref, False, floor=2.0 ** -10)
+
+
+@pytest.mark.parametrize("int8", [False, True])
+def test_decode_and_paged_kernels_llama70b_tp4_shape(dev, int8):
+    """The tp leg's decode calls at tp 4: 16 heads of 128 a rank over 2
+    KV heads (repeated in the cache and the pool): the generate step (4
+    sequences at cur_len 1050 in a cache of 1280) and the serve step (8
+    lanes of ragged contexts in a bf16 or int8 pool)."""
+    g = torch.Generator().manual_seed(704)
+    rep = lambda t: t.repeat_interleave(8, dim=-3).contiguous()
+    if not int8:
+        k, v = (rep(torch.randn(2, 4, 2, 1280, 128, generator=g)).to(
+            dev, torch.bfloat16) for _ in range(2))
+        q = torch.randn(4, 16, 1, 128, generator=g).to(dev, torch.bfloat16)
+        out = tda.decode_attention(q, k, v, 1050, layer_idx=1)
+        ref = tda.decode_attention_reference(*_f32(q, k[1], v[1]), 1050)
+        torch.cuda.synchronize()
+        _hold(out, ref, False)
+    B, nbk, bs = 8, 33, 32
+    nblk = B * nbk + 1
+    kp, vp = (torch.randn(2, 2, nblk, bs, 128, generator=g)
+              .repeat_interleave(8, dim=1).to(dev, torch.bfloat16)
+              for _ in range(2))
+    q = torch.randn(B, 16, 1, 128, generator=g).to(dev, torch.bfloat16)
+    bt = (torch.randperm(nblk - 1, generator=g) + 1).reshape(B, nbk)
+    bt = bt.to(dev, torch.int32)
+    lens = torch.tensor([1056, 65, 1, 700, 1024, 300, 999, 128],
+                        dtype=torch.int32, device=dev)
+    if int8:
+        (kq, ks), (vq, vs) = kv_quantize(kp), kv_quantize(vp)
+        out = tpa.paged_attention(q, kq, vq, bt, lens, k_scale=ks,
+                                  v_scale=vs, layer_idx=1)
+        kp, vp = ((x.float() * sc.reshape(x.shape[:-1])[..., None]).to(
+            q.dtype) for x, sc in ((kq, ks), (vq, vs)))
+    else:
+        out = tpa.paged_attention(q, kp, vp, bt, lens, layer_idx=1)
+    ref = tpa.paged_attention_reference(*_f32(q, kp, vp), bt, lens,
+                                        layer_idx=1)
+    torch.cuda.synchronize()
+    _hold(out, ref, False)
+
+
+# a tp-4 rank's int8 matmuls of Llama-2-70B: qkv (N 2560), the attention
+# projection (K 2048), gate / fc (N 7168), the MLP projection (K 7168) and
+# the head (N 8000), at a decode step's and a prefill's rows
+@pytest.mark.parametrize("K,N", [(8192, 2560), (2048, 8192), (8192, 7168),
+                                 (7168, 8192), (8192, 8000)])
+@pytest.mark.parametrize("M", [8, 512])
+def test_quant_matmul_kernel_llama70b_tp4_shapes(dev, M, K, N):
+    x, q, s = _qm_inputs(dev, M, K, N, torch.bfloat16)
+    out = tqm.quant_matmul(x, q, s)
+    ref = tqm.quant_matmul_reference(x, q, s)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out.float(), ref.float(), atol=2e-2 * K ** 0.5,
+                               rtol=1e-2)
+
+
 def test_flash_attention_autograd_on_the_card(dev):
     """The autograd Function launches the forward and both backward
     kernels once each; its grads match the plain backward."""

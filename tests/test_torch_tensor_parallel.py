@@ -1,0 +1,727 @@
+"""Tensor parallelism across real gloo ranks on the CPU: the port's TP
+layers against the JAX package's ``tp_size`` 2 engines and the 1-rank
+port.
+
+Two 2-layer models, their flax-initialized f32 weights fed to both
+packages: ``llama`` (hidden 64, RMSNorm, GQA 4q / 2kv, rotary, SwiGLU,
+untied head, no biases) with vocab 251, which splits unevenly at tp 2
+(126 + 125 rows, the second rank's shard padded), and ``gpt2`` (hidden
+64, 4 heads, learned positions, LayerNorm, GELU, biased qkv and
+projections, the head tied to the embedding) with vocab 256. The JAX
+tp-2 engine refuses vocab 251 (``device_put`` of a [251, 64] table over
+a model axis of 2 raises on an uneven split), so ``llama``'s runs are
+held to the JAX engine at tp 1, the same function, and ``gpt2``'s to
+the JAX tp-2 engine. Single-process checks: ``tp_rules()``
+and ``build_tp_specs`` against JAX's spec for spec, the ZeRO policy
+composed with the TP specs against JAX's, the shard maps (per-head qkv,
+padded vocab, assembly) and the raises. Two spawns
+(``test_torch_comm._spawn``: a ``file://`` rendezvous, killed and failed
+past their own clock):
+
+* **2 ranks, ``tp_size`` 2** (``sharding_rules=cfg.tp_rules()``): each
+  rank's shard shapes; f32 ``forward`` logits against the JAX engine's
+  at rtol 1e-5; greedy ``generate()`` and ``serve()`` tokens equal to
+  the JAX engine's in f32 and through the int8 engine, and
+  equal on both ranks (the serve loop's block tables too); a
+  topology-free npz loaded at tp 2 gives the tp-1 engine's tokens (JAX
+  ``test_inference.py:143``); ``train_batch`` at ZeRO stages 0-3 (and the
+  fused CE) within rtol 1e-5 of the 1-rank port and 2e-4 of the JAX
+  engine (JAX ``test_models.py:88``), every forward issuing 2
+  model-axis all-reduces a layer plus the embedding's.
+* **4 ranks, tp 2 x data 2, ZeRO-3**: three steps within rtol 1e-5 of
+  the 1-rank port; a sharded save (qkv shards written as their q, k and v
+  pieces at their global offsets) loads into a 1-rank port engine and
+  into the JAX engine bitwise, and their next steps agree.
+"""
+
+import dataclasses
+import json
+import os
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import deepspeed_tpu
+from deepspeed_tpu.inference.engine import InferenceEngine as JInferenceEngine
+from deepspeed_tpu.models import build_model as jbuild_model
+from deepspeed_tpu.models import transformer as jtr
+from deepspeed_tpu.parallel import mesh as jmesh
+from deepspeed_tpu.parallel.mesh import MeshManager
+from deepspeed_tpu.runtime.zero import stages as jstages
+from deepspeed_tpu.utils.partitioning import build_tp_specs as jbuild_specs
+
+import deepspeed_tpu_torch
+from deepspeed_tpu_torch.models import transformer as ttr
+from deepspeed_tpu_torch.models.convert import params_from_jax
+from deepspeed_tpu_torch.parallel import mesh as tmesh
+from deepspeed_tpu_torch.runtime.zero import stages as tstages
+from deepspeed_tpu_torch.utils import partitioning as tpart
+
+from test_torch_comm import _spawn
+
+V = 251
+BASE = dict(hidden_size=64, num_layers=2, num_heads=4, max_seq_len=64,
+            attention_impl="auto")
+ARCHS = {
+    "llama": dict(BASE, vocab_size=V, num_kv_heads=2, pos_embed="rotary",
+                  rotary_interleaved=False, norm="rmsnorm", gated_mlp=True,
+                  activation="silu", tie_embeddings=False, use_bias=False,
+                  mlp_dim_override=128),
+    "gpt2": dict(BASE, vocab_size=256),
+}
+
+
+def _jax_tp(arch):
+    """The JAX engine's tp_size for ``arch``: 2 where its vocab splits
+    evenly (module docstring)."""
+    return 2 if ARCHS[arch]["vocab_size"] % 2 == 0 else 1
+S, NEW = 16, 8
+SERVING = {"block_size": 8, "pool_blocks": 32, "max_batch": 4,
+           "max_blocks_per_seq": 8}
+PROMPTS = [[5, 17, 3, 99, 250, 7], [1, 2, 3], [200, 100, 50, 25, 12, 6, 3,
+                                               1, 0, 9]]
+# three steps, the first batch again last: the loss falls on it
+SEEDS = [100, 101, 100]
+
+
+def _base(tb, stage, tp=1, fused=False):
+    cfg = {"train_batch_size": tb, "gradient_accumulation_steps": 2,
+           "optimizer": {"type": "AdamW",
+                         "params": {"lr": 3e-3, "weight_decay": 0.01}},
+           "gradient_clipping": 0.5, "steps_per_print": 100,
+           "zero_optimization": {"stage": stage,
+                                 "stage3_param_persistence_threshold": 64}}
+    if tp > 1:
+        cfg["tensor_parallel"] = {"tp_size": tp}
+    return cfg
+
+
+_CFGS = {}
+
+
+def _cfgs(arch, **over):
+    key = (arch, tuple(sorted(over.items())))
+    if key not in _CFGS:
+        _, jcfg = jbuild_model("gpt2-tiny", **dict(ARCHS[arch], dtype=jax.
+                                                   numpy.float32, **over))
+        f = {fl.name: getattr(jcfg, fl.name)
+             for fl in dataclasses.fields(jcfg)}
+        f["dtype"] = torch.float32
+        _CFGS[key] = (jcfg, ttr.TransformerConfig(**f))
+    return _CFGS[key]
+
+
+_PARAMS = {}
+
+
+def _params(arch):
+    if arch not in _PARAMS:
+        jcfg, _ = _cfgs(arch)
+        p = jax.jit(jtr.Transformer(jcfg).init)(
+            jax.random.PRNGKey(7),
+            {"input_ids": np.zeros((1, 8), np.int32)})["params"]
+        _PARAMS[arch] = jax.tree.map(np.asarray, jax.device_get(p))
+    return _PARAMS[arch]
+
+
+def _ids(B=2, T=S, seed=3):
+    return np.random.default_rng(seed).integers(0, V, (B, T)).astype(
+        np.int32)
+
+
+def _batch(tb, seed):
+    return {"input_ids": _ids(tb, S, seed)}
+
+
+def _flat(tree, prefix=""):
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(_flat(v, prefix + k + "/"))
+        else:
+            out[prefix + k] = np.asarray(v)
+    return out
+
+
+def _fields(arch, **over):
+    _, tcfg = _cfgs(arch, **over)
+    f = {fl.name: getattr(tcfg, fl.name) for fl in dataclasses.fields(tcfg)}
+    f["dtype"] = "float32"
+    return f
+
+
+@pytest.fixture(autouse=True)
+def _no_session_mesh(monkeypatch):
+    monkeypatch.setattr(jmesh, "_GLOBAL_MESH", None)
+    monkeypatch.setattr(tmesh, "_GLOBAL_MESH", None)
+    with jax.default_matmul_precision("highest"):
+        yield
+
+
+# ------------------------------------------------------ single process
+
+
+@pytest.mark.parametrize("arch", sorted(ARCHS))
+@pytest.mark.parametrize("scan", [True, False])
+def test_tp_rules_and_specs_match_jax(arch, scan):
+    jcfg, tcfg = _cfgs(arch, scan_layers=scan)
+    jr, tr = jcfg.tp_rules(), tcfg.tp_rules()
+    assert list(tr) == list(jr)
+    for k in jr:
+        assert tr[k] == tuple(jr[k]), k
+    if not scan:
+        return
+    jspecs = _flat(jax.tree.map(
+        lambda s: "none" if s is None else json.dumps(tuple(s)),
+        jbuild_specs(_params(arch), jr),
+        is_leaf=lambda x: x is None or hasattr(x, "index")))
+    tparams = params_from_jax(_params(arch))
+    tspecs = _flat(jax.tree.map(
+        lambda s: "none" if s is None else json.dumps(tuple(s)),
+        tpart.build_tp_specs(tparams, tr),
+        is_leaf=lambda x: x is None or isinstance(x, tuple)))
+    assert {k: str(v) for k, v in tspecs.items()} == \
+        {k: str(v) for k, v in jspecs.items()}
+    assert sum(v != "none" for v in tspecs.values()) >= 6
+
+
+@pytest.mark.parametrize("world", [2, 4, 8])
+@pytest.mark.parametrize("stage", [0, 1, 2, 3])
+def test_zero_policy_composed_with_tp_matches_jax(world, stage):
+    """Each leaf's param / master / grad spec under a model axis of 2
+    (the embedding's grad exception included) equals JAX's
+    ``ZeroShardingPolicy`` with the same TP spec."""
+    jcfg, tcfg = _cfgs("llama")
+    mm = MeshManager(devices=jax.devices()[:world], tp_size=2)
+    tm = tmesh.MeshManager(devices=list(range(world)), tp_size=2)
+    jp = jstages.ZeroShardingPolicy(stage, mm, param_persistence_threshold=64)
+    tp = tstages.ZeroShardingPolicy(stage, tm, param_persistence_threshold=64)
+    shapes = {k: v.shape for k, v in _flat(_params("llama")).items()}
+    shapes["extra/vocab_bias"] = (V,)
+    rules = tcfg.tp_rules()
+    for path, shape in shapes.items():
+        spec = tpart.spec_for(path, rules)
+        jspec = None if spec is None else jax.sharding.PartitionSpec(*spec)
+        for kind in ("param", "master", "grad"):
+            want = tuple(jstages.canonicalize_spec(
+                getattr(jp, f"{kind}_spec")(shape, jspec, False, path),
+                mm.shape))
+            got = getattr(tp, f"{kind}_spec")(shape, spec, False, path)
+            assert got == want, (kind, path, got, want)
+
+
+def test_shard_maps_cut_heads_and_pad_the_vocab():
+    _, tcfg = _cfgs("llama")
+    nh, kv, hd, H = 4, 2, 16, 64
+    qkv = torch.arange(H * (nh + 2 * kv) * hd, dtype=torch.float32).reshape(
+        H, (nh + 2 * kv) * hd)
+    spec = tpart.spec_for("blocks/attn_qkv/kernel", tcfg.tp_rules())
+    maps = [tpart.tp_shard("blocks/attn_qkv/kernel", qkv.shape, spec, tcfg,
+                           r, 2) for r in range(2)]
+    # rank 1: q heads 2-3, k head 1, v head 1
+    cols = torch.cat([torch.arange(32, 64), torch.arange(64 + 16, 64 + 32),
+                      torch.arange(96 + 16, 96 + 32)])
+    torch.testing.assert_close(maps[1].take(qkv), qkv[:, cols], rtol=0,
+                               atol=0)
+    torch.testing.assert_close(
+        tpart.tp_assemble([m.take(qkv) for m in maps], maps), qkv, rtol=0,
+        atol=0)
+    wte = torch.randn(V, H)
+    spec = tpart.spec_for("wte/embedding", tcfg.tp_rules())
+    maps = [tpart.tp_shard("wte/embedding", wte.shape, spec, tcfg, r, 2)
+            for r in range(2)]
+    assert [m.take(wte).shape[0] for m in maps] == [126, 126]
+    assert float(maps[1].take(wte)[-1].abs().sum()) == 0.0   # padding
+    torch.testing.assert_close(
+        tpart.tp_assemble([m.take(wte) for m in maps], maps), wte, rtol=0,
+        atol=0)
+
+
+def test_tp_raises_name_roadmap():
+    _, tcfg = _cfgs("llama")
+    rules = dict(tcfg.tp_rules())
+    rules.pop(next(iter(rules)))
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        tpart.check_tp_rules(rules, tcfg)
+    assert tpart.check_tp_rules(None, tcfg) is None
+    for over in (dict(num_heads=3, num_kv_heads=3, hidden_size=48),
+                 dict(num_kv_heads=1), dict(moe_experts=2),
+                 dict(attention_impl="ring")):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            tpart.check_tp_model(dataclasses.replace(tcfg, **over), 2)
+    # a foreign table raises at initialize and init_inference too
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        deepspeed_tpu_torch.init_inference(
+            tcfg, {"dtype": "float32"}, device="cpu",
+            model_parameters=params_from_jax(_params("llama")),
+            sharding_rules=rules)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        deepspeed_tpu_torch.initialize(
+            model=ttr.Transformer(tcfg), config=_base(8, 1), device="cpu",
+            loss_fn=ttr.causal_lm_loss, sharding_rules=rules,
+            dist_init_required=False)
+    # tp_size > 1 needs a process group
+    with pytest.raises(ValueError, match="process group"):
+        deepspeed_tpu_torch.initialize(
+            model=ttr.Transformer(tcfg), config=_base(8, 1, tp=2),
+            device="cpu", loss_fn=ttr.causal_lm_loss,
+            dist_init_required=False)
+
+
+def test_vocab_parallel_cross_entropy_at_one_rank_is_plain(monkeypatch):
+    """Over one model rank (its all-reduces the identity) the
+    vocab-parallel CE equals the plain one bit for bit, loss and
+    gradient: the card's 1-rank world compares its first step bitwise."""
+    from deepspeed_tpu_torch import comm
+    monkeypatch.setattr(comm, "all_reduce", lambda t, **kw: t)
+    monkeypatch.setattr(comm.comm, "all_reduce", lambda t, **kw: t)
+    g = torch.Generator().manual_seed(0)
+    x = torch.randn(3, 5, V, generator=g)
+    labels = torch.randint(0, V, (3, 5), generator=g)
+    labels[0, 0] = -100
+    out = []
+    for tp in (None, tpart.TPContext(0, 1, V)):
+        logits = x.clone().requires_grad_(True)
+        loss = ttr.cross_entropy(logits, labels, tp=tp)
+        loss.backward()
+        out.append((loss.detach(), logits.grad))
+    assert torch.equal(out[0][0], out[1][0])
+    assert torch.equal(out[0][1], out[1][1])
+
+
+# --------------------------------------------------------------- spawns
+
+
+WORKER = r"""
+import dataclasses, json, os, sys, hashlib
+import numpy as np
+import torch
+import deepspeed_tpu_torch as ds
+from deepspeed_tpu_torch.models import transformer as ttr
+from deepspeed_tpu_torch.models.convert import params_from_jax
+
+plan = json.load(open(sys.argv[1]))
+ds.comm.init_distributed(device="cpu")
+rank, world = ds.comm.get_rank(), ds.comm.get_world_size()
+
+def tree(path):
+    with np.load(path) as z:
+        flat = {k: z[k] for k in z.files}
+    out = {}
+    for k, v in flat.items():
+        node = out
+        parts = k.split("/")
+        for p in parts[:-1]:
+            node = node.setdefault(p, {})
+        node[parts[-1]] = v
+    return out
+
+def tcfg(fields):
+    return ttr.TransformerConfig(**dict(fields, dtype=torch.float32))
+
+def shapes(node, prefix=""):
+    out = {}
+    for k, v in node.items():
+        if isinstance(v, dict):
+            out.update(shapes(v, prefix + k + "/"))
+        else:
+            out[prefix + k] = list(v.shape)
+    return out
+
+res = {"rank": rank, "arch": {}, "runs": {}}
+ids = np.asarray(plan["ids"], np.int32)
+for arch, spec in plan.get("infer", {}).items():
+    cfg = tcfg(spec["model"])
+    jp = tree(spec["params"])
+    out = {}
+    for dt in ("float32", "int8"):
+        ds.comm.reset_op_counts()
+        eng = ds.init_inference(cfg, {"dtype": dt, "tensor_parallel": {
+            "tp_size": world}}, model_parameters=params_from_jax(jp),
+            sharding_rules=cfg.tp_rules(), device="cpu")
+        o = {"shapes": shapes(eng.params)}
+        if dt == "float32":
+            o["logits"] = eng.forward(torch.from_numpy(ids)).tolist()
+            o["forward_ops"] = ds.comm.op_counts()
+        o["generate"] = eng.generate(ids, max_new_tokens=plan["new"]
+                                     ).tolist()
+        srv = eng.serve(plan["serving"])
+        digests = []
+        fwd = srv._forward
+        def logged(params, pools, *args, fwd=fwd):
+            digests.append(hashlib.sha256(b"".join(
+                np.ascontiguousarray(a).tobytes() for a in args)).hexdigest())
+            return fwd(params, pools, *args)
+        srv._forward = logged
+        o["serve"] = srv.generate_batch(plan["prompts"], plan["new"])
+        o["serve_digest"] = hashlib.sha256("".join(digests).encode()
+                                           ).hexdigest()
+        out[dt] = o
+    eng = ds.init_inference(cfg, {"dtype": "float32", "tensor_parallel": {
+        "tp_size": world}}, model_parameters=params_from_jax(jp),
+        sharding_rules=cfg.tp_rules(), device="cpu")
+    with torch.no_grad():
+        for p in [eng.params["wte"]["embedding"]]:
+            p.zero_()
+    eng.load_checkpoint(spec["ckpt"])
+    out["loaded_generate"] = eng.generate(ids, max_new_tokens=plan["new"]
+                                          ).tolist()
+    res["arch"][arch] = out
+
+for key, run in plan.get("runs", {}).items():
+    cfg = tcfg(run["model"])
+    jp = tree(run["params"])
+    ds.comm.reset_op_counts()
+    eng, *_ = ds.initialize(
+        model=ttr.Transformer(cfg, seed=3), config=run["config"],
+        model_parameters=jp, loss_fn=(ttr.fused_loss_passthrough
+                                      if cfg.fused_loss
+                                      else ttr.causal_lm_loss),
+        sharding_rules=cfg.tp_rules(), device="cpu")
+    ev = {}
+    if run.get("eval") is not None:
+        b = {"input_ids": np.random.default_rng(run["eval"]).integers(
+            0, plan["vocab"], (run["config"]["train_batch_size"],
+                               plan["seq"])).astype(np.int32)}
+        ev["eval"] = eng.eval_batch(b).tolist()
+        eng.eval()
+        ev["eval_loss"] = float(eng.forward(b))
+        eng.train()
+    traj, ops = [], []
+    for s in run["seeds"]:
+        b = {"input_ids": np.random.default_rng(s).integers(
+            0, plan["vocab"], (run["config"]["train_batch_size"],
+                               plan["seq"])).astype(np.int32)}
+        ds.comm.reset_op_counts()
+        m = eng.train_batch(b)
+        ops.append(ds.comm.op_counts())
+        traj.append([m["loss"], m["grad_norm"]])
+    o = {"traj": traj, "ops": ops[0],
+         "numel": sum(e.param.numel() for e in eng.dp.entries),
+         "full": sum(int(np.prod(e.full_shape)) for e in eng.dp.entries),
+         **ev}
+    if run.get("save"):
+        ck = os.path.join(plan["dir"], key)
+        eng.save_checkpoint(ck)
+        sd = eng.module_state_dict()
+        if rank == 0:
+            np.savez(os.path.join(plan["dir"], key + "_state.npz"), **sd)
+        b = {"input_ids": np.random.default_rng(run["after"]).integers(
+            0, plan["vocab"], (run["config"]["train_batch_size"],
+                               plan["seq"])).astype(np.int32)}
+        m = eng.train_batch(b)
+        o["after"] = [m["loss"], m["grad_norm"]]
+        o["files"] = sorted(os.listdir(os.path.join(
+            ck, "global_step%d" % len(run["seeds"]))))
+    res["runs"][key] = o
+print("RESULT " + json.dumps(res), flush=True)
+torch.distributed.destroy_process_group()
+"""
+
+
+def _run(tmp, name, world, plan):
+    plan = dict(plan, dir=str(tmp), ids=_ids().tolist(), new=NEW,
+                serving=SERVING, prompts=PROMPTS, vocab=V, seq=S)
+    (tmp / f"{name}.json").write_text(json.dumps(plan))
+    outs = _spawn(WORKER, world, tmp, name, args=[tmp / f"{name}.json"])
+    ranks = []
+    for rc, out in outs:
+        assert rc == 0, out[-4000:]
+        line = [ln for ln in out.splitlines() if ln.startswith("RESULT ")]
+        ranks.append(json.loads(line[-1][len("RESULT "):]))
+    return ranks
+
+
+def _save_params(tmp, arch):
+    path = tmp / f"{arch}_params.npz"
+    if not path.exists():
+        np.savez(path, **_flat(_params(arch)))
+    return str(path)
+
+
+RUNS2 = {f"llama/{st}": dict(arch="llama", stage=st) for st in range(4)}
+RUNS2["gpt2/1"] = dict(arch="gpt2", stage=1)
+RUNS2["gpt2/3"] = dict(arch="gpt2", stage=3)
+RUNS2["fused/2"] = dict(arch="llama", stage=2, fused=True)
+
+
+EVAL_SEED = 120
+
+
+def _fused(run):
+    return dict(fused_loss=True, loss_chunk=8) if run.get("fused") else {}
+
+
+@pytest.fixture(scope="module")
+def two(tmp_path_factory):
+    tmp = tmp_path_factory.mktemp("tp_two")
+    from deepspeed_tpu_torch.runtime.checkpointing import save_tree
+    infer = {}
+    for arch in ARCHS:
+        ck = str(tmp / f"{arch}_model_states.npz")
+        save_tree(params_from_jax(_params(arch)), ck)
+        infer[arch] = {"model": _fields(arch),
+                       "params": _save_params(tmp, arch), "ckpt": ck}
+    runs = {}
+    for key, run in RUNS2.items():
+        runs[key.replace("/", "_")] = {
+            "model": _fields(run["arch"], **_fused(run)),
+            "params": _save_params(tmp, run["arch"]),
+            "config": _base(8, run["stage"], tp=2),
+            "seeds": SEEDS, "eval": None if run.get("fused") else EVAL_SEED}
+    return _run(tmp, "tp_two", 2, {"infer": infer, "runs": runs})
+
+
+@pytest.fixture(scope="module")
+def four(tmp_path_factory):
+    tmp = tmp_path_factory.mktemp("tp_four")
+    runs = {"llama_3": {"model": _fields("llama"),
+                        "params": _save_params(tmp, "llama"),
+                        "config": _base(8, 3, tp=2),
+                        "seeds": [110, 111, 112], "save": True,
+                        "after": 113}}
+    return {"dir": tmp, "ranks": _run(tmp, "tp_four", 4, {"runs": runs})}
+
+
+_JAX = {}
+
+
+def _jax_infer(arch, dtype):
+    key = (arch, dtype)
+    if key not in _JAX:
+        jcfg, _ = _cfgs(arch)
+        eng = JInferenceEngine(
+            model=jtr.Transformer(jcfg), model_parameters=_params(arch),
+            config={"dtype": dtype,
+                    "tensor_parallel": {"tp_size": _jax_tp(arch)}},
+            sharding_rules=jcfg.tp_rules())
+        logits = (np.asarray(eng.forward({"input_ids": jnp.asarray(_ids())}))
+                  if dtype == "float32" else None)
+        gen = np.asarray(eng.generate(jnp.asarray(_ids()),
+                                      max_new_tokens=NEW))
+        prompts = [np.asarray(eng.generate(jnp.asarray([p]),
+                                           max_new_tokens=NEW))[0, len(p):]
+                   for p in PROMPTS]
+        _JAX[key] = (logits, gen, prompts)
+    return _JAX[key]
+
+
+@pytest.mark.parametrize("arch", sorted(ARCHS))
+def test_each_rank_holds_its_shards(two, arch):
+    for r in two:
+        shp = r["arch"][arch]["float32"]["shapes"]
+        assert shp["blocks/attn_qkv/kernel"] == [2, 64, (4 + 2 * (
+            2 if arch == "llama" else 4)) * 16 // 2]
+        assert shp["blocks/attn_proj/kernel"] == [2, 32, 64]
+        vc = 126 if arch == "llama" else 128
+        assert shp["wte/embedding"] == [vc, 64]
+        if arch == "llama":
+            assert shp["lm_head/kernel"] == [64, vc]
+            assert shp["blocks/mlp_gate/kernel"] == [2, 64, 64]
+            assert shp["blocks/mlp_proj/kernel"] == [2, 64, 64]
+        else:
+            assert shp["blocks/attn_qkv/bias"] == [2, 96]
+            assert shp["blocks/attn_proj/bias"] == [2, 64]
+            assert shp["blocks/mlp_fc/kernel"] == [2, 64, 128]
+        q8 = r["arch"][arch]["int8"]["shapes"]
+        assert q8["blocks/attn_proj/kernel_scale"] == [2, 1, 64]
+        assert q8["blocks/attn_qkv/kernel_scale"][-1] == \
+            shp["blocks/attn_qkv/kernel"][-1]
+
+
+@pytest.mark.parametrize("arch", sorted(ARCHS))
+def test_forward_logits_match_jax_tp_engine(two, arch):
+    logits, *_ = _jax_infer(arch, "float32")
+    for r in two:
+        got = np.array(r["arch"][arch]["float32"]["logits"])
+        np.testing.assert_allclose(got, logits, rtol=1e-5, atol=1e-5)
+        ops = r["arch"][arch]["float32"]["forward_ops"]
+        # two row-parallel reduces a layer, the embedding's, the gather
+        assert ops["tp_reduce_from"] == 2 * 2 + 1
+        assert ops["tp_gather_from"] == 1
+
+
+@pytest.mark.parametrize("dtype", ["float32", "int8"])
+@pytest.mark.parametrize("arch", sorted(ARCHS))
+def test_generate_and_serve_tokens_match_jax_tp_engine(two, arch, dtype):
+    _, gen, prompts = _jax_infer(arch, dtype)
+    outs = [r["arch"][arch][dtype] for r in two]
+    for o in outs:
+        np.testing.assert_array_equal(np.array(o["generate"]), gen)
+        for got, want in zip(o["serve"], prompts):
+            assert got == want.tolist()
+    # every rank ran the same scheduler: the same inputs, block tables
+    # and positions into every forward
+    assert outs[0]["serve_digest"] == outs[1]["serve_digest"]
+
+
+@pytest.mark.parametrize("arch", sorted(ARCHS))
+def test_topology_free_npz_loads_at_tp2_with_tp1_tokens(two, arch):
+    _, tcfg = _cfgs(arch)
+    one = deepspeed_tpu_torch.init_inference(
+        tcfg, {"dtype": "float32"},
+        model_parameters=params_from_jax(_params(arch)), device="cpu")
+    want = one.generate(_ids(), max_new_tokens=NEW).numpy()
+    for r in two:
+        np.testing.assert_array_equal(
+            np.array(r["arch"][arch]["loaded_generate"]), want)
+
+
+_REF = {}
+
+
+def _port_engine(arch, stage, tb, seeds, **over):
+    """The 1-rank port engine after ``seeds``' steps, and its
+    trajectory."""
+    key = (arch, stage, tb, tuple(seeds), tuple(sorted(over.items())))
+    if key not in _REF:
+        _, tcfg = _cfgs(arch, **over)
+        eng, *_ = deepspeed_tpu_torch.initialize(
+            model=ttr.Transformer(tcfg, seed=3), config=_base(tb, stage),
+            model_parameters=_params(arch), device="cpu",
+            loss_fn=(ttr.fused_loss_passthrough if tcfg.fused_loss
+                     else ttr.causal_lm_loss), dist_init_required=False)
+        _REF[key] = eng, np.array([[m["loss"], m["grad_norm"]] for m in (
+            eng.train_batch(_batch(tb, s)) for s in seeds)])
+    return _REF[key]
+
+
+def _port_traj(arch, stage, tb, seeds, **over):
+    return _port_engine(arch, stage, tb, seeds, **over)[1]
+
+
+def _jax_traj(arch, stage, tb, seeds, **over):
+    jcfg, _ = _cfgs(arch, **over)
+    tp = _jax_tp(arch)
+    mm = MeshManager(devices=jax.devices()[:tp], tp_size=tp)
+    eng, *_ = deepspeed_tpu.initialize(
+        model=jtr.Transformer(jcfg), config=_base(tb, stage, tp=tp),
+        model_parameters=_params(arch), mesh_manager=mm,
+        loss_fn=(jtr.fused_loss_passthrough if jcfg.fused_loss
+                 else jtr.causal_lm_loss), sharding_rules=jcfg.tp_rules())
+    return eng, np.array([[float(m["loss"]), float(m["grad_norm"])]
+                          for m in (jax.device_get(eng.train_batch(
+                              _batch(tb, s))) for s in seeds)])
+
+
+@pytest.mark.parametrize("key", sorted(RUNS2))
+def test_train_batch_at_tp2_matches_one_rank_port_and_jax(two, key):
+    run = RUNS2[key]
+    seeds = SEEDS
+    over = _fused(run)
+    ref = _port_traj(run["arch"], run["stage"], 8, seeds, **over)
+    for r in two:
+        got = np.array(r["runs"][key.replace("/", "_")]["traj"])
+        np.testing.assert_allclose(got, ref, rtol=1e-5)
+    if run["stage"] in (1, 3) or over:
+        _, jref = _jax_traj(run["arch"], min(run["stage"], 3), 8, seeds,
+                            **over)
+        np.testing.assert_allclose(
+            np.array(two[0]["runs"][key.replace("/", "_")]["traj"]), jref,
+            rtol=2e-4)
+    assert ref[-1, 0] < ref[0, 0]
+    run0 = two[0]["runs"][key.replace("/", "_")]
+    # the TP leaves are half on each rank (the vocab's padded row aside)
+    assert run0["numel"] < run0["full"]
+    if not over:
+        # a forward: 2 model-axis all-reduces a layer + the embedding's
+        # and the CE's target logit, each micro-batch (gas 2)
+        assert run0["ops"]["tp_reduce_from"] == 2 * (2 * 2 + 2)
+    else:
+        # the fused CE's 2 chunks of 8 of the 15 shifted positions each
+        # reduce their target logit in the forward and its recomputation
+        assert run0["ops"]["tp_reduce_from"] == 2 * (2 * 2 + 1 + 2 * 2)
+    # the backward sums the column-parallel inputs' gradients: qkv's and
+    # the MLP's a layer, and the head's
+    assert run0["ops"]["tp_copy_to"] == 2 * (2 * 2 + 1)
+
+
+@pytest.mark.parametrize("key", sorted(k for k in RUNS2
+                                        if not RUNS2[k].get("fused")))
+def test_eval_batch_at_tp2_returns_whole_logits(two, key):
+    """Before the first step, ``eval_batch`` at tp 2 returns the model's
+    whole [B, S, V] logits on every rank, and eval-mode ``forward`` the
+    loss, as the 1-rank port does: the vocab-parallel logits reach only
+    the engine's loss."""
+    run = RUNS2[key]
+    eng, _ = _port_engine(run["arch"], run["stage"], 8, [])
+    b = _batch(8, EVAL_SEED)
+    want = eng.eval_batch(b).numpy()
+    eng.eval()
+    want_loss = float(eng.forward(b))
+    eng.train()
+    assert want.shape == (8, S, ARCHS[run["arch"]]["vocab_size"])
+    for r in two:
+        o = r["runs"][key.replace("/", "_")]
+        np.testing.assert_allclose(np.array(o["eval"]), want, rtol=1e-5,
+                                   atol=1e-5)
+        np.testing.assert_allclose(o["eval_loss"], want_loss, rtol=1e-5)
+
+
+def test_tp2_by_data2_zero3_matches_one_rank_port(four):
+    ref = _port_traj("llama", 3, 8, [110, 111, 112])
+    for r in four["ranks"]:
+        run = r["runs"]["llama_3"]
+        np.testing.assert_allclose(np.array(run["traj"]), ref, rtol=1e-5)
+        # stage 3 over data 2 within each model rank's shard
+        assert run["numel"] * 3 < run["full"]
+
+
+def test_tp2_by_data2_sharded_save_loads_into_one_rank_port_and_jax(four):
+    tmp = four["dir"]
+    r0 = four["ranks"][0]["runs"]["llama_3"]
+    assert r0["files"] == sorted(
+        ["ckpt_meta.json", "meta.json"]
+        + [f"{k}-shard{i}.npz" for k in ("model_states", "optim_states")
+           for i in range(4)])
+    with np.load(tmp / "llama_3_state.npz") as z:
+        saved = {k: z[k] for k in z.files}
+    assert saved["blocks/attn_qkv/kernel"].shape == (2, 64, 128)
+    assert saved["wte/embedding"].shape == (V, 64)
+    _, tcfg = _cfgs("llama")
+    port, *_ = deepspeed_tpu_torch.initialize(
+        model=ttr.Transformer(tcfg, seed=5), config=_base(8, 3),
+        loss_fn=ttr.causal_lm_loss, device="cpu", dist_init_required=False)
+    port.load_checkpoint(str(tmp / "llama_3"))
+    for k, v in port.module_state_dict().items():
+        np.testing.assert_array_equal(v, saved[k], err_msg=k)
+    m = port.train_batch(_batch(8, 113))
+    np.testing.assert_allclose([m["loss"], m["grad_norm"]], r0["after"],
+                               rtol=1e-5)
+    jeng, _ = _jax_traj("llama", 3, 8, [])
+    jeng.load_checkpoint(str(tmp / "llama_3"))
+    for k, v in jeng.module_state_dict().items():
+        np.testing.assert_array_equal(np.asarray(v, np.float32), saved[k],
+                                      err_msg=k)
+    jm = jax.device_get(jeng.train_batch(_batch(8, 113)))
+    np.testing.assert_allclose([float(jm["loss"]), float(jm["grad_norm"])],
+                               r0["after"], rtol=2e-4)
+
+
+def test_tp2_by_data2_tag_assembles_in_zero_to_fp32_and_inspector(four):
+    """``zero_to_fp32`` and the universal inspector read the sharded tag
+    (TP pieces, then ZeRO slabs, at their global offsets) as whole
+    leaves."""
+    from deepspeed_tpu_torch.checkpoint.universal import DeepSpeedCheckpoint
+    from deepspeed_tpu_torch.utils.zero_to_fp32 import \
+        convert_zero_checkpoint_to_fp32_state_dict
+    tmp = four["dir"]
+    with np.load(tmp / "llama_3_state.npz") as z:
+        saved = {k: z[k] for k in z.files}
+    sd = convert_zero_checkpoint_to_fp32_state_dict(
+        str(tmp / "llama_3"), str(tmp / "fp32.npz"))
+    assert sorted(sd) == sorted(saved)
+    for k, v in saved.items():
+        np.testing.assert_array_equal(sd[k], v, err_msg=k)
+    ck = DeepSpeedCheckpoint(str(tmp / "llama_3"))
+    assert ck.global_step == 3
+    assert ck.shapes()["blocks/attn_qkv/kernel"] == (2, 64, 128)
+    assert ck.shapes()["lm_head/kernel"] == (64, V)
+    np.testing.assert_array_equal(
+        ck.get_parameter("blocks/attn_qkv/kernel").numpy(),
+        saved["blocks/attn_qkv/kernel"])
+    assert ck.num_parameters() == sum(v.size for v in saved.values())
+    assert any(k.startswith("opt_state/") for k in ck.optimizer_keys())

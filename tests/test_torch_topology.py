@@ -133,6 +133,20 @@ def test_mesh_axes_other_than_data_raise_naming_roadmap(axis, kw):
         assert tm.comm_lists("seq") == [[0, 1], [2, 3], [4, 5], [6, 7]]
         assert tm.comm_lists("data") == [[0, 2, 4, 6], [1, 3, 5, 7]]
         return
+    if axis == "model":
+        # tensor parallelism is ported (tests/test_torch_tensor_parallel.py):
+        # the model groups are the JAX mesh's
+        tm = tmesh.MeshManager(devices=list(range(8)), **kw)
+        assert tm.shape == jm.shape
+        assert tm.get_model_parallel_world_size() == 2
+        assert tm.axes_size(tmesh.STEP_AXES) == 8
+        names = jm.mesh.axis_names
+        ids = np.vectorize(lambda d: d.id)(jm.mesh.devices)
+        keep = [names.index("model")]
+        rest = [i for i in range(len(names)) if i not in keep]
+        grid = ids.transpose(rest + keep).reshape(-1, 2)
+        assert tm.comm_lists("model") == sorted(grid.tolist())
+        return
     if axis == "expert":
         # expert parallelism is ported (tests/test_torch_moe_dist.py): its
         # groups and the expert leaves' ZeRO group are the JAX mesh's
@@ -184,9 +198,12 @@ def test_mesh_from_config_sizes():
         mm = tmesh.build_mesh_from_config(load_config({}),
                                           devices=list(range(4)))
         assert tmesh.get_global_mesh() is mm and mm.shape["data"] == 4
+        mm = tmesh.build_mesh_from_config(
+            load_config({"tensor_parallel": {"tp_size": 2}}),
+            devices=list(range(4)))
+        assert mm.shape["model"] == 2 and mm.shape["data"] == 2
+        # tensor parallelism is ported; pipelines are not
         with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tmesh.build_mesh_from_config(
-                load_config({"tensor_parallel": {"tp_size": 2}}),
-                devices=list(range(4)))
+            tmesh.MeshManager(devices=list(range(4)), pp_size=2)
     finally:
         tmesh.set_global_mesh(old)

@@ -130,8 +130,11 @@ def test_world_one_specs_are_whole_and_dims_name_the_split():
     assert tstages.ZeroShardingPolicy(0, 1).master_dim((64, 192)) is None
     with pytest.raises(ValueError, match="invalid ZeRO stage"):
         tstages.ZeroShardingPolicy(4, 2)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tstages.insert_zero_axes((4, 4), (None, "model"), ("data",), 2)
+    # composed with a TP spec (ported): the ZeRO axes take a free dim, as
+    # in the JAX package
+    assert tstages.insert_zero_axes((4, 4), (None, "model"), ("data",), 2) \
+        == tuple(jstages.insert_zero_axes(
+            (4, 4), jax.sharding.PartitionSpec(None, "model"), ("data",), 2))
 
 
 @pytest.mark.parametrize("splits", [(1, 1), (2, 3), (4, 1), (1, 2)])
