@@ -78,7 +78,8 @@ nor ``deepspeed_tpu``. Phases, each reported on its own line:
    non-causal, the ragged key mask) beside SDPA with the same mask
    (``bert-masked``).
 9. **ckpt** — after the train leg, on its model and config: two steps, a
-   sync ``save_checkpoint`` of the full-depth state (tag bytes, save and
+   sync ``save_checkpoint`` of the state at 8 of the 22 layers (the
+   depth cut keeps the script inside its time limit; tag bytes, save and
    sha256 seconds), a fresh engine from another seed that
    ``load_checkpoint(tag=None)`` restores bitwise (parameters, master,
    moments, counters, the schedule), and three more steps on both whose
@@ -162,6 +163,19 @@ nor ``deepspeed_tpu``. Phases, each reported on its own line:
     first step bitwise the engine's without a group, the loss falling;
     then rows 1-6 timed at a tp-4 rank's shapes (16 query heads of 128
     over 2 KV heads, the int8 matrices' K / 4 and N / 4).
+16. **pp** — pipelines: gpt2-1.3b at full width and depth (seeded
+    weights) as 4 stages of 6 layers in one process (``MPMDPipeline``
+    over a ``LocalChannel``, every stage on the card), 8 micro-batches of
+    1 x 1024: the f32 1F1B step against autograd through the plain model
+    (loss rel 1e-5, each leaf's grad 1e-4 of its norm); in bf16 under
+    deterministic algorithms gpipe and 1F1B, recompute and store, bitwise
+    equal, each step's flash launches counted (24 x 8 of each backward
+    kernel; the forward 24 x 8 with store, 42 x 8 with recompute, whose
+    last stage skips its forward tick); the plain engine at gas 8 and the
+    ``PipelineEngine`` (recompute, store) timed on the same weights; the
+    ``PipelineEngine`` at pp 1 in a 1-rank NCCL world against the plain
+    engine's first step (loss 1e-6, grad norm 1e-5) and its save at a
+    2-layer cut loaded back bitwise.
 
 ``--old-quant-matmul SRC`` also builds a parent commit's
 ``csrc/quant_matmul.cu`` from SRC and times it against this one in the
@@ -185,7 +199,7 @@ forward's and dq's per-item cost of the host balance, swept at the long
 leg's call.
 
 ``--only PHASE ...`` (``ckpt``, ``remat``, ``hf``, ``bert-masked``,
-``zero``, ``sp``, ``dropout``, ``moe``, ``tp``)
+``zero``, ``sp``, ``dropout``, ``moe``, ``tp``, ``pp``)
 builds the kernels and runs only those phases, then a result line that
 names them (``"only": [...]``; no kernels line). ``--zero-ranks N`` (a
 host with N GPUs) builds the kernels and runs only the zero leg across N
@@ -210,6 +224,13 @@ rank building its shards layer by layer) through ``generate()`` and an
 int8 ``serve()`` with prefill, decode, NCCL and peak-memory readings,
 and 2 layers trained at tp 2 x data N / 2, ZeRO 3, seq 4096 (loss 1e-4,
 grad norm 5e-3 of one engine), ending in ``"tp_ranks": N``.
+``--pp-ranks N`` runs gpt2-6.7b at full depth as N pipeline stages, one
+GPU each (1F1B, recompute, 8 micro-batches of 1 x 1024, each rank
+building its stage from per-layer seeds): the first loss within rel 1e-3
+of the unpipelined model's bf16 forward on one GPU, the loss falling over
+4 steps, the embedding and head copies bitwise equal on every rank; step
+ms, tokens/s, model TFLOP/s a GPU, peak memory, NCCL and idle share
+beside the bubble (N - 1) / (8 + N - 1), ending in ``"pp_ranks": N``.
 
 Launch counters are zeroed just before each leg and read just after it.
 Any failed check raises, so the script exits non-zero and prints no
@@ -3932,6 +3953,9 @@ def _flex_ms(q, k, v, do, keep, n):
 
 CKPT_TRAIN_STEPS, CKPT_RESUME_STEPS = 2, 3
 CKPT_SMALL_LAYERS = 2               # the resilience leg's depth cut
+# the tag's depth: 8 of llama-1.1b's 22 layers (6.8 of its 15.4 GB), so
+# the whole script keeps inside its time limit with the pp leg
+CKPT_LAYERS = 8
 CKPT_BYTES_PER_PARAM = 14           # bf16 params + f32 master, m and v
 CKPT_LENS = (96, 200, 352, 512)     # the served leg's prompts
 CKPT_NEW = 16
@@ -4003,8 +4027,9 @@ def phase_ckpt(tmp):
     relative, each step launching the flash kernels as the train leg does.
     The state is then served from the checkpoint (:func:`_ckpt_served`)
     and the resilience leg runs at a 2-layer cut (:func:`_ckpt_resilience`).
-    Full depth unless the temp dir cannot hold the tag (then the depth is
-    cut, never the width, and a line says so)."""
+    CKPT_LAYERS deep (8 of llama-1.1b's 22: the script's time limit),
+    less if the temp dir cannot hold the tag (the depth is cut, never the
+    width, and a line says so)."""
     import shutil
     import numpy as np
     import torch
@@ -4021,12 +4046,13 @@ def phase_ckpt(tmp):
     free = shutil.disk_usage(tmp).free
     # the full tag, the 16-bit file and three 2-layer tags at once
     need_small = 3 * (rest + CKPT_SMALL_LAYERS * per_layer) + rest // 7
-    layers = min(LLAMA_LAYERS, int((free - need_small - rest) // per_layer))
+    layers = min(CKPT_LAYERS, int((free - need_small - rest) // per_layer))
     log(f"ckpt: temp dir free_gb={free / 1e9:.1f} full_tag_gb="
         f"{(rest + LLAMA_LAYERS * per_layer) / 1e9:.2f} layers={layers}"
         + ("" if layers == LLAMA_LAYERS else
-           f" (depth cut from {LLAMA_LAYERS}: the temp dir cannot hold "
-           "the full tag)"))
+           f" (depth cut from {LLAMA_LAYERS}: "
+           + ("the script's time limit" if layers == CKPT_LAYERS else
+              "the temp dir cannot hold the tag") + ")"))
     if layers < CKPT_SMALL_LAYERS:
         fail(f"ckpt: {free / 1e9:.1f} GB free in {tmp}")
     over = {} if layers == LLAMA_LAYERS else {"num_layers": layers}
@@ -7124,6 +7150,494 @@ def tp_worker(out):
     return 0
 
 
+# ------------------------------------------------------------------ 16. pp
+
+# the pp leg: gpt2-1.3b at full width and depth, 4 stages of 6 layers in
+# one process (every stage on the one card), 8 micro-batches of 1 x 1024
+PP_MODEL, PP_STAGES, PP_MICRO, PP_SEQ, PP_SEED = "gpt2-1.3b", 4, 8, 1024, 16
+PP_STEPS = 2
+PP_SAVE_LAYERS = 2          # the save / load check's depth cut
+PP_CONFIG = {
+    "train_batch_size": PP_MICRO, "train_micro_batch_size_per_gpu": 1,
+    "gradient_accumulation_steps": PP_MICRO, "bf16": {"enabled": True},
+    "optimizer": {"type": "AdamW", "params": {"lr": 1e-4}},
+    "gradient_clipping": 1.0, "zero_optimization": {"stage": 1},
+    "steps_per_print": 10_000,
+}
+# --pp-ranks: gpt2-6.7b at full depth (32 layers, 8 a stage at pp 4),
+# 1F1B with recompute, the same micro-batches; each rank builds its stage
+# from per-layer seeds (models.pipeline.seeded_params)
+PP_RANKS_MODEL, PP_RANKS_STEPS, PP_RANKS_SEED = "gpt2-6.7b", 4, 67
+
+
+def _pp_batch(vocab, seed, rows=PP_MICRO):
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    return {"input_ids": rng.integers(1, vocab, (rows, PP_SEQ))}
+
+
+def _pp_micros(batch, n):
+    import torch
+    ids = torch.as_tensor(batch["input_ids"], device="cuda")
+    return {"input_ids": ids.reshape((n, -1) + tuple(ids.shape[1:]))}
+
+
+def _pp_want(layers, pp, n, backward):
+    """Flash launches of one pipeline step: a forward a layer and
+    micro-batch (recompute: again in its backward, but the last stage
+    skips the forward tick, as the JAX executor does) and one of each
+    backward kernel."""
+    fwd = layers * n
+    if backward == "recompute":
+        fwd += (layers - layers // pp) * n
+    return {"flash_attention_fwd": fwd, "flash_attention_bwd_dq": layers * n,
+            "flash_attention_bwd_dkv": layers * n}
+
+
+def _pp_held(label, c, want):
+    got = {k: c[k] for k in FLASH_KERNELS}
+    if got != want:
+        fail(f"pp: {label} launched {got}: expected {want}")
+    return got
+
+
+def _pp_timed(fn):
+    """(result, wall ms, busy ms) of one call: wall between host clocks
+    around it (synchronized), busy the device time torch.profiler records
+    in a second call."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    wall = 1e3 * (time.perf_counter() - t0)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    busy = sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3
+    return out, wall, busy
+
+
+def phase_pp(tmp):
+    """Pipelines on one card (the tentpole's ``pp`` leg): gpt2-1.3b at
+    full width and depth (24 layers of 16 heads x 128, vocab 50,257,
+    seeded weights) as PP_STAGES stages of 6 layers in one process
+    (``MPMDPipeline`` over a ``LocalChannel``, every stage on cuda:0),
+    PP_MICRO micro-batches of 1 x PP_SEQ. (1) f32: the 1F1B step's loss
+    within rel 1e-5 of autograd through the plain ``Transformer``, each
+    leaf's grad within 1e-4 of its norm. (2) bf16 under deterministic
+    algorithms: gpipe and 1F1B, recompute and store, all four bitwise
+    equal; each step's flash launches held to its count; the extra memory
+    each holds. (3) The plain engine at gas 8 and the ``PipelineEngine``
+    (1F1B recompute, and store) on the same weights: PP_STEPS steps each,
+    wall and busy ms. (4) The ``PipelineEngine`` at pp 1 in a 1-rank NCCL
+    world: its first step against the plain engine's (loss rel 1e-6, grad
+    norm rel 1e-5), and a save at a PP_SAVE_LAYERS-layer cut that loads
+    back bitwise."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch import comm
+    from deepspeed_tpu_torch.models.convert import scan_params
+    from deepspeed_tpu_torch.models.pipeline import PipelinedTransformer
+    from deepspeed_tpu_torch.models.transformer import (
+        Transformer, causal_lm_loss, get_config, init_params)
+    from deepspeed_tpu_torch.parallel.mesh import set_global_mesh
+    dev = torch.device("cuda")
+    devices = [dev] * PP_STAGES
+    res = {"launches": {}}
+    if comm.is_initialized():
+        fail("pp: a process group is already up")
+
+    # (1) f32 against autograd through the plain model
+    cfg = get_config(PP_MODEL, dtype=torch.float32)
+    L = cfg.num_layers
+    batch = _pp_batch(cfg.vocab_size, PP_SEED)
+    micros = _pp_micros(batch, PP_MICRO)
+    plain = Transformer(cfg, seed=PP_SEED, device="cuda")
+    ls = []
+    for m in range(PP_MICRO):
+        ids = micros["input_ids"][m]
+        loss = causal_lm_loss(plain(ids), ids)
+        (loss / PP_MICRO).backward()
+        ls.append(loss.detach())
+    ref_loss = torch.stack(ls).mean().item()
+    piped = PipelinedTransformer(cfg, PP_STAGES, PP_MICRO,
+                                 params=scan_params(plain))
+    _zero_counters()
+    loss, grads = piped.pipeline_value_and_grad(micros, schedule="1f1b",
+                                                devices=devices)
+    c = _pp_held("the f32 1F1B step", _counters(),
+                 _pp_want(L, PP_STAGES, PP_MICRO, "recompute"))
+    res["launches"]["f32_1f1b_recompute"] = c
+    rel = abs(loss.item() - ref_loss) / abs(ref_loss)
+    worst, worst_name = 0.0, None
+    for name, p in plain.named_parameters():
+        r = ((grads[name] - p.grad.float()).norm() / p.grad.norm()).item()
+        if r > worst:
+            worst, worst_name = r, name
+    log(f"check: pp f32 {PP_MODEL} pp={PP_STAGES} n_micro={PP_MICRO} 1F1B "
+        f"loss={loss.item():.7f} plain={ref_loss:.7f} rel={rel:.3e} "
+        f"tol=1e-5; worst leaf grad rel={worst:.3e} ({worst_name}) tol=1e-4 "
+        f"launches={json.dumps(c)}")
+    if rel > 1e-5 or worst > 1e-4:
+        fail("pp: the f32 pipeline is off autograd through the plain model")
+    res["f32"] = {"loss_rel": rel, "worst_grad_rel": worst}
+    del plain, piped, grads, loss, ls
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (2) bf16: four (schedule, backward) pairs, bitwise
+    cfg = get_config(PP_MODEL)
+    gen = torch.Generator(device="cuda").manual_seed(PP_SEED)
+    tree = init_params(cfg, gen, dtype=torch.bfloat16)
+    base, runs = None, {}
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        for bw in ("recompute", "store"):
+            model = PipelinedTransformer(cfg, PP_STAGES, PP_MICRO,
+                                         backward=bw, params=tree)
+            for sched in ("1f1b", "gpipe"):
+                gc.collect()
+                torch.cuda.synchronize()
+                held = torch.cuda.memory_allocated()
+                torch.cuda.reset_peak_memory_stats()
+                _zero_counters()
+                t0 = time.perf_counter()
+                loss, grads = model.pipeline_value_and_grad(
+                    micros, schedule=sched, devices=devices)
+                torch.cuda.synchronize()
+                wall = 1e3 * (time.perf_counter() - t0)
+                extra = (torch.cuda.max_memory_allocated() - held) / 1e9
+                c = _pp_held(f"the bf16 {sched} {bw} step", _counters(),
+                             _pp_want(L, PP_STAGES, PP_MICRO, bw))
+                res["launches"][f"bf16_{sched}_{bw}"] = c
+                same = None
+                if base is None:
+                    base = (loss, grads)
+                else:
+                    same = bool(torch.equal(loss, base[0]) and all(
+                        torch.equal(grads[k], base[1][k]) for k in grads))
+                runs[f"{sched}_{bw}"] = {"loss": loss.item(),
+                                         "wall_ms": wall,
+                                         "extra_peak_gb": extra,
+                                         "bitwise_1f1b_recompute": same}
+                log(f"pp: bf16 {sched} {bw} loss={loss.item():.7f} "
+                    f"wall_ms={wall:.1f} extra_peak_gb={extra:.2f} "
+                    f"bitwise_with_1f1b_recompute={same} "
+                    f"launches={json.dumps(c)}")
+                if same is False:
+                    fail(f"pp: bf16 {sched} {bw} differs from 1F1B "
+                         "recompute")
+                del loss, grads
+            del model
+    finally:
+        torch.use_deterministic_algorithms(False)
+    if not runs["gpipe_store"]["extra_peak_gb"] > \
+            runs["1f1b_store"]["extra_peak_gb"]:
+        fail("pp: gpipe with store held no more memory than 1F1B")
+    res["bf16"] = runs
+    del base, tree
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (3) the engines, one process, the same seeded weights
+    path = os.path.join(tmp, "ds_pp.json")
+    steps = {}
+    tokens = PP_MICRO * PP_SEQ
+    for name, make, extra in (
+            ("plain", lambda: Transformer(cfg, seed=PP_SEED, device="cuda"),
+             {}),
+            ("pipe_1f1b_recompute", lambda: PipelinedTransformer(
+                cfg, PP_STAGES, PP_MICRO, seed=PP_SEED, device="cuda"),
+             {"pipeline": {"schedule": "1f1b"}}),
+            ("pipe_1f1b_store", lambda: PipelinedTransformer(
+                cfg, PP_STAGES, PP_MICRO, backward="store", seed=PP_SEED,
+                device="cuda"), {"pipeline": {"schedule": "1f1b"}})):
+        with open(path, "w") as f:
+            json.dump(dict(PP_CONFIG, **extra), f)
+        t1 = time.perf_counter()
+        engine, *_ = deepspeed_tpu_torch.initialize(
+            model=make(), config=path, loss_fn=causal_lm_loss)
+        init_s = time.perf_counter() - t1
+        n_params = sum(p.numel() for p in engine._params)
+        ms, ws = [], []
+        for s in range(PP_STEPS):
+            _zero_counters()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            m = engine.train_batch(batch)
+            ws.append(1e3 * (time.perf_counter() - t0))
+            ms.append(m)
+        c = {k: _counters()[k] for k in FLASH_KERNELS}
+        want = (_pp_want(L, PP_STAGES, PP_MICRO, engine.module.backward)
+                if name != "plain" else {k: L * PP_MICRO
+                                         for k in FLASH_KERNELS})
+        _pp_held(f"the {name} engine's step", c, want)
+        res["launches"][f"engine_{name}"] = c
+        step_ms = float(np.median(ws[1:]))
+        t1 = time.perf_counter()
+        busy, by_kind = profile_train(engine, batch, step_ms,
+                                      label=f"pp {name} step")
+        prof_s = time.perf_counter() - t1
+        steps[name] = {"init_s": init_s, "profile_s": prof_s,"loss": [x["loss"] for x in ms],
+                       "grad_norm": [x["grad_norm"] for x in ms],
+                       "step_ms": step_ms, "busy_ms": busy,
+                       "tokens_s": tokens / step_ms * 1e3,
+                       "model_tflops_6n": 6.0 * n_params * tokens
+                       / step_ms / 1e9, "device_ms_by_kind": by_kind}
+        log(f"pp: engine {name} loss="
+            f"{[round(x, 6) for x in steps[name]['loss']]} init_s="
+            f"{init_s:.1f} profile_s={prof_s:.1f} "
+            f"step_ms={step_ms:.1f} busy_ms={busy:.1f} tokens_s="
+            f"{steps[name]['tokens_s']:.0f} model_tflops_6n="
+            f"{steps[name]['model_tflops_6n']:.1f} launches={json.dumps(c)}")
+        if not ms[-1]["loss"] < ms[0]["loss"]:
+            fail(f"pp: {name}: the loss did not fall")
+        del engine
+        gc.collect()
+        torch.cuda.empty_cache()
+    res["engines"] = steps
+
+    # (4) the PipelineEngine at pp 1 in a 1-rank NCCL world
+    want = steps["plain"]
+    comm.init_distributed(world_size=1, rank=0)
+    try:
+        with open(path, "w") as f:
+            json.dump(PP_CONFIG, f)
+        engine, *_ = deepspeed_tpu_torch.initialize(
+            model=PipelinedTransformer(cfg, 1, PP_MICRO, seed=PP_SEED,
+                                       device="cuda"),
+            config=path, loss_fn=causal_lm_loss)
+        _zero_counters()
+        m = engine.train_batch(batch)
+        c = _pp_held("the pp-1 engine's step", {
+            k: _counters()[k] for k in FLASH_KERNELS},
+            _pp_want(L, 1, PP_MICRO, "recompute"))
+        res["launches"]["engine_pp1_nccl"] = c
+        rl = abs(m["loss"] - want["loss"][0]) / abs(want["loss"][0])
+        rn = abs(m["grad_norm"] - want["grad_norm"][0]) / abs(
+            want["grad_norm"][0])
+        log(f"check: pp PipelineEngine pp=1 backend={dist.get_backend()} "
+            f"gas={PP_MICRO} first step loss={m['loss']:.9f}/"
+            f"{want['loss'][0]:.9f} rel={rl:.3e} tol=1e-6 grad_norm="
+            f"{m['grad_norm']:.9f}/{want['grad_norm'][0]:.9f} rel={rn:.3e} "
+            f"tol=1e-5 launches={json.dumps(c)}")
+        if rl > 1e-6 or rn > 1e-5:
+            fail("pp: the pp-1 PipelineEngine is off the plain engine")
+        res["pp1"] = {"loss_rel": rl, "grad_norm_rel": rn}
+        del engine
+        gc.collect()
+        torch.cuda.empty_cache()
+        cut = dataclasses.replace(cfg, num_layers=PP_SAVE_LAYERS)
+        a, *_ = deepspeed_tpu_torch.initialize(
+            model=PipelinedTransformer(cut, 1, PP_MICRO, seed=PP_SEED,
+                                       device="cuda"),
+            config=path, loss_fn=causal_lm_loss)
+        a.train_batch(batch)
+        ck = os.path.join(tmp, "pp_ck")
+        t1 = time.perf_counter()
+        a.save_checkpoint(ck)
+        save_s = time.perf_counter() - t1
+        b, *_ = deepspeed_tpu_torch.initialize(
+            model=PipelinedTransformer(cut, 1, PP_MICRO, seed=PP_SEED + 1,
+                                       device="cuda"),
+            config=path, loss_fn=causal_lm_loss)
+        b.load_checkpoint(ck)
+        same = all(torch.equal(x, y) for x, y in
+                   zip(_zero_state(a), _zero_state(b)))
+        na, nb = a.train_batch(batch)["loss"], b.train_batch(batch)["loss"]
+        log(f"check: pp save at {PP_SAVE_LAYERS} layers save_s={save_s:.2f} "
+            f"loaded bitwise={same} next loss {na:.9f} resumed {nb:.9f}")
+        if not same or na != nb:
+            fail("pp: the pipeline engine's save did not load back bitwise")
+        res["save"] = {"layers": PP_SAVE_LAYERS, "bitwise": same,
+                       "save_s": save_s}
+        del a, b
+    finally:
+        set_global_mesh(None)
+        dist.destroy_process_group()
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def phase_pp_ranks(tmp, n):
+    """``--pp-ranks N``: gpt2-6.7b at full depth (32 layers) as N stages,
+    one process a GPU through the port's launcher (NCCL on
+    cuda:LOCAL_RANK), 1F1B with recompute, PP_MICRO micro-batches of 1 x
+    PP_SEQ, bf16 with an fp32 master, AdamW under the train leg's warm-up
+    schedule, PP_RANKS_STEPS steps. First,
+    on GPU 0 before the pipeline starts: the unpipelined port model from
+    the same per-layer seeds, its bf16 forward's global token-mean loss on
+    the batch. Checks: the pipeline's first loss within rel 1e-3 of it,
+    the loss falling, every rank's ``wte``, ``wpe`` and ``ln_f`` bitwise
+    equal after the steps. Readings: step ms, tokens/s, model TFLOP/s a
+    GPU, each rank's peak memory, the compute ms of a profiled step (its
+    busy ms less NCCL's), the idle share of the unprofiled step beside the
+    bubble (N - 1) / (PP_MICRO + N - 1), and one boundary transfer's ms."""
+    import torch
+    from deepspeed_tpu_torch.models.pipeline import seeded_params
+    from deepspeed_tpu_torch.models.transformer import (
+        Transformer, causal_lm_loss, get_config)
+    cfg = get_config(PP_RANKS_MODEL)
+    if cfg.num_layers % n:
+        fail(f"pp ranks: {cfg.num_layers} layers do not split into {n}")
+    batch = _pp_batch(cfg.vocab_size, PP_RANKS_SEED)
+    micros = _pp_micros(batch, PP_MICRO)
+    plain = Transformer(cfg, seeded_params(cfg, PP_RANKS_SEED, device="cuda",
+                                           dtype=torch.bfloat16))
+    with torch.no_grad():
+        ref = torch.stack([causal_lm_loss(plain(ids), ids)
+                           for ids in micros["input_ids"]]).mean().item()
+    log(f"pp ranks: {PP_RANKS_MODEL} unpipelined bf16 forward on one GPU "
+        f"loss={ref:.7f}")
+    del plain
+    gc.collect()
+    torch.cuda.empty_cache()
+    out = os.path.join(tmp, "pp_ranks")
+    env = dict(os.environ, PYTHONPATH=HERE)
+    rc = subprocess.run(
+        [sys.executable, "-m", "deepspeed_tpu_torch.launcher.launch",
+         "--nproc_per_node", str(n), os.path.join(HERE, "chip_smoke.py"),
+         "--pp-worker", out], cwd=HERE, env=env, timeout=1500).returncode
+    if rc != 0:
+        fail(f"pp ranks: the launcher exited {rc}")
+    ranks = []
+    for r in range(n):
+        with open(f"{out}.{r}.json") as f:
+            ranks.append(json.load(f))
+    bubble = (n - 1) / (PP_MICRO + n - 1)
+    for r, x in enumerate(ranks):
+        log(f"pp ranks: rank {r} layers={x['layers']} peak_gb="
+            f"{x['peak_gb']:.2f} step_ms={x['step_ms']:.1f} "
+            f"compute_ms={x['compute_ms']:.1f} (profiled busy "
+            f"{x['busy_ms']:.1f} less nccl {x['by_kind']['nccl']:.1f}) "
+            f"idle_share={x['idle_share']:.3f} (bubble {bubble:.3f}) "
+            f"p2p_ms={x['p2p_ms']:.4f} a {x['p2p_bytes']} B transfer "
+            f"ppermutes={x['ppermute']} launches={json.dumps(x['launches'])}")
+    first = ranks[-1]["loss"][0]
+    rel = abs(first - ref) / abs(ref)
+    digests = {json.dumps(r["shared"], sort_keys=True) for r in ranks}
+    log(f"check: pp ranks={n} first loss={first:.7f} unpipelined="
+        f"{ref:.7f} rel={rel:.3e} tol=1e-3; losses={ranks[-1]['loss']}; "
+        f"shared leaves equal on every rank={len(digests) == 1}")
+    if rel > 1e-3:
+        fail("pp ranks: the first loss is off the unpipelined model's")
+    if not ranks[-1]["loss"][-1] < ranks[-1]["loss"][0]:
+        fail("pp ranks: the loss did not fall")
+    if len(digests) != 1:
+        fail("pp ranks: the ranks' embedding / head copies differ")
+    step_ms = max(x["step_ms"] for x in ranks)
+    n_params = cfg.num_params()
+    tokens = PP_MICRO * PP_SEQ
+    rates = {"step_ms": step_ms, "tokens_s": tokens / step_ms * 1e3,
+             "model_tflops_6n_per_gpu": 6.0 * n_params * tokens / step_ms
+             / 1e9 / n, "bubble": bubble, "first_loss_rel": rel,
+             "ranks": ranks}
+    log("time: pp ranks " + json.dumps(
+        {k: v for k, v in rates.items() if k != "ranks"}))
+    return rates
+
+
+def pp_worker(out):
+    """One rank of ``--pp-ranks``, started by the port's launcher: stage
+    ``rank`` of gpt2-6.7b built from per-layer seeds (never the whole
+    model), the ``PipelineEngine``, PP_RANKS_STEPS steps on the global
+    batch and a profiled one; writes its readings to ``out.<rank>.json``."""
+    import hashlib
+    import numpy as np
+    import torch
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch import comm
+    from deepspeed_tpu_torch.models.pipeline import (PipelinedTransformer,
+                                                     seeded_params)
+    from deepspeed_tpu_torch.models.transformer import (causal_lm_loss,
+                                                        get_config)
+    comm.init_distributed()
+    rank, world = comm.get_rank(), comm.get_world_size()
+    cfg = get_config(PP_RANKS_MODEL)
+    per = cfg.num_layers // world
+    layers = list(range(rank * per, (rank + 1) * per))
+    model = PipelinedTransformer(
+        cfg, world, PP_MICRO, stage=rank,
+        params=seeded_params(cfg, PP_RANKS_SEED, layers, device="cuda"))
+    # the train leg's warm-up schedule: at 1e-4 from the first step the
+    # random-weight 6.7 B model's loss rose again by its fourth step
+    config = dict(PP_CONFIG, scheduler=TRAIN_CONFIG["scheduler"],
+                  pipeline={"stages": world, "schedule": "1f1b"})
+    engine, *_ = deepspeed_tpu_torch.initialize(model=model, config=config,
+                                                loss_fn=causal_lm_loss)
+    del model
+    batch = _pp_batch(cfg.vocab_size, PP_RANKS_SEED)
+    torch.cuda.reset_peak_memory_stats()
+    losses, ws, ops = [], [], None
+    for s in range(PP_RANKS_STEPS):
+        _zero_counters()
+        comm.reset_op_counts()
+        comm.barrier()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        m = engine.train_batch(batch)
+        ws.append(1e3 * (time.perf_counter() - t0))
+        losses.append(m["loss"])
+        ops = comm.op_counts()
+    launches = {k: _counters()[k] for k in FLASH_KERNELS}
+    want = {k: v // world for k, v in _pp_want(
+        cfg.num_layers, world, PP_MICRO, "recompute").items()}
+    if rank == world - 1:                   # no forward tick there
+        want["flash_attention_fwd"] = per * PP_MICRO
+    else:
+        want["flash_attention_fwd"] = 2 * per * PP_MICRO
+    _pp_held(f"rank {rank}'s step", launches, want)
+    step_ms = float(np.median(ws[1:]))
+    busy, by_kind = profile_train(engine, batch, step_ms,
+                                  label=f"pp rank {rank} step")
+    # the device computes for busy minus its NCCL time: a p2p kernel
+    # spins until the peer's transfer arrives (the bubble shows there),
+    # and the profiler slows the ranks' lockstep, so the compute share of
+    # the unprofiled step is the measured idle share
+    compute = busy - by_kind["nccl"]
+    # one neighbour transfer of the boundary ([1, 1024, H] bf16) alone:
+    # every stage sends to the next at once, CUDA events around 20
+    x = torch.zeros((1, PP_SEQ, cfg.hidden_size), dtype=cfg.dtype,
+                    device="cuda")
+    perm = [(s, s + 1) for s in range(world - 1)]
+    for _ in range(3):
+        comm.ppermute(x, perm, axis="pipe")
+    comm.barrier()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(20):
+        comm.ppermute(x, perm, axis="pipe")
+    end.record()
+    torch.cuda.synchronize()
+    p2p_ms = start.elapsed_time(end) / 20
+    shared = {n: hashlib.sha256(p.detach().float().cpu().numpy().tobytes())
+              .hexdigest() for n, p in engine.module.named_parameters()
+              if not n.startswith("blocks.")}
+    res = {"rank": rank, "layers": [layers[0], layers[-1]], "loss": losses,
+           "step_ms": step_ms, "step_ms_all": ws, "busy_ms": busy,
+           "by_kind": by_kind, "compute_ms": compute,
+           "idle_share": 1 - compute / step_ms, "p2p_ms": p2p_ms,
+           "p2p_bytes": x.numel() * x.element_size(),
+           "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "ppermute": ops.get("ppermute", 0), "launches": launches,
+           "shared": shared}
+    with open(f"{out}.{rank}.json", "w") as f:
+        json.dump(res, f)
+    comm.barrier()
+    import torch.distributed as dist
+    dist.destroy_process_group()
+    return 0
+
+
 def main(argv=None):
     import argparse
     import torch
@@ -7169,11 +7683,11 @@ def main(argv=None):
                          "serve decode step")
     ap.add_argument("--only", nargs="+", metavar="PHASE",
                     choices=("ckpt", "remat", "hf", "bert-masked", "zero",
-                             "sp", "dropout", "moe", "tp"),
+                             "sp", "dropout", "moe", "tp", "pp"),
                     help="build the kernels, then run only these phases "
                          "(ckpt, remat, hf, bert-masked, zero, sp, dropout, "
-                         "moe, tp) and a result line that names them; no "
-                         "kernels line")
+                         "moe, tp, pp) and a result line that names them; "
+                         "no kernels line")
     ap.add_argument("--zero-ranks", type=int, metavar="N",
                     help="build the kernels, then run only the zero leg "
                          "across N GPUs of this host (one process each, "
@@ -7199,6 +7713,13 @@ def main(argv=None):
                          "2; one process each, through the port's "
                          "launcher) and a result line that names it")
     ap.add_argument("--tp-worker", metavar="OUT", help=argparse.SUPPRESS)
+    ap.add_argument("--pp-ranks", type=int, metavar="N",
+                    help="build the kernels, then run only the pp leg "
+                         "across N GPUs of this host (gpt2-6.7b as N "
+                         "pipeline stages, 1F1B; one process each, through "
+                         "the port's launcher) and a result line that names "
+                         "it")
+    ap.add_argument("--pp-worker", metavar="OUT", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -7220,6 +7741,8 @@ def main(argv=None):
         return ep_worker(args.ep_worker)
     if args.tp_worker:
         return tp_worker(args.tp_worker)
+    if args.pp_worker:
+        return pp_worker(args.pp_worker)
     name = torch.cuda.get_device_name(0)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -7279,6 +7802,18 @@ def main(argv=None):
                         "device": {"platform": "gpu", "kind": name,
                                    "count": torch.cuda.device_count()}}))
         return 0
+    if args.pp_ranks:
+        if torch.cuda.device_count() < args.pp_ranks:
+            fail(f"--pp-ranks {args.pp_ranks}: this host has "
+                 f"{torch.cuda.device_count()} GPUs")
+        with tempfile.TemporaryDirectory() as tmp:
+            phase_pp_ranks(tmp, args.pp_ranks)
+        log(f"total_s={time.perf_counter() - t0:.1f}")
+        log(smi)
+        log(json.dumps({"ok": True, "pp_ranks": args.pp_ranks,
+                        "device": {"platform": "gpu", "kind": name,
+                                   "count": torch.cuda.device_count()}}))
+        return 0
     if args.only:
         with tempfile.TemporaryDirectory() as tmp:
             for phase in args.only:
@@ -7291,7 +7826,8 @@ def main(argv=None):
                        "dropout": phase_dropout,
                        "moe": lambda: phase_moe(tmp, smi),
                        "tp": lambda: {"phase": phase_tp(smi),
-                                      "tp4_calls": time_tp_kernels()}
+                                      "tp4_calls": time_tp_kernels()},
+                       "pp": lambda: phase_pp(tmp)
                        }[phase]()
                 log(f"time: {phase} " + json.dumps(res, default=str))
         log(f"total_s={time.perf_counter() - t0:.1f}")
@@ -7390,6 +7926,10 @@ def main(argv=None):
     log("time: moe " + json.dumps(moe["rates"]))
     tp = phase_tp(smi)
     tp4 = time_tp_kernels()
+    with tempfile.TemporaryDirectory() as tmp:
+        pp = phase_pp(tmp)
+    log("time: pp " + json.dumps({k: v for k, v in pp.items()
+                                  if k != "launches"}, default=str))
     bs = time_block_sparse_attention()
     time_block_sparse_scaling()
     if old_bs is not None:
@@ -7465,6 +8005,11 @@ def main(argv=None):
                               tp["launches"].items() if c.get(kname)}
         if kname in tp4:
             row["tp4_calls"] = tp4[kname]
+        # the pp leg's (gpt2-1.3b, 4 stages in one process) launches by
+        # run: the f32 and bf16 pipeline steps, the engines' steps
+        if kname in FLASH_KERNELS:
+            row["launches_pp"] = {path: c[kname] for path, c in
+                                  pp["launches"].items()}
         if kname == "quant_matmul":
             row["launches_by_path"] = qm_by_path
         row.update(t)

@@ -55,7 +55,9 @@ def initialize(args=None,
                **kwargs) -> Tuple:
     """Wrap ``model`` (an ``nn.Module``, typically
     ``models.transformer.build_model(...)[0]``) in a
-    :class:`~deepspeed_tpu_torch.runtime.engine.DeepSpeedEngine`; returns
+    :class:`~deepspeed_tpu_torch.runtime.engine.DeepSpeedEngine`, or a
+    ``models.pipeline.PipelinedTransformer`` in a
+    :class:`~deepspeed_tpu_torch.runtime.pipe.engine.PipelineEngine`; returns
     (engine, optimizer, dataloader, lr_scheduler) as the JAX package's
     ``initialize`` does. ``model_parameters``: a flax-layout numpy tree
     for a ``Transformer``, or None for the module's own parameters.
@@ -72,8 +74,12 @@ def initialize(args=None,
         config = getattr(args, "deepspeed_config", None)
     if dist_init_required is None or dist_init_required:
         init_distributed(device=kwargs.get("device"))
+    from .models.pipeline import PipelinedTransformer
     from .runtime.engine import DeepSpeedEngine
-    engine = DeepSpeedEngine(model=model, config=config,
+    from .runtime.pipe.engine import PipelineEngine
+    engine_cls = (PipelineEngine if isinstance(model, PipelinedTransformer)
+                  else DeepSpeedEngine)
+    engine = engine_cls(model=model, config=config,
                              model_parameters=model_parameters,
                              optimizer=optimizer, lr_scheduler=lr_scheduler,
                              mpu=mpu, **kwargs)

@@ -23,8 +23,9 @@ The point-to-point ops of the JAX facade (``ppermute``,
 ``send_recv_next`` / ``send_recv_prev``, ``axis_rank``, ``axis_size``)
 run over the axis group with ``torch.distributed.batch_isend_irecv``:
 ring attention rotates its K/V chunks with them
-(``parallel/ring_attention.py``), and pipelines (ROADMAP.md item 4.1)
-are their next user. :func:`ppermute_async` posts the transfers and
+(``parallel/ring_attention.py``), and a pipeline's stages exchange
+activations and cotangents with one ``ppermute`` a tick and direction
+(``runtime/pipe/mpmd/channel.py``). :func:`ppermute_async` posts the transfers and
 returns a handle, so a caller computes while they fly.
 """
 

@@ -13,9 +13,10 @@ from .transformer import (
     cross_entropy,
     fused_loss_passthrough,
 )
+from .pipeline import PipelinedTransformer, build_pipelined_model
 
 __all__ = [
     "Transformer", "TransformerConfig", "Block", "build_model", "get_config",
     "causal_lm_loss", "masked_lm_loss", "make_moe_loss", "cross_entropy",
-    "fused_loss_passthrough",
+    "fused_loss_passthrough", "PipelinedTransformer", "build_pipelined_model",
 ]

@@ -545,7 +545,7 @@ class _Leaf(nn.Module):
 
 def _sparse_block_attention(cfg: TransformerConfig, q, k, v, *, mask, bias,
                             slopes, window, sm_scale, dropout_rate=0.0,
-                            dropout_rng=None):
+                            dropout_rng=None, tp=None):
     """attention_impl == "sparse": the block-sparse layout that the
     ``sparse_attention`` ds_config section selects (the engine wires the
     parsed section into ``cfg.sparse_attention``).
@@ -570,24 +570,42 @@ def _sparse_block_attention(cfg: TransformerConfig, q, k, v, *, mask, bias,
                          f"have {sorted(SPARSITY_CONFIGS)}")
     cls = SPARSITY_CONFIGS[mode]
     allowed = {f.name for f in dataclasses.fields(cls)} - {"num_heads"}
-    sp_cfg = cls(num_heads=H,
+    # the layout of the model's heads; a tensor-parallel rank (q holding
+    # its H of them) takes its heads' layouts, as GSPMD shards JAX's
+    sp_cfg = cls(num_heads=cfg.num_heads,
                  **{key: val for key, val in kwargs.items()
                     if key in allowed and val is not None})
+    heads = None
+    if tp is not None:
+        heads = slice(tp.rank * H, (tp.rank + 1) * H)
     clean = (mask is None and bias is None and slopes is None
              and dropout_rate == 0.0 and not window and not cfg.attn_softcap)
     if clean:
         return sparse_attention(q, k, v, sp_cfg, causal=cfg.causal,
-                                sm_scale=sm_scale)
+                                sm_scale=sm_scale, heads=heads)
     if slopes is not None:
         bias = alibi_bias_from_slopes(slopes, S, S, device=q.device)
-    lmask = layout_to_dense_mask(config_layout(sp_cfg, S), sp_cfg.block,
-                                 device=q.device)[None]
+    layout = config_layout(sp_cfg, S)
+    if heads is not None:
+        layout = layout[heads]
+    lmask = layout_to_dense_mask(layout, sp_cfg.block, device=q.device)[None]
     mask = lmask if mask is None else mask & lmask
     if window:
         mask = mask & window_mask(S, S, window, device=q.device)
     return mha_reference(q, k, v, causal=cfg.causal, bias=bias, mask=mask,
                          sm_scale=sm_scale, dropout_rate=dropout_rate,
                          dropout_rng=dropout_rng, softcap=cfg.attn_softcap)
+
+
+def _tp_leaf(p: Dict[str, torch.Tensor], tp) -> Dict[str, torch.Tensor]:
+    """A replicated leaf used on this rank's share of the model (its
+    heads): each tensor through ``_col_in``, so the ranks' partial
+    gradients are summed over the model axis (Megatron's copy to the
+    model-parallel region). The leaf itself without ``tp``."""
+    if tp is None:
+        return p
+    from .generation import _col_in
+    return {k: _col_in(v, tp) for k, v in p.items()}
 
 
 _MASK64 = (1 << 64) - 1
@@ -662,7 +680,7 @@ class Block(nn.Module):
         Gumbel noise (None: no noise). The block's MoE takes one capacity
         factor for training and eval, as the JAX Block's does, so the
         noise is all that training changes there."""
-        from ..ops.attention import attention, dropout
+        from ..ops.attention import HeadSlice, attention, dropout
         from .generation import (_col_in, _dense, _layer_norm, _row_dense,
                                  local_alibi_slopes)
         cfg, tp = self.cfg, self.tp
@@ -685,8 +703,10 @@ class Block(nn.Module):
         to_heads = lambda t, n: t.reshape(B, S, n, hd).transpose(1, 2)
         q, k, v = to_heads(q, nh), to_heads(k, kv), to_heads(v, kv)
         if cfg.qk_norm:
-            q = _layer_norm(q, self.q_norm.p, eps, rms=True)
-            k = _layer_norm(k, self.k_norm.p, eps, rms=True)
+            # replicated scales applied to this rank's heads: their
+            # gradients are summed over the model axis (_col_in)
+            q = _layer_norm(q, _tp_leaf(self.q_norm.p, tp), eps, rms=True)
+            k = _layer_norm(k, _tp_leaf(self.k_norm.p, tp), eps, rms=True)
         if cfg.pos_embed == "rotary":
             pos = (positions if positions is not None
                    else torch.arange(S, device=x.device))
@@ -708,16 +728,23 @@ class Block(nn.Module):
                 bias = alibi_bias(nh_all, positions, positions)
                 if tp is not None:
                     bias = bias[:, tp.rank * nh:(tp.rank + 1) * nh]
+        probs_rng = gen("attn_probs")
+        if probs_rng is not None and tp is not None:
+            # the mask of the model's [B, nh, S, S] probabilities from the
+            # 1-rank generator, this rank's heads cut out (JAX draws once
+            # over the global heads, GSPMD shards it): t times the random
+            # bits of the local mask, and each head its own mask
+            probs_rng = HeadSlice(probs_rng, tp.rank * nh, nh_all)
         if cfg.attention_impl == "sparse":
             out = _sparse_block_attention(
                 cfg, q, k, v, mask=attn_mask, bias=bias, slopes=slopes,
                 window=window, sm_scale=cfg.attn_scale, dropout_rate=rate,
-                dropout_rng=gen("attn_probs"))
+                dropout_rng=probs_rng, tp=tp)
         else:
             out = attention(q, k, v, causal=cfg.causal, mask=attn_mask,
                             bias=bias, alibi_slopes=slopes,
                             sm_scale=cfg.attn_scale, dropout_rate=rate,
-                            dropout_rng=gen("attn_probs"),
+                            dropout_rng=probs_rng,
                             impl=cfg.attention_impl, window=window,
                             softcap=cfg.attn_softcap)
         out = out.transpose(1, 2).reshape(B, S, nh * hd)
@@ -954,7 +981,7 @@ class Transformer(nn.Module):
             h = _col_in(_layer_norm(h, self.mlm_ln.p, eps), tp)
             logits = (h @ emb.to(dt).transpose(0, 1)).to(torch.float32)
             bias = self.mlm_bias if tp is None else vocab_slice(
-                self.mlm_bias, tp)
+                _col_in(self.mlm_bias, tp), tp)
             return self._vocab_out(logits + bias.to(torch.float32),
                                    vocab_parallel)
         if cfg.no_lm_head:                    # encoder use (CLIP text)
@@ -978,7 +1005,8 @@ class Transformer(nn.Module):
             logits = x @ emb.to(dt).transpose(0, 1)
         elif tp is not None and "bias" in self.lm_head._parameters:
             logits = _dense(x, {"kernel": self.lm_head.kernel})
-            logits = logits + vocab_slice(self.lm_head.bias, tp).to(dt)
+            logits = logits + vocab_slice(_col_in(self.lm_head.bias, tp),
+                                          tp).to(dt)
         else:
             logits = _dense(x, self.lm_head.p)
         logits = logits.to(torch.float32)

@@ -9,7 +9,7 @@ dtype gate that every CUDA attention kernel's wrapper shares.
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -118,18 +118,35 @@ def masked_logits(q: torch.Tensor, k: torch.Tensor, *, causal: bool = True,
     return logits
 
 
-def dropout(x: torch.Tensor, rate: float,
-            generator: Optional[torch.Generator]) -> torch.Tensor:
+class HeadSlice(NamedTuple):
+    """A dropout generator whose mask is drawn over ``total`` heads (dim
+    1) and cut to heads ``[lo, lo + x.shape[1])``: a tensor-parallel
+    rank's share of the whole model's mask."""
+
+    generator: torch.Generator
+    lo: int
+    total: int
+
+
+def dropout(x: torch.Tensor, rate: float, generator) -> torch.Tensor:
     """Inverted dropout (flax ``nn.Dropout``): keep each entry with
-    probability 1 - rate, drawn from ``generator`` (on x's device), and
-    scale the kept ones by 1 / (1 - rate). Identity at rate 0 or without
-    a generator."""
+    probability 1 - rate, drawn from ``generator`` (on x's device; a
+    :class:`HeadSlice` draws the whole heads' mask and keeps its slice),
+    and scale the kept ones by 1 / (1 - rate). Identity at rate 0 or
+    without a generator."""
     if rate <= 0.0 or generator is None:
         return x
     if rate >= 1.0:
         return torch.zeros_like(x)
-    keep = torch.rand(x.shape, generator=generator, device=x.device,
-                      dtype=torch.float32) < 1.0 - rate
+    shape = tuple(x.shape)
+    if isinstance(generator, HeadSlice):
+        whole = shape[:1] + (generator.total,) + shape[2:]
+        keep = torch.rand(whole, generator=generator.generator,
+                          device=x.device, dtype=torch.float32).narrow(
+            1, generator.lo, shape[1]) < 1.0 - rate
+    else:
+        keep = torch.rand(shape, generator=generator, device=x.device,
+                          dtype=torch.float32) < 1.0 - rate
     return torch.where(keep, x / (1.0 - rate), torch.zeros_like(x))
 
 

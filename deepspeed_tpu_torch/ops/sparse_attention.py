@@ -240,8 +240,11 @@ def sparse_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      *,
                      causal: bool = False,
                      sm_scale: Optional[float] = None,
-                     use_kernel: Optional[bool] = None) -> torch.Tensor:
+                     use_kernel: Optional[bool] = None,
+                     heads: Optional[slice] = None) -> torch.Tensor:
     """Block-sparse attention. q, k, v: [B, H, S, D]; differentiable.
+    ``heads``: q's heads are these of the config's ``num_heads`` (a
+    tensor-parallel rank's), whose layouts they take.
 
     ``use_kernel`` None (auto): the layout-skipping kernels when they take
     the shapes (``block_sparse_attention.tileable``), else the dense-mask
@@ -251,6 +254,8 @@ def sparse_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     from . import block_sparse_attention as bsa
     S = q.shape[-2]
     layout = config_layout(config, S)
+    if heads is not None:
+        layout = layout[heads]
     if use_kernel is None:
         use_kernel = bsa.tileable(q, k, v, config.block, layout) is None
     if use_kernel:

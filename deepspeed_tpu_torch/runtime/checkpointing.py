@@ -104,20 +104,30 @@ class Leaf:
     ``utils.partitioning.TPShard`` (a tensor-parallel shard: segments of
     the whole, maybe padded). ``writes``: whether this rank writes its
     piece to a sharded save (default: a split piece, or the whole on
-    rank 0)."""
+    rank 0). ``layers``: (offset, total) when a stacked leaf's parts are
+    layers ``offset ..`` of ``total`` (a pipeline stage's blocks)."""
 
-    __slots__ = ("parts", "stacked", "split", "writes")
+    __slots__ = ("parts", "stacked", "split", "writes", "layers")
 
     def __init__(self, parts, stacked: bool = False, split=None,
-                 writes: Optional[bool] = None):
+                 writes: Optional[bool] = None,
+                 layers: Optional[Tuple[int, int]] = None):
         self.parts: List[torch.Tensor] = (list(parts) if stacked
                                           else [parts])
         self.stacked = stacked
         self.split: Optional[List[Tuple[int, int, int]]] = (
             list(split) if split else None)
         self.writes = writes
+        self.layers = layers if stacked else None
+
+    @property
+    def partial(self) -> bool:
+        """Whether this rank's parts are a piece of the whole leaf."""
+        return self.split is not None or self.layers is not None
 
     def _lead(self) -> Tuple[int, ...]:
+        if self.layers is not None:
+            return (self.layers[1],)
         return (len(self.parts),) if self.stacked else ()
 
     @property
@@ -165,6 +175,9 @@ class Leaf:
             for ls, ws, n in segs[d]:
                 walk(d + 1, start + [ws], index + [slice(ls, ls + n)])
         walk(0, [], [])
+        if self.layers is not None:
+            out = [([self.layers[0]] + start[1:], index)
+                   for start, index in out]
         return out
 
     def piece(self, index: Tuple[slice, ...]) -> "Leaf":
@@ -178,7 +191,8 @@ class Leaf:
         non-blocking copies (the caller synchronizes once)."""
         src = self.parts[0]
         pin = pinned and src.device.type == "cuda"
-        out = torch.empty(self._lead() + tuple(src.shape), dtype=src.dtype,
+        lead = (len(self.parts),) if self.stacked else ()
+        out = torch.empty(lead + tuple(src.shape), dtype=src.dtype,
                           pin_memory=pin)
         views = out.unbind(0) if self.stacked else (out,)
         for dst, part in zip(views, self.parts):
@@ -192,6 +206,8 @@ class Leaf:
         if tuple(value.shape) != self.shape:
             raise ValueError(f"shape {tuple(value.shape)} vs {self.shape}")
         lead = len(self._lead())
+        if self.layers is not None:
+            value = value.narrow(0, self.layers[0], len(self.parts))
         for cut in self.split or ():
             if isinstance(cut, tuple):
                 dim, rank, world = cut
@@ -970,7 +986,7 @@ def shard_flat_dict(flat: Dict[str, Any], rank: int) -> Dict[str, Any]:
     manifest: Dict[str, Any] = {}
     for key in _sorted_keys(flat):
         v = flat[key]
-        split = isinstance(v, Leaf) and v.split is not None
+        split = isinstance(v, Leaf) and v.partial
         shape = list(v.shape) if isinstance(v, (Leaf, torch.Tensor)) \
             else list(np.shape(v))
         pieces = []

@@ -90,8 +90,10 @@ implement raises ``NotImplementedError`` naming ROADMAP.md: CPU/NVMe
 offload (and ``activation_checkpointing.cpu_checkpointing``), the 1-bit
 optimizers, comm_plan, compression_training, the integrity sentinel,
 progressive layer drop, curriculum / data efficiency, eigenvalue,
-pipeline parallelism (and ``mpu``), monitors and the other aux
-sections. Not ported either: the preemption handler and
+``mpu``, monitors and the other aux sections. Pipelines run in the
+``PipelineEngine`` (``runtime/pipe/engine.py``), a subclass that
+``initialize`` picks for a ``models.pipeline.PipelinedTransformer``;
+this engine refuses ``pipeline.stages > 1`` for any other model. Not ported either: the preemption handler and
 emergency save, the sentinel's audited-clean resume and the offload load
 path (ROADMAP.md).
 """
@@ -140,6 +142,14 @@ def _any_enabled(node) -> bool:
     return False
 
 
+def _flax_module(module: nn.Module) -> bool:
+    """Whether ``module``'s parameters take the scan Transformer's flax
+    paths (the ``Transformer``, the ``PipelinedTransformer``)."""
+    from ..models.transformer import Transformer
+    return isinstance(module, Transformer) or bool(
+        getattr(module, "flax_layout", False))
+
+
 def _leaf_path(name: str, flax: bool) -> str:
     """The checkpoint path of a parameter: a ``Transformer``'s
     ``blocks.<i>.<leaf>.<name>`` share the stacked ``blocks/<leaf>/<name>``
@@ -174,7 +184,6 @@ def unported_sections(config: DeepSpeedConfig) -> List[str]:
         "curriculum_learning": c.curriculum_learning.enabled,
         "data_efficiency": c.data_efficiency.enabled,
         "eigenvalue": c.eigenvalue.enabled,
-        "pipeline (stages > 1)": c.pipeline.stages > 1,
         "activation_checkpointing.cpu_checkpointing (host offload, "
         "ROADMAP item 5.2)": act.cpu_checkpointing,
         "watchdog": any(t > 0 for t in (
@@ -266,12 +275,14 @@ def wire_attention_config(model: nn.Module, config: DeepSpeedConfig):
                  level=logging.WARNING)
     if not updates:
         return model
-    if not isinstance(getattr(model, "blocks", None), nn.ModuleList):
+    blocks = getattr(model, "blocks", None)
+    if not isinstance(blocks, (nn.ModuleList, nn.ModuleDict)):
         raise ValueError(f"cannot rebuild model {type(model).__name__} with "
                          f"attention_impl='{updates['attention_impl']}'")
     new_cfg = dataclasses.replace(mcfg, **updates)
     model.cfg = new_cfg
-    for blk in model.blocks:
+    for blk in (blocks.values() if isinstance(blocks, nn.ModuleDict)
+                else blocks):
         blk.cfg = new_cfg
     log_dist(f"attention config wired: attention_impl="
              f"'{new_cfg.attention_impl}'", ranks=[0])
@@ -289,6 +300,9 @@ class DeepSpeedEngine:
     ``cfg.tp_rules()`` (tensor parallelism, module docstring; any other
     table raises)."""
 
+    #: set by the PipelineEngine, the engine of pipelined models
+    _pipelined = False
+
     def __init__(self,
                  model: nn.Module,
                  config=None,
@@ -304,6 +318,12 @@ class DeepSpeedEngine:
         if bad:
             raise NotImplementedError(
                 f"ds_config sections {bad}: enabled, but the section " + _LATER)
+        if self.config.pipeline.stages > 1 and not self._pipelined:
+            raise NotImplementedError(
+                f"pipeline.stages {self.config.pipeline.stages} with a model "
+                "other than models.pipeline.PipelinedTransformer (the JAX "
+                "engine replicates such a model over the 'pipe' axis) "
+                + _LATER)
         if mpu is not None:
             raise NotImplementedError(
                 "mpu (an external model-parallel unit; tensor / pipeline "
@@ -362,7 +382,8 @@ class DeepSpeedEngine:
                     self.mesh.world_size != comm.get_world_size() or \
                     self.mesh.shape["seq"] != sp_size or \
                     self.mesh.shape["expert"] != ep_size or \
-                    self.mesh.shape["model"] != tp_size:
+                    self.mesh.shape["model"] != tp_size or \
+                    self.mesh.shape["pipe"] != self.config.pipeline.stages:
                 self.mesh = build_mesh_from_config(self.config)
             dp_world = self.mesh.axes_size(ZERO_AXES)
             dp_rank = self.mesh.axis_rank(ZERO_AXES)
@@ -447,7 +468,11 @@ class DeepSpeedEngine:
                 self.compute_dtype,
                 torch.float32 if self.keep_master else self.compute_dtype,
                 self.grad_accum_dtype, self.device, values,
-                grad_world=self.batch_world, mesh=self.mesh, tp_of=tp_of)
+                grad_world=self.batch_world, mesh=self.mesh, tp_of=tp_of,
+                pipe_shared=(
+                    [n for n, _ in model.named_parameters()
+                     if not n.startswith("blocks.")]
+                    if self.mesh.shape["pipe"] > 1 else None))
             model.to(self.device)       # buffers: the parameters are placed
             self._params = self.dp.params
             self.master: List[torch.Tensor] = self.dp.masters
@@ -657,8 +682,7 @@ class DeepSpeedEngine:
         ``blocks/<leaf>/<name>`` leaf of the JAX package (LAMB's norms are
         that leaf's)."""
         if self._groups is None:
-            from ..models.transformer import Transformer
-            flax = isinstance(self.module, Transformer)
+            flax = _flax_module(self.module)
             index = {id(p): i for i, p in enumerate(self._params)}
             groups, ids = list(range(len(self._params))), {}
             for name, p in self.module.named_parameters():
@@ -998,8 +1022,7 @@ class DeepSpeedEngine:
         return self._module_state_dict()
 
     def _module_state_dict(self) -> Dict[str, np.ndarray]:
-        from ..models.transformer import Transformer
-        if isinstance(self.module, Transformer):
+        if _flax_module(self.module):
             from ..models.convert import module_to_jax
             flat = {}
 
@@ -1031,19 +1054,26 @@ class DeepSpeedEngine:
         them."""
         if self._ckpt_cache is not None:
             return self._ckpt_cache
-        from ..models.transformer import Transformer
-        flax = isinstance(self.module, Transformer)
+        flax = _flax_module(self.module)
         index = {id(p): i for i, p in enumerate(self._params)}
         groups: Dict[str, list] = {}
         for name, p in self.module.named_parameters():
             groups.setdefault(_leaf_path(name, flax), []).append(p)
         stacked = {path: flax and path.startswith("blocks/")
                    for path in groups}
-        def split(p, kind):
+        # a pipe rank's blocks: its layers of the stacked leaves, at their
+        # offset in the whole (``Leaf.layers``)
+        held = getattr(self.module, "layers", None)
+        nl = getattr(getattr(self.module, "cfg", None), "num_layers", None)
+        layers = ((held[0], nl) if flax and held is not None
+                  and len(held) < nl else None)
+
+        def split(path, p, kind):
             """(splits, writes): an expert leaf's expert slab or a TP
             leaf's shard, then the ZeRO slab along the kind's dim; whether
             this rank writes the piece (one rank of the group where it is
-            whole, model rank 0 for a leaf whole on the model axis)."""
+            whole, model rank 0 for a leaf whole on the model axis, pipe
+            rank 0 for one every pipe rank holds)."""
             if self.dp is None or id(p) not in index:
                 return None, None
             e = self.dp.entries[index[id(p)]]
@@ -1054,19 +1084,23 @@ class DeepSpeedEngine:
             if dim is not None:
                 splits.append((dim, e.rank, e.world))
             writes = ((e.tp is not None or self.dp.model_rank == 0)
-                      and (dim is not None or e.rank == 0))
+                      and (dim is not None or e.rank == 0)
+                      and (stacked[path] or self.dp.pipe_rank == 0))
             return splits or None, writes
 
-        params = {path: ckpt_lib.Leaf(ps if stacked[path] else ps[0],
-                                      stacked[path], *split(ps[0], "param"))
+        def leaf(parts, path, ps, kind):
+            return ckpt_lib.Leaf(
+                parts if stacked[path] else parts[0], stacked[path],
+                *split(path, ps[0], kind),
+                layers=layers if stacked[path] else None)
+
+        params = {path: leaf(ps, path, ps, "param")
                   for path, ps in groups.items()}
 
         def over(tensors):
-            return {path: ckpt_lib.Leaf(
-                [tensors[index[id(p)]] for p in ps] if stacked[path]
-                else tensors[index[id(ps[0])]], stacked[path],
-                *split(ps[0], "master"))
-                for path, ps in groups.items() if id(ps[0]) in index}
+            return {path: leaf([tensors[index[id(p)]] for p in ps], path,
+                               ps, "master")
+                    for path, ps in groups.items() if id(ps[0]) in index}
 
         master = (over(self.master)
                   if self.keep_master or self.dp is not None else None)

@@ -38,8 +38,13 @@ rows), and ZeRO works on that shard over the ZeRO axes only: the
 policy's dims come from the whole shape and the TP spec (a composed TP
 dim is split within the shard), stage 3 gathers the shard, never over
 ``model``, and the gradients' reductions stay in the ZeRO group. The
-model ranks hold equal copies of every other leaf, whose gradients come
-out equal on each (the Megatron layers all-reduce what they need).
+model ranks hold equal copies of every other leaf. Their gradients come
+out equal on each only because the model makes them so: a replicated
+leaf used outside the sharded computation gets the same gradient on
+every rank, and one used on a rank's share of it (``q_norm`` /
+``k_norm`` on its heads, an output bias sliced to its vocab rows) goes
+through ``comm.tp_copy_to``, which sums the ranks' partial gradients
+over ``model`` (``models/transformer.py``).
 
 At a world of one every split is 1-way and the same collectives run, so
 one GPU runs the sharded path with real NCCL calls.
@@ -63,7 +68,10 @@ each block and its recomputation runs the block's pre-hook again: the
 weights are gathered a second time in the backward.
 
 **The step tail.** One all-reduce over :data:`~...parallel.mesh.
-STEP_AXES` (the ZeRO axes and ``model``) carries every leaf's squared
+STEP_AXES` (the ZeRO axes and ``model``; and ``pipe`` under a pipeline,
+whose stages hold their own blocks and each a copy of the embedding and
+head leaves, counted on pipe rank 0, and whose loss is the last
+stage's) carries every leaf's squared
 grad norm (a leaf whole on its ZeRO group counted on that group's rank 0
 only, a leaf whole on the model axis on model rank 0 only), the count of
 non-finite leaves and the loss (model rank 0's); one host read follows,
@@ -216,7 +224,8 @@ class ZeroPartition:
                  compute_dtype: torch.dtype, master_dtype: torch.dtype,
                  grad_accum_dtype: torch.dtype, device: torch.device,
                  values: Optional[Iterator[Tuple[str, torch.Tensor]]] = None,
-                 grad_world: Optional[int] = None, mesh=None, tp_of=None):
+                 grad_world: Optional[int] = None, mesh=None, tp_of=None,
+                 pipe_shared: Optional[List[str]] = None):
         self.module = module
         # the ranks whose losses are averaged: the ZeRO group less its seq
         # axis, whose ranks hold shares of one loss (summed, not averaged)
@@ -241,6 +250,15 @@ class ZeroPartition:
         # tp_of(parameter name, whole shape): the engine's map of a TP
         # leaf, (TP spec, every model rank's TPShard), or None
         self.model_rank = 0 if mesh is None else mesh.axis_rank("model")
+        # a pipeline's ranks: each holds its stage's blocks and a copy of
+        # the ``pipe_shared`` leaves (embedding, head); the step tail then
+        # reduces over ``pipe`` too
+        self.pipe_rank = 0 if mesh is None else mesh.axis_rank("pipe")
+        self.step_axes = (STEP_AXES if mesh is None
+                          or mesh.shape["pipe"] == 1
+                          else ("pipe",) + STEP_AXES)
+        shared = set(pipe_shared or ())
+        names: List[str] = []
         if mesh is not None:
             expert = (EXPERT_ZERO_AXES, mesh.axis_rank(EXPERT_ZERO_AXES),
                       mesh.axes_size(EXPERT_ZERO_AXES))
@@ -259,6 +277,7 @@ class ZeroPartition:
                           path=full)
             self.entries.append(e)
             by_name[full] = e
+            names.append(full)
         self.masters: List[Optional[torch.Tensor]] = [None] * len(params)
         if values is not None:
             for name, value in values:
@@ -275,10 +294,13 @@ class ZeroPartition:
         self._hooks = []
         self._saved_ctx = None
         # a leaf whole on every rank of its ZeRO group counts on its rank
-        # 0, one whole on every model rank on model rank 0
+        # 0, one whole on every model rank on model rank 0, one every
+        # pipe rank holds on pipe rank 0
         self._rep = torch.tensor([(e.mdim is None and e.rank != 0)
                                   or (e.tp is None and self.model_rank != 0)
-                                  for e in self.entries], device=device)
+                                  or (n in shared and self.pipe_rank != 0)
+                                  for e, n in zip(self.entries, names)],
+                                 device=device)
 
     # ------------------------------------------------------------ placement
 
@@ -509,7 +531,7 @@ class ZeroPartition:
         if auxes:
             parts.append(torch.stack(auxes).mean().view(1))
         packed = torch.cat(parts)
-        comm.all_reduce(packed, op=comm.ReduceOp.SUM, axis=STEP_AXES)
+        comm.all_reduce(packed, op=comm.ReduceOp.SUM, axis=self.step_axes)
         total = packed[:n].sum()
         finite = (packed[n] == 0).to(torch.float32)
         # the seq ranks of a sample hold shares of one loss; the MoE aux
@@ -526,7 +548,7 @@ class ZeroPartition:
         ratio norms."""
         sq = torch.where(self._rep[:, None], torch.zeros_like(sq), sq)
         return comm.all_reduce(sq.contiguous(), op=comm.ReduceOp.SUM,
-                               axis=STEP_AXES)
+                               axis=self.step_axes)
 
     def refresh_params(self) -> None:
         """After the update: each compute parameter from the masters, the

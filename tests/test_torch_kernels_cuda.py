@@ -463,6 +463,30 @@ def test_flash_attention_kernels_gpt2_1_3b_zero_shape(dev):
         _hold(out, ref, False, floor=2.0 ** -10)
 
 
+@pytest.mark.parametrize("nh,dtype", [(16, torch.bfloat16),
+                                      (16, torch.float32),
+                                      (32, torch.bfloat16)])
+def test_flash_attention_kernels_pipeline_stage_shape(dev, nh, dtype):
+    """The pp legs' calls, one micro-batch of 1 x 1024 a stage's layer:
+    gpt2-1.3b's [1, 16, 1024, 128] in bf16 and in f32 (the pp phase's f32
+    parity run), gpt2-6.7b's [1, 32, 1024, 128] in bf16 (``--pp-ranks``);
+    causal, the forward and both backward kernels."""
+    g = torch.Generator().manual_seed(nh)
+    q, k, v, do = (torch.randn(1, nh, 1024, 128, generator=g).to(dev, dtype)
+                   for _ in range(4))
+    f32 = dtype == torch.float32
+    o, lse = tfa.flash_attention_fwd(q, k, v, causal=True)
+    dq, dk, dv = tfa.flash_attention_bwd(q, k, v, o, lse, do, causal=True)
+    ro, rlse = tfa.flash_attention_reference(*_f32(q, k, v), causal=True)
+    refs = tfa.flash_attention_bwd_reference(*_f32(q, k, v, o), lse,
+                                             do.float(), causal=True)
+    torch.cuda.synchronize()
+    _hold(o, ro, f32)
+    torch.testing.assert_close(lse, rlse, atol=F32_TOL, rtol=0)
+    for out, ref in zip((dq, dk, dv), refs):
+        _hold(out, ref, f32, floor=2.0 ** -10)
+
+
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
 def test_ring_chunk_step_sp_shape(dev, dtype, causal):

@@ -71,7 +71,19 @@ ARCHS = {
                   activation="silu", tie_embeddings=False, use_bias=False,
                   mlp_dim_override=128),
     "gpt2": dict(BASE, vocab_size=256),
+    # the replicated leaves used on a rank's share of the model: qk-norm
+    # scales on its heads, an untied head's bias and BERT's MLM bias on
+    # its vocab rows (their gradients are summed over the model axis)
+    "qkn": dict(BASE, vocab_size=256, qk_norm=True, norm="rmsnorm",
+                pos_embed="rotary", use_bias=False),
+    "hbias": dict(BASE, vocab_size=256, tie_embeddings=False,
+                  lm_head_bias=True),
+    "bert": dict(BASE, vocab_size=256, causal=False, post_ln=True,
+                 embed_ln=True, token_type_vocab=2, mlm_head=True,
+                 activation="gelu_exact"),
 }
+# the archs of the forward / generate / serve legs
+INFER = ("gpt2", "llama")
 
 
 def _jax_tp(arch):
@@ -164,7 +176,7 @@ def _no_session_mesh(monkeypatch):
 # ------------------------------------------------------ single process
 
 
-@pytest.mark.parametrize("arch", sorted(ARCHS))
+@pytest.mark.parametrize("arch", sorted(INFER))
 @pytest.mark.parametrize("scan", [True, False])
 def test_tp_rules_and_specs_match_jax(arch, scan):
     jcfg, tcfg = _cfgs(arch, scan_layers=scan)
@@ -371,35 +383,78 @@ for arch, spec in plan.get("infer", {}).items():
                                           ).tolist()
     res["arch"][arch] = out
 
+def batch_of(seed, tb, seq, masked):
+    rng = np.random.default_rng(seed)
+    b = {"input_ids": rng.integers(0, plan["vocab"], (tb, seq)).astype(
+        np.int32)}
+    if masked:
+        b["labels"] = np.where(rng.random((tb, seq)) < 0.3, b["input_ids"],
+                               -100).astype(np.int32)
+    return b
+
+from deepspeed_tpu_torch.ops import attention as tatt
+masks = []
+plain_dropout = tatt.dropout
+
+def recording_dropout(x, rate, generator):
+    out = plain_dropout(x, rate, generator)
+    if x.dim() == 4:            # the attention probabilities' site
+        masks.append(np.packbits(((out != 0) | (x == 0)).numpy()).tobytes()
+                     .hex())
+    return out
+
 for key, run in plan.get("runs", {}).items():
     cfg = tcfg(run["model"])
     jp = tree(run["params"])
     ds.comm.reset_op_counts()
+    loss = {"causal": ttr.causal_lm_loss, "masked": ttr.masked_lm_loss,
+            "fused": ttr.fused_loss_passthrough}[run.get("loss", "fused"
+                                                          if cfg.fused_loss
+                                                          else "causal")]
+    seq = run.get("seq", plan["seq"])
+    tb = run["config"]["train_batch_size"]
+    masked = loss is ttr.masked_lm_loss
     eng, *_ = ds.initialize(
         model=ttr.Transformer(cfg, seed=3), config=run["config"],
-        model_parameters=jp, loss_fn=(ttr.fused_loss_passthrough
-                                      if cfg.fused_loss
-                                      else ttr.causal_lm_loss),
+        model_parameters=jp, loss_fn=loss,
         sharding_rules=cfg.tp_rules(), device="cpu")
+    names = {id(p): n for n, p in eng.module.named_parameters()}
+    rep = [names[id(e.param)] for e in eng.dp.entries if e.tp is None]
+    grads = {}
+    step_grads = eng.dp.step_grads
+
+    def keep_grads(denom, step_grads=step_grads):
+        out = step_grads(denom)
+        if not grads:
+            for e, g in zip(eng.dp.entries, out):
+                if e.tp is None:
+                    grads[names[id(e.param)]] = g.tolist()
+        return out
+    eng.dp.step_grads = keep_grads
     ev = {}
     if run.get("eval") is not None:
-        b = {"input_ids": np.random.default_rng(run["eval"]).integers(
-            0, plan["vocab"], (run["config"]["train_batch_size"],
-                               plan["seq"])).astype(np.int32)}
+        b = batch_of(run["eval"], tb, seq, masked)
         ev["eval"] = eng.eval_batch(b).tolist()
         eng.eval()
         ev["eval_loss"] = float(eng.forward(b))
         eng.train()
     traj, ops = [], []
-    for s in run["seeds"]:
-        b = {"input_ids": np.random.default_rng(s).integers(
-            0, plan["vocab"], (run["config"]["train_batch_size"],
-                               plan["seq"])).astype(np.int32)}
+    for i, s in enumerate(run["seeds"]):
+        b = batch_of(s, tb, seq, masked)
         ds.comm.reset_op_counts()
+        tatt.dropout = recording_dropout if i == 0 else plain_dropout
+        del masks[:]
         m = eng.train_batch(b)
+        tatt.dropout = plain_dropout
+        if i == 0:
+            ev["masks"] = list(masks)
         ops.append(ds.comm.op_counts())
         traj.append([m["loss"], m["grad_norm"]])
-    o = {"traj": traj, "ops": ops[0],
+    params = dict(eng.module.named_parameters())
+    o = {"traj": traj, "ops": ops[0], "rep_grads": grads,
+         "rep_digest": {n: hashlib.sha256(params[n].detach().numpy()
+                                          .tobytes()).hexdigest()
+                        for n in rep},
          "numel": sum(e.param.numel() for e in eng.dp.entries),
          "full": sum(int(np.prod(e.full_shape)) for e in eng.dp.entries),
          **ev}
@@ -409,10 +464,7 @@ for key, run in plan.get("runs", {}).items():
         sd = eng.module_state_dict()
         if rank == 0:
             np.savez(os.path.join(plan["dir"], key + "_state.npz"), **sd)
-        b = {"input_ids": np.random.default_rng(run["after"]).integers(
-            0, plan["vocab"], (run["config"]["train_batch_size"],
-                               plan["seq"])).astype(np.int32)}
-        m = eng.train_batch(b)
+        m = eng.train_batch(batch_of(run["after"], tb, seq, masked))
         o["after"] = [m["loss"], m["grad_norm"]]
         o["files"] = sorted(os.listdir(os.path.join(
             ck, "global_step%d" % len(run["seeds"]))))
@@ -450,6 +502,20 @@ RUNS2["fused/2"] = dict(arch="llama", stage=2, fused=True)
 
 EVAL_SEED = 120
 
+# the replicated leaves, attention dropout and per-head sparse layouts
+# under TP: two steps (BigBird's first), each within rtol 1e-5 of the
+# 1-rank port; the first three also within 2e-4 of the JAX tp-2 engine
+BIGBIRD = {"mode": "bigbird", "block": 16, "num_random_blocks": 2,
+           "different_layout_per_head": True}
+RUNS_A = {
+    "qkn/1": dict(arch="qkn", stage=1),
+    "hbias/0": dict(arch="hbias", stage=0),
+    "bert/1": dict(arch="bert", stage=1, loss="masked"),
+    "dropout/1": dict(arch="gpt2", stage=1, over={"dropout": 0.1}),
+    "bigbird/1": dict(arch="qkn", stage=1, seq=128, steps=1,
+                      extra={"sparse_attention": BIGBIRD}),
+}
+
 
 def _fused(run):
     return dict(fused_loss=True, loss_chunk=8) if run.get("fused") else {}
@@ -460,7 +526,7 @@ def two(tmp_path_factory):
     tmp = tmp_path_factory.mktemp("tp_two")
     from deepspeed_tpu_torch.runtime.checkpointing import save_tree
     infer = {}
-    for arch in ARCHS:
+    for arch in INFER:
         ck = str(tmp / f"{arch}_model_states.npz")
         save_tree(params_from_jax(_params(arch)), ck)
         infer[arch] = {"model": _fields(arch),
@@ -472,6 +538,14 @@ def two(tmp_path_factory):
             "params": _save_params(tmp, run["arch"]),
             "config": _base(8, run["stage"], tp=2),
             "seeds": SEEDS, "eval": None if run.get("fused") else EVAL_SEED}
+    for key, run in RUNS_A.items():
+        config = _base(8, run["stage"], tp=2)
+        config.update(run.get("extra", {}))
+        runs[key.replace("/", "_")] = {
+            "model": _fields(run["arch"], **run.get("over", {})),
+            "params": _save_params(tmp, run["arch"]), "config": config,
+            "loss": run.get("loss", "causal"), "seq": run.get("seq", S),
+            "seeds": SEEDS[:run.get("steps", 2)], "eval": None}
     return _run(tmp, "tp_two", 2, {"infer": infer, "runs": runs})
 
 
@@ -509,7 +583,7 @@ def _jax_infer(arch, dtype):
     return _JAX[key]
 
 
-@pytest.mark.parametrize("arch", sorted(ARCHS))
+@pytest.mark.parametrize("arch", sorted(INFER))
 def test_each_rank_holds_its_shards(two, arch):
     for r in two:
         shp = r["arch"][arch]["float32"]["shapes"]
@@ -532,7 +606,7 @@ def test_each_rank_holds_its_shards(two, arch):
             shp["blocks/attn_qkv/kernel"][-1]
 
 
-@pytest.mark.parametrize("arch", sorted(ARCHS))
+@pytest.mark.parametrize("arch", sorted(INFER))
 def test_forward_logits_match_jax_tp_engine(two, arch):
     logits, *_ = _jax_infer(arch, "float32")
     for r in two:
@@ -545,7 +619,7 @@ def test_forward_logits_match_jax_tp_engine(two, arch):
 
 
 @pytest.mark.parametrize("dtype", ["float32", "int8"])
-@pytest.mark.parametrize("arch", sorted(ARCHS))
+@pytest.mark.parametrize("arch", sorted(INFER))
 def test_generate_and_serve_tokens_match_jax_tp_engine(two, arch, dtype):
     _, gen, prompts = _jax_infer(arch, dtype)
     outs = [r["arch"][arch][dtype] for r in two]
@@ -558,7 +632,7 @@ def test_generate_and_serve_tokens_match_jax_tp_engine(two, arch, dtype):
     assert outs[0]["serve_digest"] == outs[1]["serve_digest"]
 
 
-@pytest.mark.parametrize("arch", sorted(ARCHS))
+@pytest.mark.parametrize("arch", sorted(INFER))
 def test_topology_free_npz_loads_at_tp2_with_tp1_tokens(two, arch):
     _, tcfg = _cfgs(arch)
     one = deepspeed_tpu_torch.init_inference(
@@ -725,3 +799,121 @@ def test_tp2_by_data2_tag_assembles_in_zero_to_fp32_and_inspector(four):
         saved["blocks/attn_qkv/kernel"])
     assert ck.num_parameters() == sum(v.size for v in saved.values())
     assert any(k.startswith("opt_state/") for k in ck.optimizer_keys())
+
+
+# ------------------------------------------- replicated leaves under TP
+
+
+def _mlm_or_causal(run):
+    return ttr.masked_lm_loss if run.get("loss") == "masked" \
+        else ttr.causal_lm_loss
+
+
+def _batch_a(run, seed, jax_side=False):
+    rng = np.random.default_rng(seed)
+    seq = run.get("seq", S)
+    b = {"input_ids": rng.integers(0, V, (8, seq)).astype(np.int32)}
+    if run.get("loss") == "masked":
+        b["labels"] = np.where(rng.random((8, seq)) < 0.3, b["input_ids"],
+                               -100).astype(np.int32)
+    return b
+
+
+_REF_A = {}
+
+
+def _ref_a(key):
+    """The 1-rank port's trajectory of ``RUNS_A[key]``, its step-1
+    gradients by parameter name and its step-1 attention-dropout masks."""
+    if key in _REF_A:
+        return _REF_A[key]
+    from deepspeed_tpu_torch.ops import attention as tatt
+    run = RUNS_A[key]
+    _, tcfg = _cfgs(run["arch"], **run.get("over", {}))
+    config = _base(8, run["stage"])
+    config.update(run.get("extra", {}))
+    eng, *_ = deepspeed_tpu_torch.initialize(
+        model=ttr.Transformer(tcfg, seed=3), config=config,
+        model_parameters=_params(run["arch"]), device="cpu",
+        loss_fn=_mlm_or_causal(run), dist_init_required=False)
+    names = {id(p): n for n, p in eng.module.named_parameters()}
+    grads, masks = {}, []
+    finalize, plain = eng._finalize_step, tatt.dropout
+
+    def keep(n_micro, losses):
+        if not grads:
+            denom = float(n_micro) * eng.scale_state.scale
+            for p, a in zip(eng._params, eng._accum):
+                grads[names[id(p)]] = (a.float() / denom).numpy()
+        return finalize(n_micro, losses)
+
+    def recording(x, rate, generator):
+        out = plain(x, rate, generator)
+        if x.dim() == 4:
+            masks.append(((out != 0) | (x == 0)).numpy())
+        return out
+    eng._finalize_step = keep
+    traj = []
+    try:
+        for i, seed in enumerate(SEEDS[:run.get("steps", 2)]):
+            tatt.dropout = recording if i == 0 else plain
+            m = eng.train_batch(_batch_a(run, seed))
+            traj.append([m["loss"], m["grad_norm"]])
+    finally:
+        tatt.dropout = plain
+    _REF_A[key] = np.array(traj), grads, masks
+    return _REF_A[key]
+
+
+@pytest.mark.parametrize("key", sorted(RUNS_A))
+def test_replicated_leaves_at_tp2_match_one_rank_port(two, key):
+    """Queue 3's TP faults, closed: the qk-norm scales, an untied head's
+    bias and BERT's MLM bias have their gradients summed over the model
+    axis; each rank's attention-dropout mask is its heads' slice of the
+    1-rank mask; per-head BigBird layouts are the model's heads'. The
+    trajectory (one step for BigBird) within rtol 1e-5 of the 1-rank
+    port, every replicated leaf's step-1 gradient within 1e-6 of its,
+    and every replicated leaf bitwise equal on both ranks after the
+    two steps."""
+    ref, grads, masks = _ref_a(key)
+    runs = [r["runs"][key.replace("/", "_")] for r in two]
+    for run in runs:
+        np.testing.assert_allclose(np.array(run["traj"]), ref, rtol=1e-5)
+        assert run["rep_grads"]
+        for name, g in run["rep_grads"].items():
+            np.testing.assert_allclose(np.array(g), grads[name], rtol=0,
+                                       atol=1e-6, err_msg=name)
+    assert runs[0]["rep_digest"] == runs[1]["rep_digest"]
+    tied = {"qkn/1": "q_norm", "hbias/0": "lm_head.bias",
+            "bert/1": "mlm_bias"}.get(key)
+    if tied:
+        assert any(tied in n for n in runs[0]["rep_grads"])
+    if key == "dropout/1":
+        # 2 micro-batches x 2 layers of [4, 4, 16, 16] masks, each rank
+        # holding its 2 heads' slice of the 1-rank port's
+        assert len(masks) == 4
+        for r, run in enumerate(runs):
+            assert len(run["masks"]) == 4
+            for got, want in zip(run["masks"], masks):
+                mine = np.packbits(want[:, 2 * r:2 * r + 2]).tobytes().hex()
+                assert got == mine
+        assert masks[0][:, 0].tobytes() != masks[0][:, 2].tobytes()
+
+
+@pytest.mark.parametrize("key", ["qkn/1", "hbias/0", "bert/1"])
+def test_replicated_leaves_at_tp2_match_jax_tp_engine(two, key):
+    run = RUNS_A[key]
+    jcfg, _ = _cfgs(run["arch"])
+    mm = MeshManager(devices=jax.devices()[:2], tp_size=2)
+    loss = jtr.masked_lm_loss if run.get("loss") == "masked" \
+        else jtr.causal_lm_loss
+    eng, *_ = deepspeed_tpu.initialize(
+        model=jtr.Transformer(jcfg), config=_base(8, run["stage"], tp=2),
+        model_parameters=_params(run["arch"]), mesh_manager=mm,
+        loss_fn=loss, sharding_rules=jcfg.tp_rules())
+    jref = np.array([[float(m["loss"]), float(m["grad_norm"])]
+                     for m in (jax.device_get(eng.train_batch(
+                         _batch_a(run, s))) for s in SEEDS[:2])])
+    np.testing.assert_allclose(
+        np.array(two[0]["runs"][key.replace("/", "_")]["traj"]), jref,
+        rtol=2e-4)

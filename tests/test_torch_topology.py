@@ -147,6 +147,22 @@ def test_mesh_axes_other_than_data_raise_naming_roadmap(axis, kw):
         grid = ids.transpose(rest + keep).reshape(-1, 2)
         assert tm.comm_lists("model") == sorted(grid.tolist())
         return
+    if axis == "pipe":
+        # pipelines are ported (tests/test_torch_pipeline_dist.py): the
+        # pipe groups are the JAX mesh's; pipe with model, seq or expert
+        # above 1 raises
+        tm = tmesh.MeshManager(devices=list(range(8)), **kw)
+        assert tm.shape == jm.shape
+        assert tm.get_pipe_parallel_world_size() == 2
+        names = jm.mesh.axis_names
+        ids = np.vectorize(lambda d: d.id)(jm.mesh.devices)
+        keep = [names.index("pipe")]
+        rest = [i for i in range(len(names)) if i not in keep]
+        grid = ids.transpose(rest + keep).reshape(-1, 2)
+        assert tm.comm_lists("pipe") == sorted(grid.tolist())
+        with pytest.raises(NotImplementedError, match="'pipe'.*ROADMAP"):
+            tmesh.MeshManager(devices=list(range(8)), tp_size=2, **kw)
+        return
     if axis == "expert":
         # expert parallelism is ported (tests/test_torch_moe_dist.py): its
         # groups and the expert leaves' ZeRO group are the JAX mesh's
@@ -202,8 +218,11 @@ def test_mesh_from_config_sizes():
             load_config({"tensor_parallel": {"tp_size": 2}}),
             devices=list(range(4)))
         assert mm.shape["model"] == 2 and mm.shape["data"] == 2
-        # tensor parallelism is ported; pipelines are not
+        # tensor parallelism and pipelines are ported, not together
+        mm = tmesh.build_mesh_from_config(
+            load_config({"pipeline": {"stages": 2}}), devices=list(range(4)))
+        assert mm.shape["pipe"] == 2 and mm.shape["data"] == 2
         with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tmesh.MeshManager(devices=list(range(4)), pp_size=2)
+            tmesh.MeshManager(devices=list(range(4)), pp_size=2, tp_size=2)
     finally:
         tmesh.set_global_mesh(old)
