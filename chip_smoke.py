@@ -7463,6 +7463,312 @@ def phase_pp(tmp):
         dist.destroy_process_group()
     gc.collect()
     torch.cuda.empty_cache()
+    res["moe"] = phase_pp_moe(tmp, res["launches"])
+    return res
+
+
+# the pp leg's MoE piece: Mixtral-8x7B at full width (seeded HF-named
+# weights mapped by models/hf.py, as the moe leg maps them), cut to
+# PP_MOE_LAYERS layers, pp 2 in one process, PP_MOE_MICRO micro-batches of
+# 1 x MOE_SEQ
+PP_MOE_LAYERS, PP_MOE_STAGES, PP_MOE_MICRO, PP_MOE_SEED = 2, 2, 4, 17
+PP_MOE_STEPS = 2
+# the pp-1 engine's config: the moe leg's pure bf16 state at ZeRO 3
+PP_MOE_CONFIG = dict(MOE_TRAIN_CONFIG, train_batch_size=PP_MOE_MICRO,
+                     train_micro_batch_size_per_gpu=1,
+                     gradient_accumulation_steps=PP_MOE_MICRO,
+                     zero_optimization={"stage": 3})
+
+
+def _pp_route_order(pp, n, layers, schedule="gpipe"):
+    """(micro-batch, layer) of each routing call of one ``store`` step,
+    in the order the executor makes them: every forward tick of the
+    tables, the stages of a tick in order, a stage's layers in order (a
+    store step routes in its forward ticks only)."""
+    from deepspeed_tpu_torch.runtime.pipe.schedule import build_tables
+    tables = build_tables(schedule, n, pp)
+    per = layers // pp
+    out = []
+    for t in range(int(tables["ticks"])):
+        for s in range(pp):
+            m = int(tables["fwd"][t][s])
+            if m >= 0:
+                out += [(m, s * per + i) for i in range(per)]
+    return out
+
+
+def _pp_route_flips(piped_log, plain_log, order, layers):
+    """Routes of a pipeline step (``order``) against the plain model's
+    per micro-batch ones (micro-major, then layer): (flipped (token,
+    layer) routes, routes)."""
+    import torch
+    if len(piped_log.calls) != len(order) or \
+            len(plain_log.calls) != len(order):
+        fail(f"pp moe: {len(piped_log.calls)} pipeline and "
+             f"{len(plain_log.calls)} plain routing calls, expected "
+             f"{len(order)}")
+    flips = routes = 0
+    for (m, li), got in zip(order, piped_log.calls):
+        want = plain_log.calls[m * layers + li]
+        flips += int((got != want).any(dim=1).sum())
+        routes += got.shape[0]
+    return flips, routes
+
+
+def phase_pp_moe(tmp, launches):
+    """The pp leg's MoE piece: Mixtral-8x7B at full width (hidden 4096,
+    32 heads of 128 over 8 KV heads, 8 SwiGLU experts of 14,336, top-2,
+    vocab 32,000; a seeded HF-named state dict mapped by
+    ``models/hf.py``) at PP_MOE_LAYERS layers as PP_MOE_STAGES stages in
+    one process, PP_MOE_MICRO micro-batches of 1 x MOE_SEQ, the routers'
+    aux riding the pipe. (1) f32, gpipe with store: the loss, the aux and
+    every leaf's grad against autograd through the plain ``Transformer``
+    per micro-batch under make_moe_loss (loss and aux rel 1e-5, each
+    leaf's grad within 1e-4 of its norm), every (token, layer) route the
+    plain model's. (2) bf16 under deterministic algorithms: gpipe and 1F1B,
+    recompute and store, bitwise equal; the routes against the plain bf16
+    model's within MOE_FLIP_LIMIT. Each step's flash launches held to
+    their count. (3) The ``PipelineEngine`` at pp 1 in a 1-rank NCCL
+    world with ``sharding_rules=piped.tp_rules()``, ZeRO 3, the moe
+    section and make_moe_loss (pure bf16 state): its first step's loss
+    and grad norm against the plain engine's at ZeRO 3 (rel 1e-5 / 1e-4);
+    PP_MOE_STEPS steps' wall ms, a profiled step's busy ms and the idle
+    share. Adds its launches to ``launches``."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from types import SimpleNamespace
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch import comm
+    from deepspeed_tpu_torch.models.hf import load_hf
+    from deepspeed_tpu_torch.models.pipeline import PipelinedTransformer
+    from deepspeed_tpu_torch.models.transformer import (
+        Transformer, causal_lm_loss, make_moe_loss)
+    from deepspeed_tpu_torch.parallel.mesh import set_global_mesh
+    dev = torch.device("cuda")
+    L, pp, n = PP_MOE_LAYERS, PP_MOE_STAGES, PP_MOE_MICRO
+    devices = [dev] * pp
+    hf_cfg = SimpleNamespace(**dict(MIXTRAL_CONFIG, num_hidden_layers=L))
+    res = {}
+
+    def mapped(dtype):
+        return load_hf(_mixtral_state_dict(L, seed=PP_MOE_SEED),
+                       arch="MixtralForCausalLM", config=hf_cfg, dtype=dtype)
+
+    # (1) f32 against autograd through the plain model
+    t0 = time.perf_counter()
+    tree, cfg = mapped(torch.float32)
+    cfg = dataclasses.replace(cfg, dtype=torch.float32, max_seq_len=MOE_SEQ)
+    if (cfg.moe_experts, cfg.moe_k, cfg.head_dim, cfg.kv_heads,
+            cfg.hidden_size, cfg.mlp_dim, cfg.vocab_size) != \
+            (8, 2, 128, 8, 4096, 14336, 32000):
+        fail(f"pp moe: mixtral mapped to {cfg}")
+    batch = _moe_batch(n, cfg.vocab_size, seed=PP_MOE_SEED)
+    micros = _pp_micros(batch, n)
+    moe_loss = make_moe_loss(MOE_AUX)
+    plain = Transformer(cfg, tree)
+    piped = PipelinedTransformer(cfg, pp, n, backward="store", params=tree)
+    del tree
+    log(f"pp moe: mixtral-8x7b layers={L} pp={pp} n_micro={n} "
+        f"params={cfg.num_params()} active={cfg.num_active_params()} "
+        f"map_s={time.perf_counter() - t0:.1f} "
+        f"mem_gb={torch.cuda.memory_allocated() / 1e9:.2f}")
+    ls, auxes = [], []
+    with _RouteLog() as plain_log:
+        for m in range(n):
+            ids = micros["input_ids"][m]
+            logits, aux = plain(ids)
+            loss = moe_loss((logits, aux), ids)
+            (loss / n).backward()
+            ls.append(loss.detach())
+            auxes.append(aux.detach())
+    ref_loss = torch.stack(ls).mean().item()
+    ref_aux = torch.stack(auxes).mean().item()
+    ref = {name: p.grad for name, p in plain.named_parameters()}
+    del plain, logits, ls
+    gc.collect()
+    _zero_counters()
+    with _RouteLog() as piped_log:
+        loss, grads = piped.pipeline_value_and_grad(
+            micros, schedule="gpipe", aux_weight=MOE_AUX, devices=devices)
+    c = _pp_held("the mixtral f32 gpipe store step", _counters(),
+                 _pp_want(L, pp, n, "store"))
+    launches["mixtral_f32_gpipe_store"] = c
+    flips, routes = _pp_route_flips(piped_log, plain_log,
+                                    _pp_route_order(pp, n, L), L)
+    aux = piped.last_aux.item()
+    rel = abs(loss.item() - ref_loss) / abs(ref_loss)
+    rel_aux = abs(aux - ref_aux) / abs(ref_aux)
+    worst, worst_name = 0.0, None
+    for name, g in ref.items():
+        r = ((grads[name] - g).norm() / g.norm()).item()
+        if r > worst:
+            worst, worst_name = r, name
+    log(f"check: pp moe f32 gpipe store loss={loss.item():.7f} "
+        f"plain={ref_loss:.7f} rel={rel:.3e} tol=1e-5 aux={aux:.7f} "
+        f"plain={ref_aux:.7f} rel={rel_aux:.3e} tol=1e-5; worst leaf grad "
+        f"rel={worst:.3e} ({worst_name}) tol=1e-4; routes flipped={flips} "
+        f"of {routes} tol=0 launches={json.dumps(c)}")
+    if rel > 1e-5 or rel_aux > 1e-5 or worst > 1e-4 or flips:
+        fail("pp moe: the f32 pipeline is off autograd through the plain "
+             "model")
+    res["f32"] = {"loss_rel": rel, "aux_rel": rel_aux,
+                  "worst_grad_rel": worst, "route_flips": flips,
+                  "routes": routes}
+    del piped, grads, ref, loss
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (2) bf16: four (schedule, backward) pairs, bitwise; routes
+    tree, cfg = mapped(torch.bfloat16)
+    cfg = dataclasses.replace(cfg, dtype=torch.bfloat16, max_seq_len=MOE_SEQ)
+    plain = Transformer(cfg, tree)
+    with torch.no_grad(), _RouteLog() as plain_log:
+        for m in range(n):
+            plain(micros["input_ids"][m])
+    del plain
+    gc.collect()
+    base, runs = None, {}
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        for bw in ("store", "recompute"):
+            model = PipelinedTransformer(cfg, pp, n, backward=bw,
+                                         params=tree)
+            for sched in ("gpipe", "1f1b"):
+                gc.collect()
+                _zero_counters()
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                with _RouteLog() as lg:
+                    loss, grads = model.pipeline_value_and_grad(
+                        micros, schedule=sched, aux_weight=MOE_AUX,
+                        devices=devices)
+                torch.cuda.synchronize()
+                wall = 1e3 * (time.perf_counter() - t1)
+                c = _pp_held(f"the mixtral bf16 {sched} {bw} step",
+                             _counters(), _pp_want(L, pp, n, bw))
+                launches[f"mixtral_bf16_{sched}_{bw}"] = c
+                aux = model.last_aux
+                same = flips = None
+                if base is None:
+                    base = (loss, aux, grads)
+                    flips, routes = _pp_route_flips(
+                        lg, plain_log, _pp_route_order(pp, n, L), L)
+                else:
+                    same = bool(torch.equal(loss, base[0])
+                                and torch.equal(aux, base[1]) and all(
+                                    torch.equal(grads[k], base[2][k])
+                                    for k in grads))
+                runs[f"{sched}_{bw}"] = {"loss": loss.item(),
+                                         "aux": aux.item(), "wall_ms": wall,
+                                         "bitwise_gpipe_store": same}
+                log(f"pp moe: bf16 {sched} {bw} loss={loss.item():.7f} "
+                    f"aux={aux.item():.7f} wall_ms={wall:.1f} "
+                    f"bitwise_with_gpipe_store={same} "
+                    f"launches={json.dumps(c)}")
+                if flips is not None:
+                    log(f"check: pp moe bf16 routes against the plain "
+                        f"model's flipped={flips} of {routes} rate="
+                        f"{flips / routes:.2e} limit={MOE_FLIP_LIMIT}")
+                    if flips > MOE_FLIP_LIMIT * routes:
+                        fail("pp moe: the bf16 pipeline's routes are off "
+                             "the plain model's")
+                    res["bf16_route_flips"] = {"flips": flips,
+                                               "routes": routes}
+                if same is False:
+                    fail(f"pp moe: bf16 {sched} {bw} differs from gpipe "
+                         "store")
+                del loss, grads
+            del model
+    finally:
+        torch.use_deterministic_algorithms(False)
+    res["bf16"] = runs
+    del base, tree
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (3) the engines at ZeRO 3 in a 1-rank NCCL world: the plain one
+    # (no gating noise: the pipelined model draws none without dropout),
+    # then the PipelineEngine with the pipelined model's rules
+    path = os.path.join(tmp, "ds_pp_moe.json")
+    with open(path, "w") as f:
+        json.dump(PP_MOE_CONFIG, f)
+    loss_fn = make_moe_loss(MOE_AUX, base_loss=causal_lm_loss)
+
+    class NoiseFree(Transformer):
+        def forward(self, batch, train=False, dropout_seed=None):
+            return super().forward(batch, train, dropout_seed)
+    comm.init_distributed(world_size=1, rank=0)
+    try:
+        tree, _ = mapped(torch.bfloat16)
+        engine, *_ = deepspeed_tpu_torch.initialize(
+            model=NoiseFree(cfg, tree), config=path, loss_fn=loss_fn)
+        del tree
+        want = engine.train_batch(batch)
+        del engine
+        gc.collect()
+        torch.cuda.empty_cache()
+        tree, _ = mapped(torch.bfloat16)
+        piped = PipelinedTransformer(cfg, 1, n, params=tree)
+        del tree
+        engine, *_ = deepspeed_tpu_torch.initialize(
+            model=piped, config=path, loss_fn=loss_fn,
+            sharding_rules=piped.tp_rules())
+        del piped
+        if engine.dp.stage != 3 or not any(e.gathered
+                                           for e in engine.dp.entries):
+            fail("pp moe: the pp-1 engine holds no ZeRO-3 slabs")
+        torch.cuda.reset_peak_memory_stats()
+        ms, ws = [], []
+        for s in range(PP_MOE_STEPS):
+            _zero_counters()
+            comm.reset_op_counts()
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            m = engine.train_batch(batch)
+            ws.append(1e3 * (time.perf_counter() - t1))
+            ms.append(m)
+            c = {k: _counters()[k] for k in FLASH_KERNELS}
+            ops = comm.op_counts()
+        _pp_held("the mixtral pp-1 ZeRO-3 engine's step", c,
+                 _pp_want(L, 1, n, "recompute"))
+        launches["mixtral_engine_pp1_zero3"] = c
+        m = ms[0]
+        rl = abs(m["loss"] - want["loss"]) / abs(want["loss"])
+        rn = abs(m["grad_norm"] - want["grad_norm"]) / abs(want["grad_norm"])
+        log(f"check: pp moe PipelineEngine pp=1 ZeRO-3 backend="
+            f"{dist.get_backend()} rules=piped.tp_rules() first step loss="
+            f"{m['loss']:.9f}/{want['loss']:.9f} rel={rl:.3e} tol=1e-5 "
+            f"grad_norm={m['grad_norm']:.9f}/{want['grad_norm']:.9f} "
+            f"rel={rn:.3e} tol=1e-4 aux={m['aux']:.7f}/{want['aux']:.7f} "
+            f"launches={json.dumps(c)} collectives={json.dumps(ops)}")
+        if rl > 1e-5 or rn > 1e-4:
+            fail("pp moe: the pp-1 ZeRO-3 PipelineEngine is off the plain "
+                 "engine")
+        step_ms = ws[-1]
+        busy, by_kind = profile_train(engine, batch, step_ms,
+                                      label="pp moe pp-1 ZeRO-3 step",
+                                      split_bmm=True)
+        tokens = n * MOE_SEQ
+        res["engine_pp1_zero3"] = {
+            "loss": [x["loss"] for x in ms],
+            "grad_norm": [x["grad_norm"] for x in ms],
+            "aux": [x["aux"] for x in ms], "loss_rel": rl,
+            "grad_norm_rel": rn, "step_ms_all": ws, "step_ms": step_ms,
+            "busy_ms": busy, "idle_share": 1 - busy / step_ms,
+            "tokens_s": tokens / step_ms * 1e3,
+            "model_tflops_6n_active": 6.0 * cfg.num_active_params()
+            * tokens / step_ms / 1e9,
+            "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "device_ms_by_kind": by_kind, "collectives": ops}
+        log("time: pp moe pp-1 ZeRO-3 engine " + json.dumps(
+            res["engine_pp1_zero3"]))
+        del engine
+    finally:
+        set_global_mesh(None)
+        dist.destroy_process_group()
+    gc.collect()
+    torch.cuda.empty_cache()
     return res
 
 
@@ -7638,6 +7944,244 @@ def pp_worker(out):
     return 0
 
 
+# --pp-ranks 4 --pp-compose MODE...: pp 2 composed with a second axis of
+# 2 across four GPUs, each mode a fresh 4-rank world: "tp" Llama-2-70B at
+# full width, 8 of 80 layers, pp 2 x tp 2; "ep" Mixtral-8x7B at full
+# width, 4 of 32 layers, pp 2 x ep 2 at ZeRO 1 (the JAX ladder's
+# configuration); "zero3" gpt2-1.3b at full depth, pp 2 x data 2 at ZeRO
+# 3. 1F1B with recompute, PP_MICRO micro-batches of one 1 x PP_SEQ sample
+# a data rank, bf16 with an fp32 master, AdamW under the train leg's
+# warm-up schedule, PP_COMPOSE_STEPS steps; weights from per-layer seeds
+PP_COMPOSE = {
+    "tp": {"layers": 8, "zero": 1, "rules": True,
+           "section": {"tensor_parallel": {"tp_size": 2}}},
+    "ep": {"layers": 4, "zero": 1, "rules": True,
+           "section": {"moe": {"enabled": True, "ep_size": 2}}},
+    "zero3": {"layers": 24, "zero": 3, "rules": False, "section": {}},
+}
+PP_COMPOSE_STEPS, PP_COMPOSE_SEED = 4, 71
+# the first loss against the unpipelined model's bf16 forward: the dense
+# legs' 1e-3; a MoE model's routes may flip between two bf16 paths
+# (MOE_FLIP_LIMIT's comment), so 5e-3 there
+PP_COMPOSE_TOL = {"tp": 1e-3, "ep": 5e-3, "zero3": 1e-3}
+
+
+def _mixtral_cfg(layers):
+    """The TransformerConfig that the Mixtral policy maps the published
+    config to at ``layers`` layers (no weights)."""
+    import torch
+    from types import SimpleNamespace
+    from deepspeed_tpu_torch.models.hf import load_hf
+    hf_cfg = SimpleNamespace(**dict(MIXTRAL_CONFIG,
+                                    num_hidden_layers=layers))
+    _, cfg = load_hf(_mixtral_state_dict(layers, 0, "meta"),
+                     arch="MixtralForCausalLM", config=hf_cfg,
+                     dtype=torch.bfloat16)
+    return cfg
+
+
+def _compose_cfg(mode):
+    """The mode's model config (bf16, max_seq_len at least PP_SEQ)."""
+    import torch
+    from deepspeed_tpu_torch.models.transformer import get_config
+    layers = PP_COMPOSE[mode]["layers"]
+    if mode == "tp":
+        cfg = _llama70_cfg(layers)
+    elif mode == "ep":
+        cfg = _mixtral_cfg(layers)
+    else:
+        cfg = get_config("gpt2-1.3b", num_layers=layers)
+    return dataclasses.replace(cfg, dtype=torch.bfloat16,
+                               max_seq_len=max(cfg.max_seq_len, PP_SEQ))
+
+
+def _compose_rows(mode):
+    """Samples of the global batch: a micro-batch of one sample a rank
+    that takes distinct samples (tp: one; ep, zero3: two)."""
+    return PP_MICRO * (1 if mode == "tp" else 2)
+
+
+def phase_pp_compose(tmp, n, mode):
+    """``--pp-ranks 4 --pp-compose MODE``: first, on GPU 0 before the
+    world starts, the unpipelined port model from the same per-layer seeds
+    and its bf16 forward's loss on the global batch, one sample at a time
+    (a MoE model's: the token-mean CE plus MOE_AUX x the samples' mean
+    aux, each sample its own gating group as on a rank). Then the four
+    ranks through the port's launcher (``pp_compose_worker``). Checks: the
+    first loss within PP_COMPOSE_TOL of it, the losses falling, the
+    shared leaves (embedding, head, final norm) bitwise equal on the two
+    pipe ranks of every (data, expert, model) coordinate. Readings: step
+    ms, tokens/s, model TFLOP/s a GPU (6 N, N a MoE model's active
+    parameters), each rank's idle share, peak memory and counted
+    collectives of a step."""
+    import torch
+    from deepspeed_tpu_torch.models.pipeline import seeded_params
+    from deepspeed_tpu_torch.models.transformer import (Transformer,
+                                                        causal_lm_loss)
+    if n != 4:
+        fail(f"--pp-compose runs pp 2 x 2 on four GPUs, not {n}")
+    cfg = _compose_cfg(mode)
+    batch = _pp_batch(cfg.vocab_size, PP_COMPOSE_SEED, _compose_rows(mode))
+    ids = torch.as_tensor(batch["input_ids"], device="cuda")
+    plain = Transformer(cfg, seeded_params(cfg, PP_COMPOSE_SEED,
+                                           device="cuda",
+                                           dtype=torch.bfloat16))
+    ces, auxes = [], []
+    with torch.no_grad():
+        for row in ids:
+            out = plain(row[None])
+            if cfg.moe_experts:
+                out, aux = out
+                auxes.append(aux.float())
+            ces.append(causal_lm_loss(out, row[None]))
+    ref = torch.stack(ces).mean()
+    if auxes:
+        ref = ref + MOE_AUX * torch.stack(auxes).mean()
+    ref = ref.item()
+    log(f"pp compose {mode}: layers={cfg.num_layers} hidden="
+        f"{cfg.hidden_size} params={cfg.num_params()} unpipelined bf16 "
+        f"forward on one GPU loss={ref:.7f}")
+    del plain, out
+    gc.collect()
+    torch.cuda.empty_cache()
+    out = os.path.join(tmp, f"pp_compose_{mode}")
+    env = dict(os.environ, PYTHONPATH=HERE)
+    rc = subprocess.run(
+        [sys.executable, "-m", "deepspeed_tpu_torch.launcher.launch",
+         "--nproc_per_node", str(n), os.path.join(HERE, "chip_smoke.py"),
+         "--pp-worker", out, "--pp-compose", mode], cwd=HERE, env=env,
+        timeout=1500).returncode
+    if rc != 0:
+        fail(f"pp compose {mode}: the launcher exited {rc}")
+    ranks = []
+    for r in range(n):
+        with open(f"{out}.{r}.json") as f:
+            ranks.append(json.load(f))
+    for r, x in enumerate(ranks):
+        log(f"pp compose {mode}: rank {r} stage={x['stage']} coord="
+            f"{x['coord']} peak_gb={x['peak_gb']:.2f} step_ms="
+            f"{x['step_ms']:.1f} compute_ms={x['compute_ms']:.1f} "
+            f"(profiled busy {x['busy_ms']:.1f} less nccl "
+            f"{x['by_kind']['nccl']:.1f}) idle_share={x['idle_share']:.3f} "
+            f"collectives={json.dumps(x['ops'])} "
+            f"launches={json.dumps(x['launches'])}")
+    losses = ranks[-1]["loss"]
+    first = losses[0]
+    rel = abs(first - ref) / abs(ref)
+    groups = {}
+    for x in ranks:
+        groups.setdefault(tuple(x["coord"]), set()).add(
+            json.dumps(x["shared"], sort_keys=True))
+    equal = all(len(v) == 1 for v in groups.values())
+    tol = PP_COMPOSE_TOL[mode]
+    log(f"check: pp compose {mode} first loss={first:.7f} unpipelined="
+        f"{ref:.7f} rel={rel:.3e} tol={tol}; losses={losses}; shared "
+        f"leaves equal over pipe in each of {len(groups)} coordinates="
+        f"{equal}")
+    if rel > tol:
+        fail(f"pp compose {mode}: the first loss is off the unpipelined "
+             "model's")
+    if not losses[-1] < losses[0]:
+        fail(f"pp compose {mode}: the loss did not fall")
+    if not equal or len(groups) != 2:
+        fail(f"pp compose {mode}: the pipe ranks' shared leaves differ")
+    step_ms = max(x["step_ms"] for x in ranks)
+    tokens = _compose_rows(mode) * PP_SEQ
+    n_params = (cfg.num_active_params() if cfg.moe_experts
+                else cfg.num_params())
+    rates = {"mode": mode, "step_ms": step_ms,
+             "tokens_s": tokens / step_ms * 1e3,
+             "model_tflops_6n_per_gpu": 6.0 * n_params * tokens / step_ms
+             / 1e9 / n, "n_params_6n": n_params, "first_loss": first,
+             "unpipelined_loss": ref, "first_loss_rel": rel,
+             "losses": losses,
+             "idle_share_by_rank": [x["idle_share"] for x in ranks],
+             "peak_gb_by_rank": [x["peak_gb"] for x in ranks],
+             "collectives_rank0": ranks[0]["ops"],
+             "launches_by_rank": [x["launches"] for x in ranks]}
+    log(f"time: pp compose {mode} " + json.dumps(rates))
+    return rates
+
+
+def pp_compose_worker(out, mode):
+    """One rank of ``--pp-compose MODE``, started by the port's launcher:
+    its stage of the mode's model from per-layer seeds (never the whole
+    model), the ``PipelineEngine`` on the pipe x second-axis mesh,
+    PP_COMPOSE_STEPS steps on the global batch and a profiled one; writes
+    its readings to ``out.<rank>.json``."""
+    import hashlib
+    import numpy as np
+    import torch
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch import comm
+    from deepspeed_tpu_torch.models.pipeline import (PipelinedTransformer,
+                                                     seeded_params)
+    from deepspeed_tpu_torch.models.transformer import (causal_lm_loss,
+                                                        make_moe_loss)
+    comm.init_distributed()
+    rank, world = comm.get_rank(), comm.get_world_size()
+    spec = PP_COMPOSE[mode]
+    cfg = _compose_cfg(mode)
+    stage = rank // (world // 2)            # the mesh's order: pipe first
+    per = cfg.num_layers // 2
+    layers = list(range(stage * per, (stage + 1) * per))
+    model = PipelinedTransformer(
+        cfg, 2, PP_MICRO, stage=stage,
+        params=seeded_params(cfg, PP_COMPOSE_SEED, layers, device="cuda"))
+    rows = _compose_rows(mode)
+    config = dict(PP_CONFIG, scheduler=TRAIN_CONFIG["scheduler"],
+                  train_batch_size=rows,
+                  zero_optimization={"stage": spec["zero"]},
+                  pipeline={"stages": 2, "schedule": "1f1b"},
+                  **spec["section"])
+    loss_fn = make_moe_loss(MOE_AUX) if cfg.moe_experts else causal_lm_loss
+    engine, *_ = deepspeed_tpu_torch.initialize(
+        model=model, config=config, loss_fn=loss_fn,
+        sharding_rules=model.tp_rules() if spec["rules"] else None)
+    del model
+    mesh = engine.mesh
+    batch = _pp_batch(cfg.vocab_size, PP_COMPOSE_SEED, rows)
+    torch.cuda.reset_peak_memory_stats()
+    losses, ws, ops = [], [], None
+    for s in range(PP_COMPOSE_STEPS):
+        _zero_counters()
+        comm.reset_op_counts()
+        comm.barrier()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        m = engine.train_batch(batch)
+        ws.append(1e3 * (time.perf_counter() - t0))
+        losses.append(m["loss"])
+        ops = comm.op_counts()
+    launches = {k: _counters()[k] for k in FLASH_KERNELS}
+    want = {k: per * PP_MICRO for k in FLASH_KERNELS}
+    if stage == 0:          # a forward tick and its backward's recompute
+        want["flash_attention_fwd"] = 2 * per * PP_MICRO
+    _pp_held(f"pp compose {mode} rank {rank}'s step", launches, want)
+    step_ms = float(np.median(ws[1:]))
+    busy, by_kind = profile_train(engine, batch, step_ms,
+                                  label=f"pp compose {mode} rank {rank}",
+                                  split_bmm=bool(cfg.moe_experts))
+    compute = busy - by_kind["nccl"]
+    shared = {n: hashlib.sha256(p.detach().float().cpu().numpy().tobytes())
+              .hexdigest() for n, p in engine.module.named_parameters()
+              if not n.startswith("blocks.")}
+    res = {"rank": rank, "stage": stage, "layers": [layers[0], layers[-1]],
+           "coord": [mesh.axis_rank(a) for a in ("data", "expert",
+                                                 "model")],
+           "loss": losses, "step_ms": step_ms, "step_ms_all": ws,
+           "busy_ms": busy, "by_kind": by_kind, "compute_ms": compute,
+           "idle_share": 1 - compute / step_ms,
+           "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "ops": ops, "launches": launches, "shared": shared}
+    with open(f"{out}.{rank}.json", "w") as f:
+        json.dump(res, f)
+    comm.barrier()
+    import torch.distributed as dist
+    dist.destroy_process_group()
+    return 0
+
+
 def main(argv=None):
     import argparse
     import torch
@@ -7719,6 +8263,13 @@ def main(argv=None):
                          "pipeline stages, 1F1B; one process each, through "
                          "the port's launcher) and a result line that names "
                          "it")
+    ap.add_argument("--pp-compose", nargs="+", metavar="MODE",
+                    choices=tuple(PP_COMPOSE),
+                    help="with --pp-ranks 4: instead of gpt2-6.7b, pp 2 "
+                         "composed with a second axis, each MODE a fresh "
+                         "4-rank world (tp: Llama-2-70B at pp 2 x tp 2; "
+                         "ep: Mixtral-8x7B at pp 2 x ep 2, ZeRO 1; zero3: "
+                         "gpt2-1.3b at pp 2 x data 2, ZeRO 3)")
     ap.add_argument("--pp-worker", metavar="OUT", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -7742,6 +8293,8 @@ def main(argv=None):
     if args.tp_worker:
         return tp_worker(args.tp_worker)
     if args.pp_worker:
+        if args.pp_compose:
+            return pp_compose_worker(args.pp_worker, args.pp_compose[0])
         return pp_worker(args.pp_worker)
     name = torch.cuda.get_device_name(0)
     smi = subprocess.run(
@@ -7807,10 +8360,16 @@ def main(argv=None):
             fail(f"--pp-ranks {args.pp_ranks}: this host has "
                  f"{torch.cuda.device_count()} GPUs")
         with tempfile.TemporaryDirectory() as tmp:
-            phase_pp_ranks(tmp, args.pp_ranks)
+            if args.pp_compose:
+                for mode in args.pp_compose:
+                    phase_pp_compose(tmp, args.pp_ranks, mode)
+            else:
+                phase_pp_ranks(tmp, args.pp_ranks)
         log(f"total_s={time.perf_counter() - t0:.1f}")
         log(smi)
         log(json.dumps({"ok": True, "pp_ranks": args.pp_ranks,
+                        **({"pp_compose": args.pp_compose}
+                           if args.pp_compose else {}),
                         "device": {"platform": "gpu", "kind": name,
                                    "count": torch.cuda.device_count()}}))
         return 0

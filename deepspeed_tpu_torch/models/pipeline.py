@@ -14,7 +14,11 @@ so the engine sums their gradients over ``pipe`` (the JAX executor's
 
 One executor runs both of the JAX package's placements
 (``runtime/pipe/mpmd/executor.py``); a stage's body runs its blocks, the
-flash kernels inside each. The default objective is the JAX 1F1B path's
+flash kernels inside each. A MoE model's stage body returns its layers'
+aux summed (the executor's aux side channel); under TP (``set_tp``) the
+blocks, the embedding and the head run the rank's Megatron shards; under
+ZeRO-3 the executor gathers a stage's parameters around its ticks
+(:meth:`PipelinedTransformer.gather`). The default objective is the JAX 1F1B path's
 global token mean: each micro-batch's nll sum times ``n_micro /
 total_valid``, averaged over micro-batches. A custom ``loss_fn`` runs per
 micro-batch and is averaged, except that ``batch_loss`` evaluates it once
@@ -28,6 +32,7 @@ agree; a torch generator cannot match JAX's bits anyway).
 
 from __future__ import annotations
 
+import contextlib
 from typing import Any, Dict, List, Optional, Sequence
 
 import numpy as np
@@ -64,10 +69,6 @@ def check_pipelined(cfg: TransformerConfig, pp: int, backward: str) -> None:
         raise NotImplementedError(
             "pipelined model does not support post_ln (its stages end "
             "with ln_f); run this architecture on the non-pipelined engine")
-    if cfg.moe_experts > 0:
-        raise NotImplementedError(
-            "MoE through the pipeline (the aux scalar riding the pipe, "
-            "ROADMAP item 4.1) " + _LATER)
     if cfg.fused_loss:
         raise NotImplementedError(
             "fused_loss in the pipelined model (its last stage takes the "
@@ -119,6 +120,8 @@ class PipelinedTransformer(nn.Module):
 
     #: parameter paths are the scan Transformer's (checkpoints, LAMB)
     flax_layout = True
+    #: ZeRO-3: the executor gathers each stage's parameters (``gather``)
+    zero_gathers_itself = True
 
     def __init__(self, cfg: TransformerConfig, pp: int, n_micro: int,
                  backward: str = "recompute",
@@ -159,6 +162,55 @@ class PipelinedTransformer(nn.Module):
             for li in self.layers)
         self._pipes: Dict[Any, Any] = {}
         self._channel = None
+        # this rank's TPContext on the mesh's ``model`` axis (set_tp)
+        self.tp = None
+        # the step's mean aux of this process's stages (a MoE model)
+        self.last_aux: Optional[torch.Tensor] = None
+
+    @property
+    def moe(self) -> bool:
+        return self.cfg.moe_experts > 0
+
+    def set_tp(self, tp) -> None:
+        """Run each stage's blocks, the embedding and the head as rank
+        ``tp.rank`` of ``tp.size`` on the mesh's ``model`` axis (the
+        plain ``Transformer.set_tp``): the parameters must be (or become,
+        as the engine places them) this rank's shards."""
+        if tp is not None:
+            from ..utils.partitioning import check_tp_model
+            check_tp_model(self.cfg, tp.size)
+        self.tp = tp
+        for blk in self.blocks.values():
+            blk.tp = tp
+
+    def gather(self, tree):
+        """ZeRO-3: a context in which the parameters of ``tree`` (modules,
+        or lists and dicts of them) are whole, yielding the tensors to
+        differentiate in ``tree_leaves`` order (the executor's
+        ``gather``). Each sharded parameter (``ds_zero``, set by the
+        engine's partition) is all-gathered over its ZeRO group into a
+        fresh leaf that the owning module's attribute lookup finds first;
+        the others are yielded as they are."""
+        from ..runtime.pipe.mpmd.executor import tree_leaves
+
+        @contextlib.contextmanager
+        def held():
+            out, put = [], []
+            for p in tree_leaves(tree):
+                e = getattr(p, "ds_zero", None)
+                if e is None or not e.gathered:
+                    out.append(p)
+                    continue
+                full = e.full_data().detach().requires_grad_(True)
+                e.owner.__dict__[e.name] = full
+                put.append(e)
+                out.append(full)
+            try:
+                yield out
+            finally:
+                for e in put:
+                    e.owner.__dict__.pop(e.name, None)
+        return held()
 
     # ------------------------------------------------------------ pieces
 
@@ -180,6 +232,13 @@ class PipelinedTransformer(nn.Module):
             head["lm_head"] = self.lm_head
         return head
 
+    def _embed_params(self) -> List[nn.Module]:
+        """The leaves stage 0's embedding reads."""
+        mods = [self.wte]
+        if self.cfg.pos_embed == "learned":
+            mods.append(self.wpe)
+        return mods
+
     def _names(self) -> Dict[int, str]:
         return {id(p): n for n, p in self.named_parameters()}
 
@@ -194,7 +253,11 @@ class PipelinedTransformer(nn.Module):
         dt = cfg.dtype
         ids = torch.as_tensor(ids, device=emb.device).long()
         S = ids.shape[-1]
-        x = F.embedding(ids, emb).to(dt)
+        if self.tp is None:
+            x = F.embedding(ids, emb).to(dt)
+        else:
+            from .generation import tp_embedding
+            x = tp_embedding(ids, emb, self.tp).to(dt)
         if cfg.embed_scale is not None:
             x = x * torch.tensor(cfg.embed_scale, dtype=dt)
         if cfg.pos_embed == "learned":
@@ -207,49 +270,72 @@ class PipelinedTransformer(nn.Module):
 
     def stage_fn(self, blocks, x, extra, stage):
         """One stage's body: its blocks in order (each one remat region
-        when ``cfg.remat``)."""
+        when ``cfg.remat``); a MoE model's returns (y, its layers' aux
+        summed), as the JAX stage body does. ``extra``: the micro-batch's
+        ``mask``, dropout ``seed`` and MoE ``gating`` seed (each layer's
+        from it as the plain ``Transformer`` makes them)."""
         cfg = self.cfg
-        mask = extra.get("mask") if isinstance(extra, dict) else None
+        extra = extra if isinstance(extra, dict) else {}
+        mask = extra.get("mask")
         if mask is not None:
             mask = torch.as_tensor(mask, device=x.device).to(
                 torch.bool)[:, None, None, :]
-        seed = extra.get("seed") if isinstance(extra, dict) else None
+        seed, gseed = extra.get("seed"), extra.get("gating")
         remat = cfg.remat and torch.is_grad_enabled()
         if remat:
             from ..runtime.act_checkpoint import remat_block
+        auxes = []
         for li, blk in blocks:
             ls = None if seed is None else mix_seed(int(seed), li + 1)
-            args = (x, mask, None, 0, ls, None)
+            gs = None if gseed is None else mix_seed(int(gseed), li + 1)
+            args = (x, mask, None, 0, ls, gs)
             x = remat_block(blk, cfg.remat_policy, *args) if remat \
                 else blk(*args)
+            if self.moe:
+                x, a = x
+                auxes.append(a)
+        if self.moe:
+            return x, torch.stack(auxes).sum()
         return x
 
-    def head_logits(self, head, y: torch.Tensor) -> torch.Tensor:
+    def head_logits(self, head, y: torch.Tensor,
+                    vocab_parallel: bool = False) -> torch.Tensor:
         """Final norm, then the tied or untied head: f32 logits, as the
-        plain ``Transformer`` computes them."""
-        from .generation import _dense, _layer_norm
-        cfg = self.cfg
+        plain ``Transformer`` computes them. Under TP the whole [..., V]
+        gathered over the model axis, or with ``vocab_parallel`` this
+        rank's vocab shard."""
+        from .generation import _col_in, _dense, _layer_norm
+        cfg, tp = self.cfg, self.tp
         h = _layer_norm(y, head["ln_f"].p, cfg.layer_norm_eps,
                         cfg.norm == "rmsnorm")
+        h = _col_in(h, tp)
         if cfg.tie_embeddings:
             logits = h @ head["wte"].embedding.to(cfg.dtype).transpose(0, 1)
+        elif tp is not None and "bias" in head["lm_head"]._parameters:
+            from .generation import vocab_slice
+            logits = _dense(h, {"kernel": head["lm_head"].kernel})
+            logits = logits + vocab_slice(_col_in(head["lm_head"].bias, tp),
+                                          tp).to(cfg.dtype)
         else:
             logits = _dense(h, head["lm_head"].p)
         logits = logits.to(torch.float32)
         if cfg.final_logit_softcap:
             from ..ops.attention import apply_softcap
             logits = apply_softcap(logits, cfg.final_logit_softcap)
+        if tp is not None and not vocab_parallel:
+            from .generation import gather_vocab
+            logits = gather_vocab(logits, tp)
         return logits
 
     def _global_mean_loss(self, head, y, lab, ctx):
         """A micro-batch's share of the global token mean: its nll sum
-        times n_micro / ctx (``ctx``: the valid targets' count)."""
-        logits = self.head_logits(head, y)[:, :-1]
+        times n_micro / ctx (``ctx``: the valid targets' count). Under TP
+        from the vocab-parallel logits (no rank forms [mb, S, V])."""
+        from .transformer import nll_terms
+        logits = self.head_logits(head, y, vocab_parallel=True)[:, :-1]
         tgt = lab[:, 1:]
         valid = tgt != -100
-        safe = torch.where(valid, tgt, torch.zeros_like(tgt))
-        logz = torch.logsumexp(logits, dim=-1)
-        gold = logits.gather(-1, safe[..., None])[..., 0]
+        logz, gold = nll_terms(logits, tgt, valid, self.tp)
         nll_sum = ((logz - gold) * valid).sum()
         return nll_sum * (self.n_micro / ctx)
 
@@ -277,7 +363,8 @@ class PipelinedTransformer(nn.Module):
                 self.stage_fn, head_loss, pp=self.pp, schedule=schedule,
                 devices=devices, channel=channel,
                 stages=None if self.stage is None else [self.stage],
-                backward=self.backward, batch_loss=batch_loss)
+                backward=self.backward, batch_loss=batch_loss,
+                with_aux=self.moe, gather=self.gather)
             self._pipes[key] = pipe
         return pipe
 
@@ -296,17 +383,25 @@ class PipelinedTransformer(nn.Module):
                                 schedule: str = "1f1b", loss_fn=None,
                                 batch_loss: bool = False,
                                 total_valid=None, seeds=None,
+                                gating_seeds=None, aux_weight=None,
                                 loss_scale=None, devices=None):
         """Loss and grads of one step. ``micros``: the step's batch as
         [n_micro, mb, ...] tensors (``input_ids``, optional
         ``attention_mask`` and ``labels``; every [B, ...] leaf a custom
         ``loss_fn`` reads); ``total_valid``: the default objective's count
         of valid targets (default this batch's); ``seeds``: each
-        micro-batch's dropout seed (None: no dropout); ``devices``: one
-        process's per-stage devices. Returns (loss, {parameter name: f32
-        grad}) for this module's parameters, the grads scaled by
+        micro-batch's dropout seed (None: no dropout); ``gating_seeds``:
+        a MoE model's per-micro-batch seeds of top-2's gating noise (None:
+        noise-free gating); ``aux_weight``: a MoE model's weight of the
+        routers' aux loss (default ``cfg.moe_aux_weight``); ``devices``:
+        one process's per-stage devices. Returns (loss, {parameter name:
+        f32 grad}) for this module's parameters, the grads scaled by
         ``loss_scale`` and divided by n_micro, each rank's own share of
-        the embedding and head leaves' (zeros where it has none)."""
+        the embedding and head leaves' (zeros where it has none). A MoE
+        model's loss is the task loss plus ``aux_weight`` times the aux
+        of this process's stages (JAX's ``train_value_and_grad`` reports
+        the task loss plus the weighted aux), the aux itself kept in
+        ``last_aux``."""
         cfg = self.cfg
         ids = torch.as_tensor(micros["input_ids"])
         n, mb, S = ids.shape
@@ -321,6 +416,10 @@ class PipelinedTransformer(nn.Module):
             extras["mask"] = torch.as_tensor(micros["attention_mask"])
         if seeds is not None and cfg.dropout > 0.0:
             extras["seed"] = list(seeds)
+        if gating_seeds is not None and self.moe:
+            extras["gating"] = list(gating_seeds)
+        aux_w = float(cfg.moe_aux_weight if aux_weight is None
+                      else aux_weight)
         if loss_fn is None:
             lab = labels.to(dev)
             ctx = total_valid
@@ -341,16 +440,21 @@ class PipelinedTransformer(nn.Module):
         first = 0 in self.local_stages
         emb = None
         if first:
-            with torch.enable_grad():
+            with self.gather(self._embed_params()) as ins, \
+                    torch.enable_grad():
                 emb = self.embed(ids, extras.get("seed"))
         channel = None if self.stage is None else self._group_channel()
         pipe = self._pipeline(schedule, loss_fn, batch_loss, channel,
                               devices)
-        loss, _aux, grads, hgrads, dm = pipe.value_and_grad(
+        loss, aux, grads, hgrads, dm = pipe.value_and_grad(
             self._stage_trees(), self.head_params(),
             None if emb is None else emb.detach(), head_labels,
             extras=extras, loss_ctx=ctx, loss_scale=loss_scale,
+            aux_cotangent=aux_w if self.moe else 0.0,
             n_micro=n, boundary=((mb, S, cfg.hidden_size), cfg.dtype, dev))
+        if self.moe:
+            self.last_aux = aux
+            loss = loss + aux_w * aux
         from ..runtime.pipe.mpmd.executor import tree_leaves
         names = self._names()
         out: Dict[str, torch.Tensor] = {}
@@ -364,12 +468,11 @@ class PipelinedTransformer(nn.Module):
             for p, g in zip(tree_leaves(self.stage_blocks(s)), grads[s]):
                 put(p, g)
         if first:
-            ins = [self.wte.embedding]
-            if cfg.pos_embed == "learned":
-                ins.append(self.wpe.embedding)
-            ins = [p for p in ins if p.requires_grad]
+            # the embedding's leaves as the forward used them (ZeRO-3:
+            # gathered), each put under its parameter
+            own = tree_leaves(self._embed_params())
             gs = torch.autograd.grad(emb, ins, grad_outputs=dm)
-            for p, g in zip(ins, gs):
+            for p, g in zip(own, gs):
                 put(p, g.to(torch.float32))
         if self.pp - 1 in self.local_stages:
             # the head's grads after the embedding's: the tied wte's sum
@@ -378,13 +481,17 @@ class PipelinedTransformer(nn.Module):
                 put(p, g)
         for name, p in self.named_parameters():
             if p.requires_grad and name not in out:
-                out[name] = torch.zeros(p.shape, dtype=torch.float32,
-                                        device=p.device)
+                # a ZeRO-3 slab's grad is its whole tensor's
+                e = getattr(p, "ds_zero", None)
+                out[name] = torch.zeros(p.shape if e is None else e.shape,
+                                        dtype=torch.float32, device=p.device)
         return loss, out
 
     def forward(self, batch, train: bool = False, devices=None):
         """The whole batch's f32 logits [B, S, V] (eval; under a ``pipe``
-        group every rank returns the last stage's, broadcast)."""
+        group every rank returns the last stage's, broadcast); a MoE
+        model's ``(logits, aux)``, the aux summed over the stages and
+        averaged over the micro-batches, as the JAX apply returns it."""
         cfg = self.cfg
         if isinstance(batch, dict):
             ids, attention_mask = batch["input_ids"], batch.get(
@@ -406,25 +513,36 @@ class PipelinedTransformer(nn.Module):
         pipe = self._pipeline("gpipe", None, False, channel, devices)
         with torch.no_grad():
             first = 0 in self.local_stages
-            micros = self.embed(ids.reshape(n, mb, S)) if first else None
+            micros = None
+            if first:
+                with self.gather(self._embed_params()):
+                    micros = self.embed(ids.reshape(n, mb, S))
             outs = pipe.forward(
                 self._stage_trees(), micros, extras=extras, n_micro=n,
                 boundary=((mb, S, cfg.hidden_size), cfg.dtype, dev))
+            if self.moe:
+                outs, aux = outs
             logits = torch.empty((B, S, cfg.vocab_size),
                                  dtype=torch.float32, device=dev)
             if outs:
                 head = self.head_params()
-                logits.copy_(torch.cat([self.head_logits(head, y.to(dev))
-                                        for y in outs]))
+                with self.gather(head):
+                    logits.copy_(torch.cat([self.head_logits(head,
+                                                             y.to(dev))
+                                            for y in outs]))
         if self.stage is not None and self.pp > 1:
             from .. import comm
             comm.broadcast(logits, src=self.pp - 1, axis="pipe")
-        return logits
+            if self.moe:
+                comm.all_reduce(aux, axis="pipe")
+        return (logits, aux) if self.moe else logits
 
     def tp_rules(self) -> Dict[str, Any]:
-        """The JAX model's table (blocks lead with the ``pipe`` axis on
-        the layer dim), kept for reference: tensor parallelism together
-        with a pipeline raises (ROADMAP item 4.1)."""
+        """The JAX model's table: blocks lead with the ``pipe`` axis on
+        the layer dim (the stage's split, which the port makes by
+        building each rank's stage), experts on ``expert``, the rest as
+        the plain model's rules. ``sharding_rules=`` this table runs each
+        stage's Megatron layers at the rank's ``model`` coordinate."""
         from ..utils.partitioning import PartitionSpec as P
 
         def block(*spec):

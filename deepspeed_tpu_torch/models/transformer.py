@@ -1027,20 +1027,26 @@ class Transformer(nn.Module):
 
 
 class _VocabLogSumExp(torch.autograd.Function):
-    """logsumexp over the last dim of vocab-parallel logits: the max and
-    the sum of exponentials all-reduced over the model axis. The same
-    operations, in the same order, as ``torch.logsumexp`` and its
-    backward, so one model rank computes its values bit for bit."""
+    """logsumexp over the last dim of f32 logits, the plain CE's and the
+    vocab-parallel CE's alike (:func:`nll_terms`): the max and the sum of
+    exponentials, each all-reduced over the model axis ``axis`` (None:
+    this process holds the whole vocabulary and nothing is reduced). The
+    operations of ``torch.logsumexp`` and its backward, written out so
+    that both CE paths run them, in the same order, whatever
+    ``torch.logsumexp``'s own kernel does: one model rank computes the
+    plain values bit for bit."""
 
     @staticmethod
     def forward(ctx, x, axis):
         from .. import comm
         m = torch.amax(x, dim=-1, keepdim=True)
-        comm.all_reduce(m, op=comm.ReduceOp.MAX, axis=axis)
+        if axis is not None:
+            comm.all_reduce(m, op=comm.ReduceOp.MAX, axis=axis)
         ms = m.squeeze(-1)
         ms = ms.masked_fill(ms.abs() == float("inf"), 0)
         s = torch.sum((x - m).exp(), dim=-1)
-        comm.all_reduce(s, axis=axis)
+        if axis is not None:
+            comm.all_reduce(s, axis=axis)
         out = s.log().add(ms)
         ctx.save_for_backward(x, out)
         return out
@@ -1075,16 +1081,33 @@ def vocab_parallel_terms(logits: torch.Tensor, labels: torch.Tensor, tp
     return logz, comm.tp_reduce_from(gold, axis=tp.axis)
 
 
+def nll_terms(logits: torch.Tensor, labels: torch.Tensor,
+              valid: torch.Tensor, tp=None
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(logsumexp, target logit) of f32 logits [..., V] for labels [...]
+    where ``valid`` (a target logit of 0 elsewhere). ``tp``: the logits
+    are this rank's vocab shard, taken through
+    :func:`vocab_parallel_terms`. Both paths run the same operations
+    (:class:`_VocabLogSumExp`, one gather, one select), so over one model
+    rank the vocab-parallel terms, their gradient too, are the plain ones
+    bit for bit."""
+    if tp is not None:
+        return vocab_parallel_terms(logits, torch.where(
+            valid, labels, torch.full_like(labels, -1)), tp)
+    logz = _VocabLogSumExp.apply(logits, None)
+    gold = logits.gather(-1, torch.where(valid, labels, torch.zeros_like(
+        labels))[..., None])[..., 0]
+    gold = torch.where(valid, gold, torch.zeros((), dtype=gold.dtype,
+                                                device=gold.device))
+    return logz, gold
+
+
 def _chunk_nll(xc: torch.Tensor, emb_c: torch.Tensor, tc: torch.Tensor,
                tp=None):
-    valid = (tc != -100).to(torch.float32)           # ignore_index + padding
+    ok = tc != -100                                  # ignore_index + padding
+    valid = ok.to(torch.float32)
     logits = (xc @ emb_c.transpose(0, 1)).to(torch.float32)
-    if tp is not None:
-        logz, gold = vocab_parallel_terms(logits, tc, tp)
-        return ((logz - gold) * valid).sum(), valid.sum()
-    safe = tc.clamp_min(0)
-    logz = torch.logsumexp(logits, dim=-1)
-    gold = logits.gather(-1, safe[..., None])[..., 0]
+    logz, gold = nll_terms(logits, tc, ok, tp)
     return ((logz - gold) * valid).sum(), valid.sum()
 
 
@@ -1146,14 +1169,7 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
     ``vocab_parallel``), taken through :func:`vocab_parallel_terms`."""
     labels = torch.as_tensor(labels, device=logits.device).long()
     valid = labels != ignore_index
-    safe = torch.where(valid, labels, torch.zeros_like(labels))
-    logits = logits.to(torch.float32)
-    if tp is not None:
-        logz, gold = vocab_parallel_terms(logits, torch.where(
-            valid, labels, torch.full_like(labels, -1)), tp)
-    else:
-        logz = torch.logsumexp(logits, dim=-1)
-        gold = logits.gather(-1, safe[..., None])[..., 0]
+    logz, gold = nll_terms(logits.to(torch.float32), labels, valid, tp)
     nll = (logz - gold) * valid
     n = valid.sum() if count is None else torch.as_tensor(
         count, dtype=torch.float32, device=logits.device)

@@ -18,7 +18,11 @@ own queues of Cg slots. Here:
   concatenate the queue dim), runs its local experts (the expert module
   holds E / ep of them once the engine has split the expert leaves) and
   exchanges the outputs back. The exchange is issued even over a group
-  of one rank, where it moves nothing;
+  of one rank, where it moves nothing. Under a pipeline the same holds
+  inside each stage: a micro-batch's group is the rank's rows of it (its
+  ``(data, expert)`` coordinate's, as the JAX pipelined model's micro-
+  batch spec shards them) and the exchange crosses the rank's own expert
+  group, the ranks of its stage;
 * with a global mesh and no process group of its size (one process
   standing in for the mesh), the layer regroups its tokens into the
   mesh's G groups as the JAX layer does and runs every expert locally;

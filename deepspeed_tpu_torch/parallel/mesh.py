@@ -24,9 +24,12 @@ the experts of every MoE layer among its ranks, whose queues cross it
 splits every layer's heads and MLP columns and the vocabulary among its
 ranks (tensor parallelism, ``utils/partitioning.py``); the step tail
 reduces over :data:`STEP_AXES`. A ``pipe`` group holds one pipeline
-stage a rank (``runtime/pipe``); ``pipe`` composes with ``data`` only:
-with ``model``, ``seq`` or ``expert`` above 1 it raises
-``NotImplementedError`` naming ROADMAP.md (item 4.1).
+stage a rank (``runtime/pipe``): the ranks of one ``(data, expert, seq,
+model)`` coordinate, in stage order. ``pipe`` composes with ``data``,
+``expert`` and ``model``; with ``seq`` above 1 it raises
+``NotImplementedError`` naming ROADMAP.md (item 4.1: the JAX pipelined
+model puts its micro-batches on ``(data, expert)`` only and threads no
+ring or Ulysses attention through its stages).
 """
 
 from __future__ import annotations
@@ -83,12 +86,13 @@ class MeshManager:
         inferred_dp = n // denom
         if dp_size is not None and dp_size != inferred_dp:
             raise ValueError(f"dp_size={dp_size} inconsistent with world size {n}")
-        if pp_size > 1 and max(tp_size, sp_size, ep_size) > 1:
+        if pp_size > 1 and sp_size > 1:
             raise NotImplementedError(
-                f"mesh axis 'pipe' of size {pp_size} together with model "
-                f"({tp_size}), seq ({sp_size}) or expert ({ep_size}) above 1: "
-                "a pipeline composes with 'data' only in deepspeed_tpu_torch "
-                "(ROADMAP item 4.1; see ROADMAP.md)")
+                f"mesh axis 'pipe' of size {pp_size} together with seq "
+                f"({sp_size}) above 1: the JAX pipelined model threads no "
+                "ring or Ulysses attention through its stages, and "
+                "deepspeed_tpu_torch does not either (ROADMAP item 4.1; "
+                "see ROADMAP.md)")
         self.shape = dict(zip(MESH_AXES, (pp_size, inferred_dp, ep_size,
                                           sp_size, tp_size)))
         self.topology = ProcessTopology(list(MESH_AXES),

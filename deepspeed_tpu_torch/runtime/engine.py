@@ -356,7 +356,9 @@ class DeepSpeedEngine:
                 raise ValueError(
                     "sharding_rules need the in-tree Transformer (models."
                     "build_model): this model has no TransformerConfig")
-            sharding_rules = check_tp_rules(sharding_rules, mcfg)
+            sharding_rules = check_tp_rules(
+                sharding_rules, mcfg,
+                model.tp_rules() if self._pipelined else None)
         for key, size in (("sequence_parallel.sp_size", sp_size),
                           ("moe.ep_size", ep_size),
                           ("tensor_parallel.tp_size", tp_size)):

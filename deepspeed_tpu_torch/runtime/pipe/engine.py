@@ -9,8 +9,25 @@ step APIs, micro-batches == gradient_accumulation_steps, ``forward`` /
 (``mpmd/executor.py``, the placement changes no math). Each rank of the
 mesh's ``pipe`` axis holds one stage of a ``PipelinedTransformer`` built
 with ``stage=`` its index (one process holds every stage without a
-group); ``pipe`` composes with ``data`` (ZeRO stages 0-2 over each pipe
-rank's own leaves).
+group). ``pipe`` composes with ``data`` (ZeRO stages 0-3 over each pipe
+rank's own leaves; at stage 3 the executor gathers a stage's blocks
+around its forward and backward ticks and the embedding and head around
+their uses, ``PipelinedTransformer.gather``), with ``expert`` (each pipe
+rank's MoE layers exchange their queues over its expert group; expert
+leaves reduce over ``data`` only, the others over ``data`` x
+``expert``, as the plain engine's) and with ``model`` (``sharding_rules=
+model.tp_rules()``: each stage's blocks, the embedding and the head run
+the Megatron layers of the rank's ``model`` coordinate). A pipeline with
+``seq`` above 1 raises ``NotImplementedError`` naming ROADMAP.md.
+
+A MoE model's loss: ``make_moe_loss(w, base_loss)`` is split into its
+base loss (the last stage's) and its aux weight (the executor's
+cotangent of every stage's aux); ``causal_lm_loss`` or no loss_fn take
+``cfg.moe_aux_weight``. An unmarked custom loss raises under 1F1B or
+``placement: "mpmd"`` (JAX's ``ValueError``: the executor hands the base
+loss bare logits). The reported loss is base + w x aux and the metrics
+carry ``aux``. Gating noise is drawn only with dropout (the JAX
+pipelined model's "gating" rng rides its dropout key).
 
 ``train_batch`` takes the global batch: micro-batch i is the rows the
 plain engine's split gives it (``runtime/engine.py``), and the step tail
@@ -67,32 +84,54 @@ class PipelineEngine(DeepSpeedEngine):
         if pc.stages not in (1, model.pp):
             raise ValueError(f"pipeline.stages {pc.stages} for a model "
                              f"built at pp {model.pp}")
-        if cfg.zero_optimization.stage >= 3:
+        if cfg.sequence_parallel.sp_size > 1:
             raise NotImplementedError(
-                "ZeRO stage 3 under a pipeline (each stage's parameters "
-                "gathered around its blocks, ROADMAP item 4.1) " + _LATER)
-        for what, on in (("tensor_parallel.tp_size > 1",
-                          cfg.tensor_parallel.tp_size > 1),
-                         ("sequence_parallel.sp_size > 1",
-                          cfg.sequence_parallel.sp_size > 1),
-                         ("moe (an expert axis)", cfg.moe.enabled)):
-            if on:
-                raise NotImplementedError(
-                    f"a pipeline together with {what} (ROADMAP item "
-                    "4.1) " + _LATER)
-        if kwargs.get("sharding_rules") is not None:
-            raise NotImplementedError(
-                "sharding_rules with a pipelined model: tensor parallelism "
-                "together with a pipeline (ROADMAP item 4.1) " + _LATER)
+                "a pipeline together with sequence_parallel.sp_size > 1 "
+                "(the JAX pipelined model threads no ring or Ulysses "
+                "attention through its stages; ROADMAP item 4.1) " + _LATER)
+        moe = model.moe
+        rules = kwargs.get("sharding_rules")
+        if rules is not None:
+            from ...utils.partitioning import check_tp_rules
+            check_tp_rules(rules, model.cfg, model.tp_rules())
+            if moe and cfg.tensor_parallel.tp_size == 1:
+                # the table's 'model' entries are one-way: a MoE model
+                # keeps its whole weights (MoE has no TP layers, ROADMAP
+                # item 4.4), its expert leaves split over 'expert'
+                kwargs["sharding_rules"] = None
         self.schedule = pc.schedule
         lf = loss_fn or _default_loss_fn
+        self._aux_weight = None
+        if getattr(lf, "_moe_loss", False):
+            # the aux term rides the pipe (the executor's cotangent); the
+            # base loss goes to the last stage
+            self._aux_weight = float(lf._moe_aux_weight)
+            lf = lf._moe_base_loss
+        elif moe:
+            self._aux_weight = float(model.cfg.moe_aux_weight)
         self._custom_loss = (None if lf in (causal_lm_loss, _default_loss_fn)
                              else lf)
+        per_micro = placement == "mpmd" or pc.schedule == "1f1b"
+        if moe and self._custom_loss is not None and \
+                not getattr(loss_fn, "_moe_loss", False):
+            if per_micro:
+                raise ValueError(
+                    "the hand-scheduled pipeline executors (1f1b / "
+                    "placement='mpmd') with an MoE model need the loss "
+                    "built by models.make_moe_loss(aux_weight, "
+                    "base_loss=...): the executor computes the aux "
+                    "term itself and passes the base loss bare logits, "
+                    "so a raw loss_fn written against the model's "
+                    "(logits, aux) output would misread its input.")
+            raise NotImplementedError(
+                "a raw loss_fn of a MoE model's (logits, aux) under the "
+                "spmd gpipe schedule (the JAX step hands it the whole "
+                "batch's tuple; ROADMAP item 4.1) " + _LATER
+                + "; build it with models.make_moe_loss")
         # the JAX spmd-gpipe step applies a custom loss_fn to the whole
         # batch's logits; its 1F1B and mpmd executors per micro-batch
         self._batch_loss = (self._custom_loss is not None
-                            and placement == "spmd"
-                            and pc.schedule == "gpipe")
+                            and not per_micro)
         if self._custom_loss is not None and not self._batch_loss:
             from ...utils.logging import logger
             logger.warning(
@@ -183,16 +222,21 @@ class PipelineEngine(DeepSpeedEngine):
         self._step_t0 = time.perf_counter()
         micros = self._micros(batch)
         gas = self.config.gradient_accumulation_steps
-        seeds = None
+        seeds = gating = None
         if self.module.cfg.dropout > 0.0:
             seeds = [self._dropout_seed(i) for i in range(gas)]
+            gating = [self._gating_seed(i) for i in range(gas)]
         self.module.train()
         loss, grads = self.module.pipeline_value_and_grad(
             micros, schedule=self.schedule, loss_fn=self._custom_loss,
             batch_loss=self._batch_loss,
             total_valid=(self._total_valid(micros)
                          if self._custom_loss is None else None),
-            seeds=seeds, loss_scale=self.scale_state.scale)
+            seeds=seeds, gating_seeds=gating, aux_weight=self._aux_weight,
+            loss_scale=self.scale_state.scale)
+        if self.module.moe:
+            # this rank's stages' aux: the step tail sums it over 'pipe'
+            self._auxes.append(self.module.last_aux.detach())
         if self.pipe_world > 1:
             self._sum_over_pipe(grads)
         names = {id(p): n for n, p in self.module.named_parameters()}

@@ -10,11 +10,14 @@ moves it is the channel:
   package's ``MPMDPipeline(devices=[...])``). A FIFO per (kind, edge);
   a payload moves to the receiving stage's device with ``.to(device)``.
 * :class:`PipeGroupChannel`: each rank of the mesh's ``pipe`` axis holds
-  one stage. Every rank knows the clock tables, so the transfers of one
-  tick and kind are one counted ``comm.ppermute`` over ``pipe`` whose
-  permutation holds only the edges that send at that tick; every rank
-  joins it, in the same order (activations, then cotangents), so no rank
-  waits on a transfer another has not posted. The boundary is the
+  one stage. Its group is the caller's own ``pipe`` group: the ranks of
+  its ``(data, expert, seq, model)`` coordinate, one a stage, so a
+  payload goes to the neighbouring stage of the same data, expert and
+  model coordinates. Every rank knows the clock tables, so the transfers
+  of one tick and kind are one counted ``comm.ppermute`` over ``pipe``
+  whose permutation holds only the edges that send at that tick; every
+  rank joins it, in the same order (activations, then cotangents), so no
+  rank waits on a transfer another has not posted. The boundary is the
   stage input's shape ``[mb, S, H]`` in the compute dtype on every edge.
 
 Ordering contract: the clock tables send each edge's payloads in strictly

@@ -30,12 +30,28 @@ schedules, so gpipe and 1F1B give bitwise-equal grads under deterministic
 algorithms, and so do store and recompute. The results are the JAX
 executor's: (mean loss, mean aux, each stage's grads / n_micro, the
 head's grads / n_micro, the stage-0 input cotangents / n_micro), the
-grads scaled by ``loss_scale``. MoE's aux scalar does not ride this pipe
-(ROADMAP.md, item 4.1): aux is 0.
+grads scaled by ``loss_scale``.
+
+MoE's aux scalar (``with_aux``): the stage body returns ``(y, aux)``.
+Each stage accumulates its aux in forward-table order (the last stage,
+whose forward the recompute mode skips, at its backward ticks: micro
+order too), and every stage's backward seeds its aux with the constant
+cotangent ``aux_cotangent x loss_scale``, so the routers of every stage
+get the aux gradient; the result's aux is the stages' sum / n_micro, the
+JAX executor's. Without ``with_aux`` the aux is 0.
+
+ZeRO-3 (``gather``): ``gather(tree)`` is a context in which the
+parameters of ``tree`` (a stage's blocks, the head) are whole; it yields
+the tensors to differentiate in :func:`tree_leaves` order. A stage's
+blocks are gathered around its forward tick and again around its
+backward tick (in ``store`` mode the forward's graph keeps them to the
+backward); their grads accumulate whole and the caller reduce-scatters
+them after the step's last backward tick.
 """
 
 from __future__ import annotations
 
+import contextlib
 from typing import Any, Callable, Dict, List, Optional, Sequence
 
 import numpy as np
@@ -132,7 +148,9 @@ class MPMDPipeline:
         to its receiver's device); channel: default a
         :class:`LocalChannel` over ``devices``; stages: the stages this
         process runs (default all; a :class:`PipeGroupChannel` rank's one).
-    backward: "recompute" | "store" (module docstring)."""
+    backward: "recompute" | "store" (module docstring).
+    with_aux: the stage body returns (y, aux) (MoE; module docstring).
+    gather: ZeRO-3's context of whole parameters (module docstring)."""
 
     def __init__(self, stage_fn: Callable, loss_fn: Callable, *,
                  pp: int, schedule: str = "1f1b",
@@ -140,7 +158,9 @@ class MPMDPipeline:
                  channel=None,
                  stages: Optional[Sequence[int]] = None,
                  backward: str = "recompute",
-                 batch_loss: bool = False):
+                 batch_loss: bool = False,
+                 with_aux: bool = False,
+                 gather: Optional[Callable] = None):
         if schedule not in ("gpipe", "1f1b"):
             raise ValueError(f"unknown pipeline schedule {schedule!r} "
                              "(gpipe | 1f1b)")
@@ -150,7 +170,8 @@ class MPMDPipeline:
         if devices is not None and len(devices) != pp:
             raise ValueError(f"{len(devices)} devices for pp={pp}")
         self.pp, self.schedule, self.backward = pp, schedule, backward
-        self.batch_loss = batch_loss
+        self.batch_loss, self.with_aux = batch_loss, with_aux
+        self._gather = gather if gather is not None else _held
         self.devices = (list(devices) if devices is not None
                         else [None] * pp)
         self.stages = list(range(pp)) if stages is None else list(stages)
@@ -174,6 +195,7 @@ class MPMDPipeline:
                        extras: Optional[PyTree] = None,
                        loss_ctx: Any = None,
                        loss_scale=None,
+                       aux_cotangent: float = 0.0,
                        n_micro: Optional[int] = None,
                        boundary=None):
         """One pipeline step. ``stage_params[s]``: stage s's parameters
@@ -181,28 +203,34 @@ class MPMDPipeline:
         read); ``micros`` [n_micro, mb, ...]: stage 0's inputs (None where
         stage 0 is not here: give ``n_micro`` and ``boundary``, the
         (shape, dtype, device) of every edge's payload); ``labels``: the
-        last stage's per-micro targets. Returns (mean loss, mean aux,
-        {stage: grads in ``tree_leaves`` order}, head grads, dmicros)."""
+        last stage's per-micro targets; ``aux_cotangent``: the aux's
+        weight in the objective (``with_aux``). Returns (mean loss, mean
+        aux of this process's stages, {stage: grads in ``tree_leaves``
+        order}, head grads, dmicros)."""
         return self._run(stage_params, head_params, micros, labels,
                          extras, loss_ctx, loss_scale, n_micro, boundary,
-                         forward_only=False)
+                         forward_only=False, aux_cotangent=aux_cotangent)
 
     def forward(self, stage_params: Sequence[PyTree], micros, *,
                 extras: Optional[PyTree] = None,
                 n_micro: Optional[int] = None, boundary=None):
         """The forward walk alone, without grads: the last stage's output
         of each micro-batch (a list; empty where the last stage is not
-        here)."""
+        here); with ``with_aux``, (that list, the mean aux of this
+        process's stages)."""
         with torch.no_grad():
             return self._run(stage_params, None, micros, None, extras,
                              None, None, n_micro, boundary,
                              forward_only=True)
 
     def _body(self, stage_params, s, x, extras, mid):
-        return self._stage_fn(stage_params[s], x, _micro(extras, mid), s)
+        """(y, aux or None) of stage ``s`` on micro-batch ``mid``."""
+        out = self._stage_fn(stage_params[s], x, _micro(extras, mid), s)
+        return out if self.with_aux else (out, None)
 
     def _run(self, stage_params, head_params, micros, labels, extras,
-             loss_ctx, loss_scale, n_micro, boundary, forward_only):
+             loss_ctx, loss_scale, n_micro, boundary, forward_only,
+             aux_cotangent=0.0):
         pp, last = self.pp, self.pp - 1
         if micros is not None:
             n_micro = int(micros.shape[0])
@@ -213,14 +241,18 @@ class MPMDPipeline:
         tables, streams = self._walk(n_micro, forward_only)
         extras = {} if extras is None else extras
         scale = 1.0 if loss_scale is None else float(loss_scale)
+        aux_ct = float(aux_cotangent) * scale
         store = self.backward == "store"
         f32 = torch.float32
+        gather = self._gather
         ext = {s: _to(extras, self.devices[s]) for s in self.stages}
-        leaves = {s: tree_leaves(stage_params[s]) for s in self.stages}
-        acc = {s: [None] * len(leaves[s]) for s in self.stages}
-        hleaves = tree_leaves(head_params) if last in self.stages else []
-        hacc: List[Optional[torch.Tensor]] = [None] * len(hleaves)
+        acc = {s: [None] * len(tree_leaves(stage_params[s]))
+               for s in self.stages}
+        hacc: List[Optional[torch.Tensor]] = (
+            [None] * len(tree_leaves(head_params))
+            if last in self.stages else [])
         lacc = None
+        aux_acc: Dict[int, torch.Tensor] = {}
         if last in self.stages and labels is not None:
             labels = _to(labels, self.devices[last])
         in_act = {s: {} for s in self.stages}
@@ -240,14 +272,14 @@ class MPMDPipeline:
                 slots[i] = (g.to(f32) if slots[i] is None
                             else slots[i].add_(g.to(f32)))
 
-        def last_forward(mid):
-            x = saved[last][mid]
-            if not store:
-                x = x.detach().requires_grad_(True)
-                with torch.enable_grad():
-                    y = self._body(stage_params, last, x, ext[last], mid)
-                return x, y
-            return x
+        def add_aux(s, a):
+            if a is not None:
+                a = a.detach().to(f32)
+                aux_acc[s] = a if s not in aux_acc else aux_acc[s] + a
+
+        # the aux of a forward the recompute mode skips (the last stage's)
+        # is taken at its backward tick
+        aux_at_bwd = not (store or self.batch_loss or forward_only)
 
         ch = self.channel
         ch.begin(tables, boundary)
@@ -268,18 +300,22 @@ class MPMDPipeline:
                         elif isinstance(inst, ForwardPass):
                             x = in_act[s].pop(mid)
                             if forward_only:
-                                y = self._body(stage_params, s, x, ext[s],
-                                               mid)
+                                with gather(stage_params[s]):
+                                    y, a = self._body(stage_params, s, x,
+                                                      ext[s], mid)
+                                add_aux(s, a)
                                 if s == last:
                                     outputs[mid] = y
                                 else:
                                     out_y[s][mid] = y
                             elif store:
                                 x = x.detach().requires_grad_(True)
-                                with torch.enable_grad():
-                                    y = self._body(stage_params, s, x,
-                                                   ext[s], mid)
-                                saved[s][mid] = (x, y)
+                                with torch.enable_grad(), \
+                                        gather(stage_params[s]) as lv:
+                                    y, a = self._body(stage_params, s, x,
+                                                      ext[s], mid)
+                                add_aux(s, a)
+                                saved[s][mid] = (x, y, a, lv)
                                 if s < last:
                                     out_y[s][mid] = y.detach()
                                 elif self.batch_loss:
@@ -291,9 +327,11 @@ class MPMDPipeline:
                                 # compute, unless the whole-batch loss
                                 # needs every output first
                                 if s < last or self.batch_loss:
-                                    with torch.no_grad():
-                                        y = self._body(stage_params, s, x,
-                                                       ext[s], mid)
+                                    with torch.no_grad(), \
+                                            gather(stage_params[s]):
+                                        y, a = self._body(stage_params, s,
+                                                          x, ext[s], mid)
+                                    add_aux(s, a)
                                     if s < last:
                                         out_y[s][mid] = y
                                     else:
@@ -303,37 +341,53 @@ class MPMDPipeline:
                         elif isinstance(inst, BackwardPass):
                             if s == last and self.batch_loss and not dys:
                                 lacc = self._batch_loss(
-                                    head_params, hleaves, hacc, outputs,
-                                    labels, loss_ctx, scale, dys, add)
+                                    head_params, hacc, outputs, labels,
+                                    loss_ctx, scale, dys, add)
                             if store:
-                                xb, y = saved[s].pop(mid)
+                                xb, y, a, lv = saved[s].pop(mid)
+                                held = contextlib.nullcontext(lv)
                             else:
                                 xb = saved[s].pop(mid).detach() \
                                     .requires_grad_(True)
-                                with torch.enable_grad():
-                                    y = self._body(stage_params, s, xb,
-                                                   ext[s], mid)
-                            inputs = leaves[s] + [xb]
-                            if s == last and not self.batch_loss:
-                                with torch.enable_grad():
-                                    loss = self._loss_fn(
-                                        head_params, y,
-                                        _micro(labels, mid), loss_ctx)
-                                gs = torch.autograd.grad(
-                                    loss.to(f32) * scale,
-                                    leaves[s] + hleaves + [xb],
-                                    allow_unused=True)
-                                add(acc[s], gs)
-                                add(hacc, gs, len(leaves[s]))
-                                l32 = loss.detach().to(f32)
-                                lacc = l32 if lacc is None else lacc + l32
-                            else:
-                                dy = (dys.pop(mid) if s == last
-                                      else in_grad[s].pop(mid))
-                                gs = torch.autograd.grad(
-                                    y, inputs, grad_outputs=dy.to(y.dtype),
-                                    allow_unused=True)
-                                add(acc[s], gs)
+                                held = gather(stage_params[s])
+                            with held as lv:
+                                if not store:
+                                    with torch.enable_grad():
+                                        y, a = self._body(stage_params, s,
+                                                          xb, ext[s], mid)
+                                    if s == last and aux_at_bwd:
+                                        add_aux(s, a)
+                                if a is not None and not a.requires_grad:
+                                    a = None
+                                if s == last and not self.batch_loss:
+                                    with gather(head_params) as hl, \
+                                            torch.enable_grad():
+                                        loss = self._loss_fn(
+                                            head_params, y,
+                                            _micro(labels, mid), loss_ctx)
+                                        obj = loss.to(f32) * scale
+                                        if a is not None:
+                                            obj = obj + a.to(f32) * aux_ct
+                                        gs = torch.autograd.grad(
+                                            obj, lv + hl + [xb],
+                                            allow_unused=True)
+                                    add(acc[s], gs)
+                                    add(hacc, gs, len(lv))
+                                    l32 = loss.detach().to(f32)
+                                    lacc = l32 if lacc is None else \
+                                        lacc + l32
+                                else:
+                                    dy = (dys.pop(mid) if s == last
+                                          else in_grad[s].pop(mid))
+                                    outs, gos = [y], [dy.to(y.dtype)]
+                                    if a is not None:
+                                        outs.append(a)
+                                        gos.append(torch.full_like(a, aux_ct))
+                                    gs = torch.autograd.grad(
+                                        outs, lv + [xb], grad_outputs=gos,
+                                        allow_unused=True)
+                                    add(acc[s], gs)
+                            del lv
                             dx = gs[-1]
                             if dx is None:
                                 dx = torch.zeros_like(xb)
@@ -349,9 +403,15 @@ class MPMDPipeline:
         except BaseException:
             ch.clear()
             raise
-        if forward_only:
-            return [outputs[m] for m in sorted(outputs)]
         dev = boundary[2]
+        aux = torch.zeros((), dtype=f32, device=dev)
+        for s in self.stages:
+            if s in aux_acc:
+                aux = aux + aux_acc[s].to(dev)
+        aux = aux / n_micro
+        if forward_only:
+            outs = [outputs[m] for m in sorted(outputs)]
+            return (outs, aux) if self.with_aux else outs
         loss = (torch.zeros((), dtype=f32, device=dev) if lacc is None
                 else lacc / n_micro)
         grads = {s: [None if a is None else a.div_(n_micro)
@@ -360,27 +420,31 @@ class MPMDPipeline:
         dm = None
         if 0 in self.stages:
             dm = torch.stack([dmicros[m] for m in range(n_micro)]) / n_micro
-        aux = torch.zeros((), dtype=f32, device=dev)
         return loss, aux, grads, hgrads, dm
 
-    def _batch_loss(self, head_params, hleaves, hacc, outputs, labels,
-                    loss_ctx, scale, dys, add):
+    def _batch_loss(self, head_params, hacc, outputs, labels, loss_ctx,
+                    scale, dys, add):
         """The whole-batch loss at the last stage's first backward tick:
         ``loss_fn`` over every micro-batch's output at once, its grads
         into the head's accumulator and each output's cotangent into
         ``dys``. Returns the loss times n_micro (the caller divides)."""
         n = len(outputs)
         ys = [outputs[m].detach().requires_grad_(True) for m in range(n)]
-        with torch.enable_grad():
+        with self._gather(head_params) as hl, torch.enable_grad():
             loss = self._loss_fn(head_params, ys, labels, loss_ctx)
-        gs = torch.autograd.grad(loss.to(torch.float32) * scale,
-                                 hleaves + ys, allow_unused=True)
-        add(hacc, [None if g is None else g * n for g in gs[:len(hleaves)]])
+            gs = torch.autograd.grad(loss.to(torch.float32) * scale,
+                                     hl + ys, allow_unused=True)
+        add(hacc, [None if g is None else g * n for g in gs[:len(hl)]])
         for m in range(n):
-            g = gs[len(hleaves) + m]
+            g = gs[len(hl) + m]
             dys[m] = torch.zeros_like(ys[m]) if g is None else g * n
         return loss.detach().to(torch.float32) * n
 
+
+@contextlib.contextmanager
+def _held(tree):
+    """The default ``gather``: the parameters as they are held."""
+    yield tree_leaves(tree)
 
 def _stack_stage_trees(per_stage: Sequence[PyTree]) -> PyTree:
     """[tree of stage 0, ...] -> one tree with a leading [pp] dim."""
@@ -401,7 +465,9 @@ def mpmd_value_and_grad(stage_fn: Callable, loss_fn: Callable,
                         loss_scale=None,
                         loss_ctx: Any = None,
                         backward: str = "recompute",
-                        channel=None):
+                        channel=None,
+                        with_aux: bool = False,
+                        aux_cotangent: float = 0.0):
     """One-shot functional form (tests, parity oracles): ``stage_params``
     a tree of [pp, ...] tensors, as the JAX executors take. Returns (loss,
     aux, stage grads [pp, ...], head grads, dmicros) in the trees'
@@ -409,10 +475,11 @@ def mpmd_value_and_grad(stage_fn: Callable, loss_fn: Callable,
     per_stage = [_select(stage_params, s) for s in range(pp)]
     head = _detached(head_params)
     pipe = MPMDPipeline(stage_fn, loss_fn, pp=pp, schedule=schedule,
-                        devices=devices, channel=channel, backward=backward)
+                        devices=devices, channel=channel, backward=backward,
+                        with_aux=with_aux)
     loss, aux, grads, hgrads, dm = pipe.value_and_grad(
         per_stage, head, micros, labels, extras=extras, loss_ctx=loss_ctx,
-        loss_scale=loss_scale)
+        loss_scale=loss_scale, aux_cotangent=aux_cotangent)
     gs = _stack_stage_trees([tree_like(per_stage[s], grads[s])
                              for s in range(pp)])
     return loss, aux, gs, tree_like(head, hgrads), dm

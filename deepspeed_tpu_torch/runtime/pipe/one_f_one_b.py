@@ -26,15 +26,20 @@ def pipeline_1f1b_value_and_grad(
         stage_fn: Callable, loss_fn: Callable, stage_params: PyTree,
         head_params: PyTree, micros, labels, *, pp: int,
         devices: Optional[Sequence] = None, extras: Optional[PyTree] = None,
+        with_aux: bool = False, aux_cotangent: float = 0.0,
         loss_scale=None, store_outputs: bool = False, channel=None):
     """One 1F1B pass (the JAX function's contract). ``stage_fn(
-    one_stage_params, x, extra, stage) -> y``; ``loss_fn(head_params, y,
-    labels_micro) -> scalar`` at the last stage; ``stage_params`` a tree
-    of [pp, ...] tensors; ``micros`` [n_micro, mb, ...]; ``labels`` a tree
-    of [n_micro, ...]. Returns (mean loss, mean aux (0), stage grads
-    [pp, ...], head grads, dmicros), the grads scaled by ``loss_scale``."""
+    one_stage_params, x, extra, stage) -> y`` (``(y, aux)`` with
+    ``with_aux``, each stage's aux seeded with the constant cotangent
+    ``aux_cotangent``); ``loss_fn(head_params, y, labels_micro) ->
+    scalar`` at the last stage; ``stage_params`` a tree of [pp, ...]
+    tensors; ``micros`` [n_micro, mb, ...]; ``labels`` a tree of
+    [n_micro, ...]. Returns (mean loss, mean aux (0 without
+    ``with_aux``), stage grads [pp, ...], head grads, dmicros), the grads
+    scaled by ``loss_scale``."""
     return mpmd_value_and_grad(
         stage_fn, lambda h, y, lab, ctx: loss_fn(h, y, lab), stage_params,
         head_params, micros, labels, pp=pp, devices=devices,
         schedule="1f1b", extras=extras, loss_scale=loss_scale,
-        backward="store" if store_outputs else "recompute", channel=channel)
+        backward="store" if store_outputs else "recompute", channel=channel,
+        with_aux=with_aux, aux_cotangent=aux_cotangent)

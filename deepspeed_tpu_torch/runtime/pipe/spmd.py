@@ -23,15 +23,22 @@ PyTree = Any
 
 def pipeline_apply(stage_fn: Callable, stage_params: PyTree, micros, *,
                    pp: int, devices: Optional[Sequence] = None,
-                   extras: PyTree = None, channel=None):
+                   extras: PyTree = None, channel=None,
+                   with_aux: bool = False):
     """Run the stacked stages over micro-batches: ``stage_fn(
-    one_stage_params, x, extra, stage) -> y``, ``stage_params`` a tree of
-    [pp, ...] tensors, ``micros`` [n_micro, mb, ...] entering stage 0.
-    Returns the last stage's [n_micro, mb, ...] outputs (no grads)."""
+    one_stage_params, x, extra, stage) -> y`` (``(y, aux)`` with
+    ``with_aux``), ``stage_params`` a tree of [pp, ...] tensors,
+    ``micros`` [n_micro, mb, ...] entering stage 0. Returns the last
+    stage's [n_micro, mb, ...] outputs (no grads); with ``with_aux``,
+    (outputs, the aux summed over stages, averaged over micro-batches),
+    as the JAX function does."""
     per_stage = [_select(stage_params, s) for s in range(pp)]
     pipe = MPMDPipeline(stage_fn, None, pp=pp, schedule="gpipe",
-                        devices=devices, channel=channel)
-    return torch.stack(pipe.forward(per_stage, micros, extras=extras))
+                        devices=devices, channel=channel, with_aux=with_aux)
+    out = pipe.forward(per_stage, micros, extras=extras)
+    if with_aux:
+        return torch.stack(out[0]), out[1]
+    return torch.stack(out)
 
 
 def _map(fn, tree):

@@ -347,8 +347,11 @@ class ZeroPartition:
 
     def install_gathers(self) -> None:
         """Stage 3: the unit hooks that gather sharded parameters around
-        each forward (see the module docstring)."""
-        if not any(e.gathered for e in self.entries):
+        each forward (see the module docstring). A module that gathers
+        its own (``zero_gathers_itself``: a pipelined model, whose
+        executor gathers each stage around its ticks) gets none."""
+        if not any(e.gathered for e in self.entries) or \
+                getattr(self.module, "zero_gathers_itself", False):
             return
         units: List[nn.Module] = []
         blocks = getattr(self.module, "blocks", None)

@@ -88,15 +88,18 @@ def build_tp_specs(params, rules: Optional[Dict[str, PartitionSpec]]):
     return walk(params, ())
 
 
-def check_tp_rules(rules, cfg) -> Optional[Dict[str, PartitionSpec]]:
+def check_tp_rules(rules, cfg, table=None
+                   ) -> Optional[Dict[str, PartitionSpec]]:
     """``rules`` as the port runs them: None (replicated weights, every
-    model rank computes the whole model) or the in-tree table of ``cfg``
-    (``cfg.tp_rules()``, compared by value). Any other table raises:
-    GSPMD partitions by any spec, eager torch only by the Megatron layers
-    the port writes for that table (ROADMAP.md Queue 3)."""
+    model rank computes the whole model) or the in-tree table (``table``,
+    default ``cfg.tp_rules()``; a pipelined model's is its own
+    ``tp_rules()``, the blocks led by ``pipe``), compared by value. Any
+    other table raises: GSPMD partitions by any spec, eager torch only by
+    the Megatron layers the port writes for that table (ROADMAP.md
+    Queue 3)."""
     if rules is None:
         return None
-    want = cfg.tp_rules()
+    want = cfg.tp_rules() if table is None else table
     got = {k: (None if v is None else PartitionSpec(*v))
            for k, v in dict(rules).items()}
     if list(got.items()) != list(want.items()):
@@ -189,13 +192,15 @@ def tp_shard(path: str, shape: Sequence[int], spec, cfg, rank: int,
              size: int) -> Optional[TPShard]:
     """The :class:`TPShard` of rank ``rank`` of ``size`` for the leaf at
     ``path`` of ``shape`` (stacked or one layer's) under ``spec`` (its TP
-    spec, or None: whole on every rank)."""
+    spec, or None: whole on every rank). A pipelined table's ``pipe`` on
+    the layer dim is the stage's split, not a TP one: it is passed
+    over."""
     if spec is None or size < 1:
         return None
     spec = tuple(spec)
     ndim = len(shape)
     # align the spec's trailing entries with the leaf's trailing dims (a
-    # stacked rule's leading None is the layer dim)
+    # stacked rule's leading None or "pipe" is the layer dim)
     offs = len(spec) - ndim
     dims = [i - len(spec) for i, e in enumerate(spec)
             if e is not None and "model" in ((e,) if isinstance(e, str)
@@ -203,7 +208,7 @@ def tp_shard(path: str, shape: Sequence[int], spec, cfg, rank: int,
             and i >= offs]
     if not dims:
         return None
-    if any(e is not None and e != "model" for e in spec):
+    if any(e is not None and e not in ("model", "pipe") for e in spec):
         raise NotImplementedError(
             f"'{path}': a spec over other axes than 'model' ({spec}) under "
             "tensor parallelism " + _NOT_PORTED)

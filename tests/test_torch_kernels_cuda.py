@@ -487,6 +487,37 @@ def test_flash_attention_kernels_pipeline_stage_shape(dev, nh, dtype):
         _hold(out, ref, f32, floor=2.0 ** -10)
 
 
+@pytest.mark.parametrize("leg,H,kv,dtype", [
+    ("pp2_tp2_llama70b", 32, 4, torch.bfloat16),
+    ("pp2_ep2_mixtral", 32, 8, torch.bfloat16),
+    ("pp2_data2_gpt2_1_3b", 16, 16, torch.bfloat16),
+    ("pp2_mixtral_f32", 32, 8, torch.float32)])
+def test_flash_attention_kernels_pipeline_compose_shapes(dev, leg, H, kv,
+                                                         dtype):
+    """The composed pp legs' calls, one micro-batch of 1 x 1024 a stage's
+    layer at D 128: ``--pp-compose tp`` (a tp-2 rank of Llama-2-70B: 32
+    query heads over 4 KV heads, each repeated to its 8 query heads
+    before the kernel), ``ep`` (Mixtral-8x7B: 32 over 8), ``zero3``
+    (gpt2-1.3b: 16 heads) in bf16, and the pp phase's Mixtral piece in
+    f32; causal, the forward and both backward kernels."""
+    g = torch.Generator().manual_seed(H * kv)
+    q, do = (torch.randn(1, H, 1024, 128, generator=g).to(dev, dtype)
+             for _ in range(2))
+    k, v = (torch.randn(1, kv, 1024, 128, generator=g).to(dev, dtype)
+            .repeat_interleave(H // kv, dim=1).contiguous() for _ in range(2))
+    f32 = dtype == torch.float32
+    o, lse = tfa.flash_attention_fwd(q, k, v, causal=True)
+    dq, dk, dv = tfa.flash_attention_bwd(q, k, v, o, lse, do, causal=True)
+    ro, rlse = tfa.flash_attention_reference(*_f32(q, k, v), causal=True)
+    refs = tfa.flash_attention_bwd_reference(*_f32(q, k, v, o), lse,
+                                             do.float(), causal=True)
+    torch.cuda.synchronize()
+    _hold(o, ro, f32)
+    torch.testing.assert_close(lse, rlse, atol=F32_TOL, rtol=0)
+    for out, ref in zip((dq, dk, dv), refs):
+        _hold(out, ref, f32, floor=2.0 ** -10)
+
+
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
 def test_ring_chunk_step_sp_shape(dev, dtype, causal):

@@ -17,7 +17,8 @@ weights (gpt2-style, hidden 64, 4 layers, vocab 256, 8 x 16 tokens, gas
   step; the embedding and head leaves bitwise equal on both ranks; the
   ``eval_batch`` logits on both;
 * uneven -100 labels (the global token mean over the whole batch);
-* ZeRO-1 and ZeRO-2 at pp 2 x data 1 (stage 3 raises);
+* ZeRO-1 and ZeRO-2 at pp 2 x data 1 (stage 3:
+  ``test_torch_pipeline_compose_dist.py``);
 * (a second spawn, 4 ranks) pp 2 x data 2 at ZeRO 1 with uneven labels:
   the valid-target count summed over the data group;
 * a sharded save after the gpipe run: each rank writes its blocks at

@@ -281,6 +281,26 @@ def test_tp_raises_name_roadmap():
             model=ttr.Transformer(tcfg), config=_base(8, 1, tp=2),
             device="cpu", loss_fn=ttr.causal_lm_loss,
             dist_init_required=False)
+    # a pipelined model's own table (blocks led by 'pipe') is taken for
+    # it, and only for it; its 'pipe' lead is no TP split; MoE under TP
+    # raises with a pipe too
+    from deepspeed_tpu_torch.models.pipeline import PipelinedTransformer
+    piped = PipelinedTransformer(dataclasses.replace(tcfg, num_layers=2),
+                                 2, 2)
+    table = piped.tp_rules()
+    assert tpart.check_tp_rules(table, tcfg, table) == table
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        tpart.check_tp_rules(table, tcfg)
+    path = "blocks/attn_proj/kernel"
+    spec = tpart.spec_for(path, table)
+    assert spec[0] == "pipe"
+    assert tpart.tp_shard(path, (64, 64), spec, tcfg, 1, 2) == \
+        tpart.tp_shard(path, (64, 64), tcfg.tp_rules()[
+            r"blocks/.*attn_proj/kernel"], tcfg, 1, 2)
+    moe = PipelinedTransformer(dataclasses.replace(
+        tcfg, num_layers=2, moe_experts=2), 2, 2)
+    with pytest.raises(NotImplementedError, match="MoE.*ROADMAP"):
+        moe.set_tp(tpart.TPContext(0, 2, V))
 
 
 def test_vocab_parallel_cross_entropy_at_one_rank_is_plain(monkeypatch):

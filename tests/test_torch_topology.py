@@ -148,20 +148,29 @@ def test_mesh_axes_other_than_data_raise_naming_roadmap(axis, kw):
         assert tm.comm_lists("model") == sorted(grid.tolist())
         return
     if axis == "pipe":
-        # pipelines are ported (tests/test_torch_pipeline_dist.py): the
-        # pipe groups are the JAX mesh's; pipe with model, seq or expert
-        # above 1 raises
-        tm = tmesh.MeshManager(devices=list(range(8)), **kw)
-        assert tm.shape == jm.shape
-        assert tm.get_pipe_parallel_world_size() == 2
-        names = jm.mesh.axis_names
-        ids = np.vectorize(lambda d: d.id)(jm.mesh.devices)
-        keep = [names.index("pipe")]
-        rest = [i for i in range(len(names)) if i not in keep]
-        grid = ids.transpose(rest + keep).reshape(-1, 2)
-        assert tm.comm_lists("pipe") == sorted(grid.tolist())
+        # pipelines are ported (tests/test_torch_pipeline_dist.py,
+        # test_torch_pipeline_compose_dist.py): the pipe groups are the
+        # JAX mesh's, alone and beside a model or expert axis, one per
+        # (data, expert, seq, model) coordinate; pipe with seq above 1
+        # raises
+        for extra in ({}, {"tp_size": 2}, {"ep_size": 2},
+                      {"tp_size": 2, "ep_size": 2}):
+            jm = jmesh.MeshManager(devices=jax.devices()[:8], **kw, **extra)
+            tm = tmesh.MeshManager(devices=list(range(8)), **kw, **extra)
+            assert tm.shape == jm.shape
+            assert tm.get_pipe_parallel_world_size() == 2
+            names = jm.mesh.axis_names
+            ids = np.vectorize(lambda d: d.id)(jm.mesh.devices)
+            for axes in ("pipe", "model", "expert", tmesh.ZERO_AXES,
+                         tmesh.STEP_AXES):
+                axes = (axes,) if isinstance(axes, str) else axes
+                keep = [names.index(a) for a in axes]
+                rest = [i for i in range(len(names)) if i not in keep]
+                grid = ids.transpose(rest + keep).reshape(
+                    -1, tm.axes_size(axes))
+                assert tm.comm_lists(axes) == sorted(grid.tolist()), axes
         with pytest.raises(NotImplementedError, match="'pipe'.*ROADMAP"):
-            tmesh.MeshManager(devices=list(range(8)), tp_size=2, **kw)
+            tmesh.MeshManager(devices=list(range(8)), sp_size=2, **kw)
         return
     if axis == "expert":
         # expert parallelism is ported (tests/test_torch_moe_dist.py): its
@@ -218,11 +227,18 @@ def test_mesh_from_config_sizes():
             load_config({"tensor_parallel": {"tp_size": 2}}),
             devices=list(range(4)))
         assert mm.shape["model"] == 2 and mm.shape["data"] == 2
-        # tensor parallelism and pipelines are ported, not together
+        # tensor parallelism and pipelines are ported, together too;
+        # a pipeline with sequence parallelism is not
         mm = tmesh.build_mesh_from_config(
             load_config({"pipeline": {"stages": 2}}), devices=list(range(4)))
         assert mm.shape["pipe"] == 2 and mm.shape["data"] == 2
+        mm = tmesh.build_mesh_from_config(
+            load_config({"pipeline": {"stages": 2},
+                         "tensor_parallel": {"tp_size": 2}}),
+            devices=list(range(4)))
+        assert mm.shape["pipe"] == 2 and mm.shape["model"] == 2
+        assert mm.comm_lists("pipe") == [[0, 2], [1, 3]]
         with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tmesh.MeshManager(devices=list(range(4)), pp_size=2, tp_size=2)
+            tmesh.MeshManager(devices=list(range(4)), pp_size=2, sp_size=2)
     finally:
         tmesh.set_global_mesh(old)
