@@ -176,6 +176,24 @@ nor ``deepspeed_tpu``. Phases, each reported on its own line:
     ``PipelineEngine`` at pp 1 in a 1-rank NCCL world against the plain
     engine's first step (loss 1e-6, grad norm 1e-5) and its save at a
     2-layer cut loaded back bitwise.
+17. **fleet** (run after generate) — the serving fleet on llama-1.1b at
+    full width and depth (the serve leg's weights and 16 prompts, 32 new
+    tokens each, prefix cache off), against one ``ServingEngine`` on the
+    same prompts: a 2-replica thread fleet token-exact, then with
+    ``serve.replica_kill`` (raise) on replica 1 mid-stream (requeues, each
+    token emitted once, tokens equal to the unkilled run's, a requeued
+    request's continuation held to the engine serving its replay); the
+    1 + 1 disaggregated pair over one shared pool (token-exact, handoffs
+    counted, the pool back to empty), also with its decode replica killed;
+    a 2-process fleet on the card whose replica 1 dies by
+    ``serve.replica_kill`` in kill mode mid-stream, restarted by the hub,
+    then the pair, the restarted child in it, serving the batch again
+    token-exact; a 2-replica int8
+    thread fleet launching ``quant_matmul``. Each replica's own launch
+    tally (threads) or reported counts (child processes) show
+    ``paged_attention`` ran on every decoding replica; the lines carry the
+    fleet's and the engine's tokens/s, time to first token p50, kill to
+    serving again and each process's peak memory.
 
 ``--old-quant-matmul SRC`` also builds a parent commit's
 ``csrc/quant_matmul.cu`` from SRC and times it against this one in the
@@ -199,7 +217,7 @@ forward's and dq's per-item cost of the host balance, swept at the long
 leg's call.
 
 ``--only PHASE ...`` (``ckpt``, ``remat``, ``hf``, ``bert-masked``,
-``zero``, ``sp``, ``dropout``, ``moe``, ``tp``, ``pp``)
+``zero``, ``sp``, ``dropout``, ``moe``, ``tp``, ``pp``, ``fleet``)
 builds the kernels and runs only those phases, then a result line that
 names them (``"only": [...]``; no kernels line). ``--zero-ranks N`` (a
 host with N GPUs) builds the kernels and runs only the zero leg across N
@@ -8182,6 +8200,369 @@ def pp_compose_worker(out, mode):
     return 0
 
 
+# ---------------------------------------------------------------- fleet
+
+# the serving fleet: thread replicas, the 1 + 1 disaggregated
+# pair, process replicas and an int8 thread fleet, on llama-1.1b at full
+# width and depth. The prefix cache is off: every request then takes the
+# same prefill and decode shapes on every replica, so greedy tokens do not
+# depend on which replica served them
+FLEET_SERVING = dict(SERVING, prefix_cache=False)
+FLEET_KNOBS = {"poll_interval": 0.02, "heartbeat_interval": 0.05,
+               "heartbeat_timeout": 60.0}
+FLEET_NEW = 32
+FLEET_KILL_SKIP = 24        # replica 1's loop iterations before its kill
+FLEET_INT8_NEW = 8
+
+
+def _serve_prompts():
+    """The serve leg's 16 prompts: the same draws as ``phase_serve``."""
+    import numpy as np
+    rng = np.random.default_rng(0)
+    rng.integers(20000, 32000, 100)                # its warm-up request
+    system = list(rng.integers(1, 32000, 2 * SERVING["block_size"]))
+    lens = rng.integers(64, 1025, 16)
+    prompts = []
+    for i, n in enumerate(lens):
+        body = list(rng.integers(1, 32000, int(n)))
+        prompts.append((system + body)[:max(int(n), 65)] if i % 3 == 0
+                       else body)
+    return [[int(t) for t in p] for p in prompts]
+
+
+def _engine_run(srv, prompts, new):
+    """A single engine's tokens, wall seconds and time-to-first-token."""
+    t0 = time.monotonic()
+    reqs = [srv.submit(p, new) for p in prompts]
+    srv.run_until_idle()
+    wall = time.monotonic() - t0
+    for r in reqs:
+        if r.state != "FINISHED" or len(r.output_tokens) != new:
+            fail(f"engine request {r.rid}: {r.state}, "
+                 f"{len(r.output_tokens)} of {new} tokens")
+    return ([list(r.output_tokens) for r in reqs], wall,
+            [r.first_token_ts - r.arrival_ts for r in reqs])
+
+
+def _fleet_run(label, flt, prompts, new, start=False):
+    """Submit every prompt (before ``start()`` when ``start``, so a keyed
+    kill lands while the victim holds work), drain, and hold the
+    ``on_token`` ledger to the outputs (each token emitted once). Returns
+    (requests, outputs, ledger {rid: [(t, tok, replica)]}, wall s, ttft s
+    list)."""
+    ledger = {}
+
+    def on_token(req, tok):
+        ledger.setdefault(req.rid, []).append(
+            (time.monotonic(), int(tok), req.replica))
+
+    t0 = time.monotonic()
+    reqs = [flt.submit(p, new, on_token=on_token) for p in prompts]
+    if start:
+        flt.start()
+    if not flt.drain(timeout=300):
+        fail(f"fleet {label}: requests still outstanding after 300 s")
+    wall = time.monotonic() - t0
+    outs = [list(r.output_tokens) for r in reqs]
+    for r, out in zip(reqs, outs):
+        if r.state != "FINISHED" or len(out) != new:
+            fail(f"fleet {label}: request {r.rid} {r.state} with "
+                 f"{len(out)} of {new} tokens ({r.error})")
+        if [t for _, t, _ in ledger.get(r.rid, [])] != out:
+            fail(f"fleet {label}: request {r.rid}'s on_token ledger is not "
+                 "its output (a token fired twice or never)")
+    ttft = [ledger[r.rid][0][0] - r.arrival_ts for r in reqs]
+    return reqs, outs, ledger, wall, ttft
+
+
+def _hold_fleet_tokens(label, reqs, outs, want, ledger, deaths, ref_srv,
+                       new):
+    """Every request's tokens against the unkilled run's (``want``). A
+    requeued request (``retries`` > 0) resumes by prefilling prompt +
+    its k emitted tokens, where the unkilled run decoded them one at a
+    time: in bf16 those are other matmul shapes, so its continuation is
+    also held to the single engine serving exactly that replay (prompt +
+    k tokens, new - k more). Fails on anything else; returns (requests
+    equal to the unkilled run, requests held to their replay)."""
+    exact, replays = 0, []
+    for r, out, w in zip(reqs, outs, want):
+        if out == w:
+            exact += 1
+            continue
+        if r.retries == 0 or not deaths:
+            fail(f"fleet {label}: request {r.rid} differs from the unkilled "
+                 f"run without a requeue")
+        t_dead = min(d["detected_ts"] for d in deaths)
+        k = sum(1 for ts, _, _ in ledger[r.rid] if ts < t_dead)
+        if out[:k] != w[:k]:
+            fail(f"fleet {label}: request {r.rid}'s {k} tokens before the "
+                 "kill differ from the unkilled run")
+        replays.append((r, out, k))
+    if replays:
+        subs = [ref_srv.submit(r.prompt + out[:k], new - k)
+                for r, out, k in replays]
+        ref_srv.run_until_idle()
+        for (r, out, k), sub in zip(replays, subs):
+            if out[k:] != list(sub.output_tokens):
+                fail(f"fleet {label}: request {r.rid} after its requeue at "
+                     f"token {k} differs from the replay's continuation")
+    return exact, [(r.rid, k) for r, _, k in replays]
+
+
+def _replica_counts(label, flt, replicas, kernel="paged_attention"):
+    """Each replica's launches of ``kernel`` (fleet's per-replica tally);
+    fails unless every listed replica launched it."""
+    counts = {int(i): dict(c) for i, c in flt.kernel_launches.items()}
+    for i in replicas:
+        if counts.get(i, {}).get(kernel, 0) <= 0:
+            fail(f"fleet {label}: replica {i} launched no {kernel} "
+                 f"({counts})")
+    return counts
+
+
+def _proc_fleet(cfg, params, tmp, name, device, env_first=None):
+    from deepspeed_tpu_torch.serving import ProcessFleet
+    serving = dict(FLEET_SERVING, fleet=dict(FLEET_KNOBS, replicas=2,
+                                             placement="process"))
+    t0 = time.monotonic()
+    flt = ProcessFleet(cfg, params, serving=serving, device=device,
+                       workdir=os.path.join(tmp, name),
+                       heartbeat_dir=os.path.join(tmp, name + "-hb"),
+                       log_dir=os.path.join(tmp, name + "-logs"),
+                       env_first=env_first)
+    stage_s = time.monotonic() - t0
+    return flt, stage_s
+
+
+def _child_logs(flt):
+    for i in range(2):
+        path = os.path.join(flt.log_dir or "", f"replica{i}.log")
+        if os.path.exists(path):
+            with open(path, errors="replace") as f:
+                log(f"fleet: replica {i} log tail: "
+                    + " | ".join(f.read().splitlines()[-12:]))
+
+
+def phase_fleet(tmp, eng=None, device="cuda"):
+    """The serving fleet on llama-1.1b (22 layers, bf16, seeded weights,
+    the serve leg's 16 prompts, 32 new tokens each), against one
+    ``ServingEngine`` on the same prompts (prefix cache off everywhere):
+
+    1. a 2-replica thread fleet, token-exact; then again with
+       ``serve.replica_kill`` (raise) on replica 1 mid-stream: at least
+       one requeue, each token emitted once, tokens equal to the unkilled
+       run's (a requeued request's continuation held to its replay);
+    2. the 1 + 1 disaggregated pair over one shared pool: token-exact,
+       every handoff counted, every block back in the pool; then again
+       with its decode replica killed;
+    3. a 2-process fleet on this card whose replica 1 dies by
+       ``serve.replica_kill`` in kill mode mid-stream: the hub restarts
+       the child and the tokens hold; then the pair, the restarted child
+       in it, serves the batch again token-exact;
+    4. a 2-replica int8-weight thread fleet, which launches quant_matmul.
+
+    Launch counters are zeroed before each part and read after it; each
+    replica's own tally (threads) or its reported counts (children) show
+    paged_attention ran on every decoding replica. Prints tokens/s of the
+    fleet and the engine in this process, time to first token p50, kill
+    to serving again, each process's peak memory. ``device="cpu"`` with a
+    small ``eng`` (any object with ``cfg`` and ``params``) runs the same
+    parts on the plain paths, without the launch and memory readings."""
+    import numpy as np
+    import torch
+    from deepspeed_tpu_torch.models.transformer import get_config, init_params
+    from deepspeed_tpu_torch.runtime.heartbeat import read_heartbeats
+    from deepspeed_tpu_torch.serving import ServingEngine, ServingFleet
+    from deepspeed_tpu_torch.testing import chaos
+    t_leg = time.perf_counter()
+    if eng is None:
+        cfg = get_config("llama-1.1b")
+        params = init_params(cfg, torch.Generator(device="cuda")
+                             .manual_seed(0))
+    else:
+        cfg, params = eng.cfg, eng.params
+    on_card = device == "cuda"
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    prompts = _serve_prompts()
+    n_tok = len(prompts) * FLEET_NEW
+    res = {"launches": {}, "tok_s": {}, "ttft_p50_s": {}}
+    p50 = lambda xs: float(np.median(xs))
+
+    ref = ServingEngine(cfg, params, serving=FLEET_SERVING, device=device)
+    _engine_run(ref, [prompts[0][:100]], 4)                  # warm
+    _zero_counters()
+    want, wall, ttft = _engine_run(ref, prompts, FLEET_NEW)
+    res["launches"]["engine"] = _counters()
+    res["tok_s"]["engine"] = n_tok / wall
+    res["ttft_p50_s"]["engine"] = p50(ttft)
+
+    def thread_fleet(label, serving, arm=None, new=FLEET_NEW, ps=prompts):
+        flt = ServingFleet(cfg, params, serving=serving, device=device,
+                           heartbeat_dir=os.path.join(tmp, label + "-hb"))
+        try:
+            if arm:
+                arm()
+            _zero_counters()
+            out = _fleet_run(label, flt, ps, new, start=True)
+            res["launches"][label] = {"process": _counters(),
+                                      "replicas": flt.kernel_launches}
+            return flt, out
+        finally:
+            chaos.reset_for_tests()
+            flt.close()
+
+    # 1. thread replicas
+    serving = dict(FLEET_SERVING, fleet=dict(FLEET_KNOBS, replicas=2))
+    flt, (reqs, outs, ledger, wall, ttft) = thread_fleet("thread", serving)
+    if outs != want:
+        fail("fleet thread: tokens differ from the single engine's")
+    _replica_counts("thread", flt, (0, 1) if on_card else ())
+    res["tok_s"]["thread"] = n_tok / wall
+    res["ttft_p50_s"]["thread"] = p50(ttft)
+    flt, (reqs, outs, ledger, wall, ttft) = thread_fleet(
+        "thread_kill", serving, arm=lambda: chaos.arm(
+            "serve.replica_kill", "raise", match="1", skip=FLEET_KILL_SKIP))
+    if flt.stats["deaths"] != 1 or flt.stats["requeues"] < 1:
+        fail(f"fleet thread_kill: {flt.stats}")
+    d = flt.deaths[0]
+    exact, replays = _hold_fleet_tokens("thread_kill", reqs, outs, want,
+                                        ledger, flt.deaths, ref, FLEET_NEW)
+    _replica_counts("thread_kill", flt, (0, 1) if on_card else ())
+    # the restarted replica's first emitted token
+    restarted = [ts for r in reqs for ts, _, rep in ledger[r.rid]
+                 if rep == 1 and ts > (d["restarted_ts"] or 1e30)]
+    res["thread_kill"] = {
+        "requeues": flt.stats["requeues"], "exact": exact,
+        "replayed": replays, "death": {k: d[k] for k in
+                                       ("replica", "reason", "action")},
+        "restart_s": d["restarted_ts"] - d["detected_ts"],
+        "kill_to_serving_s": (min(restarted) - d["detected_ts"]
+                              if restarted else None)}
+    res["tok_s"]["thread_kill"] = n_tok / wall
+    log(f"fleet: thread requests={len(prompts)} tokens equal the engine's; "
+        f"kill: deaths=1 requeues={flt.stats['requeues']} "
+        f"exact={exact}/{len(prompts)} replayed={replays} "
+        f"restart_s={res['thread_kill']['restart_s']:.3f} "
+        f"kill_to_serving_s={res['thread_kill']['kill_to_serving_s']}")
+
+    # 2. the disaggregated pair
+    serving = dict(FLEET_SERVING, fleet=dict(FLEET_KNOBS, prefill_replicas=1,
+                                             decode_replicas=1))
+    flt, (reqs, outs, ledger, wall, ttft) = thread_fleet("disagg", serving)
+    if outs != want:
+        fail("fleet disagg: tokens differ from the single engine's")
+    if flt._handoff.pushed != len(prompts) or flt._handoff.popped != \
+            len(prompts) or flt._shared.pool.used_count != 0:
+        fail(f"fleet disagg: handoffs {flt._handoff.pushed}/"
+             f"{flt._handoff.popped}, pool used "
+             f"{flt._shared.pool.used_count}")
+    # the prefill role runs the plain gather (prefill is outside the paged
+    # kernel, as in the single engine); the decode role runs the kernel
+    _replica_counts("disagg", flt, (1,) if on_card else ())
+    res["tok_s"]["disagg"] = n_tok / wall
+    res["ttft_p50_s"]["disagg"] = p50(ttft)
+    res["disagg"] = {"handoffs": flt._handoff.pushed}
+    flt, (reqs, outs, ledger, wall, ttft) = thread_fleet(
+        "disagg_kill", serving, arm=lambda: chaos.arm(
+            "serve.replica_kill", "raise", match="1", skip=FLEET_KILL_SKIP))
+    flt._drain_quarantine()
+    if flt.stats["deaths"] != 1 or flt._shared.pool.used_count != 0:
+        fail(f"fleet disagg_kill: {flt.stats}, pool used "
+             f"{flt._shared.pool.used_count}")
+    exact, replays = _hold_fleet_tokens("disagg_kill", reqs, outs, want,
+                                        ledger, flt.deaths, ref, FLEET_NEW)
+    _replica_counts("disagg_kill", flt, (1,) if on_card else ())
+    res["disagg"].update(kill_requeues=flt.stats["requeues"],
+                         kill_exact=exact, kill_replayed=replays)
+    log(f"fleet: disagg handoffs={res['disagg']['handoffs']} tokens equal "
+        f"the engine's, pool balanced; kill: requeues="
+        f"{flt.stats['requeues']} exact={exact}/{len(prompts)} "
+        f"replayed={replays} pool balanced")
+    hub_peak_gb = (torch.cuda.max_memory_allocated() / 2**30 if on_card
+                   else None)
+
+    # 3. process replicas on this card, one fleet: replica 1's first
+    # process dies by serve.replica_kill in kill mode (the spec rides the
+    # first spawn only) while serving the first batch; the pair, one child
+    # restarted, then serves the second batch clean
+    spec = f"serve.replica_kill:kill:match=1:skip={FLEET_KILL_SKIP}"
+    flt, stage_s = _proc_fleet(cfg, params, tmp, "proc", device,
+                               env_first={"DSTPU_CHAOS": spec})
+    try:
+        _zero_counters()
+        reqs, outs, ledger, wall, ttft = _fleet_run(
+            "process_kill", flt, prompts, FLEET_NEW, start=True)
+        deadline = time.monotonic() + 120
+        while not (flt.deaths and flt._replicas[1].ready):
+            if time.monotonic() > deadline:
+                fail(f"fleet process_kill: no restart ({flt.stats})")
+            time.sleep(0.02)
+        d = flt.deaths[0]
+        back_ready = time.monotonic()
+        if d["replica"] != 1 or d["action"] != "restart" or \
+                d["reason"] != "process exit rc=13":
+            fail(f"fleet process_kill: death {d}")
+        exact, replays = _hold_fleet_tokens(
+            "process_kill", reqs, outs, want, ledger, flt.deaths, ref,
+            FLEET_NEW)
+        requeues = flt.stats["requeues"]
+        _zero_counters()          # the replays above ran in this process
+        reqs, outs, ledger, wall, ttft = _fleet_run("process", flt, prompts,
+                                                    FLEET_NEW)
+        if outs != want:
+            fail("fleet process: tokens differ from the single engine's")
+        firsts = [ts for r in reqs for ts, _, rep in ledger[r.rid]
+                  if rep == 1]
+        counts = _replica_counts("process", flt, (0, 1) if on_card else ())
+        if on_card and not flt._replicas[1].launches.get("paged_attention"):
+            fail("fleet process: the restarted child launched no "
+                 "paged_attention")
+        if any(_counters().values()):
+            fail(f"fleet process: the hub launched kernels {_counters()}")
+        peaks = {i: rec.get("gauges", {}).get("peak_mb") for i, rec in
+                 read_heartbeats(flt.heartbeat_dir).items()}
+    except BaseException:
+        _child_logs(flt)
+        raise
+    finally:
+        flt.close()
+    res["launches"]["process"] = {"replicas": counts}
+    res["tok_s"]["process"] = n_tok / wall
+    res["ttft_p50_s"]["process"] = p50(ttft)
+    res["process"] = {
+        "stage_s": stage_s, "child_peak_mb": peaks, "requeues": requeues,
+        "kill_exact": exact, "kill_replayed": replays,
+        "restarts": flt.stats["restarts"],
+        "kill_to_ready_s": back_ready - d["detected_ts"],
+        "kill_to_serving_s": (min(firsts) - d["detected_ts"] if firsts
+                              else None)}
+    log(f"fleet: process kill: restarts={flt.stats['restarts']} requeues="
+        f"{requeues} exact={exact}/{len(prompts)} replayed={replays} "
+        f"kill_to_ready_s={res['process']['kill_to_ready_s']:.2f} "
+        f"kill_to_serving_s={res['process']['kill_to_serving_s']}; then "
+        f"requests={len(prompts)} tokens equal the engine's "
+        f"stage_s={stage_s:.2f} child_peak_mb={json.dumps(peaks)}")
+
+    # 4. int8 weights
+    serving = dict(FLEET_SERVING, weight_dtype="int8",
+                   fleet=dict(FLEET_KNOBS, replicas=2))
+    flt, (reqs, outs, ledger, wall, ttft) = thread_fleet(
+        "int8", serving, new=FLEET_INT8_NEW)
+    _replica_counts("int8", flt, (0, 1) if on_card else ())
+    _replica_counts("int8", flt, (0, 1) if on_card else (), "quant_matmul")
+    res["tok_s"]["int8"] = len(prompts) * FLEET_INT8_NEW / wall
+    res["ttft_p50_s"]["int8"] = p50(ttft)
+    del flt
+    res["hub_peak_gb"] = hub_peak_gb
+    res["total_s"] = time.perf_counter() - t_leg
+    log(f"fleet: tok_s={json.dumps(res['tok_s'])} ttft_p50_s="
+        f"{json.dumps(res['ttft_p50_s'])} hub_peak_gb={hub_peak_gb} "
+        f"launches={json.dumps(res['launches'])} "
+        f"total_s={res['total_s']:.1f}")
+    return res
+
+
 def main(argv=None):
     import argparse
     import torch
@@ -8227,11 +8608,11 @@ def main(argv=None):
                          "serve decode step")
     ap.add_argument("--only", nargs="+", metavar="PHASE",
                     choices=("ckpt", "remat", "hf", "bert-masked", "zero",
-                             "sp", "dropout", "moe", "tp", "pp"),
+                             "sp", "dropout", "moe", "tp", "pp", "fleet"),
                     help="build the kernels, then run only these phases "
                          "(ckpt, remat, hf, bert-masked, zero, sp, dropout, "
-                         "moe, tp, pp) and a result line that names them; "
-                         "no kernels line")
+                         "moe, tp, pp, fleet) and a result line that names "
+                         "them; no kernels line")
     ap.add_argument("--zero-ranks", type=int, metavar="N",
                     help="build the kernels, then run only the zero leg "
                          "across N GPUs of this host (one process each, "
@@ -8386,7 +8767,8 @@ def main(argv=None):
                        "moe": lambda: phase_moe(tmp, smi),
                        "tp": lambda: {"phase": phase_tp(smi),
                                       "tp4_calls": time_tp_kernels()},
-                       "pp": lambda: phase_pp(tmp)
+                       "pp": lambda: phase_pp(tmp),
+                       "fleet": lambda: phase_fleet(tmp)
                        }[phase]()
                 log(f"time: {phase} " + json.dumps(res, default=str))
         log(f"total_s={time.perf_counter() - t0:.1f}")
@@ -8413,6 +8795,11 @@ def main(argv=None):
     if old_fwd:
         ab_generate(old_fwd, eng.cfg, eng.params)
     torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        fleet = phase_fleet(tmp, eng)
+    torch.cuda.empty_cache()
+    log("time: fleet " + json.dumps({k: v for k, v in fleet.items()
+                                     if k != "launches"}, default=str))
     log("time: serve " + json.dumps(rates))
     log("time: generate " + json.dumps(gen_rates))
     log("time: int8 " + json.dumps(int8_rates))
@@ -8571,6 +8958,15 @@ def main(argv=None):
                                   pp["launches"].items()}
         if kname == "quant_matmul":
             row["launches_by_path"] = qm_by_path
+        if kname in ("paged_attention", "quant_matmul"):
+            # the fleet leg's launches by part: per replica (a thread
+            # replica's own tally, a child process's report), and the
+            # process-wide count of the thread parts
+            row["launches_fleet"] = {
+                part: {str(i): c.get(kname, 0)
+                       for i, c in v["replicas"].items()}
+                for part, v in fleet["launches"].items()
+                if isinstance(v, dict) and "replicas" in v}
         row.update(t)
         kernels.append(row)
         both = (f" [bytes {t['bound_bytes_ms']:.4f}, operations "

@@ -236,30 +236,75 @@ class InferenceEngine:
 
     def serve(self, serving=None, heartbeat=None):
         """The continuous-batching serving loop over this engine's weights:
-        a ``serving.ServingEngine`` with a paged KV pool, FIFO admission,
-        prefix-cache reuse and one fixed-shape decode step. ``serving``
-        overrides the config's ``serving`` section (dict or
-        ServingConfig)."""
+        a ``serving.ServingEngine`` with a paged KV pool, tiered FIFO
+        admission, prefix-cache reuse and one fixed-shape decode step.
+        ``serving`` overrides the config's ``serving`` section (dict or
+        ServingConfig); ``heartbeat`` (a ``runtime.heartbeat.
+        HeartbeatWriter``) receives a SERVE record every loop iteration.
+        When the config arms ``watchdog.serve_timeout``, the stall
+        watchdog supervises the loop (rc 117 on a wedged iteration).
+
+        With ``serving.fleet.replicas > 1``, both ``prefill_replicas`` and
+        ``decode_replicas``, ``autoscale.enabled`` or ``placement:
+        "process"`` this returns a STARTED fleet instead
+        (``serving.make_fleet``: a thread ``ServingFleet`` or a
+        ``ProcessFleet``), supervised through per-replica heartbeats; the
+        in-process stall watchdog stays off (its rc-117 exit would take
+        every replica). Close it (or use it as a context manager) so the
+        replicas stamp EXIT."""
         from ..config.config import ServingConfig
         from ..models.generation import check_decodable
-        from ..serving.engine import ServingEngine
+        from ..utils.logging import logger
         check_decodable(self.cfg)
         scfg = serving if serving is not None else self.config.serving
         if isinstance(scfg, dict):
             scfg = ServingConfig(**scfg)
         fleet = scfg.fleet
-        if (fleet.replicas > 1 or fleet.prefill_replicas > 0
-                or fleet.decode_replicas > 0 or fleet.autoscale.enabled
+        if (fleet.prefill_replicas > 0) != (fleet.decode_replicas > 0):
+            # one-sided disaggregation fails here, not by falling through
+            # to a single engine
+            raise ValueError(
+                "serving.fleet: prefill_replicas and decode_replicas "
+                "must both be > 0 for disaggregated serving (got "
+                f"{fleet.prefill_replicas}/{fleet.decode_replicas})")
+        disagg = fleet.prefill_replicas > 0
+        # autoscale.enabled forces the fleet even at replicas=1: the
+        # single engine has no supervisor to grow it
+        if (fleet.replicas > 1 or disagg or fleet.autoscale.enabled
                 or str(fleet.placement) == "process"):
-            raise NotImplementedError(
-                "serving.fleet (replicas, disaggregated roles, autoscale, "
-                "process placement) " + _LATER)
+            if self.tp is not None:
+                raise ValueError(
+                    "serving.fleet serves replicas of a whole model on "
+                    "one device; it does not combine with "
+                    "tensor_parallel (serve one engine per model group)")
+            from ..serving.procfleet import make_fleet
+            hb_dir = fleet.heartbeat_dir
+            if heartbeat is not None and hb_dir is None:
+                # the fleet writes per-replica records and run-scopes its
+                # channel, so it takes a `fleet/` subdirectory of the
+                # caller's channel rather than its rank file
+                import os
+                hb_dir = os.path.join(heartbeat.directory, "fleet")
+                logger.warning(
+                    "serve(): fleet mode replaces the provided heartbeat "
+                    "writer with per-replica writers under %s — point "
+                    "`dstpu health` there", hb_dir)
+            if self.config.watchdog.serve_timeout > 0:
+                logger.warning(
+                    "serve(): watchdog.serve_timeout is not armed under "
+                    "a fleet — its rc-117 exit would take every replica; "
+                    "the fleet supervisor (fleet.heartbeat_timeout) "
+                    "supervises replicas instead")
+            return make_fleet(self.cfg, self.params, serving=scfg,
+                              heartbeat_dir=hb_dir,
+                              device=self.device).start()
+        from ..serving.engine import ServingEngine
+        eng = ServingEngine(self.cfg, self.params, serving=scfg,
+                            heartbeat=heartbeat, device=self.device,
+                            tp=self.tp)
         if self.config.watchdog.serve_timeout > 0:
-            raise NotImplementedError("watchdog.serve_timeout (the serving "
-                                      "stall watchdog) " + _LATER)
-        return ServingEngine(self.cfg, self.params, serving=scfg,
-                             heartbeat=heartbeat, device=self.device,
-                             tp=self.tp)
+            eng.arm_watchdog(self.config.watchdog.serve_timeout)
+        return eng
 
 
 def _tp_context(cfg, tp_size: int, rules, device):

@@ -525,7 +525,7 @@ def _fwd(q, k, v, sched, scale):
     lse = torch.empty(q.shape[:3], dtype=torch.float32, device=q.device)
     cta_ptr, cta_items = sched.cta_slots("q", build.sm_count(q.device))
     lib = _lib()
-    block_sparse_attention_fwd.launches += 1
+    build.count_launch(block_sparse_attention_fwd)
     err = lib.block_sparse_attention_fwd_launch(
         _ptr(q), _ptr(k), _ptr(v), _ptr(d["layout"]), _ptr(d["q_ptr"]),
         _ptr(d["q_idx"]), _ptr(d["q_flags"]), _ptr(d["q_order"]),
@@ -557,7 +557,7 @@ def _dq(q, k, v, do, lse, delta, sched, scale):
     dq = torch.empty_like(q)
     cta_ptr, cta_items = sched.cta_slots("q", build.sm_count(q.device))
     lib = _lib()
-    block_sparse_attention_bwd_dq.launches += 1
+    build.count_launch(block_sparse_attention_bwd_dq)
     err = lib.block_sparse_attention_bwd_dq_launch(
         _ptr(q), _ptr(k), _ptr(v), _ptr(do), _ptr(lse), _ptr(delta),
         _ptr(d["layout"]), _ptr(d["q_ptr"]), _ptr(d["q_idx"]),
@@ -576,7 +576,7 @@ def _dkv(q, k, v, do, lse, delta, sched, scale):
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     cta_ptr, cta_items = sched.cta_slots("k", build.sm_count(q.device))
     lib = _lib()
-    block_sparse_attention_bwd_dkv.launches += 1
+    build.count_launch(block_sparse_attention_bwd_dkv)
     err = lib.block_sparse_attention_bwd_dkv_launch(
         _ptr(q), _ptr(k), _ptr(v), _ptr(do), _ptr(lse), _ptr(delta),
         _ptr(d["layout"]), _ptr(d["k_ptr"]), _ptr(d["k_idx"]),

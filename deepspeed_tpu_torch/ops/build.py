@@ -15,6 +15,7 @@ host without ``nvcc`` or a GPU, and only a launch builds.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -36,6 +37,34 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _libs: Dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()
 _sms: Dict[int, int] = {}
+_count_lock = threading.Lock()
+_scope = threading.local()
+
+
+def count_launch(fn) -> None:
+    """One launch of ``fn``'s kernel (``fn`` is the wrapper that carries
+    the ``launches`` attribute): the count rises by one under one lock,
+    since replicas of a serving fleet launch from several threads at once,
+    and so does the calling thread's tally when :func:`launch_scope` has
+    one open."""
+    with _count_lock:
+        fn.launches += 1
+        tally = getattr(_scope, "tally", None)
+        if tally is not None:
+            tally[fn.__name__] = tally.get(fn.__name__, 0) + 1
+
+
+@contextlib.contextmanager
+def launch_scope(tally: Dict[str, int]):
+    """Count this thread's launches into ``tally`` too ({wrapper name:
+    launches}) while the block runs: a fleet replica's worker thread
+    keeps its own counts this way."""
+    prev = getattr(_scope, "tally", None)
+    _scope.tally = tally
+    try:
+        yield tally
+    finally:
+        _scope.tally = prev
 
 
 def _nvcc() -> str:

@@ -188,7 +188,7 @@ def _launch(q, k_cache, v_cache, cur_len, *, window, sm_scale, layer_idx,
     lib = _lib()
     ptr = lambda t: None if t is None else t.data_ptr()
     stream = torch.cuda.current_stream(dev).cuda_stream
-    decode_attention.launches += 1
+    build.count_launch(decode_attention)
     err = lib.decode_attention_launch(
         ptr(q), ptr(k_cache), ptr(v_cache), ptr(slopes), ptr(out),
         B, nh, T, max_len, hd, layer, cur_len, win,

@@ -265,7 +265,7 @@ def _launch(q, k, v, *, causal, sm_scale, mask, alibi_slopes, window,
     scale = sm_scale if sm_scale is not None else 1.0 / float(np.sqrt(D))
     lib = _lib()
     stream = torch.cuda.current_stream(dev).cuda_stream
-    flash_attention_fwd.launches += 1
+    build.count_launch(flash_attention_fwd)
     err = lib.flash_attention_fwd_launch(
         _ptr(q), _ptr(k), _ptr(v), _ptr(kvm), _ptr(qkm), _ptr(slopes),
         _ptr(o), _ptr(lse), B * H, H, S, Sk, D, int(bool(causal)),
@@ -357,7 +357,7 @@ def _bwd_args(q, k, v, do, lse, delta, *, causal, sm_scale, mask,
 def _launch_dq(q, k, ptrs, ints, tail, keep):
     lib = _bwd_lib()
     dq = torch.empty_like(q)
-    flash_attention_bwd_dq.launches += 1
+    build.count_launch(flash_attention_bwd_dq)
     err = lib.flash_attention_bwd_dq_launch(*ptrs, dq.data_ptr(), *ints,
                                             *tail)
     build.check(lib, "flash_attention_bwd", err)
@@ -367,7 +367,7 @@ def _launch_dq(q, k, ptrs, ints, tail, keep):
 def _launch_dkv(q, k, ptrs, ints, tail, keep):
     lib = _bwd_lib()
     dk, dv = torch.empty_like(k), torch.empty_like(k)
-    flash_attention_bwd_dkv.launches += 1
+    build.count_launch(flash_attention_bwd_dkv)
     err = lib.flash_attention_bwd_dkv_launch(*ptrs, dk.data_ptr(),
                                              dv.data_ptr(), *ints, *tail)
     build.check(lib, "flash_attention_bwd", err)

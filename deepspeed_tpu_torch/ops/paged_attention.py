@@ -188,7 +188,7 @@ def _launch(q, k_pool, v_pool, block_tables, context_lens, *, sm_scale,
     lib = _lib()
     ptr = lambda t: None if t is None else t.data_ptr()
     stream = torch.cuda.current_stream(dev).cuda_stream
-    paged_attention.launches += 1
+    build.count_launch(paged_attention)
     err = lib.paged_attention_launch(
         ptr(q), ptr(k_pool), ptr(v_pool), ptr(k_scale), ptr(v_scale),
         ptr(block_tables), ptr(context_lens), ptr(slopes), ptr(out),

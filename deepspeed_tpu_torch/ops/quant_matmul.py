@@ -220,7 +220,7 @@ def _launch(x, q, scales):
     xvec = K % 8 == 0 and xf.data_ptr() % 16 == 0
     lib = _lib()
     stream = torch.cuda.current_stream(dev).cuda_stream
-    quant_matmul.launches += 1
+    build.count_launch(quant_matmul)
     err = lib.quant_matmul_launch(
         xf.data_ptr(), q.data_ptr(), scales.data_ptr(), out.data_ptr(),
         M, K, N, nkb, block, _REGIMES[plan.regime][0], plan.tiles,

@@ -19,9 +19,17 @@ same scheduler decisions and block tables, its heads' pools, its shards
 of the weights, and the gathered logits, from which identically seeded
 generators pick the same tokens on every rank.
 
-Not in this slice: the heartbeat channel (passing one raises
-``NotImplementedError``), the stall watchdog, and the fleet /
-disaggregated roles.
+Supervision: each loop iteration stamps a ``SERVE`` heartbeat record
+(runtime/heartbeat.py) with queue / active-lane gauges, and
+``watchdog.serve_timeout`` arms the stall watchdog (rc 117 on a wedged
+iteration, :meth:`ServingEngine.arm_watchdog`). The fleet
+(serving/fleet.py, serving/procfleet.py) and the disaggregated roles
+(serving/disagg.py) drive the engine through its fleet hooks:
+``has_work``, ``wants_dispatch``, ``held_state``, ``preempt_request``,
+``cancel_request`` and the ``_admission_capacity`` / ``_chunked_mode`` /
+``_install`` override points. Chaos failpoints: ``serve.chunk`` per
+prefill chunk, ``serve.oom`` in ``BlockPool.alloc``, ``serve.enqueue``
+in ``Scheduler.submit``.
 """
 
 from __future__ import annotations
@@ -36,6 +44,8 @@ import torch
 
 from ..models.generation import ensure_scan_layout
 from ..models.transformer import TransformerConfig
+from ..runtime.heartbeat import PHASE_EXIT, PHASE_SERVE
+from ..testing import chaos
 from ..utils.device import resolve_device
 from ..utils.logging import log_dist, logger
 from .kv_cache import NULL_BLOCK, BlockPoolExhausted, SharedPagedState
@@ -48,10 +58,6 @@ PyTree = Any
 _KV_DTYPES = {"bf16": torch.bfloat16, "bfloat16": torch.bfloat16,
               "f32": torch.float32, "float32": torch.float32,
               "int8": torch.int8, None: None}
-
-_LATER_SLICE = ("is not ported to deepspeed_tpu_torch yet (a later slice "
-                "of the port; see ROADMAP.md)")
-
 
 def resolve_kv_dtype(serving):
     """``serving.kv_cache_dtype`` -> torch dtype (None = model dtype)."""
@@ -117,7 +123,12 @@ class ServingEngine:
     a dict of its fields. ``generator``: the sampling generator (default:
     one on ``device`` seeded with ``serving.seed``). ``tp``: this rank's
     ``TPContext`` when ``params`` are its model-axis shards (module
-    docstring)."""
+    docstring). ``heartbeat``: a ``runtime.heartbeat.HeartbeatWriter``
+    that every loop iteration stamps."""
+
+    #: heartbeat-gauge role tag; the disaggregated roles override it
+    #: (``dstpu health`` shows ``role=PREFILL`` / ``role=DECODE``)
+    role: Optional[str] = None
 
     def __init__(self,
                  cfg: TransformerConfig,
@@ -129,8 +140,6 @@ class ServingEngine:
                  shared: Optional[SharedPagedState] = None,
                  tp=None):
         from ..config.config import ServingConfig
-        if heartbeat is not None:
-            raise NotImplementedError("the serving heartbeat " + _LATER_SLICE)
         if serving is None:
             serving = ServingConfig()
         elif isinstance(serving, dict):
@@ -172,12 +181,15 @@ class ServingEngine:
                                    .batch_highwater)
         self._slots: List[Optional[_Seq]] = [None] * self.max_batch
         self._prefilling: Optional[_Prefilling] = None
+        self._warming = False      # role warms: no prefix-cache inserts
         self._chunk = int(serving.prefill_chunk_tokens)
         self._use_filters = bool(serving.sampling_filters)
         if generator is None:
             generator = torch.Generator(device=self.device)
             generator.manual_seed(int(serving.seed))
         self._gen = generator
+        self._heartbeat = heartbeat
+        self._watchdog = None
         self._lock = threading.Lock()
         self.steps = 0                     # loop iterations executed
         self.stats: Dict[str, int] = {
@@ -279,6 +291,85 @@ class ServingEngine:
         return (self.active == 0 and self.scheduler.pending == 0
                 and self._prefilling is None)
 
+    @property
+    def has_work(self) -> bool:
+        """Would a :meth:`step` make progress? (fleet worker pacing)."""
+        return bool(self.active or self.scheduler.pending
+                    or self._prefilling is not None)
+
+    @property
+    def backpressured(self) -> bool:
+        """After a step: is the engine waiting on blocks it does not hold
+        (a queued request, no lane running, nothing prefilling — its head
+        does not fit a pool that others hold)? A fleet worker paces such
+        an engine like an idle one instead of spinning on it."""
+        return (self.active == 0 and self._prefilling is None
+                and self.scheduler.pending > 0)
+
+    @property
+    def wants_dispatch(self) -> bool:
+        """Should the fleet hand this engine another request? Keeping the
+        per-engine queue empty is the load balancing."""
+        return self.scheduler.pending == 0 and self.active < self.max_batch
+
+    def held_state(self, timeout: float = 1.0):
+        """Death-path collection (disaggregated fleet): detach and return
+        ``(block_lists, requests)`` for every sequence this engine holds —
+        decode lanes and any in-flight prefill — so a dead replica's share
+        of a shared pool can be released once its thread is gone. None if
+        the engine lock cannot be taken within ``timeout`` (a wedge inside
+        a step): the caller parks and retries."""
+        if not self._lock.acquire(timeout=timeout):
+            return None
+        try:
+            blocks: List[List[int]] = []
+            reqs: List[Request] = []
+            if self._prefilling is not None:
+                blocks.append(self._prefilling.blocks)
+                reqs.append(self._prefilling.req)
+                self._prefilling = None
+            for i, s in enumerate(self._slots):
+                if s is not None:
+                    blocks.append(s.blocks)
+                    reqs.append(s.req)
+                    self._slots[i] = None
+            self._collect_held(blocks, reqs)
+            return blocks, reqs
+        finally:
+            self._lock.release()
+
+    def _collect_held(self, blocks, reqs) -> None:
+        """Subclass hook: detach role-specific block holders (runs under
+        the engine lock inside :meth:`held_state`)."""
+
+    def preempt_request(self, req: Request, timeout: float = 1.0) -> bool:
+        """Evict one running decode lane: its blocks return to the pool,
+        the slot frees, and the request reverts to QUEUED with its tokens
+        intact (the fleet requeues it from prompt + emitted). Only a
+        RUNNING lane is preemptible. False when the request holds no lane
+        here or the lock cannot be taken within ``timeout``."""
+        if not self._lock.acquire(timeout=timeout):
+            return False
+        try:
+            for i, s in enumerate(self._slots):
+                if s is not None and s.req is req:
+                    self._slots[i] = None
+                    self.pool.release(s.blocks)
+                    req.state = QUEUED
+                    self.stats["preempted"] += 1
+                    return True
+            return False
+        finally:
+            self._lock.release()
+
+    def cancel_request(self, req: Request, timeout: float = 1.0) -> bool:
+        """Withdraw a request (the process fleet's ``cancel`` command):
+        drop it from the queue if still queued, else evict its lane. Never
+        concludes it — the hub owns its ledger."""
+        if self.scheduler.withdraw(req):
+            return True
+        return self.preempt_request(req, timeout=timeout)
+
     def step(self) -> int:
         """One loop iteration: admit (whole prefill, or start a chunked
         one), advance an in-flight chunked prefill by at most one chunk,
@@ -291,6 +382,7 @@ class ServingEngine:
                 done += self._decode_step()
             self.steps += 1
             self.stats["timeout"] = self.scheduler.timed_out
+            self._stamp_heartbeat()
             return done
 
     def run_until_idle(self, max_steps: int = 100_000) -> None:
@@ -301,6 +393,29 @@ class ServingEngine:
             self.step()
         raise RuntimeError(f"serving loop not idle after {max_steps} steps")
 
+    def run_forever(self, stop=None, idle_wait: float = 0.01) -> None:
+        """The long-lived server entry: iterate until ``stop`` (a
+        ``threading.Event``) is set, idle-waiting (and still stamping the
+        SERVE heartbeat) between requests; :meth:`close` stamps EXIT at
+        the end, so a finished loop reads as a conclusion, not silence."""
+        stop = stop if stop is not None else threading.Event()
+        try:
+            while not stop.is_set():
+                if self.idle:
+                    with self._lock:
+                        self._stamp_heartbeat()
+                    stop.wait(idle_wait)
+                    continue
+                self.step()
+        finally:
+            self.close()
+
+    def __enter__(self) -> "ServingEngine":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.close()
+
     def generate_batch(self, prompts: Sequence[Sequence[int]],
                        max_new_tokens: int = 32, temperature: float = 0.0,
                        eos_token_id=None) -> List[List[int]]:
@@ -310,6 +425,42 @@ class ServingEngine:
         self.run_until_idle()
         return [r.output_tokens for r in reqs]
 
+    # -- supervision -----------------------------------------------------------
+
+    def arm_watchdog(self, serve_timeout: float, **kw):
+        """A loop that stops iterating for ``serve_timeout`` seconds is a
+        wedge: stack dumps, a STALLED heartbeat record, exit rc 117
+        (runtime/watchdog.py)."""
+        from ..runtime.watchdog import StallWatchdog
+        self._watchdog = StallWatchdog(
+            stall_timeout=0.0, phase_timeouts={PHASE_SERVE: serve_timeout},
+            phase=PHASE_SERVE, heartbeat=self._heartbeat, **kw).start()
+        return self._watchdog
+
+    def close(self) -> None:
+        if self._watchdog is not None:
+            self._watchdog.stop()
+            self._watchdog = None
+        if self._heartbeat is not None:
+            try:
+                self._heartbeat.stamp_terminal(PHASE_EXIT)
+            except Exception:
+                pass
+
+    def _stamp_heartbeat(self) -> None:
+        if self._watchdog is not None:
+            self._watchdog.beat(self.steps)
+        if self._heartbeat is not None:
+            try:
+                gauges = {"queue": self.scheduler.pending,
+                          "active": self.active,
+                          "lanes": self.max_batch}
+                if self.role is not None:
+                    gauges["role"] = self.role
+                self._heartbeat.write(PHASE_SERVE, self.steps, extra=gauges)
+            except Exception:
+                pass                      # diagnostics must not kill serving
+
     # -- admission -------------------------------------------------------------
 
     def _free_slot(self) -> Optional[int]:
@@ -318,19 +469,29 @@ class ServingEngine:
                 return i
         return None
 
+    def _admission_capacity(self) -> bool:
+        """Can a new prefill begin? Base engine: a free decode lane (the
+        finished prefill needs one); the disaggregated roles override."""
+        return self._free_slot() is not None
+
+    def _chunked_mode(self) -> bool:
+        return self._chunk > 0
+
     def _admit(self) -> int:
         """Fill free lanes from the queue head; returns requests that
         finished during admission (max_new_tokens == 1). With chunked
-        prefill, admission only starts one prefill per iteration."""
+        prefill, admission only starts one prefill per iteration. A
+        transient allocation failure (a full pool, chaos ``serve.oom``)
+        puts the request back at the head."""
         self.scheduler.shed_expired()
         done = 0
-        if self._chunk > 0:
-            if self._prefilling is None and self._free_slot() is not None:
+        if self._chunked_mode():
+            if self._prefilling is None and self._admission_capacity():
                 req = self.scheduler.next_admission()
                 if req is not None:
                     try:
                         self._prefilling = self._start_prefill(req)
-                    except BlockPoolExhausted as e:
+                    except (BlockPoolExhausted, chaos.ChaosError) as e:
                         logger.warning("serving: admission of request %d "
                                        "deferred (%s)", req.rid, e)
                         self.scheduler.requeue_front(req)
@@ -341,7 +502,7 @@ class ServingEngine:
                 return done
             try:
                 done += self._prefill_request(req)
-            except BlockPoolExhausted as e:
+            except (BlockPoolExhausted, chaos.ChaosError) as e:
                 logger.warning("serving: admission of request %d deferred "
                                "(%s)", req.rid, e)
                 self.scheduler.requeue_front(req)
@@ -394,22 +555,28 @@ class ServingEngine:
                               *filt)[0])
 
     def _advance_prefill(self) -> int:
-        """Run at most one chunk of the in-flight chunked prefill; on the
-        final chunk the next token is sampled and the sequence installed
-        in a decode lane."""
+        """Run at most one chunk of the in-flight chunked prefill (the
+        ``serve.chunk`` failpoint fires per chunk); on the final chunk the
+        next token is sampled and the sequence installed — in a decode
+        lane here, into the block handoff for a prefill role."""
         pf = self._prefilling
         if pf is None:
             return 0
         req = pf.req
-        n = min(self._chunk, pf.total - pf.done)
+        n = (pf.total - pf.done if self._chunk <= 0
+             else min(self._chunk, pf.total - pf.done))
         try:
+            chaos.failpoint("serve.chunk")
             tok = self._run_prefill(req, pf.table, pf.done,
                                     req.prompt[pf.done:pf.done + n])
         except BaseException as e:
-            # a failed chunk must not leak the lifetime allocation
+            # a failed chunk must not leak the lifetime allocation; a
+            # chaos or interrupt escape leaves the request QUEUED for a
+            # requeue path, a plain Exception fails the request
             self._prefilling = None
             self.pool.release(pf.blocks)
-            if isinstance(e, Exception):
+            if isinstance(e, Exception) \
+                    and not isinstance(e, chaos.ChaosError):
                 self.stats["failed"] += 1
                 req._finish(FAILED, error=repr(e))
             else:
@@ -426,22 +593,28 @@ class ServingEngine:
 
     def _first_token(self, seq: _Seq) -> int:
         """Record a finished prefill's sampled token, cache its prompt's
-        full blocks, then finish it or place it in a free lane."""
+        full blocks (not for a role's warm-up prompt), then finish it or
+        install it."""
         req = seq.req
         req.first_token_ts = time.monotonic()
         req.output_tokens.append(seq.last_tok)
         req.prefill_progress = len(req.prompt)
         self.stats["tokens_generated"] += 1
-        if self.prefix_cache is not None:
+        if self.prefix_cache is not None and not self._warming:
             self.prefix_cache.insert(
                 req.prompt, seq.blocks[:len(req.prompt) // self.block_size])
         if req.max_new_tokens <= 1 or (req.eos_token_id is not None
                                        and seq.last_tok == req.eos_token_id):
             self._finish(seq)
             return 1
-        req.state = RUNNING
-        self._slots[self._free_slot()] = seq
+        self._install(seq)
         return 0
+
+    def _install(self, seq: _Seq) -> None:
+        """Place a fully prefilled sequence where decode will find it — a
+        free lane here; the prefill role hands it off instead."""
+        seq.req.state = RUNNING
+        self._slots[self._free_slot()] = seq
 
     def _filter_args(self, *reqs):
         """(top_k [n] i32, top_p [n] f32); 0 / 1.0 = off."""

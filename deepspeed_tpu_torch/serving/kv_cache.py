@@ -1,7 +1,6 @@
 """Paged KV cache: a fixed pool of blocks + per-sequence block tables.
 
-Counterpart of ``deepspeed_tpu/serving/kv_cache.py`` (without its chaos
-failpoints):
+Counterpart of ``deepspeed_tpu/serving/kv_cache.py``:
 
 * one preallocated device pool ``[L, nh, num_blocks * block_size, hd]``
   (per k and v) shared by every in-flight sequence;
@@ -23,6 +22,8 @@ import threading
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import torch
+
+from ..testing import chaos
 
 #: physical block 0 — the write sink for padded lanes, never allocated
 NULL_BLOCK = 0
@@ -80,7 +81,9 @@ class BlockPool:
 
     def alloc(self, n: int) -> List[int]:
         """``n`` fresh private blocks (refcount 1); raises
-        :class:`BlockPoolExhausted` when the pool can't cover them."""
+        :class:`BlockPoolExhausted` when the pool can't cover them — and
+        the ``serve.oom`` failpoint can force that path."""
+        chaos.failpoint("serve.oom")
         with self._mu:
             if n > len(self._free):
                 raise BlockPoolExhausted(
@@ -116,6 +119,9 @@ class BlockPool:
                 else:
                     del self._refs[b]
                     self._free.append(b)
+
+    def refcount(self, block: int) -> int:
+        return self._refs.get(block, 0)
 
 
 def _chain_keys(tokens: Sequence[int], block_size: int,
@@ -227,6 +233,10 @@ class PrefixCache:
                 self.pool.release(blocks)
                 evicted += 1
         return evicted
+
+    def clear(self) -> None:
+        """Drop every unused cached prefix (its blocks' cache reference)."""
+        self.evict(self.pool.num_blocks)
 
 
 class SharedPagedState:

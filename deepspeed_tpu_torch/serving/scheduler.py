@@ -1,7 +1,6 @@
 """Continuous-batching request scheduler: admission + tiered FIFO queue.
 
-Counterpart of ``deepspeed_tpu/serving/scheduler.py`` (without its chaos
-failpoints). Contract:
+Counterpart of ``deepspeed_tpu/serving/scheduler.py``. Contract:
 
 * **Admission by block budget.** A request is admitted only when the pool
   can cover its whole lifetime — ``ceil((prompt + max_new - 1) /
@@ -18,6 +17,11 @@ failpoints). Contract:
   batch-tier submissions are rejected; at a full queue a higher-tier
   arrival sheds the youngest queued request of the lowest tier below it,
   else the arrival is rejected — machine-readably either way.
+
+Failpoints (testing/chaos.py): ``serve.enqueue`` fires in
+:meth:`Scheduler.submit` (an exploding enqueue surfaces to the caller);
+``serve.oom`` fires inside ``BlockPool.alloc`` (the engine treats it as a
+full pool: the request stays queued).
 """
 
 from __future__ import annotations
@@ -28,13 +32,18 @@ import threading
 import time
 from collections import deque
 from dataclasses import dataclass, field
-from typing import Callable, Dict, List, Optional
+from typing import Callable, Dict, Iterator, List, Optional
 
+from ..testing import chaos
 from ..utils.logging import logger
 from .kv_cache import BlockPool, PrefixCache
 
-QUEUED, PREFILL, RUNNING, FINISHED, FAILED, TIMEOUT, SHED = (
-    "QUEUED", "PREFILL", "RUNNING", "FINISHED", "FAILED", "TIMEOUT", "SHED")
+#: request lifecycle states. HANDOFF is the disaggregated window between a
+#: finished prefill and its install in a decode lane (serving/disagg.py):
+#: the request's blocks sit in the handoff queue with its sampler state.
+QUEUED, PREFILL, RUNNING, FINISHED, FAILED, TIMEOUT, HANDOFF, SHED = (
+    "QUEUED", "PREFILL", "RUNNING", "FINISHED", "FAILED", "TIMEOUT",
+    "HANDOFF", "SHED")
 
 #: priority tiers, highest first. Rank 0 dispatches first.
 LATENCY, STANDARD, BATCH = "latency", "standard", "batch"
@@ -153,6 +162,10 @@ class TieredQueue:
     def __len__(self) -> int:
         return sum(len(q) for q in self._tiers.values())
 
+    def __iter__(self) -> Iterator:
+        for t in PRIORITY_TIERS:
+            yield from self._tiers[t]
+
     def peeknext(self, now: Optional[float] = None):
         """The one logical head: the best (effective rank, arrival) among
         the tier heads; a head aged past ``aging_s`` competes at rank 0."""
@@ -173,6 +186,12 @@ class TieredQueue:
                 best_key, best = key, head
         return best
 
+    def popnext(self, now: Optional[float] = None):
+        head = self.peeknext(now)
+        if head is not None:
+            self._tiers[self._tier(head)].popleft()
+        return head
+
     def remove(self, req) -> bool:
         """Remove a specific request; True iff it was queued."""
         q = self._tiers[self._tier(req)]
@@ -190,6 +209,16 @@ class TieredQueue:
                 expired.extend(r for r in q if r.expired(now))
                 self._tiers[tier] = deque(r for r in q if not r.expired(now))
         return expired
+
+    def pressured(self, window_s: float, now: float) -> int:
+        """Deadline pressure: queued requests whose remaining TTL is
+        inside ``window_s`` (the autoscaler's second trigger); 0 when the
+        window is off."""
+        if window_s <= 0:
+            return 0
+        return sum(1 for q in self._tiers.values() for r in q
+                   if r.deadline_ts is not None
+                   and (r.deadline_ts - now) < window_s)
 
     def shed_victim(self, arriving_rank: int):
         """The youngest queued request of the lowest tier strictly below
@@ -242,7 +271,9 @@ class Scheduler:
         self.shed = 0                # requests shed by the overload ladder
 
     def submit(self, req: Request) -> Request:
-        """Enqueue; raises on a full queue or an over-long request."""
+        """Enqueue; raises on a full queue or an over-long request (the
+        ``serve.enqueue`` failpoint fires first)."""
+        chaos.failpoint("serve.enqueue")
         check_admissible(len(req.prompt), req.max_new_tokens,
                          self.pool.block_size, self.pool.num_blocks,
                          self.max_model_len, label=f"request {req.rid}")
@@ -301,6 +332,12 @@ class Scheduler:
                 return None
             self._queue.remove(head)
             return head
+
+    def withdraw(self, req: Request) -> bool:
+        """Remove a still-queued request without concluding it (the
+        process fleet's cancel path); True iff it was queued here."""
+        with self._lock:
+            return self._queue.remove(req)
 
     def requeue_front(self, req: Request) -> None:
         """Put an admission back at the head (transient allocation

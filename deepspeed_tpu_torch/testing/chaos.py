@@ -1,9 +1,11 @@
 """Fault-injection harness: named failpoints for crash-safety tests
 (counterpart of ``deepspeed_tpu/testing/chaos.py``: the same spec grammar,
 catalog and modes). In this package the ``ckpt.*`` failpoints of
-``runtime/checkpointing.py`` are instrumented; the ``run.*``,
-``sentinel.*``, ``serve.*``, ``net.*`` and ``pipe.*`` names stay in the
-catalog for the modules that later slices port (see ROADMAP.md).
+``runtime/checkpointing.py``, the ``serve.*`` ones of the serving engine,
+scheduler, block pool, disaggregated roles and fleets, ``hb.write`` and
+the ``net.*`` ones of the transfer fabric are instrumented; the
+``run.*``, ``sentinel.*`` and ``pipe.*`` names stay in the catalog for
+the modules that later slices port (see ROADMAP.md).
 
 The checkpoint stack is only provably restartable if a test can crash a
 real save at EVERY stage — mid-array-write, after the data but before the

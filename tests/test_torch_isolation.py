@@ -270,15 +270,22 @@ def test_attention_kernel_calls_raise_instead_of_falling_back():
             tfa.flash_attention_bwd_dkv.launches) == before + before_bwd
 
 
-def test_unported_options_raise():
+def test_unported_options_raise(tmp_path):
     cfg = get_config("gpt2-tiny", hidden_size=32, num_layers=1, num_heads=2,
                      vocab_size=64, dtype=torch.float32)
     params = init_params(cfg, torch.Generator().manual_seed(0))
     serve = {"block_size": 16, "pool_blocks": 8, "max_batch": 2,
              "max_blocks_per_seq": 4}
-    with pytest.raises(NotImplementedError):
-        ServingEngine(cfg, params, serving=serve, heartbeat=object(),
-                      device="cpu")
+    # ported: the heartbeat channel (a SERVE record every iteration)
+    from deepspeed_tpu_torch.runtime.heartbeat import (HeartbeatWriter,
+                                                       read_heartbeats)
+    hb_dir = str(tmp_path / "hb")
+    with ServingEngine(cfg, params, serving=serve, device="cpu",
+                       heartbeat=HeartbeatWriter(hb_dir, 0, min_interval=0,
+                                                 refresh_interval=0)) as srv:
+        srv.generate_batch([[1, 2, 3]], 2)
+        assert read_heartbeats(hb_dir)[0]["phase"] == "SERVE"
+    assert read_heartbeats(hb_dir)[0]["phase"] == "EXIT"
     with pytest.raises(ValueError):
         ServingEngine(cfg, params, serving=dict(serve, weight_dtype="int4"),
                       device="cpu")
@@ -288,10 +295,20 @@ def test_unported_options_raise():
     eng = deepspeed_tpu_torch.init_inference(
         cfg, {"dtype": "float32", "watchdog": {"serve_timeout": 5.0}},
         model_parameters=params, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        eng.serve()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        eng.serve(dict(serve, fleet={"replicas": 2}))
+    # ported: watchdog.serve_timeout arms the stall watchdog, and a fleet
+    # section returns a started fleet
+    srv = eng.serve()
+    assert srv._watchdog is not None and srv._watchdog.fired is False
+    srv.close()
+    assert srv._watchdog is None
+    from deepspeed_tpu_torch.serving import ServingFleet
+    flt = eng.serve(dict(serve, fleet={"replicas": 2,
+                                       "heartbeat_dir": str(tmp_path / "f")}))
+    try:
+        assert isinstance(flt, ServingFleet) and flt._started
+        assert flt.live_replicas() == [0, 1]
+    finally:
+        flt.close()
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         deepspeed_tpu_torch.initialize(
             model=Transformer(cfg), device="cpu",
