@@ -78,29 +78,31 @@ nor ``deepspeed_tpu``. Phases, each reported on its own line:
    non-causal, the ragged key mask) beside SDPA with the same mask
    (``bert-masked``).
 9. **ckpt** — after the train leg, on its model and config: two steps, a
-   sync ``save_checkpoint`` of the state at 8 of the 22 layers (the
-   depth cut keeps the script inside its time limit; tag bytes, save and
+   sync ``save_checkpoint`` of the state at 2 of the 22 layers (the
+   depth cut keeps the script inside its time limit and the chip
+   machine's disk-write cap; tag bytes, save and
    sha256 seconds), a fresh engine from another seed that
    ``load_checkpoint(tag=None)`` restores bitwise (parameters, master,
    moments, counters, the schedule), and three more steps on both whose
    losses must agree within 1e-6 relative; ``save_16bit_model`` served
    back by an int8 ``serve()`` (``paged_attention``, ``quant_matmul``) and
    a bf16 ``generate()`` (``flash_attention_fwd``, ``decode_attention``)
-   with the in-memory engines' tokens; at a 2-layer cut, three async saves
+   with the in-memory engines' tokens; at a 1-layer cut, three async saves
    with ``keep_last=2``, a truncated newest tag rolled back over,
    ``inspect_checkpoint`` and the ``zero_to_fp32`` CLI against the fp32
    master.
 10. **remat** — one engine per block policy (off, "dots", "attn",
-    "full") at full width and depth: the memory a micro-batch's forward
+    "full") at full width and 6 of 22 layers: the memory a micro-batch's
+    forward
     holds for its backward and the peaks of its forward + backward and of
     the step, the first step's loss and grad norm against remat off, the
     second step's ms and the flash launches (the forward twice a layer
     under "full").
 11. **zero** — bench.py's north-star leg in a 1-rank NCCL world:
-    gpt2-1.3b at full width and depth, ZeRO stage 3, pure bf16 state,
-    bf16 grad accumulation, "dots" remat, the fused CE, seq 1024, micro 2
-    (cut: gas 4, three steps). Each step's flash launches (24 of each a
-    micro-batch) and NCCL all-gathers and reduce-scatters are counted;
+    gpt2-1.3b at full width and 6 of 24 layers, ZeRO stage 3, pure bf16
+    state, bf16 grad accumulation, "dots" remat, the fused CE, seq 1024,
+    micro 2 (cut: gas 4, three steps). Each step's flash launches (6 of
+    each a micro-batch) and NCCL all-gathers and reduce-scatters are counted;
     the loss falls; the first step's loss and grad norm match an engine
     without a process group within 1e-6 relative; one sharded save loads
     bitwise into a fresh engine and the next step's loss matches; step
@@ -111,11 +113,12 @@ nor ``deepspeed_tpu``. Phases, each reported on its own line:
     (``parallel.ring_attention.emulate_ring``: the same chunk steps with
     their causal / full / skip choice, the lse merge and the backward's
     dK/dV accumulation, the rotation by indexing), causal and full,
-    against the plain version. Then llama-1.1b at full width and depth
-    with max_seq_len raised to 16384, one sample of 16384 tokens a step,
+    against the plain version. Then llama-1.1b at full width and 6 of 22
+    layers with max_seq_len raised to 16384, one sample of 16384 tokens a
+    step,
     bf16 + fp32 master, AdamW, ZeRO 1, remat "full", in a 1-rank NCCL
     world, three steps with ``attention_impl`` "ring" and three with
-    "ulysses": each step's flash launches (44 / 22 / 22) and ring
+    "ulysses": each step's flash launches (12 / 6 / 6) and ring
     counters (one chunk step a layer and forward, no point-to-point op),
     the first step's loss and grad norm within 1e-3 / 1e-2 of the same
     engine with ``attention_impl="flash"``, the loss falling, the step's
@@ -131,12 +134,12 @@ nor ``deepspeed_tpu``. Phases, each reported on its own line:
 14. **moe** — Mixtral-8x7B (mistralai/Mixtral-8x7B-v0.1's published
     config: hidden 4096, 32 heads of 128 over 8 KV heads, 8 SwiGLU experts
     of 14336, two a token) at full width from a seeded bf16 state dict
-    under HF's names, built on the card one tensor at a time. Serving, 8
+    under HF's names, built on the card one tensor at a time. Serving, 4
     of 32 layers: ``replace_transformer_layer`` -> ``init_inference``
-    (bf16) -> ``generate()`` on 4 x 1024 prompt tokens + 32 new (8
-    ``flash_attention_fwd`` launches a prefill, 8 ``decode_attention`` a
-    step), ``serve()`` with 8 requests of 64..1024 tokens (8
-    ``paged_attention`` a decode step) and an int8 ``serve()`` (17
+    (bf16) -> ``generate()`` on 4 x 1024 prompt tokens + 32 new (4
+    ``flash_attention_fwd`` launches a prefill, 4 ``decode_attention`` a
+    step), ``serve()`` with 8 requests of 64..1024 tokens (4
+    ``paged_attention`` a decode step) and an int8 ``serve()`` (9
     ``quant_matmul`` a forward; the experts stay bf16); prefill and
     decode logits against ``impl="reference"`` on the tokens whose routes
     agree in every layer, the flipped (token, layer) routes counted and
@@ -151,7 +154,7 @@ nor ``deepspeed_tpu``. Phases, each reported on its own line:
 15. **tp** — Llama-2-70B (meta-llama/Llama-2-70b-hf's published config:
     hidden 8192, 64 heads of 128 over 8 KV heads, SwiGLU 28672, vocab
     32000, untied) at full width from a seeded bf16 state dict under HF's
-    names, 8 of 80 layers (7.37 B parameters) mapped by
+    names, 4 of 80 layers mapped by
     ``replace_transformer_layer`` (and built again layer by layer, as
     ``--tp-ranks`` builds it, held equal): ``generate()`` [4, 1024] + 32,
     ``serve()`` and an int8 ``serve()`` without a process group, then the
@@ -163,19 +166,19 @@ nor ``deepspeed_tpu``. Phases, each reported on its own line:
     first step bitwise the engine's without a group, the loss falling;
     then rows 1-6 timed at a tp-4 rank's shapes (16 query heads of 128
     over 2 KV heads, the int8 matrices' K / 4 and N / 4).
-16. **pp** — pipelines: gpt2-1.3b at full width and depth (seeded
-    weights) as 4 stages of 6 layers in one process (``MPMDPipeline``
+16. **pp** — pipelines: gpt2-1.3b at full width and 12 of 24 layers
+    (seeded weights) as 4 stages of 3 layers in one process (``MPMDPipeline``
     over a ``LocalChannel``, every stage on the card), 8 micro-batches of
     1 x 1024: the f32 1F1B step against autograd through the plain model
     (loss rel 1e-5, each leaf's grad 1e-4 of its norm); in bf16 under
     deterministic algorithms gpipe and 1F1B, recompute and store, bitwise
-    equal, each step's flash launches counted (24 x 8 of each backward
-    kernel; the forward 24 x 8 with store, 42 x 8 with recompute, whose
+    equal, each step's flash launches counted (12 x 8 of each backward
+    kernel; the forward 12 x 8 with store, 21 x 8 with recompute, whose
     last stage skips its forward tick); the plain engine at gas 8 and the
     ``PipelineEngine`` (recompute, store) timed on the same weights; the
     ``PipelineEngine`` at pp 1 in a 1-rank NCCL world against the plain
     engine's first step (loss 1e-6, grad norm 1e-5) and its save at a
-    2-layer cut loaded back bitwise.
+    1-layer cut loaded back bitwise.
 17. **fleet** (run after generate) — the serving fleet on llama-1.1b at
     full width and depth (the serve leg's weights and 16 prompts, 32 new
     tokens each, prefix cache off), against one ``ServingEngine`` on the
@@ -194,6 +197,24 @@ nor ``deepspeed_tpu``. Phases, each reported on its own line:
     ``paged_attention`` ran on every decoding replica; the lines carry the
     fleet's and the engine's tokens/s, time to first token p50, kill to
     serving again and each process's peak memory.
+18. **run** (after pp) — run-side resilience on llama-1.1b at full width
+    (:func:`phase_run`), every sub-leg in child processes started by the
+    port's runner (``python -m deepspeed_tpu_torch.launcher.runner``) or
+    its MPMD driver: a clean 6-step launch at full depth with the
+    heartbeat channel, watchdog and straggler sections (rc 0, ``health``
+    reads it); the same preempted by ``run.preempt:sigterm`` after step 3
+    (rc 114, an intact emergency tag) and relaunched (resumed with the
+    loader fast-forwarded, steps 4-6 the clean run's); ``run.hang`` at 4
+    layers (rc 117 within the stall timeout and the grace); the
+    sentinel's ladder at 4 layers (a ``sentinel.spike`` skip, then the
+    rollback to the audited-clean tag); 2 MPMD stage workers of 11 layers
+    each for 4 1F1B steps, then again with stage 1 killed at its step 2
+    (restarted alone, the survivor parked and resynced, the twin's
+    losses). Each child reports its flash launches, step ms and peak
+    memory; the lines carry launch to first step, kill to resumed, the
+    MPMD restart and the socket channel's bytes and wait a step.
+
+Each phase's seconds are printed on a ``time: phases_s`` line.
 
 ``--old-quant-matmul SRC`` also builds a parent commit's
 ``csrc/quant_matmul.cu`` from SRC and times it against this one in the
@@ -217,7 +238,7 @@ forward's and dq's per-item cost of the host balance, swept at the long
 leg's call.
 
 ``--only PHASE ...`` (``ckpt``, ``remat``, ``hf``, ``bert-masked``,
-``zero``, ``sp``, ``dropout``, ``moe``, ``tp``, ``pp``, ``fleet``)
+``zero``, ``sp``, ``dropout``, ``moe``, ``tp``, ``pp``, ``fleet``, ``run``)
 builds the kernels and runs only those phases, then a result line that
 names them (``"only": [...]``; no kernels line). ``--zero-ranks N`` (a
 host with N GPUs) builds the kernels and runs only the zero leg across N
@@ -320,7 +341,9 @@ WG_KERNELS = {"flash_attention_fwd": ("flash_fwd_wg",),
 # the zero leg: bench.py's north-star leg (gpt2-1.3b, ZeRO-3, pure bf16
 # state, bf16 grad accumulation, "dots" remat, the fused CE, seq 1024,
 # micro 2), gas cut 128 -> 4, in a 1-rank NCCL world
-ZERO_MICRO, ZERO_GAS, ZERO_SEQ, ZERO_STEPS, ZERO_LAYERS = 2, 4, 1024, 3, 24
+# depth cut 24 -> 6 layers (the script's time limit and the 45 GiB cap on
+# what one run may write to the card host's disk)
+ZERO_MICRO, ZERO_GAS, ZERO_SEQ, ZERO_STEPS, ZERO_LAYERS = 2, 4, 1024, 3, 6
 ZERO_CONFIG = {
     "train_batch_size": ZERO_MICRO * ZERO_GAS,
     "train_micro_batch_size_per_gpu": ZERO_MICRO,
@@ -336,6 +359,7 @@ ZERO_CONFIG = {
 # AdamW, ZeRO 1, remat "full" (attention_impl "ring" and "ulysses"); the
 # chunk-logic check emulates SP_EMU ranks on one device
 SP_SEQ, SP_STEPS, SP_EMU = 16384, 3, 4
+SP_LAYERS = 6               # depth cut 22 -> 6 (the script's time limit)
 SP_CONFIG = {
     "train_batch_size": 1, "train_micro_batch_size_per_gpu": 1,
     "gradient_accumulation_steps": 1, "bf16": {"enabled": True},
@@ -357,6 +381,19 @@ def fail(msg):
     raise SystemExit(f"chip_smoke FAILED: {msg}")
 
 
+_PHASE_S = {}
+_PHASE_T = [None]
+
+
+def _mark(name):
+    """Charge the seconds since the previous mark to phase ``name``."""
+    now = time.perf_counter()
+    if _PHASE_T[0] is not None:
+        _PHASE_S[name] = round(_PHASE_S.get(name, 0.0) + now - _PHASE_T[0],
+                               1)
+    _PHASE_T[0] = now
+
+
 def wall_ms(fn, reps=10, warmup=2):
     """Time per call between CUDA events: includes any gap the host leaves
     between launches (launch-bound calls read slower here)."""
@@ -371,6 +408,32 @@ def wall_ms(fn, reps=10, warmup=2):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+class _Avg:
+    """One (name, device) row of :func:`_key_averages`."""
+    __slots__ = ("key", "device_type", "count", "self_cpu_time_total",
+                 "self_device_time_total")
+
+    def __init__(self, key, device_type):
+        self.key, self.device_type, self.count = key, device_type, 0
+        self.self_cpu_time_total = self.self_device_time_total = 0.0
+
+
+def _key_averages(prof):
+    """The sums of ``prof.key_averages()`` that this script reads (count,
+    self host and self device time per name and device type), in one pass
+    over the trace's events: ``key_averages`` reads every field of every
+    event and takes seconds for a train step's trace."""
+    rows = {}
+    for e in prof.events():
+        row = rows.get((e.key, e.device_type))
+        if row is None:
+            row = rows[(e.key, e.device_type)] = _Avg(e.key, e.device_type)
+        row.count += 1
+        row.self_cpu_time_total += e.self_cpu_time_total
+        row.self_device_time_total += e.self_device_time_total
+    return list(rows.values())
 
 
 def device_ms(fn, reps=10, warmup=2):
@@ -391,7 +454,7 @@ def device_ms(fn, reps=10, warmup=2):
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
-        us = sum(e.self_device_time_total for e in prof.key_averages()
+        us = sum(e.self_device_time_total for e in _key_averages(prof)
                  if e.device_type == torch.autograd.DeviceType.CUDA)
         if us > 0:
             return us / 1e3 / reps
@@ -1681,11 +1744,13 @@ def profile_decode(srv, steps=5, label="decode step"):
     _report_profile(label, prof, wall_ms, steps)
 
 
-def _report_profile(label, prof, wall_ms, steps):
+def _report_profile(label, prof, wall_ms, steps, averages=None):
     """Device busy ms per step (kernel time summed by torch.profiler), the
-    idle share of the host wall time, and the kernels that take the most."""
+    idle share of the host wall time, and the kernels that take the most
+    (``averages``: ``_key_averages(prof)`` when the caller has it)."""
     import torch
-    kern = [e for e in prof.key_averages()
+    averages = _key_averages(prof) if averages is None else averages
+    kern = [e for e in averages
             if e.device_type == torch.autograd.DeviceType.CUDA]
     busy_ms = sum(e.self_device_time_total for e in kern) / 1e3 / steps
     if busy_ms <= 0:
@@ -1743,7 +1808,7 @@ def profile_generate(cfg, params, ids, steps=5, tag="", tp=None):
             wall_ms = 1e3 * (time.perf_counter() - t0) / steps
         busy = _report_profile("generate decode step" + tag, prof, wall_ms,
                                steps)
-    nccl = sum(e.self_device_time_total for e in prof.key_averages()
+    nccl = sum(e.self_device_time_total for e in _key_averages(prof)
                if e.device_type == torch.autograd.DeviceType.CUDA
                and "nccl" in e.key.lower()) / 1e3 / steps
     return {"decode_step_wall_ms": wall_ms,
@@ -2531,7 +2596,8 @@ def profile_train(engine, batch, step_ms, label="train step",
         engine.train_batch(batch)
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t0)
-    _report_profile(label, prof, wall_ms, 1)
+    averages = _key_averages(prof)          # one aggregation, three reads
+    _report_profile(label, prof, wall_ms, 1, averages)
     kinds = {"flash_attention": ("flash_",),
              "block_sparse_attention": ("bs_fwd", "bs_dq", "bs_dkv"),
              "gemm": ("nvjet", "gemm",
@@ -2541,7 +2607,7 @@ def profile_train(engine, batch, step_ms, label="train step",
     by_kind = dict.fromkeys(list(kinds) + ["other"], 0.0)
     kind_of = lambda name: next((k for k, keys in kinds.items()
                                  if any(x in name for x in keys)), "other")
-    for e in prof.key_averages():
+    for e in averages:
         if e.device_type != torch.autograd.DeviceType.CUDA:
             continue
         by_kind[kind_of(e.key)] += e.self_device_time_total / 1e3
@@ -2554,7 +2620,7 @@ def profile_train(engine, batch, step_ms, label="train step",
                 by_kind[kind_of(k.name)] -= k.duration / 1e3
                 by_kind["expert_bmm"] += k.duration / 1e3
     busy = sum(by_kind.values())
-    host = sorted((e for e in prof.key_averages()
+    host = sorted((e for e in averages
                    if e.device_type == torch.autograd.DeviceType.CPU),
                   key=lambda e: -e.self_cpu_time_total)[:8]
     log(f"time: {label} host ms by op (self, profiled) " + json.dumps(
@@ -3970,10 +4036,12 @@ def _flex_ms(q, k, v, do, keep, n):
 # ------------------------------------------------------ 9. checkpoints
 
 CKPT_TRAIN_STEPS, CKPT_RESUME_STEPS = 2, 3
-CKPT_SMALL_LAYERS = 2               # the resilience leg's depth cut
+CKPT_SMALL_LAYERS = 1               # the resilience leg's depth cut
 # the tag's depth: 8 of llama-1.1b's 22 layers (6.8 of its 15.4 GB), so
 # the whole script keeps inside its time limit with the pp leg
-CKPT_LAYERS = 8
+# a depth cut to 2 of 22 layers: the script's time limit and the 45 GiB
+# cap on what one run may write to the card host's disk
+CKPT_LAYERS = 2
 CKPT_BYTES_PER_PARAM = 14           # bf16 params + f32 master, m and v
 CKPT_LENS = (96, 200, 352, 512)     # the served leg's prompts
 CKPT_NEW = 16
@@ -4044,8 +4112,9 @@ def phase_ckpt(tmp):
     then take the same 3 steps, whose losses must agree within 1e-6
     relative, each step launching the flash kernels as the train leg does.
     The state is then served from the checkpoint (:func:`_ckpt_served`)
-    and the resilience leg runs at a 2-layer cut (:func:`_ckpt_resilience`).
-    CKPT_LAYERS deep (8 of llama-1.1b's 22: the script's time limit),
+    and the resilience leg runs at a CKPT_SMALL_LAYERS cut
+    (:func:`_ckpt_resilience`). CKPT_LAYERS deep (2 of llama-1.1b's 22:
+    the script's time limit and the card host's disk-write cap),
     less if the temp dir cannot hold the tag (the depth is cut, never the
     width, and a line says so)."""
     import shutil
@@ -4062,7 +4131,7 @@ def phase_ckpt(tmp):
     rest = CKPT_BYTES_PER_PARAM * (2 * full.vocab_size * full.hidden_size
                                    + full.hidden_size)
     free = shutil.disk_usage(tmp).free
-    # the full tag, the 16-bit file and three 2-layer tags at once
+    # the full tag, the 16-bit file and three small tags at once
     need_small = 3 * (rest + CKPT_SMALL_LAYERS * per_layer) + rest // 7
     layers = min(CKPT_LAYERS, int((free - need_small - rest) // per_layer))
     log(f"ckpt: temp dir free_gb={free / 1e9:.1f} full_tag_gb="
@@ -4227,8 +4296,8 @@ def _ckpt_served(cfg, params, path16):
 
 
 def _ckpt_resilience(tmp):
-    """At a 2-layer cut of llama-1.1b (full width): the async writer saves
-    three tags with keep_last=2 and commits; the newest tag's
+    """At a CKPT_SMALL_LAYERS cut of llama-1.1b (full width): the async
+    writer saves three tags with keep_last=2 and commits; the newest tag's
     model_states.npz is truncated; a fresh engine's load_checkpoint
     (tag=None) rolls back to the previous tag and repairs ``latest``;
     inspect_checkpoint summarizes it; the zero_to_fp32 CLI's output
@@ -4244,7 +4313,7 @@ def _ckpt_resilience(tmp):
     t0 = time.perf_counter()
     for s in range(3):
         _ckpt_step(e, _ckpt_batch(cfg.vocab_size, 70 + s),
-                   f"2-layer step {s}")
+                   f"small-cut step {s}")
         e.save_checkpoint(d)
     res = e.wait_for_checkpoints()
     async_s = time.perf_counter() - t0
@@ -4294,18 +4363,21 @@ def _ckpt_resilience(tmp):
 
 REMAT_POLICIES = (None, "dots", "attn", "full")
 REMAT_TIMED_STEPS = 3
+REMAT_LAYERS = 6            # depth cut 22 -> 6 (the script's time limit)
 
 
 def phase_remat(tmp):
-    """llama-1.1b at full width and depth with the train leg's config, one
-    engine per block policy (remat off, "dots", "attn", "full"), each from
+    """llama-1.1b at full width, REMAT_LAYERS deep, with the train leg's
+    config, one engine per block policy (remat off, "dots", "attn",
+    "full"), each from
     the same seeded weights. The first step runs through the micro-batch
     API: the memory the first micro-batch's forward holds for its backward
     and the peak of its forward + backward (both above the engine's
     state), the step's own peak (the optimizer's temporaries included),
     its loss and grad norm against remat off (within 1e-5 relative,
-    bitwise expected) and the flash launches (the forward 44, twice that
-    under "full", whose backward recomputes it; each backward kernel 44).
+    bitwise expected) and the flash launches (the forward layers x gas,
+    twice that under "full", whose backward recomputes it; each backward
+    kernel layers x gas).
     Then the median wall ms of REMAT_TIMED_STEPS train_batch steps, and
     one profiled step's device busy ms and time by kind."""
     import numpy as np
@@ -4323,7 +4395,8 @@ def phase_remat(tmp):
         # the held memory reads low
         gc.collect()
         torch.cuda.empty_cache()
-        e, cfg = _train_engine(tmp, "remat", TRAIN_CONFIG, 0, **kw)
+        e, cfg = _train_engine(tmp, "remat", TRAIN_CONFIG, 0,
+                               num_layers=REMAT_LAYERS, **kw)
         torch.cuda.synchronize()
         base = torch.cuda.memory_allocated()
         torch.cuda.reset_peak_memory_stats()
@@ -4346,7 +4419,7 @@ def phase_remat(tmp):
         step_ms = float(np.median(walls))
         busy, _ = profile_train(e, b2, step_ms,
                                 label=f"remat {policy or 'off'} step")
-        per = LLAMA_LAYERS * TRAIN_GAS
+        per = cfg.num_layers * TRAIN_GAS
         want = {"flash_attention_fwd": 2 * per if policy == "full" else per,
                 "flash_attention_bwd_dq": per, "flash_attention_bwd_dkv": per}
         got = {k: c[k] for k in want}
@@ -4387,13 +4460,13 @@ def phase_remat(tmp):
 
 def _zero_engine(tmp, name, seed, config=None):
     """initialize(ds_zero3.json: ``config``, default ZERO_CONFIG) on
-    gpt2-1.3b at full width and depth, seeded weights, "dots" remat and
-    the fused chunked CE."""
+    gpt2-1.3b at full width, ZERO_LAYERS deep, seeded weights, "dots"
+    remat and the fused chunked CE."""
     import deepspeed_tpu_torch
     from deepspeed_tpu_torch.models.transformer import build_model
     model, cfg = build_model("gpt2-1.3b", fused_loss=True, loss_chunk=256,
                              remat=True, remat_policy="dots", seed=seed,
-                             device="cuda")
+                             device="cuda", num_layers=ZERO_LAYERS)
     path = os.path.join(tmp, f"{name}.json")
     with open(path, "w") as f:
         json.dump(config or ZERO_CONFIG, f)
@@ -4764,11 +4837,12 @@ def zero_worker(out):
 
 def _sp_engine(tmp, name, impl, config=None, seed=0):
     """initialize(ds_sp.json: ``config``, default SP_CONFIG) on llama-1.1b
-    at full width and depth with max_seq_len SP_SEQ, seeded weights,
-    remat "full", the fused chunked CE and attention_impl ``impl``."""
+    at full width, SP_LAYERS deep, with max_seq_len SP_SEQ, seeded
+    weights, remat "full", the fused chunked CE and attention_impl
+    ``impl``."""
     return _train_engine(tmp, name, config or SP_CONFIG, seed,
                          max_seq_len=SP_SEQ, remat=True, remat_policy="full",
-                         attention_impl=impl)
+                         attention_impl=impl, num_layers=SP_LAYERS)
 
 
 def _sp_batch(vocab):
@@ -5373,7 +5447,8 @@ MIXTRAL_CONFIG = dict(
     max_position_embeddings=32768, rope_theta=1e6, rms_norm_eps=1e-5,
     sliding_window=None, tie_word_embeddings=False, hidden_act="silu",
     router_aux_loss_coef=0.02)
-MOE_SERVE_LAYERS, MOE_TRAIN_LAYERS = 8, 2
+# served depth cut 8 -> 4 (the script's time limit)
+MOE_SERVE_LAYERS, MOE_TRAIN_LAYERS = 4, 2
 MOE_BATCH, MOE_PROMPT, MOE_NEW, MOE_REQUESTS = 4, 1024, 32, 8
 MOE_INT8_LENS, MOE_INT8_NEW = (96, 200, 333, 512), 16
 MOE_MICRO, MOE_GAS, MOE_SEQ, MOE_STEPS = 2, 2, 1024, 3
@@ -5823,12 +5898,12 @@ def phase_moe(tmp, smi):
     4096, 32 heads of 128 with 8 KV heads, 8 SwiGLU experts of 14336, two
     a token, vocab 32000, rope theta 1e6) at full width, as a seeded bf16
     state dict under HF's names built on the card one tensor at a time,
-    the config a plain object. Serve and generate, 8 of 32 layers:
-    replace_transformer_layer (bf16) -> init_inference (bf16) ->
-    generate() on 4 x 1024 prompt tokens + 32 new (8 flash_attention_fwd
-    launches a prefill, 8 decode_attention a step), serve() with 8
-    requests of 64..1024 tokens and 32 new each (8 paged_attention a
-    decode step), an int8 serve() (kv_cache_dtype and weight_dtype int8,
+    the config a plain object. Serve and generate, MOE_SERVE_LAYERS (4)
+    of 32 layers: replace_transformer_layer (bf16) -> init_inference
+    (bf16) -> generate() on 4 x 1024 prompt tokens + 32 new (a
+    flash_attention_fwd launch a layer a prefill, a decode_attention a
+    layer a step), serve() with 8 requests of 64..1024 tokens and 32 new
+    each (a paged_attention a layer a decode step), an int8 serve() (kv_cache_dtype and weight_dtype int8,
     4 requests, 16 new; 17 quant_matmul launches a forward: qkv and out
     projections and the head, the MoE subtree stays bf16); prefill and
     decode logits against impl="reference" under the flip rule. Train, 2
@@ -6185,7 +6260,8 @@ LLAMA70_CONFIG = dict(
     num_key_value_heads=8, max_position_embeddings=4096, rope_theta=1e4,
     rms_norm_eps=1e-5, tie_word_embeddings=False, hidden_act="silu",
     attention_bias=False, mlp_bias=False)
-TP_SERVE_LAYERS, TP_TRAIN_LAYERS, TP_SEED = 8, 2, 15
+# served depth cut 8 -> 4 (the script's time limit)
+TP_SERVE_LAYERS, TP_TRAIN_LAYERS, TP_SEED = 4, 2, 15
 TP_BATCH, TP_PROMPT, TP_NEW = 4, 1024, 32
 TP_REQUESTS, TP_SERVE_NEW = 4, 16
 TP_INT8_LENS, TP_INT8_NEW = (96, 200, 333, 512), 16
@@ -6375,8 +6451,8 @@ def phase_tp(smi):
     """Llama-2-70B (meta-llama/Llama-2-70b-hf's published config: hidden
     8192, 64 heads of 128 over 8 KV heads, SwiGLU 28672, vocab 32000,
     RMSNorm 1e-5, rope 1e4, untied) at full width on one card, the
-    tensor-parallel layers in a 1-rank NCCL world. Serve and generate, 8
-    of 80 layers (7.37 B parameters): a seeded bf16 state dict under HF's
+    tensor-parallel layers in a 1-rank NCCL world. Serve and generate,
+    TP_SERVE_LAYERS (4) of 80 layers: a seeded bf16 state dict under HF's
     names -> replace_transformer_layer (and the same tree built layer by
     layer, as --tp-ranks builds it, held equal) -> init_inference without
     a process group: generate() [4, 1024] + 32 and serve() in bf16 and
@@ -7174,7 +7250,9 @@ def tp_worker(out):
 # one process (every stage on the one card), 8 micro-batches of 1 x 1024
 PP_MODEL, PP_STAGES, PP_MICRO, PP_SEQ, PP_SEED = "gpt2-1.3b", 4, 8, 1024, 16
 PP_STEPS = 2
-PP_SAVE_LAYERS = 2          # the save / load check's depth cut
+# depth cut 24 -> 12 layers, 3 a stage (the script's time limit)
+PP_LAYERS = 12
+PP_SAVE_LAYERS = 1          # the save / load check's depth cut
 PP_CONFIG = {
     "train_batch_size": PP_MICRO, "train_micro_batch_size_per_gpu": 1,
     "gradient_accumulation_steps": PP_MICRO, "bf16": {"enabled": True},
@@ -7234,15 +7312,15 @@ def _pp_timed(fn):
                              ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    busy = sum(e.self_device_time_total for e in prof.key_averages()
+    busy = sum(e.self_device_time_total for e in _key_averages(prof)
                if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3
     return out, wall, busy
 
 
 def phase_pp(tmp):
     """Pipelines on one card (the tentpole's ``pp`` leg): gpt2-1.3b at
-    full width and depth (24 layers of 16 heads x 128, vocab 50,257,
-    seeded weights) as PP_STAGES stages of 6 layers in one process
+    full width (16 heads x 128, vocab 50,257, seeded weights), PP_LAYERS
+    of its 24 layers, as PP_STAGES stages in one process
     (``MPMDPipeline`` over a ``LocalChannel``, every stage on cuda:0),
     PP_MICRO micro-batches of 1 x PP_SEQ. (1) f32: the 1F1B step's loss
     within rel 1e-5 of autograd through the plain ``Transformer``, each
@@ -7272,7 +7350,7 @@ def phase_pp(tmp):
         fail("pp: a process group is already up")
 
     # (1) f32 against autograd through the plain model
-    cfg = get_config(PP_MODEL, dtype=torch.float32)
+    cfg = get_config(PP_MODEL, dtype=torch.float32, num_layers=PP_LAYERS)
     L = cfg.num_layers
     batch = _pp_batch(cfg.vocab_size, PP_SEED)
     micros = _pp_micros(batch, PP_MICRO)
@@ -7310,7 +7388,7 @@ def phase_pp(tmp):
     torch.cuda.empty_cache()
 
     # (2) bf16: four (schedule, backward) pairs, bitwise
-    cfg = get_config(PP_MODEL)
+    cfg = get_config(PP_MODEL, num_layers=PP_LAYERS)
     gen = torch.Generator(device="cuda").manual_seed(PP_SEED)
     tree = init_params(cfg, gen, dtype=torch.bfloat16)
     base, runs = None, {}
@@ -7399,8 +7477,10 @@ def phase_pp(tmp):
         res["launches"][f"engine_{name}"] = c
         step_ms = float(np.median(ws[1:]))
         t1 = time.perf_counter()
-        busy, by_kind = profile_train(engine, batch, step_ms,
-                                      label=f"pp {name} step")
+        # one profiled engine: a profile costs ~20 s of the script
+        busy, by_kind = (profile_train(engine, batch, step_ms,
+                                       label=f"pp {name} step")
+                         if name == "pipe_1f1b_recompute" else (None, None))
         prof_s = time.perf_counter() - t1
         steps[name] = {"init_s": init_s, "profile_s": prof_s,"loss": [x["loss"] for x in ms],
                        "grad_norm": [x["grad_norm"] for x in ms],
@@ -7408,10 +7488,11 @@ def phase_pp(tmp):
                        "tokens_s": tokens / step_ms * 1e3,
                        "model_tflops_6n": 6.0 * n_params * tokens
                        / step_ms / 1e9, "device_ms_by_kind": by_kind}
+        busy_txt = "not measured" if busy is None else f"{busy:.1f}"
         log(f"pp: engine {name} loss="
             f"{[round(x, 6) for x in steps[name]['loss']]} init_s="
             f"{init_s:.1f} profile_s={prof_s:.1f} "
-            f"step_ms={step_ms:.1f} busy_ms={busy:.1f} tokens_s="
+            f"step_ms={step_ms:.1f} busy_ms={busy_txt} tokens_s="
             f"{steps[name]['tokens_s']:.0f} model_tflops_6n="
             f"{steps[name]['model_tflops_6n']:.1f} launches={json.dumps(c)}")
         if not ms[-1]["loss"] < ms[0]["loss"]:
@@ -8563,6 +8644,611 @@ def phase_fleet(tmp, eng=None, device="cuda"):
     return res
 
 
+# the run leg: llama-1.1b at full width through the port's runner and
+# the MPMD driver, every sub-leg in child processes
+# the card host caps what one run writes to its disk at 45 GiB (freed
+# blocks count too): the run leg writes the full-depth emergency tag
+# (15.4 GB), one tag at the small legs' 2-layer cut, each MPMD stage's
+# step-0 tag once (the two MPMD runs share the work dir) and the killed
+# run's tags at step MPMD_KILL_SKIP
+RUN_STEPS, RUN_PREEMPT_AT, RUN_SMALL_LAYERS = 6, 3, 2
+RUN_STALL_S, RUN_GRACE_S = 10.0, 30.0
+# the 2-layer chain: a twin that takes RUN_TWIN_STEPS clean steps and
+# then hangs (the stall sub-leg); a run sent SIGTERM from inside step
+# RUN_MID_AT, whose emergency tag is the sentinel's audited-clean tag;
+# the sentinel's run resumed from it, spiked on its calls
+# RUN_SPIKE_SKIP + 1 and + 2
+RUN_TWIN_STEPS, RUN_MID_AT = 9, 5
+RUN_SENTINEL_CALLS, RUN_SPIKE_SKIP = 8, 4
+# zmax: a x1000 spike reads z ~ 1e5; after the rollback the restored
+# state's early-training grad norms read z ~ 60 against the warm-up
+# window, which must stay below the rung
+RUN_SENTINEL = {"enabled": True, "metrics": ["loss", "grad_norm"],
+                "window": 8, "warmup_steps": 3, "zmax": 1000.0,
+                "cooldown_steps": 0, "rollback_after": 2,
+                "strike_window": 20, "audit_interval": 1}
+MPMD_STEPS, MPMD_MICRO, MPMD_MB, MPMD_SEED, MPMD_LR = 4, 4, 1, 5, 1e-4
+# stage 1 dies at the top of its step 3 (of 0-3), just after the killed
+# run's tags at step 3: at step 2 the run would write tags at 2 and 4
+MPMD_KILL_SKIP = 3
+MPMD_SPEC = "chip_smoke:mpmd_llama_spec"
+RUN_CHILD = r"""
+import argparse, json, os, signal, sys, time
+import numpy as np
+import torch
+import deepspeed_tpu_torch as ds
+from deepspeed_tpu_torch.models.transformer import build_model
+from deepspeed_tpu_torch.ops import flash_attention as fa
+from deepspeed_tpu_torch.runtime import checkpointing as ckl
+from deepspeed_tpu_torch.runtime import sentinel as sl
+from deepspeed_tpu_torch.runtime.dataloader import RepeatingLoader
+
+ap = argparse.ArgumentParser()
+ap.add_argument("--config", required=True)
+ap.add_argument("--ckpt", required=True)
+ap.add_argument("--layers", type=int, required=True)
+ap.add_argument("--steps", type=int, default=0)
+ap.add_argument("--calls", type=int, default=0)
+ap.add_argument("--weighted", action="store_true")
+ap.add_argument("--probe", type=int, default=0)
+ap.add_argument("--sigterm-at", type=int, default=0)
+a = ap.parse_args()
+t_start = time.time()
+# F.embedding's CUDA backward adds colliding rows in a varying order:
+# bitwise trajectories across processes need the deterministic kernels
+torch.use_deterministic_algorithms(True, warn_only=True)
+model, cfg = build_model("llama-1.1b", fused_loss=True, loss_chunk=256,
+                         seed=0, device="cuda", num_layers=a.layers)
+# the 2-layer chain's batch carries a float per-sample weight: the
+# poisoned batch of ``sentinel.spike`` scales float features
+micro = [0]
+
+
+def weighted_loss(out, b):
+    # ``--sigterm-at N``: SIGTERM from inside step N, at its second
+    # micro-batch's loss (the first one's grads accumulated)
+    if a.sigterm_at and eng.global_steps == a.sigterm_at - 1:
+        micro[0] += 1
+        if micro[0] == 2:
+            os.kill(os.getpid(), signal.SIGTERM)
+    return out * b["w"].float().mean()
+
+
+eng, *_ = ds.initialize(model=model, config=a.config,
+                        loss_fn=weighted_loss if a.weighted else None)
+del model
+B, S = 4, 1024
+batches = []
+for i in range(8):
+    b = {"input_ids": np.random.default_rng(60 + i).integers(
+        1, cfg.vocab_size, (B, S))}
+    if a.weighted:
+        b["w"] = np.ones(B, np.float32)
+    batches.append(b)
+loader = RepeatingLoader(batches)
+resumed = None
+if ckl.get_latest_tag(a.ckpt):
+    eng.load_checkpoint(a.ckpt)
+    resumed = {"step": eng.global_steps,
+               "skipped": eng.fast_forward_dataloader(loader)}
+eng.install_preemption_handler(a.ckpt, grace_secs=600)
+print("RUN_READY " + json.dumps({"t": time.time(), "start": t_start,
+                                 "resumed": resumed}), flush=True)
+kernels = (fa.flash_attention_fwd, fa.flash_attention_bwd_dq,
+           fa.flash_attention_bwd_dkv)
+total = {k.__name__: 0 for k in kernels}
+torch.cuda.reset_peak_memory_stats()
+calls = 0
+while (calls < a.calls) if a.calls else (eng.global_steps < a.steps):
+    before = [k.launches for k in kernels]
+    t0 = time.perf_counter()
+    m = eng.train_batch(next(loader))
+    ms = 1e3 * (time.perf_counter() - t0)
+    calls += 1
+    c = {k.__name__: k.launches - n for k, n in zip(kernels, before)}
+    for k, n in c.items():
+        total[k] += n
+    print("RUN_STEP " + json.dumps({
+        "call": calls, "step": eng.global_steps, "t": time.time(),
+        "ms": ms, "loss": m["loss"], "grad_norm": m["grad_norm"],
+        "lr": m["lr"], "skip": bool(m.get("anomaly_skip", False)),
+        "verdict": eng.sentinel.last_verdict,
+        "rollbacks": eng.sentinel.rollbacks_done,
+        "data_position": eng.data_position, "launches": c}), flush=True)
+peak = torch.cuda.max_memory_allocated()
+# what the deterministic kernels cost: more steps without them, after the
+# checked ones
+torch.use_deterministic_algorithms(False)
+for _ in range(a.probe):
+    t0 = time.perf_counter()
+    m = eng.train_batch(next(loader))
+    print("RUN_PROBE " + json.dumps({
+        "ms": 1e3 * (time.perf_counter() - t0), "loss": m["loss"]}),
+        flush=True)
+print("RUN_DONE " + json.dumps({
+    "peak_bytes": peak, "launches": total,
+    "audited_clean": sl.read_last_audited_clean(a.ckpt),
+    "latest": ckl.get_latest_tag(a.ckpt)}), flush=True)
+eng.close()
+"""
+
+
+def mpmd_llama_spec(args):
+    """The run leg's MPMD stage (``--spec chip_smoke:mpmd_llama_spec``):
+    llama-1.1b at full width and depth as 2 stages of 11 layers through
+    the ``PipelinedTransformer``'s stage selector (the embedding on stage
+    0, the head and the CE on stage 1), each stage's layers drawn from
+    their own seeds, bf16 compute on an fp32 master, SGD; micro-batches
+    of ``--mb`` x 1024 tokens drawn per step."""
+    import numpy as np
+    import torch
+    from deepspeed_tpu_torch.models.pipeline import (PipelinedTransformer,
+                                                     seeded_params)
+    from deepspeed_tpu_torch.models.transformer import get_config
+    from deepspeed_tpu_torch.ops.optimizers import sgd
+    # bitwise twins across processes (F.embedding's backward)
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    cfg = get_config("llama-1.1b")
+    per = cfg.num_layers // args.pp
+    layers = list(range(args.stage * per, (args.stage + 1) * per))
+    module = PipelinedTransformer(
+        cfg, args.pp, args.n_micro, stage=args.stage,
+        params=seeded_params(cfg, args.seed, layers, device="cuda"))
+
+    def data(step):
+        rng = np.random.default_rng(args.seed * 1009 + step)
+        return {"input_ids": torch.as_tensor(rng.integers(
+            1, cfg.vocab_size, (args.n_micro, args.mb, TRAIN_SEQ)))}
+
+    return {"module": module, "data": data, "dtype": torch.bfloat16,
+            "optimizer": sgd(lr=args.lr)}
+
+
+def _run_lines(out, tag):
+    return [json.loads(ln.split(tag + " ", 1)[1])
+            for ln in out.splitlines() if ln.startswith(tag + " ")]
+
+
+def _runner_child(tmp, name, layers, config, steps=0, calls=0, chaos=None,
+                  weighted=False, ckpt=None, timeout=900, probe=0,
+                  sigterm_at=0):
+    """The child script through ``python -m deepspeed_tpu_torch.launcher.
+    runner`` (a ``localhost slots=1`` hostfile, ``--launcher local``,
+    ``--heartbeat_dir``); returns its rc, its lines and the seconds from
+    the launch to its return."""
+    import socket
+    script = os.path.join(tmp, "run_child.py")
+    if not os.path.exists(script):
+        with open(script, "w") as f:
+            f.write(RUN_CHILD)
+        with open(os.path.join(tmp, "hostfile"), "w") as f:
+            f.write("localhost slots=1\n")
+    cfg_path = os.path.join(tmp, f"ds_{name}.json")
+    with open(cfg_path, "w") as f:
+        json.dump(config, f)
+    ckpt = ckpt or os.path.join(tmp, f"ck_{name}")
+    with socket.socket() as sk:
+        sk.bind(("127.0.0.1", 0))
+        port = sk.getsockname()[1]
+    env = dict(os.environ, PYTHONPATH=HERE,
+               CUBLAS_WORKSPACE_CONFIG=":4096:8")
+    for var in ("DSTPU_CHAOS", "DSTPU_HEARTBEAT_DIR", "RANK", "WORLD_SIZE",
+                "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT"):
+        env.pop(var, None)
+    if chaos:
+        env["DSTPU_CHAOS"] = chaos
+    hb_dir = os.path.join(tmp, f"hb_{name}")
+    cmd = [sys.executable, "-m", "deepspeed_tpu_torch.launcher.runner",
+           "-H", os.path.join(tmp, "hostfile"), "--launcher", "local",
+           "--master_port", str(port), "--grace_secs", str(RUN_GRACE_S),
+           "--heartbeat_dir", hb_dir, script, "--config", cfg_path,
+           "--ckpt", ckpt, "--layers", str(layers)]
+    cmd += ["--steps", str(steps)] if steps else ["--calls", str(calls)]
+    if sigterm_at:
+        cmd += ["--sigterm-at", str(sigterm_at)]
+    if weighted:
+        cmd.append("--weighted")
+    if probe:
+        cmd += ["--probe", str(probe)]
+    t0 = time.time()
+    p = subprocess.run(cmd, env=env, cwd=tmp, capture_output=True,
+                       text=True, timeout=timeout)
+    t1 = time.time()
+    out = p.stdout + p.stderr
+    with open(os.path.join(tmp, f"{name}.log"), "w") as f:
+        f.write(out)
+    res = {"rc": p.returncode, "t0": t0, "t1": t1, "s": t1 - t0,
+           "steps": _run_lines(out, "RUN_STEP"),
+           "ready": (_run_lines(out, "RUN_READY") or [None])[-1],
+           "probe": _run_lines(out, "RUN_PROBE"),
+           "done": (_run_lines(out, "RUN_DONE") or [None])[-1],
+           "hb": hb_dir, "ckpt": ckpt, "out": out}
+    if res["steps"]:
+        res["first_step_s"] = res["steps"][0]["t"] - t0
+    return res
+
+
+def _run_fail(label, res, why):
+    tail = res["out"][-3000:] if isinstance(res, dict) else ""
+    fail(f"run: {label}: {why}\n{tail}")
+
+
+def _run_launches(label, res, layers):
+    """Each step of a child launched every flash kernel layers x gas
+    times (a step the sentinel skipped too: the grads were computed).
+    Returns the child's launches over its steps."""
+    per = layers * TRAIN_GAS
+    for st in res["steps"]:
+        if any(st["launches"].get(k) != per for k in FLASH_KERNELS):
+            _run_fail(label, res, f"step {st['step']} launched "
+                      f"{st['launches']}: expected {per} of each")
+    return {k: sum(st["launches"][k] for st in res["steps"])
+            for k in FLASH_KERNELS}
+
+
+def _run_health(hb_dir):
+    """``python -m deepspeed_tpu_torch.launcher health <dir>``: rc, table."""
+    p = subprocess.run([sys.executable, "-m", "deepspeed_tpu_torch.launcher",
+                        "health", hb_dir], capture_output=True, text=True,
+                       env=dict(os.environ, PYTHONPATH=HERE), timeout=120)
+    return p.returncode, p.stdout.strip()
+
+
+def _run_config():
+    return dict(TRAIN_CONFIG, watchdog={"stall_timeout": 300.0},
+                straggler={"enabled": True})
+
+
+def _mpmd(tmp, name, specs, save_interval=0):
+    """MPMD_STEPS 1F1B steps of llama-1.1b as two stage workers on the
+    one card under ``MPMDStageSupervisor``; returns its readings. Every
+    run shares one work dir: the first writes each stage's step-0 tag, a
+    later run starts from it (the same seeded state) and writes a tag
+    every ``save_interval`` steps (none at 0)."""
+    from deepspeed_tpu_torch.runtime.pipe.mpmd import MPMDStageSupervisor
+    work = os.path.join(tmp, "mpmd")
+    logs = os.path.join(tmp, f"mpmd_{name}")
+    sup = MPMDStageSupervisor(
+        2, workdir=work, steps=MPMD_STEPS, n_micro=MPMD_MICRO,
+        schedule="1f1b", specs=specs, log_dir=os.path.join(logs, "logs"),
+        heartbeat_dir=os.path.join(logs, "hb"), grace_secs=RUN_GRACE_S,
+        park_ack_timeout=120.0, restart_timeout=600.0,
+        worker_args=["--spec", MPMD_SPEC,
+                     "--save-interval", str(save_interval),
+                     "--mb", str(MPMD_MB),
+                     "--seed", str(MPMD_SEED), "--lr", str(MPMD_LR),
+                     "--barrier-timeout", "600", "--park-timeout", "600",
+                     "--stall-timeout", "600"])
+    t0 = time.time()
+    rc = sup.run()
+    secs = time.time() - t0
+    text = {}
+    for s in range(2):
+        with open(os.path.join(logs, "logs", f"stage{s}.log")) as f:
+            text[s] = f.read()
+    hb_dir = os.path.join(logs, "hb")
+    logs = text
+    steps = {s: [json.loads(ln.split(": ", 1)[1]) for ln in
+                 logs[s].splitlines() if ln.startswith("mpmd_stage_step: ")]
+             for s in range(2)}
+    losses = {}
+    for ln in logs[1].splitlines():
+        if ln.startswith("mpmd_step: "):
+            rec = json.loads(ln[len("mpmd_step: "):])
+            losses[rec["step"]] = rec["loss"]
+    ends = {s: [json.loads(ln.split(": ", 1)[1]) for ln in
+                logs[s].splitlines() if ln.startswith("mpmd_launches: ")]
+            for s in range(2)}
+    parks = {s: [json.loads(ln.split(": ", 1)[1]) for ln in
+                 logs[s].splitlines() if ln.startswith("mpmd_park: ")]
+             for s in range(2)}
+    return {"rc": rc, "s": secs, "t0": t0, "restarts": list(sup.restarts),
+            "losses": [losses[k] for k in sorted(losses)],
+            "steps": steps, "ends": ends, "parks": parks, "logs": logs,
+            "hb": hb_dir}
+
+
+def phase_run(tmp):
+    """Run-side resilience through the port's launcher stack, on
+    llama-1.1b at full width (hidden 2048, 32 heads over 4 KV heads,
+    bf16 on an fp32 master, the train leg's TRAIN_CONFIG at micro 2 x gas
+    2 x 1024 tokens), every sub-leg in child processes:
+
+    1. clean: ``python -m deepspeed_tpu_torch.launcher.runner`` runs the
+       rank as one local process with ``--heartbeat_dir`` and the
+       watchdog and straggler sections, RUN_STEPS steps at full depth:
+       rc 0, ``health`` reads the records, every step launches the flash
+       kernels 22 x 2 times in the child;
+    2. preempt: the same with ``DSTPU_CHAOS=run.preempt:sigterm`` at the
+       entry of step RUN_PREEMPT_AT + 1: rc 114 and an intact emergency
+       tag; a relaunch resumes from it with the loader fast-forwarded and
+       its steps equal the clean run's (bitwise, else within the ckpt
+       leg's 1e-6);
+    3. stall, at 2 layers: a twin takes RUN_TWIN_STEPS clean steps, then
+       ``run.hang`` wedges it: rc 117 within stall_timeout + the grace;
+    4. preempt mid-step, at 2 layers: SIGTERM from inside step
+       RUN_MID_AT (at its second micro-batch's loss): rc 114 after the
+       step ends, an intact emergency tag of that step;
+    5. sentinel: the run resumed from that tag, with
+       ``sentinel.spike:flag:factor=1000`` on calls RUN_SPIKE_SKIP + 1
+       and + 2: skip + strike, then skip + rollback to the same tag, now
+       the last audited-clean one (the ladder's steps for rollback_after
+       2, cooldown 0); its steps before the spike equal the twin's, so
+       the tag saved from inside a step holds the whole step;
+    6. MPMD: ``MPMDStageSupervisor`` runs 2 stage workers (11 + 11
+       layers, ``mpmd_llama_spec``) for MPMD_STEPS 1F1B steps of 4
+       micro-batches, then again with tags at step MPMD_KILL_SKIP and
+       ``pipe.stage_kill`` on stage 1 at its step MPMD_KILL_SKIP: stage 1
+       alone restarts from its tag, stage 0 parks and resyncs to it, the
+       losses equal the uninjected twin's, each worker's flash launches
+       match the steps it ran.
+
+    The children run in two waves that share the card: the clean launch
+    (3 more steps at its end without the deterministic kernels the
+    bitwise checks need) beside the preempted one; then the resumed run
+    beside the two MPMD runs, one after the other, and the 2-layer chain
+    (stall, mid-step preemption, sentinel). Every time is read under that
+    contention: each reading names its wave."""
+    import shutil
+    from concurrent.futures import ThreadPoolExecutor
+    import numpy as np
+    import torch
+    from deepspeed_tpu_torch.runtime import checkpointing as ck
+    from deepspeed_tpu_torch.runtime.pipe.mpmd import StageWorkerSpec
+    out = {"launches": {}}
+    L, S4 = LLAMA_LAYERS, RUN_SMALL_LAYERS
+    pool = ThreadPoolExecutor(max_workers=3)
+    small_cfg = dict(TRAIN_CONFIG, integrity=RUN_SENTINEL)
+
+    def small():
+        stall = _runner_child(
+            tmp, "stall", S4,
+            dict(small_cfg, watchdog={"stall_timeout": RUN_STALL_S}),
+            steps=RUN_TWIN_STEPS + 1, weighted=True,
+            chaos=f"run.hang:hang:skip={RUN_TWIN_STEPS}")
+        mid = _runner_child(tmp, "mid", S4, small_cfg, steps=RUN_STEPS,
+                            weighted=True, sigterm_at=RUN_MID_AT)
+        sen = _runner_child(
+            tmp, "sentinel", S4, small_cfg, calls=RUN_SENTINEL_CALLS,
+            weighted=True, ckpt=mid["ckpt"],
+            chaos=(f"sentinel.spike:flag:skip={RUN_SPIKE_SKIP}:times=2:"
+                   "factor=1000"))
+        return stall, mid, sen
+
+    def mpmd():
+        env = {"PYTHONPATH": HERE, "CUBLAS_WORKSPACE_CONFIG": ":4096:8"}
+        twin = _mpmd(tmp, "twin",
+                     [StageWorkerSpec(env=env) for _ in range(2)])
+        kill = _mpmd(tmp, "kill", [StageWorkerSpec(env=env), StageWorkerSpec(
+            env=env, env_first={"DSTPU_CHAOS": "pipe.stage_kill:kill:"
+                                f"match=1:skip={MPMD_KILL_SKIP}"})],
+                     save_interval=MPMD_KILL_SKIP)
+        return twin, kill
+
+    # what this process still caches is the card's memory the children
+    # need: each full-depth child peaks at ~29 GB, the stage workers at
+    # ~9 GB, the 2-layer children at a few
+    gc.collect()
+    torch.cuda.empty_cache()
+    # wave 1: the clean launch beside the preempted one (~57 GB)
+    pre_f = pool.submit(
+        _runner_child, tmp, "preempt", L, _run_config(), steps=RUN_STEPS,
+        chaos=f"run.preempt:sigterm:skip={RUN_PREEMPT_AT}")
+    clean = _runner_child(tmp, "clean", L, _run_config(), steps=RUN_STEPS,
+                          probe=3)
+    pre = pre_f.result()
+    # wave 2: the resumed run beside the two MPMD runs and the 2-layer
+    # chain, each chain one run after the other (~53 GB)
+    mpmd_f = pool.submit(mpmd)
+    small_f = pool.submit(small)
+    res = _runner_child(tmp, "resume", L, _run_config(), steps=RUN_STEPS,
+                        ckpt=pre["ckpt"])
+    stall, mid, sen = small_f.result()
+    twin, kill = mpmd_f.result()
+    pool.shutdown()
+    wave1 = "wave 1: clean beside preempt"
+    wave2 = ("wave 2: resume beside the MPMD twin then kill, and the "
+             "2-layer stall, mid, sentinel")
+    out["waves"] = {"wave1": ["clean", "preempt"],
+                    "wave2": ["resume", "mpmd twin then mpmd kill",
+                              "stall then mid then sentinel"]}
+    # 1. clean
+    if clean["rc"] != 0 or len(clean["steps"]) != RUN_STEPS:
+        _run_fail("clean", clean, f"rc {clean['rc']}")
+    out["launches"]["clean"] = _run_launches("clean", clean, L)
+    hrc, table = _run_health(clean["hb"])
+    log("run: health of the clean run rc=" + str(hrc) + "\n" + table)
+    if hrc != 0 or "clean exit" not in table:
+        _run_fail("clean", clean, f"health rc {hrc}")
+    ms = [st["ms"] for st in clean["steps"]]
+    out["clean"] = {"wave": wave1,
+                    "launch_to_first_step_s": clean["first_step_s"],
+                    "step_ms": float(np.median(ms[1:])),
+                    "step_ms_nondeterministic": float(np.median(
+                        [p["ms"] for p in clean["probe"]])),
+                    "step_ms_all": [round(x, 3) for x in ms],
+                    "peak_gb": clean["done"]["peak_bytes"] / 1e9,
+                    "s": clean["s"]}
+    log("run: clean " + json.dumps(out["clean"]))
+    # 2. preempt and resume
+    tag = f"global_step{RUN_PREEMPT_AT}"
+    if pre["rc"] != 114 or [st["step"] for st in pre["steps"]] != \
+            list(range(1, RUN_PREEMPT_AT + 1)):
+        _run_fail("preempt", pre, f"rc {pre['rc']} (want 114)")
+    if ck.get_latest_tag(pre["ckpt"]) != tag or \
+            ck.verify_tag(os.path.join(pre["ckpt"], tag)) is not None:
+        _run_fail("preempt", pre, f"no intact emergency tag {tag}")
+    tag_bytes = sum(_tag_bytes(os.path.join(pre["ckpt"], tag)).values())
+    if res["rc"] != 0 or res["ready"]["resumed"] != \
+            {"step": RUN_PREEMPT_AT, "skipped": RUN_PREEMPT_AT}:
+        _run_fail("resume", res, f"rc {res['rc']} {res['ready']}")
+    out["launches"]["resumed"] = _run_launches("resume", res, L)
+    want = clean["steps"][RUN_PREEMPT_AT:]
+    if [st["step"] for st in res["steps"]] != [st["step"] for st in want]:
+        _run_fail("resume", res, "the resumed steps are not the clean "
+                  "run's")
+    worst = 0.0
+    for a, b in zip(want, res["steps"]):
+        for k in ("loss", "grad_norm"):
+            worst = max(worst, abs(a[k] - b[k]) / abs(a[k]))
+        log(f"run: step {b['step']} clean loss={a['loss']:.7f} "
+            f"grad_norm={a['grad_norm']:.6f} resumed loss={b['loss']:.7f} "
+            f"grad_norm={b['grad_norm']:.6f} lr={a['lr']:.6e}/"
+            f"{b['lr']:.6e}")
+        if a["lr"] != b["lr"]:
+            _run_fail("resume", res, "the resumed schedule differs")
+    if worst > 1e-6:
+        _run_fail("resume", res, f"resumed steps differ by {worst:.3e}")
+    out["preempt"] = {
+        "wave": f"preempt {wave1}; resume {wave2}",
+        "rc": pre["rc"], "tag": tag, "tag_bytes": tag_bytes,
+        "save_and_exit_s": pre["t1"] - pre["steps"][-1]["t"],
+        "resume_launch_to_first_step_s": res["first_step_s"],
+        "kill_to_resumed_s": res["steps"][0]["t"] - pre["steps"][-1]["t"],
+        "max_rel_diff": worst, "bitwise": worst == 0.0,
+        "peak_gb": res["done"]["peak_bytes"] / 1e9}
+    log("run: preempt/resume " + json.dumps(out["preempt"]))
+    shutil.rmtree(pre["ckpt"], ignore_errors=True)
+    # 3. stall at a depth cut, after the twin's clean steps
+    last = stall["steps"][-1]["t"] if stall["steps"] else stall["t0"]
+    wait = stall["t1"] - last
+    if stall["rc"] != 117 or len(stall["steps"]) != RUN_TWIN_STEPS or \
+            wait > RUN_STALL_S + RUN_GRACE_S:
+        _run_fail("stall", stall, f"rc {stall['rc']} after {wait:.1f} s")
+    if "no step progress" not in stall["out"]:
+        _run_fail("stall", stall, "no stack dump of the stall")
+    out["launches"]["stall"] = _run_launches("stall", stall, S4)
+    out["stall"] = {"wave": wave2, "rc": stall["rc"],
+                    "last_step_to_rc_s": wait,
+                    "stall_timeout_s": RUN_STALL_S, "grace_s": RUN_GRACE_S}
+    log("run: stall " + json.dumps(out["stall"]))
+    twin_steps = {st["step"]: st for st in stall["steps"]}
+
+    def same_as_twin(label, r, steps):
+        worst = 0.0
+        for st in steps:
+            tw = twin_steps[st["step"]]
+            for k in ("loss", "grad_norm"):
+                worst = max(worst, abs(st[k] - tw[k]) / abs(tw[k]))
+        if worst > 1e-6:
+            _run_fail(label, r, f"steps differ from the 2-layer twin's by "
+                      f"{worst:.3e}")
+        return worst
+
+    # 4. SIGTERM inside a step: the save waits for the step's end
+    mid_tag = f"global_step{RUN_MID_AT}"
+    if mid["rc"] != 114 or [st["step"] for st in mid["steps"]] != \
+            list(range(1, RUN_MID_AT)):
+        _run_fail("mid", mid, f"rc {mid['rc']} (want 114)")
+    if "emergency save failed" in mid["out"] or \
+            ck.get_latest_tag(mid["ckpt"]) != mid_tag or \
+            ck.verify_tag(os.path.join(mid["ckpt"], mid_tag)) is not None:
+        _run_fail("mid", mid, f"no intact emergency tag {mid_tag}")
+    out["launches"]["mid"] = _run_launches("mid", mid, S4)
+    same_as_twin("mid", mid, mid["steps"])
+    # 5. the sentinel's ladder, resumed from the mid-step tag
+    if sen["rc"] != 0 or sen["ready"]["resumed"] != \
+            {"step": RUN_MID_AT, "skipped": RUN_MID_AT}:
+        _run_fail("sentinel", sen, f"rc {sen['rc']} {sen['ready']}")
+    out["launches"]["sentinel"] = _run_launches("sentinel", sen, S4)
+    rows = [(st["call"], st["skip"], st["verdict"], st["step"],
+             st["rollbacks"], st["data_position"]) for st in sen["steps"]]
+    a1, a2 = RUN_SPIKE_SKIP + 1, RUN_SPIKE_SKIP + 2
+    want_rows = []
+    for c in range(1, RUN_SENTINEL_CALLS + 1):
+        spiked = c in (a1, a2)
+        verdict = ("strike" if c == a1 else "rollback" if c == a2 else "ok")
+        step = RUN_MID_AT + (c if c < a2 else c - a2)
+        want_rows.append((c, spiked, verdict, step, int(c >= a2),
+                          RUN_MID_AT + c))
+    log(f"run: sentinel (call, skip, verdict, global step, rollbacks, data "
+        f"position) {json.dumps(rows)} audited_clean="
+        f"{sen['done']['audited_clean']}")
+    if rows != want_rows:
+        _run_fail("sentinel", sen, f"the ladder's steps: want {want_rows}")
+    if sen["done"]["audited_clean"] != mid_tag or \
+            f"(tag {mid_tag})" not in sen["out"]:
+        _run_fail("sentinel", sen, f"rolled back to another tag than the "
+                  f"audited-clean {mid_tag}")
+    # the resumed steps before the spike: the twin's, bit for bit
+    mid_diff = same_as_twin("sentinel", sen, sen["steps"][:RUN_SPIKE_SKIP])
+    out["mid"] = {"wave": wave2, "rc": mid["rc"], "tag": mid_tag,
+                  "save_and_exit_s": mid["t1"] - mid["steps"][-1]["t"],
+                  "resumed_max_rel_diff_vs_twin": mid_diff, "s": mid["s"]}
+    log("run: mid-step preempt " + json.dumps(out["mid"]))
+    out["sentinel"] = {"wave": wave2, "skips": [a1, a2], "rollback_at": a2,
+                       "restored": mid_tag, "s": sen["s"]}
+    # 6. MPMD on the one card
+    if twin["rc"] != 0 or twin["restarts"] != [0, 0] or \
+            len(twin["losses"]) != MPMD_STEPS:
+        fail(f"run: mpmd twin rc {twin['rc']}: {twin['logs'][1][-2000:]}")
+    log(f"run: mpmd losses twin={twin['losses']} killed={kill['losses']} "
+        f"restarts={kill['restarts']} parks={json.dumps(kill['parks'])}")
+    if kill["rc"] != 0 or kill["restarts"] != [0, 1]:
+        fail(f"run: mpmd kill rc {kill['rc']} restarts {kill['restarts']}"
+             f": {kill['logs'][1][-2000:]}")
+    # stage 1 restarts from its step-MPMD_KILL_SKIP tag, the survivor
+    # restores its own, and both replay from there
+    if not kill["parks"][0] or \
+            kill["parks"][0][-1]["resync_step"] != MPMD_KILL_SKIP:
+        fail(f"run: mpmd survivor parks {kill['parks']}")
+    for s in range(2):
+        if [x["step"] for x in kill["steps"][s]] != list(range(MPMD_STEPS)):
+            fail(f"run: mpmd kill stage {s} ran steps "
+                 f"{[x['step'] for x in kill['steps'][s]]}")
+    if kill["losses"] != twin["losses"]:
+        fail(f"run: mpmd the restarted trajectory {kill['losses']} is not "
+             f"the twin's {twin['losses']}")
+    per_stage = LLAMA_LAYERS // 2
+    mp = {"wave": wave2}
+    for name, r in (("twin", twin), ("kill", kill)):
+        for s in range(2):
+            if not r["ends"][s]:
+                fail(f"run: mpmd {name} stage {s} reported no launches")
+            c = r["ends"][s][-1]["launches"]
+            # a stage's backward recomputes its forward; the last stage
+            # skips the forward its backward recomputes
+            fwd = per_stage * MPMD_MICRO * (2 if s == 0 else 1)
+            want_c = {"flash_attention_fwd": fwd,
+                      "flash_attention_bwd_dq": per_stage * MPMD_MICRO,
+                      "flash_attention_bwd_dkv": per_stage * MPMD_MICRO}
+            st = r["steps"][s]
+            for x in st:
+                if x["launches"] != want_c:
+                    fail(f"run: mpmd {name} stage {s} step {x['step']} "
+                         f"launched {x['launches']}: expected {want_c}")
+            # the process that printed the totals: the restarted stage 1
+            # ran the replayed steps alone; the survivor also ran part of
+            # the step it abandoned at the park
+            n = (MPMD_STEPS - MPMD_KILL_SKIP if (name, s) == ("kill", 1)
+                 else MPMD_STEPS)
+            extra = {k: c[k] - n * v for k, v in want_c.items()}
+            partial = (name, s) == ("kill", 0)
+            if any(e < 0 or e >= (want_c[k] if partial else 1)
+                   for k, e in extra.items()):
+                fail(f"run: mpmd {name} stage {s} launched {c}: expected "
+                     f"{n} x {want_c}"
+                     + (" and part of the abandoned step" if partial
+                        else ""))
+            out["launches"][f"mpmd_{name}_stage{s}"] = c
+            mp[f"{name}_stage{s}"] = {
+                "step_ms": [round(x["ms"], 3) for x in st],
+                "bytes_a_step": [x["bytes_sent"] + x["bytes_recv"]
+                                 for x in st],
+                "wait_ms": [round(x["wait_ms"], 3) for x in st],
+                "peak_gb": r["ends"][s][-1]["peak_bytes"] / 1e9}
+        mp[f"{name}_s"] = r["s"]
+    # the killed stage's last step before the kill to its first replayed
+    # step after the restart
+    s1 = kill["steps"][1]
+    mp["restart_s"] = s1[MPMD_KILL_SKIP]["t"] - s1[MPMD_KILL_SKIP - 1]["t"]
+    mp["twin_launch_to_first_step_s"] = min(
+        twin["steps"][s][0]["t"] for s in range(2)) - twin["t0"]
+    out["mpmd"] = mp
+    log("run: mpmd " + json.dumps(mp))
+    return out
+
+
 def main(argv=None):
     import argparse
     import torch
@@ -8608,11 +9294,12 @@ def main(argv=None):
                          "serve decode step")
     ap.add_argument("--only", nargs="+", metavar="PHASE",
                     choices=("ckpt", "remat", "hf", "bert-masked", "zero",
-                             "sp", "dropout", "moe", "tp", "pp", "fleet"),
+                             "sp", "dropout", "moe", "tp", "pp", "fleet",
+                             "run"),
                     help="build the kernels, then run only these phases "
                          "(ckpt, remat, hf, bert-masked, zero, sp, dropout, "
-                         "moe, tp, pp, fleet) and a result line that names "
-                         "them; no kernels line")
+                         "moe, tp, pp, fleet, run) and a result line that "
+                         "names them; no kernels line")
     ap.add_argument("--zero-ranks", type=int, metavar="N",
                     help="build the kernels, then run only the zero leg "
                          "across N GPUs of this host (one process each, "
@@ -8687,7 +9374,9 @@ def main(argv=None):
         f"nvidia-smi: {smi}")
 
     t0 = time.perf_counter()
+    _PHASE_T[0] = t0
     phase_build()
+    _mark("build")
     if args.zero_ranks:
         if torch.cuda.device_count() < args.zero_ranks:
             fail(f"--zero-ranks {args.zero_ranks}: this host has "
@@ -8768,9 +9457,12 @@ def main(argv=None):
                        "tp": lambda: {"phase": phase_tp(smi),
                                       "tp4_calls": time_tp_kernels()},
                        "pp": lambda: phase_pp(tmp),
-                       "fleet": lambda: phase_fleet(tmp)
+                       "fleet": lambda: phase_fleet(tmp),
+                       "run": lambda: phase_run(tmp)
                        }[phase]()
+                _mark(phase)
                 log(f"time: {phase} " + json.dumps(res, default=str))
+        log("time: phases_s " + json.dumps(_PHASE_S))
         log(f"total_s={time.perf_counter() - t0:.1f}")
         log(smi)
         # a partial run names its phases, so its last line is never the
@@ -8783,21 +9475,26 @@ def main(argv=None):
                if args.old_flash_fwd else None)
     old_paged = _parent_paged(args.old_paged) if args.old_paged else None
     errs = phase_check()
+    _mark("check")
     with tempfile.TemporaryDirectory() as tmp:
         eng, srv, cfg, pa_launches, rates = phase_serve(tmp)
     if old_paged:
         ab_paged(old_paged, srv)
     del srv
     torch.cuda.empty_cache()
+    _mark("serve")
     srv8, qm_launches, qm_by_path, int8_rates = phase_int8(eng)
+    _mark("int8")
     with tempfile.TemporaryDirectory() as tmp:
         gen_counts, gen_rates = phase_generate(tmp, eng)
     if old_fwd:
         ab_generate(old_fwd, eng.cfg, eng.params)
     torch.cuda.empty_cache()
+    _mark("generate")
     with tempfile.TemporaryDirectory() as tmp:
         fleet = phase_fleet(tmp, eng)
     torch.cuda.empty_cache()
+    _mark("fleet")
     log("time: fleet " + json.dumps({k: v for k, v in fleet.items()
                                      if k != "launches"}, default=str))
     log("time: serve " + json.dumps(rates))
@@ -8828,6 +9525,7 @@ def main(argv=None):
     if old_fwd:
         ab_flash_fwd(old_fwd)
     torch.cuda.empty_cache()
+    _mark("time_serving_kernels")
     with tempfile.TemporaryDirectory() as tmp:
         trainer, batch, train_counts, train_rates = phase_train(tmp)
     log("time: train " + json.dumps(train_rates))
@@ -8839,9 +9537,12 @@ def main(argv=None):
         ab_train(trainer, batch, old_fwd, which="fwd")
     del trainer
     torch.cuda.empty_cache()
+    _mark("train")
     with tempfile.TemporaryDirectory() as tmp:
         ckpt = phase_ckpt(tmp)
+        _mark("ckpt")
         remat = phase_remat(tmp)
+        _mark("remat")
     log("time: ckpt " + json.dumps(ckpt))
     log("time: remat " + json.dumps(remat))
     fb = time_flash_attention_bwd()
@@ -8851,37 +9552,53 @@ def main(argv=None):
     time_head_dims()
     time_wide_heads()
     bert = time_bert_masked_flash()
+    _mark("time_train_kernels")
     with tempfile.TemporaryDirectory() as tmp:
         gemma_counts = phase_gemma(tmp)
+    _mark("gemma")
     hf_counts = phase_hf(smi)
+    _mark("hf")
     old_bs = (_parent_block_sparse(args.old_block_sparse)
               if args.old_block_sparse else None)
     with tempfile.TemporaryDirectory() as tmp:
         long_counts, window_counts, long_rates = phase_long(tmp, old_bs)
     log("time: long " + json.dumps(long_rates))
+    _mark("long")
     with tempfile.TemporaryDirectory() as tmp:
         zero = phase_zero(tmp)
+    _mark("zero")
     log("time: zero " + json.dumps({k: v for k, v in zero.items()
                                     if k != "d128"}))
     with tempfile.TemporaryDirectory() as tmp:
         sp = phase_sp(tmp)
+    _mark("sp")
     dropout = phase_dropout()
     log("time: dropout " + json.dumps(dropout))
+    _mark("dropout")
     with tempfile.TemporaryDirectory() as tmp:
         moe = phase_moe(tmp, smi)
     log("time: moe " + json.dumps(moe["rates"]))
+    _mark("moe")
     tp = phase_tp(smi)
     tp4 = time_tp_kernels()
+    _mark("tp")
     with tempfile.TemporaryDirectory() as tmp:
         pp = phase_pp(tmp)
     log("time: pp " + json.dumps({k: v for k, v in pp.items()
                                   if k != "launches"}, default=str))
+    _mark("pp")
+    with tempfile.TemporaryDirectory() as tmp:
+        run = phase_run(tmp)
+    log("time: run " + json.dumps({k: v for k, v in run.items()
+                                   if k != "launches"}, default=str))
+    _mark("run")
     bs = time_block_sparse_attention()
     time_block_sparse_scaling()
     if old_bs is not None:
         ab_block_sparse(old_bs)
     if args.sweep_item_cost:
         sweep_item_cost()
+    _mark("time_block_sparse")
     kernels = []
     for kname, launches, t, src, tpu in (
             ("paged_attention", pa_launches, pa,
@@ -8956,6 +9673,10 @@ def main(argv=None):
         if kname in FLASH_KERNELS:
             row["launches_pp"] = {path: c[kname] for path, c in
                                   pp["launches"].items()}
+            # the run leg's children: each launched run's total and each
+            # MPMD stage worker's report
+            row["launches_run"] = {path: c[kname] for path, c in
+                                   run["launches"].items()}
         if kname == "quant_matmul":
             row["launches_by_path"] = qm_by_path
         if kname in ("paged_attention", "quant_matmul"):
@@ -8988,6 +9709,8 @@ def main(argv=None):
         f"bound_ms={dm['bound_ms']:.4f} ({dm['bound_by']}) "
         f"plain_ms={dm['plain_ms']:.4f} library_ms={dm['library_ms']:.4f} "
         f"wall_ms={dm['wall_ms']:.4f} [{dm['work']}]")
+    _mark("report")
+    log("time: phases_s " + json.dumps(_PHASE_S))
     log(f"total_s={time.perf_counter() - t0:.1f}")
     log(json.dumps({"kernels": kernels}))
     log(smi)

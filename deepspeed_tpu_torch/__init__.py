@@ -21,24 +21,51 @@ Entry points run on CUDA unless the caller passes ``device="cpu"``, which
 runs every kernel's plain PyTorch version.
 """
 
+import importlib
 from typing import Tuple
 
-from . import comm
-from .comm import init_distributed
-from .models.hf import replace_transformer_layer, revert_transformer_layer
-from .models.transformer import (DeepSpeedTransformerConfig,
-                                 DeepSpeedTransformerLayer, make_moe_loss)
-from .moe import MoE
-from .parallel.mesh import MeshManager, build_mesh_from_config, get_global_mesh
-from .parallel.topology import (
-    ProcessTopology,
-    PipeDataParallelTopology,
-    PipeModelDataParallelTopology,
-    PipelineParallelGrid,
-)
-from . import zero
-
 __version__ = "0.1.0"
+
+#: the package's exports, each imported at its first use: the launcher's
+#: processes (the runner, its supervisors) import the package without
+#: paying for torch and the model code they never run
+_EXPORTS = {
+    "comm": (".comm", None),
+    "zero": (".zero", None),
+    "init_distributed": (".comm", "init_distributed"),
+    "replace_transformer_layer": (".models.hf", "replace_transformer_layer"),
+    "revert_transformer_layer": (".models.hf", "revert_transformer_layer"),
+    "DeepSpeedTransformerConfig": (".models.transformer",
+                                   "DeepSpeedTransformerConfig"),
+    "DeepSpeedTransformerLayer": (".models.transformer",
+                                  "DeepSpeedTransformerLayer"),
+    "make_moe_loss": (".models.transformer", "make_moe_loss"),
+    "MoE": (".moe", "MoE"),
+    "MeshManager": (".parallel.mesh", "MeshManager"),
+    "build_mesh_from_config": (".parallel.mesh", "build_mesh_from_config"),
+    "get_global_mesh": (".parallel.mesh", "get_global_mesh"),
+    "ProcessTopology": (".parallel.topology", "ProcessTopology"),
+    "PipeDataParallelTopology": (".parallel.topology",
+                                 "PipeDataParallelTopology"),
+    "PipeModelDataParallelTopology": (".parallel.topology",
+                                      "PipeModelDataParallelTopology"),
+    "PipelineParallelGrid": (".parallel.topology", "PipelineParallelGrid"),
+}
+
+
+def __getattr__(name):
+    if name not in _EXPORTS:
+        raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+    mod, attr = _EXPORTS[name]
+    value = importlib.import_module(mod, __name__)
+    if attr is not None:
+        value = getattr(value, attr)
+    globals()[name] = value
+    return value
+
+
+def __dir__():
+    return sorted(set(globals()) | set(_EXPORTS))
 
 
 def initialize(args=None,
@@ -73,6 +100,7 @@ def initialize(args=None,
     if config is None and args is not None:
         config = getattr(args, "deepspeed_config", None)
     if dist_init_required is None or dist_init_required:
+        from .comm import init_distributed
         init_distributed(device=kwargs.get("device"))
     from .models.pipeline import PipelinedTransformer
     from .runtime.engine import DeepSpeedEngine

@@ -31,7 +31,6 @@ returns a handle, so a caller computes while they fly.
 
 from __future__ import annotations
 
-import datetime
 import functools
 import os
 import socket
@@ -108,7 +107,8 @@ def init_distributed(dist_backend: Optional[str] = None,
     ``cuda:{LOCAL_RANK}`` is made current before the group starts), gloo
     only when ``device="cpu"`` is asked for. A ``dist_backend`` that
     disagrees with the device raises. ``initialization_timeout`` (or
-    ``DSTPU_INIT_TIMEOUT``), seconds, bounds the rendezvous."""
+    ``DSTPU_INIT_TIMEOUT``), seconds, bounds the rendezvous with the
+    init watchdog: past it the rank exits 117 (``runtime/watchdog.py``)."""
     from ..utils.device import resolve_device
     if dist.is_initialized():
         return
@@ -146,10 +146,14 @@ def init_distributed(dist_backend: Optional[str] = None,
                              "MASTER_PORT)")
     timeout = float(kwargs.pop("initialization_timeout", 0) or
                     os.environ.get("DSTPU_INIT_TIMEOUT", "0") or 0)
-    extra = ({"timeout": datetime.timedelta(seconds=timeout)}
-             if timeout > 0 else {})
-    dist.init_process_group(backend, init_method=coord, world_size=n,
-                            rank=r, **extra)
+    # the init watchdog (the JAX launcher's bound on
+    # jax.distributed.initialize): past ``timeout`` the rank dumps its
+    # stacks and exits the stall rc, so a supervisor tears the launch
+    # down instead of every rank waiting on a dead coordinator
+    from ..runtime.watchdog import init_deadline
+    with init_deadline(timeout):
+        dist.init_process_group(backend, init_method=coord, world_size=n,
+                                rank=r)
     logger.info(f"torch.distributed initialized: rank {r}/{n} ({backend}) "
                 f"@ {coord}")
 

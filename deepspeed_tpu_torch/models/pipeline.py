@@ -384,7 +384,8 @@ class PipelinedTransformer(nn.Module):
                                 batch_loss: bool = False,
                                 total_valid=None, seeds=None,
                                 gating_seeds=None, aux_weight=None,
-                                loss_scale=None, devices=None):
+                                loss_scale=None, devices=None,
+                                channel=None):
         """Loss and grads of one step. ``micros``: the step's batch as
         [n_micro, mb, ...] tensors (``input_ids``, optional
         ``attention_mask`` and ``labels``; every [B, ...] leaf a custom
@@ -394,7 +395,9 @@ class PipelinedTransformer(nn.Module):
         a MoE model's per-micro-batch seeds of top-2's gating noise (None:
         noise-free gating); ``aux_weight``: a MoE model's weight of the
         routers' aux loss (default ``cfg.moe_aux_weight``); ``devices``:
-        one process's per-stage devices. Returns (loss, {parameter name:
+        one process's per-stage devices; ``channel``: this stage's
+        transfer channel (default the ``pipe`` group's; the MPMD stage
+        worker passes its socket channel). Returns (loss, {parameter name:
         f32 grad}) for this module's parameters, the grads scaled by
         ``loss_scale`` and divided by n_micro, each rank's own share of
         the embedding and head leaves' (zeros where it has none). A MoE
@@ -443,7 +446,8 @@ class PipelinedTransformer(nn.Module):
             with self.gather(self._embed_params()) as ins, \
                     torch.enable_grad():
                 emb = self.embed(ids, extras.get("seed"))
-        channel = None if self.stage is None else self._group_channel()
+        if channel is None and self.stage is not None:
+            channel = self._group_channel()
         pipe = self._pipeline(schedule, loss_fn, batch_loss, channel,
                               devices)
         loss, aux, grads, hgrads, dm = pipe.value_and_grad(

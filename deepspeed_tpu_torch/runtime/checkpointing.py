@@ -1083,14 +1083,18 @@ def save_checkpoint_sharded(save_dir: str,
 
 
 def _all_ok(ok: bool) -> bool:
-    """True iff ``ok`` on every rank (one all-reduce on the group's
-    device)."""
+    """True iff ``ok`` on every rank of the world (one all-reduce on the
+    group's device). It spans every mesh axis, not ``data``'s group
+    alone: under a mesh whose data group is smaller than the world, rank
+    0 would otherwise digest and publish shards that other ranks were
+    still writing."""
     from .. import comm
+    from ..parallel.mesh import MESH_AXES
     import torch.distributed as dist
     dev = (torch.device("cuda", torch.cuda.current_device())
            if dist.get_backend() == "nccl" else torch.device("cpu"))
     flag = torch.tensor([1.0 if ok else 0.0], device=dev)
-    comm.all_reduce(flag, op=comm.ReduceOp.MIN)
+    comm.all_reduce(flag, op=comm.ReduceOp.MIN, axis=MESH_AXES)
     return bool(flag.item() == 1.0)
 
 

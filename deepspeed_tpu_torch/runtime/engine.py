@@ -85,24 +85,41 @@ process group is up and the rules are given, a model axis of one
 included; ``sharding_rules=None`` keeps every weight whole on every
 rank. MoE or sequence parallelism together with ``tp_size > 1`` raise.
 
+Run-side resilience (the JAX engine's hooks): the ``integrity``
+section's ``TrainingSentinel`` (rung 1 skips a step whose raw grad norm
+passes its ceiling, through the overflow skip's path; rung 2 rolls back
+to the newest intact tag without rewinding ``data_position``; rung 3
+raises ``TrainingIntegrityError``, rc 118), the cross-replica SDC audit
+(:func:`state_checksum` of the leaves every data-parallel replica holds
+whole, all-gathered over ``data`` through the counted comm facade), the
+``watchdog`` section's phase deadlines with the rank's heartbeat record
+(``DSTPU_HEARTBEAT_DIR``), the ``straggler`` detector,
+:meth:`DeepSpeedEngine.install_preemption_handler` (SIGTERM -> emergency
+save -> rc 114), the audited-clean resume and
+:meth:`DeepSpeedEngine.fast_forward_dataloader`. The ``elasticity``
+section is parsed and read by the runner's elastic agent, as in the JAX
+package. The ``run.*`` and ``sentinel.*`` failpoints of
+``testing/chaos.py`` fire at the train-batch entry.
+
 Everything else that a config can enable and this engine does not
 implement raises ``NotImplementedError`` naming ROADMAP.md: CPU/NVMe
 offload (and ``activation_checkpointing.cpu_checkpointing``), the 1-bit
-optimizers, comm_plan, compression_training, the integrity sentinel,
-progressive layer drop, curriculum / data efficiency, eigenvalue,
-``mpu``, monitors and the other aux sections. Pipelines run in the
-``PipelineEngine`` (``runtime/pipe/engine.py``), a subclass that
-``initialize`` picks for a ``models.pipeline.PipelinedTransformer``;
-this engine refuses ``pipeline.stages > 1`` for any other model. Not ported either: the preemption handler and
-emergency save, the sentinel's audited-clean resume and the offload load
-path (ROADMAP.md).
+optimizers, comm_plan, compression_training, progressive layer drop,
+curriculum / data efficiency, eigenvalue, ``mpu``, monitors and the
+other aux sections. Pipelines run in the ``PipelineEngine``
+(``runtime/pipe/engine.py``), a subclass that ``initialize`` picks for a
+``models.pipeline.PipelinedTransformer``; this engine refuses
+``pipeline.stages > 1`` for any other model. Not ported either: the
+offload load path (ROADMAP.md).
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import inspect
 import logging
+import os
 import time
 from typing import Any, Callable, Dict, List, Optional
 
@@ -112,9 +129,14 @@ from torch import nn
 
 from ..config.config import DeepSpeedConfig, load_config
 from ..ops.optimizers import Optimizer, build_optimizer
+from ..testing import chaos
 from ..utils.device import resolve_device
-from ..utils.logging import log_dist
+from ..utils.logging import log_dist, logger
 from . import checkpointing as ckpt_lib
+from . import heartbeat as hb
+from . import sentinel as sentinel_lib
+from . import straggler as straggler_lib
+from .sentinel import TrainingIntegrityError, TrainingSentinel
 from .loss_scaler import LossScaler, LossScaleState
 from .lr_schedules import LRScheduler, build_schedule
 
@@ -129,6 +151,48 @@ _GRAD_ACCUM = {"fp32": torch.float32, "float32": torch.float32,
 def _default_loss_fn(outputs, batch):
     """The model returns the scalar loss (loss = engine(batch))."""
     return outputs
+
+
+def _scale_floats(batch, factor):
+    """``batch`` with every floating-point feature scaled by ``factor``
+    (the ``sentinel.spike`` poisoned batch; integer ids pass through)."""
+    if isinstance(batch, dict):
+        return {k: _scale_floats(v, factor) for k, v in batch.items()}
+    if isinstance(batch, (list, tuple)):
+        return type(batch)(_scale_floats(v, factor) for v in batch)
+    if isinstance(batch, torch.Tensor) and batch.is_floating_point():
+        return batch * factor
+    if isinstance(batch, np.ndarray) and np.issubdtype(batch.dtype,
+                                                       np.floating):
+        return batch * factor
+    return batch
+
+
+_WORDS = {1: torch.uint8, 2: torch.int16, 4: torch.int32}
+_CHUNK = 1 << 24
+
+
+def state_checksum(tensors: List[torch.Tensor]) -> int:
+    """Bit-exact checksum of ``tensors`` (the JAX engine's audit
+    program): each element's bits as an unsigned word, weighted by its
+    position + 1 (two swapped elements cannot cancel), summed mod 2^32.
+    Computed on the tensors' device in chunks; one host read."""
+    total = None
+    mask = 0xFFFFFFFF
+    for t in tensors:
+        flat = t.detach().reshape(-1)
+        if flat.dtype == torch.bool:
+            flat = flat.to(torch.uint8)
+        size = flat.element_size()
+        words = flat.view(_WORDS[size])
+        wmask = (1 << (8 * size)) - 1       # the word as unsigned
+        for lo in range(0, words.numel(), _CHUNK):
+            u = words[lo:lo + _CHUNK].to(torch.int64) & wmask
+            w = torch.arange(lo + 1, lo + 1 + u.numel(), dtype=torch.int64,
+                             device=u.device)
+            part = ((u * w) & mask).sum() & mask
+            total = part if total is None else (total + part) & mask
+    return 0 if total is None else int(total.item())
 
 
 def _any_enabled(node) -> bool:
@@ -168,7 +232,6 @@ def unported_sections(config: DeepSpeedConfig) -> List[str]:
     off = [o for o in (z.offload_optimizer, z.offload_param)
            if o is not None and o.device in ("cpu", "nvme")]
     act = c.activation_checkpointing
-    wd = c.watchdog
     checks = {
         "zero_optimization offload (offload_optimizer / offload_param)":
             bool(off),
@@ -177,26 +240,18 @@ def unported_sections(config: DeepSpeedConfig) -> List[str]:
         "compression_training": _any_enabled(
             c.compression_training.model_dump()),
         "quantize_training": _any_enabled(c.quantize_training),
-        "integrity (training sentinel)": (
-            c.integrity.enabled or c.integrity.audit_interval > 0
-            or c.integrity.nonfinite_abort_after > 0),
         "progressive_layer_drop": c.progressive_layer_drop.enabled,
         "curriculum_learning": c.curriculum_learning.enabled,
         "data_efficiency": c.data_efficiency.enabled,
         "eigenvalue": c.eigenvalue.enabled,
         "activation_checkpointing.cpu_checkpointing (host offload, "
         "ROADMAP item 5.2)": act.cpu_checkpointing,
-        "watchdog": any(t > 0 for t in (
-            wd.stall_timeout, wd.compile_timeout, wd.restore_timeout,
-            wd.save_timeout)),
-        "straggler": c.straggler.enabled,
         "amp": c.amp.enabled,
         "sparse_gradients": c.sparse_gradients,
         "monitors (tensorboard / wandb / csv_monitor)": (
             c.tensorboard.enabled or c.wandb.enabled or c.csv_monitor.enabled),
         "flops_profiler": c.flops_profiler.enabled,
         "autotuning": c.autotuning.enabled,
-        "elasticity": c.elasticity.enabled,
     }
     return [name for name, on in checks.items() if on]
 
@@ -542,6 +597,10 @@ class DeepSpeedEngine:
         self._micro_count = 0
         self._pending = None
         self._train_mode = True
+        # preemption: set inside a step; a SIGTERM there defers its save
+        # to the step's end (see install_preemption_handler)
+        self._in_step = False
+        self._preempt_pending = None
         self._last_metrics: Dict[str, Any] = {}
         self._step_t0 = None
         # global batches consumed since data start (one a step), kept in
@@ -549,6 +608,7 @@ class DeepSpeedEngine:
         self.data_position = 0
         self._ckpt_cache = None             # see _ckpt_leaves
         self._groups = None                 # see _leaf_groups
+        self._init_resilience()
         where = ("one process" if self.dp is None else
                  f"data parallel over {dp_world} rank(s)")
         if self.seq_world > 1:
@@ -564,6 +624,425 @@ class DeepSpeedEngine:
                  f"batch {self.config.train_batch_size} (micro "
                  f"{self.config.train_micro_batch_size_per_gpu} x gas "
                  f"{self.config.gradient_accumulation_steps})", ranks=[0])
+
+    # ------------------------------------------------------------ resilience
+
+    def _init_resilience(self) -> None:
+        """The training-integrity sentinel, the phase-aware watchdog with
+        the rank's heartbeat record, and the straggler detector (the JAX
+        engine's set-up, :635-724)."""
+        from .. import comm
+        # host detector over the step's statistics and the remediation
+        # ladder (skip -> rollback -> abort); the non-finite streak abort
+        # lives inside observe()
+        self.sentinel = TrainingSentinel(self.config.integrity)
+        # the rollback source: the last dir saved to or loaded from; an
+        # explicit integrity.load_dir always wins at rollback time
+        self._ckpt_dir: Optional[str] = self.config.integrity.load_dir
+        integ = self.config.integrity
+        if self.sentinel.enabled or integ.audit_interval > 0:
+            log_dist(f"integrity sentinel: metrics={integ.metrics} "
+                     f"zmax={integ.zmax} skip={integ.skip} "
+                     f"rollback_after={integ.rollback_after} "
+                     f"audit_interval={integ.audit_interval}", ranks=[0])
+        # lifecycle phases (RESTORE -> COMPILE -> STEP -> SAVE), each
+        # with its own deadline; the heartbeat writer (opt-in through
+        # DSTPU_HEARTBEAT_DIR, which the runner's --heartbeat_dir
+        # exports) mirrors every transition to the rank's record
+        self.heartbeat = hb.HeartbeatWriter.from_env(
+            rank=comm.get_rank() if comm.is_initialized() else 0)
+        self._step_phase_reached = False
+        self.watchdog = None
+        wd = self.config.watchdog
+        pre_step = {hb.PHASE_COMPILE: wd.compile_timeout,
+                    hb.PHASE_RESTORE: wd.restore_timeout,
+                    hb.PHASE_SAVE: wd.save_timeout}
+        if wd.stall_timeout > 0 or any(t > 0 for t in pre_step.values()):
+            from .watchdog import StallWatchdog
+            self.watchdog = StallWatchdog(
+                wd.stall_timeout or 0.0,
+                poll_interval=wd.poll_interval or None,
+                phase_timeouts=pre_step, heartbeat=self.heartbeat,
+                phase=hb.PHASE_INIT)
+            if any(t > 0 for t in pre_step.values()):
+                # a compile or restore hang is bounded before the first
+                # completed step; INIT itself stays unbounded here
+                self.watchdog.start()
+            log_dist(f"watchdog configured: stall={wd.stall_timeout}s "
+                     f"compile={wd.compile_timeout}s "
+                     f"restore={wd.restore_timeout}s "
+                     f"save={wd.save_timeout}s", ranks=[0])
+        if self.heartbeat is not None:
+            self.heartbeat.write(hb.PHASE_INIT, 0, force=True)
+        # the rolling step_ms gauge rides every STEP record; the
+        # cross-rank detector is opt-in and acts on verdicts against
+        # this rank only (flag, then rc 117 with straggler.abort_after)
+        self._step_clock = straggler_lib.StepClock(
+            window=self.config.straggler.window)
+        self.straggler: Optional[straggler_lib.StragglerDetector] = None
+        self._straggler_next_check = 0.0
+        self._straggler_flagged = False
+        if self.config.straggler.enabled and self.heartbeat is not None:
+            st = self.config.straggler
+            self.straggler = straggler_lib.StragglerDetector(st)
+            log_dist(f"straggler detector: zmax={st.zmax} "
+                     f"rel_threshold={st.rel_threshold} "
+                     f"strike_window={st.strike_window} "
+                     f"abort_after={st.abort_after}"
+                     + (" (evidence-only)" if st.abort_after <= 0 else ""),
+                     ranks=[0])
+
+    def _report_phase(self, phase: str) -> None:
+        """Move the watchdog clock into ``phase`` and mirror the
+        transition to the rank's heartbeat record."""
+        if self.watchdog is not None:
+            self.watchdog.start().enter_phase(phase, step=self.global_steps)
+        if self.heartbeat is not None:
+            self.heartbeat.write(phase, self.global_steps, force=True)
+        if phase != hb.PHASE_STEP:
+            # a non-step phase's gap is not a step of the step_ms gauge
+            self._step_clock.reset()
+
+    def _phase_scope(self, phase: str):
+        """Bracket a bounded lifecycle section (RESTORE / SAVE): the
+        phase's own deadline applies inside, and the previous phase
+        resumes with a fresh clock on exit."""
+        if self.heartbeat is not None:
+            self.heartbeat.write(phase, self.global_steps, force=True)
+        self._step_clock.reset()
+        if self.watchdog is not None:
+            self.watchdog.start()
+            return self.watchdog.phase_scope(phase)
+        return contextlib.nullcontext()
+
+    def _step_entry(self, batch):
+        """The train-batch entry of every engine (JAX :1487-1510): the
+        run failpoints, the ``sentinel.spike`` poisoned batch (its float
+        features scaled by the armed factor) and, before the first
+        completed step, the COMPILE phase. Returns the batch to train
+        on."""
+        chaos.failpoint("run.kill")
+        chaos.failpoint("run.preempt")
+        chaos.failpoint("run.hang")
+        # degraded, not dead: sleep mode makes this rank slow
+        chaos.failpoint("run.slow")
+        spike = chaos.flag("sentinel.spike")
+        if spike is not None:
+            batch = _scale_floats(batch, spike)
+        if not self._step_phase_reached:
+            # first entry to the first completed step: the kernels'
+            # first builds and the first step, bounded by compile_timeout
+            self._report_phase(hb.PHASE_COMPILE)
+            chaos.failpoint("run.compile_hang")
+        return batch
+
+    def _maybe_check_straggler(self) -> None:
+        """Worker-side straggler ladder at ``straggler.check_interval``
+        cadence: read the shared heartbeat channel, run the cross-rank
+        detector, act on verdicts against THIS rank (the STRAGGLER flag,
+        then rc 117 past ``straggler.abort_after``)."""
+        det = self.straggler
+        if det is None:
+            return
+        now = time.monotonic()
+        if now < self._straggler_next_check:
+            return
+        self._straggler_next_check = now + \
+            self.config.straggler.check_interval
+        records = hb.read_heartbeats(self.heartbeat.directory)
+        mine = det.observe(records).get(self.heartbeat.rank)
+        if mine is None:
+            return
+        if not self._straggler_flagged:
+            self._straggler_flagged = True
+            logger.error(
+                "straggler: this rank's step time is %s MADs above the "
+                "world median for %d consecutive windows — stamping the "
+                "STRAGGLER heartbeat flag (host %s)",
+                self.config.straggler.zmax,
+                self.config.straggler.strike_window, self.heartbeat.host)
+            self.heartbeat.add_flag(straggler_lib.STRAGGLER_FLAG,
+                                    lock_timeout=5.0)
+        if mine == straggler_lib.ABORT:
+            self.heartbeat.stamp_terminal(hb.PHASE_STALLED,
+                                          lock_timeout=5.0)
+            raise straggler_lib.StragglerAbort(
+                f"rank {self.heartbeat.rank} ({self.heartbeat.host}) "
+                f"persistently slow past straggler.abort_after="
+                f"{self.config.straggler.abort_after} windows — exiting "
+                f"rc {straggler_lib.STALL_EXIT_CODE} so the elastic agent "
+                "relaunches the world without this host")
+
+    def _sentinel_rollback(self) -> None:
+        """Remediation rung 2: restore the newest intact checkpoint via
+        the verified loader; the data position is NOT rewound, so the
+        poisoned span is skipped, not replayed."""
+        load_dir = self.config.integrity.load_dir or self._ckpt_dir
+        if not load_dir:
+            raise TrainingIntegrityError(
+                "sentinel rollback requested (strikes: "
+                f"{self.sentinel.last_anomaly}) but no checkpoint directory "
+                "is known — set integrity.load_dir or save a checkpoint "
+                "before enabling the rollback rung")
+        from_step = self.global_steps
+        position = self.data_position
+        logger.error(
+            "integrity sentinel: rolling back from step %d (%s) to the "
+            "newest intact checkpoint under %s", from_step,
+            self.sentinel.last_anomaly, load_dir)
+        try:
+            # newest intact, not the audited-clean preference: an in-run
+            # anomaly rollback targets the latest intact tag
+            tag = ckpt_lib.resolve_load_tag(
+                load_dir, check_digests=self.config.checkpoint.verify_load)
+            self.load_checkpoint(load_dir, tag=tag)
+        except (FileNotFoundError, OSError,
+                ckpt_lib.CheckpointIntegrityError) as e:
+            raise TrainingIntegrityError(
+                f"sentinel rollback from step {from_step} failed: no intact "
+                f"checkpoint under {load_dir} ({e}); aborting with rc "
+                f"{sentinel_lib.INTEGRITY_EXIT_CODE}") from e
+        self.data_position = position
+        self.sentinel.note_rollback(self.global_steps)
+        log_dist(
+            f"integrity sentinel: rolled back to step {self.global_steps} "
+            f"(tag {tag}); data pipeline continues at batch {position} — "
+            "the poisoned span is skipped, not replayed", ranks=[0])
+
+    def fast_forward_dataloader(self, loader, batches_per_step: int = 1):
+        """Position ``loader`` past the data this engine's (restored)
+        state already consumed: ``data_position`` global batches, kept
+        in the checkpoint's client state. ``batches_per_step`` scales for
+        loaders yielding micro-batches. Returns the batches skipped."""
+        ff = getattr(loader, "fast_forward", None)
+        if ff is None:
+            raise TypeError(
+                f"{type(loader).__name__} has no fast_forward(n); wrap it "
+                "in deepspeed_tpu_torch.runtime.dataloader.RepeatingLoader "
+                "or use DeepSpeedDataLoader")
+        n = self.data_position * int(batches_per_step)
+        ff(n)
+        return n
+
+    # -- cross-replica SDC audit ---------------------------------------------
+
+    def _maybe_sdc_audit(self) -> None:
+        iv = self.config.integrity.audit_interval
+        if iv <= 0 or self.global_steps % iv != 0:
+            return
+        self._run_sdc_audit()
+
+    def _audit_state_leaves(self) -> List[tuple]:
+        """(name, tensor) of every state tensor that each data-parallel
+        replica holds whole and identically: the compute parameters,
+        master and moments of a leaf no ZeRO, expert or TP split cuts.
+        A split leaf's bytes differ between ranks legitimately. Scalars
+        are left out."""
+        if self.dp is not None:
+            whole = [e.pdim is None and e.eslab is None and e.tp is None
+                     for e in self.dp.entries]
+            mwhole = [e.mdim is None and e.eslab is None and e.tp is None
+                      for e in self.dp.entries]
+        else:
+            whole = mwhole = [True] * len(self._params)
+        out = [(f"params/{i}", p.data) for i, p in enumerate(self._params)
+               if whole[i]]
+        master = self._master()
+        if master is not None and (self.keep_master or self.dp is not None):
+            out += [(f"master/{i}", m) for i, m in enumerate(master)
+                    if mwhole[i]]
+        for slot in sorted(self.opt_state):
+            out += [(f"{slot}/{i}", t)
+                    for i, t in enumerate(self.opt_state[slot])
+                    if i < len(mwhole) and mwhole[i]]
+        return [(k, t) for k, t in out
+                if t.dim() > 0 and t.element_size() in (1, 2, 4)]
+
+    def _run_sdc_audit(self) -> None:
+        """One cross-replica audit: this rank's checksum of its auditable
+        state, all-gathered over the data-parallel replicas through the
+        counted comm facade, a majority vote, and on a minority replica
+        the SDC flag and the rc-118 abort. Runs every
+        ``audit_interval`` steps, never on the step path otherwise."""
+        from .. import comm
+        rank = comm.get_rank() if comm.is_initialized() else 0
+        # chaos: silent corruption of this rank's bytes, keyed by rank
+        if chaos.flag("sentinel.sdc", key=str(rank)) is not None:
+            self._inject_sdc_bitflip()
+        named = self._audit_state_leaves()
+        if not named:
+            logger.warning(
+                "integrity.audit_interval is set but no state leaf is held "
+                "whole by every replica (ZeRO-3 shards everything): the "
+                "cross-replica SDC audit has nothing to compare")
+            return
+        local = torch.tensor([rank, state_checksum([t for _, t in named])],
+                             dtype=torch.int64, device=self.device)
+        if self.dp is not None:
+            rows = comm.all_gather(local.view(1, 2), axis="data")
+        else:
+            rows = local.view(1, 2)
+        pairs = [(f"proc{int(r)}/dev0", int(v)) for r, v in rows.tolist()]
+        bad = sentinel_lib.compare_replica_checksums(pairs)
+        if not bad:
+            self.sentinel.note_clean_audit(self.global_steps)
+            if self._ckpt_dir:
+                tag = ckpt_lib.get_latest_tag(self._ckpt_dir)
+                if tag:
+                    # the newest tag existed under a clean audit: the
+                    # resume point of a post-SDC relaunch
+                    sentinel_lib.write_last_audited_clean(self._ckpt_dir,
+                                                          tag)
+            return
+        mine = f"proc{rank}/"
+        logger.error(
+            "integrity audit: cross-replica checksum MISMATCH at step %d — "
+            "implicated replicas: %s (checksums: %s)", self.global_steps,
+            bad, pairs)
+        if self.heartbeat is not None and any(k.startswith(mine)
+                                              for k in bad):
+            self.heartbeat.add_flag(sentinel_lib.SDC_FLAG,
+                                    step=self.global_steps,
+                                    lock_timeout=2.0)
+        raise TrainingIntegrityError(
+            f"cross-replica SDC detected at step {self.global_steps}: "
+            f"replica checksums diverged (implicated: {bad}). The live "
+            "state is not trustworthy; relaunch resumes from the last "
+            "audited-clean checkpoint")
+
+    def _inject_sdc_bitflip(self) -> None:
+        """Chaos only: flip one bit of this rank's copy of the first
+        auditable parameter (a device silently corrupting memory; the
+        other replicas keep the true bytes)."""
+        named = self._audit_state_leaves()
+        if not named:
+            return
+        name, t = next(((k, v) for k, v in named if k.startswith("params/")),
+                       named[0])
+        with torch.no_grad():
+            t.view(-1).view(torch.uint8)[0] ^= 1
+        logger.warning("chaos sentinel.sdc: flipped one bit of %s", name)
+
+    # -- preemption ----------------------------------------------------------
+
+    def _emergency_save(self, save_dir: str,
+                        client_state: Optional[dict] = None) -> str:
+        """Preemption-time save: drain pending async writes, then write
+        synchronously. A drained save that already published an intact
+        tag of this step is not rewritten."""
+        from ..checkpoint.engine import NpzCheckpointEngine
+        drained_ok = True
+        if hasattr(self, "checkpoint_engine"):
+            try:
+                drained_ok = bool(self.checkpoint_engine.commit(
+                    "preempt-drain"))
+            except Exception as e:       # a failed past save must not
+                drained_ok = False       # block THIS save
+                logger.error("preempt: drain of pending checkpoint "
+                             "writes failed: %s", e)
+        tag = f"global_step{self.global_steps}"
+        if drained_ok and ckpt_lib.get_latest_tag(save_dir) == tag:
+            path = os.path.join(save_dir, tag)
+            if ckpt_lib.verify_tag(path) is None:
+                log_dist(f"preempt: drained in-flight save already "
+                         f"published intact {tag}; skipping the duplicate "
+                         "emergency write", ranks=[0])
+                return path
+        client_state = dict(client_state or {})
+        client_state["preempted"] = True
+        return self._save_checkpoint_with(NpzCheckpointEngine(), save_dir,
+                                          None, client_state)
+
+    def install_preemption_handler(self, save_dir: str,
+                                   grace_secs: float = 30.0,
+                                   client_state: Optional[dict] = None,
+                                   exit_fn=None):
+        """SIGTERM / SIGINT -> emergency synchronous checkpoint -> exit
+        with ``PREEMPTION_EXIT_CODE`` (114: the elastic agent resumes
+        without counting a restart). ``grace_secs`` is a hard deadline:
+        past it a timer still exits 114 (the previous intact tag carries
+        the restart); a second signal exits at once. Returns the handler
+        (tests call it directly).
+
+        The save needs the step's state whole. A signal that lands inside
+        a step (between its micro-batches, or between the optimizer's
+        updates of the moments and of the params) only arms the deadline
+        and stamps the heartbeat; the save and the exit follow at the
+        step's end (``_step_boundary``), with the state of the step the
+        signal interrupted. Between steps they run at once."""
+        import signal
+        import threading
+        from ..exit_codes import PREEMPTION_EXIT_CODE
+        exit_fn = exit_fn or os._exit
+        state = {"fired": False}
+
+        def _handler(signum=None, frame=None):
+            if state["fired"]:
+                exit_fn(PREEMPTION_EXIT_CODE)
+                return
+            state["fired"] = True
+            if self.watchdog is not None:
+                # the grace window is save time, not step time
+                self.watchdog.suspend()
+            # the timer arms first: the heartbeat stamp and the save can
+            # block on dead storage, and only it guarantees the rc-114 exit
+            timer = threading.Timer(max(grace_secs, 0.1),
+                                    lambda: exit_fn(PREEMPTION_EXIT_CODE))
+            timer.daemon = True
+            timer.start()
+            if self.heartbeat is not None:
+                # bounded lock: the signal may have landed inside a
+                # heartbeat write on this same thread
+                self.heartbeat.write(hb.PHASE_PREEMPTED, self.global_steps,
+                                     force=True, lock_timeout=2.0)
+            log_dist(f"preemption (signal {signum}): emergency checkpoint "
+                     f"to {save_dir} within {grace_secs}s", ranks=[0])
+
+            def save_and_exit():
+                try:
+                    self._emergency_save(save_dir, client_state)
+                except Exception as e:
+                    logger.error("emergency save failed: %s — exiting with "
+                                 "the resume rc anyway (previous checkpoint "
+                                 "stands)", e)
+                finally:
+                    timer.cancel()
+                    exit_fn(PREEMPTION_EXIT_CODE)
+
+            if (self._in_step or self._accum is not None
+                    or self._pending is not None):
+                self._preempt_pending = save_and_exit
+                return
+            save_and_exit()
+
+        signal.signal(signal.SIGTERM, _handler)
+        signal.signal(signal.SIGINT, _handler)
+        return _handler
+
+    def _prefer_audited_clean(self, load_dir: str,
+                              tag: Optional[str]) -> Optional[str]:
+        """With the SDC audit on, a ``tag=None`` resume prefers the
+        ``last_audited_clean`` marker over ``latest``: tags written after
+        the last clean audit may carry the corruption it later caught. An
+        explicit tag is never overridden; a marker naming a missing or
+        corrupt tag falls back to the newest intact one."""
+        if tag is not None or self.config.integrity.audit_interval <= 0:
+            return tag
+        clean = sentinel_lib.read_last_audited_clean(load_dir)
+        if not clean:
+            return None
+        reason = ckpt_lib.verify_tag(
+            os.path.join(load_dir, clean),
+            check_digests=self.config.checkpoint.verify_load)
+        if reason is not None:
+            logger.warning(
+                "integrity: last_audited_clean names %r but it fails "
+                "verification (%s); resuming from newest intact instead",
+                clean, reason)
+            return None
+        log_dist(f"integrity: resuming from last audited-clean checkpoint "
+                 f"'{clean}'", ranks=[0])
+        return clean
 
     # ---------------------------------------------------------------- helpers
 
@@ -826,7 +1305,15 @@ class DeepSpeedEngine:
             aux_h = rest[0] if rest else None
         overflow = finite_h != 1.0
         norm = float(np.sqrt(sq_h)) if sq_h >= 0 else float("nan")
-        skip = overflow
+        # sentinel rung 1: a raw global norm past the ceiling skips the
+        # step through the overflow skip's keep-old-state path
+        limit = self.sentinel.spike_limit()
+        spiked = bool(limit is not None and norm > limit)
+        skip = overflow or spiked
+        integ = self.config.integrity
+        wants = ([m for m in ("update_norm", "param_norm")
+                  if m in integ.metrics] if integ.enabled else [])
+        before = None
         clip = self.config.gradient_clipping
         lr = (float(self.lr_fn(self.step_count)) if self.lr_fn is not None
               else self._current_lr())
@@ -835,6 +1322,8 @@ class DeepSpeedEngine:
                 coef = min(clip / (norm + 1e-6), 1.0)
                 torch._foreach_mul_(grads, coef)
             master = self._master()
+            if "update_norm" in wants:
+                before = [m.detach().clone() for m in master]
             kw = {}
             if self.optimizer.name == "lamb":
                 kw["norm_groups"] = self._leaf_groups()
@@ -856,17 +1345,71 @@ class DeepSpeedEngine:
         metrics = {"loss": loss_h, "grad_norm": norm, "lr": lr,
                    "overflow": skip, "loss_scale": old_scale,
                    "nonfinite_streak": self.nonfinite_streak}
+        if limit is not None:
+            metrics["anomaly_skip"] = spiked
+        if wants:
+            metrics.update(self._integrity_norms(wants, before))
         if aux_h is not None:
             metrics["aux"] = aux_h
         return metrics
 
+    def _integrity_norms(self, wants: List[str],
+                         before: Optional[List[torch.Tensor]]
+                         ) -> Dict[str, float]:
+        """The sentinel's extra statistics after the update (the JAX
+        step's in-jit ones): the update norm (0 on a skipped step) and
+        the param norm of the master, whole over the ZeRO group (a
+        replicated leaf counted once), in one more host read."""
+        master = self._master()
+        sqs = []
+        for name in wants:
+            if name == "update_norm":
+                sqs.append(torch.stack(
+                    [(a.to(torch.float32) - b.to(torch.float32))
+                     .square().sum() for a, b in zip(master, before)])
+                    if before is not None else
+                    torch.zeros(len(master), device=self.device))
+            else:
+                sqs.append(torch.stack([m.to(torch.float32).square().sum()
+                                        for m in master]))
+        sq = torch.stack(sqs)
+        if self.dp is not None:
+            from .. import comm
+            sq = torch.where(self.dp._rep[None, :], torch.zeros_like(sq), sq)
+            comm.all_reduce(sq, op=comm.ReduceOp.SUM,
+                            axis=self.dp.step_axes)
+        return dict(zip(wants, sq.sum(dim=1).sqrt().tolist()))
+
     def _after_step(self, metrics: Dict[str, Any]) -> None:
         self.global_steps += 1
         self.data_position += 1
+        self._step_phase_reached = True
+        if self.watchdog is not None:
+            # step progress is the liveness signal; the first completed
+            # step arms the clock and retires the COMPILE deadline
+            self.watchdog.start().enter_phase(hb.PHASE_STEP,
+                                              step=self.global_steps)
+        if self.heartbeat is not None:
+            # throttled; the rolling step_ms gauge rides along
+            gauge = self._step_clock.mark()
+            self.heartbeat.write(
+                hb.PHASE_STEP, self.global_steps,
+                extra=({straggler_lib.STEP_MS_GAUGE: gauge}
+                       if gauge is not None else None))
+            self._maybe_check_straggler()
         if self.lr_scheduler is not None:
             self.lr_scheduler.step()
         self._last_metrics = metrics
-        if self.global_steps % self.config.steps_per_print == 0:
+        # one code path for every "wrong numbers" verdict: the non-finite
+        # streak abort, anomaly strikes and the post-rollback abort (the
+        # metrics are host numbers already: no extra device read)
+        print_step = self.global_steps % self.config.steps_per_print == 0
+        if print_step or self.sentinel.wants_every_step:
+            verdict = self.sentinel.observe(self.global_steps, metrics)
+            if verdict == sentinel_lib.ROLLBACK:
+                self._sentinel_rollback()
+        self._maybe_sdc_audit()
+        if print_step:
             msg = (f"step={self.global_steps} loss={metrics['loss']:.4f} "
                    f"lr={metrics['lr']:.3e} "
                    f"grad_norm={metrics['grad_norm']:.3f}")
@@ -874,6 +1417,16 @@ class DeepSpeedEngine:
                 msg += (f" train_batch_ms="
                         f"{1e3 * (time.perf_counter() - self._step_t0):.2f}")
             log_dist(msg, ranks=[0])
+        self._step_boundary()
+
+    def _step_boundary(self) -> None:
+        """The end of a step: params, master, moments and counters agree
+        again. A preemption signal that landed inside the step saves and
+        exits here."""
+        self._in_step = False
+        pending, self._preempt_pending = self._preempt_pending, None
+        if pending is not None:
+            pending()
 
     # ------------------------------------------------------------ public API
 
@@ -893,6 +1446,8 @@ class DeepSpeedEngine:
         if self._accum is not None or self._pending is not None:
             raise RuntimeError("train_batch() in the middle of a "
                                "forward/backward accumulation window")
+        batch = self._step_entry(batch)
+        self._in_step = True
         self._step_t0 = time.perf_counter()
         gas = self.config.gradient_accumulation_steps
         tb = self.config.train_batch_size
@@ -979,6 +1534,7 @@ class DeepSpeedEngine:
             return None
         if self.optimizer is None:
             raise RuntimeError("engine has no optimizer")
+        self._in_step = True
         metrics = self._finalize_step(self._micro_count, self._accum_losses)
         self._accum_losses = []
         self._micro_count = 0
@@ -1139,10 +1695,19 @@ class DeepSpeedEngine:
         """The save with a given writer: ``global_steps``,
         ``data_position`` and the scheduler's ``state_dict`` join
         ``client_state``. In fp32 and pure-bf16 training the master is the
-        parameters (``master_aliases_params``)."""
+        parameters (``master_aliases_params``). Runs in the SAVE phase
+        (``watchdog.save_timeout`` bounds it; 0 leaves it unbounded)."""
         if self._accum is not None or self._pending is not None:
             raise RuntimeError("save_checkpoint() in the middle of a "
                                "forward/backward accumulation window")
+        with self._phase_scope(hb.PHASE_SAVE):
+            self._ckpt_dir = save_dir      # the sentinel's rollback source
+            return self._save_in_phase(ckpt_engine, save_dir, tag,
+                                       client_state)
+
+    def _save_in_phase(self, ckpt_engine, save_dir: str,
+                       tag: Optional[str],
+                       client_state: Optional[dict]) -> str:
         tag = tag or f"global_step{self.global_steps}"
         client_state = dict(client_state or {})
         client_state["global_steps"] = self.global_steps
@@ -1170,7 +1735,15 @@ class DeepSpeedEngine:
         return True
 
     def close(self):
-        """Drain and stop the async checkpoint writer (idempotent)."""
+        """Stop the watchdog, conclude the heartbeat record with EXIT, and
+        drain and stop the async checkpoint writer (idempotent)."""
+        if self.watchdog is not None:
+            self.watchdog.stop()
+        if self.heartbeat is not None:
+            # bounded lock: a refresher wedged on dead storage must not
+            # hang the clean shutdown it annotates
+            self.heartbeat.write(hb.PHASE_EXIT, self.global_steps,
+                                 force=True, lock_timeout=2.0)
         if hasattr(self, "checkpoint_engine"):
             return self.checkpoint_engine.close()
         return True
@@ -1183,10 +1756,19 @@ class DeepSpeedEngine:
         parameters, master, moments and the step / skip / loss-scale
         counters are restored; ``global_steps``, ``data_position`` and the
         scheduler too unless ``load_module_only``. Returns (load_dir,
-        client_state)."""
+        client_state). With the SDC audit on, ``tag=None`` prefers the
+        last audited-clean tag. Runs in the RESTORE phase
+        (``watchdog.restore_timeout``)."""
         if self._accum is not None or self._pending is not None:
             raise RuntimeError("load_checkpoint() in the middle of a "
                                "forward/backward accumulation window")
+        with self._phase_scope(hb.PHASE_RESTORE):
+            self._ckpt_dir = load_dir      # the sentinel's rollback source
+            tag = self._prefer_audited_clean(load_dir, tag)
+            return self._load_in_phase(load_dir, tag, load_module_only)
+
+    def _load_in_phase(self, load_dir: str, tag: Optional[str],
+                       load_module_only: bool):
         state, client_state = ckpt_lib.load_checkpoint(
             load_dir, tag, self._ckpt_state(),
             verify=self.config.checkpoint.verify_load)

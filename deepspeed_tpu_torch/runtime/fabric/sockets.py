@@ -40,6 +40,9 @@ from .endpoint import (ChannelClosed, ChannelTimeout, Endpoint,
                        FrameCorrupt, RedialPolicy, WriteLockStarved)
 from .frame import read_frame, write_frame
 
+#: seconds a frame that has started to arrive may take to finish
+MID_FRAME_S = 30.0
+
 
 class SocketEndpoint(Endpoint):
     """Spoke endpoint of the star (module docstring has the contract).
@@ -240,12 +243,28 @@ class SocketEndpoint(Endpoint):
 
     def _read_one(self, timeout: Optional[float]
                   ) -> Tuple[dict, bytes]:
-        self._sock.settimeout(timeout)
+        """One frame. ``timeout`` (None: none) bounds the wait for the
+        frame to START: once its first byte is readable the whole frame is
+        read under the mid-frame bound, since a deadline that fired mid-frame
+        would drop
+        the bytes already read and leave the stream out of step with its
+        frame boundaries (every later read would parse payload bytes as a
+        header). A frame that stalls mid-way past the bound is a torn
+        stream: :class:`FrameCorrupt`."""
+        try:
+            # no deadline (None): wait as long as the peer is quiet
+            readable, _, _ = select.select([self._sock], [], [], timeout)
+        except ValueError as e:           # closed under us
+            raise OSError(str(e)) from e
+        if not readable:
+            raise ChannelTimeout("transfer barrier deadline exceeded")
+        self._sock.settimeout(MID_FRAME_S)
         try:
             return read_frame(self._sock)
         except socket.timeout:
-            raise ChannelTimeout(
-                "transfer barrier deadline exceeded")
+            raise FrameCorrupt(
+                f"{self.ident}: a frame stalled mid-way for "
+                f"{MID_FRAME_S}s — stream torn")
         finally:
             try:
                 self._sock.settimeout(None)

@@ -219,6 +219,8 @@ class PipelineEngine(DeepSpeedEngine):
             raise RuntimeError("PipelineEngine needs an optimizer")
         if hasattr(batch, "__next__"):
             batch = next(batch)
+        batch = self._step_entry(batch)
+        self._in_step = True
         self._step_t0 = time.perf_counter()
         micros = self._micros(batch)
         gas = self.config.gradient_accumulation_steps

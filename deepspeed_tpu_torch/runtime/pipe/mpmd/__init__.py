@@ -1,28 +1,23 @@
-"""The stage interpreter and its transfer channels (counterpart of
-``deepspeed_tpu/runtime/pipe/mpmd``): ``channel.py`` (``LocalChannel``
-in one process, ``PipeGroupChannel`` over the ``pipe`` axis) and
-``executor.py`` (``MPMDPipeline``, ``mpmd_value_and_grad``). The stage
-worker (one stage as a supervised process), its driver
-(``MPMDStageSupervisor``, ``StageWorkerSpec``) and ``SocketChannel`` are
-not ported: they stand on the run-side heartbeats and watchdog and on
-the transfer fabric that the serving fleet shares (ROADMAP.md item 4.3).
-Their names raise ``NotImplementedError`` saying so."""
+"""The stage interpreter, its transfer channels and the MPMD stage
+processes (counterpart of ``deepspeed_tpu/runtime/pipe/mpmd``):
 
-from .channel import ChannelTimeout, LocalChannel, PipeGroupChannel
+* ``channel.py`` — ``LocalChannel`` in one process, ``PipeGroupChannel``
+  over the ``pipe`` axis, ``SocketChannel`` over the transfer fabric's
+  TCP star (one process a stage);
+* ``executor.py`` — ``MPMDPipeline``, ``mpmd_value_and_grad``;
+* ``stage_worker.py`` — one stage as a supervised OS process: STAGE
+  heartbeats, per-stage durable tags, the step watchdog, park/resync and
+  the rc 0/114/117/118 contract;
+* ``driver.py`` — ``MPMDStageSupervisor`` and ``StageWorkerSpec``: spawn
+  the stage workers, route their transfers, restart only a dead stage and
+  resync the survivors from its tag.
+"""
+
+from .channel import (ChannelClosed, ChannelTimeout, LocalChannel,
+                      PipeGroupChannel, SocketChannel)
+from .driver import MPMDStageSupervisor, StageWorkerSpec
 from .executor import MPMDPipeline, mpmd_value_and_grad
 
-__all__ = ["ChannelTimeout", "LocalChannel", "PipeGroupChannel",
-           "MPMDPipeline", "mpmd_value_and_grad"]
-
-_LATER = ("MPMDStageSupervisor", "StageWorkerSpec", "SocketChannel",
-          "ChannelClosed")
-
-
-def __getattr__(name):
-    if name in _LATER:
-        raise NotImplementedError(
-            f"{name}: the MPMD stage worker, its driver and the socket "
-            "transfer channel (runtime/pipe/mpmd/{stage_worker,driver}.py "
-            "on runtime/fabric) are not ported to deepspeed_tpu_torch yet "
-            "(see ROADMAP.md item 4.3)")
-    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+__all__ = ["ChannelClosed", "ChannelTimeout", "LocalChannel",
+           "PipeGroupChannel", "SocketChannel", "MPMDPipeline",
+           "mpmd_value_and_grad", "MPMDStageSupervisor", "StageWorkerSpec"]

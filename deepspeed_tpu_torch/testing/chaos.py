@@ -1,11 +1,13 @@
 """Fault-injection harness: named failpoints for crash-safety tests
 (counterpart of ``deepspeed_tpu/testing/chaos.py``: the same spec grammar,
-catalog and modes). In this package the ``ckpt.*`` failpoints of
-``runtime/checkpointing.py``, the ``serve.*`` ones of the serving engine,
-scheduler, block pool, disaggregated roles and fleets, ``hb.write`` and
-the ``net.*`` ones of the transfer fabric are instrumented; the
-``run.*``, ``sentinel.*`` and ``pipe.*`` names stay in the catalog for
-the modules that later slices port (see ROADMAP.md).
+catalog and modes). In this package every name of the catalog is
+instrumented: the ``ckpt.*`` failpoints of ``runtime/checkpointing.py``,
+the ``serve.*`` ones of the serving engine, scheduler, block pool,
+disaggregated roles and fleets, ``hb.write``, the ``net.*`` ones of the
+transfer fabric, the ``run.*`` and ``sentinel.*`` ones of the training
+engine's step entry and SDC audit, ``pipe.stage_kill`` and ``pipe.xfer``
+of the MPMD stage worker and its channels, and ``host.blackhole`` /
+``launch.ssh`` of the launcher's supervisor.
 
 The checkpoint stack is only provably restartable if a test can crash a
 real save at EVERY stage — mid-array-write, after the data but before the

@@ -118,7 +118,55 @@ def test_sources_import_no_jax(path):
 DIST_MODULES = ["comm", "comm.comm", "comm.logging", "parallel.topology",
                 "parallel.mesh", "runtime.zero.stages", "runtime.zero.tiling",
                 "runtime.zero.partition", "zero", "launcher",
-                "launcher.launch", "moe", "moe.sharded_moe", "moe.layer"]
+                "launcher.launch", "moe", "moe.sharded_moe", "moe.layer",
+                # run-side resilience: the runner stack, the elastic
+                # agent, the sentinel and the MPMD stage processes
+                "launcher.runner", "launcher.supervisor",
+                "launcher.multinode_runner", "launcher.ds_ssh",
+                "elasticity", "elasticity.elastic_agent", "runtime.sentinel",
+                "runtime.pipe.mpmd.channel", "runtime.pipe.mpmd.driver",
+                "runtime.pipe.mpmd.stage_worker"]
+
+# the child entry points a launch or a pipeline starts (``python -m``)
+ENTRY_POINTS = ["deepspeed_tpu_torch.launcher",
+                "deepspeed_tpu_torch.launcher.runner",
+                "deepspeed_tpu_torch.launcher.launch",
+                "deepspeed_tpu_torch.runtime.pipe.mpmd.stage_worker"]
+
+
+@pytest.fixture(scope="module")
+def entry_imports():
+    """Each entry point run as ``python -m <entry> --help`` (``runpy``),
+    in order, in one fresh interpreter: the JAX modules each loaded and
+    its exit code."""
+    code = (
+        "import contextlib, io, json, runpy, sys\n"
+        "bad = lambda: {k for k in sys.modules if k.split('.')[0] in "
+        "('jax', 'jaxlib', 'flax', 'deepspeed_tpu')}\n"
+        "out = {}\n"
+        f"for m in {ENTRY_POINTS!r}:\n"
+        "    before, code = bad(), None\n"
+        "    sys.argv = [m, '--help']\n"
+        "    try:\n"
+        "        with contextlib.redirect_stdout(io.StringIO()):\n"
+        "            runpy.run_module(m, run_name='__main__')\n"
+        "    except SystemExit as e:\n"
+        "        code = e.code\n"
+        "    out[m] = {'bad': sorted(bad() - before), 'code': code}\n"
+        "print(json.dumps(out))\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = str(REPO)
+    out = subprocess.run([sys.executable, "-c", code], cwd=str(REPO),
+                         env=env, capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    return json.loads(out.stdout.strip().splitlines()[-1])
+
+
+@pytest.mark.parametrize("entry", ENTRY_POINTS)
+def test_child_entry_points_import_no_jax(entry_imports, entry):
+    """Each entry point run as ``python -m <entry> --help`` loads no JAX
+    module and no ``deepspeed_tpu`` one."""
+    assert entry_imports[entry] == {"bad": [], "code": 0}
 
 
 @pytest.fixture(scope="module")
@@ -181,6 +229,11 @@ def test_default_device_raises_without_cuda(monkeypatch):
                                              config={"train_batch_size": 2},
                                              device="cpu")
     assert eng.device.type == "cpu"
+    # the stage worker runs on cuda:{LOCAL_RANK} unless --device cpu
+    from deepspeed_tpu_torch.runtime.pipe.mpmd import stage_worker
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        stage_worker.main(["--stage", "0", "--pp", "2", "--driver-port",
+                           "1", "--ckpt-dir", "ck"])
     srv = deepspeed_tpu_torch.init_inference(
         cfg, {"dtype": "float32"}, model_parameters=params,
         device="cpu").serve({"block_size": 16, "pool_blocks": 8,

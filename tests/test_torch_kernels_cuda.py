@@ -487,6 +487,26 @@ def test_flash_attention_kernels_pipeline_stage_shape(dev, nh, dtype):
         _hold(out, ref, f32, floor=2.0 ** -10)
 
 
+def test_flash_attention_kernels_mpmd_stage_shape(dev):
+    """The run leg's MPMD stage workers' call: llama-1.1b's one micro-batch
+    of 1 x 1024 a stage's layer, [1, 32, 1024, 64] bf16 causal (the 16-bit
+    D 64 train path's ``wgmma`` kernels at one sample), the forward and
+    both backward kernels against their plain versions."""
+    g = torch.Generator().manual_seed(64)
+    q, k, v, do = (torch.randn(1, 32, 1024, 64, generator=g).to(
+        dev, torch.bfloat16) for _ in range(4))
+    o, lse = tfa.flash_attention_fwd(q, k, v, causal=True)
+    dq, dk, dv = tfa.flash_attention_bwd(q, k, v, o, lse, do, causal=True)
+    ro, rlse = tfa.flash_attention_reference(*_f32(q, k, v), causal=True)
+    refs = tfa.flash_attention_bwd_reference(*_f32(q, k, v, o), lse,
+                                             do.float(), causal=True)
+    torch.cuda.synchronize()
+    _hold(o, ro, False)
+    torch.testing.assert_close(lse, rlse, atol=F32_TOL, rtol=0)
+    for out, ref in zip((dq, dk, dv), refs):
+        _hold(out, ref, False, floor=2.0 ** -10)
+
+
 @pytest.mark.parametrize("leg,H,kv,dtype", [
     ("pp2_tp2_llama70b", 32, 4, torch.bfloat16),
     ("pp2_ep2_mixtral", 32, 8, torch.bfloat16),

@@ -14,7 +14,8 @@ bounded by its own clock (killed and failed past ``JOIN_S`` seconds):
   other worker, which would otherwise run on for minutes, and exit
   128 + 9.
 
-Asking for the heartbeat channel raises naming ROADMAP.md (item 4.3).
+``--heartbeat_dir`` gives each worker a heartbeat record, attesting INIT
+before the script runs and concluded with EXIT.
 """
 
 import os
@@ -52,14 +53,14 @@ torch.distributed.destroy_process_group()
 """
 
 
-def _launch(tmp_path, mode, *extra):
+def _launch(tmp_path, mode, *extra, nproc=2):
     script = tmp_path / "worker.py"
     script.write_text(textwrap.dedent(SCRIPT))
     env = dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="1")
     for var in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "DSTPU_HEARTBEAT_DIR"):
         env.pop(var, None)
     cmd = [sys.executable, "-m", "deepspeed_tpu_torch.launcher.launch",
-           "--nproc_per_node", "2",
+           "--nproc_per_node", str(nproc),
            "--init_method", f"file://{tmp_path / 'rdv'}",
            *extra, str(script), mode, "--flag"]
     p = subprocess.Popen(cmd, env=env, cwd=str(tmp_path),
@@ -102,9 +103,16 @@ def test_worker_crash_stops_the_others(tmp_path):
     assert rc == 128 + 9, out[-3000:]
 
 
-def test_heartbeat_raises_naming_roadmap():
+def test_heartbeat_raises_naming_roadmap(tmp_path):
+    # the heartbeat channel is ported: each worker's record ends EXIT (one
+    # worker runs in the launcher's own process)
+    rc, out = _launch(tmp_path, "ok", "--heartbeat_dir",
+                      str(tmp_path / "hb"), nproc=1)
+    assert rc == 0, out[-3000:]
+    from deepspeed_tpu_torch.runtime import heartbeat as hb
+    recs = hb.read_heartbeats(str(tmp_path / "hb"))
+    assert sorted(recs) == [0]
+    assert recs[0]["phase"] == hb.PHASE_EXIT
     from deepspeed_tpu_torch.launcher import launch
-    with pytest.raises(NotImplementedError, match="ROADMAP item 4.3"):
-        launch.main(["--heartbeat_dir", "/nonexistent", "script.py"])
     with pytest.raises(ValueError, match="master_port"):
         launch.main(["--nnodes", "2", "script.py"])

@@ -598,12 +598,14 @@ def test_refusals_name_what_they_refuse():
         tds.initialize(model=ttr.Transformer(tcfg), config=dict(
             _ENGINE_CFG, pipeline={"stages": 2}), device="cpu",
             dist_init_required=False)
-    # the MPMD stage worker, its driver and the socket channel are not
-    # ported (ROADMAP item 4.3)
+    # the MPMD stage worker, its driver and the socket channel are ported
+    # (tests/test_torch_mpmd_worker.py)
     from deepspeed_tpu_torch.runtime.pipe import mpmd
-    for name in ("MPMDStageSupervisor", "StageWorkerSpec", "SocketChannel"):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md item 4.3"):
-            getattr(mpmd, name)
+    from deepspeed_tpu_torch.runtime.pipe.mpmd import driver
+    assert mpmd.MPMDStageSupervisor is driver.MPMDStageSupervisor
+    assert mpmd.StageWorkerSpec is driver.StageWorkerSpec
+    assert issubclass(mpmd.ChannelClosed, IOError) and \
+        hasattr(mpmd.SocketChannel, "poll_control")
     # pipe with model or expert composes; with seq it raises
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tmesh.MeshManager(devices=range(4), pp_size=2, sp_size=2)

@@ -218,8 +218,10 @@ def test_kill_mode_child_is_restarted_token_exact(tiny, reference, tmp_path,
         env_first={"DSTPU_CHAOS": "serve.replica_kill:kill:match=1:skip=60"})
     spawn_clock.fleets.append(fl)
     fl.start()
-    fl.warmup(timeout=SPAWN_CLOCK_S)
+    # the first child's pid, taken before the warm-up: under load the
+    # kill (60 loop iterations, idle ones included) can land during it
     first_pid = fl.pids()[1]
+    fl.warmup(timeout=SPAWN_CLOCK_S)
     reqs = [fl.submit(p, NEW) for p in prompts]
     assert fl.drain(timeout=SPAWN_CLOCK_S)
     assert [r.output_tokens for r in reqs] == reference

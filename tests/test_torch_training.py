@@ -709,14 +709,16 @@ def test_initialize_dataloader_and_config_arguments(tmp_path):
     {"zero_optimization": {"stage": 2,
                            "offload_optimizer": {"device": "cpu"}}},
     {"comm_plan": {"enabled": True}},
-    {"integrity": {"enabled": True}},
+    # the integrity sentinel, the watchdog and the straggler detector are
+    # ported (tests/test_torch_sentinel.py); the flops profiler is not
+    {"flops_profiler": {"enabled": True}},
     {"progressive_layer_drop": {"enabled": True}},
     {"curriculum_learning": {"enabled": True}},
     {"eigenvalue": {"enabled": True}},
     # moe is ported (tests/test_torch_moe.py); data efficiency is not
     {"data_efficiency": {"enabled": True}},
     # sequence parallelism is ported (tests/test_torch_sequence_parallel.py)
-    {"straggler": {"enabled": True}},
+    {"autotuning": {"enabled": True}},
     # tensor parallelism is ported (tests/test_torch_tensor_parallel.py);
     # together with sequence parallelism it is not
     {"tensor_parallel": {"tp_size": 2}, "sequence_parallel": {"sp_size": 2}},
