@@ -5768,14 +5768,64 @@ def _moe_train_model(cfg, seed, noise=True):
     return NoiseFree(tcfg, seed=seed, device="cuda")
 
 
-def _moe_engine(model, config, aux=MOE_AUX):
+def _moe_engine(model, config, aux=MOE_AUX, rules=None):
     import deepspeed_tpu_torch
     from deepspeed_tpu_torch.models.transformer import (
         fused_loss_passthrough, make_moe_loss)
     engine, *_ = deepspeed_tpu_torch.initialize(
         model=model, config=config,
-        loss_fn=make_moe_loss(aux, base_loss=fused_loss_passthrough))
+        loss_fn=make_moe_loss(aux, base_loss=fused_loss_passthrough),
+        sharding_rules=rules)
     return engine
+
+
+def _moe_tp_serve(cfg, served, rules, ids, ref_gen, prompts, ref_serve):
+    """The moe leg's served model in the 1-rank NCCL world under the TP
+    rules (the experts' columns and rows, and the attention heads, over a
+    model axis of one): generate() on the leg's prompts and serve() of
+    its requests, each bitwise the engine's without a process group, the
+    kernel launches and the model-axis collectives counted (2 reduces a
+    layer: the attention projection and the combined experts)."""
+    import numpy as np
+    import torch
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch import comm
+    L = cfg.num_layers
+    eng = deepspeed_tpu_torch.init_inference(
+        cfg, {"dtype": "bf16", "serving": SERVING,
+              "tensor_parallel": {"tp_size": 1}},
+        model_parameters=served, sharding_rules=rules)
+    if eng.tp is None:
+        fail("moe tp: the engine runs without the TP layers")
+    _zero_counters()
+    comm.reset_op_counts()
+    out = eng.generate(ids, max_new_tokens=MOE_NEW)
+    gen, ops = _counters(), _tp_ops()
+    same = torch.equal(out, ref_gen)
+    log(f"check: moe tp generate tokens equal to the engine without a "
+        f"process group: {same}; launches={json.dumps(gen)}")
+    if not same or gen["flash_attention_fwd"] != L or \
+            gen["decode_attention"] != L * (MOE_NEW - 1):
+        fail(f"moe tp generate: tokens or launches off ({gen})")
+    _tp_forward_ops("moe tp generate", ops, MOE_NEW, L)
+    srv = eng.serve()
+    rng = np.random.default_rng(15)
+    _run_requests(srv, [list(rng.integers(1, cfg.vocab_size, 24))], 4)
+    _instrument(srv)
+    _zero_counters()
+    comm.reset_op_counts()
+    got = [list(r.output_tokens)
+           for r in _run_requests(srv, prompts, MOE_NEW)]
+    serve, ops = _counters(), _tp_ops()
+    steps = srv._decode_step.calls
+    log(f"check: moe tp serve requests={len(prompts)} decode_steps={steps} "
+        f"outputs equal to the engine without a process group: "
+        f"{got == ref_serve}; launches={json.dumps(serve)}")
+    if got != ref_serve or serve["paged_attention"] != L * steps:
+        fail(f"moe tp serve: outputs or launches off ({serve})")
+    _tp_forward_ops("moe tp serve", ops, srv._run_prefill.calls + steps, L)
+    del srv._run_prefill, srv._decode_step, srv, eng
+    return {"tp_generate": gen, "tp_serve": serve}
 
 
 def _moe_batch(rows, vocab, seed=21):
@@ -6004,7 +6054,9 @@ def phase_moe(tmp, smi):
     _instrument(srv)
     stats0 = dict(srv.stats)
     _zero_counters()
-    _run_requests(srv, prompts, MOE_NEW)
+    ref_serve = [list(r.output_tokens)
+                 for r in _run_requests(srv, prompts, MOE_NEW)]
+    serve_prompts = prompts
     serve = _counters()
     steps = srv._decode_step.calls
     _, rates["serve"] = _rates(srv, stats0, steps)
@@ -6053,6 +6105,8 @@ def phase_moe(tmp, smi):
     srv8.run_until_idle()
     rates["serve_peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
     log("time: moe serve " + json.dumps(rates) + f" [{smi}]")
+    # the served weights again, in the 1-rank group under the TP rules
+    served = eng.params
     del srv8, eng
     gc.collect()
     torch.cuda.empty_cache()
@@ -6077,10 +6131,22 @@ def phase_moe(tmp, smi):
         torch.cuda.empty_cache()
         comm.init_distributed(world_size=1, rank=0)
         try:
+            rules = cfg.tp_rules()
+            counts.update(_moe_tp_serve(cfg, served, rules, ids, out,
+                                        serve_prompts, ref_serve))
+            del served
+            gc.collect()
+            torch.cuda.empty_cache()
             torch.cuda.reset_peak_memory_stats()
             t1 = time.perf_counter()
-            engine = _moe_engine(_moe_train_model(cfg, seed=16),
-                                 MOE_TRAIN_CONFIG)
+            # the MoE-under-TP layers: the experts' columns and rows over
+            # a model axis of one
+            engine = _moe_engine(
+                _moe_train_model(cfg, seed=16),
+                dict(MOE_TRAIN_CONFIG, tensor_parallel={"tp_size": 1}),
+                rules=rules)
+            if engine.tp is None or engine.module.blocks[0].moe.tp is None:
+                fail("moe: the group's engine runs without the TP layers")
             tcfg = engine.module.cfg
             log(f"moe: train layers={tcfg.num_layers} backend="
                 f"{dist.get_backend()} world={dist.get_world_size()} "
@@ -6093,6 +6159,19 @@ def phase_moe(tmp, smi):
             for step in range(MOE_STEPS):
                 m, dt, c, ops = _moe_step(engine, batch,
                                           f"moe train step {step}", per)
+                # a micro-batch's model-axis collectives: 2 reduces a
+                # layer (attention, the combined experts), the
+                # embedding's and the CE chunks' (forward and
+                # recomputation); the backward sums qkv's input and the
+                # experts' tokens and combine weights a layer, and the
+                # head's
+                chunks = -(-(MOE_SEQ - 1) // 256)
+                want = {"tp_reduce_from": MOE_GAS * (
+                    2 * tcfg.num_layers + 1 + 2 * chunks),
+                    "tp_copy_to": MOE_GAS * (3 * tcfg.num_layers + 1)}
+                if {k: ops.get(k, 0) for k in want} != want:
+                    fail(f"moe train step {step}: model-axis collectives "
+                         f"{ops}, expected {want}")
                 metrics.append(m)
                 step_s.append(dt)
                 log(f"moe: train step {step} loss={m['loss']:.6f} "
@@ -6179,20 +6258,6 @@ def phase_ep_ranks(tmp, n):
         fail("ep ranks: the first step is off the single engine's")
     res.update(loss_rel=rl, grad_norm_rel=rn)
     return res
-
-
-def _mixtral_cfg():
-    """The TransformerConfig that Mixtral's policy maps the published
-    config to, at the train leg's depth (no weights)."""
-    import torch
-    from types import SimpleNamespace
-    from deepspeed_tpu_torch.models.hf import load_hf
-    hf_cfg = SimpleNamespace(**dict(MIXTRAL_CONFIG,
-                                    num_hidden_layers=MOE_TRAIN_LAYERS))
-    _, cfg = load_hf(_mixtral_state_dict(MOE_TRAIN_LAYERS, 0, "meta"),
-                     arch="MixtralForCausalLM", config=hf_cfg,
-                     dtype=torch.bfloat16)
-    return cfg
 
 
 def ep_worker(out):
@@ -7244,6 +7309,1110 @@ def tp_worker(out):
     return 0
 
 
+# -------------------------------------------------------------- 15b. tp rest
+
+# tiiuae/falcon-7b config.json (the published widths): 71 query heads of 64
+# over one KV head (multi-query), parallel attention with one shared
+# LayerNorm, rotary, an exact-GELU MLP of 18176, vocab 65024, the head tied
+# to the embedding; depth is cut per leg
+FALCON7B_CONFIG = dict(
+    model_type="falcon", vocab_size=65024, hidden_size=4544,
+    num_hidden_layers=32, num_attention_heads=71, multi_query=True,
+    parallel_attn=True, alibi=False, bias=False,
+    new_decoder_architecture=False, layer_norm_epsilon=1e-5,
+    max_position_embeddings=2048, rope_theta=10000.0, activation="gelu",
+    ffn_hidden_size=None, rope_scaling=None, tie_word_embeddings=True)
+# the one-card falcon leg: FALCON_LAYERS of 32 served and trained at tp 1
+FALCON_LAYERS, FALCON_SEED = 2, 19
+FALCON_BATCH, FALCON_PROMPT, FALCON_NEW = 2, 512, 16
+FALCON_LENS, FALCON_SERVE_NEW = (64, 200, 333, 512), 8
+FALCON_SEQ = 1024
+# --tp-rest-ranks N: Falcon-7B at tp N (32 layers served, TPR_FALCON_TRAIN
+# trained), Mixtral-8x7B at tp N (32 layers served; TPR_MIXTRAL_CUT held to
+# one GPU) and trained at tp 2 x ep N / 2, llama-1.1b int8 at tp N, and
+# llama-1.1b at sp 2 x tp N / 2 (the sp leg's 16,384-token step)
+TPR_BATCH, TPR_PROMPT, TPR_NEW = 2, 256, 16
+TPR_LENS, TPR_SERVE_NEW = (64, 200, 333, 512), 16
+TPR_FALCON_TRAIN, TPR_MIXTRAL_CUT, TPR_SEQ = 4, 4, 1024
+# f32 training for the KV-column gradients (the held values), AdamW,
+# ZeRO 1, one 1024-token sample a micro-batch, gas 2
+TPR_TRAIN_CONFIG = {
+    "train_batch_size": 2, "train_micro_batch_size_per_gpu": 1,
+    "gradient_accumulation_steps": 2,
+    "optimizer": {"type": "AdamW", "params": {"lr": 1e-4}},
+    "zero_optimization": {"stage": 1}, "steps_per_print": 10_000,
+}
+# the KV-column gradients of a tp rank against one GPU's: max |diff| over
+# the largest |ref| (f32, the partial sums in another order)
+TPR_GRAD_TOL = 1e-3
+# the Mixtral step at tp 2 x ep 2 (the moe leg's 2 layers, batch 2 x gas
+# 2, AdamW, ZeRO 1) computes in f32, held to one GPU's like the other
+# steps: in bf16 compute the row-parallel partial sums in another order
+# moved its first loss by 1.6e-4 (pure bf16 state) and 1.2e-4 (an f32
+# master), past 1e-4 (PERF.md, the tp-rest runs on four H100s)
+TPR_MOE_CONFIG = {k: v for k, v in MOE_TRAIN_CONFIG.items()
+                  if k not in ("bf16", "data_types")}
+
+
+def _falcon_layer_shapes(i):
+    """FalconForCausalLM's (7B-style) state-dict names and shapes of
+    layer ``i`` at the published widths."""
+    c = FALCON7B_CONFIG
+    H, nh = c["hidden_size"], c["num_attention_heads"]
+    hd, F = H // nh, 4 * H
+    p = f"transformer.h.{i}."
+    return [(p + "input_layernorm.weight", (H,)),
+            (p + "input_layernorm.bias", (H,)),
+            (p + "self_attention.query_key_value.weight",
+             ((nh + 2) * hd, H)),
+            (p + "self_attention.dense.weight", (H, nh * hd)),
+            (p + "mlp.dense_h_to_4h.weight", (F, H)),
+            (p + "mlp.dense_4h_to_h.weight", (H, F))]
+
+
+def _falcon_tensor(name, shape, seed, device="cuda"):
+    """One Falcon state-dict tensor as HF initializes it: a LayerNorm bias
+    zeros, every other tensor as :func:`_llama70_tensor` draws it."""
+    import torch
+    if name.endswith(".bias"):
+        return torch.zeros(shape, device=device, dtype=torch.bfloat16)
+    return _llama70_tensor(name, shape, seed, device)
+
+
+def _falcon_state_dict(layers, seed, device="cuda"):
+    """The HF-named state dict of the first ``layers`` layers, each tensor
+    drawn by :func:`_falcon_tensor` (``device="meta"``: the shapes
+    only)."""
+    import torch
+    c = FALCON7B_CONFIG
+    V, H = c["vocab_size"], c["hidden_size"]
+    shapes = [("transformer.word_embeddings.weight", (V, H))]
+    for i in range(layers):
+        shapes += _falcon_layer_shapes(i)
+    shapes += [("transformer.ln_f.weight", (H,)),
+               ("transformer.ln_f.bias", (H,))]
+    if device == "meta":
+        return {n: torch.empty(s, device="meta", dtype=torch.bfloat16)
+                for n, s in shapes}
+    return {n: _falcon_tensor(n, s, seed, device) for n, s in shapes}
+
+
+def _falcon_cfg(layers):
+    """The TransformerConfig that the Falcon policy maps the published
+    config to at ``layers`` layers (no weights)."""
+    import torch
+    from types import SimpleNamespace
+    from deepspeed_tpu_torch.models.hf import load_hf
+    hf_cfg = SimpleNamespace(**dict(FALCON7B_CONFIG,
+                                    num_hidden_layers=layers))
+    _, cfg = load_hf(_falcon_state_dict(layers, 0, "meta"),
+                     arch="FalconForCausalLM", config=hf_cfg,
+                     dtype=torch.bfloat16)
+    return cfg
+
+
+def _tree_map(fn, tree):
+    return ({k: _tree_map(fn, v) for k, v in tree.items()}
+            if isinstance(tree, dict) else fn(tree))
+
+
+def _layer_shards(layer, cfg, tp):
+    """One layer's scan-layout tree cut to this rank's shards."""
+    from deepspeed_tpu_torch.utils.partitioning import shard_tree
+    cut = shard_tree({"blocks": _tree_map(lambda x: x[None], layer)}, cfg,
+                     tp, cfg.tp_rules())["blocks"]
+    return _tree_map(lambda x: x[0], cut)
+
+
+def _falcon_shards(cfg, seed, tp, device="cuda"):
+    """The scan-layout tree of ``cfg.num_layers`` Falcon-7B layers with
+    the values of :func:`_falcon_state_dict`, mapped as the Falcon policy
+    maps them, one layer at a time, cut to this rank's shards by the head
+    map (``tp``; None: whole). No rank holds more than one whole layer."""
+    from deepspeed_tpu_torch.models.hf import stack_layers
+    from deepspeed_tpu_torch.utils.partitioning import shard_tree
+    V, H = cfg.vocab_size, cfg.hidden_size
+    t = lambda n, s: _falcon_tensor(n, s, seed, device)
+    top = shard_tree({
+        "wte": {"embedding": t("transformer.word_embeddings.weight",
+                               (V, H))},
+        "ln_f": {"scale": t("transformer.ln_f.weight", (H,)),
+                 "bias": t("transformer.ln_f.bias", (H,))}}, cfg, tp,
+        cfg.tp_rules())
+
+    def local(i):
+        w = {n.split(f".h.{i}.", 1)[1]: t(n, s)
+             for n, s in _falcon_layer_shapes(i)}
+        return _layer_shards({
+            "ln1": {"scale": w["input_layernorm.weight"],
+                    "bias": w["input_layernorm.bias"]},
+            "attn_qkv": {"kernel":
+                         w["self_attention.query_key_value.weight"].t()},
+            "attn_proj": {"kernel": w["self_attention.dense.weight"].t()},
+            "mlp_fc": {"kernel": w["mlp.dense_h_to_4h.weight"].t()},
+            "mlp_proj": {"kernel": w["mlp.dense_4h_to_h.weight"].t()}},
+            cfg, tp)
+    return {**top, "blocks": stack_layers(local, cfg.num_layers)}
+
+
+def _mixtral_named_state_dict(layers, seed, device="cuda"):
+    """Mixtral's state dict with each tensor drawn from a generator of its
+    own (:func:`_llama70_tensor`), so a rank draws any layer alone."""
+    return {n: _llama70_tensor(n, s, seed, device)
+            for n, s in _mixtral_shapes(layers)}
+
+
+def _mixtral_shards(cfg, seed, tp, device="cuda"):
+    """The scan-layout tree of ``cfg.num_layers`` Mixtral-8x7B layers with
+    the values of :func:`_mixtral_named_state_dict`, mapped by the Mixtral
+    policy's own ``models.hf.llama_layer`` one layer at a time and cut to
+    this rank's shards (``tp``: every expert's ``fc`` / ``gate`` columns
+    and ``proj`` rows; None: whole)."""
+    from deepspeed_tpu_torch.models.hf import llama_layer, stack_layers
+    from deepspeed_tpu_torch.utils.partitioning import shard_tree
+    V, H = cfg.vocab_size, cfg.hidden_size
+    t = lambda n, s: _llama70_tensor(n, s, seed, device)
+    top = shard_tree({
+        "wte": {"embedding": t("model.embed_tokens.weight", (V, H))},
+        "lm_head": {"kernel": t("lm_head.weight", (V, H)).t()},
+        "ln_f": {"scale": t("model.norm.weight", (H,))}}, cfg, tp,
+        cfg.tp_rules())
+    shapes = _mixtral_shapes(cfg.num_layers)
+
+    def local(i):
+        p = f"model.layers.{i}."
+        w = {n: t(n, s) for n, s in shapes if n.startswith(p)}
+        return _layer_shards(llama_layer(lambda name: w["model." + name], i,
+                                         moe_experts=cfg.moe_experts),
+                             cfg, tp)
+    return {**top, "blocks": stack_layers(local, cfg.num_layers)}
+
+
+def _falcon_train_model(cfg, seed, layers, seq, params=None):
+    """Falcon-7B cut to ``layers`` layers with the fused chunked CE, on the
+    card: the given scan-layout weights (whole), else seeded f32."""
+    from deepspeed_tpu_torch.models.transformer import Transformer
+    tcfg = dataclasses.replace(cfg, num_layers=layers, fused_loss=True,
+                               loss_chunk=256, max_seq_len=seq)
+    if params is None:
+        return Transformer(tcfg, seed=seed, device="cuda")
+    return Transformer(tcfg, params=_tree_map(
+        lambda x: x.float(), params)).cuda()
+
+
+def phase_falcon(smi):
+    """Falcon-7B (tiiuae/falcon-7b's published config: hidden 4544, 71
+    query heads of 64 over one KV head, parallel attention, vocab 65024,
+    tied) at full width on one card, FALCON_LAYERS of 32 layers, through
+    the head map in a 1-rank NCCL world (rank 0 of one computes heads [0,
+    71) and holds KV head 0). A seeded bf16 state dict under HF's names ->
+    replace_transformer_layer (the Falcon policy), and the same tree built
+    layer by layer as --tp-rest-ranks builds it, held equal. Without a
+    process group, then in the group under cfg.tp_rules(): generate()
+    [2, 512] + 16, serve() of 4 requests and an int8 serve()
+    (kv_cache_dtype and weight_dtype: K 4544 packs at the 256-row grid,
+    padded), each bitwise; the launches (flash L a prefill, decode L a
+    step, paged L a step, quant_matmul 4L a forward: qkv, proj, fc, mlp
+    proj; the tied head stays bf16) and the model-axis collectives
+    counted. Train, 2 layers (the tp leg's pure bf16 ZeRO 3 step): the
+    first step bitwise the engine's without a group."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from types import SimpleNamespace
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch import comm
+    from deepspeed_tpu_torch.ops import quant_matmul as tqm
+    from deepspeed_tpu_torch.parallel.mesh import set_global_mesh
+    if comm.is_initialized():
+        fail("falcon: a process group is already up")
+    L = FALCON_LAYERS
+    t0 = time.perf_counter()
+    hf_cfg = SimpleNamespace(**dict(FALCON7B_CONFIG, num_hidden_layers=L))
+    module, params, cfg = deepspeed_tpu_torch.replace_transformer_layer(
+        _falcon_state_dict(L, FALCON_SEED), config=hf_cfg,
+        arch="FalconForCausalLM", dtype=torch.bfloat16)
+    del module
+    built = _falcon_shards(cfg, FALCON_SEED, None)
+    same = _trees_equal(built, params)
+    del built
+    log(f"falcon: falcon-7b layers={L} params={_numel(params)} heads="
+        f"{cfg.num_heads}x{cfg.head_dim} kv_heads={cfg.kv_heads} mlp="
+        f"{cfg.mlp_dim} vocab={cfg.vocab_size} parallel_residual="
+        f"{cfg.parallel_residual} map_s={time.perf_counter() - t0:.2f} "
+        f"layer_by_layer_tree_equal={same}")
+    if (cfg.num_heads, cfg.kv_heads, cfg.head_dim, cfg.mlp_dim,
+            cfg.vocab_size) != (71, 1, 64, 18176, 65024) or \
+            not cfg.parallel_residual or not cfg.tie_embeddings:
+        fail(f"falcon-7b mapped to {cfg}")
+    if not same:
+        fail("falcon: the layer-by-layer tree differs from the policy's")
+    rng = np.random.default_rng(19)
+    V = cfg.vocab_size
+    ids = torch.as_tensor(rng.integers(1, V, (FALCON_BATCH, FALCON_PROMPT)),
+                          device="cuda")
+    prompts = [list(rng.integers(1, V, int(n))) for n in FALCON_LENS]
+    int8_serving = dict(SERVING, kv_cache_dtype="int8", weight_dtype="int8")
+
+    def legs(eng, label):
+        """generate, serve and int8 serve outputs, launches, collectives."""
+        out, counts, ops = {}, {}, {}
+        _zero_counters()
+        comm.reset_op_counts()
+        out["generate"] = eng.generate(ids, max_new_tokens=FALCON_NEW)
+        counts["generate"], ops["generate"] = _counters(), _tp_ops()
+        for key, serving in (("serve", SERVING), ("int8_serve",
+                                                   int8_serving)):
+            srv = eng.serve(serving)
+            _run_requests(srv, [list(rng.integers(1, V, 24))], 2)  # warm
+            _instrument(srv, tqm.quant_matmul if key == "int8_serve"
+                        else None)
+            _zero_counters()
+            comm.reset_op_counts()
+            out[key] = [list(r.output_tokens) for r in
+                        _run_requests(srv, prompts, FALCON_SERVE_NEW)]
+            counts[key], ops[key] = _counters(), _tp_ops()
+            pre, dec = srv._run_prefill, srv._decode_step
+            counts[key]["forwards"] = [pre.calls, dec.calls]
+            if key == "int8_serve":
+                counts[key]["quant_matmul_by_path"] = [pre.launches,
+                                                       dec.launches]
+            del srv._run_prefill, srv._decode_step, pre, dec, srv
+        log(f"falcon: {label} launches={json.dumps(counts)}")
+        return out, counts, ops
+
+    eng = deepspeed_tpu_torch.init_inference(
+        cfg, {"dtype": "bf16", "serving": SERVING}, model_parameters=params)
+    ref, _, _ = legs(eng, "without a process group")
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    batch = _tp_batch(TP_MICRO * TP_GAS, V, FALCON_SEQ)
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    rates = {}
+    try:
+        ref_engine = _tp_engine(_falcon_train_model(cfg, 17, TP_TRAIN_LAYERS,
+                                                    FALCON_SEQ),
+                                TP_TRAIN_CONFIG, None)
+        ref["train"] = ref_engine.train_batch(batch)
+        del ref_engine
+        gc.collect()
+        torch.cuda.empty_cache()
+        comm.init_distributed(world_size=1, rank=0)
+        try:
+            rules = cfg.tp_rules()
+            eng = deepspeed_tpu_torch.init_inference(
+                cfg, {"dtype": "bf16", "serving": SERVING,
+                      "tensor_parallel": {"tp_size": 1}},
+                model_parameters=params, sharding_rules=rules)
+            del params
+            if eng.tp is None or eng.tp.head_range(cfg) != (0, 71, 0, 1):
+                fail(f"falcon: the engine's head map is {eng.tp}")
+            got, counts, ops = legs(eng, "in the 1-rank group")
+            for key in ("serve", "int8_serve"):
+                log(f"check: falcon {key} outputs equal to the engine "
+                    f"without a process group: {got[key] == ref[key]}")
+                if got[key] != ref[key]:
+                    fail(f"falcon {key}: outputs differ")
+            same = torch.equal(got["generate"], ref["generate"])
+            log(f"check: falcon generate tokens equal to the engine "
+                f"without a process group: {same}")
+            if not same:
+                fail("falcon generate: tokens differ")
+            gen, srv, q8 = (counts["generate"], counts["serve"],
+                            counts["int8_serve"])
+            if gen["flash_attention_fwd"] != L or \
+                    gen["decode_attention"] != L * (FALCON_NEW - 1) or \
+                    srv["paged_attention"] != L * srv["forwards"][1] or \
+                    q8["quant_matmul_by_path"] != [
+                        4 * L * n for n in q8["forwards"]]:
+                fail(f"falcon: launches {counts}")
+            _tp_forward_ops("falcon generate", ops["generate"], FALCON_NEW,
+                            L)
+            _tp_forward_ops("falcon serve", ops["serve"],
+                            sum(srv["forwards"]), L)
+            t1 = time.perf_counter()
+            eng.generate(ids, max_new_tokens=FALCON_NEW)
+            torch.cuda.synchronize()
+            rates["generate_s"] = time.perf_counter() - t1
+            del eng
+            gc.collect()
+            torch.cuda.empty_cache()
+            engine = _tp_engine(_falcon_train_model(
+                cfg, 17, TP_TRAIN_LAYERS, FALCON_SEQ), TP_TRAIN_CONFIG,
+                rules)
+            _zero_counters()
+            comm.reset_op_counts()
+            t1 = time.perf_counter()
+            m = engine.train_batch(batch)
+            rates["train_step_ms"] = 1e3 * (time.perf_counter() - t1)
+            c, o = _counters(), _tp_ops()
+            bitwise = (m["loss"], m["grad_norm"]) == (
+                ref["train"]["loss"], ref["train"]["grad_norm"])
+            log(f"check: falcon train first step vs the engine without a "
+                f"process group loss={m['loss']:.9f}/"
+                f"{ref['train']['loss']:.9f} grad_norm="
+                f"{m['grad_norm']:.9f}/{ref['train']['grad_norm']:.9f} "
+                f"bitwise={bitwise} launches="
+                f"{json.dumps({k: c[k] for k in FLASH_KERNELS})}")
+            if not bitwise or any(c[k] != TP_TRAIN_LAYERS * TP_GAS
+                                  for k in FLASH_KERNELS):
+                fail("falcon train: the 1-rank group's first step is not "
+                     "the single-process engine's, or its launches are off")
+            _tp_step_ops("falcon train step", o, TP_GAS, TP_TRAIN_LAYERS,
+                         FALCON_SEQ, 256)
+            counts["train"] = {k: c[k] for k in FLASH_KERNELS}
+            del engine
+            gc.collect()
+            torch.cuda.empty_cache()
+        finally:
+            set_global_mesh(None)
+            dist.destroy_process_group()
+    finally:
+        torch.use_deterministic_algorithms(False)
+    log("time: falcon " + json.dumps(rates) + f" [{smi}]")
+    return {"launches": {k: {n: v for n, v in c.items()
+                             if n in KERNEL_MODULES}
+                         for k, c in counts.items()}, "rates": rates}
+
+
+def time_tp_rest_kernels():
+    """Rows 1-6 at this slice's new shard shapes, each held against its
+    plain version on the same inputs first (as :func:`time_tp_kernels`
+    holds them; a miss fails), then timed beside its plain version, a
+    library call and its bound. Falcon-7B's ranks at tp 4 compute 18, 18,
+    18 and 17 query heads of 64 over its one KV head (repeated before the
+    kernels): paged attention (one decode step, 32 launches, 8 lanes at
+    ctx 1024), decode attention (one generate step, 32 launches, 4
+    sequences at cur_len 1040), the flash forward ([4, 1024] prefill, 32
+    launches) and the flash backward ([1, H, 2048, 64], 8 launches: 4
+    layers x gas 2), each held at 18 and 17 heads and timed at 18.
+    quant_matmul at a rank's (M, K, N, block) of a row shard off the
+    256-row grid: llama-1.1b's mlp_proj at tp 4 (K 1408, block 128),
+    Falcon-7B's attn_proj (K 1152 at block 128 on ranks 0-2, K 1088 at
+    block 64 on rank 3) and mlp_proj (K 4544, block 64), each held; one
+    decode step's row-parallel calls of Falcon-7B's rank 3 (32 layers x
+    K 1088 and K 4544, block 64: 64 launches) timed."""
+    import torch
+    import torch.nn.functional as F
+    from deepspeed_tpu_torch.ops import decode_attention as tda
+    from deepspeed_tpu_torch.ops import flash_attention as tfa
+    from deepspeed_tpu_torch.ops import paged_attention as tpa
+    from deepspeed_tpu_torch.ops import quant_matmul as tqm
+    L, hd = 32, 64
+    g = torch.Generator(device="cuda").manual_seed(71)
+    bf = torch.bfloat16
+    randn = lambda *s: torch.randn(*s, device="cuda", generator=g).to(bf)
+    f32 = lambda *ts: [x.float() for x in ts]
+    out, errs = {}, {}
+
+    def step(fn, n=L):
+        return lambda: [fn(li) for li in range(n)]
+
+    def keep(name, t, nbytes, flops, work):
+        bnd, by = bound_ms(nbytes, flops)
+        out[name] = {**t, "bound_ms": bnd, "bound_by": by, "work": work,
+                     "max_abs_err": errs[name]}
+        log(f"time: tp-rest {name} ms={t['ms']:.4f} bound_ms={bnd:.4f} "
+            f"({by}) plain_ms={t['plain_ms']:.4f} library_ms="
+            f"{t['library_ms']:.4f} max_abs_err={errs[name]:.3e} [{work}]")
+
+    def heads(t, nh, dim):      # the one KV head repeated to nh query heads
+        return t.expand(*t.shape[:dim], nh, *t.shape[dim + 1:]).contiguous()
+
+    # paged: one decode step, 8 lanes at ctx 1024, 32-token blocks
+    B, bs, ctx = 8, 32, 1024
+    per = ctx // bs
+    nblk = B * per + 1
+    bt = (torch.randperm(nblk - 1, device="cuda", generator=g)[:B * per] + 1
+          ).reshape(B, per).to(torch.int32)
+    lens = torch.full((B,), ctx, dtype=torch.int32, device="cuda")
+    k1, v1 = randn(L, 1, nblk, bs, hd), randn(L, 1, nblk, bs, hd)
+    errs["paged_attention"] = 0.0
+    for nh in (17, 18):
+        k, v, q = heads(k1, nh, 1), heads(v1, nh, 1), randn(B, nh, 1, hd)
+        o = tpa.paged_attention(q, k, v, bt, lens, layer_idx=0)
+        errs["paged_attention"] = max(errs["paged_attention"], _hold(
+            f"tp-rest paged_attention {nh} heads layer 0", o,
+            tpa.paged_attention_reference(*f32(q, k[:1], v[:1]), bt, lens,
+                                          layer_idx=0), False))
+    kc = k[:, :, bt.long()].permute(0, 2, 1, 3, 4, 5).reshape(L, B, nh, ctx,
+                                                              hd)
+    vc = v[:, :, bt.long()].permute(0, 2, 1, 3, 4, 5).reshape(L, B, nh, ctx,
+                                                              hd)
+    t = timings(
+        step(lambda li: tpa.paged_attention(q, k, v, bt, lens, layer_idx=li)),
+        step(lambda li: tpa.paged_attention_reference(q, k, v, bt, lens,
+                                                      layer_idx=li)),
+        step(lambda li: F.scaled_dot_product_attention(q, kc[li], vc[li])))
+    keep("paged_attention", t,
+         L * (2 * B * ctx * hd * 2 + 2 * B * nh * hd * 2 + B * per * 4
+              + B * 4),
+         L * 4 * B * nh * ctx * hd,
+         f"one decode step of Falcon-7B's tp-4 rank 0: {L} launches, B={B}, "
+         f"ctx={ctx}, nh={nh} over 1 KV head, hd={hd}, bf16 pool")
+    del k, v, kc, vc, k1, v1
+    # decode: one generate step, 4 sequences at cur_len 1040 of 1280
+    B, cur, max_len = 4, 1040, 1280
+    k1, v1 = randn(L, B, 1, max_len, hd), randn(L, B, 1, max_len, hd)
+    errs["decode_attention"] = 0.0
+    for nh in (17, 18):
+        k, v, q = heads(k1, nh, 2), heads(v1, nh, 2), randn(B, nh, 1, hd)
+        o = tda.decode_attention(q, k, v, cur, layer_idx=0)
+        errs["decode_attention"] = max(errs["decode_attention"], _hold(
+            f"tp-rest decode_attention {nh} heads layer 0", o,
+            tda.decode_attention_reference(*f32(q, k[:1], v[:1]), cur,
+                                           layer_idx=0), False))
+    t = timings(
+        step(lambda li: tda.decode_attention(q, k, v, cur, layer_idx=li)),
+        step(lambda li: tda.decode_attention_reference(q, k, v, cur,
+                                                       layer_idx=li)),
+        step(lambda li: F.scaled_dot_product_attention(
+            q, k[li, :, :, :cur], v[li, :, :, :cur])))
+    keep("decode_attention", t, L * (2 * B * cur * hd * 2
+                                     + 2 * B * nh * hd * 2),
+         L * 4 * B * nh * cur * hd,
+         f"one generate step of Falcon-7B's tp-4 rank 0: {L} launches, "
+         f"B={B}, cur_len={cur}, nh={nh} over 1 KV head, hd={hd}, bf16 "
+         f"cache of {max_len}")
+    del k, v, k1, v1
+    # flash forward: the [4, 1024] prefill, causal
+    S = 1024
+    k1, v1 = randn(B, 1, S, hd), randn(B, 1, S, hd)
+    errs["flash_attention_fwd"] = 0.0
+    for nh in (17, 18):
+        k, v, q = heads(k1, nh, 1), heads(v1, nh, 1), randn(B, nh, S, hd)
+        o, lse = tfa.flash_attention_fwd(q, k, v, causal=True)
+        ro, rl = tfa.flash_attention_reference(*f32(q, k, v), causal=True)
+        errs["flash_attention_fwd"] = max(errs["flash_attention_fwd"], _hold(
+            f"tp-rest flash_attention_fwd {nh} heads o:", o, ro, False))
+        err_l = _max_err(lse, rl)
+        log(f"check: tp-rest flash_attention_fwd {nh} heads lse "
+            f"max_abs_err={err_l:.3e} tol={F32_TOL}")
+        if not err_l <= F32_TOL:
+            fail(f"tp-rest flash_attention_fwd: lse err {err_l}")
+    del o, lse, ro, rl
+    pairs = B * nh * S * (S + 1) // 2
+    t = timings(step(lambda li: tfa.flash_attention_fwd(q, k, v,
+                                                        causal=True)),
+                step(lambda li: tfa.flash_attention_reference(
+                    q, k, v, causal=True)),
+                step(lambda li: F.scaled_dot_product_attention(
+                    q, k, v, is_causal=True)))
+    keep("flash_attention_fwd", t, L * ((2 * nh + 2) * B * S * hd * 2
+                                        + B * nh * S * 4),
+         L * 4 * hd * pairs,
+         f"the prefill of Falcon-7B's tp-4 rank 0: {L} launches, B={B}, "
+         f"H={nh} over 1 KV head, S=Sk={S}, D={hd}, causal, bf16")
+    del q, k, v, k1, v1
+    # flash backward: 4 layers x gas 2 of a tp-4 rank's train step
+    n = TPR_FALCON_TRAIN * 2
+    S2 = 2048
+    k1, v1 = randn(1, 1, S2, hd), randn(1, 1, S2, hd)
+    errs["flash_attention_bwd_dq"] = errs["flash_attention_bwd_dkv"] = 0.0
+    for nh in (17, 18):
+        k, v = heads(k1, nh, 1), heads(v1, nh, 1)
+        q, do = randn(1, nh, S2, hd), randn(1, nh, S2, hd)
+        o, lse = tfa.flash_attention_fwd(q, k, v, causal=True)
+        delta = (do.float() * o.float()).sum(-1)
+        dq = tfa.flash_attention_bwd_dq(q, k, v, do, lse, delta)
+        dk, dv = tfa.flash_attention_bwd_dkv(q, k, v, do, lse, delta)
+        ref = tfa.flash_attention_bwd_reference(*f32(q, k, v, o), lse,
+                                                do.float(), causal=True)
+        errs["flash_attention_bwd_dq"] = max(
+            errs["flash_attention_bwd_dq"],
+            _hold(f"tp-rest flash_attention_bwd {nh} heads dq:", dq, ref[0],
+                  False, floor=2.0 ** -10))
+        errs["flash_attention_bwd_dkv"] = max(
+            errs["flash_attention_bwd_dkv"],
+            *(_hold(f"tp-rest flash_attention_bwd {nh} heads {w}:", x, r,
+                    False, floor=2.0 ** -10)
+              for w, x, r in (("dk", dk, ref[1]), ("dv", dv, ref[2]))))
+        del dq, dk, dv, ref
+    qs, ks, vs = (x.detach().clone().requires_grad_() for x in (q, k, v))
+    so = F.scaled_dot_product_attention(qs, ks, vs, is_causal=True)
+    lib = device_ms(step(lambda li: torch.autograd.grad(
+        so, (qs, ks, vs), do, retain_graph=True), n=n))
+    plain = device_ms(lambda: tfa.flash_attention_bwd_reference(
+        q, k, v, o, lse, do, causal=True), reps=1) * n
+    pairs = nh * S2 * (S2 + 1) // 2
+    elem, elem_kv, rows = nh * S2 * hd * 2, S2 * hd * 2, nh * S2 * 4
+    for name, fn, nbytes, flops in (
+            ("flash_attention_bwd_dq",
+             lambda li: tfa.flash_attention_bwd_dq(q, k, v, do, lse, delta),
+             3 * elem + 2 * elem_kv + 2 * rows, 6 * hd * pairs),
+            ("flash_attention_bwd_dkv",
+             lambda li: tfa.flash_attention_bwd_dkv(q, k, v, do, lse, delta),
+             2 * elem + 4 * elem_kv + 2 * rows, 8 * hd * pairs)):
+        t = {"ms": device_ms(step(fn, n=n)), "plain_ms": plain,
+             "library_ms": lib, "wall_ms": wall_ms(step(fn, n=n))}
+        keep(name, t, n * nbytes, n * flops,
+             f"Falcon-7B's tp-4 rank 0 train step: {n} launches, B=1, "
+             f"H={nh} over 1 KV head, S=Sk={S2}, D={hd}, causal, bf16; "
+             f"plain and library compute dq, dk and dv together (plain: "
+             f"one call timed, times {n})")
+    del q, k, v, do, o, lse, delta, qs, ks, vs, so, k1, v1
+    # quant_matmul: a rank's row shard packed at the finer block (M 8)
+    M = 8
+    cases = [("llama-1.1b mlp_proj, tp 4", 1408, 2048, 128),
+             ("falcon-7b attn_proj, tp 4 ranks 0-2", 1152, 4544, 128),
+             ("falcon-7b attn_proj, tp 4 rank 3", 1088, 4544, 64),
+             ("falcon-7b mlp_proj, tp 4", 4544, 4544, 64)]
+    gf = torch.Generator(device="cuda").manual_seed(73)
+    mats = {}
+    errs["quant_matmul"] = 0.0
+    for label, K, N, block in cases:
+        qw, sw = tqm.pack_kernel(torch.randn(K, N, device="cuda",
+                                             generator=gf), block)
+        x = randn(M, K)
+        got = tqm.quant_matmul(x, qw, sw)
+        ref = tqm.quant_matmul_reference(x, qw, sw)
+        torch.cuda.synchronize()
+        err = _max_err(got, ref)
+        tol = 2 ** -7 * ref.float().abs().max().item()
+        log(f"check: tp-rest quant_matmul {label} M={M} K={K} N={N} "
+            f"block={block} x=bf16 max_abs_err={err:.3e} tol={tol:.3e}")
+        if got.shape != (M, N) or not err <= tol:
+            fail(f"tp-rest quant_matmul {M}x{K}x{N}@{block}: err {err}")
+        errs["quant_matmul"] = max(errs["quant_matmul"], err)
+        mats[K] = (x, qw, sw)
+    calls = [mats[K] for _ in range(L) for K in (1088, 4544)]
+    dense = {K: (q_.float().reshape(-1, 64, q_.shape[-1])
+                 * s[:, None]).reshape(q_.shape).to(bf)
+             for K, (_, q_, s) in mats.items() if K in (1088, 4544)}
+    t = timings(lambda: [tqm.quant_matmul(*c) for c in calls],
+                lambda: [tqm.quant_matmul_reference(*c) for c in calls],
+                lambda: [torch.matmul(c[0], dense[c[1].shape[0]])
+                         for c in calls])
+    nbytes = sum(q_.numel() + 4 * s.numel() + 2 * M * sum(q_.shape)
+                 for _, q_, s in calls)
+    flops = sum(2 * M * q_.numel() for _, q_, _ in calls)
+    keep("quant_matmul", t, nbytes, flops,
+         f"one decode step's row-parallel calls of Falcon-7B's tp-4 rank 3: "
+         f"{len(calls)} launches, M={M}, attn_proj 1088x4544 and mlp_proj "
+         "4544x4544 at scale block 64 (32 layers); library: torch.matmul "
+         "on the dequantized bf16 weights")
+    del mats, dense, calls
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_tp_rest_ranks(tmp, n):
+    """``--tp-rest-ranks N``: the rest of tensor parallelism across N GPUs
+    of one host, one process each through the port's launcher (NCCL on
+    cuda:LOCAL_RANK). First, on GPU 0 without a process group, the
+    references: Falcon-7B at full depth in f32 (greedy generate() [2, 256]
+    + 16, and an f32-activation serve() with blockwise-int8 weights),
+    Falcon-7B cut to TPR_FALCON_TRAIN layers (f32, the first step's loss
+    and its first and last layers' KV-column gradients), Mixtral-8x7B cut
+    to TPR_MIXTRAL_CUT layers in f32 (greedy tokens; one layer's tree
+    built by the layer builder held equal to the Mixtral policy's), the
+    moe leg's 2-layer step at batch 2 x gas 2 in f32 (aux 0, no noise, no
+    drop),
+    llama-1.1b's f32-activation int8 serve() and the sp leg's 16,384-token
+    step. Then :func:`tp_rest_worker` on every GPU; each result is held
+    here: the f32 tokens and int8 outputs equal, the first steps' losses
+    within 1e-4 and grad norms within 5e-3
+    (the KV-column gradients within
+    TPR_GRAD_TOL of the largest), and the readings (wall and busy ms,
+    weights a rank, peak memory) kept."""
+    import numpy as np
+    import torch
+    import deepspeed_tpu_torch
+    from types import SimpleNamespace
+    from deepspeed_tpu_torch.models.transformer import get_config, init_params
+    ref = {}
+    rng = np.random.default_rng(20)
+
+    def f32_engine(cfg, params, dtype="float32"):
+        return deepspeed_tpu_torch.init_inference(
+            dataclasses.replace(cfg, dtype=torch.float32), {
+                "dtype": dtype, "serving": SERVING}, model_parameters=params)
+
+    # Falcon-7B, full depth, f32
+    fcfg = _falcon_cfg(32)
+    fids = torch.as_tensor(rng.integers(1, fcfg.vocab_size,
+                                        (TPR_BATCH, TPR_PROMPT)),
+                           device="cuda")
+    params = _falcon_shards(fcfg, FALCON_SEED, None)
+    eng = f32_engine(fcfg, params)
+    del params
+    gc.collect()
+    ref["falcon_tokens"] = eng.generate(fids, max_new_tokens=TPR_NEW).cpu()
+    fprompts = [list(map(int, rng.integers(1, fcfg.vocab_size, int(k))))
+                for k in TPR_LENS]
+    ref["falcon_int8"] = [list(r.output_tokens) for r in _run_requests(
+        eng.serve(dict(SERVING, weight_dtype="int8")), fprompts,
+        TPR_SERVE_NEW)]
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    # Falcon-7B, TPR_FALCON_TRAIN layers, one f32 step
+    ref["falcon_train"] = _falcon_kv_step(fcfg, None)
+    gc.collect()
+    torch.cuda.empty_cache()
+    # Mixtral-8x7B: the layer builder against the policy, then the cut
+    one = _mixtral_cfg(1)
+    module, tree, _ = deepspeed_tpu_torch.replace_transformer_layer(
+        _mixtral_named_state_dict(1, TP_SEED), arch="MixtralForCausalLM",
+        config=SimpleNamespace(**dict(MIXTRAL_CONFIG, num_hidden_layers=1)),
+        dtype=torch.bfloat16)
+    del module
+    same = _trees_equal(_mixtral_shards(one, TP_SEED, None), tree)
+    log(f"check: tp-rest mixtral layer-by-layer tree equal to the policy's: "
+        f"{same}")
+    if not same:
+        fail("tp-rest: the Mixtral layer builder differs from the policy")
+    del tree
+    mcfg = _mixtral_cfg(TPR_MIXTRAL_CUT)
+    mids = torch.as_tensor(rng.integers(1, mcfg.vocab_size,
+                                        (TPR_BATCH, TPR_PROMPT)),
+                           device="cuda")
+    params = _mixtral_shards(mcfg, TP_SEED, None)
+    eng = f32_engine(mcfg, params)
+    del params
+    gc.collect()
+    ref["mixtral_tokens"] = eng.generate(mids, max_new_tokens=TPR_NEW).cpu()
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    config = dict(TPR_MOE_CONFIG, train_batch_size=2 * MOE_GAS,
+                  train_micro_batch_size_per_gpu=2)
+    engine = _moe_engine(_moe_train_model(dataclasses.replace(
+        _mixtral_cfg(), dtype=torch.float32), 17, noise=False), config,
+        aux=0.0)
+    ref["mixtral_train"] = engine.train_batch(_moe_batch(2 * MOE_GAS,
+                                                         mcfg.vocab_size))
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    # llama-1.1b: the int8 serve (f32 activations), the sp leg's step
+    lcfg = get_config("llama-1.1b")
+    lparams = init_params(lcfg, torch.Generator(device="cuda").manual_seed(0))
+    eng = f32_engine(lcfg, lparams)
+    del lparams
+    lprompts = [list(map(int, rng.integers(1, lcfg.vocab_size, int(k))))
+                for k in TPR_LENS]
+    ref["llama_int8"] = [list(r.output_tokens) for r in _run_requests(
+        eng.serve(dict(SERVING, weight_dtype="int8")), lprompts,
+        TPR_SERVE_NEW)]
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    engine, _ = _sp_engine(tmp, "sp_ref", "flash")
+    ref["sp"] = engine.train_batch(_sp_batch(lcfg.vocab_size))
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    plan = os.path.join(tmp, "tp_rest_plan.json")
+    with open(plan, "w") as f:
+        json.dump({"falcon_ids": fids.tolist(), "falcon_prompts": fprompts,
+                   "mixtral_ids": mids.tolist(),
+                   "llama_prompts": lprompts}, f)
+    out = os.path.join(tmp, "tp_rest_ranks.json")
+    env = dict(os.environ, PYTHONPATH=HERE)
+    rc = subprocess.run(
+        [sys.executable, "-m", "deepspeed_tpu_torch.launcher.launch",
+         "--nproc_per_node", str(n), os.path.join(HERE, "chip_smoke.py"),
+         "--tp-rest-worker", out], cwd=HERE, env=env,
+        timeout=1500).returncode
+    if rc != 0:
+        fail(f"tp-rest ranks: the launcher exited {rc}")
+    with open(out) as f:
+        res = json.load(f)
+    got = torch.load(out + ".pt")
+    for key in ("falcon_tokens", "mixtral_tokens"):
+        same = torch.equal(got[key], ref[key])
+        new_toks = ref[key][:, -TPR_NEW:].flatten().tolist()
+        log(f"check: tp-rest ranks={n} {key} (f32, greedy) equal to one "
+            f"engine without a process group: {same} "
+            f"({len(set(new_toks))} distinct of {len(new_toks)} new tokens)")
+        if not same:
+            fail(f"tp-rest ranks: {key} differ from the single engine's")
+    for key in ("falcon_int8", "llama_int8"):
+        same = res[key]["outputs"] == ref[key]
+        toks = [t for o in ref[key] for t in o]
+        log(f"check: tp-rest ranks={n} {key} serve outputs (f32 "
+            f"activations, blockwise int8 weights, row shards off the "
+            f"256 grid) equal to one engine's: {same} ({len(set(toks))} "
+            f"distinct of {len(toks)} tokens)")
+        if not same:
+            fail(f"tp-rest ranks: {key} outputs differ")
+    for key, first, want in (
+            ("falcon_train", res["falcon_train"], ref["falcon_train"]),
+            ("mixtral_train", res["mixtral_train"], ref["mixtral_train"]),
+            *((f"sp {m}", res["sp"][m], ref["sp"]) for m in res["sp"])):
+        rl = abs(first["loss"] - want["loss"]) / abs(want["loss"])
+        rn = abs(first["grad_norm"] - want["grad_norm"]) / abs(
+            want["grad_norm"])
+        log(f"check: tp-rest ranks={n} {key} first step vs one engine "
+            f"without a process group loss={first['loss']:.7f}/"
+            f"{want['loss']:.7f} rel={rl:.3e} tol=1e-4 grad_norm="
+            f"{first['grad_norm']:.6f}/{want['grad_norm']:.6f} rel="
+            f"{rn:.3e} tol=5e-3")
+        if not (rl <= 1e-4 and rn <= 5e-3):
+            fail(f"tp-rest ranks: {key}'s first step is off the single "
+                 "engine's")
+    for name, kv in ref["falcon_train"]["kv"].items():
+        want = kv.cuda()
+        scale = want.abs().max().item()
+        worst = max((g.cuda() - want).abs().max().item() / scale
+                    for g in got["falcon_kv"][name])
+        log(f"check: tp-rest ranks={n} falcon {name} KV-column gradient "
+            f"(every rank's copy of the one KV head) max_abs_err/max_ref="
+            f"{worst:.3e} tol={TPR_GRAD_TOL}")
+        if not worst <= TPR_GRAD_TOL:
+            fail(f"tp-rest ranks: falcon {name} KV-column gradients off")
+    return res
+
+
+def _falcon_kv_step(cfg, tp, rules=None):
+    """One f32 step of Falcon-7B cut to TPR_FALCON_TRAIN layers (the
+    layer builder's weights, f32 compute; a tp rank: its shards through
+    the engine):
+    the loss, the grad norm, and the first and last layers' KV-column
+    gradients (the one KV head's k and v columns of ``attn_qkv``), read
+    from the step's gradients before the update."""
+    import torch
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.models.transformer import fused_loss_passthrough
+    c = dataclasses.replace(cfg, num_layers=TPR_FALCON_TRAIN,
+                            dtype=torch.float32)
+    model = _falcon_train_model(c, 0, TPR_FALCON_TRAIN, TPR_SEQ,
+                                params=_falcon_shards(c, FALCON_SEED, None))
+    config = dict(TPR_TRAIN_CONFIG)
+    if tp is not None:
+        config["tensor_parallel"] = {"tp_size": tp.size}
+    engine, *_ = deepspeed_tpu_torch.initialize(
+        model=model, config=config, loss_fn=fused_loss_passthrough,
+        sharding_rules=rules)
+    names = {id(p): n for n, p in engine.module.named_parameters()}
+    keep = {f"blocks.{li}.attn_qkv.kernel"
+            for li in (0, TPR_FALCON_TRAIN - 1)}
+    kv = {}
+    nh, hd = cfg.num_heads, cfg.head_dim
+    ql = nh * hd if tp is None else tp.heads(cfg)[0] * hd
+
+    def grab(params, grads):
+        for p, g in zip(params, grads):
+            if names.get(id(p)) in keep and names[id(p)] not in kv:
+                kv[names[id(p)]] = g[:, ql:ql + 2 * hd].float().cpu()
+    if engine.dp is not None:
+        step_grads = engine.dp.step_grads
+
+        def wrapped(denom):
+            grads = step_grads(denom)
+            grab([e.param for e in engine.dp.entries], grads)
+            return grads
+        engine.dp.step_grads = wrapped
+    else:
+        finalize = engine._finalize_step
+
+        def wrapped(n_micro, losses):
+            denom = float(n_micro) * engine.scale_state.scale
+            grab(engine._params, [a / denom for a in engine._accum])
+            return finalize(n_micro, losses)
+        engine._finalize_step = wrapped
+    m = engine.train_batch(_tp_batch(2, cfg.vocab_size, TPR_SEQ))
+    del engine, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"loss": m["loss"], "grad_norm": m["grad_norm"], "kv": kv}
+
+
+def tp_rest_worker(out):
+    """One rank of ``--tp-rest-ranks``, started by the port's launcher
+    (NCCL on cuda:LOCAL_RANK); rank 0 writes the readings to ``out`` (and
+    the tokens and gradients to ``out + ".pt"``)."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch import comm
+    from deepspeed_tpu_torch.models.transformer import (get_config,
+                                                        init_params)
+    from deepspeed_tpu_torch.ops import quant_matmul as tqm
+    from deepspeed_tpu_torch.parallel.mesh import STEP_AXES, set_global_mesh
+    from deepspeed_tpu_torch.utils.partitioning import TPContext
+    comm.init_distributed()
+    rank, world = comm.get_rank(), comm.get_world_size()
+    tmp = os.path.dirname(out)
+    with open(os.path.join(tmp, "tp_rest_plan.json")) as f:
+        plan = json.load(f)
+    res, tensors = {"world": world}, {}
+
+    def all_ranks(value):
+        t = torch.tensor([float(value)], device="cuda")
+        return comm.all_gather(t, axis=STEP_AXES).tolist()
+
+    def agree(label, value):
+        import hashlib
+        h = hashlib.sha256(json.dumps(value).encode()).digest()[:8]
+        mine = torch.tensor(list(h), dtype=torch.int64, device="cuda")
+        every = comm.all_gather(mine, axis=STEP_AXES, tiled=False)
+        if not bool((every == mine).all()):
+            fail(f"tp-rest ranks: {label} differ across ranks")
+
+    def engine(cfg, shards, dtype, **extra):
+        c = dataclasses.replace(cfg, dtype=torch.float32) \
+            if dtype == "float32" else cfg
+        return deepspeed_tpu_torch.init_inference(
+            c, {"dtype": dtype, "serving": SERVING,
+                "tensor_parallel": {"tp_size": world}, **extra},
+            shards=shards, sharding_rules=cfg.tp_rules())
+
+    def served(eng, prompts, serving, label, per_forward=None):
+        """One serve() of ``prompts``: outputs (equal on every rank),
+        decode step wall ms, tokens/s and launches."""
+        srv = eng.serve(serving)
+        _run_requests(srv, [prompts[0][:40]], 2)               # warm-up
+        _instrument(srv, tqm.quant_matmul if per_forward else None)
+        stats0 = dict(srv.stats)
+        _zero_counters()
+        reqs = _run_requests(srv, prompts, TPR_SERVE_NEW)
+        c = _counters()
+        pre, dec = srv._run_prefill, srv._decode_step
+        _, rates = _rates(srv, stats0, dec.calls)
+        outs = [list(r.output_tokens) for r in reqs]
+        agree(label, outs)
+        if per_forward and (pre.launches != per_forward * pre.calls
+                            or dec.launches != per_forward * dec.calls):
+            fail(f"tp-rest ranks {label}: quant_matmul launched "
+                 f"{pre.launches}/{dec.launches} for {pre.calls}/"
+                 f"{dec.calls} forwards ({per_forward} each)")
+        if c["paged_attention"] != eng.cfg.num_layers * dec.calls:
+            fail(f"tp-rest ranks {label}: launches {c}")
+        del srv._run_prefill, srv._decode_step, pre, dec, srv
+        return {"outputs": outs, "launches": c, **rates}
+
+    def generated(eng, ids, label):
+        """generate() timed (prefill, decode step), profiled (busy ms)."""
+        L = eng.cfg.num_layers
+        eng.generate(ids, max_new_tokens=2)                    # warm-up
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        eng.generate(ids, max_new_tokens=1)
+        torch.cuda.synchronize()
+        prefill_s = time.perf_counter() - t1
+        _zero_counters()
+        comm.reset_op_counts()
+        t1 = time.perf_counter()
+        toks = eng.generate(ids, max_new_tokens=TPR_NEW)
+        torch.cuda.synchronize()
+        total_s = time.perf_counter() - t1
+        gen, ops = _counters(), _tp_ops()
+        agree(label, toks.tolist())
+        if gen["flash_attention_fwd"] != L or \
+                gen["decode_attention"] != L * (TPR_NEW - 1):
+            fail(f"tp-rest ranks {label}: launches {gen}")
+        _tp_forward_ops(f"tp-rest ranks {label} rank {rank}", ops, TPR_NEW,
+                        L)
+        prof = profile_generate(eng.cfg, eng.params, ids, tag=f" {label}",
+                                tp=eng.tp)
+        return toks, {"layers": L, "prefill_ms": 1e3 * prefill_s,
+                      "decode_step_ms": 1e3 * (total_s - prefill_s)
+                      / (TPR_NEW - 1), "launches": gen, "collectives": ops,
+                      "weights_gb_a_rank": _numel(eng.params) * 2 / 1e9,
+                      **prof}
+
+    # (a) Falcon-7B, all 32 layers: f32 tokens, int8 (f32 activations)
+    # outputs, then bf16 generate and bf16 int8 serve timed
+    fcfg = _falcon_cfg(32)
+    tp = TPContext(rank, world, fcfg.vocab_size)
+    fids = torch.as_tensor(plan["falcon_ids"], device="cuda")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    shards = _falcon_shards(fcfg, FALCON_SEED, tp)
+    build_s = time.perf_counter() - t0
+    eng = engine(fcfg, shards, "float32")
+    tensors["falcon_tokens"] = eng.generate(
+        fids, max_new_tokens=TPR_NEW).cpu()
+    agree("falcon f32 tokens", tensors["falcon_tokens"].tolist())
+    res["falcon_int8"] = served(
+        eng, plan["falcon_prompts"], dict(SERVING, weight_dtype="int8"),
+        "falcon int8 (f32 activations)", 4 * fcfg.num_layers)
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    eng = engine(fcfg, shards, "bf16")
+    del shards
+    gc.collect()
+    _, res["falcon_generate"] = generated(eng, fids, "falcon bf16")
+    res["falcon_generate"]["build_s"] = build_s
+    res["falcon_int8_bf16"] = served(
+        eng, plan["falcon_prompts"], dict(SERVING, kv_cache_dtype="int8",
+                                          weight_dtype="int8"),
+        "falcon int8 (bf16)", 4 * fcfg.num_layers)
+    res["falcon_peak_gb_by_rank"] = all_ranks(
+        torch.cuda.max_memory_allocated() / 1e9)
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    if rank == 0:
+        log("time: tp-rest falcon " + json.dumps(
+            {k: v for k, v in res.items() if k.startswith("falcon")}))
+    # (b) Falcon-7B, TPR_FALCON_TRAIN layers, one f32 step at tp N
+    step = _falcon_kv_step(fcfg, tp, fcfg.tp_rules())
+    kv = torch.stack([step["kv"][n] for n in sorted(step["kv"])]).cuda()
+    every = comm.all_gather(kv.contiguous(), axis=STEP_AXES, tiled=False)
+    tensors["falcon_kv"] = {n: [every[r, i].cpu() for r in range(world)]
+                            for i, n in enumerate(sorted(step["kv"]))}
+    res["falcon_train"] = {"loss": step["loss"],
+                           "grad_norm": step["grad_norm"]}
+    set_global_mesh(None)
+
+    # (c) Mixtral-8x7B: TPR_MIXTRAL_CUT layers in f32, then 32 in bf16
+    mids = torch.as_tensor(plan["mixtral_ids"], device="cuda")
+    mcut = _mixtral_cfg(TPR_MIXTRAL_CUT)
+    tp = TPContext(rank, world, mcut.vocab_size)
+    shards = _mixtral_shards(mcut, TP_SEED, tp)
+    eng = engine(mcut, shards, "float32")
+    del shards
+    tensors["mixtral_tokens"] = eng.generate(
+        mids, max_new_tokens=TPR_NEW).cpu()
+    agree("mixtral f32 tokens", tensors["mixtral_tokens"].tolist())
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    # all 32 layers on four GPUs (about 23 GB of bf16 weights a rank),
+    # 32 x N / 4 on N
+    mfull = _mixtral_cfg(max(32 * world // 4, 1))
+    t0 = time.perf_counter()
+    shards = _mixtral_shards(mfull, TP_SEED, tp)
+    build_s = time.perf_counter() - t0
+    eng = engine(mfull, shards, "bf16")
+    del shards
+    gc.collect()
+    _, res["mixtral_generate"] = generated(eng, mids, "mixtral bf16")
+    res["mixtral_generate"]["build_s"] = build_s
+    res["mixtral_serve"] = served(
+        eng, [p[:512] for p in plan["llama_prompts"]], SERVING,
+        "mixtral bf16 serve")
+    res["mixtral_peak_gb_by_rank"] = all_ranks(
+        torch.cuda.max_memory_allocated() / 1e9)
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    set_global_mesh(None)
+    # (d) Mixtral-8x7B, 2 layers trained at tp 2 x ep N / 2 in f32
+    torch.cuda.reset_peak_memory_stats()
+    ep = max(world // 2, 1)
+    config = dict(TPR_MOE_CONFIG, train_batch_size=2 * MOE_GAS,
+                  train_micro_batch_size_per_gpu=2 // ep,
+                  moe={"enabled": True, "ep_size": ep},
+                  tensor_parallel={"tp_size": world // ep})
+    mcfg = dataclasses.replace(_mixtral_cfg(), dtype=torch.float32)
+    engine_ = _moe_engine(_moe_train_model(mcfg, 17, noise=False), config,
+                          aux=0.0, rules=mcfg.tp_rules())
+    batch = _moe_batch(2 * MOE_GAS, mcfg.vocab_size)
+    metrics, step_s = [], []
+    for i in range(EP_STEPS):
+        m, dt, c, ops = _moe_step(engine_, batch, f"tp-rest ranks mixtral "
+                                  f"rank {rank} step {i}",
+                                  MOE_TRAIN_LAYERS * MOE_GAS)
+        metrics.append(m)
+        step_s.append(dt)
+    if not metrics[-1]["loss"] < metrics[0]["loss"]:
+        fail(f"tp-rest mixtral: loss did not fall "
+             f"{[x['loss'] for x in metrics]}")
+    if rank == 0:
+        rates = _moe_train_rates(engine_, batch, step_s, engine_.module.cfg,
+                                 f"tp-rest mixtral tp {world // ep} x ep "
+                                 f"{ep} step", world)
+    else:
+        engine_.train_batch(batch)
+        rates = {}
+    res["mixtral_train"] = dict(
+        rates, loss=metrics[0]["loss"], grad_norm=metrics[0]["grad_norm"],
+        losses=[x["loss"] for x in metrics], launches=c, collectives=ops,
+        tp=engine_.tp.size, ep=ep, peak_gb_by_rank=all_ranks(
+            torch.cuda.max_memory_allocated() / 1e9))
+    del engine_
+    gc.collect()
+    torch.cuda.empty_cache()
+    set_global_mesh(None)
+
+    # (e) llama-1.1b int8 at tp N: mlp_proj row shards of 5632 / N rows
+    lcfg = get_config("llama-1.1b")
+    tp = TPContext(rank, world, lcfg.vocab_size)
+    from deepspeed_tpu_torch.utils.partitioning import shard_tree
+    lparams = shard_tree(init_params(lcfg, torch.Generator(
+        device="cuda").manual_seed(0)), lcfg, tp, lcfg.tp_rules())
+    eng = engine(lcfg, lparams, "float32")
+    res["llama_int8"] = served(
+        eng, plan["llama_prompts"], dict(SERVING, weight_dtype="int8"),
+        "llama int8 (f32 activations)", 5 * lcfg.num_layers + 1)
+    del eng
+    eng = engine(lcfg, lparams, "bf16")
+    del lparams
+    res["llama_int8_bf16"] = served(
+        eng, plan["llama_prompts"], dict(SERVING, kv_cache_dtype="int8",
+                                         weight_dtype="int8"),
+        "llama int8 (bf16)", 5 * lcfg.num_layers + 1)
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    set_global_mesh(None)
+
+    # (f) llama-1.1b at sp 2 x tp N / 2, the sp leg's 16,384-token step
+    # (from two GPUs up: one rank has no seq group to ring over)
+    res["sp"] = {}
+    sp = 2
+    for mode in ("ring", "ulysses") if world >= sp else ():
+        torch.cuda.reset_peak_memory_stats()
+        config = dict(SP_CONFIG, sequence_parallel={"sp_size": sp,
+                                                    "mode": mode},
+                      tensor_parallel={"tp_size": world // sp})
+        from deepspeed_tpu_torch.models.transformer import build_model
+        model, cfg = build_model("llama-1.1b", fused_loss=True,
+                                 loss_chunk=256, seed=0, device="cuda",
+                                 max_seq_len=SP_SEQ, remat=True,
+                                 remat_policy="full", attention_impl="auto",
+                                 num_layers=SP_LAYERS)
+        engine_, *_ = deepspeed_tpu_torch.initialize(
+            model=model, config=config, sharding_rules=cfg.tp_rules())
+        batch = _sp_batch(cfg.vocab_size)
+        want, want_ring = _sp_want(cfg.num_layers, sp, engine_.seq_rank,
+                                   mode)
+        metrics, step_s = [], []
+        for i in range(SP_STEPS):
+            m, dt, c, ring, ops = _sp_step(
+                engine_, batch, f"tp-rest sp {sp} x tp {world // sp} {mode} "
+                f"rank {rank} step {i}", want, want_ring)
+            metrics.append(m)
+            step_s.append(dt)
+        if not metrics[-1]["loss"] < metrics[0]["loss"]:
+            fail(f"tp-rest sp {mode}: loss did not fall")
+        n_params = sum(p.numel() for p in engine_.module.parameters())
+        if rank == 0:
+            rates = _sp_rates(engine_, batch, step_s, n_params, cfg,
+                              f"tp-rest sp {sp} x tp {world // sp} {mode} "
+                              "step", world)
+        else:
+            engine_.train_batch(batch)
+            rates = {}
+        res["sp"][mode] = dict(
+            rates, loss=metrics[0]["loss"],
+            grad_norm=metrics[0]["grad_norm"],
+            losses=[x["loss"] for x in metrics], launches_rank0=c,
+            ring_rank0=ring, collectives_rank0=ops,
+            world=[engine_.seq_world, engine_.tp.size],
+            peak_gb_by_rank=all_ranks(
+                torch.cuda.max_memory_allocated() / 1e9))
+        del engine_, model
+        gc.collect()
+        torch.cuda.empty_cache()
+    if rank == 0:
+        torch.save(tensors, out + ".pt")
+        with open(out, "w") as f:
+            json.dump(res, f)
+        log("time: tp-rest ranks " + json.dumps(
+            {k: v for k, v in res.items() if not k.endswith("int8")}))
+    dist.destroy_process_group()
+    return 0
+
+
 # ------------------------------------------------------------------ 16. pp
 
 # the pp leg: gpt2-1.3b at full width and depth, 4 stages of 6 layers in
@@ -8065,9 +9234,10 @@ PP_COMPOSE_STEPS, PP_COMPOSE_SEED = 4, 71
 PP_COMPOSE_TOL = {"tp": 1e-3, "ep": 5e-3, "zero3": 1e-3}
 
 
-def _mixtral_cfg(layers):
+def _mixtral_cfg(layers=MOE_TRAIN_LAYERS):
     """The TransformerConfig that the Mixtral policy maps the published
-    config to at ``layers`` layers (no weights)."""
+    config to at ``layers`` layers (no weights; default the moe train
+    leg's depth)."""
     import torch
     from types import SimpleNamespace
     from deepspeed_tpu_torch.models.hf import load_hf
@@ -9325,6 +10495,16 @@ def main(argv=None):
                          "2; one process each, through the port's "
                          "launcher) and a result line that names it")
     ap.add_argument("--tp-worker", metavar="OUT", help=argparse.SUPPRESS)
+    ap.add_argument("--tp-rest-ranks", type=int, metavar="N",
+                    help="build the kernels, then run only the rest of "
+                         "the tp legs across N GPUs of this host "
+                         "(Falcon-7B at tp N, bf16 and int8, 32 layers; "
+                         "Mixtral-8x7B at tp N, 32 layers, and trained at "
+                         "tp 2 x ep N / 2; llama-1.1b int8 at tp N and at "
+                         "sp 2 x tp N / 2; one process each, through the "
+                         "port's launcher) and a result line that names it")
+    ap.add_argument("--tp-rest-worker", metavar="OUT",
+                    help=argparse.SUPPRESS)
     ap.add_argument("--pp-ranks", type=int, metavar="N",
                     help="build the kernels, then run only the pp leg "
                          "across N GPUs of this host (gpt2-6.7b as N "
@@ -9360,6 +10540,8 @@ def main(argv=None):
         return ep_worker(args.ep_worker)
     if args.tp_worker:
         return tp_worker(args.tp_worker)
+    if args.tp_rest_worker:
+        return tp_rest_worker(args.tp_rest_worker)
     if args.pp_worker:
         if args.pp_compose:
             return pp_compose_worker(args.pp_worker, args.pp_compose[0])
@@ -9386,6 +10568,18 @@ def main(argv=None):
         log(f"total_s={time.perf_counter() - t0:.1f}")
         log(smi)
         log(json.dumps({"ok": True, "zero_ranks": args.zero_ranks,
+                        "device": {"platform": "gpu", "kind": name,
+                                   "count": torch.cuda.device_count()}}))
+        return 0
+    if args.tp_rest_ranks:
+        if torch.cuda.device_count() < args.tp_rest_ranks:
+            fail(f"--tp-rest-ranks {args.tp_rest_ranks}: this host has "
+                 f"{torch.cuda.device_count()} GPUs")
+        with tempfile.TemporaryDirectory() as tmp:
+            phase_tp_rest_ranks(tmp, args.tp_rest_ranks)
+        log(f"total_s={time.perf_counter() - t0:.1f}")
+        log(smi)
+        log(json.dumps({"ok": True, "tp_rest_ranks": args.tp_rest_ranks,
                         "device": {"platform": "gpu", "kind": name,
                                    "count": torch.cuda.device_count()}}))
         return 0
@@ -9455,7 +10649,10 @@ def main(argv=None):
                        "dropout": phase_dropout,
                        "moe": lambda: phase_moe(tmp, smi),
                        "tp": lambda: {"phase": phase_tp(smi),
-                                      "tp4_calls": time_tp_kernels()},
+                                      "tp4_calls": time_tp_kernels(),
+                                      "falcon": phase_falcon(smi),
+                                      "tp_rest_calls":
+                                          time_tp_rest_kernels()},
                        "pp": lambda: phase_pp(tmp),
                        "fleet": lambda: phase_fleet(tmp),
                        "run": lambda: phase_run(tmp)
@@ -9581,6 +10778,8 @@ def main(argv=None):
     _mark("moe")
     tp = phase_tp(smi)
     tp4 = time_tp_kernels()
+    falcon = phase_falcon(smi)
+    tpr = time_tp_rest_kernels()
     _mark("tp")
     with tempfile.TemporaryDirectory() as tmp:
         pp = phase_pp(tmp)
@@ -9668,6 +10867,15 @@ def main(argv=None):
                               tp["launches"].items() if c.get(kname)}
         if kname in tp4:
             row["tp4_calls"] = tp4[kname]
+        # the falcon leg's (Falcon-7B through the head map in a 1-rank
+        # world) launches by entry point, and the calls at this slice's
+        # new shard shapes (uneven heads over one KV head; int8 row shards
+        # off the 256-row grid)
+        row["launches_falcon"] = {path: c[kname] for path, c in
+                                  falcon["launches"].items()
+                                  if c.get(kname)}
+        if kname in tpr:
+            row["tp_rest_calls"] = tpr[kname]
         # the pp leg's (gpt2-1.3b, 4 stages in one process) launches by
         # run: the f32 and bf16 pipeline steps, the engines' steps
         if kname in FLASH_KERNELS:

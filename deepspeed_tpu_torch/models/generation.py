@@ -157,14 +157,71 @@ def gather_vocab(logits: torch.Tensor, tp) -> torch.Tensor:
     return full[..., :tp.vocab]
 
 
-def local_alibi_slopes(nh: int, tp, device) -> torch.Tensor:
+def local_alibi_slopes(nh: int, tp, cfg, device) -> torch.Tensor:
     """ALiBi slopes of this rank's query heads."""
     from .transformer import alibi_slopes
     s = alibi_slopes(nh)
     if tp is not None:
-        n = nh // tp.size
-        s = s[tp.rank * n:(tp.rank + 1) * n]
+        a, b, _, _ = tp.head_range(cfg)
+        s = s[a:b]
     return torch.as_tensor(s, dtype=torch.float32, device=device)
+
+
+def expand_kv(t: torch.Tensor, cfg: TransformerConfig, tp) -> torch.Tensor:
+    """k or v [B, kv, S, hd] of this rank's kv heads -> one per local
+    query head (GQA's ``jnp.repeat``; autograd sums the copies' gradients
+    back onto the kv heads). At an uneven head split a rank's first query
+    heads may read a kv head only partly theirs: an index map then."""
+    from ..utils.partitioning import kv_index
+    nh = cfg.num_heads if tp is None else tp.heads(cfg)[0]
+    if t.shape[1] == nh:
+        return t
+    idx = kv_index(cfg, tp)
+    if idx is None:
+        return torch.repeat_interleave(t, nh // t.shape[1], dim=1)
+    return t.index_select(1, idx.to(t.device))
+
+
+class _KVGradSum(torch.autograd.Function):
+    """Identity on this rank's fused qkv kernel or bias; the backward sums
+    its kv columns' gradients over the model ranks that hold each kv
+    head: scattered into the whole [2 kv hd] k and v columns, all-reduced
+    over ``model`` (a rank holding no copy adds zeros), taken back."""
+
+    @staticmethod
+    def forward(ctx, w, ql, cols, width, axis):
+        ctx.ql, ctx.cols, ctx.width, ctx.axis = ql, cols, width, axis
+        return w.view_as(w)
+
+    @staticmethod
+    def backward(ctx, g):
+        from .. import comm
+        cols = ctx.cols.to(g.device)
+        buf = g.new_zeros(g.shape[:-1] + (ctx.width,))
+        buf.index_add_(-1, cols, g[..., ctx.ql:])
+        comm.all_reduce(buf, op=comm.ReduceOp.SUM, axis=ctx.axis)
+        out = g.clone()
+        out[..., ctx.ql:] = buf.index_select(-1, cols)
+        return out, None, None, None, None
+
+
+def kv_grad_sum(p: Dict[str, torch.Tensor], cfg: TransformerConfig, tp
+                ) -> Dict[str, torch.Tensor]:
+    """The fused qkv leaf ``p`` (this rank's shard) as the layer uses it:
+    through :class:`_KVGradSum` when some kv head has several holders
+    (``utils.partitioning.kv_shared``) and gradients are on, else as
+    given."""
+    from ..utils.partitioning import kv_shared
+    if tp is None or not torch.is_grad_enabled() or \
+            not kv_shared(cfg, tp.size):
+        return p
+    a, b, ka, kb = tp.head_range(cfg)
+    hd, kv = cfg.head_dim, cfg.kv_heads
+    k = torch.arange(ka * hd, kb * hd)
+    cols = torch.cat([k, k + kv * hd])
+    return {name: _KVGradSum.apply(t, (b - a) * hd, cols, 2 * kv * hd,
+                                   tp.axis)
+            for name, t in p.items()}
 
 
 def check_decodable(cfg: TransformerConfig) -> None:
@@ -180,7 +237,7 @@ def check_decodable(cfg: TransformerConfig) -> None:
 
 
 def _moe_mlp(cfg: TransformerConfig, p_moe: Dict[str, Any],
-             h: torch.Tensor) -> torch.Tensor:
+             h: torch.Tensor, tp=None) -> torch.Tensor:
     """The decode paths' MoE MLP (JAX ``generation._moe_mlp``): the MoE
     layer's gating with a no-drop capacity (C = B * T: an incremental
     step cannot see the other positions a capacity limit would make it
@@ -188,8 +245,12 @@ def _moe_mlp(cfg: TransformerConfig, p_moe: Dict[str, Any],
     kernels with an int8 ``kernel_scale`` dequantize through
     :func:`_kernel_of`. The queues are formed by index, as
     ``moe.layer.MoE`` forms them; the experts are the JAX function's, the
-    GELU expert always tanh GELU, the SwiGLU one ``cfg.activation``."""
-    from ..moe.layer import _edense, combine, dispatch
+    GELU expert always tanh GELU, the SwiGLU one ``cfg.activation``.
+    Under TP (``tp``) the experts are this rank's column / row shards:
+    every rank gates the same tokens alike, the ``proj`` bias is added on
+    model rank 0 only, and the combined partial outputs are summed over
+    the model axis once."""
+    from ..moe.layer import _edense, combine, dispatch, tp_bias
     from ..moe.sharded_moe import route
     from .transformer import _ACTIVATIONS
     B, T, H = h.shape
@@ -206,8 +267,11 @@ def _moe_mlp(cfg: TransformerConfig, p_moe: Dict[str, Any],
         hh = act(_edense(q, ex["gate"])) * _edense(q, ex["fc"])
     else:
         hh = _ACTIVATIONS["gelu"](_edense(q, ex["fc"]))
-    out = _edense(hh, ex["proj"])
+    out = _edense(hh, tp_bias(ex["proj"], tp))
     y = combine(out.reshape(E * B * T, H), slots, r.weight, h.dtype)
+    if tp is not None:
+        from .. import comm
+        y = comm.tp_reduce_from(y, axis=tp.axis)
     return y.reshape(B, T, H)
 
 
@@ -348,7 +412,7 @@ def forward_with_cache(cfg: TransformerConfig, params: PyTree,
     if cfg.embed_ln:
         x = _layer_norm(x, params["ln_emb"], eps, rms)
 
-    slopes = (local_alibi_slopes(nh_all, tp, dev)
+    slopes = (local_alibi_slopes(nh_all, tp, cfg, dev)
               if cfg.pos_embed == "alibi" else None)
     windows = ([int(w) for w in cfg.layer_windows]
                if cfg.layer_windows is not None else [0] * L)
@@ -380,11 +444,9 @@ def forward_with_cache(cfg: TransformerConfig, params: PyTree,
                              cfg.rope_theta, inv_freq=inv_freq)
             k = apply_rotary(k, q_log, cfg.rotary_dim, cfg.rotary_interleaved,
                              cfg.rope_theta, inv_freq=inv_freq)
-        if kvh != nh:
-            # GQA: repeat kv to all heads BEFORE the cache write, so the
-            # cache keeps the JAX layout [L, B, nh, len, hd]
-            k = torch.repeat_interleave(k, nh // kvh, dim=1)
-            v = torch.repeat_interleave(v, nh // kvh, dim=1)
+        # GQA: repeat kv to all heads BEFORE the cache write, so the
+        # cache keeps the JAX layout [L, B, nh, len, hd]
+        k, v = expand_kv(k, cfg, tp), expand_kv(v, cfg, tp)
         if quant_kv:
             (kq, ks), (vq, vs) = kv_quantize(k), kv_quantize(v)
             k_all[li, :, :, write] = kq
@@ -420,7 +482,7 @@ def forward_with_cache(cfg: TransformerConfig, params: PyTree,
 
         def mlp(hin):
             if cfg.moe_experts > 0:
-                return _moe_mlp(cfg, p["moe"], hin)
+                return _moe_mlp(cfg, p["moe"], hin, tp)
             if cfg.gated_mlp:
                 g = act(dense(hin, p["mlp_gate"]))
                 return row(g * dense(hin, p["mlp_fc"]), p["mlp_proj"])

@@ -179,6 +179,11 @@ class PipelinedTransformer(nn.Module):
         if tp is not None:
             from ..utils.partitioning import check_tp_model
             check_tp_model(self.cfg, tp.size)
+            if self.moe:
+                raise NotImplementedError(
+                    "MoE under tensor parallelism in a pipelined model "
+                    "(pp x tp x ep) is not ported to deepspeed_tpu_torch "
+                    "yet (see ROADMAP.md)")
         self.tp = tp
         for blk in self.blocks.values():
             blk.tp = tp

@@ -577,7 +577,8 @@ def _sparse_block_attention(cfg: TransformerConfig, q, k, v, *, mask, bias,
                     if key in allowed and val is not None})
     heads = None
     if tp is not None:
-        heads = slice(tp.rank * H, (tp.rank + 1) * H)
+        a, b, _, _ = tp.head_range(cfg)
+        heads = slice(a, b)
     clean = (mask is None and bias is None and slopes is None
              and dropout_rate == 0.0 and not window and not cfg.attn_softcap)
     if clean:
@@ -682,7 +683,7 @@ class Block(nn.Module):
         noise is all that training changes there."""
         from ..ops.attention import HeadSlice, attention, dropout
         from .generation import (_col_in, _dense, _layer_norm, _row_dense,
-                                 local_alibi_slopes)
+                                 expand_kv, kv_grad_sum, local_alibi_slopes)
         cfg, tp = self.cfg, self.tp
         rate = cfg.dropout if dropout_seed is not None else 0.0
         gen = ((lambda site: site_generator(dropout_seed, site, x.device))
@@ -692,13 +693,14 @@ class Block(nn.Module):
         if nh % kv != 0:
             raise ValueError(f"num_heads {nh} not divisible by "
                              f"num_kv_heads {kv}")
-        nh_all = nh
+        nh_all, h0 = nh, 0
         if tp is not None:                      # this rank's heads
             nh, kv = tp.heads(cfg)
+            h0 = tp.head_range(cfg)[0]
         rms, eps = cfg.norm == "rmsnorm", cfg.layer_norm_eps
         act = _ACTIVATIONS[cfg.activation]
         h = x if cfg.post_ln else _layer_norm(x, self.ln1.p, eps, rms)
-        qkv = _dense(_col_in(h, tp), self.attn_qkv.p)
+        qkv = _dense(_col_in(h, tp), kv_grad_sum(self.attn_qkv.p, cfg, tp))
         q, k, v = torch.split(qkv, [nh * hd, kv * hd, kv * hd], dim=-1)
         to_heads = lambda t, n: t.reshape(B, S, n, hd).transpose(1, 2)
         q, k, v = to_heads(q, nh), to_heads(k, kv), to_heads(v, kv)
@@ -715,26 +717,24 @@ class Block(nn.Module):
                              cfg.rope_theta, inv_freq=inv_freq)
             k = apply_rotary(k, pos, cfg.rotary_dim, cfg.rotary_interleaved,
                              cfg.rope_theta, inv_freq=inv_freq)
-        if kv != nh:
-            # GQA: each k/v head serves nh / kv query heads (jnp.repeat);
-            # autograd sums dk and dv back onto the kv heads
-            k = torch.repeat_interleave(k, nh // kv, dim=1)
-            v = torch.repeat_interleave(v, nh // kv, dim=1)
+        # GQA: each k/v head serves nh / kv query heads (jnp.repeat);
+        # autograd sums dk and dv back onto the kv heads
+        k, v = expand_kv(k, cfg, tp), expand_kv(v, cfg, tp)
         bias = slopes = None
         if cfg.pos_embed == "alibi":
             if positions is None:   # slopes: the kernels build the bias
-                slopes = local_alibi_slopes(nh_all, tp, x.device)
+                slopes = local_alibi_slopes(nh_all, tp, cfg, x.device)
             else:                   # per-sample positions: materialized
                 bias = alibi_bias(nh_all, positions, positions)
                 if tp is not None:
-                    bias = bias[:, tp.rank * nh:(tp.rank + 1) * nh]
+                    bias = bias[:, h0:h0 + nh]
         probs_rng = gen("attn_probs")
         if probs_rng is not None and tp is not None:
             # the mask of the model's [B, nh, S, S] probabilities from the
             # 1-rank generator, this rank's heads cut out (JAX draws once
             # over the global heads, GSPMD shards it): t times the random
             # bits of the local mask, and each head its own mask
-            probs_rng = HeadSlice(probs_rng, tp.rank * nh, nh_all)
+            probs_rng = HeadSlice(probs_rng, h0, nh_all)
         if cfg.attention_impl == "sparse":
             out = _sparse_block_attention(
                 cfg, q, k, v, mask=attn_mask, bias=bias, slopes=slopes,
@@ -854,6 +854,8 @@ class Transformer(nn.Module):
         self.tp = tp
         for blk in self.blocks:
             blk.tp = tp
+            if hasattr(blk, "moe"):
+                blk.moe.tp = tp
 
     def _seeded_values(self, seed: int, gen_device, device=None):
         """(parameter name, f32 value) of ``Transformer(cfg, seed=seed,

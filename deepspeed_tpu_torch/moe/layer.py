@@ -30,6 +30,17 @@ own queues of Cg slots. Here:
   divide the tokens, which raises here (ROADMAP.md Queue 3);
 * with no mesh: one group, every expert local.
 
+Under tensor parallelism (``tp``, the ``TPContext`` that
+``Transformer.set_tp`` gives the layer) the expert kernels are this
+rank's shards by the ``experts/*`` rules: ``fc`` / ``gate`` column-
+parallel within each local expert, ``proj`` row-parallel. The tokens and
+the router are replicated over ``model``, so every model rank gates
+alike and its exchange runs within its own model index's expert group;
+the queues' gradients and the combine weights' are summed over
+``model`` (``comm.tp_copy_to``), the ``proj`` bias is added on model rank
+0 only, and the combined partial outputs go through one
+``comm.tp_reduce_from`` (the combine is linear).
+
 Queues are formed by index: each kept (token, choice) has a unique
 (expert, position) slot, every slot names the token that fills it (or a
 zero row), the queues are one ``index_select`` of the tokens and the
@@ -78,6 +89,20 @@ def _edense(x: torch.Tensor, p: Dict[str, torch.Tensor]) -> torch.Tensor:
     return y
 
 
+def tp_bias(p: Dict[str, torch.Tensor], tp) -> Dict[str, torch.Tensor]:
+    """A row-parallel expert ``proj`` leaf under TP: its (replicated)
+    bias added on model rank 0 only, as the partial sums are reduced
+    after the combine, and its gradient summed over the model axis, so
+    every rank holds the whole one. ``p`` itself without ``tp``."""
+    if tp is None or "bias" not in p:
+        return p
+    b = p["bias"]
+    if torch.is_grad_enabled():
+        from .. import comm
+        b = comm.tp_copy_to(b, axis=tp.axis)
+    return dict(p, bias=b if tp.rank == 0 else b * 0)
+
+
 class ExpertMLP(nn.Module):
     """The default expert, the transformer MLP: proj(gelu(fc(x))) with
     tanh GELU (flax ``nn.gelu``), E experts stacked: ``fc`` [E, H, F],
@@ -87,6 +112,7 @@ class ExpertMLP(nn.Module):
         super().__init__()
         self.fc = _Params(params["fc"])
         self.proj = _Params(params["proj"])
+        self.tp = None
 
     @property
     def num_local(self) -> int:
@@ -96,7 +122,7 @@ class ExpertMLP(nn.Module):
         """x [E, n, H] -> [E, n, H]: expert e applied to x[e]."""
         from ..models.transformer import _ACTIVATIONS
         return _edense(_ACTIVATIONS["gelu"](_edense(x, self.fc.p)),
-                       self.proj.p)
+                       tp_bias(self.proj.p, self.tp))
 
 
 class GatedExpertMLP(nn.Module):
@@ -110,6 +136,7 @@ class GatedExpertMLP(nn.Module):
         self.fc = _Params(params["fc"])
         self.proj = _Params(params["proj"])
         self.activation = activation
+        self.tp = None
 
     @property
     def num_local(self) -> int:
@@ -119,7 +146,7 @@ class GatedExpertMLP(nn.Module):
         from ..models.transformer import _ACTIVATIONS
         act = _ACTIVATIONS[self.activation]
         h = act(_edense(x, self.gate.p)) * _edense(x, self.fc.p)
-        return _edense(h, self.proj.p)
+        return _edense(h, tp_bias(self.proj.p, self.tp))
 
 
 def init_moe_params(hidden_size: int, num_experts: int, mlp_dim: int,
@@ -226,6 +253,16 @@ class MoE(nn.Module):
         self.experts = (GatedExpertMLP(ex, activation) if "gate" in ex
                         else ExpertMLP(ex))
 
+    @property
+    def tp(self):
+        """This rank's ``TPContext`` when the expert kernels are its
+        model-axis shards (module docstring), else None."""
+        return self.experts.tp
+
+    @tp.setter
+    def tp(self, tp) -> None:
+        self.experts.tp = tp
+
     def route(self, tokens: torch.Tensor, train: bool,
               generator: Optional[torch.Generator] = None, groups: int = 1
               ) -> Tuple[torch.Tensor, list]:
@@ -253,6 +290,14 @@ class MoE(nn.Module):
         G, exchange = gating_groups(T)
         aux, routes = self.route(tokens, train, generator, G)
         C = routes[0].capacity
+        tp = self.tp
+        weight = torch.cat([r.weight for r in routes])
+        if tp is not None:
+            # the expert path's tokens and combine weights: their
+            # gradients are rank-partial (column shards, partial outputs)
+            from .. import comm
+            tokens = comm.tp_copy_to(tokens, axis=tp.axis)
+            weight = comm.tp_copy_to(weight, axis=tp.axis)
         queues, slots = dispatch(tokens.to(self.dtype), routes, E)
         queues = queues.view(G, E, C, H)
         if G > 1:
@@ -262,8 +307,10 @@ class MoE(nn.Module):
         out = self._experts(queues, exchange)
         if G > 1:
             out = out.reshape(E, G, C, H).transpose(0, 1)
-        y = combine(out.reshape(G * E * C, H), slots,
-                    torch.cat([r.weight for r in routes]), self.dtype)
+        y = combine(out.reshape(G * E * C, H), slots, weight, self.dtype)
+        if tp is not None:
+            from .. import comm
+            y = comm.tp_reduce_from(y, axis=tp.axis)
         return y.reshape(B, S, H), aux.to(torch.float32)
 
     def _experts(self, queues: torch.Tensor, exchange: bool) -> torch.Tensor:

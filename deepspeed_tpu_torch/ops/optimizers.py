@@ -23,9 +23,9 @@ leaf's whole norms. A leaf of the JAX package's scan layout stacks every
 layer (``blocks/attn_qkv/kernel`` [L, ...]) where the port holds one
 tensor a layer, so the engine passes ``norm_groups`` (the leaf of each
 tensor) and the norms are summed over a leaf's tensors; where it hands
-LAMB ZeRO slabs, it also passes ``norm_sq_reduce``, which sums the slabs'
-squared norms over the ZeRO group (the JAX package gets both sums from
-XLA). The 1-bit family is
+LAMB ZeRO slabs, it also passes ``norm_sq_reduce``, which takes the slabs
+and sums their squared norms over the ZeRO group (the JAX package gets
+both sums from XLA). The 1-bit family is
 not ported yet: ``build_optimizer`` raises for it, naming ROADMAP.md.
 """
 
@@ -131,10 +131,10 @@ def lamb(lr: float = 1e-3,
     """LAMB with a per-tensor trust ratio clip(|p| / |u|, min_coeff,
     max_coeff) (1 where either norm is 0), u = m / (sqrt(v) + eps) + wd p,
     no bias correction, f32 moments. ``update(..., norm_sq_reduce=f,
-    norm_groups=g)``: ``f`` maps this rank's [n, 2] squared norms of (p,
-    u) to the whole tensors' (ZeRO slabs); ``g[i]`` is the leaf of tensor
-    i, whose norms are taken over all its tensors (default one leaf a
-    tensor)."""
+    norm_groups=g)``: ``f(ps, us)`` gives the [n, 2] squared norms of the
+    whole tensors of which this rank's ``ps`` and ``us`` are ZeRO slabs
+    (default: this rank's own); ``g[i]`` is the leaf of tensor i, whose
+    norms are taken over all its tensors (default one leaf a tensor)."""
     b1, b2 = betas
 
     def init(params):
@@ -156,12 +156,13 @@ def lamb(lr: float = 1e-3,
             if weight_decay != 0.0:
                 u = u + weight_decay * p32
             upds.append(u)
-            sq.append(torch.stack([p32.square().sum(), u.square().sum()]))
+            if norm_sq_reduce is None:
+                sq.append(torch.stack([p32.square().sum(),
+                                       u.square().sum()]))
         if not upds:
             return params, state
-        sq = torch.stack(sq)
-        if norm_sq_reduce is not None:
-            sq = norm_sq_reduce(sq)
+        sq = (torch.stack(sq) if norm_sq_reduce is None
+              else norm_sq_reduce(params, upds))
         if norm_groups is not None:
             idx = torch.as_tensor(norm_groups, device=sq.device)
             sq = torch.zeros((int(max(norm_groups)) + 1, 2), dtype=sq.dtype,

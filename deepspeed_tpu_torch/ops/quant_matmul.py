@@ -12,7 +12,9 @@ kernel takes any block that :func:`pack_kernel` makes), and
 accumulated in f32: each K-block's partial product is scaled once.
 
 * :func:`pack_kernel` / :func:`pack_decode_weights` — pack once at engine
-  construction (``serving.weight_dtype: "int8"``).
+  construction (``serving.weight_dtype: "int8"``); under tensor
+  parallelism a row-parallel shard off the scale grid packs at a finer
+  block with its whole blocks' scales (:func:`pack_row_shard`).
 * :func:`quant_matmul` — CUDA tensors launch ``csrc/quant_matmul.cu`` (or
   raise), one launch a call, for any N and K; CPU tensors run
   :func:`quant_matmul_reference`.
@@ -30,7 +32,8 @@ distributed shared memory, inside the same launch.
 from __future__ import annotations
 
 import ctypes
-from typing import Any, Dict, NamedTuple
+import functools
+from typing import Any, Dict, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -38,7 +41,7 @@ from ..quant_format import QUANT_BLOCK, block_quant
 from . import build
 
 __all__ = ["quant_matmul", "quant_matmul_reference", "pack_kernel",
-           "pack_decode_weights"]
+           "pack_row_shard", "pack_decode_weights"]
 
 _X_DTYPES = (torch.float32, torch.bfloat16)
 
@@ -53,27 +56,63 @@ def pack_kernel(w: torch.Tensor, block: int = QUANT_BLOCK):
             s.transpose(-1, -2).contiguous())
 
 
-def pack_decode_weights(params: Dict[str, Any], block: int = QUANT_BLOCK
+def pack_row_shard(w: torch.Tensor, offset: int, whole: int,
+                   axis: str = "model", block: int = QUANT_BLOCK):
+    """A row-parallel shard's blockwise int8 packing: ``w`` [K, N] holds
+    rows ``[offset, offset + K)`` of a [whole, N] leaf whose other rows
+    the other ranks of ``axis`` hold, and may start and end mid-block.
+    It packs at the scale block b = gcd(offset, K, ``block``), each
+    sub-block's scale its whole block's: the block's absmax all-reduced
+    with MAX over ``axis`` (every rank holding a part of it). The int8
+    values and the scales then equal the whole leaf's packing, cut, each
+    scale repeated over its block's b-row sub-blocks. Every rank of
+    ``axis`` makes the all-reduce, a shard on the grid too (b =
+    ``block``: :func:`pack_kernel`'s values), so uneven shards on both
+    sides of the grid make the same collectives."""
+    import math
+    K, N = w.shape
+    b = math.gcd(math.gcd(offset, K), block)
+    from .. import comm
+    wf = w.to(torch.float32).reshape(K // b, b, N)
+    amax = wf.abs().amax(dim=1)                          # [K / b, N]
+    # the whole block of each sub-block
+    blk = (offset + torch.arange(K // b, device=w.device) * b) // block
+    buf = torch.zeros(-(-whole // block), N, device=w.device)
+    buf.index_reduce_(0, blk, amax, "amax")
+    comm.all_reduce(buf, op=comm.ReduceOp.MAX, axis=axis)
+    a = buf.index_select(0, blk)
+    scale = torch.where(a == 0, torch.ones_like(a), a / 127.0)
+    q = torch.clamp(torch.round(wf / scale[:, None]), -127, 127)
+    return q.to(torch.int8).reshape(K, N).contiguous(), scale.contiguous()
+
+
+def pack_decode_weights(params: Dict[str, Any], block: int = QUANT_BLOCK,
+                        rows: Optional[Dict[str, Tuple[int, int]]] = None
                         ) -> Dict[str, Any]:
     """Pack a scan-layout parameter tree's dense kernels to blockwise int8:
     the direct matmul leaves of ``blocks`` (attn_qkv, attn_proj,
     mlp_fc/gate/proj) and ``lm_head``. Leaves that already carry an int8
-    form are left alone."""
-    def _pack(sub):
+    form are left alone. ``rows``: a tensor-parallel rank's row-parallel
+    leaves, ``{name: (row offset, whole rows)}``, packed by
+    :func:`pack_row_shard`."""
+    def _pack(sub, cut=None):
         if "kernel_scale" in sub or "kernel_qscale" in sub:
             return sub
         w = sub["kernel"]
+        pack = (functools.partial(pack_kernel, block=block) if cut is None
+                else functools.partial(pack_row_shard, offset=cut[0],
+                                       whole=cut[1], block=block))
         if w.dim() > 2:
             # one layer at a time: the f32 temporaries of one layer, not
             # of the whole stack
-            q0, s0 = pack_kernel(w[0], block)
+            q0, s0 = pack(w[0])
             q = q0.new_empty((w.shape[0],) + tuple(q0.shape))
             s = s0.new_empty((w.shape[0],) + tuple(s0.shape))
             q[0], s[0] = q0, s0
             for i in range(1, w.shape[0]):
-                q[i], s[i] = pack_kernel(w[i], block)
+                q[i], s[i] = pack(w[i])
         else:
-            q, s = pack_kernel(w, block)
+            q, s = pack(w)
         out = {k: v for k, v in sub.items() if k != "kernel"}
         out["kernel"], out["kernel_qscale"] = q, s
         return out
@@ -82,7 +121,7 @@ def pack_decode_weights(params: Dict[str, Any], block: int = QUANT_BLOCK
     blocks = dict(params["blocks"])
     for name, sub in blocks.items():
         if isinstance(sub, dict) and "kernel" in sub:
-            blocks[name] = _pack(sub)
+            blocks[name] = _pack(sub, (rows or {}).get(name))
     out["blocks"] = blocks
     if isinstance(params.get("lm_head"), dict) and "kernel" in params["lm_head"]:
         out["lm_head"] = _pack(params["lm_head"])

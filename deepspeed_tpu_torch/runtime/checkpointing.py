@@ -145,7 +145,8 @@ class Leaf:
         """This rank's piece as boxes of the whole leaf: (offsets in the
         whole, index into one part) for each. A slab is one box; a TP
         shard's segments (qkv's q, k and v columns) are one each, its
-        padding in none."""
+        padding and the kv columns a lower model rank also holds in
+        none."""
         ndim = self.parts[0].dim()
         whole = list(self.shape)[len(self._lead()):]
         # per dim: (local start, whole start, length) segments
@@ -164,7 +165,8 @@ class Leaf:
                 ext[dim] = size
             else:
                 dim = cut.dim % ndim
-                segs[dim] = [seg for seg in cut.segs if seg[2] > 0]
+                # a kv head several model ranks hold: its lowest holder's
+                segs[dim] = list(cut.owned_segs())
                 ext[dim] = cut.local
         out = []
 

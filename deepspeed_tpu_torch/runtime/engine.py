@@ -83,7 +83,10 @@ the in-tree losses the logits stay vocab-parallel (no rank forms [B, S,
 V]); any other loss_fn gets them gathered. The TP layers run whenever a
 process group is up and the rules are given, a model axis of one
 included; ``sharding_rules=None`` keeps every weight whole on every
-rank. MoE or sequence parallelism together with ``tp_size > 1`` raise.
+rank. MoE composes with it (the expert kernels' columns and rows over
+``model`` within each rank's experts, ``moe/layer.py``), and so does
+sequence parallelism (ring or Ulysses over each ``(data, model)``
+coordinate's ``seq`` group, on the rank's local heads).
 
 Run-side resilience (the JAX engine's hooks): the ``integrity``
 section's ``TrainingSentinel`` (rung 1 skips a step whose raw grad norm
@@ -398,12 +401,6 @@ class DeepSpeedEngine:
         ep_size = moe.ep_size if moe.enabled else 1
         tp_size = self.config.tensor_parallel.tp_size
         mcfg = getattr(model, "cfg", None)
-        if tp_size > 1 and (sp_size > 1 or moe.enabled or getattr(
-                mcfg, "moe_experts", 0) > 0):
-            raise NotImplementedError(
-                "tensor_parallel.tp_size > 1 together with "
-                + ("sequence parallelism" if sp_size > 1 else "MoE")
-                + " " + _LATER)
         if sharding_rules is not None:
             from ..models.transformer import TransformerConfig
             from ..utils.partitioning import check_tp_rules
@@ -1328,7 +1325,7 @@ class DeepSpeedEngine:
             if self.optimizer.name == "lamb":
                 kw["norm_groups"] = self._leaf_groups()
                 if self.dp is not None:
-                    kw["norm_sq_reduce"] = self.dp.reduce_leaf_sq
+                    kw["norm_sq_reduce"] = self.dp.leaf_sq
             self.optimizer.update(grads, self.opt_state, master,
                                   self.step_count, lr_t=lr, **kw)
             if self.dp is not None:
@@ -1370,8 +1367,9 @@ class DeepSpeedEngine:
                     if before is not None else
                     torch.zeros(len(master), device=self.device))
             else:
-                sqs.append(torch.stack([m.to(torch.float32).square().sum()
-                                        for m in master]))
+                sqs.append(self.dp.owned_sq(master) if self.dp is not None
+                           else torch.stack([m.to(torch.float32).square()
+                                             .sum() for m in master]))
         sq = torch.stack(sqs)
         if self.dp is not None:
             from .. import comm

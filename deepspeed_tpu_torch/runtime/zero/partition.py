@@ -146,6 +146,14 @@ class ZeroParam:
         self.pdim = policy.param_dim(dshape, is_expert, **kw)
         self.mdim = policy.master_dim(dshape, is_expert, **kw)
         self.gdim = policy.grad_dim(dshape, is_expert, **kw)
+        if self.tp is not None and self.tp.local % self.world:
+            d = self.tp.dim % len(shape)
+            if d in (self.pdim, self.mdim, self.gdim):
+                raise NotImplementedError(
+                    f"'{name}': its TP shard of {self.tp.local} along dim "
+                    f"{d} (uneven heads) does not split into {self.world} "
+                    "ZeRO slabs; a ZeRO split of an uneven TP shard is not "
+                    "ported to deepspeed_tpu_torch yet (see ROADMAP.md)")
         self.aliased = False
 
     @property
@@ -175,9 +183,18 @@ class ZeroParam:
         if self.tp is not None:
             from ...utils.partitioning import tp_assemble
             n = len(self.tp_maps)
+            # shards of uneven heads differ in extent: gathered padded to
+            # the widest, each cut back to its own
+            d = self.tp.dim % p.dim()
+            most = max(m.local for m in self.tp_maps)
+            if p.shape[d] < most:
+                pad = list(p.shape)
+                pad[d] = most - p.shape[d]
+                p = torch.cat([p, p.new_zeros(pad)], d)
             pieces = comm.all_gather(p, axis="model", tiled=False,
                                      gather_dim=0).unbind(0)
-            return tp_assemble(pieces[:n], self.tp_maps)
+            p = tp_assemble([pc.narrow(d, 0, m.local) for pc, m in
+                             zip(pieces[:n], self.tp_maps)], self.tp_maps)
         if self.eslab is None:
             return p
         return comm.all_gather(p, axis="expert", gather_dim=0)
@@ -301,6 +318,24 @@ class ZeroPartition:
                                   or (n in shared and self.pipe_rank != 0)
                                   for e, n in zip(self.entries, names)],
                                  device=device)
+        # a TP leaf with kv heads that several model ranks hold: the
+        # weight of its slab's positions (along mdim, as the step's grads
+        # and the master are cut) in every norm, 0 where a lower model
+        # rank counts them; else None (the norms below apply it)
+        self._owned = [self._owned_weight(e) for e in self.entries]
+
+    def _owned_weight(self, e: ZeroParam) -> Optional[torch.Tensor]:
+        m = None if e.tp is None else e.tp.owned_mask()
+        if m is None:
+            return None
+        nd = len(e.shape)
+        d = e.tp.dim % nd
+        shape = [1] * nd
+        shape[d] = m.numel()
+        m = m.view(shape)
+        if e.mdim is not None and e.mdim % nd == d:
+            m = slab(m, d, e.rank, e.world)
+        return m.to(self.device)
 
     # ------------------------------------------------------------ placement
 
@@ -522,7 +557,9 @@ class ZeroPartition:
         batch, mean of ``auxes`` over the batch ranks or None) from one
         all-reduce of this rank's partials, read to the host once."""
         n = len(grads)
-        sq = torch.stack(torch._foreach_norm(grads)).square()
+        normed = [g if w is None else g * w
+                  for g, w in zip(grads, self._owned)]
+        sq = torch.stack(torch._foreach_norm(normed)).square()
         # a replicated leaf counts on its group's rank 0
         sq = torch.where(self._rep, torch.zeros_like(sq), sq)
         bad = torch.stack([~torch.isfinite(g).all() for g in grads]).sum()
@@ -532,7 +569,9 @@ class ZeroPartition:
             loss = torch.zeros_like(loss)
         parts = [sq, bad.to(sq.dtype).view(1), loss.view(1)]
         if auxes:
-            parts.append(torch.stack(auxes).mean().view(1))
+            # and one router: the aux counts on model rank 0
+            aux = torch.stack(auxes).mean().view(1)
+            parts.append(torch.zeros_like(aux) if self.model_rank else aux)
         packed = torch.cat(parts)
         comm.all_reduce(packed, op=comm.ReduceOp.SUM, axis=self.step_axes)
         total = packed[:n].sum()
@@ -545,10 +584,23 @@ class ZeroPartition:
         finite_h, sq_h, loss_h, *aux = torch.stack(host).tolist()
         return finite_h, sq_h, loss_h, (aux[0] if aux else None)
 
-    def reduce_leaf_sq(self, sq: torch.Tensor) -> torch.Tensor:
-        """[n, k] per-leaf squared norms of this rank's optimizer slabs ->
-        the whole leaves' (a replicated leaf counted once): LAMB's trust
-        ratio norms."""
+    def owned_sq(self, tensors: List[torch.Tensor]) -> torch.Tensor:
+        """[n] f32 squared norms of this rank's slabs ``tensors`` (one an
+        entry, cut as the masters are), each over the positions this rank
+        counts: a KV head that several model ranks hold counts on the
+        lowest (``TPShard.owned_mask``). The sentinel's param norm, and
+        LAMB's through :meth:`leaf_sq`."""
+        return torch.stack([
+            (t.to(torch.float32) if w is None
+             else t.to(torch.float32) * w).square().sum()
+            for t, w in zip(tensors, self._owned)])
+
+    def leaf_sq(self, ps: List[torch.Tensor],
+                us: List[torch.Tensor]) -> torch.Tensor:
+        """LAMB's ``norm_sq_reduce``: this rank's slabs of the parameters
+        and of their updates -> the whole leaves' [n, 2] squared norms
+        (a replicated leaf counted once)."""
+        sq = torch.stack([self.owned_sq(ps), self.owned_sq(us)], dim=1)
         sq = torch.where(self._rep[:, None], torch.zeros_like(sq), sq)
         return comm.all_reduce(sq.contiguous(), op=comm.ReduceOp.SUM,
                                axis=self.step_axes)

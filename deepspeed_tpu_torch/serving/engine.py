@@ -170,8 +170,8 @@ class ServingEngine:
             # f32 scales; the decode matmuls then run the quant_matmul
             # kernel and never materialize a full-precision weight
             from ..ops.quant_matmul import pack_decode_weights
-            _check_row_blocks(self.params, tp)
-            self.params = pack_decode_weights(self.params)
+            self.params = pack_decode_weights(self.params,
+                                              rows=_row_cuts(cfg, tp))
         self._shared = shared if shared is not None else SharedPagedState(
             cfg, serving, dtype=kv_dtype, device=self.device, tp=tp)
         self.scheduler = Scheduler(self.pool, serving.max_queue,
@@ -685,22 +685,25 @@ class ServingEngine:
         seq.req._finish(FINISHED)
 
 
-def _check_row_blocks(params, tp) -> None:
-    """Blockwise int8 packs each rank's shard: a row-parallel shard (the
-    attention and MLP projections' K / t rows) packs as the whole leaf's
-    packing cut there only in whole scale blocks."""
-    from ..quant_format import QUANT_BLOCK
+def _row_cuts(cfg, tp):
+    """A tensor-parallel rank's row-parallel leaves as
+    ``pack_decode_weights`` takes them, ``{name: (row offset, whole
+    rows)}`` (None at one rank): each packs as the whole leaf's blockwise
+    packing cut, at a finer scale block where its rows are off the grid
+    (``ops.quant_matmul.pack_row_shard``)."""
+    from ..utils.partitioning import spec_for, tp_shard
     if tp is None or tp.size == 1:
-        return
-    for name in ("attn_proj", "mlp_proj"):
-        sub = params["blocks"].get(name)
-        if isinstance(sub, dict) and "kernel" in sub and \
-                sub["kernel"].shape[-2] % QUANT_BLOCK:
-            raise NotImplementedError(
-                f"serving.weight_dtype int8 under tp_size {tp.size}: "
-                f"{name}'s {sub['kernel'].shape[-2]} rows a rank are not "
-                f"whole scale blocks of {QUANT_BLOCK} (is not ported to "
-                "deepspeed_tpu_torch yet; see ROADMAP.md)")
+        return None
+    rules = cfg.tp_rules()
+    out = {}
+    for name, whole in (("attn_proj", cfg.num_heads * cfg.head_dim),
+                        ("mlp_proj", cfg.mlp_dim)):
+        path = f"blocks/{name}/kernel"
+        sh = tp_shard(path, (whole, cfg.hidden_size), spec_for(path, rules),
+                      cfg, tp.rank, tp.size)
+        if sh is not None:
+            out[name] = (sh.segs[0][1], whole)
+    return out
 
 
 def _to_device(tree, device):

@@ -23,7 +23,7 @@ import numpy as np
 import torch
 
 from ..models.generation import (_dense, _layer_norm, _moe_mlp, _row_dense,
-                                 check_decodable, lm_logits,
+                                 check_decodable, expand_kv, lm_logits,
                                  local_alibi_slopes, tp_embedding)
 from ..models.transformer import (_ACTIVATIONS, TransformerConfig,
                                   apply_rotary, layer_params)
@@ -112,7 +112,7 @@ def paged_forward(cfg: TransformerConfig,
     if cfg.embed_ln:
         x = _layer_norm(x, params["ln_emb"], eps, rms)
 
-    slopes = (local_alibi_slopes(nh_all, tp, dev)
+    slopes = (local_alibi_slopes(nh_all, tp, cfg, dev)
               if cfg.pos_embed == "alibi" else None)
     windows = ([int(w) for w in cfg.layer_windows]
                if cfg.layer_windows is not None else [0] * L)
@@ -147,11 +147,9 @@ def paged_forward(cfg: TransformerConfig,
                              cfg.rope_theta, inv_freq=inv_freq)
             k = apply_rotary(k, pos, cfg.rotary_dim, cfg.rotary_interleaved,
                              cfg.rope_theta, inv_freq=inv_freq)
-        if kvh != nh:
-            # GQA: repeat kv to full heads before the pool write, so the
-            # pool stays [*, nh, ...] and the paged kernel applies unchanged
-            k = torch.repeat_interleave(k, nh // kvh, dim=1)
-            v = torch.repeat_interleave(v, nh // kvh, dim=1)
+        # GQA: repeat kv to full heads before the pool write, so the
+        # pool stays [*, nh, ...] and the paged kernel applies unchanged
+        k, v = expand_kv(k, cfg, tp), expand_kv(v, cfg, tp)
         # one scatter per layer: [B, nh, T, hd] -> rows [nh, B*T, hd] into
         # the layer's flat slots
         k_rows = k.permute(1, 0, 2, 3).reshape(nh, B * T, hd)
@@ -176,7 +174,7 @@ def paged_forward(cfg: TransformerConfig,
 
         def mlp(hin):
             if cfg.moe_experts > 0:
-                return _moe_mlp(cfg, p["moe"], hin)
+                return _moe_mlp(cfg, p["moe"], hin, tp)
             if cfg.gated_mlp:
                 g = act(dense(hin, p["mlp_gate"]))
                 return row(g * dense(hin, p["mlp_fc"]), p["mlp_proj"])

@@ -13,11 +13,18 @@ table (:func:`check_tp_rules`).
 A rank's shard of a leaf is not always the contiguous slice its spec
 names (:func:`tp_shard`):
 
-* the fused ``attn_qkv`` columns: rank r of t holds its own heads, the
-  columns of q heads ``[r nh/t, (r+1) nh/t)``, then the same share of the
-  k heads' columns and of the v heads' (GSPMD splits the columns
-  contiguously and reshards after the split; a Megatron rank computes its
-  heads whole);
+* the fused ``attn_qkv`` columns: rank r of t holds its own heads
+  (:func:`head_split`): the columns of q heads ``[a_r, b_r)``, balanced
+  (71 over 4: 18, 18, 18, 17), then the columns of the k heads those q
+  heads read, ``[a_r // g, (b_r - 1) // g]`` with g = nh / kv, and the
+  same v heads' (GSPMD splits the columns contiguously and reshards after
+  the split; a Megatron rank computes its heads whole). A kv head that
+  several ranks read (multi-query attention, kv % t != 0, or a rank
+  straddling two groups) is held by each of them: a replicated piece
+  whose gradients are rank-partial, summed over exactly its holders
+  (:func:`kv_grad_sum`), written to a checkpoint and counted in the grad
+  norm by its lowest holder only (``TPShard.shared``). The row-parallel
+  ``attn_proj`` rows follow the q heads;
 * the vocab dim (``wte/embedding`` rows, ``lm_head/kernel`` columns):
   ceil(V / t) a rank, the last rank's short shard padded with zero rows
   locally (GSPMD pads too); padded rows are never looked up and their
@@ -30,6 +37,7 @@ reshard on load) goes through :class:`TPShard`'s segments.
 from __future__ import annotations
 
 import dataclasses
+import math
 import re
 from typing import Any, Dict, Optional, Sequence, Tuple
 
@@ -110,6 +118,27 @@ def check_tp_rules(rules, cfg, table=None
     return want
 
 
+def head_split(nh: int, kv: int, rank: int, size: int
+               ) -> Tuple[int, int, int, int]:
+    """(a, b, ka, kb): rank ``rank`` of ``size`` computes query heads
+    ``[a, b)``, balanced (the first nh % size ranks one more), and holds
+    kv heads ``[ka, kb)``, the ones those query heads read (query head i
+    reads kv head i // (nh / kv))."""
+    base, extra = divmod(nh, size)
+    a = rank * base + min(rank, extra)
+    b = a + base + (1 if rank < extra else 0)
+    g = nh // kv
+    return a, b, a // g, (b - 1) // g + 1
+
+
+def kv_shared(cfg, size: int) -> bool:
+    """Whether some kv head is held by more than one of ``size`` model
+    ranks (its gradient then sums over its holders)."""
+    spans = [head_split(cfg.num_heads, cfg.kv_heads, r, size)[2:]
+             for r in range(size)]
+    return any(spans[r][0] < spans[r - 1][1] for r in range(1, size))
+
+
 @dataclasses.dataclass(frozen=True)
 class TPContext:
     """This rank's place on the mesh's ``model`` axis: its index ``rank``
@@ -121,32 +150,37 @@ class TPContext:
     vocab: int
     axis: str = "model"
 
+    def head_range(self, cfg) -> Tuple[int, int, int, int]:
+        """(a, b, ka, kb) of :func:`head_split`: this rank's query heads
+        ``[a, b)`` and kv heads ``[ka, kb)``."""
+        return head_split(cfg.num_heads, cfg.kv_heads, self.rank, self.size)
+
     def heads(self, cfg) -> Tuple[int, int]:
         """(query heads, kv heads) of this rank."""
-        return cfg.num_heads // self.size, cfg.kv_heads // self.size
+        a, b, ka, kb = self.head_range(cfg)
+        return b - a, kb - ka
+
+
+def kv_index(cfg, tp) -> Optional[torch.Tensor]:
+    """For each local query head, the local kv head it reads; None where
+    that is ``repeat_interleave``'s pattern (every kv head read by nh / kv
+    query heads in turn, as on one rank and at any even split)."""
+    nh, kv = cfg.num_heads, cfg.kv_heads
+    g = nh // kv
+    a, b, ka, _ = ((0, nh, 0, kv) if tp is None else tp.head_range(cfg))
+    if a % g == 0 and b % g == 0:
+        return None
+    return torch.arange(a, b) // g - ka
 
 
 def check_tp_model(cfg, size: int) -> None:
     """Raise for the model shapes the port's TP layers do not take at
-    ``size`` model ranks: heads that ``size`` does not divide (GSPMD pads
-    them; the port would need kv-head replication, ROADMAP.md Queue 3),
-    MoE and sequence-parallel attention (later slices)."""
-    if cfg.num_heads % size:
-        raise NotImplementedError(
-            f"num_heads {cfg.num_heads} % tp_size {size} != 0: uneven "
-            "heads over the model axis " + _NOT_PORTED)
-    if cfg.kv_heads % size:
-        raise NotImplementedError(
-            f"kv_heads {cfg.kv_heads} % tp_size {size} != 0: kv-head "
-            "replication over the model axis " + _NOT_PORTED)
-    if cfg.moe_experts > 0:
-        raise NotImplementedError(
-            "MoE under tensor parallelism (the experts/* rules) "
-            + _NOT_PORTED)
-    if cfg.attention_impl in ("ring", "ulysses"):
-        raise NotImplementedError(
-            "sequence parallelism together with tensor parallelism "
-            + _NOT_PORTED)
+    ``size`` model ranks: fewer query heads than ranks (a rank would
+    compute no head)."""
+    if cfg.num_heads < size:
+        raise ValueError(
+            f"num_heads {cfg.num_heads} < tp_size {size}: a model rank "
+            "would hold no attention head")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -162,6 +196,26 @@ class TPShard:
     segs: Tuple[Tuple[int, int, int], ...]
     local: int
     whole: int
+    # per segment: True where a lower model rank holds the same whole
+    # positions (a shared kv head); empty: none shared
+    shared: Tuple[bool, ...] = ()
+
+    def owned_segs(self) -> Tuple[Tuple[int, int, int], ...]:
+        """The non-empty segments this rank writes and counts (the
+        shared ones are their lowest holder's)."""
+        flags = self.shared or (False,) * len(self.segs)
+        return tuple(sg for sg, sh in zip(self.segs, flags)
+                     if sg[2] > 0 and not sh)
+
+    def owned_mask(self) -> Optional[torch.Tensor]:
+        """A [local] f32 weight along ``dim``, 0 at shared positions;
+        None when nothing is shared."""
+        if not any(self.shared):
+            return None
+        m = torch.zeros(self.local)
+        for ls, _, n in self.owned_segs():
+            m[ls:ls + n] = 1.0
+        return m
 
     def take(self, whole: torch.Tensor) -> torch.Tensor:
         """This rank's shard of the whole tensor (a copy where it pads or
@@ -208,21 +262,37 @@ def tp_shard(path: str, shape: Sequence[int], spec, cfg, rank: int,
             and i >= offs]
     if not dims:
         return None
-    if any(e is not None and e not in ("model", "pipe") for e in spec):
+    if any(e is not None and e not in ("model", "pipe", "expert")
+           for e in spec):
         raise NotImplementedError(
-            f"'{path}': a spec over other axes than 'model' ({spec}) under "
-            "tensor parallelism " + _NOT_PORTED)
+            f"'{path}': a spec over other axes than 'model' and 'expert' "
+            f"({spec}) under tensor parallelism " + _NOT_PORTED)
     dim = dims[0]
     n = int(shape[dim])
+    nh, kv, hd = cfg.num_heads, cfg.kv_heads, cfg.head_dim
     if path.endswith("attn_qkv/kernel") or path.endswith("attn_qkv/bias"):
-        nh, kv, hd = cfg.num_heads, cfg.kv_heads, cfg.head_dim
         if n != (nh + 2 * kv) * hd:
             raise ValueError(f"'{path}' of {tuple(shape)}: {n} columns, "
                              f"expected {(nh + 2 * kv) * hd}")
-        ql, kl = nh // size * hd, kv // size * hd
-        segs = ((0, rank * ql, ql), (ql, nh * hd + rank * kl, kl),
-                (ql + kl, (nh + kv) * hd + rank * kl, kl))
-        return TPShard(dim, segs, ql + 2 * kl, n)
+        a, b, ka, kb = head_split(nh, kv, rank, size)
+        # kv heads [ka, ks) are also the rank below's (its last one)
+        ks = ka
+        if rank > 0 and head_split(nh, kv, rank - 1, size)[3] > ka:
+            ks = ka + 1
+        ql, kl = (b - a) * hd, (kb - ka) * hd
+        segs, shared = [(0, a * hd, ql)], [False]
+        for base, lo in ((nh * hd, ql), ((nh + kv) * hd, ql + kl)):
+            sh = (ks - ka) * hd
+            segs += [(lo, base + ka * hd, sh),
+                     (lo + sh, base + ks * hd, kl - sh)]
+            shared += [True, False]
+        keep = [i for i, sg in enumerate(segs) if sg[2] > 0]
+        shared = tuple(shared[i] for i in keep)
+        return TPShard(dim, tuple(segs[i] for i in keep), ql + 2 * kl, n,
+                       shared if any(shared) else ())
+    if path.endswith("attn_proj/kernel") and n == nh * hd:
+        a, b, _, _ = head_split(nh, kv, rank, size)
+        return TPShard(dim, ((0, a * hd, (b - a) * hd),), (b - a) * hd, n)
     if _vocab_dim(path) == dim:
         c = -(-n // size)
         lo = min(rank * c, n)

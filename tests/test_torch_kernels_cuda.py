@@ -967,3 +967,62 @@ def test_block_sparse_routes_launch_on_the_card(dev):
     q2 = torch.randn(1, 4, 512, 64, device=dev).double()
     with pytest.raises(ValueError, match="tile"):
         tbs.block_sparse_attention_fwd(q2, q2, q2, layout, 64)
+
+
+# ------------------------- the rest of TP: uneven heads, off-grid int8 rows
+
+
+@pytest.mark.parametrize("nh", [17, 18])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_attention_kernels_uneven_head_shards(dev, nh, dtype):
+    """A Falcon-7B rank at tp 4 (18 or 17 query heads of 64 over its one
+    KV head, repeated before the kernels): paged, decode and the flash
+    forward and backward against their plain versions."""
+    g = torch.Generator().manual_seed(nh)
+    rep = lambda t, d: t.expand(*t.shape[:d], nh, *t.shape[d + 1:]).contiguous()
+    q, k, v, bt, lens = _pa(dev, dtype, nh=1, hd=64)
+    q = torch.randn(q.shape[0], nh, 1, 64, generator=g).to(dev, dtype)
+    k, v = rep(k, 1), rep(v, 1)
+    out = tpa.paged_attention(q, k, v, bt, lens, layer_idx=1)
+    ref = tpa.paged_attention_reference(*_f32(q, k, v), bt, lens, layer_idx=1)
+    live = lens > 0
+    _hold(out[live], ref[live], dtype == torch.float32)
+    kc = rep(torch.randn(2, 3, 1, 600, 64, generator=g).to(dev, dtype), 2)
+    vc = rep(torch.randn(2, 3, 1, 600, 64, generator=g).to(dev, dtype), 2)
+    qd = torch.randn(3, nh, 1, 64, generator=g).to(dev, dtype)
+    _hold(tda.decode_attention(qd, kc, vc, 500, layer_idx=1),
+          tda.decode_attention_reference(*_f32(qd, kc[1], vc[1]), 500),
+          dtype == torch.float32)
+    S = 256
+    qf = torch.randn(2, nh, S, 64, generator=g).to(dev, dtype)
+    kf = rep(torch.randn(2, 1, S, 64, generator=g).to(dev, dtype), 1)
+    vf = rep(torch.randn(2, 1, S, 64, generator=g).to(dev, dtype), 1)
+    do = torch.randn(2, nh, S, 64, generator=g).to(dev, dtype)
+    o, lse = tfa.flash_attention_fwd(qf, kf, vf, causal=True)
+    ro, rlse = tfa.flash_attention_reference(*_f32(qf, kf, vf), causal=True)
+    _hold(o, ro, dtype == torch.float32)
+    torch.testing.assert_close(lse, rlse, atol=F32_TOL, rtol=0)
+    grads = tfa.flash_attention_bwd(qf, kf, vf, o, lse, do, causal=True)
+    refs = tfa.flash_attention_bwd_reference(*_f32(qf, kf, vf, o), lse,
+                                             do.float(), causal=True)
+    torch.cuda.synchronize()
+    for out, ref in zip(grads, refs):
+        _hold(out, ref, dtype == torch.float32, floor=2.0 ** -10)
+
+
+@pytest.mark.parametrize("K,N,block", [(1408, 2048, 128), (1152, 4544, 128),
+                                       (1088, 4544, 64), (4544, 4544, 64)])
+@pytest.mark.parametrize("M", [8, 96])
+def test_quant_matmul_kernel_off_grid_row_shards(dev, K, N, block, M):
+    """A tensor-parallel rank's row shard off the 256-row grid, packed at
+    the finer block (llama-1.1b's mlp_proj at tp 4; Falcon-7B's attn_proj
+    and mlp_proj at tp 4): the kernel against its plain version, and two
+    calls bit for bit."""
+    x, q, s = _qm_inputs(dev, M, K, N, torch.bfloat16, block)
+    out = tqm.quant_matmul(x, q, s)
+    again = tqm.quant_matmul(x, q, s)
+    ref = tqm.quant_matmul_reference(x, q, s)
+    torch.cuda.synchronize()
+    assert (out.float() - ref.float()).abs().max().item() <= \
+        2 ** -7 * ref.float().abs().max().item()
+    assert torch.equal(out, again)

@@ -81,9 +81,28 @@ ARCHS = {
     "bert": dict(BASE, vocab_size=256, causal=False, post_ln=True,
                  embed_ln=True, token_type_vocab=2, mlm_head=True,
                  activation="gelu_exact"),
+    # uneven query heads over one kv head (multi-query attention): at tp 2
+    # rank 0 computes q heads 0-1 and rank 1 head 2, both read kv head 0
+    # (its gradient summed over the two holders); biased qkv, rotary,
+    # SwiGLU; every row-parallel shard off the int8 scale grid
+    "mqa": dict(BASE, vocab_size=256, hidden_size=48, num_heads=3,
+                num_kv_heads=1, pos_embed="rotary", rotary_interleaved=False,
+                norm="rmsnorm", gated_mlp=True, activation="silu",
+                mlp_dim_override=96),
+    # mqa at head dim 128: at tp 2 rank 0's attn_proj shard (rows 0-255)
+    # lies on the 256-row int8 scale grid and rank 1's (256-383) is off
+    # it; both mlp_proj shards (384 rows each) are off it
+    "mqa128": dict(BASE, vocab_size=256, hidden_size=384, num_heads=3,
+                   num_kv_heads=1, pos_embed="rotary",
+                   rotary_interleaved=False, norm="rmsnorm", gated_mlp=True,
+                   activation="silu", mlp_dim_override=768),
 }
 # the archs of the forward / generate / serve legs
 INFER = ("gpt2", "llama")
+# the uneven-head arch's legs (the same worker; its shard shapes differ)
+UNEVEN = ("mqa",)
+# the archs served with int8 weights alone
+W8 = ("mqa128",)
 
 
 def _jax_tp(arch):
@@ -259,11 +278,20 @@ def test_tp_raises_name_roadmap():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tpart.check_tp_rules(rules, tcfg)
     assert tpart.check_tp_rules(None, tcfg) is None
-    for over in (dict(num_heads=3, num_kv_heads=3, hidden_size=48),
-                 dict(num_kv_heads=1), dict(moe_experts=2),
-                 dict(attention_impl="ring")):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tpart.check_tp_model(dataclasses.replace(tcfg, **over), 2)
+    # uneven query heads, kv-head replication, MoE and ring attention
+    # under TP are taken now: each model rank gets its head map
+    for over, want in (
+            (dict(num_heads=3, num_kv_heads=3, hidden_size=48),
+             [(0, 2, 0, 2), (2, 3, 2, 3)]),
+            (dict(num_kv_heads=1), [(0, 2, 0, 1), (2, 4, 0, 1)]),
+            (dict(moe_experts=2), [(0, 2, 0, 1), (2, 4, 1, 2)]),
+            (dict(attention_impl="ring"), [(0, 2, 0, 1), (2, 4, 1, 2)])):
+        cfg = dataclasses.replace(tcfg, **over)
+        assert tpart.check_tp_model(cfg, 2) is None
+        assert [tpart.TPContext(r, 2, V).head_range(cfg)
+                for r in range(2)] == want
+    with pytest.raises(ValueError, match="no attention head"):
+        tpart.check_tp_model(tcfg, 8)
     # a foreign table raises at initialize and init_inference too
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         deepspeed_tpu_torch.init_inference(
@@ -391,6 +419,13 @@ for arch, spec in plan.get("infer", {}).items():
         o["serve"] = srv.generate_batch(plan["prompts"], plan["new"])
         o["serve_digest"] = hashlib.sha256("".join(digests).encode()
                                            ).hexdigest()
+        if dt == "float32":
+            # blockwise int8 weights: every row shard here is off the
+            # 256-row scale grid
+            o["serve_w8"] = eng.serve(dict(plan["serving"],
+                                           weight_dtype="int8")
+                                      ).generate_batch(plan["prompts"],
+                                                       plan["new"])
         out[dt] = o
     eng = ds.init_inference(cfg, {"dtype": "float32", "tensor_parallel": {
         "tp_size": world}}, model_parameters=params_from_jax(jp),
@@ -402,6 +437,15 @@ for arch, spec in plan.get("infer", {}).items():
     out["loaded_generate"] = eng.generate(ids, max_new_tokens=plan["new"]
                                           ).tolist()
     res["arch"][arch] = out
+
+res["w8"] = {}
+for arch, spec in plan.get("w8", {}).items():
+    cfg = tcfg(spec["model"])
+    eng = ds.init_inference(cfg, {"dtype": "float32", "tensor_parallel": {
+        "tp_size": world}}, model_parameters=params_from_jax(tree(
+        spec["params"])), sharding_rules=cfg.tp_rules(), device="cpu")
+    res["w8"][arch] = eng.serve(dict(plan["serving"], weight_dtype="int8")
+                                ).generate_batch(plan["prompts"], plan["new"])
 
 def batch_of(seed, tb, seq, masked):
     rng = np.random.default_rng(seed)
@@ -443,12 +487,19 @@ for key, run in plan.get("runs", {}).items():
     grads = {}
     step_grads = eng.dp.step_grads
 
+    qkv = {}
+
     def keep_grads(denom, step_grads=step_grads):
         out = step_grads(denom)
         if not grads:
             for e, g in zip(eng.dp.entries, out):
                 if e.tp is None:
                     grads[names[id(e.param)]] = g.tolist()
+                elif run.get("qkv_grads") and "attn_qkv" in \
+                        names[id(e.param)]:
+                    qkv[names[id(e.param)]] = {
+                        "grad": g.tolist(), "segs": e.tp.segs,
+                        "shared": e.tp.shared}
         return out
     eng.dp.step_grads = keep_grads
     ev = {}
@@ -471,7 +522,7 @@ for key, run in plan.get("runs", {}).items():
         ops.append(ds.comm.op_counts())
         traj.append([m["loss"], m["grad_norm"]])
     params = dict(eng.module.named_parameters())
-    o = {"traj": traj, "ops": ops[0], "rep_grads": grads,
+    o = {"traj": traj, "ops": ops[0], "rep_grads": grads, "qkv": qkv,
          "rep_digest": {n: hashlib.sha256(params[n].detach().numpy()
                                           .tobytes()).hexdigest()
                         for n in rep},
@@ -498,7 +549,8 @@ def _run(tmp, name, world, plan):
     plan = dict(plan, dir=str(tmp), ids=_ids().tolist(), new=NEW,
                 serving=SERVING, prompts=PROMPTS, vocab=V, seq=S)
     (tmp / f"{name}.json").write_text(json.dumps(plan))
-    outs = _spawn(WORKER, world, tmp, name, args=[tmp / f"{name}.json"])
+    outs = _spawn(WORKER, world, tmp, name, args=[tmp / f"{name}.json"],
+                  timeout=300)
     ranks = []
     for rc, out in outs:
         assert rc == 0, out[-4000:]
@@ -537,8 +589,19 @@ RUNS_A = {
 }
 
 
+def _lamb(config):
+    """``config`` with LAMB in place of AdamW (per-leaf trust ratios)."""
+    return dict(config, optimizer={"type": "LAMB",
+                                   "params": {"lr": 3e-3,
+                                              "weight_decay": 0.01}})
+
+
 def _fused(run):
     return dict(fused_loss=True, loss_chunk=8) if run.get("fused") else {}
+
+
+# the two-rank spawn's directory (its sharded save)
+_TWO_DIR = []
 
 
 @pytest.fixture(scope="module")
@@ -546,11 +609,13 @@ def two(tmp_path_factory):
     tmp = tmp_path_factory.mktemp("tp_two")
     from deepspeed_tpu_torch.runtime.checkpointing import save_tree
     infer = {}
-    for arch in INFER:
+    for arch in INFER + UNEVEN:
         ck = str(tmp / f"{arch}_model_states.npz")
         save_tree(params_from_jax(_params(arch)), ck)
         infer[arch] = {"model": _fields(arch),
                        "params": _save_params(tmp, arch), "ckpt": ck}
+    w8 = {arch: {"model": _fields(arch), "params": _save_params(tmp, arch)}
+          for arch in W8}
     runs = {}
     for key, run in RUNS2.items():
         runs[key.replace("/", "_")] = {
@@ -558,6 +623,15 @@ def two(tmp_path_factory):
             "params": _save_params(tmp, run["arch"]),
             "config": _base(8, run["stage"], tp=2),
             "seeds": SEEDS, "eval": None if run.get("fused") else EVAL_SEED}
+    runs["mqa_lamb"] = {"model": _fields("mqa"),
+                        "params": _save_params(tmp, "mqa"),
+                        "config": _lamb(_base(8, 1, tp=2)), "seeds": SEEDS,
+                        "eval": None}
+    runs["mqa_1"] = {"model": _fields("mqa"),
+                     "params": _save_params(tmp, "mqa"),
+                     "config": _base(8, 1, tp=2), "seeds": SEEDS,
+                     "eval": None, "qkv_grads": True, "save": True,
+                     "after": 113}
     for key, run in RUNS_A.items():
         config = _base(8, run["stage"], tp=2)
         config.update(run.get("extra", {}))
@@ -566,7 +640,8 @@ def two(tmp_path_factory):
             "params": _save_params(tmp, run["arch"]), "config": config,
             "loss": run.get("loss", "causal"), "seq": run.get("seq", S),
             "seeds": SEEDS[:run.get("steps", 2)], "eval": None}
-    return _run(tmp, "tp_two", 2, {"infer": infer, "runs": runs})
+    _TWO_DIR.append(tmp)
+    return _run(tmp, "tp_two", 2, {"infer": infer, "w8": w8, "runs": runs})
 
 
 @pytest.fixture(scope="module")
@@ -626,7 +701,7 @@ def test_each_rank_holds_its_shards(two, arch):
             shp["blocks/attn_qkv/kernel"][-1]
 
 
-@pytest.mark.parametrize("arch", sorted(INFER))
+@pytest.mark.parametrize("arch", sorted(INFER + UNEVEN))
 def test_forward_logits_match_jax_tp_engine(two, arch):
     logits, *_ = _jax_infer(arch, "float32")
     for r in two:
@@ -639,7 +714,7 @@ def test_forward_logits_match_jax_tp_engine(two, arch):
 
 
 @pytest.mark.parametrize("dtype", ["float32", "int8"])
-@pytest.mark.parametrize("arch", sorted(INFER))
+@pytest.mark.parametrize("arch", sorted(INFER + UNEVEN))
 def test_generate_and_serve_tokens_match_jax_tp_engine(two, arch, dtype):
     _, gen, prompts = _jax_infer(arch, dtype)
     outs = [r["arch"][arch][dtype] for r in two]
@@ -652,7 +727,7 @@ def test_generate_and_serve_tokens_match_jax_tp_engine(two, arch, dtype):
     assert outs[0]["serve_digest"] == outs[1]["serve_digest"]
 
 
-@pytest.mark.parametrize("arch", sorted(INFER))
+@pytest.mark.parametrize("arch", sorted(INFER + UNEVEN))
 def test_topology_free_npz_loads_at_tp2_with_tp1_tokens(two, arch):
     _, tcfg = _cfgs(arch)
     one = deepspeed_tpu_torch.init_inference(
@@ -937,3 +1012,147 @@ def test_replicated_leaves_at_tp2_match_jax_tp_engine(two, key):
     np.testing.assert_allclose(
         np.array(two[0]["runs"][key.replace("/", "_")]["traj"]), jref,
         rtol=2e-4)
+
+
+# ---------------------------- uneven heads, kv-head replication, int8 rows
+
+
+def test_uneven_heads_shard_by_the_head_map(two):
+    """mqa at tp 2: rank 0 holds q heads 0-1 and kv head 0, rank 1 q head
+    2 and kv head 0 again; the ``attn_proj`` rows follow the q heads."""
+    for r, rank in enumerate(two):
+        shp = rank["arch"]["mqa"]["float32"]["shapes"]
+        nq = (2, 1)[r]
+        assert shp["blocks/attn_qkv/kernel"] == [2, 48, (nq + 2) * 16]
+        assert shp["blocks/attn_qkv/bias"] == [2, (nq + 2) * 16]
+        assert shp["blocks/attn_proj/kernel"] == [2, nq * 16, 48]
+        assert shp["blocks/mlp_proj/kernel"] == [2, 48, 48]
+    _, tcfg = _cfgs("mqa")
+    spec = tpart.spec_for("blocks/attn_qkv/kernel", tcfg.tp_rules())
+    maps = [tpart.tp_shard("blocks/attn_qkv/kernel", (2, 48, 80), spec,
+                           tcfg, r, 2) for r in range(2)]
+    # rank 1's kv columns are rank 0's too: written and counted by rank 0
+    assert maps[0].shared == () and maps[1].shared == (False, True, True)
+    assert maps[1].owned_segs() == ((0, 32, 16),)
+    assert tpart.kv_shared(tcfg, 2) and not tpart.kv_shared(
+        _cfgs("llama")[1], 2)
+
+
+@pytest.mark.parametrize("arch", sorted(INFER + UNEVEN + W8))
+def test_int8_serve_off_the_scale_grid_matches_one_rank(two, arch):
+    """Blockwise-int8 serving at tp 2: each rank's ``attn_proj`` and
+    ``mlp_proj`` row shard starts or ends mid-block of the 256-row grid,
+    packs at the finer block gcd(offset, rows, 256) with its whole
+    blocks' MAX-reduced scales, and serves the 1-rank int8 engine's
+    greedy tokens exactly (the sums differ only in f32 order). mqa128:
+    rank 0's ``attn_proj`` shard is on the grid and rank 1's is not; the
+    two ranks still make the same all-reduces."""
+    _, tcfg = _cfgs(arch)
+    one = deepspeed_tpu_torch.init_inference(
+        tcfg, {"dtype": "float32"},
+        model_parameters=params_from_jax(_params(arch)), device="cpu")
+    want = one.serve(dict(SERVING, weight_dtype="int8")).generate_batch(
+        PROMPTS, NEW)
+    for r in two:
+        got = r["w8"][arch] if arch in W8 else \
+            r["arch"][arch]["float32"]["serve_w8"]
+        assert got == want
+
+
+def test_uneven_heads_train_matches_one_rank_port_and_jax(two):
+    """mqa's three steps at tp 2 (ZeRO 1) within rtol 1e-5 of the 1-rank
+    port and 2e-4 of the JAX tp-2 engine: the grad norm counts the shared
+    kv columns once."""
+    ref = _port_traj("mqa", 1, 8, SEEDS)
+    for r in two:
+        np.testing.assert_allclose(np.array(r["runs"]["mqa_1"]["traj"]),
+                                   ref, rtol=1e-5)
+    _, jref = _jax_traj("mqa", 1, 8, SEEDS)
+    np.testing.assert_allclose(np.array(two[0]["runs"]["mqa_1"]["traj"]),
+                               jref, rtol=2e-4)
+    assert ref[-1, 0] < ref[0, 0]
+
+
+def test_uneven_heads_kv_column_grads_match_jax(two):
+    """The first step's ``attn_qkv`` kernel and bias gradients: the kv
+    columns that both ranks hold are equal on both (summed over the two
+    holders), and the assembled whole equals JAX's ``jax.grad`` of the
+    same batch's loss within atol 1e-6 (rtol 1e-4)."""
+    jcfg, _ = _cfgs("mqa")
+    b = _batch(8, SEEDS[0])
+    model = jtr.Transformer(jcfg)
+
+    def loss(p):
+        return jtr.causal_lm_loss(model.apply({"params": p}, b), b)
+
+    g = jax.grad(loss)(_params("mqa"))["blocks"]["attn_qkv"]
+    for leaf in ("kernel", "bias"):
+        want = np.asarray(g[leaf])                    # [L, ..., 80]
+        for li in range(2):
+            name = f"blocks.{li}.attn_qkv.{leaf}"
+            whole = np.full(want.shape[1:], np.nan, np.float32)
+            for rank in two:
+                ent = rank["runs"]["mqa_1"]["qkv"][name]
+                got = np.array(ent["grad"], np.float32)
+                shared = ent["shared"] or [False] * len(ent["segs"])
+                for (ls, ws, n), sh in zip(ent["segs"], shared):
+                    piece = got[..., ls:ls + n]
+                    if sh:   # the same columns as the lower holder's
+                        np.testing.assert_allclose(
+                            piece, whole[..., ws:ws + n], rtol=1e-6,
+                            atol=1e-7)
+                    whole[..., ws:ws + n] = piece
+            np.testing.assert_allclose(whole, want[li], rtol=1e-4,
+                                       atol=1e-6, err_msg=name)
+
+
+def test_uneven_heads_sharded_save_loads_everywhere(two):
+    """mqa's tp-2 tag (the shared kv columns written once, by rank 0)
+    loads into a 1-rank port engine and the JAX engine bitwise, their
+    next steps agree, and ``zero_to_fp32`` assembles it."""
+    from deepspeed_tpu_torch.utils.zero_to_fp32 import \
+        convert_zero_checkpoint_to_fp32_state_dict
+    tmp = _TWO_DIR[0]
+    r0 = two[0]["runs"]["mqa_1"]
+    with np.load(tmp / "mqa_1_state.npz") as z:
+        saved = {k: z[k] for k in z.files}
+    assert saved["blocks/attn_qkv/kernel"].shape == (2, 48, 80)
+    _, tcfg = _cfgs("mqa")
+    port, *_ = deepspeed_tpu_torch.initialize(
+        model=ttr.Transformer(tcfg, seed=5), config=_base(8, 1),
+        loss_fn=ttr.causal_lm_loss, device="cpu", dist_init_required=False)
+    port.load_checkpoint(str(tmp / "mqa_1"))
+    for k, v in port.module_state_dict().items():
+        np.testing.assert_array_equal(v, saved[k], err_msg=k)
+    m = port.train_batch(_batch(8, 113))
+    np.testing.assert_allclose([m["loss"], m["grad_norm"]], r0["after"],
+                               rtol=1e-5)
+    jeng, _ = _jax_traj("mqa", 1, 8, [])
+    jeng.load_checkpoint(str(tmp / "mqa_1"))
+    for k, v in jeng.module_state_dict().items():
+        np.testing.assert_array_equal(np.asarray(v, np.float32), saved[k],
+                                      err_msg=k)
+    jm = jax.device_get(jeng.train_batch(_batch(8, 113)))
+    np.testing.assert_allclose([float(jm["loss"]), float(jm["grad_norm"])],
+                               r0["after"], rtol=2e-4)
+    sd = convert_zero_checkpoint_to_fp32_state_dict(
+        str(tmp / "mqa_1"), str(tmp / "mqa_fp32.npz"))
+    for k, v in saved.items():
+        np.testing.assert_array_equal(sd[k], v, err_msg=k)
+
+
+def test_uneven_heads_lamb_matches_one_rank_port(two):
+    """LAMB's trust ratios and the grad norm at tp 2 over mqa's shared KV
+    head: each whole leaf's norm counts the shared columns once, so three
+    steps stay within rtol 1e-5 of the 1-rank port."""
+    _, tcfg = _cfgs("mqa")
+    eng, *_ = deepspeed_tpu_torch.initialize(
+        model=ttr.Transformer(tcfg, seed=3), config=_lamb(_base(8, 1)),
+        model_parameters=_params("mqa"), device="cpu",
+        loss_fn=ttr.causal_lm_loss, dist_init_required=False)
+    ref = np.array([[m["loss"], m["grad_norm"]] for m in (
+        eng.train_batch(_batch(8, s)) for s in SEEDS)])
+    for r in two:
+        np.testing.assert_allclose(np.array(r["runs"]["mqa_lamb"]["traj"]),
+                                   ref, rtol=1e-5)
+    assert ref[-1, 0] < ref[0, 0]

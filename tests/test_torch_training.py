@@ -719,9 +719,10 @@ def test_initialize_dataloader_and_config_arguments(tmp_path):
     {"data_efficiency": {"enabled": True}},
     # sequence parallelism is ported (tests/test_torch_sequence_parallel.py)
     {"autotuning": {"enabled": True}},
-    # tensor parallelism is ported (tests/test_torch_tensor_parallel.py);
-    # together with sequence parallelism it is not
-    {"tensor_parallel": {"tp_size": 2}, "sequence_parallel": {"sp_size": 2}},
+    # tensor parallelism is ported (tests/test_torch_tensor_parallel.py),
+    # together with sequence parallelism too (tests/test_torch_tp_compose_
+    # dist.py); ZeRO's quantized weights are not
+    {"zero_optimization": {"stage": 3, "zero_quantized_weights": True}},
     {"pipeline": {"stages": 2}},
     {"activation_checkpointing": {"cpu_checkpointing": True}},
     {"compression_training": {"weight_quantization": {
