@@ -200,7 +200,7 @@ nor ``deepspeed_tpu``. Phases, each reported on its own line:
 18. **run** (after pp) — run-side resilience on llama-1.1b at full width
     (:func:`phase_run`), every sub-leg in child processes started by the
     port's runner (``python -m deepspeed_tpu_torch.launcher.runner``) or
-    its MPMD driver: a clean 6-step launch at full depth with the
+    its MPMD driver: a clean 6-step launch at 11 of 22 layers with the
     heartbeat channel, watchdog and straggler sections (rc 0, ``health``
     reads it); the same preempted by ``run.preempt:sigterm`` after step 3
     (rc 114, an intact emergency tag) and relaunched (resumed with the
@@ -213,6 +213,18 @@ nor ``deepspeed_tpu``. Phases, each reported on its own line:
     losses). Each child reports its flash launches, step ms and peak
     memory; the lines carry launch to first step, kill to resumed, the
     MPMD restart and the socket channel's bytes and wait a step.
+
+19. **quant** (after train) — quantized training and the compressed
+    collectives (:func:`phase_quant`): llama-1.1b at full width and 4 of
+    22 layers, six steps with ``compression_training`` (8-bit weights
+    from step 2, int8 activations) and ``quantize_training`` (MoQ 16 ->
+    8 bits) beside an unquantized twin, every micro-batch through the
+    three flash kernels, the losses within 5e-2 of the twin's, the
+    card's compressed leaves bitwise the CPU's stacked transform of the
+    same masters; then ``grad_sync`` (int8, exact),
+    ``quantized_all_to_all``, ``compressed_allreduce`` and the qwZ
+    gather on llama-1.1b-sized leaves in a 1-rank NCCL world, each within
+    its block bound, with the comms logger's bytes by op.
 
 Each phase's seconds are printed on a ``time: phases_s`` line.
 
@@ -238,7 +250,8 @@ forward's and dq's per-item cost of the host balance, swept at the long
 leg's call.
 
 ``--only PHASE ...`` (``ckpt``, ``remat``, ``hf``, ``bert-masked``,
-``zero``, ``sp``, ``dropout``, ``moe``, ``tp``, ``pp``, ``fleet``, ``run``)
+``zero``, ``sp``, ``dropout``, ``moe``, ``tp``, ``pp``, ``fleet``, ``run``,
+``quant``)
 builds the kernels and runs only those phases, then a result line that
 names them (``"only": [...]``; no kernels line). ``--zero-ranks N`` (a
 host with N GPUs) builds the kernels and runs only the zero leg across N
@@ -270,6 +283,18 @@ of the unpipelined model's bf16 forward on one GPU, the loss falling over
 4 steps, the embedding and head copies bitwise equal on every rank; step
 ms, tokens/s, model TFLOP/s a GPU, peak memory, NCCL and idle share
 beside the bubble (N - 1) / (8 + N - 1), ending in ``"pp_ranks": N``.
+
+``--qcomm-ranks N`` runs the compressed comm legs across N GPUs:
+gpt2-1.3b (6 of 24 layers, the zero leg's batch shape) at data N through
+ZeRO-2 with the grad sync exact, int8, overlap and overlap_int8 and
+ZeRO-3 exact, with qwZ and with the overlap gather, and Mixtral-8x7B (2
+layers) at ep N with the exact and int8 exchange: each mode's first
+step within 1e-3 (loss) and 1e-2 (grad norm) of its exact twin's and
+the gpt2 modes' losses within 2e-2 over four steps (Mixtral's later
+steps reported: a near-tied route the int8 exchange flips changes every
+later step), its algorithm's tags and collectives
+(the overlap modes chunked, no whole-leaf sync), NCCL bytes by op, step
+ms, busy and NCCL ms, ending in ``"qcomm_ranks": N``.
 
 Launch counters are zeroed just before each leg and read just after it.
 Any failed check raises, so the script exits non-zero and prints no
@@ -9817,11 +9842,14 @@ def phase_fleet(tmp, eng=None, device="cuda"):
 # the run leg: llama-1.1b at full width through the port's runner and
 # the MPMD driver, every sub-leg in child processes
 # the card host caps what one run writes to its disk at 45 GiB (freed
-# blocks count too): the run leg writes the full-depth emergency tag
-# (15.4 GB), one tag at the small legs' 2-layer cut, each MPMD stage's
+# blocks count too): the run leg writes the RUN_LAYERS emergency tag
+# (the full depth's was 15.4 GB), one tag at the small legs' 2-layer cut, each MPMD stage's
 # step-0 tag once (the two MPMD runs share the work dir) and the killed
 # run's tags at step MPMD_KILL_SKIP
 RUN_STEPS, RUN_PREEMPT_AT, RUN_SMALL_LAYERS = 6, 3, 2
+# the clean, preempted and resumed launches: depth cut 22 -> 11 (the
+# script's time limit, after the quant leg joined it)
+RUN_LAYERS = 11
 RUN_STALL_S, RUN_GRACE_S = 10.0, 30.0
 # the 2-layer chain: a twin that takes RUN_TWIN_STEPS clean steps and
 # then hangs (the stall sub-leg); a run sent SIGTERM from inside step
@@ -10126,9 +10154,9 @@ def phase_run(tmp):
 
     1. clean: ``python -m deepspeed_tpu_torch.launcher.runner`` runs the
        rank as one local process with ``--heartbeat_dir`` and the
-       watchdog and straggler sections, RUN_STEPS steps at full depth:
-       rc 0, ``health`` reads the records, every step launches the flash
-       kernels 22 x 2 times in the child;
+       watchdog and straggler sections, RUN_STEPS steps at RUN_LAYERS
+       layers: rc 0, ``health`` reads the records, every step launches
+       the flash kernels RUN_LAYERS x 2 times in the child;
     2. preempt: the same with ``DSTPU_CHAOS=run.preempt:sigterm`` at the
        entry of step RUN_PREEMPT_AT + 1: rc 114 and an intact emergency
        tag; a relaunch resumes from it with the loader fast-forwarded and
@@ -10166,7 +10194,7 @@ def phase_run(tmp):
     from deepspeed_tpu_torch.runtime import checkpointing as ck
     from deepspeed_tpu_torch.runtime.pipe.mpmd import StageWorkerSpec
     out = {"launches": {}}
-    L, S4 = LLAMA_LAYERS, RUN_SMALL_LAYERS
+    L, S4 = RUN_LAYERS, RUN_SMALL_LAYERS
     pool = ThreadPoolExecutor(max_workers=3)
     small_cfg = dict(TRAIN_CONFIG, integrity=RUN_SENTINEL)
 
@@ -10196,8 +10224,8 @@ def phase_run(tmp):
         return twin, kill
 
     # what this process still caches is the card's memory the children
-    # need: each full-depth child peaks at ~29 GB, the stage workers at
-    # ~9 GB, the 2-layer children at a few
+    # need: each RUN_LAYERS child peaks below a full-depth one's ~29 GB,
+    # the stage workers at ~9 GB, the 2-layer children at a few
     gc.collect()
     torch.cuda.empty_cache()
     # wave 1: the clean launch beside the preempted one (~57 GB)
@@ -10419,6 +10447,480 @@ def phase_run(tmp):
     return out
 
 
+# ----------------------------------------------------------------- 19. quant
+
+# the quant leg: llama-1.1b at full width, depth cut 22 -> QUANT_LAYERS
+# (the script's time limit), the train leg's TRAIN_CONFIG and batch shape
+# (bf16 on an fp32 master, micro 2 x gas 2 of 1024 tokens), QUANT_STEPS
+# steps with and without the quantized-training sections
+QUANT_LAYERS, QUANT_STEPS = 4, 6
+QUANT_SECTIONS = {
+    "compression_training": {
+        "weight_quantization": {
+            "shared_parameters": {"enabled": True, "schedule_offset": 2,
+                                  "quantization_type": "symmetric"},
+            "different_groups": {"wq": {
+                "params": {"start_bits": 8, "target_bits": 8},
+                "modules": ["kernel"]}}},
+        "activation_quantization": {
+            "shared_parameters": {"enabled": True},
+            "different_groups": {"aq": {"params": {"bits": 8}}}}},
+    "quantize_training": {
+        "enabled": True,
+        "quantize_bits": {"start_bits": 16, "target_bits": 8},
+        "quantize_schedule": {"quantize_period": 2, "schedule_offset": 0}},
+    # activation quantization is sentinel-gated, as in the JAX engine
+    "integrity": {"enabled": True},
+}
+# the quantized run's loss against its unquantized twin a step (the JAX
+# package's quantized-twin bound)
+QUANT_LOSS_REL = 0.05
+# llama-1.1b-sized leaves for the collectives: mlp_fc's kernel [H, I] and
+# one MoE-style exchange of [E, C, H] queues at H = 2048
+QUANT_LEAF = (2048, 5632)
+QUANT_QUEUES = (8, 512, 2048)
+
+
+def _quant_engine(extra):
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.models.transformer import build_model
+    model, cfg = build_model("llama-1.1b", fused_loss=True, loss_chunk=256,
+                             seed=0, device="cuda", num_layers=QUANT_LAYERS)
+    engine, *_ = deepspeed_tpu_torch.initialize(
+        model=model, config=dict(TRAIN_CONFIG, **extra))
+    return engine, cfg
+
+
+def _compressed_leaves(engine):
+    """(the card's compressed leaves by path, the same leaves' plain
+    stacked transform computed on the CPU from the engine's f32 masters
+    cast to the compute dtype, at the engine's optimizer step count)."""
+    import torch
+    from deepspeed_tpu_torch.compression.compress import transform_leaf
+    engine._compress()
+    index = {id(p): i for i, p in enumerate(engine._params)}
+    got, want = {}, {}
+    for path, (stacked, items) in engine._comp_leaves.items():
+        card = [owner.__dict__[pname] for owner, pname, _ in items]
+        got[path] = (torch.stack(card) if stacked else card[0]).detach()
+        ms = [engine.master[index[id(p)]].detach().to(
+            engine.compute_dtype).cpu() for _, _, p in items]
+        w = torch.stack(ms) if stacked else ms[0]
+        want[path] = transform_leaf(path, w, engine.compression_spec,
+                                    engine.step_count)
+    engine._drop_compressed()
+    return got, want
+
+
+def _block_bound(x, block=256):
+    """Per element: its flat 256-block's absmax / 127 (docs/COMM.md's
+    bound of the int8 wire format), in x's shape."""
+    import torch
+    import torch.nn.functional as F
+    flat = x.reshape(-1).float()
+    pad = (-flat.numel()) % block
+    b = F.pad(flat, (0, pad)).reshape(-1, block).abs().amax(dim=1)
+    return (b / 127.0).repeat_interleave(block)[:flat.numel()] \
+        .reshape(x.shape)
+
+
+def _onebit_plain(x, w, s):
+    """``compressed_allreduce`` in a group of one, in plain PyTorch: the
+    exchange moves nothing, so the result is the server's re-compression
+    of the worker's."""
+    import torch
+    import torch.nn.functional as F
+    from deepspeed_tpu_torch.runtime.comm.compressed import chunk_elems
+    flat = x.reshape(-1).float()
+    corrected = flat + w
+    n = flat.numel()
+    chunk = F.pad(corrected, (0, chunk_elems(n, 1) - n))
+    scale = chunk.abs().mean()
+    signs = torch.where(chunk >= 0, 1.0, -1.0)
+    new_w = corrected - (signs * scale)[:n]
+    served = signs * scale + s
+    s_scale = served.abs().mean()
+    s_signs = torch.where(served >= 0, 1.0, -1.0)
+    return ((s_signs * s_scale)[:n].reshape(x.shape), new_w,
+            served - s_signs * s_scale)
+
+
+def _quant_collectives(device="cuda"):
+    """The slice's collectives called directly in a 1-rank NCCL world on
+    llama-1.1b-sized leaves: int8 payloads, uint8 sign bitmaps and f32
+    scales cross NCCL. Each element held within its block's absmax / 127
+    (``grad_sync`` int8 over its two hops, ``quantized_all_to_all``, the
+    qwZ gather against its one per-tensor scale), ``grad_sync`` exact
+    bitwise, three rounds of ``compressed_allreduce`` against their plain
+    version; the comms logger's bytes by op and the ms of each call."""
+    import torch
+    import torch.distributed as dist
+    from deepspeed_tpu_torch import comm
+    from deepspeed_tpu_torch.parallel.mesh import set_global_mesh
+    from deepspeed_tpu_torch.runtime.comm import compressed, quantized
+    gen = torch.Generator(device=device).manual_seed(29)
+    leaf = torch.randn(QUANT_LEAF, generator=gen, device=device) * 0.02
+    leaf[7, :300] *= 40.0                           # an outlier block
+    queues = (torch.randn(QUANT_QUEUES, generator=gen, device=device)
+              .to(torch.bfloat16))
+    comm.init_distributed(world_size=1, rank=0,
+                          device=None if device == "cuda" else device)
+    res = {}
+    try:
+        if dist.get_backend() != ("nccl" if device == "cuda" else "gloo"):
+            fail(f"quant: the collectives ran on {dist.get_backend()}")
+        log_ = comm.get_comms_logger()
+        log_.configure(enabled=True)
+        for algo in ("exact", "int8"):
+            log_.reset()
+            comm.reset_op_counts()
+            out = quantized.grad_sync(leaf, algo=algo)
+            res[f"grad_sync_{algo}"] = {
+                "bytes_by_op": {op: sum(b for b, _ in r) for op, r in
+                                log_.comms_dict.items()},
+                "ops": comm.op_counts(),
+                "max_abs_err": float((out - leaf).abs().max()),
+                "ms": wall_ms(lambda: quantized.grad_sync(leaf, algo=algo))}
+            if algo == "exact" and not torch.equal(out, leaf):
+                fail("quant: grad_sync exact in a group of one changed the "
+                     "gradient")
+            if algo == "int8" and not bool(
+                    ((out - leaf).abs() <= _block_bound(leaf) * 1.001).all()):
+                fail("quant: grad_sync int8 is off its block bound")
+        log_.reset()
+        out = quantized.quantized_all_to_all(queues, axis="data")
+        a2a_bytes = {op: sum(b for b, _ in r)
+                     for op, r in log_.comms_dict.items()}
+        err = (out.float() - queues.float()).abs()
+        if out.dtype != torch.bfloat16 or not bool(
+                (err <= _block_bound(queues.reshape(8, -1)).reshape(
+                    queues.shape)).all()):
+            fail("quant: quantized_all_to_all is off its block bound")
+        res["quantized_all_to_all"] = {
+            "bytes_by_op": a2a_bytes, "max_abs_err": float(err.max()),
+            "ms": wall_ms(lambda: quantized.quantized_all_to_all(
+                queues, axis="data"))}
+        shard = leaf.to(torch.bfloat16)
+        log_.reset()
+        full = compressed.quantized_gather_local(shard, "data", 0)
+        qw_bytes = {op: sum(b for b, _ in r)
+                    for op, r in log_.comms_dict.items()}
+        bound = float(shard.float().abs().max()) / 127
+        err = float((full.float() - shard.float()).abs().max())
+        if tuple(full.shape) != QUANT_LEAF or err > bound:
+            fail(f"quant: the qwZ gather's error {err} passes {bound}")
+        res["qwz_gather"] = {
+            "bytes_by_op": qw_bytes, "max_abs_err": err, "bound": bound,
+            "ms": wall_ms(lambda: compressed.quantized_gather_local(
+                shard, "data", 0))}
+        n = leaf.numel()
+        w = torch.zeros(n, device=device)
+        s = torch.zeros(compressed.chunk_elems(n, 1), device=device)
+        wr, sr = w.clone(), s.clone()
+        errs = []
+        for _ in range(3):
+            log_.reset()
+            out, w, s = compressed.compressed_allreduce(leaf, w, s)
+            ref, wr, sr = _onebit_plain(leaf, wr, sr)
+            errs.append(max(float((out - ref).abs().max()),
+                            float((w - wr).abs().max()),
+                            float((s - sr).abs().max())))
+        onebit_bytes = {op: sum(b for b, _ in r)
+                        for op, r in log_.comms_dict.items()}
+        if max(errs) > 1e-6:
+            fail(f"quant: compressed_allreduce off its plain version {errs}")
+        res["compressed_allreduce"] = {
+            "bytes_by_op": onebit_bytes, "max_abs_err_by_round": errs,
+            "ms": wall_ms(lambda: compressed.compressed_allreduce(
+                leaf, w, s))}
+        log_.configure(enabled=False)
+        log_.reset()
+        e, q = (sum(res[f"grad_sync_{a}"]["bytes_by_op"].values())
+                for a in ("exact", "int8"))
+        res["grad_sync_int8_bytes_ratio"] = q / e
+        log("quant: collectives (1-rank NCCL world) " + json.dumps(res))
+    finally:
+        set_global_mesh(None)
+        dist.destroy_process_group()
+    return res
+
+
+def phase_quant(tmp):
+    """Quantized training and the compressed collectives on one card:
+    llama-1.1b at full width, QUANT_LAYERS of 22 layers, bf16 on an fp32
+    master, QUANT_STEPS steps on one batch with ``compression_training``
+    (8-bit symmetric weight quantization of every kernel from step 2,
+    int8 activation quantization) and ``quantize_training`` (MoQ 16 -> 8
+    bits, period 2), beside an unquantized twin of the same weights and
+    batch built in this process: every micro-batch through the three
+    flash kernels (QUANT_LAYERS launches of each a micro-batch), the
+    losses finite and within QUANT_LOSS_REL of the twin's, the card's
+    compressed leaves equal to the plain stacked transform of the same
+    masters computed on the CPU; the QAT and plain step ms. Then
+    :func:`_quant_collectives`."""
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(23)
+    B = TRAIN_MICRO * TRAIN_GAS
+    batch = {"input_ids": rng.integers(1, 32000, (B, TRAIN_SEQ))}
+    per_step = QUANT_LAYERS * TRAIN_GAS
+    log(f"quant: llama-1.1b {QUANT_LAYERS} of {LLAMA_LAYERS} layers, seq "
+        f"{TRAIN_SEQ}, micro {TRAIN_MICRO} x gas {TRAIN_GAS}, "
+        f"{QUANT_STEPS} steps; cut: depth 22 -> {QUANT_LAYERS}")
+    runs = {}
+    for name, extra in (("plain", {}), ("qat", QUANT_SECTIONS)):
+        engine, cfg = _quant_engine(extra)
+        losses, step_s, launches = [], [], dict.fromkeys(FLASH_KERNELS, 0)
+        for step in range(QUANT_STEPS):
+            _zero_counters()
+            t1 = time.perf_counter()
+            m = engine.train_batch(batch)       # ends in a host read
+            step_s.append(time.perf_counter() - t1)
+            c = _counters()
+            for k in FLASH_KERNELS:
+                launches[k] += c[k]
+            if any(c[k] != per_step for k in FLASH_KERNELS):
+                fail(f"quant: {name} step {step} launched {c}: expected "
+                     f"{per_step} of each flash kernel")
+            if not np.isfinite(m["loss"]) or m["overflow"]:
+                fail(f"quant: {name} step {step}: {m}")
+            losses.append(m["loss"])
+        run = {"losses": losses,
+               "step_ms": 1e3 * float(np.median(step_s[1:])),
+               "step_ms_all": [round(1e3 * x, 3) for x in step_s],
+               "launches": launches}
+        if name == "qat":
+            if engine.module.cfg.activation_quant != "int8":
+                fail("quant: activation_quantization was not wired")
+            got, want = _compressed_leaves(engine)
+            errs = {p: float((got[p].float().cpu() - want[p].float())
+                             .abs().max()) for p in want}
+            run.update(compressed_leaves=len(got),
+                       compressed_max_abs_err=max(errs.values()),
+                       groups=[g.kind + ":" + g.name
+                               for g in engine.compression_spec.groups],
+                       step_count=engine.step_count)
+            log(f"check: quant compressed leaves on the card vs the plain "
+                f"stacked transform on the CPU leaves={len(got)} "
+                f"max_abs_err={max(errs.values())} (bitwise: 0)")
+            if any(e != 0 for e in errs.values()) or \
+                    set(got) != set(want):
+                fail(f"quant: compressed leaves differ {errs}")
+        runs[name] = run
+        del engine
+        gc.collect()
+        torch.cuda.empty_cache()
+    rel = [abs(a - b) / abs(b) for a, b in zip(runs["qat"]["losses"],
+                                               runs["plain"]["losses"])]
+    log(f"check: quant losses qat={runs['qat']['losses']} "
+        f"plain={runs['plain']['losses']} rel={max(rel):.3e} "
+        f"tol={QUANT_LOSS_REL}")
+    if max(rel) > QUANT_LOSS_REL:
+        fail("quant: the quantized run's loss is off its unquantized twin's")
+    log(f"time: quant qat step_ms={runs['qat']['step_ms']:.1f} plain "
+        f"step_ms={runs['plain']['step_ms']:.1f} ratio="
+        f"{runs['qat']['step_ms'] / runs['plain']['step_ms']:.3f}")
+    return {"runs": runs, "loss_rel_max": max(rel),
+            "collectives": _quant_collectives(),
+            "cuts": {"layers": [LLAMA_LAYERS, QUANT_LAYERS]}}
+
+
+# --qcomm-ranks: the compressed comm legs across N GPUs. gpt2-1.3b (bench.py's
+# north-star model) at the zero leg's depth cut (6 of 24 layers) and batch
+# shape, data N; Mixtral-8x7B at the moe train leg's 2 layers, ep N
+QCOMM_STEPS = 4
+QCOMM_GPT = {
+    "z2_exact": ({"stage": 2}, {"grad_reduce_scatter": "exact"}),
+    "z2_int8": ({"stage": 2}, {"grad_reduce_scatter": "int8"}),
+    "z2_overlap": ({"stage": 2}, {"grad_reduce_scatter": "overlap"}),
+    "z2_overlap_int8": ({"stage": 2},
+                        {"grad_reduce_scatter": "overlap_int8"}),
+    "z3_exact": ({"stage": 3}, None),
+    "z3_qwz": ({"stage": 3, "zero_quantized_weights": True}, None),
+    "z3_overlap": ({"stage": 3}, {"param_all_gather": "overlap"}),
+}
+QCOMM_MOE = {"moe_exact": {"moe_all_to_all": "exact"},
+             "moe_int8": {"moe_all_to_all": "int8"}}
+# each mode against its exact twin: the first step's loss and grad norm
+# (one sync, one exchange through the wire format: the overlap modes move
+# exact values in another reduction order, the int8 ones add their block
+# error), and the gpt2 modes' losses over every step. Mixtral's MoE pair
+# is held on its first step only: from random weights its loss falls by
+# 40% in three steps under grad norms of 4-16, and a routed token that
+# the int8 exchange moves across a near-tie changes every later step
+# (run 8's fourth step read 2.153e-2 apart), so its later steps are
+# reported, not held
+QCOMM_FIRST_REL = (1e-3, 1e-2)
+QCOMM_LOSS_REL = 2e-2
+
+
+def phase_qcomm_ranks(tmp, n):
+    """``--qcomm-ranks N``: :func:`qcomm_worker` on every GPU through the
+    port's launcher; each mode a fresh engine in one N-rank world."""
+    out = os.path.join(tmp, "qcomm_ranks.json")
+    env = dict(os.environ, PYTHONPATH=HERE)
+    rc = subprocess.run(
+        [sys.executable, "-m", "deepspeed_tpu_torch.launcher.launch",
+         "--nproc_per_node", str(n), os.path.join(HERE, "chip_smoke.py"),
+         "--qcomm-worker", out], cwd=HERE, env=env, timeout=1500).returncode
+    if rc != 0:
+        fail(f"qcomm ranks: the launcher exited {rc}")
+    with open(out) as f:
+        return json.load(f)
+
+
+def _qcomm_run(engine, batch, label, rank, leaves):
+    """QCOMM_STEPS steps of one mode, each with the collective counters
+    and the comms logger reset just before it; rank 0 profiles one more
+    step (busy and NCCL device ms)."""
+    import numpy as np
+    from deepspeed_tpu_torch import comm
+    log_ = comm.get_comms_logger()
+    metrics, step_s, ops, nbytes = [], [], None, None
+    for step in range(QCOMM_STEPS):
+        _zero_counters()
+        comm.reset_op_counts()
+        log_.reset()
+        t0 = time.perf_counter()
+        m = engine.train_batch(batch)
+        step_s.append(time.perf_counter() - t0)
+        c = _counters()
+        ops = comm.op_counts()
+        nbytes = {op: sum(b for b, _ in r)
+                  for op, r in log_.comms_dict.items()}
+        if not np.isfinite(m["loss"]) or m["overflow"]:
+            fail(f"{label} step {step}: {m}")
+        if any(c[k] == 0 for k in FLASH_KERNELS):
+            fail(f"{label} step {step} launched {c}")
+        metrics.append(m)
+        if rank == 0:
+            log(f"{label}: step {step} loss={m['loss']:.6f} grad_norm="
+                f"{m['grad_norm']:.5f} step_ms={1e3 * step_s[-1]:.1f} "
+                f"sync={m.get('grad_sync_algo')} gather="
+                f"{m.get('param_gather_algo')} collectives={json.dumps(ops)}")
+    dt = 1e3 * float(np.median(step_s[1:]))
+    busy = by_kind = None
+    if rank == 0:
+        busy, by_kind = profile_train(engine, batch, dt, label=label)
+    else:
+        engine.train_batch(batch)
+    return {"losses": [m["loss"] for m in metrics],
+            "grad_norms": [m["grad_norm"] for m in metrics],
+            "sync": metrics[-1].get("grad_sync_algo"),
+            "gather": metrics[-1].get("param_gather_algo"),
+            "step_ms": dt, "step_ms_all": [round(1e3 * x, 3) for x in step_s],
+            "collectives": ops, "nccl_bytes_by_op": nbytes,
+            "busy_ms_rank0": busy,
+            "nccl_ms_rank0": by_kind and by_kind.get("nccl"),
+            "leaves": leaves}
+
+
+def qcomm_worker(out):
+    """One rank of ``--qcomm-ranks``: the ZeRO-2 grad syncs and the
+    ZeRO-3 gathers on gpt2-1.3b at data N, then the MoE exchange on
+    Mixtral-8x7B at ep N; each mode held to its exact twin's losses, its
+    algorithm's tags and collectives (``overlap``: chunked collectives
+    only, none whole a leaf); rank 0 writes the readings."""
+    import torch
+    import torch.distributed as dist
+    from deepspeed_tpu_torch import comm
+    from deepspeed_tpu_torch.runtime.comm import quantized
+    comm.init_distributed()
+    rank, world = comm.get_rank(), comm.get_world_size()
+    tmp = os.path.dirname(out)
+    res = {"world": world, "modes": {}}
+    batch = _zero_batch(world)
+    for mode, (zero, overrides) in QCOMM_GPT.items():
+        config = dict(_zero_config(world), comms_logger={"enabled": True},
+                      zero_optimization=dict(ZERO_CONFIG["zero_optimization"],
+                                             **zero))
+        if overrides is not None:
+            config["comm_plan"] = {"enabled": True, "overrides": overrides}
+        engine, _ = _zero_engine(tmp, f"qcomm_{mode}_{rank}", 0, config)
+        leaves = len({e.leaf for e in engine.dp.entries})
+        res["modes"][mode] = _qcomm_run(engine, batch, f"qcomm {mode}",
+                                        rank, leaves)
+        del engine
+        gc.collect()
+        torch.cuda.empty_cache()
+    cfg = _mixtral_cfg()
+    mbatch = _moe_batch(world * MOE_GAS, cfg.vocab_size)
+    for mode, overrides in QCOMM_MOE.items():
+        config = dict(MOE_TRAIN_CONFIG, train_batch_size=world * MOE_GAS,
+                      train_micro_batch_size_per_gpu=1,
+                      moe={"enabled": True, "ep_size": world},
+                      comms_logger={"enabled": True},
+                      comm_plan={"enabled": True, "overrides": overrides})
+        engine = _moe_engine(_moe_train_model(cfg, 17, noise=False), config,
+                             aux=0.0)
+        res["modes"][mode] = _qcomm_run(engine, mbatch, f"qcomm {mode}",
+                                        rank, None)
+        dev = engine.device
+        del engine
+        gc.collect()
+        torch.cuda.empty_cache()
+    # the two grad syncs alone on one of the model's leaves (gpt2-1.3b's
+    # mlp_fc kernel, [2048, 8192] f32): NCCL bytes by op
+    log_ = comm.get_comms_logger()
+    leaf = torch.randn(2048, 8192, device=dev,
+                       generator=torch.Generator(device=dev)
+                       .manual_seed(31 + rank))
+    direct = {}
+    for algo in ("exact", "int8"):
+        log_.reset()
+        quantized.grad_sync(leaf, algo=algo)
+        direct[algo] = {op: sum(b for b, _ in r)
+                        for op, r in log_.comms_dict.items()}
+        direct[algo + "_ms"] = wall_ms(
+            lambda: quantized.grad_sync(leaf, algo=algo))
+    direct["int8_bytes_ratio"] = (sum(direct["int8"].values())
+                                  / sum(direct["exact"].values()))
+    res["grad_sync_leaf"] = direct
+    modes = res["modes"]
+    checks = {}
+    for mode, twin in (("z2_int8", "z2_exact"), ("z2_overlap", "z2_exact"),
+                       ("z2_overlap_int8", "z2_exact"),
+                       ("z3_qwz", "z3_exact"), ("z3_overlap", "z3_exact"),
+                       ("moe_int8", "moe_exact")):
+        got, want = modes[mode], modes[twin]
+        first = [abs(got[k][0] - want[k][0]) / abs(want[k][0])
+                 for k in ("losses", "grad_norms")]
+        rel = max(abs(a - b) / abs(b) for a, b in
+                  zip(got["losses"], want["losses"]))
+        checks[mode] = {"first_loss": first[0], "first_grad_norm": first[1],
+                        "loss_over_steps": rel}
+        if first[0] > QCOMM_FIRST_REL[0] or first[1] > QCOMM_FIRST_REL[1]:
+            fail(f"qcomm {mode}: first step off {twin}'s by {first}")
+        if not mode.startswith("moe") and rel > QCOMM_LOSS_REL:
+            fail(f"qcomm {mode}: loss off {twin}'s by {rel:.3e}")
+        if not got["losses"][-1] < got["losses"][0]:
+            fail(f"qcomm {mode}: loss did not fall {got['losses']}")
+    for mode in ("z2_int8", "z2_overlap", "z2_overlap_int8"):
+        want = mode.split("_", 1)[1]
+        ops = modes[mode]["collectives"]
+        if modes[mode]["sync"] != want or "reduce_scatter" in ops:
+            fail(f"qcomm {mode}: sync {modes[mode]['sync']} collectives "
+                 f"{ops}")
+        if mode != "z2_int8" and ("all_to_all" in ops
+                                  or not ops.get("all_to_all_async")):
+            fail(f"qcomm {mode}: a whole-leaf collective in {ops}")
+        modes[mode]["chunk_collectives_per_leaf"] = (
+            ops.get("all_to_all_async", 0) / modes[mode]["leaves"])
+    if modes["z3_overlap"]["gather"] != "overlap" or not \
+            modes["z3_overlap"]["collectives"].get("all_gather_async"):
+        fail(f"qcomm z3_overlap: {modes['z3_overlap']['collectives']}")
+    if modes["moe_int8"]["collectives"].get("all_to_all", 0) <= \
+            modes["moe_exact"]["collectives"].get("all_to_all", 0):
+        fail("qcomm moe_int8: no int8 exchange (payload and scales)")
+    res["loss_rel_vs_exact"] = checks
+    if rank == 0:
+        with open(out, "w") as f:
+            json.dump(res, f)
+        log("time: qcomm ranks " + json.dumps(res))
+    dist.destroy_process_group()
+    return 0
+
+
 def main(argv=None):
     import argparse
     import torch
@@ -10465,11 +10967,11 @@ def main(argv=None):
     ap.add_argument("--only", nargs="+", metavar="PHASE",
                     choices=("ckpt", "remat", "hf", "bert-masked", "zero",
                              "sp", "dropout", "moe", "tp", "pp", "fleet",
-                             "run"),
+                             "run", "quant"),
                     help="build the kernels, then run only these phases "
                          "(ckpt, remat, hf, bert-masked, zero, sp, dropout, "
-                         "moe, tp, pp, fleet, run) and a result line that "
-                         "names them; no kernels line")
+                         "moe, tp, pp, fleet, run, quant) and a result line "
+                         "that names them; no kernels line")
     ap.add_argument("--zero-ranks", type=int, metavar="N",
                     help="build the kernels, then run only the zero leg "
                          "across N GPUs of this host (one process each, "
@@ -10519,6 +11021,15 @@ def main(argv=None):
                          "ep: Mixtral-8x7B at pp 2 x ep 2, ZeRO 1; zero3: "
                          "gpt2-1.3b at pp 2 x data 2, ZeRO 3)")
     ap.add_argument("--pp-worker", metavar="OUT", help=argparse.SUPPRESS)
+    ap.add_argument("--qcomm-ranks", type=int, metavar="N",
+                    help="build the kernels, then run only the compressed "
+                         "comm legs across N GPUs of this host (gpt2-1.3b "
+                         "at data N: ZeRO-2 grad sync exact, int8, overlap "
+                         "and overlap_int8, ZeRO-3 with qwZ and the overlap "
+                         "gather; Mixtral-8x7B at ep N with the exact and "
+                         "int8 exchange; one process each, through the "
+                         "port's launcher) and a result line that names it")
+    ap.add_argument("--qcomm-worker", metavar="OUT", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -10542,6 +11053,8 @@ def main(argv=None):
         return tp_worker(args.tp_worker)
     if args.tp_rest_worker:
         return tp_rest_worker(args.tp_rest_worker)
+    if args.qcomm_worker:
+        return qcomm_worker(args.qcomm_worker)
     if args.pp_worker:
         if args.pp_compose:
             return pp_compose_worker(args.pp_worker, args.pp_compose[0])
@@ -10568,6 +11081,18 @@ def main(argv=None):
         log(f"total_s={time.perf_counter() - t0:.1f}")
         log(smi)
         log(json.dumps({"ok": True, "zero_ranks": args.zero_ranks,
+                        "device": {"platform": "gpu", "kind": name,
+                                   "count": torch.cuda.device_count()}}))
+        return 0
+    if args.qcomm_ranks:
+        if torch.cuda.device_count() < args.qcomm_ranks:
+            fail(f"--qcomm-ranks {args.qcomm_ranks}: this host has "
+                 f"{torch.cuda.device_count()} GPUs")
+        with tempfile.TemporaryDirectory() as tmp:
+            phase_qcomm_ranks(tmp, args.qcomm_ranks)
+        log(f"total_s={time.perf_counter() - t0:.1f}")
+        log(smi)
+        log(json.dumps({"ok": True, "qcomm_ranks": args.qcomm_ranks,
                         "device": {"platform": "gpu", "kind": name,
                                    "count": torch.cuda.device_count()}}))
         return 0
@@ -10655,7 +11180,8 @@ def main(argv=None):
                                           time_tp_rest_kernels()},
                        "pp": lambda: phase_pp(tmp),
                        "fleet": lambda: phase_fleet(tmp),
-                       "run": lambda: phase_run(tmp)
+                       "run": lambda: phase_run(tmp),
+                       "quant": lambda: phase_quant(tmp)
                        }[phase]()
                 _mark(phase)
                 log(f"time: {phase} " + json.dumps(res, default=str))
@@ -10735,6 +11261,11 @@ def main(argv=None):
     del trainer
     torch.cuda.empty_cache()
     _mark("train")
+    with tempfile.TemporaryDirectory() as tmp:
+        quant = phase_quant(tmp)
+    log("time: quant " + json.dumps({k: v for k, v in quant.items()
+                                     if k != "collectives"}))
+    _mark("quant")
     with tempfile.TemporaryDirectory() as tmp:
         ckpt = phase_ckpt(tmp)
         _mark("ckpt")
@@ -10848,6 +11379,9 @@ def main(argv=None):
         row["launches_remat"] = {policy: r["launches"][kname]
                                  for policy, r in remat.items()
                                  if r["launches"].get(kname)}
+        if kname in FLASH_KERNELS:  # the quant leg's twin and QAT runs
+            row["launches_quant"] = {name: r["launches"][kname]
+                                     for name, r in quant["runs"].items()}
         if kname in FLASH_KERNELS:  # the zero leg's step and D 128 calls
             row["launches_zero"] = zero["launches"][kname]
             row["zero_d128"] = zero["d128"][kname]

@@ -1,17 +1,21 @@
 """The ``deepspeed.comm`` facade over ``torch.distributed`` (see
-``comm.comm``). The JAX package's planned (quantized) grad sync
-(``comm/planned.py``) waits for ROADMAP.md item 5.1."""
+``comm.comm``) and the plan-routed entry points of ``comm.planned``
+(the int8 and overlapped grad sync, the ZeRO-3 param gather and the MoE
+queue exchange that ``comm_plan`` steers)."""
 
 from .comm import (
     ReduceOp,
     all_reduce,
     all_gather,
+    all_gather_async,
     reduce_scatter,
     all_to_all,
+    all_to_all_async,
     broadcast,
     tp_copy_to,
     tp_reduce_from,
     tp_gather_from,
+    CommHandle,
     P2PHandle,
     ppermute,
     ppermute_async,
@@ -33,3 +37,9 @@ from .comm import (
     reset_op_counts,
 )
 from .logging import CommsLogger
+from .planned import (
+    moe_exchange_spec,
+    planned_grad_sync,
+    planned_param_gather,
+    planned_queue_exchange,
+)

@@ -256,19 +256,52 @@ def all_reduce(tensor: torch.Tensor, op: ReduceOp = ReduceOp.SUM,
     return tensor
 
 
-@timed_op
-def all_gather(tensor: torch.Tensor, axis: AxisName = "data",
-               tiled: bool = True, gather_dim: int = 0) -> torch.Tensor:
-    """The group's tensors concatenated along ``gather_dim`` in rank order
-    (``tiled``), or stacked along a new dim there."""
+class CommHandle:
+    """A collective in flight (:func:`all_gather_async`,
+    :func:`all_to_all_async`): :meth:`wait` blocks until it lands and
+    returns its result."""
+
+    __slots__ = ("work", "finish", "sent")
+
+    def __init__(self, work, finish, sent=None):
+        self.work, self.finish = work, finish
+        self.sent = sent                    # alive until the transfer lands
+
+    def wait(self) -> torch.Tensor:
+        if self.work is not None:
+            self.work.wait()
+            self.work, self.sent = None, None
+        return self.finish()
+
+
+def _post_all_gather(tensor: torch.Tensor, axis: AxisName, tiled: bool,
+                     gather_dim: int) -> CommHandle:
     g = _group(axis)
     w = dist.get_world_size(g)
     d = gather_dim % (tensor.dim() + (0 if tiled else 1))
     x = (tensor.movedim(d, 0) if tiled else tensor.unsqueeze(0)).contiguous()
     out = torch.empty((w * x.shape[0],) + tuple(x.shape[1:]),
                       dtype=x.dtype, device=x.device)
-    dist.all_gather_into_tensor(out, x, group=g)
-    return out.movedim(0, d).contiguous()
+    work = dist.all_gather_into_tensor(out, x, group=g, async_op=True)
+    return CommHandle(work, lambda: out.movedim(0, d).contiguous(), x)
+
+
+@timed_op
+def all_gather(tensor: torch.Tensor, axis: AxisName = "data",
+               tiled: bool = True, gather_dim: int = 0) -> torch.Tensor:
+    """The group's tensors concatenated along ``gather_dim`` in rank order
+    (``tiled``), or stacked along a new dim there."""
+    return _post_all_gather(tensor, axis, tiled, gather_dim).wait()
+
+
+@timed_op
+def all_gather_async(tensor: torch.Tensor, axis: AxisName = "data",
+                     tiled: bool = True, gather_dim: int = 0) -> CommHandle:
+    """:func:`all_gather`, posted: returns a :class:`CommHandle` whose
+    ``wait()`` gives the result (the overlap schedules of
+    ``runtime/comm/overlap.py`` issue one a chunk and wait for each where
+    it is used)."""
+    return _post_all_gather(tensor, axis, tiled, gather_dim)
 
 
 @timed_op
@@ -294,8 +327,8 @@ def reduce_scatter(tensor: torch.Tensor, axis: AxisName = "data",
     return out.movedim(0, d).contiguous()
 
 
-def _all_to_all(tensor: torch.Tensor, axis: AxisName, split_dim: int,
-                concat_dim: int) -> torch.Tensor:
+def _post_all_to_all(tensor: torch.Tensor, axis: AxisName, split_dim: int,
+                     concat_dim: int) -> CommHandle:
     g = _group(axis)
     w = dist.get_world_size(g)
     s = split_dim % tensor.dim()
@@ -303,12 +336,21 @@ def _all_to_all(tensor: torch.Tensor, axis: AxisName, split_dim: int,
         raise ValueError(f"all_to_all: dim {s} of {tuple(tensor.shape)} "
                          f"does not split {w} ways")
     if w == 1:                       # nothing crosses a group of one
-        return tensor.clone()
+        out = tensor.clone()
+        return CommHandle(None, lambda: out)
     x = tensor.movedim(s, 0).contiguous()
     out = torch.empty_like(x)
-    dist.all_to_all_single(out, x, group=g)
-    blocks = [b.movedim(0, s) for b in out.chunk(w, 0)]
-    return torch.cat(blocks, dim=concat_dim % tensor.dim())
+    work = dist.all_to_all_single(out, x, group=g, async_op=True)
+    c = concat_dim % tensor.dim()
+    if s == 0 and c == 0:
+        return CommHandle(work, lambda: out, x)
+    return CommHandle(work, lambda: torch.cat(
+        [b.movedim(0, s) for b in out.chunk(w, 0)], dim=c), x)
+
+
+def _all_to_all(tensor: torch.Tensor, axis: AxisName, split_dim: int,
+                concat_dim: int) -> torch.Tensor:
+    return _post_all_to_all(tensor, axis, split_dim, concat_dim).wait()
 
 
 class _AllToAll(torch.autograd.Function):
@@ -340,6 +382,14 @@ def all_to_all(tensor: torch.Tensor, axis: AxisName = "expert",
     if torch.is_grad_enabled() and tensor.requires_grad:
         return _AllToAll.apply(tensor, axis, split_dim, concat_dim)
     return _all_to_all(tensor, axis, split_dim, concat_dim)
+
+
+@timed_op
+def all_to_all_async(tensor: torch.Tensor, axis: AxisName = "expert",
+                     split_dim: int = 0, concat_dim: int = 0) -> CommHandle:
+    """:func:`all_to_all`, posted and outside autograd: returns a
+    :class:`CommHandle` whose ``wait()`` gives the result."""
+    return _post_all_to_all(tensor, axis, split_dim, concat_dim)
 
 
 class _CopyTo(torch.autograd.Function):

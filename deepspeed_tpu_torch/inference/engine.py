@@ -22,9 +22,10 @@ the Megatron layers over them (``models/generation.py``); ``generate()``
 and ``serve()`` give every rank the whole logits, so each picks the same
 tokens. The layers run whenever a process group is up and the rules are
 given, a model axis of one included. ``sharding_rules=None`` keeps the
-weights whole on every rank, as the JAX engine replicates them. The
-serving fleet, disaggregated and process placements raise
-``NotImplementedError`` until later slices of the port (see ROADMAP.md).
+weights whole on every rank, as the JAX engine replicates them.
+``serve()`` with a ``fleet`` section starts the serving fleet: thread or
+process replicas, the disaggregated prefill / decode pair and autoscaling
+(``serving/fleet.py``, ``procfleet.py``, ``disagg.py``).
 """
 
 from __future__ import annotations

@@ -334,9 +334,10 @@ def main(argv=None):
     if argv and argv[0] == "health":
         sys.exit(health_main(argv[1:]))
     if argv and argv[0] == "comm-plan":
-        raise NotImplementedError(
-            "comm-plan: comm_plan/ is not ported to deepspeed_tpu_torch "
-            "yet (see ROADMAP.md item 5.1)")
+        # record (item 5.3) / inspect a collective plan (docs/COMM.md; the
+        # comm_plan config section reads it)
+        from ..comm_plan.cli import main as comm_plan_main
+        sys.exit(comm_plan_main(argv[1:]))
     args = parse_args(argv)
     if args.autotuning:
         raise NotImplementedError(

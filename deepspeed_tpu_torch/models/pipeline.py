@@ -130,6 +130,11 @@ class PipelinedTransformer(nn.Module):
         super().__init__()
         check_pipelined(cfg, pp, backward)
         _check_trainable(cfg)
+        if cfg.activation_quant:
+            raise NotImplementedError(
+                f"activation_quant={cfg.activation_quant!r} in a pipelined "
+                "model is not ported to deepspeed_tpu_torch yet (see "
+                "ROADMAP.md)")
         if stage is not None and not 0 <= stage < pp:
             raise ValueError(f"stage {stage} of {pp}")
         self.cfg, self.pp, self.n_micro = cfg, pp, n_micro
@@ -179,14 +184,11 @@ class PipelinedTransformer(nn.Module):
         if tp is not None:
             from ..utils.partitioning import check_tp_model
             check_tp_model(self.cfg, tp.size)
-            if self.moe:
-                raise NotImplementedError(
-                    "MoE under tensor parallelism in a pipelined model "
-                    "(pp x tp x ep) is not ported to deepspeed_tpu_torch "
-                    "yet (see ROADMAP.md)")
         self.tp = tp
         for blk in self.blocks.values():
             blk.tp = tp
+            if hasattr(blk, "moe"):
+                blk.moe.tp = tp
 
     def gather(self, tree):
         """ZeRO-3: a context in which the parameters of ``tree`` (modules,

@@ -192,8 +192,9 @@ class TransformerConfig:
         PartitionSpec``). Stacked block leaves lead with the layer dim.
         Column-parallel: qkv, fc and gate (output dim); row-parallel: the
         attention and MLP projections (input dim); the embedding is
-        vocab-parallel, the untied head's columns too. The expert stacks'
-        rules are kept for the table's sake: MoE under TP raises."""
+        vocab-parallel, the untied head's columns too. The expert stacks
+        split their hidden dim over ``model`` as the dense MLP does
+        (``moe/layer.py`` reduces once after the combine)."""
         from ..utils.partitioning import PartitionSpec as P
         lead = (None,) if self.scan_layers else ()
         prefix = r"blocks/" if self.scan_layers else r"blocks_\d+/"
@@ -509,7 +510,6 @@ def _check_trainable(cfg: TransformerConfig) -> None:
     """Raise for the config features the module does not implement."""
     unported = {
         "random-LTD (ltd_tokens)": cfg.ltd_tokens > 0, "pld": cfg.pld,
-        "activation_quant": cfg.activation_quant,
     }
     bad = [name for name, on in unported.items() if on]
     if bad:
@@ -524,6 +524,17 @@ def _check_trainable(cfg: TransformerConfig) -> None:
     if cfg.fused_loss and not cfg.tie_embeddings and cfg.lm_head_bias:
         raise ValueError("fused_loss with a biased untied lm_head is not "
                          "supported (the chunked CE has no bias term)")
+
+
+def check_activation_quant_tp(cfg: TransformerConfig, tp_size: int) -> None:
+    """``activation_quant`` quantizes a matmul input's last dim in blocks
+    of 256; a row-parallel input holds only the rank's columns, so its
+    blocks are not the JAX model's: refused above one model rank."""
+    if cfg.activation_quant and tp_size > 1:
+        raise NotImplementedError(
+            f"activation_quant={cfg.activation_quant!r} under tensor "
+            f"parallelism (tp {tp_size}: a row-parallel input's quant "
+            "blocks would span only this rank's columns) " + _NOT_PORTED)
 
 
 class _Leaf(nn.Module):
@@ -699,8 +710,17 @@ class Block(nn.Module):
             h0 = tp.head_range(cfg)[0]
         rms, eps = cfg.norm == "rmsnorm", cfg.layer_norm_eps
         act = _ACTIVATIONS[cfg.activation]
+        # the low-precision experiment: every block matmul takes an int8 /
+        # fp8 roundtripped input, with a straight-through gradient
+        aq = cfg.activation_quant
+        if aq:
+            from ..quant_format import fake_quant_act
+            fq = lambda t: fake_quant_act(t, aq)
+        else:
+            fq = lambda t: t
         h = x if cfg.post_ln else _layer_norm(x, self.ln1.p, eps, rms)
-        qkv = _dense(_col_in(h, tp), kv_grad_sum(self.attn_qkv.p, cfg, tp))
+        qkv = _dense(fq(_col_in(h, tp)),
+                     kv_grad_sum(self.attn_qkv.p, cfg, tp))
         q, k, v = torch.split(qkv, [nh * hd, kv * hd, kv * hd], dim=-1)
         to_heads = lambda t, n: t.reshape(B, S, n, hd).transpose(1, 2)
         q, k, v = to_heads(q, nh), to_heads(k, kv), to_heads(v, kv)
@@ -748,7 +768,7 @@ class Block(nn.Module):
                             impl=cfg.attention_impl, window=window,
                             softcap=cfg.attn_softcap)
         out = out.transpose(1, 2).reshape(B, S, nh * hd)
-        out = dropout(_row_dense(out, self.attn_proj.p, tp), rate,
+        out = dropout(_row_dense(fq(out), self.attn_proj.p, tp), rate,
                       gen("attn_out"))
 
         aux = []
@@ -760,12 +780,12 @@ class Block(nn.Module):
                 m, a = self.moe(m, train=g is not None, generator=g)
                 aux.append(a)
                 return m
-            m = _col_in(m, tp)
+            m = fq(_col_in(m, tp))
             if cfg.gated_mlp:
                 m = act(_dense(m, self.mlp_gate.p)) * _dense(m, self.mlp_fc.p)
             else:
                 m = act(_dense(m, self.mlp_fc.p))
-            return _row_dense(m, self.mlp_proj.p, tp)
+            return _row_dense(fq(m), self.mlp_proj.p, tp)
 
         def done(y):
             return (y, aux[0]) if aux else y
@@ -851,6 +871,7 @@ class Transformer(nn.Module):
         if tp is not None:
             from ..utils.partitioning import check_tp_model
             check_tp_model(self.cfg, tp.size)
+            check_activation_quant_tp(self.cfg, tp.size)
         self.tp = tp
         for blk in self.blocks:
             blk.tp = tp

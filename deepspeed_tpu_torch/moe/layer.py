@@ -41,6 +41,12 @@ the queues' gradients and the combine weights' are summed over
 0 only, and the combined partial outputs go through one
 ``comm.tp_reduce_from`` (the combine is linear).
 
+With an engine's ``comm_plan`` routing the expert all-to-all to
+``int8`` (``comm.planned.moe_exchange_spec``), the exchange is the
+explicit pair of ``runtime/comm/quantized.py``: each expert's queue
+blockwise int8 on the wire, its f32 scales beside it, and the backward
+through the same int8 exchange.
+
 Queues are formed by index: each kept (token, choice) has a unique
 (expert, position) slot, every slot names the token that fills it (or a
 zero row), the queues are one ``index_select`` of the tokens and the
@@ -328,6 +334,17 @@ class MoE(nn.Module):
         if El * ep != E:
             raise ValueError(f"{El} local experts x expert group {ep} != "
                              f"{E} experts")
+        # the comm plan's seam: a plan that routes the expert all-to-all
+        # to the int8 wire runs the explicit exchange pair (the JAX layer
+        # asks at trace time; the bytes are every gating group's)
+        from ..comm.planned import moe_exchange_spec, planned_queue_exchange
+        spec = moe_exchange_spec(queues.numel() * queues.element_size()
+                                 * comm.axis_size(TOKEN_AXES))
+        if spec is not None:
+            algo, bits, block = spec
+            dispatch_q, combine_q = planned_queue_exchange(
+                algo=algo, bits=bits, block=block)
+            return combine_q(self.experts(dispatch_q(queues)))
         mine = _exchange(queues, 0, 1)            # [El, ep * N, H]
         return _exchange(self.experts(mine), 1, 0)
 

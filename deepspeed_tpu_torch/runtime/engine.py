@@ -104,12 +104,30 @@ section is parsed and read by the runner's elastic agent, as in the JAX
 package. The ``run.*`` and ``sentinel.*`` failpoints of
 ``testing/chaos.py`` fire at the train-batch entry.
 
+Quantized training and compressed communication (the JAX engine's
+wiring): ``compression_training`` and ``quantize_training`` (MoQ) become
+one spec of transforms that the forward applies to the stacked leaves at
+the optimizer step count (:meth:`DeepSpeedEngine._compress`);
+``activation_quantization`` sets the model's ``activation_quant``
+(:func:`wire_low_precision`); ``eigenvalue`` gives
+:meth:`DeepSpeedEngine.compute_eigenvalue` and ``moq_rescale``.
+``comm_plan`` resolves, at initialize, the grad sync's wire format
+(override, plan, heuristic; outside :func:`grad_sync_envelope` it
+degrades to exact with a warning): a quantized or chunked step has each
+rank accumulate its own gradients over the micro-batches and sync each
+leaf once (``comm.planned_grad_sync``), and the accuracy guard latches
+a lossy format back to exact. The plan context is active around the
+model's forward, where the MoE layer reads it for its queue exchange;
+ZeRO-3 leaves gather in chunks (``overlap``) or in int8 under
+``zero_quantized_weights`` (qwZ). The metrics carry ``grad_sync_algo``.
+
 Everything else that a config can enable and this engine does not
 implement raises ``NotImplementedError`` naming ROADMAP.md: CPU/NVMe
 offload (and ``activation_checkpointing.cpu_checkpointing``), the 1-bit
-optimizers, comm_plan, compression_training, progressive layer drop,
-curriculum / data efficiency, eigenvalue, ``mpu``, monitors and the
-other aux sections. Pipelines run in the ``PipelineEngine``
+optimizers, progressive layer drop, curriculum / data efficiency,
+``mpu``, monitors and the other aux sections; so do compression under
+TP, EP, a pipeline or ZeRO-3 in a process group, and
+``compute_eigenvalue`` across ranks. Pipelines run in the ``PipelineEngine``
 (``runtime/pipe/engine.py``), a subclass that ``initialize`` picks for a
 ``models.pipeline.PipelinedTransformer``; this engine refuses
 ``pipeline.stages > 1`` for any other model. Not ported either: the
@@ -198,17 +216,6 @@ def state_checksum(tensors: List[torch.Tensor]) -> int:
     return 0 if total is None else int(total.item())
 
 
-def _any_enabled(node) -> bool:
-    """True if a parsed section dict holds ``"enabled": true`` anywhere."""
-    if isinstance(node, dict):
-        if node.get("enabled") is True:
-            return True
-        return any(_any_enabled(v) for v in node.values())
-    if isinstance(node, (list, tuple)):
-        return any(_any_enabled(v) for v in node)
-    return False
-
-
 def _flax_module(module: nn.Module) -> bool:
     """Whether ``module``'s parameters take the scan Transformer's flax
     paths (the ``Transformer``, the ``PipelinedTransformer``)."""
@@ -238,15 +245,9 @@ def unported_sections(config: DeepSpeedConfig) -> List[str]:
     checks = {
         "zero_optimization offload (offload_optimizer / offload_param)":
             bool(off),
-        "zero_optimization.zero_quantized_weights": z.zero_quantized_weights,
-        "comm_plan": c.comm_plan.enabled,
-        "compression_training": _any_enabled(
-            c.compression_training.model_dump()),
-        "quantize_training": _any_enabled(c.quantize_training),
         "progressive_layer_drop": c.progressive_layer_drop.enabled,
         "curriculum_learning": c.curriculum_learning.enabled,
         "data_efficiency": c.data_efficiency.enabled,
-        "eigenvalue": c.eigenvalue.enabled,
         "activation_checkpointing.cpu_checkpointing (host offload, "
         "ROADMAP item 5.2)": act.cpu_checkpointing,
         "amp": c.amp.enabled,
@@ -345,6 +346,101 @@ def wire_attention_config(model: nn.Module, config: DeepSpeedConfig):
     log_dist(f"attention config wired: attention_impl="
              f"'{new_cfg.attention_impl}'", ranks=[0])
     return model
+
+
+def wire_low_precision(model: nn.Module, config: DeepSpeedConfig):
+    """Map ``compression_training.activation_quantization`` onto the
+    model's ``activation_quant`` (the JAX engine's
+    ``wire_low_precision``): the ``Transformer``'s config is replaced in
+    place, on the module and on every block, with
+    ``activation_quant="int8"``.
+
+    The low-precision step is an experiment, not a default: it requires
+    the integrity sentinel (``integrity.enabled``), so that a quantized
+    step that degrades the loss rides the skip -> rollback -> abort
+    ladder; a model built with ``activation_quant`` is held to the same
+    gate. Bit widths other than 8, a schedule offset, a model without a
+    ``TransformerConfig`` and a conflicting hand-set ``activation_quant``
+    raise, with the JAX engine's words."""
+    act = (config.compression_training.model_dump()
+           .get("activation_quantization") or {})
+    shared = act.get("shared_parameters") or {}
+    from ..models.transformer import TransformerConfig
+    mcfg = getattr(model, "cfg", None)
+    if not shared.get("enabled", False):
+        if isinstance(mcfg, TransformerConfig) and mcfg.activation_quant \
+                and not config.integrity.enabled:
+            raise ValueError(
+                "activation_quant is a gated experiment: enable the "
+                "integrity sentinel (config.integrity.enabled) so bad "
+                "quantized steps hit the skip/rollback ladder")
+        return model
+    if int(shared.get("schedule_offset", 0)):
+        raise NotImplementedError(
+            "activation_quantization.schedule_offset is not supported for "
+            "the low-precision step (the quant lives inside the model, "
+            "which does not see the step counter)")
+    bits_list = [int((g.get("params") or {}).get("bits", 8))
+                 for g in (act.get("different_groups") or {}).values()]
+    bits = min(bits_list) if bits_list else 8
+    if bits != 8:
+        raise ValueError(
+            f"activation_quantization bits={bits}: only 8 (blockwise int8 "
+            "fake-quant; fp8 emulation rides the model knob "
+            "activation_quant='fp8')")
+    if not isinstance(mcfg, TransformerConfig):
+        raise ValueError(
+            "activation_quantization requires the in-tree transformer "
+            "family (models.build_model); this model has no "
+            "TransformerConfig to wire activation_quant into")
+    if not config.integrity.enabled:
+        raise ValueError(
+            "activation_quantization is a gated experiment: enable the "
+            "integrity sentinel (config.integrity.enabled) so bad "
+            "quantized steps hit the skip/rollback ladder")
+    if mcfg.activation_quant not in (None, "int8"):
+        raise ValueError(
+            f"activation_quantization conflicts with the model's hand-set "
+            f"activation_quant={mcfg.activation_quant!r}")
+    blocks = getattr(model, "blocks", None)
+    if not isinstance(blocks, nn.ModuleList):
+        raise ValueError(
+            f"cannot rebuild model {type(model).__name__} with "
+            "activation_quant='int8'")
+    new_cfg = dataclasses.replace(mcfg, activation_quant="int8")
+    model.cfg = new_cfg
+    for blk in blocks:
+        blk.cfg = new_cfg
+    log_dist("low-precision experiment wired: activation_quant='int8' "
+             "(sentinel-gated)", ranks=[0])
+    return model
+
+
+def grad_sync_envelope(compression: bool, stage: int,
+                       shape: Dict[str, int]):
+    """(whether the comm plan's explicit grad sync, once a step, can
+    replace the per-micro-batch reduction, why not): the JAX engine's
+    envelope (:1056-1091) case by case. Data parallelism, optionally with
+    TP, at ZeRO 0-2 and without compression; ``shape``: the mesh's axis
+    sizes."""
+    if compression:
+        return False, ("compression_training is not threaded through "
+                       "the stacked-grads step")
+    if stage > 2:
+        return False, ("ZeRO-3 shards compute params; the stacked "
+                       "local-grad layout needs them whole per rank")
+    if shape["expert"] != 1:
+        return False, ("mesh axis 'expert' has size "
+                       f"{shape['expert']}: expert-param "
+                       "grads must not be mean-reduced over it")
+    for ax in ("seq", "pipe"):
+        if shape[ax] != 1:
+            return False, (f"mesh axis '{ax}' has size {shape[ax]} "
+                           "(data parallelism, optionally with TP, "
+                           "required)")
+    if shape["data"] <= 1:
+        return False, "a single DP rank has nothing to sync"
+    return True, ""
 
 
 class DeepSpeedEngine:
@@ -479,8 +575,15 @@ class DeepSpeedEngine:
                 raise ValueError("model_parameters (a flax-layout tree) needs "
                                  "a models.transformer.Transformer model")
             model = module_from_jax(model_parameters, cfg)
-        # the sparse_attention section rewires the model's attention_impl
+        # compression training (QAT, pruning) and MoQ: one spec of
+        # transforms that the forward applies to the stacked leaves
+        # (_compress); activation_quantization rewires the model below
+        self.compression_spec, self._moq_enabled = self._compression(
+            tp_size, ep_size)
+        # the sparse_attention section rewires the model's attention_impl,
+        # compression_training.activation_quantization its activation_quant
         model = wire_attention_config(model, self.config)
+        model = wire_low_precision(model, self.config)
         self.module = model
         self.loss_fn = loss_fn or _default_loss_fn
         try:
@@ -567,6 +670,31 @@ class DeepSpeedEngine:
         self.opt_state: Dict[str, List[torch.Tensor]] = (
             self.optimizer.init(self._master())
             if self.optimizer is not None else {})
+
+        # eigenvalue and the comm plan ---------------------------------------
+        self.eigenvalue = None
+        if self.config.eigenvalue.enabled:
+            from .eigenvalue import Eigenvalue
+            ev = self.config.eigenvalue
+            self.eigenvalue = Eigenvalue(
+                verbose=ev.verbose, max_iter=ev.max_iter, tol=ev.tol,
+                stability=ev.stability,
+                gas_boundary_resolution=ev.gas_boundary_resolution,
+                layer_name=ev.layer_name, layer_num=ev.layer_num)
+        self._moq_scheduler = None
+        self._compressed: List[tuple] = []      # see _compress
+        self._comp_leaves = None
+        self.comm_plan_ctx = None
+        self._cp_guard = None
+        self._grad_sync_algo = "exact"
+        if self.config.zero_optimization.zero_quantized_weights:
+            if self.config.zero_optimization.stage != 3:
+                raise ValueError("zero_quantized_weights needs ZeRO stage 3 "
+                                 "(it quantizes the stage-3 param gathers)")
+            if self.dp is not None:
+                self.dp.quantize_gathers(self.config.comm_plan.quant_bits)
+        if self.config.comm_plan.enabled:
+            self._comm_plan()
 
         # lr schedule --------------------------------------------------------
         self.lr_fn = None
@@ -1222,9 +1350,13 @@ class DeepSpeedEngine:
             kw["dropout_seed"] = self._dropout_seed(micro)
         if train and self._takes_gating:
             kw["gating_seed"] = self._gating_seed(micro)
-        if self._remat_apply is not None and train:
-            return self._remat_apply(batch, kw)
-        return self.module(batch, **kw)
+        if self.compression_spec is not None and self.compression_spec.groups:
+            self._compress()
+        from ..comm_plan.runtime import use_context
+        with use_context(self.comm_plan_ctx):
+            if self._remat_apply is not None and train:
+                return self._remat_apply(batch, kw)
+            return self.module(batch, **kw)
 
     def _loss(self, outputs, batch) -> torch.Tensor:
         """``loss_fn(outputs, batch)``. A MoE loss's outputs carry the
@@ -1249,6 +1381,7 @@ class DeepSpeedEngine:
         """Backward of the scaled loss; the compute-dtype grads, cast to
         grad_accum_dtype, are added into the accumulator."""
         (loss.to(torch.float32) * self.scale_state.scale).backward()
+        self._drop_compressed()
         if self.dp is not None:
             self.dp.after_backward()
             self._accum = self.dp.accum
@@ -1398,6 +1531,8 @@ class DeepSpeedEngine:
         if self.lr_scheduler is not None:
             self.lr_scheduler.step()
         self._last_metrics = metrics
+        if self._cp_guard is not None:
+            self._cp_guard.observe(float(metrics["grad_norm"]))
         # one code path for every "wrong numbers" verdict: the non-finite
         # streak abort, anomaly strikes and the post-rollback abort (the
         # metrics are host numbers already: no extra device read)
@@ -1425,6 +1560,289 @@ class DeepSpeedEngine:
         pending, self._preempt_pending = self._preempt_pending, None
         if pending is not None:
             pending()
+
+    # ------------------------------------------- compression and comm plan
+
+    def _compression(self, tp_size: int, ep_size: int):
+        """(the compression spec or None, whether MoQ is on): the
+        ``compression_training`` and ``quantize_training`` sections (the
+        JAX engine :333-350). A spec whose transforms take a statistic of
+        a whole stacked leaf refuses the layouts that split leaves over
+        ranks: tensor and expert parallelism, ZeRO-3 in a process group,
+        and a pipeline (whose ranks each hold their stage's layers)."""
+        from ..compression import init_compression
+        from .quantize import build_moq_spec
+        spec = init_compression({"compression_training":
+                                 self.config.compression_training.model_dump()})
+        moq = build_moq_spec(self.config.quantize_training)
+        if moq is not None:
+            spec.groups.extend(moq.groups)
+        if not spec.enabled:
+            return None, False
+        where = []
+        if self._pipelined and (spec.groups or spec.activation_bits):
+            where.append("a pipeline (its ranks hold their stages' layers)")
+        if spec.groups:
+            if tp_size > 1:
+                where.append(f"tensor parallelism (tp {tp_size})")
+            if ep_size > 1:
+                where.append(f"expert parallelism (ep {ep_size})")
+            if self.mesh is not None and \
+                    self.config.zero_optimization.stage == 3:
+                where.append("ZeRO-3 (each rank holds slabs of a leaf)")
+        if where:
+            raise NotImplementedError(
+                "compression_training / quantize_training under "
+                f"{', '.join(where)}: the transforms take a statistic of a "
+                "whole stacked leaf (a quantization scale, a top-k, a row "
+                "norm), which would span ranks, " + _LATER)
+        log_dist(f"compression training: "
+                 f"{[g.kind + ':' + g.name for g in spec.groups]}",
+                 ranks=[0])
+        return spec, moq is not None
+
+    def _compress(self) -> None:
+        """Put the compressed leaves where the forward reads them: every
+        leaf a group of the spec matches (a ``Transformer``'s block leaves
+        stacked [L, ...] as in the JAX package, through ``torch.stack``,
+        so the straight-through gradient reaches each block's parameter)
+        is transformed at the optimizer step count and its pieces put in
+        the owning modules' instance dicts, where attribute lookup finds
+        them before the parameters (the ZeRO-3 gathers' mechanism). They
+        stay there through the backward, so a remat recomputation reads
+        them too; :meth:`_drop_compressed` takes them out."""
+        from ..compression.compress import compressible, transform_leaf
+        self._drop_compressed()
+        spec, step = self.compression_spec, self.step_count
+        if self._comp_leaves is None:
+            flax = _flax_module(self.module)
+            owners = {}
+            for mname, mod in self.module.named_modules():
+                for pname, p in mod._parameters.items():
+                    if p is not None:
+                        owners.setdefault(id(p), (mod, pname))
+            leaves: Dict[str, list] = {}
+            for name, p in self.module.named_parameters():
+                path = _leaf_path(name, flax)
+                if p.requires_grad and compressible(path, spec):
+                    leaves.setdefault(path, []).append(owners[id(p)] + (p,))
+            self._comp_leaves = {
+                path: (flax and path.startswith("blocks/"), items)
+                for path, items in leaves.items()}
+        for path, (stacked, items) in self._comp_leaves.items():
+            ps = [getattr(owner, pname) for owner, pname, _ in items]
+            w = torch.stack(ps) if stacked else ps[0]
+            out = transform_leaf(path, w, spec, step)
+            if out is w:
+                continue
+            for (owner, pname, _), t in zip(
+                    items, out.unbind(0) if stacked else [out]):
+                owner.__dict__[pname] = t
+                self._compressed.append((owner, pname))
+
+    def _drop_compressed(self) -> None:
+        for owner, pname in self._compressed:
+            owner.__dict__.pop(pname, None)
+        self._compressed = []
+
+    def _comm_plan(self) -> None:
+        """The ``comm_plan`` section (the JAX engine :515-551): the plan
+        context (active around the model's forward, where the MoE layer
+        reads it), the grad-sync verdict, the ZeRO-3 overlap gathers and
+        the accuracy guard, all resolved here."""
+        from ..comm_plan import CommPlan
+        from ..comm_plan.runtime import AccuracyGuard, PlanContext
+        cp = self.config.comm_plan
+        plan = CommPlan.load(cp.plan_path) if cp.plan_path else None
+        self.comm_plan_ctx = PlanContext(
+            plan=plan, overrides=dict(cp.overrides or {}),
+            bits=cp.quant_bits, block=cp.quant_block,
+            size_threshold=int(cp.size_threshold_mb * 2 ** 20),
+            overlap_chunks=cp.overlap_chunks)
+        self._resolve_grad_sync_algo()
+        self._resolve_param_gather()
+        if cp.guard_min_grad_norm > 0:
+            self._cp_guard = AccuracyGuard(cp.guard_min_grad_norm)
+        log_dist(
+            "comm plan: "
+            f"plan={'recorded:' + cp.plan_path if cp.plan_path else 'heuristic'} "
+            f"grad_sync={self.comm_plan_ctx.resolved.get('grad_reduce_scatter')} "
+            f"param_gather={self.comm_plan_ctx.resolved.get('param_all_gather')} "
+            f"overlap_chunks={cp.overlap_chunks} "
+            f"overrides={dict(cp.overrides or {})} "
+            f"guard={cp.guard_min_grad_norm}", ranks=[0])
+
+    def _mesh_shape(self) -> Dict[str, int]:
+        if self.mesh is None:
+            return {"pipe": 1, "data": 1, "expert": 1, "seq": 1, "model": 1}
+        return dict(self.mesh.shape)
+
+    def _grad_sync_envelope(self):
+        return grad_sync_envelope(self.compression_spec is not None,
+                                  self.config.zero_optimization.stage,
+                                  self._mesh_shape())
+
+    def _resolve_grad_sync_algo(self) -> None:
+        """The grad sync's wire format, resolved once (the JAX engine
+        :1093-1120): override, then plan, then heuristic. A verdict
+        outside the envelope, forced or selected, degrades to exact with
+        a warning."""
+        from ..comm_plan.runtime import resolve_algo
+        ctx = self.comm_plan_ctx
+        itemsize = torch.empty((), dtype=self.grad_accum_dtype).element_size()
+        numel = (sum(int(np.prod(e.full_shape)) for e in self.dp.entries)
+                 if self.dp is not None
+                 else sum(p.numel() for p in self._params))
+        shape = self._mesh_shape()
+        algo = resolve_algo(ctx, "grad_reduce_scatter", "data",
+                            numel * itemsize,
+                            axis_size=shape["data"] * shape["expert"])
+        if algo != "exact":
+            ok, why = self._grad_sync_envelope()
+            if not ok:
+                forced = any((ctx.overrides or {}).get(k)
+                             for k in ("grad_reduce_scatter",
+                                       "reduce_scatter"))
+                logger.warning(
+                    "comm_plan: grad sync %s %r but %s — running exact",
+                    "forced" if forced else "selected", algo, why)
+                algo = "exact"
+                ctx.resolved["grad_reduce_scatter"] = "exact"
+        self._grad_sync_algo = algo
+
+    def _param_gather_viable(self):
+        if self.config.zero_optimization.stage < 3:
+            return False, ("ZeRO stage < 3 keeps compute params whole — "
+                           "there is no param gather to overlap")
+        if self.config.zero_optimization.zero_quantized_weights:
+            return False, ("zero_quantized_weights already owns the "
+                           "explicit param gather (qwZ)")
+        if self.dp is None:
+            return False, ("one process holds every parameter whole — "
+                           "there is no param gather to overlap")
+        return True, ""
+
+    def _resolve_param_gather(self) -> None:
+        """Per leaf, the ZeRO-3 gather's schedule (the JAX engine
+        :1124-1199): each leaf split over a ZeRO group of more than one
+        rank queries the plan in its own size bucket (the stacked leaf's
+        bytes, as JAX sizes it), and the ``overlap`` family's leaves
+        gather (and reduce-scatter their gradients) in chunks. Leaves of a
+        TP shard and leaves under ``overlap_min_leaf_elems`` keep the
+        whole-tensor gather."""
+        from ..comm.planned import planned_param_gather
+        from ..comm_plan.runtime import resolve_algo
+        from .comm.overlap import OVERLAP_ALGOS
+        ctx = self.comm_plan_ctx
+        cp = self.config.comm_plan
+        ctx.resolved.setdefault("param_all_gather", "exact")
+        ok, why = self._param_gather_viable()
+        if not ok:
+            forced = any((ctx.overrides or {}).get(k)
+                         for k in ("param_all_gather", "all_gather"))
+            if forced and self.config.zero_optimization.stage >= 3:
+                logger.warning(
+                    "comm_plan: param gather forced but %s — running the "
+                    "implicit gather", why)
+            return
+        itemsize = torch.empty((), dtype=self.compute_dtype).element_size()
+        layers = {}
+        for e in self.dp.entries:
+            layers[e.leaf] = layers.get(e.leaf, 0) + 1
+        n_overlap = 0
+        for e in self.dp.entries:
+            numel = int(np.prod(e.shape)) * layers[e.leaf]
+            if e.pdim is None or e.world == 1 or e.tp is not None or \
+                    numel < cp.overlap_min_leaf_elems:
+                continue
+            algo = resolve_algo(ctx, "param_all_gather", "data",
+                                numel * itemsize, axis_size=e.world)
+            if algo in OVERLAP_ALGOS:
+                self.dp.overlap_gather(e, planned_param_gather(
+                    e.axes, e.pdim, algo=algo, chunks=cp.overlap_chunks,
+                    bits=cp.quant_bits, block=cp.quant_block),
+                    cp.overlap_chunks)
+                n_overlap += 1
+        ctx.resolved["param_all_gather"] = ("overlap" if n_overlap
+                                            else "exact")
+
+    def _step_sync_algo(self) -> str:
+        """This step's grad-sync algorithm: the resolved one, unless the
+        accuracy guard has latched exact for a lossy one (``overlap``
+        moves exact values and is exempt)."""
+        from ..comm_plan.plan import QUANTIZED_ALGOS
+        algo = self._grad_sync_algo
+        if self.comm_plan_ctx is None or algo == "exact":
+            return "exact"
+        if self._cp_guard is not None and self._cp_guard.use_exact and \
+                algo in QUANTIZED_ALGOS:
+            return "exact"
+        return algo
+
+    def _eig_loss(self, names: List[str]):
+        """The loss of ``batch`` as a function of the parameters ``ps``
+        (``names``' values), for the Hessian-vector products: the model's
+        training forward without dropout or compression (the JAX engine's
+        ``_eig_loss``)."""
+        kw = {"train": True} if self._takes_train else {}
+
+        def loss(ps, batch):
+            out = torch.func.functional_call(
+                self.module, dict(zip(names, ps)), (batch,), kw)
+            return self._loss_of(out, batch)
+
+        return loss
+
+    def _eig_inputs(self, batch):
+        if self.eigenvalue is None:
+            raise RuntimeError("enable the 'eigenvalue' config section")
+        if self.dp is not None and (self.dp_world_size > 1 or
+                                    self.tp is not None or
+                                    self.config.zero_optimization.stage
+                                    == 3):
+            raise NotImplementedError(
+                "compute_eigenvalue across ranks (data parallel, tensor "
+                "parallel or ZeRO-3: the product would have to reduce over "
+                "the ranks' batches and gather their slabs) " + _LATER)
+        self._drop_compressed()
+        named = [(n, p) for n, p in self.module.named_parameters()
+                 if p.requires_grad]
+        names = [n for n, _ in named]
+        gen = torch.Generator(device=self.device).manual_seed(
+            self.config.seed + self.global_steps)
+        return (self._eig_loss(names), [p for _, p in named], gen,
+                (self._to_device(batch),))
+
+    def compute_eigenvalue(self, batch) -> float:
+        """The largest |eigenvalue| of the loss's Hessian on ``batch``
+        (reference: the engine's eigenvalue hook, which feeds MoQ), by
+        power iteration on Hessian-vector products. A model whose forward
+        runs a kernel differentiable once (the flash and block-sparse
+        attention kernels) raises, naming it: build it with
+        ``attention_impl="reference"``."""
+        loss, params, gen, args = self._eig_inputs(batch)
+        return self.eigenvalue.compute_eigenvalue(loss, params, gen,
+                                                  loss_args=args)
+
+    def moq_rescale(self, batch):
+        """Curvature-paced MoQ (reference: quantize.py's eigenvalue
+        gating): measure the Hessian eigenvalue on ``batch`` and stretch
+        the MoQ bit schedule's period by its ratio to the first
+        measurement. Returns the (possibly new) compression spec."""
+        if not self._moq_enabled or self.eigenvalue is None:
+            raise RuntimeError("moq_rescale needs both quantize_training and "
+                               "eigenvalue enabled")
+        if self._moq_scheduler is None:
+            from .quantize import MoQScheduler
+            self._moq_scheduler = MoQScheduler(self.compression_spec,
+                                               self.eigenvalue)
+        loss, params, gen, args = self._eig_inputs(batch)
+        new_spec = self._moq_scheduler.maybe_rescale(loss, params, gen,
+                                                     loss_args=args)
+        if new_spec is not self.compression_spec:
+            self.compression_spec = new_spec
+            self._comp_leaves = None
+        return self.compression_spec
 
     # ------------------------------------------------------------ public API
 
@@ -1462,6 +1880,13 @@ class DeepSpeedEngine:
             return x[lo:lo + m]
 
         self.module.train()
+        # the comm plan's grad sync: each rank accumulates its own
+        # gradients over the micro-batches, then each leaf syncs once in
+        # the step tail (the JAX engine's stacked-grads step, :1201-1277)
+        algo = self._step_sync_algo()
+        if self.dp is not None:
+            self.dp.sync = (None if algo == "exact"
+                            else self._grad_sync(algo))
         losses = []
         for i in range(gas):
             micro = self._to_device(self._seq_chunk(split(batch, i)))
@@ -1470,16 +1895,33 @@ class DeepSpeedEngine:
             losses.append(loss.detach())
             self.micro_steps += 1
         metrics = self._finalize_step(gas, losses)
+        if self.dp is not None:
+            self.dp.sync = None
+        if self.comm_plan_ctx is not None:
+            metrics["grad_sync_algo"] = algo
+            metrics["param_gather_algo"] = self.comm_plan_ctx.resolved.get(
+                "param_all_gather", "exact")
         self._after_step(metrics)
         return metrics
+
+    def _grad_sync(self, algo: str):
+        """``sync(grad, axes)``: the planned grad sync of one leaf's
+        accumulated gradient over its ZeRO group, a mean."""
+        from ..comm.planned import planned_grad_sync
+        cp = self.config.comm_plan
+        return lambda g, axes: planned_grad_sync(
+            g, axis=axes, algo=algo, bits=cp.quant_bits,
+            block=cp.quant_block, mean=True, chunks=cp.overlap_chunks)
 
     def eval_batch(self, batch):
         """The model's outputs on ``batch`` in eval mode, without grads
         (under sequence parallelism, those of this rank's chunk)."""
         self.module.eval()
         with torch.no_grad():
-            return self._apply(self._to_device(self._seq_chunk(batch)),
-                               False)
+            out = self._apply(self._to_device(self._seq_chunk(batch)),
+                              False)
+        self._drop_compressed()
+        return out
 
     def train(self, mode: bool = True):
         """Training mode for the micro-batch API: forward() keeps the graph
@@ -1499,8 +1941,10 @@ class DeepSpeedEngine:
         if not self._train_mode:
             self.module.eval()
             with torch.no_grad():
-                return self._loss_of(self._apply(batch, False,
+                loss = self._loss_of(self._apply(batch, False,
                                                  for_loss=True), batch)
+            self._drop_compressed()
+            return loss
         self.module.train()
         loss = self._loss(self._apply(batch, True, self._micro_count, True),
                           batch)

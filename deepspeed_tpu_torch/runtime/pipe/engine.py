@@ -17,8 +17,13 @@ rank's MoE layers exchange their queues over its expert group; expert
 leaves reduce over ``data`` only, the others over ``data`` x
 ``expert``, as the plain engine's) and with ``model`` (``sharding_rules=
 model.tp_rules()``: each stage's blocks, the embedding and the head run
-the Megatron layers of the rank's ``model`` coordinate). A pipeline with
-``seq`` above 1 raises ``NotImplementedError`` naming ROADMAP.md.
+the Megatron layers of the rank's ``model`` coordinate; a MoE model's
+experts split their hidden dim over ``model`` too, as the plain model's
+do). A pipeline with ``seq`` above 1 raises ``NotImplementedError``
+naming ROADMAP.md, and so do compression and MoQ (their statistics span
+the stages' layers). The ``comm_plan`` context is active around the
+executor, so a MoE stage's exchange reads the plan; the grad sync stays
+exact (the envelope excludes ``pipe`` above 1, as in JAX).
 
 A MoE model's loss: ``make_moe_loss(w, base_loss)`` is split into its
 base loss (the last stage's) and its aux weight (the executor's
@@ -94,11 +99,6 @@ class PipelineEngine(DeepSpeedEngine):
         if rules is not None:
             from ...utils.partitioning import check_tp_rules
             check_tp_rules(rules, model.cfg, model.tp_rules())
-            if moe and cfg.tensor_parallel.tp_size == 1:
-                # the table's 'model' entries are one-way: a MoE model
-                # keeps its whole weights (MoE has no TP layers, ROADMAP
-                # item 4.4), its expert leaves split over 'expert'
-                kwargs["sharding_rules"] = None
         self.schedule = pc.schedule
         lf = loss_fn or _default_loss_fn
         self._aux_weight = None
@@ -229,13 +229,16 @@ class PipelineEngine(DeepSpeedEngine):
             seeds = [self._dropout_seed(i) for i in range(gas)]
             gating = [self._gating_seed(i) for i in range(gas)]
         self.module.train()
-        loss, grads = self.module.pipeline_value_and_grad(
-            micros, schedule=self.schedule, loss_fn=self._custom_loss,
-            batch_loss=self._batch_loss,
-            total_valid=(self._total_valid(micros)
-                         if self._custom_loss is None else None),
-            seeds=seeds, gating_seeds=gating, aux_weight=self._aux_weight,
-            loss_scale=self.scale_state.scale)
+        from ...comm_plan.runtime import use_context
+        with use_context(self.comm_plan_ctx):
+            loss, grads = self.module.pipeline_value_and_grad(
+                micros, schedule=self.schedule, loss_fn=self._custom_loss,
+                batch_loss=self._batch_loss,
+                total_valid=(self._total_valid(micros)
+                             if self._custom_loss is None else None),
+                seeds=seeds, gating_seeds=gating,
+                aux_weight=self._aux_weight,
+                loss_scale=self.scale_state.scale)
         if self.module.moe:
             # this rank's stages' aux: the step tail sums it over 'pipe'
             self._auxes.append(self.module.last_aux.detach())
@@ -271,7 +274,8 @@ class PipelineEngine(DeepSpeedEngine):
         if hasattr(batch, "__next__"):
             batch = next(batch)
         self.module.eval()
-        with torch.no_grad():
+        from ...comm_plan.runtime import use_context
+        with torch.no_grad(), use_context(self.comm_plan_ctx):
             return self.module(self._to_device(batch))
 
     # the reference redirects these for pipeline engines (engine.py:1246-1256)

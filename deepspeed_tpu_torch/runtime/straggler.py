@@ -1,7 +1,8 @@
 """Straggler defense — relative-slowness detection over the heartbeat channel
 (counterpart of ``deepspeed_tpu/runtime/straggler.py``: the same gauge,
-detector and verdicts; in this package the serving fleet's supervisor
-consumes them, the engine and MPMD stamps are a later slice).
+detector and verdicts; in this package the serving fleet's supervisor,
+the training engine's ``straggler`` section and the MPMD stage workers'
+step stamps use them).
 
 The resilience stack defends against *dead* (rc 114/117: phase watchdogs,
 heartbeat silence) and *wrong* (rc 118: the integrity sentinel and SDC

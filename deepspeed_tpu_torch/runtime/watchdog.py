@@ -1,7 +1,8 @@
 """In-worker liveness watchdog — turn a silent hang into a diagnosable exit
 (counterpart of ``deepspeed_tpu/runtime/watchdog.py``; in this package the
-serving engine's ``arm_watchdog`` arms it, the training engine's phase
-hooks are a later slice, see ROADMAP.md).
+serving engine's ``arm_watchdog`` arms it, and the training engine's
+``watchdog`` section drives its phase deadlines: init, restore, compile,
+step and save).
 
 In a one-process-per-host multi-controller job a single wedged rank (a
 deadlocked collective, a hung host, a dead coordinator) stalls EVERY rank:

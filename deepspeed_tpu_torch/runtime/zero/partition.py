@@ -114,7 +114,8 @@ class ZeroParam:
 
     __slots__ = ("param", "owner", "name", "shape", "full_shape", "pdim",
                  "mdim", "gdim", "index", "partition", "aliased", "axes",
-                 "rank", "world", "eslab", "tp", "tp_maps", "tp_spec")
+                 "rank", "world", "eslab", "tp", "tp_maps", "tp_spec",
+                 "leaf", "gather", "rs_chunks")
 
     def __init__(self, partition, index, owner, name, param, policy,
                  group, eslab=None, tp=None, path: str = ""):
@@ -155,6 +156,15 @@ class ZeroParam:
                     "ZeRO slabs; a ZeRO split of an uneven TP shard is not "
                     "ported to deepspeed_tpu_torch yet (see ROADMAP.md)")
         self.aliased = False
+        # the stacked leaf this tensor is a layer of (``blocks.<i>.`` names
+        # share one), the stage-3 gather the comm plan or qwZ chose (None:
+        # the whole-tensor all-gather) and, for a chunked gather, its
+        # gradient's reduce-scatter chunks
+        parts = path.split(".")
+        self.leaf = (".".join(["blocks"] + parts[2:])
+                     if parts[0] == "blocks" and len(parts) > 2 else path)
+        self.gather = None
+        self.rs_chunks = 0
 
     @property
     def gathered(self) -> bool:
@@ -175,6 +185,14 @@ class ZeroParam:
         if self.pdim is None:
             return p
         return comm.all_gather(p, axis=self.axes, gather_dim=self.pdim)
+
+    def use_data(self) -> torch.Tensor:
+        """The compute parameter gathered for a forward or backward use:
+        through the leaf's planned gather (the chunked overlap gather, or
+        qwZ's int8 one) where one is set, else :meth:`full_data`."""
+        if self.gather is not None:
+            return self.gather(self)
+        return self.full_data()
 
     def whole_data(self) -> torch.Tensor:
         """The whole parameter, an expert leaf's every expert and a TP
@@ -207,7 +225,7 @@ class _Gather(torch.autograd.Function):
     @staticmethod
     def forward(ctx, shard, entry):
         ctx.entry = entry
-        return entry.full_data()
+        return entry.use_data()
 
     @staticmethod
     def backward(ctx, grad):
@@ -307,6 +325,14 @@ class ZeroPartition:
                                      "no value was given for it")
                 self._place(e, e.param.data)
         self.accum: List[Optional[torch.Tensor]] = [None] * len(params)
+        # the step's planned grad sync, ``sync(grad, axes)`` -> the mean
+        # over the group (the engine sets it for a quantized or chunked
+        # step): the gradients then accumulate whole, unreduced, and each
+        # leaf syncs once in step_grads
+        self.sync = None
+        # qwZ: each stacked leaf's scale of this rank, the max over its
+        # slabs of every layer (kept from one root forward to the next)
+        self._qw_scales: Dict[str, torch.Tensor] = {}
         self._live: Dict[int, ZeroParam] = {}
         self._hooks = []
         self._saved_ctx = None
@@ -431,6 +457,7 @@ class ZeroPartition:
                 self._live.pop(full.untyped_storage().data_ptr(), None)
 
     def _enter_root(self, entries: List[ZeroParam]) -> None:
+        self._qw_scales = {}            # the slabs may have changed
         if torch.is_grad_enabled() and self._saved_ctx is None:
             self._saved_ctx = torch.autograd.graph.saved_tensors_hooks(
                 self._pack, self._unpack)
@@ -453,8 +480,49 @@ class ZeroPartition:
 
     def _unpack(self, x):
         if isinstance(x, _Token):
-            return x.entry.full_data().as_strided(x.size, x.stride, x.offset)
+            return x.entry.use_data().as_strided(x.size, x.stride, x.offset)
         return x
+
+    # ------------------------------------------------- planned stage-3 gathers
+
+    def quantize_gathers(self, bits: int = 8) -> None:
+        """ZeRO++ qwZ (``zero_quantized_weights``, the JAX engine's
+        ``_build_qw_gathers``): every leaf split over a ZeRO group of more
+        than one rank gathers int8 slabs, one f32 scale a rank. The JAX
+        package's shard of a stacked leaf spans all its layers, so this
+        rank's scale is the max over its slabs of that leaf in every
+        block (no collective: the rank holds them all), taken once a
+        forward. The backward is the exact reduce-scatter."""
+        from ...quant_format import div_exact
+        from ..comm.compressed import quantized_gather_local
+        qmax = float(2 ** (bits - 1) - 1)
+        by_leaf: Dict[str, List[ZeroParam]] = {}
+        for e in self.entries:
+            if e.gathered and e.world > 1:
+                by_leaf.setdefault(e.leaf, []).append(e)
+
+        def gather(e: ZeroParam) -> torch.Tensor:
+            scale = self._qw_scales.get(e.leaf)
+            if scale is None:
+                absmax = torch.stack([x.param.data.abs().amax().to(
+                    torch.float32) for x in by_leaf[e.leaf]]).amax()
+                scale = torch.where(absmax == 0, torch.ones_like(absmax),
+                                    div_exact(absmax, qmax))
+                self._qw_scales[e.leaf] = scale
+            return quantized_gather_local(e.param.data, e.axes, e.pdim,
+                                          bits=bits, scale=scale)
+
+        for es in by_leaf.values():
+            for e in es:
+                e.gather = gather
+
+    def overlap_gather(self, e: ZeroParam, gather, chunks: int) -> None:
+        """The comm plan's stage-3 gather of ``e``: ``gather(slab)`` (the
+        ``overlap`` family's chunked all-gather, ``comm.planned_param_
+        gather``), and its gradient reduce-scattered in the same
+        ``chunks`` (the JAX engine's per-leaf overlap gathers)."""
+        e.gather = lambda x: gather(x.param.data)
+        e.rs_chunks = chunks
 
     @contextlib.contextmanager
     def gathered(self, params: Iterable[nn.Parameter],
@@ -500,8 +568,13 @@ class ZeroPartition:
         kept whole for the step's all-reduce, then added into the
         accumulator."""
         g = grad.to(self.grad_accum_dtype)
-        if e.gdim is not None:
-            g = comm.reduce_scatter(g, axis=e.axes, scatter_dim=e.gdim)
+        if e.gdim is not None and self.sync is None:
+            if e.rs_chunks:
+                from ..comm.overlap import chunked_reduce_scatter
+                g = chunked_reduce_scatter(g, e.axes, e.gdim,
+                                           chunks=e.rs_chunks)
+            else:
+                g = comm.reduce_scatter(g, axis=e.axes, scatter_dim=e.gdim)
             g.div_(self.grad_world)
         a = self.accum[e.index]
         if a is None:
@@ -525,7 +598,7 @@ class ZeroPartition:
 
     def _slot_shape(self, e: ZeroParam) -> Tuple[int, ...]:
         shape = list(e.shape)
-        if e.gdim is not None:
+        if e.gdim is not None and self.sync is None:
             shape[e.gdim] //= e.world
         return tuple(shape)
 
@@ -533,13 +606,19 @@ class ZeroPartition:
         """The accumulated grads as the optimizer's slabs (mdim), the
         whole ones all-reduced (summed, over ``grad_world``) first, in
         fp32 divided by ``denom``; the accumulator is emptied."""
+        for e in self.entries:
+            if self.accum[e.index] is None:
+                self.accum[e.index] = torch.zeros(
+                    self._slot_shape(e), device=self.device,
+                    dtype=self.grad_accum_dtype)
+        if self.sync is not None:
+            synced = self._planned_sync()
         grads = []
         for e in self.entries:
             a = self.accum[e.index]
-            if a is None:
-                a = torch.zeros(self._slot_shape(e), device=self.device,
-                                dtype=self.grad_accum_dtype)
-            if e.gdim is None:
+            if self.sync is not None:
+                a = slab(synced[e.index], e.mdim, e.rank, e.world)
+            elif e.gdim is None:
                 comm.all_reduce(a, op=comm.ReduceOp.SUM, axis=e.axes)
                 a = slab(a.div_(self.grad_world), e.mdim, e.rank, e.world)
             grads.append(a)
@@ -548,6 +627,26 @@ class ZeroPartition:
             torch._foreach_div_(grads, denom)
             return grads
         return [g.to(torch.float32) / denom for g in grads]
+
+    def _planned_sync(self) -> List[torch.Tensor]:
+        """Each leaf's whole accumulated gradient through ``sync`` once,
+        a mean over its group. The layers of a stacked leaf (the blocks'
+        tensors of one name) sync as the JAX package's ``[L, ...]`` leaf:
+        stacked in block order, so the flat buffer, its chunks and its
+        quantization blocks are the JAX package's, then unstacked."""
+        by_leaf: Dict[Tuple[str, tuple], List[ZeroParam]] = {}
+        for e in self.entries:
+            by_leaf.setdefault((e.leaf, e.axes), []).append(e)
+        out: List[Optional[torch.Tensor]] = [None] * len(self.entries)
+        for (leaf, axes), es in by_leaf.items():
+            if len(es) == 1 and not leaf.startswith("blocks."):
+                out[es[0].index] = self.sync(self.accum[es[0].index], axes)
+                continue
+            whole = self.sync(torch.stack([self.accum[e.index] for e in es]),
+                              axes)
+            for e, g in zip(es, whole.unbind(0)):
+                out[e.index] = g
+        return out
 
     def step_stats(self, grads: List[torch.Tensor],
                    losses: List[torch.Tensor],

@@ -22,6 +22,8 @@ so each row's limit is taken against max(its largest |grad|, 2^-10 x the
 tensor's largest). The block-sparse kernels are held the same way; their
 gradients' floor is taken against the largest |grad| of dq, dk and dv
 together (a window of one key has dq = dk = 0 in exact arithmetic).
+The quantized-training ops (PyTorch ops, no kernel of their own) give
+the CPU's bytes on the card, and a QAT step runs the flash kernels.
 """
 
 import numpy as np
@@ -1026,3 +1028,87 @@ def test_quant_matmul_kernel_off_grid_row_shards(dev, K, N, block, M):
     assert (out.float() - ref.float()).abs().max().item() <= \
         2 ** -7 * ref.float().abs().max().item()
     assert torch.equal(out, again)
+
+
+# -------------------------------------------------- quantized training ops
+
+@pytest.mark.parametrize("what", ["act_int8", "act_fp8", "fake_quantize",
+                                  "quantize_symmetric", "block_quant",
+                                  "weight_quantization"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_quantized_training_ops_on_the_card_match_the_cpu(dev, what, dtype):
+    """The fake-quant and straight-through ops (PyTorch ops, no kernel of
+    their own) give the CPU's bytes on the card: IEEE division and
+    round-half-to-even on both, and the same gradient."""
+    from deepspeed_tpu_torch import quant_format as qf
+    from deepspeed_tpu_torch.compression import compress
+    from deepspeed_tpu_torch.ops import quantizer as q
+    g = torch.Generator().manual_seed(11)
+    x = (torch.randn(4, 300, 96, generator=g) * 3).to(dtype)
+    x[0, 0] = 0
+    spec = compress.init_compression({"compression_training": {
+        "weight_quantization": {
+            "shared_parameters": {"enabled": True},
+            "different_groups": {"g": {"params": {
+                "start_bits": 16, "target_bits": 4,
+                "quantization_period": 2, "quantize_groups": 3},
+                "modules": ["kernel"]}}}}})
+    fns = {"act_int8": lambda t: qf.fake_quant_act(t, "int8"),
+           "act_fp8": lambda t: qf.fake_quant_act(t, "fp8"),
+           "fake_quantize": lambda t: q.fake_quantize(t, 4, 8),
+           "quantize_symmetric": lambda t: torch.cat([
+               a.reshape(-1).float() for a in q.quantize_symmetric(t, 8, 4)]),
+           "block_quant": lambda t: torch.cat([
+               a.reshape(-1).float() for a in qf.block_quant(t)[:2]]),
+           "weight_quantization": lambda t: compress.transform_leaf(
+               "blocks/mlp_fc/kernel", t, spec, 3)}
+    outs, grads = [], []
+    for d in ("cpu", dev):
+        t = x.detach().clone().to(d).requires_grad_(dtype == torch.float32)
+        out = fns[what](t)
+        outs.append(out.detach().cpu())
+        if t.requires_grad and out.requires_grad:
+            (out.float() * torch.arange(out.numel(), device=d).reshape(
+                out.shape)).sum().backward()
+            grads.append(t.grad.cpu())
+    assert torch.equal(outs[0], outs[1]), (outs[0] - outs[1]).abs().max()
+    for a in grads[1:]:
+        assert torch.equal(grads[0], a)
+
+
+def test_qat_train_batch_runs_the_flash_kernels(dev):
+    """A QAT step on the card (8-bit weight quantization from step 1,
+    int8 activations, MoQ): each micro-batch launches the three flash
+    kernels once a layer, and the loss is finite."""
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.models.transformer import build_model
+    model, cfg = build_model("llama-1.1b", num_layers=2, hidden_size=256,
+                             num_heads=4, num_kv_heads=2, vocab_size=512,
+                             mlp_dim_override=512, fused_loss=True,
+                             loss_chunk=64, device="cuda")
+    eng, *_ = deepspeed_tpu_torch.initialize(model=model, config={
+        "train_batch_size": 4, "train_micro_batch_size_per_gpu": 2,
+        "gradient_accumulation_steps": 2, "bf16": {"enabled": True},
+        "optimizer": {"type": "AdamW", "params": {"lr": 1e-3}},
+        "integrity": {"enabled": True},
+        "compression_training": {
+            "weight_quantization": {
+                "shared_parameters": {"enabled": True, "schedule_offset": 1},
+                "different_groups": {"wq": {"params": {"start_bits": 8,
+                                                       "target_bits": 8},
+                                            "modules": ["kernel"]}}},
+            "activation_quantization": {
+                "shared_parameters": {"enabled": True},
+                "different_groups": {"aq": {"params": {"bits": 8}}}}},
+        "quantize_training": {"enabled": True,
+                              "quantize_schedule": {"quantize_period": 1}}})
+    ids = torch.randint(1, 512, (4, 256), generator=torch.Generator()
+                        .manual_seed(3))
+    kernels = (tfa.flash_attention_fwd, tfa.flash_attention_bwd_dq,
+               tfa.flash_attention_bwd_dkv)
+    for step in range(2):
+        before = [k.launches for k in kernels]
+        m = eng.train_batch({"input_ids": ids})
+        assert [k.launches - b for k, b in zip(kernels, before)] == \
+            [2 * 2] * 3, step
+        assert np.isfinite(m["loss"]) and not m["overflow"]

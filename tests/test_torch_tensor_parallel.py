@@ -311,7 +311,8 @@ def test_tp_raises_name_roadmap():
             dist_init_required=False)
     # a pipelined model's own table (blocks led by 'pipe') is taken for
     # it, and only for it; its 'pipe' lead is no TP split; MoE under TP
-    # raises with a pipe too
+    # runs with a pipe too (tests/test_torch_pipeline_compose_dist.py's
+    # moe_tp mode): every block's MoE layer gets the rank's context
     from deepspeed_tpu_torch.models.pipeline import PipelinedTransformer
     piped = PipelinedTransformer(dataclasses.replace(tcfg, num_layers=2),
                                  2, 2)
@@ -327,8 +328,9 @@ def test_tp_raises_name_roadmap():
             r"blocks/.*attn_proj/kernel"], tcfg, 1, 2)
     moe = PipelinedTransformer(dataclasses.replace(
         tcfg, num_layers=2, moe_experts=2), 2, 2)
-    with pytest.raises(NotImplementedError, match="MoE.*ROADMAP"):
-        moe.set_tp(tpart.TPContext(0, 2, V))
+    ctx = tpart.TPContext(0, 2, V)
+    moe.set_tp(ctx)
+    assert all(blk.moe.tp is ctx for blk in moe.blocks.values())
 
 
 def test_vocab_parallel_cross_entropy_at_one_rank_is_plain(monkeypatch):

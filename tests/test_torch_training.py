@@ -221,10 +221,18 @@ def test_fused_ce_ignores_minus_100_and_drops_last_position():
 
 def test_unported_model_features_raise():
     for kw in (dict(pld=True), dict(ltd_tokens=4),
-               dict(activation_quant="int8")):
+               dict(remat=True, remat_policy="offload")):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             ttr.build_model("gpt2-tiny", hidden_size=16, num_layers=2,
                             num_heads=2, vocab_size=32, **kw)
+    # activation_quant is ported (tests/test_torch_compression_training.py)
+    for fmt in ("int8", "fp8"):
+        m, _ = ttr.build_model("gpt2-tiny", hidden_size=16, num_layers=2,
+                               num_heads=2, vocab_size=32,
+                               activation_quant=fmt)
+        with torch.no_grad():
+            assert torch.isfinite(m(torch.zeros(2, 8, dtype=torch.long))
+                                  ).all()
     # MoE builds and returns (logits, aux) (tests/test_torch_moe.py)
     m, _ = ttr.build_model("gpt2-tiny", hidden_size=16, num_layers=2,
                            num_heads=2, vocab_size=32, moe_experts=2)
@@ -708,25 +716,26 @@ def test_initialize_dataloader_and_config_arguments(tmp_path):
 @pytest.mark.parametrize("section", [
     {"zero_optimization": {"stage": 2,
                            "offload_optimizer": {"device": "cpu"}}},
-    {"comm_plan": {"enabled": True}},
+    # comm_plan, eigenvalue, ZeRO's quantized weights and compression
+    # training are ported (test_ported_sections_initialize); amp is not
+    {"amp": {"enabled": True}},
     # the integrity sentinel, the watchdog and the straggler detector are
     # ported (tests/test_torch_sentinel.py); the flops profiler is not
     {"flops_profiler": {"enabled": True}},
     {"progressive_layer_drop": {"enabled": True}},
     {"curriculum_learning": {"enabled": True}},
-    {"eigenvalue": {"enabled": True}},
+    {"wandb": {"enabled": True}},
     # moe is ported (tests/test_torch_moe.py); data efficiency is not
     {"data_efficiency": {"enabled": True}},
     # sequence parallelism is ported (tests/test_torch_sequence_parallel.py)
     {"autotuning": {"enabled": True}},
     # tensor parallelism is ported (tests/test_torch_tensor_parallel.py),
     # together with sequence parallelism too (tests/test_torch_tp_compose_
-    # dist.py); ZeRO's quantized weights are not
-    {"zero_optimization": {"stage": 3, "zero_quantized_weights": True}},
+    # dist.py); NVMe parameter offload is not
+    {"zero_optimization": {"stage": 3, "offload_param": {"device": "nvme"}}},
     {"pipeline": {"stages": 2}},
     {"activation_checkpointing": {"cpu_checkpointing": True}},
-    {"compression_training": {"weight_quantization": {
-        "shared_parameters": {"enabled": True}}}},
+    {"sparse_gradients": True},
     {"tensorboard": {"enabled": True}},
 ])
 def test_unported_sections_raise(section):
@@ -735,6 +744,28 @@ def test_unported_sections_raise(section):
         deepspeed_tpu_torch.initialize(
             model=ttr.Transformer(tcfg),
             config={"train_batch_size": 8, **section}, device="cpu")
+
+
+@pytest.mark.parametrize("section", [
+    {"comm_plan": {"enabled": True}},
+    {"eigenvalue": {"enabled": True}},
+    {"zero_optimization": {"stage": 3, "zero_quantized_weights": True}},
+    {"compression_training": {"weight_quantization": {
+        "shared_parameters": {"enabled": True}}}},
+])
+def test_ported_sections_initialize(section):
+    """The sections this test file's refusal list once held: each
+    initializes (their parity tests: tests/test_torch_{comm_plan,
+    compression_training,comm_quantized_dist}.py)."""
+    _, tcfg = _cfgs("gpt2")
+    eng, *_ = deepspeed_tpu_torch.initialize(
+        model=ttr.Transformer(tcfg), device="cpu",
+        loss_fn=ttr.causal_lm_loss,
+        config={"train_batch_size": 8,
+                "optimizer": {"type": "SGD", "params": {"lr": 0.1}},
+                **section})
+    m = eng.train_batch(_batch(8, 16, seed=1))
+    assert np.isfinite(m["loss"])
 
 
 def test_checkpoint_and_onebit_raise():
